@@ -1,0 +1,227 @@
+"""Frame — the columnar dataset (the DataFrame analog).
+
+Counterpart of ``sntc_tpu/core/frame.py``: an immutable, ordered
+collection of named columns.  Scalar columns are ``(N,)`` arrays; vector
+columns (the ``VectorAssembler`` output) are ``(N, D)`` arrays.  pyarrow
+is the interchange format at the IO boundary.
+
+A column is either a numpy array (host data, as parsed) or a
+``torch.Tensor`` held as it is: a column that already lives on the card
+(the bucket-padded feature block, the assembled features) flows to the
+next stage without a round trip through the host.  Anything that needs
+host values (Arrow export, concatenation of mixed frames) materializes
+tensors with :func:`to_host`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+ColumnLike = Union[np.ndarray, torch.Tensor, Sequence]
+
+
+def to_host(a) -> np.ndarray:
+    """A column's values as a numpy array (tensors are copied off the
+    device; numpy columns pass through)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _coerce_column(name: str, value: ColumnLike):
+    """Coerce one column to an array and validate its rank; tensors are
+    held as they are."""
+    if isinstance(value, (np.ndarray, torch.Tensor)):
+        arr = value
+    else:
+        arr = np.asarray(value)
+    if arr.ndim not in (1, 2):
+        raise ValueError(
+            f"column {name!r} must be 1-D or 2-D, got shape {tuple(arr.shape)}"
+        )
+    return arr
+
+
+def _take_rows(a, indices: np.ndarray):
+    if isinstance(a, torch.Tensor):
+        return a.index_select(0, torch.from_numpy(indices).to(a.device))
+    return a[indices]
+
+
+class Frame:
+    """Immutable ordered mapping of column name -> array.
+
+    All columns share the same leading dimension (row count). 1-D columns are
+    scalars, 2-D columns are fixed-width vectors.
+    """
+
+    __slots__ = ("_columns", "_num_rows")
+
+    def __init__(self, columns: Mapping[str, ColumnLike]):
+        cols: Dict[str, object] = {}
+        num_rows: Optional[int] = None
+        for name, value in columns.items():
+            arr = _coerce_column(name, value)
+            if num_rows is None:
+                num_rows = arr.shape[0]
+            elif arr.shape[0] != num_rows:
+                raise ValueError(
+                    f"column {name!r} has {arr.shape[0]} rows, expected {num_rows}"
+                )
+            cols[name] = arr
+        self._columns = cols
+        self._num_rows = 0 if num_rows is None else int(num_rows)
+
+    @classmethod
+    def _wrap(cls, cols: Dict[str, object], num_rows: int) -> "Frame":
+        """Trusted constructor for derived frames whose columns were already
+        validated (select/drop/slice/... reuse or uniformly re-index them)."""
+        f = object.__new__(cls)
+        f._columns = cols
+        f._num_rows = num_rows
+        return f
+
+    # -- basic accessors -------------------------------------------------------
+
+    @property
+    def num_rows(self) -> int:
+        return self._num_rows
+
+    def __len__(self) -> int:
+        return self._num_rows
+
+    @property
+    def columns(self) -> List[str]:
+        return list(self._columns)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._columns
+
+    def __getitem__(self, name: str):
+        try:
+            return self._columns[name]
+        except KeyError:
+            raise KeyError(
+                f"no column {name!r}; available: {list(self._columns)}"
+            ) from None
+
+    # -- transformations (each returns a new Frame) ----------------------------
+
+    def with_column(self, name: str, value: ColumnLike) -> "Frame":
+        arr = _coerce_column(name, value)
+        # a frame with rows (or columns) pins the row count; only a truly
+        # empty frame (no columns, 0 rows) accepts any length
+        if (self._columns or self._num_rows) and arr.shape[0] != self._num_rows:
+            raise ValueError(
+                f"column {name!r} has {arr.shape[0]} rows, expected "
+                f"{self._num_rows}"
+            )
+        cols = dict(self._columns)
+        cols[name] = arr
+        return Frame._wrap(cols, int(arr.shape[0]))
+
+    def select(self, names: Iterable[str]) -> "Frame":
+        return Frame._wrap({n: self[n] for n in names}, self._num_rows)
+
+    def drop(self, *names: str) -> "Frame":
+        return Frame._wrap(
+            {n: a for n, a in self._columns.items() if n not in names},
+            self._num_rows,
+        )
+
+    def filter(self, mask: np.ndarray) -> "Frame":
+        mask = np.asarray(mask)
+        if mask.dtype != np.bool_ or mask.shape != (self._num_rows,):
+            raise ValueError("filter mask must be a boolean (N,) array")
+        n = int(np.count_nonzero(mask))
+        if mask[:n].all():
+            # a leading run of kept rows (bucket padding's shape): views,
+            # no copy and no device gather
+            return self.slice(0, n)
+        return self.take(np.flatnonzero(mask))
+
+    def take(self, indices: np.ndarray) -> "Frame":
+        indices = np.asarray(indices)
+        if indices.dtype == np.bool_:  # boolean masks select, not index
+            return self.filter(indices)
+        if indices.ndim != 1:
+            raise ValueError(
+                f"take() indices must be 1-D, got shape {indices.shape}"
+            )
+        indices = indices.astype(np.int64, copy=False)
+        return Frame._wrap(
+            {n: _take_rows(a, indices) for n, a in self._columns.items()},
+            int(indices.shape[0]),
+        )
+
+    def slice(self, start: int, stop: Optional[int] = None) -> "Frame":
+        n = len(range(*slice(start, stop).indices(self._num_rows)))
+        return Frame._wrap(
+            {k: a[start:stop] for k, a in self._columns.items()}, n
+        )
+
+    @classmethod
+    def concat_all(cls, frames: Sequence["Frame"]) -> "Frame":
+        """Concatenate frames with one allocation per column.  Columns
+        are joined on the host: frames of one batch may hold the same
+        column on the card in one chunk and on the host in another."""
+        if not frames:
+            raise ValueError("concat_all requires at least one frame")
+        first = frames[0]
+        if len(frames) == 1:
+            return first  # immutable — safe to share
+        for f in frames[1:]:
+            if f.columns != first.columns:
+                raise ValueError("concat requires identical column sets/order")
+        return cls(
+            {
+                n: np.concatenate([to_host(f._columns[n]) for f in frames])
+                for n in first.columns
+            }
+        )
+
+    # -- Arrow interchange -----------------------------------------------------
+
+    @classmethod
+    def from_arrow(cls, table: Union[pa.Table, pa.RecordBatch]) -> "Frame":
+        if isinstance(table, pa.RecordBatch):
+            table = pa.Table.from_batches([table])
+        if len(set(table.column_names)) != len(table.column_names):
+            raise ValueError(
+                "duplicate column names in Arrow table (deduplicate first, "
+                f"e.g. at the CSV ingest layer): {table.column_names}"
+            )
+        cols: Dict[str, np.ndarray] = {}
+        for name, col in zip(table.column_names, table.columns):
+            if isinstance(col, pa.ChunkedArray):
+                col = col.combine_chunks()
+            if pa.types.is_fixed_size_list(col.type):
+                width = col.type.list_size
+                values = col.values.to_numpy(zero_copy_only=False)
+                cols[name] = values.reshape(-1, width)
+            else:
+                cols[name] = col.to_numpy(zero_copy_only=False)
+        return cls(cols)
+
+    def to_arrow(self) -> pa.Table:
+        arrays, names = [], []
+        for name, arr in self._columns.items():
+            arr = to_host(arr)
+            if arr.ndim == 2:
+                width = arr.shape[1]
+                flat = pa.array(arr.reshape(-1))
+                arrays.append(pa.FixedSizeListArray.from_arrays(flat, width))
+            else:
+                arrays.append(pa.array(arr))
+            names.append(name)
+        return pa.Table.from_arrays(arrays, names=names)
+
+    def __repr__(self) -> str:
+        cols = ", ".join(
+            f"{n}:{a.dtype}{list(a.shape[1:])}" for n, a in self._columns.items()
+        )
+        return f"Frame[{self._num_rows} rows]({cols})"

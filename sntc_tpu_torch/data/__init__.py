@@ -1,0 +1,19 @@
+from sntc_tpu_torch.data.ingest import clean_flows, load_csv
+from sntc_tpu_torch.data.schema import (
+    CICIDS2017_FEATURES,
+    CICIDS2017_LABELS,
+    LABEL_COLUMN,
+    NUM_FEATURES,
+)
+from sntc_tpu_torch.data.synth import generate_frame, write_raw_csv
+
+__all__ = [
+    "CICIDS2017_FEATURES",
+    "CICIDS2017_LABELS",
+    "LABEL_COLUMN",
+    "NUM_FEATURES",
+    "clean_flows",
+    "generate_frame",
+    "load_csv",
+    "write_raw_csv",
+]

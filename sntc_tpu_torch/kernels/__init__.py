@@ -1,0 +1,17 @@
+"""The port's hand-written CUDA kernels for Hopper (``sm_90a``).
+
+==================  ===========================  ==============================
+kernel              source                       replaces (Pallas, JAX package)
+==================  ===========================  ==============================
+forest_traversal    csrc/forest_traversal.cu     sntc_tpu/kernels/forest.py
+pad_assemble        csrc/pad_rows.cu             sntc_tpu/kernels/assemble.py
+==================  ===========================  ==============================
+
+Each wrapper launches its kernel on a CUDA tensor and computes its plain
+PyTorch version on a CPU tensor; there is no switch and no fallback
+between the two.  ``LAUNCHES`` counts the kernel launches per name.
+"""
+
+from sntc_tpu_torch.kernels._build import LAUNCHES, reset_launches
+
+__all__ = ["LAUNCHES", "reset_launches"]

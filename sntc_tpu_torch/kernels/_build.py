@@ -1,0 +1,162 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources under ``csrc/`` export a plain C interface (device pointers,
+sizes and a stream in; the launch's ``cudaGetLastError()`` out) and are
+bound with ``ctypes``: no source includes PyTorch's headers, so a build
+takes seconds instead of the minutes a PyTorch-header translation unit
+costs.  :func:`library` builds them once per process, at first use, for
+``sm_90a`` (Hopper) into ``sntc_tpu_torch/_build/``:
+
+* with ``ninja`` present, through ``torch.utils.cpp_extension.load``
+  (all sources in one call; ninja compiles them in parallel and skips an
+  up-to-date build);
+* without it, one ``nvcc -c`` per source, all started together, then
+  one link.
+
+A build or launch failure raises; nothing falls back to a plain version.
+Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
+its kernel, so a run can show which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = ("forest_traversal.cu", "pad_rows.cu", "error.cu")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
+)
+LIB_NAME = "sntc_tpu_torch_kernels"
+ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
+CUDA_FLAGS = ["-O3", "-lineinfo"] + ARCH_FLAGS
+
+#: kernel launches since the last :func:`reset_launches`, by kernel name
+LAUNCHES: Dict[str, int] = {"forest_traversal": 0, "pad_assemble": 0}
+#: how the kernels were built in this process: route, seconds, path
+BUILD_INFO: Dict[str, object] = {}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "sntc_forest_leaf_stats_f32": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
+    "sntc_forest_leaf_stats_f64": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
+    "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, _P],
+    "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+    return found
+
+
+def _build_with_load(sources, verbose: bool) -> str:
+    from torch.utils.cpp_extension import load
+
+    flags = CUDA_FLAGS + (["-Xptxas=-v"] if verbose else [])
+    return load(
+        name=LIB_NAME,
+        sources=sources,
+        build_directory=BUILD_DIR,
+        extra_cuda_cflags=flags,
+        is_python_module=False,
+        verbose=verbose,
+    )
+
+
+def _build_with_nvcc(sources, verbose: bool) -> str:
+    nvcc = _nvcc()
+    flags = ["-std=c++17", "-Xcompiler", "-fPIC"] + CUDA_FLAGS
+    if verbose:
+        flags.append("-Xptxas=-v")
+    objects, procs = [], []
+    for src in sources:
+        obj = os.path.join(
+            BUILD_DIR, os.path.splitext(os.path.basename(src))[0] + ".o"
+        )
+        objects.append(obj)
+        procs.append(
+            (src, subprocess.Popen(
+                [nvcc, *flags, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        )
+    failed = []
+    for src, p in procs:
+        out, _ = p.communicate()
+        if verbose and out:
+            print(out)
+        if p.returncode != 0:
+            failed.append(f"{src}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    lib = os.path.join(BUILD_DIR, f"lib{LIB_NAME}.so")
+    subprocess.run(
+        [nvcc, "-shared", *ARCH_FLAGS, "-o", lib, *objects], check=True
+    )
+    return lib
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The bound kernel library, built at first use in this process."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        if not torch.cuda.is_available():
+            raise RuntimeError("the CUDA kernels need a CUDA device")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        sources = [os.path.join(CSRC, s) for s in SOURCES]
+        from torch.utils.cpp_extension import is_ninja_available
+
+        t0 = time.perf_counter()
+        if is_ninja_available():
+            route, path = "cpp_extension.load", _build_with_load(sources, verbose)
+        else:
+            route, path = "nvcc", _build_with_nvcc(sources, verbose)
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.sntc_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sntc_cuda_error_string.restype = ctypes.c_char_p
+        BUILD_INFO.update(
+            route=route, seconds=time.perf_counter() - t0, path=path
+        )
+        _LIB = lib
+        return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise when a launch entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.sntc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}: {msg}")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the C entry points take it."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,160 @@
+"""RandomForestClassificationModel — serving a fitted random forest.
+
+Counterpart of ``RandomForestClassificationModel`` in
+``sntc_tpu/models/tree/random_forest.py`` (Spark's
+``RandomForestClassificationModel``): ``rawPrediction`` is the sum over
+trees of each tree's leaf class counts normalized per tree, probability
+the normalized raw.  The walk runs through the ``forest_traversal``
+kernel on the card; the sums and the prediction are PyTorch on the same
+device, and one packed ``[N, 2K+1]`` tensor comes back per batch.  The
+fit comes with the fit-side slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
+from sntc_tpu_torch.models.base import ClassificationModel, pack_serve_outputs
+from sntc_tpu_torch.models.tree.grower import (
+    Forest,
+    ForestDeviceMixin,
+    ForestPersistenceMixin,
+    validate_forest,
+)
+
+
+class _TreeEnsembleParams:
+    maxDepth = Param("max tree depth", default=5, validator=validators.in_range(0, 15))
+    maxBins = Param("max feature bins", default=32, validator=validators.in_range(2, 256))
+    minInstancesPerNode = Param(
+        "min (weighted) rows per child", default=1, validator=validators.gteq(1)
+    )
+    minInfoGain = Param("min split gain", default=0.0, validator=validators.gteq(0))
+    subsamplingRate = Param(
+        "row sampling rate per tree", default=1.0, validator=validators.in_range(0, 1)
+    )
+    seed = Param("sampling seed", default=0)
+
+
+class _RfParams(_TreeEnsembleParams):
+    numTrees = Param("number of trees", default=20, validator=validators.gt(0))
+    impurity = Param(
+        "gini | entropy", default="gini", validator=validators.one_of("gini", "entropy")
+    )
+    featureSubsetStrategy = Param(
+        "auto | all | sqrt | log2 | onethird | int | fraction string",
+        default="auto",
+    )
+    bootstrap = Param("Poisson bootstrap bagging", default=True,
+                      validator=validators.is_bool())
+
+
+def _rf_raw(X, feature, threshold, leaf_stats, *, max_depth,
+            traverse=_traverse):
+    """Summed per-tree normalized leaf votes ``[N, C]``."""
+    stats = traverse(
+        X, feature, threshold, leaf_stats, max_depth=max_depth
+    )  # [T, N, C]
+    totals = stats.sum(dim=2, keepdim=True)
+    probs = stats / totals.clamp_min(1e-12)
+    return probs.sum(dim=0)
+
+
+def _rf_serve(X, feature, threshold, leaf_stats, thr, *, max_depth, mode,
+              traverse=_traverse):
+    """Traverse + normalize + predict, packed ``[N, 2C+1]``.  ``traverse``
+    is the dispatching kernel wrapper; a check against the plain version
+    passes ``forest_leaf_stats_reference`` instead."""
+    raw = _rf_raw(X, feature, threshold, leaf_stats, max_depth=max_depth,
+                  traverse=traverse)
+    prob = raw / raw.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    return pack_serve_outputs(raw, prob, thr, mode)
+
+
+class RandomForestClassificationModel(
+    _RfParams, ForestPersistenceMixin, ForestDeviceMixin, ClassificationModel
+):
+    def __init__(self, forest: Forest, n_classes: int, n_features: int = 0,
+                 device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        validate_forest(forest, n_features)
+        self.forest = forest
+        self._n_classes = int(n_classes)
+        self._n_features = int(n_features)
+        self._upload_forest(resolve_device(device))
+        self._thr_cache = None
+
+    @property
+    def num_classes(self) -> int:
+        return self._n_classes
+
+    @property
+    def trees(self) -> Forest:
+        return self.forest
+
+    def _extra_meta(self):
+        return {"n_classes": self._n_classes}
+
+    @classmethod
+    def _from_forest(cls, forest, extra, device):
+        return cls(
+            forest=forest,
+            n_classes=int(extra["n_classes"]),
+            n_features=int(extra.get("n_features", 0)),
+            device=device,
+        )
+
+    def _serve_args(self):
+        """(mode, thr tensor on the device), rebuilt only when the
+        threshold params change."""
+        mode, thr = self._threshold_mode()
+        key = (mode, thr.tobytes())
+        if self._thr_cache is None or self._thr_cache[0] != key:
+            self._thr_cache = (key, torch.from_numpy(thr).to(self.device))
+        return mode, self._thr_cache[1]
+
+    def _features_on_device(self, X) -> torch.Tensor:
+        if isinstance(X, torch.Tensor):
+            X = X.to(device=self.device, dtype=torch.float32)
+        else:
+            X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(self.device)
+        if (self._n_features and X.shape[1] != self._n_features) or \
+                X.shape[1] <= self._max_feature:
+            raise ValueError(
+                f"a batch of {X.shape[1]} features does not fit a model of "
+                f"{self._n_features} features splitting on index "
+                f"{self._max_feature}"
+            )
+        return X.contiguous()
+
+    def _predict_all_dev(self, X) -> torch.Tensor:
+        mode, thr = self._serve_args()
+        fa, ta, ls = self._device_forest()
+        return _rf_serve(
+            self._features_on_device(X), fa, ta, ls, thr,
+            max_depth=self.forest.max_depth, mode=mode,
+        )
+
+
+def from_numpy_forest(feature, threshold, leaf_stats, max_depth: int,
+                      n_classes: int, device="cuda", n_features: int = 0,
+                      **params) -> RandomForestClassificationModel:
+    """A serving model from dense-heap numpy arrays (no fit needed): the
+    way to stand up a forest of any width from a seed."""
+    forest = Forest(
+        np.ascontiguousarray(feature, np.int32),
+        np.ascontiguousarray(threshold, np.float32),
+        np.ascontiguousarray(leaf_stats, np.float32),
+        int(max_depth),
+    )
+    m = RandomForestClassificationModel(
+        forest=forest, n_classes=n_classes, n_features=n_features,
+        device=device,
+    )
+    m.setParams(maxDepth=int(max_depth), numTrees=int(forest.feature.shape[0]),
+                **params)
+    return m

@@ -1,0 +1,320 @@
+"""The port's kernels against the JAX package's, on the CPU.
+
+``forest_traversal`` and ``pad_assemble`` are CUDA kernels in
+``sntc_tpu_torch``; here, where there is no card, their wrappers compute
+the plain PyTorch versions, which are held against the JAX package's
+XLA twin and its Pallas kernel in interpret mode.  Both functions only
+compare and copy, so every comparison is bitwise.  The tests marked
+``cuda`` hold the CUDA kernels against the plain versions on a card and
+skip without one.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sntc_tpu.core.frame import Frame as JFrame
+from sntc_tpu.kernels.assemble import _pad_column_np, pad_rows_pallas
+from sntc_tpu.kernels.forest import forest_leaf_stats_pallas
+from sntc_tpu.models.tree.grower import forest_leaf_stats as jax_forest
+from sntc_tpu.serve.transform import VALID_COL as JAX_VALID_COL
+from sntc_tpu_torch.core.frame import Frame, to_host
+from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.kernels import LAUNCHES, _build
+from sntc_tpu_torch.kernels.assemble import (
+    pad_assemble,
+    pad_rows,
+    pad_rows_cuda,
+    pad_rows_reference,
+)
+from sntc_tpu_torch.kernels.forest import (
+    forest_leaf_stats,
+    forest_leaf_stats_cuda,
+    forest_leaf_stats_reference,
+)
+from sntc_tpu_torch.serve.transform import VALID_COL
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _random_forest(rng, T, max_depth, F, S, dtype=np.float32):
+    """A structurally valid random dense-heap forest: internal nodes carry
+    a feature/threshold, leaves carry stats, absent slots are -2."""
+    M = 2 ** (max_depth + 1) - 1
+    feat = np.full((T, M), -2, np.int32)
+    thr = np.zeros((T, M), dtype)
+    leaf = np.zeros((T, M, S), dtype)
+
+    def build(t, node, depth):
+        if depth < max_depth and rng.random() < 0.7:
+            feat[t, node] = rng.integers(0, F)
+            thr[t, node] = rng.normal()
+            build(t, 2 * node + 1, depth + 1)
+            build(t, 2 * node + 2, depth + 1)
+        else:
+            feat[t, node] = -1
+            leaf[t, node] = rng.random(S).astype(dtype)
+
+    for t in range(T):
+        build(t, 0, 0)
+    return feat, thr, leaf
+
+
+def _features(rng, N, F, dtype, nan_fraction=0.0):
+    X = rng.normal(size=(N, F)).astype(dtype)
+    if nan_fraction:
+        X[rng.random((N, F)) < nan_fraction] = np.nan
+    return X
+
+
+def _jax_twin(X, feat, thr, leaf, max_depth):
+    # NaN features are part of the contract: the JAX debug-NaN guard
+    # would stop at the first gathered NaN
+    with jax.debug_nans(False):
+        return np.asarray(
+            jax_forest(
+                jnp.asarray(X), jnp.asarray(feat), jnp.asarray(thr),
+                jnp.asarray(leaf), max_depth=max_depth,
+            )
+        )
+
+
+def _port(X, feat, thr, leaf, max_depth):
+    return forest_leaf_stats(
+        torch.from_numpy(X), torch.from_numpy(feat), torch.from_numpy(thr),
+        torch.from_numpy(leaf), max_depth=max_depth,
+    ).numpy()
+
+
+FOREST_CASES = [
+    # T, N, F, S, max_depth, NaN fraction
+    (1, 5, 3, 2, 2, 0.0),
+    (3, 17, 7, 3, 4, 0.1),
+    (2, 128, 4, 5, 3, 0.0),
+    (4, 130, 6, 2, 5, 0.05),
+    (3, 333, 9, 15, 6, 0.02),
+]
+
+
+@pytest.mark.parametrize("T,N,F,S,max_depth,nan", FOREST_CASES)
+def test_forest_reference_matches_jax_twin_f32(T, N, F, S, max_depth, nan):
+    rng = np.random.default_rng(T * 1000 + N)
+    feat, thr, leaf = _random_forest(rng, T, max_depth, F, S)
+    X = _features(rng, N, F, np.float32, nan)
+    out = _port(X, feat, thr, leaf, max_depth)
+    assert out.dtype == np.float32 and out.shape == (T, N, S)
+    np.testing.assert_array_equal(out, _jax_twin(X, feat, thr, leaf, max_depth))
+
+
+@pytest.mark.parametrize("T,N,F,S,max_depth,nan", FOREST_CASES[1:4])
+def test_forest_reference_matches_pallas_interpret_f32(
+    T, N, F, S, max_depth, nan
+):
+    rng = np.random.default_rng(T * 7 + N)
+    feat, thr, leaf = _random_forest(rng, T, max_depth, F, S)
+    X = _features(rng, N, F, np.float32, nan)
+    with jax.debug_nans(False):
+        ref = np.asarray(
+            forest_leaf_stats_pallas(
+                jnp.asarray(X), jnp.asarray(feat), jnp.asarray(thr),
+                jnp.asarray(leaf), max_depth=max_depth, interpret=True,
+            )
+        )
+    np.testing.assert_array_equal(_port(X, feat, thr, leaf, max_depth), ref)
+
+
+@pytest.mark.parametrize("nan", [0.0, 0.1])
+def test_forest_reference_matches_jax_twin_f64_bitwise(nan):
+    rng = np.random.default_rng(7)
+    feat, thr, leaf = _random_forest(rng, 3, 4, 5, 3, np.float64)
+    X = _features(rng, 23, 5, np.float64, nan)
+    with jax.enable_x64(True):
+        ref = _jax_twin(X, feat, thr, leaf, 4)
+    assert ref.dtype == np.float64
+    out = _port(X, feat, thr, leaf, 4)
+    assert out.dtype == np.float64
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_forest_nan_goes_left_and_walk_stops_at_leaves():
+    # one tree: root splits on feature 0 at 0.5; left child splits on
+    # feature 1 at 0.0, right child is a leaf; depth-2 heap
+    feat = np.array([[0, 1, -1, -1, -1, -2, -2]], np.int32)
+    thr = np.array([[0.5, 0.0, 0, 0, 0, 0, 0]], np.float32)
+    leaf = np.arange(7, dtype=np.float32).reshape(1, 7, 1)
+    X = np.array([[np.nan, 1.0], [1.0, np.nan], [0.0, np.nan],
+                  [0.0, 2.0]], np.float32)
+    out = _port(X, feat, thr, leaf, 2)[0, :, 0]
+    # NaN at the root goes left, then x1=1.0 >= 0 goes right (node 4);
+    # 1.0 >= 0.5 reaches the right leaf (node 2) and stops;
+    # NaN at the second level goes left (node 3)
+    np.testing.assert_array_equal(out, [4.0, 2.0, 3.0, 4.0])
+
+
+def test_forest_dispatch_on_cpu_is_the_plain_version_without_launches():
+    rng = np.random.default_rng(11)
+    feat, thr, leaf = _random_forest(rng, 2, 3, 4, 3)
+    X = torch.from_numpy(_features(rng, 40, 4, np.float32))
+    args = (X, torch.from_numpy(feat), torch.from_numpy(thr),
+            torch.from_numpy(leaf))
+    before = dict(LAUNCHES)
+    out = forest_leaf_stats(*args, max_depth=3)
+    assert torch.equal(out, forest_leaf_stats_reference(*args, max_depth=3))
+    assert LAUNCHES == before
+
+
+def test_forest_wrappers_refuse_bad_inputs():
+    rng = np.random.default_rng(12)
+    feat, thr, leaf = _random_forest(rng, 2, 3, 4, 3)
+    X = torch.from_numpy(_features(rng, 8, 4, np.float32))
+    f, t, l = (torch.from_numpy(a) for a in (feat, thr, leaf))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        forest_leaf_stats_cuda(X, f, t, l, max_depth=3)
+    with pytest.raises(TypeError, match="share one dtype"):
+        forest_leaf_stats(X.double(), f, t, l, max_depth=3)
+    with pytest.raises(TypeError, match="int32"):
+        forest_leaf_stats(X, f.long(), t, l, max_depth=3)
+    with pytest.raises(ValueError, match="heap slots"):
+        forest_leaf_stats(X, f, t, l, max_depth=4)
+
+
+PAD_CASES = [(5, 3, 8), (6, 1, 16), (130, 4, 256)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,c,target", PAD_CASES)
+def test_pad_reference_matches_jax_pallas_and_numpy_twin(n, c, target, dtype):
+    rng = np.random.default_rng(n * 31 + c)
+    a = rng.normal(size=(n, c)).astype(dtype)
+    out = pad_rows(torch.from_numpy(a), target).numpy()
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out, _pad_column_np(a, target))
+    with jax.enable_x64(dtype == np.float64):
+        ref = np.asarray(
+            pad_rows_pallas(jnp.asarray(a), target=target, interpret=True)
+        )
+    assert ref.dtype == dtype
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_pad_wrappers_refuse_bad_inputs():
+    a = torch.zeros((4, 2))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        pad_rows_cuda(a, 8)
+    with pytest.raises(ValueError, match="pad target"):
+        pad_rows(a, 2)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        pad_rows(a.int(), 8)
+    with pytest.raises(ValueError, match="empty block"):
+        pad_rows(a[:0], 8)
+
+
+def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
+    rng = np.random.default_rng(4)
+    cols = {
+        "x": rng.normal(size=(5, 4)).astype(np.float32),
+        "a": rng.normal(size=5).astype(np.float32),
+        "y": rng.normal(size=5),
+        "b": rng.normal(size=5),
+        "i": np.arange(5),
+        "s": np.array(list("abcde"), dtype=object),
+    }
+    valid = np.zeros(8, bool)
+    valid[:5] = True
+    before = dict(LAUNCHES)
+    out = pad_assemble(Frame(cols), 8, valid, "cpu")
+    assert LAUNCHES == before
+    ref = JFrame(cols).pad_rows(8).with_column(JAX_VALID_COL, valid)
+    assert VALID_COL == JAX_VALID_COL
+    assert out.columns == ref.columns
+    for c in ref.columns:
+        got = to_host(out[c])
+        np.testing.assert_array_equal(got, np.asarray(ref[c]))
+        assert got.dtype == ref[c].dtype
+    # the float columns of one dtype share one padded block on the device
+    assert isinstance(out["a"], torch.Tensor) and isinstance(out["b"], torch.Tensor)
+    assert out["y"]._base is out["b"]._base
+
+
+def test_resolve_device_refuses_missing_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        _build.library()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|sntc_tpu)\b(?!_torch)", re.M
+)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "sntc_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    offenders = []
+    for p in paths:
+        with open(p) as f:
+            src = f.read()
+        offenders += [
+            f"{os.path.relpath(p, REPO)}: {m.group(0).strip()}"
+            for m in _FORBIDDEN.finditer(src)
+        ]
+        # a dynamic import would dodge the pattern above
+        assert "import_module(" not in src, p
+    assert not offenders, offenders
+
+
+def test_hygiene_pattern_catches_what_it_must():
+    bad = ["import jax", "from jax import numpy", "import jax.numpy as jnp",
+           "  from sntc_tpu.core.frame import Frame", "import sntc_tpu"]
+    good = ["from sntc_tpu_torch.core import Frame", "import torch",
+            "# import jax in a comment", "x = 'sntc_tpu.core.base.PipelineModel'"]
+    assert all(_FORBIDDEN.search(s) for s in bad)
+    assert not any(_FORBIDDEN.search(s) for s in good)
+
+
+# -- on the card -----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("N", [1, 1000, 4097])
+def test_forest_kernel_matches_plain_version_on_card(cuda_device, N, dtype):
+    rng = np.random.default_rng(N)
+    feat, thr, leaf = _random_forest(rng, 5, 6, 9, 15, dtype)
+    X = _features(rng, N, 9, dtype, 0.05)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, feat, thr, leaf)]
+    out = forest_leaf_stats_cuda(*args, max_depth=6)
+    ref = forest_leaf_stats_reference(*args, max_depth=6)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,c,target", PAD_CASES + [(1, 78, 256), (4097, 78, 8192)])
+def test_pad_kernel_matches_plain_version_on_card(cuda_device, n, c, target, dtype):
+    a = torch.randn((n, c), dtype=dtype, device=cuda_device)
+    out = pad_rows_cuda(a, target)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pad_rows_reference(a, target))
