@@ -1,4 +1,4 @@
-"""Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, serve path, numbers.
+"""Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
 
@@ -8,8 +8,12 @@ each of which fails the run (non-zero exit, no result line):
 1. print the card's name and power limit; build the CUDA kernels from
    ``sntc_tpu_torch/kernels/csrc`` (into ``sntc_tpu_torch/_build``);
 2. hold every kernel against its plain PyTorch version on the card, at
-   the serve path's full-width shapes — bitwise, the stated tolerance of
-   both kernels (they only compare and copy);
+   its path's full-width shapes: ``forest_traversal`` and
+   ``pad_assemble`` bitwise (they only compare and copy); ``tree_hist``
+   bitwise and equal to itself run twice on the fit's integer-valued
+   stats (the chi-square contingency, a forest's root level, the widest
+   node group of its deepest level), and within 1e-5 of each cell's sum
+   of absolute contributions on GBT-like fractional stats;
 3. serve the full-width config-3 random-forest pipeline (78 CICIDS2017
    features -> ChiSq top 40 -> 20 trees of depth 10, 15 classes ->
    IndexToString) built from a seed, over six CSV micro-batches, through
@@ -17,10 +21,19 @@ each of which fails the run (non-zero exit, no result line):
    starts with every launch count at 0 and reports its counts in its
    summary line; each kernel of the path must have launched.  Every input
    row must come back predicted, equal to the plain path on the same card;
-4. time each kernel at the serve path's shapes with CUDA events beside
-   its plain version, a PyTorch library call where one computes the same
-   function, and its bound; print them as one JSON line, then the card's
-   line, then the result line.
+4. train the same pipeline at full width, through ``python -m
+   sntc_tpu_torch train --device cuda`` on 250 000 synthetic flows written
+   as CSV: the process starts with every count at 0; ``tree_hist`` must
+   launch once for the contingency plus once per node group of every
+   level of the grower, ``forest_traversal`` at least once (the held-out
+   evaluation), and the held-out macro-F1 must reach 0.76.  Then a
+   reduced fit (20 000 rows, 20 trees of depth 6) runs on the card and
+   on the CPU from one seed: the same features selected, the same trees;
+5. time each kernel at its path's shapes with CUDA events beside its
+   plain version, a PyTorch library call where one computes the same
+   function, and its bound; time the fit in this process and take its
+   device time from a profiler window; print the kernels as one JSON
+   line, then the card's line, then the result line.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -39,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from sntc_tpu_torch.core.base import PipelineModel
+from sntc_tpu_torch.core.base import Estimator, Pipeline, PipelineModel
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.data import (
     CICIDS2017_FEATURES,
@@ -49,7 +62,9 @@ from sntc_tpu_torch.data import (
     write_raw_csv,
 )
 from sntc_tpu_torch.feature import (
+    ChiSqSelector,
     ChiSqSelectorModel,
+    StringIndexer,
     StringIndexerModel,
     VectorAssembler,
 )
@@ -59,6 +74,12 @@ from sntc_tpu_torch.kernels.forest import (
     forest_leaf_stats_cuda,
     forest_leaf_stats_reference,
 )
+from sntc_tpu_torch.kernels.histogram import (
+    tree_hist_cuda,
+    tree_hist_reference,
+)
+from sntc_tpu_torch.models import RandomForestClassifier
+from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 from sntc_tpu_torch.app import serving_form
 from sntc_tpu_torch.data import load_csv
 from sntc_tpu_torch.mlio import load_model, save_model
@@ -71,6 +92,15 @@ SEED = 0
 TREES, DEPTH, TOP, CLASSES = 20, 10, 40, 15  # bench config 3
 BATCHES = [512, 1000, 1024, 2048, 50000, 65536]  # rows per micro-batch
 BUCKET_FLOOR = 256
+BINS = 32  # maxBins of the forest and the selector
+TRAIN_ROWS = 250_000  # generate_frame rows of the train phase, before cleaning
+TEST_FRACTION = 0.2
+F1_FLOOR = 0.76  # the JAX package reached 0.7718 on bench config 3
+REDUCED_ROWS, REDUCED_DEPTH = 20_000, 6
+GAIN_TIE_RTOL = 1e-6  # near-tie rule for trees grown by two devices
+HIST_TOL = 1e-5  # tree_hist on fractional stats, per cell, of sum |contrib|
+GBT_BINS, GBT_NODES, GBT_STATS = 128, 8, 3  # bench config 4: depth 4, 128 bins
+NODE_GROUP_BYTES = 2 ** 31  # the grower's level working-set budget
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core fp32
 
@@ -176,6 +206,121 @@ def check_kernels(dev) -> dict:
             log(f"pad_assemble [{n}, 78] -> [{target}, 78] {dtype}: "
                 "bitwise equal")
     return errs
+
+
+# -- the fit path: data and tree_hist against its plain version ----------------
+
+
+def fit_data(work: str) -> dict:
+    """The train phase's flows: ``TRAIN_ROWS`` synthetic rows from the
+    seed written as one raw CSV (what ``train --data`` reads), and the
+    same rows cleaned and split here, as the command splits them."""
+    t0 = time.perf_counter()
+    raw = generate_frame(TRAIN_ROWS, seed=SEED, min_class_fraction=0.005)
+    data_dir = os.path.join(work, "days")
+    os.makedirs(data_dir)
+    write_raw_csv(raw, os.path.join(data_dir, "day.csv"))
+    train, test = clean_flows(raw).random_split(
+        [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    log(f"train data: {TRAIN_ROWS} rows generated and written, "
+        f"{train.num_rows} train / {test.num_rows} test after cleaning "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"dir": data_dir, "train": train, "test": test}
+
+
+def hist_cases(train: Frame, dev) -> dict:
+    """``tree_hist`` inputs at the fit path's shapes, from the train
+    split's own binned features and labels: the chi-square contingency
+    (78 features, 1 node, one-hot classes); a forest's root level and the
+    widest node group of its deepest level (40 features, 20 trees of
+    Poisson(1) bagging weights; the group of level 9's first 256 nodes,
+    of which sibling subtraction histograms the 128 even ones); and
+    GBT's shape (128 bins, signed fractional stats and weights)."""
+    rng = np.random.default_rng(SEED + 3)
+    X = np.stack([train[c] for c in CICIDS2017_FEATURES], axis=1)
+    labels = StringIndexer(inputCol="Label", outputCol="label").fit(train)
+    y = labels.transform(train)["label"].astype(np.int64)
+    Xd = torch.from_numpy(X).to(dev)
+    binned_t = bin_features(
+        Xd, torch.from_numpy(quantile_bin_edges(X, BINS)).to(dev)).t()
+    N = X.shape[0]
+    stats = torch.nn.functional.one_hot(
+        torch.from_numpy(y).to(dev), CLASSES).to(torch.float32).contiguous()
+    poisson = torch.from_numpy(
+        rng.poisson(1.0, (TREES, N)).astype(np.float32)).to(dev)
+    heap = rng.integers(0, 512, (TREES, N))
+    group = np.where((heap < 256) & (heap % 2 == 0), heap >> 1, -1)
+    gbt_bins = bin_features(
+        Xd, torch.from_numpy(quantile_bin_edges(X, GBT_BINS)).to(dev)).t()
+    top = binned_t[:TOP].contiguous()
+    return {
+        "chisq": dict(binned_t=binned_t, stats=stats, weights=None,
+                      node_idx=torch.zeros((1, N), dtype=torch.int32,
+                                           device=dev),
+                      n_nodes=1, n_bins=BINS, integer=True),
+        "root level": dict(binned_t=top, stats=stats, weights=poisson,
+                           node_idx=torch.zeros((TREES, N), dtype=torch.int32,
+                                                device=dev),
+                           n_nodes=1, n_bins=BINS, integer=True),
+        "widest level group": dict(
+            binned_t=top, stats=stats, weights=poisson,
+            node_idx=torch.from_numpy(group.astype(np.int32)).to(dev),
+            n_nodes=128, n_bins=BINS, integer=True),
+        "gbt": dict(
+            binned_t=gbt_bins,
+            stats=torch.from_numpy(rng.normal(size=(N, GBT_STATS))
+                                   .astype(np.float32)).to(dev),
+            weights=torch.from_numpy(rng.random((1, N)).astype(np.float32))
+            .to(dev),
+            node_idx=torch.from_numpy(rng.integers(0, GBT_NODES, (1, N))
+                                      .astype(np.int32)).to(dev),
+            n_nodes=GBT_NODES, n_bins=GBT_BINS, integer=False),
+    }
+
+
+def _hist_args(c: dict):
+    return ((c["binned_t"], c["node_idx"], c["stats"], c["weights"]),
+            {"n_nodes": c["n_nodes"], "n_bins": c["n_bins"]})
+
+
+def _shape(c: dict) -> str:
+    F, N = c["binned_t"].shape
+    return (f"[{F}, {N}] bins, T={c['node_idx'].shape[0]}, "
+            f"{c['n_nodes']} nodes, B={c['n_bins']}, "
+            f"S={c['stats'].shape[1]}")
+
+
+def check_tree_hist(cases: dict) -> float:
+    """Integer-valued stats: bitwise equal to the plain version and to a
+    second run; fractional stats: each cell within HIST_TOL of its sum of
+    absolute contributions.  Returns the largest absolute difference."""
+    worst = 0.0
+    for name, c in cases.items():
+        args, kw = _hist_args(c)
+        out = tree_hist_cuda(*args, **kw)
+        again = tree_hist_cuda(*args, **kw)
+        ref = tree_hist_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, ref)
+        worst = max(worst, err)
+        if c["integer"]:
+            if not torch.equal(out, ref) or not torch.equal(out, again):
+                raise SystemExit(f"tree_hist {name}: differs from the plain "
+                                 f"version or from itself ({err})")
+            log(f"tree_hist {name} {_shape(c)}: bitwise equal to the plain "
+                "version and to a second run")
+            continue
+        bins, node, stats, w = args
+        scale = tree_hist_reference(bins, node, stats.abs(), w.abs(), **kw)
+        bad = int(((out - ref).abs() > HIST_TOL * scale).sum())
+        if bad:
+            raise SystemExit(f"tree_hist {name}: {bad} cells beyond "
+                             f"{HIST_TOL} of their absolute sums ({err})")
+        rel = float(((out - ref).abs() / scale.clamp_min(1e-30)).max())
+        log(f"tree_hist {name} {_shape(c)}: within {HIST_TOL} of each "
+            f"cell's absolute sum (max abs {err:.3g}, max rel {rel:.3g}; "
+            f"run-to-run bitwise: {torch.equal(out, again)})")
+    return worst
 
 
 # -- phase 3: the serve path -------------------------------------------------
@@ -285,6 +430,7 @@ def serve(dev, work: str) -> dict:
         "forest_traversal": len(BATCHES),
         "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                             for n in BATCHES),
+        "tree_hist": 0,  # the serve path fits nothing
     }
     if launches != want:
         raise SystemExit(f"launches {launches}, expected {want}")
@@ -292,7 +438,165 @@ def serve(dev, work: str) -> dict:
     return summary
 
 
-# -- phase 4: times ----------------------------------------------------------
+# -- phase 4: the train path -------------------------------------------------
+
+
+def grower_passes(T: int, F: int, B: int, S: int, depth: int) -> tuple:
+    """(histogram passes of a depth-``depth`` fit, node group): one pass
+    per group of every level, groups being the largest power of two of
+    nodes whose ~5x f32 working set fits the grower's 2 GiB budget."""
+    per_node = 5 * T * F * B * S * 4
+    group = 1 << (max(1, NODE_GROUP_BYTES // per_node).bit_length() - 1)
+    return sum(-(-(1 << d) // group) for d in range(depth)), group
+
+
+def train(dev, data: dict, work: str) -> dict:
+    model_dir = os.path.join(work, "trained")
+    cmd = [sys.executable, "-m", "sntc_tpu_torch", "train",
+           "--data", data["dir"], "--estimator", "rf",
+           "--chisq-top", str(TOP), "--num-trees", str(TREES),
+           "--max-depth", str(DEPTH), "--test-fraction", str(TEST_FRACTION),
+           "--seed", str(SEED), "--model-out", model_dir,
+           "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"train failed ({proc.returncode}):\n{proc.stderr}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["process_wall_s"] = wall
+    passes, group = grower_passes(TREES, TOP, BINS, CLASSES, DEPTH)
+    launches = summary["kernel_launches"]
+    log(f"train: {summary['train_rows']} rows, fit "
+        f"{summary['fit_wall_clock_s']} s ({wall:.1f} s with process start, "
+        f"CSV read and evaluation), held-out macro-F1 {summary['macroF1']}, "
+        f"launches {launches}")
+    if summary["train_rows"] != data["train"].num_rows:
+        raise SystemExit(f"train split {summary['train_rows']} rows, "
+                         f"expected {data['train'].num_rows}")
+    if launches["tree_hist"] != 1 + passes:
+        raise SystemExit(
+            f"tree_hist launched {launches['tree_hist']} times, expected 1 "
+            f"(contingency) + {passes} (depth {DEPTH}, node group {group})")
+    if launches["forest_traversal"] < 1:
+        raise SystemExit("the held-out evaluation never launched "
+                         "forest_traversal")
+    if not summary["macroF1"] >= F1_FLOOR:
+        raise SystemExit(f"held-out macro-F1 {summary['macroF1']} below "
+                         f"{F1_FLOOR}")
+    summary["expected_tree_hist"] = {"contingency": 1, "grower": passes,
+                                     "node_group": group}
+    return summary
+
+
+def pipeline(device, depth: int) -> Pipeline:
+    """The train command's pipeline, built in this process."""
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="skip"),
+        ChiSqSelector(device=device, numTopFeatures=TOP,
+                      featuresCol="rawFeatures", labelCol="label",
+                      outputCol="features"),
+        RandomForestClassifier(device=device, numTrees=TREES, maxDepth=depth,
+                               seed=SEED),
+    ])
+
+
+def same_trees(a, b) -> int:
+    """Two fits' heaps equal under the near-tie rule: a differing split
+    only where the two best gains are within GAIN_TIE_RTOL relative (its
+    subtrees are then not compared); elsewhere feature, threshold, gain,
+    count and leaf stats equal.  Returns the near-ties seen."""
+    ties = 0
+    for t in range(a.feature.shape[0]):
+        stack = [0]
+        while stack:
+            h = stack.pop()
+            fa, fb = int(a.feature[t, h]), int(b.feature[t, h])
+            ga, gb = float(a.gain[t, h]), float(b.gain[t, h])
+            if fa != fb or (fa >= 0 and a.threshold[t, h] != b.threshold[t, h]):
+                if fa < 0 or fb < 0 or abs(ga - gb) > GAIN_TIE_RTOL * max(
+                        abs(ga), abs(gb)):
+                    raise SystemExit(f"tree {t} slot {h}: split {fa} vs {fb}, "
+                                     f"gain {ga} vs {gb}")
+                ties += 1
+                continue
+            if fa >= 0:
+                if ga != gb or a.count[t, h] != b.count[t, h]:
+                    raise SystemExit(f"tree {t} slot {h}: gain {ga} vs {gb}, "
+                                     f"count {a.count[t, h]} vs "
+                                     f"{b.count[t, h]}")
+                if 2 * h + 2 < a.feature.shape[1]:
+                    stack += [2 * h + 1, 2 * h + 2]
+            elif fa == -1 and not np.array_equal(a.leaf_stats[t, h],
+                                                 b.leaf_stats[t, h]):
+                raise SystemExit(f"tree {t} slot {h}: leaf stats differ")
+    return ties
+
+
+def reduced_fit(data: dict, dev) -> dict:
+    """The pipeline at depth 6 on the first 20 000 train rows, fitted on
+    the card and on the CPU from one seed."""
+    frame = data["train"].slice(0, REDUCED_ROWS)
+    t0 = time.perf_counter()
+    on_card = pipeline(dev, REDUCED_DEPTH).fit(frame)
+    t1 = time.perf_counter()
+    on_cpu = pipeline(torch.device("cpu"), REDUCED_DEPTH).fit(frame)
+    t2 = time.perf_counter()
+    sel = [m.getStages()[2].selected_features for m in (on_card, on_cpu)]
+    if sel[0] != sel[1]:
+        raise SystemExit(f"selected features differ: {sel[0]} vs {sel[1]}")
+    ties = same_trees(on_card.getStages()[3].forest,
+                      on_cpu.getStages()[3].forest)
+    internal = int((on_card.getStages()[3].forest.feature >= 0).sum())
+    log(f"reduced fit ({REDUCED_ROWS} rows, {TREES} trees, depth "
+        f"{REDUCED_DEPTH}): card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; same "
+        f"{len(sel[0])} features selected, same trees ({internal} splits, "
+        f"{ties} near-ties)")
+    return {"rows": REDUCED_ROWS, "card_s": t1 - t0, "cpu_s": t2 - t1,
+            "splits": internal, "near_ties": ties}
+
+
+def fit_breakdown(data: dict, dev) -> dict:
+    """The full-width fit in this process: each stage on the host clock
+    (ending in a synchronize), after one warm fit; then one fit under a
+    profiler window, whose device-side events give the fit's device time
+    and hence its idle share."""
+    train_frame = data["train"]
+    pipeline(dev, DEPTH).fit(train_frame)  # warm pass
+    stages = pipeline(dev, DEPTH).getStages()
+    times, frame = {}, train_frame
+    t_all = time.perf_counter()
+    for stage in stages:
+        name = type(stage).__name__
+        t0 = time.perf_counter()
+        model = stage.fit(frame) if isinstance(stage, Estimator) else stage
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[f"{name}.fit"] = (t1 - t0) * 1e3
+        if stage is not stages[-1]:
+            frame = model.transform(frame)
+            times[f"{name}.transform"] = (time.perf_counter() - t1) * 1e3
+    staged_ms = (time.perf_counter() - t_all) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipeline(dev, DEPTH).fit(train_frame)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+    ops = _device_ms(prof)
+    device_ms = sum(ops.values())
+    return {"stages_ms": times, "staged_fit_ms": staged_ms,
+            "profiled_fit_ms": fit_ms, "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / fit_ms),
+            "top_device_ops_ms": dict(list(ops.items())[:8])}
+
+
+# -- phase 5: times ----------------------------------------------------------
 
 
 def _device_ms(prof) -> dict:
@@ -387,6 +691,86 @@ def forest_work(X, feature, threshold, leaf_stats, depth: int):
     return nbytes, comparisons
 
 
+def hist_work(c: dict) -> tuple:
+    """(bytes, operations) that ``tree_hist`` needs on these inputs: the
+    node ids of every (tree, row), the weight of each (tree, row) whose
+    node is in range, the bins and stats row of each row some tree needs,
+    each read once, and the output written once; one add (and one
+    multiply by the weight) per non-zero stat of each active (tree, row)
+    and feature."""
+    node, w, stats = c["node_idx"], c["weights"], c["stats"]
+    T, N = node.shape
+    F, S = c["binned_t"].shape[0], stats.shape[1]
+    in_range = (node >= 0) & (node < c["n_nodes"])
+    active = in_range if w is None else in_range & (w != 0)
+    rows = int(active.any(0).sum())
+    nnz = (stats != 0).sum(1)
+    nbytes = (T * N * 4 + (0 if w is None else int(in_range.sum()) * 4)
+              + F * rows * 4 + rows * S * 4
+              + T * F * c["n_nodes"] * c["n_bins"] * S * 4)
+    adds = int((active.long() * nnz[None, :]).sum()) * F
+    return nbytes, adds * (1 if w is None else 2)
+
+
+def index_add_call(c: dict, expect: torch.Tensor):
+    """One ``index_add_`` of the weighted stat rows of every active
+    (tree, row) and feature into the flat output — the same function in
+    one PyTorch call.  The flat ids and the rows are built here, outside
+    the timed window; one call is checked against ``expect`` first."""
+    node, w, stats, bins = (c["node_idx"], c["weights"], c["stats"],
+                            c["binned_t"])
+    T = node.shape[0]
+    F, S = bins.shape[0], stats.shape[1]
+    nb = c["n_nodes"] * c["n_bins"]
+    active = (node >= 0) & (node < c["n_nodes"])
+    if w is not None:
+        active &= w != 0
+    t_idx, n_idx = active.nonzero(as_tuple=True)
+    f = torch.arange(F, device=bins.device)[:, None]
+    ids = ((t_idx[None, :] * F + f) * nb + node[t_idx, n_idx].long()[None, :]
+           * c["n_bins"] + bins[:, n_idx].long()).reshape(-1)
+    rows = stats[n_idx]
+    if w is not None:
+        rows = rows * w[t_idx, n_idx][:, None]
+    src = rows.repeat(F, 1)
+    out = torch.zeros((T * F * nb, S), dtype=torch.float32, device=bins.device)
+    out.index_add_(0, ids, src)
+    if not torch.equal(out.view(expect.shape), expect):
+        raise SystemExit("the index_add_ yardstick computes another function")
+    return lambda: out.index_add_(0, ids, src)
+
+
+def measure_tree_hist(cases: dict, err: float, launches: int) -> list:
+    """``tree_hist`` at the widest level group (the JSON line's entry:
+    the deepest level dominates the fit's histogram passes) and at the
+    chi-square contingency."""
+    out = []
+    for name in ("widest level group", "chisq"):
+        c = cases[name]
+        args, kw = _hist_args(c)
+        nbytes, ops = hist_work(c)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        expect = tree_hist_cuda(*args, **kw)
+        library = index_add_call(c, expect)
+        del expect
+        out.append({
+            "name": "tree_hist", "route": "cuda",
+            "source": "sntc_tpu_torch/kernels/csrc/tree_hist.cu",
+            "replaces": "sntc_tpu/ops/pallas_histogram.py:132",
+            "launches": launches, "max_abs_err": err,
+            "ms": time_ms(lambda: tree_hist_cuda(*args, **kw)),
+            "plain_ms": time_ms(lambda: tree_hist_reference(*args, **kw),
+                                iters=3),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": time_ms(library, iters=5),
+            "shape": f"{name}: {_shape(c)}; needs {nbytes} B, {ops} flops",
+        })
+        del library
+        torch.cuda.empty_cache()
+    return out
+
+
 def measure(dev, errs: dict, launches: dict) -> list:
     rng = np.random.default_rng(SEED + 2)
     # forest_traversal at the largest micro-batch of the serve path
@@ -455,9 +839,18 @@ def main() -> int:
 
     errs = check_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        data = fit_data(work)
+        cases = hist_cases(data["train"], dev)
+        errs["tree_hist"] = check_tree_hist(cases)
         summary = serve(dev, work)
         stages = breakdown(dev, work)
+        trained = train(dev, data, work)
+    reduced = reduced_fit(data, dev)
+    fit = fit_breakdown(data, dev)
     kernels = measure(dev, errs, summary["kernel_launches"])
+    hist = measure_tree_hist(cases, errs["tree_hist"],
+                             trained["kernel_launches"]["tree_hist"])
+    kernels.append(hist[0])
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -471,19 +864,32 @@ def main() -> int:
             f"{b['device_ms']} ms, idle share {b['device_idle_share']}), "
             f"sink {b['sink_ms']:.2f} ms; top device ops "
             f"{b['top_device_ops_ms']} [{card}]")
-    for k in kernels:
+    log(f"fit ({trained['train_rows']} rows, {TREES} trees, depth {DEPTH}): "
+        f"train command {trained['fit_wall_clock_s']} s; in this process "
+        f"{fit['staged_fit_ms']:.1f} ms by stage {fit['stages_ms']}, "
+        f"{fit['profiled_fit_ms']:.1f} ms under the profiler with device "
+        f"busy {fit['device_ms']:.1f} ms (idle share "
+        f"{fit['device_idle_share']:.3f}); top device ops "
+        f"{fit['top_device_ops_ms']} [{card}]")
+    for k in kernels[:2]:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
             f"launches over {len(BATCHES)} batches [{card}]")
+    for k in hist:
+        log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms (plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
+            f"launches in the train run [{card}]")
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
         with open(args.out_json, "w") as f:
             json.dump({"card": card, "build": dict(_build.BUILD_INFO),
                        "serve": summary, "rows_per_s": rows_per_s,
-                       "breakdown": stages,
-                       "kernels": kernels}, f, indent=1)
+                       "breakdown": stages, "train": trained,
+                       "reduced_fit": reduced, "fit": fit,
+                       "tree_hist": hist, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items() if k2 != "shape"} for k in kernels
     ]}))

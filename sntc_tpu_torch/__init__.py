@@ -6,18 +6,23 @@ Plain tensor code is PyTorch; every Pallas kernel of the JAX package on
 a ported path is a CUDA kernel written by hand for ``sm_90a``, built from
 ``kernels/csrc/`` at first use.
 
-This slice serves fitted random-forest pipelines:
+The port trains and serves random-forest pipelines:
 
-  core/      Params, Frame (numpy or device-tensor columns), PipelineModel
-  data/      CICIDS2017 schema, CSV ingest + cleaning, synthetic traffic
-  feature/   VectorAssembler, ChiSqSelectorModel, StringIndexerModel,
-             IndexToString
-  models/    ClassificationModel, RandomForestClassificationModel
-  kernels/   forest_traversal, pad_assemble (CUDA) + their plain versions
-  mlio/      load/save in the JAX package's directory format
-  serve/     BatchPredictor (shape buckets), file-source streaming with an
-             exactly-once offset log
-  app.py     ``python -m sntc_tpu_torch serve``
+  core/        Params, Frame (numpy or device-tensor columns), Estimator,
+               Pipeline, PipelineModel
+  data/        CICIDS2017 schema, CSV ingest + cleaning, synthetic traffic
+  feature/     VectorAssembler, ChiSqSelector, StringIndexer (+ models),
+               IndexToString
+  ops/         quantile binning, the chi-square contingency
+  models/      ClassificationModel, RandomForestClassifier (+ model), the
+               level-wise grower
+  evaluation/  MulticlassClassificationEvaluator
+  kernels/     tree_hist, forest_traversal, pad_assemble (CUDA) + their
+               plain versions
+  mlio/        load/save in the JAX package's directory format
+  serve/       BatchPredictor (shape buckets), file-source streaming with
+               an exactly-once offset log
+  app.py       ``python -m sntc_tpu_torch train`` and ``serve``
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

@@ -1,11 +1,22 @@
 """Command-line entry point of the port.
 
+    python -m sntc_tpu_torch train --data data/days --estimator rf \\
+        [--chisq-top 40] [--num-trees 20] [--max-depth 10] \\
+        [--model-out m/] [--device cuda|cpu]
     python -m sntc_tpu_torch serve --model m/ --watch data/in \\
         --out data/out --checkpoint data/ckpt [--shape-buckets N] \\
         [--max-files-per-batch N] [--once] [--device cuda|cpu]
 
-Counterpart of ``cmd_serve`` in ``sntc_tpu/app.py`` in its plain form:
-load a saved pipeline, take off the LABEL ``StringIndexerModel`` (live
+``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
+read and clean every CSV of ``--data``, split off ``--test-fraction``
+with ``--seed``, fit StringIndexer → VectorAssembler(78) → [ChiSqSelector
+top ``--chisq-top``] → the estimator, report the held-out ``--metric``
+as one JSON line (with the kernel launch counts), and save the fitted
+pipeline to ``--model-out`` in the format both packages load.  The
+random forest (``rf``) is the estimator ported so far.
+
+``serve`` is the counterpart of ``cmd_serve`` in its plain form: load a
+saved pipeline, take off the LABEL ``StringIndexerModel`` (live
 flows carry no label), map predictions back to label strings with
 ``IndexToString``, and serve every CSV micro-batch in the watch
 directory through a shape-bucketed ``BatchPredictor``, one
@@ -80,6 +91,93 @@ def serving_form(model, label_index_col: str = "label"):
     return model, labels, out_cols
 
 
+# estimators of the JAX package's train command; only rf is ported
+TRAIN_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt", "nb", "svc"]
+
+
+def _feature_stages(args, device):
+    from sntc_tpu_torch.data import CICIDS2017_FEATURES
+    from sntc_tpu_torch.feature import (
+        ChiSqSelector,
+        StringIndexer,
+        VectorAssembler,
+    )
+
+    stages = [
+        StringIndexer(inputCol=args.label_col, outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="skip"),
+    ]
+    if args.chisq_top:
+        stages.append(ChiSqSelector(
+            device=device, numTopFeatures=args.chisq_top,
+            featuresCol="rawFeatures", labelCol="label",
+            outputCol=args.features_col,
+        ))
+    return stages
+
+
+def _load_data(args):
+    import numpy as np
+
+    from sntc_tpu_torch.data import clean_flows, load_csv_dir
+
+    df = clean_flows(load_csv_dir(args.data))
+    if args.binary:
+        df = df.with_column(
+            args.label_col,
+            np.where(
+                df[args.label_col].astype(str) == "BENIGN", "benign", "attack"
+            ).astype(object),
+        )
+    return df
+
+
+def cmd_train(args) -> int:
+    from sntc_tpu_torch.core.base import Pipeline
+    from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
+    from sntc_tpu_torch.kernels import LAUNCHES
+    from sntc_tpu_torch.mlio import save_model
+    from sntc_tpu_torch.models import RandomForestClassifier
+
+    if args.estimator != "rf":
+        raise SystemExit(
+            f"estimator {args.estimator!r} is not ported yet (ported: rf)"
+        )
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        from sntc_tpu_torch.kernels._build import library
+
+        library()  # build (or load) the kernels before the fit is timed
+    df = _load_data(args)
+    train, test = df.random_split(
+        [1 - args.test_fraction, args.test_fraction], seed=args.seed
+    )
+    # the trees read the last feature stage's column: the selector's
+    # output, or the assembler's unscaled features without one
+    features_col = args.features_col if args.chisq_top else "rawFeatures"
+    est = RandomForestClassifier(
+        device=device, numTrees=args.num_trees, maxDepth=args.max_depth,
+        seed=args.seed, featuresCol=features_col,
+    )
+    pipe = Pipeline(stages=_feature_stages(args, device) + [est])
+    t0 = time.perf_counter()
+    model = pipe.fit(train)
+    fit_s = time.perf_counter() - t0
+    value = MulticlassClassificationEvaluator(
+        metricName=args.metric
+    ).evaluate(model.transform(test))
+    if args.model_out:
+        save_model(model, args.model_out)
+    print(json.dumps({
+        "estimator": args.estimator, "train_rows": train.num_rows,
+        "fit_wall_clock_s": round(fit_s, 3), args.metric: value,
+        "model_out": args.model_out, "kernel_launches": dict(LAUNCHES),
+    }))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from sntc_tpu_torch.kernels import LAUNCHES
     from sntc_tpu_torch.mlio import load_model
@@ -139,9 +237,31 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sntc_tpu_torch",
-        description="PyTorch/CUDA serving of sntc_tpu pipelines",
+        description="PyTorch/CUDA training and serving of sntc_tpu pipelines",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("train", help="fit a pipeline, report held-out metric")
+    p.add_argument("--data", required=True,
+                   help="directory of CICIDS2017-schema day CSVs")
+    p.add_argument("--label-col", default="Label")
+    p.add_argument("--binary", action="store_true",
+                   help="benign-vs-attack relabel")
+    p.add_argument("--metric", default="macroF1",
+                   choices=["macroF1", "f1", "accuracy", "weightedPrecision",
+                            "weightedRecall"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--estimator", default="mlp", choices=TRAIN_ESTIMATORS)
+    p.add_argument("--model-out", default=None)
+    p.add_argument("--test-fraction", type=float, default=0.2)
+    p.add_argument("--num-trees", type=int, default=20)
+    p.add_argument("--max-depth", type=int, default=5)
+    p.add_argument("--chisq-top", type=int, default=0,
+                   help="if > 0, select this many features by chi-square")
+    p.add_argument("--features-col", default="features")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA) or cpu")
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("serve", help="serve CSV micro-batches of a directory")
     p.add_argument("--model", required=True, help="saved pipeline directory")
     p.add_argument("--watch", required=True, help="input CSV directory")

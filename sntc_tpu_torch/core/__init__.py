@@ -1,7 +1,10 @@
 from sntc_tpu_torch.core.params import Param, Params, validators
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.base import (
+    Estimator,
+    Evaluator,
     Model,
+    Pipeline,
     PipelineModel,
     PipelineStage,
     Transformer,
@@ -15,6 +18,9 @@ __all__ = [
     "to_host",
     "PipelineStage",
     "Transformer",
+    "Estimator",
+    "Evaluator",
     "Model",
+    "Pipeline",
     "PipelineModel",
 ]

@@ -1,15 +1,15 @@
-"""Transformer / Model / PipelineModel — the serving half of the pipeline API.
+"""Estimator / Transformer / Pipeline — the pipeline API.
 
 Counterpart of ``sntc_tpu/core/base.py`` (Spark ML's pipeline
-abstractions): ``Transformer.transform(frame) -> frame`` appends columns
-and a ``PipelineModel`` applies its fitted stages in order.  The port
-serves fitted pipelines; estimators and ``Pipeline.fit`` come with the
-fit-side slice.
+abstractions): ``Transformer.transform(frame) -> frame`` appends
+columns, ``Estimator.fit(frame) -> Model`` learns a fitted Transformer,
+and a ``Pipeline`` fits its stages in order into a ``PipelineModel``,
+which applies its fitted stages in order.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, Params
@@ -41,8 +41,72 @@ class Transformer(PipelineStage):
         return lambda: out
 
 
+class Estimator(PipelineStage):
+    def fit(self, frame: Frame, params: Optional[Dict[str, Any]] = None) -> "Model":
+        """Fit on ``frame``; ``params`` is a one-shot override map
+        (Spark's ``fit(dataset, paramMap)``)."""
+        if params:
+            return self.copy(params).fit(frame)
+        return self._fit(frame)
+
+    def _fit(self, frame: Frame) -> "Model":
+        raise NotImplementedError
+
+
+class Evaluator(PipelineStage):
+    """Metric computer over a predictions Frame (Spark's
+    ``ml/evaluation/Evaluator``)."""
+
+    def evaluate(self, frame: Frame) -> float:
+        raise NotImplementedError
+
+    def isLargerBetter(self) -> bool:
+        return True
+
+
 class Model(Transformer):
     """A fitted Transformer."""
+
+
+class Pipeline(Estimator):
+    """Chain of stages; ``fit`` returns a :class:`PipelineModel`.
+
+    Spark semantics: stages before the last estimator are applied in
+    order — transformers transform the running frame, each estimator is
+    fit on it and its fitted model transforms it for the stages after.
+    Nothing is transformed after the last estimator."""
+
+    stages = Param("pipeline stages (Transformers and Estimators), applied in order")
+
+    def __init__(self, stages: Optional[List[PipelineStage]] = None, **kwargs: Any):
+        super().__init__(**kwargs)
+        if stages is not None:
+            self.set("stages", list(stages))
+
+    def _fit(self, frame: Frame) -> "PipelineModel":
+        stages = self.getStages()
+        for stage in stages:
+            if not isinstance(stage, (Transformer, Estimator)):
+                raise TypeError(
+                    f"pipeline stage {stage!r} is neither Transformer nor Estimator"
+                )
+        last_est = max(
+            (i for i, s in enumerate(stages) if isinstance(s, Estimator)),
+            default=-1,
+        )
+        fitted: List[Transformer] = []
+        current = frame
+        for i, stage in enumerate(stages):
+            if isinstance(stage, Estimator):
+                model = stage.fit(current)
+                fitted.append(model)
+                if i < last_est:
+                    current = model.transform(current)
+            else:
+                fitted.append(stage)
+                if i < last_est:
+                    current = stage.transform(current)
+        return PipelineModel(stages=fitted)
 
 
 class PipelineModel(Model):

@@ -164,6 +164,24 @@ class Frame:
             {k: a[start:stop] for k, a in self._columns.items()}, n
         )
 
+    def random_split(
+        self, weights: Sequence[float], seed: int = 0
+    ) -> List["Frame"]:
+        """Spark ``DataFrame.randomSplit`` analog: a shuffled proportional
+        split, the same numpy permutation as the JAX package's, so a seed
+        splits the same rows in both."""
+        w = np.asarray(weights, dtype=np.float64)
+        w = w / w.sum()
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(self._num_rows)
+        edges = np.floor(np.cumsum(w) * self._num_rows).astype(np.int64)
+        edges[-1] = self._num_rows  # cumsum can underflow 1.0; never drop rows
+        out, start = [], 0
+        for stop in edges:
+            out.append(self.take(perm[start:stop]))
+            start = stop
+        return out
+
     @classmethod
     def concat_all(cls, frames: Sequence["Frame"]) -> "Frame":
         """Concatenate frames with one allocation per column.  Columns

@@ -1,4 +1,4 @@
-from sntc_tpu_torch.data.ingest import clean_flows, load_csv
+from sntc_tpu_torch.data.ingest import clean_flows, load_csv, load_csv_dir
 from sntc_tpu_torch.data.schema import (
     CICIDS2017_FEATURES,
     CICIDS2017_LABELS,
@@ -15,5 +15,6 @@ __all__ = [
     "clean_flows",
     "generate_frame",
     "load_csv",
+    "load_csv_dir",
     "write_raw_csv",
 ]

@@ -1,7 +1,7 @@
 """CICIDS2017 ingest + cleaning — the CSV-source analog.
 
-Counterpart of ``sntc_tpu/data/ingest.py`` (``load_csv`` and
-``clean_flows``), without the JAX package's metrics, tracing, fault
+Counterpart of ``sntc_tpu/data/ingest.py`` (``load_csv``,
+``load_csv_dir`` and ``clean_flows``), without the JAX package's metrics, tracing, fault
 injection and per-line salvage hooks: pyarrow's CSV reader parses, column
 names are whitespace-normalized and the duplicated ``Fwd Header Length``
 of real day files is renamed ``Fwd Header Length.1``, so real day CSVs
@@ -9,6 +9,9 @@ load unchanged.
 """
 
 from __future__ import annotations
+
+import glob
+import os
 
 import numpy as np
 import pyarrow as pa
@@ -48,6 +51,15 @@ def load_csv(path: str) -> Frame:
             seen[n] = 0
             deduped.append(n)
     return Frame.from_arrow(table.rename_columns(deduped))
+
+
+def load_csv_dir(path: str, pattern: str = "*.csv") -> Frame:
+    """Read and concatenate every CSV of a directory (a day file each, in
+    the real dataset) in sorted-filename order."""
+    paths = sorted(glob.glob(os.path.join(path, pattern)))
+    if not paths:
+        raise FileNotFoundError(f"no {pattern} files under {path}")
+    return Frame.concat_all([load_csv(p) for p in paths])
 
 
 def clean_flows(

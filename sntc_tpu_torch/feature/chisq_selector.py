@@ -1,10 +1,15 @@
-"""ChiSqSelectorModel — the fitted χ² flow-feature selector.
+"""ChiSqSelector — χ² flow-feature selection.
 
-Counterpart of ``ChiSqSelectorModel`` in
-``sntc_tpu/feature/chisq_selector.py``: the fitted model is a column
-select of ``selected_features`` from the feature vector.  On a tensor
-the select runs on the tensor's device.  The fit (binning + contingency
-histograms) comes with the fit-side slice and its ``tree_hist`` kernel.
+Counterpart of ``sntc_tpu/feature/chisq_selector.py`` (Spark's
+``ChiSqSelector``): rank features by χ² p-value against the label and
+keep the top ``numTopFeatures`` / ``percentile`` / those below ``fpr``,
+``fdr`` or ``fwe``.  Continuous flow features are quantile-binned first.
+
+The fit bins the features and builds the (feature, bin, class)
+contingency on the estimator's device — one ``tree_hist`` launch on the
+card — then computes the statistics and the selection on the host.  The
+fitted model is a column select of ``selected_features``; on a tensor
+the select runs on the tensor's device.
 """
 
 from __future__ import annotations
@@ -14,9 +19,13 @@ from typing import List
 import numpy as np
 import torch
 
-from sntc_tpu_torch.core.base import Model
-from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.base import Estimator, Model
+from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.feature.selection import select_features_by_mode
+from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
+from sntc_tpu_torch.ops.histogram import binned_contingency, chi_square
 
 
 class _SelectorParams:
@@ -56,6 +65,49 @@ class _SelectorParams:
         default=32,
         validator=validators.gt(1),
     )
+
+
+def chi2_scores(X: np.ndarray, y: np.ndarray, n_bins: int, device):
+    """``(stats [F], p_values [F])`` of the binned χ² test of float32
+    ``X [N, F]`` against integer labels ``y``, the contingency built on
+    ``device``."""
+    y = np.asarray(y).astype(np.int64)
+    n_classes = int(y.max()) + 1 if len(y) else 1
+    edges = quantile_bin_edges(X, max_bins=n_bins)
+    Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    binned_t = bin_features(Xd, torch.from_numpy(edges).to(device)).t()
+    yd = torch.from_numpy(y).to(device)
+    w = torch.ones(len(y), dtype=torch.float32, device=device)
+    observed = binned_contingency(
+        binned_t, yd, w, n_bins=n_bins, n_classes=n_classes
+    ).cpu().numpy()
+    stats, p_values, _ = chi_square(observed)
+    return stats, p_values
+
+
+class ChiSqSelector(_SelectorParams, Estimator):
+    def __init__(self, device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        self.device = resolve_device(device)
+
+    def _fit(self, frame: Frame) -> "ChiSqSelectorModel":
+        X = to_host(frame[self.getFeaturesCol()]).astype(np.float32)
+        y = to_host(frame[self.getLabelCol()])
+        stats, p_values = chi2_scores(X, y, self.getMaxBins(), self.device)
+        mode = self.getSelectorType()
+        threshold = {
+            "numTopFeatures": self.getNumTopFeatures(),
+            "percentile": self.getPercentile(),
+            "fpr": self.getFpr(),
+            "fdr": self.getFdr(),
+            "fwe": self.getFwe(),
+        }[mode]
+        selected = select_features_by_mode(
+            stats, p_values, mode, threshold, X.shape[1]
+        )
+        model = ChiSqSelectorModel(selected_features=selected)
+        model.setParams(**self.paramValues())
+        return model
 
 
 class ChiSqSelectorModel(_SelectorParams, Model):

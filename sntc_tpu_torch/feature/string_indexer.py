@@ -1,22 +1,38 @@
-"""StringIndexerModel / IndexToString — label string <-> index encoding.
+"""StringIndexer / IndexToString — label string <-> index encoding.
 
 Counterpart of ``sntc_tpu/feature/string_indexer.py`` (Spark's
-``StringIndexer``): the fitted model maps strings to float64 indices in
-its vocabulary order, ``handleInvalid`` is ``error`` | ``skip`` (drop
-unseen rows) | ``keep`` (unseen -> index ``len(labels)``);
-``IndexToString`` maps a prediction index back to its label.  Both run on
-the host.  The fit (vocabulary ordering) comes with the fit-side slice.
+``StringIndexer``): the fit orders the vocabulary — by default
+``frequencyDesc``, descending frequency with ties broken by the string
+ascending, exactly as the JAX package; the fitted model maps strings to
+float64 indices in that order, ``handleInvalid`` is ``error`` | ``skip``
+(drop unseen rows) | ``keep`` (unseen -> index ``len(labels)``);
+``IndexToString`` maps a prediction index back to its label.  All run on
+the host.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import List
 
 import numpy as np
 
-from sntc_tpu_torch.core.base import Model, Transformer
+from sntc_tpu_torch.core.base import Estimator, Model, Transformer
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
+
+
+def _order_labels(values: np.ndarray, order: str) -> List[str]:
+    counts = Counter(str(v) for v in values)
+    if order == "frequencyDesc":
+        return [l for l, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+    if order == "frequencyAsc":
+        return [l for l, _ in sorted(counts.items(), key=lambda kv: (kv[1], kv[0]))]
+    if order == "alphabetDesc":
+        return sorted(counts, reverse=True)
+    if order == "alphabetAsc":
+        return sorted(counts)
+    raise ValueError(f"unknown stringOrderType {order!r}")
 
 
 class _StringIndexerParams:
@@ -76,6 +92,16 @@ def _index_values(values: np.ndarray, labels: List[str]):
     )
     out = lut[codes] if len(lut) else np.full(len(codes), unseen_idx)
     return values, out, out == unseen_idx
+
+
+class StringIndexer(_StringIndexerParams, Estimator):
+    def _fit(self, frame: Frame) -> "StringIndexerModel":
+        ins, _ = _resolve_cols(self)
+        order = self.getStringOrderType()
+        labels_array = [_order_labels(to_host(frame[c]), order) for c in ins]
+        model = StringIndexerModel(labelsArray=labels_array)
+        model.setParams(**self.paramValues())
+        return model
 
 
 class StringIndexerModel(_StringIndexerParams, Model):

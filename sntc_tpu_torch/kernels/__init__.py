@@ -5,6 +5,7 @@ kernel              source                       replaces (Pallas, JAX package)
 ==================  ===========================  ==============================
 forest_traversal    csrc/forest_traversal.cu     sntc_tpu/kernels/forest.py
 pad_assemble        csrc/pad_rows.cu             sntc_tpu/kernels/assemble.py
+tree_hist           csrc/tree_hist.cu            sntc_tpu/ops/pallas_histogram.py
 ==================  ===========================  ==============================
 
 Each wrapper launches its kernel on a CUDA tensor and computes its plain

@@ -31,7 +31,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("forest_traversal.cu", "pad_rows.cu", "error.cu")
+SOURCES = ("forest_traversal.cu", "pad_rows.cu", "tree_hist.cu", "error.cu")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
@@ -40,7 +40,9 @@ ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 CUDA_FLAGS = ["-O3", "-lineinfo"] + ARCH_FLAGS
 
 #: kernel launches since the last :func:`reset_launches`, by kernel name
-LAUNCHES: Dict[str, int] = {"forest_traversal": 0, "pad_assemble": 0}
+LAUNCHES: Dict[str, int] = {
+    "forest_traversal": 0, "pad_assemble": 0, "tree_hist": 0,
+}
 #: how the kernels were built in this process: route, seconds, path
 BUILD_INFO: Dict[str, object] = {}
 
@@ -54,6 +56,7 @@ _SIGNATURES = {
     "sntc_forest_leaf_stats_f64": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
     "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, _P],
     "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, _P],
+    "sntc_tree_hist_f32": [_P] * 5 + [_I64] * 6 + [_P],
 }
 
 

@@ -1,6 +1,7 @@
-"""Shared classifier plumbing — the ``ProbabilisticClassificationModel`` analog.
+"""Shared classifier plumbing — the ``ProbabilisticClassifier`` analog.
 
-Counterpart of ``sntc_tpu/models/base.py``: a classification model's
+Counterpart of ``sntc_tpu/models/base.py``: a classifier estimator
+extracts ``(X, y, w)`` from the frame; a classification model's
 ``transform`` appends ``rawPrediction`` (margins), ``probability`` and
 ``prediction`` (float64 index) columns; binary models honor
 ``threshold`` and any model per-class ``thresholds``.
@@ -15,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sntc_tpu_torch.core.base import Model
-from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.base import Estimator, Model
+from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 
 
@@ -26,6 +27,32 @@ class ClassifierParams:
     predictionCol = Param("output prediction column", default="prediction")
     rawPredictionCol = Param("output margins column", default="rawPrediction")
     probabilityCol = Param("output probability column", default="probability")
+
+
+class ClassifierEstimator(ClassifierParams, Estimator):
+    """Base estimator: extracts (X, y, w) from the frame, on the host."""
+
+    weightCol = Param("optional row weight column", default=None)
+
+    def _extract(self, frame: Frame):
+        X = to_host(frame[self.getFeaturesCol()])
+        if X.ndim != 2:
+            raise ValueError(
+                f"featuresCol {self.getFeaturesCol()!r} must be a vector "
+                "column (use VectorAssembler)"
+            )
+        X = X.astype(np.float32, copy=False)
+        y_raw = to_host(frame[self.getLabelCol()]).astype(np.float64)
+        y = y_raw.astype(np.int32)
+        if not np.array_equal(y_raw, y.astype(np.float64)) or (y < 0).any():
+            raise ValueError("labelCol must contain non-negative integer indices")
+        wcol = self.getWeightCol()
+        w = (
+            to_host(frame[wcol]).astype(np.float32)
+            if wcol
+            else np.ones(len(y), dtype=np.float32)
+        )
+        return X, y, w
 
 
 def pack_serve_outputs(raw: torch.Tensor, prob: torch.Tensor,

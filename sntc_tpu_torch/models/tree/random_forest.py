@@ -1,13 +1,17 @@
-"""RandomForestClassificationModel — serving a fitted random forest.
+"""RandomForestClassifier — histogram CART forest, fit and serve.
 
-Counterpart of ``RandomForestClassificationModel`` in
-``sntc_tpu/models/tree/random_forest.py`` (Spark's
-``RandomForestClassificationModel``): ``rawPrediction`` is the sum over
-trees of each tree's leaf class counts normalized per tree, probability
-the normalized raw.  The walk runs through the ``forest_traversal``
-kernel on the card; the sums and the prediction are PyTorch on the same
-device, and one packed ``[N, 2K+1]`` tensor comes back per batch.  The
-fit comes with the fit-side slice.
+Counterpart of ``sntc_tpu/models/tree/random_forest.py`` (Spark's
+``RandomForestClassifier``): quantile binning (``maxBins``),
+Poisson(subsamplingRate) bootstrap bagging, level-wise growth of all
+trees per pass (``grower.grow_forest``, whose histograms are the
+``tree_hist`` kernel on the card), gini/entropy impurity and a
+per-node ``featureSubsetStrategy``.
+
+The model's ``rawPrediction`` is the sum over trees of each tree's leaf
+class counts normalized per tree, probability the normalized raw.  The
+walk runs through the ``forest_traversal`` kernel on the card; the sums
+and the prediction are PyTorch on the same device, and one packed
+``[N, 2K+1]`` tensor comes back per batch.
 """
 
 from __future__ import annotations
@@ -15,16 +19,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
-from sntc_tpu_torch.models.base import ClassificationModel, pack_serve_outputs
+from sntc_tpu_torch.models.base import (
+    ClassificationModel,
+    ClassifierEstimator,
+    pack_serve_outputs,
+)
 from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestDeviceMixin,
     ForestPersistenceMixin,
+    grow_forest,
+    make_bagging_weights,
+    resolve_feature_subset_k,
     validate_forest,
 )
+from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 
 
 class _TreeEnsembleParams:
@@ -51,6 +64,56 @@ class _RfParams(_TreeEnsembleParams):
     )
     bootstrap = Param("Poisson bootstrap bagging", default=True,
                       validator=validators.is_bool())
+
+
+class RandomForestClassifier(_RfParams, ClassifierEstimator):
+    """Fits on ``device`` (default ``cuda``) and returns a model whose
+    forest lives on the same device."""
+
+    def __init__(self, device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        self.device = resolve_device(device)
+
+    def _fit(self, frame: Frame) -> "RandomForestClassificationModel":
+        X, y, w = self._extract(frame)
+        n, F = X.shape
+        k = max(int(y.max()) + 1 if n else 2, 2)
+        T = self.getNumTrees()
+        n_bins = self.getMaxBins()
+        seed = self.getSeed()
+        dev = self.device
+
+        edges = quantile_bin_edges(X, max_bins=n_bins, seed=seed)
+        binned_t = bin_features(
+            torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+        ).t()
+        yd = torch.from_numpy(y.astype(np.int64)).to(dev)
+        row_stats = (torch.nn.functional.one_hot(yd, k).to(torch.float32)
+                     * torch.from_numpy(w).to(dev)[:, None])
+        rng = np.random.default_rng(seed)
+        w_trees = torch.from_numpy(make_bagging_weights(
+            rng, self.getBootstrap(), self.getSubsamplingRate(), T, n,
+        )).to(dev)
+        subset_k = resolve_feature_subset_k(
+            self.getFeatureSubsetStrategy(), F, T, is_classification=True
+        )
+        forest = grow_forest(
+            binned_t, row_stats, w_trees, edges,
+            n_bins=n_bins,
+            max_depth=self.getMaxDepth(),
+            min_instances_per_node=float(self.getMinInstancesPerNode()),
+            min_info_gain=float(self.getMinInfoGain()),
+            subset_k=subset_k,
+            impurity=self.getImpurity(),
+            rng=rng,
+        )
+        model = RandomForestClassificationModel(
+            forest=forest, n_classes=k, n_features=F, device=dev
+        )
+        model.setParams(
+            **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
+        )
+        return model
 
 
 def _rf_raw(X, feature, threshold, leaf_stats, *, max_depth,

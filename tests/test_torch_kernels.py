@@ -1,12 +1,14 @@
 """The port's kernels against the JAX package's, on the CPU.
 
-``forest_traversal`` and ``pad_assemble`` are CUDA kernels in
-``sntc_tpu_torch``; here, where there is no card, their wrappers compute
-the plain PyTorch versions, which are held against the JAX package's
-XLA twin and its Pallas kernel in interpret mode.  Both functions only
-compare and copy, so every comparison is bitwise.  The tests marked
-``cuda`` hold the CUDA kernels against the plain versions on a card and
-skip without one.
+``forest_traversal``, ``pad_assemble`` and ``tree_hist`` are CUDA
+kernels in ``sntc_tpu_torch``; here, where there is no card, their
+wrappers compute the plain PyTorch versions, which are held against the
+JAX package's XLA twin and its Pallas kernels in interpret mode.  The
+first two only compare and copy, so every comparison is bitwise.
+``tree_hist`` sums: with integer-valued stats every sum is exact and the
+comparison is bitwise; with fractional stats it is the Pallas kernel's
+own tolerance, 1e-5.  The tests marked ``cuda`` hold the CUDA kernels
+against the plain versions on a card and skip without one.
 """
 
 import os
@@ -22,6 +24,7 @@ from sntc_tpu.core.frame import Frame as JFrame
 from sntc_tpu.kernels.assemble import _pad_column_np, pad_rows_pallas
 from sntc_tpu.kernels.forest import forest_leaf_stats_pallas
 from sntc_tpu.models.tree.grower import forest_leaf_stats as jax_forest
+from sntc_tpu.ops.pallas_histogram import level_histogram_pallas
 from sntc_tpu.serve.transform import VALID_COL as JAX_VALID_COL
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.device import resolve_device
@@ -36,6 +39,12 @@ from sntc_tpu_torch.kernels.forest import (
     forest_leaf_stats,
     forest_leaf_stats_cuda,
     forest_leaf_stats_reference,
+)
+from sntc_tpu_torch.kernels.histogram import (
+    level_histogram,
+    tree_hist,
+    tree_hist_cuda,
+    tree_hist_reference,
 )
 from sntc_tpu_torch.serve.transform import VALID_COL
 
@@ -243,6 +252,139 @@ def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
     assert out["y"]._base is out["b"]._base
 
 
+# -- tree_hist ---------------------------------------------------------------
+
+# the cases of tests/test_pallas_histogram.py, plus GBT's shape: 128 bins,
+# [w, wy, wy²]-like signed fractional stats
+HIST_CASES = [
+    # n, f, s, n_nodes, n_bins
+    (300, 5, 3, 4, 8),
+    (1000, 7, 15, 8, 32),
+    (64, 2, 1, 1, 32),
+    (700, 4, 3, 4, 128),
+]
+HIST_TOL = 1e-5  # the Pallas kernel's stated tolerance (f32 sums reordered)
+
+
+def _hist_inputs(rng, n, f, s, n_nodes, n_bins):
+    binned = rng.integers(0, n_bins, size=(n, f)).astype(np.int32)
+    node_idx = rng.integers(-1, n_nodes, size=n).astype(np.int32)
+    stats = rng.normal(size=(n, s)).astype(np.float32)
+    stats[node_idx < 0] = 0.0  # pre-masked, as the grower guarantees
+    return binned, node_idx, stats
+
+
+def _pallas_hist(binned, node_idx, stats, n_nodes, n_bins):
+    return np.asarray(level_histogram_pallas(
+        jnp.asarray(binned.T.copy()), jnp.asarray(node_idx),
+        jnp.asarray(stats), n_nodes=n_nodes, n_bins=n_bins, interpret=True,
+    ))
+
+
+def _port_hist(binned, node_idx, stats, n_nodes, n_bins):
+    return level_histogram(
+        torch.from_numpy(binned.T.copy()), torch.from_numpy(node_idx),
+        torch.from_numpy(stats), n_nodes=n_nodes, n_bins=n_bins,
+    ).numpy()
+
+
+@pytest.mark.parametrize("n,f,s,n_nodes,n_bins", HIST_CASES)
+def test_tree_hist_reference_matches_pallas_interpret(n, f, s, n_nodes, n_bins):
+    rng = np.random.default_rng(n + f)
+    args = _hist_inputs(rng, n, f, s, n_nodes, n_bins)
+    got = _port_hist(*args, n_nodes, n_bins)
+    assert got.shape == (f, n_nodes * n_bins, s) and got.dtype == np.float32
+    np.testing.assert_allclose(got, _pallas_hist(*args, n_nodes, n_bins),
+                               rtol=HIST_TOL, atol=HIST_TOL)
+
+
+@pytest.mark.parametrize("n,f,s,n_nodes,n_bins", HIST_CASES)
+def test_tree_hist_reference_bitwise_on_integer_stats(n, f, s, n_nodes, n_bins):
+    # one-hot classes × Poisson bagging counts: small-integer sums, exact
+    # in any order
+    rng = np.random.default_rng(n * 3 + s)
+    binned, node_idx, _ = _hist_inputs(rng, n, f, s, n_nodes, n_bins)
+    stats = np.eye(s, dtype=np.float32)[rng.integers(0, s, n)]
+    stats *= rng.poisson(1.0, n).astype(np.float32)[:, None]
+    stats[node_idx < 0] = 0.0
+    np.testing.assert_array_equal(
+        _port_hist(binned, node_idx, stats, n_nodes, n_bins),
+        _pallas_hist(binned, node_idx, stats, n_nodes, n_bins),
+    )
+
+
+@pytest.mark.parametrize("fractional", [False, True])
+def test_tree_hist_trees_in_one_call_equal_the_single_tree_function(fractional):
+    # the grower's form — [T, N] node ids and weights, shared stats, the
+    # weighting applied inside — is per tree the JAX single-tree function
+    # on stats pre-weighted as the JAX grower weights them
+    rng = np.random.default_rng(8)
+    T, n, f, s, n_nodes, n_bins = 4, 500, 6, 5, 8, 16
+    binned = rng.integers(0, n_bins, size=(n, f)).astype(np.int32)
+    node = rng.integers(-1, n_nodes, size=(T, n)).astype(np.int32)
+    if fractional:
+        stats = rng.normal(size=(n, s)).astype(np.float32)
+        w = rng.random((T, n)).astype(np.float32)
+        w[rng.random((T, n)) < 0.3] = 0.0
+    else:
+        stats = np.eye(s, dtype=np.float32)[rng.integers(0, s, n)]
+        w = rng.poisson(1.0, (T, n)).astype(np.float32)
+    out = tree_hist(
+        torch.from_numpy(binned.T.copy()), torch.from_numpy(node),
+        torch.from_numpy(stats), torch.from_numpy(w),
+        n_nodes=n_nodes, n_bins=n_bins,
+    ).numpy()
+    assert out.shape == (T, f, n_nodes * n_bins, s)
+    for t in range(T):
+        pre = stats * (w[t] * (node[t] >= 0))[:, None]
+        single = _port_hist(binned, node[t], pre, n_nodes, n_bins)
+        np.testing.assert_array_equal(out[t], single)
+        ref = _pallas_hist(binned, node[t], pre, n_nodes, n_bins)
+        if fractional:
+            np.testing.assert_allclose(out[t], ref, rtol=HIST_TOL, atol=HIST_TOL)
+        else:
+            np.testing.assert_array_equal(out[t], ref)
+
+
+def test_tree_hist_skips_ids_and_bins_out_of_range():
+    binned_t = torch.tensor([[0, 1, 5, -1, 2]], dtype=torch.int32)  # B = 3
+    node = torch.tensor([[0, 1, 0, 1, 2]], dtype=torch.int32)  # 2 nodes
+    stats = torch.ones((5, 1))
+    out = tree_hist(binned_t, node, stats, n_nodes=2, n_bins=3)[0, 0, :, 0]
+    # row 2's bin 5 and row 3's bin -1 are outside [0, 3); row 4's node 2
+    # is outside [0, 2): none of them lands anywhere
+    np.testing.assert_array_equal(out.numpy(), [1, 0, 0, 0, 1, 0])
+
+
+def test_tree_hist_dispatch_on_cpu_is_the_plain_version_without_launches():
+    rng = np.random.default_rng(9)
+    binned, node_idx, stats = _hist_inputs(rng, 200, 3, 4, 2, 8)
+    args = (torch.from_numpy(binned.T.copy()), torch.from_numpy(node_idx)[None],
+            torch.from_numpy(stats))
+    before = dict(LAUNCHES)
+    out = tree_hist(*args, n_nodes=2, n_bins=8)
+    assert torch.equal(out, tree_hist_reference(*args, n_nodes=2, n_bins=8))
+    assert LAUNCHES == before
+
+
+def test_tree_hist_wrappers_refuse_bad_inputs():
+    b = torch.zeros((3, 10), dtype=torch.int32)
+    node = torch.zeros((2, 10), dtype=torch.int32)
+    st = torch.ones((10, 4))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        tree_hist_cuda(b, node, st, n_nodes=1, n_bins=4)
+    with pytest.raises(TypeError, match="int32"):
+        tree_hist(b.long(), node, st, n_nodes=1, n_bins=4)
+    with pytest.raises(TypeError, match="float32"):
+        tree_hist(b, node, st.double(), n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="row counts disagree"):
+        tree_hist(b, node[:, :9], st, n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="weights"):
+        tree_hist(b, node, st, torch.ones((3, 10)), n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match=">= 1"):
+        tree_hist(b, node, st, n_nodes=0, n_bins=4)
+
+
 def test_resolve_device_refuses_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -308,6 +450,53 @@ def test_forest_kernel_matches_plain_version_on_card(cuda_device, N, dtype):
     ref = forest_leaf_stats_reference(*args, max_depth=6)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n,f,s,n_nodes,n_bins", [
+    (1, 20000, 78, 15, 1, 32),  # the chi-square contingency
+    (20, 20000, 40, 15, 1, 32),  # a forest's root level
+    (20, 20000, 40, 15, 128, 32),  # a deep node group: cell slices
+    (3, 999, 5, 3, 4, 8),
+])
+def test_tree_hist_kernel_bitwise_on_integer_stats_on_card(
+    cuda_device, T, n, f, s, n_nodes, n_bins
+):
+    rng = np.random.default_rng(n + T)
+    binned_t = torch.from_numpy(
+        rng.integers(0, n_bins, (f, n)).astype(np.int32)).to(cuda_device)
+    node = torch.from_numpy(
+        rng.integers(-1, n_nodes, (T, n)).astype(np.int32)).to(cuda_device)
+    stats = torch.from_numpy(
+        np.eye(s, dtype=np.float32)[rng.integers(0, s, n)]).to(cuda_device)
+    w = torch.from_numpy(
+        rng.poisson(1.0, (T, n)).astype(np.float32)).to(cuda_device)
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    out = tree_hist_cuda(binned_t, node, stats, w, **kw)
+    again = tree_hist_cuda(binned_t, node, stats, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tree_hist_reference(binned_t, node, stats, w, **kw))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_tree_hist_kernel_fractional_within_tolerance_on_card(cuda_device):
+    # GBT's shape: 128 bins, signed fractional stats; the error bound is
+    # relative to each cell's sum of absolute contributions
+    rng = np.random.default_rng(3)
+    n, f, s, n_nodes, n_bins = 20000, 78, 3, 16, 128
+    binned_t = torch.from_numpy(
+        rng.integers(0, n_bins, (f, n)).astype(np.int32)).to(cuda_device)
+    node = torch.from_numpy(
+        rng.integers(-1, n_nodes, (1, n)).astype(np.int32)).to(cuda_device)
+    stats = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.random((1, n)).astype(np.float32)).to(cuda_device)
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    out = tree_hist_cuda(binned_t, node, stats, w, **kw)
+    ref = tree_hist_reference(binned_t, node, stats, w, **kw)
+    scale = tree_hist_reference(binned_t, node, stats.abs(), w, **kw)
+    torch.cuda.synchronize()
+    assert bool(((out - ref).abs() <= HIST_TOL * scale).all())
 
 
 @pytest.mark.cuda

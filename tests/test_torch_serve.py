@@ -168,7 +168,7 @@ def test_serve_end_to_end_exactly_once(fitted, tmp_path, capsys):
     assert summary["batches"] == 3 and summary["rows"] == sum(sizes)
     assert summary["device"] == "cpu"
     assert summary["kernel_launches"] == {"forest_traversal": 0,
-                                          "pad_assemble": 0}
+                                          "pad_assemble": 0, "tree_hist": 0}
     assert summary["compile_events"] == 2  # buckets 256 and 512 (300 rows)
     out_files = sorted(os.listdir(tmp_path / "out"))
     assert out_files == [f"batch_{i:06d}.csv" for i in range(3)]
