@@ -29,11 +29,17 @@ each of which fails the run (non-zero exit, no result line):
    evaluation), and the held-out macro-F1 must reach 0.76.  Then a
    reduced fit (20 000 rows, 20 trees of depth 6) runs on the card and
    on the CPU from one seed: the same features selected, the same trees;
-5. time each kernel at its path's shapes with CUDA events beside its
+5. time the fit in this process and take its device time from a
+   profiler window, with each ``tree_hist`` launch's device time in
+   launch order, tagged with its level, node group and the plan the
+   kernel's entry point took (regime, features per block, row blocks);
+   hold ``tree_hist`` on the fit's own launches of levels 7 and 8 (the
+   real, skewed node distribution) against its plain version as in 2;
+   time each kernel at its path's shapes with CUDA events beside its
    plain version, a PyTorch library call where one computes the same
-   function, and its bound; time the fit in this process and take its
-   device time from a profiler window; print the kernels as one JSON
-   line, then the card's line, then the result line.
+   function, and its bound (``tree_hist`` at the widest level group, the
+   contingency and the fit's levels 7 and 8); print the kernels as one
+   JSON line, then the card's line, then the result line.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -42,6 +48,7 @@ and nothing else of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -68,7 +75,7 @@ from sntc_tpu_torch.feature import (
     StringIndexerModel,
     VectorAssembler,
 )
-from sntc_tpu_torch.kernels import _build
+from sntc_tpu_torch.kernels import _build, histogram
 from sntc_tpu_torch.kernels.assemble import pad_rows_cuda, pad_rows_reference
 from sntc_tpu_torch.kernels.forest import (
     forest_leaf_stats_cuda,
@@ -76,6 +83,7 @@ from sntc_tpu_torch.kernels.forest import (
 )
 from sntc_tpu_torch.kernels.histogram import (
     tree_hist_cuda,
+    tree_hist_plan,
     tree_hist_reference,
 )
 from sntc_tpu_torch.models import RandomForestClassifier
@@ -288,6 +296,10 @@ def _shape(c: dict) -> str:
     return (f"[{F}, {N}] bins, T={c['node_idx'].shape[0]}, "
             f"{c['n_nodes']} nodes, B={c['n_bins']}, "
             f"S={c['stats'].shape[1]}")
+
+
+def _plan(p: dict) -> str:
+    return ", ".join(f"{k} {p[k]}" for k in histogram.PLAN_FIELDS)
 
 
 def check_tree_hist(cases: dict) -> float:
@@ -560,11 +572,46 @@ def reduced_fit(data: dict, dev) -> dict:
             "splits": internal, "near_ties": ties}
 
 
+def fit_launches() -> list:
+    """(level, nodes of the group) of each ``tree_hist`` launch of the
+    full-width fit, in launch order: the contingency, then one pass per
+    node group of every level."""
+    _, group = grower_passes(TREES, TOP, BINS, CLASSES, DEPTH)
+    out = [("contingency", 1)]
+    for d in range(DEPTH):
+        out += [(d, min(group, 1 << d))] * -(-(1 << d) // group)
+    return out
+
+
+@contextlib.contextmanager
+def recording_tree_hist():
+    """Record the inputs of every ``tree_hist`` launch inside the block
+    (as :func:`hist_cases` gives them) in the list it yields.  Every
+    launch goes through ``histogram.tree_hist_cuda``: the grower and the
+    contingency call it through ``tree_hist``."""
+    calls, launch = [], histogram.tree_hist_cuda
+
+    def recording(binned_t, node_idx, stats, weights=None, **kw):
+        calls.append(dict(binned_t=binned_t, node_idx=node_idx, stats=stats,
+                          weights=weights, integer=True, **kw))
+        return launch(binned_t, node_idx, stats, weights, **kw)
+
+    histogram.tree_hist_cuda = recording
+    try:
+        yield calls
+    finally:
+        histogram.tree_hist_cuda = launch
+
+
 def fit_breakdown(data: dict, dev) -> dict:
     """The full-width fit in this process: each stage on the host clock
     (ending in a synchronize), after one warm fit; then one fit under a
     profiler window, whose device-side events give the fit's device time
-    and hence its idle share."""
+    and hence its idle share, and each ``tree_hist`` launch's device
+    time, tagged with its level, its node group and the plan its entry
+    point took.  The launches of levels 7 and 8 are kept, inputs and
+    all, as the fit's own node distribution for the checks and times of
+    ``tree_hist`` that follow."""
     train_frame = data["train"]
     pipeline(dev, DEPTH).fit(train_frame)  # warm pass
     stages = pipeline(dev, DEPTH).getStages()
@@ -581,19 +628,47 @@ def fit_breakdown(data: dict, dev) -> dict:
             frame = model.transform(frame)
             times[f"{name}.transform"] = (time.perf_counter() - t1) * 1e3
     staged_ms = (time.perf_counter() - t_all) * 1e3
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        pipeline(dev, DEPTH).fit(train_frame)
-        torch.cuda.synchronize()
-        fit_ms = (time.perf_counter() - t0) * 1e3
+    with recording_tree_hist() as calls:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            pipeline(dev, DEPTH).fit(train_frame)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
     ops = _device_ms(prof)
     device_ms = sum(ops.values())
+    kernels = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "tree_hist" in e.name),
+        key=lambda e: e.time_range.start)
+    expect = fit_launches()
+    if len(kernels) != len(calls) or len(calls) != len(expect):
+        raise SystemExit(f"{len(calls)} tree_hist calls and {len(kernels)} "
+                         f"device launches in the profiled fit, expected "
+                         f"{len(expect)}")
+    launches, kept = [], {}
+    for i, (c, e, (level, nodes)) in enumerate(zip(calls, kernels, expect)):
+        F, N = c["binned_t"].shape
+        T, S = c["node_idx"].shape[0], c["stats"].shape[1]
+        launches.append({
+            "launch": i, "level": level, "group_nodes": nodes,
+            "hist_nodes": c["n_nodes"], "F": F, "N": N, "T": T,
+            "device_ms": e.time_range.elapsed_us() / 1e3,
+            **tree_hist_plan(N, F, T, c["n_nodes"], c["n_bins"], S),
+        })
+        if level in (7, 8) and level not in kept:
+            kept[level] = c
     return {"stages_ms": times, "staged_fit_ms": staged_ms,
             "profiled_fit_ms": fit_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / fit_ms),
-            "top_device_ops_ms": dict(list(ops.items())[:8])}
+            "top_device_ops_ms": dict(list(ops.items())[:8]),
+            "tree_hist_launches": launches,
+            "tree_hist_ms": sum(x["device_ms"] for x in launches),
+            "cases": {f"level {d} (the fit's own nodes)": kept[d]
+                      for d in sorted(kept)}}
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -742,10 +817,11 @@ def index_add_call(c: dict, expect: torch.Tensor):
 
 def measure_tree_hist(cases: dict, err: float, launches: int) -> list:
     """``tree_hist`` at the widest level group (the JSON line's entry:
-    the deepest level dominates the fit's histogram passes) and at the
-    chi-square contingency."""
+    the deepest level dominates the fit's histogram passes), at the
+    chi-square contingency, and at the fit's own launches of levels 7
+    (64 nodes) and 8 (128 nodes)."""
     out = []
-    for name in ("widest level group", "chisq"):
+    for name in cases:
         c = cases[name]
         args, kw = _hist_args(c)
         nbytes, ops = hist_work(c)
@@ -765,6 +841,10 @@ def measure_tree_hist(cases: dict, err: float, launches: int) -> list:
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": time_ms(library, iters=5),
             "shape": f"{name}: {_shape(c)}; needs {nbytes} B, {ops} flops",
+            "plan": tree_hist_plan(c["binned_t"].shape[1],
+                                   c["binned_t"].shape[0],
+                                   c["node_idx"].shape[0], c["n_nodes"],
+                                   c["n_bins"], c["stats"].shape[1]),
         })
         del library
         torch.cuda.empty_cache()
@@ -847,8 +927,11 @@ def main() -> int:
         trained = train(dev, data, work)
     reduced = reduced_fit(data, dev)
     fit = fit_breakdown(data, dev)
+    own = fit.pop("cases")
+    errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own))
     kernels = measure(dev, errs, summary["kernel_launches"])
-    hist = measure_tree_hist(cases, errs["tree_hist"],
+    timed = {k: cases[k] for k in ("widest level group", "chisq")}
+    hist = measure_tree_hist({**timed, **own}, errs["tree_hist"],
                              trained["kernel_launches"]["tree_hist"])
     kernels.append(hist[0])
 
@@ -871,6 +954,13 @@ def main() -> int:
         f"busy {fit['device_ms']:.1f} ms (idle share "
         f"{fit['device_idle_share']:.3f}); top device ops "
         f"{fit['top_device_ops_ms']} [{card}]")
+    for x in fit["tree_hist_launches"]:
+        log(f"  tree_hist launch {x['launch']}: level {x['level']}, "
+            f"{x['group_nodes']} nodes in the group ({x['hist_nodes']} "
+            f"histogrammed), [{x['F']}, {x['N']}] T={x['T']}: "
+            f"{x['device_ms']:.4f} ms; {_plan(x)} [{card}]")
+    log(f"tree_hist in the profiled fit: {len(fit['tree_hist_launches'])} "
+        f"launches, {fit['tree_hist_ms']:.4f} ms of device time [{card}]")
     for k in kernels[:2]:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
@@ -879,8 +969,8 @@ def main() -> int:
     for k in hist:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, bound "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
-            f"launches in the train run [{card}]")
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {_plan(k['plan'])}; "
+            f"{k['launches']} launches in the train run [{card}]")
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -891,7 +981,8 @@ def main() -> int:
                        "reduced_fit": reduced, "fit": fit,
                        "tree_hist": hist, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": [
-        {k2: v for k2, v in k.items() if k2 != "shape"} for k in kernels
+        {k2: v for k2, v in k.items() if k2 not in ("shape", "plan")}
+        for k in kernels
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, _P],
     "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, _P],
     "sntc_tree_hist_f32": [_P] * 5 + [_I64] * 6 + [_P],
+    "sntc_tree_hist_plan": [_I64] * 6 + [_P],
 }
 
 

@@ -22,12 +22,16 @@ weights are given.  One call covers all ``T`` trees:
 With integer-valued weights and stats every cell is a small-integer f32
 sum, exact in any order, so the kernel is bitwise equal to the plain
 version; with fractional weights the two agree to f32 rounding (≤ 1e-5
-relative), the kernel's last bits varying between runs.  The kernel's
-design and bound are described in its source.
+relative), the kernel's last bits varying between runs.  The kernel has
+two regimes, picked by shape inside its entry point (shared-memory
+histograms, or one thread per row with reductions in L2);
+:func:`tree_hist_plan` reports which one a shape takes.  Their design
+and bounds are described in the source.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -139,6 +143,25 @@ def tree_hist_cuda(
     _build.check_launch(lib, err, "tree_hist")
     _build.LAUNCHES["tree_hist"] += 1
     return out
+
+
+#: what :func:`tree_hist_plan` reports, in the C entry point's order
+PLAN_FIELDS = ("regime", "feats_per_block", "trees_per_pass", "row_blocks",
+               "grid_blocks")
+REGIMES = ("shared", "rows")
+
+
+def tree_hist_plan(n: int, n_feat: int, n_trees: int, n_nodes: int,
+                   n_bins: int, s: int) -> dict:
+    """How the CUDA kernel covers a launch of this shape on the current
+    device — the plan its entry point computes, reported, not chosen."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
+    err = lib.sntc_tree_hist_plan(n, n_feat, n_trees, n_nodes, n_bins, s, out)
+    _build.check_launch(lib, err, "tree_hist plan")
+    plan = dict(zip(PLAN_FIELDS, out))
+    plan["regime"] = REGIMES[plan["regime"]]
+    return plan
 
 
 def tree_hist(binned_t, node_idx, stats, weights=None, *, n_nodes: int,

@@ -44,6 +44,7 @@ from sntc_tpu_torch.kernels.histogram import (
     level_histogram,
     tree_hist,
     tree_hist_cuda,
+    tree_hist_plan,
     tree_hist_reference,
 )
 from sntc_tpu_torch.serve.transform import VALID_COL
@@ -254,21 +255,38 @@ def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
 
 # -- tree_hist ---------------------------------------------------------------
 
-# the cases of tests/test_pallas_histogram.py, plus GBT's shape: 128 bins,
-# [w, wy, wy²]-like signed fractional stats
+# the cases of tests/test_pallas_histogram.py, plus GBT's shape (128 bins,
+# [w, wy, wy²]-like signed fractional stats), a deep level's proportions
+# (128 nodes × 32 bins × 15 stats: the CUDA kernel's rows regime) and a
+# fit-like skew (one node holds 90 % of the rows, the upper half of the
+# nodes is empty)
 HIST_CASES = [
-    # n, f, s, n_nodes, n_bins
-    (300, 5, 3, 4, 8),
-    (1000, 7, 15, 8, 32),
-    (64, 2, 1, 1, 32),
-    (700, 4, 3, 4, 128),
+    # n, f, s, n_nodes, n_bins, skewed node ids
+    pytest.param(300, 5, 3, 4, 8, False, id="300-5-3-4-8"),
+    pytest.param(1000, 7, 15, 8, 32, False, id="1000-7-15-8-32"),
+    pytest.param(64, 2, 1, 1, 32, False, id="64-2-1-1-32"),
+    pytest.param(700, 4, 3, 4, 128, False, id="700-4-3-4-128"),
+    pytest.param(2000, 3, 15, 128, 32, False, id="2000-3-15-128-32"),
+    pytest.param(3000, 3, 15, 64, 32, True, id="skewed-3000-3-15-64-32"),
 ]
 HIST_TOL = 1e-5  # the Pallas kernel's stated tolerance (f32 sums reordered)
 
 
-def _hist_inputs(rng, n, f, s, n_nodes, n_bins):
+def _skewed_nodes(rng, shape, n_nodes):
+    """Node ids as a deep level of a fit has them: 90 % of the rows in
+    one node, the rest spread over the lower half of the ids or inactive
+    (-1), the upper half of the nodes empty."""
+    hot = n_nodes // 3
+    spread = rng.integers(-1, max(1, n_nodes // 2), size=shape)
+    return np.where(rng.random(shape) < 0.9, hot, spread).astype(np.int32)
+
+
+def _hist_inputs(rng, n, f, s, n_nodes, n_bins, skewed=False):
     binned = rng.integers(0, n_bins, size=(n, f)).astype(np.int32)
-    node_idx = rng.integers(-1, n_nodes, size=n).astype(np.int32)
+    if skewed:
+        node_idx = _skewed_nodes(rng, n, n_nodes)
+    else:
+        node_idx = rng.integers(-1, n_nodes, size=n).astype(np.int32)
     stats = rng.normal(size=(n, s)).astype(np.float32)
     stats[node_idx < 0] = 0.0  # pre-masked, as the grower guarantees
     return binned, node_idx, stats
@@ -288,22 +306,24 @@ def _port_hist(binned, node_idx, stats, n_nodes, n_bins):
     ).numpy()
 
 
-@pytest.mark.parametrize("n,f,s,n_nodes,n_bins", HIST_CASES)
-def test_tree_hist_reference_matches_pallas_interpret(n, f, s, n_nodes, n_bins):
+@pytest.mark.parametrize("n,f,s,n_nodes,n_bins,skewed", HIST_CASES)
+def test_tree_hist_reference_matches_pallas_interpret(n, f, s, n_nodes, n_bins,
+                                                      skewed):
     rng = np.random.default_rng(n + f)
-    args = _hist_inputs(rng, n, f, s, n_nodes, n_bins)
+    args = _hist_inputs(rng, n, f, s, n_nodes, n_bins, skewed)
     got = _port_hist(*args, n_nodes, n_bins)
     assert got.shape == (f, n_nodes * n_bins, s) and got.dtype == np.float32
     np.testing.assert_allclose(got, _pallas_hist(*args, n_nodes, n_bins),
                                rtol=HIST_TOL, atol=HIST_TOL)
 
 
-@pytest.mark.parametrize("n,f,s,n_nodes,n_bins", HIST_CASES)
-def test_tree_hist_reference_bitwise_on_integer_stats(n, f, s, n_nodes, n_bins):
+@pytest.mark.parametrize("n,f,s,n_nodes,n_bins,skewed", HIST_CASES)
+def test_tree_hist_reference_bitwise_on_integer_stats(n, f, s, n_nodes, n_bins,
+                                                      skewed):
     # one-hot classes × Poisson bagging counts: small-integer sums, exact
     # in any order
     rng = np.random.default_rng(n * 3 + s)
-    binned, node_idx, _ = _hist_inputs(rng, n, f, s, n_nodes, n_bins)
+    binned, node_idx, _ = _hist_inputs(rng, n, f, s, n_nodes, n_bins, skewed)
     stats = np.eye(s, dtype=np.float32)[rng.integers(0, s, n)]
     stats *= rng.poisson(1.0, n).astype(np.float32)[:, None]
     stats[node_idx < 0] = 0.0
@@ -453,22 +473,35 @@ def test_forest_kernel_matches_plain_version_on_card(cuda_device, N, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,n,f,s,n_nodes,n_bins", [
-    (1, 20000, 78, 15, 1, 32),  # the chi-square contingency
-    (20, 20000, 40, 15, 1, 32),  # a forest's root level
-    (20, 20000, 40, 15, 128, 32),  # a deep node group: cell slices
-    (3, 999, 5, 3, 4, 8),
+@pytest.mark.parametrize("T,n,f,s,n_nodes,n_bins,skewed", [
+    # the chi-square contingency: the shared regime
+    pytest.param(1, 20000, 78, 15, 1, 32, False, id="1-20000-78-15-1-32"),
+    # a forest's root level
+    pytest.param(20, 20000, 40, 15, 1, 32, False, id="20-20000-40-15-1-32"),
+    # a deep node group: the rows regime
+    pytest.param(20, 20000, 40, 15, 128, 32, False, id="20-20000-40-15-128-32"),
+    pytest.param(3, 999, 5, 3, 4, 8, False, id="3-999-5-3-4-8"),
+    # levels 7 and 8 of config 3's fit, with a fit's skew
+    pytest.param(20, 50000, 40, 15, 64, 32, True,
+                 id="skewed-20-50000-40-15-64-32"),
+    pytest.param(20, 50000, 40, 15, 128, 32, True,
+                 id="skewed-20-50000-40-15-128-32"),
+    # more trees than a thread of the rows regime holds at once
+    pytest.param(40, 20000, 8, 15, 128, 32, True,
+                 id="skewed-40-20000-8-15-128-32"),
 ])
 def test_tree_hist_kernel_bitwise_on_integer_stats_on_card(
-    cuda_device, T, n, f, s, n_nodes, n_bins
+    cuda_device, T, n, f, s, n_nodes, n_bins, skewed
 ):
     rng = np.random.default_rng(n + T)
     binned_t = torch.from_numpy(
         rng.integers(0, n_bins, (f, n)).astype(np.int32)).to(cuda_device)
-    node = torch.from_numpy(
-        rng.integers(-1, n_nodes, (T, n)).astype(np.int32)).to(cuda_device)
+    node = (_skewed_nodes(rng, (T, n), n_nodes) if skewed
+            else rng.integers(-1, n_nodes, (T, n)).astype(np.int32))
+    node = torch.from_numpy(node).to(cuda_device)
     stats = torch.from_numpy(
         np.eye(s, dtype=np.float32)[rng.integers(0, s, n)]).to(cuda_device)
+    # Poisson(1) bagging counts: ~37 % of the weights are 0
     w = torch.from_numpy(
         rng.poisson(1.0, (T, n)).astype(np.float32)).to(cuda_device)
     kw = dict(n_nodes=n_nodes, n_bins=n_bins)
@@ -477,6 +510,11 @@ def test_tree_hist_kernel_bitwise_on_integer_stats_on_card(
     torch.cuda.synchronize()
     assert torch.equal(out, tree_hist_reference(binned_t, node, stats, w, **kw))
     assert torch.equal(out, again)
+    regime = tree_hist_plan(n, f, T, n_nodes, n_bins, s)["regime"]
+    if n_nodes * n_bins * s * 4 > 96 * 1024:  # not one feature fits
+        assert regime == "rows"
+    if T == 1 and n_nodes == 1:
+        assert regime == "shared"
 
 
 @pytest.mark.cuda
@@ -492,6 +530,32 @@ def test_tree_hist_kernel_fractional_within_tolerance_on_card(cuda_device):
     stats = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda_device)
     w = torch.from_numpy(rng.random((1, n)).astype(np.float32)).to(cuda_device)
     kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    out = tree_hist_cuda(binned_t, node, stats, w, **kw)
+    ref = tree_hist_reference(binned_t, node, stats, w, **kw)
+    scale = tree_hist_reference(binned_t, node, stats.abs(), w, **kw)
+    torch.cuda.synchronize()
+    assert bool(((out - ref).abs() <= HIST_TOL * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n_nodes", [(1, 128), (2, 64), (8, 32)])
+def test_tree_hist_kernel_fractional_rows_regime_on_card(cuda_device, T, n_nodes):
+    # GBT's shape (128 bins, S=3, signed fractional stats and weights) on
+    # the rows regime: one tree whose feature histogram does not fit a
+    # block, or trees whose shared-memory histograms would scan the rows
+    # too often; each cell within HIST_TOL of its absolute sum
+    rng = np.random.default_rng(T * n_nodes)
+    n, f, s, n_bins = 30000, 20, 3, 128
+    binned_t = torch.from_numpy(
+        rng.integers(0, n_bins, (f, n)).astype(np.int32)).to(cuda_device)
+    node = torch.from_numpy(
+        _skewed_nodes(rng, (T, n), n_nodes)).to(cuda_device)
+    stats = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32)).to(cuda_device)
+    w = rng.random((T, n)).astype(np.float32)
+    w[rng.random((T, n)) < 0.37] = 0.0
+    w = torch.from_numpy(w).to(cuda_device)
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    assert tree_hist_plan(n, f, T, n_nodes, n_bins, s)["regime"] == "rows"
     out = tree_hist_cuda(binned_t, node, stats, w, **kw)
     ref = tree_hist_reference(binned_t, node, stats, w, **kw)
     scale = tree_hist_reference(binned_t, node, stats.abs(), w, **kw)
