@@ -8,7 +8,8 @@ each of which fails the run (non-zero exit, no result line):
 1. print the card's name and power limit; build the CUDA kernels from
    ``sntc_tpu_torch/kernels/csrc`` (into ``sntc_tpu_torch/_build``);
 2. hold every kernel against its plain PyTorch version on the card, at
-   its path's full-width shapes: ``forest_traversal`` and
+   its path's full-width shapes: ``forest_traversal`` (unaligned 33 and
+   4 097 rows, S=3 and S=15, f32 and f64, with NaN) and
    ``pad_assemble`` bitwise (they only compare and copy); ``tree_hist``
    bitwise and equal to itself run twice on the fit's integer-valued
    stats (the chi-square contingency, a forest's root level, the widest
@@ -37,9 +38,14 @@ each of which fails the run (non-zero exit, no result line):
    real, skewed node distribution) against its plain version as in 2;
    time each kernel at its path's shapes with CUDA events beside its
    plain version, a PyTorch library call where one computes the same
-   function, and its bound (``tree_hist`` at the widest level group, the
-   contingency and the fit's levels 7 and 8); print the kernels as one
-   JSON line, then the card's line, then the result line.
+   function, and its bound (``forest_traversal`` at each serve
+   micro-batch size and the held-out evaluation's, on a random and on
+   the served forest, by CUDA events over whole calls (``ms``, as for
+   the other kernels) and by its device time a launch, 100 launches
+   queued back to back (``device_ms``); ``tree_hist`` at
+   the widest level group, the contingency and the fit's levels 7 and
+   8); print the kernels as one JSON line, then the card's line, then
+   the result line.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -99,6 +105,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 TREES, DEPTH, TOP, CLASSES = 20, 10, 40, 15  # bench config 3
 BATCHES = [512, 1000, 1024, 2048, 50000, 65536]  # rows per micro-batch
+# forest_traversal's timed launch shapes: serve micro-batches (after
+# padding) and the train phase's held-out evaluation
+FOREST_ROWS = (512, 2048, 49950, 65536)
 BUCKET_FLOOR = 256
 BINS = 32  # maxBins of the forest and the selector
 TRAIN_ROWS = 250_000  # generate_frame rows of the train phase, before cleaning
@@ -169,6 +178,35 @@ def time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, calls=100) -> float:
+    """Device time of one call of ``fn``, whose device work is one
+    kernel launch: CUDA events around ``calls`` calls queued behind a
+    spin kernel, so that the card runs them back to back without
+    waiting for the host.  Unlike ``time_ms``, it leaves out the host's
+    time to issue a call (the longer below ~20 000 rows for
+    ``forest_traversal``); it keeps the card's gaps between launches.
+    The spin is lengthened until the host has queued every call before
+    the card reaches the first."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 25  # ~17 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / calls
+        cycles *= 4
+    raise SystemExit(f"the card reached the first of {calls} calls before "
+                     "the host had queued them all")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise SystemExit(f"shape/dtype mismatch: {a.shape} {a.dtype} "
@@ -182,9 +220,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def check_kernels(dev) -> dict:
     rng = np.random.default_rng(SEED)
     errs = {"forest_traversal": 0.0, "pad_assemble": 0.0}
-    for n, dtype in ((65536, np.float32), (4097, np.float64),
-                     (1000, np.float32)):
-        feat, thr, leaf = random_forest(rng, TREES, DEPTH, TOP, CLASSES, dtype)
+    for n, dtype, S in ((65536, np.float32, CLASSES),
+                        (4097, np.float64, CLASSES),
+                        (1000, np.float32, CLASSES), (33, np.float32, CLASSES),
+                        (4097, np.float32, 3)):
+        feat, thr, leaf = random_forest(rng, TREES, DEPTH, TOP, S, dtype)
         X = rng.normal(size=(n, TOP)).astype(dtype)
         X[rng.random(X.shape) < 0.01] = np.nan  # NaN goes left
         args = [torch.from_numpy(a).to(dev) for a in (X, feat, thr, leaf)]
@@ -193,11 +233,12 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         if not torch.equal(out, ref):
-            raise SystemExit(f"forest_traversal N={n} {dtype.__name__}: "
-                             f"differs from the plain version ({err})")
+            raise SystemExit(f"forest_traversal N={n} S={S} "
+                             f"{dtype.__name__}: differs from the plain "
+                             f"version ({err})")
         errs["forest_traversal"] = max(errs["forest_traversal"], err)
         log(f"forest_traversal N={n} T={TREES} depth={DEPTH} F={TOP} "
-            f"S={CLASSES} {dtype.__name__}: bitwise equal")
+            f"S={S} {dtype.__name__}: bitwise equal")
     for n in (1, 1000, 4097, 50000):
         target = bucket_rows_for(n, BUCKET_FLOOR)
         for dtype in (torch.float32, torch.float64):
@@ -447,7 +488,10 @@ def serve(dev, work: str) -> dict:
     if launches != want:
         raise SystemExit(f"launches {launches}, expected {want}")
     summary["batches_rows"] = BATCHES
-    return summary
+    X = np.stack([traffic[CICIDS2017_FEATURES[j]] for j in selected], axis=1)
+    served = {"forest": rf._device_forest(),
+              "X": rf._features_on_device(X[:max(FOREST_ROWS)])}
+    return summary, served
 
 
 # -- phase 4: the train path -------------------------------------------------
@@ -851,33 +895,58 @@ def measure_tree_hist(cases: dict, err: float, launches: int) -> list:
     return out
 
 
-def measure(dev, errs: dict, launches: dict) -> list:
+def measure_forest(dev, served: dict, err: float, launches: int) -> list:
+    """``forest_traversal`` at each of ``FOREST_ROWS``, on two forests:
+    complete random trees of depth 10 over standard-normal features (the
+    JSON line's entry is its 65 536-row shape), and the config-3 forest
+    the serve phase served, over the served traffic's own rows."""
     rng = np.random.default_rng(SEED + 2)
-    # forest_traversal at the largest micro-batch of the serve path
-    n = max(BATCHES)
     feat, thr, leaf = random_forest(rng, TREES, DEPTH, TOP, CLASSES,
                                     leaf_p=0.0)
-    X = rng.normal(size=(n, TOP)).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (X, feat, thr, leaf)]
-    M = feat.shape[1]
-    f_bytes, f_ops = forest_work(*args, depth=DEPTH)
-    forest = {
-        "name": "forest_traversal", "route": "cuda",
-        "source": "sntc_tpu_torch/kernels/csrc/forest_traversal.cu",
-        "replaces": "sntc_tpu/kernels/forest.py:92",
-        "launches": launches["forest_traversal"],
-        "max_abs_err": errs["forest_traversal"],
-        "ms": time_ms(lambda: forest_leaf_stats_cuda(*args, max_depth=DEPTH)),
-        "plain_ms": time_ms(
-            lambda: forest_leaf_stats_reference(*args, max_depth=DEPTH)),
-        "bound_ms": max(f_bytes / HBM_BYTES_PER_S, f_ops / FP32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if f_bytes / HBM_BYTES_PER_S
-        >= f_ops / FP32_OPS_PER_S else "operations",
-        "library_ms": None,
-        "shape": f"X [{n}, {TOP}] f32, T={TREES}, M={M}, S={CLASSES}; "
-                 f"needs {f_bytes} B, {f_ops} comparisons",
+    X = rng.normal(size=(max(FOREST_ROWS), TOP)).astype(np.float32)
+    forests = {
+        f"random depth-{DEPTH} forest, normal X": (
+            torch.from_numpy(X).to(dev),
+            [torch.from_numpy(a).to(dev) for a in (feat, thr, leaf)]),
+        "served config-3 forest, traffic X": (served["X"],
+                                              list(served["forest"])),
     }
-    # pad_assemble at the largest padded micro-batch: 78 f64 columns
+    out = []
+    for name, (X_all, forest) in forests.items():
+        T, M = forest[0].shape
+        for n in FOREST_ROWS:
+            args = [X_all[:n].contiguous(), *forest]
+            nbytes, ops = forest_work(*args, depth=DEPTH)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = ops / FP32_OPS_PER_S * 1e3
+            out.append({
+                "name": "forest_traversal", "route": "cuda",
+                "source": "sntc_tpu_torch/kernels/csrc/forest_traversal.cu",
+                "replaces": "sntc_tpu/kernels/forest.py:92",
+                "launches": launches, "max_abs_err": err,
+                "ms": time_ms(
+                    lambda: forest_leaf_stats_cuda(*args, max_depth=DEPTH)),
+                # the kernel's own time: below ~20 000 rows a call's
+                # host work outlasts it
+                "device_ms": kernel_device_ms(
+                    lambda: forest_leaf_stats_cuda(*args, max_depth=DEPTH)),
+                "plain_ms": time_ms(
+                    lambda: forest_leaf_stats_reference(*args,
+                                                        max_depth=DEPTH)),
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "library_ms": None,  # no single PyTorch call walks a tree
+                "shape": f"{name}: X [{n}, {TOP}] f32, T={T}, M={M}, "
+                         f"S={forest[2].shape[2]}; needs {nbytes} B, {ops} "
+                         "comparisons",
+                "rows": n, "forest": name,
+            })
+    return out
+
+
+def measure_pad(dev, errs: dict, launches: dict) -> dict:
+    """``pad_assemble`` at the largest padded micro-batch: 78 f64
+    columns."""
     n = max(b for b in BATCHES if bucket_rows_for(b, BUCKET_FLOOR) != b)
     target = bucket_rows_for(n, BUCKET_FLOOR)
     a = torch.randn((n, len(CICIDS2017_FEATURES)), dtype=torch.float64,
@@ -897,7 +966,7 @@ def measure(dev, errs: dict, launches: dict) -> list:
         "library_ms": time_ms(lambda: a.index_select(0, idx)),
         "shape": f"[{n}, 78] f64 -> [{target}, 78]; needs {p_bytes} B",
     }
-    return [forest, pad]
+    return pad
 
 
 def main() -> int:
@@ -922,14 +991,17 @@ def main() -> int:
         data = fit_data(work)
         cases = hist_cases(data["train"], dev)
         errs["tree_hist"] = check_tree_hist(cases)
-        summary = serve(dev, work)
+        summary, served = serve(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
     reduced = reduced_fit(data, dev)
     fit = fit_breakdown(data, dev)
     own = fit.pop("cases")
     errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own))
-    kernels = measure(dev, errs, summary["kernel_launches"])
+    walks = measure_forest(dev, served, errs["forest_traversal"],
+                           summary["kernel_launches"]["forest_traversal"])
+    kernels = [next(k for k in walks if k["rows"] == max(FOREST_ROWS))]
+    kernels.append(measure_pad(dev, errs, summary["kernel_launches"]))
     timed = {k: cases[k] for k in ("widest level group", "chisq")}
     hist = measure_tree_hist({**timed, **own}, errs["tree_hist"],
                              trained["kernel_launches"]["tree_hist"])
@@ -961,7 +1033,13 @@ def main() -> int:
             f"{x['device_ms']:.4f} ms; {_plan(x)} [{card}]")
     log(f"tree_hist in the profiled fit: {len(fit['tree_hist_launches'])} "
         f"launches, {fit['tree_hist_ms']:.4f} ms of device time [{card}]")
-    for k in kernels[:2]:
+    for k in walks:
+        log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches over "
+            f"{len(BATCHES)} batches [{card}]")
+    for k in kernels[1:2]:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
@@ -979,9 +1057,11 @@ def main() -> int:
                        "serve": summary, "rows_per_s": rows_per_s,
                        "breakdown": stages, "train": trained,
                        "reduced_fit": reduced, "fit": fit,
-                       "tree_hist": hist, "kernels": kernels}, f, indent=1)
+                       "forest_traversal": walks, "tree_hist": hist,
+                       "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": [
-        {k2: v for k2, v in k.items() if k2 not in ("shape", "plan")}
+        {k2: v for k2, v in k.items()
+         if k2 not in ("shape", "plan", "rows", "forest")}
         for k in kernels
     ]}))
     print(card)

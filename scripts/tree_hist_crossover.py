@@ -25,12 +25,7 @@ only measures where it should sit.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
 import os
-import re
-import subprocess
 import sys
 import tempfile
 
@@ -40,6 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke as smoke  # noqa: E402
+from kernel_variants import build, in_turns, parse_args, write_json  # noqa: E402
 from sntc_tpu_torch.kernels import _build  # noqa: E402
 from sntc_tpu_torch.kernels.histogram import (  # noqa: E402
     tree_hist_plan,
@@ -50,46 +46,6 @@ SRC = os.path.join(_build.CSRC, "tree_hist.cu")
 DEFAULT_VARIANTS = {"shared": {"kMaxSmemScans": str(1 << 62)},
                     "rows": {"kMaxSmemScans": "0"}}
 SMEM_FLOATS = 96 * 1024 // 4  # kSmemFloats of the source
-
-
-def pin(src: str, consts: dict) -> str:
-    for name, value in consts.items():
-        pattern = rf"(constexpr\s+\w+\s+{name}\s*=\s*)[^;]+;"
-        if len(re.findall(pattern, src)) != 1:
-            raise SystemExit(f"{name} not found once in tree_hist.cu")
-        src = re.sub(pattern, rf"\g<1>{value};", src)
-    return src
-
-
-def build(work: str, variants: dict, baselines: dict) -> dict:
-    """One shared library per variant and baseline, compiled in
-    parallel."""
-    sources = {name: pin(open(SRC).read(), consts)
-               for name, consts in variants.items()}
-    sources.update({name: open(path).read()
-                    for name, path in baselines.items()})
-    procs = {}
-    for name, text in sources.items():
-        cu = os.path.join(work, f"tree_hist_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        so = os.path.join(work, f"libtree_hist_{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), "-std=c++17", "-Xcompiler", "-fPIC", "-shared",
-             "-Xptxas=-v", *_build.CUDA_FLAGS, cu, "-o", so],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{out}")
-        regs = re.findall(r"Used (\d+) registers", out)
-        print(f"built {name}: registers per kernel {regs}", flush=True)
-        lib = ctypes.CDLL(so)
-        lib.sntc_tree_hist_f32.argtypes = _build._SIGNATURES["sntc_tree_hist_f32"]
-        lib.sntc_tree_hist_f32.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def gbt_cases(gbt: dict) -> dict:
@@ -138,29 +94,15 @@ def launcher(lib, c: dict):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME:CONST=VALUE[,CONST=VALUE] (repeatable; "
-                         "replaces the default shared/rows pair)")
-    ap.add_argument("--baseline", action="append", default=[],
-                    help="NAME=PATH of another tree_hist.cu with the same "
-                         "entry point (repeatable)")
-    ap.add_argument("--out-json", default=None)
-    args = ap.parse_args()
+    args, variants, baselines = parse_args(__doc__, DEFAULT_VARIANTS)
     if not torch.cuda.is_available():
         print("tree_hist_crossover: no CUDA device", file=sys.stderr)
         return 1
-    variants = DEFAULT_VARIANTS
-    if args.variant:
-        variants = {}
-        for v in args.variant:
-            name, _, consts = v.partition(":")
-            variants[name] = dict(kv.split("=", 1) for kv in consts.split(","))
     dev = torch.device("cuda")
     card = smoke.gpu_line()
     with tempfile.TemporaryDirectory(prefix="sntc_crossover_") as work:
-        baselines = dict(b.split("=", 1) for b in args.baseline)
-        libs = build(work, variants, baselines)
+        libs = build(work, SRC, variants, baselines,
+                     ["sntc_tree_hist_f32"])
         data = smoke.fit_data(work)
         uniform = smoke.hist_cases(data["train"], dev)
         smoke.pipeline(dev, smoke.DEPTH).fit(data["train"])  # warm pass
@@ -179,7 +121,6 @@ def main() -> int:
             cases[f"uniform root level, {T} trees"] = dict(
                 root, node_idx=root["node_idx"][:T].contiguous(),
                 weights=root["weights"][:T].contiguous())
-        order = list(libs) + list(libs)[::-1]
         rows = []
         for name, c in cases.items():
             args_, kw = smoke._hist_args(c)
@@ -190,9 +131,7 @@ def main() -> int:
                     raise SystemExit(f"{name}: the {k} build differs from "
                                      "the plain version")
             del ref
-            ms = {k: [] for k in libs}
-            for k in order:
-                ms[k].append(smoke.time_ms(launch[k]))
+            ms = in_turns(launch, smoke.time_ms)
             F, N = c["binned_t"].shape
             T, S = c["node_idx"].shape[0], c["stats"].shape[1]
             feat_floats = c["n_nodes"] * c["n_bins"] * S
@@ -209,12 +148,8 @@ def main() -> int:
                   f"whole features a block: "
                   + ", ".join(f"{k} {v}" for k, v in ms.items())
                   + f" ms; fastest {best} [{card}]", flush=True)
-    if args.out_json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
-                    exist_ok=True)
-        with open(args.out_json, "w") as f:
-            json.dump({"card": card, "variants": variants,
-                       "baselines": baselines, "rows": rows}, f, indent=1)
+    write_json(args.out_json, card=card, variants=variants,
+               baselines=baselines, rows=rows)
     return 0
 
 

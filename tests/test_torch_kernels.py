@@ -54,16 +54,17 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _random_forest(rng, T, max_depth, F, S, dtype=np.float32):
+def _random_forest(rng, T, max_depth, F, S, dtype=np.float32, p_split=0.7):
     """A structurally valid random dense-heap forest: internal nodes carry
-    a feature/threshold, leaves carry stats, absent slots are -2."""
+    a feature/threshold, leaves carry stats, absent slots are -2; a node
+    above ``max_depth`` splits with probability ``p_split``."""
     M = 2 ** (max_depth + 1) - 1
     feat = np.full((T, M), -2, np.int32)
     thr = np.zeros((T, M), dtype)
     leaf = np.zeros((T, M, S), dtype)
 
     def build(t, node, depth):
-        if depth < max_depth and rng.random() < 0.7:
+        if depth < max_depth and rng.random() < p_split:
             feat[t, node] = rng.integers(0, F)
             thr[t, node] = rng.normal()
             build(t, 2 * node + 1, depth + 1)
@@ -110,6 +111,11 @@ FOREST_CASES = [
     (2, 128, 4, 5, 3, 0.0),
     (4, 130, 6, 2, 5, 0.05),
     (3, 333, 9, 15, 6, 0.02),
+    # one stat (the GBT/DT heads' shape), an unaligned row count, and a
+    # forest deeper than the CUDA kernel stages in shared memory
+    (2, 33, 5, 1, 4, 0.1),
+    (1, 33, 8, 16, 7, 0.0),
+    (3, 40, 6, 3, 12, 0.05),
 ]
 
 
@@ -123,7 +129,8 @@ def test_forest_reference_matches_jax_twin_f32(T, N, F, S, max_depth, nan):
     np.testing.assert_array_equal(out, _jax_twin(X, feat, thr, leaf, max_depth))
 
 
-@pytest.mark.parametrize("T,N,F,S,max_depth,nan", FOREST_CASES[1:4])
+@pytest.mark.parametrize("T,N,F,S,max_depth,nan",
+                         FOREST_CASES[1:4] + FOREST_CASES[5:])
 def test_forest_reference_matches_pallas_interpret_f32(
     T, N, F, S, max_depth, nan
 ):
@@ -460,14 +467,51 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("N", [1, 1000, 4097])
-def test_forest_kernel_matches_plain_version_on_card(cuda_device, N, dtype):
-    rng = np.random.default_rng(N)
-    feat, thr, leaf = _random_forest(rng, 5, 6, 9, 15, dtype)
-    X = _features(rng, N, 9, dtype, 0.05)
+@pytest.mark.parametrize("T,N,F,S,max_depth,p_split", [
+    (5, 1, 9, 15, 6, 0.7),
+    (5, 1000, 9, 15, 6, 0.7),
+    (5, 4097, 9, 15, 6, 0.7),
+    # ragged and unaligned output runs (N*S not a multiple of 4)
+    (20, 31, 40, 15, 10, 0.9),
+    (20, 33, 40, 3, 10, 0.9),
+    (1, 33, 40, 1, 10, 0.9),
+    # several trees a block (the largest serve batch), and one tree
+    (20, 65536, 40, 15, 10, 0.9),
+    (1, 65536, 40, 16, 10, 0.9),
+    # the GBT/DT heads' stats
+    (20, 4097, 40, 1, 5, 0.9),
+    # deeper than the levels staged in shared memory
+    (3, 4097, 40, 16, 13, 0.9),
+    (20, 2048, 40, 3, 15, 0.85),
+    # an X tile too wide for shared memory: X through the read-only path
+    (2, 1000, 200, 15, 8, 0.9),
+])
+def test_forest_kernel_matches_plain_version_on_card(
+    cuda_device, T, N, F, S, max_depth, p_split, dtype
+):
+    rng = np.random.default_rng(N * 31 + T * 7 + max_depth)
+    feat, thr, leaf = _random_forest(rng, T, max_depth, F, S, dtype, p_split)
+    X = _features(rng, N, F, dtype, 0.05)
     args = [torch.from_numpy(a).to(cuda_device) for a in (X, feat, thr, leaf)]
-    out = forest_leaf_stats_cuda(*args, max_depth=6)
-    ref = forest_leaf_stats_reference(*args, max_depth=6)
+    out = forest_leaf_stats_cuda(*args, max_depth=max_depth)
+    ref = forest_leaf_stats_reference(*args, max_depth=max_depth)
+    torch.cuda.synchronize()
+    assert out.shape == (T, N, S)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", [-1, 0, 3])
+def test_forest_kernel_walks_at_most_max_depth_levels_on_card(
+    cuda_device, walk
+):
+    # a walk shorter than the forest (a negative one walks no level)
+    rng = np.random.default_rng(11)
+    feat, thr, leaf = _random_forest(rng, 4, 6, 9, 3, np.float32, 0.9)
+    X = _features(rng, 300, 9, np.float32, 0.05)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, feat, thr, leaf)]
+    out = forest_leaf_stats_cuda(*args, max_depth=walk)
+    ref = forest_leaf_stats_reference(*args, max_depth=walk)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
 
