@@ -12,7 +12,9 @@ script builds that source once per variant, each with the named
 constants pinned (by default two: ``shared``, the shared regime
 wherever a whole feature fits, and ``rows``, the rows regime
 everywhere), and optionally other sources with the same entry point
-(``--baseline``, e.g. the parent commit's).  It records the inputs of
+(``--baseline``, e.g. the parent commit's; the entry point takes the
+stats' tree stride since the per-tree-stats form, so an older source
+needs that argument added).  It records the inputs of
 the 12 launches of one full-width fit (``chip_smoke.py``'s train split
 and pipeline), adds ``chip_smoke.py``'s uniform shapes, its root level
 cut to 1 to 8 trees and GBT's shape at 1 to 64 nodes, and times every build on every case with CUDA events,
@@ -77,8 +79,9 @@ def launcher(lib, c: dict):
     makes it: a zeroed output, then the launch."""
     bins, node, stats, w = c["binned_t"], c["node_idx"], c["stats"], c["weights"]
     F, N = bins.shape
-    T, S = node.shape[0], stats.shape[1]
+    T, S = node.shape[0], stats.shape[-1]
     shape = (T, F, c["n_nodes"] * c["n_bins"], S)
+    stride = N * S if stats.ndim == 3 else 0  # per-tree or shared stats
     stream = _build.stream_handle(stats.device)
 
     def call():
@@ -86,7 +89,8 @@ def launcher(lib, c: dict):
         err = lib.sntc_tree_hist_f32(
             bins.data_ptr(), node.data_ptr(),
             None if w is None else w.data_ptr(), stats.data_ptr(),
-            out.data_ptr(), N, F, T, c["n_nodes"], c["n_bins"], S, stream)
+            out.data_ptr(), N, F, T, c["n_nodes"], c["n_bins"], S, stride,
+            stream)
         if err != 0:
             raise SystemExit(f"launch failed: CUDA error {err}")
         return out
@@ -133,7 +137,7 @@ def main() -> int:
             del ref
             ms = in_turns(launch, smoke.time_ms)
             F, N = c["binned_t"].shape
-            T, S = c["node_idx"].shape[0], c["stats"].shape[1]
+            T, S = c["node_idx"].shape[0], c["stats"].shape[-1]
             feat_floats = c["n_nodes"] * c["n_bins"] * S
             row = {"case": name, "F": F, "N": N, "T": T, "S": S,
                    "nodes": c["n_nodes"], "bins": c["n_bins"],

@@ -6,7 +6,8 @@ Plain tensor code is PyTorch; every Pallas kernel of the JAX package on
 a ported path is a CUDA kernel written by hand for ``sm_90a``, built from
 ``kernels/csrc/`` at first use.
 
-The port trains and serves random-forest pipelines:
+The port trains and serves random-forest, decision-tree and
+one-vs-rest gradient-boosted-tree pipelines:
 
   core/        Params, Frame (numpy or device-tensor columns), Estimator,
                Pipeline, PipelineModel
@@ -14,12 +15,14 @@ The port trains and serves random-forest pipelines:
   feature/     VectorAssembler, ChiSqSelector, StringIndexer (+ models),
                IndexToString
   ops/         quantile binning, the chi-square contingency
-  models/      ClassificationModel, RandomForestClassifier (+ model), the
-               level-wise grower
+  models/      ClassificationModel, RandomForestClassifier,
+               DecisionTreeClassifier, GBTClassifier, OneVsRest (+ their
+               models), the level-wise grower
   evaluation/  MulticlassClassificationEvaluator
   kernels/     tree_hist, forest_traversal, pad_assemble (CUDA) + their
                plain versions
-  mlio/        load/save in the JAX package's directory format
+  mlio/        load/save in the JAX package's directory format; mid-fit
+               round checkpoints
   serve/       BatchPredictor (shape buckets), file-source streaming with
                an exactly-once offset log
   app.py       ``python -m sntc_tpu_torch train`` and ``serve``

@@ -1,7 +1,8 @@
 """Command-line entry point of the port.
 
-    python -m sntc_tpu_torch train --data data/days --estimator rf \\
+    python -m sntc_tpu_torch train --data data/days --estimator rf|gbt|dt \\
         [--chisq-top 40] [--num-trees 20] [--max-depth 10] \\
+        [--max-iter 10] [--step-size 0.1] [--max-bins 128] \\
         [--model-out m/] [--device cuda|cpu]
     python -m sntc_tpu_torch serve --model m/ --watch data/in \\
         --out data/out --checkpoint data/ckpt [--shape-buckets N] \\
@@ -12,8 +13,11 @@ read and clean every CSV of ``--data``, split off ``--test-fraction``
 with ``--seed``, fit StringIndexer → VectorAssembler(78) → [ChiSqSelector
 top ``--chisq-top``] → the estimator, report the held-out ``--metric``
 as one JSON line (with the kernel launch counts), and save the fitted
-pipeline to ``--model-out`` in the format both packages load.  The
-random forest (``rf``) is the estimator ported so far.
+pipeline to ``--model-out`` in the format both packages load.  Ported
+so far: the random forest (``rf``), OneVsRest over gradient-boosted
+trees (``gbt``: ``--max-iter`` rounds of ``--step-size``, bench config 4
+with ``--chisq-top 0 --max-iter 10 --max-depth 4``) and the single
+decision tree (``dt``); ``gbt`` and ``dt`` bin ``--max-bins`` ways.
 
 ``serve`` is the counterpart of ``cmd_serve`` in its plain form: load a
 saved pipeline, take off the LABEL ``StringIndexerModel`` (live
@@ -91,8 +95,38 @@ def serving_form(model, label_index_col: str = "label"):
     return model, labels, out_cols
 
 
-# estimators of the JAX package's train command; only rf is ported
+# estimators of the JAX package's train command, and those ported
 TRAIN_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt", "nb", "svc"]
+PORTED_ESTIMATORS = ["rf", "gbt", "dt"]
+
+
+def _build_estimator(args, device):
+    """The estimator ``--estimator`` names, as the JAX command builds
+    it."""
+    from sntc_tpu_torch.models import (
+        DecisionTreeClassifier,
+        GBTClassifier,
+        OneVsRest,
+        RandomForestClassifier,
+    )
+
+    if args.estimator == "rf":
+        return RandomForestClassifier(
+            device=device, numTrees=args.num_trees, maxDepth=args.max_depth,
+            seed=args.seed,
+        )
+    if args.estimator == "gbt":
+        return OneVsRest(
+            classifier=GBTClassifier(
+                device=device, maxIter=args.max_iter, maxDepth=args.max_depth,
+                stepSize=args.step_size, seed=args.seed,
+                maxBins=args.max_bins,
+            ),
+        )
+    return DecisionTreeClassifier(
+        device=device, maxDepth=args.max_depth, maxBins=args.max_bins,
+        seed=args.seed,
+    )
 
 
 def _feature_stages(args, device):
@@ -139,11 +173,11 @@ def cmd_train(args) -> int:
     from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
     from sntc_tpu_torch.kernels import LAUNCHES
     from sntc_tpu_torch.mlio import save_model
-    from sntc_tpu_torch.models import RandomForestClassifier
 
-    if args.estimator != "rf":
+    if args.estimator not in PORTED_ESTIMATORS:
         raise SystemExit(
-            f"estimator {args.estimator!r} is not ported yet (ported: rf)"
+            f"estimator {args.estimator!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_ESTIMATORS)})"
         )
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -157,10 +191,8 @@ def cmd_train(args) -> int:
     # the trees read the last feature stage's column: the selector's
     # output, or the assembler's unscaled features without one
     features_col = args.features_col if args.chisq_top else "rawFeatures"
-    est = RandomForestClassifier(
-        device=device, numTrees=args.num_trees, maxDepth=args.max_depth,
-        seed=args.seed, featuresCol=features_col,
-    )
+    est = _build_estimator(args, device)
+    est.set("featuresCol", features_col)
     pipe = Pipeline(stages=_feature_stages(args, device) + [est])
     t0 = time.perf_counter()
     model = pipe.fit(train)
@@ -253,8 +285,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--estimator", default="mlp", choices=TRAIN_ESTIMATORS)
     p.add_argument("--model-out", default=None)
     p.add_argument("--test-fraction", type=float, default=0.2)
+    p.add_argument("--max-iter", type=int, default=100,
+                   help="boosting rounds (gbt)")
     p.add_argument("--num-trees", type=int, default=20)
     p.add_argument("--max-depth", type=int, default=5)
+    p.add_argument("--step-size", type=float, default=0.1,
+                   help="boosting shrinkage (gbt)")
+    p.add_argument("--max-bins", type=int, default=128,
+                   help="quantile bins per feature (gbt, dt)")
     p.add_argument("--chisq-top", type=int, default=0,
                    help="if > 0, select this many features by chi-square")
     p.add_argument("--features-col", default="features")

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "sntc_forest_leaf_stats_f64": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
     "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, _P],
     "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, _P],
-    "sntc_tree_hist_f32": [_P] * 5 + [_I64] * 6 + [_P],
+    "sntc_tree_hist_f32": [_P] * 5 + [_I64] * 7 + [_P],
     "sntc_tree_hist_plan": [_I64] * 6 + [_P],
 }
 

@@ -2,11 +2,15 @@
 // tree of a forest in one launch — the histogram of the level-wise tree
 // grower and of the chi-square contingency.
 //
-//     out[t, f, node[t, n] * B + bin[f, n], :] += stats[n, :] * w[t, n]
+//     out[t, f, node[t, n] * B + bin[f, n], :] += stats[t, n, :] * w[t, n]
 //
 // over rows n with 0 <= node[t, n] < n_nodes, w[t, n] != 0 and
 // 0 <= bin[f, n] < B (w = 1 when no weights are given).  The output is
-// zeroed by the caller.
+// zeroed by the caller.  The stats are shared by every tree ([N, S], a
+// tree stride of 0: the random forest's one-hot classes) or one row of
+// stats per tree ([T, N, S], a tree stride of N * S: the one-vs-rest
+// boosting fit, whose K class trees of a round each carry their class's
+// signed residual stats [w, wr, wr^2]).
 //
 // Replaces the Pallas kernel `_hist_kernel` behind `level_histogram_pallas`
 // (sntc_tpu/ops/pallas_histogram.py).  The TPU serialises scatter-adds, so
@@ -29,11 +33,14 @@
 //
 //   * rows (tree_hist_rows_kernel): one thread per row.  It reads the
 //     row's node ids and weights for up to kTreeChunk trees into
-//     registers (coalesced across the warp) and a mask of its non-zero
-//     stats, then walks the features, kFeatBatch bins loads in flight,
-//     and makes, for every tree whose node is in range and whose weight
-//     is non-zero, one atomicAdd with its result unused (red.global.add,
-//     resolved in L2) per non-zero stat.  Each warp starts at its own
+//     registers (coalesced across the warp) and, with shared stats, a
+//     mask of its non-zero stats, then walks the features, kFeatBatch
+//     bins loads in flight, and makes, for every tree whose node is in
+//     range and whose weight is non-zero, one atomicAdd with its result
+//     unused (red.global.add, resolved in L2) per non-zero stat.  With
+//     per-tree stats the values and their zeros differ from tree to
+//     tree, so each tree's stats row is read (through L1) and tested
+//     for zeros per tree, not masked once per row.  Each warp starts at its own
 //     feature, so the reductions in flight spread over every feature's
 //     histograms instead of piling onto the hot node's cells of one.
 //     Each input is read once per pass of kTreeChunk trees (T=20 takes
@@ -48,8 +55,10 @@
 // Where the switch sits, and the times that set it: kMaxSmemScans.
 //
 // Rows with node -1 or weight 0 (~37 % under Poisson(1) bagging) are
-// skipped, and so are adds of exact zeros (14 of 15 one-hot class stats):
-// neither changes the sum.  Sums are taken in a run-to-run varying order.
+// skipped, and so are adds of exact zeros (14 of 15 one-hot class stats;
+// boosting's dense signed stats have almost none): neither changes the
+// sum.  The regime switch was timed on shared stats; per-tree stats take
+// the same plan (sntc_tree_hist_plan reports it).  Sums are taken in a run-to-run varying order.
 // With integer-valued weights and stats (bagging counts, one-hot classes)
 // every cell is a small-integer f32 sum below 2^24, exact in any order, so
 // both regimes are bitwise equal to the plain version and to themselves
@@ -117,10 +126,11 @@ __global__ void __launch_bounds__(kThreads) tree_hist_smem_kernel(
     const int32_t* __restrict__ bins,    // [F, N]
     const int32_t* __restrict__ node,    // [T, N], -1 = inactive
     const float* __restrict__ weight,    // [T, N] or nullptr (all 1)
-    const float* __restrict__ stats,     // [N, S]
+    const float* __restrict__ stats,     // [N, S] or [T, N, S]
     float* __restrict__ out,             // [T, F, n_nodes * B, S], zeroed
     int64_t n, int64_t n_feat, int64_t n_nodes, int64_t n_bins, int64_t s,
-    int64_t feats_per_block, int64_t rows_per_block) {
+    int64_t stats_tree_stride, int64_t feats_per_block,
+    int64_t rows_per_block) {
   extern __shared__ float hist[];  // [feats_per_block, n_nodes * B, S]
   const int64_t width = n_nodes * n_bins * s;  // floats per feature
   const int64_t f0 = (int64_t)blockIdx.y * feats_per_block;
@@ -134,12 +144,13 @@ __global__ void __launch_bounds__(kThreads) tree_hist_smem_kernel(
   const int64_t row1 = min64(n, row0 + rows_per_block);
   const int32_t* node_t = node + t * n;
   const float* w_t = weight == nullptr ? nullptr : weight + t * n;
+  const float* stats_t = stats + t * stats_tree_stride;  // the block's tree
   for (int64_t r = row0 + threadIdx.x; r < row1; r += blockDim.x) {
     const int64_t nd = node_t[r];
     if (nd < 0 || nd >= n_nodes) continue;
     const float w = w_t == nullptr ? 1.f : w_t[r];
     if (w == 0.f) continue;
-    const float* st = stats + r * s;
+    const float* st = stats_t + r * s;
     for (int64_t k0 = 0; k0 < s; k0 += 32) {
       const uint32_t nz = nonzero_stats(st, k0, s);
       if (nz == 0) continue;
@@ -171,14 +182,18 @@ __global__ void __launch_bounds__(kThreads) tree_hist_smem_kernel(
   }
 }
 
+// kPerTree: stats [T, N, S] at stats_tree_stride = N * S per tree;
+// otherwise stats [N, S] shared by every tree (stride 0)
+template <bool kPerTree>
 __global__ void __launch_bounds__(kRowThreads) tree_hist_rows_kernel(
     const int32_t* __restrict__ bins,    // [F, N]
     const int32_t* __restrict__ node,    // [T, N], -1 = inactive
     const float* __restrict__ weight,    // [T, N] or nullptr (all 1)
-    const float* __restrict__ stats,     // [N, S]
+    const float* __restrict__ stats,     // [N, S] or [T, N, S]
     float* __restrict__ out,             // [T, F, n_nodes * B, S], zeroed
     int64_t n, int64_t n_feat, int64_t n_trees, int64_t n_nodes,
-    int64_t n_bins, int64_t s, int64_t trees_per_pass) {
+    int64_t n_bins, int64_t s, int64_t stats_tree_stride,
+    int64_t trees_per_pass) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int64_t t0 = (int64_t)blockIdx.y * trees_per_pass;
@@ -210,11 +225,42 @@ __global__ void __launch_bounds__(kRowThreads) tree_hist_rows_kernel(
   }
   if (!any) return;
 
-  const float* st = stats + r * s;
   float* out_c = out + t0 * tree_floats;
   // each warp walks the features from its own start, so that the warps
   // in flight spread their reductions over every feature's histograms
   const int64_t rot = (r >> 5) % n_feat;
+  if (kPerTree) {
+    // the row's stats of tree t0 + j: stats[t0 + j, r, :]
+    const float* st0 = stats + t0 * stats_tree_stride + r * s;
+    for (int64_t i0 = 0; i0 < n_feat; i0 += kFeatBatch) {
+      int32_t bb[kFeatBatch];
+#pragma unroll
+      for (int i = 0; i < kFeatBatch; ++i) {
+        int64_t f = rot + i0 + i;
+        if (f >= n_feat) f -= n_feat;
+        bb[i] = i0 + i < n_feat ? bins[f * n + r] : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < kFeatBatch; ++i) {
+        const int64_t b = bb[i];
+        if (b < 0 || b >= n_bins) continue;
+        int64_t f = rot + i0 + i;
+        if (f >= n_feat) f -= n_feat;
+        float* of = out_c + f * feat_floats + b * s;
+#pragma unroll
+        for (int j = 0; j < kTreeChunk; ++j) {
+          if (off[j] < 0) continue;
+          const float* st = st0 + j * stats_tree_stride;
+          for (int64_t k = 0; k < s; ++k) {
+            const float v = st[k];
+            if (v != 0.f) atomicAdd(of + off[j] + k, v * w[j]);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const float* st = stats + r * s;
   for (int64_t k0 = 0; k0 < s; k0 += 32) {
     const uint32_t nz = nonzero_stats(st, k0, s);
     if (nz == 0) continue;
@@ -321,20 +367,30 @@ extern "C" int sntc_tree_hist_plan(int64_t n, int64_t n_feat, int64_t n_trees,
   return 0;
 }
 
+// stats_tree_stride: 0 for stats [N, S] shared by every tree, N * S for
+// stats [T, N, S], one row of stats per tree
 extern "C" int sntc_tree_hist_f32(
     const void* bins, const void* node, const void* weight, const void* stats,
     void* out, int64_t n, int64_t n_feat, int64_t n_trees, int64_t n_nodes,
-    int64_t n_bins, int64_t s, void* stream) {
+    int64_t n_bins, int64_t s, int64_t stats_tree_stride, void* stream) {
+  if (stats_tree_stride != 0 && stats_tree_stride != n * s)
+    return (int)cudaErrorInvalidValue;
   Plan p;
   const int perr = make_plan(n, n_feat, n_trees, n_nodes, n_bins, s, &p);
   if (perr != 0) return perr;
   const cudaStream_t st = (cudaStream_t)stream;
   if (p.regime == kRows) {
     const dim3 grid((unsigned)p.row_blocks, (unsigned)p.grid_y);
-    tree_hist_rows_kernel<<<grid, kRowThreads, 0, st>>>(
-        (const int32_t*)bins, (const int32_t*)node, (const float*)weight,
-        (const float*)stats, (float*)out, n, n_feat, n_trees, n_nodes, n_bins,
-        s, p.trees_per_pass);
+    if (stats_tree_stride != 0)
+      tree_hist_rows_kernel<true><<<grid, kRowThreads, 0, st>>>(
+          (const int32_t*)bins, (const int32_t*)node, (const float*)weight,
+          (const float*)stats, (float*)out, n, n_feat, n_trees, n_nodes,
+          n_bins, s, stats_tree_stride, p.trees_per_pass);
+    else
+      tree_hist_rows_kernel<false><<<grid, kRowThreads, 0, st>>>(
+          (const int32_t*)bins, (const int32_t*)node, (const float*)weight,
+          (const float*)stats, (float*)out, n, n_feat, n_trees, n_nodes,
+          n_bins, s, 0, p.trees_per_pass);
     return (int)cudaGetLastError();
   }
   const cudaError_t err = cudaFuncSetAttribute(
@@ -346,6 +402,6 @@ extern "C" int sntc_tree_hist_f32(
   tree_hist_smem_kernel<<<grid, kThreads, (size_t)p.smem_bytes, st>>>(
       (const int32_t*)bins, (const int32_t*)node, (const float*)weight,
       (const float*)stats, (float*)out, n, n_feat, n_nodes, n_bins, s,
-      p.feats_per_block, p.rows_per_block);
+      stats_tree_stride, p.feats_per_block, p.rows_per_block);
   return (int)cudaGetLastError();
 }

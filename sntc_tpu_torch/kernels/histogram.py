@@ -5,11 +5,14 @@ Counterpart of ``sntc_tpu/ops/pallas_histogram.py``
 :func:`tree_hist` returns, for every tree ``t`` of a forest, the weighted
 sufficient statistics of one level ``[T, F, n_nodes·n_bins, S]``::
 
-    out[t, f, node[t, n]·n_bins + bin[f, n], :] += stats[n, :] · w[t, n]
+    out[t, f, node[t, n]·n_bins + bin[f, n], :] += stats[t, n, :] · w[t, n]
 
 over rows whose node id lies in ``[0, n_nodes)`` (``-1`` marks an
 inactive row) and whose bin lies in ``[0, n_bins)``; ``w`` is 1 when no
-weights are given.  One call covers all ``T`` trees:
+weights are given.  The stats are ``[N, S]``, shared by every tree (the
+random forest's one-hot classes), or ``[T, N, S]``, one row of stats per
+tree (the one-vs-rest boosting fit: the JAX grower maps the Pallas
+kernel over its per-class stats).  One call covers all ``T`` trees:
 
 * on a CUDA tensor it launches ``csrc/tree_hist.cu``
   (:func:`tree_hist_cuda`) or raises;
@@ -41,13 +44,19 @@ from sntc_tpu_torch.kernels import _build
 
 def _check(binned_t, node_idx, stats, weights, n_nodes: int,
            n_bins: int) -> None:
-    if binned_t.ndim != 2 or node_idx.ndim != 2 or stats.ndim != 2:
+    if binned_t.ndim != 2 or node_idx.ndim != 2 or stats.ndim not in (2, 3):
         raise ValueError(
-            "expected binned_t [F, N], node_idx [T, N] and stats [N, S]"
+            "expected binned_t [F, N], node_idx [T, N] and stats [N, S] "
+            "or [T, N, S]"
         )
     F, N = binned_t.shape
     T = node_idx.shape[0]
-    if node_idx.shape[1] != N or stats.shape[0] != N:
+    if stats.ndim == 3 and stats.shape[0] != T:
+        raise ValueError(
+            f"per-tree stats {tuple(stats.shape)} must have T = {T} rows "
+            "of stats"
+        )
+    if node_idx.shape[1] != N or stats.shape[-2] != N:
         raise ValueError(
             f"row counts disagree: binned_t {tuple(binned_t.shape)}, "
             f"node_idx {tuple(node_idx.shape)}, stats {tuple(stats.shape)}"
@@ -76,26 +85,28 @@ def _check(binned_t, node_idx, stats, weights, n_nodes: int,
 def tree_hist_reference(
     binned_t: torch.Tensor,  # [F, N] int32
     node_idx: torch.Tensor,  # [T, N] int32, -1 = inactive
-    stats: torch.Tensor,  # [N, S] f32
+    stats: torch.Tensor,  # [N, S] or [T, N, S] f32
     weights: Optional[torch.Tensor] = None,  # [T, N] f32
     *,
     n_nodes: int,
     n_bins: int,
 ) -> torch.Tensor:
     """Plain version: per tree, the active rows' weighted stats
-    (``stats · w``, the product the JAX grower forms) are added into
-    each feature's flat cell ids with one ``index_add_``."""
+    (``stats · w``, the product the JAX grower forms; the tree's own
+    stats where they are per tree) are added into each feature's flat
+    cell ids with one ``index_add_``, in the stats' type (float64 stats
+    give the exact sums a check compares float32 ones with)."""
     F, N = binned_t.shape
-    T, S = node_idx.shape[0], stats.shape[1]
+    T, S = node_idx.shape[0], stats.shape[-1]
     nb = n_nodes * n_bins
-    out = torch.zeros((T, F, nb, S), dtype=torch.float32, device=stats.device)
+    out = torch.zeros((T, F, nb, S), dtype=stats.dtype, device=stats.device)
     for t in range(T):
         nd = node_idx[t]
         keep = (nd >= 0) & (nd < n_nodes)
         if weights is not None:
             keep &= weights[t] != 0
         rows = keep.nonzero().squeeze(1)
-        data = stats[rows]
+        data = (stats[t] if stats.ndim == 3 else stats)[rows]
         if weights is not None:
             data = data * weights[t, rows][:, None]
         base = nd[rows].long() * n_bins
@@ -127,7 +138,7 @@ def tree_hist_cuda(
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     F, N = binned_t.shape
-    T, S = node_idx.shape[0], stats.shape[1]
+    T, S = node_idx.shape[0], stats.shape[-1]
     out = torch.zeros((T, F, n_nodes * n_bins, S), dtype=torch.float32,
                       device=stats.device)
     if N == 0 or T == 0 or F == 0 or S == 0:
@@ -138,6 +149,7 @@ def tree_hist_cuda(
             binned_t.data_ptr(), node_idx.data_ptr(),
             None if weights is None else weights.data_ptr(),
             stats.data_ptr(), out.data_ptr(), N, F, T, n_nodes, n_bins, S,
+            N * S if stats.ndim == 3 else 0,  # the stats' tree stride
             _build.stream_handle(stats.device),
         )
     _build.check_launch(lib, err, "tree_hist")
@@ -181,8 +193,9 @@ def tree_hist(binned_t, node_idx, stats, weights=None, *, n_nodes: int,
 def level_histogram(binned_t, node_idx, weighted_stats, *, n_nodes: int,
                     n_bins: int) -> torch.Tensor:
     """``level_histogram_pallas``'s layout: ``[N]`` node ids give
-    ``[F, n_nodes·n_bins, S]``, ``[T, N]`` node ids ``[T, F, ...]``;
-    the stats arrive pre-weighted."""
+    ``[F, n_nodes·n_bins, S]``, ``[T, N]`` node ids ``[T, F, ...]``
+    (with ``[N, S]`` or per-tree ``[T, N, S]`` stats); the stats arrive
+    pre-weighted."""
     if node_idx.ndim == 1:
         return tree_hist(binned_t, node_idx[None], weighted_stats,
                          n_nodes=n_nodes, n_bins=n_bins)[0]

@@ -2,7 +2,8 @@
 
 Counterpart of ``sntc_tpu/mlio/save_load.py``: each stage is a directory
 holding ``metadata.json`` (``format_version``, ``class``, ``uid``,
-``params``, ``extra``, and ``stage_dirs`` for a pipeline's sub-stages)
+``params``, ``extra``, and ``stage_dirs`` for the sub-stages of a
+pipeline or of a stage with ``_sub_stages``, such as OneVsRest's models)
 and, when the stage has arrays, ``data.npz``.  :func:`load_model` reads a
 directory the JAX package saved; :func:`save_model` writes one that
 either package loads.  Only ``json`` and ``numpy`` touch the files.
@@ -28,6 +29,11 @@ from sntc_tpu_torch.feature.string_indexer import (
     StringIndexerModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel
+from sntc_tpu_torch.models.tree.decision_tree import (
+    DecisionTreeClassificationModel,
+)
+from sntc_tpu_torch.models.tree.gbt import GBTClassificationModel
 from sntc_tpu_torch.models.tree.random_forest import (
     RandomForestClassificationModel,
 )
@@ -43,6 +49,10 @@ PORTED_CLASSES: Dict[str, type] = {
     "sntc_tpu.feature.chisq_selector.ChiSqSelectorModel": ChiSqSelectorModel,
     "sntc_tpu.models.tree.random_forest.RandomForestClassificationModel":
         RandomForestClassificationModel,
+    "sntc_tpu.models.tree.decision_tree.DecisionTreeClassificationModel":
+        DecisionTreeClassificationModel,
+    "sntc_tpu.models.tree.gbt.GBTClassificationModel": GBTClassificationModel,
+    "sntc_tpu.models.one_vs_rest.OneVsRestModel": OneVsRestModel,
 }
 _SAVED_NAME = {cls: name for name, cls in PORTED_CLASSES.items()}
 
@@ -86,12 +96,16 @@ def _load_stage(path: str, device) -> PipelineStage:
     if os.path.exists(npz):
         with np.load(npz) as z:
             arrays = {k: z[k] for k in z.files}
-    if cls is PipelineModel:
-        obj = PipelineModel(stages=[
+    if cls is PipelineModel or hasattr(cls, "_from_sub_stages"):
+        stages = [
             _load_stage(os.path.join(path, d), device)
             for d in meta.get("stage_dirs", [])
-        ])
-        obj.setParams(**params)
+        ]
+        if cls is PipelineModel:
+            obj = PipelineModel(stages=stages)
+            obj.setParams(**params)
+        else:
+            obj = cls._from_sub_stages(stages, params, extra)
     elif hasattr(cls, "_load_from"):
         obj = cls._load_from(params, extra, arrays, device)
     else:
@@ -122,9 +136,14 @@ def save_model(stage: PipelineStage, path: str) -> str:
         "class": cls_name,
         "uid": stage.uid,
     }
+    sub_stages = None
     if isinstance(stage, PipelineModel):
+        sub_stages = params.pop("stages", [])
+    elif hasattr(stage, "_sub_stages"):
+        sub_stages = stage._sub_stages()
+    if sub_stages is not None:
         meta["stage_dirs"] = []
-        for i, sub in enumerate(params.pop("stages", [])):
+        for i, sub in enumerate(sub_stages):
             sub_dir = f"stage_{i:03d}"
             save_model(sub, os.path.join(path, sub_dir))
             meta["stage_dirs"].append(sub_dir)

@@ -29,6 +29,20 @@ class ClassifierParams:
     probabilityCol = Param("output probability column", default="probability")
 
 
+class CheckpointParams:
+    """Mid-fit checkpoint/resume: with both params set, an estimator
+    saves its state every ``checkpointInterval`` boosting rounds under
+    ``checkpointDir`` (``mlio/optimizer_checkpoint.py``), and a re-run
+    fit with the same directory resumes where it stopped."""
+
+    checkpointInterval = Param(
+        "persist optimizer state every N iterations/boosting rounds "
+        "(-1 = off); a re-run fit with the same checkpointDir resumes",
+        default=-1,
+    )
+    checkpointDir = Param("directory for mid-fit optimizer state", default=None)
+
+
 class ClassifierEstimator(ClassifierParams, Estimator):
     """Base estimator: extracts (X, y, w) from the frame, on the host."""
 
@@ -96,6 +110,11 @@ class ClassificationModel(ClassifierParams, Model):
         """Packed ``[N, 2K+1]`` raw | prob | prediction on the model's
         device (enqueued, not waited for)."""
         raise NotImplementedError
+
+    def _raw_predict(self, X) -> torch.Tensor:
+        """Margins ``[N, K]`` on the model's device (K=2 for binary:
+        ``[-margin, margin]``): the raw block of the packed program."""
+        return self._predict_all_dev(X)[:, : self.num_classes]
 
     def _threshold_mode(self):
         """(mode, thr) describing the probability→prediction rule:

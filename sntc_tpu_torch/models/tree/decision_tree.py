@@ -1,0 +1,172 @@
+"""DecisionTreeClassifier — a single CART tree, fit and serve.
+
+Counterpart of ``sntc_tpu/models/tree/decision_tree.py`` (Spark's
+``DecisionTreeClassifier``): the shared dense-heap grower with ``T=1``,
+every feature considered at every node and no bagging.  Leaves hold
+class-count vectors: ``rawPrediction`` is the leaf's counts,
+probability the normalized counts.  The fit's histograms are the
+``tree_hist`` kernel on the card, the walk the ``forest_traversal``
+kernel; the normalization and the prediction are PyTorch on the same
+device, and one packed ``[N, 2K+1]`` tensor comes back per batch.
+
+The regressor (the variance branch of the JAX package's
+``_grow_single_tree``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
+from sntc_tpu_torch.models.base import (
+    ClassificationModel,
+    ClassifierEstimator,
+    pack_serve_outputs,
+)
+from sntc_tpu_torch.models.tree.grower import (
+    Forest,
+    ForestDeviceMixin,
+    ForestPersistenceMixin,
+    grow_forest,
+    validate_forest,
+)
+from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
+
+
+def _grow_single_tree(estimator, X: np.ndarray, y: np.ndarray,
+                      w: np.ndarray, device, impurity: str) -> Forest:
+    """Bin on ``device`` and grow one classification tree over every
+    feature from the one-hot class stats × row weight."""
+    n, F = X.shape
+    n_bins = estimator.getMaxBins()
+    edges = quantile_bin_edges(X, max_bins=n_bins, seed=estimator.getSeed())
+    binned_t = bin_features(
+        torch.from_numpy(X).to(device), torch.from_numpy(edges).to(device)
+    ).t()
+    k = max(int(y.max()) + 1 if n else 2, 2)
+    row_stats = (
+        torch.nn.functional.one_hot(
+            torch.from_numpy(y.astype(np.int64)).to(device), k
+        ).to(torch.float32)
+        * torch.from_numpy(w).to(device)[:, None]
+    )
+    return grow_forest(
+        binned_t, row_stats, torch.ones((1, n), device=device), edges,
+        n_bins=n_bins,
+        max_depth=estimator.getMaxDepth(),
+        min_instances_per_node=float(estimator.getMinInstancesPerNode()),
+        min_info_gain=float(estimator.getMinInfoGain()),
+        subset_k=F,  # a single Spark decision tree considers every feature
+        impurity=impurity,
+    )
+
+
+class _SingleTreeParams:
+    """Spark's DecisionTree params — not the ensemble block: a single
+    decision tree has no subsamplingRate or bagging."""
+
+    maxDepth = Param(
+        "max tree depth", default=5, validator=validators.in_range(0, 15)
+    )
+    maxBins = Param(
+        "max feature bins", default=32, validator=validators.in_range(2, 256)
+    )
+    minInstancesPerNode = Param(
+        "min (weighted) rows per child", default=1, validator=validators.gteq(1)
+    )
+    minInfoGain = Param("min split gain", default=0.0, validator=validators.gteq(0))
+    seed = Param("binning sample seed", default=0)
+
+
+def _realized_depth(forest: Forest) -> int:
+    """Depth of the deepest materialized node (Spark ``DecisionTreeModel.
+    depth``), not the heap capacity ``maxDepth``."""
+    exists = np.flatnonzero(forest.feature[0] >= -1)  # leaf or internal
+    if exists.size == 0:
+        return 0
+    return int(np.floor(np.log2(exists[-1] + 1)))
+
+
+class _DtClassifierParams(_SingleTreeParams):
+    impurity = Param(
+        "gini | entropy", default="gini",
+        validator=validators.one_of("gini", "entropy"),
+    )
+
+
+class DecisionTreeClassifier(_DtClassifierParams, ClassifierEstimator):
+    """Fits on ``device`` (default ``cuda``) and returns a model whose
+    tree lives on the same device."""
+
+    def __init__(self, device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        self.device = resolve_device(device)
+
+    def _fit(self, frame: Frame) -> "DecisionTreeClassificationModel":
+        X, y, w = self._extract(frame)
+        forest = _grow_single_tree(self, X, y, w, self.device,
+                                   self.getImpurity())
+        k = max(int(y.max()) + 1 if len(y) else 2, 2)
+        model = DecisionTreeClassificationModel(
+            forest=forest, n_classes=k, n_features=X.shape[1],
+            device=self.device,
+        )
+        model.setParams(
+            **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
+        )
+        return model
+
+
+def _dt_serve(X, feature, threshold, leaf_stats, thr, *, max_depth, mode,
+              traverse=_traverse):
+    """Traverse + normalize + predict, packed ``[N, 2C+1]``; raw is the
+    leaf's class counts.  A check against the plain version passes
+    ``forest_leaf_stats_reference`` as ``traverse``."""
+    raw = traverse(X, feature, threshold, leaf_stats, max_depth=max_depth)[0]
+    prob = raw / raw.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    return pack_serve_outputs(raw, prob, thr, mode)
+
+
+class DecisionTreeClassificationModel(
+    _DtClassifierParams, ForestPersistenceMixin, ForestDeviceMixin,
+    ClassificationModel,
+):
+    def __init__(self, forest: Forest, n_classes: int, n_features: int = 0,
+                 device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        validate_forest(forest, n_features)
+        self.forest = forest
+        self._n_classes = int(n_classes)
+        self._n_features = int(n_features)
+        self._upload_forest(resolve_device(device))
+
+    @property
+    def num_classes(self) -> int:
+        return self._n_classes
+
+    @property
+    def depth(self) -> int:
+        return _realized_depth(self.forest)
+
+    def _extra_meta(self):
+        return {"n_classes": self._n_classes}
+
+    @classmethod
+    def _from_forest(cls, forest, extra, device):
+        return cls(
+            forest=forest,
+            n_classes=int(extra["n_classes"]),
+            n_features=int(extra.get("n_features", 0)),
+            device=device,
+        )
+
+    def _predict_all_dev(self, X) -> torch.Tensor:
+        mode, thr = self._serve_args()
+        return _dt_serve(
+            self._features_on_device(X), *self._device_forest(), thr,
+            max_depth=self.forest.max_depth, mode=mode,
+        )

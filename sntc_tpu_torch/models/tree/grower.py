@@ -151,7 +151,8 @@ class ForestPersistenceMixin:
 class ForestDeviceMixin:
     """The forest tensors on the model's device, uploaded once at
     construction — not once per serving micro-batch — in float32, the
-    type the serving features are cast to."""
+    type the serving features are cast to; and the two inputs every
+    forest head's serve program takes besides them."""
 
     def _upload_forest(self, device) -> None:
         f = self.forest
@@ -166,9 +167,36 @@ class ForestDeviceMixin:
         internal = f.feature[f.feature >= 0]
         # the walk reads X[row, f]: a batch must be wider than this
         self._max_feature = int(internal.max()) if internal.size else -1
+        self._thr_cache = None
 
     def _device_forest(self) -> tuple:
         return self._dev_forest
+
+    def _serve_args(self):
+        """(mode, thr tensor on the device), rebuilt only when the
+        threshold params change."""
+        mode, thr = self._threshold_mode()
+        key = (mode, thr.tobytes())
+        if self._thr_cache is None or self._thr_cache[0] != key:
+            self._thr_cache = (key, torch.from_numpy(thr).to(self.device))
+        return mode, self._thr_cache[1]
+
+    def _features_on_device(self, X) -> torch.Tensor:
+        """``X`` (numpy or a tensor) as a contiguous float32 tensor on
+        the model's device, refused when it is too narrow for the
+        forest."""
+        if isinstance(X, torch.Tensor):
+            X = X.to(device=self.device, dtype=torch.float32)
+        else:
+            X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(self.device)
+        if (self._n_features and X.shape[1] != self._n_features) or \
+                X.shape[1] <= self._max_feature:
+            raise ValueError(
+                f"a batch of {X.shape[1]} features does not fit a model of "
+                f"{self._n_features} features splitting on index "
+                f"{self._max_feature}"
+            )
+        return X.contiguous()
 
 
 # -- growing -----------------------------------------------------------------
@@ -324,9 +352,10 @@ def _group_hist(binned_t, row_stats, w_trees, ids, *, g_eff: int,
                 n_bins: int) -> torch.Tensor:
     """Histogram ``[T, g_eff, F, B, S]`` over group-local node ids
     ``[T, N]`` (-1 = not in the group): one ``tree_hist`` call for all
-    trees, the bagging weights applied inside."""
+    trees, shared ``[N, S]`` or per-tree ``[T, N, S]`` row stats, the
+    bagging weights applied inside."""
     F = binned_t.shape[0]
-    T, S = ids.shape[0], row_stats.shape[1]
+    T, S = ids.shape[0], row_stats.shape[-1]
     h = tree_hist(binned_t, ids, row_stats, w_trees, n_nodes=g_eff,
                   n_bins=n_bins)  # [T, F, g_eff * B, S]
     return h.view(T, F, g_eff, n_bins, S).permute(0, 2, 1, 3, 4)
@@ -411,7 +440,7 @@ def _level(binned_t, row_stats, w_trees, node_idx, fmask, min_instances,
 
 def grow_forest(
     binned_t: torch.Tensor,  # [F, N] int32 bin ids
-    row_stats: torch.Tensor,  # [N, S] f32 (one-hot class × row weight)
+    row_stats: torch.Tensor,  # [N, S] shared or [T, N, S] per-tree f32
     w_trees: torch.Tensor,  # [T, N] f32 bagging weights
     edges: np.ndarray,  # [F, B-1] host bin thresholds
     *,
@@ -427,20 +456,27 @@ def grow_forest(
     """Grow ``T`` trees level-synchronously on ``binned_t``'s device;
     returns host-side dense heaps.
 
+    ``row_stats`` is shared by every tree (``[N, S]``: one-hot class ×
+    row weight) or one row of stats per tree (``[T, N, S]``: the
+    one-vs-rest boosting fit, where tree ``t`` is class ``t``'s binary
+    problem over the same binned features).
+
     ``rng`` draws the per-level feature-subset uniforms (needed when
     ``subset_k < F``).  ``sibling`` turns sibling-histogram subtraction
     on or off; by default it is on where the histograms run on the CUDA
     kernel, whose cost grows with the node-axis width it halves, and off
     on the CPU, where the plain version's cost does not depend on it."""
     F, n = binned_t.shape
-    T, S = w_trees.shape[0], row_stats.shape[1]
+    T, S = w_trees.shape[0], row_stats.shape[-1]
     dev = binned_t.device
     H = (1 << (max_depth + 1)) - 1
     if max_depth == 0:
         feature = np.full((T, H), -2, np.int32)
         feature[:, 0] = -1
         leaf_stats = np.zeros((T, H, S), np.float32)
-        leaf_stats[:, 0] = (w_trees @ row_stats).cpu().numpy()
+        root = (torch.einsum("tn,tns->ts", w_trees, row_stats)
+                if row_stats.ndim == 3 else w_trees @ row_stats)
+        leaf_stats[:, 0] = root.cpu().numpy()
         zeros = np.zeros((T, H), np.float32)
         return Forest(feature, zeros.copy(), leaf_stats, 0, zeros.copy(),
                       zeros.copy())

@@ -149,7 +149,6 @@ class RandomForestClassificationModel(
         self._n_classes = int(n_classes)
         self._n_features = int(n_features)
         self._upload_forest(resolve_device(device))
-        self._thr_cache = None
 
     @property
     def num_classes(self) -> int:
@@ -171,29 +170,7 @@ class RandomForestClassificationModel(
             device=device,
         )
 
-    def _serve_args(self):
-        """(mode, thr tensor on the device), rebuilt only when the
-        threshold params change."""
-        mode, thr = self._threshold_mode()
-        key = (mode, thr.tobytes())
-        if self._thr_cache is None or self._thr_cache[0] != key:
-            self._thr_cache = (key, torch.from_numpy(thr).to(self.device))
-        return mode, self._thr_cache[1]
-
-    def _features_on_device(self, X) -> torch.Tensor:
-        if isinstance(X, torch.Tensor):
-            X = X.to(device=self.device, dtype=torch.float32)
-        else:
-            X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(self.device)
-        if (self._n_features and X.shape[1] != self._n_features) or \
-                X.shape[1] <= self._max_feature:
-            raise ValueError(
-                f"a batch of {X.shape[1]} features does not fit a model of "
-                f"{self._n_features} features splitting on index "
-                f"{self._max_feature}"
-            )
-        return X.contiguous()
-
+        self._upload_forest(resolve_device(device))
     def _predict_all_dev(self, X) -> torch.Tensor:
         mode, thr = self._serve_args()
         fa, ta, ls = self._device_forest()

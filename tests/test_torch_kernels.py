@@ -373,6 +373,85 @@ def test_tree_hist_trees_in_one_call_equal_the_single_tree_function(fractional):
             np.testing.assert_array_equal(out[t], ref)
 
 
+# the one-vs-rest boosting fit's form: one row of stats per tree
+# (tree t is class t's binary problem), [w, wr, wr²]-like signed
+# fractional stats, 128 bins at the widest
+PER_TREE_CASES = [
+    # T, n, f, n_nodes, n_bins
+    pytest.param(4, 600, 5, 1, 32, id="4-600-5-1-32"),
+    pytest.param(3, 900, 4, 4, 128, id="3-900-4-4-128"),
+    pytest.param(5, 1000, 3, 8, 16, id="5-1000-3-8-16"),
+]
+
+
+def _boosting_stats(rng, T, n, node):
+    """Per-tree [w, w·r, w·r²] stats of signed pseudo-residuals r, zero
+    where the tree's row is inactive (the grower's pre-masking)."""
+    w = rng.random((T, n)).astype(np.float32)
+    r = (2.0 * rng.normal(size=(T, n))).astype(np.float32)
+    stats = np.stack([w, w * r, w * r * r], axis=-1).astype(np.float32)
+    stats[node < 0] = 0.0
+    return stats
+
+
+@pytest.mark.parametrize("T,n,f,n_nodes,n_bins", PER_TREE_CASES)
+def test_tree_hist_per_tree_reference_matches_pallas_interpret(
+    T, n, f, n_nodes, n_bins
+):
+    """Per-tree stats ``[T, N, S]`` against the Pallas kernel in interpret
+    mode mapped over the trees, as the JAX grower maps it: every cell
+    within 1e-5 of its sum of absolute contributions (f32 sums in
+    another order; the stats are signed, so a cell's own value can
+    cancel to near zero)."""
+    rng = np.random.default_rng(T * 100 + n_nodes)
+    binned = rng.integers(0, n_bins, size=(n, f)).astype(np.int32)
+    node = rng.integers(-1, n_nodes, size=(T, n)).astype(np.int32)
+    stats = _boosting_stats(rng, T, n, node)
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    args = (torch.from_numpy(binned.T.copy()), torch.from_numpy(node))
+    out = tree_hist(*args, torch.from_numpy(stats), **kw).numpy()
+    scale = tree_hist(*args, torch.from_numpy(np.abs(stats)), **kw).numpy()
+    assert out.shape == (T, f, n_nodes * n_bins, 3)
+    for t in range(T):
+        ref = _pallas_hist(binned, node[t], stats[t], n_nodes, n_bins)
+        assert (np.abs(out[t] - ref) <= HIST_TOL * scale[t]).all()
+    # the layout of level_histogram_pallas: [T, N] node ids take
+    # per-tree stats as they are
+    np.testing.assert_array_equal(
+        level_histogram(*args, torch.from_numpy(stats), **kw).numpy(), out)
+
+
+@pytest.mark.parametrize("T,n,f,n_nodes,n_bins", PER_TREE_CASES)
+def test_tree_hist_per_tree_equals_shared_form_on_equal_rows(
+    T, n, f, n_nodes, n_bins
+):
+    """With every tree's stats row equal, the per-tree form computes the
+    shared form: bitwise, on integer-valued stats and weights (sums
+    exact in any order)."""
+    rng = np.random.default_rng(T + n)
+    binned_t = torch.from_numpy(
+        rng.integers(0, n_bins, (f, n)).astype(np.int32))
+    node = torch.from_numpy(
+        rng.integers(-1, n_nodes, (T, n)).astype(np.int32))
+    shared = torch.from_numpy(rng.integers(-3, 4, (n, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.poisson(1.0, (T, n)).astype(np.float32))
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    per_tree = shared[None].expand(T, n, 3).contiguous()
+    assert torch.equal(tree_hist(binned_t, node, per_tree, w, **kw),
+                       tree_hist(binned_t, node, shared, w, **kw))
+
+
+def test_tree_hist_refuses_per_tree_stats_of_another_tree_count():
+    b = torch.zeros((3, 10), dtype=torch.int32)
+    node = torch.zeros((2, 10), dtype=torch.int32)
+    with pytest.raises(ValueError, match="per-tree stats"):
+        tree_hist(b, node, torch.ones((3, 10, 4)), n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="row counts disagree"):
+        tree_hist(b, node, torch.ones((2, 9, 4)), n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        tree_hist_cuda(b, node, torch.ones((2, 10, 4)), n_nodes=1, n_bins=4)
+
+
 def test_tree_hist_skips_ids_and_bins_out_of_range():
     binned_t = torch.tensor([[0, 1, 5, -1, 2]], dtype=torch.int32)  # B = 3
     node = torch.tensor([[0, 1, 0, 1, 2]], dtype=torch.int32)  # 2 nodes
@@ -485,6 +564,9 @@ def cuda_device():
     (20, 2048, 40, 3, 15, 0.85),
     # an X tile too wide for shared memory: X through the read-only path
     (2, 1000, 200, 15, 8, 0.9),
+    # bench config 4's fused one-vs-rest serve forest: 15 classes × 10
+    # rounds of depth-4 trees over the 78 raw features, [w, wr, wr²]
+    (150, 4097, 78, 3, 4, 0.9),
 ])
 def test_forest_kernel_matches_plain_version_on_card(
     cuda_device, T, N, F, S, max_depth, p_split, dtype
@@ -605,6 +687,45 @@ def test_tree_hist_kernel_fractional_rows_regime_on_card(cuda_device, T, n_nodes
     scale = tree_hist_reference(binned_t, node, stats.abs(), w, **kw)
     torch.cuda.synchronize()
     assert bool(((out - ref).abs() <= HIST_TOL * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n_nodes", [(15, 1), (15, 2), (15, 4), (15, 8),
+                                       (20, 1), (20, 8)])
+def test_tree_hist_kernel_per_tree_stats_on_card(cuda_device, T, n_nodes):
+    """The one-vs-rest boosting fit's launches (bench config 4: 78
+    features, 128 bins, [w, wr, wr²] per class): each cell within
+    HIST_TOL of its sum of absolute contributions; with every tree's
+    stats row equal and integer-valued, bitwise equal to the shared
+    form.  Node ids are skewed as a deep level's are; the labels behind
+    the residuals are 80 % one class, as CICIDS2017's benign flows."""
+    rng = np.random.default_rng(T * 10 + n_nodes)
+    n, f, n_bins = 30000, 78, 128
+    binned_t = torch.from_numpy(
+        rng.integers(0, n_bins, (f, n)).astype(np.int32)).to(cuda_device)
+    node_np = (_skewed_nodes(rng, (T, n), n_nodes) if n_nodes > 2
+               else rng.integers(-1, n_nodes, (T, n)).astype(np.int32))
+    node = torch.from_numpy(node_np).to(cuda_device)
+    label = np.where(rng.random(n) < 0.8, 0, rng.integers(1, T, n))
+    y = np.where(label[None, :] == np.arange(T)[:, None], 1.0, -1.0)
+    margin = 0.3 * rng.normal(size=(T, n))
+    r = 2.0 * y / (1.0 + np.exp(2.0 * y * margin))
+    stats_np = np.stack([np.ones_like(r), r, r * r], -1).astype(np.float32)
+    stats_np[node_np < 0] = 0.0
+    stats = torch.from_numpy(stats_np).to(cuda_device)
+    w = torch.ones((T, n), device=cuda_device)
+    kw = dict(n_nodes=n_nodes, n_bins=n_bins)
+    out = tree_hist_cuda(binned_t, node, stats, w, **kw)
+    ref = tree_hist_reference(binned_t, node, stats, w, **kw)
+    scale = tree_hist_reference(binned_t, node, stats.abs(), w, **kw)
+    torch.cuda.synchronize()
+    assert bool(((out - ref).abs() <= HIST_TOL * scale).all())
+    shared = torch.from_numpy(
+        rng.integers(-3, 4, (n, 3)).astype(np.float32)).to(cuda_device)
+    same = tree_hist_cuda(binned_t, node,
+                          shared[None].expand(T, n, 3).contiguous(), w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(same, tree_hist_cuda(binned_t, node, shared, w, **kw))
 
 
 @pytest.mark.cuda
