@@ -31,9 +31,10 @@ each of which fails the run (non-zero exit, no result line):
    reduced fit (20 000 rows, 20 trees of depth 6) runs on the card and
    on the CPU from one seed: the same features selected, the same trees;
 5. time the fit in this process and take its device time from a
-   profiler window, with each ``tree_hist`` launch's device time in
-   launch order, tagged with its level, node group and the plan the
-   kernel's entry point took (regime, features per block, row blocks);
+   profiler window, with each ``tree_hist`` launch's device time (taken
+   again on its own inputs after the fit: a profiler window may drop
+   one) in launch order, tagged with its level, node group and the plan
+   the kernel's entry point took (regime, features per block, row blocks);
    hold ``tree_hist`` on the fit's own launches of levels 7 and 8 (the
    real, skewed node distribution) against its plain version as in 2;
    time each kernel at its path's shapes with CUDA events beside its
@@ -63,7 +64,23 @@ each of which fails the run (non-zero exit, no result line):
    plain version and, with equal integer stats rows, against the shared
    form bitwise; ``forest_traversal`` bitwise and timed at the margin
    walk and the 150-tree serve walk.  ``pad_assemble`` is also timed by
-   its device time a launch at [50 000, 78] and [1 000, 78].
+   its device time a launch at [50 000, 78] and [1 000, 78];
+7. bench configs 2 and 1, the LBFGS fits, on bench.py's data seed 7
+   (split 0.8/0.2 with seed 0): ``python -m sntc_tpu_torch train`` with
+   the default estimator (MLP [78, 64, 15], 100 iterations, on 500 000
+   generated flows: held-out macro-F1 >= 0.96) and with ``--estimator
+   lr --binary --reg-param 1e-4`` (250 000 flows: held-out AUC >= 0.97
+   by the port's ``BinaryClassificationEvaluator``), each reporting its
+   LBFGS iterations, evaluations and host reads; ``serve`` of the MLP
+   pipeline over micro-batches of 1 000 (padded to 1 024: one
+   ``pad_assemble`` launch, counted), 4 096 and 65 536 rows, its
+   probabilities within 1e-4 of the unpadded batch's on the card and the
+   CPU's, predictions equal wherever the top two lie further apart; the
+   MLP and LR pipelines on 20 000 rows fitted on the card and the CPU,
+   their objective histories within the stated rule, and a card fit
+   segmented by checkpoints bitwise equal to the uninterrupted one; the
+   full-width MLP fit profiled (device busy, idle share, device ms by
+   kernel and group) and one ``value_and_grad`` timed beside its bound.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -95,6 +112,7 @@ from sntc_tpu_torch.data import (
 from sntc_tpu_torch.feature import (
     ChiSqSelector,
     ChiSqSelectorModel,
+    StandardScaler,
     StringIndexer,
     StringIndexerModel,
     VectorAssembler,
@@ -113,6 +131,8 @@ from sntc_tpu_torch.kernels.histogram import (
 from sntc_tpu_torch.models import (
     DecisionTreeClassifier,
     GBTClassifier,
+    LogisticRegression,
+    MultilayerPerceptronClassifier,
     OneVsRest,
     RandomForestClassifier,
 )
@@ -121,7 +141,10 @@ from sntc_tpu_torch.models.tree import gbt as gbt_module
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 from sntc_tpu_torch.app import serving_form
 from sntc_tpu_torch.data import load_csv
-from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
+from sntc_tpu_torch.evaluation import (
+    BinaryClassificationEvaluator,
+    MulticlassClassificationEvaluator,
+)
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
@@ -166,6 +189,35 @@ DT_DEPTH = 5  # the decision tree of the config-4 phase, 128 bins
 NODE_GROUP_BYTES = 2 ** 31  # the grower's level working-set budget
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core fp32
+# bench configs 2 and 1 (bench.py:348-369, :325-345): the MLP [78, 64,
+# 15] and the binary LR (regParam 1e-4), 100 LBFGS iterations each, on
+# bench.py's data seed 7, split 0.8/0.2 with seed 0
+LBFGS_DATA_SEED = 7
+MLP_ROWS, LR_ROWS = 500_000, 250_000  # generate_frame rows (bench.py:245-246)
+MLP_LAYERS = [78, 64, 15]
+LBFGS_ITERS = 100
+LR_REG = 1e-4
+MLP_F1_FLOOR = 0.96  # the JAX package reached 0.9737 (bench_runs.jsonl:5)
+LR_AUC_FLOOR = 0.97  # the JAX package reached 0.9812 (bench_runs.jsonl:1)
+MLP_BATCHES = [1000, 4096, 65536]  # served micro-batches; 1000 pads
+# served probabilities: padded against unpadded on the card, and the card
+# against the CPU (other cuBLAS kernels per shape; f32 sums in other
+# orders); predictions equal where the top two lie further apart
+MLP_SERVE_TOL = 1e-4
+# reduced LBFGS fits, card against CPU, each gap as a share of the
+# starting objective.  First set from two CPU fits that sum in other
+# orders (1 and 8 threads) of the same 20 000 rows: the MLP 9.1e-7 over
+# its first 29 iterations, then drifting to 5.6e-4 (a non-convex loss),
+# the end objectives 1.3e-8 apart; the LR 6.0e-6 over its first 20
+# iterations, 8.5e-5 over all, the end objectives 1.3e-6 apart.  The
+# card's MLP fit parts from the CPU's sooner (8.6e-5 by iteration 20,
+# 5.9e-4 at most, end 5.8e-10; NVIDIA H100 80GB HBM3, 700 W): the MLP's
+# prefix is cut to its first 5 iterations, the LR's stays 20
+REDUCED_LBFGS_ROWS = 20_000
+LBFGS_PREFIX = {"mlp": 5, "lr": 20}
+LBFGS_PREFIX_TOL = 1e-5
+LBFGS_ALL_TOL, LBFGS_END_TOL = 2e-3, 1e-4
+LBFGS_CKPT_EVERY = 25
 
 
 def log(*a):
@@ -390,6 +442,11 @@ def _shape(c: dict) -> str:
 
 def _plan(p: dict) -> str:
     return ", ".join(f"{k} {p[k]}" for k in histogram.PLAN_FIELDS)
+
+
+def _profiled(x: dict) -> str:
+    return ("not recorded" if x["profiled_ms"] is None
+            else f"{x['profiled_ms']:.4f} ms")
 
 
 def cell_bound(c: dict) -> torch.Tensor:
@@ -737,13 +794,24 @@ def recording_tree_hist():
         histogram.tree_hist_cuda = launch
 
 
+def launch_device_ms(call: dict) -> float:
+    """Device time (ms) of one recorded ``tree_hist`` launch, taken
+    again after the fit on its own inputs as :func:`kernel_device_ms`
+    takes it: the wrapper's zero-fill and kernel, 20 calls queued back
+    to back.  A profiler window may drop a launch's record; this cannot."""
+    args, kw = _hist_args(call)
+    return kernel_device_ms(lambda: tree_hist_cuda(*args, **kw), 20)
+
+
 def fit_breakdown(data: dict, dev) -> dict:
     """The full-width fit in this process: each stage on the host clock
     (ending in a synchronize), after one warm fit; then one fit under a
     profiler window, whose device-side events give the fit's device time
     and hence its idle share, and each ``tree_hist`` launch's device
-    time, tagged with its level, its node group and the plan its entry
-    point took.  The launches of levels 7 and 8 are kept, inputs and
+    time (:func:`launch_device_ms`; the profiler's own record beside it
+    where the window kept every launch: a window may drop one),
+    tagged with its level, its node group and the plan its entry point
+    took.  The launches of levels 7 and 8 are kept, inputs and
     all, as the fit's own node distribution for the checks and times of
     ``tree_hist`` that follow."""
     train_frame = data["train"]
@@ -779,18 +847,19 @@ def fit_breakdown(data: dict, dev) -> dict:
          and "tree_hist" in e.name),
         key=lambda e: e.time_range.start)
     expect = fit_launches()
-    if len(kernels) != len(calls) or len(calls) != len(expect):
-        raise SystemExit(f"{len(calls)} tree_hist calls and {len(kernels)} "
-                         f"device launches in the profiled fit, expected "
-                         f"{len(expect)}")
+    if len(calls) != len(expect):
+        raise SystemExit(f"{len(calls)} tree_hist calls in the profiled "
+                         f"fit, expected {len(expect)}")
     launches, kept = [], {}
-    for i, (c, e, (level, nodes)) in enumerate(zip(calls, kernels, expect)):
+    for i, (c, (level, nodes)) in enumerate(zip(calls, expect)):
         F, N = c["binned_t"].shape
         T, S = c["node_idx"].shape[0], c["stats"].shape[1]
         launches.append({
             "launch": i, "level": level, "group_nodes": nodes,
             "hist_nodes": c["n_nodes"], "F": F, "N": N, "T": T,
-            "device_ms": e.time_range.elapsed_us() / 1e3,
+            "device_ms": launch_device_ms(c),
+            "profiled_ms": (kernels[i].time_range.elapsed_us() / 1e3
+                            if len(kernels) == len(calls) else None),
             **tree_hist_plan(N, F, T, c["n_nodes"], c["n_bins"], S),
         })
         if level in (7, 8) and level not in kept:
@@ -801,6 +870,7 @@ def fit_breakdown(data: dict, dev) -> dict:
             "top_device_ops_ms": dict(list(ops.items())[:8]),
             "tree_hist_launches": launches,
             "tree_hist_ms": sum(x["device_ms"] for x in launches),
+            "tree_hist_seen_by_profiler": len(kernels),
             "cases": {f"level {d} (the fit's own nodes)": kept[d]
                       for d in sorted(kept)}}
 
@@ -1128,8 +1198,8 @@ def dt_fit(data: dict, dev) -> dict:
 def gbt_fit_breakdown(data: dict, dev) -> dict:
     """The full config-4 fit in this process: one warm fit, then one
     under a profiler window (the fit's device time, its idle share, the
-    device time by kernel, and each ``tree_hist`` launch's device time
-    with its round, level and plan).  Round 1's launches (the first
+    device time by kernel, and each ``tree_hist`` launch's device time,
+    as for config 3, with its round, level and plan).  Round 1's launches (the first
     fractional residual stats) are kept, inputs and all, one level at
     each depth, for the checks and times that follow."""
     train_frame = data["train"]
@@ -1160,6 +1230,7 @@ def gbt_fit_breakdown(data: dict, dev) -> dict:
         launches.append({
             "launch": i, "round": i // passes, "level": i % passes,
             "hist_nodes": c["n_nodes"], "F": F, "N": N, "T": T,
+            "device_ms": launch_device_ms(c),
             # the profiler's own record, where it kept every launch
             "profiled_ms": (seen[i].time_range.elapsed_us() / 1e3
                             if len(seen) == len(calls) else None),
@@ -1268,6 +1339,362 @@ def measure_forest_gbt(dev, data: dict, trained: dict, served: dict,
             "rows": X.shape[0], "forest": name,
         })
     return out
+
+
+# -- phase 7: bench configs 2 and 1, the LBFGS fits ----------------------------
+
+
+def lbfgs_data(work: str, rows: int, binary: bool, tag: str) -> dict:
+    """Bench config 2's (``binary=False``) or config 1's flows:
+    ``rows`` synthetic rows from bench.py's data seed written as one raw
+    CSV, and the same rows cleaned (relabeled benign/attack for config
+    1) and split here with seed 0, as the train command splits them."""
+    t0 = time.perf_counter()
+    raw = generate_frame(rows, seed=LBFGS_DATA_SEED, min_class_fraction=0.005)
+    data_dir = os.path.join(work, f"days{tag}")
+    os.makedirs(data_dir)
+    write_raw_csv(raw, os.path.join(data_dir, "day.csv"))
+    clean = clean_flows(raw)
+    if binary:
+        clean = clean.with_column("Label", np.where(
+            clean["Label"].astype(str) == "BENIGN", "benign", "attack",
+        ).astype(object))
+    train, test = clean.random_split([1 - TEST_FRACTION, TEST_FRACTION],
+                                     seed=SEED)
+    log(f"config-{tag} data: {rows} rows generated and written, "
+        f"{train.num_rows} train / {test.num_rows} test after cleaning "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"dir": data_dir, "train": train, "test": test, "tag": tag}
+
+
+def train_lbfgs(dev, data: dict, work: str, args: list) -> dict:
+    """One LBFGS bench config through ``python -m sntc_tpu_torch train``
+    (``--max-iter`` LBFGS iterations): the process starts with every
+    launch count at 0 and the fit launches no kernel of its own (its
+    products are ``torch.matmul``); its JSON line reports the LBFGS
+    iterations, evaluations and host reads."""
+    tag = data["tag"]
+    model_dir = os.path.join(work, f"trained{tag}")
+    cmd = [sys.executable, "-m", "sntc_tpu_torch", "train",
+           "--data", data["dir"], "--max-iter", str(LBFGS_ITERS),
+           "--test-fraction", str(TEST_FRACTION), "--seed", str(SEED),
+           "--model-out", model_dir, "--device", dev.type] + args
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"config-{tag} train failed ({proc.returncode}):\n"
+                         f"{proc.stderr}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["process_wall_s"] = wall
+    summary["model_dir"] = model_dir
+    if summary["train_rows"] != data["train"].num_rows:
+        raise SystemExit(f"config-{tag} train split {summary['train_rows']} "
+                         f"rows, expected {data['train'].num_rows}")
+    stats = summary["lbfgs"]
+    if not 0 < stats["iterations"] <= LBFGS_ITERS:
+        raise SystemExit(f"config-{tag}: {stats['iterations']} LBFGS "
+                         "iterations")
+    log(f"config-{tag} train ({' '.join(args) or 'default estimator'}): "
+        f"{summary['train_rows']} rows, fit {summary['fit_wall_clock_s']} s "
+        f"({wall:.1f} s with process start, CSV read and evaluation), "
+        f"held-out macro-F1 {summary['macroF1']}; LBFGS "
+        f"{stats['iterations']} iterations, {stats['evaluations']} "
+        f"value_and_grad evaluations, {stats['host_syncs']} host reads "
+        f"({stats['host_syncs'] / max(stats['iterations'], 1):.2f} an "
+        f"iteration); launches {summary['kernel_launches']}")
+    return summary
+
+
+def check_config2(summary: dict) -> None:
+    if summary["estimator"] != "mlp":
+        raise SystemExit(f"the default estimator was {summary['estimator']}")
+    if not summary["macroF1"] >= MLP_F1_FLOOR:
+        raise SystemExit(f"config-2 held-out macro-F1 {summary['macroF1']} "
+                         f"below {MLP_F1_FLOOR}")
+
+
+def check_config1(dev, data: dict, summary: dict) -> float:
+    """Held-out AUC of the saved config-1 model, by the port's
+    ``BinaryClassificationEvaluator`` over the same split."""
+    model = load_model(summary["model_dir"], device=dev)
+    head = model.getStages()[-1]
+    if not head.is_binomial:
+        raise SystemExit("config 1 fitted a multinomial model")
+    auc = BinaryClassificationEvaluator().evaluate(
+        model.transform(data["test"]))
+    log(f"config-1 held-out areaUnderROC {auc:.6f} (floor {LR_AUC_FLOOR})")
+    if not auc >= LR_AUC_FLOOR:
+        raise SystemExit(f"config-1 held-out AUC {auc} below {LR_AUC_FLOOR}")
+    summary["areaUnderROC"] = auc
+    return auc
+
+
+def _clear_rows(prob: np.ndarray, tol: float) -> np.ndarray:
+    """Rows whose top two probabilities lie more than ``tol`` apart."""
+    s = np.sort(prob, axis=1)
+    return s[:, -1] - s[:, -2] > tol
+
+
+def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
+    """The fitted config-2 pipeline served by ``python -m sntc_tpu_torch
+    serve`` over ``MLP_BATCHES`` micro-batches of held-out flows: the
+    1 000-row batch pads to 1 024 (one ``pad_assemble`` launch).  In this
+    process, each batch's probabilities unpadded on the card and on the
+    CPU: within ``MLP_SERVE_TOL`` of the padded card run's, and its
+    predictions equal to theirs wherever their top two probabilities lie
+    further apart than that."""
+    import pyarrow.csv as pacsv
+
+    traffic = data["test"].slice(0, sum(MLP_BATCHES)).drop("Label")
+    watch = os.path.join(work, "in2")
+    os.makedirs(watch)
+    batches, start = [], 0
+    for i, n in enumerate(MLP_BATCHES):
+        b = traffic.slice(start, start + n)
+        write_raw_csv(b, os.path.join(watch, f"part_{i:04d}.csv"))
+        batches.append(b)
+        start += n
+    out_dir = os.path.join(work, "out2")
+    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
+           "--model", trained["model_dir"], "--watch", watch, "--out",
+           out_dir, "--checkpoint", os.path.join(work, "ckpt2"),
+           "--shape-buckets", str(BUCKET_FLOOR), "--max-files-per-batch", "1",
+           "--once", "--device", dev.type]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"config-2 serve failed ({proc.returncode}):\n"
+                         f"{proc.stderr}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"forest_traversal": 0, "tree_hist": 0,
+            "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                                for n in MLP_BATCHES)}
+    if summary["batches"] != len(MLP_BATCHES) or \
+            summary["rows"] != sum(MLP_BATCHES):
+        raise SystemExit(f"config-2 serve covered {summary}, expected "
+                         f"{MLP_BATCHES}")
+    if summary["kernel_launches"] != want or want["pad_assemble"] < 1:
+        raise SystemExit(f"config-2 serve launches "
+                         f"{summary['kernel_launches']}, expected {want}")
+    on_card, labels, _ = serving_form(load_model(trained["model_dir"],
+                                                 device=dev))
+    on_cpu, _, _ = serving_form(load_model(trained["model_dir"],
+                                           device="cpu"))
+    padded = BatchPredictor(on_card, bucket_rows=BUCKET_FLOOR, device=dev)
+    errs = {"padded_vs_unpadded": 0.0, "card_vs_cpu": 0.0}
+    for i, (b, n) in enumerate(zip(batches, MLP_BATCHES)):
+        t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+        pred = t.column("prediction").to_numpy()
+        if len(pred) != n or t.column("predictedLabel").to_pylist() != \
+                [labels[int(p)] for p in pred]:
+            raise SystemExit(f"config-2 batch {i}: rows or labels differ")
+        ref = to_host(padded.predict_frame(b)["probability"])
+        if not np.array_equal(to_host(padded.predict_frame(b)["prediction"]),
+                              pred):
+            raise SystemExit(f"config-2 batch {i}: the serve command's "
+                             "predictions differ from this process's")
+        for key, model in (("padded_vs_unpadded", on_card),
+                           ("card_vs_cpu", on_cpu)):
+            out = model.transform(b)
+            prob = to_host(out["probability"])
+            err = float(np.abs(prob - ref).max())
+            errs[key] = max(errs[key], err)
+            clear = _clear_rows(prob, MLP_SERVE_TOL) & \
+                _clear_rows(ref, MLP_SERVE_TOL)
+            if err > MLP_SERVE_TOL or not np.array_equal(
+                    to_host(out["prediction"])[clear], pred[clear]):
+                raise SystemExit(f"config-2 batch {i} ({key}): probability "
+                                 f"{err} off, or a clear prediction differs")
+    log(f"config-2 serve: {summary['batches']} batches, {summary['rows']} "
+        f"rows in {summary['seconds']:.3f} s "
+        f"({summary['rows'] / summary['seconds']:.0f} rows/s); "
+        + ", ".join(f"{p['numInputRows']} rows in {p['durationMs']:.2f} ms"
+                    for p in summary["progress"])
+        + f"; probabilities padded vs unpadded {errs['padded_vs_unpadded']}, "
+        f"card vs CPU {errs['card_vs_cpu']} (tolerance {MLP_SERVE_TOL}); "
+        f"launches {summary['kernel_launches']}")
+    summary["max_prob_err"] = errs
+    summary["batches_rows"] = MLP_BATCHES
+    return summary
+
+
+def lbfgs_pipeline(device, estimator, **kw) -> Pipeline:
+    """The train command's ``mlp``/``lr`` pipeline, built in this
+    process: label indexing, assembly, the scaler (withMean), the head."""
+    head = (MultilayerPerceptronClassifier(
+        device=device, layers=MLP_LAYERS, maxIter=LBFGS_ITERS, seed=SEED,
+        **kw) if estimator == "mlp" else LogisticRegression(
+        device=device, maxIter=LBFGS_ITERS, regParam=LR_REG, **kw))
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="skip"),
+        StandardScaler(device=device, inputCol="rawFeatures",
+                       outputCol="features", withMean=True),
+        head,
+    ])
+
+
+def _history(model) -> np.ndarray:
+    return np.asarray(model.getStages()[-1].summary.objectiveHistory)
+
+
+def reduced_lbfgs_fits(dev, data2: dict, data1: dict, work: str) -> dict:
+    """The MLP (config 2) and binary LR (config 1) pipelines on the first
+    ``REDUCED_LBFGS_ROWS`` train rows, fitted on the card and on the CPU
+    from one seed: the objective histories within ``LBFGS_PREFIX_TOL`` of
+    the starting objective over the estimator's first ``LBFGS_PREFIX``
+    iterations and within ``LBFGS_ALL_TOL`` over all, the end objectives
+    within
+    ``LBFGS_END_TOL`` of it; then a card fit segmented by checkpoints
+    every ``LBFGS_CKPT_EVERY`` iterations equal bitwise to the
+    uninterrupted card fit."""
+    out = {}
+    for tag, est, data in (("2", "mlp", data2), ("1", "lr", data1)):
+        frame = data["train"].slice(0, REDUCED_LBFGS_ROWS)
+        t0 = time.perf_counter()
+        card = lbfgs_pipeline(dev, est).fit(frame)
+        t1 = time.perf_counter()
+        cpu = lbfgs_pipeline(torch.device("cpu"), est).fit(frame)
+        t2 = time.perf_counter()
+        seg = lbfgs_pipeline(
+            dev, est, checkpointInterval=LBFGS_CKPT_EVERY,
+            checkpointDir=os.path.join(work, f"lbfgs_ckpt{tag}")).fit(frame)
+        h_card, h_cpu = _history(card), _history(cpu)
+        n = min(len(h_card), len(h_cpu))
+        gap = np.abs(h_card[:n] - h_cpu[:n]) / h_cpu[0]
+        end_gap = abs(h_card[-1] - h_cpu[-1]) / h_cpu[0]
+        heads = [m.getStages()[-1] for m in (card, seg)]
+        params = [h.weights if est == "mlp" else h.coefficientMatrix
+                  for h in heads]
+        bitwise = np.array_equal(params[0], params[1]) and \
+            np.array_equal(h_card, _history(seg))
+        rec = {
+            "rows": frame.num_rows, "card_s": t1 - t0, "cpu_s": t2 - t1,
+            "iterations": {"card": len(h_card) - 1, "cpu": len(h_cpu) - 1},
+            "prefix": LBFGS_PREFIX[est],
+            "prefix_gap": float(gap[: LBFGS_PREFIX[est] + 1].max()),
+            "gaps": [float(f"{g:.2g}") for g in gap],
+            "max_gap": float(gap.max()), "end_gap": float(end_gap),
+            "end_objective": {"card": float(h_card[-1]),
+                              "cpu": float(h_cpu[-1])},
+            "segmented_bitwise": bool(bitwise),
+            "card_stats": heads[0].optimizer_stats,
+        }
+        log(f"reduced config-{tag} fit ({rec['rows']} rows, {est}): card "
+            f"{rec['card_s']:.2f} s, CPU {rec['cpu_s']:.2f} s; iterations "
+            f"{rec['iterations']}; history gap over the first "
+            f"{rec['prefix']} iterations {rec['prefix_gap']:.3g}, over all "
+            f"{rec['max_gap']:.3g}"
+            f", end objective {rec['end_objective']} gap "
+            f"{rec['end_gap']:.3g} (of the start); segmented card fit "
+            f"bitwise: {bitwise}; gap by iteration {rec['gaps']}")
+        if rec["prefix_gap"] > LBFGS_PREFIX_TOL or \
+                rec["max_gap"] > LBFGS_ALL_TOL or \
+                rec["end_gap"] > LBFGS_END_TOL:
+            raise SystemExit(f"reduced config-{tag} fit: card and CPU "
+                             f"histories part beyond the rule: {rec}")
+        if not bitwise:
+            raise SystemExit(f"reduced config-{tag} fit: the segmented card "
+                             "fit differs from the uninterrupted one")
+        out[tag] = rec
+    return out
+
+
+def _op_group(name: str) -> str:
+    n = name.lower()
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if "gemm" in n or "gemv" in n or "cutlass" in n or "dot_kernel" in n:
+        return "products"
+    if "reduce" in n:
+        return "reductions"
+    return "elementwise and other"
+
+
+def mlp_fit_profile(dev, data: dict) -> dict:
+    """The config-2 pipeline fitted at full width in this process under
+    a profiler window, stage by stage as ``Pipeline.fit`` runs them: the
+    fit's host-clock time and each stage's (the head's fit is the LBFGS
+    loop, with the rows' upload), the device time the window saw (hence
+    its idle share), the device time by kernel and by group (products,
+    reductions, elementwise, copies); then one
+    ``value_and_grad`` of the full-width loss timed by its device time a
+    call (CUDA events around calls queued behind a spin) beside its
+    bound: FLOPs of the forward and backward products over the card's
+    fp32 rate, against X, labels and weights read once."""
+    from sntc_tpu_torch.models.mlp import _forward, value_and_grad_fn
+    from sntc_tpu_torch.ops.lbfgs import full_f32
+
+    train = data["train"]
+    stages = lbfgs_pipeline(dev, "mlp").getStages()
+    times, scaled = {}, train
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t_all = time.perf_counter()
+        for stage in stages:
+            name = type(stage).__name__
+            t0 = time.perf_counter()
+            head = stage.fit(scaled) if isinstance(stage, Estimator) else stage
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            times[f"{name}.fit"] = (t1 - t0) * 1e3
+            if stage is not stages[-1]:
+                scaled = head.transform(scaled)
+                times[f"{name}.transform"] = (time.perf_counter() - t1) * 1e3
+        fit_ms = (time.perf_counter() - t_all) * 1e3
+    ops = _device_ms(prof)
+    device_ms = sum(ops.values())
+    groups = {}
+    for name, ms in ops.items():
+        g = _op_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    stats = head.optimizer_stats
+
+    # one value_and_grad at the fit's full width
+    X = torch.from_numpy(np.require(scaled["features"], np.float32,
+                                    ["C", "W"])).to(dev)
+    y = torch.from_numpy(to_host(scaled["label"]).astype(np.int64)).to(dev)
+    w = torch.ones(X.shape[0], device=dev)
+    layers = tuple(head.getLayers())
+    theta = torch.from_numpy(head.weights.copy()).to(dev)
+
+    def loss(t):
+        logp = torch.log_softmax(_forward(t, X, layers), dim=1)
+        return -torch.sum(w * torch.gather(logp, 1, y[:, None])[:, 0]) \
+            / torch.sum(w)
+
+    vg = value_and_grad_fn(loss)
+    with full_f32():
+        vg_ms = time_ms(lambda: vg(theta), iters=10)
+        vg_device_ms = kernel_device_ms(lambda: vg(theta), calls=8)
+    # forward and weight-gradient products of every layer, and the
+    # input-gradient products of every layer but the first
+    pairs = list(zip(layers[:-1], layers[1:]))
+    macs = 2 * pairs[0][0] * pairs[0][1] + 3 * sum(a * b for a, b in pairs[1:])
+    n = X.shape[0]
+    flops = 2 * n * macs
+    nbytes = n * (layers[0] * 4 + 8 + 4) + theta.numel() * 8
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / FP32_OPS_PER_S * 1e3
+    rec = {
+        "train_rows": train.num_rows, "profiled_fit_ms": fit_ms,
+        "stages_ms": times,
+        "device_ms": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / fit_ms),
+        "top_device_ops_ms": dict(list(ops.items())[:10]),
+        "device_ms_by_group": groups, "lbfgs": stats,
+        "value_and_grad": {
+            "ms": vg_ms, "device_ms": vg_device_ms, "flops": flops,
+            "bytes": nbytes, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        },
+    }
+    return rec
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -1616,6 +2043,18 @@ def main() -> int:
                               trained4["kernel_launches"]["tree_hist"])
     kernels.append(hist[0])
 
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        data2 = lbfgs_data(work, MLP_ROWS, binary=False, tag="2")
+        trained2 = train_lbfgs(dev, data2, work, [])
+        check_config2(trained2)
+        data1 = lbfgs_data(work, LR_ROWS, binary=True, tag="1")
+        trained1 = train_lbfgs(dev, data1, work, [
+            "--estimator", "lr", "--binary", "--reg-param", str(LR_REG)])
+        check_config1(dev, data1, trained1)
+        served2 = serve_mlp(dev, data2, trained2, work)
+        reduced_lbfgs = reduced_lbfgs_fits(dev, data2, data1, work)
+    fit2 = mlp_fit_profile(dev, data2)
+
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
         f"rows, batches {BATCHES}, bucket floor {BUCKET_FLOOR} [{card}]")
@@ -1639,9 +2078,11 @@ def main() -> int:
         log(f"  tree_hist launch {x['launch']}: level {x['level']}, "
             f"{x['group_nodes']} nodes in the group ({x['hist_nodes']} "
             f"histogrammed), [{x['F']}, {x['N']}] T={x['T']}: "
-            f"{x['device_ms']:.4f} ms; {_plan(x)} [{card}]")
+            f"{x['device_ms']:.4f} ms ({_profiled(x)} by the profiler); "
+            f"{_plan(x)} [{card}]")
     log(f"tree_hist in the profiled fit: {len(fit['tree_hist_launches'])} "
-        f"launches, {fit['tree_hist_ms']:.4f} ms of device time [{card}]")
+        f"launches, {fit['tree_hist_ms']:.4f} ms of device time, "
+        f"{fit['tree_hist_seen_by_profiler']} seen by the profiler [{card}]")
     s4 = served4["summary"]
     log(f"config-4 serve: {s4['rows'] / s4['seconds']:.0f} rows/s over "
         f"{s4['rows']} rows, batches {GBT_BATCHES}; "
@@ -1655,14 +2096,32 @@ def main() -> int:
         f"{fit4['device_idle_share']:.3f}); top device ops "
         f"{fit4['top_device_ops_ms']} [{card}]")
     for x in fit4["tree_hist_launches"]:
-        ms = ("not recorded" if x["profiled_ms"] is None
-              else f"{x['profiled_ms']:.4f} ms")
         log(f"  config-4 tree_hist launch {x['launch']}: round {x['round']}, "
             f"level {x['level']}, {x['hist_nodes']} nodes histogrammed, "
-            f"[{x['F']}, {x['N']}] T={x['T']} per-tree stats: {ms}; "
+            f"[{x['F']}, {x['N']}] T={x['T']} per-tree stats: "
+            f"{x['device_ms']:.4f} ms ({_profiled(x)} by the profiler); "
             f"{_plan(x)} [{card}]")
     log(f"config-4 tree_hist: {len(fit4['tree_hist_launches'])} launches, "
         f"{fit4['tree_hist_seen_by_profiler']} seen by the profiler [{card}]")
+    vg = fit2["value_and_grad"]
+    log(f"config-2 fit ({fit2['train_rows']} rows, layers {MLP_LAYERS}, "
+        f"{fit2['lbfgs']['iterations']} LBFGS iterations, "
+        f"{fit2['lbfgs']['evaluations']} evaluations, "
+        f"{fit2['lbfgs']['host_syncs']} host reads): train command "
+        f"{trained2['fit_wall_clock_s']} s; in this process "
+        f"{fit2['profiled_fit_ms']:.1f} ms under the profiler by stage "
+        f"{ {k: round(v, 1) for k, v in fit2['stages_ms'].items()} }, with "
+        f"device busy {fit2['device_ms']:.1f} ms (idle share "
+        f"{fit2['device_idle_share']:.3f}); device ms by group "
+        f"{ {k: round(v, 3) for k, v in fit2['device_ms_by_group'].items()} }"
+        f"; top device ops {fit2['top_device_ops_ms']} [{card}]")
+    log(f"config-2 value_and_grad at [{fit2['train_rows']}, 78]: "
+        f"{vg['ms']:.4f} ms a call, {vg['device_ms']:.4f} ms of device time "
+        f"a call (bound {vg['bound_ms']:.4f} ms by {vg['bound_by']}: "
+        f"{vg['flops']} FLOP, {vg['bytes']} B) [{card}]")
+    log(f"config-1 fit ({trained1['train_rows']} rows): train command "
+        f"{trained1['fit_wall_clock_s']} s, LBFGS {trained1['lbfgs']}, "
+        f"held-out AUC {trained1['areaUnderROC']:.6f} [{card}]")
     for k in walks:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
             f"{k['device_ms']:.4f} ms of device time a launch (plain "
@@ -1699,7 +2158,12 @@ def main() -> int:
                                    "reduced_fit": reduced4,
                                    "decision_tree": tree, "fit": fit4},
                        "forest_traversal": walks, "tree_hist": hist,
-                       "pad_assemble": pads, "kernels": kernels}, f,
+                       "pad_assemble": pads, "kernels": kernels,
+                       "config2": {"train": trained2, "serve": served2,
+                                   "reduced_fit": reduced_lbfgs["2"],
+                                   "fit": fit2},
+                       "config1": {"train": trained1,
+                                   "reduced_fit": reduced_lbfgs["1"]}}, f,
                       indent=1)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()

@@ -6,23 +6,28 @@ Plain tensor code is PyTorch; every Pallas kernel of the JAX package on
 a ported path is a CUDA kernel written by hand for ``sm_90a``, built from
 ``kernels/csrc/`` at first use.
 
-The port trains and serves random-forest, decision-tree and
-one-vs-rest gradient-boosted-tree pipelines:
+The port trains and serves multilayer-perceptron, logistic-regression,
+random-forest, decision-tree and one-vs-rest gradient-boosted-tree
+pipelines:
 
   core/        Params, Frame (numpy or device-tensor columns), Estimator,
                Pipeline, PipelineModel
   data/        CICIDS2017 schema, CSV ingest + cleaning, synthetic traffic
-  feature/     VectorAssembler, ChiSqSelector, StringIndexer (+ models),
-               IndexToString
-  ops/         quantile binning, the chi-square contingency
-  models/      ClassificationModel, RandomForestClassifier,
+  feature/     VectorAssembler, ChiSqSelector, StandardScaler,
+               StringIndexer (+ models), IndexToString
+  ops/         quantile binning, the chi-square contingency, the
+               LBFGS/OWLQN/projected-LBFGS minimizer
+  models/      ClassificationModel, MultilayerPerceptronClassifier,
+               LogisticRegression, RandomForestClassifier,
                DecisionTreeClassifier, GBTClassifier, OneVsRest (+ their
-               models), the level-wise grower
-  evaluation/  MulticlassClassificationEvaluator
+               models), the level-wise grower, the LBFGS fits' training
+               summaries
+  evaluation/  MulticlassClassificationEvaluator,
+               BinaryClassificationEvaluator
   kernels/     tree_hist, forest_traversal, pad_assemble (CUDA) + their
                plain versions
   mlio/        load/save in the JAX package's directory format; mid-fit
-               round checkpoints
+               LBFGS and boosting-round checkpoints
   serve/       BatchPredictor (shape buckets), file-source streaming with
                an exactly-once offset log
   app.py       ``python -m sntc_tpu_torch train`` and ``serve``

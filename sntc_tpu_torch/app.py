@@ -1,9 +1,10 @@
 """Command-line entry point of the port.
 
-    python -m sntc_tpu_torch train --data data/days --estimator rf|gbt|dt \\
-        [--chisq-top 40] [--num-trees 20] [--max-depth 10] \\
-        [--max-iter 10] [--step-size 0.1] [--max-bins 128] \\
-        [--model-out m/] [--device cuda|cpu]
+    python -m sntc_tpu_torch train --data data/days \\
+        [--estimator mlp|lr|rf|gbt|dt] [--binary] [--layers 78,64,15] \\
+        [--reg-param 1e-4] [--chisq-top 40] [--num-trees 20] \\
+        [--max-depth 10] [--max-iter 100] [--step-size 0.1] \\
+        [--max-bins 128] [--model-out m/] [--device cuda|cpu]
     python -m sntc_tpu_torch serve --model m/ --watch data/in \\
         --out data/out --checkpoint data/ckpt [--shape-buckets N] \\
         [--max-files-per-batch N] [--once] [--device cuda|cpu]
@@ -11,13 +12,20 @@
 ``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
 read and clean every CSV of ``--data``, split off ``--test-fraction``
 with ``--seed``, fit StringIndexer → VectorAssembler(78) → [ChiSqSelector
-top ``--chisq-top``] → the estimator, report the held-out ``--metric``
-as one JSON line (with the kernel launch counts), and save the fitted
-pipeline to ``--model-out`` in the format both packages load.  Ported
-so far: the random forest (``rf``), OneVsRest over gradient-boosted
-trees (``gbt``: ``--max-iter`` rounds of ``--step-size``, bench config 4
-with ``--chisq-top 0 --max-iter 10 --max-depth 4``) and the single
-decision tree (``dt``); ``gbt`` and ``dt`` bin ``--max-bins`` ways.
+top ``--chisq-top``, or StandardScaler(withMean) for ``mlp``/``lr``] →
+the estimator, report the held-out ``--metric`` as one JSON line (with
+the kernel launch counts, and the LBFGS iterations, evaluations and
+host reads of an ``mlp``/``lr`` fit), and save the fitted pipeline to
+``--model-out`` in the format both packages load.  Ported so far: the
+multilayer perceptron (``mlp``, the default: ``--layers``, which track
+the data's width and class count while left at their default, and
+``--max-iter`` LBFGS iterations; bench config 2), logistic regression
+(``lr``: ``--reg-param``, ``--max-iter``; bench config 1 with
+``--binary``), the random forest (``rf``), OneVsRest over
+gradient-boosted trees (``gbt``: ``--max-iter`` rounds of
+``--step-size``, bench config 4 with ``--chisq-top 0 --max-iter 10
+--max-depth 4``) and the single decision tree (``dt``); ``gbt`` and
+``dt`` bin ``--max-bins`` ways.
 
 ``serve`` is the counterpart of ``cmd_serve`` in its plain form: load a
 saved pipeline, take off the LABEL ``StringIndexerModel`` (live
@@ -97,7 +105,8 @@ def serving_form(model, label_index_col: str = "label"):
 
 # estimators of the JAX package's train command, and those ported
 TRAIN_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt", "nb", "svc"]
-PORTED_ESTIMATORS = ["rf", "gbt", "dt"]
+PORTED_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt"]
+TRAIN_DEFAULT_LAYERS = "78,64,15"
 
 
 def _build_estimator(args, device):
@@ -106,10 +115,22 @@ def _build_estimator(args, device):
     from sntc_tpu_torch.models import (
         DecisionTreeClassifier,
         GBTClassifier,
+        LogisticRegression,
+        MultilayerPerceptronClassifier,
         OneVsRest,
         RandomForestClassifier,
     )
 
+    if args.estimator == "lr":
+        return LogisticRegression(
+            device=device, maxIter=args.max_iter, regParam=args.reg_param
+        )
+    if args.estimator == "mlp":
+        layers = [int(v) for v in args.layers.split(",")]
+        return MultilayerPerceptronClassifier(
+            device=device, layers=layers, maxIter=args.max_iter,
+            seed=args.seed,
+        )
     if args.estimator == "rf":
         return RandomForestClassifier(
             device=device, numTrees=args.num_trees, maxDepth=args.max_depth,
@@ -129,10 +150,11 @@ def _build_estimator(args, device):
     )
 
 
-def _feature_stages(args, device):
+def _feature_stages(args, device, with_scaler: bool):
     from sntc_tpu_torch.data import CICIDS2017_FEATURES
     from sntc_tpu_torch.feature import (
         ChiSqSelector,
+        StandardScaler,
         StringIndexer,
         VectorAssembler,
     )
@@ -149,7 +171,34 @@ def _feature_stages(args, device):
             featuresCol="rawFeatures", labelCol="label",
             outputCol=args.features_col,
         ))
+    elif with_scaler:
+        stages.append(StandardScaler(
+            device=device, inputCol="rawFeatures",
+            outputCol=args.features_col, withMean=True,
+        ))
     return stages
+
+
+def _track_layers(args, train, n_features: int) -> None:
+    """Default ``--layers`` follow the data's width and class count; a
+    non-default mismatch is refused."""
+    import numpy as np
+
+    n_classes = int(np.unique(train[args.label_col].astype(str)).size)
+    layers = [int(v) for v in args.layers.split(",")]
+    is_default = args.layers == TRAIN_DEFAULT_LAYERS
+    for pos, want, what in (
+        (0, n_features, "input width / feature count"),
+        (-1, n_classes, "output width / class count"),
+    ):
+        if layers[pos] != want:
+            if is_default:
+                layers[pos] = want  # default layers track the data
+            else:
+                raise SystemExit(
+                    f"--layers {what} mismatch: {layers[pos]} != {want}"
+                )
+    args.layers = ",".join(str(v) for v in layers)
 
 
 def _load_data(args):
@@ -170,6 +219,7 @@ def _load_data(args):
 
 def cmd_train(args) -> int:
     from sntc_tpu_torch.core.base import Pipeline
+    from sntc_tpu_torch.data import CICIDS2017_FEATURES
     from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
     from sntc_tpu_torch.kernels import LAUNCHES
     from sntc_tpu_torch.mlio import save_model
@@ -188,12 +238,18 @@ def cmd_train(args) -> int:
     train, test = df.random_split(
         [1 - args.test_fraction, args.test_fraction], seed=args.seed
     )
-    # the trees read the last feature stage's column: the selector's
-    # output, or the assembler's unscaled features without one
-    features_col = args.features_col if args.chisq_top else "rawFeatures"
+    with_scaler = args.estimator in ("lr", "mlp")
+    # the estimator reads the last feature stage's column: the selector's
+    # or the scaler's output, or the assembler's unscaled features (the
+    # trees) without either
+    features_col = (args.features_col if args.chisq_top or with_scaler
+                    else "rawFeatures")
+    if args.estimator == "mlp":
+        _track_layers(args, train,
+                      args.chisq_top or len(CICIDS2017_FEATURES))
     est = _build_estimator(args, device)
     est.set("featuresCol", features_col)
-    pipe = Pipeline(stages=_feature_stages(args, device) + [est])
+    pipe = Pipeline(stages=_feature_stages(args, device, with_scaler) + [est])
     t0 = time.perf_counter()
     model = pipe.fit(train)
     fit_s = time.perf_counter() - t0
@@ -202,11 +258,15 @@ def cmd_train(args) -> int:
     ).evaluate(model.transform(test))
     if args.model_out:
         save_model(model, args.model_out)
-    print(json.dumps({
+    line = {
         "estimator": args.estimator, "train_rows": train.num_rows,
         "fit_wall_clock_s": round(fit_s, 3), args.metric: value,
         "model_out": args.model_out, "kernel_launches": dict(LAUNCHES),
-    }))
+    }
+    stats = getattr(model.getStages()[-1], "optimizer_stats", None)
+    if stats is not None:
+        line["lbfgs"] = stats
+    print(json.dumps(line))
     return 0
 
 
@@ -286,7 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-out", default=None)
     p.add_argument("--test-fraction", type=float, default=0.2)
     p.add_argument("--max-iter", type=int, default=100,
-                   help="boosting rounds (gbt)")
+                   help="LBFGS iterations (mlp, lr); boosting rounds (gbt)")
+    p.add_argument("--reg-param", type=float, default=1e-4,
+                   help="regularization strength (lr)")
+    p.add_argument("--layers", default=TRAIN_DEFAULT_LAYERS,
+                   help="layer sizes (mlp); the default tracks the data's "
+                   "width and class count")
     p.add_argument("--num-trees", type=int, default=20)
     p.add_argument("--max-depth", type=int, default=5)
     p.add_argument("--step-size", type=float, default=0.1,

@@ -64,9 +64,16 @@ class MulticlassMetrics:
     def recall_by_label(self) -> np.ndarray:
         return self._safe_div(self.true_positives, self.label_counts)
 
-    def f_measure_by_label(self) -> np.ndarray:
+    def false_positive_rate_by_label(self) -> np.ndarray:
+        """FP / negatives per class (Spark ``falsePositiveRateByLabel``)."""
+        fp = self.prediction_counts - self.true_positives
+        negatives = self.confusion.sum() - self.label_counts
+        return self._safe_div(fp, negatives)
+
+    def f_measure_by_label(self, beta: float = 1.0) -> np.ndarray:
         p, r = self.precision_by_label(), self.recall_by_label()
-        return self._safe_div(2 * p * r, p + r)
+        b2 = beta * beta
+        return self._safe_div((1 + b2) * p * r, b2 * p + r)
 
     @property
     def accuracy(self) -> float:
@@ -84,8 +91,16 @@ class MulticlassMetrics:
     def weighted_recall(self) -> float:
         return float((self._weights() * self.recall_by_label()).sum())
 
-    def weighted_f_measure(self) -> float:
-        return float((self._weights() * self.f_measure_by_label()).sum())
+    def weighted_f_measure(self, beta: float = 1.0) -> float:
+        return float((self._weights() * self.f_measure_by_label(beta)).sum())
+
+    def weighted_true_positive_rate(self) -> float:
+        return self.weighted_recall()
+
+    def weighted_false_positive_rate(self) -> float:
+        return float(
+            (self._weights() * self.false_positive_rate_by_label()).sum()
+        )
 
     def macro_f1(self) -> float:
         present = self.label_counts > 0

@@ -24,11 +24,14 @@ import numpy as np
 from sntc_tpu_torch.core.base import PipelineModel, PipelineStage
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
+from sntc_tpu_torch.feature.standard_scaler import StandardScalerModel
 from sntc_tpu_torch.feature.string_indexer import (
     IndexToString,
     StringIndexerModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.models.logistic_regression import LogisticRegressionModel
+from sntc_tpu_torch.models.mlp import MultilayerPerceptronClassificationModel
 from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
@@ -47,6 +50,11 @@ PORTED_CLASSES: Dict[str, type] = {
     "sntc_tpu.feature.string_indexer.IndexToString": IndexToString,
     "sntc_tpu.feature.vector_assembler.VectorAssembler": VectorAssembler,
     "sntc_tpu.feature.chisq_selector.ChiSqSelectorModel": ChiSqSelectorModel,
+    "sntc_tpu.feature.standard_scaler.StandardScalerModel": StandardScalerModel,
+    "sntc_tpu.models.mlp.MultilayerPerceptronClassificationModel":
+        MultilayerPerceptronClassificationModel,
+    "sntc_tpu.models.logistic_regression.LogisticRegressionModel":
+        LogisticRegressionModel,
     "sntc_tpu.models.tree.random_forest.RandomForestClassificationModel":
         RandomForestClassificationModel,
     "sntc_tpu.models.tree.decision_tree.DecisionTreeClassificationModel":
@@ -117,7 +125,7 @@ def _load_stage(path: str, device) -> PipelineStage:
 
 def load_model(path: str, device="cuda") -> PipelineStage:
     """Load a stage tree saved by either package; device-backed stages
-    (the forest) place their tensors on ``device``."""
+    (the heads) place their tensors on ``device``."""
     return _load_stage(os.path.normpath(path), resolve_device(device))
 
 

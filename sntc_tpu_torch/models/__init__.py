@@ -2,6 +2,14 @@ from sntc_tpu_torch.models.base import (
     ClassificationModel,
     ClassifierEstimator,
 )
+from sntc_tpu_torch.models.logistic_regression import (
+    LogisticRegression,
+    LogisticRegressionModel,
+)
+from sntc_tpu_torch.models.mlp import (
+    MultilayerPerceptronClassificationModel,
+    MultilayerPerceptronClassifier,
+)
 from sntc_tpu_torch.models.one_vs_rest import OneVsRest, OneVsRestModel
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
@@ -24,6 +32,10 @@ __all__ = [
     "DecisionTreeClassifier",
     "GBTClassificationModel",
     "GBTClassifier",
+    "LogisticRegression",
+    "LogisticRegressionModel",
+    "MultilayerPerceptronClassificationModel",
+    "MultilayerPerceptronClassifier",
     "OneVsRest",
     "OneVsRestModel",
     "RandomForestClassificationModel",

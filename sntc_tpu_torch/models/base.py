@@ -88,6 +88,26 @@ def pack_serve_outputs(raw: torch.Tensor, prob: torch.Tensor,
     return torch.cat([raw, prob, pred[:, None].to(raw.dtype)], dim=1)
 
 
+class DeviceHeadMixin:
+    """Serving inputs of a head whose parameters live on ``self.device``
+    (set ``self._thr_cache = None`` at construction): the features as
+    float32 on that device, and the threshold vector, rebuilt only when
+    the threshold params change."""
+
+    def _serve_args(self):
+        mode, thr = self._threshold_mode()
+        key = (mode, thr.tobytes())
+        if self._thr_cache is None or self._thr_cache[0] != key:
+            self._thr_cache = (key, torch.from_numpy(thr).to(self.device))
+        return mode, self._thr_cache[1]
+
+    def _features_on_device(self, X) -> torch.Tensor:
+        if isinstance(X, torch.Tensor):
+            return X.to(device=self.device, dtype=torch.float32)
+        X = np.require(X, np.float32, ["C", "W"])
+        return torch.from_numpy(X).to(self.device)
+
+
 class ClassificationModel(ClassifierParams, Model):
     """Base fitted model: margins -> probability -> prediction columns."""
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from sntc_tpu_torch.kernels.histogram import tree_hist
+from sntc_tpu_torch.models.base import DeviceHeadMixin
 
 # the level working set (histogram + cumsum + left/right + gains, ~5x the
 # raw histogram) per node group; deeper levels take several passes
@@ -148,11 +149,10 @@ class ForestPersistenceMixin:
         return self.forest.feature_importances(n)
 
 
-class ForestDeviceMixin:
+class ForestDeviceMixin(DeviceHeadMixin):
     """The forest tensors on the model's device, uploaded once at
     construction — not once per serving micro-batch — in float32, the
-    type the serving features are cast to; and the two inputs every
-    forest head's serve program takes besides them."""
+    type the serving features are cast to."""
 
     def _upload_forest(self, device) -> None:
         f = self.forest
@@ -172,23 +172,11 @@ class ForestDeviceMixin:
     def _device_forest(self) -> tuple:
         return self._dev_forest
 
-    def _serve_args(self):
-        """(mode, thr tensor on the device), rebuilt only when the
-        threshold params change."""
-        mode, thr = self._threshold_mode()
-        key = (mode, thr.tobytes())
-        if self._thr_cache is None or self._thr_cache[0] != key:
-            self._thr_cache = (key, torch.from_numpy(thr).to(self.device))
-        return mode, self._thr_cache[1]
-
     def _features_on_device(self, X) -> torch.Tensor:
         """``X`` (numpy or a tensor) as a contiguous float32 tensor on
         the model's device, refused when it is too narrow for the
         forest."""
-        if isinstance(X, torch.Tensor):
-            X = X.to(device=self.device, dtype=torch.float32)
-        else:
-            X = torch.from_numpy(np.asarray(X, dtype=np.float32)).to(self.device)
+        X = super()._features_on_device(X)
         if (self._n_features and X.shape[1] != self._n_features) or \
                 X.shape[1] <= self._max_feature:
             raise ValueError(

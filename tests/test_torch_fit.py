@@ -446,7 +446,7 @@ def test_train_command_refuses_unported_estimators_and_missing_cuda(
     tmp_path, monkeypatch
 ):
     with pytest.raises(SystemExit, match="not ported yet"):
-        main(["train", "--data", str(tmp_path), "--estimator", "mlp",
+        main(["train", "--data", str(tmp_path), "--estimator", "nb",
               "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

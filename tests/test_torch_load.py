@@ -120,8 +120,8 @@ def test_from_numpy_forest_serves_like_the_loaded_model(fitted):
 
 def test_unported_class_and_orbax_payload_raise(tmp_path):
     meta = {"format_version": 1, "uid": "x", "params": {}, "extra": {},
-            "class": "sntc_tpu.feature.standard_scaler.StandardScalerModel"}
-    d = tmp_path / "scaler"
+            "class": "sntc_tpu.models.naive_bayes.NaiveBayesModel"}
+    d = tmp_path / "nb"
     d.mkdir()
     (d / "metadata.json").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="not ported"):
