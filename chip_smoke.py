@@ -18,7 +18,9 @@ each of which fails the run (non-zero exit, no result line):
 3. serve the full-width config-3 random-forest pipeline (78 CICIDS2017
    features -> ChiSq top 40 -> 20 trees of depth 10, 15 classes ->
    IndexToString) built from a seed, over six CSV micro-batches, through
-   ``python -m sntc_tpu_torch serve --device cuda``.  The serving process
+   ``python -m sntc_tpu_torch serve --device cuda`` in its default form
+   (fused, pipelined, files WAL; phase 8 holds it against the staged,
+   serial form).  The serving process
    starts with every launch count at 0 and reports its counts in its
    summary line; each kernel of the path must have launched.  Every input
    row must come back predicted, equal to the plain path on the same card;
@@ -54,8 +56,10 @@ each of which fails the run (non-zero exit, no result line):
    ``python -m sntc_tpu_torch train --estimator gbt --chisq-top 0``
    (``tree_hist`` exactly 10 x the grower's passes, ``forest_traversal``
    10 margin walks + 1 evaluation, held-out macro-F1 >= 0.91), then
-   ``serve`` of the fitted pipeline over three micro-batches (one
-   padded), every prediction equal to the plain path's; a reduced fit
+   ``serve`` of the fitted pipeline in the default form (pipelined, no
+   fused segment: nothing fusible precedes the one-vs-rest head) over
+   three micro-batches (one padded), every prediction equal to the plain
+   path's; a reduced fit
    (20 000 rows, 3 rounds) on the card, on the CPU and on the CPU with
    sibling subtraction, the card within the near-tie rule and the
    training log-loss tolerance set from the CPU's own gap; a depth-5
@@ -72,15 +76,31 @@ each of which fails the run (non-zero exit, no result line):
    lr --binary --reg-param 1e-4`` (250 000 flows: held-out AUC >= 0.97
    by the port's ``BinaryClassificationEvaluator``), each reporting its
    LBFGS iterations, evaluations and host reads; ``serve`` of the MLP
-   pipeline over micro-batches of 1 000 (padded to 1 024: one
-   ``pad_assemble`` launch, counted), 4 096 and 65 536 rows, its
+   pipeline in the staged, serial form over micro-batches of 1 000
+   (padded to 1 024: one ``pad_assemble`` launch, counted), 4 096 and
+   65 536 rows, its
    probabilities within 1e-4 of the unpadded batch's on the card and the
    CPU's, predictions equal wherever the top two lie further apart; the
    MLP and LR pipelines on 20 000 rows fitted on the card and the CPU,
    their objective histories within the stated rule, and a card fit
    segmented by checkpoints bitwise equal to the uninterrupted one; the
    full-width MLP fit profiled (device busy, idle share, device ms by
-   kernel and group) and one ``value_and_grad`` timed beside its bound.
+   kernel and group) and one ``value_and_grad`` timed beside its bound;
+8. the serve command's default form (the whole-pipeline fusion compiler,
+   the pipelined engine with its 4-wide read pool, 2 prefetched batches
+   and overlapped sink, the files-mode WAL) against the JAX command's
+   ``--no-fuse --pipeline-depth 1 --wal-mode append``: phase 3's config-3
+   pipeline over 12 CSV files of 30 000 rows, 2 files a batch (six
+   batches of 60 000 rows, each padded to 65 536), each form twice in
+   turns.  Every run's batch files byte-identical; each form launches
+   ``pad_assemble`` and ``forest_traversal`` once a batch, moves one
+   upload and one download a batch (its transfer ledger), and the
+   default form binds its one fused segment on every batch; each run's
+   rows/s without its first batch and its mean read, predict and sink
+   ms.  Config 2 at the defaults (the scaler folded into the MLP):
+   probabilities within 1e-4 of the staged form's, predictions equal
+   wherever the top two lie further apart; config 4 serves at the
+   defaults in phase 6.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -218,6 +238,11 @@ LBFGS_PREFIX = {"mlp": 5, "lr": 20}
 LBFGS_PREFIX_TOL = 1e-5
 LBFGS_ALL_TOL, LBFGS_END_TOL = 2e-3, 1e-4
 LBFGS_CKPT_EVERY = 25
+# phase 8: the serve command's default form against its serial, staged
+# form (the JAX command's --no-fuse --pipeline-depth 1 --wal-mode append)
+FORM_FILES, FORM_FILE_ROWS, FORM_FILES_PER_BATCH = 12, 30_000, 2
+FORM_RUNS = 2  # each form serves the stream this many times, in turns
+STAGED_FORM = ["--no-fuse", "--pipeline-depth", "1", "--wal-mode", "append"]
 
 
 def log(*a):
@@ -543,7 +568,7 @@ def build_pipeline(traffic: Frame, dev):
     stages = [
         indexer,
         VectorAssembler(inputCols=CICIDS2017_FEATURES,
-                        outputCol="rawFeatures"),
+                        outputCol="rawFeatures", handleInvalid="skip"),
         ChiSqSelectorModel(selected_features=selected,
                            featuresCol="rawFeatures", labelCol="label",
                            outputCol="features", numTopFeatures=TOP),
@@ -568,6 +593,23 @@ def plain_predictions(rf, selected, batch: Frame, dev) -> np.ndarray:
     return packed[:n, 2 * CLASSES].cpu().numpy().astype(np.float64)
 
 
+def serve_command(model_dir: str, watch: str, out: str, ckpt: str, dev,
+                  extra: list, files_per_batch: int = 1) -> dict:
+    """``python -m sntc_tpu_torch serve --once`` in its own process (every
+    launch count starts at 0 there); its summary line."""
+    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
+           "--model", model_dir, "--watch", watch, "--out", out,
+           "--checkpoint", ckpt, "--shape-buckets", str(BUCKET_FLOOR),
+           "--max-files-per-batch", str(files_per_batch), "--once",
+           "--device", dev.type, *extra]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"serve {' '.join(extra) or '(defaults)'} failed "
+                         f"({proc.returncode}):\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def serve(dev, work: str) -> dict:
     import pyarrow.csv as pacsv
 
@@ -589,18 +631,10 @@ def serve(dev, work: str) -> dict:
         f"({time.perf_counter() - t0:.1f} s to generate and write)")
 
     out_dir = os.path.join(work, "out")
-    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
-           "--model", model_dir, "--watch", watch, "--out", out_dir,
-           "--checkpoint", os.path.join(work, "ckpt"),
-           "--shape-buckets", str(BUCKET_FLOOR), "--max-files-per-batch", "1",
-           "--once", "--device", dev.type]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
+    summary = serve_command(model_dir, watch, out_dir,
+                            os.path.join(work, "ckpt"), dev, [])
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit(f"serve failed ({proc.returncode}):\n{proc.stderr}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"serve: {summary['batches']} batches, {summary['rows']} rows in "
         f"{summary['seconds']:.3f} s of serving ({wall:.1f} s with process "
         "start)")
@@ -982,17 +1016,12 @@ def serve_gbt(dev, data: dict, trained: dict, work: str) -> dict:
         batches.append(b)
         start += n
     out_dir = os.path.join(work, "out4")
-    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
-           "--model", trained["model_dir"], "--watch", watch, "--out",
-           out_dir, "--checkpoint", os.path.join(work, "ckpt4"),
-           "--shape-buckets", str(BUCKET_FLOOR), "--max-files-per-batch", "1",
-           "--once", "--device", dev.type]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode != 0:
-        raise SystemExit(f"config-4 serve failed ({proc.returncode}):\n"
-                         f"{proc.stderr}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = serve_command(trained["model_dir"], watch, out_dir,
+                            os.path.join(work, "ckpt4"), dev, [])
+    if summary["fusion"] is not None or \
+            not summary["pipeline_stats"]["overlap_sink"]:
+        raise SystemExit("config-4 default serve: expected the pipelined "
+                         f"engine and no fused segment, got {summary}")
     want = {"forest_traversal": len(GBT_BATCHES),
             "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                                 for n in GBT_BATCHES),
@@ -1457,17 +1486,8 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
         batches.append(b)
         start += n
     out_dir = os.path.join(work, "out2")
-    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
-           "--model", trained["model_dir"], "--watch", watch, "--out",
-           out_dir, "--checkpoint", os.path.join(work, "ckpt2"),
-           "--shape-buckets", str(BUCKET_FLOOR), "--max-files-per-batch", "1",
-           "--once", "--device", dev.type]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode != 0:
-        raise SystemExit(f"config-2 serve failed ({proc.returncode}):\n"
-                         f"{proc.stderr}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = serve_command(trained["model_dir"], watch, out_dir,
+                            os.path.join(work, "ckpt2"), dev, STAGED_FORM)
     want = {"forest_traversal": 0, "tree_hist": 0,
             "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                                 for n in MLP_BATCHES)}
@@ -1507,8 +1527,9 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
                     to_host(out["prediction"])[clear], pred[clear]):
                 raise SystemExit(f"config-2 batch {i} ({key}): probability "
                                  f"{err} off, or a clear prediction differs")
-    log(f"config-2 serve: {summary['batches']} batches, {summary['rows']} "
-        f"rows in {summary['seconds']:.3f} s "
+    default = serve_mlp_default(dev, trained, batches, work, watch, padded)
+    log(f"config-2 serve (staged): {summary['batches']} batches, "
+        f"{summary['rows']} rows in {summary['seconds']:.3f} s "
         f"({summary['rows'] / summary['seconds']:.0f} rows/s); "
         + ", ".join(f"{p['numInputRows']} rows in {p['durationMs']:.2f} ms"
                     for p in summary["progress"])
@@ -1517,6 +1538,61 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
         f"launches {summary['kernel_launches']}")
     summary["max_prob_err"] = errs
     summary["batches_rows"] = MLP_BATCHES
+    summary["default_form"] = default
+    return summary
+
+
+def serve_mlp_default(dev, trained: dict, batches: list, work: str,
+                      watch: str, staged) -> dict:
+    """Phase 8, config 2: the serve command's default form (the scaler
+    folded into the MLP's first layer, so no fused segment remains; the
+    pipelined engine) over the same micro-batches.  Its predictions equal
+    this process's fused form on the card, whose probabilities lie within
+    MLP_SERVE_TOL of the staged form's (``staged``, padded alike), and
+    its predictions equal the staged ones wherever the top two lie
+    further apart than that."""
+    import pyarrow.csv as pacsv
+
+    out_dir = os.path.join(work, "out2_default")
+    summary = serve_command(trained["model_dir"], watch, out_dir,
+                            os.path.join(work, "ckpt2_default"), dev, [])
+    want = {"forest_traversal": 0, "tree_hist": 0,
+            "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                                for n in MLP_BATCHES)}
+    stats = summary["pipeline_stats"]
+    if summary["kernel_launches"] != want or summary["fusion"] is not None \
+            or not stats["overlap_sink"] or summary["rows"] != sum(MLP_BATCHES):
+        raise SystemExit(f"config-2 default serve {summary}")
+    fused, _, _ = serving_form(load_model(trained["model_dir"], device=dev),
+                               "label", True)
+    if [type(x).__name__ for x in fused.getStages()] != [
+            "VectorAssembler", "MultilayerPerceptronClassificationModel",
+            "IndexToString"]:
+        raise SystemExit(f"config-2 fused form {fused.getStages()}")
+    fused = BatchPredictor(fused, bucket_rows=BUCKET_FLOOR, device=dev)
+    err = 0.0
+    for i, b in enumerate(batches):
+        t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+        pred = t.column("prediction").to_numpy()
+        out = fused.predict_frame(b)
+        ref = staged.predict_frame(b)
+        prob = to_host(out["probability"])
+        ref_prob = to_host(ref["probability"])
+        err = max(err, float(np.abs(prob - ref_prob).max()))
+        clear = _clear_rows(prob, MLP_SERVE_TOL) & \
+            _clear_rows(ref_prob, MLP_SERVE_TOL)
+        if not np.array_equal(to_host(out["prediction"]), pred) or \
+                err > MLP_SERVE_TOL or not np.array_equal(
+                    pred[clear], to_host(ref["prediction"])[clear]):
+            raise SystemExit(f"config-2 default batch {i}: predictions "
+                             f"differ, or probability {err} off the staged "
+                             "form's")
+    log(f"config-2 serve (defaults): {summary['batches']} batches, "
+        f"{summary['rows']} rows in {summary['seconds']:.3f} s; "
+        f"probabilities within {err} of the staged form's (tolerance "
+        f"{MLP_SERVE_TOL}); transfers {stats['transfers']}; launches "
+        f"{summary['kernel_launches']}")
+    summary["max_prob_err_vs_staged"] = err
     return summary
 
 
@@ -1695,6 +1771,162 @@ def mlp_fit_profile(dev, data: dict) -> dict:
         },
     }
     return rec
+
+
+# -- phase 8: the serve command's default form --------------------------------
+
+
+def steady(summary: dict) -> dict:
+    """A served run without its first batch (which pays the lazy CUDA
+    loading): rows/s between the first and the last commit, and the mean
+    read, predict and sink ms of the other batches."""
+    prog = summary["progress"]
+    rest = prog[1:]
+    rows = sum(p["numInputRows"] for p in rest)
+    span_ms = prog[-1]["commitMs"] - prog[0]["commitMs"]
+    return {
+        "rows_per_s": rows / span_ms * 1e3,
+        **{f"{k}_ms": float(np.mean([p[f"{k}Ms"] for p in rest]))
+           for k in ("read", "dispatch", "finalize", "predict", "sink")},
+    }
+
+
+def read_probe(path: str) -> list:
+    """Host ms of three ``load_csv`` calls of one file in a fresh
+    process: whether the first batch's read pays a per-process start."""
+    code = ("import json, sys, time\n"
+            "from sntc_tpu_torch.data import load_csv\n"
+            "ms = []\n"
+            "for _ in range(3):\n"
+            "    t0 = time.perf_counter(); load_csv(sys.argv[1])\n"
+            "    ms.append((time.perf_counter() - t0) * 1e3)\n"
+            "print(json.dumps(ms))\n")
+    proc = subprocess.run([sys.executable, "-c", code, path], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise SystemExit(f"read probe failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sink_files(out: str) -> dict:
+    return {f: open(os.path.join(out, f), "rb").read()
+            for f in sorted(os.listdir(out))}
+
+
+def skip_copies(bad: np.ndarray) -> dict:
+    """The copies the engine's ledger must show for one batch whose rows
+    ``bad`` (Inf/NaN features) the ``skip`` assembler drops on the card:
+    the padded block's upload and the outputs' download; the read of the
+    validity verdict; with rows to drop, the read of the row mask and,
+    unless the kept rows of the padded batch are a leading run (only a
+    tail to cut), the upload of their indices."""
+    n = len(bad)
+    padded = np.concatenate(
+        [bad, np.repeat(bad[-1:], bucket_rows_for(n, BUCKET_FLOOR) - n)])
+    kept = ~padded
+    gather = bool(padded.any()) and not kept[:int(kept.sum())].all()
+    return {"uploads": 1 + gather, "downloads": 1,
+            "syncs": 1 + bool(padded.any())}
+
+
+def check_form_run(form: str, s: dict, copies: dict) -> None:
+    """One run of a form: every batch served, each kernel of the path
+    launched once a batch, the engine's transfer ledger showing
+    ``copies`` (one upload and one download a batch, and the skip
+    path's mask and index copies); the default form through one fused
+    segment bound on every batch, the staged one through none."""
+    n_batches = FORM_FILES // FORM_FILES_PER_BATCH
+    if s["batches"] != n_batches or s["rows"] != FORM_FILES * FORM_FILE_ROWS:
+        raise SystemExit(f"{form} form covered {s['batches']} batches, "
+                         f"{s['rows']} rows")
+    want = {"forest_traversal": n_batches, "pad_assemble": n_batches,
+            "tree_hist": 0}
+    if s["kernel_launches"] != want:
+        raise SystemExit(f"{form} form launches {s['kernel_launches']}, "
+                         f"expected {want}")
+    stats = s["pipeline_stats"]
+    moved = stats["transfers"]
+    if {k: moved[k] for k in copies} != copies:
+        raise SystemExit(f"{form} form transfers {moved}, expected "
+                         f"{copies}")
+    fusion = s["fusion"]
+    if form == "staged":
+        if fusion is not None or stats["overlap_sink"] \
+                or stats["storage"]["wal_mode"] != "append":
+            raise SystemExit(f"staged form ran {stats}, fusion {fusion}")
+        return
+    if not stats["overlap_sink"] or stats["pipeline_depth"] != 2 \
+            or stats["storage"]["wal_mode"] != "files":
+        raise SystemExit(f"default form ran {stats}")
+    if fusion is None or fusion["segments"] != 1 \
+            or fusion["invocations"] != n_batches or fusion["fallbacks"] \
+            or fusion["downloads"] != n_batches \
+            or fusion["uploads"] + fusion["device_binds"] != n_batches:
+        raise SystemExit(f"default form fusion {fusion}: expected one "
+                         f"segment bound on each of {n_batches} batches")
+
+
+def serve_forms(dev, work: str) -> list:
+    """Phase 8: the config-3 pipeline of phase 3 serves FORM_FILES CSV
+    files of FORM_FILE_ROWS rows, FORM_FILES_PER_BATCH files a batch
+    (each batch padded to 65 536 rows), in the command's default form
+    (fused, pipelined, files WAL) and its staged, serial, append-WAL
+    form, FORM_RUNS times each in turns.  The flows are not cleaned: as
+    live flows do, 0.1 % of them carry Inf/NaN rates, which the
+    ``skip`` assembler drops on the card.  Every run's batch files must
+    be byte-identical."""
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+
+    n = FORM_FILES * FORM_FILE_ROWS
+    t0 = time.perf_counter()
+    traffic = generate_frame(n, seed=SEED + 8).drop("Label")
+    X = np.stack([traffic[c] for c in CICIDS2017_FEATURES], axis=1)
+    bad = ~np.isfinite(X).all(axis=1)
+    rows = FORM_FILES_PER_BATCH * FORM_FILE_ROWS
+    batch_bad = [bad[b:b + rows] for b in range(0, n, rows)]
+    per_batch = [skip_copies(x) for x in batch_bad]
+    copies = {k: sum(c[k] for c in per_batch) for k in per_batch[0]}
+    watch = os.path.join(work, "in8")
+    os.makedirs(watch)
+    for i in range(FORM_FILES):
+        write_raw_csv(traffic.slice(i * FORM_FILE_ROWS,
+                                    (i + 1) * FORM_FILE_ROWS),
+                      os.path.join(watch, f"part_{i:04d}.csv"))
+    log(f"phase 8 traffic: {FORM_FILES} files of {FORM_FILE_ROWS} rows, "
+        f"{int(bad.sum())} with Inf/NaN features "
+        f"({[int(x.sum()) for x in batch_bad]} a batch; expected copies "
+        f"{copies}; {time.perf_counter() - t0:.1f} s to generate and "
+        "write); "
+        "load_csv of one file three times in a fresh process: "
+        f"{read_probe(os.path.join(watch, 'part_0000.csv'))} ms")
+    runs = []
+    for r in range(FORM_RUNS):
+        for form, extra in (("default", []), ("staged", STAGED_FORM)):
+            out = os.path.join(work, f"out8_{form}_{r}")
+            s = serve_command(os.path.join(work, "model"), watch, out,
+                              os.path.join(work, f"ckpt8_{form}_{r}"), dev,
+                              extra, FORM_FILES_PER_BATCH)
+            check_form_run(form, s, copies)
+            runs.append({"form": form, "run": r, "summary": s,
+                         "files": sink_files(out), **steady(s)})
+    ref = runs[0]["files"]
+    for x in runs:
+        if x["files"] != ref:
+            raise SystemExit(f"{x['form']} run {x['run']}: batch files "
+                             "differ from the default form's first run")
+    if len(ref) != len(batch_bad):
+        raise SystemExit(f"phase 8 wrote {len(ref)} batch files")
+    for (name, data), x in zip(sorted(ref.items()), batch_bad):
+        t = pacsv.read_csv(pa.BufferReader(data))
+        pred = t.column("prediction").to_numpy()
+        if len(pred) != rows - int(x.sum()) or pred.min() < 0 \
+                or pred.max() >= CLASSES:
+            raise SystemExit(f"phase 8 {name}: {len(pred)} rows or "
+                             "predictions out of range")
+    for x in runs:
+        del x["files"]
+    return runs
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -2011,6 +2243,7 @@ def main() -> int:
         cases = hist_cases(data["train"], dev)
         errs["tree_hist"] = check_tree_hist(cases)
         summary, served = serve(dev, work)
+        forms = serve_forms(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
         data4 = gbt_data(work)
@@ -2061,6 +2294,21 @@ def main() -> int:
     for p in summary["progress"]:
         log(f"  batch {p['batchId']}: {p['numInputRows']} rows in "
             f"{p['durationMs']:.2f} ms [{card}]")
+    for x in forms:
+        s = x["summary"]
+        log(f"phase 8, {x['form']} form, run {x['run']}: "
+            f"{x['rows_per_s']:.0f} rows/s without the first batch "
+            f"({s['rows']} rows in {s['seconds']:.3f} s in all); mean read "
+            f"{x['read_ms']:.2f} ms, predict {x['predict_ms']:.2f} ms "
+            f"(dispatch {x['dispatch_ms']:.2f}, finalize "
+            f"{x['finalize_ms']:.2f}), sink {x['sink_ms']:.2f} ms a batch; "
+            "first batch: read "
+            f"{s['progress'][0]['readMs']:.1f}, predict "
+            f"{s['progress'][0]['predictMs']:.1f} ms; prefetch "
+            f"{s['pipeline_stats'].get('prefetch')}, delivery busy "
+            f"{s['pipeline_stats']['delivery_busy_s']} s, transfers "
+            f"{s['pipeline_stats']['transfers']}, fusion {s['fusion']}, "
+            f"launches {s['kernel_launches']} [{card}]")
     for b in stages:
         log(f"breakdown of a {b['rows']}-row batch: read {b['read_ms']:.2f} "
             f"ms, predict {b['predict_ms']:.2f} ms (device busy "
@@ -2151,6 +2399,7 @@ def main() -> int:
         with open(args.out_json, "w") as f:
             json.dump({"card": card, "build": dict(_build.BUILD_INFO),
                        "serve": summary, "rows_per_s": rows_per_s,
+                       "serve_forms": forms,
                        "breakdown": stages, "train": trained,
                        "reduced_fit": reduced, "fit": fit,
                        "config4": {"train": trained4,

@@ -7,7 +7,10 @@
         [--max-bins 128] [--model-out m/] [--device cuda|cpu]
     python -m sntc_tpu_torch serve --model m/ --watch data/in \\
         --out data/out --checkpoint data/ckpt [--shape-buckets N] \\
-        [--max-files-per-batch N] [--once] [--device cuda|cpu]
+        [--max-files-per-batch N] [--pipeline-depth 2] \\
+        [--prefetch-batches 2] [--read-workers 4] [--fuse|--no-fuse] \\
+        [--wal-mode files|append] [--wal-compact-every 256] \\
+        [--wal-keep-commits 64] [--once] [--device cuda|cpu]
 
 ``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
 read and clean every CSV of ``--data``, split off ``--test-fraction``
@@ -27,14 +30,20 @@ gradient-boosted trees (``gbt``: ``--max-iter`` rounds of
 --max-depth 4``) and the single decision tree (``dt``); ``gbt`` and
 ``dt`` bin ``--max-bins`` ways.
 
-``serve`` is the counterpart of ``cmd_serve`` in its plain form: load a
-saved pipeline, take off the LABEL ``StringIndexerModel`` (live
-flows carry no label), map predictions back to label strings with
-``IndexToString``, and serve every CSV micro-batch in the watch
-directory through a shape-bucketed ``BatchPredictor``, one
-``batch_*.csv`` of ``prediction`` and ``predictedLabel`` per batch,
-committing offsets so a restart resumes exactly once.  The pipeline is
-served staged (the JAX package's ``--no-fuse`` form).
+``serve`` is the counterpart of ``cmd_serve``, with its defaults: load
+a saved pipeline, take off the LABEL ``StringIndexerModel`` (live flows
+carry no label), map predictions back to label strings with
+``IndexToString``, compile it with the whole-pipeline fusion compiler
+(``--fuse``; ``--no-fuse`` serves it staged), and serve every CSV
+micro-batch of the watch directory through a shape-bucketed
+``BatchPredictor``, one ``batch_*.csv`` of ``prediction`` and
+``predictedLabel`` per batch, committing offsets so a restart resumes
+exactly once.  ``--pipeline-depth`` above 1 arms the pipelined engine:
+that many batches in flight, the sink write on a delivery thread and
+``--prefetch-batches`` background reads; ``--read-workers`` parse a
+multi-file batch in parallel; ``--wal-mode`` picks the WAL format.  The
+JAX command's ``--no-fuse --pipeline-depth 1 --wal-mode append`` is the
+serial, staged form.  ``--once`` prints one JSON summary line.
 """
 
 from __future__ import annotations
@@ -82,11 +91,13 @@ def strip_label_indexer(model, label_index_col: str):
     return stages, labels
 
 
-def serving_form(model, label_index_col: str = "label"):
+def serving_form(model, label_index_col: str = "label", fuse: bool = False):
     """One loaded checkpoint → its servable form: ``(model, labels,
-    out_cols)``."""
+    out_cols)``; with ``fuse``, compiled through the whole-pipeline
+    fusion compiler."""
     from sntc_tpu_torch.core.base import PipelineModel
     from sntc_tpu_torch.feature.string_indexer import IndexToString
+    from sntc_tpu_torch.fuse import compile_serving
 
     out_cols = ["prediction"]
     labels = None
@@ -100,6 +111,8 @@ def serving_form(model, label_index_col: str = "label"):
             )]
             out_cols = ["prediction", "predictedLabel"]
         model = PipelineModel(stages=stages + tail)
+        if fuse:
+            model = compile_serving(model)
     return model, labels, out_cols
 
 
@@ -285,15 +298,28 @@ def cmd_serve(args) -> int:
 
         library()  # build (or load) the kernels before the first batch
     model, _labels, out_cols = serving_form(
-        load_model(args.model, device=device), args.label_index_col
+        load_model(args.model, device=device), args.label_index_col,
+        args.fuse,
+    )
+    # depth > 1 arms the pipelined engine: the overlapped sink delivery
+    # and the source's background prefetch
+    source = FileStreamSource(
+        args.watch,
+        prefetch_batches=(args.prefetch_batches
+                          if args.pipeline_depth > 1 else 0),
+        read_workers=args.read_workers,
     )
     q = StreamingQuery(
         model,
-        FileStreamSource(args.watch),
+        source,
         CsvDirSink(args.out, columns=out_cols),
         args.checkpoint,
         max_batch_offsets=args.max_files_per_batch,
+        pipeline_depth=args.pipeline_depth,
         shape_buckets=args.shape_buckets,
+        wal_mode=args.wal_mode,
+        wal_compact_every=args.wal_compact_every,
+        wal_keep_commits=args.wal_keep_commits,
         device=device,
     )
     try:
@@ -308,22 +334,27 @@ def cmd_serve(args) -> int:
                 "device": str(device),
                 "kernel_launches": dict(LAUNCHES),
                 "compile_events": q.predictor.compile_events,
+                "pipeline_stats": q.pipeline_stats(),
+                "fusion": q.predictor.fusion_stats(),
                 "progress": q.recentProgress,
             }))
             return 0
-        # poll loop: SIGTERM / Ctrl-C stops between batches; a restart on
-        # the same checkpoint resumes exactly once from the offset log
+        # poll loop: SIGTERM / Ctrl-C stops between rounds, after the
+        # in-flight batches commit; a restart on the same checkpoint
+        # resumes exactly once from the offset log
         stop = []
         signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
         try:
             while not stop:
                 if q.process_available() == 0:
                     time.sleep(args.poll_interval)
+            q.drain()
         except KeyboardInterrupt:
             pass
         return 0
     finally:
-        q.close()
+        q.stop()
+        source.close()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -376,9 +407,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-files-per-batch", type=int, default=None,
                    help="micro-batch size in source files (default: all "
                    "available files form one batch)")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="in-flight micro-batches; > 1 also arms the "
+                   "pipelined engine (overlapped sink delivery + source "
+                   "prefetch); 1 = fully serial")
     p.add_argument("--shape-buckets", type=int, default=0,
                    help="pad micro-batches up to power-of-two row buckets "
                    "with this floor (0 = off)")
+    p.add_argument("--read-workers", type=int, default=4,
+                   help="per-file read/parse pool width for multi-file "
+                   "micro-batches")
+    p.add_argument("--prefetch-batches", type=int, default=2,
+                   help="background source reads staged ahead of the "
+                   "engine (pipelined mode only); 0 = off")
+    p.add_argument("--fuse", action="store_true", dest="fuse", default=True,
+                   help="compile the serving pipeline with the whole-"
+                   "pipeline fusion compiler: fold the scaler into the "
+                   "model and serve each fusible stage run as one device "
+                   "dispatch (default)")
+    p.add_argument("--no-fuse", action="store_false", dest="fuse",
+                   help="serve the staged pipeline unfused")
+    p.add_argument("--wal-mode", default="files",
+                   choices=["files", "append"],
+                   help="WAL format under --checkpoint: 'files' (one json "
+                   "per intent/commit) or 'append' (one fsynced JSONL log "
+                   "per side, compacted per --wal-compact-every)")
+    p.add_argument("--wal-compact-every", type=int, default=256,
+                   metavar="N",
+                   help="append-WAL compaction interval in commits; "
+                   "0 = never compact")
+    p.add_argument("--wal-keep-commits", type=int, default=64, metavar="N",
+                   help="files-WAL retention: committed intent/commit "
+                   "pairs older than the last N are pruned; 0 = keep "
+                   "forever")
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
     p.add_argument("--poll-interval", type=float, default=1.0)

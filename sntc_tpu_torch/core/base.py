@@ -18,6 +18,23 @@ from sntc_tpu_torch.core.params import Param, Params
 class PipelineStage(Params):
     """Common base of every stage."""
 
+    # the input-column param names input_columns() discovers; a stage
+    # reading columns through other params overrides input_columns()
+    _INPUT_COL_PARAMS = ("inputCol", "featuresCol", "inputCols")
+
+    def input_columns(self) -> List[str]:
+        """Column names this stage reads (the fusion planner's view of
+        which columns a later stage still needs)."""
+        out: List[str] = []
+        for name in self._INPUT_COL_PARAMS:
+            if not self.hasParam(name) or not self.isDefined(name):
+                continue
+            val = self.getOrDefault(name)
+            if val is None:
+                continue
+            out.extend(val if isinstance(val, (list, tuple)) else [val])
+        return out
+
 
 class Transformer(PipelineStage):
     def transform(self, frame: Frame) -> Frame:

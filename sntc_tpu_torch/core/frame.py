@@ -10,7 +10,8 @@ A column is either a numpy array (host data, as parsed) or a
 (the bucket-padded feature block, the assembled features) flows to the
 next stage without a round trip through the host.  Anything that needs
 host values (Arrow export, concatenation of mixed frames) materializes
-tensors with :func:`to_host`.
+tensors with :func:`to_host`.  A row gather of such a frame uploads its indices
+once per device, recorded in the transfer ledger.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import pyarrow as pa
 import torch
+
+from sntc_tpu_torch.utils.profiling import upload
 
 ColumnLike = Union[np.ndarray, torch.Tensor, Sequence]
 
@@ -44,12 +47,6 @@ def _coerce_column(name: str, value: ColumnLike):
             f"column {name!r} must be 1-D or 2-D, got shape {tuple(arr.shape)}"
         )
     return arr
-
-
-def _take_rows(a, indices: np.ndarray):
-    if isinstance(a, torch.Tensor):
-        return a.index_select(0, torch.from_numpy(indices).to(a.device))
-    return a[indices]
 
 
 class Frame:
@@ -153,8 +150,18 @@ class Frame:
                 f"take() indices must be 1-D, got shape {indices.shape}"
             )
         indices = indices.astype(np.int64, copy=False)
+        on_device: dict = {}  # the indices uploaded once per device
+
+        def rows(a):
+            if not isinstance(a, torch.Tensor):
+                return a[indices]
+            idx = on_device.get(a.device)
+            if idx is None:
+                idx = on_device[a.device] = upload(indices, a.device)
+            return a.index_select(0, idx)
+
         return Frame._wrap(
-            {n: _take_rows(a, indices) for n, a in self._columns.items()},
+            {n: rows(a) for n, a in self._columns.items()},
             int(indices.shape[0]),
         )
 

@@ -8,7 +8,12 @@ NaN/Inf), ``skip`` (drop rows) or ``keep`` (pass them through).
 Host columns assemble on the host, as in the JAX package.  When any
 input column is a tensor (the bucket-padded feature block already on the
 card), the stack and the float32 cast run on that tensor's device and
-the assembled features stay there.
+the assembled features stay there; host columns among them are uploaded
+there, and each upload is recorded in the transfer ledger, as is the
+one device→host read of the row-validity verdict in ``error`` and
+``skip`` modes.  A batch with rows to skip costs one more read (the row
+mask) and one more upload (the kept rows' indices, gathered from every
+device column at once).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from sntc_tpu_torch.core.base import Transformer
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.utils.profiling import record_movement, upload
 
 
 def _assemble_host(cols, n_rows: int) -> np.ndarray:
@@ -39,7 +45,7 @@ def _assemble_host(cols, n_rows: int) -> np.ndarray:
 def _assemble_device(cols, device: torch.device) -> torch.Tensor:
     parts = [
         c.to(device) if isinstance(c, torch.Tensor)
-        else torch.from_numpy(np.asarray(c)).to(device)
+        else upload(np.asarray(c), device)
         for c in cols
     ]
     if all(p.ndim == 1 and p.dtype == parts[0].dtype for p in parts):
@@ -76,8 +82,11 @@ class VectorAssembler(Transformer):
             bad = None if mode == "keep" else ~torch.isfinite(X).all(dim=1)
             # one device→host sync per batch, for the validity verdict
             any_bad = bad is not None and bool(bad.any())
+            if bad is not None:
+                record_movement(syncs=1)
             if any_bad:
                 bad = bad.cpu().numpy()
+                record_movement(syncs=1)
         if any_bad:
             if mode == "error":
                 raise ValueError(
@@ -85,6 +94,7 @@ class VectorAssembler(Transformer):
                     "NaN/Inf (handleInvalid='error'); clean the data "
                     "or use handleInvalid='skip'"
                 )
-            frame = frame.filter(~bad)
-            X = X[~bad] if device is None else X[torch.from_numpy(~bad).to(device)]
+            # one gather of every column, X among them: a device frame
+            # uploads the kept rows' indices once
+            return frame.with_column(self.getOutputCol(), X).filter(~bad)
         return frame.with_column(self.getOutputCol(), X)

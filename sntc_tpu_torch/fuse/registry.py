@@ -1,0 +1,151 @@
+"""Capability registry — which fitted feature stages export a device fn.
+
+Counterpart of ``sntc_tpu/fuse/registry.py``.  The fusion planner
+(``sntc_tpu_torch.fuse.planner``) fuses a stage only when it can run it
+as a PURE function of device tensors, ``apply(cols_in) -> cols_out``,
+with every parameter baked in when the plan is built.  Each such stage
+registers a plan function ``(fitted stage) -> DevicePlan | None`` keyed
+on its EXACT class (a subclass is not fused unless it is registered
+here too).  It returns None when this instance must run eagerly
+(``VectorAssembler`` in ``skip`` or ``error`` mode: row dropping and a
+data-dependent raise are host decisions).
+
+Bitwise contract: every ``apply`` does its stage's ``transform``
+arithmetic operation for operation (same casts, same order), so a fused
+segment's output equals the staged path's.
+
+Registered: ``StandardScalerModel``, ``ChiSqSelectorModel`` (a column
+gather) and ``VectorAssembler`` in ``keep`` mode — the stages the port
+has.  The JAX package's other registered stages wait for their ports.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+# read-binding policies: how a segment binds an EXTERNAL column a plan
+# reads (columns made inside the segment arrive as device tensors)
+F32_CAST = "f32cast"  # cast to float32 first (the stage's own cast)
+F32_ONLY = "f32only"  # dtype-preserving op: float32 only, else eager
+F64 = "f64"  # float64 math: bound as float64, whatever the column holds
+
+
+class DevicePlan:
+    """One fused stage: ``apply`` maps a dict of device tensors to the
+    stage's written columns, doing exactly the host transform's math."""
+
+    __slots__ = ("reads", "writes", "apply", "read_policy")
+
+    def __init__(
+        self,
+        reads: List[str],
+        writes: List[str],
+        apply: Callable[[dict], dict],
+        read_policy: str = F32_CAST,
+    ):
+        self.reads = list(reads)
+        self.writes = list(writes)
+        self.apply = apply
+        self.read_policy = read_policy
+
+
+_REGISTRY: Dict[type, Callable] = {}
+
+
+def _register(cls: type):
+    """``@_register(StageType)`` marks ``plan_fn(stage) -> DevicePlan |
+    None`` as StageType's exporter."""
+
+    def deco(plan_fn):
+        _REGISTRY[cls] = plan_fn
+        return plan_fn
+
+    return deco
+
+
+def device_plan_for(stage) -> Optional[DevicePlan]:
+    """The stage's device plan, or None when it (or this configuration
+    of it) runs eagerly.  Exact-type lookup, never MRO."""
+    plan_fn = _REGISTRY.get(type(stage))
+    if plan_fn is None:
+        return None
+    return plan_fn(stage)
+
+
+def _on(cache: dict, a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``, uploaded once per device."""
+    t = cache.get(device)
+    if t is None:
+        t = cache[device] = torch.from_numpy(a).to(device)
+    return t
+
+
+def _register_builtin() -> None:
+    from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
+    from sntc_tpu_torch.feature.standard_scaler import StandardScalerModel
+    from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+
+    @_register(StandardScalerModel)
+    def _standard_scaler(m):
+        mu, f = m.affine()  # float64, the one source of both paths
+        mu32, f32 = mu.astype(np.float32), f.astype(np.float32)
+        with_mean, with_std = m.getWithMean(), m.getWithStd()
+        inp, out = m.getInputCol(), m.getOutputCol()
+        mu_on, f_on = {}, {}
+
+        def apply(cols):
+            x = cols[inp].to(torch.float32)
+            if with_mean:
+                x = x - _on(mu_on, mu32, x.device)
+            if with_std:
+                x = x * _on(f_on, f32, x.device)
+            return {out: x}
+
+        return DevicePlan([inp], [out], apply)
+
+    def _gather_plan(inp, out, idx):
+        idx = np.asarray(idx, np.int64)
+        idx_on = {}
+
+        def apply(cols):
+            x = cols[inp]
+            if len(idx) and (idx.min() < 0 or idx.max() >= x.shape[1]):
+                raise ValueError(
+                    f"indices out of range for vector width {x.shape[1]}"
+                )
+            return {out: x.index_select(1, _on(idx_on, idx, x.device))}
+
+        # dtype-preserving on the host (f64 in -> f64 out): fuse f32 only
+        return DevicePlan([inp], [out], apply, read_policy=F32_ONLY)
+
+    @_register(ChiSqSelectorModel)
+    def _chisq_selector(m):
+        return _gather_plan(
+            m.getFeaturesCol(), m.getOutputCol(), m.selected_features
+        )
+
+    @_register(VectorAssembler)
+    def _vector_assembler(m):
+        # 'error' raises on NaN rows and 'skip' drops them: both are
+        # data-dependent host decisions a pure device fn cannot make
+        if m.getHandleInvalid() != "keep":
+            return None
+        ins = m.getInputCols()
+        if not ins:
+            return None
+        out = m.getOutputCol()
+
+        def apply(cols):
+            parts = []
+            for name in ins:
+                c = cols[name].to(torch.float32)
+                parts.append(c[:, None] if c.ndim == 1 else c)
+            return {out: torch.cat(parts, dim=1)}
+
+        return DevicePlan(list(ins), [out], apply)
+
+
+_register_builtin()

@@ -11,12 +11,16 @@ it computes :func:`pad_rows_reference`.  Both are bitwise the numpy
 repeat-last-row twin.
 
 :func:`pad_assemble` does not pad column by column as the JAX package
-does: a CICIDS2017 batch has 78 float columns, and a host→device→host
-round trip per column would dominate the batch.  It stacks the 1-D float
-columns of one dtype into one ``[N, C]`` block, uploads it once, pads it
-in one launch and leaves the padded block on the device; each column of
-the padded frame is a view of it, so the assembled features reach the
-forest kernel without a second upload.  Other columns pad on the host.
+does: a CICIDS2017 batch has 78 numeric columns, and a host→device→host
+round trip per column would dominate the batch.  It stacks the 1-D
+numeric columns of one item size (float64 and int64; float32 and int32)
+into one ``[N, C]`` block, uploads it once, pads it in one launch and
+leaves the padded block on the device; each column of the padded frame
+is a view of it, in its own dtype (the copy moves bits, so an integer
+column rides a float block exactly).  The assembled features then reach
+the serve kernels without a second upload, and a CSV batch costs one
+upload (recorded in the transfer ledger).  Other columns pad on the
+host.
 """
 
 from __future__ import annotations
@@ -28,8 +32,19 @@ import torch
 
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.kernels import _build
+from sntc_tpu_torch.utils.profiling import upload
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+# numeric column dtypes padded on the device, by the float dtype of the
+# block that carries their bits
+_BLOCK_OF = {
+    np.dtype(np.float64): np.float64, np.dtype(np.int64): np.float64,
+    np.dtype(np.float32): np.float32, np.dtype(np.int32): np.float32,
+}
+_TORCH_OF = {
+    np.dtype(np.float64): torch.float64, np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
+}
 _NP_FLOATS = (np.float32, np.float64)
 
 
@@ -94,34 +109,34 @@ def pad_rows(a: torch.Tensor, target: int) -> torch.Tensor:
 def pad_assemble(frame: Frame, target: int, valid: np.ndarray,
                  device) -> Frame:
     """Bucket-pad ``frame`` to ``target`` rows by repeating its last row
-    and attach the ``VALID_COL`` mask, with the float columns padded on
+    and attach the ``VALID_COL`` mask, with the numeric columns padded on
     ``device`` (see the module docs).  Column order and dtypes are
     kept."""
     from sntc_tpu_torch.serve.transform import VALID_COL
 
     device = torch.device(device)
     n = frame.num_rows
-    cols: Dict[str, object] = {}
-    groups: Dict[np.dtype, List[str]] = {}
-    for name in frame.columns:
-        a = to_host(frame[name])
-        if a.dtype in _NP_FLOATS and n > 0:
-            if a.ndim == 1:
-                groups.setdefault(a.dtype, []).append(name)
-            cols[name] = None  # placeholder keeps the column order
+    host = {name: to_host(frame[name]) for name in frame.columns}
+    cols: Dict[str, object] = dict.fromkeys(host)  # keeps the order
+    groups: Dict[type, List[str]] = {}
+    for name, a in host.items():
+        if n == 0:
+            cols[name] = _pad_column_np(a, target)
+        elif a.ndim == 1 and a.dtype in _BLOCK_OF:
+            groups.setdefault(_BLOCK_OF[a.dtype], []).append(name)
+        elif a.ndim == 2 and a.dtype in _NP_FLOATS:
+            cols[name] = pad_rows(
+                upload(np.ascontiguousarray(a), device), target)
         else:
             cols[name] = _pad_column_np(a, target)
-    for name in [k for k, v in cols.items() if v is None and
-                 frame[k].ndim == 2]:
-        block = torch.from_numpy(np.ascontiguousarray(to_host(frame[name])))
-        cols[name] = pad_rows(block.to(device), target)
-    for names in groups.values():
-        # one upload and one launch for all columns of this dtype
-        block = torch.from_numpy(
-            np.stack([to_host(frame[c]) for c in names], axis=1)
-        )
-        padded = pad_rows(block.to(device), target)
+    for block_dtype, names in groups.items():
+        # one upload and one launch for every column of this item size;
+        # an integer column is stored as its bits
+        block = np.empty((n, len(names)), block_dtype)
         for j, name in enumerate(names):
-            cols[name] = padded[:, j]
+            block.view(host[name].dtype)[:, j] = host[name]
+        padded = pad_rows(upload(block, device), target)
+        for j, name in enumerate(names):
+            cols[name] = padded[:, j].view(_TORCH_OF[host[name].dtype])
     cols[VALID_COL] = np.asarray(valid, dtype=bool)
     return Frame._wrap(cols, int(target))

@@ -8,7 +8,8 @@ extracts ``(X, y, w)`` from the frame; a classification model's
 
 A subclass implements ``_predict_all_dev(X) -> [N, 2K+1]``: one packed
 tensor of raw | prob | prediction computed on the model's device, so a
-micro-batch costs one device→host copy.
+micro-batch costs one device→host copy.  That copy, and a head's upload
+of host features, are recorded in the transfer ledger.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.utils.profiling import (
+    active_ledgers,
+    record_movement,
+    upload,
+)
 
 
 class ClassifierParams:
@@ -104,8 +110,7 @@ class DeviceHeadMixin:
     def _features_on_device(self, X) -> torch.Tensor:
         if isinstance(X, torch.Tensor):
             return X.to(device=self.device, dtype=torch.float32)
-        X = np.require(X, np.float32, ["C", "W"])
-        return torch.from_numpy(X).to(self.device)
+        return upload(np.require(X, np.float32, ["C", "W"]), self.device)
 
 
 class ClassificationModel(ClassifierParams, Model):
@@ -130,6 +135,13 @@ class ClassificationModel(ClassifierParams, Model):
         """Packed ``[N, 2K+1]`` raw | prob | prediction on the model's
         device (enqueued, not waited for)."""
         raise NotImplementedError
+
+    def has_device_serve(self) -> bool:
+        """True when this model has a packed device program
+        (``_predict_all_dev``): the capability the fusion planner checks
+        before fusing a head into a segment."""
+        return (type(self)._predict_all_dev
+                is not ClassificationModel._predict_all_dev)
 
     def _raw_predict(self, X) -> torch.Tensor:
         """Margins ``[N, K]`` on the model's device (K=2 for binary:
@@ -164,21 +176,28 @@ class ClassificationModel(ClassifierParams, Model):
         """Enqueue the packed device program; finalize copies it to the
         host once and splits it into the output columns."""
         packed_dev = self._predict_all_dev(frame[self.getFeaturesCol()])
+        ledgers = active_ledgers()
 
         def finalize():
             packed = packed_dev.cpu().numpy()
-            k = self.num_classes
-            out = frame
-            if self.getRawPredictionCol():
-                out = out.with_column(self.getRawPredictionCol(), packed[:, :k])
-            if self.getProbabilityCol():
-                out = out.with_column(
-                    self.getProbabilityCol(), packed[:, k : 2 * k]
-                )
-            if self.getPredictionCol():
-                out = out.with_column(
-                    self.getPredictionCol(), packed[:, 2 * k].astype(np.float64)
-                )
-            return out
+            record_movement(ledgers, downloads=1, download_bytes=packed.nbytes)
+            return self._with_packed(frame, packed)
 
         return finalize
+
+    def _with_packed(self, frame: Frame, packed: np.ndarray) -> Frame:
+        """``frame`` with the output columns of a host copy of the packed
+        ``[N, 2K+1]`` raw | prob | prediction block."""
+        k = self.num_classes
+        out = frame
+        if self.getRawPredictionCol():
+            out = out.with_column(self.getRawPredictionCol(), packed[:, :k])
+        if self.getProbabilityCol():
+            out = out.with_column(
+                self.getProbabilityCol(), packed[:, k : 2 * k]
+            )
+        if self.getPredictionCol():
+            out = out.with_column(
+                self.getPredictionCol(), packed[:, 2 * k].astype(np.float64)
+            )
+        return out

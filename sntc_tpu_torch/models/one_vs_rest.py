@@ -24,6 +24,7 @@ import torch
 
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.utils.profiling import active_ledgers, record_movement
 from sntc_tpu_torch.models.base import (
     ClassificationModel,
     ClassifierEstimator,
@@ -197,8 +198,11 @@ class OneVsRestModel(_OvrParams, ClassificationModel):
             [raw, torch.argmax(raw, dim=1)[:, None].to(raw.dtype)], dim=1
         )
 
+        ledgers = active_ledgers()
+
         def finalize():
             host = packed.cpu().numpy()
+            record_movement(ledgers, downloads=1, download_bytes=host.nbytes)
             k = self.num_classes
             out = frame
             if self.getRawPredictionCol():

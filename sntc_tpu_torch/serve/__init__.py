@@ -1,5 +1,7 @@
+from sntc_tpu_torch.serve.fuse import compile_pipeline, compile_serving
 from sntc_tpu_torch.serve.streaming import (
     CsvDirSink,
+    DirStreamSource,
     FileStreamSource,
     StreamingQuery,
 )
@@ -13,7 +15,10 @@ __all__ = [
     "VALID_COL",
     "BatchPredictor",
     "CsvDirSink",
+    "DirStreamSource",
     "FileStreamSource",
     "StreamingQuery",
     "bucket_rows_for",
+    "compile_pipeline",
+    "compile_serving",
 ]

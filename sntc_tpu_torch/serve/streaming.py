@@ -1,51 +1,227 @@
 """Micro-batch streaming inference with an exactly-once offset log.
 
-Counterpart of ``sntc_tpu/serve/streaming.py`` (``FileStreamSource``,
-``CsvDirSink`` and the serial form of ``StreamingQuery`` with its
-append-mode WAL): the engine resolves the source's latest offset, logs
-the intended batch range (one line of ``offsets.log``), runs the batch
-through the predictor, hands it to the sink, then logs the commit (one
-line of ``commits.log``).  On restart with the same checkpoint dir an
-uncommitted intent is REPLAYED with its logged range and the sink
-rewrites that batch's file — exactly-once batches with respect to the
-offset log.
+Counterpart of ``sntc_tpu/serve/streaming.py`` (``DirStreamSource``,
+``FileStreamSource``, ``CsvDirSink`` and ``StreamingQuery``): the engine
+resolves the source's latest offset, write-ahead-logs the intended batch
+range, reads the batch, dispatches it through the predictor, hands the
+result to the sink, then logs the commit.  On restart with the same
+checkpoint dir an uncommitted intent is REPLAYED with its logged range
+and the sink rewrites that batch's file: exactly-once batches with
+respect to the offset log.
 
 A source's offset is its count of files in sorted order (new files are
-new data).  The JAX engine's pipelining, prefetch, admission, retries,
-breakers, quarantine and WAL compaction are not ported.
+new data).
+
+**WAL formats** (``wal_mode``, exclusive per checkpoint dir, the JAX
+package's on-disk layouts, so either package resumes the other's):
+
+* ``files`` — one JSON per intent (``offsets/<id>.json``) and per commit
+  (``commits/<id>.json``); committed pairs older than the last
+  ``wal_keep_commits`` are pruned;
+* ``append`` — one JSONL log per side (``offsets.log``, ``commits.log``,
+  one fsynced line per batch), sealed into ``wal_checkpoint.json`` and
+  truncated every ``wal_compact_every`` commits.
+
+**Pipelined engine** (``pipeline_depth > 1``, which arms the overlapped
+sink, and a source with ``prefetch_batches``): up to ``pipeline_depth``
+batches are in flight, so batch N+1's read and dispatch overlap batch
+N's device work; the retire stage (finalize + sink write) runs on ONE
+delivery thread; the source parses the next ranges on its prefetch
+threads and each multi-file batch on its read pool.  The protocol order is the
+serial engine's: WAL intent → read → dispatch → sink → commit; commits
+land on the engine thread in batch order, at most one delivery is in the
+air, and the head batch leaves ``_in_flight`` only after its commit.
+
+Threads and the card: every kernel launch and device op of a batch is
+made on the engine thread, on PyTorch's default stream (the current
+stream of every thread unless a caller changes it); the delivery thread
+only copies the batch's outputs to the host, on the same stream, so the
+copy is ordered after the batch's kernels.  A batch of more rows than the
+predictor's ``chunk_rows`` dispatches its later chunks from its finalize
+(a window of two chunks bounds its device memory), so it retires on the
+engine thread, as in the serial engine.  The read and prefetch
+threads only parse on the host.
+
+Failures raise: an error on a read, prefetch, dispatch, finalize or sink
+of a batch surfaces from ``process_available`` on the engine thread; the
+batch stays uncommitted (its intent in the WAL), a later
+``process_available`` or a restarted query replays it.  The JAX engine's
+retries, breakers, quarantine, admission, load shedding, autotuning and
+hot swap are not ported.
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.data.ingest import load_csv
 from sntc_tpu_torch.serve.transform import BatchPredictor
+from sntc_tpu_torch.utils.profiling import TransferLedger, ledger_scope
+
+# ---------------------------------------------------------------------------
+# sources
+# ---------------------------------------------------------------------------
 
 
-class FileStreamSource:
-    """Directory of flow CSVs; offset = number of files, sorted by name."""
+class DirStreamSource:
+    """A watched directory: offset = count of files in sorted order.
+    Subclasses implement ``_load_file(path) -> Frame``.
 
-    def __init__(self, path: str, pattern: str = "*.csv"):
+    **One listing per poll tick**: ``latest_offset()`` globs and sorts
+    once; ``get_batch`` reuses the listing whenever it covers the range
+    (files are append-only in the offset model).
+
+    **Parallel per-file reads**: a multi-file batch parses its files on a
+    pool of ``read_workers`` threads (pyarrow's CSV reader releases the
+    GIL) and concatenates them in sorted-filename order.
+
+    **Prefetch** (``prefetch_batches=N``): :meth:`prefetch` stages a
+    background read of a future ``[start, end)`` range (at most N staged
+    at once, parsed concurrently), so the engine's ``get_batch`` of that
+    range returns an already-parsed Frame.  A range with no staged read
+    is read synchronously; a staged read that failed raises in
+    ``get_batch``, on the engine thread.  ``N <= 0`` stages nothing.
+    """
+
+    def __init__(self, path: str, pattern: str, prefetch_batches: int = 0,
+                 read_workers: int = 4):
         self.path = path
         self.pattern = pattern
+        self.prefetch_batches = int(prefetch_batches)
+        self.read_workers = max(1, int(read_workers))
+        self._listing: Optional[List[str]] = None
+        self._read_pool: Optional[ThreadPoolExecutor] = None
+        self._prefetch_pool: Optional[ThreadPoolExecutor] = None
+        # _pool() is reached from the engine thread and from prefetch
+        # threads: the lazy create must not race two pools into being
+        self._pool_lock = threading.Lock()
+        self._staged: dict = {}  # (start, end) -> Future[Frame]
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self.prefetch_hwm = 0  # staged-queue high-water mark
 
     def _files(self) -> List[str]:
-        return sorted(glob.glob(os.path.join(self.path, self.pattern)))
+        self._listing = sorted(
+            glob.glob(os.path.join(self.path, self.pattern))
+        )
+        return self._listing
 
     def latest_offset(self) -> int:
         return len(self._files())
 
-    def get_batch(self, start: int, end: int) -> Frame:
-        files = self._files()[start:end]
+    def _load_file(self, path: str) -> Frame:
+        raise NotImplementedError
+
+    def _pool(self) -> ThreadPoolExecutor:
+        with self._pool_lock:
+            if self._read_pool is None:
+                self._read_pool = ThreadPoolExecutor(
+                    max_workers=self.read_workers,
+                    thread_name_prefix="sntc-src-read",
+                )
+            return self._read_pool
+
+    def _read_files(self, files: List[str]) -> Frame:
+        if len(files) == 1:  # the common micro-batch: no concat copy
+            return self._load_file(files[0])
+        return Frame.concat_all(list(self._pool().map(self._load_file, files)))
+
+    def _read_range(self, start: int, end: int,
+                    listing: Optional[List[str]]) -> Frame:
+        # a listing that does not cover `end` is re-scanned LOCALLY: a
+        # prefetch thread never mutates the engine thread's listing
+        if listing is None or len(listing) < end:
+            listing = sorted(glob.glob(os.path.join(self.path, self.pattern)))
+        files = listing[start:end]
         if not files:
             raise ValueError(f"empty batch range [{start}, {end})")
-        return Frame.concat_all([load_csv(p) for p in files])
+        return self._read_files(files)
+
+    def prefetch(self, start: int, end: int,
+                 cursor: Optional[int] = None) -> bool:
+        """Stage a background read of ``[start, end)``; True when one was
+        scheduled.  Staged ranges wholly behind ``cursor`` (the engine's
+        planning cursor; default ``start``) are stale and evicted."""
+        if self.prefetch_batches <= 0 or end <= start:
+            return False
+        horizon = start if cursor is None else cursor
+        for key in [k for k in self._staged if k[1] <= horizon]:
+            self._staged.pop(key).cancel()
+        if (start, end) in self._staged:
+            return False
+        if len(self._staged) >= self.prefetch_batches:
+            return False
+        if self._prefetch_pool is None:
+            self._prefetch_pool = ThreadPoolExecutor(
+                max_workers=max(1, min(self.prefetch_batches, 4)),
+                thread_name_prefix="sntc-src-prefetch",
+            )
+        listing = (
+            list(self._listing)
+            if self._listing is not None and len(self._listing) >= end
+            else None
+        )
+        self._staged[(start, end)] = self._prefetch_pool.submit(
+            self._read_range, start, end, listing
+        )
+        self.prefetch_hwm = max(self.prefetch_hwm, len(self._staged))
+        return True
+
+    def prefetch_stats(self) -> dict:
+        return {
+            "hits": self.prefetch_hits,
+            "misses": self.prefetch_misses,
+            "hwm": self.prefetch_hwm,
+            "staged": len(self._staged),
+        }
+
+    def get_batch(self, start: int, end: int) -> Frame:
+        fut = self._staged.pop((start, end), None)
+        if fut is not None:
+            self.prefetch_hits += 1
+            return fut.result()  # a failed staged read raises here
+        if self.prefetch_batches > 0:
+            self.prefetch_misses += 1
+        listing = self._listing
+        if listing is not None and len(listing) < end:
+            listing = None  # stale: _read_range re-scans once
+        return self._read_range(start, end, listing)
+
+    def close(self) -> None:
+        """Cancel staged reads and shut the pools down (idempotent; a
+        closed source still serves synchronous reads)."""
+        for fut in self._staged.values():
+            fut.cancel()
+        self._staged.clear()
+        with self._pool_lock:
+            pools = [self._read_pool, self._prefetch_pool]
+            self._read_pool = self._prefetch_pool = None
+        for pool in pools:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+
+class FileStreamSource(DirStreamSource):
+    """Directory of flow CSVs, parsed by :func:`data.ingest.load_csv`."""
+
+    def __init__(self, path: str, pattern: str = "*.csv", **kwargs):
+        super().__init__(path, pattern, **kwargs)
+
+    def _load_file(self, path: str) -> Frame:
+        return load_csv(path)
+
+
+# ---------------------------------------------------------------------------
+# sink
+# ---------------------------------------------------------------------------
 
 
 class CsvDirSink:
@@ -72,12 +248,46 @@ class CsvDirSink:
         _fsync(self.path)  # the rename is durable once the dirent is
 
 
+# ---------------------------------------------------------------------------
+# WAL storage
+# ---------------------------------------------------------------------------
+
+
 def _fsync(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+def _atomic_write_json(path: str, obj, fsync: bool) -> None:
+    """Tmp-then-rename publish: readers never see a torn file."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(json.dumps(obj))
+        f.flush()
+        if fsync:
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    if fsync:
+        _fsync(os.path.dirname(path) or ".")
+
+
+def _seal(core: dict) -> dict:
+    """``core`` with a sha256 seal over its canonical JSON (the JAX
+    package's ``storage.seal_record``)."""
+    digest = hashlib.sha256(json.dumps(core, sort_keys=True).encode())
+    return dict(core, sha256=digest.hexdigest())
+
+
+def _load_sealed(path: str) -> dict:
+    with open(path) as f:
+        obj = json.load(f)
+    core = {k: v for k, v in obj.items() if k != "sha256"}
+    if _seal(core).get("sha256") != obj.get("sha256"):
+        raise ValueError(f"sealed record {path}: seal mismatch")
+    return core
 
 
 def _read_log(path: str) -> dict:
@@ -98,20 +308,37 @@ def _read_log(path: str) -> dict:
     }
 
 
-class StreamingQuery:
-    """Serial micro-batch engine over an append-mode WAL.
+def _append(f, record: dict) -> None:
+    f.write(json.dumps(record) + "\n")
+    f.flush()
+    os.fsync(f.fileno())
 
-    One live query owns a checkpoint dir: the logs are read once at
+
+# ---------------------------------------------------------------------------
+# the micro-batch engine
+# ---------------------------------------------------------------------------
+
+
+class StreamingQuery:
+    """Micro-batch engine (see the module docs).
+
+    One live query owns a checkpoint dir: the WAL is read once at
     construction and tracked in memory afterwards."""
+
+    _PROGRESS_KEEP = 100
 
     def __init__(
         self,
         model,
-        source: FileStreamSource,
+        source: DirStreamSource,
         sink: CsvDirSink,
         checkpoint_dir: str,
         max_batch_offsets: Optional[int] = None,
+        pipeline_depth: int = 2,
         shape_buckets: int = 0,
+        wal_mode: str = "files",
+        wal_compact_every: int = 256,
+        wal_keep_commits: int = 64,
         device="cuda",
     ):
         self.predictor = (
@@ -119,75 +346,471 @@ class StreamingQuery:
             if isinstance(model, BatchPredictor)
             else BatchPredictor(model, bucket_rows=shape_buckets, device=device)
         )
+        self.shape_buckets = int(self.predictor.bucket_rows)
         self.source = source
         self.sink = sink
         self.checkpoint_dir = checkpoint_dir
         self.max_batch_offsets = max_batch_offsets
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        # depth > 1 overlaps each batch's retire with the next dispatch
+        self.overlap_sink = self.pipeline_depth > 1
+        self._delivery = None  # (batch_id, Future) while one is in the air
+        self._delivery_pool: Optional[ThreadPoolExecutor] = None
+        self._delivery_busy_s = 0.0
+        self._delivered_batches = 0
+        self._tick_latest: Optional[int] = None
+        # (batch_id, intent, finalize, t0, n_rows, timing) per batch
+        self._in_flight: List[tuple] = []
+        self._stopped = False
+        self._t_start = time.perf_counter()
+        self.recentProgress: List[dict] = []
+        self.rows_served = 0
+        # this engine's copies, beside the process-wide ledger
+        self.transfer = TransferLedger()
+        if wal_mode not in ("files", "append"):
+            raise ValueError("wal_mode must be 'files' or 'append'")
+        self.wal_mode = wal_mode
+        self.wal_compact_every = max(0, int(wal_compact_every))
+        self.wal_keep_commits = max(0, int(wal_keep_commits))
+        self._commits_since_compact = 0
+        self.wal_compactions = 0
+        self.wal_prunes = 0
+        self._offsets_dir = os.path.join(checkpoint_dir, "offsets")
+        self._commits_dir = os.path.join(checkpoint_dir, "commits")
+        if wal_mode == "append":
+            self._init_append_wal(checkpoint_dir)
+        else:
+            os.makedirs(self._offsets_dir, exist_ok=True)
+            os.makedirs(self._commits_dir, exist_ok=True)
+            self._pending_intents = None
+            self._last_committed = self._scan_last_committed()
+            self._end_offset = self._read_committed_end(self._last_committed)
+            ids = self._log_ids(self._commits_dir)
+            self._prune_cursor = ids[0] if ids else 0
+        self._next_start = self._end_offset
+
+    def _init_append_wal(self, checkpoint_dir: str) -> None:
+        """``append`` mode: recovery is ``wal_checkpoint.json`` (the
+        sealed state at the last compaction) plus the log tails written
+        since; records the checkpoint covers replay idempotently."""
+        if os.path.isdir(self._offsets_dir) or os.path.isdir(
+            self._commits_dir
+        ):
+            raise ValueError(
+                f"checkpoint dir {checkpoint_dir!r} was written in "
+                "'files' WAL mode; pick a fresh dir for 'append' mode"
+            )
         os.makedirs(checkpoint_dir, exist_ok=True)
         offsets_path = os.path.join(checkpoint_dir, "offsets.log")
         commits_path = os.path.join(checkpoint_dir, "commits.log")
-        intents = _read_log(offsets_path)
+        self._wal_ckpt_path = os.path.join(
+            checkpoint_dir, "wal_checkpoint.json"
+        )
+        last, end, pending = -1, 0, {}
+        if os.path.exists(self._wal_ckpt_path):
+            core = _load_sealed(self._wal_ckpt_path)
+            last, end = int(core["last_committed"]), int(core["end"])
+            pending = {int(k): v for k, v in core.get("pending", {}).items()}
+        pending.update(_read_log(offsets_path))
         commits = _read_log(commits_path)
-        self._last_committed = max(commits) if commits else -1
-        self._end_offset = commits[self._last_committed]["end"] if commits else 0
-        self._pending = {
-            bid: rec for bid, rec in intents.items()
-            if bid > self._last_committed
+        if commits and max(commits) > last:
+            last = max(commits)
+            end = commits[last]["end"]
+        self._last_committed = last
+        self._end_offset = end
+        self._pending_intents = {
+            bid: rec for bid, rec in pending.items() if bid > last
         }
         self._offsets_log = open(offsets_path, "a")
         self._commits_log = open(commits_path, "a")
-        self.recentProgress: List[dict] = []
-        self.rows_served = 0
+
+    # -- checkpoint bookkeeping -------------------------------------------
+
+    @staticmethod
+    def _log_ids(d: str) -> List[int]:
+        return sorted(
+            int(os.path.splitext(os.path.basename(p))[0])
+            for p in glob.glob(os.path.join(d, "*.json"))
+        )
+
+    def _scan_last_committed(self) -> int:
+        ids = self._log_ids(self._commits_dir)
+        while ids:
+            path = os.path.join(self._commits_dir, f"{ids[-1]}.json")
+            try:
+                with open(path) as f:
+                    json.load(f)
+                return ids[-1]
+            except ValueError:
+                # a torn commit record is a commit that never landed: it
+                # is set aside and the batch replays
+                os.replace(path, path + ".torn")
+                ids.pop()
+        return -1
+
+    def _read_committed_end(self, last: int) -> int:
+        if last < 0:
+            return 0
+        with open(os.path.join(self._commits_dir, f"{last}.json")) as f:
+            return json.load(f)["end"]
 
     def last_committed(self) -> int:
         return self._last_committed
 
-    @staticmethod
-    def _append(f, record: dict) -> None:
-        f.write(json.dumps(record) + "\n")
-        f.flush()
-        os.fsync(f.fileno())
+    def committed_end(self) -> int:
+        """End offset of the last committed batch (the resume point)."""
+        return self._end_offset
 
-    def _run_one_batch(self) -> bool:
-        """Plan (or replay), read, predict, deliver and commit the next
-        batch; False when there is nothing to do."""
-        batch_id = self._last_committed + 1
-        intent = self._pending.get(batch_id)
+    def in_flight_count(self) -> int:
+        return len(self._in_flight)
+
+    def _pending_intent(self, batch_id: int) -> Optional[dict]:
+        if self._pending_intents is not None:  # append mode: in memory
+            return self._pending_intents.get(batch_id)
+        path = os.path.join(self._offsets_dir, f"{batch_id}.json")
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except ValueError:
+            return None  # a torn intent: the batch was never planned
+
+    def _wal_intent(self, batch_id: int, intent: dict) -> None:
+        if self.wal_mode == "append":
+            _append(self._offsets_log, intent)
+            self._pending_intents[batch_id] = intent
+        else:
+            _atomic_write_json(
+                os.path.join(self._offsets_dir, f"{batch_id}.json"),
+                intent, fsync=False,
+            )
+
+    def _wal_commit(self, batch_id: int, intent: dict) -> None:
+        if self.wal_mode == "append":
+            _append(self._commits_log, intent)
+            self._pending_intents.pop(batch_id, None)
+            self._maybe_compact_wal(batch_id, intent["end"])
+        else:
+            _atomic_write_json(
+                os.path.join(self._commits_dir, f"{batch_id}.json"),
+                intent, fsync=False,
+            )
+            self._prune_files_wal(batch_id)
+
+    def _maybe_compact_wal(self, last_committed: int, end: int) -> None:
+        """Every ``wal_compact_every`` commits, seal the recovered state
+        (last committed batch, end offset, pending intents) into
+        ``wal_checkpoint.json`` and truncate both logs."""
+        if self.wal_compact_every <= 0:
+            return
+        self._commits_since_compact += 1
+        if self._commits_since_compact < self.wal_compact_every:
+            return
+        core = {
+            "version": 1,
+            "last_committed": last_committed,
+            "end": end,
+            "pending": {
+                str(bid): rec for bid, rec in self._pending_intents.items()
+            },
+        }
+        _atomic_write_json(self._wal_ckpt_path, _seal(core), fsync=True)
+        # the checkpoint is durable: a crash before or between the
+        # truncations replays the tails over it idempotently
+        for attr, name in (("_offsets_log", "offsets.log"),
+                           ("_commits_log", "commits.log")):
+            getattr(self, attr).close()
+            setattr(self, attr,
+                    open(os.path.join(self.checkpoint_dir, name), "w"))
+        self._commits_since_compact = 0
+        self.wal_compactions += 1
+
+    def _prune_files_wal(self, batch_id: int) -> None:
+        """Delete the committed intent/commit pairs below the
+        ``wal_keep_commits`` horizon; uncommitted intents lie above it."""
+        if self.wal_keep_commits <= 0:
+            return
+        horizon = batch_id - self.wal_keep_commits
+        while self._prune_cursor <= horizon:
+            bid = self._prune_cursor
+            for d in (self._offsets_dir, self._commits_dir):
+                try:
+                    os.unlink(os.path.join(d, f"{bid}.json"))
+                    self.wal_prunes += 1
+                except FileNotFoundError:
+                    pass
+            self._prune_cursor += 1
+
+    # -- engine ------------------------------------------------------------
+
+    def _plan_end(self, start: int, latest: int) -> int:
+        """THE batch-range rule, shared by the planner and the prefetch
+        hints (a hint by any other rule would never hit)."""
+        end = latest
+        if self.max_batch_offsets is not None:
+            end = min(end, start + self.max_batch_offsets)
+        return end
+
+    def _dispatch_next(self) -> bool:
+        """WAL, read and dispatch the next micro-batch (non-blocking);
+        False when there is no new data."""
+        batch_id = self._last_committed + 1 + len(self._in_flight)
+        intent = self._pending_intent(batch_id)
         if intent is None:
-            start = self._end_offset
+            start = self._next_start
             latest = self.source.latest_offset()
+            self._tick_latest = latest  # reused by the prefetch hint
             if latest <= start:
                 return False
-            end = latest
-            if self.max_batch_offsets is not None:
-                end = min(end, start + self.max_batch_offsets)
-            intent = {"batch_id": batch_id, "start": start, "end": end}
-            self._append(self._offsets_log, intent)  # intent before work
+            intent = {"batch_id": batch_id, "start": start,
+                      "end": self._plan_end(start, latest)}
+            self._wal_intent(batch_id, intent)  # intent before work
+        # stage the FOLLOWING range before this batch's read blocks
+        pf = getattr(self.source, "prefetch", None)
+        if pf is not None and self._tick_latest is not None:
+            nxt = intent["end"]
+            if self._tick_latest > nxt:
+                pf(nxt, self._plan_end(nxt, self._tick_latest),
+                   self._next_start)
         t0 = time.perf_counter()
         frame = self.source.get_batch(intent["start"], intent["end"])
-        out = self.predictor.predict_frame(frame)
-        self.sink.add_batch(batch_id, out)
-        self._append(self._commits_log, intent)
-        self._pending.pop(batch_id, None)
+        t1 = time.perf_counter()
+        with ledger_scope(self.transfer):
+            finalize = self.predictor.predict_frame_async(frame)
+        timing = {"readMs": (t1 - t0) * 1e3,
+                  "dispatchMs": (time.perf_counter() - t1) * 1e3}
+        self._in_flight.append(
+            (batch_id, intent, finalize, t0, frame.num_rows, timing)
+        )
+        # max(): a replayed intent may end below the planning cursor
+        self._next_start = max(self._next_start, intent["end"])
+        return True
+
+    def _deliver_head(self, batch_id: int, finalize, timing: dict) -> None:
+        """The retire stage's work: materialize the batch and hand it to
+        the sink.  On the engine thread serially, on the delivery thread
+        in overlap mode; settled by :meth:`_settle_head` either way."""
+        t0 = time.perf_counter()
+        try:
+            out = finalize()
+            t1 = time.perf_counter()
+            self.sink.add_batch(batch_id, out)
+            timing["finalizeMs"] = (t1 - t0) * 1e3
+            timing["sinkMs"] = (time.perf_counter() - t1) * 1e3
+        except Exception as e:
+            e.add_note(f"while delivering micro-batch {batch_id}")
+            raise
+        finally:
+            self._delivery_busy_s += time.perf_counter() - t0
+
+    def _settle_head(self, exc: Optional[BaseException]) -> bool:
+        """Commit the head batch after a delivery; a failed delivery
+        raises and leaves the batch queued (ids never shift), so a later
+        round re-delivers it."""
+        batch_id, intent, _fin, t0, n_rows, timing = self._in_flight[0]
+        if exc is not None:
+            raise exc
+        self._commit_batch(batch_id, intent, n_rows, t0, timing)
+        self._in_flight.pop(0)
+        self._delivered_batches += 1
+        return True
+
+    def _retire_oldest(self) -> bool:
+        """Serial retire: deliver and commit the oldest in-flight batch
+        on the engine thread."""
+        batch_id, _intent, finalize, _t0, _n, timing = self._in_flight[0]
+        self._deliver_head(batch_id, finalize, timing)
+        return self._settle_head(None)
+
+    # -- overlapped retire (pipelined mode) ---------------------------------
+
+    def _submit_delivery(self) -> None:
+        """Arm the delivery thread with the head batch's retire work."""
+        batch_id, _intent, finalize, _t0, _n, timing = self._in_flight[0]
+        if self._delivery_pool is None:
+            self._delivery_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="sntc-sink-delivery"
+            )
+        self._delivery = (
+            batch_id,
+            self._delivery_pool.submit(self._deliver_head, batch_id,
+                                       finalize, timing),
+        )
+
+    def _finish_delivery(self, wait: bool) -> bool:
+        """Settle the in-air delivery (joining it when ``wait``) on the
+        engine thread, the WAL's single writer; True when its batch
+        committed."""
+        if self._delivery is None:
+            return False
+        batch_id, fut = self._delivery
+        if not wait and not fut.done():
+            return False
+        exc = fut.exception()  # joins the delivery when wait=True
+        self._delivery = None
+        if not self._in_flight or self._in_flight[0][0] != batch_id:
+            raise RuntimeError(
+                f"delivery settled for batch {batch_id} but the queue "
+                "head moved — pipeline invariant violated"
+            )
+        return self._settle_head(exc)
+
+    def _oversized_head(self) -> bool:
+        """The head batch's finalize dispatches chunks: it retires on the
+        engine thread, the only thread that launches work."""
+        return self._in_flight[0][4] > self.predictor.chunk_rows
+
+    def _pump_delivery(self) -> None:
+        """Settle a completed delivery, then arm the delivery thread with
+        the current head so its retire runs while this thread plans,
+        reads and dispatches (an oversized head retires here)."""
+        self._finish_delivery(wait=False)
+        if self._delivery is None and self._in_flight:
+            if self._oversized_head():
+                self._retire_oldest()
+            else:
+                self._submit_delivery()
+
+    def _maybe_prefetch(self) -> None:
+        """Hint the source to stage the upcoming batches' reads: replayed
+        intents with their logged ranges, then the planned ranges from
+        this tick's offset read — the ranges ``_dispatch_next`` will ask
+        for."""
+        pf = getattr(self.source, "prefetch", None)
+        if pf is None:
+            return
+        cursor = self._next_start
+        capacity = max(1, int(getattr(self.source, "prefetch_batches", 1)))
+        bid = self._last_committed + 1 + len(self._in_flight)
+        start = self._next_start
+        for _ in range(capacity):
+            intent = self._pending_intent(bid)
+            if intent is not None:
+                pf(intent["start"], intent["end"], cursor)
+                start = max(start, intent["end"])
+                bid += 1
+                continue
+            latest = self._tick_latest
+            if latest is None or latest <= start:
+                break
+            end = self._plan_end(start, latest)
+            pf(start, end, cursor)
+            start = end
+            bid += 1
+
+    def _commit_batch(self, batch_id: int, intent: dict, n_rows: int,
+                      t0: float, timing: dict) -> None:
+        """WAL commit, bookkeeping and the batch's progress record."""
+        self._wal_commit(batch_id, intent)
         self._last_committed = batch_id
         self._end_offset = intent["end"]
-        dur = time.perf_counter() - t0
-        self.rows_served += frame.num_rows
+        self.rows_served += n_rows
+        now = time.perf_counter()
+        dur = now - t0
         self.recentProgress.append({
             "batchId": batch_id,
-            "numInputRows": frame.num_rows,
+            "numInputRows": int(n_rows),
             "durationMs": dur * 1e3,
+            "processedRowsPerSecond": (n_rows / dur) if dur > 0 else 0.0,
+            "readMs": timing["readMs"],
+            "dispatchMs": timing["dispatchMs"],
+            "finalizeMs": timing["finalizeMs"],
+            "predictMs": timing["dispatchMs"] + timing["finalizeMs"],
+            "sinkMs": timing["sinkMs"],
+            "commitMs": (now - self._t_start) * 1e3,
         })
-        return True
+        if len(self.recentProgress) > self._PROGRESS_KEEP:
+            del self.recentProgress[0]
+
+    def pipeline_stats(self) -> dict:
+        """Pipelining evidence: overlap and bucket config, delivery-thread
+        busy time, the predictor's shape ledger, this engine's transfer
+        counters, the source's prefetch stats and the WAL's bounds."""
+        stats = {
+            "overlap_sink": self.overlap_sink,
+            "pipeline_depth": self.pipeline_depth,
+            "shape_buckets": self.shape_buckets,
+            "delivery_busy_s": round(self._delivery_busy_s, 6),
+            "delivered_batches": self._delivered_batches,
+            "compile_events": self.predictor.compile_events,
+            "bucket_hits": self.predictor.bucket_hits,
+            "padded_rows_total": self.predictor.padded_rows_total,
+            "transfers": self.transfer.snapshot(),
+            "storage": {
+                "wal_mode": self.wal_mode,
+                "wal_compact_every": self.wal_compact_every,
+                "wal_keep_commits": self.wal_keep_commits,
+                "wal_compactions": self.wal_compactions,
+                "wal_prunes": self.wal_prunes,
+            },
+        }
+        src_stats = getattr(self.source, "prefetch_stats", None)
+        if src_stats is not None:
+            stats["prefetch"] = src_stats()
+        return stats
+
+    def _run_one_batch(self) -> bool:
+        """Advance the pipeline by one round; False when no batch was
+        committed.  Overlap mode pumps the delivery thread before the
+        dispatch loop, between dispatches and after it."""
+        before = self._last_committed
+        if self.overlap_sink:
+            self._pump_delivery()
+            if self._tick_latest is None:
+                # first round: one listing up front so the first
+                # dispatches hit staged reads instead of parsing cold
+                self._tick_latest = self.source.latest_offset()
+            self._maybe_prefetch()
+        while len(self._in_flight) < self.pipeline_depth:
+            if not self._dispatch_next():
+                break
+            if self.overlap_sink:
+                self._pump_delivery()
+        self._maybe_prefetch()
+        if self.overlap_sink:
+            self._pump_delivery()
+        elif self._in_flight:
+            self._retire_oldest()
+        return self._last_committed != before
 
     def process_available(self) -> int:
         """Drain all currently available data; returns the number of
-        batches committed."""
+        batches committed.  In overlap mode a round with nothing left to
+        dispatch joins the in-air delivery, so the drained guarantee is
+        the serial engine's."""
         start = self._last_committed
-        while self._run_one_batch():
-            pass
+        while not self._stopped:
+            if self._run_one_batch():
+                continue
+            if self.overlap_sink and self._delivery is not None:
+                self._finish_delivery(wait=True)
+                continue
+            break
         return self._last_committed - start
 
-    def close(self) -> None:
-        self._offsets_log.close()
-        self._commits_log.close()
+    def drain(self) -> int:
+        """Finish and commit every in-flight batch WITHOUT dispatching
+        new ones; returns the batches committed."""
+        before = self._last_committed
+        while self._in_flight:
+            if self._delivery is not None:
+                self._finish_delivery(wait=True)
+            elif self.overlap_sink and not self._oversized_head():
+                self._submit_delivery()
+            else:
+                self._retire_oldest()
+        return self._last_committed - before
+
+    def stop(self) -> None:
+        """Stop the engine: a still-running delivery finishes but is not
+        settled (its batch stays uncommitted and replays on restart —
+        the crash contract); the append-WAL handles close."""
+        self._stopped = True
+        if self._delivery_pool is not None:
+            self._delivery_pool.shutdown(wait=True)
+            self._delivery_pool = None
+            self._delivery = None
+        if self.wal_mode == "append":
+            self._offsets_log.close()
+            self._commits_log.close()

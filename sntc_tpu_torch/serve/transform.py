@@ -1,7 +1,12 @@
 """BatchPredictor — batch inference with shape buckets.
 
 Counterpart of ``sntc_tpu/serve/transform.py``: a fitted model/pipeline
-served over Frames, chunked to bound device memory.
+served over Frames, chunked to bound device memory: at most
+``CHUNK_WINDOW`` chunks of ``chunk_rows`` rows are in flight at once.
+
+A fused pipeline (``sntc_tpu_torch.fuse``) is served the same way; its
+segments bind the padded columns where ``pad_assemble`` left them, on
+the device, and :meth:`BatchPredictor.fusion_stats` reports them.
 
 **Shape buckets** (``bucket_rows > 0``): each batch is padded up to the
 next power-of-two row count (no lower than ``bucket_rows``) by repeating
@@ -19,7 +24,7 @@ host degradation) is not ported: a failure raises.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -116,7 +121,11 @@ class BatchPredictor:
         """Dispatch without blocking; returns a zero-arg finalize
         producing the output Frame.  Oversized frames dispatch
         chunk-by-chunk through a sliding window of ``CHUNK_WINDOW``
-        outstanding chunks, with one finalize and one concat."""
+        outstanding chunks (chunk i+W dispatches once chunk i is copied
+        back), with one finalize and one concat.  That finalize
+        dispatches the later chunks, so it runs on the thread that
+        launches work: the engine retires an oversized batch on its own
+        thread."""
         if frame.num_rows <= self.chunk_rows:
             return self._dispatch_one(frame)
         chunks = [
@@ -128,10 +137,18 @@ class BatchPredictor:
         def finalize() -> Frame:
             outs = []
             for i in range(len(chunks)):
-                nxt = i + self.CHUNK_WINDOW
-                if nxt < len(chunks):  # refill the window, THEN block
-                    fins.append(self._dispatch_one(chunks[nxt]))
                 outs.append(fins[i]())
+                fins[i] = None  # its device outputs may be freed
+                nxt = i + self.CHUNK_WINDOW
+                if nxt < len(chunks):  # chunk i+1 keeps the card busy
+                    fins.append(self._dispatch_one(chunks[nxt]))
             return Frame.concat_all(outs)
 
         return finalize
+
+    def fusion_stats(self) -> Optional[dict]:
+        """The wrapped model's fusion evidence (``fuse.fusion_stats``),
+        None for an unfused model."""
+        from sntc_tpu_torch.fuse import fusion_stats
+
+        return fusion_stats(self.model)

@@ -1,0 +1,13 @@
+from sntc_tpu_torch.utils.profiling import (
+    TransferLedger,
+    active_ledgers,
+    ledger_scope,
+    transfer_ledger,
+)
+
+__all__ = [
+    "TransferLedger",
+    "active_ledgers",
+    "ledger_scope",
+    "transfer_ledger",
+]

@@ -141,6 +141,10 @@ def _serve(tmp_path, model_path, *extra):
     return main(args)
 
 
+# the serial, staged form with the append-mode WAL these tests pin
+SERIAL_FORM = ("--no-fuse", "--pipeline-depth", "1", "--wal-mode", "append")
+
+
 def _summary(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -163,7 +167,7 @@ def test_serve_end_to_end_exactly_once(fitted, tmp_path, capsys):
             Frame({c: rows[c] for c in rows.columns}).slice(s, s + n),
             str(inp / f"part_{i:04d}.csv"),
         )
-    assert _serve(tmp_path, path) == 0
+    assert _serve(tmp_path, path, *SERIAL_FORM) == 0
     summary = _summary(capsys)
     assert summary["batches"] == 3 and summary["rows"] == sum(sizes)
     assert summary["device"] == "cpu"
@@ -184,7 +188,7 @@ def test_serve_end_to_end_exactly_once(fitted, tmp_path, capsys):
     # a second run finds everything committed: nothing is re-emitted
     before = {f: (tmp_path / "out" / f).read_bytes() for f in out_files}
     mtimes = {f: os.stat(tmp_path / "out" / f).st_mtime_ns for f in out_files}
-    assert _serve(tmp_path, path) == 0
+    assert _serve(tmp_path, path, *SERIAL_FORM) == 0
     assert _summary(capsys)["batches"] == 0
     assert {f: os.stat(tmp_path / "out" / f).st_mtime_ns
             for f in out_files} == mtimes
@@ -194,7 +198,7 @@ def test_serve_end_to_end_exactly_once(fitted, tmp_path, capsys):
     lines = commits.read_text().splitlines(keepends=True)
     commits.write_text("".join(lines[:-1]))
     os.remove(tmp_path / "out" / out_files[-1])
-    assert _serve(tmp_path, path) == 0
+    assert _serve(tmp_path, path, *SERIAL_FORM) == 0
     assert _summary(capsys)["batches"] == 1
     after = {f: (tmp_path / "out" / f).read_bytes() for f in out_files}
     assert after == before
@@ -209,12 +213,12 @@ def test_serve_recovers_from_a_torn_log_tail(fitted, tmp_path, capsys):
     rows = _traffic(200, seed=13)
     frame = Frame({c: rows[c] for c in rows.columns})
     write_raw_csv(frame.slice(0, 90), str(inp / "part_0000.csv"))
-    assert _serve(tmp_path, path) == 0
+    assert _serve(tmp_path, path, *SERIAL_FORM) == 0
     assert _summary(capsys)["batches"] == 1
     with open(tmp_path / "ckpt" / "offsets.log", "a") as f:
         f.write('{"batch_id": 1, "sta')  # a crash mid-append
     write_raw_csv(frame.slice(90, 200), str(inp / "part_0001.csv"))
-    assert _serve(tmp_path, path) == 0
+    assert _serve(tmp_path, path, *SERIAL_FORM) == 0
     assert _summary(capsys)["batches"] == 1
     intents = [json.loads(l) for l in
                (tmp_path / "ckpt" / "offsets.log").read_text().splitlines()]
