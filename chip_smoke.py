@@ -100,7 +100,27 @@ each of which fails the run (non-zero exit, no result line):
    ms.  Config 2 at the defaults (the scaler folded into the MLP):
    probabilities within 1e-4 of the staged form's, predictions equal
    wherever the top two lie further apart; config 4 serves at the
-   defaults in phase 6.
+   defaults in phase 6;
+9. the last two train estimators, ``evaluate`` and the tree regressors:
+   ``python -m sntc_tpu_torch train --estimator nb`` (gaussian naive
+   Bayes on the 78 raw features) and ``--estimator svc`` (OneVsRest over
+   LinearSVC behind the scaler, 100 LBFGS iterations per class at
+   regParam 1e-4) on config 2's flows, each fit's time and held-out
+   macro-F1 (svc: iterations and host reads per class); nb's float64
+   raw scores on the card within 1e-12 of the CPU's, predictions equal,
+   and a CPU fit's means and variances within 1e-4 of the card's; both
+   saved pipelines served in the default form over micro-batches of
+   1 000 (padded: one ``pad_assemble`` launch), 4 096 and 65 536 rows,
+   every prediction equal to this process's; ``evaluate --device cuda``
+   printing the CPU's value; then the decision-tree (depth 5, 128
+   bins), random-forest (20 trees of depth 10, 32 bins) and GBT (10
+   rounds of depth 4, step 0.1, 128 bins) regressors on config 4's
+   flows with ``Flow IAT Mean`` taken out of the features and its log1p
+   the target: each fit's ``tree_hist`` launches within max(1e-5, (n+1)·u)
+   of their float64 sums, each held-out walk bitwise equal to the plain
+   version, RMSE and R²; ``tree_hist``, ``forest_traversal`` and
+   ``pad_assemble`` timed at these new shapes (variance stats,
+   regression leaves, nb's padded batch).
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -150,11 +170,15 @@ from sntc_tpu_torch.kernels.histogram import (
 )
 from sntc_tpu_torch.models import (
     DecisionTreeClassifier,
+    DecisionTreeRegressor,
     GBTClassifier,
+    GBTRegressor,
     LogisticRegression,
     MultilayerPerceptronClassifier,
+    NaiveBayes,
     OneVsRest,
     RandomForestClassifier,
+    RandomForestRegressor,
 )
 from sntc_tpu_torch.models.one_vs_rest import _build_fused_ovr
 from sntc_tpu_torch.models.tree import gbt as gbt_module
@@ -164,7 +188,9 @@ from sntc_tpu_torch.data import load_csv
 from sntc_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
     MulticlassClassificationEvaluator,
+    RegressionEvaluator,
 )
+from sntc_tpu_torch.kernels import LAUNCHES, reset_launches
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
@@ -243,6 +269,31 @@ LBFGS_CKPT_EVERY = 25
 FORM_FILES, FORM_FILE_ROWS, FORM_FILES_PER_BATCH = 12, 30_000, 2
 FORM_RUNS = 2  # each form serves the stream this many times, in turns
 STAGED_FORM = ["--no-fuse", "--pipeline-depth", "1", "--wal-mode", "append"]
+# phase 9: train --estimator nb|svc on config 2's flows, their serve and
+# evaluate, and the tree regressors on config 4's flows
+NB_SVC_BATCHES = [1000, 4096, 65536]  # served micro-batches; 1000 pads
+# the JAX package's train command reached 0.5950 (nb) and 0.8847 (svc)
+# on these flows, on the CPU
+NB_SVC_F1_FLOOR = {"nb": 0.585, "svc": 0.86}
+NB_RAW_RTOL = 1e-12  # float64 likelihoods, card against CPU
+# the fit's f32 one-hot sums in two orders, card against CPU: classes of
+# up to ~320 000 rows, whose sums may part by ~sqrt(n)·u ≈ 3e-5 of their
+# mass; measured 5.4e-7 (means) and 1.64e-5 (variances) on an NVIDIA
+# H100 80GB HBM3, 700 W
+NB_MOMENT_RTOL = 1e-4
+EVAL_ROWS = 20_000
+REG_TARGET = "Flow IAT Mean"  # taken out of the 78 raw features; log1p
+REGRESSORS = {
+    "dt": (DecisionTreeRegressor, {"maxDepth": 5, "maxBins": 128}),
+    "rf": (RandomForestRegressor, {"numTrees": 20, "maxDepth": 10,
+                                   "maxBins": 32}),
+    "gbt": (GBTRegressor, {"maxIter": 10, "maxDepth": 4, "stepSize": 0.1,
+                           "maxBins": 128}),
+}
+# held-out R² of log1p(Flow IAT Mean): 0.396 / 0.457 / 0.419 on an
+# NVIDIA H100 80GB HBM3, 700 W (the fractional sums' order may move a
+# near-tie split between runs)
+REG_R2_FLOOR = {"dt": 0.35, "rf": 0.4, "gbt": 0.37}
 
 
 def log(*a):
@@ -1929,6 +1980,326 @@ def serve_forms(dev, work: str) -> list:
     return runs
 
 
+# -- phase 9: naive Bayes, LinearSVC, evaluate and the tree regressors ------
+
+
+def train_estimator(dev, data: dict, est: str, work: str) -> dict:
+    """``python -m sntc_tpu_torch train --estimator nb|svc`` at the
+    command's defaults (svc: 100 LBFGS iterations per class at regParam
+    1e-4) on config 2's flows.  Their fits and the held-out evaluation
+    launch no kernel of the port (their products are ``torch.matmul``);
+    the serve path's ``pad_assemble`` is counted in ``serve_nb_svc``."""
+    model_dir = os.path.join(work, f"trained_{est}")
+    cmd = [sys.executable, "-m", "sntc_tpu_torch", "train",
+           "--data", data["dir"], "--estimator", est,
+           "--test-fraction", str(TEST_FRACTION), "--seed", str(SEED),
+           "--model-out", model_dir, "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"{est} train failed ({proc.returncode}):\n"
+                         f"{proc.stderr}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["process_wall_s"] = wall
+    summary["model_dir"] = model_dir
+    if summary["train_rows"] != data["train"].num_rows:
+        raise SystemExit(f"{est} train split {summary['train_rows']} rows, "
+                         f"expected {data['train'].num_rows}")
+    if any(summary["kernel_launches"].values()):
+        raise SystemExit(f"{est} train launched {summary['kernel_launches']}")
+    if not summary["macroF1"] >= NB_SVC_F1_FLOOR[est]:
+        raise SystemExit(f"{est} held-out macro-F1 {summary['macroF1']} "
+                         f"below {NB_SVC_F1_FLOOR[est]}")
+    per_class = ""
+    if est == "svc":
+        stats = summary["lbfgs"]
+        if len(stats) != CLASSES or not all(
+                0 < s["iterations"] <= LBFGS_ITERS for s in stats):
+            raise SystemExit(f"svc LBFGS per class {stats}")
+        per_class = "; LBFGS per class (iterations/host reads) " + ", ".join(
+            f"{s['iterations']}/{s['host_syncs']}" for s in stats)
+    log(f"{est} train: {summary['train_rows']} rows, fit "
+        f"{summary['fit_wall_clock_s']} s ({wall:.1f} s with process start, "
+        f"CSV read and evaluation), held-out macro-F1 {summary['macroF1']}"
+        f"{per_class}")
+    return summary
+
+
+def check_nb_card_vs_cpu(dev, data: dict, trained: dict) -> dict:
+    """The saved gaussian model on the card and on the CPU over the
+    held-out rows: float64 raw scores within NB_RAW_RTOL of each other
+    (relative to max(|raw|, 1)), predictions equal; and the same model
+    fitted on the CPU in this process: class priors equal, means within
+    NB_MOMENT_RTOL of max(|mean|, |pilot|) and variances within it of
+    the card's fit."""
+    on_card = load_model(trained["model_dir"], device=dev)
+    on_cpu = load_model(trained["model_dir"], device="cpu")
+    a, b = on_card.transform(data["test"]), on_cpu.transform(data["test"])
+    ra, rb = to_host(a["rawPrediction"]), to_host(b["rawPrediction"])
+    rel = float((np.abs(ra - rb) / np.maximum(np.abs(rb), 1.0)).max())
+    if rel > NB_RAW_RTOL or not np.array_equal(to_host(a["prediction"]),
+                                               to_host(b["prediction"])):
+        raise SystemExit(f"nb: card raw scores {rel} off the CPU's, or a "
+                         "prediction differs")
+    head = on_card.getStages()[-1]
+    feats = PipelineModel(stages=on_cpu.getStages()[:2]).transform(
+        data["train"])
+    t0 = time.perf_counter()
+    cpu_fit = NaiveBayes(device="cpu", modelType="gaussian",
+                         featuresCol="rawFeatures").fit(feats)
+    cpu_s = time.perf_counter() - t0
+    # the means come from f32 sums about a pilot row (the first): their
+    # rounding scales with max(|mean|, |pilot|), not with the mean
+    pilot = np.abs(to_host(feats["rawFeatures"])[0]).astype(np.float64)
+    mu = float((np.abs(cpu_fit.gaussian_mu - head.gaussian_mu) / np.maximum(
+        np.maximum(np.abs(head.gaussian_mu), pilot[None, :]), 1e-30)).max())
+    var = float(np.abs((cpu_fit.gaussian_var - head.gaussian_var)
+                       / head.gaussian_var).max())
+    if not np.array_equal(cpu_fit.pi, head.pi) or max(mu, var) > \
+            NB_MOMENT_RTOL:
+        raise SystemExit(f"nb: the CPU fit's priors differ, or its means "
+                         f"({mu}) or variances ({var}) are off the card's")
+    log(f"nb on the card against the CPU: raw scores within {rel:.3g} "
+        f"(max(|raw|, 1)-relative, tolerance {NB_RAW_RTOL}) over "
+        f"{len(ra)} held-out rows, predictions equal; a CPU fit's means "
+        f"within {mu:.3g}, variances within {var:.3g} of the card's "
+        f"(tolerance {NB_MOMENT_RTOL}; CPU fit {cpu_s:.2f} s)")
+    return {"raw_rel": rel, "mu_rel": mu, "var_rel": var}
+
+
+def serve_nb_svc(dev, data: dict, trained: dict, work: str) -> dict:
+    """Both saved pipelines served by ``python -m sntc_tpu_torch serve``
+    in the default form over ``NB_SVC_BATCHES`` micro-batches of
+    held-out flows: the 1 000-row batch pads to 1 024 (one
+    ``pad_assemble`` launch).  Every prediction equals this process's
+    padded serving form on the card; nb's equal the unpadded rows' too,
+    svc's wherever the top two raw scores lie more than 1e-4 apart."""
+    import pyarrow.csv as pacsv
+
+    traffic = data["test"].slice(0, sum(NB_SVC_BATCHES)).drop("Label")
+    watch = os.path.join(work, "in9")
+    os.makedirs(watch)
+    batches, start = [], 0
+    for i, n in enumerate(NB_SVC_BATCHES):
+        b = traffic.slice(start, start + n)
+        write_raw_csv(b, os.path.join(watch, f"part_{i:04d}.csv"))
+        batches.append(b)
+        start += n
+    want = {"forest_traversal": 0, "tree_hist": 0,
+            "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                                for n in NB_SVC_BATCHES)}
+    out = {}
+    for est in ("nb", "svc"):
+        model_dir = trained[est]["model_dir"]
+        out_dir = os.path.join(work, f"out9_{est}")
+        summary = serve_command(model_dir, watch, out_dir,
+                                os.path.join(work, f"ckpt9_{est}"), dev, [])
+        if summary["batches"] != len(NB_SVC_BATCHES) or \
+                summary["rows"] != sum(NB_SVC_BATCHES) or \
+                summary["kernel_launches"] != want or \
+                want["pad_assemble"] < 1:
+            raise SystemExit(f"{est} serve {summary['batches']} batches, "
+                             f"{summary['rows']} rows, launches "
+                             f"{summary['kernel_launches']}; expected "
+                             f"{NB_SVC_BATCHES}, {want}")
+        fused, labels, _ = serving_form(load_model(model_dir, device=dev),
+                                        "label", True)
+        padded = BatchPredictor(fused, bucket_rows=BUCKET_FLOOR, device=dev)
+        unpadded, _, _ = serving_form(load_model(model_dir, device=dev))
+        clear_rows = 0
+        for i, b in enumerate(batches):
+            t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+            pred = t.column("prediction").to_numpy()
+            if not np.array_equal(
+                    to_host(padded.predict_frame(b)["prediction"]), pred) \
+                    or t.column("predictedLabel").to_pylist() != \
+                    [labels[int(p)] for p in pred]:
+                raise SystemExit(f"{est} batch {i}: the serve command's "
+                                 "predictions differ from this process's")
+            ref = unpadded.transform(b)
+            keep = np.ones(len(pred), bool)
+            if est == "svc":
+                raw = np.sort(to_host(ref["rawPrediction"]), axis=1)
+                keep = raw[:, -1] - raw[:, -2] > 1e-4
+            clear_rows += int(keep.sum())
+            if not np.array_equal(to_host(ref["prediction"])[keep],
+                                  pred[keep]):
+                raise SystemExit(f"{est} batch {i}: padded and unpadded "
+                                 "predictions differ")
+        log(f"{est} serve (defaults): {summary['batches']} batches, "
+            f"{summary['rows']} rows in {summary['seconds']:.3f} s; "
+            + ", ".join(f"{p['numInputRows']} rows in "
+                        f"{p['durationMs']:.2f} ms"
+                        for p in summary["progress"])
+            + f"; fusion {summary['fusion']}; predictions equal to this "
+            f"process's, padded and unpadded ({clear_rows} clear rows); "
+            f"launches {summary['kernel_launches']}")
+        out[est] = summary
+    return out
+
+
+def evaluate_commands(dev, data: dict, trained: dict, work: str) -> dict:
+    """``evaluate`` of both saved pipelines on ``EVAL_ROWS`` held-out
+    flows written as CSV, through the command's entry point in this
+    process, with ``--device cuda`` and ``--device cpu``: nb prints the
+    CPU's value (float64 likelihoods), svc within 1e-3 of it (one f32
+    product in two libraries may flip a near-tie)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from sntc_tpu_torch.app import main as app_main
+
+    eval_dir = os.path.join(work, "eval9")
+    os.makedirs(eval_dir)
+    write_raw_csv(data["test"].slice(0, EVAL_ROWS),
+                  os.path.join(eval_dir, "day.csv"))
+    out = {}
+    for est in ("nb", "svc"):
+        vals = {}
+        for device in (dev.type, "cpu"):
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                rc = app_main(["evaluate", "--data", eval_dir, "--model",
+                               trained[est]["model_dir"], "--device", device])
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            if rc != 0 or line["rows"] != EVAL_ROWS:
+                raise SystemExit(f"{est} evaluate --device {device}: {line}")
+            vals[device] = line["macroF1"]
+        gap = abs(vals[dev.type] - vals["cpu"])
+        if gap > (0.0 if est == "nb" else 1e-3):
+            raise SystemExit(f"{est} evaluate: {vals}")
+        log(f"{est} evaluate --device {dev.type}: macro-F1 "
+            f"{vals[dev.type]} on {EVAL_ROWS} rows; --device cpu "
+            f"{vals['cpu']}")
+        out[est] = vals
+    return out
+
+
+def regression_data(data: dict) -> dict:
+    """Config 4's flows as a regression problem: ``REG_TARGET`` taken out
+    of the 78 raw features, its log1p the target (the column is
+    lognormal: on its raw scale a few tail rows outweigh the rest), the
+    other 77 the features."""
+    j = CICIDS2017_FEATURES.index(REG_TARGET)
+    out = {}
+    for split in ("train", "test"):
+        X = raw_features(data[split])
+        out[split] = Frame({
+            "features": np.ascontiguousarray(np.delete(X, j, axis=1)),
+            "label": np.log1p(X[:, j].astype(np.float64)).astype(np.float32),
+        })
+    return out
+
+
+def fit_regressors(dev, data: dict) -> dict:
+    """The three regressors fitted and evaluated on the card, each with
+    every launch count at 0 before its fit and read after its held-out
+    predict: ``tree_hist`` once per node group of every level (and
+    round), ``forest_traversal`` once for the predict (and once a round
+    for GBT's margins).  Each recorded ``tree_hist`` launch held to
+    max(HIST_TOL, (n + 1)·u) of its float64 sums; the predict's walk
+    taken again and held bitwise against the plain version; RMSE and R²
+    of the held-out rows."""
+    reg = regression_data(data)
+    X_test = torch.from_numpy(reg["test"]["features"]).to(dev)
+    y_test = reg["test"]["label"]
+    out, kept = {}, {}
+    for name, (cls, params) in REGRESSORS.items():
+        reset_launches()
+        with recording_tree_hist() as calls:
+            t0 = time.perf_counter()
+            model = cls(device=dev, seed=SEED, **params).fit(reg["train"])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = model.transform(Frame({"features": X_test}))
+        predict_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        walks = 1 + (params["maxIter"] if name == "gbt" else 0)
+        if launches != {"forest_traversal": walks, "pad_assemble": 0,
+                        "tree_hist": len(calls)} or not calls:
+            raise SystemExit(f"{name} regressor launches {launches}, "
+                             f"{len(calls)} tree_hist calls recorded, "
+                             f"{walks} walks expected")
+        err = check_tree_hist({
+            f"{name}-reg launch {i}": dict(c, integer=False, hot=True)
+            for i, c in enumerate(calls)})
+        walk = [X_test, *model._device_forest()]
+        depth = model.forest.max_depth
+        got = forest_leaf_stats_cuda(*walk, max_depth=depth)
+        if not torch.equal(got, forest_leaf_stats_reference(
+                *walk, max_depth=depth)):
+            raise SystemExit(f"{name} regressor: the walk differs from the "
+                             "plain version")
+        frame = Frame({"label": y_test, "prediction": pred["prediction"]})
+        rmse = RegressionEvaluator(metricName="rmse").evaluate(frame)
+        r2 = RegressionEvaluator(metricName="r2").evaluate(frame)
+        if not (np.isfinite(rmse) and r2 > REG_R2_FLOOR[name]):
+            raise SystemExit(f"{name} regressor: RMSE {rmse}, R² {r2}")
+        log(f"{name} regressor {params}: fit {fit_s:.3f} s, predict "
+            f"{predict_s * 1e3:.2f} ms over {len(y_test)} rows; held-out "
+            f"RMSE {rmse:.6g}, R² {r2:.6f}; launches {launches}; the walk "
+            "bitwise equal to the plain version")
+        out[name] = {"fit_s": fit_s, "predict_ms": predict_s * 1e3,
+                     "rmse": rmse, "r2": r2, "launches": launches,
+                     "tree_hist_err": err}
+        # the widest launch of the fit, timed after the phase
+        big = max(calls, key=lambda c: c["node_idx"].shape[0]
+                  * c["n_nodes"] * c["binned_t"].shape[1])
+        kept[name] = (dict(big, integer=False, hot=True), walk, depth)
+        calls.clear()
+    return {"fits": out, "kept": kept}
+
+
+def measure_phase9(dev, regs: dict, served: dict, pad_err: float) -> list:
+    """The new shapes of phase 9: ``tree_hist`` on each regressor's
+    widest launch (shared variance stats for DT and GBT, times bagging
+    counts for RF) beside one ``index_add_`` of the same function;
+    ``forest_traversal`` on each regressor's held-out walk (S=3
+    regression leaves); ``pad_assemble`` at nb's padded [1 000, 78]
+    batch.  Each entry's ``launches`` is its own path's count."""
+    out = []
+    fits = regs["fits"]
+    hist = measure_tree_hist(
+        {f"{n}-reg widest launch": regs["kept"][n][0] for n in REGRESSORS},
+        max(f["tree_hist_err"] for f in fits.values()), 0)
+    for h, n in zip(hist, REGRESSORS):
+        h["launches"] = fits[n]["launches"]["tree_hist"]
+    out += hist
+    for n in REGRESSORS:
+        _, walk, depth = regs["kept"][n]
+        nbytes, ops = forest_work(*walk, depth=depth)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / FP32_OPS_PER_S * 1e3
+        T, M = walk[1].shape
+        out.append({
+            "name": "forest_traversal", "route": "cuda",
+            "source": "sntc_tpu_torch/kernels/csrc/forest_traversal.cu",
+            "replaces": "sntc_tpu/kernels/forest.py:92",
+            "launches": fits[n]["launches"]["forest_traversal"],
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: forest_leaf_stats_cuda(*walk,
+                                                         max_depth=depth)),
+            "device_ms": kernel_device_ms(
+                lambda: forest_leaf_stats_cuda(*walk, max_depth=depth)),
+            "plain_ms": time_ms(lambda: forest_leaf_stats_reference(
+                *walk, max_depth=depth)),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None,  # no single PyTorch call walks a tree
+            "shape": f"{n}-reg held-out walk: X [{walk[0].shape[0]}, "
+                     f"{walk[0].shape[1]}] f32, T={T}, M={M}, S=3; needs "
+                     f"{nbytes} B, {ops} comparisons",
+        })
+    pad = measure_pad_at(dev, NB_SVC_BATCHES[0], pad_err,
+                         served["nb"]["kernel_launches"]["pad_assemble"])
+    pad["shape"] = "nb serve: " + pad["shape"]
+    out.append(pad)
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -2187,37 +2558,41 @@ def measure_forest(dev, served: dict, err: float, launches: int) -> list:
     return out
 
 
+def measure_pad_at(dev, n: int, err: float, launches: int) -> dict:
+    """``pad_assemble`` of an ``[n, 78]`` f64 batch to its bucket: a
+    call's time by CUDA events, as for every kernel, and the device time
+    a launch (100 queued: the output's allocation costs no launch),
+    beside ``index_select``'s."""
+    target = bucket_rows_for(n, BUCKET_FLOOR)
+    a = torch.randn((n, len(CICIDS2017_FEATURES)), dtype=torch.float64,
+                    device=dev)
+    idx = torch.clamp(torch.arange(target, device=dev), max=n - 1)
+    p_bytes = (n + target) * a.shape[1] * 8
+    return {
+        "name": "pad_assemble", "route": "cuda",
+        "source": "sntc_tpu_torch/kernels/csrc/pad_rows.cu",
+        "replaces": "sntc_tpu/kernels/assemble.py:69",
+        "launches": launches, "max_abs_err": err,
+        "ms": time_ms(lambda: pad_rows_cuda(a, target)),
+        "device_ms": kernel_device_ms(lambda: pad_rows_cuda(a, target)),
+        "plain_ms": time_ms(lambda: pad_rows_reference(a, target)),
+        "bound_ms": p_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: a.index_select(0, idx)),
+        "library_device_ms": kernel_device_ms(
+            lambda: a.index_select(0, idx)),
+        "shape": f"[{n}, 78] f64 -> [{target}, 78]; needs {p_bytes} B",
+    }
+
+
 def measure_pad(dev, errs: dict, launches: dict) -> list:
     """``pad_assemble`` at the largest padded micro-batch ([50 000, 78]
     f64 -> 65 536, the JSON line's entry) and at a small one ([1 000,
-    78] -> 1 024): a call's time by CUDA events, as for every kernel,
-    and the device time a launch (100 queued: the output's allocation
-    costs no launch), beside ``index_select``'s."""
-    out = []
-    for n in (max(b for b in BATCHES if bucket_rows_for(b, BUCKET_FLOOR) != b),
-              1000):
-        target = bucket_rows_for(n, BUCKET_FLOOR)
-        a = torch.randn((n, len(CICIDS2017_FEATURES)), dtype=torch.float64,
-                        device=dev)
-        idx = torch.clamp(torch.arange(target, device=dev), max=n - 1)
-        p_bytes = (n + target) * a.shape[1] * 8
-        out.append({
-            "name": "pad_assemble", "route": "cuda",
-            "source": "sntc_tpu_torch/kernels/csrc/pad_rows.cu",
-            "replaces": "sntc_tpu/kernels/assemble.py:69",
-            "launches": launches["pad_assemble"],
-            "max_abs_err": errs["pad_assemble"],
-            "ms": time_ms(lambda: pad_rows_cuda(a, target)),
-            "device_ms": kernel_device_ms(lambda: pad_rows_cuda(a, target)),
-            "plain_ms": time_ms(lambda: pad_rows_reference(a, target)),
-            "bound_ms": p_bytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": time_ms(lambda: a.index_select(0, idx)),
-            "library_device_ms": kernel_device_ms(
-                lambda: a.index_select(0, idx)),
-            "shape": f"[{n}, 78] f64 -> [{target}, 78]; needs {p_bytes} B",
-        })
-    return out
+    78] -> 1 024)."""
+    return [measure_pad_at(dev, n, errs["pad_assemble"],
+                           launches["pad_assemble"])
+            for n in (max(b for b in BATCHES
+                          if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
 def main() -> int:
@@ -2286,7 +2661,15 @@ def main() -> int:
         check_config1(dev, data1, trained1)
         served2 = serve_mlp(dev, data2, trained2, work)
         reduced_lbfgs = reduced_lbfgs_fits(dev, data2, data1, work)
+        trained9 = {est: train_estimator(dev, data2, est, work)
+                    for est in ("nb", "svc")}
+        nb_check = check_nb_card_vs_cpu(dev, data2, trained9["nb"])
+        served9 = serve_nb_svc(dev, data2, trained9, work)
+        evaluated9 = evaluate_commands(dev, data2, trained9, work)
     fit2 = mlp_fit_profile(dev, data2)
+    regs = fit_regressors(dev, data4)
+    new9 = measure_phase9(dev, regs, served9, errs["pad_assemble"])
+    kernels += new9
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -2383,6 +2766,14 @@ def main() -> int:
             f"a call, {k['library_device_ms']:.4f} ms of device time; bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
             f"launches over {len(BATCHES)} batches [{card}]")
+    for k in new9:
+        lib = ("" if k["library_ms"] is None else
+               f", library {k['library_ms']:.4f} ms a call")
+        log(f"phase 9 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches on its path "
+            f"[{card}]")
     for k in hist:
         per_class = ("" if k["per_class_device_ms"] is None else
                      f", as {CLASSES} launches of the shared form "
@@ -2412,8 +2803,12 @@ def main() -> int:
                                    "reduced_fit": reduced_lbfgs["2"],
                                    "fit": fit2},
                        "config1": {"train": trained1,
-                                   "reduced_fit": reduced_lbfgs["1"]}}, f,
-                      indent=1)
+                                   "reduced_fit": reduced_lbfgs["1"]},
+                       "phase9": {"train": trained9, "nb_check": nb_check,
+                                  "serve": served9, "evaluate": evaluated9,
+                                  "regressors": regs["fits"],
+                                  "kernels": new9}}, f,
+                      indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()
          if k2 not in ("shape", "plan", "rows", "forest",

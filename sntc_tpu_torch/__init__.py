@@ -7,8 +7,9 @@ a ported path is a CUDA kernel written by hand for ``sm_90a``, built from
 ``kernels/csrc/`` at first use.
 
 The port trains and serves multilayer-perceptron, logistic-regression,
-random-forest, decision-tree and one-vs-rest gradient-boosted-tree
-pipelines:
+random-forest, decision-tree, one-vs-rest gradient-boosted-tree,
+naive-Bayes and one-vs-rest linear-SVM pipelines, and the tree
+regressors:
 
   core/        Params, Frame (numpy or device-tensor columns), Estimator,
                Pipeline, PipelineModel
@@ -18,19 +19,20 @@ pipelines:
   ops/         quantile binning, the chi-square contingency, the
                LBFGS/OWLQN/projected-LBFGS minimizer
   models/      ClassificationModel, MultilayerPerceptronClassifier,
-               LogisticRegression, RandomForestClassifier,
-               DecisionTreeClassifier, GBTClassifier, OneVsRest (+ their
-               models), the level-wise grower, the LBFGS fits' training
-               summaries
-  evaluation/  MulticlassClassificationEvaluator,
-               BinaryClassificationEvaluator
+               LogisticRegression, LinearSVC, NaiveBayes,
+               RandomForestClassifier, DecisionTreeClassifier,
+               GBTClassifier, OneVsRest, the DT/RF/GBT regressors (+
+               their models), the level-wise grower, training summaries
+  evaluation/  MulticlassClassificationEvaluator (every metric name),
+               BinaryClassificationEvaluator, RegressionEvaluator
   kernels/     tree_hist, forest_traversal, pad_assemble (CUDA) + their
                plain versions
   mlio/        load/save in the JAX package's directory format; mid-fit
                LBFGS and boosting-round checkpoints
   serve/       BatchPredictor (shape buckets), file-source streaming with
                an exactly-once offset log
-  app.py       ``python -m sntc_tpu_torch train`` and ``serve``
+  app.py       ``python -m sntc_tpu_torch train``, ``evaluate`` and
+               ``serve``
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

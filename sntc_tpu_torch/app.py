@@ -1,7 +1,8 @@
 """Command-line entry point of the port.
 
     python -m sntc_tpu_torch train --data data/days \\
-        [--estimator mlp|lr|rf|gbt|dt] [--binary] [--layers 78,64,15] \\
+        [--estimator mlp|lr|rf|gbt|dt|nb|svc] [--binary] \\
+        [--layers 78,64,15] [--metric macroF1] \\
         [--reg-param 1e-4] [--chisq-top 40] [--num-trees 20] \\
         [--max-depth 10] [--max-iter 100] [--step-size 0.1] \\
         [--max-bins 128] [--model-out m/] [--device cuda|cpu]
@@ -11,24 +12,34 @@
         [--prefetch-batches 2] [--read-workers 4] [--fuse|--no-fuse] \\
         [--wal-mode files|append] [--wal-compact-every 256] \\
         [--wal-keep-commits 64] [--once] [--device cuda|cpu]
+    python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
+        [--metric macroF1] [--device cuda|cpu]
 
 ``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
 read and clean every CSV of ``--data``, split off ``--test-fraction``
 with ``--seed``, fit StringIndexer → VectorAssembler(78) → [ChiSqSelector
-top ``--chisq-top``, or StandardScaler(withMean) for ``mlp``/``lr``] →
-the estimator, report the held-out ``--metric`` as one JSON line (with
-the kernel launch counts, and the LBFGS iterations, evaluations and
-host reads of an ``mlp``/``lr`` fit), and save the fitted pipeline to
-``--model-out`` in the format both packages load.  Ported so far: the
-multilayer perceptron (``mlp``, the default: ``--layers``, which track
-the data's width and class count while left at their default, and
-``--max-iter`` LBFGS iterations; bench config 2), logistic regression
-(``lr``: ``--reg-param``, ``--max-iter``; bench config 1 with
-``--binary``), the random forest (``rf``), OneVsRest over
-gradient-boosted trees (``gbt``: ``--max-iter`` rounds of
-``--step-size``, bench config 4 with ``--chisq-top 0 --max-iter 10
---max-depth 4``) and the single decision tree (``dt``); ``gbt`` and
-``dt`` bin ``--max-bins`` ways.
+top ``--chisq-top``, or StandardScaler(withMean) for ``mlp``/``lr``/
+``svc``] → the estimator, report the held-out ``--metric`` (any name of
+the multiclass evaluator) as one JSON line (with the kernel launch
+counts, and the LBFGS iterations, evaluations and host reads of an
+``mlp``/``lr`` fit, one block per class for ``svc``), and save the
+fitted pipeline to ``--model-out`` in the format both packages load.
+Every estimator of the JAX command: the multilayer perceptron (``mlp``,
+the default: ``--layers``, which track the data's width and class count
+while left at their default, and ``--max-iter`` LBFGS iterations; bench
+config 2), logistic regression (``lr``: ``--reg-param``,
+``--max-iter``; bench config 1 with ``--binary``), the random forest
+(``rf``), OneVsRest over gradient-boosted trees (``gbt``:
+``--max-iter`` rounds of ``--step-size``, bench config 4 with
+``--chisq-top 0 --max-iter 10 --max-depth 4``), the single decision
+tree (``dt``), gaussian naive Bayes (``nb``) and OneVsRest over linear
+SVMs (``svc``: ``--max-iter``, ``--reg-param``); ``gbt`` and ``dt`` bin
+``--max-bins`` ways.  The estimators without a scaler or a selector
+read the assembler's unscaled features.
+
+``evaluate`` is the counterpart of ``cmd_evaluate``: load a pipeline
+either package saved, read and clean the CSVs of ``--data``, and print
+``{"rows": ..., <metric>: ...}`` for the whole of it.
 
 ``serve`` is the counterpart of ``cmd_serve``, with its defaults: load
 a saved pipeline, take off the LABEL ``StringIndexerModel`` (live flows
@@ -56,6 +67,7 @@ import time
 from typing import List, Optional
 
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.evaluation.multiclass import METRIC_NAMES
 
 
 def strip_label_indexer(model, label_index_col: str):
@@ -116,9 +128,8 @@ def serving_form(model, label_index_col: str = "label", fuse: bool = False):
     return model, labels, out_cols
 
 
-# estimators of the JAX package's train command, and those ported
+# estimators of the JAX package's train command
 TRAIN_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt", "nb", "svc"]
-PORTED_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt"]
 TRAIN_DEFAULT_LAYERS = "78,64,15"
 
 
@@ -128,8 +139,10 @@ def _build_estimator(args, device):
     from sntc_tpu_torch.models import (
         DecisionTreeClassifier,
         GBTClassifier,
+        LinearSVC,
         LogisticRegression,
         MultilayerPerceptronClassifier,
+        NaiveBayes,
         OneVsRest,
         RandomForestClassifier,
     )
@@ -157,6 +170,11 @@ def _build_estimator(args, device):
                 maxBins=args.max_bins,
             ),
         )
+    if args.estimator == "nb":
+        return NaiveBayes(device=device, modelType="gaussian")
+    if args.estimator == "svc":
+        return OneVsRest(classifier=LinearSVC(
+            device=device, maxIter=args.max_iter, regParam=args.reg_param))
     return DecisionTreeClassifier(
         device=device, maxDepth=args.max_depth, maxBins=args.max_bins,
         seed=args.seed,
@@ -237,11 +255,6 @@ def cmd_train(args) -> int:
     from sntc_tpu_torch.kernels import LAUNCHES
     from sntc_tpu_torch.mlio import save_model
 
-    if args.estimator not in PORTED_ESTIMATORS:
-        raise SystemExit(
-            f"estimator {args.estimator!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_ESTIMATORS)})"
-        )
     device = resolve_device(args.device)
     if device.type == "cuda":
         from sntc_tpu_torch.kernels._build import library
@@ -251,7 +264,7 @@ def cmd_train(args) -> int:
     train, test = df.random_split(
         [1 - args.test_fraction, args.test_fraction], seed=args.seed
     )
-    with_scaler = args.estimator in ("lr", "mlp")
+    with_scaler = args.estimator in ("lr", "mlp", "svc")
     # the estimator reads the last feature stage's column: the selector's
     # or the scaler's output, or the assembler's unscaled features (the
     # trees) without either
@@ -276,10 +289,31 @@ def cmd_train(args) -> int:
         "fit_wall_clock_s": round(fit_s, 3), args.metric: value,
         "model_out": args.model_out, "kernel_launches": dict(LAUNCHES),
     }
-    stats = getattr(model.getStages()[-1], "optimizer_stats", None)
+    head = model.getStages()[-1]
+    stats = getattr(head, "optimizer_stats", None)
     if stats is not None:
         line["lbfgs"] = stats
+    elif args.estimator == "svc":  # one LBFGS fit per class
+        line["lbfgs"] = [m.optimizer_stats for m in head.models]
     print(json.dumps(line))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
+    from sntc_tpu_torch.mlio import load_model
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        from sntc_tpu_torch.kernels._build import library
+
+        library()
+    model = load_model(args.model, device=device)
+    df = _load_data(args)
+    value = MulticlassClassificationEvaluator(
+        metricName=args.metric
+    ).evaluate(model.transform(df))
+    print(json.dumps({"rows": df.num_rows, args.metric: value}))
     return 0
 
 
@@ -363,23 +397,28 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA training and serving of sntc_tpu pipelines",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def common(p):
+        p.add_argument("--data", required=True,
+                       help="directory of CICIDS2017-schema day CSVs")
+        p.add_argument("--label-col", default="Label")
+        p.add_argument("--binary", action="store_true",
+                       help="benign-vs-attack relabel")
+        p.add_argument("--metric", default="macroF1", choices=METRIC_NAMES)
+        p.add_argument("--seed", type=int, default=0)
+        p.add_argument("--device", default="cuda",
+                       help="cuda (default; raises without CUDA) or cpu")
+
     p = sub.add_parser("train", help="fit a pipeline, report held-out metric")
-    p.add_argument("--data", required=True,
-                   help="directory of CICIDS2017-schema day CSVs")
-    p.add_argument("--label-col", default="Label")
-    p.add_argument("--binary", action="store_true",
-                   help="benign-vs-attack relabel")
-    p.add_argument("--metric", default="macroF1",
-                   choices=["macroF1", "f1", "accuracy", "weightedPrecision",
-                            "weightedRecall"])
-    p.add_argument("--seed", type=int, default=0)
+    common(p)
     p.add_argument("--estimator", default="mlp", choices=TRAIN_ESTIMATORS)
     p.add_argument("--model-out", default=None)
     p.add_argument("--test-fraction", type=float, default=0.2)
     p.add_argument("--max-iter", type=int, default=100,
-                   help="LBFGS iterations (mlp, lr); boosting rounds (gbt)")
+                   help="LBFGS iterations (mlp, lr, svc); boosting rounds "
+                   "(gbt)")
     p.add_argument("--reg-param", type=float, default=1e-4,
-                   help="regularization strength (lr)")
+                   help="regularization strength (lr, svc)")
     p.add_argument("--layers", default=TRAIN_DEFAULT_LAYERS,
                    help="layer sizes (mlp); the default tracks the data's "
                    "width and class count")
@@ -392,9 +431,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chisq-top", type=int, default=0,
                    help="if > 0, select this many features by chi-square")
     p.add_argument("--features-col", default="features")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without CUDA) or cpu")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("evaluate", help="evaluate a saved model on CSVs")
+    common(p)
+    p.add_argument("--model", required=True, help="saved pipeline directory")
+    p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("serve", help="serve CSV micro-batches of a directory")
     p.add_argument("--model", required=True, help="saved pipeline directory")

@@ -3,9 +3,11 @@ from sntc_tpu_torch.evaluation.multiclass import (
     MulticlassClassificationEvaluator,
     MulticlassMetrics,
 )
+from sntc_tpu_torch.evaluation.regression import RegressionEvaluator
 
 __all__ = [
     "BinaryClassificationEvaluator",
     "MulticlassClassificationEvaluator",
     "MulticlassMetrics",
+    "RegressionEvaluator",
 ]

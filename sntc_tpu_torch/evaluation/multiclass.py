@@ -9,9 +9,11 @@ Counterpart of ``sntc_tpu/evaluation/multiclass.py``:
   true-label frequency.
 
 The confusion matrix is a weighted ``bincount`` on the host (the
-predictions are already there).  Of the JAX evaluator's metric names
-this one computes ``f1``, ``accuracy``, ``weightedPrecision``,
-``weightedRecall`` and ``macroF1``.
+predictions are already there).  The evaluator takes every metric name
+of the JAX one: the weighted metrics, the ``...ByLabel`` metrics of
+class ``metricLabel`` (the matrix is sized to cover it, so an absent
+class reads 0), the F-measures at ``beta``, ``logLoss`` over
+``probabilityCol`` clamped by ``eps``, ``hammingLoss`` and ``macroF1``.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ class MulticlassMetrics:
     ``confusion[i, j]`` counts rows with true label ``i`` predicted
     ``j``."""
 
-    def __init__(self, labels, predictions, weights=None):
+    def __init__(self, labels, predictions, weights=None, num_classes=None):
         y = np.asarray(labels).astype(np.int64)
         p = np.asarray(predictions).astype(np.int64)
-        k = int(max(y.max(initial=0), p.max(initial=0))) + 1
+        k = (int(max(y.max(initial=0), p.max(initial=0))) + 1
+             if num_classes is None else int(num_classes))
         w = (
             np.ones(len(y), np.float32)
             if weights is None
@@ -102,41 +105,119 @@ class MulticlassMetrics:
             (self._weights() * self.false_positive_rate_by_label()).sum()
         )
 
+    def hamming_loss(self) -> float:
+        """Misclassified share (single-label: 1 − accuracy)."""
+        total = self.confusion.sum()
+        if not total:
+            return 0.0
+        return float((total - self.true_positives.sum()) / total)
+
     def macro_f1(self) -> float:
         present = self.label_counts > 0
         f1 = self.f_measure_by_label()
         return float(f1[present].mean()) if present.any() else 0.0
 
 
+#: the metric names of the JAX package's evaluator
+METRIC_NAMES = (
+    "f1",
+    "accuracy",
+    "weightedPrecision",
+    "weightedRecall",
+    "weightedTruePositiveRate",
+    "weightedFalsePositiveRate",
+    "weightedFMeasure",
+    "truePositiveRateByLabel",
+    "falsePositiveRateByLabel",
+    "precisionByLabel",
+    "recallByLabel",
+    "fMeasureByLabel",
+    "logLoss",
+    "hammingLoss",
+    "macroF1",
+)
+
+
 class MulticlassClassificationEvaluator(Evaluator):
     """Spark-parity evaluator over :class:`MulticlassMetrics`."""
 
-    _METRICS = ("f1", "accuracy", "weightedPrecision", "weightedRecall",
-                "macroF1")
+    _METRICS = METRIC_NAMES
+    _SMALLER_IS_BETTER = ("logLoss", "hammingLoss", "weightedFalsePositiveRate",
+                          "falsePositiveRateByLabel")
 
     metricName = Param("metric to compute", default="f1",
                        validator=validators.one_of(*_METRICS))
     labelCol = Param("true-label column", default="label")
     predictionCol = Param("prediction column", default="prediction")
+    probabilityCol = Param("class-probability column (logLoss)",
+                           default="probability")
+    metricLabel = Param("class index for the ...ByLabel metrics",
+                        default=0.0, validator=validators.gteq(0))
+    beta = Param("F-measure beta", default=1.0, validator=validators.gt(0))
+    eps = Param("logLoss probability clamp", default=1e-15,
+                validator=validators.in_range(0, 0.5))
     weightCol = Param("optional row-weight column", default=None)
 
     def metrics(self, frame: Frame) -> MulticlassMetrics:
+        labels = to_host(frame[self.getLabelCol()])
+        preds = to_host(frame[self.getPredictionCol()])
+        num_classes = None
+        if self.getMetricName().endswith("ByLabel"):
+            # cover metricLabel, so that a class absent from this frame
+            # reads 0 (the 0/0 -> 0 convention), not an IndexError
+            observed = int(max(np.max(labels, initial=-1.0),
+                               np.max(preds, initial=-1.0))) + 1
+            num_classes = max(observed, int(self.getMetricLabel()) + 1)
         weight_col = self.getWeightCol()
         return MulticlassMetrics(
-            to_host(frame[self.getLabelCol()]),
-            to_host(frame[self.getPredictionCol()]),
+            labels, preds,
             weights=to_host(frame[weight_col]) if weight_col else None,
+            num_classes=num_classes,
         )
 
+    def _log_loss(self, frame: Frame) -> float:
+        prob = np.asarray(to_host(frame[self.getProbabilityCol()]), np.float64)
+        y = np.asarray(to_host(frame[self.getLabelCol()])).astype(np.int64)
+        p_true = prob[np.arange(len(y)), y]
+        eps = self.getEps()
+        # clamped to [eps, 1 - eps] on both sides (Spark)
+        losses = -np.log(np.clip(p_true, eps, 1.0 - eps))
+        weight_col = self.getWeightCol()
+        if weight_col:
+            w = np.asarray(to_host(frame[weight_col]), np.float64)
+            return float(np.sum(w * losses) / np.sum(w))
+        return float(np.mean(losses))
+
     def evaluate(self, frame: Frame) -> float:
-        m = self.metrics(frame)
         name = self.getMetricName()
+        if name == "logLoss":
+            return self._log_loss(frame)
+        m = self.metrics(frame)
+        lbl = int(self.getMetricLabel())
+        beta = self.getBeta()
         if name == "f1":
             return m.weighted_f_measure()
         if name == "accuracy":
             return m.accuracy
         if name == "weightedPrecision":
             return m.weighted_precision()
-        if name == "weightedRecall":
+        if name in ("weightedRecall", "weightedTruePositiveRate"):
             return m.weighted_recall()
+        if name == "weightedFalsePositiveRate":
+            return m.weighted_false_positive_rate()
+        if name == "weightedFMeasure":
+            return m.weighted_f_measure(beta)
+        if name in ("truePositiveRateByLabel", "recallByLabel"):
+            return float(m.recall_by_label()[lbl])
+        if name == "falsePositiveRateByLabel":
+            return float(m.false_positive_rate_by_label()[lbl])
+        if name == "precisionByLabel":
+            return float(m.precision_by_label()[lbl])
+        if name == "fMeasureByLabel":
+            return float(m.f_measure_by_label(beta)[lbl])
+        if name == "hammingLoss":
+            return m.hamming_loss()
         return m.macro_f1()
+
+    def isLargerBetter(self) -> bool:
+        return self.getMetricName() not in self._SMALLER_IS_BETTER

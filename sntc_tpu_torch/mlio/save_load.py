@@ -30,15 +30,22 @@ from sntc_tpu_torch.feature.string_indexer import (
     StringIndexerModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.models.linear_svc import LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from sntc_tpu_torch.models.mlp import MultilayerPerceptronClassificationModel
+from sntc_tpu_torch.models.naive_bayes import NaiveBayesModel
 from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
+    DecisionTreeRegressionModel,
 )
 from sntc_tpu_torch.models.tree.gbt import GBTClassificationModel
+from sntc_tpu_torch.models.tree.gbt_regressor import GBTRegressionModel
 from sntc_tpu_torch.models.tree.random_forest import (
     RandomForestClassificationModel,
+)
+from sntc_tpu_torch.models.tree.random_forest_regressor import (
+    RandomForestRegressionModel,
 )
 
 _FORMAT_VERSION = 1
@@ -61,6 +68,14 @@ PORTED_CLASSES: Dict[str, type] = {
         DecisionTreeClassificationModel,
     "sntc_tpu.models.tree.gbt.GBTClassificationModel": GBTClassificationModel,
     "sntc_tpu.models.one_vs_rest.OneVsRestModel": OneVsRestModel,
+    "sntc_tpu.models.naive_bayes.NaiveBayesModel": NaiveBayesModel,
+    "sntc_tpu.models.linear_svc.LinearSVCModel": LinearSVCModel,
+    "sntc_tpu.models.tree.decision_tree.DecisionTreeRegressionModel":
+        DecisionTreeRegressionModel,
+    "sntc_tpu.models.tree.random_forest_regressor."
+    "RandomForestRegressionModel": RandomForestRegressionModel,
+    "sntc_tpu.models.tree.gbt_regressor.GBTRegressionModel":
+        GBTRegressionModel,
 }
 _SAVED_NAME = {cls: name for name, cls in PORTED_CLASSES.items()}
 

@@ -2,6 +2,7 @@ from sntc_tpu_torch.models.base import (
     ClassificationModel,
     ClassifierEstimator,
 )
+from sntc_tpu_torch.models.linear_svc import LinearSVC, LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
     LogisticRegressionModel,
@@ -10,19 +11,30 @@ from sntc_tpu_torch.models.mlp import (
     MultilayerPerceptronClassificationModel,
     MultilayerPerceptronClassifier,
 )
+from sntc_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesModel
 from sntc_tpu_torch.models.one_vs_rest import OneVsRest, OneVsRestModel
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
     DecisionTreeClassifier,
+    DecisionTreeRegressionModel,
+    DecisionTreeRegressor,
 )
 from sntc_tpu_torch.models.tree.gbt import (
     GBTClassificationModel,
     GBTClassifier,
 )
+from sntc_tpu_torch.models.tree.gbt_regressor import (
+    GBTRegressionModel,
+    GBTRegressor,
+)
 from sntc_tpu_torch.models.tree.random_forest import (
     RandomForestClassificationModel,
     RandomForestClassifier,
     from_numpy_forest,
+)
+from sntc_tpu_torch.models.tree.random_forest_regressor import (
+    RandomForestRegressionModel,
+    RandomForestRegressor,
 )
 
 __all__ = [
@@ -30,15 +42,25 @@ __all__ = [
     "ClassifierEstimator",
     "DecisionTreeClassificationModel",
     "DecisionTreeClassifier",
+    "DecisionTreeRegressionModel",
+    "DecisionTreeRegressor",
     "GBTClassificationModel",
     "GBTClassifier",
+    "GBTRegressionModel",
+    "GBTRegressor",
+    "LinearSVC",
+    "LinearSVCModel",
     "LogisticRegression",
     "LogisticRegressionModel",
     "MultilayerPerceptronClassificationModel",
     "MultilayerPerceptronClassifier",
+    "NaiveBayes",
+    "NaiveBayesModel",
     "OneVsRest",
     "OneVsRestModel",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
+    "RandomForestRegressionModel",
+    "RandomForestRegressor",
     "from_numpy_forest",
 ]

@@ -1,0 +1,288 @@
+"""NaiveBayes — multinomial / complement / bernoulli / gaussian.
+
+Counterpart of ``sntc_tpu/models/naive_bayes.py`` (Spark's
+``NaiveBayes``, all four ``modelType``s):
+
+  * ``multinomial``: θ_cj = log((Σ_c w·x_j + λ) / (Σ_c w·Σ_j x_j + λD));
+    raw = x·θ_c + log π_c.  Features must be non-negative.
+  * ``complement``: per-class statistics of all OTHER classes,
+    normalized and negated; no class prior.
+  * ``bernoulli``: features must be 0/1; raw = x·(log p − log(1−p)) +
+    Σ log(1−p) + log π.
+  * ``gaussian``: per-(class, feature) mean and variance with
+    ε = 1e-9 · the largest global variance; raw = the Gaussian
+    log-likelihood + log π.
+
+Priors: the discrete types use Spark's λ-smoothed priors
+``log((n_c + λ) / (n + Cλ))``; the gaussian type keeps unsmoothed
+``log(n_c / n)`` priors.
+
+The fit is one pass over the rows on the estimator's device (class
+weights, Σw(x−p) and Σw(x−p)² about a pilot row ``p``, as one-hot
+products in full float32) and, for the gaussian type, a second pass of
+squared deviations about each row's own class mean.  The model is
+finished in float64 on the host.  Serving a discrete type is one f32
+product, a shifted softmax and the packed raw | prob | prediction block
+on the model's device.  The gaussian log-likelihood runs in float64 on
+the model's device (f32 sums flip the argmax on flow data), one class at
+a time so that its working set stays ``[N, F]``; the model says it has
+no fusible device program, so the fusion planner leaves it staged, as
+the JAX package's does.
+
+Not ported: ``partial_fit`` (the lifecycle's incremental updates).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.models.base import (
+    ClassificationModel,
+    ClassifierEstimator,
+    DeviceHeadMixin,
+    pack_serve_outputs,
+)
+from sntc_tpu_torch.ops.lbfgs import full_f32
+
+
+def _class_moments(xs, ys, ws, pilot, k: int):
+    """One pass: per-class weight ``[C]``, Σw·(x−p) and Σw·(x−p)² ``[C,
+    F]`` about the pilot row ``p`` (raw f32 Σx² cancels on features whose
+    mean dwarfs their spread), as float64 host arrays."""
+    shifted = xs - torch.from_numpy(pilot).to(xs.device)[None, :]
+    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
+    out = torch.cat([oh.sum(0)[:, None], oh.t() @ shifted,
+                     oh.t() @ (shifted * shifted)], dim=1)
+    out = out.cpu().numpy().astype(np.float64)
+    d = xs.shape[1]
+    return out[:, 0], out[:, 1:1 + d], out[:, 1 + d:]
+
+
+def _class_sq_about_mean(xs, ys, ws, mu, k: int) -> np.ndarray:
+    """Second gaussian pass: Σ_c w·(x − μ_c)² ``[C, F]`` with each row
+    deviated about its OWN class mean.  One pass of E[x²]−E[x]², even
+    pilot-shifted, cancels small class variances away when a feature's
+    overall spread is huge (flow durations span ~1e8)."""
+    mu_d = torch.from_numpy(np.asarray(mu, np.float32)).to(xs.device)
+    diff = xs - mu_d[ys]
+    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
+    return (oh.t() @ (diff * diff)).cpu().numpy().astype(np.float64)
+
+
+def _pack_log_joint(raw, thr, *, mode):
+    """A shifted softmax of the per-class log-joint ``raw`` for the
+    probability, packed ``[N, 2C+1]`` with it."""
+    e = torch.exp(raw - raw.max(dim=1, keepdim=True).values)
+    return pack_serve_outputs(raw, e / e.sum(dim=1, keepdim=True), thr, mode)
+
+
+def gaussian_raw(X, mu, var, log_pi) -> torch.Tensor:
+    """``[N, C]`` float64 on ``X``'s device: −½ Σ_j (log 2πσ² +
+    (x−μ)²/σ²) + log π, one class at a time (a ``[N, C, F]`` broadcast
+    would take ~26 GB at CICIDS scale)."""
+    X = X.to(torch.float64)
+    C = mu.shape[0]
+    ll = torch.empty((X.shape[0], C), dtype=torch.float64, device=X.device)
+    log_2pi_var = torch.log((2.0 * math.pi) * var)
+    for c in range(C):
+        diff = X - mu[c]
+        ll[:, c] = -0.5 * (log_2pi_var[c] + diff * diff / var[c]).sum(dim=1)
+    return ll + log_pi[None, :]
+
+
+class _NbParams:
+    smoothing = Param(
+        "additive (Laplace) smoothing λ", default=1.0,
+        validator=validators.gteq(0.0),
+    )
+    modelType = Param(
+        "multinomial | complement | bernoulli | gaussian",
+        default="multinomial",
+        validator=validators.one_of(
+            "multinomial", "complement", "bernoulli", "gaussian"
+        ),
+    )
+
+
+class NaiveBayes(_NbParams, ClassifierEstimator):
+    """Fits on ``device`` (default ``cuda``) and returns a model whose
+    parameters live on the same device."""
+
+    def __init__(self, device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        self.device = resolve_device(device)
+
+    @staticmethod
+    def _validate_features(X: np.ndarray, mt: str) -> None:
+        if mt in ("multinomial", "complement") and (X < 0).any():
+            raise ValueError(f"{mt} NaiveBayes requires non-negative features")
+        if mt == "bernoulli" and not np.isin(X, (0.0, 1.0)).all():
+            raise ValueError("bernoulli NaiveBayes requires 0/1 features")
+
+    def _with_params(self, model: "NaiveBayesModel") -> "NaiveBayesModel":
+        model.setParams(
+            **{k2: v for k2, v in self.paramValues().items()
+               if model.hasParam(k2)}
+        )
+        return model
+
+    def _discrete_model(self, cw, s, k, D) -> "NaiveBayesModel":
+        """multinomial/complement/bernoulli model from the f64 class
+        weights ``cw`` [C] and raw weighted feature sums ``s`` [C, F]."""
+        mt = self.getModelType()
+        lam = float(self.getSmoothing())
+        n = cw.sum()
+        log_pi = np.log(np.maximum(cw, 1e-300)) - np.log(max(n, 1e-300))
+        # Spark's λ-smoothed prior log((n_c + λ)/(n + Cλ))
+        log_pi_smoothed = np.log(cw + lam) - np.log(max(n + k * lam, 1e-300))
+        if mt == "multinomial":
+            num = s + lam
+            den = s.sum(axis=1, keepdims=True) + lam * D
+            theta = np.log(num) - np.log(den)  # [C, F]
+            bias = log_pi_smoothed
+        elif mt == "complement":
+            comp = s.sum(axis=0, keepdims=True) - s
+            num = comp + lam
+            den = comp.sum(axis=1, keepdims=True) + lam * D
+            logp = np.log(num) - np.log(den)
+            theta = -logp / np.abs(logp).sum(axis=1, keepdims=True)
+            bias = np.zeros_like(log_pi)  # complement NB drops the prior
+        else:  # bernoulli
+            p = (s + lam) / (cw[:, None] + 2.0 * lam)  # P(x_j=1 | c)
+            logp, log1mp = np.log(p), np.log1p(-p)
+            theta = logp - log1mp
+            bias = log_pi_smoothed + log1mp.sum(axis=1)
+        return self._with_params(NaiveBayesModel(
+            theta=theta.astype(np.float32), bias=bias.astype(np.float32),
+            pi=log_pi, n_classes=k, device=self.device,
+        ))
+
+    def _gaussian_model(self, cw, mu, sq_c, k) -> "NaiveBayesModel":
+        """gaussian model from class weights, f64 class means and the
+        squared deviations about them (``sq_c`` = Σ_c w·(x−μ_c)²)."""
+        n = cw.sum()
+        log_pi = np.log(np.maximum(cw, 1e-300)) - np.log(max(n, 1e-300))
+        var = np.maximum(sq_c / np.maximum(cw[:, None], 1e-300), 0.0)
+        # ε = 1e-9 · the largest GLOBAL feature variance (sklearn's
+        # var_smoothing), rebuilt as within- plus between-class terms
+        if var.size and n > 0:
+            mu_bar = (cw[:, None] * mu).sum(axis=0) / n
+            between = (cw[:, None] * (mu - mu_bar[None, :]) ** 2).sum(axis=0)
+            global_var = (sq_c.sum(axis=0) + between) / n
+            eps = 1e-9 * float(global_var.max())
+        else:
+            eps = 1e-12
+        var = var + max(eps, 1e-12)
+        return self._with_params(NaiveBayesModel(
+            pi=log_pi, gaussian_mu=mu, gaussian_var=var, n_classes=k,
+            device=self.device,
+        ))
+
+    def _fit(self, frame: Frame) -> "NaiveBayesModel":
+        X, y, w = self._extract(frame)
+        mt = self.getModelType()
+        k = max(int(y.max()) + 1 if len(y) else 2, 2)
+        D = X.shape[1]
+        self._validate_features(X, mt)
+        dev = self.device
+        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        ws = torch.from_numpy(w).to(dev)
+        pilot = (np.asarray(X[0], np.float32) if len(X)
+                 else np.zeros(D, np.float32))
+        p64 = pilot.astype(np.float64)
+        with full_f32():
+            cw, s_sh, _ = _class_moments(xs, ys, ws, pilot, k)
+            if mt == "gaussian":
+                # two passes: the means, then deviations about each
+                # row's own class mean
+                mu = p64[None, :] + s_sh / np.maximum(cw[:, None], 1e-300)
+                sq_c = _class_sq_about_mean(xs, ys, ws, mu, k)
+                return self._gaussian_model(cw, mu, sq_c, k)
+        # raw weighted sums, rebuilt exactly in f64
+        s = s_sh + cw[:, None] * p64[None, :]
+        return self._discrete_model(cw, s, k, D)
+
+
+class NaiveBayesModel(_NbParams, DeviceHeadMixin, ClassificationModel):
+    def __init__(self, theta=None, bias=None, pi=None, gaussian_mu=None,
+                 gaussian_var=None, n_classes: int = 2, device="cuda",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.theta = None if theta is None else np.asarray(theta, np.float32)
+        self.bias = None if bias is None else np.asarray(bias, np.float32)
+        self.pi = None if pi is None else np.asarray(pi, np.float64)
+        self.gaussian_mu = (None if gaussian_mu is None
+                            else np.asarray(gaussian_mu, np.float64))
+        self.gaussian_var = (None if gaussian_var is None
+                             else np.asarray(gaussian_var, np.float64))
+        self._n_classes = int(n_classes)
+        self.device = resolve_device(device)
+        self._thr_cache = None
+        self._dev_params = None
+
+    @property
+    def num_classes(self) -> int:
+        return self._n_classes
+
+    def _save_extra(self):
+        arrays = {"pi": self.pi}
+        if self.theta is not None:
+            arrays["theta"] = self.theta
+            arrays["bias"] = self.bias
+        if self.gaussian_mu is not None:
+            arrays["gaussian_mu"] = self.gaussian_mu
+            arrays["gaussian_var"] = self.gaussian_var
+        return {"n_classes": self._n_classes}, arrays
+
+    @classmethod
+    def _load_from(cls, params, extra, arrays, device):
+        m = cls(
+            theta=arrays.get("theta"), bias=arrays.get("bias"),
+            pi=arrays.get("pi"), gaussian_mu=arrays.get("gaussian_mu"),
+            gaussian_var=arrays.get("gaussian_var"),
+            n_classes=int(extra["n_classes"]), device=device,
+        )
+        m.setParams(**params)
+        return m
+
+    def has_device_serve(self) -> bool:
+        # the gaussian log-likelihood is a float64 program of its own,
+        # not a packed f32 head the fusion planner folds into a segment
+        return self.getModelType() != "gaussian"
+
+    def _params_on_device(self) -> tuple:
+        """The serving parameters on the model's device, uploaded once
+        (after a ``modelType`` is known)."""
+        if self._dev_params is None:
+            def up(a, dt):
+                return torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+                    self.device)
+
+            if self.getModelType() == "gaussian":
+                self._dev_params = (up(self.gaussian_mu, np.float64),
+                                    up(self.gaussian_var, np.float64),
+                                    up(self.pi, np.float64))
+            else:
+                self._dev_params = (up(self.theta.T, np.float32),
+                                    up(self.bias, np.float32))
+        return self._dev_params
+
+    def _predict_all_dev(self, X) -> torch.Tensor:
+        """Packed ``[N, 2C+1]``: float32 for the discrete types, float64
+        for the gaussian type (its features cast to float32 first, as
+        every head's are)."""
+        mode, thr = self._serve_args()
+        Xd = self._features_on_device(X)
+        if self.getModelType() == "gaussian":
+            raw = gaussian_raw(Xd, *self._params_on_device())
+        else:  # raw = X @ θᵀ + bias, one f32 product
+            thetaT, bias = self._params_on_device()
+            raw = Xd @ thetaT + bias[None, :]
+        return _pack_log_joint(raw, thr, mode=mode)

@@ -8,11 +8,16 @@ parity; the fits are sequential.
 
 A GBT base classifier fits all K classes in one boosting loop
 (``gbt.fit_gbt_ovr_vectorized``) unless mid-fit checkpoints are asked
-for; any other port classifier, and GBT with checkpoints, fits per class.
-Serving GBT sub-models is one ``forest_traversal`` launch over all K
-classes' trees and a ``[K, M]`` selection product; other sub-models
-serve one by one.  The LogisticRegression and LinearSVC fused heads and
-vectorized fits come with those models.
+for; any other port classifier (LinearSVC, LogisticRegression among
+them, as in the JAX package), and GBT with checkpoints, fits per class.
+Serving fuses homogeneous sub-models on their device: LinearSVC models,
+and binomial LogisticRegression models, stack into one ``[D, K]`` f32
+weight matrix (the raw score is one f32 product plus bias; an LR
+margin is its class-1 row minus its class-0 row); GBT sub-models of one
+depth serve as one ``forest_traversal`` launch over all K classes'
+trees and a ``[K, M]`` selection product.  Other sub-models serve one
+by one.  The features are cast to float32 first, as the JAX package's
+``transform`` casts them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from sntc_tpu_torch.models.base import (
     ClassifierParams,
 )
 from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
+from sntc_tpu_torch.models.linear_svc import LinearSVCModel
+from sntc_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from sntc_tpu_torch.models.tree.gbt import (
     GBTClassificationModel,
     GBTClassifier,
@@ -39,16 +46,50 @@ from sntc_tpu_torch.models.tree.gbt import (
 )
 
 
+def _on(dev, X) -> torch.Tensor:
+    """``X`` (numpy or a tensor) as a contiguous float32 tensor on
+    ``dev``."""
+    if isinstance(X, torch.Tensor):
+        return X.to(device=dev, dtype=torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+
+
+def _linear_fused(WT: np.ndarray, b: np.ndarray, dev):
+    """``f(X) = X @ WT + b``: one f32 product on ``dev``."""
+    WT_d = torch.from_numpy(np.ascontiguousarray(WT, np.float32)).to(dev)
+    b_d = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(dev)
+
+    def linear_fused(X):
+        return _on(dev, X) @ WT_d + b_d[None, :]
+
+    return linear_fused
+
+
 def _build_fused_ovr(models, traverse=_traverse):
-    """A ``f(X) -> [N, K]`` fused raw-score closure for GBT sub-models
-    of one depth, or None (see ``OneVsRestModel._fused_raw``).  A check
-    against the plain version passes ``forest_leaf_stats_reference`` as
-    ``traverse``."""
-    if not models or not all(
-        isinstance(m, GBTClassificationModel) for m in models
-    ) or len({m.forest.max_depth for m in models}) != 1:
+    """A ``f(X) -> [N, K]`` fused raw-score closure for homogeneous
+    sub-models (all LinearSVC, all binomial LogisticRegression, or all
+    GBT of one depth), or None (see ``OneVsRestModel._fused_raw``).  A
+    check against the plain version passes
+    ``forest_leaf_stats_reference`` as ``traverse``."""
+    if not models:
         return None
     dev = models[0].device
+    if all(isinstance(m, LinearSVCModel) for m in models):
+        return _linear_fused(
+            np.stack([m.coefficients for m in models]).T,
+            np.asarray([m.intercept for m in models]), dev)
+    if all(isinstance(m, LogisticRegressionModel) and m.is_binomial
+           for m in models):
+        # the class-1 row minus the class-0 row, as the per-model raw(1)
+        # takes it (row 0 need not be zero in a model built elsewhere)
+        return _linear_fused(
+            np.stack([m.coefficientMatrix[1] - m.coefficientMatrix[0]
+                      for m in models]).T,
+            np.asarray([m.interceptVector[1] - m.interceptVector[0]
+                        for m in models]), dev)
+    if not all(isinstance(m, GBTClassificationModel) for m in models) or \
+            len({m.forest.max_depth for m in models}) != 1:
+        return None
     feature = np.concatenate([m.forest.feature for m in models])
     threshold = np.concatenate([m.forest.threshold for m in models])
     leaf_stats = np.concatenate([m.forest.leaf_stats for m in models])
@@ -65,10 +106,7 @@ def _build_fused_ovr(models, traverse=_traverse):
     max_feature = int(internal.max()) if internal.size else -1
 
     def gbt_fused(X):
-        if isinstance(X, torch.Tensor):
-            X = X.to(device=dev, dtype=torch.float32).contiguous()
-        else:
-            X = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+        X = _on(dev, X)
         if X.shape[1] <= max_feature:
             raise ValueError(
                 f"a batch of {X.shape[1]} features does not fit trees "
@@ -192,8 +230,12 @@ class OneVsRestModel(_OvrParams, ClassificationModel):
     def transform_async(self, frame: Frame):
         """Enqueue raw scores and their argmax as one packed ``[N, K+1]``
         tensor; finalize copies it to the host once.  No probability
-        column: Spark's OneVsRest emits none."""
-        raw = self._raw_predict(frame[self.getFeaturesCol()])
+        column: Spark's OneVsRest emits none.  The features are cast to
+        float32 first, for every kind of sub-model."""
+        X = frame[self.getFeaturesCol()]
+        X = (X.to(torch.float32) if isinstance(X, torch.Tensor)
+             else np.asarray(X).astype(np.float32, copy=False))
+        raw = self._raw_predict(X)
         packed = torch.cat(
             [raw, torch.argmax(raw, dim=1)[:, None].to(raw.dtype)], dim=1
         )

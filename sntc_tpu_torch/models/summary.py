@@ -6,8 +6,9 @@ Counterpart of ``sntc_tpu/models/summary.py``: Spark's
 set's predictions (one ``model.transform`` over the training frame on
 first access) with the per-class metrics of one confusion matrix;
 binomial models add the threshold curves (``roc``, ``areaUnderROC``,
-``pr``, ``...ByThreshold``) of one sweep, cached.  The tree models'
-summaries are not ported yet.
+``pr``, ``...ByThreshold``) of one sweep, cached.  LinearSVC, the
+random forest and binary GBT fits carry them too (the trees with an
+empty objective history).
 """
 
 from __future__ import annotations

@@ -1,16 +1,15 @@
-"""DecisionTreeClassifier — a single CART tree, fit and serve.
+"""DecisionTreeClassifier / DecisionTreeRegressor — single CART trees.
 
 Counterpart of ``sntc_tpu/models/tree/decision_tree.py`` (Spark's
-``DecisionTreeClassifier``): the shared dense-heap grower with ``T=1``,
-every feature considered at every node and no bagging.  Leaves hold
-class-count vectors: ``rawPrediction`` is the leaf's counts,
-probability the normalized counts.  The fit's histograms are the
+``DecisionTreeClassifier`` and ``DecisionTreeRegressor``): the shared
+dense-heap grower with ``T=1``, every feature considered at every node
+and no bagging.  Classification leaves hold class-count vectors:
+``rawPrediction`` is the leaf's counts, probability the normalized
+counts, and one packed ``[N, 2K+1]`` tensor comes back per batch.
+Regression leaves hold ``[w, wy, wy²]`` (variance impurity), and the
+prediction is the leaf mean ``wy / w``.  The fit's histograms are the
 ``tree_hist`` kernel on the card, the walk the ``forest_traversal``
-kernel; the normalization and the prediction are PyTorch on the same
-device, and one packed ``[N, 2K+1]`` tensor comes back per batch.
-
-The regressor (the variance branch of the JAX package's
-``_grow_single_tree``) is not ported yet.
+kernel; the rest is PyTorch on the same device.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
@@ -31,6 +31,8 @@ from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestDeviceMixin,
     ForestPersistenceMixin,
+    RegressionForestMixin,
+    extract_regression,
     grow_forest,
     validate_forest,
 )
@@ -39,21 +41,24 @@ from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 
 def _grow_single_tree(estimator, X: np.ndarray, y: np.ndarray,
                       w: np.ndarray, device, impurity: str) -> Forest:
-    """Bin on ``device`` and grow one classification tree over every
-    feature from the one-hot class stats × row weight."""
+    """Bin on ``device`` and grow one tree over every feature: from the
+    one-hot class stats × row weight, or for ``variance`` from the
+    regression stats ``[w, wy, wy²]`` of the float targets ``y``."""
     n, F = X.shape
     n_bins = estimator.getMaxBins()
     edges = quantile_bin_edges(X, max_bins=n_bins, seed=estimator.getSeed())
     binned_t = bin_features(
         torch.from_numpy(X).to(device), torch.from_numpy(edges).to(device)
     ).t()
-    k = max(int(y.max()) + 1 if n else 2, 2)
-    row_stats = (
-        torch.nn.functional.one_hot(
+    wd = torch.from_numpy(w).to(device)
+    if impurity == "variance":
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+        row_stats = torch.stack([wd, wd * yd, wd * yd * yd], dim=1)
+    else:
+        k = max(int(y.max()) + 1 if n else 2, 2)
+        row_stats = torch.nn.functional.one_hot(
             torch.from_numpy(y.astype(np.int64)).to(device), k
-        ).to(torch.float32)
-        * torch.from_numpy(w).to(device)[:, None]
-    )
+        ).to(torch.float32) * wd[:, None]
     return grow_forest(
         binned_t, row_stats, torch.ones((1, n), device=device), edges,
         n_bins=n_bins,
@@ -169,4 +174,68 @@ class DecisionTreeClassificationModel(
         return _dt_serve(
             self._features_on_device(X), *self._device_forest(), thr,
             max_depth=self.forest.max_depth, mode=mode,
+        )
+
+
+class _DtRegressorParams(_SingleTreeParams):
+    featuresCol = Param("feature vector column", default="features")
+    labelCol = Param("target column", default="label")
+    predictionCol = Param("output prediction column", default="prediction")
+    impurity = Param(
+        "variance", default="variance", validator=validators.one_of("variance")
+    )
+
+
+class DecisionTreeRegressor(_DtRegressorParams, Estimator):
+    """Fits on ``device`` (default ``cuda``) and returns a model whose
+    tree lives on the same device."""
+
+    def __init__(self, device="cuda", **kwargs):
+        super().__init__(**kwargs)
+        self.device = resolve_device(device)
+
+    def _fit(self, frame: Frame) -> "DecisionTreeRegressionModel":
+        X, y = extract_regression(self, frame)
+        forest = _grow_single_tree(self, X, y, np.ones(len(y), np.float32),
+                                   self.device, "variance")
+        model = DecisionTreeRegressionModel(
+            forest=forest, n_features=X.shape[1], device=self.device)
+        model.setParams(
+            **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
+        )
+        return model
+
+
+def _dt_reg_predict(X, feature, threshold, leaf_stats, *, max_depth,
+                    traverse=_traverse):
+    """The leaf mean ``wy / w`` of the one tree, ``[N]`` f32."""
+    stats = traverse(X, feature, threshold, leaf_stats,
+                     max_depth=max_depth)[0]  # [N, 3] = [w, wy, wy²]
+    return stats[:, 1] / stats[:, 0].clamp_min(1e-12)
+
+
+class DecisionTreeRegressionModel(
+    _DtRegressorParams, ForestPersistenceMixin, RegressionForestMixin, Model
+):
+    def __init__(self, forest: Forest, n_features: int = 0, device="cuda",
+                 **kwargs):
+        super().__init__(**kwargs)
+        validate_forest(forest, n_features)
+        self.forest = forest
+        self._n_features = int(n_features)
+        self._upload_forest(resolve_device(device))
+
+    @property
+    def depth(self) -> int:
+        return _realized_depth(self.forest)
+
+    @classmethod
+    def _from_forest(cls, forest, extra, device):
+        return cls(forest=forest, n_features=int(extra.get("n_features", 0)),
+                   device=device)
+
+    def _predict_dev(self, X) -> torch.Tensor:
+        return _dt_reg_predict(
+            self._features_on_device(X), *self._device_forest(),
+            max_depth=self.forest.max_depth,
         )

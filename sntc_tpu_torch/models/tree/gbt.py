@@ -15,10 +15,9 @@ rounds.  Each round's histograms are the ``tree_hist`` kernel on the
 card (per-tree stats in the one-vs-rest fit), and its margins one
 ``forest_leaf_stats`` launch over the round's trees; the stats and
 margin updates are PyTorch on the same device.  Serving walks all trees
-in one ``forest_traversal`` launch.
-
-Not ported yet: the training summary (``model.summary``, which waits for
-``models/summary.py``).
+in one ``forest_traversal`` launch.  A binary fit carries Spark's
+training summary (``model.summary``, computed lazily); the vectorized
+one-vs-rest fit's sub-models carry none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from sntc_tpu_torch.models.tree.grower import (
     resolve_feature_subset_k,
     validate_forest,
 )
+from sntc_tpu_torch.models.summary import BinaryClassificationTrainingSummary
 from sntc_tpu_torch.models.tree.random_forest import _TreeEnsembleParams
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 
@@ -345,6 +345,10 @@ class GBTClassifier(_GbtParams, CheckpointParams, ClassifierEstimator):
         model.setParams(
             **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
         )
+        # Spark's BinaryGBTClassifierTrainingSummary: no objective
+        # history, the trees kept as its iteration count
+        model.summary = BinaryClassificationTrainingSummary(
+            [], len(weights), model, frame, labelCol=self.getLabelCol())
         return model
 
 

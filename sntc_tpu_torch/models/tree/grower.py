@@ -36,8 +36,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from sntc_tpu_torch.core.frame import to_host
 from sntc_tpu_torch.kernels.histogram import tree_hist
 from sntc_tpu_torch.models.base import DeviceHeadMixin
+from sntc_tpu_torch.utils.profiling import active_ledgers, record_movement
 
 # the level working set (histogram + cumsum + left/right + gains, ~5x the
 # raw histogram) per node group; deeper levels take several passes
@@ -185,6 +187,50 @@ class ForestDeviceMixin(DeviceHeadMixin):
                 f"{self._max_feature}"
             )
         return X.contiguous()
+
+
+def extract_regression(estimator, frame) -> tuple:
+    """``(X f32 [N, F], y f32 [N])`` of a regressor's frame, on the
+    host."""
+    X = to_host(frame[estimator.getFeaturesCol()])
+    if X.ndim != 2:
+        raise ValueError(
+            f"featuresCol {estimator.getFeaturesCol()!r} must be a vector "
+            "column (use VectorAssembler)"
+        )
+    return (np.ascontiguousarray(X, np.float32),
+            np.asarray(to_host(frame[estimator.getLabelCol()]), np.float32))
+
+
+class RegressionForestMixin(ForestDeviceMixin):
+    """Serving of a regression forest: ``_predict_dev(X)`` gives the
+    float32 predictions ``[N]`` on the model's device; ``transform``
+    appends them as a float64 ``predictionCol`` after one copy to the
+    host."""
+
+    def _predict_dev(self, X) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _to_prediction(self, host: np.ndarray) -> np.ndarray:
+        return host.astype(np.float64)
+
+    def predict(self, X) -> np.ndarray:
+        return self._to_prediction(self._predict_dev(X).cpu().numpy())
+
+    def transform(self, frame):
+        return self.transform_async(frame)()
+
+    def transform_async(self, frame):
+        pred = self._predict_dev(frame[self.getFeaturesCol()])
+        ledgers = active_ledgers()
+
+        def finalize():
+            host = pred.cpu().numpy()
+            record_movement(ledgers, downloads=1, download_bytes=host.nbytes)
+            return frame.with_column(self.getPredictionCol(),
+                                     self._to_prediction(host))
+
+        return finalize
 
 
 # -- growing -----------------------------------------------------------------

@@ -11,7 +11,8 @@ The model's ``rawPrediction`` is the sum over trees of each tree's leaf
 class counts normalized per tree, probability the normalized raw.  The
 walk runs through the ``forest_traversal`` kernel on the card; the sums
 and the prediction are PyTorch on the same device, and one packed
-``[N, 2K+1]`` tensor comes back per batch.
+``[N, 2K+1]`` tensor comes back per batch.  A fitted model carries the
+training summary (``model.summary``), computed lazily.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ from sntc_tpu_torch.models.tree.grower import (
     make_bagging_weights,
     resolve_feature_subset_k,
     validate_forest,
+)
+from sntc_tpu_torch.models.summary import (
+    BinaryClassificationTrainingSummary,
+    ClassificationTrainingSummary,
 )
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 
@@ -113,6 +118,13 @@ class RandomForestClassifier(_RfParams, ClassifierEstimator):
         model.setParams(
             **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
         )
+        # Spark's RandomForestClassificationTrainingSummary: the training
+        # predictions' metrics, lazily (a forest has no objective
+        # history); a binary fit gets the threshold curves too
+        summary_cls = (BinaryClassificationTrainingSummary if k == 2
+                       else ClassificationTrainingSummary)
+        model.summary = summary_cls([], 0, model, frame,
+                                    labelCol=self.getLabelCol())
         return model
 
 

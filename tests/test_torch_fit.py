@@ -443,11 +443,19 @@ def test_train_command_fits_saves_and_serves(tmp_path, capsys):
 
 
 def test_train_command_refuses_unported_estimators_and_missing_cuda(
-    tmp_path, monkeypatch
+    tmp_path, monkeypatch, capsys
 ):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["train", "--data", str(tmp_path), "--estimator", "nb",
+    # every estimator of the JAX command is ported; a name it does not
+    # offer is refused by the parser
+    with pytest.raises(SystemExit):
+        main(["train", "--data", str(tmp_path), "--estimator", "kmeans",
               "--device", "cpu"])
+    assert "invalid choice: 'kmeans'" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for estimator in ("rf", "nb", "svc"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["train", "--data", str(tmp_path), "--estimator",
+                  estimator])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["train", "--data", str(tmp_path), "--estimator", "rf"])
+        main(["evaluate", "--data", str(tmp_path), "--model",
+              str(tmp_path)])
