@@ -120,7 +120,34 @@ each of which fails the run (non-zero exit, no result line):
    of their float64 sums, each held-out walk bitwise equal to the plain
    version, RMSE and R²; ``tree_hist``, ``forest_traversal`` and
    ``pad_assemble`` timed at these new shapes (variance stats,
-   regression leaves, nb's padded batch).
+   regression leaves, nb's padded batch);
+10. LogisticRegression's lane fits and ``tuning/``, on the flows of
+   phase 7: (a) OneVsRest over LR (100 iterations, regParam 1e-4) on
+   config 2's scaled flows takes ``_fit_ovr_lanes``, 15 lanes in one
+   LBFGS loop, each class held against the same binary fit run alone
+   through the single-fit path, the lanes on the rows in their order
+   and in 3 other orders (histories within ``LANE_PREFIX_TOL`` of the
+   start over the first 10 iterations and 2e-3 at every common
+   iteration, final objectives within ``LANE_END_TOL`` of it), reported
+   beside the single fit's own gaps on the reordered rows and each
+   class's fit through the lane program alone, and held-out macro-F1
+   within 0.005; (b) CrossValidator over a bare LR
+   on config 1's scaled flows, regParam {1e-4, 1e-3, 1e-2} x
+   elasticNetParam {0, 0.5}, 3 folds: ``_fit_grid_folds``' two lane
+   loops (9 L2 lanes, 9 OWLQN lanes) against the same sweep with
+   ``SNTC_TUNING_BATCH=0``, areaUnderROC by point within 1e-4 and the
+   same best point unless the top two lie within 1e-4; (c)
+   CrossValidator over the whole config-2 Pipeline (head-only grid
+   regParam {1e-4, 1e-2}, 2 folds) on 100 000 flows: the prefix fitted
+   once per fold and once for the refit, the head's grid through
+   ``_fit_grid``, macro-F1 within 1e-3 of the one-by-one search and the
+   same best point; (d) TrainValidationSplit (trainRatio 0.8) over (c)'s
+   pipeline and rows, round-tripped by ``save_model``/``load_model``,
+   its best model saved and served by ``python -m sntc_tpu_torch serve``
+   in the default form over 1 000 (padded: one ``pad_assemble``
+   launch), 4 096 and 65 536 held-out rows, every prediction equal to
+   this process's transform on the card.  Each part prints its wall-
+   clock and host reads, lanes against one by one.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -180,7 +207,8 @@ from sntc_tpu_torch.models import (
     RandomForestClassifier,
     RandomForestRegressor,
 )
-from sntc_tpu_torch.models.one_vs_rest import _build_fused_ovr
+from sntc_tpu_torch.models import logistic_regression as lr_module
+from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel, _build_fused_ovr
 from sntc_tpu_torch.models.tree import gbt as gbt_module
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 from sntc_tpu_torch.app import serving_form
@@ -194,7 +222,9 @@ from sntc_tpu_torch.kernels import LAUNCHES, reset_launches
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
+from sntc_tpu_torch.ops.lbfgs import LbfgsResult, full_f32
 from sntc_tpu_torch.serve import BatchPredictor, CsvDirSink, bucket_rows_for
+from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -294,6 +324,33 @@ REGRESSORS = {
 # NVIDIA H100 80GB HBM3, 700 W (the fractional sums' order may move a
 # near-tie split between runs)
 REG_R2_FLOOR = {"dt": 0.35, "rf": 0.4, "gbt": 0.37}
+# phase 10: LogisticRegression's lane fits and tuning/.  10a holds each
+# one-vs-rest lane, on the rows in their order and in the REORDER_SEEDS
+# orders, against the single fit on the rows in their order: its
+# objective history within LANE_PREFIX_TOL of the starting objective over
+# the first LANE_PREFIX iterations and LBFGS_ALL_TOL over all, its final
+# objective within LANE_END_TOL of it.  Set from 60 readings (15 classes
+# x 4 orders) on an NVIDIA H100 80GB HBM3, 700 W: the lanes' early gap
+# at most 1.03e-4 (the single fit on reordered rows against itself
+# 3.84e-5), their end gap at most 8.21e-6 (reordered 2.72e-6; a fit
+# through the lane program alone that stops 11 iterations early at the
+# tol edge 1.91e-5).  The lane minimizer alone keeps within 2.53e-7
+# early: the gap comes from the 15-lane product's rounding, which the
+# rare classes' fits at tol 1e-6 amplify
+LANE_PREFIX = 10
+LANE_PREFIX_TOL, LANE_END_TOL = 3e-4, 1e-4
+REORDER_SEEDS = (SEED, SEED + 1, SEED + 2)
+LANE_F1_ATOL = 0.005  # held-out macro-F1, lanes against single fits
+CV_GRID = [{"regParam": r, "elasticNetParam": a}
+           for r in (1e-4, 1e-3, 1e-2) for a in (0.0, 0.5)]
+CV_FOLDS = 3
+CV_METRIC_ATOL = 1e-4
+PIPE_ROWS = 100_000  # config 2's flows of the pipeline CV and TVS
+PIPE_GRID = [{"regParam": 1e-4}, {"regParam": 1e-2}]
+PIPE_FOLDS = 2
+PIPE_METRIC_ATOL = 1e-3
+TVS_RATIO = 0.8
+TUNED_BATCHES = [1000, 4096, 65536]  # served micro-batches; 1000 pads
 
 
 def log(*a):
@@ -1754,7 +1811,6 @@ def mlp_fit_profile(dev, data: dict) -> dict:
     bound: FLOPs of the forward and backward products over the card's
     fp32 rate, against X, labels and weights read once."""
     from sntc_tpu_torch.models.mlp import _forward, value_and_grad_fn
-    from sntc_tpu_torch.ops.lbfgs import full_f32
 
     train = data["train"]
     stages = lbfgs_pipeline(dev, "mlp").getStages()
@@ -2300,6 +2356,441 @@ def measure_phase9(dev, regs: dict, served: dict, pad_err: float) -> list:
     return out
 
 
+# -- phase 10: LogisticRegression's lane fits and tuning/ ---------------------
+
+
+@contextlib.contextmanager
+def lbfgs_runs():
+    """Records every LBFGS loop of LogisticRegression's fits while the
+    block runs: its lanes (1 for a single fit), iterations of its longest
+    lane, ``value_and_grad`` calls and host reads."""
+    runs = []
+    single, lanes = lr_module.minimize_lbfgs, lr_module.minimize_lbfgs_lanes
+
+    def record(r: LbfgsResult, n: int):
+        runs.append({"lanes": n, "iterations": int(torch.as_tensor(
+            r.n_iters).max()), "evaluations": r.n_evals,
+            "host_syncs": r.n_syncs})
+
+    def single_run(*a, **kw):
+        out = single(*a, **kw)
+        record(out if isinstance(out, LbfgsResult) else out[0], 1)
+        return out
+
+    def lane_run(*a, **kw):
+        out = lanes(*a, **kw)
+        record(out, int(out.x.shape[0]))
+        return out
+
+    lr_module.minimize_lbfgs = single_run
+    lr_module.minimize_lbfgs_lanes = lane_run
+    try:
+        yield runs
+    finally:
+        lr_module.minimize_lbfgs, lr_module.minimize_lbfgs_lanes = single, lanes
+
+
+@contextlib.contextmanager
+def counted(cls, name: str):
+    """Counts the calls of ``cls.name`` while the block runs."""
+    calls = []
+    orig = getattr(cls, name)
+
+    def spy(obj, *a, **kw):
+        calls.append(1)
+        return orig(obj, *a, **kw)
+
+    setattr(cls, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def lane_programs():
+    """Records the arguments and end points of LogisticRegression's lane
+    programs while the block runs."""
+    progs = []
+    orig = lr_module._lr_lane_program
+
+    def spy(*a, **kw):
+        res = orig(*a, **kw)
+        progs.append((a, res.x))
+        return res
+
+    lr_module._lr_lane_program = spy
+    try:
+        yield progs
+    finally:
+        lr_module._lr_lane_program = orig
+
+
+def ovr_gradient_errors(prog) -> dict:
+    """Each one-vs-rest lane's gradient at its end point, from the lane
+    program's product over all lanes and from the lane alone (one lane:
+    the single fit's product), its distance from the float64 gradient as
+    a share of that gradient's norm."""
+    (xs, ys_l, ws_l, inv_std, l2, pen_l2, _, _), x_end = prog
+    n_coef = xs.shape[1]
+
+    def grads(lanes, dtype):
+        t = x_end[lanes].to(dtype).requires_grad_(True)
+        ws = ws_l.to(dtype)
+        with torch.enable_grad():
+            loss = lr_module._lr_lane_losses(
+                t, xs.to(dtype), ys_l[lanes].to(dtype), ws,
+                inv_std[lanes].to(dtype), l2[lanes].to(dtype),
+                pen_l2[lanes].to(dtype), torch.sum(ws, dim=1),
+                binomial=True, fit_intercept=True, k=2, n_coef=n_coef)
+            (g,) = torch.autograd.grad(loss.sum(), t)
+        return g.double()
+
+    every = list(range(x_end.shape[0]))
+    with full_f32():
+        exact = grads(every, torch.float64)
+        lanes = grads(every, torch.float32)
+        alone = torch.cat([grads([c], torch.float32) for c in every])
+
+    def share(g):
+        return ((g - exact).norm(dim=1) / exact.norm(dim=1)).tolist()
+
+    return {"lanes": share(lanes), "alone": share(alone)}
+
+
+def timed(fn):
+    """``fn()`` and its wall-clock seconds, the card drained on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fit_gaps(a, b) -> dict:
+    """How far two fits of one problem lie apart: their iterations, and
+    their histories' largest gap over the first ``LANE_PREFIX``
+    iterations, over all common iterations and at the end, each as a
+    share of the starting objective."""
+    ha = np.asarray(a.summary.objectiveHistory, np.float64)
+    hb = np.asarray(b.summary.objectiveHistory, np.float64)
+    n = min(len(ha), len(hb))
+    gap = np.abs(ha[:n] - hb[:n]) / abs(hb[0])
+    return {
+        "iterations": [a.summary.totalIterations, b.summary.totalIterations],
+        "prefix_gap": float(gap[: LANE_PREFIX + 1].max()),
+        "max_gap": float(gap.max()),
+        "end_gap": float(abs(ha[-1] - hb[-1]) / abs(hb[0])),
+    }
+
+
+def scaled_features(dev, data: dict) -> tuple:
+    """The train and test flows of a bench config through its fitted
+    prefix (label indexing, assembly, the scaler withMean) on the card,
+    as host columns ``features`` and ``label``."""
+    prefix = Pipeline(stages=lbfgs_pipeline(dev, "lr").getStages()[:-1])
+    fitted = prefix.fit(data["train"])
+
+    def host(frame):
+        out = fitted.transform(frame)
+        return Frame({"features": to_host(out["features"]),
+                      "label": to_host(out["label"])})
+
+    return host(data["train"]), host(data["test"])
+
+
+def ovr_lanes(dev, data: dict) -> dict:
+    """10a: OneVsRest over LR on config 2's flows takes
+    ``_fit_ovr_lanes`` (15 lanes in one loop), held class by class
+    against the same binary fits run one by one through the single-fit
+    path, on the rows in their order and in ``len(REORDER_SEEDS)`` other
+    orders, and on held-out macro-F1.  Beside the lanes' gaps it reports
+    the single fits' own spread on reordered rows and, to part the two
+    minimizers from the batched products, each class's fit through the
+    lane program alone (one lane: the single fit's objective, the lane
+    minimizer) against the single fit and against its lane of 15."""
+    train, test = scaled_features(dev, data)
+    base = LogisticRegression(device=dev, maxIter=LBFGS_ITERS,
+                              regParam=LR_REG)
+    binary = base.copy({"labelCol": "bin"})
+    y = to_host(train["label"]).astype(int)
+
+    def bin_frame(frame, labels, c):
+        return frame.with_column("bin", (labels == c).astype(np.float64))
+
+    def one_by_one(frame, labels):
+        return [binary.fit(bin_frame(frame, labels, c))
+                for c in range(CLASSES)]
+
+    with counted(LogisticRegression, "_fit_ovr_lanes") as calls, \
+            lbfgs_runs() as runs, lane_programs() as progs:
+        lanes, lanes_s = timed(lambda: OneVsRest(classifier=base).fit(train))
+    if len(calls) != 1 or [r["lanes"] for r in runs] != [CLASSES]:
+        raise SystemExit(f"OneVsRest(LR) took {len(calls)} lane fits, "
+                         f"loops {runs}; expected one of {CLASSES} lanes")
+    with lbfgs_runs() as seq_runs:
+        single, single_s = timed(lambda: one_by_one(train, y))
+    alone = [binary._fit_grid(bin_frame(train, y, c), [{}])[0]
+             for c in range(CLASSES)]
+    per_class = [{
+        "lanes": [fit_gaps(lanes.models[c], single[c])],
+        "alone": fit_gaps(alone[c], single[c]),
+        "lanes_alone": fit_gaps(lanes.models[c], alone[c]),
+        "reordered": [],
+    } for c in range(CLASSES)]
+    # the lanes and the single fits on the rows in other orders, each
+    # against the single fit on the rows in theirs
+    for seed in REORDER_SEEDS:
+        perm = np.random.default_rng(seed).permutation(train.num_rows)
+        shuffled = train.take(perm)
+        lanes_p = OneVsRest(classifier=base).fit(shuffled)
+        single_p = one_by_one(shuffled, y[perm])
+        for c, rec in enumerate(per_class):
+            rec["lanes"].append(fit_gaps(lanes_p.models[c], single[c]))
+            rec["reordered"].append(fit_gaps(single_p[c], single[c]))
+    grad_err = ovr_gradient_errors(progs[0])
+    ev = MulticlassClassificationEvaluator(metricName="macroF1")
+    f1 = {"lanes": ev.evaluate(lanes.transform(test)),
+          "single": ev.evaluate(OneVsRestModel(models=single).transform(test))}
+    rec = {
+        "train_rows": train.num_rows, "lanes_s": lanes_s,
+        "single_s": single_s, "lanes_loop": runs[0],
+        "single_host_syncs": sum(r["host_syncs"] for r in seq_runs),
+        "single_evaluations": sum(r["evaluations"] for r in seq_runs),
+        "reorder_seeds": list(REORDER_SEEDS),
+        "per_class": per_class, "gradient_error": grad_err,
+        "macroF1": f1,
+    }
+
+    def worst(key, kind):
+        return max(g[key] for c in per_class
+                   for g in (c[kind] if isinstance(c[kind], list)
+                             else [c[kind]]))
+
+    kinds = ("lanes", "reordered", "alone", "lanes_alone")
+
+    def worsts(key):
+        return " / ".join(f"{worst(key, k):.3g}" for k in kinds)
+
+    log(f"phase 10a OneVsRest(LR) on {train.num_rows} config-2 rows, "
+        f"{CLASSES} classes: lanes {lanes_s:.3f} s ({runs[0]['iterations']}"
+        f" iterations, {runs[0]['evaluations']} evaluations, "
+        f"{runs[0]['host_syncs']} host reads); one by one {single_s:.3f} s "
+        f"({rec['single_evaluations']} evaluations, "
+        f"{rec['single_host_syncs']} host reads); iterations by class, "
+        f"lane / single / alone / single on the rows in "
+        f"{len(REORDER_SEEDS)} other orders "
+        f"{[c['lanes'][0]['iterations'] + [c['alone']['iterations'][0]] + [g['iterations'][0] for g in c['reordered']] for c in per_class]}; "
+        f"worst history gaps (of the start), {' / '.join(kinds)} (lanes "
+        f"on {1 + len(REORDER_SEEDS)} orders, the single fit on "
+        f"{len(REORDER_SEEDS)}): over {LANE_PREFIX} iterations "
+        f"{worsts('prefix_gap')}, over all {worsts('max_gap')}, at the end "
+        f"{worsts('end_gap')}; gradient at the lanes' end points against "
+        f"float64 (of its norm), lanes / alone: largest "
+        f"{max(grad_err['lanes']):.3g} / {max(grad_err['alone']):.3g}, "
+        f"median {np.median(grad_err['lanes']):.3g} / "
+        f"{np.median(grad_err['alone']):.3g}; held-out macro-F1 "
+        f"{f1['lanes']:.6f} lanes, {f1['single']:.6f} one by one")
+    bad = [c for c, r in enumerate(per_class)
+           if any(g["prefix_gap"] > LANE_PREFIX_TOL
+                  or g["max_gap"] > LBFGS_ALL_TOL
+                  or g["end_gap"] > LANE_END_TOL for g in r["lanes"])]
+    if bad or abs(f1["lanes"] - f1["single"]) > LANE_F1_ATOL:
+        rec["failed"] = (f"10a: classes {bad} part beyond the rule, or "
+                         f"macro-F1 {f1}: {[per_class[c] for c in bad]}")
+    return rec
+
+
+def best_index_agrees(a, b, larger: bool, tol: float) -> bool:
+    """Equal best indices, unless the top two averages lie within
+    ``tol`` (then either may win)."""
+    if a.bestIndex == b.bestIndex:
+        return True
+    m = np.sort(np.asarray(a.avgMetrics))
+    return (m[-1] - m[-2] if larger else m[1] - m[0]) <= tol
+
+
+@contextlib.contextmanager
+def sequential_tuning():
+    """``SNTC_TUNING_BATCH=0`` while the block runs: every cell fits on
+    its own."""
+    os.environ["SNTC_TUNING_BATCH"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["SNTC_TUNING_BATCH"]
+
+
+def cv_lanes(dev, data: dict) -> dict:
+    """10b: CrossValidator over a bare LR on config 1's scaled flows, the
+    3-fold × 6-point grid as ``_fit_grid_folds``' two lane loops (9 L2
+    lanes, 9 OWLQN lanes), against the same sweep cell by cell."""
+    train, _ = scaled_features(dev, data)
+
+    def run():
+        return CrossValidator(
+            estimator=LogisticRegression(device=dev, maxIter=LBFGS_ITERS),
+            estimatorParamMaps=CV_GRID,
+            evaluator=BinaryClassificationEvaluator(), numFolds=CV_FOLDS,
+            seed=0,
+        ).fit(train)
+
+    with counted(LogisticRegression, "_fit_grid_folds") as calls, \
+            lbfgs_runs() as runs:
+        bat, bat_s = timed(run)
+    lane_loops = sorted(r["lanes"] for r in runs if r["lanes"] > 1)
+    half = CV_FOLDS * len(CV_GRID) // 2
+    if len(calls) != 1 or lane_loops != [half, half]:
+        raise SystemExit(f"10b: {len(calls)} fold sweeps, loops {runs}")
+    with sequential_tuning(), lbfgs_runs() as seq_runs:
+        seq, seq_s = timed(run)
+    if any(r["lanes"] != 1 for r in seq_runs) or \
+            len(seq_runs) != CV_FOLDS * len(CV_GRID) + 1:
+        raise SystemExit(f"10b sequential: loops {seq_runs}")
+    gap = float(np.abs(np.subtract(bat.avgMetrics, seq.avgMetrics)).max())
+    rec = {
+        "train_rows": train.num_rows, "lanes_s": bat_s, "sequential_s": seq_s,
+        "lanes_loops": runs, "lanes_host_syncs": sum(
+            r["host_syncs"] for r in runs),
+        "sequential_host_syncs": sum(r["host_syncs"] for r in seq_runs),
+        "avgMetrics": {"lanes": bat.avgMetrics, "sequential": seq.avgMetrics},
+        "bestIndex": [bat.bestIndex, seq.bestIndex], "max_gap": gap,
+    }
+    log(f"phase 10b CrossValidator(LR) on {train.num_rows} config-1 rows, "
+        f"{CV_FOLDS} folds x {len(CV_GRID)} points: lanes {bat_s:.3f} s "
+        f"({rec['lanes_host_syncs']} host reads; loops "
+        f"{[(r['lanes'], r['iterations'], r['host_syncs']) for r in runs]}"
+        f"), cell by cell {seq_s:.3f} s ({rec['sequential_host_syncs']} host "
+        f"reads in {len(seq_runs)} fits); areaUnderROC by point "
+        f"{[round(m, 6) for m in bat.avgMetrics]}, at most {gap:.3g} from "
+        f"the cells'; best {bat.bestIndex} / {seq.bestIndex}")
+    if gap > CV_METRIC_ATOL or not best_index_agrees(
+            bat, seq, True, CV_METRIC_ATOL):
+        rec["failed"] = f"10b: lanes and cells part: {rec}"
+    return rec
+
+
+def pipeline_cv(dev, frame: Frame) -> dict:
+    """10c: CrossValidator over the whole config-2 Pipeline with a
+    head-only grid: per fold the prefix fits once (and once for the
+    refit), the head's grid runs through ``_fit_grid``; against the same
+    search with ``SNTC_TUNING_BATCH=0``."""
+
+    def run():
+        return CrossValidator(
+            estimator=lbfgs_pipeline(dev, "lr"), estimatorParamMaps=PIPE_GRID,
+            evaluator=MulticlassClassificationEvaluator(metricName="macroF1"),
+            numFolds=PIPE_FOLDS, seed=0,
+        ).fit(frame)
+
+    with counted(StandardScaler, "_fit") as prefix_fits, \
+            counted(LogisticRegression, "_fit_grid") as grid_fits, \
+            lbfgs_runs() as runs:
+        bat, bat_s = timed(run)
+    if len(prefix_fits) != PIPE_FOLDS + 1 or len(grid_fits) != PIPE_FOLDS:
+        raise SystemExit(f"10c: the prefix fitted {len(prefix_fits)} times, "
+                         f"the head's grid {len(grid_fits)} times")
+    with sequential_tuning(), lbfgs_runs() as seq_runs:
+        seq, seq_s = timed(run)
+    gap = float(np.abs(np.subtract(bat.avgMetrics, seq.avgMetrics)).max())
+    rec = {
+        "rows": frame.num_rows, "lanes_s": bat_s, "sequential_s": seq_s,
+        "prefix_fits": len(prefix_fits), "grid_fits": len(grid_fits),
+        "lanes_host_syncs": sum(r["host_syncs"] for r in runs),
+        "sequential_host_syncs": sum(r["host_syncs"] for r in seq_runs),
+        "avgMetrics": {"lanes": bat.avgMetrics, "sequential": seq.avgMetrics},
+        "bestIndex": [bat.bestIndex, seq.bestIndex], "max_gap": gap,
+    }
+    log(f"phase 10c CrossValidator(config-2 Pipeline) on {frame.num_rows} "
+        f"rows, {PIPE_FOLDS} folds x {len(PIPE_GRID)} points: prefix fitted "
+        f"{len(prefix_fits)} times, head grid {len(grid_fits)} lane fits; "
+        f"lanes {bat_s:.3f} s ({rec['lanes_host_syncs']} host reads), one "
+        f"by one {seq_s:.3f} s ({rec['sequential_host_syncs']} host reads); "
+        f"macro-F1 by point {[round(m, 6) for m in bat.avgMetrics]}, at most "
+        f"{gap:.3g} apart; best {bat.bestIndex} / {seq.bestIndex}")
+    if gap > PIPE_METRIC_ATOL or bat.bestIndex != seq.bestIndex:
+        rec["failed"] = f"10c: lanes and one by one part: {rec}"
+    return rec
+
+
+def tvs_serve(dev, frame: Frame, test: Frame, work: str) -> dict:
+    """10d: TrainValidationSplit over 10c's pipeline and rows; the model
+    round-trips ``save_model``/``load_model`` with its metrics, best index
+    and grid; its best model, saved, serves through ``python -m
+    sntc_tpu_torch serve`` in the default form over ``TUNED_BATCHES``
+    (the 1 000-row batch pads: ``pad_assemble``), every prediction equal
+    to this process's transform on the card."""
+    import pyarrow.csv as pacsv
+
+    tvs, tvs_s = timed(lambda: TrainValidationSplit(
+        estimator=lbfgs_pipeline(dev, "lr"), estimatorParamMaps=PIPE_GRID,
+        evaluator=MulticlassClassificationEvaluator(metricName="macroF1"),
+        trainRatio=TVS_RATIO, seed=0,
+    ).fit(frame))
+    loaded = load_model(save_model(tvs, os.path.join(work, "tvs")),
+                        device=dev)
+    if loaded.validationMetrics != tvs.validationMetrics or \
+            loaded.bestIndex != tvs.bestIndex or \
+            loaded.estimatorParamMaps != PIPE_GRID:
+        raise SystemExit("10d: the saved TrainValidationSplitModel differs")
+    model_dir = save_model(tvs.bestModel, os.path.join(work, "best"))
+    traffic = test.slice(0, sum(TUNED_BATCHES)).drop("Label")
+    watch = os.path.join(work, "in10")
+    os.makedirs(watch)
+    batches, start = [], 0
+    for i, n in enumerate(TUNED_BATCHES):
+        b = traffic.slice(start, start + n)
+        write_raw_csv(b, os.path.join(watch, f"part_{i:04d}.csv"))
+        batches.append(b)
+        start += n
+    out_dir = os.path.join(work, "out10")
+    summary = serve_command(model_dir, watch, out_dir,
+                            os.path.join(work, "ckpt10"), dev, [])
+    launches = summary["kernel_launches"]
+    want_pad = sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                   for n in TUNED_BATCHES)
+    if summary["rows"] != sum(TUNED_BATCHES) or \
+            launches["pad_assemble"] != want_pad or want_pad < 1:
+        raise SystemExit(f"10d serve: {summary['rows']} rows, launches "
+                         f"{launches}")
+    in_process, _, _ = serving_form(load_model(model_dir, device=dev))
+    for i, b in enumerate(batches):
+        t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+        if not np.array_equal(t.column("prediction").to_numpy(),
+                              to_host(in_process.transform(b)["prediction"])):
+            raise SystemExit(f"10d batch {i}: the serve command's "
+                             "predictions differ from this process's")
+    log(f"phase 10d TrainValidationSplit (trainRatio {TVS_RATIO}) on "
+        f"{frame.num_rows} rows: {tvs_s:.3f} s, macro-F1 by point "
+        f"{[round(m, 6) for m in tvs.validationMetrics]}, best "
+        f"{tvs.bestIndex}; saved and loaded equal; best model served "
+        f"(defaults): {summary['batches']} batches, {summary['rows']} rows "
+        f"in {summary['seconds']:.3f} s, fusion {summary['fusion']}, "
+        f"launches {launches}; predictions equal to this process's")
+    return {"tvs_s": tvs_s, "validationMetrics": tvs.validationMetrics,
+            "bestIndex": tvs.bestIndex, "serve": summary}
+
+
+def lane_fits(dev, data2: dict, data1: dict, work: str, pad_err: float):
+    """Phase 10, 10a-10d; its ``pad_assemble`` entry at 10d's padded
+    [1 000, 78] batch, with 10d's serve count.  A tolerance missed in
+    10a-10c fails the phase after all four have run."""
+    out = {"ovr": ovr_lanes(dev, data2), "cv": cv_lanes(dev, data1)}
+    frame = data2["train"].slice(0, PIPE_ROWS)
+    out["pipeline_cv"] = pipeline_cv(dev, frame)
+    out["tvs"] = tvs_serve(dev, frame, data2["test"], work)
+    failed = [out[k]["failed"] for k in ("ovr", "cv", "pipeline_cv")
+              if "failed" in out[k]]
+    if failed:
+        raise SystemExit("\n".join(failed))
+    pad = measure_pad_at(dev, TUNED_BATCHES[0], pad_err,
+                         out["tvs"]["serve"]["kernel_launches"]["pad_assemble"])
+    pad["shape"] = "tuned best model's serve: " + pad["shape"]
+    out["pad"] = pad
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -2670,6 +3161,9 @@ def main() -> int:
     regs = fit_regressors(dev, data4)
     new9 = measure_phase9(dev, regs, served9, errs["pad_assemble"])
     kernels += new9
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        phase10 = lane_fits(dev, data2, data1, work, errs["pad_assemble"])
+    kernels.append(phase10["pad"])
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -2774,6 +3268,17 @@ def main() -> int:
             f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}); {k['launches']} launches on its path "
             f"[{card}]")
+    k = phase10["pad"]
+    log(f"phase 10 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+        f"{k['device_ms']:.4f} ms of device time a launch (plain "
+        f"{k['plain_ms']:.4f} ms, index_select {k['library_ms']:.4f} ms; "
+        f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
+        f"launches on its path [{card}]")
+    p10 = {key: phase10[key] for key in ("ovr", "cv", "pipeline_cv")}
+    log(f"phase 10 wall-clock, lanes against one by one: "
+        + "; ".join(f"{key} {v['lanes_s']:.3f} s / "
+                    f"{v.get('single_s', v.get('sequential_s')):.3f} s"
+                    for key, v in p10.items()) + f" [{card}]")
     for k in hist:
         per_class = ("" if k["per_class_device_ms"] is None else
                      f", as {CLASSES} launches of the shared form "
@@ -2807,7 +3312,8 @@ def main() -> int:
                        "phase9": {"train": trained9, "nb_check": nb_check,
                                   "serve": served9, "evaluate": evaluated9,
                                   "regressors": regs["fits"],
-                                  "kernels": new9}}, f,
+                                  "kernels": new9},
+                       "phase10": phase10}, f,
                       indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()

@@ -17,7 +17,8 @@ regressors:
   feature/     VectorAssembler, ChiSqSelector, StandardScaler,
                StringIndexer (+ models), IndexToString
   ops/         quantile binning, the chi-square contingency, the
-               LBFGS/OWLQN/projected-LBFGS minimizer
+               LBFGS/OWLQN/projected-LBFGS minimizer and its
+               lane-batched form
   models/      ClassificationModel, MultilayerPerceptronClassifier,
                LogisticRegression, LinearSVC, NaiveBayes,
                RandomForestClassifier, DecisionTreeClassifier,
@@ -25,6 +26,11 @@ regressors:
                their models), the level-wise grower, training summaries
   evaluation/  MulticlassClassificationEvaluator (every metric name),
                BinaryClassificationEvaluator, RegressionEvaluator
+  tuning/      ParamGridBuilder, CrossValidator, TrainValidationSplit
+               (+ models); LogisticRegression grids and folds fit as
+               lanes of one LBFGS loop
+  resilience/  RetryPolicy, with_retries, fault_point and the event
+               ring: the part tuning calls
   kernels/     tree_hist, forest_traversal, pad_assemble (CUDA) + their
                plain versions
   mlio/        load/save in the JAX package's directory format; mid-fit

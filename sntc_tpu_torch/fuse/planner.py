@@ -268,12 +268,20 @@ class FusedSegment(Transformer):
         return finalize
 
 
-def compile_pipeline(pipeline: PipelineModel) -> PipelineModel:
+def compile_pipeline(
+    pipeline: PipelineModel,
+    keep: Iterable[str] = (),
+    fuse_heads: bool = True,
+) -> PipelineModel:
     """Compile a fitted PipelineModel for serving: rewrite rules first
     (scaler folding), then each maximal run of registry-fusible stages
     (plus a terminating device-servable classifier head) becomes one
     :class:`FusedSegment`; everything else passes through eagerly.
-    Columns that later stages read are copied out of a segment."""
+
+    ``keep`` names intermediate columns to copy out of a segment even
+    when only a fused stage reads them; columns that later eager stages
+    read are kept anyway.  ``fuse_heads=False`` fuses feature stages
+    only (the head stays a plain stage), as tuning's prefix needs."""
     stages = fold_scalers(list(pipeline.getStages()))
     out: List[Transformer] = []
     i, n = 0, len(stages)
@@ -309,7 +317,7 @@ def compile_pipeline(pipeline: PipelineModel) -> PipelineModel:
             seg_plans.append(p)
             i += 1
         head = None
-        if i < n and _fusible_head(stages[i]):
+        if fuse_heads and i < n and _fusible_head(stages[i]):
             head = stages[i]
             i += 1
         # single-upload rule: an assembler LEADING a segment would turn
@@ -326,7 +334,7 @@ def compile_pipeline(pipeline: PipelineModel) -> PipelineModel:
             if head is not None:
                 out.append(head)
             continue
-        later_reads: set = set()
+        later_reads = set(keep)
         for later in stages[i:]:
             later_reads.update(later.input_columns())
         out.append(FusedSegment(seg_stages, seg_plans, head=head,

@@ -3,38 +3,55 @@
 Counterpart of ``sntc_tpu/mlio/save_load.py``: each stage is a directory
 holding ``metadata.json`` (``format_version``, ``class``, ``uid``,
 ``params``, ``extra``, and ``stage_dirs`` for the sub-stages of a
-pipeline or of a stage with ``_sub_stages``, such as OneVsRest's models)
+pipeline or of a stage with ``_sub_stages``, such as OneVsRest's models
+or a tuning result's best model, estimator and evaluator)
 and, when the stage has arrays, ``data.npz``.  :func:`load_model` reads a
 directory the JAX package saved; :func:`save_model` writes one that
 either package loads.  Only ``json`` and ``numpy`` touch the files.
 
 A stage is recorded under its JAX package class name, mapped to the
-port class in :data:`PORTED_CLASSES`.  A class not ported yet, or an
-orbax array payload, raises a clear error.
+port class in :data:`PORTED_CLASSES`: fitted stages, and the
+estimators, evaluators and tuning specs a ``CrossValidator`` or
+``TrainValidationSplit`` holds.  An estimator that fits on a device is
+loaded onto ``load_model``'s.  A class not ported yet, or an orbax
+array payload, raises a clear error.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 from typing import Any, Dict
 
 import numpy as np
 
-from sntc_tpu_torch.core.base import PipelineModel, PipelineStage
+from sntc_tpu_torch.core.base import Pipeline, PipelineModel, PipelineStage
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.evaluation import (
+    BinaryClassificationEvaluator,
+    MulticlassClassificationEvaluator,
+    RegressionEvaluator,
+)
 from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
-from sntc_tpu_torch.feature.standard_scaler import StandardScalerModel
+from sntc_tpu_torch.feature.standard_scaler import (
+    StandardScaler,
+    StandardScalerModel,
+)
 from sntc_tpu_torch.feature.string_indexer import (
     IndexToString,
+    StringIndexer,
     StringIndexerModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
 from sntc_tpu_torch.models.linear_svc import LinearSVCModel
-from sntc_tpu_torch.models.logistic_regression import LogisticRegressionModel
+from sntc_tpu_torch.models.logistic_regression import (
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from sntc_tpu_torch.models.mlp import MultilayerPerceptronClassificationModel
 from sntc_tpu_torch.models.naive_bayes import NaiveBayesModel
-from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel
+from sntc_tpu_torch.models.one_vs_rest import OneVsRest, OneVsRestModel
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
     DecisionTreeRegressionModel,
@@ -46,6 +63,12 @@ from sntc_tpu_torch.models.tree.random_forest import (
 )
 from sntc_tpu_torch.models.tree.random_forest_regressor import (
     RandomForestRegressionModel,
+)
+from sntc_tpu_torch.tuning import (
+    CrossValidator,
+    CrossValidatorModel,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
 )
 
 _FORMAT_VERSION = 1
@@ -76,6 +99,26 @@ PORTED_CLASSES: Dict[str, type] = {
     "RandomForestRegressionModel": RandomForestRegressionModel,
     "sntc_tpu.models.tree.gbt_regressor.GBTRegressionModel":
         GBTRegressionModel,
+    # the estimators and evaluators a tuning spec holds
+    "sntc_tpu.core.base.Pipeline": Pipeline,
+    "sntc_tpu.feature.string_indexer.StringIndexer": StringIndexer,
+    "sntc_tpu.feature.standard_scaler.StandardScaler": StandardScaler,
+    "sntc_tpu.models.logistic_regression.LogisticRegression":
+        LogisticRegression,
+    "sntc_tpu.models.one_vs_rest.OneVsRest": OneVsRest,
+    "sntc_tpu.evaluation.binary.BinaryClassificationEvaluator":
+        BinaryClassificationEvaluator,
+    "sntc_tpu.evaluation.multiclass.MulticlassClassificationEvaluator":
+        MulticlassClassificationEvaluator,
+    "sntc_tpu.evaluation.regression.RegressionEvaluator":
+        RegressionEvaluator,
+    "sntc_tpu.tuning.cross_validator.CrossValidator": CrossValidator,
+    "sntc_tpu.tuning.cross_validator.CrossValidatorModel":
+        CrossValidatorModel,
+    "sntc_tpu.tuning.cross_validator.TrainValidationSplit":
+        TrainValidationSplit,
+    "sntc_tpu.tuning.cross_validator.TrainValidationSplitModel":
+        TrainValidationSplitModel,
 }
 _SAVED_NAME = {cls: name for name, cls in PORTED_CLASSES.items()}
 
@@ -119,20 +162,22 @@ def _load_stage(path: str, device) -> PipelineStage:
     if os.path.exists(npz):
         with np.load(npz) as z:
             arrays = {k: z[k] for k in z.files}
-    if cls is PipelineModel or hasattr(cls, "_from_sub_stages"):
+    if cls in (Pipeline, PipelineModel) or hasattr(cls, "_from_sub_stages"):
         stages = [
             _load_stage(os.path.join(path, d), device)
             for d in meta.get("stage_dirs", [])
         ]
-        if cls is PipelineModel:
-            obj = PipelineModel(stages=stages)
+        if cls in (Pipeline, PipelineModel):
+            obj = cls(stages=stages)
             obj.setParams(**params)
         else:
             obj = cls._from_sub_stages(stages, params, extra)
     elif hasattr(cls, "_load_from"):
         obj = cls._load_from(params, extra, arrays, device)
     else:
-        obj = cls()
+        # an estimator that fits on a device fits on the loader's
+        takes_device = "device" in inspect.signature(cls).parameters
+        obj = cls(device=device) if takes_device else cls()
         obj.setParams(**params)
     obj.uid = meta.get("uid", obj.uid)
     return obj
@@ -160,7 +205,7 @@ def save_model(stage: PipelineStage, path: str) -> str:
         "uid": stage.uid,
     }
     sub_stages = None
-    if isinstance(stage, PipelineModel):
+    if isinstance(stage, (Pipeline, PipelineModel)):
         sub_stages = params.pop("stages", [])
     elif hasattr(stage, "_sub_stages"):
         sub_stages = stage._sub_stages()

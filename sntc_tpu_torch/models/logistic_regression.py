@@ -20,10 +20,20 @@ counts are a one-hot product, not a scatter of atomics, so the fit is
 the same run to run.  The summarizer takes raw Σx² (not pilot-shifted,
 unlike the scaler), as the JAX package does.
 
-Not ported: the batched grid and fold lanes (``_fit_grid``,
-``_fit_grid_folds``), the one-vs-rest lanes (``_fit_ovr_lanes``) and
-``partial_fit``; ``supports_batched_grid`` and
-``supports_vectorized_ovr`` say False.
+Many fits in one loop (the JAX package's vmapped programs): the grid
+lanes (``_fit_grid``: one frame, one lane per grid point), the fold ×
+grid lanes (``_fit_grid_folds``: a cross-validation fold is a 0/1 row
+weight mask over the shared rows, and each lane standardizes on its own
+fold) and the one-vs-rest lanes (``_fit_ovr_lanes``: lane c relabels
+``ys == c``).  The rows go to the device once; every lane's smooth
+objective is one product of the lanes' scaled coefficients ``[L·K, D]``
+with the rows, a weighted loss per lane and one backward pass of their
+sum, inside
+:func:`~sntc_tpu_torch.ops.lbfgs.minimize_lbfgs_lanes`.  L1 (OWLQN) and
+L2-only lanes run as two programs.  ``supports_batched_grid`` and
+``supports_vectorized_ovr`` give the JAX package's verdicts.
+
+Not ported: ``partial_fit``.
 """
 
 from __future__ import annotations
@@ -45,8 +55,13 @@ from sntc_tpu_torch.models.mlp import value_and_grad_fn
 from sntc_tpu_torch.models.summary import (
     BinaryClassificationTrainingSummary,
     ClassificationTrainingSummary,
+    TrainingSummary,
 )
-from sntc_tpu_torch.ops.lbfgs import full_f32, minimize_lbfgs
+from sntc_tpu_torch.ops.lbfgs import (
+    full_f32,
+    minimize_lbfgs,
+    minimize_lbfgs_lanes,
+)
 
 
 def _lr_summarize(xs, ys, ws, k):
@@ -59,32 +74,44 @@ def _lr_summarize(xs, ys, ws, k):
     return out[:d], out[d:2 * d], out[2 * d], out[2 * d + 1:]
 
 
-def _lr_loss(
-    theta, xs, ys, ws, inv_std, l2, pen_l2, w_sum,
+def _lr_lane_losses(
+    theta, xs, ys_lanes, ws_lanes, inv_std, l2, pen_l2, w_sum,
     *, binomial, fit_intercept, k, n_coef,
 ):
-    """Smooth objective: the weighted mean log loss plus the L2 term."""
-    d = xs.shape[1]
-    coef = theta[:n_coef]
-    W = coef.reshape(d, 1) if binomial else coef.reshape(d, k)
+    """Every lane's smooth objective ``[L]`` (the single fit is one
+    lane): one product ``xs @ Wd`` of the shared rows with the lanes'
+    coefficients ``[D, L·K]`` (each lane's scaled by its own
+    ``inv_std``); each lane's margins then go lanes first, so that its
+    sum over the rows is a contiguous reduction whatever L, and each
+    lane takes its weighted mean log loss and L2 term.  ``ys_lanes`` is
+    ``[N]`` (shared labels) or ``[L, N]`` (one-vs-rest relabels);
+    ``ws_lanes`` ``[1, N]`` or ``[L, N]``; ``inv_std`` ``[L, D]``;
+    ``l2``, ``w_sum`` ``[L]``; ``pen_l2`` ``[L, n_coef]``."""
+    L = theta.shape[0]
+    n, d = xs.shape
+    kk = 1 if binomial else k
+    coef = theta[:, :n_coef].reshape(L, d, kk)
     b = (
-        theta[n_coef:]
+        theta[:, n_coef:]
         if fit_intercept
-        else torch.zeros(1 if binomial else k, dtype=theta.dtype,
-                         device=theta.device)
+        else torch.zeros((L, kk), dtype=theta.dtype, device=theta.device)
     )
-    Wd = W * inv_std[:, None]  # fold scaling into the matmul
-    margins = xs @ Wd + b[None, :]
+    Wd = coef * inv_std[:, :, None]  # fold scaling into the matmul
+    margins = xs @ Wd.permute(1, 0, 2).reshape(d, L * kk) \
+        + b.reshape(1, L * kk)
     if binomial:
-        z = margins[:, 0]
-        yf = ys.to(z.dtype)
-        data = torch.sum(ws * (torch.logaddexp(torch.zeros_like(z), z) - yf * z))
+        z = margins.t().contiguous()  # [L, N]
+        yf = ys_lanes.to(z.dtype)
+        data = torch.sum(
+            ws_lanes * (torch.logaddexp(torch.zeros_like(z), z) - yf * z),
+            dim=1)
     else:
-        logp = torch.log_softmax(margins, dim=1)
-        picked = torch.gather(logp, 1, ys[:, None])[:, 0]
-        data = -torch.sum(ws * picked)
+        logp = torch.log_softmax(margins.reshape(n, L, kk), dim=2)
+        picked = torch.gather(
+            logp, 2, ys_lanes[:, None, None].expand(n, L, 1))[:, :, 0]
+        data = -torch.sum(ws_lanes * picked.t().contiguous(), dim=1)
     data = data / w_sum
-    penalty = 0.5 * l2 * torch.sum(pen_l2 * theta[:n_coef] ** 2)
+    penalty = 0.5 * l2 * torch.sum(pen_l2 * theta[:, :n_coef] ** 2, dim=1)
     return data + penalty
 
 
@@ -97,14 +124,17 @@ def _lr_optimize(
     """The whole LBFGS/OWLQN fit over the rows on their device."""
     d = xs.shape[1]
     n_coef = d if binomial else d * k
-    w_sum = torch.sum(ws)
+    w_sum = torch.sum(ws[None], dim=1)
 
     def loss_fn(theta):
-        return _lr_loss(
-            theta, xs, ys, ws, inv_std, l2, pen_l2, w_sum,
+        # the lane objective with one lane: the single fit and the lane
+        # fits evaluate the same products in the same layout
+        return _lr_lane_losses(
+            theta[None], xs, ys, ws[None], inv_std[None], l2.reshape(1),
+            pen_l2[None], w_sum,
             binomial=binomial, fit_intercept=fit_intercept, k=k,
             n_coef=n_coef,
-        )
+        )[0]
 
     return minimize_lbfgs(
         value_and_grad_fn(loss_fn),
@@ -116,6 +146,95 @@ def _lr_optimize(
         return_state=True,
         iter_limit=iter_limit,
         bounds=(lb, ub) if use_bounds else None,
+    )
+
+
+def _lr_summarize_folds(xs, ys, ws_b, k):
+    """Per-fold moments and class sums from ``[F, N]`` weight masks (each
+    cross-validation fold standardizes on its own train rows, as a
+    sequential sub-fit would), as float64 host arrays ``[F, ...]``."""
+    onehot = torch.nn.functional.one_hot(ys, k).to(ws_b.dtype)
+    d = xs.shape[1]
+    out = torch.cat([ws_b @ xs, ws_b @ (xs * xs), ws_b.sum(1, keepdim=True),
+                     ws_b @ onehot], 1).cpu().numpy().astype(np.float64)
+    return out[:, :d], out[:, d:2 * d], out[:, 2 * d], out[:, 2 * d + 1:]
+
+
+def _lr_lane_program(
+    xs, ys_lanes, ws_lanes, inv_std_b, l2_b, pen_l2_b, l1_vec_b, theta0_b,
+    *, binomial, fit_intercept, k, max_iter, tol, use_l1,
+):
+    """One lane-batched LBFGS/OWLQN fit: the gradient of the lanes'
+    summed objectives is each lane's own gradient (the lanes share no
+    parameter)."""
+    d = xs.shape[1]
+    n_coef = d if binomial else d * k
+    w_sum = torch.sum(ws_lanes, dim=1)
+
+    def value_and_grad(theta):
+        t = theta.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = _lr_lane_losses(
+                t, xs, ys_lanes, ws_lanes, inv_std_b, l2_b, pen_l2_b, w_sum,
+                binomial=binomial, fit_intercept=fit_intercept, k=k,
+                n_coef=n_coef,
+            )
+            (g,) = torch.autograd.grad(loss.sum(), t)
+        return loss.detach(), g
+
+    return minimize_lbfgs_lanes(
+        value_and_grad, theta0_b, max_iter=max_iter, tol=tol,
+        l1=l1_vec_b if use_l1 else None,
+    )
+
+
+def _lr_optimize_grid(
+    xs, ys, ws, inv_std, l2_b, pen_l2_b, l1_vec_b, theta0_b,
+    *, binomial, fit_intercept, k, max_iter, tol, use_l1,
+):
+    """G grid points over the same rows in one lane loop: the lanes share
+    the rows, their weights and the standardization, and differ in the
+    penalty vectors and the start point."""
+    L = theta0_b.shape[0]
+    return _lr_lane_program(
+        xs, ys, ws[None, :], inv_std[None, :].expand(L, -1), l2_b, pen_l2_b,
+        l1_vec_b, theta0_b, binomial=binomial, fit_intercept=fit_intercept,
+        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1,
+    )
+
+
+def _lr_optimize_lanes(
+    xs, ys, ws_folds, fold_idx_b, inv_std_b, l2_b, pen_l2_b, l1_vec_b,
+    theta0_b,
+    *, binomial, fit_intercept, k, max_iter, tol, use_l1,
+):
+    """Fold × grid lanes in one loop: lane l weighs the rows by its
+    fold's mask ``ws_folds[fold_idx_b[l]]`` (the masks are on the device
+    once, ``[F, N]``) and carries its fold's standardization."""
+    return _lr_lane_program(
+        xs, ys, ws_folds[fold_idx_b], inv_std_b, l2_b, pen_l2_b,
+        l1_vec_b, theta0_b, binomial=binomial, fit_intercept=fit_intercept,
+        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1,
+    )
+
+
+def _lr_optimize_ovr(
+    xs, ys, ws, inv_std, l2, pen_l2, l1_vec, class_ids, theta0_b,
+    *, fit_intercept, max_iter, tol, use_l1,
+):
+    """K one-vs-rest binary fits in one loop: lane c relabels the shared
+    labels ``ys == c`` on the device; every lane has the same penalty."""
+    L = theta0_b.shape[0]
+    d = xs.shape[1]
+    ys_c = (class_ids[:, None] == ys[None, :]).to(xs.dtype)
+
+    def lanes(v):
+        return v[None].expand(L, *v.shape)
+
+    return _lr_lane_program(
+        xs, ys_c, ws[None, :], lanes(inv_std), lanes(l2), lanes(pen_l2),
+        lanes(l1_vec), theta0_b, binomial=True, fit_intercept=fit_intercept,
+        k=2, max_iter=max_iter, tol=tol, use_l1=use_l1,
     )
 
 
@@ -152,6 +271,12 @@ class _LrParams:
     )
 
 
+_BOUND_PARAMS = (
+    "lowerBoundsOnCoefficients", "upperBoundsOnCoefficients",
+    "lowerBoundsOnIntercepts", "upperBoundsOnIntercepts",
+)
+
+
 def _bounds_digest(lb: np.ndarray, ub: np.ndarray) -> str:
     import hashlib
 
@@ -169,13 +294,230 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         super().__init__(**kwargs)
         self.device = resolve_device(device)
 
+    # ---- lane fits (CrossValidator / TrainValidationSplit / OneVsRest) ----
+
+    _GRID_VARYING = frozenset(
+        {"regParam", "elasticNetParam", "standardization"}
+    )
+    _GRID_UNIFORM = frozenset({"maxIter", "tol", "fitIntercept", "family"})
+
     def supports_batched_grid(self, param_maps) -> bool:
-        """The batched grid program is not ported: grids fit one by one."""
-        return False
+        """True if ``param_maps`` can run as one lane loop: every key is
+        a hyperparameter the lanes accept, the loop's own knobs are
+        uniform across points, and no bound constraints or mid-fit
+        checkpoints are in play."""
+        if len(param_maps) < 2:
+            return False
+        keys = set().union(*param_maps)
+        if not keys <= (self._GRID_VARYING | self._GRID_UNIFORM):
+            return False
+        for kk in keys & self._GRID_UNIFORM:
+            vals = {m.get(kk, self.paramValues().get(kk)) for m in param_maps}
+            if len(vals) > 1:
+                return False
+        if any(
+            self.paramValues().get(p) is not None for p in _BOUND_PARAMS
+        ):
+            return False
+        return not self._would_checkpoint()
 
     def supports_vectorized_ovr(self) -> bool:
-        """The one-vs-rest lanes are not ported: classes fit one by one."""
-        return False
+        """True when OneVsRest can run this classifier's K binary fits as
+        one lane loop: a binomial-compatible family, no bound
+        constraints, no mid-fit checkpoints."""
+        if self.getFamily() == "multinomial":
+            return False  # a 2-class softmax parameterization differs
+        if any(
+            self.paramValues().get(p) is not None for p in _BOUND_PARAMS
+        ):
+            return False
+        return not self._would_checkpoint()
+
+    def _would_checkpoint(self) -> bool:
+        """True iff a fit would persist mid-fit state (interval AND dir
+        set, the gate ``run_segmented`` uses): the lane fits defer to the
+        sequential fit only then."""
+        return (
+            self.getCheckpointInterval() > 0
+            and bool(self.getCheckpointDir())
+        )
+
+    def _lanes_to_models(self, res, ests, preps):
+        """Lane l of ``res`` through ``ests[l]._theta_to_model`` with
+        ``preps[l]``, each model carrying its lane's iterations and the
+        program's evaluations, host reads and lane count."""
+        xs_h = res.x.cpu().numpy()
+        iters_h = res.n_iters.cpu().numpy()
+        hist_h = res.history.cpu().numpy()
+        models = []
+        for lane, (est, prep) in enumerate(zip(ests, preps)):
+            model = est._theta_to_model(
+                xs_h[lane], prep, iters_h[lane], hist_h[lane])
+            model.optimizer_stats = {
+                "iterations": int(iters_h[lane]),
+                "evaluations": res.n_evals, "host_syncs": res.n_syncs,
+                "lanes": len(ests),
+            }
+            models.append(model)
+        return models
+
+    def _lane_tensors(self, vecs, key):
+        """``[L, ...]`` float32 tensor on the device of each lane's
+        ``key`` entry."""
+        return torch.from_numpy(
+            np.stack([np.asarray(v[key], np.float32) for v in vecs])
+        ).to(self.device)
+
+    def _fit_grid_folds(self, frame: Frame, param_maps, fold_of, num_folds):
+        """CrossValidator's whole k-fold × grid sweep in at most two lane
+        loops (L2-only and L1): a fold is a 0/1 row-weight mask over the
+        shared rows, so (fold, grid point) lanes run together, the rows
+        go to the device once, and each lane standardizes on its own
+        fold's moments (as a sequential sub-fit does).  Returns
+        ``[num_folds][G]`` fitted models."""
+        ests = [self.copy(m) for m in param_maps]
+        G = len(ests)
+        X, y, w = self._extract(frame)
+        n, d = X.shape
+        binomial, k = ests[0]._resolve_family(y, n)
+        dev = self.device
+        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        fold_of = np.asarray(fold_of)
+        masks = np.zeros((num_folds, n), np.float32)
+        for f in range(num_folds):
+            masks[f] = (fold_of != f) * w  # zero weight = not in the fold
+        ws_folds = torch.from_numpy(masks).to(dev)
+        with full_f32():
+            s1, s2, cnt, cc = _lr_summarize_folds(xs, ys, ws_folds, k)
+        preps = []
+        for f in range(num_folds):
+            std, inv_std, class_counts = self._moments_to_stats(
+                s1[f], s2[f], cnt[f], cc[f]
+            )
+            preps.append({
+                "n": n, "d": d, "k": k, "binomial": binomial, "std": std,
+                "inv_std": inv_std, "class_counts": class_counts,
+            })
+        vecs = [
+            [ests[g]._grid_vectors(preps[f]) for g in range(G)]
+            for f in range(num_folds)
+        ]
+        models = [[None] * G for _ in range(num_folds)]
+        for flag in (False, True):
+            lanes = [
+                (f, g)
+                for f in range(num_folds)
+                for g in range(G)
+                if bool(vecs[f][g]["use_l1"]) == flag
+            ]
+            if not lanes:
+                continue
+            lane_vecs = [vecs[f][g] for f, g in lanes]
+            with full_f32():
+                res = _lr_optimize_lanes(
+                    xs, ys, ws_folds,
+                    torch.tensor([f for f, _ in lanes], device=dev),
+                    self._lane_tensors(
+                        [preps[f] for f, _ in lanes], "inv_std"),
+                    self._lane_tensors(lane_vecs, "l2"),
+                    self._lane_tensors(lane_vecs, "pen_l2"),
+                    self._lane_tensors(lane_vecs, "l1_vec"),
+                    self._lane_tensors(lane_vecs, "theta0"),
+                    binomial=binomial,
+                    fit_intercept=ests[0].getFitIntercept(),
+                    k=k,
+                    max_iter=ests[0].getMaxIter(),
+                    tol=ests[0].getTol(),
+                    use_l1=flag,
+                )
+            fitted = self._lanes_to_models(
+                res, [ests[g] for _, g in lanes], [preps[f] for f, _ in lanes])
+            for (f, g), model in zip(lanes, fitted):
+                models[f][g] = model
+        return models
+
+    def _fit_ovr_lanes(self, X, y, w, k):
+        """K one-vs-rest binary models from one lane loop (see
+        ``_lr_optimize_ovr``): the summarizer runs once (the moments do
+        not depend on the class), each lane's intercept starts at its
+        class's prior log odds, and lane c's labels are relabeled on the
+        device."""
+        n, d = X.shape
+        dev = self.device
+        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        ws = torch.from_numpy(w).to(dev)
+        with full_f32():
+            std, inv_std, class_counts = self._moments_to_stats(
+                *_lr_summarize(xs, ys, ws, k)
+            )
+        w_sum = float(class_counts.sum())
+        fit_intercept = self.getFitIntercept()
+        vec = self._penalty_vectors(d, 2, True, inv_std)
+        n_int = vec["n_int"]
+        theta0_b = np.zeros((k, d + n_int), np.float32)
+        if fit_intercept:
+            # per-class prior log odds: what each sequential relabeled
+            # sub-fit's _grid_vectors start would compute
+            pos = class_counts / max(w_sum, 1e-12)
+            theta0_b[:, d] = np.log(
+                np.maximum(pos, 1e-12) / np.maximum(1.0 - pos, 1e-12)
+            )
+
+        def on_dev(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        with full_f32():
+            res = _lr_optimize_ovr(
+                xs, ys, ws, on_dev(inv_std), on_dev(vec["l2"]),
+                on_dev(vec["pen_l2"]), on_dev(vec["l1_vec"]),
+                torch.arange(k, device=dev), on_dev(theta0_b),
+                fit_intercept=fit_intercept,
+                max_iter=self.getMaxIter(),
+                tol=self.getTol(),
+                use_l1=bool(vec["use_l1"]),
+            )
+        prep = {"n": n, "d": d, "k": 2, "binomial": True, "std": std,
+                "inv_std": inv_std}
+        return self._lanes_to_models(res, [self] * k, [prep] * k)
+
+    def _fit_grid(self, frame: Frame, param_maps):
+        """Every point of ``param_maps`` over the same frame in at most
+        two lane loops; one fitted model per map, in order.  The rows go
+        to the device and are summarized once; L1 (OWLQN) and L2-only
+        points run apart (their update rules differ)."""
+        ests = [self.copy(m) for m in param_maps]
+        with full_f32():
+            prep = ests[0]._prep_data(frame)
+        vecs = [e._grid_vectors(prep) for e in ests]
+        inv_std = torch.from_numpy(
+            np.asarray(prep["inv_std"], np.float32)).to(self.device)
+        models: list = [None] * len(ests)
+        for flag in (False, True):
+            idxs = [i for i, v in enumerate(vecs) if bool(v["use_l1"]) == flag]
+            if not idxs:
+                continue
+            lane_vecs = [vecs[i] for i in idxs]
+            with full_f32():
+                res = _lr_optimize_grid(
+                    prep["xs"], prep["ys"], prep["ws"], inv_std,
+                    self._lane_tensors(lane_vecs, "l2"),
+                    self._lane_tensors(lane_vecs, "pen_l2"),
+                    self._lane_tensors(lane_vecs, "l1_vec"),
+                    self._lane_tensors(lane_vecs, "theta0"),
+                    binomial=prep["binomial"],
+                    fit_intercept=ests[0].getFitIntercept(),
+                    k=prep["k"],
+                    max_iter=ests[0].getMaxIter(),
+                    tol=ests[0].getTol(),
+                    use_l1=flag,
+                )
+            fitted = self._lanes_to_models(
+                res, [ests[i] for i in idxs], [prep] * len(idxs))
+            for i, model in zip(idxs, fitted):
+                models[i] = model
+        return models
 
     def _build_bounds(self, d, k, binomial, n_coef, n_int, std):
         """Flatten user bounds into theta-ordered (lb, ub) vectors.
@@ -372,6 +714,12 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
             }
         )
         hist = np.asarray(history)[: n_iters + 1]
+        if prep.get("frame") is None:
+            # fold and one-vs-rest lane sub-models (preps built without
+            # the source frame) keep the light record, as in the JAX
+            # package
+            model.summary = TrainingSummary(hist, n_iters)
+            return model
         summary_cls = (
             BinaryClassificationTrainingSummary
             if binomial

@@ -4,12 +4,15 @@ Counterpart of ``sntc_tpu/models/one_vs_rest.py`` (Spark's
 ``OneVsRest``): fit one copy of the base classifier per class on
 relabeled {rest=0, class=1} data; the prediction is the argmax over the
 per-class raw class-1 scores.  ``parallelism`` is accepted for API
-parity; the fits are sequential.
+parity.
 
-A GBT base classifier fits all K classes in one boosting loop
+As in the JAX package, two base classifiers fit all K classes at once:
+LogisticRegression as K binary lanes of one LBFGS loop
+(``LogisticRegression._fit_ovr_lanes``, while
+``supports_vectorized_ovr`` holds), GBT in one boosting loop
 (``gbt.fit_gbt_ovr_vectorized``) unless mid-fit checkpoints are asked
-for; any other port classifier (LinearSVC, LogisticRegression among
-them, as in the JAX package), and GBT with checkpoints, fits per class.
+for; any other port classifier (LinearSVC among them), and those two
+outside their gates, fits per class.
 Serving fuses homogeneous sub-models on their device: LinearSVC models,
 and binomial LogisticRegression models, stack into one ``[D, K]`` f32
 weight matrix (the raw score is one f32 product plus bias; an LR
@@ -37,7 +40,10 @@ from sntc_tpu_torch.models.base import (
 )
 from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
 from sntc_tpu_torch.models.linear_svc import LinearSVCModel
-from sntc_tpu_torch.models.logistic_regression import LogisticRegressionModel
+from sntc_tpu_torch.models.logistic_regression import (
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from sntc_tpu_torch.models.tree.gbt import (
     GBTClassificationModel,
     GBTClassifier,
@@ -120,7 +126,8 @@ def _build_fused_ovr(models, traverse=_traverse):
 
 class _OvrParams(ClassifierParams):
     parallelism = Param(
-        "API parity only; the sub-fits run one after another",
+        "API parity only; the sub-fits run one after another unless the "
+        "classifier fits all classes at once",
         default=1,
         validator=validators.gteq(1),
     )
@@ -167,22 +174,36 @@ class OneVsRest(_OvrParams, ClassifierEstimator):
         return model
 
     def _fit_vectorized(self, X, y, w, k, frame):
-        """All classes at once for a GBT base classifier (K trees a
+        """All classes at once for a LogisticRegression (K binary lanes
+        relabeled on the device) or GBT base classifier (K trees a
         boosting round over the same binned features), or None: another
         classifier, a weightCol set on the classifier itself (it names a
         column of the relabeled sub-frame, which only the sequential
-        path builds), or mid-fit checkpoints (the sequential path owns
-        them)."""
+        path builds), an LR outside ``supports_vectorized_ovr``, or GBT
+        with mid-fit checkpoints (the sequential path owns them)."""
         clf = self.classifier
-        if not isinstance(clf, GBTClassifier):
+        if not isinstance(clf, (LogisticRegression, GBTClassifier)):
             return None
         if clf.getWeightCol() and not self.getWeightCol():
             return None
+        if isinstance(clf, LogisticRegression):
+            if not clf.supports_vectorized_ovr():
+                return None
+            return clf._fit_ovr_lanes(X, y, w, k)
         if clf.getCheckpointInterval() > 0 and clf.getCheckpointDir():
             return None
         vcol = clf.getValidationIndicatorCol()
         val_mask = to_host(frame[vcol]).astype(bool) if vcol else None
         return fit_gbt_ovr_vectorized(clf, X, y, w, k, val_mask=val_mask)
+
+    def _sub_stages(self):
+        return [self.classifier]
+
+    @classmethod
+    def _from_sub_stages(cls, stages, params, extra=None):
+        obj = cls(classifier=stages[0])
+        obj.setParams(**params)
+        return obj
 
 
 class OneVsRestModel(_OvrParams, ClassificationModel):

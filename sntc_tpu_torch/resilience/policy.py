@@ -1,0 +1,190 @@
+"""Retry policies and the structured-event stream.
+
+Counterpart of ``sntc_tpu/resilience/policy.py``, the part that
+``tuning/`` calls: :class:`RetryPolicy` (a frozen value object: max
+attempts, exponential backoff with deterministic seeded jitter, an
+optional overall deadline, a retryable-exception classifier),
+:func:`with_retries` (runs a thunk under a policy, emitting ``retry`` /
+``retry_success`` / ``retry_exhausted`` events), :func:`emit_event` (a
+JSONL line under ``SNTC_RESILIENCE_LOG`` and the in-process ring of the
+last 512 events), :func:`recent_events` and :func:`clear_events`.
+
+Left for the serving core's port (the breakers, health monitor and
+device fault domain that consume the events): the event observers, the
+ring's eviction counts and the metrics mirror.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+
+import numpy as np
+
+
+class RetryExhausted(RuntimeError):
+    """Every attempt a policy allowed has failed; wraps the last error."""
+
+    def __init__(self, site: str, attempts: int, last: BaseException):
+        super().__init__(
+            f"{site}: {attempts} attempt(s) failed; last error: {last!r}"
+        )
+        self.site = site
+        self.attempts = attempts
+        self.last_exception = last
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Immutable retry spec; the backoff schedule is deterministic.
+
+    ``jitter`` is a ± fraction applied to each exponential delay with a
+    numpy generator seeded by ``seed``, so the same policy always yields
+    the same schedule.  ``deadline_s`` bounds the total elapsed time: a
+    backoff that would overshoot it is clamped to the remaining budget
+    (the final attempt still runs at the deadline), and once it has
+    elapsed no further attempt is made.
+    """
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    multiplier: float = 2.0
+    max_delay_s: float = 5.0
+    jitter: float = 0.1
+    seed: int = 0
+    deadline_s: Optional[float] = None
+    retryable: Tuple[Type[BaseException], ...] = (Exception,)
+
+    def __post_init__(self):
+        if self.max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise ValueError("delays must be >= 0")
+        if not 0.0 <= self.jitter <= 1.0:
+            raise ValueError("jitter must lie in [0, 1]")
+
+    def is_retryable(self, exc: BaseException) -> bool:
+        return isinstance(exc, self.retryable)
+
+    def backoff_schedule(self) -> List[float]:
+        """Delay before retry i (i = 1 .. max_attempts-1), exactly."""
+        rng = np.random.default_rng(self.seed)
+        out = []
+        for i in range(max(0, self.max_attempts - 1)):
+            base = min(
+                self.base_delay_s * self.multiplier**i, self.max_delay_s
+            )
+            u = float(rng.uniform(-1.0, 1.0))
+            out.append(max(0.0, base * (1.0 + self.jitter * u)))
+        return out
+
+
+_RECENT_MAX = 512
+_recent: "deque[Dict[str, Any]]" = deque(maxlen=_RECENT_MAX)
+_events_lock = threading.Lock()
+_step = 0
+_t0 = time.perf_counter()
+
+
+def emit_event(**fields: Any) -> Dict[str, Any]:
+    """Append one structured event: a JSONL line when
+    ``SNTC_RESILIENCE_LOG`` names a file, and always the in-process ring
+    (capped at 512 records).  Each record carries
+    ``step``, ``elapsed_s``, ``ts`` and ``mono`` besides ``fields``, as
+    the JAX package's do.  Thread-safe."""
+    global _step
+    path = os.environ.get("SNTC_RESILIENCE_LOG")
+    with _events_lock:
+        record = {
+            "step": _step,
+            "elapsed_s": round(time.perf_counter() - _t0, 6),
+            **fields,
+        }
+        _step += 1
+        record.setdefault("ts", time.time())
+        record.setdefault("mono", time.monotonic())
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        _recent.append(record)
+    return record
+
+
+def recent_events(
+    site: Optional[str] = None, event: Optional[str] = None
+) -> List[Dict[str, Any]]:
+    """The in-process event ring, optionally filtered by site/event."""
+    with _events_lock:
+        snapshot = list(_recent)
+    return [
+        r
+        for r in snapshot
+        if (site is None or r.get("site") == site)
+        and (event is None or r.get("event") == event)
+    ]
+
+
+def clear_events() -> None:
+    with _events_lock:
+        _recent.clear()
+
+
+def with_retries(
+    fn: Callable[[], Any],
+    policy: Optional[RetryPolicy] = None,
+    *,
+    site: str = "unspecified",
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+) -> Any:
+    """Run ``fn()`` under ``policy``, emitting an event per retry.
+
+    Non-retryable exceptions propagate unchanged.  Retryable failures
+    sleep the policy's backoff and re-invoke; when the attempts (or the
+    deadline) run out, :class:`RetryExhausted` wraps the last error.  A
+    backoff that would overshoot ``deadline_s`` is shortened to the
+    remaining budget and the final attempt still runs.  ``sleep`` and
+    ``clock`` are injectable for tests.
+    """
+    policy = policy or RetryPolicy()
+    schedule = policy.backoff_schedule()
+    t0 = clock()
+    for attempt in range(1, policy.max_attempts + 1):
+        try:
+            out = fn()
+        except BaseException as e:
+            if not policy.is_retryable(e):
+                raise
+            delay = schedule[attempt - 1] if attempt <= len(schedule) else 0.0
+            elapsed = clock() - t0
+            remaining = (
+                None if policy.deadline_s is None
+                else policy.deadline_s - elapsed
+            )
+            out_of_time = remaining is not None and remaining <= 0
+            if attempt >= policy.max_attempts or out_of_time:
+                emit_event(
+                    event="retry_exhausted", site=site, attempts=attempt,
+                    error=repr(e), deadline_hit=bool(out_of_time),
+                )
+                raise RetryExhausted(site, attempt, e) from e
+            if remaining is not None:
+                delay = min(delay, remaining)
+            emit_event(
+                event="retry", site=site, attempt=attempt,
+                delay_s=round(delay, 6), error=repr(e),
+            )
+            sleep(delay)
+        else:
+            if attempt > 1:
+                emit_event(
+                    event="retry_success", site=site, attempts=attempt
+                )
+            return out
+    raise AssertionError("unreachable")

@@ -17,6 +17,9 @@ on the CPU.
 * The partition of each bench config's CLI pipeline (``train`` at test
   widths) is the JAX ``compile_pipeline``'s, by stage class names per
   segment.
+* ``compile_pipeline(keep=, fuse_heads=)`` (the tuning prefix's plan):
+  the same partition and the same columns copied out of each segment as
+  the JAX package's, the kept columns equal within 1e-5.
 """
 
 import io
@@ -28,10 +31,12 @@ import torch
 
 from sntc_tpu.app import _serving_form as jax_serving_form
 from sntc_tpu.core.base import Pipeline as JPipeline
+from sntc_tpu.core.base import PipelineModel as JPipelineModel
 from sntc_tpu.core.frame import Frame as JFrame
 from sntc_tpu.data import clean_flows as jax_clean_flows
 from sntc_tpu.data.synth import generate_frame as jax_generate_frame
 from sntc_tpu.feature import StandardScaler as JStandardScaler
+from sntc_tpu.feature import VectorAssembler as JVectorAssembler
 from sntc_tpu.fuse import FusedSegment as JFusedSegment
 from sntc_tpu.fuse import compile_pipeline as jax_compile_pipeline
 from sntc_tpu.mlio import load_model as jax_load_model
@@ -39,7 +44,7 @@ from sntc_tpu.mlio import save_model as jax_save_model
 from sntc_tpu.models import LogisticRegression as JLR
 from sntc_tpu.models import MultilayerPerceptronClassifier as JMLP
 from sntc_tpu_torch.app import main, serving_form
-from sntc_tpu_torch.core.base import Pipeline
+from sntc_tpu_torch.core.base import Pipeline, PipelineModel
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.data import write_raw_csv
 from sntc_tpu_torch.feature import ChiSqSelector, VectorAssembler
@@ -348,3 +353,51 @@ def test_cli_pipelines_partition_as_the_jax_package(cli_models, config, want):
             if hasattr(head, attr):
                 np.testing.assert_array_equal(
                     getattr(head, attr), np.asarray(getattr(jhead, attr)))
+
+
+# -- keep and fuse_heads: the tuning prefix's plan ---------------------------
+
+
+@pytest.mark.parametrize("keep,fuse_heads,prefix_only,want", [
+    (("features", "label"), False, True,
+     ["VectorAssembler", ["StandardScalerModel"]]),
+    # the rewrite rules run first: the scaler folds into the head
+    (("features", "label"), False, False,
+     ["VectorAssembler", "LogisticRegressionModel"]),
+    ((), False, False,
+     ["VectorAssembler", "LogisticRegressionModel"]),
+    (("raw",), True, False,
+     ["VectorAssembler", "LogisticRegressionModel"]),
+])
+def test_keep_and_fuse_heads_plan_as_the_jax_package(
+        keep, fuse_heads, prefix_only, want, tmp_path):
+    """``compile_pipeline(keep=, fuse_heads=)`` keeps and fuses the same
+    columns and stages as the JAX package's (the tuning hoist compiles a
+    fitted prefix with its head's inputs kept and no head fused); the
+    kept columns come out equal within float32 rounding."""
+    frame = _scalar_frame(seed=4)
+    cols = {c: to_host(frame[c]) for c in frame.columns}
+    names = [f"c{i}" for i in range(D)]
+    jpm = JPipeline(stages=[
+        JVectorAssembler(inputCols=names, outputCol="raw"),
+        JStandardScaler(inputCol="raw", outputCol="features", withMean=True),
+        JLR(maxIter=10),
+    ]).fit(JFrame(dict(cols)))
+    jax_save_model(jpm, str(tmp_path / "m"))
+    pm = load_model(str(tmp_path / "m"), device="cpu")
+    if prefix_only:
+        jpm = JPipelineModel(stages=jpm.getStages()[:-1])
+        pm = PipelineModel(stages=pm.getStages()[:-1])
+    jc = jax_compile_pipeline(jpm, keep=keep, fuse_heads=fuse_heads)
+    pc = compile_pipeline(pm, keep=keep, fuse_heads=fuse_heads)
+    assert _partition(pc, FusedSegment) == _partition(jc, JFusedSegment)
+    jsegs = [s for s in jc.getStages() if isinstance(s, JFusedSegment)]
+    psegs = [s for s in pc.getStages() if isinstance(s, FusedSegment)]
+    assert [s._live_writes for s in psegs] == [s._live_writes for s in jsegs]
+    assert _partition(pc, FusedSegment) == want
+    jout = jc.transform(JFrame(dict(cols)))
+    pout = pc.transform(Frame(dict(cols)))
+    for name in keep:
+        if name in jout.columns:
+            np.testing.assert_allclose(to_host(pout[name]),
+                                       np.asarray(jout[name]), atol=1e-5)
