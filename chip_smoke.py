@@ -147,7 +147,26 @@ each of which fails the run (non-zero exit, no result line):
    in the default form over 1 000 (padded: one ``pad_assemble``
    launch), 4 096 and 65 536 held-out rows, every prediction equal to
    this process's transform on the card.  Each part prints its wall-
-   clock and host reads, lanes against one by one.
+   clock and host reads, lanes against one by one;
+11. the serve command's failure handling on phase 3's config-3 model,
+   over 8 CSV files of 30 000 rows, 2 a batch (60 000-row batches
+   padded to 65 536): a clean run; ``SNTC_FAULTS=device.dispatch:
+   device_oom:0.3:7`` (batch files byte-identical to the clean run's, at
+   least one OOM split, one extra ``pad_assemble`` and
+   ``forest_traversal`` launch per split, nothing quarantined); a real
+   CUDA OOM in this process (the caching allocator capped at
+   ``OOM_CAP_SHARE`` of one clean dispatch's reserved peak above the
+   model's: the 65 536-row dispatch fails, its halves run, predictions
+   equal the uncapped dispatch's, the split's error is CUDA's OOM); an
+   injected transient ``device_lost`` (2 dispatches) through the
+   supervised loop, every batch committed; the supervised loop at the
+   default flags with a ragged file arriving alone in a batch (dead-
+   lettered after 3 rounds and committed, the rows around it byte-
+   identical to the clean run's), then SIGTERM (exit 0, drained, the
+   drain marker); a persistent ``device_lost`` (exit non-zero after 3
+   rounds, the intent in the WAL, the model UNHEALTHY) and a clean
+   restart replaying it into the clean run's files.  One JSON line
+   reports the phase.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -159,6 +178,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -351,6 +371,13 @@ PIPE_FOLDS = 2
 PIPE_METRIC_ATOL = 1e-3
 TVS_RATIO = 0.8
 TUNED_BATCHES = [1000, 4096, 65536]  # served micro-batches; 1000 pads
+# phase 11: the serve command's failure handling on config 3
+FAULT_FILES, FAULT_FILE_ROWS, FAULT_FILES_PER_BATCH = 8, 30_000, 2
+OOM_FAULTS = "device.dispatch:device_oom:0.3:7"
+# the allocator cap of the real OOM, as a share of one clean dispatch's
+# reserved peak above the model's resident memory
+OOM_CAP_SHARE = 0.8
+FAULT_WAIT_S = 120.0  # the longest a phase-11 serving process is awaited
 
 
 def log(*a):
@@ -701,15 +728,21 @@ def plain_predictions(rf, selected, batch: Frame, dev) -> np.ndarray:
     return packed[:n, 2 * CLASSES].cpu().numpy().astype(np.float64)
 
 
+def serve_args(model_dir: str, watch: str, out: str, ckpt: str, dev,
+               files_per_batch: int) -> list:
+    return [sys.executable, "-m", "sntc_tpu_torch", "serve",
+            "--model", model_dir, "--watch", watch, "--out", out,
+            "--checkpoint", ckpt, "--shape-buckets", str(BUCKET_FLOOR),
+            "--max-files-per-batch", str(files_per_batch),
+            "--device", dev.type]
+
+
 def serve_command(model_dir: str, watch: str, out: str, ckpt: str, dev,
                   extra: list, files_per_batch: int = 1) -> dict:
     """``python -m sntc_tpu_torch serve --once`` in its own process (every
     launch count starts at 0 there); its summary line."""
-    cmd = [sys.executable, "-m", "sntc_tpu_torch", "serve",
-           "--model", model_dir, "--watch", watch, "--out", out,
-           "--checkpoint", ckpt, "--shape-buckets", str(BUCKET_FLOOR),
-           "--max-files-per-batch", str(files_per_batch), "--once",
-           "--device", dev.type, *extra]
+    cmd = serve_args(model_dir, watch, out, ckpt, dev, files_per_batch) \
+        + ["--once", *extra]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=600)
     if proc.returncode != 0:
@@ -2791,6 +2824,434 @@ def lane_fits(dev, data2: dict, data1: dict, work: str, pad_err: float):
     return out
 
 
+# -- phase 11: the serve command's failure handling --------------------------
+
+
+def env_with(**kw) -> dict:
+    """This process's environment with ``kw`` set (SNTC_FAULTS cleared
+    unless given)."""
+    env = dict(os.environ, SNTC_FAULTS="")
+    env.update(kw)
+    return env
+
+
+def serve_in_process(model_dir: str, watch: str, out: str, ckpt: str, dev,
+                     faults: str = "") -> dict:
+    """``serve --once`` through the command's entry point in this process
+    (no process start to pay), under ``SNTC_FAULTS=faults``, every launch
+    count set to 0 just before; its summary line."""
+    import io
+
+    from sntc_tpu_torch.app import main as serve_main
+    from sntc_tpu_torch.resilience import clear
+
+    argv = serve_args(model_dir, watch, out, ckpt, dev,
+                      FAULT_FILES_PER_BATCH)[3:] + ["--once"]
+    before = os.environ.get("SNTC_FAULTS")
+    os.environ["SNTC_FAULTS"] = faults
+    buf = io.StringIO()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve_main(argv)
+    finally:
+        if before is None:
+            del os.environ["SNTC_FAULTS"]
+        else:
+            os.environ["SNTC_FAULTS"] = before
+        clear()
+    if rc != 0:
+        raise SystemExit(f"phase 11: serve {faults or '(no faults)'} "
+                         f"exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def commit_count(ckpt: str) -> int:
+    d = os.path.join(ckpt, "commits")
+    return len([n for n in os.listdir(d) if n.endswith(".json")]) \
+        if os.path.isdir(d) else 0
+
+
+def wait_for(pred, what: str, proc, limit: float = FAULT_WAIT_S) -> None:
+    """Poll ``pred`` until it holds; fail if ``proc`` exits first or the
+    limit passes."""
+    deadline = time.time() + limit
+    while not pred():
+        if proc.poll() is not None:
+            raise SystemExit(f"phase 11: serve exited ({proc.returncode}) "
+                             f"before {what}:\n{proc.stderr.read()}")
+        if time.time() > deadline:
+            proc.kill()
+            raise SystemExit(f"phase 11: no {what} within {limit} s")
+        time.sleep(0.1)
+
+
+def publish_csv(frame: Frame, path: str) -> None:
+    """Write a CSV beside ``path`` and rename it in: the serving loop
+    never lists a half-written file."""
+    tmp = path + ".part"
+    write_raw_csv(frame, tmp)
+    os.replace(tmp, path)
+
+
+def ragged_csv(columns: int, path: str, like: Frame) -> None:
+    """A flow file with one ragged line (one field too many): the read
+    fails on the host."""
+    publish_csv(like, path)
+    with open(path, "a") as f:
+        f.write("1," * columns + "1\n")
+
+
+def split_launches(s: dict, clean: dict, splits: int) -> None:
+    """An OOM split's extra launches: each split of a dispatch (the
+    injected fault fires before its launch) adds one dispatch, so one
+    ``pad_assemble`` and one ``forest_traversal`` launch."""
+    want = {k: v + (splits if k != "tree_hist" else 0)
+            for k, v in clean.items()}
+    if s != want:
+        raise SystemExit(f"phase 11: launches {s} after {splits} splits, "
+                         f"expected {want}")
+
+
+def real_oom(dev, model_dir: str, batch: Frame) -> dict:
+    """A real CUDA OOM, in this process: cap the caching allocator from
+    one clean dispatch's peak so that the full batch fails and its halves
+    fit, then serve it through a ``BatchPredictor`` with the fault
+    domain.  The predictions must equal the uncapped dispatch's and the
+    split's error must be CUDA's OOM."""
+    from sntc_tpu_torch.resilience import DeviceFaultDomain, recent_events
+
+    # the allocator's calls take a device with its index
+    dev = torch.device(dev.type, torch.cuda.current_device())
+    model = serving_form(load_model(model_dir, device=dev), "label", True)[0]
+    dom = DeviceFaultDomain()
+    pred = BatchPredictor(model, bucket_rows=BUCKET_FLOOR, device=dev,
+                          device_domain=dom)
+
+    def served(frame: Frame) -> dict:
+        # host copies only: the served frame also holds the padded
+        # features on the card, which would count against the cap
+        out = pred.predict_frame(frame)
+        return {c: to_host(out[c])
+                for c in ("prediction", "predictedLabel")}
+
+    served(batch)  # warm: the lazy CUDA loading
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    clean = served(batch)
+    torch.cuda.synchronize()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_reserved(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = base + OOM_CAP_SHARE * (peak - base)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        t0 = time.perf_counter()
+        split = served(batch)
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+        split_peak = torch.cuda.max_memory_reserved(dev)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    launches = dict(LAUNCHES)
+    events = recent_events(event="device_oom_split")
+    stats = dom.stats()
+    if stats["oom_splits"] < 1 or not events:
+        raise SystemExit(f"phase 11: no OOM split under a cap of "
+                         f"{cap / 2**20:.1f} MiB (peak {peak / 2**20:.1f})")
+    if "CUDA out of memory" not in events[-1]["error"]:
+        raise SystemExit(f"phase 11: the split's error {events[-1]}")
+    for c in ("prediction", "predictedLabel"):
+        if not np.array_equal(split[c], clean[c]):
+            raise SystemExit(f"phase 11: {c} after a real OOM split "
+                             "differs from the uncapped dispatch")
+    if launches["pad_assemble"] < 2 or launches["forest_traversal"] < 2:
+        raise SystemExit(f"phase 11: real OOM split launches {launches}")
+    return {"splits": stats["oom_splits"], "state": stats["state"],
+            "error": events[-1]["error"][:160],
+            "launches": launches, "base_mib": base / 2**20,
+            "peak_mib": peak / 2**20, "cap_mib": cap / 2**20,
+            "split_peak_mib": split_peak / 2**20,
+            "clean_dispatch_ms": clean_ms, "split_dispatch_ms": split_ms}
+
+
+def transient_device_lost(dev, model_dir: str, watch: str, work: str,
+                          clean: dict) -> dict:
+    """Injected ``device_lost`` on 2 dispatches (under ``degrade_after``
+    3), in this process, through the supervised loop of the default
+    form: every batch commits on the card, nothing is quarantined."""
+    from sntc_tpu_torch.resilience import (
+        DeviceFaultDomain,
+        QuerySupervisor,
+        RetryPolicy,
+        arm,
+        clear,
+        default_breakers,
+    )
+    from sntc_tpu_torch.serve import FileStreamSource, StreamingQuery
+
+    model, _, out_cols = serving_form(load_model(model_dir, device=dev),
+                                      "label", True)
+    dom = DeviceFaultDomain()
+    source = FileStreamSource(watch, prefetch_batches=2, read_workers=4)
+    out = os.path.join(work, "out11_lost_transient")
+    q = StreamingQuery(
+        BatchPredictor(model, bucket_rows=BUCKET_FLOOR, device=dev,
+                       device_domain=dom),
+        source, CsvDirSink(out, columns=out_cols),
+        os.path.join(work, "ckpt11_lost_transient"),
+        max_batch_offsets=FAULT_FILES_PER_BATCH, device=dev,
+        breakers=default_breakers(), max_batch_failures=3,
+        retry_policy=RetryPolicy(max_attempts=2, base_delay_s=0.2,
+                                 jitter=0.1))
+    sup = QuerySupervisor(q)
+    arm("device.dispatch", "device_lost", times=2)
+    reset_launches()
+    deadline = time.time() + FAULT_WAIT_S
+    try:
+        while q.last_committed() < len(clean) - 1 \
+                and time.time() < deadline:
+            if sup.tick() == 0:
+                time.sleep(0.01)
+    finally:
+        clear()
+        sup.close()
+        q.stop()
+        source.close()
+    launches = dict(LAUNCHES)
+    stats = dom.stats()
+    if sink_files(out) != clean or q.quarantined_batches \
+            or stats["faults"] != {"device_lost": 2} or dom.failed:
+        raise SystemExit(f"phase 11: transient device_lost: "
+                         f"{q.last_committed() + 1} batches, quarantined "
+                         f"{q.quarantined_batches}, domain {stats}")
+    want = {"forest_traversal": len(clean), "pad_assemble": len(clean),
+            "tree_hist": 0}
+    check_launches("transient device_lost", launches, want)
+    return {"faults": stats["faults"], "launches": launches}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise SystemExit(f"phase 11 {what}: launches {got}, expected {want}")
+
+
+def corrupt_file_drain(dev, model_dir: str, traffic: Frame, work: str,
+                       clean: dict) -> dict:
+    """The supervised loop at the default flags, on the card: two good
+    batches, then a ragged file alone in a batch, then two more good
+    batches.  The ragged batch is dead-lettered after 3 rounds and
+    committed, the stream moves past it, the good batches are
+    byte-identical to the clean run's, and SIGTERM drains: exit 0,
+    ``drain_marker.json``, ``"drained": true``."""
+    watch = os.path.join(work, "in11_corrupt")
+    out = os.path.join(work, "out11_corrupt")
+    ckpt = os.path.join(work, "ckpt11_corrupt")
+    health = os.path.join(work, "health11.json")
+    os.makedirs(watch)
+    rows = FAULT_FILE_ROWS
+
+    def publish(i):
+        publish_csv(traffic.slice(i * rows, (i + 1) * rows),
+                    os.path.join(watch, f"part_{i:04d}.csv"))
+
+    for i in range(FAULT_FILES // 2):
+        publish(i)
+    cmd = serve_args(model_dir, watch, out, ckpt, dev,
+                     FAULT_FILES_PER_BATCH) + [
+        "--poll-interval", "0.2", "--health-json", health]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env_with(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        half = FAULT_FILES // 2 // FAULT_FILES_PER_BATCH
+        wait_for(lambda: commit_count(ckpt) >= half, "the first batches",
+                 proc)
+        # sorts after part_0003.csv and before part_0004.csv
+        ragged_csv(len(traffic.columns),
+                   os.path.join(watch, f"part_{FAULT_FILES // 2 - 1:04d}"
+                                "_x.csv"), traffic.slice(0, 100))
+        wait_for(lambda: commit_count(ckpt) >= half + 1,
+                 "the quarantine", proc)
+        # written beside, renamed in together: a poll tick rarely lists
+        # the later files half-published (csv_rows holds either way)
+        later = range(FAULT_FILES // 2, FAULT_FILES)
+        for i in later:
+            write_raw_csv(traffic.slice(i * rows, (i + 1) * rows),
+                          os.path.join(watch, f"part_{i:04d}.csv.part"))
+        for i in later:
+            os.replace(os.path.join(watch, f"part_{i:04d}.csv.part"),
+                       os.path.join(watch, f"part_{i:04d}.csv"))
+        wait_for(lambda: commit_count(ckpt) >= len(clean) + 1,
+                 "the last batches", proc)
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=FAULT_WAIT_S)
+    except BaseException:
+        proc.kill()
+        raise
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 11: SIGTERM drain exited "
+                         f"{proc.returncode}:\n{stderr}")
+    last = json.loads(stdout.strip().splitlines()[-1])
+    marker = json.load(open(os.path.join(ckpt, "drain_marker.json")))
+    dl = os.path.join(ckpt, "dead_letter")
+    records = [json.loads(x) for x in open(os.path.join(
+        dl, "dead_letter.jsonl"))]
+    q_id = half
+    if not last["drained"] or last["batches"] != len(clean) + 1 \
+            or marker["reason"] != "SIGTERM" \
+            or marker["last_committed"] != len(clean):
+        raise SystemExit(f"phase 11: drain {last}, marker {marker}")
+    if [r["batch_id"] for r in records] != [q_id] \
+            or records[0]["failures"] != 3 \
+            or records[0]["rows_file"] is not None \
+            or "_x.csv" not in records[0]["error"]:
+        raise SystemExit(f"phase 11: dead letters {records}")
+    files = sink_files(out)
+    if f"batch_{q_id:06d}.csv" in files:
+        raise SystemExit("phase 11: the dead-lettered batch has a file")
+    # the good rows, in order, are byte-identical to the clean run's
+    # (each row's prediction is bitwise independent of its batch); when
+    # no poll tick listed the later files between their renames, each
+    # batch file is too
+    same_files = files == {
+        f"batch_{(i if i < q_id else i + 1):06d}.csv": clean[name]
+        for i, name in enumerate(sorted(clean))}
+    if csv_rows(files) != csv_rows(clean):
+        raise SystemExit("phase 11: the rows served around the dead "
+                         "letter differ from the clean run's")
+    status = json.load(open(health))
+    return {"quarantined": q_id, "rounds": records[0]["failures"],
+            "batch_files_identical": same_files,
+            "health": last["health"], "drained": last["drained"],
+            "device": status.get("device", {}).get("state"),
+            "seconds": seconds}
+
+
+def csv_rows(files: dict) -> bytes:
+    """The data lines of batch files in batch order (headers dropped)."""
+    return b"".join(files[name].split(b"\n", 1)[1]
+                    for name in sorted(files))
+
+
+def persistent_device_lost(dev, model_dir: str, watch: str, work: str,
+                           clean: dict) -> dict:
+    """Every dispatch fails with ``device_lost``: the supervised loop
+    stops after 3 rounds, non-zero, the batch's intent in the WAL and no
+    commit, the model UNHEALTHY; a clean restart replays it into files
+    identical to the clean run's."""
+    out = os.path.join(work, "out11_lost")
+    ckpt = os.path.join(work, "ckpt11_lost")
+    health = os.path.join(work, "health11_lost.json")
+    cmd = serve_args(model_dir, watch, out, ckpt, dev,
+                     FAULT_FILES_PER_BATCH) + [
+        "--poll-interval", "0.2", "--health-json", health]
+    proc = subprocess.run(
+        cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=env_with(SNTC_FAULTS="device.dispatch:device_lost"))
+    status = json.load(open(health))
+    if proc.returncode == 0 or commit_count(ckpt) \
+            or not os.path.exists(os.path.join(ckpt, "offsets", "0.json")) \
+            or status["health"]["components"]["model"]["state"] \
+            != "UNHEALTHY" or status["device"]["state"] != "DEVICE_FAILED" \
+            or status["device"]["faults"] != {"device_lost": 3}:
+        raise SystemExit(f"phase 11: persistent device_lost exited "
+                         f"{proc.returncode}, {commit_count(ckpt)} commits, "
+                         f"status {status}:\n{proc.stderr[-2000:]}")
+    restart = serve_in_process(model_dir, watch, out, ckpt, dev)
+    if sink_files(out) != clean or restart["batches"] != len(clean):
+        raise SystemExit(f"phase 11: the restart after a failed device "
+                         f"served {restart['batches']} batches, files "
+                         "differ from the clean run's")
+    return {"rc": proc.returncode,
+            "last_line": json.loads(proc.stdout.strip().splitlines()[-1]),
+            "restart_batches": restart["batches"]}
+
+
+def failure_paths(dev, work: str) -> dict:
+    """Phase 11: the serve command's default failure handling, on the
+    config-3 model of phase 3, over FAULT_FILES CSV files of
+    FAULT_FILE_ROWS rows, FAULT_FILES_PER_BATCH a batch (each batch of
+    60 000 rows padded to 65 536): a clean run; an injected OOM schedule;
+    a real CUDA OOM; a ragged file under the supervised loop, then its
+    SIGTERM drain; a transient and a persistent ``device_lost``."""
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(work, "model")
+    n = FAULT_FILES * FAULT_FILE_ROWS
+    traffic = clean_flows(generate_frame(n + 2000, seed=SEED + 11))
+    traffic = traffic.slice(0, n).drop("Label")
+    watch = os.path.join(work, "in11")
+    os.makedirs(watch)
+    for i in range(FAULT_FILES):
+        publish_csv(traffic.slice(i * FAULT_FILE_ROWS,
+                                  (i + 1) * FAULT_FILE_ROWS),
+                    os.path.join(watch, f"part_{i:04d}.csv"))
+    batches = FAULT_FILES // FAULT_FILES_PER_BATCH
+
+    clean_out = os.path.join(work, "out11_clean")
+    clean_s = serve_in_process(model_dir, watch, clean_out,
+                               os.path.join(work, "ckpt11_clean"), dev)
+    clean = sink_files(clean_out)
+    check_launches("clean run", clean_s["kernel_launches"],
+                   {"forest_traversal": batches, "pad_assemble": batches,
+                    "tree_hist": 0})
+    if len(clean) != batches or clean_s["quarantined"]:
+        raise SystemExit(f"phase 11 clean run: {clean_s['batches']} "
+                         "batches")
+    clean_ms = [p["dispatchMs"] for p in clean_s["progress"]]
+
+    oom_out = os.path.join(work, "out11_oom")
+    oom_s = serve_in_process(model_dir, watch, oom_out,
+                             os.path.join(work, "ckpt11_oom"), dev,
+                             OOM_FAULTS)
+    splits = oom_s["device_faults"]["oom_splits"]
+    if sink_files(oom_out) != clean or splits < 1 or oom_s["quarantined"] \
+            or oom_s["device_faults"]["faults"]:
+        raise SystemExit(f"phase 11 injected OOM: {splits} splits, "
+                         f"quarantined {oom_s['quarantined']}, domain "
+                         f"{oom_s['device_faults']}; files equal: "
+                         f"{sink_files(oom_out) == clean}")
+    split_launches(oom_s["kernel_launches"], clean_s["kernel_launches"],
+                   splits)
+    log(f"phase 11 injected OOM: {splits} splits, launches "
+        f"{oom_s['kernel_launches']} against {clean_s['kernel_launches']} "
+        "clean, batch files identical")
+
+    first = Frame.concat_all([
+        load_csv(os.path.join(watch, f"part_{i:04d}.csv"))
+        for i in range(FAULT_FILES_PER_BATCH)])
+    real = real_oom(dev, model_dir, first)
+    log(f"phase 11 real OOM: {real}")
+    lost = transient_device_lost(dev, model_dir, watch, work, clean)
+    log(f"phase 11 transient device_lost: {lost}")
+    corrupt = corrupt_file_drain(dev, model_dir, traffic, work, clean)
+    log(f"phase 11 ragged file and drain: {corrupt}")
+    stopped = persistent_device_lost(dev, model_dir, watch, work, clean)
+    log(f"phase 11 persistent device_lost: {stopped}")
+    return {
+        "batches": batches, "batch_rows": FAULT_FILES_PER_BATCH
+        * FAULT_FILE_ROWS,
+        "injected_oom": {"faults": OOM_FAULTS, "splits": splits,
+                         "launches": oom_s["kernel_launches"],
+                         "clean_launches": clean_s["kernel_launches"],
+                         "dispatch_ms": [p["dispatchMs"]
+                                         for p in oom_s["progress"]],
+                         "clean_dispatch_ms": clean_ms},
+        "real_oom": real, "transient_device_lost": lost,
+        "corrupt_file": corrupt, "persistent_device_lost": stopped,
+        "seconds": time.perf_counter() - t_phase,
+    }
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -3110,6 +3571,7 @@ def main() -> int:
         errs["tree_hist"] = check_tree_hist(cases)
         summary, served = serve(dev, work)
         forms = serve_forms(dev, work)
+        failures = failure_paths(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
         data4 = gbt_data(work)
@@ -3289,6 +3751,22 @@ def main() -> int:
             f"ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}); "
             f"{_plan(k['plan'])}; {k['launches']} launches in the train run "
             f"[{card}]")
+    f11 = failures
+    log("phase 11 " + json.dumps({
+        "phase": 11, "card": card, "seconds": round(f11["seconds"], 3),
+        "injected_oom_splits": f11["injected_oom"]["splits"],
+        "injected_oom_launches": f11["injected_oom"]["launches"],
+        "clean_launches": f11["injected_oom"]["clean_launches"],
+        "real_oom_splits": f11["real_oom"]["splits"],
+        "real_oom_launches": f11["real_oom"]["launches"],
+        "split_dispatch_ms": f11["real_oom"]["split_dispatch_ms"],
+        "clean_dispatch_ms": f11["real_oom"]["clean_dispatch_ms"],
+        "quarantined_batch": f11["corrupt_file"]["quarantined"],
+        "quarantine_rounds": f11["corrupt_file"]["rounds"],
+        "drained": f11["corrupt_file"]["drained"],
+        "device_lost_transient": f11["transient_device_lost"]["faults"],
+        "device_lost_persistent_rc": f11["persistent_device_lost"]["rc"],
+    }))
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -3313,7 +3791,7 @@ def main() -> int:
                                   "serve": served9, "evaluate": evaluated9,
                                   "regressors": regs["fits"],
                                   "kernels": new9},
-                       "phase10": phase10}, f,
+                       "phase10": phase10, "phase11": failures}, f,
                       indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()

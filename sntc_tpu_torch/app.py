@@ -11,7 +11,10 @@
         [--max-files-per-batch N] [--pipeline-depth 2] \\
         [--prefetch-batches 2] [--read-workers 4] [--fuse|--no-fuse] \\
         [--wal-mode files|append] [--wal-compact-every 256] \\
-        [--wal-keep-commits 64] [--once] [--device cuda|cpu]
+        [--wal-keep-commits 64] [--batch-retry-attempts 2] \\
+        [--max-batch-failures 3] [--dead-letter-keep 200] \\
+        [--device-faults|--no-device-faults] [--health-json PATH] \\
+        [--max-batch-wall-time S] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
 
@@ -54,14 +57,22 @@ that many batches in flight, the sink write on a delivery thread and
 ``--prefetch-batches`` background reads; ``--read-workers`` parse a
 multi-file batch in parallel; ``--wal-mode`` picks the WAL format.  The
 JAX command's ``--no-fuse --pipeline-depth 1 --wal-mode append`` is the
-serial, staged form.  ``--once`` prints one JSON summary line.
+serial, staged form.  The JAX command's failure handling is on by
+default: ``--batch-retry-attempts`` tries a batch's read and sink in
+place, a batch failing ``--max-batch-failures`` rounds is dead-lettered
+(``<checkpoint>/dead_letter/``) and committed, ``--device-faults``
+answers CUDA errors on the card (an OOM splits the batch; a device that
+keeps failing stops the command non-zero with the batch in the WAL).
+``--once`` drains what is there (one round per batch) and prints one
+JSON summary line; without it the command runs the supervised loop
+(``--health-json``, ``--max-batch-wall-time``), which SIGTERM drains,
+and prints ``{"batches", "drained", "health"}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import signal
 import sys
 import time
 from typing import List, Optional
@@ -320,7 +331,15 @@ def cmd_evaluate(args) -> int:
 def cmd_serve(args) -> int:
     from sntc_tpu_torch.kernels import LAUNCHES
     from sntc_tpu_torch.mlio import load_model
+    from sntc_tpu_torch.resilience import (
+        DeviceFaultDomain,
+        HealthState,
+        QuerySupervisor,
+        RetryPolicy,
+        default_breakers,
+    )
     from sntc_tpu_torch.serve import (
+        BatchPredictor,
         CsvDirSink,
         FileStreamSource,
         StreamingQuery,
@@ -335,6 +354,13 @@ def cmd_serve(args) -> int:
         load_model(args.model, device=device), args.label_index_col,
         args.fuse,
     )
+    if args.device_faults:
+        # CUDA errors are classified and answered on the card: an OOM
+        # splits the batch, other kinds re-dispatch it, and a device
+        # that keeps failing stops the query
+        model = BatchPredictor(model, bucket_rows=args.shape_buckets,
+                               device=device,
+                               device_domain=DeviceFaultDomain())
     # depth > 1 arms the pipelined engine: the overlapped sink delivery
     # and the source's background prefetch
     source = FileStreamSource(
@@ -343,6 +369,10 @@ def cmd_serve(args) -> int:
                           if args.pipeline_depth > 1 else 0),
         read_workers=args.read_workers,
     )
+    # a served query moves past a poison batch: reads and sink writes
+    # retry in place, and a batch that fails --max-batch-failures rounds
+    # is dead-lettered and committed
+    retries = max(1, args.batch_retry_attempts)
     q = StreamingQuery(
         model,
         source,
@@ -355,7 +385,17 @@ def cmd_serve(args) -> int:
         wal_compact_every=args.wal_compact_every,
         wal_keep_commits=args.wal_keep_commits,
         device=device,
+        breakers=default_breakers(),
+        retry_policy=(
+            RetryPolicy(max_attempts=retries, base_delay_s=0.2, jitter=0.1)
+            if retries > 1 else None
+        ),
+        max_batch_failures=(
+            args.max_batch_failures if args.max_batch_failures > 0 else None
+        ),
+        dead_letter_keep=args.dead_letter_keep,
     )
+    dom = q.predictor.device_domain
     try:
         if args.once:
             t0 = time.perf_counter()
@@ -371,20 +411,48 @@ def cmd_serve(args) -> int:
                 "pipeline_stats": q.pipeline_stats(),
                 "fusion": q.predictor.fusion_stats(),
                 "progress": q.recentProgress,
+                "device_faults": dom.stats() if dom is not None else None,
+                "breakers": {site: br.snapshot()
+                             for site, br in q.breakers.items()},
+                "quarantined": q.quarantined_batches,
             }))
             return 0
-        # poll loop: SIGTERM / Ctrl-C stops between rounds, after the
-        # in-flight batches commit; a restart on the same checkpoint
-        # resumes exactly once from the offset log
-        stop = []
-        signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
+        # the supervised loop: SIGTERM (and Ctrl-C) drains, commits the
+        # in-flight batches, writes drain_marker.json and exits 0; a
+        # restart on the same checkpoint resumes exactly once
+        sup = QuerySupervisor(q, max_batch_wall_time=args.max_batch_wall_time,
+                              health_json=args.health_json)
+        sup.install_signal_handlers()
+        print(f"serving: watching {args.watch} -> {args.out} (checkpoint "
+              f"{args.checkpoint}); SIGTERM/Ctrl-C drains", file=sys.stderr)
         try:
-            while not stop:
-                if q.process_available() == 0:
-                    time.sleep(args.poll_interval)
-            q.drain()
+            status = sup.run(poll_interval=args.poll_interval)
         except KeyboardInterrupt:
-            pass
+            status = sup.drain_now("KeyboardInterrupt")
+        except Exception as e:
+            # the query stopped (a failed device, or a failure with the
+            # quarantine unarmed): the batch's intent stays in the WAL
+            # for a restart, and the exit is non-zero
+            sup.health.report("engine", HealthState.UNHEALTHY,
+                              reason=f"query stopped: {e!r}")
+            if args.health_json:
+                sup.write_health_json()
+            status = sup.status()
+            print(f"serve stopped: {e!r}", file=sys.stderr)
+            print(json.dumps({
+                "batches": status["engine"]["batches_done"],
+                "drained": False,
+                "health": status["health"]["overall"],
+                "error": repr(e),
+            }))
+            return 1
+        finally:
+            sup.close()  # unsubscribe the health monitor
+        print(json.dumps({
+            "batches": status["engine"]["batches_done"],
+            "drained": status["drained"],
+            "health": status["health"]["overall"],
+        }))
         return 0
     finally:
         q.stop()
@@ -482,6 +550,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="files-WAL retention: committed intent/commit "
                    "pairs older than the last N are pruned; 0 = keep "
                    "forever")
+    p.add_argument("--batch-retry-attempts", type=int, default=2,
+                   help="in-place attempts per read/sink stage before a "
+                   "round counts as failed (1 = no retry)")
+    p.add_argument("--max-batch-failures", type=int, default=3,
+                   help="failed rounds before a poison batch is "
+                   "dead-lettered and committed; 0 = the first failure "
+                   "stops the query")
+    p.add_argument("--dead-letter-keep", type=int, default=200, metavar="N",
+                   help="dead-letter retention: keep the newest N evidence "
+                   "files; 0 = unbounded")
+    p.add_argument("--device-faults", action="store_true",
+                   dest="device_faults", default=True,
+                   help="arm the device fault domain: classify CUDA errors "
+                   "(OOM / compile / device lost), split a batch on OOM, "
+                   "re-dispatch it on the others, stop the query after "
+                   "3 device faults in a row (default)")
+    p.add_argument("--no-device-faults", action="store_false",
+                   dest="device_faults",
+                   help="device errors take the generic retry/quarantine "
+                   "path")
+    p.add_argument("--health-json", default=None, metavar="PATH",
+                   help="atomically rewrite a health/breaker/engine status "
+                   "dump here every engine tick (supervised loop)")
+    p.add_argument("--max-batch-wall-time", type=float, default=None,
+                   metavar="S", help="watchdog: flag a batch running "
+                   "longer than this as UNHEALTHY (watchdog_stall event)")
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
     p.add_argument("--poll-interval", type=float, default=1.0)

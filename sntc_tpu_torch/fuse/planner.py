@@ -25,7 +25,11 @@ There is no jit here: a "program" is the plans' tensor code, launched
 eagerly, and ``compile_events`` counts the distinct input signatures
 (shapes, dtypes, device) a segment has seen — the shape ledger the two
 packages are compared on.  A failure inside a segment raises and fails
-its batch: no eager retry, no poisoned signatures.  ``_bind`` returning
+its batch: no eager retry, no poisoned signatures.  With a device fault
+domain attached (:func:`attach_device_domain`, which ``BatchPredictor``
+calls), a CUDA error in a segment's dispatch or finalize is re-raised as
+a ``DeviceExecError`` naming the segment and its input signature, so it
+classifies at the predictor.  ``_bind`` returning
 None is not a failure but the plan's dtype rule (an ``F32_ONLY`` gather
 over a non-float32 column runs the eager stages), counted in
 ``fallbacks``.
@@ -94,6 +98,10 @@ class FusedSegment(Transformer):
         self._head = head
         self._keep = frozenset(keep)
         self.device = _concrete(head.device) if head is not None else None
+        # the segment's position in its plan, and the device fault domain
+        # (attach_device_domain): the context a device error carries
+        self.segment_index: Optional[int] = None
+        self._domain = None
         self._signatures: set = set()
         self._lock = threading.Lock()
         self.compile_events = 0  # distinct input signatures
@@ -220,6 +228,27 @@ class FusedSegment(Transformer):
     def transform(self, frame: Frame) -> Frame:
         return self.transform_async(frame)()
 
+    def _device_error(self, e: BaseException, sig, during: str):
+        """``e`` as a ``DeviceExecError`` naming this segment and ``sig``
+        when a domain is attached and ``e`` is a CUDA failure, else
+        None."""
+        from sntc_tpu_torch.resilience.device import (
+            DeviceExecError,
+            classify_device_error,
+        )
+
+        if self._domain is None:
+            return None
+        kind = classify_device_error(e)
+        if kind is None:
+            return None
+        return DeviceExecError(
+            f"device {kind} while {during} fused segment "
+            f"{self.segment_index} ({type(self).__name__}) signature "
+            f"{_sig_repr(sig)}: {e}",
+            kind=kind, segment=self.segment_index, signature=_sig_repr(sig),
+        )
+
     def transform_async(self, frame: Frame):
         bound = self._bind(frame) if frame.num_rows else None
         if bound is None:
@@ -235,14 +264,14 @@ class FusedSegment(Transformer):
         nbytes = sum(a.nbytes for a in uploaded)
         for led in ledgers:
             led.record_uploads(len(uploaded), nbytes)
-        env = dict(zip((n for n, _ in self._external), args))
-        for plan in self._plans:
-            env.update(plan.apply(env))
-        outs = []
         head, live = self._head, self._live_writes
-        if head is not None:
-            outs.append(head._predict_all_dev(env[head.getFeaturesCol()]))
-        outs.extend(env[w] for w in live)
+        try:
+            outs = self._launch(args, head, live)
+        except Exception as e:
+            err = self._device_error(e, sig, "dispatching")
+            if err is None:
+                raise
+            raise err from e
         with self._lock:
             if sig not in self._signatures:
                 self._signatures.add(sig)
@@ -252,7 +281,15 @@ class FusedSegment(Transformer):
             self.device_binds += len(args) - len(uploaded)
 
         def finalize() -> Frame:
-            host = [o.cpu().numpy() for o in outs]
+            try:
+                host = [o.cpu().numpy() for o in outs]
+            except Exception as e:
+                # an execution error shows at this copy, on the delivery
+                # thread in the pipelined engine
+                err = self._device_error(e, sig, "finalizing")
+                if err is None:
+                    raise
+                raise err from e
             nbytes = sum(h.nbytes for h in host)
             for led in ledgers:
                 led.record_downloads(len(host), nbytes)
@@ -266,6 +303,23 @@ class FusedSegment(Transformer):
             return out_frame
 
         return finalize
+
+    def _launch(self, args, head, live) -> list:
+        """Every plan's ``apply`` and the head's packed program on the
+        bound tensors: the segment's device work."""
+        env = dict(zip((n for n, _ in self._external), args))
+        for plan in self._plans:
+            env.update(plan.apply(env))
+        outs = []
+        if head is not None:
+            outs.append(head._predict_all_dev(env[head.getFeaturesCol()]))
+        outs.extend(env[w] for w in live)
+        return outs
+
+
+def _sig_repr(sig) -> str:
+    """The input signature as text: the shapes and dtypes bound."""
+    return repr([(shape, str(dtype)) for shape, dtype, _dev in sig])
 
 
 def compile_pipeline(
@@ -337,9 +391,25 @@ def compile_pipeline(
         later_reads = set(keep)
         for later in stages[i:]:
             later_reads.update(later.input_columns())
-        out.append(FusedSegment(seg_stages, seg_plans, head=head,
-                                keep=later_reads))
+        seg = FusedSegment(seg_stages, seg_plans, head=head,
+                           keep=later_reads)
+        seg.segment_index = sum(isinstance(x, FusedSegment) for x in out)
+        out.append(seg)
     return PipelineModel(stages=out)
+
+
+def attach_device_domain(model, domain) -> int:
+    """Hand a ``DeviceFaultDomain`` to every fused segment of ``model``
+    (``BatchPredictor`` does, at construction): a segment's CUDA errors
+    are then re-raised as ``DeviceExecError`` with its context.  No
+    signature is poisoned and nothing falls back.  Returns the segment
+    count."""
+    segs = fused_segments(model)
+    for i, seg in enumerate(segs):
+        seg._domain = domain
+        if seg.segment_index is None:
+            seg.segment_index = i
+    return len(segs)
 
 
 def fused_segments(model) -> List[FusedSegment]:

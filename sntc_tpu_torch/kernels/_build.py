@@ -13,8 +13,10 @@ costs.  :func:`library` builds them once per process, at first use, for
 * without it, one ``nvcc -c`` per source, all started together, then
   one link.
 
-A build or launch failure raises; nothing falls back to a plain version.
-Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
+A build failure raises :class:`KernelBuildError` and a launch failure
+:class:`KernelLaunchError` (both ``RuntimeError`` subclasses; the launch
+error carries the ``cudaError`` code, which the device fault domain
+classifies by); nothing falls back to a plain version.  Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, so a run can show which kernels it went through.
 """
 
@@ -61,6 +63,22 @@ _SIGNATURES = {
 }
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library did not build or load."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch entry point reported a CUDA error: ``cuda_error`` is the
+    ``cudaError_t`` code, ``kernel`` the kernel's name."""
+
+    def __init__(self, kernel: str, cuda_error: int, message: str):
+        super().__init__(
+            f"{kernel} launch failed: CUDA error {cuda_error}: {message}"
+        )
+        self.kernel = kernel
+        self.cuda_error = int(cuda_error)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -73,7 +91,9 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+        raise KernelBuildError(
+            "nvcc not found: cannot build the CUDA kernels"
+        )
     return found
 
 
@@ -116,7 +136,7 @@ def _build_with_nvcc(sources, verbose: bool) -> str:
         if p.returncode != 0:
             failed.append(f"{src}:\n{out}")
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     lib = os.path.join(BUILD_DIR, f"lib{LIB_NAME}.so")
     subprocess.run(
         [nvcc, "-shared", *ARCH_FLAGS, "-o", lib, *objects], check=True
@@ -137,11 +157,19 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         from torch.utils.cpp_extension import is_ninja_available
 
         t0 = time.perf_counter()
-        if is_ninja_available():
-            route, path = "cpp_extension.load", _build_with_load(sources, verbose)
-        else:
-            route, path = "nvcc", _build_with_nvcc(sources, verbose)
-        lib = ctypes.CDLL(path)
+        try:
+            if is_ninja_available():
+                route = "cpp_extension.load"
+                path = _build_with_load(sources, verbose)
+            else:
+                route, path = "nvcc", _build_with_nvcc(sources, verbose)
+            lib = ctypes.CDLL(path)
+        except KernelBuildError:
+            raise
+        except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+            raise KernelBuildError(
+                f"building the CUDA kernels failed: {e}"
+            ) from e
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -155,10 +183,11 @@ def library(verbose: bool = False) -> ctypes.CDLL:
 
 
 def check_launch(lib: ctypes.CDLL, err: int, kernel: str) -> None:
-    """Raise when a launch entry point reported a CUDA error."""
+    """Raise :class:`KernelLaunchError` when a launch entry point
+    reported a CUDA error."""
     if err != 0:
         msg = lib.sntc_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}: {msg}")
+        raise KernelLaunchError(kernel, err, msg)
 
 
 def stream_handle(device: torch.device) -> int:

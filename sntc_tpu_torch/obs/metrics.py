@@ -1,0 +1,254 @@
+"""Process-wide metrics registry: counters, gauges and fixed-bucket
+histograms with labels.
+
+Counterpart of ``sntc_tpu/obs/metrics.py`` (``MetricsRegistry``,
+``registry``, ``reset_registry``, ``inc``, ``set_gauge``, ``observe``,
+``snapshot``), holding only the series that the serving engine and the
+resilience modules count into: batches and rows committed, batch
+duration, the event stream (retries among them), quarantines, fault
+injections, breaker and health state, device faults and OOM splits, and
+the source's prefetch hits and misses.  A write to a name outside
+:data:`CATALOG` raises, as in the JAX package.
+
+Writes take one small lock per metric; :meth:`MetricsRegistry.snapshot`
+reads without the write locks.  Each metric holds at most
+``max_label_sets`` label sets; further sets collapse into one
+``overflow="true"`` series, counted by :meth:`label_overflows`.
+
+The Prometheus and JSONL exposition (``to_prometheus``,
+``write_jsonl``, ``--metrics-out``) waits for its slice of ROADMAP
+queue A (the rest of ``obs/``).
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from typing import Any, Dict, Optional, Tuple
+
+COUNTER = "counter"
+GAUGE = "gauge"
+HISTOGRAM = "histogram"
+
+# seconds; covers sub-ms device dispatches through multi-second batches
+LATENCY_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 30.0,
+)
+
+#: every name the port may emit, with its type, labels and help text
+#: (the JAX package's entries of the same names)
+CATALOG: Dict[str, Dict[str, Any]] = {
+    "sntc_events_total": dict(
+        type=COUNTER, labels=("event", "site", "tenant"),
+        help="Structured resilience events by name and site.",
+    ),
+    "sntc_events_dropped_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Event-ring evictions (legacy view: events_dropped()).",
+    ),
+    "sntc_batches_quarantined_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Poison batches journaled to the dead-letter sink.",
+    ),
+    "sntc_faults_injected_total": dict(
+        type=COUNTER, labels=("site", "kind"),
+        help="Deterministic fault injections fired (SNTC_FAULTS).",
+    ),
+    "sntc_batches_committed_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Micro-batches committed to the WAL (incl. quarantined).",
+    ),
+    "sntc_rows_committed_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Input rows across committed micro-batches.",
+    ),
+    "sntc_batch_duration_seconds": dict(
+        type=HISTOGRAM, labels=("tenant",), buckets=LATENCY_BUCKETS,
+        help="WAL-intent to commit latency per micro-batch.",
+    ),
+    "sntc_source_prefetch_hits_total": dict(
+        type=COUNTER, labels=(),
+        help="get_batch calls served from a staged prefetch read.",
+    ),
+    "sntc_source_prefetch_misses_total": dict(
+        type=COUNTER, labels=(),
+        help="get_batch calls that fell through to a synchronous read "
+        "while prefetch was armed.",
+    ),
+    "sntc_health_state": dict(
+        type=GAUGE, labels=("component",),
+        help="Component health (0=OK, 1=DEGRADED, 2=UNHEALTHY).",
+    ),
+    "sntc_breaker_state": dict(
+        type=GAUGE, labels=("site",),
+        help="Circuit-breaker state (0=closed, 1=half_open, 2=open).",
+    ),
+    "sntc_device_state": dict(
+        type=GAUGE, labels=(),
+        help="Device serving state of the fault domain (0=DEVICE_OK, "
+        "1=DEVICE_FAILED: every dispatch raises until a restart).",
+    ),
+    "sntc_device_faults_total": dict(
+        type=COUNTER, labels=("kind", "site"),
+        help="Classified CUDA failures (device_oom / compile_error / "
+        "device_lost), by fault site.",
+    ),
+    "sntc_device_oom_splits_total": dict(
+        type=COUNTER, labels=(),
+        help="Micro-batch halvings the OOM responder performed.",
+    ),
+}
+
+_OVERFLOW_KEY: Tuple[Tuple[str, str], ...] = (("overflow", "true"),)
+
+
+class _Series:
+    """One label set of one metric: ``value`` for counters and gauges,
+    per-bucket counts plus sum and count for histograms."""
+
+    __slots__ = ("labels", "value", "bucket_counts", "sum", "count")
+
+    def __init__(self, labels: Tuple[Tuple[str, str], ...],
+                 n_buckets: int = 0):
+        self.labels = labels
+        self.value = 0.0
+        self.bucket_counts = [0] * n_buckets if n_buckets else None
+        self.sum = 0.0
+        self.count = 0
+
+
+class MetricsRegistry:
+    """Registry of cataloged metrics (see the module docs)."""
+
+    def __init__(self, *, max_label_sets: int = 64):
+        self.max_label_sets = int(max_label_sets)
+        self._lock = threading.Lock()  # series creation only
+        # name -> (spec, {labelkey: _Series}, write lock)
+        self._metrics: Dict[str, Tuple[dict, Dict, threading.Lock]] = {}
+        self._label_overflows = 0
+
+    def _series(self, name: str, labels: Dict[str, str]) -> _Series:
+        entry = self._metrics.get(name)
+        if entry is None:
+            spec = CATALOG.get(name)
+            if spec is None:
+                raise KeyError(
+                    f"metric {name!r} is not declared in "
+                    "sntc_tpu_torch.obs.metrics.CATALOG"
+                )
+            with self._lock:
+                entry = self._metrics.setdefault(
+                    name, (spec, {}, threading.Lock())
+                )
+        spec, series, lock = entry
+        for k in labels:
+            if k not in spec["labels"]:
+                raise KeyError(
+                    f"label {k!r} not declared for metric {name!r} "
+                    f"(allowed: {spec['labels']})"
+                )
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        s = series.get(key)
+        if s is None:
+            n_buckets = (len(spec.get("buckets", ())) + 1
+                         if spec["type"] == HISTOGRAM else 0)
+            with lock:
+                s = series.get(key)
+                if s is None:
+                    if key and len(series) >= self.max_label_sets:
+                        # cardinality cap: collapse into the overflow
+                        # series, counting the write
+                        with self._lock:
+                            self._label_overflows += 1
+                        key = _OVERFLOW_KEY
+                        s = series.get(key)
+                    if s is None:
+                        s = series[key] = _Series(key, n_buckets)
+        return s
+
+    def inc(self, name: str, value: float = 1.0, **labels: str) -> None:
+        s = self._series(name, labels)
+        with self._metrics[name][2]:
+            s.value += value
+
+    def set_gauge(self, name: str, value: float, **labels: str) -> None:
+        s = self._series(name, labels)
+        with self._metrics[name][2]:
+            s.value = float(value)
+
+    def observe(self, name: str, value: float, **labels: str) -> None:
+        spec = CATALOG.get(name)
+        if spec is None or spec["type"] != HISTOGRAM:
+            raise KeyError(f"{name!r} is not a cataloged histogram")
+        s = self._series(name, labels)
+        # first bound >= value (Prometheus le); the last index is +Inf
+        i = bisect_left(spec["buckets"], value)
+        with self._metrics[name][2]:
+            s.bucket_counts[i] += 1
+            s.sum += value
+            s.count += 1
+
+    def get(self, name: str, **labels: str) -> Optional[float]:
+        """Current value of one counter or gauge series (None when the
+        series does not exist yet)."""
+        entry = self._metrics.get(name)
+        if entry is None:
+            return None
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        s = entry[1].get(key)
+        return s.value if s is not None else None
+
+    def label_overflows(self) -> int:
+        return self._label_overflows
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Point-in-time copy of every live series (no write lock
+        taken)."""
+        out: Dict[str, Any] = {}
+        for name, (spec, series, _lock) in list(self._metrics.items()):
+            rows = []
+            for s in list(series.values()):
+                row: Dict[str, Any] = {"labels": dict(s.labels)}
+                if spec["type"] == HISTOGRAM:
+                    row.update(buckets=list(s.bucket_counts), sum=s.sum,
+                               count=s.count)
+                else:
+                    row["value"] = s.value
+                rows.append(row)
+            out[name] = {"type": spec["type"], "help": spec["help"],
+                         "series": rows}
+            if spec["type"] == HISTOGRAM:
+                out[name]["bucket_bounds"] = list(spec["buckets"])
+        return out
+
+
+_default = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    return _default
+
+
+def reset_registry() -> MetricsRegistry:
+    """Fresh default registry (test isolation); returns it."""
+    global _default
+    _default = MetricsRegistry()
+    return _default
+
+
+def snapshot() -> Dict[str, Any]:
+    """The default registry's :meth:`MetricsRegistry.snapshot`."""
+    return _default.snapshot()
+
+
+def inc(name: str, value: float = 1.0, **labels: str) -> None:
+    _default.inc(name, value, **labels)
+
+
+def set_gauge(name: str, value: float, **labels: str) -> None:
+    _default.set_gauge(name, value, **labels)
+
+
+def observe(name: str, value: float, **labels: str) -> None:
+    _default.observe(name, value, **labels)

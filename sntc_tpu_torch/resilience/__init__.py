@@ -1,33 +1,91 @@
-"""Retry policies, deterministic fault injection and the structured-event
-stream: the part of ``sntc_tpu/resilience/`` that ``tuning/`` calls
-(see each module for what is left for the serving core's port)."""
+"""Retry policies, fault injection, the event stream, circuit breakers,
+health, the device fault domain and query supervision.
 
+Counterpart of ``sntc_tpu/resilience/`` as far as the serve command's
+default form and ``tuning/`` use it: ``policy.py``, ``faults.py``,
+``circuit.py``, ``health.py``, ``device.py`` (CUDA errors, no host
+fallback) and ``supervisor.py``.  The storage plane (``storage.py``),
+``control.py`` and ``replicate.py`` wait for their slices of ROADMAP
+queue A.
+"""
+
+from sntc_tpu_torch.resilience.circuit import (
+    CircuitBreaker,
+    CircuitOpenError,
+    breaker_for,
+    breakers_snapshot,
+    reset_breakers,
+)
+from sntc_tpu_torch.resilience.device import (
+    DeviceExecError,
+    DeviceFaultDomain,
+    DevicePolicy,
+    annotate_batch,
+    classify_device_error,
+)
 from sntc_tpu_torch.resilience.faults import (
+    InjectedDeviceFault,
     InjectedFault,
+    InjectedIOFault,
+    InjectedTimeoutFault,
     arm,
+    call_count,
     clear,
     disarm,
     fault_point,
+    parse_faults_env,
 )
+from sntc_tpu_torch.resilience.health import HealthMonitor, HealthState
 from sntc_tpu_torch.resilience.policy import (
     RetryExhausted,
     RetryPolicy,
+    add_event_observer,
     clear_events,
     emit_event,
+    event_observer_count,
+    events_dropped,
     recent_events,
+    remove_event_observer,
     with_retries,
+)
+from sntc_tpu_torch.resilience.supervisor import (
+    QuerySupervisor,
+    default_breakers,
 )
 
 __all__ = [
-    "RetryPolicy",
-    "RetryExhausted",
-    "with_retries",
-    "emit_event",
-    "recent_events",
-    "clear_events",
-    "fault_point",
-    "arm",
-    "disarm",
-    "clear",
+    "CircuitBreaker",
+    "CircuitOpenError",
+    "DeviceExecError",
+    "DeviceFaultDomain",
+    "DevicePolicy",
+    "HealthMonitor",
+    "HealthState",
+    "InjectedDeviceFault",
     "InjectedFault",
+    "InjectedIOFault",
+    "InjectedTimeoutFault",
+    "QuerySupervisor",
+    "RetryExhausted",
+    "RetryPolicy",
+    "add_event_observer",
+    "annotate_batch",
+    "arm",
+    "breaker_for",
+    "breakers_snapshot",
+    "call_count",
+    "classify_device_error",
+    "clear",
+    "clear_events",
+    "default_breakers",
+    "disarm",
+    "emit_event",
+    "event_observer_count",
+    "events_dropped",
+    "fault_point",
+    "parse_faults_env",
+    "recent_events",
+    "remove_event_observer",
+    "reset_breakers",
+    "with_retries",
 ]

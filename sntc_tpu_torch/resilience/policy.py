@@ -1,23 +1,23 @@
 """Retry policies and the structured-event stream.
 
-Counterpart of ``sntc_tpu/resilience/policy.py``, the part that
-``tuning/`` calls: :class:`RetryPolicy` (a frozen value object: max
-attempts, exponential backoff with deterministic seeded jitter, an
-optional overall deadline, a retryable-exception classifier),
-:func:`with_retries` (runs a thunk under a policy, emitting ``retry`` /
-``retry_success`` / ``retry_exhausted`` events), :func:`emit_event` (a
-JSONL line under ``SNTC_RESILIENCE_LOG`` and the in-process ring of the
-last 512 events), :func:`recent_events` and :func:`clear_events`.
-
-Left for the serving core's port (the breakers, health monitor and
-device fault domain that consume the events): the event observers, the
-ring's eviction counts and the metrics mirror.
+Counterpart of ``sntc_tpu/resilience/policy.py``: :class:`RetryPolicy`
+(a frozen value object: max attempts, exponential backoff with
+deterministic seeded jitter, an optional overall deadline, a
+retryable-exception classifier), :func:`with_retries` (runs a thunk
+under a policy, emitting ``retry`` / ``retry_success`` /
+``retry_exhausted`` events), :func:`emit_event` (a JSONL line under
+``SNTC_RESILIENCE_LOG``, the in-process ring of the last 512 events and
+every registered observer: the health monitor and the metrics bridge),
+:func:`recent_events`, :func:`events_dropped` (the ring's evictions,
+mirrored into ``sntc_events_dropped_total``) and :func:`clear_events`.
+The JAX module's ``int_from_env`` serves knobs the port does not have.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -25,6 +25,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 import numpy as np
+
+from sntc_tpu_torch.obs.metrics import inc as _metrics_inc
 
 
 class RetryExhausted(RuntimeError):
@@ -89,15 +91,19 @@ _recent: "deque[Dict[str, Any]]" = deque(maxlen=_RECENT_MAX)
 _events_lock = threading.Lock()
 _step = 0
 _t0 = time.perf_counter()
+_events_dropped = 0
+_observers: List[Callable[[Dict[str, Any]], None]] = []
 
 
 def emit_event(**fields: Any) -> Dict[str, Any]:
     """Append one structured event: a JSONL line when
     ``SNTC_RESILIENCE_LOG`` names a file, and always the in-process ring
-    (capped at 512 records).  Each record carries
-    ``step``, ``elapsed_s``, ``ts`` and ``mono`` besides ``fields``, as
-    the JAX package's do.  Thread-safe."""
-    global _step
+    (capped at 512 records; evictions are counted, never silent).  Each
+    record carries ``step``, ``elapsed_s``, ``ts`` and ``mono`` besides
+    ``fields``, as the JAX package's do.  Then every observer sees the
+    record, outside the ring's lock (an observer may emit); an observer
+    that raises is removed.  Thread-safe."""
+    global _step, _events_dropped
     path = os.environ.get("SNTC_RESILIENCE_LOG")
     with _events_lock:
         record = {
@@ -112,7 +118,21 @@ def emit_event(**fields: Any) -> Dict[str, Any]:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             with open(path, "a") as f:
                 f.write(json.dumps(record) + "\n")
+        if len(_recent) == _recent.maxlen:
+            _events_dropped += 1
+            try:  # the metrics mirror, never fatally
+                _metrics_inc("sntc_events_dropped_total")
+            except Exception:
+                pass
         _recent.append(record)
+        observers = list(_observers)
+    for fn in observers:
+        try:
+            fn(record)
+        except Exception as e:
+            remove_event_observer(fn)
+            print(f"sntc_tpu_torch: event observer {fn!r} raised {e!r}; "
+                  "observer removed", file=sys.stderr)
     return record
 
 
@@ -130,9 +150,39 @@ def recent_events(
     ]
 
 
+def events_dropped() -> int:
+    """Events evicted from the ring since the last :func:`clear_events`:
+    nonzero means :func:`recent_events` is a suffix."""
+    with _events_lock:
+        return _events_dropped
+
+
+def add_event_observer(fn: Callable[[Dict[str, Any]], None]) -> None:
+    """Run ``fn(record)`` on every later event (the health monitor's
+    and the metrics bridge's feed)."""
+    with _events_lock:
+        if fn not in _observers:
+            _observers.append(fn)
+
+
+def remove_event_observer(fn: Callable[[Dict[str, Any]], None]) -> None:
+    with _events_lock:
+        if fn in _observers:
+            _observers.remove(fn)
+
+
+def event_observer_count() -> int:
+    """Registered observers: a component that attaches one must detach
+    it on teardown, so the count stays flat."""
+    with _events_lock:
+        return len(_observers)
+
+
 def clear_events() -> None:
+    global _events_dropped
     with _events_lock:
         _recent.clear()
+        _events_dropped = 0
 
 
 def with_retries(

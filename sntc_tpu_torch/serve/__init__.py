@@ -1,8 +1,11 @@
 from sntc_tpu_torch.serve.fuse import compile_pipeline, compile_serving
 from sntc_tpu_torch.serve.streaming import (
+    ConsoleSink,
     CsvDirSink,
     DirStreamSource,
     FileStreamSource,
+    MemorySink,
+    MemorySource,
     StreamingQuery,
 )
 from sntc_tpu_torch.serve.transform import (
@@ -14,9 +17,12 @@ from sntc_tpu_torch.serve.transform import (
 __all__ = [
     "VALID_COL",
     "BatchPredictor",
+    "ConsoleSink",
     "CsvDirSink",
     "DirStreamSource",
     "FileStreamSource",
+    "MemorySink",
+    "MemorySource",
     "StreamingQuery",
     "bucket_rows_for",
     "compile_pipeline",

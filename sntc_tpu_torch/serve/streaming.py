@@ -42,12 +42,28 @@ predictor's ``chunk_rows`` dispatches its later chunks from its finalize
 engine thread, as in the serial engine.  The read and prefetch
 threads only parse on the host.
 
-Failures raise: an error on a read, prefetch, dispatch, finalize or sink
-of a batch surfaces from ``process_available`` on the engine thread; the
-batch stays uncommitted (its intent in the WAL), a later
-``process_available`` or a restarted query replays it.  The JAX engine's
-retries, breakers, quarantine, admission, load shedding, autotuning and
-hot swap are not ported.
+**Failure handling** (the JAX engine's, ``sntc_tpu/serve/streaming.py``
+``StreamingQuery``): ``retry_policy`` retries a batch's read
+(``stream.read``) and its finalize + sink (``sink.write``) in place.
+``max_batch_failures=N`` arms the poison-batch quarantine: a batch whose
+WAL intent, read, dispatch or delivery fails stays queued and is tried
+again next round (rounds count per stage); at the N-th failed round of a
+stage it is journaled to ``<checkpoint>/dead_letter/`` (one record in
+``dead_letter.jsonl``, its raw rows in ``batch_NNNNNN.csv`` when it was
+read) and COMMITTED, marked ``quarantined``, so the stream moves past
+it.  Unarmed (``None``), the first failure raises out of
+``process_available`` and the batch's intent stays in the WAL.
+``breakers`` (``sink.write``, ``predict.dispatch``) defer a stage while
+open.  A predictor with a device fault domain answers CUDA errors on the
+card: they never strike, quarantine or score a breaker; a batch whose
+device error shows at finalize (on the delivery thread) is re-dispatched
+from the engine thread; once the domain has failed, the error raises out
+of ``process_available`` with the batch's intent in the WAL.  The fault
+sites are ``stream.wal``, ``stream.read``, ``stream.commit`` and
+``sink.write``.
+
+The JAX engine's row admission, load shedding, autotuning, lifecycle
+hot swap, tenancy and storage plane are not ported.
 """
 
 from __future__ import annotations
@@ -63,8 +79,23 @@ from typing import List, Optional
 
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.data.ingest import load_csv
+from sntc_tpu_torch.obs import install_event_metrics
+from sntc_tpu_torch.obs.metrics import inc, observe
+from sntc_tpu_torch.resilience.device import (
+    annotate_batch,
+    classify_device_error,
+)
+from sntc_tpu_torch.resilience.faults import fault_point
+from sntc_tpu_torch.resilience.policy import (
+    RetryPolicy,
+    emit_event,
+    with_retries,
+)
 from sntc_tpu_torch.serve.transform import BatchPredictor
 from sntc_tpu_torch.utils.profiling import TransferLedger, ledger_scope
+
+# every engine's events count into the metrics plane
+install_event_metrics()
 
 # ---------------------------------------------------------------------------
 # sources
@@ -187,9 +218,11 @@ class DirStreamSource:
         fut = self._staged.pop((start, end), None)
         if fut is not None:
             self.prefetch_hits += 1
+            inc("sntc_source_prefetch_hits_total")
             return fut.result()  # a failed staged read raises here
         if self.prefetch_batches > 0:
             self.prefetch_misses += 1
+            inc("sntc_source_prefetch_misses_total")
         listing = self._listing
         if listing is not None and len(listing) < end:
             listing = None  # stale: _read_range re-scans once
@@ -220,18 +253,59 @@ class FileStreamSource(DirStreamSource):
 
 
 # ---------------------------------------------------------------------------
-# sink
+# in-memory source and sinks
 # ---------------------------------------------------------------------------
 
 
-class CsvDirSink:
-    """One CSV per batch, published by fsync + rename: a crash never
-    leaves a torn ``batch_*.csv``, and a replayed batch overwrites its
-    file with the same rows."""
+class MemorySource:
+    """An in-memory list of Frames (the tests' source): offset = frame
+    count."""
 
-    def __init__(self, path: str, columns: Optional[List[str]] = None):
+    def __init__(self, frames: Optional[List[Frame]] = None):
+        self._frames: List[Frame] = list(frames or [])
+
+    def add(self, frame: Frame) -> None:
+        self._frames.append(frame)
+
+    def latest_offset(self) -> int:
+        return len(self._frames)
+
+    def get_batch(self, start: int, end: int) -> Frame:
+        if end - start == 1:
+            return self._frames[start]
+        return Frame.concat_all(self._frames[start:end])
+
+
+class MemorySink:
+    """Keeps every ``(batch_id, frame)`` it was handed."""
+
+    def __init__(self):
+        self.batches: List[tuple] = []
+
+    def add_batch(self, batch_id: int, frame: Frame) -> None:
+        self.batches.append((batch_id, frame))
+
+    @property
+    def frames(self) -> List[Frame]:
+        return [f for _, f in self.batches]
+
+
+class ConsoleSink:
+    def add_batch(self, batch_id: int, frame: Frame) -> None:
+        print(f"[batch {batch_id}] {frame}")
+
+
+class CsvDirSink:
+    """One CSV per batch, published by rename: a crash never leaves a
+    torn ``batch_*.csv``, and a replayed batch overwrites its file with
+    the same rows.  ``durable`` (the default) fsyncs the file and the
+    directory; the dead-letter dumps skip it."""
+
+    def __init__(self, path: str, columns: Optional[List[str]] = None,
+                 durable: bool = True):
         self.path = path
         self.columns = columns
+        self.durable = bool(durable)
         os.makedirs(path, exist_ok=True)
 
     def add_batch(self, batch_id: int, frame: Frame) -> None:
@@ -243,9 +317,81 @@ class CsvDirSink:
         final = os.path.join(self.path, f"batch_{batch_id:06d}.csv")
         tmp = final + ".tmp"
         pacsv.write_csv(frame.select(cols).to_arrow(), tmp)
-        _fsync(tmp)
+        if self.durable:
+            _fsync(tmp)
         os.replace(tmp, final)
-        _fsync(self.path)  # the rename is durable once the dirent is
+        if self.durable:
+            _fsync(self.path)  # the rename is durable once the dirent is
+
+
+class _JsonlJournal:
+    """Size-capped JSONL appender: past ``max_bytes`` the file rotates
+    to ``.1`` .. ``.keep`` (the oldest dropped).  A failed append keeps
+    its records in memory (at most ``BUFFER_KEEP``) for the next one:
+    losing a journal line never fails the caller."""
+
+    BUFFER_KEEP = 256
+
+    def __init__(self, path: str, max_bytes: int = 8 << 20, keep: int = 2):
+        self.path = path
+        self.max_bytes = int(max_bytes)
+        self.keep = max(1, int(keep))
+        self._buffer: List[str] = []
+        self.records_written = 0
+        self.write_errors = 0
+        self.rotations = 0
+
+    def _rotate(self) -> None:
+        for i in range(self.keep - 1, 0, -1):
+            if os.path.exists(f"{self.path}.{i}"):
+                os.replace(f"{self.path}.{i}", f"{self.path}.{i + 1}")
+        os.replace(self.path, f"{self.path}.1")
+        self.rotations += 1
+
+    def write(self, record: dict) -> bool:
+        pending = self._buffer + [json.dumps(record) + "\n"]
+        payload = "".join(pending)
+        try:
+            size = (os.path.getsize(self.path)
+                    if os.path.exists(self.path) else 0)
+            if size and size + len(payload) > self.max_bytes:
+                self._rotate()
+            with open(self.path, "a") as f:
+                f.write(payload)
+        except OSError:
+            self.write_errors += 1
+            self._buffer = pending[-self.BUFFER_KEEP:]
+            return False
+        self._buffer = []
+        self.records_written += len(pending)
+        return True
+
+    def stats(self) -> dict:
+        return {"records_written": self.records_written,
+                "write_errors": self.write_errors,
+                "rotations": self.rotations,
+                "buffered": len(self._buffer)}
+
+
+def _prune_keep_newest(path: str, keep: int, protect: tuple) -> int:
+    """Delete the oldest files of ``path`` (name order: batch ids sort
+    in time) beyond the newest ``keep``; ``protect`` names stay."""
+    names = sorted(
+        n for n in os.listdir(path)
+        if n not in protect and not n.startswith(".")
+        and os.path.isfile(os.path.join(path, n))
+    )
+    dropped = 0
+    for n in names[:-keep] if len(names) > keep else []:
+        try:
+            os.unlink(os.path.join(path, n))
+            dropped += 1
+        except OSError:
+            pass
+    if dropped:
+        emit_event(event="dead_letter_dropped", site="dead_letter",
+                   dropped=dropped, keep=keep)
+    return dropped
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +476,8 @@ class StreamingQuery:
     def __init__(
         self,
         model,
-        source: DirStreamSource,
-        sink: CsvDirSink,
+        source,
+        sink,
         checkpoint_dir: str,
         max_batch_offsets: Optional[int] = None,
         pipeline_depth: int = 2,
@@ -340,6 +486,11 @@ class StreamingQuery:
         wal_compact_every: int = 256,
         wal_keep_commits: int = 64,
         device="cuda",
+        retry_policy: Optional[RetryPolicy] = None,
+        max_batch_failures: Optional[int] = None,
+        dead_letter_dir: Optional[str] = None,
+        breakers: Optional[dict] = None,
+        dead_letter_keep: int = 200,
     ):
         self.predictor = (
             model
@@ -359,7 +510,7 @@ class StreamingQuery:
         self._delivery_busy_s = 0.0
         self._delivered_batches = 0
         self._tick_latest: Optional[int] = None
-        # (batch_id, intent, finalize, t0, n_rows, timing) per batch
+        # (batch_id, intent, finalize, t0, n_rows, timing, frame) per batch
         self._in_flight: List[tuple] = []
         self._stopped = False
         self._t_start = time.perf_counter()
@@ -367,6 +518,22 @@ class StreamingQuery:
         self.rows_served = 0
         # this engine's copies, beside the process-wide ledger
         self.transfer = TransferLedger()
+        self.retry_policy = retry_policy
+        if max_batch_failures is not None and max_batch_failures < 1:
+            raise ValueError("max_batch_failures must be >= 1 (or None)")
+        self.max_batch_failures = max_batch_failures
+        self.dead_letter_dir = dead_letter_dir or os.path.join(
+            checkpoint_dir, "dead_letter"
+        )
+        self.dead_letter_keep = max(0, int(dead_letter_keep))
+        self._dead_letter_writer: Optional[_JsonlJournal] = None
+        self.breakers: dict = dict(breakers or {})
+        # failed rounds by (batch_id, stage)
+        self._batch_failures: dict = {}
+        # batches whose dead letter is written but whose commit deferred:
+        # a later round must not journal them again
+        self._quarantined_ids: set = set()
+        self.quarantined_batches: List[int] = []  # committed quarantined
         if wal_mode not in ("files", "append"):
             raise ValueError("wal_mode must be 'files' or 'append'")
         self.wal_mode = wal_mode
@@ -552,9 +719,41 @@ class StreamingQuery:
             end = min(end, start + self.max_batch_offsets)
         return end
 
+    def _device_domain(self):
+        """The predictor's device fault domain (None when unarmed)."""
+        return getattr(self.predictor, "device_domain", None)
+
+    @staticmethod
+    def _device_fault(dom, exc: BaseException, kind: str,
+                      batch_id: int) -> None:
+        """Note a device fault the predictor has not counted; raise once
+        the domain has failed (the query stops, the batch's intent stays
+        in the WAL)."""
+        if dom.failed and getattr(exc, "device_kind", None) is not None:
+            raise exc  # the failed domain's own DeviceExecError
+        if not getattr(exc, "_sntc_device_counted", False):
+            dom.note_fault(kind, site="predict.dispatch", batch_id=batch_id)
+        if dom.failed:
+            try:
+                dom.check()
+            except Exception as failed:
+                raise failed from exc
+
+    def _quarantine_unread(self, batch_id: int, intent: dict,
+                           frame: Optional[Frame], exc: BaseException,
+                           site: str, t0: float) -> bool:
+        """Dead-letter and commit a batch that failed before it entered
+        the pipeline (its WAL intent, read or dispatch)."""
+        self._quarantine(batch_id, intent, frame, exc, site=site)
+        self._commit_batch(batch_id, intent, 0, t0, quarantined=True)
+        self._next_start = max(self._next_start, intent["end"])
+        return True
+
     def _dispatch_next(self) -> bool:
         """WAL, read and dispatch the next micro-batch (non-blocking);
-        False when there is no new data."""
+        False when there is no new data or the batch deferred.  A batch
+        that keeps failing before it enters the pipeline is quarantined
+        here (True)."""
         batch_id = self._last_committed + 1 + len(self._in_flight)
         intent = self._pending_intent(batch_id)
         if intent is None:
@@ -565,7 +764,18 @@ class StreamingQuery:
                 return False
             intent = {"batch_id": batch_id, "start": start,
                       "end": self._plan_end(start, latest)}
-            self._wal_intent(batch_id, intent)  # intent before work
+            try:
+                fault_point("stream.wal")
+                self._wal_intent(batch_id, intent)  # intent before work
+            except Exception as e:
+                fails = self._bump_failures(batch_id, "stream.wal")
+                if self.max_batch_failures is None:
+                    raise
+                if fails < self.max_batch_failures or self._in_flight:
+                    return False
+                return self._quarantine_unread(
+                    batch_id, intent, None, e, "stream.wal",
+                    time.perf_counter())
         # stage the FOLLOWING range before this batch's read blocks
         pf = getattr(self.source, "prefetch", None)
         if pf is not None and self._tick_latest is not None:
@@ -574,60 +784,205 @@ class StreamingQuery:
                 pf(nxt, self._plan_end(nxt, self._tick_latest),
                    self._next_start)
         t0 = time.perf_counter()
-        frame = self.source.get_batch(intent["start"], intent["end"])
-        t1 = time.perf_counter()
-        with ledger_scope(self.transfer):
-            finalize = self.predictor.predict_frame_async(frame)
+
+        def _read() -> Frame:
+            fault_point("stream.read")
+            return self.source.get_batch(intent["start"], intent["end"])
+
+        frame = None
+        stage = "stream.read"
+        # while the predict breaker is open deferring is certain: do not
+        # re-read the batch each round just to drop it
+        br_predict = self.breakers.get("predict.dispatch")
+        if br_predict is not None and br_predict.state == "open":
+            return False
+        try:
+            frame = (with_retries(_read, self.retry_policy,
+                                  site="stream.read")
+                     if self.retry_policy is not None else _read())
+            t1 = time.perf_counter()
+            stage = "predict.dispatch"
+            if br_predict is not None and not br_predict.allow():
+                return False
+            try:
+                with ledger_scope(self.transfer):
+                    finalize = self.predictor.predict_frame_async(frame)
+            except Exception as de:
+                # a device failure belongs to the platform, not the
+                # batch: it releases a half-open probe slot instead of
+                # scoring the breaker
+                if br_predict is not None:
+                    if (self._device_domain() is not None
+                            and classify_device_error(de) is not None):
+                        br_predict.release()
+                    else:
+                        br_predict.record_failure()
+                raise
+            if br_predict is not None:
+                br_predict.record_success()
+        except Exception as e:
+            dom = self._device_domain()
+            kind = classify_device_error(e) if dom is not None else None
+            if kind is not None:
+                # no failure round, no quarantine: the batch replays
+                # next round on the card
+                self._device_fault(dom, e, kind, batch_id)
+                return False
+            fails = self._bump_failures(batch_id, stage)
+            if self.max_batch_failures is None:
+                raise
+            if fails < self.max_batch_failures or self._in_flight:
+                # below the threshold, or older batches must commit
+                # first: retry next round
+                return False
+            return self._quarantine_unread(batch_id, intent, frame, e,
+                                           stage, t0)
         timing = {"readMs": (t1 - t0) * 1e3,
                   "dispatchMs": (time.perf_counter() - t1) * 1e3}
         self._in_flight.append(
-            (batch_id, intent, finalize, t0, frame.num_rows, timing)
+            (batch_id, intent, finalize, t0, frame.num_rows, timing, frame)
         )
         # max(): a replayed intent may end below the planning cursor
         self._next_start = max(self._next_start, intent["end"])
         return True
 
+    def _bump_failures(self, batch_id: int, stage: str) -> int:
+        """Failed rounds per (batch, stage): a read flake and a sink
+        flake of one batch do not pool toward one threshold."""
+        key = (batch_id, stage)
+        self._batch_failures[key] = self._batch_failures.get(key, 0) + 1
+        return self._batch_failures[key]
+
+    def _clear_failures(self, batch_id: int) -> None:
+        for key in [k for k in self._batch_failures if k[0] == batch_id]:
+            del self._batch_failures[key]
+
     def _deliver_head(self, batch_id: int, finalize, timing: dict) -> None:
         """The retire stage's work: materialize the batch and hand it to
-        the sink.  On the engine thread serially, on the delivery thread
-        in overlap mode; settled by :meth:`_settle_head` either way."""
+        the sink, under the retry policy.  On the engine thread serially,
+        on the delivery thread in overlap mode; settled by
+        :meth:`_settle_head` on the engine thread either way."""
         t0 = time.perf_counter()
+
+        def _deliver() -> None:
+            fault_point("sink.write")
+            t_a = time.perf_counter()
+            try:
+                out = finalize()
+                t_b = time.perf_counter()
+                self.sink.add_batch(batch_id, out)
+            except Exception as e:
+                # a device error surfacing here, on the delivery thread,
+                # carries its batch id to the settle
+                raise annotate_batch(e, batch_id)
+            timing["finalizeMs"] = (t_b - t_a) * 1e3
+            timing["sinkMs"] = (time.perf_counter() - t_b) * 1e3
+
         try:
-            out = finalize()
-            t1 = time.perf_counter()
-            self.sink.add_batch(batch_id, out)
-            timing["finalizeMs"] = (t1 - t0) * 1e3
-            timing["sinkMs"] = (time.perf_counter() - t1) * 1e3
-        except Exception as e:
-            e.add_note(f"while delivering micro-batch {batch_id}")
-            raise
+            if self.retry_policy is not None:
+                with_retries(_deliver, self.retry_policy, site="sink.write")
+            else:
+                _deliver()
         finally:
             self._delivery_busy_s += time.perf_counter() - t0
 
     def _settle_head(self, exc: Optional[BaseException]) -> bool:
-        """Commit the head batch after a delivery; a failed delivery
-        raises and leaves the batch queued (ids never shift), so a later
-        round re-delivers it."""
-        batch_id, intent, _fin, t0, n_rows, timing = self._in_flight[0]
+        """One retirement round's outcome for the head batch (``exc`` is
+        the delivery's failure, or None): the breaker's outcome, the
+        failure rounds, the quarantine at the threshold, the commit.  The
+        batch leaves ``_in_flight`` only after its commit, so ids never
+        shift.  True when it committed (normally or quarantined)."""
+        (batch_id, intent, _fin, t0, n_rows, timing,
+         frame) = self._in_flight[0]
+        breaker = self.breakers.get("sink.write")
+        quarantined = False
         if exc is not None:
-            raise exc
-        self._commit_batch(batch_id, intent, n_rows, t0, timing)
+            dom = self._device_domain()
+            kind = classify_device_error(exc) if dom is not None else None
+            if kind is not None:
+                # a device failure at finalize: the sink never failed,
+                # so its breaker is not scored; the failure is memoized
+                # in the old finalize, so only a fresh dispatch, from
+                # this thread, can answer it
+                if breaker is not None:
+                    breaker.release()
+                self._device_fault(dom, exc, kind, batch_id)
+                self._redispatch_head()
+                return False
+            if breaker is not None:
+                breaker.record_failure()
+            fails = self._bump_failures(batch_id, "sink.write")
+            if self.max_batch_failures is None:
+                raise exc
+            if fails < self.max_batch_failures:
+                return False  # stays queued; retried next round
+            if batch_id not in self._quarantined_ids:
+                self._quarantine(batch_id, intent, frame, exc,
+                                 site="sink.write")
+                self._quarantined_ids.add(batch_id)
+            quarantined = True
+        elif breaker is not None:
+            breaker.record_success()
+        try:
+            self._commit_batch(batch_id, intent, n_rows, t0,
+                               quarantined=quarantined, timing=timing)
+        except Exception as ce:
+            # the sink has the batch, its commit record is missing: the
+            # next round re-delivers (the sink dedupes) and commits
+            fails = self._bump_failures(batch_id, "stream.commit")
+            if (self.max_batch_failures is None
+                    or fails >= self.max_batch_failures):
+                raise ce
+            return False
         self._in_flight.pop(0)
+        self._quarantined_ids.discard(batch_id)
         self._delivered_batches += 1
         return True
 
+    def _redispatch_head(self) -> None:
+        """Replace the head batch's failed finalize with a fresh dispatch
+        of its frame (the device response, an OOM split included, runs
+        on a new dispatch only).  A failure keeps the old finalize: the
+        next round classifies again; a failed domain raises."""
+        (batch_id, intent, _old, t0, n_rows, timing,
+         frame) = self._in_flight[0]
+        try:
+            with ledger_scope(self.transfer):
+                fin = self.predictor.predict_frame_async(frame)
+        except Exception as e:
+            dom = self._device_domain()
+            if dom is not None and dom.failed:
+                raise
+            emit_event(event="device_error", batch_id=batch_id,
+                       error=repr(e), during="redispatch")
+            return
+        self._in_flight[0] = (batch_id, intent, fin, t0, n_rows, timing,
+                              frame)
+
     def _retire_oldest(self) -> bool:
-        """Serial retire: deliver and commit the oldest in-flight batch
-        on the engine thread."""
-        batch_id, _intent, finalize, _t0, _n, timing = self._in_flight[0]
-        self._deliver_head(batch_id, finalize, timing)
-        return self._settle_head(None)
+        """Serial retire: deliver and settle the oldest in-flight batch
+        on the engine thread; an open sink breaker defers it."""
+        batch_id, _intent, finalize = self._in_flight[0][:3]
+        breaker = self.breakers.get("sink.write")
+        if breaker is not None and not breaker.allow():
+            return False
+        exc: Optional[BaseException] = None
+        try:
+            self._deliver_head(batch_id, finalize, self._in_flight[0][5])
+        except Exception as e:
+            exc = e
+        return self._settle_head(exc)
 
     # -- overlapped retire (pipelined mode) ---------------------------------
 
-    def _submit_delivery(self) -> None:
-        """Arm the delivery thread with the head batch's retire work."""
-        batch_id, _intent, finalize, _t0, _n, timing = self._in_flight[0]
+    def _submit_delivery(self) -> bool:
+        """Arm the delivery thread with the head batch's retire work; an
+        open sink breaker defers it (one ``allow`` a round, its outcome
+        recorded at the settle)."""
+        batch_id, _intent, finalize = self._in_flight[0][:3]
+        breaker = self.breakers.get("sink.write")
+        if breaker is not None and not breaker.allow():
+            return False
         if self._delivery_pool is None:
             self._delivery_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="sntc-sink-delivery"
@@ -635,8 +990,9 @@ class StreamingQuery:
         self._delivery = (
             batch_id,
             self._delivery_pool.submit(self._deliver_head, batch_id,
-                                       finalize, timing),
+                                       finalize, self._in_flight[0][5]),
         )
+        return True
 
     def _finish_delivery(self, wait: bool) -> bool:
         """Settle the in-air delivery (joining it when ``wait``) on the
@@ -700,33 +1056,85 @@ class StreamingQuery:
             bid += 1
 
     def _commit_batch(self, batch_id: int, intent: dict, n_rows: int,
-                      t0: float, timing: dict) -> None:
-        """WAL commit, bookkeeping and the batch's progress record."""
+                      t0: float, quarantined: bool = False,
+                      timing: Optional[dict] = None) -> None:
+        """The one commit protocol (WAL commit, bookkeeping, metrics and
+        the progress record) of normal and quarantined batches."""
+        fault_point("stream.commit")
         self._wal_commit(batch_id, intent)
+        self._clear_failures(batch_id)
         self._last_committed = batch_id
         self._end_offset = intent["end"]
         self.rows_served += n_rows
         now = time.perf_counter()
         dur = now - t0
-        self.recentProgress.append({
+        inc("sntc_batches_committed_total")
+        if n_rows:
+            inc("sntc_rows_committed_total", n_rows)
+        observe("sntc_batch_duration_seconds", dur)
+        progress = {
             "batchId": batch_id,
             "numInputRows": int(n_rows),
             "durationMs": dur * 1e3,
             "processedRowsPerSecond": (n_rows / dur) if dur > 0 else 0.0,
-            "readMs": timing["readMs"],
-            "dispatchMs": timing["dispatchMs"],
-            "finalizeMs": timing["finalizeMs"],
-            "predictMs": timing["dispatchMs"] + timing["finalizeMs"],
-            "sinkMs": timing["sinkMs"],
-            "commitMs": (now - self._t_start) * 1e3,
-        })
+        }
+        for key in ("readMs", "dispatchMs", "finalizeMs", "sinkMs"):
+            if timing is not None and key in timing:
+                progress[key] = timing[key]
+        if "dispatchMs" in progress and "finalizeMs" in progress:
+            progress["predictMs"] = (progress["dispatchMs"]
+                                     + progress["finalizeMs"])
+        progress["commitMs"] = (now - self._t_start) * 1e3
+        if quarantined:
+            progress["quarantined"] = True
+            self.quarantined_batches.append(batch_id)
+        self.recentProgress.append(progress)
         if len(self.recentProgress) > self._PROGRESS_KEEP:
             del self.recentProgress[0]
+
+    def _quarantine(self, batch_id: int, intent: dict,
+                    frame: Optional[Frame], exc: BaseException,
+                    site: str) -> None:
+        """Journal a poison batch to the dead-letter dir: one JSONL
+        record (intent and error) always, and its raw 1-D input columns
+        as a CSV when it was read (from the host frame the source
+        returned, never from the card).  The caller commits it."""
+        os.makedirs(self.dead_letter_dir, exist_ok=True)
+        record = {
+            "batch_id": batch_id,
+            "intent": intent,
+            "error": repr(exc),
+            "failures": sum(v for k, v in self._batch_failures.items()
+                            if k[0] == batch_id),
+            "num_rows": int(frame.num_rows) if frame is not None else None,
+            "ts": time.time(),
+            "rows_file": None,
+        }
+        if frame is not None:
+            try:
+                CsvDirSink(self.dead_letter_dir,
+                           durable=False).add_batch(batch_id, frame)
+                record["rows_file"] = f"batch_{batch_id:06d}.csv"
+            except Exception as dump_err:
+                record["dump_error"] = repr(dump_err)
+        if self._dead_letter_writer is None:
+            self._dead_letter_writer = _JsonlJournal(
+                os.path.join(self.dead_letter_dir, "dead_letter.jsonl"))
+        self._dead_letter_writer.write(record)
+        if self.dead_letter_keep > 0:
+            _prune_keep_newest(
+                self.dead_letter_dir, self.dead_letter_keep,
+                protect=tuple(f"dead_letter.jsonl{x}"
+                              for x in ("", ".1", ".2")),
+            )
+        emit_event(event="quarantine", site=site, batch_id=batch_id,
+                   error=repr(exc))
 
     def pipeline_stats(self) -> dict:
         """Pipelining evidence: overlap and bucket config, delivery-thread
         busy time, the predictor's shape ledger, this engine's transfer
-        counters, the source's prefetch stats and the WAL's bounds."""
+        counters, the source's prefetch stats, the WAL's bounds and the
+        dead-letter journal, and the device domain's stats."""
         stats = {
             "overlap_sink": self.overlap_sink,
             "pipeline_depth": self.pipeline_depth,
@@ -745,9 +1153,15 @@ class StreamingQuery:
                 "wal_prunes": self.wal_prunes,
             },
         }
+        if self._dead_letter_writer is not None:
+            stats["storage"]["dead_letter_journal"] = (
+                self._dead_letter_writer.stats())
         src_stats = getattr(self.source, "prefetch_stats", None)
         if src_stats is not None:
             stats["prefetch"] = src_stats()
+        dom = self._device_domain()
+        if dom is not None:
+            stats["device"] = dom.stats()
         return stats
 
     def _run_one_batch(self) -> bool:
@@ -791,16 +1205,43 @@ class StreamingQuery:
 
     def drain(self) -> int:
         """Finish and commit every in-flight batch WITHOUT dispatching
-        new ones; returns the batches committed."""
+        new ones; returns the batches committed.  Rounds that keep
+        deferring (an open breaker, a threshold not reached) are bounded:
+        what is left stays in the WAL for a restart, as after a crash."""
         before = self._last_committed
-        while self._in_flight:
+        stalled = 0
+        max_stalled = ((self.max_batch_failures or 1) + 1) * (
+            len(self._in_flight) + 1
+        )
+        while self._in_flight and stalled < max_stalled:
             if self._delivery is not None:
-                self._finish_delivery(wait=True)
+                committed = self._finish_delivery(wait=True)
             elif self.overlap_sink and not self._oversized_head():
-                self._submit_delivery()
+                if not self._submit_delivery():
+                    stalled += 1  # breaker open
+                    continue
+                committed = self._finish_delivery(wait=True)
             else:
-                self._retire_oldest()
+                committed = self._retire_oldest()
+            stalled = 0 if committed else stalled + 1
         return self._last_committed - before
+
+    # -- supervision hooks (QuerySupervisor) --------------------------------
+
+    @property
+    def lastProgress(self) -> Optional[dict]:
+        return self.recentProgress[-1] if self.recentProgress else None
+
+    def planned_offset(self) -> int:
+        """The planning cursor: offsets below it are committed or in
+        flight."""
+        return self._next_start
+
+    def backlog_offsets(self, latest: Optional[int] = None) -> int:
+        """Source offsets available but not yet planned."""
+        if latest is None:
+            latest = self.source.latest_offset()
+        return max(0, latest - self._next_start)
 
     def stop(self) -> None:
         """Stop the engine: a still-running delivery finishes but is not

@@ -18,19 +18,46 @@ counts the distinct dispatched row shapes, as the JAX package's
 predictor does (there each one is an XLA compile; here it is the shape
 ledger the two packages are compared on).
 
-The JAX predictor's device fault domain (OOM splits, compile poisoning,
-host degradation) is not ported: a failure raises.
+**Device fault domain** (``device_domain``, a
+``resilience.device.DeviceFaultDomain``): a CUDA error at a dispatch is
+classified and answered on the card, as in the JAX predictor
+(``_dispatch_one``, ``_respond_device``, ``_step_bucket_floor``).  An
+OOM halves the batch and dispatches each half again, recursively, down
+to the bucket floor and at most ``oom_split_depth`` deep; the halves'
+outputs are concatenated in order (``pad_assemble`` and the serve
+kernels are bitwise per row, so the batch's output is the unsplit
+one's), and the bucket floor steps down once per top-level dispatch,
+back up after ``floor_restore_after`` clean dispatches.  The failed
+attempt's frames are cleared first, so its device tensors are freed
+before the halves allocate.  Any other kind, or an OOM that cannot split
+further, is noted with the domain and raised for the engine to
+re-dispatch the batch; once the domain has failed, every dispatch raises
+``DeviceExecError``.  Nothing falls back to the host: the JAX
+predictor's host path and shape poisoning are not ported.  The fault
+sites ``predict.compile`` (a fresh padded shape) and
+``device.dispatch`` (every dispatch) fire only with a domain.
+
+``predict_frame_async``'s finalize is once-only (a failure is cached
+too), so a sink retry re-reads the batch instead of materializing it
+again; with a domain its first clean return notes a success, which ends
+a run of device faults.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from sntc_tpu_torch.core.base import Transformer
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.resilience.device import (
+    DeviceExecError,
+    classify_device_error,
+    release_frames,
+)
+from sntc_tpu_torch.resilience.faults import fault_point
 
 # row-validity mask column threaded through bucketed transforms: True for
 # real rows, False for bucket-padding rows.  Row-dropping stages
@@ -53,7 +80,8 @@ class BatchPredictor:
     """Wrap a fitted model/pipeline for batch inference on ``device``.
 
     ``bucket_rows=N`` arms shape-bucketed dispatch (pad to power-of-two
-    row buckets with floor N; 0 = off)."""
+    row buckets with floor N; 0 = off); ``device_domain`` arms the device
+    fault domain (see the module docs)."""
 
     # oversized frames keep at most this many chunk dispatches in flight
     CHUNK_WINDOW = 2
@@ -64,6 +92,7 @@ class BatchPredictor:
         chunk_rows: int = 131_072,
         bucket_rows: int = 0,
         device="cuda",
+        device_domain=None,
     ):
         self.model = model
         self.chunk_rows = int(chunk_rows)
@@ -73,6 +102,15 @@ class BatchPredictor:
         self.bucket_hits = 0  # dispatches that reused a seen shape
         self.padded_rows_total = 0  # wasted rows the buckets cost
         self._shapes_seen: set = set()
+        self.device_domain = device_domain
+        # the OOM responder's floor step-down is undone after
+        # floor_restore_after clean dispatches
+        self._cold_bucket_rows = self.bucket_rows
+        self._clean_streak = 0
+        if device_domain is not None:
+            from sntc_tpu_torch.fuse import attach_device_domain
+
+            attach_device_domain(model, device_domain)
 
     def _record_shape(self, n_rows: int, padded: int = 0) -> None:
         if n_rows in self._shapes_seen:
@@ -82,15 +120,14 @@ class BatchPredictor:
             self.compile_events += 1
         self.padded_rows_total += padded
 
-    def _dispatch_one(self, frame: Frame) -> Callable[[], Frame]:
-        """Dispatch ONE at-most-chunk_rows frame through the model's
-        async transform, bucket-padded when armed; the returned finalize
-        strips the pad tail via the validity mask."""
+    def _launch(self, frame: Frame, n: int, target: int) -> Callable[[], Frame]:
+        """Dispatch ONE frame through the model's async transform,
+        bucket-padded to ``target`` rows when that is more than ``n``;
+        the returned finalize strips the pad tail via the validity
+        mask."""
         from sntc_tpu_torch.kernels.assemble import pad_assemble
 
         model = self.model
-        n = frame.num_rows
-        target = bucket_rows_for(n, self.bucket_rows)
         if target == n or n == 0:
             self._record_shape(n)
             return model.transform_async(frame)
@@ -112,14 +149,120 @@ class BatchPredictor:
 
         return fin
 
+    def _dispatch_one(self, frame: Frame,
+                      _oom_depth: int = 0) -> Callable[[], Frame]:
+        """Dispatch one at-most-chunk_rows frame; with a device domain,
+        through its fault sites and response (see the module docs)."""
+        n = frame.num_rows
+        target = bucket_rows_for(n, self.bucket_rows)
+        dom = self.device_domain
+        if dom is None:
+            return self._launch(frame, n, target)
+        dom.check()
+        shape = n if target == n or n == 0 else target
+        try:
+            if n and shape not in self._shapes_seen:
+                fault_point("predict.compile")
+            fault_point("device.dispatch")
+            fin = self._launch(frame, n, target)
+        except Exception as e:
+            kind = classify_device_error(e)
+            if kind is None:
+                raise
+            exc = e
+        else:
+            if self.bucket_rows != self._cold_bucket_rows:
+                # the OOM pressure passed: small batches get their
+                # shared buckets back
+                self._clean_streak += 1
+                if self._clean_streak >= dom.policy.floor_restore_after:
+                    dom.note_bucket_restore(self.bucket_rows,
+                                            self._cold_bucket_rows)
+                    self.bucket_rows = self._cold_bucket_rows
+                    self._clean_streak = 0
+            return fin
+        # outside the except block: the failed attempt's device tensors
+        # go with its frames before anything is dispatched again
+        release_frames(exc)
+        return self._respond_device(kind, exc, frame, _oom_depth)
+
+    def _respond_device(self, kind: str, exc: BaseException, frame: Frame,
+                        depth: int) -> Callable[[], Frame]:
+        """The response to one classified device failure."""
+        dom = self.device_domain
+        n = frame.num_rows
+        if kind == "device_oom":
+            self._clean_streak = 0
+            if n > max(1, self.bucket_rows) \
+                    and depth < dom.policy.oom_split_depth:
+                # halve and retry on the card at the smaller shape; the
+                # floor steps down once per top-level dispatch
+                dom.note_oom_split(rows=n, depth=depth,
+                                   bucket_floor=self.bucket_rows,
+                                   error=repr(exc)[:500])
+                if depth == 0:
+                    self._step_bucket_floor()
+                mid = (n + 1) // 2
+                left = self._dispatch_one(frame.slice(0, mid), depth + 1)
+                right = self._dispatch_one(frame.slice(mid, n), depth + 1)
+                return lambda: Frame.concat_all([left(), right()])
+            dom.note_fault(kind, site="device.dispatch", rows=n)
+        else:
+            dom.note_fault(kind, site="predict.compile"
+                           if kind == "compile_error" else "device.dispatch")
+        # counted here: the engine must not count it again
+        try:
+            exc._sntc_device_counted = True
+        except Exception:
+            pass
+        if dom.failed:
+            try:
+                dom.check()
+            except DeviceExecError as failed:
+                raise failed from exc
+        raise exc
+
+    def _step_bucket_floor(self) -> None:
+        """OOM pressure: halve the shape-bucket floor (never below the
+        policy's minimum)."""
+        dom = self.device_domain
+        if self.bucket_rows <= dom.policy.bucket_floor_min:
+            return
+        new = max(dom.policy.bucket_floor_min, self.bucket_rows // 2)
+        if new != self.bucket_rows:
+            dom.note_bucket_floor(self.bucket_rows, new)
+            self.bucket_rows = new
+
+    def _memo(self, fin: Callable[[], Frame]) -> Callable[[], Frame]:
+        """Once-only finalize: a retry re-reads the first outcome (a
+        failure included) instead of materializing again."""
+        cell: List = []
+        dom = self.device_domain
+
+        def wrapper() -> Frame:
+            if not cell:
+                try:
+                    cell.append((True, fin()))
+                except BaseException as e:
+                    cell.append((False, e))
+                else:
+                    if dom is not None:
+                        dom.note_success()
+            ok, val = cell[0]
+            if not ok:
+                raise val
+            return val
+
+        return wrapper
+
     # -- public surface -----------------------------------------------------
 
     def predict_frame(self, frame: Frame) -> Frame:
         return self.predict_frame_async(frame)()
 
     def predict_frame_async(self, frame: Frame) -> Callable[[], Frame]:
-        """Dispatch without blocking; returns a zero-arg finalize
-        producing the output Frame.  Oversized frames dispatch
+        """Dispatch without blocking; returns a zero-arg, once-only
+        finalize producing the output Frame.  Oversized frames dispatch
         chunk-by-chunk through a sliding window of ``CHUNK_WINDOW``
         outstanding chunks (chunk i+W dispatches once chunk i is copied
         back), with one finalize and one concat.  That finalize
@@ -127,7 +270,7 @@ class BatchPredictor:
         launches work: the engine retires an oversized batch on its own
         thread."""
         if frame.num_rows <= self.chunk_rows:
-            return self._dispatch_one(frame)
+            return self._memo(self._dispatch_one(frame))
         chunks = [
             frame.slice(s, min(s + self.chunk_rows, frame.num_rows))
             for s in range(0, frame.num_rows, self.chunk_rows)
@@ -144,7 +287,7 @@ class BatchPredictor:
                     fins.append(self._dispatch_one(chunks[nxt]))
             return Frame.concat_all(outs)
 
-        return finalize
+        return self._memo(finalize)
 
     def fusion_stats(self) -> Optional[dict]:
         """The wrapped model's fusion evidence (``fuse.fusion_stats``),

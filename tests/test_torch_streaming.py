@@ -385,10 +385,15 @@ def test_serve_parser_defaults_are_the_jax_commands(monkeypatch):
     for flag in ("pipeline_depth", "prefetch_batches", "read_workers",
                  "fuse", "wal_mode", "wal_compact_every",
                  "wal_keep_commits", "shape_buckets", "max_files_per_batch",
-                 "label_index_col", "poll_interval", "once"):
+                 "label_index_col", "poll_interval", "once",
+                 "batch_retry_attempts", "max_batch_failures",
+                 "dead_letter_keep", "device_faults", "health_json",
+                 "max_batch_wall_time"):
         assert getattr(args, flag) == getattr(jax_args, flag), flag
     assert (args.pipeline_depth, args.prefetch_batches, args.read_workers,
             args.fuse, args.wal_mode) == (2, 2, 4, True, "files")
+    assert (args.batch_retry_attempts, args.max_batch_failures,
+            args.dead_letter_keep, args.device_faults) == (2, 3, 200, True)
 
 
 def test_predictor_dispatches_every_chunk_on_the_calling_thread(model_dir):
