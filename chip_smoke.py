@@ -68,7 +68,8 @@ each of which fails the run (non-zero exit, no result line):
    plain version and, with equal integer stats rows, against the shared
    form bitwise; ``forest_traversal`` bitwise and timed at the margin
    walk and the 150-tree serve walk.  ``pad_assemble`` is also timed by
-   its device time a launch at [50 000, 78] and [1 000, 78];
+   its device time a launch at [50 000, 78] and [1 000, 78], each with
+   phase 3's launches at that shape;
 7. bench configs 2 and 1, the LBFGS fits, on bench.py's data seed 7
    (split 0.8/0.2 with seed 0): ``python -m sntc_tpu_torch train`` with
    the default estimator (MLP [78, 64, 15], 100 iterations, on 500 000
@@ -166,6 +167,36 @@ each of which fails the run (non-zero exit, no result line):
    drain marker); a persistent ``device_lost`` (exit non-zero after 3
    rounds, the intent in the WAL, the model UNHEALTHY) and a clean
    restart replaying it into the clean run's files.  One JSON line
+   reports the phase;
+12. the serve command's data plane on phase 3's config-3 model, every
+   serve a ``serve --once`` process with its launch counts from 0 (the
+   six of (a)-(c) started together, so that their start-ups overlap):
+   (a) 6 uncleaned CSV files of 30 000 rows and a 7th holding 5 ragged
+   lines, 2 files a batch, served with ``--row-policy salvage``: batch
+   files byte-identical to serving the same rows pre-cleaned
+   (``clean_flows`` drop, ragged lines removed) at ``strict``, the row
+   dead letters naming exactly the non-finite rows (batch, row) and the
+   ragged lines (file, line), ``pad_assemble`` and ``forest_traversal``
+   once a batch, each ``pad_assemble`` launch at its batch's float32
+   [rows, 78] block (the run's ``pad_launch_shapes``); (b) one file of exactly 65 536 rows with poison rows,
+   alone in a batch: one zero-row ``pad_assemble`` launch, output equal
+   to the pre-cleaned run; (c) ``--row-policy permissive`` equal to
+   serving ``clean_flows(handle_invalid="zero")``; (d) ``pad_rows`` on
+   the contract's float32 [60 000, 78] -> 65 536 and [65 536, 78] ->
+   65 536, bitwise against the plain version, timed beside its bound
+   and ``index_select``, each with the launches its own run counted at
+   that shape (the salvage run's full batches; the exact bucket's
+   zero-row pad); (e) the storage plane: an append-WAL serve
+   killed at a commit (``SNTC_FAULTS=stream.commit:kill``), the torn
+   tail a crash mid-append leaves written after it, ``python -m
+   sntc_tpu_torch fsck`` repairing it (exit 0) and the restart resuming
+   exactly once into the clean run's files; a forged compaction seal
+   (``fsck`` exits 1); the supervised loop under ``storage.wal:enospc``
+   and ``storage.dead_letter:io_error`` faults with ``--disk-budget-mb
+   0.01`` (the batches retried and byte-identical to (a), the row dead
+   letters degraded then recovered, ``disk_budget_exceeded`` and
+   DEGRADED in ``--health-json``); a flipped byte in a saved model,
+   which ``load_model`` answers with its ``.prev``.  One JSON line
    reports the phase.
 
 Exits non-zero without CUDA, and in a directory that holds this script
@@ -183,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -205,7 +237,11 @@ from sntc_tpu_torch.feature import (
     VectorAssembler,
 )
 from sntc_tpu_torch.kernels import _build, histogram
-from sntc_tpu_torch.kernels.assemble import pad_rows_cuda, pad_rows_reference
+from sntc_tpu_torch.kernels.assemble import (
+    pad_launch_shape,
+    pad_rows_cuda,
+    pad_rows_reference,
+)
 from sntc_tpu_torch.kernels.forest import (
     forest_leaf_stats_cuda,
     forest_leaf_stats_reference,
@@ -378,6 +414,14 @@ OOM_FAULTS = "device.dispatch:device_oom:0.3:7"
 # reserved peak above the model's resident memory
 OOM_CAP_SHARE = 0.8
 FAULT_WAIT_S = 120.0  # the longest a phase-11 serving process is awaited
+# phase 12: row admission and the storage plane on config 3
+DP_FILES, DP_FILE_ROWS, DP_FILES_PER_BATCH = 6, 30_000, 2
+DP_EXACT_ROWS = 65_536  # one file that fills its bucket exactly
+DP_KILL = "stream.commit:kill:0.5:0"  # lets batch 0 commit, kills batch 1's
+# storage.wal fails its 3rd and 10th write; the row dead letters' 2nd
+# write fails and the 3rd recovers
+DP_DISK_FAULTS = "storage.wal:enospc:0.2:1,storage.dead_letter:io_error:0.5:9"
+DP_BUDGET_MB = 0.01
 
 
 def log(*a):
@@ -2342,7 +2386,7 @@ def fit_regressors(dev, data: dict) -> dict:
     return {"fits": out, "kept": kept}
 
 
-def measure_phase9(dev, regs: dict, served: dict, pad_err: float) -> list:
+def measure_phase9(dev, regs: dict, served: dict) -> list:
     """The new shapes of phase 9: ``tree_hist`` on each regressor's
     widest launch (shared variance stats for DT and GBT, times bagging
     counts for RF) beside one ``index_add_`` of the same function;
@@ -2382,8 +2426,8 @@ def measure_phase9(dev, regs: dict, served: dict, pad_err: float) -> list:
                      f"{walk[0].shape[1]}] f32, T={T}, M={M}, S=3; needs "
                      f"{nbytes} B, {ops} comparisons",
         })
-    pad = measure_pad_at(dev, NB_SVC_BATCHES[0], pad_err,
-                         served["nb"]["kernel_launches"]["pad_assemble"])
+    pad = measure_pad_at(dev, NB_SVC_BATCHES[0],
+                         served["nb"]["pad_launch_shapes"])
     pad["shape"] = "nb serve: " + pad["shape"]
     out.append(pad)
     return out
@@ -2805,7 +2849,7 @@ def tvs_serve(dev, frame: Frame, test: Frame, work: str) -> dict:
             "bestIndex": tvs.bestIndex, "serve": summary}
 
 
-def lane_fits(dev, data2: dict, data1: dict, work: str, pad_err: float):
+def lane_fits(dev, data2: dict, data1: dict, work: str):
     """Phase 10, 10a-10d; its ``pad_assemble`` entry at 10d's padded
     [1 000, 78] batch, with 10d's serve count.  A tolerance missed in
     10a-10c fails the phase after all four have run."""
@@ -2817,8 +2861,8 @@ def lane_fits(dev, data2: dict, data1: dict, work: str, pad_err: float):
               if "failed" in out[k]]
     if failed:
         raise SystemExit("\n".join(failed))
-    pad = measure_pad_at(dev, TUNED_BATCHES[0], pad_err,
-                         out["tvs"]["serve"]["kernel_launches"]["pad_assemble"])
+    pad = measure_pad_at(dev, TUNED_BATCHES[0],
+                         out["tvs"]["serve"]["pad_launch_shapes"])
     pad["shape"] = "tuned best model's serve: " + pad["shape"]
     out["pad"] = pad
     return out
@@ -3252,6 +3296,395 @@ def failure_paths(dev, work: str) -> dict:
     }
 
 
+# -- phase 12: the data plane (row admission, the storage plane) ------------
+
+
+def dp_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise SystemExit(f"phase 12 {what}: launches {got}, expected {want}")
+
+
+def ragged_lines(columns: int) -> list:
+    """The hand-made ragged lines of phase 12: each has the wrong field
+    count (one too many, one too few, three, one, 80)."""
+    return ["1," * columns + "1", "1," * (columns - 2) + "1", "not,a,flow",
+            "garbage", ",".join(["2"] * 80)]
+
+
+def bad_rows(frame: Frame) -> np.ndarray:
+    """Rows with a non-finite feature (the contract's poison)."""
+    X = np.stack([np.asarray(frame[c], np.float64)
+                  for c in CICIDS2017_FEATURES], axis=1)
+    return ~np.isfinite(X).all(axis=1)
+
+
+def dp_streams(work: str) -> dict:
+    """Phase 12's inputs: DP_FILES uncleaned files of DP_FILE_ROWS rows
+    and one more holding the ragged lines (2 files a batch), the same
+    rows pre-cleaned (``clean_flows`` drop, the ragged lines gone) and
+    zero-filled (``handle_invalid="zero"``); one file of DP_EXACT_ROWS
+    uncleaned rows and its pre-cleaned copy."""
+    n = (DP_FILES + 1) * DP_FILE_ROWS
+    traffic = generate_frame(n, seed=SEED + 12).drop("Label")
+    dirs = {k: os.path.join(work, f"in12_{k}")
+            for k in ("raw", "clean", "zero", "exact", "exact_clean")}
+    for d in dirs.values():
+        os.makedirs(d)
+    parts = [(f"part_{i:04d}.csv",
+              traffic.slice(i * DP_FILE_ROWS, (i + 1) * DP_FILE_ROWS))
+             for i in range(DP_FILES + 1)]
+
+    def write(item):  # pyarrow's writer releases the GIL: 4 at once
+        name, part = item
+        write_raw_csv(part, os.path.join(dirs["raw"], name))
+        write_raw_csv(clean_flows(part), os.path.join(dirs["clean"], name))
+        write_raw_csv(clean_flows(part, handle_invalid="zero"),
+                      os.path.join(dirs["zero"], name))
+
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(write, parts))
+    name, part = parts[-1]
+    path = os.path.join(dirs["raw"], name)
+    lines = open(path).read().splitlines(True)
+    lines_ragged = ragged_lines(len(traffic.columns))
+    step = DP_FILE_ROWS // (len(lines_ragged) + 1)
+    for k, text in reversed(list(enumerate(lines_ragged))):
+        at = 1 + (k + 1) * step  # after the header and (k+1)·step rows
+        lines.insert(at, text + "\n")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    ragged = sorted((name, 1 + (k + 1) * step + k + 1)
+                    for k in range(len(lines_ragged)))
+    exact = generate_frame(DP_EXACT_ROWS, seed=SEED + 13).drop("Label")
+    write_raw_csv(exact, os.path.join(dirs["exact"], "part_0000.csv"))
+    write_raw_csv(clean_flows(exact),
+                  os.path.join(dirs["exact_clean"], "part_0000.csv"))
+    # the poison rows by batch: (batch id, row in the batch)
+    poison = []
+    for b in range(0, len(parts), DP_FILES_PER_BATCH):
+        rows = Frame.concat_all([p for _, p in
+                                 parts[b:b + DP_FILES_PER_BATCH]])
+        poison += [(b // DP_FILES_PER_BATCH, int(r))
+                   for r in np.flatnonzero(bad_rows(rows))]
+    exact_poison = int(bad_rows(exact).sum())
+    if not exact_poison:
+        raise SystemExit("phase 12: the exact-bucket file has no poison row")
+    return {"dirs": dirs, "ragged": ragged, "poison": sorted(poison),
+            "batches": -(-len(parts) // DP_FILES_PER_BATCH),
+            "exact_poison": exact_poison}
+
+
+def row_dead_letters(ckpt: str) -> list:
+    out = []
+    d = os.path.join(ckpt, "dead_letter_rows")
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+        out += [json.loads(x) for x in open(os.path.join(d, name))]
+    return out
+
+
+def dp_serves(model_dir: str, dev, work: str, jobs: list) -> dict:
+    """Each ``(tag, watch, extra, files_per_batch)`` of ``jobs`` as a
+    ``serve --once`` process of its own (its launch counts from 0), all
+    started together so that their start-ups overlap; tag -> (summary
+    line, batch files, checkpoint dir)."""
+    procs = {}
+    try:
+        for tag, watch, extra, files_per_batch in jobs:
+            out = os.path.join(work, f"out12_{tag}")
+            ckpt = os.path.join(work, f"ckpt12_{tag}")
+            cmd = serve_args(model_dir, watch, out, ckpt, dev,
+                             files_per_batch) + ["--once", *extra]
+            procs[tag] = (subprocess.Popen(
+                cmd, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), out, ckpt)
+        done = {}
+        for tag, (proc, out, ckpt) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 12 {tag} serve failed "
+                                 f"({proc.returncode}):\n{stderr}")
+            done[tag] = (json.loads(stdout.strip().splitlines()[-1]),
+                         sink_files(out), ckpt)
+        return done
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def pad_shapes_of(summary: dict) -> dict:
+    """The ``pad_launch_shapes`` a serve run should report: one launch of
+    the contract's float32 [rows, 78] block to its bucket a batch."""
+    want: dict = {}
+    for p in summary["progress"]:
+        n = p["numInputRows"]
+        key = pad_launch_shape(n, len(CICIDS2017_FEATURES), torch.float32,
+                               bucket_rows_for(n, BUCKET_FLOOR))
+        want[key] = want.get(key, 0) + 1
+    return want
+
+
+def admission_runs(dev, model_dir: str, streams: dict, work: str) -> dict:
+    """(a) salvage against the pre-cleaned rows, (b) the exact bucket,
+    (c) permissive against the zero-filled rows: the six serves side by
+    side, then their checks."""
+    dirs, batches = streams["dirs"], streams["batches"]
+    want = {"forest_traversal": batches, "pad_assemble": batches,
+            "tree_hist": 0}
+    t0 = time.perf_counter()
+    served = dp_serves(model_dir, dev, work, [
+        ("clean", dirs["clean"], [], DP_FILES_PER_BATCH),
+        ("salvage", dirs["raw"], ["--row-policy", "salvage"],
+         DP_FILES_PER_BATCH),
+        ("exact_clean", dirs["exact_clean"], [], 1),
+        ("exact", dirs["exact"], ["--row-policy", "salvage"], 1),
+        ("zero", dirs["zero"], [], DP_FILES_PER_BATCH),
+        ("permissive", dirs["raw"], ["--row-policy", "permissive"],
+         DP_FILES_PER_BATCH)])
+    log(f"phase 12: six serves side by side in "
+        f"{time.perf_counter() - t0:.1f} s with their process start-ups")
+    ref_s, ref, _ = served["clean"]
+    sal_s, sal, sal_ckpt = served["salvage"]
+    if sal != ref or len(sal) != batches or sal_s["quarantined"]:
+        raise SystemExit(f"phase 12 salvage: {len(sal)} batch files, "
+                         f"identical to the pre-cleaned run's: {sal == ref}")
+    dp_launches("salvage", sal_s["kernel_launches"], want)
+    if sal_s["pad_launch_shapes"] != pad_shapes_of(sal_s):
+        raise SystemExit(f"phase 12 salvage: pad_assemble launched at "
+                         f"{sal_s['pad_launch_shapes']}, expected "
+                         f"{pad_shapes_of(sal_s)}")
+    records = row_dead_letters(sal_ckpt)
+    got_poison = sorted((r["batch_id"], r["row"]) for r in records
+                        if r["reason"] == "non_finite")
+    got_ragged = sorted((os.path.basename(r["file"]), r["line"])
+                        for r in records if r["reason"] == "ragged_row")
+    if got_poison != streams["poison"] or got_ragged != streams["ragged"] \
+            or len(records) != len(got_poison) + len(got_ragged):
+        raise SystemExit(f"phase 12 row dead letters: {len(got_poison)} "
+                         f"non-finite rows (expected "
+                         f"{len(streams['poison'])}), ragged {got_ragged} "
+                         f"(expected {streams['ragged']})")
+    admission = sal_s["pipeline_stats"]["admission"]
+    if admission["rows_rejected"] != len(records) \
+            or admission["batches_salvaged"] != batches:
+        raise SystemExit(f"phase 12 admission stats {admission}")
+    log(f"phase 12 salvage: {batches} batches byte-identical to the "
+        f"pre-cleaned run, {len(got_poison)} non-finite rows and "
+        f"{len(got_ragged)} ragged lines dead-lettered, launches "
+        f"{sal_s['kernel_launches']}")
+
+    ex_ref_s, ex_ref, _ = served["exact_clean"]
+    ex_s, ex, _ = served["exact"]
+    stats = ex_s["pipeline_stats"]
+    if ex != ex_ref or ex_s["rows"] != DP_EXACT_ROWS \
+            or stats["padded_rows_total"] != 0 \
+            or stats["compile_events"] != 1:
+        raise SystemExit(f"phase 12 exact bucket: identical {ex == ex_ref}, "
+                         f"rows {ex_s['rows']}, stats {stats}")
+    dp_launches("exact bucket", ex_s["kernel_launches"],
+                {"forest_traversal": 1, "pad_assemble": 1, "tree_hist": 0})
+    if ex_s["pad_launch_shapes"] != pad_shapes_of(ex_s):
+        raise SystemExit(f"phase 12 exact bucket: pad_assemble launched at "
+                         f"{ex_s['pad_launch_shapes']}")
+
+    zero_s, zero, _ = served["zero"]
+    perm_s, perm, perm_ckpt = served["permissive"]
+    perm_records = row_dead_letters(perm_ckpt)
+    if perm != zero or {r["reason"] for r in perm_records} \
+            != {"ragged_row"} or len(perm_records) != len(got_ragged) \
+            or perm_s["pipeline_stats"]["admission"]["rows_coerced"] == 0:
+        raise SystemExit(f"phase 12 permissive: identical to the zero-filled "
+                         f"run's {perm == zero}, dead letters "
+                         f"{len(perm_records)}, admission "
+                         f"{perm_s['pipeline_stats']['admission']}")
+    dp_launches("permissive", perm_s["kernel_launches"], want)
+    return {"batches": batches, "salvage": sal_s, "clean": ref_s,
+            "exact": ex_s, "exact_clean": ex_ref_s, "permissive": perm_s,
+            "zero": zero_s, "dead_letters": len(records),
+            "salvage_files": sal, "clean_files": ref}
+
+
+def events_of(path: str) -> list:
+    return [json.loads(x) for x in open(path)] if os.path.exists(path) \
+        else []
+
+
+def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
+                 work: str) -> dict:
+    """(e): the kill at commit, fsck and the restart; disk faults at the
+    WAL and the row dead letters with a disk budget under the
+    supervised loop; a forged compaction seal; a flipped checkpoint
+    byte."""
+    from sntc_tpu_torch.resilience import clear_events, recent_events
+
+    dirs = streams["dirs"]
+    out, ckpt = os.path.join(work, "out12_kill"), \
+        os.path.join(work, "ckpt12_kill")
+    cmd = serve_args(model_dir, dirs["clean"], out, ckpt, dev,
+                     DP_FILES_PER_BATCH) + [
+        "--once", "--wal-mode", "append", "--wal-compact-every", "2"]
+    killed = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                            timeout=600, env=env_with(SNTC_FAULTS=DP_KILL))
+    commits = [json.loads(x) for x in open(os.path.join(ckpt,
+                                                        "commits.log"))]
+    if killed.returncode != 137 or not 0 < len(commits) < runs["batches"]:
+        raise SystemExit(f"phase 12 kill: exit {killed.returncode}, "
+                         f"{len(commits)} commits:\n{killed.stderr[-2000:]}")
+    # what a crash in the middle of the next commit's append leaves
+    with open(os.path.join(ckpt, "commits.log"), "a") as f:
+        f.write('{"batch_id": %d, "start": ' % len(commits))
+    doctor = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    report = json.loads(doctor.stdout)
+    if doctor.returncode != 0 or [r["action"] for r in report["repaired"]] \
+            != ["truncate_torn_tail"]:
+        raise SystemExit(f"phase 12 fsck after the kill: exit "
+                         f"{doctor.returncode}, {report}")
+    restart = serve_command(model_dir, dirs["clean"], out, ckpt, dev,
+                            ["--wal-mode", "append", "--wal-compact-every",
+                             "2"], DP_FILES_PER_BATCH)
+    committed = [json.loads(x)["batch_id"] for x in open(
+        os.path.join(ckpt, "commits.log"))]
+    if sink_files(out) != runs["clean_files"] \
+            or restart["batches"] != runs["batches"] - len(commits) \
+            or not os.path.exists(os.path.join(ckpt, "wal_checkpoint.json")):
+        raise SystemExit(f"phase 12 restart: {restart['batches']} batches "
+                         f"after {len(commits)} commits; files identical to "
+                         "the clean run's "
+                         f"{sink_files(out) == runs['clean_files']}")
+    log(f"phase 12 kill at commit {len(commits)}: fsck repaired the torn "
+        f"tail, the restart committed {restart['batches']} batches, files "
+        f"byte-identical (commits.log after compaction: {committed})")
+    path = os.path.join(ckpt, "wal_checkpoint.json")
+    sealed = json.load(open(path))
+    sealed["end"] += 1  # forged without resealing
+    with open(path, "w") as f:
+        json.dump(sealed, f)
+    forged = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    if forged.returncode != 1 or "sha256 mismatch" not in forged.stdout:
+        raise SystemExit(f"phase 12 forged seal: fsck exited "
+                         f"{forged.returncode}")
+
+    # the supervised loop under disk faults and a disk budget
+    out = os.path.join(work, "out12_disk")
+    ckpt = os.path.join(work, "ckpt12_disk")
+    health = os.path.join(work, "health12.json")
+    events = os.path.join(work, "events12.jsonl")
+    cmd = serve_args(model_dir, dirs["raw"], out, ckpt, dev,
+                     DP_FILES_PER_BATCH) + [
+        "--row-policy", "salvage", "--poll-interval", "0.2",
+        "--health-json", health, "--disk-budget-mb", str(DP_BUDGET_MB)]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=env_with(SNTC_FAULTS=DP_DISK_FAULTS,
+                                         SNTC_RESILIENCE_LOG=events))
+    def over_budget() -> bool:
+        # the disk is measured at most every 5 s (StoragePlane's
+        # throttle): the breach shows in the dump within a few ticks
+        if not os.path.exists(health):
+            return False
+        st = json.load(open(health))
+        return st["storage"]["disk"]["over_budget"] and st["health"][
+            "components"].get("storage.budget", {}).get("state") \
+            == "DEGRADED"
+
+    try:
+        wait_for(lambda: commit_count(ckpt) >= runs["batches"],
+                 "every batch under disk faults", proc)
+        wait_for(over_budget, "the disk budget's breach", proc, limit=30.0)
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=FAULT_WAIT_S)
+    except BaseException:
+        proc.kill()
+        raise
+    status = json.load(open(health))
+    ev = events_of(events)
+    wal_faults = [e for e in ev if e.get("event") == "fault_injected"
+                  and e.get("site") == "storage.wal"]
+    episodes = [e["event"] for e in ev
+                if e.get("artifact") == "dead_letter_rows"
+                and e.get("event") in ("storage_degraded",
+                                       "storage_recovered")]
+    budget = status["health"]["components"].get("storage.budget", {})
+    if proc.returncode != 0 or sink_files(out) != runs["salvage_files"] \
+            or not wal_faults or episodes[:2] != ["storage_degraded",
+                                                   "storage_recovered"] \
+            or not status["storage"]["disk"]["over_budget"] \
+            or budget.get("state") != "DEGRADED" \
+            or status["health"]["overall"] == "OK":
+        raise SystemExit(f"phase 12 disk faults: exit {proc.returncode}, "
+                         "files identical "
+                         f"{sink_files(out) == runs['salvage_files']}, "
+                         f"{len(wal_faults)} WAL faults, dead-letter "
+                         f"episodes {episodes}, budget {budget}, storage "
+                         f"{status['storage']}:\n{stderr[-2000:]}")
+    log(f"phase 12 disk faults: {len(wal_faults)} storage.wal faults "
+        f"retried, dead letters {episodes}, disk "
+        f"{status['storage']['disk']['total_bytes']} B over the "
+        f"{DP_BUDGET_MB} MB budget, health {status['health']['overall']}")
+
+    # a flipped byte in the model checkpoint: load_model takes .prev
+    path = os.path.join(work, "model12")
+    for _ in range(2):
+        save_model(load_model(model_dir, device=dev), path)
+    npz = sorted(os.path.join(d, n) for d, _, names in os.walk(path)
+                 for n in names if n == "data.npz")[-1]
+    with open(npz, "r+b") as f:
+        f.seek(200)
+        b = f.read(1)
+        f.seek(200)
+        f.write(bytes([b[0] ^ 0xFF]))
+    clear_events()
+    loaded = load_model(path, device=dev)
+    fell_back = recent_events(event="ckpt_fallback")
+    sample = load_csv(os.path.join(dirs["clean"], "part_0000.csv"))
+    served = serving_form(loaded, "label")[0].transform(sample)
+    want = serving_form(load_model(model_dir, device=dev),
+                        "label")[0].transform(sample)
+    if len(fell_back) != 1 or not np.array_equal(
+            to_host(served["prediction"]), to_host(want["prediction"])):
+        raise SystemExit(f"phase 12 checkpoint fallback: {fell_back}")
+    return {"killed_after": len(commits), "restart": restart["batches"],
+            "fsck_repaired": report["repaired"][0]["torn_bytes"],
+            "forged_rc": forged.returncode,
+            "wal_faults": len(wal_faults), "dead_letter_episodes": episodes,
+            "disk_total_bytes": status["storage"]["disk"]["total_bytes"],
+            "health": status["health"]["overall"],
+            "ckpt_fallback": fell_back[0]["fallback_path"]}
+
+
+def data_plane(dev, work: str) -> dict:
+    """Phase 12: row admission and the storage plane on phase 3's
+    config-3 model (see the module docs)."""
+    t0 = time.perf_counter()
+    model_dir = os.path.join(work, "model")
+    streams = dp_streams(work)
+    log(f"phase 12 traffic: {DP_FILES + 1} files of {DP_FILE_ROWS} rows "
+        f"({len(streams['poison'])} poison rows, {len(streams['ragged'])} "
+        f"ragged lines), {DP_EXACT_ROWS} rows with "
+        f"{streams['exact_poison']} poison rows "
+        f"({time.perf_counter() - t0:.1f} s to generate and write)")
+    runs = admission_runs(dev, model_dir, streams, work)
+    storage = storage_runs(dev, model_dir, streams, runs, work)
+    # the contract's float32 block: each shape with the count of the run
+    # that padded it (the salvage run's full batches, the exact bucket's
+    # zero-row pad)
+    pads = [measure_pad_at(dev, DP_FILES_PER_BATCH * DP_FILE_ROWS,
+                           runs["salvage"]["pad_launch_shapes"],
+                           torch.float32),
+            measure_pad_at(dev, DP_EXACT_ROWS,
+                           runs["exact"]["pad_launch_shapes"],
+                           torch.float32, DP_EXACT_ROWS)]
+    for x in ("salvage_files", "clean_files"):
+        del runs[x]
+    return {"runs": runs, "storage": storage, "pads": pads,
+            "seconds": time.perf_counter() - t0}
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -3510,21 +3943,35 @@ def measure_forest(dev, served: dict, err: float, launches: int) -> list:
     return out
 
 
-def measure_pad_at(dev, n: int, err: float, launches: int) -> dict:
-    """``pad_assemble`` of an ``[n, 78]`` f64 batch to its bucket: a
+def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
+                   target: int | None = None) -> dict:
+    """``pad_assemble`` of an ``[n, 78]`` block to its bucket (or to
+    ``target``): bitwise against its plain version on the same inputs, a
     call's time by CUDA events, as for every kernel, and the device time
     a launch (100 queued: the output's allocation costs no launch),
-    beside ``index_select``'s."""
-    target = bucket_rows_for(n, BUCKET_FLOOR)
-    a = torch.randn((n, len(CICIDS2017_FEATURES)), dtype=torch.float64,
-                    device=dev)
+    beside ``index_select``'s.  ``launches`` is what ``shapes`` (a serve
+    run's ``pad_launch_shapes``) counted at this block and target; none
+    there fails the phase."""
+    target = bucket_rows_for(n, BUCKET_FLOOR) if target is None else target
+    c = len(CICIDS2017_FEATURES)
+    key = pad_launch_shape(n, c, dtype, target)
+    if shapes.get(key, 0) < 1:
+        raise SystemExit(f"pad_assemble {key}: not launched in its run, "
+                         f"which padded {shapes}")
+    a = torch.randn((n, c), dtype=dtype, device=dev)
+    out, ref = pad_rows_cuda(a, target), pad_rows_reference(a, target)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise SystemExit(f"pad_assemble {key}: differs from its plain "
+                         "version")
     idx = torch.clamp(torch.arange(target, device=dev), max=n - 1)
-    p_bytes = (n + target) * a.shape[1] * 8
+    p_bytes = (n + target) * c * a.element_size()
     return {
         "name": "pad_assemble", "route": "cuda",
         "source": "sntc_tpu_torch/kernels/csrc/pad_rows.cu",
         "replaces": "sntc_tpu/kernels/assemble.py:69",
-        "launches": launches, "max_abs_err": err,
+        "launches": shapes[key],
+        "max_abs_err": (out - ref).abs().max().item(),
         "ms": time_ms(lambda: pad_rows_cuda(a, target)),
         "device_ms": kernel_device_ms(lambda: pad_rows_cuda(a, target)),
         "plain_ms": time_ms(lambda: pad_rows_reference(a, target)),
@@ -3533,16 +3980,15 @@ def measure_pad_at(dev, n: int, err: float, launches: int) -> dict:
         "library_ms": time_ms(lambda: a.index_select(0, idx)),
         "library_device_ms": kernel_device_ms(
             lambda: a.index_select(0, idx)),
-        "shape": f"[{n}, 78] f64 -> [{target}, 78]; needs {p_bytes} B",
+        "shape": f"{key}; needs {p_bytes} B",
     }
 
 
-def measure_pad(dev, errs: dict, launches: dict) -> list:
+def measure_pad(dev, shapes: dict) -> list:
     """``pad_assemble`` at the largest padded micro-batch ([50 000, 78]
     f64 -> 65 536, the JSON line's entry) and at a small one ([1 000,
     78] -> 1 024)."""
-    return [measure_pad_at(dev, n, errs["pad_assemble"],
-                           launches["pad_assemble"])
+    return [measure_pad_at(dev, n, shapes)
             for n in (max(b for b in BATCHES
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
@@ -3572,6 +4018,7 @@ def main() -> int:
         summary, served = serve(dev, work)
         forms = serve_forms(dev, work)
         failures = failure_paths(dev, work)
+        phase12 = data_plane(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
         data4 = gbt_data(work)
@@ -3595,7 +4042,7 @@ def main() -> int:
         "fit": trained4["kernel_launches"]["forest_traversal"],
         "serve": served4["summary"]["kernel_launches"]["forest_traversal"]})
     kernels = [next(k for k in walks if k["rows"] == max(FOREST_ROWS))]
-    pads = measure_pad(dev, errs, summary["kernel_launches"])
+    pads = measure_pad(dev, summary["pad_launch_shapes"])
     kernels.append(pads[0])
     timed = {k: cases[k] for k in ("widest level group", "chisq")}
     hist = measure_tree_hist({**timed, **own}, errs["tree_hist"],
@@ -3621,11 +4068,12 @@ def main() -> int:
         evaluated9 = evaluate_commands(dev, data2, trained9, work)
     fit2 = mlp_fit_profile(dev, data2)
     regs = fit_regressors(dev, data4)
-    new9 = measure_phase9(dev, regs, served9, errs["pad_assemble"])
+    new9 = measure_phase9(dev, regs, served9)
     kernels += new9
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
-        phase10 = lane_fits(dev, data2, data1, work, errs["pad_assemble"])
+        phase10 = lane_fits(dev, data2, data1, work)
     kernels.append(phase10["pad"])
+    kernels += phase12["pads"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -3721,7 +4169,7 @@ def main() -> int:
             f"{k['plain_ms']:.4f} ms; index_select {k['library_ms']:.4f} ms "
             f"a call, {k['library_device_ms']:.4f} ms of device time; bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
-            f"launches over {len(BATCHES)} batches [{card}]")
+            f"launches at this shape over {len(BATCHES)} batches [{card}]")
     for k in new9:
         lib = ("" if k["library_ms"] is None else
                f", library {k['library_ms']:.4f} ms a call")
@@ -3767,6 +4215,30 @@ def main() -> int:
         "device_lost_transient": f11["transient_device_lost"]["faults"],
         "device_lost_persistent_rc": f11["persistent_device_lost"]["rc"],
     }))
+    p12 = phase12["runs"]
+    for tag in ("clean", "salvage", "exact_clean", "exact", "zero",
+                "permissive"):
+        s = p12[tag]
+        log(f"phase 12 {tag} run: {s['batches']} batches, {s['rows']} rows in "
+            f"{s['seconds']:.3f} s of serving; launches "
+            f"{s['kernel_launches']}; admission "
+            f"{s['pipeline_stats'].get('admission')}; padded rows "
+            f"{s['pipeline_stats']['padded_rows_total']} [{card}]")
+    for k in phase12["pads"]:
+        log(f"phase 12 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; index_select {k['library_ms']:.4f} ms "
+            f"a call, {k['library_device_ms']:.4f} ms of device time; bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
+            f"launches at this shape in its run, max abs error "
+            f"{k['max_abs_err']} against the plain version [{card}]")
+    log("phase 12 " + json.dumps({
+        "phase": 12, "card": card, "seconds": round(phase12["seconds"], 3),
+        "batches": p12["batches"], "row_dead_letters": p12["dead_letters"],
+        "salvage_launches": p12["salvage"]["kernel_launches"],
+        "exact_launches": p12["exact"]["kernel_launches"],
+        "permissive_launches": p12["permissive"]["kernel_launches"],
+        **phase12["storage"]}))
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -3791,12 +4263,13 @@ def main() -> int:
                                   "serve": served9, "evaluate": evaluated9,
                                   "regressors": regs["fits"],
                                   "kernels": new9},
-                       "phase10": phase10, "phase11": failures}, f,
+                       "phase10": phase10, "phase11": failures,
+                       "phase12": phase12}, f,
                       indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()
-         if k2 not in ("shape", "plan", "rows", "forest",
-                       "per_class_device_ms", "library_device_ms")}
+         if k2 not in ("plan", "rows", "forest", "per_class_device_ms",
+                       "library_device_ms")}
         for k in kernels
     ]}))
     print(card)

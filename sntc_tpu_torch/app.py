@@ -14,9 +14,13 @@
         [--wal-keep-commits 64] [--batch-retry-attempts 2] \\
         [--max-batch-failures 3] [--dead-letter-keep 200] \\
         [--device-faults|--no-device-faults] [--health-json PATH] \\
-        [--max-batch-wall-time S] [--once] [--device cuda|cpu]
+        [--max-batch-wall-time S] [--disk-budget-mb MB] \\
+        [--row-policy strict|salvage|permissive] [--row-dead-letter DIR] \\
+        [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
+    python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
+        [--no-repair] [--report PATH]
 
 ``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
 read and clean every CSV of ``--data``, split off ``--test-fraction``
@@ -65,8 +69,19 @@ answers CUDA errors on the card (an OOM splits the batch; a device that
 keeps failing stops the command non-zero with the batch in the WAL).
 ``--once`` drains what is there (one round per batch) and prints one
 JSON summary line; without it the command runs the supervised loop
-(``--health-json``, ``--max-batch-wall-time``), which SIGTERM drains,
-and prints ``{"batches", "drained", "health"}``.
+(``--health-json``, ``--max-batch-wall-time``, ``--disk-budget-mb``: the
+checkpoint root's bytes against a budget, a breach DEGRADED), which
+SIGTERM drains, and prints ``{"batches", "drained", "health"}``.
+``--row-policy salvage|permissive`` arms row admission against
+``CICIDS2017_CONTRACT`` and per-line salvage in the CSV parser: poison
+rows and ragged lines are excised into the row dead letters
+(``--row-dead-letter``, default ``<checkpoint>/dead_letter_rows/``)
+while the clean rows serve; ``strict`` (the default) trusts the input.
+
+``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
+root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
+what is safe unless ``--no-repair``, print one JSON report (also to
+``--report``) and exit 1 when unrepairable damage remains.
 """
 
 from __future__ import annotations
@@ -329,7 +344,7 @@ def cmd_evaluate(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from sntc_tpu_torch.kernels import LAUNCHES
+    from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
     from sntc_tpu_torch.mlio import load_model
     from sntc_tpu_torch.resilience import (
         DeviceFaultDomain,
@@ -345,6 +360,14 @@ def cmd_serve(args) -> int:
         StreamingQuery,
     )
 
+    # --row-policy salvage|permissive admits rows against the canonical
+    # contract (poison rows excised to the row dead letters) and arms
+    # per-line salvage in the CSV parser; strict trusts the input
+    contract = None
+    if args.row_policy != "strict":
+        from sntc_tpu_torch.data.schema import CICIDS2017_CONTRACT
+
+        contract = CICIDS2017_CONTRACT.with_mode(args.row_policy)
     device = resolve_device(args.device)
     if device.type == "cuda":
         from sntc_tpu_torch.kernels._build import library
@@ -368,6 +391,7 @@ def cmd_serve(args) -> int:
         prefetch_batches=(args.prefetch_batches
                           if args.pipeline_depth > 1 else 0),
         read_workers=args.read_workers,
+        parse_salvage=contract is not None,
     )
     # a served query moves past a poison batch: reads and sink writes
     # retry in place, and a batch that fails --max-batch-failures rounds
@@ -394,6 +418,8 @@ def cmd_serve(args) -> int:
             args.max_batch_failures if args.max_batch_failures > 0 else None
         ),
         dead_letter_keep=args.dead_letter_keep,
+        schema_contract=contract,
+        row_dead_letter_dir=args.row_dead_letter,
     )
     dom = q.predictor.device_domain
     try:
@@ -407,6 +433,7 @@ def cmd_serve(args) -> int:
                 "seconds": seconds,
                 "device": str(device),
                 "kernel_launches": dict(LAUNCHES),
+                "pad_launch_shapes": dict(PAD_LAUNCH_SHAPES),
                 "compile_events": q.predictor.compile_events,
                 "pipeline_stats": q.pipeline_stats(),
                 "fusion": q.predictor.fusion_stats(),
@@ -421,7 +448,8 @@ def cmd_serve(args) -> int:
         # in-flight batches, writes drain_marker.json and exits 0; a
         # restart on the same checkpoint resumes exactly once
         sup = QuerySupervisor(q, max_batch_wall_time=args.max_batch_wall_time,
-                              health_json=args.health_json)
+                              health_json=args.health_json,
+                              disk_budget_mb=args.disk_budget_mb)
         sup.install_signal_handlers()
         print(f"serving: watching {args.watch} -> {args.out} (checkpoint "
               f"{args.checkpoint}); SIGTERM/Ctrl-C drains", file=sys.stderr)
@@ -457,6 +485,22 @@ def cmd_serve(args) -> int:
     finally:
         q.stop()
         source.close()
+
+
+def cmd_fsck(args) -> int:
+    """Doctor a checkpoint root (or a tenant tree): one JSON report;
+    exit 0 when the tree is (now) clean, 1 when unrepairable damage
+    remains."""
+    from sntc_tpu_torch.resilience.storage import fsck
+
+    report = fsck(args.root, repair=not args.no_repair,
+                  tenant_tree=args.tenant_tree)
+    text = json.dumps(report, indent=1)
+    if args.report:
+        with open(args.report, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0 if report["ok"] else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -576,12 +620,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-wall-time", type=float, default=None,
                    metavar="S", help="watchdog: flag a batch running "
                    "longer than this as UNHEALTHY (watchdog_stall event)")
+    p.add_argument("--disk-budget-mb", type=float, default=None,
+                   metavar="MB",
+                   help="byte budget for the checkpoint root: usage is "
+                   "measured into sntc_disk_* gauges each tick and a "
+                   "breach emits disk_budget_exceeded (DEGRADED health); "
+                   "unset = measure only")
+    p.add_argument("--row-policy", default="strict",
+                   choices=["strict", "salvage", "permissive"],
+                   help="row admission against the CICIDS2017 contract: "
+                   "strict = a poison batch fails whole; salvage = poison "
+                   "rows and ragged lines are excised to the row dead "
+                   "letters and the clean rows serve; permissive = "
+                   "non-finite values become 0, then salvage")
+    p.add_argument("--row-dead-letter", default=None, metavar="DIR",
+                   help="row dead-letter directory (default: "
+                   "<checkpoint>/dead_letter_rows): one JSONL per batch "
+                   "with file/line/raw text/reason per excised row")
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
     p.add_argument("--poll-interval", type=float, default=1.0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "fsck",
+        help="verify and repair every durable artifact under a checkpoint "
+        "root (WAL seals and tails, journals, markers, model manifests); "
+        "a JSON report; exit 1 when unrepairable damage remains")
+    p.add_argument("root", help="checkpoint root to doctor (a serve "
+                   "--checkpoint dir, or a serve-daemon root with "
+                   "--tenant-tree)")
+    p.add_argument("--tenant-tree", action="store_true",
+                   help="also walk every <root>/tenant/<id>/ckpt")
+    p.add_argument("--no-repair", action="store_true",
+                   help="report only: no truncations, no quarantines, no "
+                   "tmp sweeps")
+    p.add_argument("--report", default=None, metavar="PATH",
+                   help="also write the JSON report here")
+    p.set_defaults(fn=cmd_fsck)
     return ap
 
 

@@ -165,6 +165,37 @@ class Frame:
             int(indices.shape[0]),
         )
 
+    def fill_invalid_rows(self, valid: np.ndarray) -> "Frame":
+        """Replace every row where ``valid`` is False with a copy of the
+        nearest preceding valid row (the first valid row for a leading
+        invalid run; zeros, or empty strings, when no row is valid).
+
+        Row admission excises poison rows this way without changing the
+        frame's shape: the donor values only keep the device compute in
+        its domain and are dropped at finalize, like bucket padding."""
+        valid = np.asarray(valid)
+        if valid.dtype != np.bool_ or valid.shape != (self._num_rows,):
+            raise ValueError(
+                "fill_invalid_rows mask must be a boolean (N,) array"
+            )
+        if valid.all():
+            return self  # immutable: safe to share
+        n = self._num_rows
+        if valid.any():
+            # donor[i]: the nearest valid row at or before i
+            idx = np.where(valid, np.arange(n), -1)
+            donor = np.maximum.accumulate(idx)
+            donor[donor < 0] = int(np.flatnonzero(valid)[0])
+            return self.take(donor)
+        cols: Dict[str, object] = {}
+        for name, a in self._columns.items():
+            a = to_host(a)
+            if a.dtype.kind in "OUS":
+                cols[name] = np.full(a.shape, "", dtype=a.dtype)
+            else:
+                cols[name] = np.zeros(a.shape, dtype=a.dtype)
+        return Frame._wrap(cols, n)
+
     def slice(self, start: int, stop: Optional[int] = None) -> "Frame":
         n = len(range(*slice(start, stop).indices(self._num_rows)))
         return Frame._wrap(

@@ -1,17 +1,29 @@
 from sntc_tpu_torch.data.ingest import clean_flows, load_csv, load_csv_dir
 from sntc_tpu_torch.data.schema import (
+    ADMISSION_MODES,
+    CICIDS2017_CONTRACT,
     CICIDS2017_FEATURES,
     CICIDS2017_LABELS,
     LABEL_COLUMN,
     NUM_FEATURES,
+    AdmissionResult,
+    ColumnSpec,
+    SchemaContract,
+    SchemaViolation,
 )
 from sntc_tpu_torch.data.synth import generate_frame, write_raw_csv
 
 __all__ = [
+    "ADMISSION_MODES",
+    "AdmissionResult",
+    "CICIDS2017_CONTRACT",
     "CICIDS2017_FEATURES",
     "CICIDS2017_LABELS",
     "LABEL_COLUMN",
     "NUM_FEATURES",
+    "ColumnSpec",
+    "SchemaContract",
+    "SchemaViolation",
     "clean_flows",
     "generate_frame",
     "load_csv",

@@ -149,5 +149,5 @@ def write_raw_csv(frame: Frame, path: str) -> str:
     )
     tmp = path + ".tmp"
     pacsv.write_csv(table, tmp)
-    os.replace(tmp, path)
+    os.replace(tmp, path)  # storage: unbounded(synthetic dataset output)
     return path

@@ -10,9 +10,14 @@ tree_hist           csrc/tree_hist.cu            sntc_tpu/ops/pallas_histogram.p
 
 Each wrapper launches its kernel on a CUDA tensor and computes its plain
 PyTorch version on a CPU tensor; there is no switch and no fallback
-between the two.  ``LAUNCHES`` counts the kernel launches per name.
+between the two.  ``LAUNCHES`` counts the kernel launches per name, and
+``PAD_LAUNCH_SHAPES`` ``pad_assemble``'s per block shape.
 """
 
-from sntc_tpu_torch.kernels._build import LAUNCHES, reset_launches
+from sntc_tpu_torch.kernels._build import (
+    LAUNCHES,
+    PAD_LAUNCH_SHAPES,
+    reset_launches,
+)
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "PAD_LAUNCH_SHAPES", "reset_launches"]

@@ -45,6 +45,10 @@ CUDA_FLAGS = ["-O3", "-lineinfo"] + ARCH_FLAGS
 LAUNCHES: Dict[str, int] = {
     "forest_traversal": 0, "pad_assemble": 0, "tree_hist": 0,
 }
+#: ``pad_assemble``'s launches since the last :func:`reset_launches`, by
+#: block and target (``"[N, C] f32 -> T"``): one run pads blocks of
+#: several shapes, and each is timed on its own
+PAD_LAUNCH_SHAPES: Dict[str, int] = {}
 #: how the kernels were built in this process: route, seconds, path
 BUILD_INFO: Dict[str, object] = {}
 
@@ -82,6 +86,7 @@ class KernelLaunchError(RuntimeError):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    PAD_LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:

@@ -74,6 +74,12 @@ def _check(a: torch.Tensor, target: int) -> None:
         raise TypeError(f"pad_rows takes float32 or float64, got {a.dtype}")
 
 
+def pad_launch_shape(n: int, c: int, dtype: torch.dtype, target: int) -> str:
+    """The key :data:`~sntc_tpu_torch.kernels._build.PAD_LAUNCH_SHAPES`
+    counts a launch under."""
+    return f"[{n}, {c}] {_DTYPES[dtype]} -> {target}"
+
+
 def pad_rows_cuda(a: torch.Tensor, target: int) -> torch.Tensor:
     """Launch the CUDA kernel on a contiguous ``[N, C]`` CUDA block."""
     _check(a, target)
@@ -92,6 +98,9 @@ def pad_rows_cuda(a: torch.Tensor, target: int) -> torch.Tensor:
                  _build.stream_handle(a.device))
     _build.check_launch(lib, err, "pad_assemble")
     _build.LAUNCHES["pad_assemble"] += 1
+    shapes = _build.PAD_LAUNCH_SHAPES
+    shape = pad_launch_shape(n, c, a.dtype, target)
+    shapes[shape] = shapes.get(shape, 0) + 1
     return out
 
 

@@ -15,13 +15,26 @@ estimators, evaluators and tuning specs a ``CrossValidator`` or
 ``TrainValidationSplit`` holds.  An estimator that fits on a device is
 loaded onto ``load_model``'s.  A class not ported yet, or an orbax
 array payload, raises a clear error.
+
+Durability, as in the JAX package: :func:`save_model` writes the whole
+stage tree into a staging directory (``<path>.tmp-<pid>``), seals it
+with a sha256 manifest (``_manifest.json``) and publishes it by rename,
+keeping the checkpoint it replaces at ``<path>.prev``; the live path is
+never a partly written tree.  :func:`load_model` verifies the manifest
+(``SNTC_VERIFY_CHECKPOINT=0`` skips the hashing) and, when the primary
+is torn or corrupt, loads a verified ``<path>.prev`` instead with a
+``ckpt_fallback`` event.  The fault sites are ``ckpt.save`` (after the
+tree is staged, before the publish) and ``ckpt.load``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import inspect
 import json
 import os
+import shutil
+import sys
 from typing import Any, Dict
 
 import numpy as np
@@ -64,6 +77,8 @@ from sntc_tpu_torch.models.tree.random_forest import (
 from sntc_tpu_torch.models.tree.random_forest_regressor import (
     RandomForestRegressionModel,
 )
+from sntc_tpu_torch.resilience.faults import fault_point
+from sntc_tpu_torch.resilience.policy import emit_event
 from sntc_tpu_torch.tuning import (
     CrossValidator,
     CrossValidatorModel,
@@ -72,6 +87,12 @@ from sntc_tpu_torch.tuning import (
 )
 
 _FORMAT_VERSION = 1
+_MANIFEST = "_manifest.json"
+
+
+class CheckpointCorruptError(RuntimeError):
+    """The checkpoint tree fails manifest verification (torn write,
+    bit-rot, partial copy); names the first offending file."""
 
 #: JAX package class name -> port class
 PORTED_CLASSES: Dict[str, type] = {
@@ -183,13 +204,113 @@ def _load_stage(path: str, device) -> PipelineStage:
     return obj
 
 
-def load_model(path: str, device="cuda") -> PipelineStage:
-    """Load a stage tree saved by either package; device-backed stages
-    (the heads) place their tensors on ``device``."""
-    return _load_stage(os.path.normpath(path), resolve_device(device))
+# ---------------------------------------------------------------------------
+# manifest: sha256 over every file of the staged tree
+# ---------------------------------------------------------------------------
 
 
-def save_model(stage: PipelineStage, path: str) -> str:
+def _tree_files(root: str):
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for name in sorted(filenames):
+            full = os.path.join(dirpath, name)
+            rel = os.path.relpath(full, root)
+            if rel != _MANIFEST:
+                yield rel, full
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_manifest(root: str) -> None:
+    files = {
+        rel: {"sha256": _sha256(full), "bytes": os.path.getsize(full)}
+        for rel, full in _tree_files(root)
+    }
+    tmp = os.path.join(root, _MANIFEST + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump({"manifest_version": 1, "files": files}, f, indent=1)
+    os.replace(tmp, os.path.join(root, _MANIFEST))  # storage: checkpoint
+
+
+def verify_checkpoint(path: str) -> bool:
+    """Verify ``path`` against its manifest: True when verified, False
+    when it has none (a checkpoint saved before manifests loads
+    unchecked).  Raises :class:`CheckpointCorruptError` at the first
+    mismatch; files beside the tree that the manifest does not name are
+    tolerated."""
+    mpath = os.path.join(path, _MANIFEST)
+    if not os.path.exists(mpath):
+        return False
+    try:
+        with open(mpath) as f:
+            files = json.load(f)["files"]
+    except (ValueError, KeyError, OSError) as e:
+        raise CheckpointCorruptError(
+            f"unreadable checkpoint manifest {mpath}: {e!r}") from e
+    hashing = os.environ.get("SNTC_VERIFY_CHECKPOINT", "1") != "0"
+    for rel, want in files.items():
+        full = os.path.join(path, rel)
+        if not os.path.exists(full):
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: manifest file {rel!r} is missing")
+        size = os.path.getsize(full)
+        if size != want["bytes"]:
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: {rel!r} is {size} bytes, manifest "
+                f"says {want['bytes']} (torn write)")
+        if hashing:
+            got = _sha256(full)
+            if got != want["sha256"]:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path}: {rel!r} sha256 mismatch "
+                    f"(expected {want['sha256'][:12]}…, got {got[:12]}…)")
+    return True
+
+
+def prev_checkpoint_path(path: str) -> str:
+    """Where :func:`save_model` keeps the snapshot it replaced."""
+    return os.path.normpath(path) + ".prev"
+
+
+def load_model(path: str, device="cuda",
+               fallback: bool = True) -> PipelineStage:
+    """Load a stage tree saved by either package, verifying its manifest
+    when it has one; device-backed stages (the heads) place their
+    tensors on ``device``.  A primary that fails to verify or load falls
+    back to a verified ``<path>.prev`` (a ``ckpt_fallback`` event and a
+    warning on stderr); with neither, or ``fallback=False``, the
+    primary's error propagates."""
+    path = os.path.normpath(path)
+    device = resolve_device(device)
+    try:
+        # inside the try: an injected ckpt.load fault degrades as a
+        # real load failure does
+        fault_point("ckpt.load")
+        verify_checkpoint(path)
+        return _load_stage(path, device)
+    except Exception as primary_err:
+        prev = prev_checkpoint_path(path)
+        if not fallback or not os.path.isdir(prev):
+            raise
+        try:
+            verify_checkpoint(prev)
+            obj = _load_stage(prev, device)
+        except Exception:
+            raise primary_err  # both bad: report the primary's failure
+        emit_event(event="ckpt_fallback", site="ckpt.load", path=path,
+                   fallback_path=prev, error=repr(primary_err))
+        print(f"sntc_tpu_torch: checkpoint {path!r} failed to load "
+              f"({primary_err!r}); degraded to previous good snapshot "
+              f"{prev!r}", file=sys.stderr)
+        return obj
+
+
+def _save_stage(stage: PipelineStage, path: str) -> None:
     """Write ``stage`` (recursing over a pipeline's stages) as a stage
     directory the JAX package's ``load_model`` reads too."""
     cls_name = _SAVED_NAME.get(type(stage))
@@ -213,7 +334,7 @@ def save_model(stage: PipelineStage, path: str) -> str:
         meta["stage_dirs"] = []
         for i, sub in enumerate(sub_stages):
             sub_dir = f"stage_{i:03d}"
-            save_model(sub, os.path.join(path, sub_dir))
+            _save_stage(sub, os.path.join(path, sub_dir))
             meta["stage_dirs"].append(sub_dir)
     extra, arrays = (
         stage._save_extra() if hasattr(stage, "_save_extra") else ({}, {})
@@ -226,4 +347,36 @@ def save_model(stage: PipelineStage, path: str) -> str:
         np.savez(os.path.join(path, "data.npz"), **arrays)
     with open(os.path.join(path, "metadata.json"), "w") as f:
         json.dump(meta, f, cls=_NpEncoder, indent=1)
+
+
+def save_model(stage: PipelineStage, path: str) -> str:
+    """Persist ``stage`` at ``path`` by atomic publish (see the module
+    docs): staged at ``<path>.tmp-<pid>``, sealed with a manifest,
+    renamed in; the checkpoint it replaces is kept at ``<path>.prev``.
+    A failure before the rename (an armed ``ckpt.save`` included)
+    leaves the previous checkpoint intact."""
+    path = os.path.normpath(path)
+    staging = f"{path}.tmp-{os.getpid()}"
+    if os.path.isdir(staging):
+        shutil.rmtree(staging)
+    prev = prev_checkpoint_path(path)
+    moved_aside = False
+    try:
+        _save_stage(stage, staging)
+        fault_point("ckpt.save")
+        _write_manifest(staging)
+        if os.path.isdir(path):
+            if os.path.isdir(prev):
+                shutil.rmtree(prev)
+            os.replace(path, prev)  # storage: checkpoint
+            moved_aside = True
+        os.replace(staging, path)  # storage: checkpoint
+    except BaseException:
+        # the old tree already moved aside and the publish failed: put
+        # it back, never leave the path empty with the good tree at .prev
+        if moved_aside and not os.path.isdir(path) and os.path.isdir(prev):
+            os.replace(prev, path)  # storage: checkpoint
+        if os.path.isdir(staging):
+            shutil.rmtree(staging, ignore_errors=True)
+        raise
     return path

@@ -2,12 +2,12 @@
 into the registry.
 
 Counterpart of ``sntc_tpu/obs/bridge.py`` (``install_event_metrics``):
-every event counts into ``sntc_events_total{event, site}``, and a
+every event counts into ``sntc_events_total{event, site}``, a
 ``quarantine`` event also counts into
-``sntc_batches_quarantined_total``.  The JAX bridge's ``rows_rejected``
-and ``load_shed`` counters and its tenant label wait for row admission,
-load shedding and tenancy (ROADMAP queue A), whose events the port does
-not emit yet.
+``sntc_batches_quarantined_total`` and a ``rows_rejected`` event into
+``sntc_rows_rejected_total{reason}``.  The JAX bridge's ``load_shed``
+counter and its tenant label wait for load shedding and tenancy
+(ROADMAP queue A), whose events the port does not emit yet.
 
 The observer never raises (``emit_event`` evicts a raising observer);
 records it could not fold are counted by :func:`bridge_errors`.
@@ -35,7 +35,16 @@ def _observe(record: Dict[str, Any]) -> None:
         if record.get("site"):
             labels["site"] = str(record["site"])
         inc("sntc_events_total", 1, **labels)
-        if event == "quarantine":
+        if event == "rows_rejected":
+            reasons = record.get("reasons")
+            if isinstance(reasons, dict) and reasons:
+                for reason, n in reasons.items():
+                    inc("sntc_rows_rejected_total", int(n),
+                        reason=str(reason))
+            else:
+                inc("sntc_rows_rejected_total",
+                    int(record.get("count") or 0), reason="unknown")
+        elif event == "quarantine":
             inc("sntc_batches_quarantined_total", 1)
     except Exception:
         _errors += 1

@@ -6,8 +6,11 @@ Counterpart of ``sntc_tpu/obs/metrics.py`` (``MetricsRegistry``,
 ``snapshot``), holding only the series that the serving engine and the
 resilience modules count into: batches and rows committed, batch
 duration, the event stream (retries among them), quarantines, fault
-injections, breaker and health state, device faults and OOM splits, and
-the source's prefetch hits and misses.  A write to a name outside
+injections, breaker and health state, device faults and OOM splits, the
+source's prefetch hits and misses, the rows admission rejected, and
+the storage plane's disk usage,
+budget, write errors, degraded episodes, repairs, dead-letter drops and
+WAL compactions.  A write to a name outside
 :data:`CATALOG` raises, as in the JAX package.
 
 Writes take one small lock per metric; :meth:`MetricsRegistry.snapshot`
@@ -67,6 +70,10 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         type=HISTOGRAM, labels=("tenant",), buckets=LATENCY_BUCKETS,
         help="WAL-intent to commit latency per micro-batch.",
     ),
+    "sntc_rows_rejected_total": dict(
+        type=COUNTER, labels=("reason", "tenant"),
+        help="Rows excised by data-plane admission, by reason code.",
+    ),
     "sntc_source_prefetch_hits_total": dict(
         type=COUNTER, labels=(),
         help="get_batch calls served from a staged prefetch read.",
@@ -97,6 +104,48 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "sntc_device_oom_splits_total": dict(
         type=COUNTER, labels=(),
         help="Micro-batch halvings the OOM responder performed.",
+    ),
+    # -- the durable-storage plane (resilience/storage) -----------------------
+    "sntc_disk_bytes": dict(
+        type=GAUGE, labels=("artifact", "tenant"),
+        help="On-disk bytes per registered durable artifact under a "
+        "checkpoint root (artifact=total is the whole tree).",
+    ),
+    "sntc_disk_files": dict(
+        type=GAUGE, labels=("artifact", "tenant"),
+        help="On-disk file count per registered durable artifact "
+        "(artifact=total is the whole tree).",
+    ),
+    "sntc_disk_budget_bytes": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Declared disk byte budget for a checkpoint root "
+        "(global when unlabeled, per-tenant when labeled).",
+    ),
+    "sntc_storage_write_errors_total": dict(
+        type=COUNTER, labels=("artifact", "tenant"),
+        help="Failed durable writes (ENOSPC/EIO, real or injected), "
+        "by artifact.",
+    ),
+    "sntc_storage_degraded_state": dict(
+        type=GAUGE, labels=("artifact", "tenant"),
+        help="1 while an artifact is in a storage_degraded episode "
+        "(records buffering in memory), 0 after recovery.",
+    ),
+    "sntc_storage_repairs_total": dict(
+        type=COUNTER, labels=("artifact", "tenant"),
+        help="Automatic storage repairs (torn-tail truncations, "
+        "corrupt-blob quarantines), journaled to "
+        "storage_repair.jsonl.",
+    ),
+    "sntc_dead_letter_dropped_total": dict(
+        type=COUNTER, labels=("artifact", "tenant"),
+        help="Dead-letter evidence files dropped by the keep-N/"
+        "size-cap retention policy.",
+    ),
+    "sntc_wal_compactions_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Append-WAL compactions (sealed checkpoint written, "
+        "offsets/commits logs truncated).",
     ),
 }
 

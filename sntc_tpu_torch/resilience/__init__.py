@@ -4,9 +4,9 @@ health, the device fault domain and query supervision.
 Counterpart of ``sntc_tpu/resilience/`` as far as the serve command's
 default form and ``tuning/`` use it: ``policy.py``, ``faults.py``,
 ``circuit.py``, ``health.py``, ``device.py`` (CUDA errors, no host
-fallback) and ``supervisor.py``.  The storage plane (``storage.py``),
-``control.py`` and ``replicate.py`` wait for their slices of ROADMAP
-queue A.
+fallback), ``storage.py`` (the durable-storage plane and ``fsck``) and
+``supervisor.py``.  ``control.py`` and ``replicate.py`` wait for their
+slices of ROADMAP queue A.
 """
 
 from sntc_tpu_torch.resilience.circuit import (
@@ -24,14 +24,22 @@ from sntc_tpu_torch.resilience.device import (
     classify_device_error,
 )
 from sntc_tpu_torch.resilience.faults import (
+    ALL_KINDS,
+    DATA_KINDS,
+    IO_KINDS,
+    SITES,
     InjectedDeviceFault,
+    InjectedDiskFault,
     InjectedFault,
     InjectedIOFault,
     InjectedTimeoutFault,
     arm,
     call_count,
     clear,
+    data_fault_armed,
     disarm,
+    fault_data,
+    fault_disk,
     fault_point,
     parse_faults_env,
 )
@@ -54,6 +62,10 @@ from sntc_tpu_torch.resilience.supervisor import (
 )
 
 __all__ = [
+    "ALL_KINDS",
+    "DATA_KINDS",
+    "IO_KINDS",
+    "SITES",
     "CircuitBreaker",
     "CircuitOpenError",
     "DeviceExecError",
@@ -62,6 +74,7 @@ __all__ = [
     "HealthMonitor",
     "HealthState",
     "InjectedDeviceFault",
+    "InjectedDiskFault",
     "InjectedFault",
     "InjectedIOFault",
     "InjectedTimeoutFault",
@@ -77,11 +90,14 @@ __all__ = [
     "classify_device_error",
     "clear",
     "clear_events",
+    "data_fault_armed",
     "default_breakers",
     "disarm",
     "emit_event",
     "event_observer_count",
     "events_dropped",
+    "fault_data",
+    "fault_disk",
     "fault_point",
     "parse_faults_env",
     "recent_events",

@@ -14,7 +14,19 @@ Wired sites:
 ``stream.read``         ``StreamingQuery`` micro-batch source read
 ``stream.commit``       ``StreamingQuery`` after the sink, before commit
 ``sink.write``          ``StreamingQuery`` sink delivery (per batch)
+``source.parse``        ``data.ingest.load_csv`` on the raw bytes: a
+                        :func:`fault_data` site taking the DATA kinds
+``ckpt.save``           ``mlio.save_model`` before the atomic publish
+``ckpt.load``           ``mlio.load_model`` before manifest verification
 ``cv.fit``              ``CrossValidator`` per-(fold, grid-point) fit
+``storage.wal``         physical WAL writes (log lines, files-mode
+                        records, the compaction checkpoint): a
+                        :func:`fault_disk` site taking the IO kinds
+``storage.journal``     JSONL journal appends (the repair journal)
+``storage.dead_letter`` dead-letter evidence (the quarantine journal,
+                        the row dead letters)
+``storage.marker``      atomic marker and status writes (drain marker,
+                        ``--health-json``)
 ``predict.compile``     ``BatchPredictor`` before a FRESH padded row
                         shape's dispatch
 ``device.dispatch``     ``BatchPredictor`` before every dispatch
@@ -25,9 +37,14 @@ Environment grammar (comma-separated specs)::
     SNTC_FAULTS=site[:kind[:prob[:seed]]][,site2:...]
 
 ``kind`` is ``exc`` (RuntimeError), ``io`` (OSError), ``timeout``
-(TimeoutError), ``kill`` (``os._exit(137)``, a process crash) or a
-DEVICE kind, ``device_oom`` / ``compile_error`` / ``device_lost``, which
-raises an :class:`InjectedDeviceFault` whose message copies the
+(TimeoutError), ``kill`` (``os._exit(137)``, a process crash), a DATA
+kind (``corrupt_bytes``, ``truncate``, ``ragged``), which mutates the
+payload at a :func:`fault_data` site instead of raising, an IO kind
+(``enospc``, ``io_error``: an :class:`InjectedDiskFault` carrying the
+real errno at any site; ``torn_write``: a partial write at a
+:func:`fault_disk` site only), or a DEVICE kind, ``device_oom`` /
+``compile_error`` / ``device_lost``, which raises an
+:class:`InjectedDeviceFault` whose message copies the
 PyTorch/CUDA error line of that kind, so that
 ``resilience.device.classify_device_error`` treats injected and real
 errors alike.  ``prob`` in [0, 1] is drawn per call from a numpy
@@ -37,16 +54,19 @@ fire without a limit; :func:`arm` adds Nth-call precision
 (``arm("sink.write", after=2, times=1)`` raises on exactly the 3rd
 call).  A malformed string warns once on stderr and arms nothing.
 
-The DATA kinds and ``fault_data`` wait for the capture sources, the IO
-kinds and ``fault_disk`` for the storage plane, tenant-namespaced sites
-for tenancy (ROADMAP queue A).
+For the same spec and payload, :func:`fault_data` mutates the bytes
+exactly as the JAX package does.  Tenant-namespaced sites
+(``tenant/<id>/<site>``) are looked up by :func:`fault_disk` only; the
+rest waits for tenancy (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import errno
 import os
 import sys
 import threading
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -67,6 +87,16 @@ class InjectedTimeoutFault(InjectedFault, TimeoutError):
     pass
 
 
+class InjectedDiskFault(InjectedIOFault):
+    """An injected disk failure: an OSError whose ``errno`` is the real
+    ENOSPC or EIO code, so ``except OSError`` handlers treat it as the
+    genuine article."""
+
+    def __init__(self, errno_code: int, msg: str):
+        super().__init__(errno_code, msg)
+        self.errno = errno_code
+
+
 class InjectedDeviceFault(InjectedFault):
     """An injected CUDA failure: the message copies the real PyTorch
     error line of its kind, and ``device_kind`` names the kind."""
@@ -83,14 +113,26 @@ _KINDS = {
 }
 KILL_KIND = "kill"
 KILL_EXIT_CODE = 137
+# inert at fault_point: they mutate the bytes of a fault_data site
+DATA_KINDS = ("corrupt_bytes", "truncate", "ragged")
+# enospc/io_error raise at any site; torn_write fires at fault_disk only
+IO_KINDS = ("enospc", "io_error", "torn_write")
 DEVICE_KINDS = ("device_oom", "compile_error", "device_lost")
-ALL_KINDS = tuple(sorted(_KINDS)) + (KILL_KIND,) + DEVICE_KINDS
+ALL_KINDS = (tuple(sorted(_KINDS)) + (KILL_KIND,) + DATA_KINDS + IO_KINDS
+             + DEVICE_KINDS)
 SITES = (
     "stream.wal",
     "stream.read",
     "stream.commit",
     "sink.write",
+    "source.parse",
+    "ckpt.save",
+    "ckpt.load",
     "cv.fit",
+    "storage.wal",
+    "storage.journal",
+    "storage.dead_letter",
+    "storage.marker",
     "predict.compile",
     "device.dispatch",
 )
@@ -271,31 +313,139 @@ def _device_fault(kind: str, site: str, call: int) -> InjectedDeviceFault:
     return InjectedDeviceFault(msg, kind)
 
 
+def _count_injection(site: str, kind: str) -> None:
+    """Mirror one fired injection into ``sntc_faults_injected_total``
+    (never fatal)."""
+    try:
+        from sntc_tpu_torch.obs.metrics import inc
+
+        inc("sntc_faults_injected_total", site=site, kind=kind)
+    except Exception:
+        pass
+
+
+def _disk_fault(kind: str, site: str, call: int) -> InjectedDiskFault:
+    code = errno.ENOSPC if kind == "enospc" else errno.EIO
+    return InjectedDiskFault(
+        code, f"injected {kind} fault at site {site!r} (call {call})")
+
+
 def fault_point(site: str) -> None:
     """The per-site hook real code calls; raises when armed and
-    scheduled."""
+    scheduled.  A DATA kind or ``torn_write`` is inert here."""
     _sync_env()
     spec = _registry.get(site)
-    if spec is None:
+    if spec is None or spec.kind in DATA_KINDS or spec.kind == "torn_write":
         return
     with _lock:
         fire = spec.decide()
         call = spec.calls
     if not fire:
         return
-    try:
-        from sntc_tpu_torch.obs.metrics import inc
-
-        inc("sntc_faults_injected_total", site=site, kind=spec.kind)
-    except Exception:
-        pass
+    _count_injection(site, spec.kind)
     emit_event(event="fault_injected", site=site, kind=spec.kind,
                call=call)
     if spec.kind == KILL_KIND:
         # a crash, not an exception: no finally blocks, no WAL flush
         os._exit(KILL_EXIT_CODE)
+    if spec.kind in ("enospc", "io_error"):
+        raise _disk_fault(spec.kind, site, call)
     if spec.kind in DEVICE_KINDS:
         raise _device_fault(spec.kind, site, call)
     raise _KINDS[spec.kind](
         f"injected {spec.kind} fault at site {site!r} (call {call})"
     )
+
+
+def fault_disk(site: str, tenant: Optional[str] = None) -> Optional[float]:
+    """The physical-write hook of the storage helpers (``storage.*``
+    sites), checking ``tenant/<id>/<site>`` before the bare site.
+    Unarmed, or armed with a non-IO kind, it returns None; ``enospc`` /
+    ``io_error`` raise :class:`InjectedDiskFault` (nothing written);
+    ``torn_write`` returns a seeded fraction in [0.2, 0.8): the caller
+    writes that prefix of its payload, flushes it and raises, leaving
+    the torn tail a crash mid-``write(2)`` would."""
+    _sync_env()
+    spec = None
+    if tenant is not None:
+        spec = _registry.get(f"tenant/{tenant}/{site}")
+    if spec is None:
+        spec = _registry.get(site)
+    if spec is None or spec.kind not in IO_KINDS:
+        return None
+    site = spec.site
+    with _lock:
+        fire = spec.decide()
+        call = spec.calls
+        torn = float(spec.rng.uniform(0.2, 0.8)) if fire else 0.0
+    if not fire:
+        return None
+    _count_injection(site, spec.kind)
+    emit_event(event="fault_injected", site=site, kind=spec.kind,
+               call=call)
+    if spec.kind == "torn_write":
+        return torn
+    raise _disk_fault(spec.kind, site, call)
+
+
+def _mutate(kind: str, data: bytes, draws: np.ndarray) -> bytes:
+    """One deterministic corruption of ``data``; ``draws`` are uniform
+    [0, 1) floats consumed in order, so the mutation depends only on
+    (seed, payload)."""
+    n = len(data)
+    if n == 0:
+        return data
+    if kind == "truncate":  # a strict prefix: the torn capture
+        return data[: int(draws[0] * n)]
+    if kind == "corrupt_bytes":
+        buf = bytearray(data)
+        for i in range(max(1, n // 64)):
+            buf[int(draws[2 * i] * n)] = int(draws[2 * i + 1] * 256) % 256
+        return bytes(buf)
+    # ragged: one extra field on a data line (never the header); a
+    # payload of fewer lines takes it at a raw offset
+    lines = data.split(b"\n")
+    if len(lines) > 2:
+        li = 1 + int(draws[0] * max(1, len(lines) - 2))
+        lines[li] = lines[li] + b",__sntc_ragged__"
+        return b"\n".join(lines)
+    pos = int(draws[0] * n)
+    return data[:pos] + b",__sntc_ragged__," + data[pos:]
+
+
+def data_fault_armed(site: str) -> bool:
+    """True when a DATA kind is armed at ``site``: a reader that streams
+    from a path buffers the payload only then."""
+    _sync_env()
+    spec = _registry.get(site)
+    return spec is not None and spec.kind in DATA_KINDS
+
+
+def fault_data(site: str, data: bytes) -> bytes:
+    """The byte-corruption hook of a parse boundary (``source.parse``):
+    ``data`` unchanged unless a DATA kind is armed.  The fire decision
+    and the mutation draw from a generator seeded by ``(seed,
+    crc32(data), len(data))``, not the call order, so concurrent readers
+    corrupt the same payloads the same way in every run."""
+    _sync_env()
+    spec = _registry.get(site)
+    if spec is None or spec.kind not in DATA_KINDS:
+        return data
+    with _lock:
+        spec.calls += 1
+        call = spec.calls
+        if call <= spec.after or (
+            spec.times is not None and spec.raised >= spec.times
+        ):
+            return data
+    rng = np.random.default_rng([spec.seed, zlib.crc32(data), len(data)])
+    if not (spec.prob >= 1.0 or float(rng.uniform()) < spec.prob):
+        return data
+    with _lock:
+        spec.raised += 1
+    draws = rng.uniform(size=2 * max(1, len(data) // 64))
+    mutated = _mutate(spec.kind, data, draws)
+    _count_injection(site, spec.kind)
+    emit_event(event="fault_injected", site=site, kind=spec.kind,
+               call=call, bytes_in=len(data), bytes_out=len(mutated))
+    return mutated

@@ -56,6 +56,16 @@ _EVENT_STATES: Dict[str, HealthState] = {
     "breaker_closed": HealthState.OK,
     "load_shed": HealthState.DEGRADED,
     "watchdog_stall": HealthState.UNHEALTHY,
+    "ckpt_fallback": HealthState.DEGRADED,
+    # row admission: rejected rows mark the source DEGRADED (the clean
+    # rows keep serving)
+    "rows_rejected": HealthState.DEGRADED,
+    # the storage plane: a journal or marker that cannot write degrades
+    # and recovers with the disk; a breached disk budget is DEGRADED
+    # until usage falls back under it
+    "storage_degraded": HealthState.DEGRADED,
+    "storage_recovered": HealthState.OK,
+    "disk_budget_exceeded": HealthState.DEGRADED,
     # the device fault domain: a device that keeps failing stops the
     # query (no host fallback in the port); the model is UNHEALTHY
     "device_failed": HealthState.UNHEALTHY,

@@ -116,7 +116,8 @@ def emit_event(**fields: Any) -> Dict[str, Any]:
         record.setdefault("mono", time.monotonic())
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            with open(path, "a") as f:
+            # an opt-in debug log the operator names and bounds
+            with open(path, "a") as f:  # storage: unbounded(debug log)
                 f.write(json.dumps(record) + "\n")
         if len(_recent) == _recent.maxlen:
             _events_dropped += 1

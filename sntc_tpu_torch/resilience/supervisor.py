@@ -16,13 +16,19 @@ owns a ``StreamingQuery``'s loop:
   once from the offset log.
 * **Status**: :meth:`status` (and ``--health-json``, rewritten
   atomically each tick) holds health, breakers, the engine's offsets and
-  backlog, and the device domain's stats, under the JAX keys.
+  backlog, the device domain's stats and the ``storage`` block (the
+  engine's ``storage_stats`` and, under ``disk``, the throttled disk
+  measurement of the checkpoint root against ``disk_budget_mb``; a
+  breach emits ``disk_budget_exceeded``, DEGRADED), under the JAX keys.
+* **Markers**: the drain marker and the status dump are written by the
+  storage plane's ``write_marker`` at the ``storage.marker`` fault site,
+  policy DEGRADE: a failed write counts a ``storage_degraded`` episode
+  and the loop goes on.
 
 The clock is injectable and the loop steps by :meth:`tick`.  Load
 shedding (``--max-pending-batches``, ``--shed-policy``; the JAX
-default never sheds) and the SLO controller, and the storage plane with
-the status's ``"storage"`` block, wait for their slices of ROADMAP
-queue A.
+default never sheds) and the SLO controller wait for their slice of
+ROADMAP queue A.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from sntc_tpu_torch.resilience import storage as storage_plane
 from sntc_tpu_torch.resilience.circuit import CircuitBreaker, breakers_snapshot
 from sntc_tpu_torch.resilience.health import HealthMonitor, HealthState
 from sntc_tpu_torch.resilience.policy import emit_event, events_dropped
@@ -40,11 +47,11 @@ from sntc_tpu_torch.resilience.policy import emit_event, events_dropped
 DRAIN_MARKER = "drain_marker.json"
 
 
-def _atomic_json(path: str, obj: Dict[str, Any]) -> str:
-    """Tmp-then-rename publish of a marker or status dump."""
-    from sntc_tpu_torch.serve.streaming import _atomic_write_json
-
-    _atomic_write_json(path, obj, fsync=False)
+def _atomic_json(path: str, obj: Dict[str, Any], **dump_kwargs: Any) -> str:
+    """Tmp-then-rename publish of a marker or status dump, under the
+    DEGRADE policy (see the module docs)."""
+    storage_plane.write_marker(path, obj, indent=dump_kwargs.get("indent"),
+                               fsync=False)
     return path
 
 
@@ -70,6 +77,7 @@ class QuerySupervisor:
         health: Optional[HealthMonitor] = None,
         health_json: Optional[str] = None,
         clock=time.monotonic,
+        disk_budget_mb: Optional[float] = None,
     ):
         self.query = query
         self.health_json = health_json
@@ -84,6 +92,11 @@ class QuerySupervisor:
         self._drain_reason: Optional[str] = None
         self.batches_done = 0
         self.drained = False
+        self.storage = storage_plane.StoragePlane(
+            query.checkpoint_dir,
+            budget_bytes=(int(disk_budget_mb * (1 << 20))
+                          if disk_budget_mb else None),
+        )
 
     def close(self) -> None:
         """Detach the health monitor if this supervisor made it."""
@@ -251,6 +264,11 @@ class QuerySupervisor:
             "drain_requested": self.drain_requested,
             "drained": self.drained,
         }
+        engine_storage = getattr(q, "storage_stats", None)
+        out["storage"] = dict(
+            engine_storage() if engine_storage is not None else {},
+            disk=self.storage.status(),
+        )
         dom = getattr(q.predictor, "device_domain", None)
         if dom is not None:
             out["device"] = dom.stats()
@@ -258,4 +276,4 @@ class QuerySupervisor:
 
     def write_health_json(self, latest: Optional[int] = None) -> str:
         """Atomically (re)write the status dump; returns its path."""
-        return _atomic_json(self.health_json, self.status(latest))
+        return _atomic_json(self.health_json, self.status(latest), indent=1)

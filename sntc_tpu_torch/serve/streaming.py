@@ -22,6 +22,31 @@ package's on-disk layouts, so either package resumes the other's):
   one fsynced line per batch), sealed into ``wal_checkpoint.json`` and
   truncated every ``wal_compact_every`` commits.
 
+**Storage plane** (``resilience.storage``): the engine runs
+``quick_scan`` over its checkpoint dir at construction (torn journal
+tails repaired, tmp orphans swept); every WAL write goes through the
+storage helpers at the ``storage.wal`` fault site (policy FAIL: a failed
+write fails the batch's round, the retries and quarantine own it); the
+append logs are read tolerantly (a torn tail is truncated with a
+repair record in ``storage_repair.jsonl``); a torn files-mode commit
+record is quarantined to ``commits/.corrupt/`` and its batch replays;
+a compaction that cannot write degrades and the logs grow until the
+disk recovers.  :meth:`StreamingQuery.storage_stats` reports it.
+
+**Row admission** (``schema_contract``, a ``data.schema.
+SchemaContract``; ``row_policy`` overrides its mode): every read batch
+is admitted at ``stream.admit``.  ``strict`` fails the batch on any
+violation (the poison-batch machinery owns it); ``salvage`` and
+``permissive`` excise only the poison rows through the predictor's
+row-validity mask, inside the bucketed dispatch.  A source with
+``parse_salvage`` excises ragged CSV lines at parse time.  Excised rows
+and lines go to the row dead letters, ``<checkpoint>/dead_letter_rows/
+batch_NNNNNN.jsonl`` (or ``row_dead_letter_dir``): batch id, file, line
+or row, raw text and reason, published atomically at
+``storage.dead_letter`` (policy SHED), merged and never shrunk on a
+replay, with a ``rows_rejected`` event.
+:meth:`StreamingQuery.admission_stats` reports it.
+
 **Pipelined engine** (``pipeline_depth > 1``, which arms the overlapped
 sink, and a source with ``prefetch_batches``): up to ``pipeline_depth``
 batches are in flight, so batch N+1's read and dispatch overlap batch
@@ -60,16 +85,18 @@ device error shows at finalize (on the delivery thread) is re-dispatched
 from the engine thread; once the domain has failed, the error raises out
 of ``process_available`` with the batch's intent in the WAL.  The fault
 sites are ``stream.wal``, ``stream.read``, ``stream.commit`` and
-``sink.write``.
+``sink.write``.  The dead-letter journal (``dead_letter.jsonl``) rotates
+at 8 MiB and degrades on a failed write (``storage.dead_letter``); the
+newest ``dead_letter_keep`` evidence files are kept, the older dropped
+and counted (``sntc_dead_letter_dropped_total``).
 
-The JAX engine's row admission, load shedding, autotuning, lifecycle
-hot swap, tenancy and storage plane are not ported.
+The JAX engine's load shedding, autotuning, lifecycle hot swap and
+tenancy are not ported.
 """
 
 from __future__ import annotations
 
 import glob
-import hashlib
 import json
 import os
 import threading
@@ -77,10 +104,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.data.ingest import load_csv
 from sntc_tpu_torch.obs import install_event_metrics
 from sntc_tpu_torch.obs.metrics import inc, observe
+from sntc_tpu_torch.resilience import storage as storage_plane
 from sntc_tpu_torch.resilience.device import (
     annotate_batch,
     classify_device_error,
@@ -120,14 +148,23 @@ class DirStreamSource:
     range returns an already-parsed Frame.  A range with no staged read
     is read synchronously; a staged read that failed raises in
     ``get_batch``, on the engine thread.  ``N <= 0`` stages nothing.
+
+    **Parse salvage** (``parse_salvage=True``): loaders that support it
+    excise unparsable lines and collect one reject record each, which
+    the engine drains with :meth:`take_rejects` into the row dead
+    letters.
     """
 
     def __init__(self, path: str, pattern: str, prefetch_batches: int = 0,
-                 read_workers: int = 4):
+                 read_workers: int = 4, parse_salvage: bool = False):
         self.path = path
         self.pattern = pattern
         self.prefetch_batches = int(prefetch_batches)
         self.read_workers = max(1, int(read_workers))
+        self.parse_salvage = bool(parse_salvage)
+        # loaders run on read and prefetch threads
+        self._rejects_lock = threading.Lock()
+        self._parse_rejects: List[dict] = []
         self._listing: Optional[List[str]] = None
         self._read_pool: Optional[ThreadPoolExecutor] = None
         self._prefetch_pool: Optional[ThreadPoolExecutor] = None
@@ -150,6 +187,36 @@ class DirStreamSource:
 
     def _load_file(self, path: str) -> Frame:
         raise NotImplementedError
+
+    def _note_rejects(self, records: List[dict]) -> None:
+        with self._rejects_lock:
+            self._parse_rejects.extend(records)
+
+    def take_rejects(self, files: Optional[List[str]] = None) -> List[dict]:
+        """Drain the parse-time reject records collected so far.
+        ``files`` restricts the drain to those files' records: a prefetch
+        thread may already have parsed a later batch's file, whose
+        rejects wait for the batch that covers it."""
+        with self._rejects_lock:
+            if files is None:
+                out, self._parse_rejects = self._parse_rejects, []
+                return out
+            allowed = set(files)
+            out, kept = [], []
+            for r in self._parse_rejects:
+                take = r.get("file") in allowed or r.get("file") is None
+                (out if take else kept).append(r)
+            self._parse_rejects = kept
+            return out
+
+    def files_for_range(self, start: int, end: int) -> List[str]:
+        """The files a ``[start, end)`` batch covers (re-listed when the
+        cached listing is stale)."""
+        listing = self._listing
+        if listing is None or len(listing) < end:
+            listing = sorted(glob.glob(os.path.join(self.path,
+                                                    self.pattern)))
+        return listing[start:end]
 
     def _pool(self) -> ThreadPoolExecutor:
         with self._pool_lock:
@@ -249,7 +316,13 @@ class FileStreamSource(DirStreamSource):
         super().__init__(path, pattern, **kwargs)
 
     def _load_file(self, path: str) -> Frame:
-        return load_csv(path)
+        if not self.parse_salvage:
+            return load_csv(path)
+        recs: List[dict] = []
+        frame = load_csv(path, salvage=True, rejects=recs)
+        if recs:
+            self._note_rejects(recs)
+        return frame
 
 
 # ---------------------------------------------------------------------------
@@ -319,79 +392,9 @@ class CsvDirSink:
         pacsv.write_csv(frame.select(cols).to_arrow(), tmp)
         if self.durable:
             _fsync(tmp)
-        os.replace(tmp, final)
+        os.replace(tmp, final)  # storage: unbounded(sink output)
         if self.durable:
             _fsync(self.path)  # the rename is durable once the dirent is
-
-
-class _JsonlJournal:
-    """Size-capped JSONL appender: past ``max_bytes`` the file rotates
-    to ``.1`` .. ``.keep`` (the oldest dropped).  A failed append keeps
-    its records in memory (at most ``BUFFER_KEEP``) for the next one:
-    losing a journal line never fails the caller."""
-
-    BUFFER_KEEP = 256
-
-    def __init__(self, path: str, max_bytes: int = 8 << 20, keep: int = 2):
-        self.path = path
-        self.max_bytes = int(max_bytes)
-        self.keep = max(1, int(keep))
-        self._buffer: List[str] = []
-        self.records_written = 0
-        self.write_errors = 0
-        self.rotations = 0
-
-    def _rotate(self) -> None:
-        for i in range(self.keep - 1, 0, -1):
-            if os.path.exists(f"{self.path}.{i}"):
-                os.replace(f"{self.path}.{i}", f"{self.path}.{i + 1}")
-        os.replace(self.path, f"{self.path}.1")
-        self.rotations += 1
-
-    def write(self, record: dict) -> bool:
-        pending = self._buffer + [json.dumps(record) + "\n"]
-        payload = "".join(pending)
-        try:
-            size = (os.path.getsize(self.path)
-                    if os.path.exists(self.path) else 0)
-            if size and size + len(payload) > self.max_bytes:
-                self._rotate()
-            with open(self.path, "a") as f:
-                f.write(payload)
-        except OSError:
-            self.write_errors += 1
-            self._buffer = pending[-self.BUFFER_KEEP:]
-            return False
-        self._buffer = []
-        self.records_written += len(pending)
-        return True
-
-    def stats(self) -> dict:
-        return {"records_written": self.records_written,
-                "write_errors": self.write_errors,
-                "rotations": self.rotations,
-                "buffered": len(self._buffer)}
-
-
-def _prune_keep_newest(path: str, keep: int, protect: tuple) -> int:
-    """Delete the oldest files of ``path`` (name order: batch ids sort
-    in time) beyond the newest ``keep``; ``protect`` names stay."""
-    names = sorted(
-        n for n in os.listdir(path)
-        if n not in protect and not n.startswith(".")
-        and os.path.isfile(os.path.join(path, n))
-    )
-    dropped = 0
-    for n in names[:-keep] if len(names) > keep else []:
-        try:
-            os.unlink(os.path.join(path, n))
-            dropped += 1
-        except OSError:
-            pass
-    if dropped:
-        emit_event(event="dead_letter_dropped", site="dead_letter",
-                   dropped=dropped, keep=keep)
-    return dropped
 
 
 # ---------------------------------------------------------------------------
@@ -405,59 +408,6 @@ def _fsync(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
-
-
-def _atomic_write_json(path: str, obj, fsync: bool) -> None:
-    """Tmp-then-rename publish: readers never see a torn file."""
-    tmp = f"{path}.tmp-{os.getpid()}"
-    with open(tmp, "w") as f:
-        f.write(json.dumps(obj))
-        f.flush()
-        if fsync:
-            os.fsync(f.fileno())
-    os.replace(tmp, path)
-    if fsync:
-        _fsync(os.path.dirname(path) or ".")
-
-
-def _seal(core: dict) -> dict:
-    """``core`` with a sha256 seal over its canonical JSON (the JAX
-    package's ``storage.seal_record``)."""
-    digest = hashlib.sha256(json.dumps(core, sort_keys=True).encode())
-    return dict(core, sha256=digest.hexdigest())
-
-
-def _load_sealed(path: str) -> dict:
-    with open(path) as f:
-        obj = json.load(f)
-    core = {k: v for k, v in obj.items() if k != "sha256"}
-    if _seal(core).get("sha256") != obj.get("sha256"):
-        raise ValueError(f"sealed record {path}: seal mismatch")
-    return core
-
-
-def _read_log(path: str) -> dict:
-    """``batch_id -> record`` of a JSONL log.  A torn final line (a crash
-    mid-append) is a record that never landed: it is cut off, so the
-    next append starts on a line of its own."""
-    if not os.path.exists(path):
-        return {}
-    with open(path, "rb") as f:
-        data = f.read()
-    keep = data.rfind(b"\n") + 1
-    if keep < len(data):
-        with open(path, "r+b") as f:
-            f.truncate(keep)
-    return {
-        int(rec["batch_id"]): rec
-        for rec in (json.loads(line) for line in data[:keep].splitlines())
-    }
-
-
-def _append(f, record: dict) -> None:
-    f.write(json.dumps(record) + "\n")
-    f.flush()
-    os.fsync(f.fileno())
 
 
 # ---------------------------------------------------------------------------
@@ -491,6 +441,9 @@ class StreamingQuery:
         dead_letter_dir: Optional[str] = None,
         breakers: Optional[dict] = None,
         dead_letter_keep: int = 200,
+        schema_contract=None,
+        row_policy: Optional[str] = None,
+        row_dead_letter_dir: Optional[str] = None,
     ):
         self.predictor = (
             model
@@ -526,7 +479,22 @@ class StreamingQuery:
             checkpoint_dir, "dead_letter"
         )
         self.dead_letter_keep = max(0, int(dead_letter_keep))
-        self._dead_letter_writer: Optional[_JsonlJournal] = None
+        self._dead_letter_writer = None
+        # row admission: poison rows of a batch are excised through the
+        # predictor's validity mask and journaled row by row
+        if row_policy is not None and schema_contract is None:
+            raise ValueError(
+                "row_policy requires a schema_contract to enforce")
+        self.schema_contract = schema_contract
+        self.row_policy = row_policy or (
+            schema_contract.mode if schema_contract is not None else None)
+        self.row_dead_letter_dir = row_dead_letter_dir or os.path.join(
+            checkpoint_dir, "dead_letter_rows")
+        self._rows_rejected_total = 0
+        self._rows_coerced_total = 0
+        self._batches_salvaged = 0
+        self._rows_journaled: set = set()  # batch ids journaled once
+        self._admission_counted: set = set()  # batch ids counted once
         self.breakers: dict = dict(breakers or {})
         # failed rounds by (batch_id, stage)
         self._batch_failures: dict = {}
@@ -542,6 +510,9 @@ class StreamingQuery:
         self._commits_since_compact = 0
         self.wal_compactions = 0
         self.wal_prunes = 0
+        # the light doctor: torn journal tails and tmp orphans a crash
+        # left (never fatal; the append WAL repairs its own tails)
+        self.storage_scan = storage_plane.quick_scan(checkpoint_dir)
         self._offsets_dir = os.path.join(checkpoint_dir, "offsets")
         self._commits_dir = os.path.join(checkpoint_dir, "commits")
         if wal_mode == "append":
@@ -559,7 +530,9 @@ class StreamingQuery:
     def _init_append_wal(self, checkpoint_dir: str) -> None:
         """``append`` mode: recovery is ``wal_checkpoint.json`` (the
         sealed state at the last compaction) plus the log tails written
-        since; records the checkpoint covers replay idempotently."""
+        since; records the checkpoint covers replay idempotently.  A torn
+        final line (a crash mid-append) is truncated out with a repair
+        record: a torn intent replans, a torn commit replays."""
         if os.path.isdir(self._offsets_dir) or os.path.isdir(
             self._commits_dir
         ):
@@ -575,11 +548,18 @@ class StreamingQuery:
         )
         last, end, pending = -1, 0, {}
         if os.path.exists(self._wal_ckpt_path):
-            core = _load_sealed(self._wal_ckpt_path)
+            core = storage_plane.load_sealed_json(self._wal_ckpt_path)
             last, end = int(core["last_committed"]), int(core["end"])
             pending = {int(k): v for k, v in core.get("pending", {}).items()}
-        pending.update(_read_log(offsets_path))
-        commits = _read_log(commits_path)
+
+        def read_log(path: str) -> dict:
+            records, _repair = storage_plane.read_jsonl_tolerant(
+                path, repair=True, artifact="wal_append",
+                repair_dir=checkpoint_dir)
+            return {int(rec["batch_id"]): rec for rec in records}
+
+        pending.update(read_log(offsets_path))
+        commits = read_log(commits_path)
         if commits and max(commits) > last:
             last = max(commits)
             end = commits[last]["end"]
@@ -588,8 +568,8 @@ class StreamingQuery:
         self._pending_intents = {
             bid: rec for bid, rec in pending.items() if bid > last
         }
-        self._offsets_log = open(offsets_path, "a")
-        self._commits_log = open(commits_path, "a")
+        self._offsets_log = open(offsets_path, "a")  # storage: wal_append
+        self._commits_log = open(commits_path, "a")  # storage: wal_append
 
     # -- checkpoint bookkeeping -------------------------------------------
 
@@ -609,9 +589,12 @@ class StreamingQuery:
                     json.load(f)
                 return ids[-1]
             except ValueError:
-                # a torn commit record is a commit that never landed: it
-                # is set aside and the batch replays
-                os.replace(path, path + ".torn")
+                # a torn commit record is a commit that never landed:
+                # its evidence is quarantined and the batch replays
+                storage_plane.quarantine_blob(
+                    path, artifact="wal_files",
+                    detail="torn commit record at recovery",
+                    root=self.checkpoint_dir)
                 ids.pop()
         return -1
 
@@ -643,32 +626,51 @@ class StreamingQuery:
         except ValueError:
             return None  # a torn intent: the batch was never planned
 
+    def _append_log(self, attr: str, name: str):
+        """The live append-WAL handle, reopened (in append mode) when a
+        failed compaction left it closed."""
+        f = getattr(self, attr)
+        if f is None or f.closed:
+            f = open(  # storage: wal_append
+                os.path.join(self.checkpoint_dir, name), "a")
+            setattr(self, attr, f)
+        return f
+
+    def _append_wal(self, attr: str, name: str, record: dict) -> None:
+        """One append-WAL line at the ``storage.wal`` fault site, then
+        fsynced: the line is durable before the batch moves on."""
+        f = self._append_log(attr, name)
+        storage_plane.append_line(f, json.dumps(record) + "\n",
+                                  site="storage.wal")
+        os.fsync(f.fileno())
+
     def _wal_intent(self, batch_id: int, intent: dict) -> None:
+        # policy FAIL: a failed write fails the batch's round
         if self.wal_mode == "append":
-            _append(self._offsets_log, intent)
+            self._append_wal("_offsets_log", "offsets.log", intent)
             self._pending_intents[batch_id] = intent
         else:
-            _atomic_write_json(
+            storage_plane.atomic_write_json(
                 os.path.join(self._offsets_dir, f"{batch_id}.json"),
-                intent, fsync=False,
-            )
+                intent, site="storage.wal", fsync=False)
 
     def _wal_commit(self, batch_id: int, intent: dict) -> None:
         if self.wal_mode == "append":
-            _append(self._commits_log, intent)
+            self._append_wal("_commits_log", "commits.log", intent)
             self._pending_intents.pop(batch_id, None)
             self._maybe_compact_wal(batch_id, intent["end"])
         else:
-            _atomic_write_json(
+            storage_plane.atomic_write_json(
                 os.path.join(self._commits_dir, f"{batch_id}.json"),
-                intent, fsync=False,
-            )
+                intent, site="storage.wal", fsync=False)
             self._prune_files_wal(batch_id)
 
     def _maybe_compact_wal(self, last_committed: int, end: int) -> None:
         """Every ``wal_compact_every`` commits, seal the recovered state
         (last committed batch, end offset, pending intents) into
-        ``wal_checkpoint.json`` and truncate both logs."""
+        ``wal_checkpoint.json`` and truncate both logs.  A compaction
+        that cannot write degrades (counted; the logs keep growing until
+        the disk recovers): bounding storage never loses the WAL."""
         if self.wal_compact_every <= 0:
             return
         self._commits_since_compact += 1
@@ -682,16 +684,27 @@ class StreamingQuery:
                 str(bid): rec for bid, rec in self._pending_intents.items()
             },
         }
-        _atomic_write_json(self._wal_ckpt_path, _seal(core), fsync=True)
-        # the checkpoint is durable: a crash before or between the
-        # truncations replays the tails over it idempotently
-        for attr, name in (("_offsets_log", "offsets.log"),
-                           ("_commits_log", "commits.log")):
-            getattr(self, attr).close()
-            setattr(self, attr,
-                    open(os.path.join(self.checkpoint_dir, name), "w"))
+        try:
+            storage_plane.atomic_write_json(
+                self._wal_ckpt_path, storage_plane.seal_record(core),
+                site="storage.wal")
+            # the checkpoint is durable: a crash before, between or in
+            # the truncations replays the tails over it idempotently; a
+            # failed reopen leaves a closed handle that _append_log
+            # reopens
+            for attr, name in (("_offsets_log", "offsets.log"),
+                               ("_commits_log", "commits.log")):
+                getattr(self, attr).close()
+                setattr(self, attr, open(  # storage: wal_append
+                    os.path.join(self.checkpoint_dir, name), "w"))
+        except OSError as e:
+            storage_plane.note_write_error("wal_append", self._wal_ckpt_path,
+                                           e)
+            return
+        storage_plane.note_write_ok("wal_append")
         self._commits_since_compact = 0
         self.wal_compactions += 1
+        inc("sntc_wal_compactions_total")
 
     def _prune_files_wal(self, batch_id: int) -> None:
         """Delete the committed intent/commit pairs below the
@@ -705,7 +718,7 @@ class StreamingQuery:
                 try:
                     os.unlink(os.path.join(d, f"{bid}.json"))
                     self.wal_prunes += 1
-                except FileNotFoundError:
+                except OSError:
                     pass
             self._prune_cursor += 1
 
@@ -785,9 +798,10 @@ class StreamingQuery:
                    self._next_start)
         t0 = time.perf_counter()
 
-        def _read() -> Frame:
+        def _read() -> tuple:
             fault_point("stream.read")
-            return self.source.get_batch(intent["start"], intent["end"])
+            frame = self.source.get_batch(intent["start"], intent["end"])
+            return self._admit(batch_id, intent, frame)
 
         frame = None
         stage = "stream.read"
@@ -797,16 +811,27 @@ class StreamingQuery:
         if br_predict is not None and br_predict.state == "open":
             return False
         try:
-            frame = (with_retries(_read, self.retry_policy,
-                                  site="stream.read")
-                     if self.retry_policy is not None else _read())
+            frame, row_mask, rejects, coerced, batch_files = (
+                with_retries(_read, self.retry_policy, site="stream.read")
+                if self.retry_policy is not None else _read())
             t1 = time.perf_counter()
             stage = "predict.dispatch"
             if br_predict is not None and not br_predict.allow():
                 return False
+            # idempotent per batch id: a replay or retry round rewrites
+            # the evidence and counts it once
+            if rejects:
+                self._journal_rejected_rows(batch_id, intent, rejects,
+                                            batch_files or [])
+            if batch_id not in self._admission_counted:
+                self._admission_counted.add(batch_id)
+                if row_mask is not None:
+                    self._batches_salvaged += 1
+                self._rows_coerced_total += coerced
             try:
                 with ledger_scope(self.transfer):
-                    finalize = self.predictor.predict_frame_async(frame)
+                    finalize = self.predictor.predict_frame_async(
+                        frame, row_valid=row_mask)
             except Exception as de:
                 # a device failure belongs to the platform, not the
                 # batch: it releases a half-open probe slot instead of
@@ -839,12 +864,36 @@ class StreamingQuery:
                                            stage, t0)
         timing = {"readMs": (t1 - t0) * 1e3,
                   "dispatchMs": (time.perf_counter() - t1) * 1e3}
-        self._in_flight.append(
-            (batch_id, intent, finalize, t0, frame.num_rows, timing, frame)
-        )
+        self._in_flight.append((batch_id, intent, finalize, t0,
+                                frame.num_rows, timing, frame, row_mask))
         # max(): a replayed intent may end below the planning cursor
         self._next_start = max(self._next_start, intent["end"])
         return True
+
+    def _admit(self, batch_id: int, intent: dict, frame: Frame) -> tuple:
+        """The ``stream.admit`` step of a read: drain the parse-time
+        rejects of this batch's files, then admit the frame against the
+        contract.  ``(frame, row_mask, rejects, coerced, batch_files)``;
+        ``strict`` raises ``SchemaViolation`` here, failing the read."""
+        files_for = getattr(self.source, "files_for_range", None)
+        batch_files = (files_for(intent["start"], intent["end"])
+                       if files_for is not None else None)
+        take = getattr(self.source, "take_rejects", None)
+        rejects = list(take(batch_files)) if take is not None else []
+        if self.schema_contract is None:
+            return frame, None, rejects, 0, batch_files
+        res = self.schema_contract.admit(frame, mode=self.row_policy)
+        if res.rejects:
+            # best-effort raw text: the row's 1-D values in column order
+            # (the parser records the true line for what it excised)
+            cols_1d = [to_host(frame[c]) for c in frame.columns
+                       if frame[c].ndim == 1]
+            for r in res.rejects:
+                rec = dict(r)
+                rec["raw"] = ",".join(str(a[rec["row"]]) for a in cols_1d)
+                rejects.append(rec)
+        mask = None if res.valid.all() else res.valid
+        return res.frame, mask, rejects, res.coerced, batch_files
 
     def _bump_failures(self, batch_id: int, stage: str) -> int:
         """Failed rounds per (batch, stage): a read flake and a sink
@@ -892,8 +941,8 @@ class StreamingQuery:
         failure rounds, the quarantine at the threshold, the commit.  The
         batch leaves ``_in_flight`` only after its commit, so ids never
         shift.  True when it committed (normally or quarantined)."""
-        (batch_id, intent, _fin, t0, n_rows, timing,
-         frame) = self._in_flight[0]
+        (batch_id, intent, _fin, t0, n_rows, timing, frame,
+         _mask) = self._in_flight[0]
         breaker = self.breakers.get("sink.write")
         quarantined = False
         if exc is not None:
@@ -944,11 +993,12 @@ class StreamingQuery:
         of its frame (the device response, an OOM split included, runs
         on a new dispatch only).  A failure keeps the old finalize: the
         next round classifies again; a failed domain raises."""
-        (batch_id, intent, _old, t0, n_rows, timing,
-         frame) = self._in_flight[0]
+        (batch_id, intent, _old, t0, n_rows, timing, frame,
+         row_mask) = self._in_flight[0]
         try:
             with ledger_scope(self.transfer):
-                fin = self.predictor.predict_frame_async(frame)
+                fin = self.predictor.predict_frame_async(
+                    frame, row_valid=row_mask)
         except Exception as e:
             dom = self._device_domain()
             if dom is not None and dom.failed:
@@ -957,7 +1007,7 @@ class StreamingQuery:
                        error=repr(e), during="redispatch")
             return
         self._in_flight[0] = (batch_id, intent, fin, t0, n_rows, timing,
-                              frame)
+                              frame, row_mask)
 
     def _retire_oldest(self) -> bool:
         """Serial retire: deliver and settle the oldest in-flight batch
@@ -1063,6 +1113,9 @@ class StreamingQuery:
         fault_point("stream.commit")
         self._wal_commit(batch_id, intent)
         self._clear_failures(batch_id)
+        # a committed batch never re-reads in this process
+        self._rows_journaled.discard(batch_id)
+        self._admission_counted.discard(batch_id)
         self._last_committed = batch_id
         self._end_offset = intent["end"]
         self.rows_served += n_rows
@@ -1117,18 +1170,126 @@ class StreamingQuery:
                 record["rows_file"] = f"batch_{batch_id:06d}.csv"
             except Exception as dump_err:
                 record["dump_error"] = repr(dump_err)
+        # the journal rotates at its size cap and degrades on a failed
+        # write: losing a record never fails the quarantine
         if self._dead_letter_writer is None:
-            self._dead_letter_writer = _JsonlJournal(
-                os.path.join(self.dead_letter_dir, "dead_letter.jsonl"))
+            self._dead_letter_writer = storage_plane.RotatingJsonlWriter(
+                os.path.join(self.dead_letter_dir, "dead_letter.jsonl"),
+                artifact="dead_letter", site="storage.dead_letter")
         self._dead_letter_writer.write(record)
         if self.dead_letter_keep > 0:
-            _prune_keep_newest(
+            storage_plane.prune_dir_keep_newest(
                 self.dead_letter_dir, self.dead_letter_keep,
+                artifact="dead_letter",
                 protect=tuple(f"dead_letter.jsonl{x}"
                               for x in ("", ".1", ".2")),
             )
         emit_event(event="quarantine", site=site, batch_id=batch_id,
                    error=repr(exc))
+
+    def _journal_rejected_rows(self, batch_id: int, intent: dict,
+                               rejects: List[dict],
+                               batch_files: List[str]) -> None:
+        """The row dead letters of one batch (see the module docs): one
+        record per excised row or line, written atomically to
+        ``batch_NNNNNN.jsonl`` merged with what an earlier round or run
+        journaled (never shrunk); the ``rows_rejected`` event and count
+        once per batch.  A failed write sheds the evidence (counted), it
+        never fails the batch."""
+        def key(r):
+            return (r.get("file"), r.get("line"), r.get("row"),
+                    r.get("raw"), r.get("reason"))
+
+        seen: set = set()
+        records: List[dict] = []
+        for r in rejects:
+            if key(r) in seen:  # a retried read parses the same lines
+                continue
+            seen.add(key(r))
+            rec = {
+                "batch_id": batch_id,
+                "file": r.get("file") or (
+                    batch_files[0] if len(batch_files) == 1 else None),
+                "line": r.get("line"),
+                "row": r.get("row"),
+                "raw": r.get("raw"),
+                "reason": r.get("reason"),
+                "column": r.get("column"),
+                "value": r.get("value"),
+                "detail": r.get("detail"),
+                "ts": time.time(),
+            }
+            if rec["file"] is None and batch_files:
+                rec["batch_files"] = batch_files
+            records.append(rec)
+        if not records:
+            return
+        first_journal = batch_id not in self._rows_journaled
+        self._rows_journaled.add(batch_id)
+        os.makedirs(self.row_dead_letter_dir, exist_ok=True)
+        final = os.path.join(self.row_dead_letter_dir,
+                             f"batch_{batch_id:06d}.jsonl")
+        if os.path.exists(final):
+            with open(final) as f:
+                prior = [json.loads(line) for line in f if line.strip()]
+            fresh = {key(r) for r in records}
+            records = [r for r in prior if key(r) not in fresh] + records
+        try:
+            storage_plane.atomic_write_bytes(
+                final,
+                "".join(json.dumps(r) + "\n" for r in records).encode(),
+                site="storage.dead_letter", fsync=False)
+        except OSError as e:
+            storage_plane.note_write_error("dead_letter_rows", final, e)
+            return
+        storage_plane.note_write_ok("dead_letter_rows")
+        if self.dead_letter_keep > 0:
+            storage_plane.prune_dir_keep_newest(
+                self.row_dead_letter_dir, self.dead_letter_keep,
+                artifact="dead_letter_rows")
+        if not first_journal:
+            return
+        self._rows_rejected_total += len(records)
+        reasons: dict = {}
+        for rec in records:
+            reasons[rec["reason"]] = reasons.get(rec["reason"], 0) + 1
+        emit_event(event="rows_rejected", site="source.parse",
+                   batch_id=batch_id, count=len(records), reasons=reasons)
+
+    def admission_stats(self) -> Optional[dict]:
+        """Row admission (None without a contract): the policy, rows
+        rejected and coerced, batches that needed the salvage mask, and
+        the row dead letters' directory."""
+        if self.schema_contract is None:
+            return None
+        return {
+            "policy": self.row_policy,
+            "rows_rejected": self._rows_rejected_total,
+            "rows_coerced": self._rows_coerced_total,
+            "batches_salvaged": self._batches_salvaged,
+            "row_dead_letter_dir": self.row_dead_letter_dir,
+        }
+
+    def storage_stats(self) -> dict:
+        """The storage plane for this engine's checkpoint dir: the WAL's
+        bounds and counters, the dead-letter journal writer, and the
+        construction-time scan when it found something."""
+        out = {
+            "wal_mode": self.wal_mode,
+            "wal_compact_every": self.wal_compact_every,
+            "wal_keep_commits": self.wal_keep_commits,
+            "dead_letter_keep": self.dead_letter_keep,
+            "wal_compactions": self.wal_compactions,
+            "wal_prunes": self.wal_prunes,
+        }
+        if self._dead_letter_writer is not None:
+            out["dead_letter_journal"] = self._dead_letter_writer.stats()
+        scan = self.storage_scan
+        if scan is not None and (scan["repaired"] or scan["errors"]
+                                 or scan["cleaned"]):
+            out["startup_scan"] = {k: scan[k] for k in
+                                   ("repaired", "errors", "cleaned")}
+        return out
 
     def pipeline_stats(self) -> dict:
         """Pipelining evidence: overlap and bucket config, delivery-thread
@@ -1145,17 +1306,11 @@ class StreamingQuery:
             "bucket_hits": self.predictor.bucket_hits,
             "padded_rows_total": self.predictor.padded_rows_total,
             "transfers": self.transfer.snapshot(),
-            "storage": {
-                "wal_mode": self.wal_mode,
-                "wal_compact_every": self.wal_compact_every,
-                "wal_keep_commits": self.wal_keep_commits,
-                "wal_compactions": self.wal_compactions,
-                "wal_prunes": self.wal_prunes,
-            },
+            "storage": self.storage_stats(),
         }
-        if self._dead_letter_writer is not None:
-            stats["storage"]["dead_letter_journal"] = (
-                self._dead_letter_writer.stats())
+        admission = self.admission_stats()
+        if admission is not None:
+            stats["admission"] = admission
         src_stats = getattr(self.source, "prefetch_stats", None)
         if src_stats is not None:
             stats["prefetch"] = src_stats()
@@ -1253,5 +1408,6 @@ class StreamingQuery:
             self._delivery_pool = None
             self._delivery = None
         if self.wal_mode == "append":
-            self._offsets_log.close()
-            self._commits_log.close()
+            for f in (self._offsets_log, self._commits_log):
+                if f is not None:
+                    f.close()

@@ -18,6 +18,16 @@ counts the distinct dispatched row shapes, as the JAX package's
 predictor does (there each one is an XLA compile; here it is the shape
 ledger the two packages are compared on).
 
+**Row admission** (``row_valid``, the salvage mask of a
+``data.schema.SchemaContract``; True = admitted): excised rows ride
+inside the dispatched frame, already overwritten by the contract with a
+donor row, and are dropped at finalize through the same ``VALID_COL``
+mask as bucket padding.  A batch is dispatched plain only when it fills
+its bucket and every row is admitted; any other batch goes through
+``pad_assemble(frame, target, valid)``, a full one too (a zero-row pad),
+so salvage never changes a dispatched shape and ``compile_events`` stays
+flat.
+
 **Device fault domain** (``device_domain``, a
 ``resilience.device.DeviceFaultDomain``): a CUDA error at a dispatch is
 classified and answered on the card, as in the JAX predictor
@@ -120,20 +130,28 @@ class BatchPredictor:
             self.compile_events += 1
         self.padded_rows_total += padded
 
-    def _launch(self, frame: Frame, n: int, target: int) -> Callable[[], Frame]:
-        """Dispatch ONE frame through the model's async transform,
-        bucket-padded to ``target`` rows when that is more than ``n``;
-        the returned finalize strips the pad tail via the validity
-        mask."""
+    @staticmethod
+    def _plain(n: int, target: int, row_valid) -> bool:
+        """A batch dispatches unpadded only when it fills its bucket and
+        every row is admitted."""
+        return (target == n or n == 0) and (
+            row_valid is None or bool(np.all(row_valid)))
+
+    def _launch(self, frame: Frame, n: int, target: int,
+                row_valid=None) -> Callable[[], Frame]:
+        """Dispatch ONE frame through the model's async transform; a
+        batch that is not plain goes through ``pad_assemble`` to
+        ``target`` rows with its validity mask, and the returned
+        finalize keeps the rows the mask marks."""
         from sntc_tpu_torch.kernels.assemble import pad_assemble
 
         model = self.model
-        if target == n or n == 0:
+        if self._plain(n, target, row_valid):
             self._record_shape(n)
             return model.transform_async(frame)
         self._record_shape(target, padded=target - n)
         valid = np.zeros(target, dtype=bool)
-        valid[:n] = True
+        valid[:n] = True if row_valid is None else row_valid
         inner = model.transform_async(
             pad_assemble(frame, target, valid, self.device)
         )
@@ -149,22 +167,23 @@ class BatchPredictor:
 
         return fin
 
-    def _dispatch_one(self, frame: Frame,
+    def _dispatch_one(self, frame: Frame, row_valid=None,
                       _oom_depth: int = 0) -> Callable[[], Frame]:
-        """Dispatch one at-most-chunk_rows frame; with a device domain,
-        through its fault sites and response (see the module docs)."""
+        """Dispatch one at-most-chunk_rows frame with its admission mask;
+        with a device domain, through its fault sites and response (see
+        the module docs)."""
         n = frame.num_rows
         target = bucket_rows_for(n, self.bucket_rows)
         dom = self.device_domain
         if dom is None:
-            return self._launch(frame, n, target)
+            return self._launch(frame, n, target, row_valid)
         dom.check()
-        shape = n if target == n or n == 0 else target
+        shape = n if self._plain(n, target, row_valid) else target
         try:
             if n and shape not in self._shapes_seen:
                 fault_point("predict.compile")
             fault_point("device.dispatch")
-            fin = self._launch(frame, n, target)
+            fin = self._launch(frame, n, target, row_valid)
         except Exception as e:
             kind = classify_device_error(e)
             if kind is None:
@@ -184,10 +203,10 @@ class BatchPredictor:
         # outside the except block: the failed attempt's device tensors
         # go with its frames before anything is dispatched again
         release_frames(exc)
-        return self._respond_device(kind, exc, frame, _oom_depth)
+        return self._respond_device(kind, exc, frame, row_valid, _oom_depth)
 
     def _respond_device(self, kind: str, exc: BaseException, frame: Frame,
-                        depth: int) -> Callable[[], Frame]:
+                        row_valid, depth: int) -> Callable[[], Frame]:
         """The response to one classified device failure."""
         dom = self.device_domain
         n = frame.num_rows
@@ -203,8 +222,12 @@ class BatchPredictor:
                 if depth == 0:
                     self._step_bucket_floor()
                 mid = (n + 1) // 2
-                left = self._dispatch_one(frame.slice(0, mid), depth + 1)
-                right = self._dispatch_one(frame.slice(mid, n), depth + 1)
+                lmask = None if row_valid is None else row_valid[:mid]
+                rmask = None if row_valid is None else row_valid[mid:]
+                left = self._dispatch_one(frame.slice(0, mid), lmask,
+                                          depth + 1)
+                right = self._dispatch_one(frame.slice(mid, n), rmask,
+                                           depth + 1)
                 return lambda: Frame.concat_all([left(), right()])
             dom.note_fault(kind, site="device.dispatch", rows=n)
         else:
@@ -257,25 +280,39 @@ class BatchPredictor:
 
     # -- public surface -----------------------------------------------------
 
-    def predict_frame(self, frame: Frame) -> Frame:
-        return self.predict_frame_async(frame)()
+    def predict_frame(self, frame: Frame, row_valid=None) -> Frame:
+        return self.predict_frame_async(frame, row_valid=row_valid)()
 
-    def predict_frame_async(self, frame: Frame) -> Callable[[], Frame]:
+    def predict_frame_async(self, frame: Frame,
+                            row_valid=None) -> Callable[[], Frame]:
         """Dispatch without blocking; returns a zero-arg, once-only
-        finalize producing the output Frame.  Oversized frames dispatch
+        finalize producing the output Frame.  ``row_valid`` (the
+        admission mask, True = admitted) rides the dispatch and its rows
+        are dropped at finalize.  Oversized frames dispatch
         chunk-by-chunk through a sliding window of ``CHUNK_WINDOW``
         outstanding chunks (chunk i+W dispatches once chunk i is copied
         back), with one finalize and one concat.  That finalize
         dispatches the later chunks, so it runs on the thread that
         launches work: the engine retires an oversized batch on its own
         thread."""
+        if row_valid is not None:
+            row_valid = np.asarray(row_valid, dtype=bool)
+            if row_valid.shape != (frame.num_rows,):
+                raise ValueError(
+                    f"row_valid has shape {row_valid.shape}, expected "
+                    f"({frame.num_rows},)")
         if frame.num_rows <= self.chunk_rows:
-            return self._memo(self._dispatch_one(frame))
+            return self._memo(self._dispatch_one(frame, row_valid))
+        starts = range(0, frame.num_rows, self.chunk_rows)
         chunks = [
             frame.slice(s, min(s + self.chunk_rows, frame.num_rows))
-            for s in range(0, frame.num_rows, self.chunk_rows)
+            for s in starts
         ]
-        fins = [self._dispatch_one(c) for c in chunks[: self.CHUNK_WINDOW]]
+        masks = [None if row_valid is None
+                 else row_valid[s:s + self.chunk_rows] for s in starts]
+        fins = [self._dispatch_one(c, m)
+                for c, m in zip(chunks[: self.CHUNK_WINDOW],
+                                masks[: self.CHUNK_WINDOW])]
 
         def finalize() -> Frame:
             outs = []
@@ -284,7 +321,7 @@ class BatchPredictor:
                 fins[i] = None  # its device outputs may be freed
                 nxt = i + self.CHUNK_WINDOW
                 if nxt < len(chunks):  # chunk i+1 keeps the card busy
-                    fins.append(self._dispatch_one(chunks[nxt]))
+                    fins.append(self._dispatch_one(chunks[nxt], masks[nxt]))
             return Frame.concat_all(outs)
 
         return self._memo(finalize)

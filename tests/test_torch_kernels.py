@@ -28,9 +28,15 @@ from sntc_tpu.ops.pallas_histogram import level_histogram_pallas
 from sntc_tpu.serve.transform import VALID_COL as JAX_VALID_COL
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.device import resolve_device
-from sntc_tpu_torch.kernels import LAUNCHES, _build
+from sntc_tpu_torch.kernels import (
+    LAUNCHES,
+    PAD_LAUNCH_SHAPES,
+    _build,
+    reset_launches,
+)
 from sntc_tpu_torch.kernels.assemble import (
     pad_assemble,
+    pad_launch_shape,
     pad_rows,
     pad_rows_cuda,
     pad_rows_reference,
@@ -219,6 +225,19 @@ def test_pad_reference_matches_jax_pallas_and_numpy_twin(n, c, target, dtype):
         )
     assert ref.dtype == dtype
     np.testing.assert_array_equal(out, ref)
+
+
+def test_pad_plain_version_counts_no_launch():
+    """The CPU's plain version is no launch: neither count moves.  A
+    launch's shape key names the block, its dtype and the target."""
+    reset_launches()
+    pad_rows(torch.ones((3, 2)), 8)
+    pad_rows(torch.ones((8, 2), dtype=torch.float64), 8)
+    assert LAUNCHES["pad_assemble"] == 0 and PAD_LAUNCH_SHAPES == {}
+    assert pad_launch_shape(60000, 78, torch.float32, 65536) \
+        == "[60000, 78] f32 -> 65536"
+    assert pad_launch_shape(1000, 78, torch.float64, 1024) \
+        == "[1000, 78] f64 -> 1024"
 
 
 def test_pad_wrappers_refuse_bad_inputs():
@@ -736,3 +755,41 @@ def test_pad_kernel_matches_plain_version_on_card(cuda_device, n, c, target, dty
     out = pad_rows_cuda(a, target)
     torch.cuda.synchronize()
     assert torch.equal(out, pad_rows_reference(a, target))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,target", [(65536, 65536), (8, 8), (60000, 65536),
+                                      (1, 1)])
+def test_pad_kernel_admission_block_on_card(cuda_device, n, target):
+    """Row admission's launches: the contract's float32 [N, 78] block, a
+    full bucket padded by zero rows (``target == N``) and a partial one,
+    bitwise equal to the plain version."""
+    a = torch.randn((n, 78), dtype=torch.float32, device=cuda_device)
+    out = pad_rows_cuda(a, target)
+    torch.cuda.synchronize()
+    assert out.shape == (target, 78) and out.dtype == torch.float32
+    assert torch.equal(out, pad_rows_reference(a, target))
+    if target == n:
+        assert out.data_ptr() != a.data_ptr() and torch.equal(out, a)
+
+
+@pytest.mark.cuda
+def test_pad_kernel_counts_launches_by_shape(cuda_device):
+    """Each launch adds one to ``LAUNCHES`` and one to its block's entry
+    in ``PAD_LAUNCH_SHAPES``; ``reset_launches`` clears both."""
+    reset_launches()
+    for n, target, dtype in ((60000, 65536, torch.float32),
+                             (60000, 65536, torch.float32),
+                             (30000, 32768, torch.float32),
+                             (65536, 65536, torch.float32),
+                             (1000, 1024, torch.float64)):
+        pad_rows_cuda(torch.ones((n, 78), dtype=dtype, device=cuda_device),
+                      target)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pad_assemble"] == 5
+    assert PAD_LAUNCH_SHAPES == {"[60000, 78] f32 -> 65536": 2,
+                                 "[30000, 78] f32 -> 32768": 1,
+                                 "[65536, 78] f32 -> 65536": 1,
+                                 "[1000, 78] f64 -> 1024": 1}
+    reset_launches()
+    assert LAUNCHES["pad_assemble"] == 0 and PAD_LAUNCH_SHAPES == {}

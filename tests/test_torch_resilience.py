@@ -579,7 +579,9 @@ def test_supervisor_status_keys_are_the_jax_keys(tmp_path):
     try:
         assert psup.tick() == jsup.tick() == 1
         ps, js = psup.status(), jsup.status()
-        assert set(ps) == set(js) - {"storage"}
+        assert set(ps) == set(js)
+        assert set(ps["storage"]) == set(js["storage"])
+        assert set(ps["storage"]["disk"]) == set(js["storage"]["disk"])
         assert set(ps["engine"]) == set(js["engine"])
         assert ps["engine"] == js["engine"]
         assert set(ps["breakers"]) == set(js["breakers"]) == {

@@ -411,8 +411,8 @@ def test_predictor_dispatches_every_chunk_on_the_calling_thread(model_dir):
     in_flight, peak = [0], [0]
     original = chunked._dispatch_one
 
-    def tracked(chunk):
-        fin = original(chunk)
+    def tracked(chunk, *mask):
+        fin = original(chunk, *mask)
         in_flight[0] += 1
         peak[0] = max(peak[0], in_flight[0])
 
@@ -454,9 +454,9 @@ def test_oversized_batch_retires_on_the_engine_thread(model_dir, tmp_path):
     threads, in_flight, peak = set(), [0], [0]
     original = q.predictor._dispatch_one
 
-    def tracked(chunk):
+    def tracked(chunk, *mask):
         threads.add(threading.get_ident())
-        fin = original(chunk)
+        fin = original(chunk, *mask)
         in_flight[0] += 1
         peak[0] = max(peak[0], in_flight[0])
 
