@@ -10,7 +10,10 @@ each of which fails the run (non-zero exit, no result line):
 2. hold every kernel against its plain PyTorch version on the card, at
    its path's full-width shapes: ``forest_traversal`` (unaligned 33 and
    4 097 rows, S=3 and S=15, f32 and f64, with NaN) and
-   ``pad_assemble`` bitwise (they only compare and copy); ``tree_hist``
+   ``pad_assemble`` bitwise (they only compare and copy; ``pad_assemble``
+   on row-major and column-major blocks, f32 and f64, N of 1, 33, 1 000,
+   4 097, 50 000, 60 000 and 65 536 rows, each to its bucket and to
+   itself, 78 and 13 columns); ``tree_hist``
    bitwise and equal to itself run twice on the fit's integer-valued
    stats (the chi-square contingency, a forest's root level, the widest
    node group of its deepest level), and within 1e-5 of each cell's sum
@@ -98,7 +101,11 @@ each of which fails the run (non-zero exit, no result line):
    upload and one download a batch (its transfer ledger), and the
    default form binds its one fused segment on every batch; each run's
    rows/s without its first batch and its mean read, predict and sink
-   ms.  Config 2 at the defaults (the scaler folded into the MLP):
+   ms; and, in this process, the split of one ``pad_assemble`` call on
+   the first batch (``scripts/pad_assemble_split.py``: the host's pack,
+   column-major and, for comparison, row-major; the upload; the launch's
+   device time; the whole call).  Config 2 at the defaults (the scaler
+   folded into the MLP):
    probabilities within 1e-4 of the staged form's, predictions equal
    wherever the top two lie further apart; config 4 serves at the
    defaults in phase 6;
@@ -183,10 +190,14 @@ each of which fails the run (non-zero exit, no result line):
    to the pre-cleaned run; (c) ``--row-policy permissive`` equal to
    serving ``clean_flows(handle_invalid="zero")``; (d) ``pad_rows`` on
    the contract's float32 [60 000, 78] -> 65 536 and [65 536, 78] ->
-   65 536, bitwise against the plain version, timed beside its bound
-   and ``index_select``, each with the launches its own run counted at
+   65 536 in the column-major layout the serve path launches, bitwise
+   against the plain version, timed beside its bound and the one
+   PyTorch call of the same function (``index_select``; at the zero-row
+   pad ``contiguous()``), each with the launches its own run counted at
    that shape (the salvage run's full batches; the exact bucket's
-   zero-row pad); (e) the storage plane: an append-WAL serve
+   zero-row pad), and the split of one ``pad_assemble`` call on the
+   first salvage batch's float32 block, as in phase 8; (e) the storage
+   plane: an append-WAL serve
    killed at a commit (``SNTC_FAULTS=stream.commit:kill``), the torn
    tail a crash mid-append leaves written after it, ``python -m
    sntc_tpu_torch fsck`` repairing it (exit 0) and the restart resuming
@@ -222,6 +233,7 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Pipeline, PipelineModel
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.data import (
+    CICIDS2017_CONTRACT,
     CICIDS2017_FEATURES,
     CICIDS2017_LABELS,
     clean_flows,
@@ -290,6 +302,8 @@ BATCHES = [512, 1000, 1024, 2048, 50000, 65536]  # rows per micro-batch
 # padding) and the train phase's held-out evaluation
 FOREST_ROWS = (512, 2048, 49950, 65536)
 BUCKET_FLOOR = 256
+PAD_ODD_COLUMNS = 13  # phase 2's pad_assemble width, not a multiple of 4
+SPLIT_REPS = 5  # repetitions of each part of phases 8 and 12's pad split
 BINS = 32  # maxBins of the forest and the selector
 TRAIN_ROWS = 250_000  # generate_frame rows of the train phase, before cleaning
 TEST_FRACTION = 0.2
@@ -511,6 +525,10 @@ def kernel_device_ms(fn, calls=100) -> float:
                      "queued them all")
 
 
+def _mmm(x: list) -> str:
+    return " / ".join(f"{v:.3f}" for v in x)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise SystemExit(f"shape/dtype mismatch: {a.shape} {a.dtype} "
@@ -543,20 +561,30 @@ def check_kernels(dev) -> dict:
         errs["forest_traversal"] = max(errs["forest_traversal"], err)
         log(f"forest_traversal N={n} T={TREES} depth={DEPTH} F={TOP} "
             f"S={S} {dtype.__name__}: bitwise equal")
-    for n in (1, 1000, 4097, 50000):
-        target = bucket_rows_for(n, BUCKET_FLOOR)
-        for dtype in (torch.float32, torch.float64):
-            a = torch.randn((n, len(CICIDS2017_FEATURES)), dtype=dtype,
-                            device=dev)
-            out = pad_rows_cuda(a, target)
-            ref = pad_rows_reference(a, target)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                raise SystemExit(f"pad_assemble N={n} {dtype}: differs "
-                                 "from the plain version")
-            errs["pad_assemble"] = max(errs["pad_assemble"],
-                                       max_abs_err(out, ref))
-            log(f"pad_assemble [{n}, 78] -> [{target}, 78] {dtype}: "
+    # pad_assemble: both layouts (the serve path launches the column-major
+    # one), every block height the path pads, a zero-row pad at each, and
+    # a width that is not a multiple of 4
+    for n in (1, 33, 1000, 4097, 50000, 60000, 65536):
+        for target in sorted({n, bucket_rows_for(n, BUCKET_FLOOR)}):
+            for c in (len(CICIDS2017_FEATURES), PAD_ODD_COLUMNS):
+                for dtype in (torch.float32, torch.float64):
+                    rows = torch.randn((n, c), dtype=dtype, device=dev)
+                    for layout, a in (("row-major", rows),
+                                      ("column-major",
+                                       rows.t().contiguous().t())):
+                        out = pad_rows_cuda(a, target)
+                        ref = pad_rows_reference(a, target)
+                        torch.cuda.synchronize()
+                        if not torch.equal(out, ref) \
+                                or not out.is_contiguous():
+                            raise SystemExit(
+                                f"pad_assemble {layout} [{n}, {c}] -> "
+                                f"{target} {dtype}: differs from the plain "
+                                "version")
+                        errs["pad_assemble"] = max(errs["pad_assemble"],
+                                                   max_abs_err(out, ref))
+            log(f"pad_assemble [{n}, 78 and {PAD_ODD_COLUMNS}] -> "
+                f"[{target}, .] f32 and f64, row-major and column-major: "
                 "bitwise equal")
     return errs
 
@@ -2111,6 +2139,30 @@ def serve_forms(dev, work: str) -> list:
     for x in runs:
         del x["files"]
     return runs
+
+
+def dispatch_split(dev, paths: list, admit: bool) -> dict:
+    """The in-process split of one ``pad_assemble`` call
+    (``scripts/pad_assemble_split.py``: the host's pack, the upload, the
+    launch's device time, the whole call) on the batch of ``paths`` as
+    the serve command reads it, padded to its bucket; with ``admit``,
+    after the admission contract's float32 cast (the salvage block);
+    ``seconds`` is what the measurement took."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from pad_assemble_split import split
+
+    t0 = time.perf_counter()
+    frame = Frame.concat_all([load_csv(p) for p in paths])
+    n = frame.num_rows
+    target = bucket_rows_for(n, BUCKET_FLOOR)
+    valid = np.zeros(target, bool)
+    valid[:n] = True
+    if admit:
+        admitted = CICIDS2017_CONTRACT.admit(frame)
+        frame, valid[:n] = admitted.frame, admitted.valid
+    out = split(frame, target, valid, dev, reps=SPLIT_REPS)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # -- phase 9: naive Bayes, LinearSVC, evaluate and the tree regressors ------
@@ -3679,9 +3731,12 @@ def data_plane(dev, work: str) -> dict:
             measure_pad_at(dev, DP_EXACT_ROWS,
                            runs["exact"]["pad_launch_shapes"],
                            torch.float32, DP_EXACT_ROWS)]
+    split = dispatch_split(dev, [os.path.join(streams["dirs"]["raw"], f)
+                                 for f in ("part_0000.csv", "part_0001.csv")],
+                           admit=True)
     for x in ("salvage_files", "clean_files"):
         del runs[x]
-    return {"runs": runs, "storage": storage, "pads": pads,
+    return {"runs": runs, "storage": storage, "pads": pads, "split": split,
             "seconds": time.perf_counter() - t0}
 
 
@@ -3946,25 +4001,33 @@ def measure_forest(dev, served: dict, err: float, launches: int) -> list:
 def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
                    target: int | None = None) -> dict:
     """``pad_assemble`` of an ``[n, 78]`` block to its bucket (or to
-    ``target``): bitwise against its plain version on the same inputs, a
-    call's time by CUDA events, as for every kernel, and the device time
-    a launch (100 queued: the output's allocation costs no launch),
-    beside ``index_select``'s.  ``launches`` is what ``shapes`` (a serve
-    run's ``pad_launch_shapes``) counted at this block and target; none
-    there fails the phase."""
+    ``target``), in the layout the serve path launches (column-major: the
+    transpose of a contiguous ``[78, n]`` block): bitwise against its
+    plain version on the same inputs, a call's time by CUDA events, as
+    for every kernel, and the device time a launch (100 queued: the
+    output's allocation costs no launch), beside the one PyTorch call
+    that computes the same function on the same view (``index_select``
+    of the rows; at a zero-row pad ``contiguous()``).  ``launches`` is
+    what ``shapes`` (a serve run's ``pad_launch_shapes``) counted at this
+    block and target; none there fails the phase."""
     target = bucket_rows_for(n, BUCKET_FLOOR) if target is None else target
     c = len(CICIDS2017_FEATURES)
     key = pad_launch_shape(n, c, dtype, target)
     if shapes.get(key, 0) < 1:
         raise SystemExit(f"pad_assemble {key}: not launched in its run, "
                          f"which padded {shapes}")
-    a = torch.randn((n, c), dtype=dtype, device=dev)
+    a = torch.randn((c, n), dtype=dtype, device=dev).t()
     out, ref = pad_rows_cuda(a, target), pad_rows_reference(a, target)
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise SystemExit(f"pad_assemble {key}: differs from its plain "
                          "version")
-    idx = torch.clamp(torch.arange(target, device=dev), max=n - 1)
+    if target == n:
+        library, library_name = a.contiguous, "contiguous"
+    else:
+        idx = torch.clamp(torch.arange(target, device=dev), max=n - 1)
+        library, library_name = (lambda: a.index_select(0, idx),
+                                 "index_select")
     p_bytes = (n + target) * c * a.element_size()
     return {
         "name": "pad_assemble", "route": "cuda",
@@ -3977,10 +4040,10 @@ def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
         "plain_ms": time_ms(lambda: pad_rows_reference(a, target)),
         "bound_ms": p_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": time_ms(lambda: a.index_select(0, idx)),
-        "library_device_ms": kernel_device_ms(
-            lambda: a.index_select(0, idx)),
-        "shape": f"{key}; needs {p_bytes} B",
+        "library_ms": time_ms(library),
+        "library_device_ms": kernel_device_ms(library),
+        "library_call": library_name,
+        "shape": f"{key}, column-major; needs {p_bytes} B",
     }
 
 
@@ -4017,6 +4080,10 @@ def main() -> int:
         errs["tree_hist"] = check_tree_hist(cases)
         summary, served = serve(dev, work)
         forms = serve_forms(dev, work)
+        split8 = dispatch_split(dev, [os.path.join(work, "in8", f)
+                                      for f in ("part_0000.csv",
+                                                "part_0001.csv")],
+                                admit=False)
         failures = failure_paths(dev, work)
         phase12 = data_plane(dev, work)
         stages = breakdown(dev, work)
@@ -4096,6 +4163,16 @@ def main() -> int:
             f"{s['pipeline_stats']['delivery_busy_s']} s, transfers "
             f"{s['pipeline_stats']['transfers']}, fusion {s['fusion']}, "
             f"launches {s['kernel_launches']} [{card}]")
+    for tag, x in (("phase 8", split8), ("phase 12", phase12["split"])):
+        log(f"{tag} pad_assemble split, in process, of a {x['block']} "
+            "batch (ms, min / median / max): column-major pack "
+            f"{_mmm(x['pack_column_major_ms'])} (row-major, as before the "
+            f"redesign: {_mmm(x['pack_row_major_ms'])}), upload "
+            f"{_mmm(x['upload_ms'])} ({x['upload_bytes']} B), launch "
+            f"{x['launch_column_major_device_ms']:.4f} device ms "
+            f"(row-major {x['launch_row_major_device_ms']:.4f}), the whole "
+            f"call {_mmm(x['call_ms'])}; measured in {x['seconds']:.1f} s "
+            f"[{card}]")
     for b in stages:
         log(f"breakdown of a {b['rows']}-row batch: read {b['read_ms']:.2f} "
             f"ms, predict {b['predict_ms']:.2f} ms (device busy "
@@ -4166,7 +4243,8 @@ def main() -> int:
     for k in pads:
         log(f"{k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
             f"{k['device_ms']:.4f} ms of device time a launch (plain "
-            f"{k['plain_ms']:.4f} ms; index_select {k['library_ms']:.4f} ms "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms "
             f"a call, {k['library_device_ms']:.4f} ms of device time; bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
             f"launches at this shape over {len(BATCHES)} batches [{card}]")
@@ -4181,7 +4259,8 @@ def main() -> int:
     k = phase10["pad"]
     log(f"phase 10 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
         f"{k['device_ms']:.4f} ms of device time a launch (plain "
-        f"{k['plain_ms']:.4f} ms, index_select {k['library_ms']:.4f} ms; "
+        f"{k['plain_ms']:.4f} ms, {k['library_call']} "
+        f"{k['library_ms']:.4f} ms; "
         f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
         f"launches on its path [{card}]")
     p10 = {key: phase10[key] for key in ("ovr", "cv", "pipeline_cv")}
@@ -4227,7 +4306,8 @@ def main() -> int:
     for k in phase12["pads"]:
         log(f"phase 12 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
             f"{k['device_ms']:.4f} ms of device time a launch (plain "
-            f"{k['plain_ms']:.4f} ms; index_select {k['library_ms']:.4f} ms "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms "
             f"a call, {k['library_device_ms']:.4f} ms of device time; bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}); {k['launches']} "
             f"launches at this shape in its run, max abs error "
@@ -4245,7 +4325,7 @@ def main() -> int:
         with open(args.out_json, "w") as f:
             json.dump({"card": card, "build": dict(_build.BUILD_INFO),
                        "serve": summary, "rows_per_s": rows_per_s,
-                       "serve_forms": forms,
+                       "serve_forms": forms, "split8": split8,
                        "breakdown": stages, "train": trained,
                        "reduced_fit": reduced, "fit": fit,
                        "config4": {"train": trained4,

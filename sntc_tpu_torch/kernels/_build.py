@@ -60,8 +60,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "sntc_forest_leaf_stats_f32": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
     "sntc_forest_leaf_stats_f64": [_P] * 5 + [_I64] * 5 + [ctypes.c_int, _P],
-    "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, _P],
-    "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, _P],
+    "sntc_pad_rows_f32": [_P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
+    "sntc_pad_rows_f64": [_P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "sntc_tree_hist_f32": [_P] * 5 + [_I64] * 7 + [_P],
     "sntc_tree_hist_plan": [_I64] * 6 + [_P],
 }
@@ -150,8 +150,12 @@ def _build_with_nvcc(sources, verbose: bool) -> str:
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
-    """The bound kernel library, built at first use in this process."""
+    """The bound kernel library, built at first use in this process
+    (after that, returned without taking the lock)."""
     global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
     with _LOCK:
         if _LIB is not None:
             return _LIB

@@ -5,22 +5,28 @@ Pallas kernel ``_pad_kernel``, driven per column by ``pad_assemble``).
 ``BatchPredictor`` rounds a batch up to its shape bucket by repeating the
 last row and attaches a ``VALID_COL`` mask marking the real rows.
 
-:func:`pad_rows` pads one ``[N, C]`` block: on a CUDA tensor it launches
-``csrc/pad_rows.cu`` (:func:`pad_rows_cuda`) or raises; on a CPU tensor
-it computes :func:`pad_rows_reference`.  Both are bitwise the numpy
-repeat-last-row twin.
+:func:`pad_rows` pads one ``[N, C]`` block, row-major or column-major
+(strides ``(1, N)``: the transpose of a contiguous ``[C, N]`` block), into
+a contiguous row-major ``[target, C]`` block: on a CUDA tensor it
+launches ``csrc/pad_rows.cu`` (:func:`pad_rows_cuda`) or raises; on a CPU
+tensor it computes :func:`pad_rows_reference`.  Both are bitwise the
+numpy repeat-last-row twin.
 
 :func:`pad_assemble` does not pad column by column as the JAX package
 does: a CICIDS2017 batch has 78 numeric columns, and a host→device→host
-round trip per column would dominate the batch.  It stacks the 1-D
+round trip per column would dominate the batch.  It packs the 1-D
 numeric columns of one item size (float64 and int64; float32 and int32)
-into one ``[N, C]`` block, uploads it once, pads it in one launch and
-leaves the padded block on the device; each column of the padded frame
-is a view of it, in its own dtype (the copy moves bits, so an integer
-column rides a float block exactly).  The assembled features then reach
-the serve kernels without a second upload, and a CSV batch costs one
-upload (recorded in the transfer ledger).  Other columns pad on the
-host.
+column-major into one ``[C, N]`` block, one contiguous copy per column
+(a row-major pack would store each column with strided writes, on the
+engine thread, for every batch), uploads it once, and pads its
+transpose in one launch: the kernel transposes on the device.  The
+padded row-major block stays on the device; each column of the padded
+frame is a view of it, in its own dtype (the copy moves bits, so an
+integer column rides a float block exactly).  The assembled features
+then reach the serve kernels without a second upload, and a CSV batch
+costs one upload (recorded in the transfer ledger).  A 2-D float column
+(a row-major ``[N, k]`` block) pads on its own, as it is; other columns
+pad on the host.
 """
 
 from __future__ import annotations
@@ -58,12 +64,16 @@ def _pad_column_np(a: np.ndarray, target: int) -> np.ndarray:
 
 def pad_rows_reference(a: torch.Tensor, target: int) -> torch.Tensor:
     """Plain version: the block followed by ``target - N`` copies of its
-    last row."""
+    last row, as a contiguous row-major block."""
+    _check(a, target)
     n = a.shape[0]
-    return torch.cat([a, a[n - 1:].expand(target - n, *a.shape[1:])])
+    return torch.cat(
+        [a, a[n - 1:].expand(target - n, *a.shape[1:])]).contiguous()
 
 
-def _check(a: torch.Tensor, target: int) -> None:
+def _check(a: torch.Tensor, target: int) -> bool:
+    """Refuse what the kernel does not take; True for a column-major
+    block."""
     if a.ndim != 2:
         raise ValueError(f"pad_rows takes an [N, C] block, got {tuple(a.shape)}")
     if a.shape[0] < 1:
@@ -72,6 +82,19 @@ def _check(a: torch.Tensor, target: int) -> None:
         raise ValueError(f"pad target {target} < {a.shape[0]} rows")
     if a.dtype not in _DTYPES:
         raise TypeError(f"pad_rows takes float32 or float64, got {a.dtype}")
+    if a.is_contiguous():
+        return False
+    if a.stride() == (1, a.shape[0]):  # a.t() is contiguous
+        return True
+    raise ValueError("pad_rows takes a row-major or a column-major block, "
+                     f"got strides {a.stride()} for shape {tuple(a.shape)}")
+
+
+#: the widest block the kernel takes: 16 bytes of each of its columns
+#: must fit in an SM's shared memory
+MAX_COLUMNS = 227 * 1024 // 16
+_ENTRIES: Dict[torch.dtype, object] = {}
+_SHAPE_KEYS: Dict[tuple, str] = {}
 
 
 def pad_launch_shape(n: int, c: int, dtype: torch.dtype, target: int) -> str:
@@ -80,37 +103,59 @@ def pad_launch_shape(n: int, c: int, dtype: torch.dtype, target: int) -> str:
     return f"[{n}, {c}] {_DTYPES[dtype]} -> {target}"
 
 
+def _entry(dtype: torch.dtype):
+    fn = _ENTRIES.get(dtype)
+    if fn is None:
+        fn = _ENTRIES[dtype] = getattr(_build.library(),
+                                       f"sntc_pad_rows_{_DTYPES[dtype]}")
+    return fn
+
+
 def pad_rows_cuda(a: torch.Tensor, target: int) -> torch.Tensor:
-    """Launch the CUDA kernel on a contiguous ``[N, C]`` CUDA block."""
-    _check(a, target)
-    if a.device.type != "cuda":
+    """Launch the CUDA kernel on a row-major or column-major ``[N, C]``
+    CUDA block; the result is a contiguous row-major ``[target, C]``
+    block.  The host's share of a call is kept small: the entry point is
+    looked up once per dtype, the device context is entered only for a
+    block off the current device, and the shape key is built once per
+    shape."""
+    col_major = _check(a, target)
+    if not a.is_cuda:
         raise ValueError(f"block is not on a CUDA device: {a.device}")
-    if not a.is_contiguous():
-        raise ValueError("block must be contiguous")
     n, c = a.shape
-    out = torch.empty((target, c), dtype=a.dtype, device=a.device)
+    if c > MAX_COLUMNS:
+        raise ValueError(f"pad_rows takes at most {MAX_COLUMNS} columns, "
+                         f"got {c}")
+    out = a.new_empty((target, c))
     if c == 0:
         return out
-    lib = _build.library()
-    fn = getattr(lib, f"sntc_pad_rows_{_DTYPES[a.dtype]}")
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), out.data_ptr(), n, c, int(target),
-                 _build.stream_handle(a.device))
-    _build.check_launch(lib, err, "pad_assemble")
+    dtype = a.dtype
+    fn = _entry(dtype)
+    index = a.get_device()
+    args = (a.data_ptr(), out.data_ptr(), n, c, int(target), col_major)
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        _build.check_launch(_build.library(), err, "pad_assemble")
     _build.LAUNCHES["pad_assemble"] += 1
+    key = (n, c, dtype, target)
+    shape = _SHAPE_KEYS.get(key)
+    if shape is None:
+        shape = _SHAPE_KEYS[key] = pad_launch_shape(n, c, dtype, target)
     shapes = _build.PAD_LAUNCH_SHAPES
-    shape = pad_launch_shape(n, c, a.dtype, target)
     shapes[shape] = shapes.get(shape, 0) + 1
     return out
 
 
 def pad_rows(a: torch.Tensor, target: int) -> torch.Tensor:
-    """Pad ``[N, C]`` to ``[target, C]`` by repeating the last row: the
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """Pad ``[N, C]`` (row-major or column-major) to a contiguous
+    ``[target, C]`` by repeating the last row: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if a.device.type == "cuda":
         return pad_rows_cuda(a, target)
     if a.device.type == "cpu":
-        _check(a, target)
         return pad_rows_reference(a, target)
     raise ValueError(f"unsupported device {a.device}")
 
@@ -139,13 +184,17 @@ def pad_assemble(frame: Frame, target: int, valid: np.ndarray,
         else:
             cols[name] = _pad_column_np(a, target)
     for block_dtype, names in groups.items():
-        # one upload and one launch for every column of this item size;
-        # an integer column is stored as its bits
-        block = np.empty((n, len(names)), block_dtype)
-        for j, name in enumerate(names):
-            block.view(host[name].dtype)[:, j] = host[name]
-        padded = pad_rows(upload(block, device), target)
-        for j, name in enumerate(names):
-            cols[name] = padded[:, j].view(_TORCH_OF[host[name].dtype])
+        # one upload and one launch for every column of this item size
+        # (up to the kernel's widest block): the block is packed
+        # column-major, one contiguous copy a column, and the kernel
+        # transposes it; an integer column is stored as its bits
+        for at in range(0, len(names), MAX_COLUMNS):
+            part = names[at:at + MAX_COLUMNS]
+            block_t = np.empty((len(part), n), block_dtype)
+            for j, name in enumerate(part):
+                block_t.view(host[name].dtype)[j] = host[name]
+            padded = pad_rows(upload(block_t, device).t(), target)
+            for j, name in enumerate(part):
+                cols[name] = padded[:, j].view(_TORCH_OF[host[name].dtype])
     cols[VALID_COL] = np.asarray(valid, dtype=bool)
     return Frame._wrap(cols, int(target))

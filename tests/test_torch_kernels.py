@@ -252,7 +252,57 @@ def test_pad_wrappers_refuse_bad_inputs():
         pad_rows(a[:0], 8)
 
 
-def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
+# column-major blocks: N = 1, a zero-row pad (target == N), C not a
+# multiple of 4, and a CICIDS2017-wide block
+PAD_COLUMN_MAJOR_CASES = [(1, 5, 8), (5, 3, 5), (33, 13, 64), (130, 78, 256),
+                          (64, 78, 64)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,c,target", PAD_COLUMN_MAJOR_CASES)
+def test_pad_column_major_matches_jax_pallas_and_numpy_twin(n, c, target,
+                                                            dtype):
+    """``pad_rows`` on the transpose of a contiguous ``[C, N]`` block (the
+    layout ``pad_assemble`` uploads) returns a contiguous row-major
+    block, bitwise the JAX kernel's and the numpy twin's."""
+    rng = np.random.default_rng(n * 17 + c)
+    a = rng.normal(size=(n, c)).astype(dtype)
+    block = torch.from_numpy(np.ascontiguousarray(a.T)).t()
+    assert not block.is_contiguous() or min(n, c) == 1
+    out = pad_rows(block, target)
+    assert out.is_contiguous() and out.shape == (target, c)
+    out = out.numpy()
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out, _pad_column_np(a, target))
+    with jax.enable_x64(dtype == np.float64):
+        ref = np.asarray(
+            pad_rows_pallas(jnp.asarray(a), target=target, interpret=True)
+        )
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_pad_wrappers_refuse_other_strides():
+    """Only a row-major or a column-major block is taken; every other
+    stride pattern is refused by the dispatch, the plain version and the
+    kernel's wrapper alike (before the wrapper's device check)."""
+    base = torch.arange(48, dtype=torch.float32).reshape(6, 8)
+    for bad in (base[::2], base[:, ::2], base.t()[::2],
+                torch.as_strided(base, (3, 4), (4, 2))):
+        for fn in (pad_rows, pad_rows_reference, pad_rows_cuda):
+            with pytest.raises(ValueError, match="row-major or a column-major"):
+                fn(bad, 8)
+    assert torch.equal(pad_rows(base.t().contiguous().t(), 8),
+                       pad_rows(base, 8))
+
+
+def test_pad_assemble_matches_jax_frame_twin_all_dtypes(monkeypatch):
+    """Every numeric column dtype (float64, int64, float32, int32), a 2-D
+    float column and a text column pad as the JAX package's
+    ``Frame.pad_rows``; the 1-D columns of one item size reach
+    ``pad_rows`` as one column-major block, the 2-D column as a
+    row-major one."""
+    import sntc_tpu_torch.kernels.assemble as assemble
+
     rng = np.random.default_rng(4)
     cols = {
         "x": rng.normal(size=(5, 4)).astype(np.float32),
@@ -260,13 +310,26 @@ def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
         "y": rng.normal(size=5),
         "b": rng.normal(size=5),
         "i": np.arange(5),
+        "j": np.arange(5, dtype=np.int32) - 2,
         "s": np.array(list("abcde"), dtype=object),
     }
     valid = np.zeros(8, bool)
     valid[:5] = True
+    seen = []
+
+    def spy(a, target):
+        seen.append((tuple(a.shape), a.dtype, a.is_contiguous()))
+        return pad_rows(a, target)
+
+    monkeypatch.setattr(assemble, "pad_rows", spy)
     before = dict(LAUNCHES)
     out = pad_assemble(Frame(cols), 8, valid, "cpu")
     assert LAUNCHES == before
+    assert sorted(seen, key=str) == sorted([
+        ((5, 4), torch.float32, True),     # the 2-D column, row-major
+        ((5, 2), torch.float32, False),    # a, j: column-major
+        ((5, 3), torch.float64, False),    # y, b, i: column-major
+    ], key=str)
     ref = JFrame(cols).pad_rows(8).with_column(JAX_VALID_COL, valid)
     assert VALID_COL == JAX_VALID_COL
     assert out.columns == ref.columns
@@ -274,9 +337,42 @@ def test_pad_assemble_matches_jax_frame_twin_all_dtypes():
         got = to_host(out[c])
         np.testing.assert_array_equal(got, np.asarray(ref[c]))
         assert got.dtype == ref[c].dtype
-    # the float columns of one dtype share one padded block on the device
+    # the columns of one item size share one padded row-major block on
+    # the device
     assert isinstance(out["a"], torch.Tensor) and isinstance(out["b"], torch.Tensor)
     assert out["y"]._base is out["b"]._base
+
+    def storage(c):
+        return out[c].untyped_storage().data_ptr()
+
+    assert storage("y") == storage("b") == storage("i")
+    assert storage("a") == storage("j") != storage("y")
+    assert out["a"].stride() == (2,) and out["y"].stride() == (3,)
+
+
+def test_pad_assemble_splits_a_group_wider_than_the_kernel_takes(
+        monkeypatch):
+    """A group of columns wider than ``MAX_COLUMNS`` pads as several
+    blocks of at most that width, each column still equal to the JAX
+    package's ``Frame.pad_rows``."""
+    import sntc_tpu_torch.kernels.assemble as assemble
+
+    rng = np.random.default_rng(5)
+    cols = {f"c{j}": rng.normal(size=3) for j in range(5)}
+    seen = []
+
+    def spy(a, target):
+        seen.append(tuple(a.shape))
+        return pad_rows(a, target)
+
+    monkeypatch.setattr(assemble, "MAX_COLUMNS", 2)
+    monkeypatch.setattr(assemble, "pad_rows", spy)
+    valid = np.arange(4) < 3
+    out = pad_assemble(Frame(cols), 4, valid, "cpu")
+    assert seen == [(3, 2), (3, 2), (3, 1)]
+    ref = JFrame(cols).pad_rows(4)
+    for c in cols:
+        np.testing.assert_array_equal(to_host(out[c]), np.asarray(ref[c]))
 
 
 # -- tree_hist ---------------------------------------------------------------
@@ -793,3 +889,94 @@ def test_pad_kernel_counts_launches_by_shape(cuda_device):
                                  "[1000, 78] f64 -> 1024": 1}
     reset_launches()
     assert LAUNCHES["pad_assemble"] == 0 and PAD_LAUNCH_SHAPES == {}
+
+
+# phase 2 of chip_smoke.py: every block height the serve path pads, a
+# zero-row pad at each, C = 78 and a C that is not a multiple of 4
+PAD_CARD_SHAPES = [(n, c, t) for n in (1, 33, 1000, 4097, 50000, 60000, 65536)
+                   for c in (78, 13)
+                   for t in sorted({n, 1 << max(8, (n - 1).bit_length())})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["row-major", "column-major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,c,target", PAD_CARD_SHAPES)
+def test_pad_kernel_both_layouts_on_card(cuda_device, n, c, target, dtype,
+                                         layout):
+    """Both layouts, bitwise the plain version, into a contiguous
+    row-major block distinct from the input."""
+    g = torch.Generator(device=cuda_device).manual_seed(n * 7 + c)
+    a = torch.randn((n, c), dtype=dtype, device=cuda_device, generator=g)
+    if layout == "column-major":
+        a = a.t().contiguous().t()
+    out = pad_rows_cuda(a, target)
+    torch.cuda.synchronize()
+    assert out.shape == (target, c) and out.is_contiguous()
+    assert out.data_ptr() != a.data_ptr()
+    assert torch.equal(out, pad_rows_reference(a, target))
+
+
+@pytest.mark.cuda
+def test_pad_kernel_unaligned_column_major_views_on_card(cuda_device):
+    """A column-major block whose columns start off 16 bytes (an odd N),
+    and blocks of either layout whose first element is off 16 bytes (a
+    storage offset), take the element-wise loads, bitwise all the
+    same."""
+    flat = torch.randn(78 * 4097 + 1, dtype=torch.float32, device=cuda_device)
+    for a in (flat[:78 * 4097].view(78, 4097).t(),
+              flat[1:].view(78, 4097).t(),
+              flat[1:1 + 78 * 999].view(999, 78),
+              flat[2:2 + 78 * 1000].view(78, 1000).t()):
+        for target in (a.shape[0], 4096 if a.shape[0] < 4096 else 8192):
+            out = pad_rows_cuda(a, target)
+            torch.cuda.synchronize()
+            assert torch.equal(out, pad_rows_reference(a, target))
+
+
+@pytest.mark.cuda
+def test_pad_kernel_counts_column_major_launches_by_shape(cuda_device):
+    """A column-major launch counts under the same key as a row-major
+    one of its shape."""
+    reset_launches()
+    for n, target, dtype, layout in (
+            (60000, 65536, torch.float32, "column-major"),
+            (60000, 65536, torch.float32, "row-major"),
+            (65536, 65536, torch.float32, "column-major"),
+            (1000, 1024, torch.float64, "column-major")):
+        a = torch.ones((n, 78), dtype=dtype, device=cuda_device)
+        pad_rows_cuda(a.t().contiguous().t() if layout == "column-major"
+                      else a, target)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pad_assemble"] == 4
+    assert PAD_LAUNCH_SHAPES == {"[60000, 78] f32 -> 65536": 2,
+                                 "[65536, 78] f32 -> 65536": 1,
+                                 "[1000, 78] f64 -> 1024": 1}
+    reset_launches()
+
+
+@pytest.mark.cuda
+def test_pad_assemble_on_card_matches_cpu(cuda_device):
+    """``pad_assemble`` on the card: one launch per item size, on the
+    column-major block, every column bitwise the CPU's."""
+    rng = np.random.default_rng(13)
+    n = 1000
+    cols = {
+        "f": rng.normal(size=n), "i": rng.integers(-5, 5, n),
+        "g": rng.normal(size=n).astype(np.float32),
+        "k": rng.integers(-5, 5, n).astype(np.int32),
+        "x": rng.normal(size=(n, 3)),
+    }
+    valid = np.zeros(1024, bool)
+    valid[:n] = True
+    reset_launches()
+    got = pad_assemble(Frame(cols), 1024, valid, cuda_device)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pad_assemble"] == 3
+    assert PAD_LAUNCH_SHAPES == {"[1000, 2] f64 -> 1024": 1,
+                                 "[1000, 2] f32 -> 1024": 1,
+                                 "[1000, 3] f64 -> 1024": 1}
+    ref = pad_assemble(Frame(cols), 1024, valid, "cpu")
+    for c in cols:
+        np.testing.assert_array_equal(to_host(got[c]), to_host(ref[c]))
+    reset_launches()
