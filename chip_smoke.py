@@ -208,7 +208,32 @@ each of which fails the run (non-zero exit, no result line):
    letters degraded then recovered, ``disk_budget_exceeded`` and
    DEGRADED in ``--health-json``); a flipped byte in a saved model,
    which ``load_model`` answers with its ``.prev``.  One JSON line
-   reports the phase.
+   reports the phase;
+13. the serve command's self-tuning plane on phase 3's config-3 model:
+   (a) 16 cleaned CSV files of 30 000 rows (seed 14), 2 a batch, served
+   by ``serve --once`` in this process with ``--read-workers 1
+   --prefetch-batches 1 --autotune`` and at each point of bench config
+   10's grid of (read workers, prefetched batches), in turns: batch files
+   byte-identical, one upload and one download a batch, each kernel once
+   a batch, each run's rows/s without its first batch (not a claim) and
+   the tuner's decisions and knobs; then bench config 10's own arm, a
+   tuner of its policy sharing the cold source over four passes; (b) the same files through the
+   command's engine with ``FileStreamSource(columnar=True)``:
+   ``pad_assemble`` on the float32 [60 000, 78] blocks, the files of (a),
+   the split of one call; (c) a ``QuerySupervisor`` with ``slo_p99_ms``
+   0.5 and ``ControlPolicy(confirm=1, cooldown=0)`` from the cold floor 0
+   over 20 files of 40 to 30 000 rows published one a round: at least
+   one ``shape_buckets`` raise in ``controller.jsonl``, every
+   ``pad_assemble`` launch at a shape of the ladder, no
+   ``controller_error`` or ``autotune_error``; SIGTERM drains it halfway
+   and a restart on the same checkpoint writes the ``restart`` record and
+   serves the rest, the files byte-identical to an uncontrolled serve's;
+   (d) 12 of the files published at once under ``max_pending_batches=2``
+   with the ``oldest`` policy, then ``sample``: ``shed.jsonl`` against the
+   health dump's ``shed_total_offsets``, no shed offset in an intent,
+   the served rows byte-identical to an unshed serve's.  Each
+   ``pad_assemble`` shape of the phase is held bitwise against its plain
+   version and timed beside its bound.  One JSON line reports the phase.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -286,7 +311,7 @@ from sntc_tpu_torch.evaluation import (
     MulticlassClassificationEvaluator,
     RegressionEvaluator,
 )
-from sntc_tpu_torch.kernels import LAUNCHES, reset_launches
+from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES, reset_launches
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
@@ -436,6 +461,23 @@ DP_KILL = "stream.commit:kill:0.5:0"  # lets batch 0 commit, kills batch 1's
 # write fails and the 3rd recovers
 DP_DISK_FAULTS = "storage.wal:enospc:0.2:1,storage.dead_letter:io_error:0.5:9"
 DP_BUDGET_MB = 0.01
+# phase 13: the self-tuning plane on config 3.  (a) and (b): 16 cleaned
+# files of 30 000 rows (seed 14), 2 a batch; (a) the cold engine with
+# --autotune against bench config 10's hand-tuned grid of (read workers,
+# prefetched batches) (bench.py:1553); (d) their first 12 published at
+# once under --max-pending-batches 2; (c) a stream of varying batch sizes
+# (small ones too: the ladder's floors move only batches under 512 rows)
+# under a p99 target no batch meets
+ST_FILES = 16
+ST_FILE_ROWS = 30_000
+ST_FILES_PER_BATCH = 2
+BENCH10_GRID = ((1, 1), (1, 4), (4, 1), (4, 4))
+BENCH10_REPS = 3  # bench.py:1554
+SHED_FILES = 12
+SHED_PENDING = 2
+CTL_SIZES = (1000, 30000, 300, 7000, 100, 15000, 40, 2000, 500, 24000,
+             200, 9000, 3000, 30000, 64, 12000, 150, 5000, 20000, 400)
+CTL_P99_MS = 0.5
 
 
 def log(*a):
@@ -3740,6 +3782,502 @@ def data_plane(dev, work: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 13: the serve command's self-tuning plane --------------------------
+
+
+def serve_here(model_dir: str, watch: str, out: str, ckpt: str, dev,
+               files_per_batch: int, extra: list,
+               shape_buckets: int = BUCKET_FLOOR) -> dict:
+    """``serve --once`` through the command's entry point in this process,
+    every launch count set to 0 just before; its summary line."""
+    import io
+
+    from sntc_tpu_torch.app import main as serve_main
+
+    argv = serve_args(model_dir, watch, out, ckpt, dev, files_per_batch)[3:]
+    argv[argv.index("--shape-buckets") + 1] = str(shape_buckets)
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(argv + ["--once", *extra])
+    if rc != 0:
+        raise SystemExit(f"phase 13: serve {extra} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def st_streams(work: str) -> dict:
+    """Phase 13's inputs: ST_FILES cleaned files of ST_FILE_ROWS rows
+    (seed 14) for (a) and (b); their first SHED_FILES, published at once,
+    for (d); and (c)'s files of CTL_SIZES rows, staged apart to be
+    published one a round."""
+    t0 = time.perf_counter()
+    n = ST_FILES * ST_FILE_ROWS
+    traffic = clean_flows(generate_frame(n + n // 50, seed=SEED + 14))
+    traffic = traffic.slice(0, n).drop("Label")
+    ctl_rows = clean_flows(generate_frame(sum(CTL_SIZES) * 51 // 50,
+                                          seed=SEED + 15)).drop("Label")
+    dirs = {k: os.path.join(work, f"in13_{k}")
+            for k in ("st", "shed", "ctl", "ctl_stage")}
+    for d in dirs.values():
+        os.makedirs(d)
+    jobs = [(traffic.slice(i * ST_FILE_ROWS, (i + 1) * ST_FILE_ROWS),
+             os.path.join(dirs["st"], f"part_{i:04d}.csv"))
+            for i in range(ST_FILES)]
+    start = 0
+    for i, m in enumerate(CTL_SIZES):
+        jobs.append((ctl_rows.slice(start, start + m),
+                     os.path.join(dirs["ctl_stage"], f"part_{i:04d}.csv")))
+        start += m
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda job: write_raw_csv(*job), jobs))
+    for i in range(SHED_FILES):
+        name = f"part_{i:04d}.csv"
+        os.link(os.path.join(dirs["st"], name),
+                os.path.join(dirs["shed"], name))
+    log(f"phase 13 traffic: {ST_FILES} cleaned files of {ST_FILE_ROWS} "
+        f"rows, (c) {len(CTL_SIZES)} files of {min(CTL_SIZES)}-"
+        f"{max(CTL_SIZES)} rows ({time.perf_counter() - t0:.1f} s to "
+        "generate and write)")
+    return dirs
+
+
+def st_check_run(tag: str, s: dict, n_batches: int, shape: str) -> None:
+    """A run of (a) or (b): every batch served, each kernel of the path
+    launched once a batch at the batch's block, one numeric upload and
+    one download a batch (cleaned flows: nothing to drop or gather)."""
+    want = {"forest_traversal": n_batches, "pad_assemble": n_batches,
+            "tree_hist": 0}
+    moved = s["pipeline_stats"]["transfers"]
+    if s["batches"] != n_batches or s["kernel_launches"] != want \
+            or s["pad_launch_shapes"] != {shape: n_batches} \
+            or moved["uploads"] != n_batches \
+            or moved["downloads"] != n_batches:
+        raise SystemExit(f"phase 13 {tag}: {s['batches']} batches, "
+                         f"launches {s['kernel_launches']}, shapes "
+                         f"{s['pad_launch_shapes']}, transfers {moved}")
+
+
+def autotune_grid(dev, model_dir: str, dirs: dict, work: str) -> dict:
+    """(a): the cold engine with ``--autotune`` against each point of
+    BENCH10_GRID, in turns, every run's files byte-identical."""
+    n_batches = ST_FILES // ST_FILES_PER_BATCH
+    block = pad_launch_shape(ST_FILES_PER_BATCH * ST_FILE_ROWS,
+                             len(CICIDS2017_FEATURES), torch.float64,
+                             bucket_rows_for(ST_FILES_PER_BATCH
+                                             * ST_FILE_ROWS, BUCKET_FLOOR))
+    runs = []
+    for tag, rw, pf, extra in [("autotune", 1, 1, ["--autotune"])] + [
+            (f"grid {rw}x{pf}", rw, pf, []) for rw, pf in BENCH10_GRID]:
+        out = os.path.join(work, f"out13_{tag.replace(' ', '_')}")
+        s = serve_here(model_dir, dirs["st"], out, out + "_ckpt", dev,
+                       ST_FILES_PER_BATCH, ["--read-workers", str(rw),
+                                            "--prefetch-batches", str(pf),
+                                            *extra])
+        st_check_run(tag, s, n_batches, block)
+        runs.append({"tag": tag, "summary": s, "files": sink_files(out),
+                     **steady(s)})
+    # bench config 10's own arm (bench.py:1676-1683): the cold source and
+    # a tuner of its policy shared by a convergence pass and
+    # BENCH10_REPS more, so the knobs it learned carry over (a --once
+    # drain of 8 batches takes a few engine rounds: the command's tuner,
+    # 4 rounds a window, may close none)
+    from sntc_tpu_torch.data.autotune import AutotunePolicy, IngestAutotuner
+
+    tuner = IngestAutotuner(policy=AutotunePolicy(interval_ticks=2,
+                                                  confirm=2, cooldown=1))
+    shared = None
+    for rep in range(1 + BENCH10_REPS):
+        out = os.path.join(work, f"out13_bench10_{rep}")
+        q, src = st_query(dev, model_dir, dirs["st"], out, out + "_ckpt",
+                          source=shared, autotuner=tuner)
+        shared = src
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            q.process_available()
+        finally:
+            q.stop()
+        s = {"batches": q.last_committed() + 1, "rows": q.rows_served,
+             "seconds": time.perf_counter() - t0,
+             "kernel_launches": dict(LAUNCHES),
+             "pad_launch_shapes": dict(PAD_LAUNCH_SHAPES),
+             "pipeline_stats": q.pipeline_stats(),
+             "progress": q.recentProgress}
+        st_check_run(f"bench-10 tuner pass {rep}", s, n_batches, block)
+        runs.append({"tag": f"bench-10 tuner pass {rep}", "summary": s,
+                     "files": sink_files(out), **steady(s)})
+    shared.close()
+    ref = runs[0]["files"]
+    if len(ref) != n_batches or any(x["files"] != ref for x in runs):
+        raise SystemExit("phase 13 (a): batch files differ between the "
+                         "autotuned runs and the grid")
+    for name, data in ref.items():
+        import pyarrow as pa
+        import pyarrow.csv as pacsv
+
+        pred = pacsv.read_csv(pa.BufferReader(data)).column(
+            "prediction").to_numpy()
+        if len(pred) != ST_FILES_PER_BATCH * ST_FILE_ROWS \
+                or pred.min() < 0 or pred.max() >= CLASSES:
+            raise SystemExit(f"phase 13 (a) {name}: rows or predictions "
+                             "out of range")
+    return {"runs": runs, "files": ref,
+            "autotune": runs[0]["summary"]["pipeline_stats"]["autotune"],
+            "bench10": tuner.stats()}
+
+
+def st_query(dev, model_dir: str, watch: str, out: str, ckpt: str, *,
+             columnar: bool = False, shape_buckets: int = BUCKET_FLOOR,
+             files_per_batch: int = ST_FILES_PER_BATCH, source=None,
+             autotuner=None):
+    """The serve command's default engine (``cmd_serve``: fused, the
+    device domain, pipelined, files WAL, the failure handling), built in
+    this process for what the command has no flag for: the columnar
+    source, and a supervisor over it."""
+    from sntc_tpu_torch.resilience import (
+        DeviceFaultDomain,
+        RetryPolicy,
+        default_breakers,
+    )
+    from sntc_tpu_torch.serve import FileStreamSource, StreamingQuery
+
+    model, _labels, out_cols = serving_form(load_model(model_dir, device=dev),
+                                            "label", True)
+    predictor = BatchPredictor(model, bucket_rows=shape_buckets, device=dev,
+                               device_domain=DeviceFaultDomain())
+    if source is None:
+        source = (FileStreamSource(watch, prefetch_batches=1,
+                                   read_workers=1, columnar=columnar)
+                  if autotuner is not None else
+                  FileStreamSource(watch, prefetch_batches=2,
+                                   read_workers=4, columnar=columnar))
+    q = StreamingQuery(
+        predictor, source, CsvDirSink(out, columns=out_cols), ckpt,
+        max_batch_offsets=files_per_batch, pipeline_depth=2,
+        overlap_sink=True, device=dev, breakers=default_breakers(),
+        retry_policy=RetryPolicy(max_attempts=2, base_delay_s=0.2,
+                                 jitter=0.1),
+        max_batch_failures=3, autotuner=autotuner)
+    return q, source
+
+
+def columnar_run(dev, model_dir: str, dirs: dict, work: str,
+                 files: dict) -> dict:
+    """(b): the columnar source's float32 blocks through the same engine:
+    ``pad_assemble`` at [60 000, 78] f32, the files of (a)."""
+    from sntc_tpu_torch.data.pipeline import read_flows_columnar
+
+    n_batches = ST_FILES // ST_FILES_PER_BATCH
+    rows = ST_FILES_PER_BATCH * ST_FILE_ROWS
+    out = os.path.join(work, "out13_columnar")
+    q, src = st_query(dev, model_dir, dirs["st"], out, out + "_ckpt",
+                      columnar=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        q.process_available()
+    finally:
+        q.stop()
+        src.close()
+    seconds = time.perf_counter() - t0
+    s = {"batches": q.last_committed() + 1, "rows": q.rows_served,
+         "seconds": seconds, "kernel_launches": dict(LAUNCHES),
+         "pad_launch_shapes": dict(PAD_LAUNCH_SHAPES),
+         "pipeline_stats": q.pipeline_stats(), "progress": q.recentProgress}
+    st_check_run("(b) columnar", s, n_batches, pad_launch_shape(
+        rows, len(CICIDS2017_FEATURES), torch.float32,
+        bucket_rows_for(rows, BUCKET_FLOOR)))
+    if sink_files(out) != files:
+        raise SystemExit("phase 13 (b): the columnar source's batch files "
+                         "differ from (a)'s")
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from pad_assemble_split import split
+
+    frame = Frame.concat_all([
+        read_flows_columnar(os.path.join(dirs["st"], f"part_{i:04d}.csv"),
+                            handle_invalid=None)
+        for i in range(ST_FILES_PER_BATCH)])
+    target = bucket_rows_for(rows, BUCKET_FLOOR)
+    valid = np.zeros(target, bool)
+    valid[:rows] = True
+    t1 = time.perf_counter()
+    cut = split(frame, target, valid, dev, reps=SPLIT_REPS)
+    cut["seconds"] = time.perf_counter() - t1
+    return {"summary": s, "split": cut, **steady(s)}
+
+
+def controlled_serve(dev, model_dir: str, dirs: dict, work: str) -> dict:
+    """(c): a QuerySupervisor with a p99 target the card cannot meet over
+    a stream of varying batch sizes published one file a round, from the
+    cold floor 0: the controller climbs the shape-bucket ladder; SIGTERM
+    drains it halfway and a restart on the same checkpoint serves the
+    rest; the files equal an uncontrolled serve's."""
+    from sntc_tpu_torch.resilience import QuerySupervisor, recent_events
+    from sntc_tpu_torch.resilience.control import ControlPolicy
+    from sntc_tpu_torch.serve import SloPolicy
+
+    names = sorted(os.listdir(dirs["ctl_stage"]))
+    out = os.path.join(work, "out13_ctl")
+    ckpt = os.path.join(work, "ckpt13_ctl")
+    half = len(names) // 2
+    reset_launches()
+    published = 0
+    phases = []
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        for part in ("first", "restart"):
+            q, src = st_query(dev, model_dir, dirs["ctl"], out, ckpt,
+                              shape_buckets=0, files_per_batch=1)
+            sup = QuerySupervisor(
+                q, slo=SloPolicy(slo_p99_ms=CTL_P99_MS),
+                controller_policy=ControlPolicy(confirm=1, cooldown=0))
+            stop_at = half if part == "first" else len(names)
+            try:
+                while q.last_committed() + 1 < stop_at:
+                    if published < stop_at:
+                        os.replace(os.path.join(dirs["ctl_stage"],
+                                                names[published]),
+                                   os.path.join(dirs["ctl"],
+                                                names[published]))
+                        published += 1
+                    sup.tick()
+                if part == "first":
+                    # the operator's SIGTERM: the loop drains and returns
+                    sup.install_signal_handlers()
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    status = sup.run(poll_interval=0.01)
+                    if not status["drained"]:
+                        raise SystemExit(f"phase 13 (c): no drain {status}")
+                else:
+                    status = sup.drain_now("done")
+                phases.append({"status": status,
+                               "knobs": sup.controller.knob_values(),
+                               "stats": sup.controller.stats()})
+            finally:
+                signal.signal(signal.SIGTERM, previous)
+                q.stop()
+                src.close()
+                sup.close()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    journal = [json.loads(x) for x in open(os.path.join(ckpt,
+                                                        "controller.jsonl"))]
+    raises = [r for r in journal if r.get("action") == "applied"
+              and r.get("knob") == "shape_buckets" and r["direction"] == "up"]
+    restarts = [r for r in journal if r.get("action") == "restart"]
+    if not raises or len(restarts) != 1 \
+            or restarts[0]["journal_knobs"] is None:
+        raise SystemExit(f"phase 13 (c): journal {journal}")
+    errors = recent_events(event="controller_error") + \
+        recent_events(event="autotune_error")
+    if errors:
+        raise SystemExit(f"phase 13 (c): {errors}")
+    shapes = dict(PAD_LAUNCH_SHAPES)
+    launches = dict(LAUNCHES)
+    marker = json.load(open(os.path.join(ckpt, "drain_marker.json")))
+    ref_out = os.path.join(work, "out13_ctl_ref")
+    ref = serve_here(model_dir, dirs["ctl"], ref_out, ref_out + "_ckpt",
+                     dev, 1, [], shape_buckets=0)
+    if sink_files(out) != sink_files(ref_out) \
+            or ref["batches"] != len(names):
+        raise SystemExit("phase 13 (c): the controlled serve's files differ "
+                         "from the uncontrolled serve's")
+    floors = {0, 64, 128, 256, 512}
+    for key in shapes:  # each a shape the ladder gives its block
+        n, target = int(key.split(",")[0][1:]), int(key.split("-> ")[1])
+        if not any(bucket_rows_for(n, f) == target for f in floors):
+            raise SystemExit(f"phase 13 (c): pad_assemble at {key}, not a "
+                             "ladder shape")
+    if launches["forest_traversal"] != len(names) \
+            or launches["pad_assemble"] != sum(shapes.values()) \
+            or not shapes:
+        raise SystemExit(f"phase 13 (c): launches {launches}, {shapes}")
+    return {"journal": journal, "raises": len(raises),
+            "restart": restarts[0], "phases": phases, "shapes": shapes,
+            "launches": launches, "marker_knobs": marker["controller_knobs"]}
+
+
+def shed_runs(dev, model_dir: str, dirs: dict, work: str) -> dict:
+    """(d): the supervised loop with ``max_pending_batches`` under the
+    ``oldest`` and then the ``sample`` policy over SHED_FILES files
+    published at once, and the unshed ``serve --once`` of the same files:
+    the shed journal against the health dump, no shed offset in an intent
+    or a batch file, the served rows byte-identical to the unshed
+    serve's."""
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+
+    from sntc_tpu_torch.resilience import QuerySupervisor
+
+    unshed_out = os.path.join(work, "out13_unshed")
+    unshed = serve_here(model_dir, dirs["shed"], unshed_out,
+                        unshed_out + "_ckpt", dev, ST_FILES_PER_BATCH, [])
+    ref = sink_files(unshed_out)
+    ref_rows = []  # the unshed serve's output rows, in file order
+    for name in sorted(ref):
+        ref_rows += pacsv.read_csv(pa.BufferReader(ref[name])).to_pylist()
+    keep = SHED_PENDING * ST_FILES_PER_BATCH
+    out = {"unshed": unshed}
+    for policy in ("oldest", "sample"):
+        dest = os.path.join(work, f"out13_{policy}")
+        ckpt = os.path.join(work, f"ckpt13_{policy}")
+        health_path = os.path.join(work, f"health13_{policy}.json")
+        q, src = st_query(dev, model_dir, dirs["shed"], dest, ckpt)
+        sup = QuerySupervisor(q, max_pending_batches=SHED_PENDING,
+                              shed_policy=policy, health_json=health_path)
+        reset_launches()
+        try:
+            for _ in range(200):
+                sup.tick()
+                if not (q.backlog_offsets() or q.in_flight_count()):
+                    break
+            status = sup.drain_now("done")
+        finally:
+            q.stop()
+            src.close()
+            sup.close()
+        launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+        health = json.load(open(health_path))
+        shed = [json.loads(x) for x in open(os.path.join(ckpt,
+                                                         "shed.jsonl"))]
+        total = sum(r["offsets_shed"] for r in shed)
+        intents = [json.load(open(os.path.join(ckpt, "offsets", f)))
+                   for f in sorted(os.listdir(os.path.join(ckpt,
+                                                           "offsets")))]
+        if health["shed_total_offsets"] != total or len(shed) != 1 \
+                or status["shed_total_offsets"] != total:
+            raise SystemExit(f"phase 13 (d) {policy}: shed {shed}, health "
+                             f"{health['shed_total_offsets']}")
+        files = sink_files(dest)
+        rows = []
+        for name in sorted(files):
+            rows += pacsv.read_csv(pa.BufferReader(files[name])).to_pylist()
+        if policy == "oldest":
+            cut = shed[0]["end"]
+            if total != SHED_FILES - keep or any(i["start"] < cut
+                                                 for i in intents):
+                raise SystemExit(f"phase 13 (d) oldest: intents {intents}, "
+                                 f"shed {shed}")
+            expect = ref_rows[cut * ST_FILE_ROWS:]
+        else:
+            stride = shed[0]["sample_stride"]
+            if total != 0 or len(intents) != 1 \
+                    or intents[0].get("sample_stride") != stride:
+                raise SystemExit(f"phase 13 (d) sample: intents {intents}")
+            expect = ref_rows[::stride]
+        if rows != expect:
+            raise SystemExit(f"phase 13 (d) {policy}: {len(rows)} served "
+                             f"rows, not the unshed serve's {len(expect)}")
+        if launches["forest_traversal"] != len(files) \
+                or launches["pad_assemble"] != len(files):
+            raise SystemExit(f"phase 13 (d) {policy}: launches {launches} "
+                             f"for {len(files)} batches")
+        out[policy] = {"shed": shed, "intents": intents, "rows": len(rows),
+                       "batches": len(files), "launches": launches,
+                       "shapes": shapes, "health": health["health"][
+                           "overall"]}
+    return out
+
+
+def sample_shape() -> tuple:
+    """The sample shed's one batch: every stride-th row of the backlog."""
+    keep = SHED_PENDING * ST_FILES_PER_BATCH
+    stride = -(-SHED_FILES // keep)
+    n = len(range(0, SHED_FILES * ST_FILE_ROWS, stride))
+    return n, bucket_rows_for(n, BUCKET_FLOOR)
+
+
+def self_tuning(dev, work: str) -> dict:
+    """Phase 13: the serve command's self-tuning plane on phase 3's
+    config-3 model (see the module docs)."""
+    t0 = time.perf_counter()
+    model_dir = os.path.join(work, "model")
+    dirs = st_streams(work)
+    grid = autotune_grid(dev, model_dir, dirs, work)
+    columnar = columnar_run(dev, model_dir, dirs, work, grid["files"])
+    ctl = controlled_serve(dev, model_dir, dirs, work)
+    shed = shed_runs(dev, model_dir, dirs, work)
+    rows = ST_FILES_PER_BATCH * ST_FILE_ROWS
+    n_sample, t_sample = sample_shape()
+    # each shape with the launches its own run counted there
+    pads = [measure_pad_at(dev, rows, columnar["summary"][
+                "pad_launch_shapes"], torch.float32),
+            measure_pad_at(dev, rows, grid["runs"][0]["summary"][
+                "pad_launch_shapes"], torch.float64),
+            measure_pad_at(dev, n_sample, shed["sample"]["shapes"],
+                           torch.float64, t_sample)]
+    for key in sorted(ctl["shapes"], key=lambda k: int(k.split(",")[0][1:])):
+        n, target = int(key.split(",")[0][1:]), int(key.split("-> ")[1])
+        pads.append(measure_pad_at(dev, n, ctl["shapes"], torch.float64,
+                                   target))
+    del grid["files"]
+    for x in grid["runs"]:
+        del x["files"]
+    return {"grid": grid, "columnar": columnar, "controller": ctl,
+            "shed": shed, "pads": pads,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase13(p13: dict, card: str) -> None:
+    """Phase 13's lines: each run of (a), the tuners, (b) and its split,
+    (c)'s decisions, each ``pad_assemble`` shape, one JSON line."""
+    for x in p13["grid"]["runs"]:
+        s = x["summary"]
+        log(f"phase 13 (a) {x['tag']}: {x['rows_per_s']:.0f} rows/s without "
+            f"the first batch ({s['rows']} rows in {s['seconds']:.3f} s in "
+            f"all, not a claim); mean read {x['read_ms']:.2f} ms, dispatch "
+            f"{x['dispatch_ms']:.2f} ms, sink {x['sink_ms']:.2f} ms; "
+            f"prefetch {s['pipeline_stats'].get('prefetch')}, transfers "
+            f"{s['pipeline_stats']['transfers']} [{card}]")
+    tuned = p13["grid"]["autotune"]
+    for tag, t in (("the command's --autotune", tuned),
+                   ("bench config 10's policy, four passes",
+                    p13["grid"]["bench10"])):
+        log(f"phase 13 (a) autotuner, {tag}: {t['windows']} windows, "
+            f"{t['applied']} applied of {t['decisions']} decisions "
+            f"{[(d['action'], d['knob'], d['from'], d['to']) for d in t['recent']]}"
+            f", final knobs {t['knobs']}, frozen {t['frozen']}")
+    col = p13["columnar"]
+    log(f"phase 13 (b) columnar source: {col['rows_per_s']:.0f} rows/s "
+        f"without the first batch, mean read {col['read_ms']:.2f} ms, "
+        f"dispatch {col['dispatch_ms']:.2f} ms; launches "
+        f"{col['summary']['kernel_launches']} at "
+        f"{col['summary']['pad_launch_shapes']} [{card}]")
+    x = col["split"]
+    log(f"phase 13 (b) pad_assemble split, in process, of a {x['block']} "
+        "columnar batch (ms, min / median / max): column-major pack "
+        f"{_mmm(x['pack_column_major_ms'])}, upload {_mmm(x['upload_ms'])} "
+        f"({x['upload_bytes']} B), launch "
+        f"{x['launch_column_major_device_ms']:.4f} device ms, the whole "
+        f"call {_mmm(x['call_ms'])} [{card}]")
+    ctl = p13["controller"]
+    log(f"phase 13 (c) controller: {ctl['raises']} shape_buckets raises, "
+        f"decisions {[(r['action'], r.get('knob'), r.get('from'), r.get('to')) for r in ctl['journal'] if r.get('action') != 'restart']}; "
+        f"restart delta {ctl['restart']['delta']}; pad_assemble at "
+        f"{ctl['shapes']}; launches {ctl['launches']}")
+    for k in p13["pads"]:
+        log(f"phase 13 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call; bound {k['bound_ms']:.4f} ms "
+            f"by {k['bound_by']}); {k['launches']} launches at this shape "
+            f"in its run, max abs error {k['max_abs_err']} [{card}]")
+    log("phase 13 " + json.dumps({
+        "phase": 13, "card": card, "seconds": round(p13["seconds"], 3),
+        "autotune_applied": tuned["applied"],
+        "autotune_knobs": tuned["knobs"],
+        "bench10_applied": p13["grid"]["bench10"]["applied"],
+        "bench10_knobs": p13["grid"]["bench10"]["knobs"],
+        "controller_raises": ctl["raises"],
+        "controller_knobs": ctl["marker_knobs"],
+        "ladder_shapes": ctl["shapes"],
+        "shed": {k: {"offsets_shed": sum(r["offsets_shed"]
+                                         for r in v["shed"]),
+                     "batches": v["batches"], "rows": v["rows"],
+                     "health": v["health"]}
+                 for k, v in p13["shed"].items() if k != "unshed"}}))
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -4086,6 +4624,7 @@ def main() -> int:
                                 admit=False)
         failures = failure_paths(dev, work)
         phase12 = data_plane(dev, work)
+        phase13 = self_tuning(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
         data4 = gbt_data(work)
@@ -4141,6 +4680,7 @@ def main() -> int:
         phase10 = lane_fits(dev, data2, data1, work)
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
+    kernels += phase13["pads"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -4319,6 +4859,7 @@ def main() -> int:
         "exact_launches": p12["exact"]["kernel_launches"],
         "permissive_launches": p12["permissive"]["kernel_launches"],
         **phase12["storage"]}))
+    report_phase13(phase13, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -4344,7 +4885,7 @@ def main() -> int:
                                   "regressors": regs["fits"],
                                   "kernels": new9},
                        "phase10": phase10, "phase11": failures,
-                       "phase12": phase12}, f,
+                       "phase12": phase12, "phase13": phase13}, f,
                       indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()

@@ -16,7 +16,10 @@
         [--device-faults|--no-device-faults] [--health-json PATH] \\
         [--max-batch-wall-time S] [--disk-budget-mb MB] \\
         [--row-policy strict|salvage|permissive] [--row-dead-letter DIR] \\
-        [--once] [--device cuda|cpu]
+        [--autotune|--no-autotune] [--max-pending-batches N] \\
+        [--shed-policy oldest|sample] [--slo-p99-ms MS] \\
+        [--slo-min-rows-per-sec R] [--slo-max-shed-rate F] \\
+        [--controller|--no-controller] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
     python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
@@ -77,6 +80,18 @@ SIGTERM drains, and prints ``{"batches", "drained", "health"}``.
 rows and ragged lines are excised into the row dead letters
 (``--row-dead-letter``, default ``<checkpoint>/dead_letter_rows/``)
 while the clean rows serve; ``strict`` (the default) trusts the input.
+``--autotune`` arms the ingest autotuner: ``--read-workers``,
+``--prefetch-batches`` and ``--pipeline-depth`` become cold-start values
+that it resizes live, every decision an ``autotune_decision`` event.
+The supervised loop sheds load past ``--max-pending-batches``
+micro-batches of backlog (``--shed-policy oldest`` drops the oldest
+offsets, ``sample`` serves the backlog row-subsampled; journaled to
+``<checkpoint>/shed.jsonl``).  Any ``--slo-*`` target arms the SLO
+controller (``--no-controller`` keeps the knobs at their flags), which
+steers the depth, the bucket floor, the shed cap and, through a tuner
+of its own, the source's pools, journaling to
+``<checkpoint>/controller.jsonl``; with it armed ``--autotune`` builds
+no second tuner (one owner a knob).
 
 ``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
 root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
@@ -368,6 +383,22 @@ def cmd_serve(args) -> int:
         from sntc_tpu_torch.data.schema import CICIDS2017_CONTRACT
 
         contract = CICIDS2017_CONTRACT.with_mode(args.row_policy)
+    # any --slo-* declares a setpoint and arms the controller in the
+    # supervised loop; it owns the ingest tuner, so --autotune then builds
+    # none of its own (two owners would double-steer the same knobs)
+    slo = None
+    if args.controller and (args.slo_p99_ms or args.slo_min_rows_per_sec
+                            or args.slo_max_shed_rate):
+        from sntc_tpu_torch.serve import SloPolicy
+
+        slo = SloPolicy(slo_p99_ms=args.slo_p99_ms,
+                        slo_min_rows_per_sec=args.slo_min_rows_per_sec,
+                        slo_max_shed_rate=args.slo_max_shed_rate)
+    autotuner = None
+    if args.autotune and slo is None:
+        from sntc_tpu_torch.data.autotune import IngestAutotuner
+
+        autotuner = IngestAutotuner()
     device = resolve_device(args.device)
     if device.type == "cuda":
         from sntc_tpu_torch.kernels._build import library
@@ -386,10 +417,10 @@ def cmd_serve(args) -> int:
                                device_domain=DeviceFaultDomain())
     # depth > 1 arms the pipelined engine: the overlapped sink delivery
     # and the source's background prefetch
+    pipelined = args.pipeline_depth > 1
     source = FileStreamSource(
         args.watch,
-        prefetch_batches=(args.prefetch_batches
-                          if args.pipeline_depth > 1 else 0),
+        prefetch_batches=args.prefetch_batches if pipelined else 0,
         read_workers=args.read_workers,
         parse_salvage=contract is not None,
     )
@@ -404,6 +435,8 @@ def cmd_serve(args) -> int:
         args.checkpoint,
         max_batch_offsets=args.max_files_per_batch,
         pipeline_depth=args.pipeline_depth,
+        overlap_sink=pipelined,
+        autotuner=autotuner,
         shape_buckets=args.shape_buckets,
         wal_mode=args.wal_mode,
         wal_compact_every=args.wal_compact_every,
@@ -447,8 +480,10 @@ def cmd_serve(args) -> int:
         # the supervised loop: SIGTERM (and Ctrl-C) drains, commits the
         # in-flight batches, writes drain_marker.json and exits 0; a
         # restart on the same checkpoint resumes exactly once
-        sup = QuerySupervisor(q, max_batch_wall_time=args.max_batch_wall_time,
-                              health_json=args.health_json,
+        sup = QuerySupervisor(q, max_pending_batches=args.max_pending_batches,
+                              shed_policy=args.shed_policy,
+                              max_batch_wall_time=args.max_batch_wall_time,
+                              health_json=args.health_json, slo=slo,
                               disk_budget_mb=args.disk_budget_mb)
         sup.install_signal_handlers()
         print(f"serving: watching {args.watch} -> {args.out} (checkpoint "
@@ -570,7 +605,18 @@ def build_parser() -> argparse.ArgumentParser:
                    "with this floor (0 = off)")
     p.add_argument("--read-workers", type=int, default=4,
                    help="per-file read/parse pool width for multi-file "
-                   "micro-batches")
+                   "micro-batches (the ingest graph's parse-stage "
+                   "workers; --autotune resizes it live)")
+    p.add_argument("--autotune", action="store_true", dest="autotune",
+                   default=False,
+                   help="arm the ingest autotuner: resize "
+                   "--read-workers / --prefetch-batches / "
+                   "--pipeline-depth live from observed stage "
+                   "latencies (hysteresis-guarded; every decision "
+                   "journaled as autotune_decision events and "
+                   "sntc_ingest_* metrics)")
+    p.add_argument("--no-autotune", action="store_false", dest="autotune",
+                   help="keep the ingest pools at their flag values")
     p.add_argument("--prefetch-batches", type=int, default=2,
                    help="background source reads staged ahead of the "
                    "engine (pipelined mode only); 0 = off")
@@ -617,9 +663,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--health-json", default=None, metavar="PATH",
                    help="atomically rewrite a health/breaker/engine status "
                    "dump here every engine tick (supervised loop)")
+    p.add_argument("--max-pending-batches", type=int, default=None,
+                   help="load-shed when the source backlog exceeds this "
+                   "many micro-batches (default: never shed)")
+    p.add_argument("--shed-policy", default="oldest",
+                   choices=["oldest", "sample"],
+                   help="shed the oldest surplus offsets, or process the "
+                   "whole backlog row-subsampled (journaled either way)")
     p.add_argument("--max-batch-wall-time", type=float, default=None,
                    metavar="S", help="watchdog: flag a batch running "
                    "longer than this as UNHEALTHY (watchdog_stall event)")
+    p.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="declared p99 batch-latency SLO: arms the "
+                   "closed-loop controller, which steers the serving "
+                   "knobs (pipeline depth, shape-bucket floor, shed, "
+                   "ingest pools) toward it with hysteresis-guarded "
+                   "journaled decisions; 0/unset = undeclared")
+    p.add_argument("--slo-min-rows-per-sec", type=float, default=None,
+                   help="declared throughput-floor SLO (binds while "
+                   "the source has backlog); arms the controller "
+                   "like --slo-p99-ms; 0/unset = undeclared")
+    p.add_argument("--slo-max-shed-rate", type=float, default=None,
+                   help="declared bound on the per-window fraction of "
+                   "offsets load shedding may drop; arms the "
+                   "controller; 0/unset = undeclared")
+    p.add_argument("--controller", action="store_true",
+                   dest="controller", default=True,
+                   help="allow the closed-loop SLO controller (armed "
+                   "by any --slo-* flag; decisions journaled to "
+                   "<checkpoint>/controller.jsonl) — default")
+    p.add_argument("--no-controller", action="store_false",
+                   dest="controller",
+                   help="keep every serving knob at its flag value "
+                   "even when SLOs are declared")
     p.add_argument("--disk-budget-mb", type=float, default=None,
                    metavar="MB",
                    help="byte budget for the checkpoint root: usage is "

@@ -1,11 +1,15 @@
 """CICIDS2017 ingest + cleaning — the CSV-source analog.
 
 Counterpart of ``sntc_tpu/data/ingest.py`` (``load_csv``,
-``load_csv_dir`` and ``clean_flows``), without the JAX package's metrics
-and tracing: pyarrow's CSV reader parses, column names are
+``load_csv_table``, ``load_csv_dir`` and ``clean_flows``), without the
+JAX package's tracing: pyarrow's CSV reader parses, column names are
 whitespace-normalized and the duplicated ``Fwd Header Length`` of real
 day files is renamed ``Fwd Header Length.1``, so real day CSVs load
-unchanged.
+unchanged.  :func:`load_csv_table` stops at the Arrow table, which the
+columnar plane (``data.pipeline.read_flows_columnar``) casts in Arrow;
+:func:`load_csv` materializes it into a Frame.  Each parse counts into
+``sntc_ingest_files_parsed_total``, ``..._rows_parsed_total`` and
+``..._bytes_read_total``.
 
 Parse errors name the file, and for a ragged line its 1-based line
 number and raw text.  ``salvage=True`` excises ragged lines instead:
@@ -33,6 +37,7 @@ from sntc_tpu_torch.data.schema import (
     normalize_feature_name,
     normalize_label,
 )
+from sntc_tpu_torch.obs.metrics import inc
 from sntc_tpu_torch.resilience.faults import data_fault_armed, fault_data
 
 
@@ -64,6 +69,19 @@ def load_csv(
 ) -> Frame:
     """Read one flow CSV with pyarrow, normalizing column names (see the
     module docs for ``salvage`` and ``rejects``)."""
+    return Frame.from_arrow(load_csv_table(path, salvage=salvage,
+                                           rejects=rejects))
+
+
+def load_csv_table(
+    path: str,
+    *,
+    salvage: bool = False,
+    rejects: Optional[List[dict]] = None,
+) -> pa.Table:
+    """:func:`load_csv`'s parse layer: the normalized, deduplicated Arrow
+    table before any numpy materialization, shared by the Frame path and
+    the columnar plane so the two cannot drift in parse behavior."""
     if data_fault_armed("source.parse"):
         # only when a DATA fault is armed: buffer the payload so it can
         # be mutated; otherwise pyarrow streams from the path
@@ -103,6 +121,13 @@ def load_csv(
                 "reason": REASON_RAGGED_ROW,
                 "detail": f"{actual} fields, expected {expected}",
             })
+    inc("sntc_ingest_files_parsed_total")
+    inc("sntc_ingest_rows_parsed_total", table.num_rows)
+    try:
+        inc("sntc_ingest_bytes_read_total",
+            len(data) if data is not None else os.path.getsize(path))
+    except OSError:
+        pass  # best-effort byte accounting
     names = [normalize_feature_name(c) for c in table.column_names]
     # real MachineLearningCVE day files hold 'Fwd Header Length' TWICE;
     # pandas-style dedup (second copy -> '.1') matches the schema
@@ -115,7 +140,7 @@ def load_csv(
         else:
             seen[n] = 0
             deduped.append(n)
-    return Frame.from_arrow(table.rename_columns(deduped))
+    return table.rename_columns(deduped)
 
 
 def load_csv_dir(

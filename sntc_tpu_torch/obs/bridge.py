@@ -4,10 +4,11 @@ into the registry.
 Counterpart of ``sntc_tpu/obs/bridge.py`` (``install_event_metrics``):
 every event counts into ``sntc_events_total{event, site}``, a
 ``quarantine`` event also counts into
-``sntc_batches_quarantined_total`` and a ``rows_rejected`` event into
-``sntc_rows_rejected_total{reason}``.  The JAX bridge's ``load_shed``
-counter and its tenant label wait for load shedding and tenancy
-(ROADMAP queue A), whose events the port does not emit yet.
+``sntc_batches_quarantined_total``, a ``rows_rejected`` event into
+``sntc_rows_rejected_total{reason}`` and a ``load_shed`` event its
+offsets into ``sntc_shed_offsets_total`` (which the SLO controller
+reads).  The JAX bridge's tenant label waits for tenancy (ROADMAP
+queue A), whose events the port does not emit yet.
 
 The observer never raises (``emit_event`` evicts a raising observer);
 records it could not fold are counted by :func:`bridge_errors`.
@@ -44,6 +45,9 @@ def _observe(record: Dict[str, Any]) -> None:
             else:
                 inc("sntc_rows_rejected_total",
                     int(record.get("count") or 0), reason="unknown")
+        elif event == "load_shed":
+            inc("sntc_shed_offsets_total",
+                int(record.get("offsets_shed") or 0))
         elif event == "quarantine":
             inc("sntc_batches_quarantined_total", 1)
     except Exception:

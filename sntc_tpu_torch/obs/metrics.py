@@ -7,10 +7,12 @@ Counterpart of ``sntc_tpu/obs/metrics.py`` (``MetricsRegistry``,
 resilience modules count into: batches and rows committed, batch
 duration, the event stream (retries among them), quarantines, fault
 injections, breaker and health state, device faults and OOM splits, the
-source's prefetch hits and misses, the rows admission rejected, and
-the storage plane's disk usage,
-budget, write errors, degraded episodes, repairs, dead-letter drops and
-WAL compactions.  A write to a name outside
+source's prefetch hits and misses, the rows admission rejected, the
+offsets load shedding dropped, the ingest graph's parse counts, stage
+latencies, staging queue and autotuned knobs, the SLO controller's
+windows, decisions, knobs and compliance, and the storage plane's disk
+usage, budget, write errors, degraded episodes, repairs, dead-letter
+drops and WAL compactions.  A write to a name outside
 :data:`CATALOG` raises, as in the JAX package.
 
 Writes take one small lock per metric; :meth:`MetricsRegistry.snapshot`
@@ -33,7 +35,9 @@ COUNTER = "counter"
 GAUGE = "gauge"
 HISTOGRAM = "histogram"
 
-# seconds; covers sub-ms device dispatches through multi-second batches
+# seconds; covers sub-ms device dispatches through multi-second batches.
+# The SLO controller reads its windowed p99 from these buckets, so they
+# are the JAX package's, bound for bound
 LATENCY_BUCKETS = (
     0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
     10.0, 30.0,
@@ -49,6 +53,10 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "sntc_events_dropped_total": dict(
         type=COUNTER, labels=("tenant",),
         help="Event-ring evictions (legacy view: events_dropped()).",
+    ),
+    "sntc_shed_offsets_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Source offsets dropped by load shedding (shed journal).",
     ),
     "sntc_batches_quarantined_total": dict(
         type=COUNTER, labels=("tenant",),
@@ -82,6 +90,70 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         type=COUNTER, labels=(),
         help="get_batch calls that fell through to a synchronous read "
         "while prefetch was armed.",
+    ),
+    # -- ingest and the source graph (data/ingest, data/pipeline) ----------
+    "sntc_ingest_files_parsed_total": dict(
+        type=COUNTER, labels=(),
+        help="Source files parsed by load_csv.",
+    ),
+    "sntc_ingest_rows_parsed_total": dict(
+        type=COUNTER, labels=(),
+        help="Rows parsed out of source files by load_csv.",
+    ),
+    "sntc_ingest_bytes_read_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Raw source bytes read by ingest (CSV parse, capture "
+        "decode).",
+    ),
+    "sntc_ingest_stage_seconds": dict(
+        type=HISTOGRAM, labels=("stage", "tenant"),
+        buckets=LATENCY_BUCKETS,
+        help="Per-item latency of each ingest source-graph stage "
+        "(read/parse/admit/bucket/stage) — the autotuner's feedback "
+        "signal.",
+    ),
+    "sntc_ingest_queue_depth": dict(
+        type=GAUGE, labels=("stage", "tenant"),
+        help="Current occupancy of a source-graph stage queue (the "
+        "prefetch staging queue).",
+    ),
+    "sntc_ingest_autotune_decisions_total": dict(
+        type=COUNTER, labels=("knob", "direction", "tenant"),
+        help="Applied ingest-autotuner knob changes, by knob and "
+        "direction.",
+    ),
+    "sntc_ingest_knob_value": dict(
+        type=GAUGE, labels=("knob", "tenant"),
+        help="Current value of each autotuned ingest knob "
+        "(read_workers / prefetch_batches / pipeline_depth).",
+    ),
+    # -- the closed-loop SLO controller (serve/controller) -------------------
+    "sntc_ctl_windows_total": dict(
+        type=COUNTER, labels=(),
+        help="SLO-controller observation windows closed.",
+    ),
+    "sntc_ctl_decisions_total": dict(
+        type=COUNTER, labels=("action", "knob", "tenant"),
+        help="SLO-controller decisions (applied / budget_denied / "
+        "frozen / delegated / escalated), by knob and tenant.",
+    ),
+    "sntc_ctl_knob_value": dict(
+        type=GAUGE, labels=("knob", "tenant"),
+        help="Current value of each controller-steered serving knob "
+        "(pipeline_depth / shape_buckets / weight / quota / shed / "
+        "escalate / migrate / scale_out; ladder knobs report their "
+        "ladder index).",
+    ),
+    "sntc_ctl_slo_compliant": dict(
+        type=GAUGE, labels=("slo", "tenant"),
+        help="Per-window SLO compliance verdict (1 = compliant, 0 = "
+        "violating) for each declared SLO axis (p99 / throughput / "
+        "shed).",
+    ),
+    "sntc_ctl_window_p99_seconds": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Windowed p99 batch latency the controller computed from "
+        "the sntc_batch_duration_seconds bucket deltas.",
     ),
     "sntc_health_state": dict(
         type=GAUGE, labels=("component",),
@@ -247,6 +319,25 @@ class MetricsRegistry:
         key = tuple(sorted((k, str(v)) for k, v in labels.items()))
         s = entry[1].get(key)
         return s.value if s is not None else None
+
+    def get_histogram(self, name: str, **labels: str) -> Optional[dict]:
+        """One histogram series (None when it does not exist yet):
+        bucket bounds, per-bucket counts, sum and count, read without
+        the write lock.  The SLO controller diffs two of these for a
+        windowed latency distribution."""
+        entry = self._metrics.get(name)
+        if entry is None:
+            return None
+        spec = entry[0]
+        if spec["type"] != HISTOGRAM:
+            raise KeyError(f"{name!r} is not a cataloged histogram")
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        s = entry[1].get(key)
+        if s is None:
+            return None
+        return {"bounds": list(spec["buckets"]),
+                "buckets": list(s.bucket_counts), "sum": s.sum,
+                "count": s.count}
 
     def label_overflows(self) -> int:
         return self._label_overflows

@@ -4,9 +4,10 @@ health, the device fault domain and query supervision.
 Counterpart of ``sntc_tpu/resilience/`` as far as the serve command's
 default form and ``tuning/`` use it: ``policy.py``, ``faults.py``,
 ``circuit.py``, ``health.py``, ``device.py`` (CUDA errors, no host
-fallback), ``storage.py`` (the durable-storage plane and ``fsck``) and
-``supervisor.py``.  ``control.py`` and ``replicate.py`` wait for their
-slices of ROADMAP queue A.
+fallback), ``storage.py`` (the durable-storage plane and ``fsck``),
+``control.py`` (the controllers' guardrails) and ``supervisor.py``
+(load shedding and the SLO controller's tick included).
+``replicate.py`` waits for its slice of ROADMAP queue A.
 """
 
 from sntc_tpu_torch.resilience.circuit import (
@@ -15,6 +16,11 @@ from sntc_tpu_torch.resilience.circuit import (
     breaker_for,
     breakers_snapshot,
     reset_breakers,
+)
+from sntc_tpu_torch.resilience.control import (
+    ControlPolicy,
+    Guardrails,
+    TuningBudget,
 )
 from sntc_tpu_torch.resilience.device import (
     DeviceExecError,
@@ -68,9 +74,11 @@ __all__ = [
     "SITES",
     "CircuitBreaker",
     "CircuitOpenError",
+    "ControlPolicy",
     "DeviceExecError",
     "DeviceFaultDomain",
     "DevicePolicy",
+    "Guardrails",
     "HealthMonitor",
     "HealthState",
     "InjectedDeviceFault",
@@ -81,6 +89,7 @@ __all__ = [
     "QuerySupervisor",
     "RetryExhausted",
     "RetryPolicy",
+    "TuningBudget",
     "add_event_observer",
     "annotate_batch",
     "arm",

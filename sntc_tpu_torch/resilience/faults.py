@@ -22,7 +22,8 @@ Wired sites:
 ``storage.wal``         physical WAL writes (log lines, files-mode
                         records, the compaction checkpoint): a
                         :func:`fault_disk` site taking the IO kinds
-``storage.journal``     JSONL journal appends (the repair journal)
+``storage.journal``     JSONL journal appends (the repair, shed and
+                        controller journals)
 ``storage.dead_letter`` dead-letter evidence (the quarantine journal,
                         the row dead letters)
 ``storage.marker``      atomic marker and status writes (drain marker,
@@ -30,6 +31,8 @@ Wired sites:
 ``predict.compile``     ``BatchPredictor`` before a FRESH padded row
                         shape's dispatch
 ``device.dispatch``     ``BatchPredictor`` before every dispatch
+``ctl.apply``           ``serve.ServeController`` inside every live knob
+                        setter, before the knob moves
 ======================  =================================================
 
 Environment grammar (comma-separated specs)::
@@ -135,6 +138,7 @@ SITES = (
     "storage.marker",
     "predict.compile",
     "device.dispatch",
+    "ctl.apply",
 )
 
 

@@ -1,9 +1,23 @@
-"""Query supervision: the health monitor, the batch watchdog and the
-preemption-safe drain.
+"""Query supervision: load shedding, the SLO controller, the health
+monitor, the batch watchdog and the preemption-safe drain.
 
 Counterpart of ``sntc_tpu/resilience/supervisor.py``
 (``default_breakers`` and :class:`QuerySupervisor`).  The supervisor
 owns a ``StreamingQuery``'s loop:
+
+* **Load shedding** (``max_pending_batches``, ``shed_policy``): when the
+  backlog exceeds the cap (in micro-batches), :meth:`maybe_shed` sheds
+  before the round dispatches: ``oldest`` drops the oldest surplus
+  offsets, ``sample`` serves the whole backlog as one row-subsampled
+  batch (the engine's ``shed_backlog``: ``<checkpoint>/shed.jsonl`` and
+  a ``load_shed`` event).  A round that shed leaves the engine DEGRADED
+  even when it committed.
+* **SLO control** (``slo``, a ``serve.controller.SloPolicy``;
+  ``controller_policy``): a ``ServeController`` over the engine steers
+  its depth, bucket floor, the shed knob and (through its own ingest
+  tuner) the source's pools, journaling to
+  ``<checkpoint>/controller.jsonl``; it ticks after the round, and an
+  exception from it emits ``controller_error`` and the loop goes on.
 
 * **Health and watchdog**: a :class:`~sntc_tpu_torch.resilience.health.
   HealthMonitor` attached to the event stream keeps per-site health; a
@@ -16,7 +30,8 @@ owns a ``StreamingQuery``'s loop:
   once from the offset log.
 * **Status**: :meth:`status` (and ``--health-json``, rewritten
   atomically each tick) holds health, breakers, the engine's offsets and
-  backlog, the device domain's stats and the ``storage`` block (the
+  backlog, ``shed_total_offsets``, the controller's ``slo`` and
+  ``controller`` blocks, the device domain's stats and the ``storage`` block (the
   engine's ``storage_stats`` and, under ``disk``, the throttled disk
   measurement of the checkpoint root against ``disk_budget_mb``; a
   breach emits ``disk_budget_exceeded``, DEGRADED), under the JAX keys.
@@ -25,10 +40,8 @@ owns a ``StreamingQuery``'s loop:
   policy DEGRADE: a failed write counts a ``storage_degraded`` episode
   and the loop goes on.
 
-The clock is injectable and the loop steps by :meth:`tick`.  Load
-shedding (``--max-pending-batches``, ``--shed-policy``; the JAX
-default never sheds) and the SLO controller wait for their slice of
-ROADMAP queue A.
+The clock is injectable and the loop steps by :meth:`tick`.  The drain
+marker records the controller's last knob map (``controller_knobs``).
 """
 
 from __future__ import annotations
@@ -73,14 +86,25 @@ class QuerySupervisor:
         self,
         query,
         *,
+        max_pending_batches: Optional[int] = None,
+        shed_policy: str = "oldest",
         max_batch_wall_time: Optional[float] = None,
         health: Optional[HealthMonitor] = None,
         health_json: Optional[str] = None,
         clock=time.monotonic,
+        slo=None,
+        controller_policy=None,
         disk_budget_mb: Optional[float] = None,
     ):
+        if max_pending_batches is not None and max_pending_batches < 1:
+            raise ValueError("max_pending_batches must be >= 1 (or None)")
+        if shed_policy not in ("oldest", "sample"):
+            raise ValueError("shed_policy must be 'oldest' or 'sample'")
         self.query = query
+        self.max_pending_batches = max_pending_batches
+        self.shed_policy = shed_policy
         self.health_json = health_json
+        self._clock = clock
         # a monitor made here is ours to attach and to detach in close()
         self._owns_health = health is None
         self.health = health or HealthMonitor(
@@ -90,6 +114,7 @@ class QuerySupervisor:
             self.health.max_batch_wall_time = max_batch_wall_time
         self._drain = threading.Event()
         self._drain_reason: Optional[str] = None
+        self.shed_total_offsets = 0
         self.batches_done = 0
         self.drained = False
         self.storage = storage_plane.StoragePlane(
@@ -97,6 +122,14 @@ class QuerySupervisor:
             budget_bytes=(int(disk_budget_mb * (1 << 20))
                           if disk_budget_mb else None),
         )
+        # a declared SLO arms the controller over this engine (imported
+        # here: the serve package imports this module)
+        self.controller = None
+        if slo is not None:
+            from sntc_tpu_torch.serve.controller import ServeController
+
+            self.controller = ServeController.for_supervisor(
+                self, slo, policy=controller_policy, clock=clock)
 
     def close(self) -> None:
         """Detach the health monitor if this supervisor made it."""
@@ -129,11 +162,29 @@ class QuerySupervisor:
 
     # -- supervision steps --------------------------------------------------
 
+    def maybe_shed(self, latest: Optional[int] = None) -> Optional[dict]:
+        """One admission-control decision; the shed record when load was
+        shed.  ``latest`` reuses the tick's source offset read."""
+        if self.max_pending_batches is None:
+            return None
+        record = self.query.shed_backlog(self.max_pending_batches,
+                                         policy=self.shed_policy,
+                                         latest=latest)
+        if record is not None:
+            self.shed_total_offsets += record.get("offsets_shed", 0)
+            self.health.report(
+                "engine", HealthState.DEGRADED,
+                reason=f"load shed ({self.shed_policy}): "
+                f"backlog > {self.max_pending_batches} batches")
+        return record
+
     def tick(self) -> int:
-        """One supervised engine round: advance the engine by at most
-        one round, update health; the batches committed."""
+        """One supervised engine round: shed if needed, advance the
+        engine by at most one round, update health, tick the controller;
+        the batches committed."""
         q = self.query
         latest = q.source.latest_offset()  # one read per tick
+        shed = self.maybe_shed(latest)
         tick_id = q.last_committed() + 1
         # only a tick with work ages a batch toward the watchdog; a batch
         # deferred across ticks keeps its first start time
@@ -147,7 +198,9 @@ class QuerySupervisor:
                 self.health.batch_finished(tick_id)
         delta = q.last_committed() - before
         self.batches_done += delta
-        if delta:
+        # a committing engine is healthy, unless this round also shed:
+        # sustained overload stays visible in the status
+        if delta and shed is None:
             self.health.report("engine", HealthState.OK, reason="committing")
             progress = q.lastProgress
             if progress and not progress.get("quarantined"):
@@ -157,6 +210,11 @@ class QuerySupervisor:
                     if self.health.state_of(site) != HealthState.OK:
                         self.health.report(site, HealthState.OK,
                                            reason="batch committed")
+        if self.controller is not None:
+            try:  # degrade, never kill
+                self.controller.on_tick()
+            except Exception as e:
+                emit_event(event="controller_error", error=repr(e))
         if self.health_json:
             self.write_health_json(latest=latest)
         return delta
@@ -227,6 +285,10 @@ class QuerySupervisor:
             "batches_committed_at_drain": committed,
             "in_flight_left": q.in_flight_count(),
             "pid": os.getpid(),
+            # the controller's last knob map: a restart (cold values)
+            # logs the difference
+            "controller_knobs": (self.controller.knob_values()
+                                 if self.controller is not None else None),
         }
         _atomic_json(os.path.join(q.checkpoint_dir, DRAIN_MARKER), marker)
         self.drained = True
@@ -259,7 +321,7 @@ class QuerySupervisor:
                 "backlog_offsets": q.backlog_offsets(latest),
                 "batches_done": self.batches_done,
             },
-            "shed_total_offsets": 0,
+            "shed_total_offsets": self.shed_total_offsets,
             "events_dropped": events_dropped(),
             "drain_requested": self.drain_requested,
             "drained": self.drained,
@@ -272,6 +334,9 @@ class QuerySupervisor:
         dom = getattr(q.predictor, "device_domain", None)
         if dom is not None:
             out["device"] = dom.stats()
+        if self.controller is not None:
+            out["slo"] = self.controller.slo_status()
+            out["controller"] = self.controller.stats()
         return out
 
     def write_health_json(self, latest: Optional[int] = None) -> str:

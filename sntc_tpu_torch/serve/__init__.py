@@ -1,3 +1,8 @@
+from sntc_tpu_torch.serve.controller import (
+    ServeController,
+    SloPolicy,
+    SloSignal,
+)
 from sntc_tpu_torch.serve.fuse import compile_pipeline, compile_serving
 from sntc_tpu_torch.serve.streaming import (
     ConsoleSink,
@@ -23,6 +28,9 @@ __all__ = [
     "FileStreamSource",
     "MemorySink",
     "MemorySource",
+    "ServeController",
+    "SloPolicy",
+    "SloSignal",
     "StreamingQuery",
     "bucket_rows_for",
     "compile_pipeline",

@@ -47,11 +47,11 @@ or row, raw text and reason, published atomically at
 replay, with a ``rows_rejected`` event.
 :meth:`StreamingQuery.admission_stats` reports it.
 
-**Pipelined engine** (``pipeline_depth > 1``, which arms the overlapped
-sink, and a source with ``prefetch_batches``): up to ``pipeline_depth``
-batches are in flight, so batch N+1's read and dispatch overlap batch
-N's device work; the retire stage (finalize + sink write) runs on ONE
-delivery thread; the source parses the next ranges on its prefetch
+**Pipelined engine** (``overlap_sink``, by default on when the
+construction's ``pipeline_depth`` is above 1, and a source with
+``prefetch_batches``): up to ``pipeline_depth`` batches are in flight,
+so batch N+1's read and dispatch overlap batch N's device work; the
+retire stage (finalize + sink write) runs on ONE delivery thread; the source parses the next ranges on its prefetch
 threads and each multi-file batch on its read pool.  The protocol order is the
 serial engine's: WAL intent → read → dispatch → sink → commit; commits
 land on the engine thread in batch order, at most one delivery is in the
@@ -90,8 +90,24 @@ at 8 MiB and degrades on a failed write (``storage.dead_letter``); the
 newest ``dead_letter_keep`` evidence files are kept, the older dropped
 and counted (``sntc_dead_letter_dropped_total``).
 
-The JAX engine's load shedding, autotuning, lifecycle hot swap and
-tenancy are not ported.
+**Self-tuning** (the JAX engine's, ``sntc_tpu/serve/streaming.py``):
+``pipeline_depth`` only bounds the batches in flight and may change
+while the engine runs (the overlap was fixed at construction, as the
+JAX engine's ``overlap_sink`` is).  ``autotuner`` (a
+``data.autotune.IngestAutotuner``) is ticked once a round and resizes
+the source's read pool, its staging queue and the depth live; a tuner
+that raises emits ``autotune_error`` and the engine goes on.  The source
+meters its read, parse and stage steps and the engine its admit and
+bucket steps (``data.pipeline.StageMeter``; ``pipeline_stats()
+["ingest"]``).  :meth:`StreamingQuery.shed_backlog` is load shedding:
+``oldest`` moves the planning cursor past the surplus offsets, which
+are never read, logged or committed (staged reads of them are
+dropped), and ``sample`` makes the next intent cover the whole backlog
+at a row stride logged in the intent, so a replay reads the same
+sample; each decision is journaled to ``<checkpoint>/shed.jsonl``
+(rotating, policy DEGRADE) with a ``load_shed`` event.
+
+The JAX engine's lifecycle hot swap and tenancy are not ported.
 """
 
 from __future__ import annotations
@@ -104,10 +120,17 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+import numpy as np
+
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.data.ingest import load_csv
+from sntc_tpu_torch.data.pipeline import (
+    engine_meters,
+    source_meters,
+    timed,
+)
 from sntc_tpu_torch.obs import install_event_metrics
-from sntc_tpu_torch.obs.metrics import inc, observe
+from sntc_tpu_torch.obs.metrics import inc, observe, set_gauge
 from sntc_tpu_torch.resilience import storage as storage_plane
 from sntc_tpu_torch.resilience.device import (
     annotate_batch,
@@ -153,6 +176,14 @@ class DirStreamSource:
     excise unparsable lines and collect one reject record each, which
     the engine drains with :meth:`take_rejects` into the row dead
     letters.
+
+    **Live resizing**: :meth:`set_read_workers` and
+    :meth:`set_prefetch_batches` resize the pools while the engine runs
+    (the autotuner's actions).  Submissions to a pool are made under the
+    pool lock, so a resized-out pool is shut down at once without
+    waiting: its reads in flight and staged ranges finish, its idle
+    threads exit.  ``meters`` time the read (the engine's wait), parse
+    (one file) and stage (one background range) steps.
     """
 
     def __init__(self, path: str, pattern: str, prefetch_batches: int = 0,
@@ -171,6 +202,8 @@ class DirStreamSource:
         # _pool() is reached from the engine thread and from prefetch
         # threads: the lazy create must not race two pools into being
         self._pool_lock = threading.Lock()
+        self._retired_pools: List[ThreadPoolExecutor] = []  # joined at close
+        self.meters = source_meters()
         self._staged: dict = {}  # (start, end) -> Future[Frame]
         self.prefetch_hits = 0
         self.prefetch_misses = 0
@@ -218,19 +251,51 @@ class DirStreamSource:
                                                     self.pattern)))
         return listing[start:end]
 
-    def _pool(self) -> ThreadPoolExecutor:
+    def _retire(self, pool: Optional[ThreadPoolExecutor]) -> None:
+        """A resized-out pool (under the pool lock): no submission can
+        reach it after this, so it shuts down at once; its queued and
+        running reads finish."""
+        if pool is not None:
+            pool.shutdown(wait=False)
+            self._retired_pools.append(pool)
+
+    def set_read_workers(self, n: int) -> None:
+        """Resize the per-file read pool live (see the class docs)."""
+        n = max(1, int(n))
+        with self._pool_lock:
+            if n == self.read_workers:
+                return
+            self.read_workers = n
+            self._retire(self._read_pool)
+            self._read_pool = None
+
+    def set_prefetch_batches(self, n: int) -> None:
+        """Resize the staging queue's bound and with it the staging pool
+        live; staged ranges stay staged, the bound applies to new
+        prefetches."""
+        n = max(0, int(n))
+        with self._pool_lock:
+            if n == self.prefetch_batches:
+                return
+            self.prefetch_batches = n
+            self._retire(self._prefetch_pool)
+            self._prefetch_pool = None
+
+    def _timed_load(self, path: str) -> Frame:
+        return timed(self.meters["parse"], self._load_file, path)
+
+    def _read_files(self, files: List[str]) -> Frame:
+        if len(files) == 1:  # the common micro-batch: no concat copy
+            return self._timed_load(files[0])
         with self._pool_lock:
             if self._read_pool is None:
                 self._read_pool = ThreadPoolExecutor(
                     max_workers=self.read_workers,
                     thread_name_prefix="sntc-src-read",
                 )
-            return self._read_pool
-
-    def _read_files(self, files: List[str]) -> Frame:
-        if len(files) == 1:  # the common micro-batch: no concat copy
-            return self._load_file(files[0])
-        return Frame.concat_all(list(self._pool().map(self._load_file, files)))
+            futs = [self._read_pool.submit(self._timed_load, f)
+                    for f in files]
+        return Frame.concat_all([f.result() for f in futs])
 
     def _read_range(self, start: int, end: int,
                     listing: Optional[List[str]]) -> Frame:
@@ -257,21 +322,34 @@ class DirStreamSource:
             return False
         if len(self._staged) >= self.prefetch_batches:
             return False
-        if self._prefetch_pool is None:
-            self._prefetch_pool = ThreadPoolExecutor(
-                max_workers=max(1, min(self.prefetch_batches, 4)),
-                thread_name_prefix="sntc-src-prefetch",
-            )
         listing = (
             list(self._listing)
             if self._listing is not None and len(self._listing) >= end
             else None
         )
-        self._staged[(start, end)] = self._prefetch_pool.submit(
-            self._read_range, start, end, listing
-        )
+        with self._pool_lock:
+            if self._prefetch_pool is None:
+                self._prefetch_pool = ThreadPoolExecutor(
+                    max_workers=max(1, min(self.prefetch_batches, 4)),
+                    thread_name_prefix="sntc-src-prefetch",
+                )
+            self._staged[(start, end)] = self._prefetch_pool.submit(
+                self._staged_read, start, end, listing
+            )
         self.prefetch_hwm = max(self.prefetch_hwm, len(self._staged))
+        self._queue_gauge()
         return True
+
+    def _staged_read(self, start: int, end: int,
+                     listing: Optional[List[str]]) -> Frame:
+        # the stage step: one background range (its files' parses are
+        # metered by the parse step too)
+        return timed(self.meters["stage"], self._read_range, start, end,
+                     listing)
+
+    def _queue_gauge(self) -> None:
+        set_gauge("sntc_ingest_queue_depth", len(self._staged),
+                  stage="stage")
 
     def prefetch_stats(self) -> dict:
         return {
@@ -282,18 +360,31 @@ class DirStreamSource:
         }
 
     def get_batch(self, start: int, end: int) -> Frame:
-        fut = self._staged.pop((start, end), None)
-        if fut is not None:
-            self.prefetch_hits += 1
-            inc("sntc_source_prefetch_hits_total")
-            return fut.result()  # a failed staged read raises here
-        if self.prefetch_batches > 0:
-            self.prefetch_misses += 1
-            inc("sntc_source_prefetch_misses_total")
-        listing = self._listing
-        if listing is not None and len(listing) < end:
-            listing = None  # stale: _read_range re-scans once
-        return self._read_range(start, end, listing)
+        """The Frame of ``[start, end)``: a staged read's, or read now.
+        The engine asks for ranges in order, so staged ranges wholly
+        behind ``start`` are stale (a load shed skipped them) and are
+        dropped unread."""
+        t0 = time.perf_counter()
+        try:
+            for key in [k for k in self._staged if k[1] <= start]:
+                self._staged.pop(key).cancel()
+            fut = self._staged.pop((start, end), None)
+            if fut is not None:
+                self.prefetch_hits += 1
+                inc("sntc_source_prefetch_hits_total")
+                self._queue_gauge()
+                return fut.result()  # a failed staged read raises here
+            if self.prefetch_batches > 0:
+                self.prefetch_misses += 1
+                inc("sntc_source_prefetch_misses_total")
+            listing = self._listing
+            if listing is not None and len(listing) < end:
+                listing = None  # stale: _read_range re-scans once
+            return self._read_range(start, end, listing)
+        finally:
+            # the read step: what the engine waited for (near 0 on a
+            # staged hit, the whole parse on a miss)
+            self.meters["read"].record(time.perf_counter() - t0)
 
     def close(self) -> None:
         """Cancel staged reads and shut the pools down (idempotent; a
@@ -302,20 +393,40 @@ class DirStreamSource:
             fut.cancel()
         self._staged.clear()
         with self._pool_lock:
-            pools = [self._read_pool, self._prefetch_pool]
+            pools = [self._read_pool, self._prefetch_pool,
+                     *self._retired_pools]
             self._read_pool = self._prefetch_pool = None
+            self._retired_pools = []
         for pool in pools:
             if pool is not None:
                 pool.shutdown(wait=True)
 
 
 class FileStreamSource(DirStreamSource):
-    """Directory of flow CSVs, parsed by :func:`data.ingest.load_csv`."""
+    """Directory of flow CSVs, parsed by :func:`data.ingest.load_csv`.
 
-    def __init__(self, path: str, pattern: str = "*.csv", **kwargs):
+    ``columnar=True`` parses through the columnar plane
+    (``data.pipeline.read_flows_columnar``, ``handle_invalid=None``):
+    every feature column is cast to float32 once in Arrow and handed over
+    as a numpy view, the block ``pad_assemble`` packs; non-finite values
+    survive as float32 NaN/Inf for the admission step."""
+
+    def __init__(self, path: str, pattern: str = "*.csv",
+                 columnar: bool = False, **kwargs):
         super().__init__(path, pattern, **kwargs)
+        self.columnar = bool(columnar)
 
     def _load_file(self, path: str) -> Frame:
+        if self.columnar:
+            from sntc_tpu_torch.data.pipeline import read_flows_columnar
+
+            recs: List[dict] = []
+            frame = read_flows_columnar(
+                path, handle_invalid=None, salvage=self.parse_salvage,
+                rejects=recs if self.parse_salvage else None)
+            if recs:
+                self._note_rejects(recs)
+            return frame
         if not self.parse_salvage:
             return load_csv(path)
         recs: List[dict] = []
@@ -444,6 +555,8 @@ class StreamingQuery:
         schema_contract=None,
         row_policy: Optional[str] = None,
         row_dead_letter_dir: Optional[str] = None,
+        overlap_sink: Optional[bool] = None,
+        autotuner=None,
     ):
         self.predictor = (
             model
@@ -455,9 +568,18 @@ class StreamingQuery:
         self.sink = sink
         self.checkpoint_dir = checkpoint_dir
         self.max_batch_offsets = max_batch_offsets
+        # the batches in flight; a controller may change it live
         self.pipeline_depth = max(1, int(pipeline_depth))
-        # depth > 1 overlaps each batch's retire with the next dispatch
-        self.overlap_sink = self.pipeline_depth > 1
+        # the retire stage on the delivery thread, fixed for the engine's
+        # life (None: on when the construction's depth is above 1)
+        self.overlap_sink = (self.pipeline_depth > 1 if overlap_sink is None
+                             else bool(overlap_sink))
+        # the ingest graph's engine-side steps, and the optional tuner
+        # ticked once a round (a failing tuner degrades, never kills)
+        self.ingest_meters = engine_meters()
+        self.autotuner = autotuner
+        self._sample_next: Optional[int] = None  # stride of the next intent
+        self._shed_writer = None
         self._delivery = None  # (batch_id, Future) while one is in the air
         self._delivery_pool: Optional[ThreadPoolExecutor] = None
         self._delivery_busy_s = 0.0
@@ -777,6 +899,13 @@ class StreamingQuery:
                 return False
             intent = {"batch_id": batch_id, "start": start,
                       "end": self._plan_end(start, latest)}
+            if self._sample_next is not None:
+                # a sample shed's batch: the whole backlog at a row
+                # stride, logged in the intent so a replay reads the same
+                # sample
+                intent["end"] = latest
+                intent["sample_stride"] = self._sample_next
+                self._sample_next = None
             try:
                 fault_point("stream.wal")
                 self._wal_intent(batch_id, intent)  # intent before work
@@ -801,6 +930,9 @@ class StreamingQuery:
         def _read() -> tuple:
             fault_point("stream.read")
             frame = self.source.get_batch(intent["start"], intent["end"])
+            stride = intent.get("sample_stride", 1)
+            if stride > 1:
+                frame = frame.take(np.arange(0, frame.num_rows, stride))
             return self._admit(batch_id, intent, frame)
 
         frame = None
@@ -830,8 +962,9 @@ class StreamingQuery:
                 self._rows_coerced_total += coerced
             try:
                 with ledger_scope(self.transfer):
-                    finalize = self.predictor.predict_frame_async(
-                        frame, row_valid=row_mask)
+                    finalize = timed(self.ingest_meters["bucket"],
+                                     self.predictor.predict_frame_async,
+                                     frame, row_valid=row_mask)
             except Exception as de:
                 # a device failure belongs to the platform, not the
                 # batch: it releases a half-open probe slot instead of
@@ -882,7 +1015,8 @@ class StreamingQuery:
         rejects = list(take(batch_files)) if take is not None else []
         if self.schema_contract is None:
             return frame, None, rejects, 0, batch_files
-        res = self.schema_contract.admit(frame, mode=self.row_policy)
+        res = timed(self.ingest_meters["admit"], self.schema_contract.admit,
+                    frame, mode=self.row_policy)
         if res.rejects:
             # best-effort raw text: the row's 1-D values in column order
             # (the parser records the true line for what it excised)
@@ -1282,8 +1416,11 @@ class StreamingQuery:
             "wal_compactions": self.wal_compactions,
             "wal_prunes": self.wal_prunes,
         }
-        if self._dead_letter_writer is not None:
-            out["dead_letter_journal"] = self._dead_letter_writer.stats()
+        for name, writer in (("shed_journal", self._shed_writer),
+                             ("dead_letter_journal",
+                              self._dead_letter_writer)):
+            if writer is not None:
+                out[name] = writer.stats()
         scan = self.storage_scan
         if scan is not None and (scan["repaired"] or scan["errors"]
                                  or scan["cleaned"]):
@@ -1294,8 +1431,9 @@ class StreamingQuery:
     def pipeline_stats(self) -> dict:
         """Pipelining evidence: overlap and bucket config, delivery-thread
         busy time, the predictor's shape ledger, this engine's transfer
-        counters, the source's prefetch stats, the WAL's bounds and the
-        dead-letter journal, and the device domain's stats."""
+        counters, the source's prefetch stats, the ingest graph's stage
+        meters and the autotuner's decisions, the WAL's bounds and the
+        journals, and the device domain's stats."""
         stats = {
             "overlap_sink": self.overlap_sink,
             "pipeline_depth": self.pipeline_depth,
@@ -1314,6 +1452,13 @@ class StreamingQuery:
         src_stats = getattr(self.source, "prefetch_stats", None)
         if src_stats is not None:
             stats["prefetch"] = src_stats()
+        ingest = {name: m.snapshot() for name, m in
+                  getattr(self.source, "meters", {}).items()}
+        ingest.update((name, m.snapshot())
+                      for name, m in self.ingest_meters.items())
+        stats["ingest"] = ingest
+        if self.autotuner is not None:
+            stats["autotune"] = self.autotuner.stats()
         dom = self._device_domain()
         if dom is not None:
             stats["device"] = dom.stats()
@@ -1324,6 +1469,13 @@ class StreamingQuery:
         committed.  Overlap mode pumps the delivery thread before the
         dispatch loop, between dispatches and after it."""
         before = self._last_committed
+        if self.autotuner is not None:
+            # knob changes land between rounds; a tuner's failure
+            # degrades, never kills the loop
+            try:
+                self.autotuner.on_tick(self)
+            except Exception as e:
+                emit_event(event="autotune_error", error=repr(e))
         if self.overlap_sink:
             self._pump_delivery()
             if self._tick_latest is None:
@@ -1397,6 +1549,68 @@ class StreamingQuery:
         if latest is None:
             latest = self.source.latest_offset()
         return max(0, latest - self._next_start)
+
+    def shed_backlog(self, max_pending_batches: int, policy: str = "oldest",
+                     latest: Optional[int] = None) -> Optional[dict]:
+        """Admission control: when the backlog beyond the logged intents
+        exceeds ``max_pending_batches`` micro-batches (of
+        ``max_batch_offsets`` offsets; one when unset), shed down to the
+        cap and return the journaled record, else None.
+
+        ``oldest`` drops the oldest surplus offsets; ``sample`` makes the
+        next intent cover the whole backlog at ``sample_stride``.  The
+        record goes to ``<checkpoint>/shed.jsonl`` with a ``load_shed``
+        event.  Shedding moves the planning cursor, not a commit: a crash
+        before the next commit restores the backlog, and the supervisor
+        sheds again after the restart."""
+        if policy not in ("oldest", "sample"):
+            raise ValueError("shed policy must be 'oldest' or 'sample'")
+        if self._sample_next is not None:
+            return None  # one sample decision waits for its batch
+        unit = self.max_batch_offsets or 1
+        if latest is None:
+            latest = self.source.latest_offset()
+        # offsets under uncommitted intents replay whatever happens: they
+        # are not sheddable
+        base = self._next_start
+        bid = self._last_committed + 1 + len(self._in_flight)
+        while True:
+            replay = self._pending_intent(bid)
+            if replay is None:
+                break
+            base = max(base, replay["end"])
+            bid += 1
+        pending = latest - base
+        keep = max_pending_batches * unit
+        if pending <= keep:
+            return None
+        record = {
+            "ts": time.time(),
+            "policy": policy,
+            "backlog_offsets": pending,
+            "max_pending_batches": max_pending_batches,
+        }
+        if policy == "oldest":
+            shed_end = latest - keep
+            record.update(start=base, end=shed_end,
+                          offsets_shed=shed_end - base)
+            self._next_start = max(self._next_start, shed_end)
+        else:
+            stride = -(-pending // keep)  # keeps ~keep offsets' rows
+            record.update(start=base, end=latest, sample_stride=stride,
+                          offsets_shed=0)
+            self._sample_next = stride
+        # policy DEGRADE: a decision that cannot be journaled still sheds
+        if self._shed_writer is None:
+            self._shed_writer = storage_plane.RotatingJsonlWriter(
+                os.path.join(self.checkpoint_dir, "shed.jsonl"),
+                artifact="shed_journal")
+        self._shed_writer.write(record)
+        emit_event(event="load_shed", site="stream.read", policy=policy,
+                   start=record["start"], end=record["end"],
+                   offsets_shed=record["offsets_shed"],
+                   sample_stride=record.get("sample_stride"))
+        return record
 
     def stop(self) -> None:
         """Stop the engine: a still-running delivery finishes but is not

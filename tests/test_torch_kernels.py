@@ -980,3 +980,80 @@ def test_pad_assemble_on_card_matches_cpu(cuda_device):
     for c in cols:
         np.testing.assert_array_equal(to_host(got[c]), to_host(ref[c]))
     reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 4097, 60000])
+def test_pad_assemble_columnar_float32_block_on_card(cuda_device, tmp_path,
+                                                     n):
+    """The columnar source's frame (float32 views over Arrow buffers,
+    read-only, non-finite values kept) through ``pad_assemble`` on the
+    card: one launch of the [n, 78] float32 block, every column bitwise
+    the CPU's, and the float32 cast of the float64 frame's."""
+    from sntc_tpu_torch.data import (
+        CICIDS2017_FEATURES,
+        generate_frame,
+        load_csv,
+        write_raw_csv,
+    )
+    from sntc_tpu_torch.data.pipeline import read_flows_columnar
+    from sntc_tpu_torch.serve.transform import bucket_rows_for
+
+    path = str(tmp_path / "flows.csv")
+    write_raw_csv(generate_frame(n, seed=n).drop("Label"), path)
+    frame = read_flows_columnar(path, handle_invalid=None)
+    assert all(frame[c].dtype == np.float32 for c in CICIDS2017_FEATURES)
+    # views over Arrow's buffers (a column with parse-time nulls is the
+    # one materialized copy)
+    assert any(not frame[c].flags.writeable for c in CICIDS2017_FEATURES)
+    target = bucket_rows_for(n, 256)
+    valid = np.zeros(target, bool)
+    valid[:n] = True
+    reset_launches()
+    got = pad_assemble(frame, target, valid, cuda_device)
+    torch.cuda.synchronize()
+    assert PAD_LAUNCH_SHAPES == {pad_launch_shape(
+        n, len(CICIDS2017_FEATURES), torch.float32, target): 1}
+    ref = pad_assemble(frame, target, valid, "cpu")
+    legacy = load_csv(path)
+    for c in CICIDS2017_FEATURES:
+        card = to_host(got[c])
+        assert np.array_equal(card.view(np.uint32),
+                              to_host(ref[c]).view(np.uint32)), c
+        cast = np.asarray(legacy[c]).astype(np.float32)
+        assert np.array_equal(card[:n].view(np.uint32), cast.view(np.uint32))
+    reset_launches()
+
+
+def _ladder_shapes():
+    """Every padded shape the controller's bucket-floor ladder gives a
+    batch of the stream phase 13 serves, below and above the floors."""
+    from sntc_tpu_torch.serve.controller import SHAPE_BUCKET_FLOORS
+    from sntc_tpu_torch.serve.transform import bucket_rows_for
+
+    shapes = set()
+    for n in (40, 100, 300, 1000, 7000, 30000):
+        for floor in SHAPE_BUCKET_FLOORS[1:] + (256,):
+            target = bucket_rows_for(n, floor)
+            if target != n:
+                shapes.add((n, target))
+    return sorted(shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,target", _ladder_shapes())
+def test_pad_kernel_ladder_bucket_shapes_on_card(cuda_device, n, target,
+                                                 dtype):
+    """``pad_rows`` at each bucket the shape-bucket ladder reaches, in the
+    column-major layout the serve path launches, bitwise the plain
+    version and counted under its shape."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + target)
+    a = torch.randn((78, n), dtype=dtype, device=cuda_device,
+                    generator=g).t()
+    reset_launches()
+    out = pad_rows_cuda(a, target)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pad_rows_reference(a, target))
+    assert PAD_LAUNCH_SHAPES == {pad_launch_shape(n, 78, dtype, target): 1}
+    reset_launches()

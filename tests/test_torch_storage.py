@@ -575,25 +575,29 @@ def test_fsck_repairs_quarantines_and_reports(tmp_path):
 
 
 def test_fsck_leaves_jax_only_journals(tmp_path):
-    """The journals only the JAX package writes (load shedding, the SLO
-    controller, model promotion) are not the port's artifacts: its
-    doctor leaves them as they are, the JAX doctor repairs them."""
+    """The journal only the JAX package writes (model promotion) is not
+    the port's artifact: its doctor leaves it as it is, the JAX doctor
+    repairs it.  The shed and controller journals, which both packages
+    write, both doctors repair alike."""
     root, _ = _make_dirty_root(tmp_path, "jax")
     for name in ("shed.jsonl", "controller.jsonl", "promotion.jsonl"):
         (root / name).write_text('{"ok": 1}\n{"torn')
     trees = _copy_tree(root, ("p", "j"))
     report = PS.fsck(trees["p"], repair=True)
     jreport = JS.fsck(trees["j"], repair=True)
+    assert open(os.path.join(trees["p"], "promotion.jsonl")).read() \
+        == '{"ok": 1}\n{"torn'
+    for name in ("shed.jsonl", "controller.jsonl"):
+        assert open(os.path.join(trees["p"], name)).read() == '{"ok": 1}\n'
     for name in ("shed.jsonl", "controller.jsonl", "promotion.jsonl"):
-        assert open(os.path.join(trees["p"], name)).read() \
-            == '{"ok": 1}\n{"torn'
         assert open(os.path.join(trees["j"], name)).read() == '{"ok": 1}\n'
-    foreign = {"shed_journal", "controller_journal", "promotion_journal"}
+    foreign = {"promotion_journal"}
     assert not foreign & set(report["checked"])
     assert foreign <= set(jreport["checked"])
+    assert {"shed_journal", "controller_journal"} <= set(report["checked"])
     # on every artifact both packages own the two reports agree, but for
-    # the repair journal's count: the JAX doctor's repairs of its own
-    # journals write it before it is scanned
+    # the repair journal's count: the JAX doctor's repair of the
+    # promotion journal writes it before it is scanned
     def owned(r, top):
         r = _rel(r, top)
         r["checked"] = {k: v for k, v in r["checked"].items()
@@ -803,8 +807,11 @@ def test_storage_plane_usage_and_budget(tmp_path):
 def test_supervisor_status_carries_storage_block(tmp_path):
     blocks = {}
     for pkg, mod in (("port", R), ("jax", J)):
+        # both engines in the JAX engine's default, serial form: three
+        # ticks commit the same batches whatever the threads' timing
+        serial = {"overlap_sink": False} if pkg == "port" else {}
         q, _ = _engine(pkg, tmp_path / pkg, _frames(3), wal_mode="append",
-                       wal_compact_every=2)
+                       wal_compact_every=2, **serial)
         sup = mod.QuerySupervisor(q, disk_budget_mb=1.0)
         try:
             for _ in range(3):
@@ -894,7 +901,7 @@ def test_artifacts_pinned_against_write_sites():
         assert name in named or f'"{name}"' in sources.replace(
             'ArtifactSpec(\n            "' + name, ""), name
     assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == {
-        "shed_journal", "controller_journal", "promotion_journal",
+        "promotion_journal",
         "flow_state", "telemetry", "fleet_lease", "fleet_assignments",
         "fleet_assignment_journal", "fleet_migration_manifest",
         "fleet_markers", "fleet_request_journal", "ingress_spool",
