@@ -233,7 +233,36 @@ each of which fails the run (non-zero exit, no result line):
    health dump's ``shed_total_offsets``, no shed offset in an intent,
    the served rows byte-identical to an unshed serve's.  Each
    ``pad_assemble`` shape of the phase is held bitwise against its plain
-   version and timed beside its bound.  One JSON line reports the phase.
+   version and timed beside its bound.  One JSON line reports the phase;
+14. the model lifecycle: (a) bench config 7's arc (``bench.py:894-1060``:
+   ``generate_drift_frames(18, rows_per_batch=3472, shift_at=8, seed=7,
+   n_classes=8)`` written by ``write_drift_stream``, a gaussian NB
+   pipeline fitted on the card on the cleaned first 8 batches,
+   ``DriftMonitor(3, 0.04)``, ``ModelPromoter(window=4, margin=0.05,
+   probation_batches=2)``, refitting by ``partial_fit`` armed at the
+   first ``drift_detected``) in this process, at ``shape_buckets`` 0 and
+   256: drift 1–2 batches after the shift, 1–2 promotions, 0 rollbacks,
+   0 batches stalled, macro-F1 before the shift, just after it and
+   recovered within 0.02 of the JAX package's 0.5849 / 0.1555 / 0.9721
+   (``bench_runs.jsonl:92-93``), the two runs' batch files
+   byte-identical, one ``pad_assemble`` launch per padded dispatch (the
+   engine's float64 [3 472, 78] blocks and the shadow's float32 ones, to
+   4 096); (b) ``serve --drift-window 3 --promote-from <candidate>
+   --shadow-window 4 --shape-buckets 256 --pipeline-depth 1`` on config
+   3 (a ChiSq top-40 prefix and two 20-tree depth-10 forests fitted here,
+   the incumbent on permuted labels), the head unfused: the batches
+   after the swap byte-identical to the candidate's alone,
+   ``model_marker.json`` generation 1, the decision in
+   ``promotion.jsonl``, a restart serving the promoted model; the same
+   serve killed at ``model.swap`` (``SNTC_FAULTS``), ``fsck`` and a
+   restart: every batch committed once, the files byte-identical to the
+   uninterrupted run's; (c) ``LogisticRegression.partial_fit`` over
+   config 1's scaled rows in 8 shards on the card and the CPU: held-out
+   predictions agree with the batch fit on ≥ 95 % of rows, each shard's
+   history on the card within ``PF_PREFIX_TOL`` / ``PF_END_TOL`` of the
+   CPU's.  Each ``pad_assemble`` shape and the unfused head's
+   ``forest_traversal`` are held bitwise against their plain versions
+   and timed beside their bounds.  One JSON line reports the phase.
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -478,6 +507,35 @@ SHED_PENDING = 2
 CTL_SIZES = (1000, 30000, 300, 7000, 100, 15000, 40, 2000, 500, 24000,
              200, 9000, 3000, 30000, 64, 12000, 150, 5000, 20000, 400)
 CTL_P99_MS = 0.5
+# phase 14: the model lifecycle.  (a) is bench config 7 with its own
+# constants (bench.py:885-890, rows 62 496 // 18 a batch, bench.py's SEED
+# 7) and the JAX package's recorded arc (bench_runs.jsonl:92-93, JAX on
+# the CPU), each macro-F1 to be met within LC_F1_ATOL
+LC_BATCHES, LC_SHIFT, LC_ROWS, LC_CLASSES, LC_SEED = 18, 8, 3472, 8, 7
+LC_DRIFT_WINDOW, LC_DRIFT_THRESHOLD = 3, 0.04
+LC_SHADOW_WINDOW, LC_MARGIN, LC_PROBATION = 4, 0.05, 2
+LC_F1_REF = {"f1_pre_shift": 0.5849, "f1_post_shift_degraded": 0.1555,
+             "f1_recovered": 0.9721}
+LC_F1_ATOL = 0.02
+# (b): the serve command on config 3, 8 labelled files of 6 000 rows (one
+# a batch, padded to 8 192); the first 6 served with the promotion armed,
+# the last 2 after a restart
+SWAP_FILES, SWAP_FIRST, SWAP_FILE_ROWS = 8, 6, 6000
+SWAP_TRAIN_ROWS = 60_000  # the candidate forest's labelled rows
+SWAP_FLAGS = ["--pipeline-depth", "1", "--drift-window", "3",
+              "--shadow-window", "4"]
+# (c): LR partial_fit over config 1's scaled rows in PF_SHARDS shards,
+# held-out predictions against the batch fit (docs/RESILIENCE.md's
+# contract) and each shard's history on the card against the CPU's
+# (prefix over LANE_PREFIX iterations, end) as a share of its start.
+# Set from the 8 shards' readings on an NVIDIA H100 80GB HBM3, 700 W:
+# prefix gaps 2.8e-7 to 3.92e-4 (a shard starts from the previous
+# shard's end, which the two devices reach after different iteration
+# counts at the tol edge: 47 against 37 on shard 2), end gaps at most
+# 3.07e-5; held-out agreement with the batch fit 0.9949
+PF_SHARDS = 8
+PF_AGREE = 0.95
+PF_PREFIX_TOL, PF_END_TOL = 1e-3, 1e-4
 
 
 def log(*a):
@@ -3801,7 +3859,7 @@ def serve_here(model_dir: str, watch: str, out: str, ckpt: str, dev,
     with contextlib.redirect_stdout(buf):
         rc = serve_main(argv + ["--once", *extra])
     if rc != 0:
-        raise SystemExit(f"phase 13: serve {extra} exited {rc}")
+        raise SystemExit(f"serve {extra} exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
@@ -4278,6 +4336,511 @@ def report_phase13(p13: dict, card: str) -> None:
                  for k, v in p13["shed"].items() if k != "unshed"}}))
 
 
+# -- phase 14: the model lifecycle -------------------------------------------
+
+
+def lc_streams(work: str) -> dict:
+    """(a)'s drifting stream, written once with ``write_drift_stream``,
+    and its gaussian NB incumbent fitted on the cleaned first LC_SHIFT
+    batches on the card (the label indexer comes off for serving: the
+    lifecycle reads the stream's ``Label`` through the promoter)."""
+    from sntc_tpu_torch.data import generate_drift_frames, write_drift_stream
+
+    t0 = time.perf_counter()
+    frames = generate_drift_frames(LC_BATCHES, rows_per_batch=LC_ROWS,
+                                   shift_at=LC_SHIFT, seed=LC_SEED,
+                                   n_classes=LC_CLASSES)
+    in_dir = os.path.join(work, "in14_drift")
+    write_drift_stream(in_dir, LC_BATCHES, frames=frames)
+    return {"frames": frames, "in": in_dir,
+            "seconds": time.perf_counter() - t0}
+
+
+def arc_model(dev, frames: list):
+    train = clean_flows(Frame.concat_all(frames[:LC_SHIFT]))
+    feat_cols = [c for c in train.columns if c != "Label"]
+    fitted = Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label"),
+        VectorAssembler(inputCols=feat_cols, outputCol="features"),
+        NaiveBayes(device=dev, modelType="gaussian"),
+    ]).fit(train)
+    return (PipelineModel(stages=fitted.getStages()[1:]),
+            fitted.getStages()[0].labels)
+
+
+def promotion_journal(ckpt: str) -> list:
+    path = os.path.join(ckpt, "promotion.jsonl")
+    return [json.loads(x) for x in open(path)] if os.path.exists(path) \
+        else []
+
+
+def arc_run(dev, streams: dict, serving, labels, work: str,
+            shape_buckets: int) -> dict:
+    """One run of bench config 7's arc in this process, as
+    ``bench.py:894-1060`` drives it: the drift monitor, the promoter and
+    the manager on the command's engine, refitting armed by the first
+    ``drift_detected``; every launch count set to 0 just before the
+    engine runs and read just after."""
+    import pyarrow.csv as pacsv
+
+    from sntc_tpu_torch.lifecycle import (
+        DriftMonitor,
+        LifecycleManager,
+        ModelPromoter,
+        macro_f1,
+    )
+    from sntc_tpu_torch.resilience import (
+        add_event_observer,
+        remove_event_observer,
+    )
+    from sntc_tpu_torch.serve import FileStreamSource, StreamingQuery
+
+    tag = f"14_arc{shape_buckets}"
+    serving_path = os.path.join(work, f"model{tag}")
+    ckpt, out_dir = (os.path.join(work, f"ckpt{tag}"),
+                     os.path.join(work, f"out{tag}"))
+    save_model(serving, serving_path)
+    serving = load_model(serving_path, device=dev)
+    drift = DriftMonitor(window=LC_DRIFT_WINDOW,
+                         threshold=LC_DRIFT_THRESHOLD).attach()
+    promoter = ModelPromoter(
+        serving, incumbent_raw=serving, serving_path=serving_path,
+        checkpoint_dir=ckpt, window=LC_SHADOW_WINDOW, margin=LC_MARGIN,
+        label_col="Label", labels=labels, probation_batches=LC_PROBATION,
+        bucket_rows=shape_buckets, device=dev)
+    mgr = LifecycleManager(drift=drift, promoter=promoter,
+                           n_classes=LC_CLASSES, device=dev)
+    drift_event = {}
+
+    def arm_refit(rec):
+        if rec.get("event") == "drift_detected" and not drift_event:
+            drift_event.update(rec)
+            mgr.partial_fit = True
+
+    add_event_observer(arm_refit)
+    q = StreamingQuery(serving, FileStreamSource(streams["in"]),
+                       CsvDirSink(out_dir, columns=["prediction"],
+                                  durable=False),
+                       ckpt, max_batch_offsets=1, shape_buckets=shape_buckets,
+                       overlap_sink=False, device=dev, lifecycle=mgr)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        n_done = q.process_available()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+        stats = q.pipeline_stats()
+    finally:
+        remove_event_observer(arm_refit)
+        drift.detach()
+        q.stop()
+    index = {str(v): i for i, v in enumerate(labels)}
+    f1 = []
+    for i, f in enumerate(streams["frames"]):
+        t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+        y = np.asarray([index.get(str(v), -1) for v in f["Label"]],
+                       np.int64)
+        known = y >= 0
+        f1.append(round(macro_f1(
+            y[known], t.column("prediction").to_numpy()[known]), 4))
+    journal = promotion_journal(ckpt)
+    lc = stats["lifecycle"]
+    detected = drift_event.get("batch_id")
+    return {
+        "shape_buckets": shape_buckets, "batches": n_done,
+        "seconds": seconds,
+        "batches_stalled": LC_BATCHES - stats["delivered_batches"],
+        "drift_detected_batch": detected,
+        "detection_latency_batches": (None if detected is None
+                                      else detected - LC_SHIFT),
+        "drift_divergence": drift_event.get("divergence"),
+        "promoted_at_batch": next((r["batch_id"] for r in journal
+                                   if r.get("decision") == "promote"), None),
+        "shadow_scores": sum(r["action"] == "shadow_score"
+                             for r in journal),
+        "partial_fit_batches": lc["partial_fit_batches"],
+        "promotions": lc["promoter"]["promotions"],
+        "rollbacks": lc["promoter"]["rollbacks"],
+        "models_swapped": lc["models_swapped"],
+        "generation": lc["promoter"]["generation"],
+        "f1_pre_shift": round(float(np.mean(f1[:LC_SHIFT])), 4),
+        "f1_post_shift_degraded": f1[LC_SHIFT],
+        "f1_recovered": round(float(np.mean(f1[-2:])), 4),
+        "f1_by_batch": f1,
+        "padded_rows": stats["padded_rows_total"],
+        "launches": launches, "pad_launch_shapes": shapes,
+        "files": sink_files(out_dir),
+    }
+
+
+def check_arc(run: dict) -> None:
+    """Bench config 7's contract on one run, and its launches: each
+    padded dispatch (every batch's, every shadow score's with buckets)
+    one ``pad_assemble`` launch at its block."""
+    tag = f"phase 14 (a) shape_buckets={run['shape_buckets']}"
+    bad = [k for k, ref in LC_F1_REF.items()
+           if abs(run[k] - ref) > LC_F1_ATOL]
+    if run["batches"] != LC_BATCHES or run["batches_stalled"] \
+            or run["rollbacks"] or not 1 <= run["promotions"] <= 2 \
+            or run["detection_latency_batches"] not in (1, 2) or bad:
+        raise SystemExit(f"{tag}: {dict(run, files=len(run['files']))}")
+    padded = bucket_rows_for(LC_ROWS, run["shape_buckets"] or 0)
+    want_pads = 0 if padded == LC_ROWS else LC_BATCHES + run["shadow_scores"]
+    want = {"forest_traversal": 0, "tree_hist": 0, "pad_assemble": want_pads}
+    if run["launches"] != want or sum(run["pad_launch_shapes"].values()) \
+            != want_pads or run["padded_rows"] != LC_BATCHES * (
+                padded - LC_ROWS):
+        raise SystemExit(f"{tag}: launches {run['launches']} at "
+                         f"{run['pad_launch_shapes']}, expected {want}")
+
+
+def swap_streams(work: str) -> dict:
+    """(b)'s inputs: SWAP_FILES labelled, cleaned files of SWAP_FILE_ROWS
+    rows (every class present), the first SWAP_FIRST of them in the watch
+    directory of the promotion run, all of them in the kill run's."""
+    t0 = time.perf_counter()
+    n = SWAP_FILES * SWAP_FILE_ROWS
+    traffic = clean_flows(generate_frame(n + n // 50, seed=SEED + 16,
+                                         min_class_fraction=0.005))
+    dirs = {k: os.path.join(work, f"in14_{k}") for k in ("all", "first")}
+    for d in dirs.values():
+        os.makedirs(d)
+    jobs = [(traffic.slice(i * SWAP_FILE_ROWS, (i + 1) * SWAP_FILE_ROWS),
+             os.path.join(dirs["all"], f"part_{i:04d}.csv"))
+            for i in range(SWAP_FILES)]
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda job: write_raw_csv(*job), jobs))
+    for i in range(SWAP_FIRST):
+        name = f"part_{i:04d}.csv"
+        os.link(os.path.join(dirs["all"], name),
+                os.path.join(dirs["first"], name))
+    return {"dirs": dirs, "traffic": traffic.slice(0, n),
+            "seconds": time.perf_counter() - t0}
+
+
+def swap_models(dev, work: str) -> dict:
+    """(b)'s two config-3 fits, made here on the card from
+    SWAP_TRAIN_ROWS labelled rows: one fitted prefix (the label indexer,
+    the 78 features, a ChiSq top-40 select) and two forests of 20 trees
+    of depth 10 behind it, the incumbent fitted to the rows' labels
+    permuted, the candidate to the labels themselves.  The gate promotes
+    the candidate: the incumbent's leaves carry no signal (its macro-F1
+    stays near the share of the benign class's F1 among 15 classes), the
+    candidate reads the class signatures the select keeps, a lead far
+    beyond the 0.05 margin; and both heads read the one prefix's
+    columns, so the candidate grafts onto the incumbent's prefix."""
+    t0 = time.perf_counter()
+    rows = clean_flows(generate_frame(SWAP_TRAIN_ROWS, seed=SEED + 17,
+                                      min_class_fraction=0.005))
+    prefix = Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="skip"),
+        ChiSqSelector(device=dev, numTopFeatures=TOP, maxBins=BINS,
+                      featuresCol="rawFeatures", labelCol="label",
+                      outputCol="features"),
+    ]).fit(rows)
+    feats = prefix.transform(rows)
+    permuted = feats.with_column("label", np.random.default_rng(
+        SEED + 18).permutation(to_host(feats["label"])))
+    paths = {}
+    for name, frame in (("incumbent", permuted), ("candidate", feats)):
+        rf = RandomForestClassifier(device=dev, numTrees=TREES,
+                                    maxDepth=DEPTH, maxBins=BINS,
+                                    seed=SEED).fit(frame)
+        paths[name] = os.path.join(work, f"{name}14")
+        save_model(PipelineModel(stages=prefix.getStages() + [rf]),
+                   paths[name])
+    paths["seconds"] = time.perf_counter() - t0
+    return paths
+
+
+def swap_serve(dev, work: str, streams: dict, models: dict) -> dict:
+    """(b): ``serve --drift-window 3 --promote-from <candidate>
+    --shadow-window 4 --shape-buckets 256 --pipeline-depth 1`` on a copy
+    of the incumbent over the first SWAP_FIRST files (the head unfused:
+    ``forest_traversal`` walks it as a plain stage, for the incumbent and
+    the shadow); the candidate alone over all files; a restart over all
+    files with the drift monitor alone; then the same serve killed at
+    ``model.swap`` (published, not swapped), ``fsck`` and the restart.
+    Depth 1 keeps the batch after the promoting one on the promoted
+    model in both runs, so the two are comparable file for file."""
+    import shutil
+
+    dirs, cand = streams["dirs"], models["candidate"]
+    model14 = os.path.join(work, "model14")
+    shutil.copytree(models["incumbent"], model14)
+    out, ckpt = os.path.join(work, "out14"), os.path.join(work, "ckpt14")
+    promo = serve_here(model14, dirs["first"], out, ckpt, dev, 1,
+                       SWAP_FLAGS + ["--promote-from", cand])
+    journal = promotion_journal(ckpt)
+    marker = json.load(open(os.path.join(ckpt, "model_marker.json")))
+    at = next((r["batch_id"] for r in journal
+               if r.get("decision") == "promote"), None)
+    shadow = sum(r["action"] == "shadow_score" for r in journal)
+    lc = promo["pipeline_stats"]["lifecycle"]
+    want = {"forest_traversal": SWAP_FIRST + shadow, "tree_hist": 0,
+            "pad_assemble": SWAP_FIRST + shadow}
+    if at is None or marker["generation"] != 1 \
+            or marker["action"] != "promoted" or lc["models_swapped"] != 1 \
+            or promo["kernel_launches"] != want or promo["fusion"] is None:
+        raise SystemExit(f"phase 14 (b): promoted at {at}, marker {marker}, "
+                         f"lifecycle {lc}, launches "
+                         f"{promo['kernel_launches']} (expected {want}), "
+                         f"fusion {promo['fusion']}")
+    alone_out = os.path.join(work, "out14_alone")
+    alone = serve_here(cand, dirs["all"], alone_out, alone_out + "_ckpt",
+                       dev, 1, ["--pipeline-depth", "1"])
+    ref = sink_files(alone_out)
+    # the restart: the rest of the stream, the promoted model from disk
+    for i in range(SWAP_FIRST, SWAP_FILES):
+        name = f"part_{i:04d}.csv"
+        os.link(os.path.join(dirs["all"], name),
+                os.path.join(dirs["first"], name))
+    restart = serve_here(model14, dirs["first"], out, ckpt, dev, 1,
+                         SWAP_FLAGS)
+    files = sink_files(out)
+    after = [f"batch_{i:06d}.csv" for i in range(at + 1, SWAP_FILES)]
+    if len(files) != SWAP_FILES or restart["batches"] != \
+            SWAP_FILES - SWAP_FIRST or any(files[f] != ref[f] for f in after) \
+            or files["batch_000000.csv"] == ref["batch_000000.csv"]:
+        raise SystemExit(f"phase 14 (b): {len(files)} files; the batches "
+                         "after the swap equal the candidate's alone "
+                         f"{all(files[f] == ref[f] for f in after)}")
+    # the kill at model.swap's first call: published, not swapped
+    model14k = os.path.join(work, "model14k")
+    shutil.copytree(models["incumbent"], model14k)
+    out_k, ckpt_k = os.path.join(work, "out14k"), os.path.join(work,
+                                                                "ckpt14k")
+    killed = subprocess.run(
+        serve_args(model14k, dirs["all"], out_k, ckpt_k, dev, 1)
+        + ["--once", *SWAP_FLAGS, "--promote-from", cand], cwd=REPO,
+        capture_output=True, text=True, timeout=600,
+        env=env_with(SNTC_FAULTS="model.swap:kill"))
+    committed = len(os.listdir(os.path.join(ckpt_k, "commits")))
+    if killed.returncode != 137 or committed != at + 1:
+        raise SystemExit(f"phase 14 (b) kill: exit {killed.returncode}, "
+                         f"{committed} commits:\n{killed.stderr[-2000:]}")
+    doctor = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt_k], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    marker_k = json.load(open(os.path.join(ckpt_k, "model_marker.json")))
+    recovered = serve_command(model14k, dirs["all"], out_k, ckpt_k, dev,
+                              SWAP_FLAGS)
+    commits = sorted(os.listdir(os.path.join(ckpt_k, "commits")))
+    if doctor.returncode != 0 or marker_k["generation"] != 1 \
+            or recovered["batches"] != SWAP_FILES - committed \
+            or commits != [f"{i}.json" for i in range(SWAP_FILES)] \
+            or sink_files(out_k) != files:
+        raise SystemExit(f"phase 14 (b) restart after the kill: fsck exit "
+                         f"{doctor.returncode}, marker {marker_k}, "
+                         f"{recovered['batches']} batches, commits "
+                         f"{commits}, files identical to the uninterrupted "
+                         f"run's {sink_files(out_k) == files}")
+    return {"promoted_at": at, "shadow_scores": shadow, "marker": marker,
+            "journal_actions": [r["action"] for r in journal],
+            "summary": promo, "alone": alone, "restart": restart,
+            "killed_after_commits": committed,
+            "recovered_batches": recovered["batches"],
+            "fsck": json.loads(doctor.stdout)["ok"]}
+
+
+def swap_forest_at(dev, streams: dict, cand: str, launches: int) -> dict:
+    """``forest_traversal`` at (b)'s unfused walk: the candidate forest
+    over a padded batch's selected columns ([8 192, 40] f32), bitwise
+    against its plain version, timed beside its bound."""
+    stages = load_model(cand, device=dev).getStages()
+    rf, selected = stages[-1], stages[2].selected_features
+    batch = streams["traffic"].slice(0, SWAP_FILE_ROWS)
+    target = bucket_rows_for(SWAP_FILE_ROWS, BUCKET_FLOOR)
+    X = np.stack([batch[CICIDS2017_FEATURES[j]] for j in selected], axis=1)
+    X = X[np.minimum(np.arange(target), SWAP_FILE_ROWS - 1)]
+    args = [rf._features_on_device(X), *rf._device_forest()]
+    depth = rf.getMaxDepth()
+    out = forest_leaf_stats_cuda(*args, max_depth=depth)
+    ref = forest_leaf_stats_reference(*args, max_depth=depth)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise SystemExit("phase 14 forest_traversal: differs from its "
+                         "plain version")
+    nbytes, ops = forest_work(*args, depth=depth)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / FP32_OPS_PER_S * 1e3
+    T, M = args[1].shape
+    return {
+        "name": "forest_traversal", "route": "cuda",
+        "source": "sntc_tpu_torch/kernels/csrc/forest_traversal.cu",
+        "replaces": "sntc_tpu/kernels/forest.py:92",
+        "launches": launches,
+        "max_abs_err": (out - ref).abs().max().item(),
+        "ms": time_ms(lambda: forest_leaf_stats_cuda(*args,
+                                                     max_depth=depth)),
+        "device_ms": kernel_device_ms(
+            lambda: forest_leaf_stats_cuda(*args, max_depth=depth)),
+        "plain_ms": time_ms(lambda: forest_leaf_stats_reference(
+            *args, max_depth=depth)),
+        "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": None,  # no single PyTorch call walks a tree
+        "shape": f"phase 14 unfused config-3 head (incumbent, shadow, "
+                 f"candidate): X [{target}, {TOP}] f32, T={T}, M={M}, "
+                 f"S={args[3].shape[2]}; needs {nbytes} B, {ops} "
+                 "comparisons",
+    }
+
+
+def pads_of(dev, shapes: dict) -> list:
+    """Each ``pad_assemble`` shape of a phase-14 run, measured in the
+    layout its dispatch launched: the engine's batch column-major (the
+    CSV's float64 columns), the shadow's head input row-major (the
+    prefix's 2-D output column)."""
+    out = []
+    for key in sorted(shapes):
+        n, c = (int(v) for v in key.split("]")[0][1:].split(", "))
+        dtype = torch.float64 if " f64 " in key else torch.float32
+        target = int(key.split("-> ")[1])
+        out.append(measure_pad_at(dev, n, shapes, dtype, target, columns=c,
+                                  row_major=dtype == torch.float32))
+    return out
+
+
+def lifecycle(dev, work: str) -> dict:
+    """Phase 14 (a) and (b): the model lifecycle on the card (see the
+    module docs)."""
+    t0 = time.perf_counter()
+    streams = lc_streams(work)
+    serving, labels = arc_model(dev, streams["frames"])
+    arcs = [arc_run(dev, streams, serving, labels, work, b)
+            for b in (0, BUCKET_FLOOR)]
+    for run in arcs:
+        check_arc(run)
+    if arcs[0]["files"] != arcs[1]["files"]:
+        raise SystemExit("phase 14 (a): the batch files differ between "
+                         "shape_buckets 0 and 256")
+    swap_in = swap_streams(work)
+    models = swap_models(dev, work)
+    swap = swap_serve(dev, work, swap_in, models)
+    kernels = pads_of(dev, arcs[1]["pad_launch_shapes"])
+    kernels += pads_of(dev, swap["summary"]["pad_launch_shapes"])
+    kernels.append(swap_forest_at(
+        dev, swap_in, models["candidate"],
+        swap["summary"]["kernel_launches"]["forest_traversal"]))
+    for run in arcs:
+        del run["files"]
+    return {"arcs": arcs, "swap": swap, "kernels": kernels,
+            "models_fit_s": models["seconds"],
+            "seconds": time.perf_counter() - t0}
+
+
+def lr_partial_fit(dev, data: dict) -> dict:
+    """(c): LogisticRegression.partial_fit (config 1: regParam 1e-4, 100
+    iterations) over config 1's scaled train rows in PF_SHARDS shards, on
+    the card and on the CPU, and the batch fit on the card: held-out
+    predictions of the last partial model against the batch fit's, and
+    each shard's history on the card against the CPU's."""
+    train, test = scaled_features(dev, data)
+    per = train.num_rows // PF_SHARDS
+    shards = [train.slice(i * per, (i + 1) * per) for i in range(PF_SHARDS)]
+
+    def run(device):
+        est = LogisticRegression(device=device, regParam=LR_REG,
+                                 maxIter=LBFGS_ITERS)
+        state, fits = None, []
+        for s in shards:
+            m, state = est.partial_fit(s, state)
+            fits.append(m)
+        return fits
+
+    card, card_s = timed(lambda: run(dev))
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    batch, batch_s = timed(lambda: LogisticRegression(
+        device=dev, regParam=LR_REG, maxIter=LBFGS_ITERS).fit(train))
+    pred = {k: to_host(m.transform(test)["prediction"])
+            for k, m in (("partial", card[-1]), ("batch", batch))}
+    agree = float(np.mean(pred["partial"] == pred["batch"]))
+    gaps = [fit_gaps(a, b) for a, b in zip(card, cpu)]
+    out = {"rows": train.num_rows, "shards": PF_SHARDS, "agreement": agree,
+           "gaps": gaps, "card_s": card_s, "cpu_s": cpu_s,
+           "batch_fit_s": batch_s}
+    if agree < PF_AGREE or any(g["prefix_gap"] > PF_PREFIX_TOL
+                               or g["end_gap"] > PF_END_TOL for g in gaps):
+        raise SystemExit(f"phase 14 (c): {out}")
+    return out
+
+
+def report_phase14(p14: dict, card: str) -> None:
+    """Phase 14's lines: each arc, (b)'s promotion, kill and restart, (c),
+    each kernel shape, one JSON line."""
+    for run in p14["arcs"]:
+        log(f"phase 14 (a) bench config 7 arc, shape_buckets "
+            f"{run['shape_buckets']}: drift at batch "
+            f"{run['drift_detected_batch']} (latency "
+            f"{run['detection_latency_batches']}, divergence "
+            f"{run['drift_divergence']}), promoted at batch "
+            f"{run['promoted_at_batch']}, {run['promotions']} promotions, "
+            f"{run['rollbacks']} rollbacks, {run['batches_stalled']} "
+            f"stalled; macro-F1 {run['f1_pre_shift']} / "
+            f"{run['f1_post_shift_degraded']} / {run['f1_recovered']} "
+            f"(JAX on the CPU {LC_F1_REF['f1_pre_shift']} / "
+            f"{LC_F1_REF['f1_post_shift_degraded']} / "
+            f"{LC_F1_REF['f1_recovered']}); by batch {run['f1_by_batch']}; "
+            f"{run['batches']} batches of {LC_ROWS} rows in "
+            f"{run['seconds']:.3f} s; launches {run['launches']} at "
+            f"{run['pad_launch_shapes']} [{card}]")
+    sw = p14["swap"]
+    log(f"phase 14 (b) serve --promote-from on config 3: promoted at batch "
+        f"{sw['promoted_at']} after {sw['shadow_scores']} shadow scores, "
+        f"marker {sw['marker']['generation']} {sw['marker']['action']}, "
+        f"journal {sw['journal_actions']}; launches "
+        f"{sw['summary']['kernel_launches']} at "
+        f"{sw['summary']['pad_launch_shapes']}; {sw['summary']['rows']} rows "
+        f"in {sw['summary']['seconds']:.3f} s of serving; the restart "
+        f"served {sw['restart']['batches']} batches of the promoted model; "
+        f"killed at model.swap after {sw['killed_after_commits']} commits, "
+        f"fsck ok {sw['fsck']}, the restart committed "
+        f"{sw['recovered_batches']} batches, files byte-identical "
+        f"[{card}]")
+    if "lr" in p14:
+        lr = p14["lr"]
+        prefix = ", ".join(f"{g['prefix_gap']:.2e}" for g in lr["gaps"])
+        end = ", ".join(f"{g['end_gap']:.2e}" for g in lr["gaps"])
+        log(f"phase 14 (c) LR partial_fit over {lr['rows']} config-1 rows in "
+            f"{lr['shards']} shards: held-out agreement with the batch fit "
+            f"{lr['agreement']:.4f}; card against CPU by shard: prefix gaps "
+            f"[{prefix}], end gaps [{end}], iterations "
+            f"{[g['iterations'] for g in lr['gaps']]}; card "
+            f"{lr['card_s']:.3f} s, CPU {lr['cpu_s']:.3f} s, batch fit "
+            f"{lr['batch_fit_s']:.3f} s [{card}]")
+    for k in p14["kernels"]:
+        lib = ("" if k["library_ms"] is None else
+               f"; {k['library_call']} {k['library_ms']:.4f} ms a call")
+        log(f"phase 14 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms{lib}; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches at this shape in "
+            f"its run, max abs error {k['max_abs_err']} [{card}]")
+    log("phase 14 " + json.dumps({
+        "phase": 14, "card": card, "seconds": round(p14["seconds"], 3),
+        "arcs": [{k: r[k] for k in (
+            "shape_buckets", "drift_detected_batch", "promoted_at_batch",
+            "promotions", "rollbacks", "batches_stalled", "f1_pre_shift",
+            "f1_post_shift_degraded", "f1_recovered", "launches")}
+            for r in p14["arcs"]],
+        "swap": {k: p14["swap"][k] for k in (
+            "promoted_at", "shadow_scores", "killed_after_commits",
+            "recovered_batches")},
+        "lr": ({k: p14["lr"][k] for k in ("agreement",)}
+               | {"max_prefix_gap": max(g["prefix_gap"]
+                                        for g in p14["lr"]["gaps"]),
+                  "max_end_gap": max(g["end_gap"]
+                                     for g in p14["lr"]["gaps"])}
+               if "lr" in p14 else None)}))
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -4537,7 +5100,8 @@ def measure_forest(dev, served: dict, err: float, launches: int) -> list:
 
 
 def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
-                   target: int | None = None) -> dict:
+                   target: int | None = None, columns: int | None = None,
+                   row_major: bool = False) -> dict:
     """``pad_assemble`` of an ``[n, 78]`` block to its bucket (or to
     ``target``), in the layout the serve path launches (column-major: the
     transpose of a contiguous ``[78, n]`` block): bitwise against its
@@ -4547,14 +5111,17 @@ def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
     that computes the same function on the same view (``index_select``
     of the rows; at a zero-row pad ``contiguous()``).  ``launches`` is
     what ``shapes`` (a serve run's ``pad_launch_shapes``) counted at this
-    block and target; none there fails the phase."""
+    block and target; none there fails the phase.  ``columns`` (default
+    the 78 features) and ``row_major`` (a contiguous ``[n, C]`` block, as
+    a 2-D column is padded) cover the lifecycle's shadow dispatch."""
     target = bucket_rows_for(n, BUCKET_FLOOR) if target is None else target
-    c = len(CICIDS2017_FEATURES)
+    c = len(CICIDS2017_FEATURES) if columns is None else columns
     key = pad_launch_shape(n, c, dtype, target)
     if shapes.get(key, 0) < 1:
         raise SystemExit(f"pad_assemble {key}: not launched in its run, "
                          f"which padded {shapes}")
-    a = torch.randn((c, n), dtype=dtype, device=dev).t()
+    a = (torch.randn((n, c), dtype=dtype, device=dev) if row_major
+         else torch.randn((c, n), dtype=dtype, device=dev).t())
     out, ref = pad_rows_cuda(a, target), pad_rows_reference(a, target)
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
@@ -4581,7 +5148,8 @@ def measure_pad_at(dev, n: int, shapes: dict, dtype=torch.float64,
         "library_ms": time_ms(library),
         "library_device_ms": kernel_device_ms(library),
         "library_call": library_name,
-        "shape": f"{key}, column-major; needs {p_bytes} B",
+        "shape": f"{key}, {'row' if row_major else 'column'}-major; "
+                 f"needs {p_bytes} B",
     }
 
 
@@ -4625,6 +5193,7 @@ def main() -> int:
         failures = failure_paths(dev, work)
         phase12 = data_plane(dev, work)
         phase13 = self_tuning(dev, work)
+        phase14 = lifecycle(dev, work)
         stages = breakdown(dev, work)
         trained = train(dev, data, work)
         data4 = gbt_data(work)
@@ -4678,9 +5247,11 @@ def main() -> int:
     kernels += new9
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
         phase10 = lane_fits(dev, data2, data1, work)
+    phase14["lr"] = lr_partial_fit(dev, data1)
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
+    kernels += phase14["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -4860,6 +5431,7 @@ def main() -> int:
         "permissive_launches": p12["permissive"]["kernel_launches"],
         **phase12["storage"]}))
     report_phase13(phase13, card)
+    report_phase14(phase14, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -4885,7 +5457,8 @@ def main() -> int:
                                   "regressors": regs["fits"],
                                   "kernels": new9},
                        "phase10": phase10, "phase11": failures,
-                       "phase12": phase12, "phase13": phase13}, f,
+                       "phase12": phase12, "phase13": phase13,
+                       "phase14": phase14}, f,
                       indent=1, default=str)
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()

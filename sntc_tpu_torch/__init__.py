@@ -37,6 +37,8 @@ regressors:
                LBFGS and boosting-round checkpoints
   serve/       BatchPredictor (shape buckets), file-source streaming with
                an exactly-once offset log
+  lifecycle/   drift monitor, NB/LR partial_fit states, shadow promotion
+               and the between-batches hot swap
   app.py       ``python -m sntc_tpu_torch train``, ``evaluate`` and
                ``serve``
 

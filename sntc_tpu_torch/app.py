@@ -19,7 +19,10 @@
         [--autotune|--no-autotune] [--max-pending-batches N] \\
         [--shed-policy oldest|sample] [--slo-p99-ms MS] \\
         [--slo-min-rows-per-sec R] [--slo-max-shed-rate F] \\
-        [--controller|--no-controller] [--once] [--device cuda|cpu]
+        [--controller|--no-controller] [--partial-fit] \\
+        [--drift-window N] [--drift-threshold 0.25] [--promote-from DIR] \\
+        [--shadow-window 8] [--promote-margin 0.05] [--once] \\
+        [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
     python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
@@ -92,6 +95,15 @@ steers the depth, the bucket floor, the shed cap and, through a tuner
 of its own, the source's pools, journaling to
 ``<checkpoint>/controller.jsonl``; with it armed ``--autotune`` builds
 no second tuner (one owner a knob).
+The model lifecycle: ``--drift-window N`` arms the drift monitor
+(``drift_detected``, the model DEGRADED); ``--promote-from DIR`` shadows
+a candidate checkpoint and promotes it when its macro-F1 leads by
+``--promote-margin`` over ``--shadow-window`` labelled batches (published
+over ``--model`` with the incumbent kept at ``.prev``,
+``<checkpoint>/model_marker.json`` and ``promotion.jsonl``, swapped in
+between batches); ``--partial-fit`` refits a candidate head (LR / NB)
+from the live labelled batches.  Only the two that can swap keep the
+head out of the fused segments; drift alone keeps full fusion.
 
 ``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
 root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
@@ -144,10 +156,12 @@ def strip_label_indexer(model, label_index_col: str):
     return stages, labels
 
 
-def serving_form(model, label_index_col: str = "label", fuse: bool = False):
+def serving_form(model, label_index_col: str = "label", fuse: bool = False,
+                 fuse_heads: bool = True):
     """One loaded checkpoint → its servable form: ``(model, labels,
     out_cols)``; with ``fuse``, compiled through the whole-pipeline
-    fusion compiler."""
+    fusion compiler (``fuse_heads=False`` keeps the head a plain stage,
+    swappable by the lifecycle)."""
     from sntc_tpu_torch.core.base import PipelineModel
     from sntc_tpu_torch.feature.string_indexer import IndexToString
     from sntc_tpu_torch.fuse import compile_serving
@@ -165,7 +179,7 @@ def serving_form(model, label_index_col: str = "label", fuse: bool = False):
             out_cols = ["prediction", "predictedLabel"]
         model = PipelineModel(stages=stages + tail)
         if fuse:
-            model = compile_serving(model)
+            model = compile_serving(model, fuse_heads=fuse_heads)
     return model, labels, out_cols
 
 
@@ -358,6 +372,46 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def _arm_lifecycle(args, model, raw_model, labels, device):
+    """The serve command's LifecycleManager, or None when no lifecycle
+    flag is given: ``--drift-window`` arms the drift monitor,
+    ``--promote-from`` shadows a candidate checkpoint, ``--partial-fit``
+    refits one from the live labelled batches (LR / NB heads)."""
+    if not (args.partial_fit or args.drift_window > 0 or args.promote_from):
+        return None
+    from sntc_tpu_torch.lifecycle import (
+        DriftMonitor,
+        LifecycleManager,
+        ModelPromoter,
+        incremental_estimator_for,
+        terminal_head,
+    )
+
+    drift = None
+    if args.drift_window > 0:
+        drift = DriftMonitor(window=args.drift_window,
+                             threshold=args.drift_threshold).attach()
+    promoter = None
+    if args.promote_from or args.partial_fit:
+        promoter = ModelPromoter(
+            model, incumbent_raw=raw_model, serving_path=args.model,
+            checkpoint_dir=args.checkpoint, window=args.shadow_window,
+            margin=args.promote_margin, label_col="Label", labels=labels,
+            bucket_rows=args.shape_buckets, device=device,
+        )
+        if args.partial_fit:
+            try:  # fail fast on a head with no partial_fit
+                incremental_estimator_for(terminal_head(model))
+            except ValueError as e:
+                raise SystemExit(f"--partial-fit: {e}")
+        if args.promote_from:
+            promoter.load_candidate(args.promote_from)
+    return LifecycleManager(
+        drift=drift, promoter=promoter, partial_fit=args.partial_fit,
+        n_classes=len(labels) if labels is not None else None,
+        device=device)
+
+
 def cmd_serve(args) -> int:
     from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
     from sntc_tpu_torch.mlio import load_model
@@ -404,10 +458,16 @@ def cmd_serve(args) -> int:
         from sntc_tpu_torch.kernels._build import library
 
         library()  # build (or load) the kernels before the first batch
-    model, _labels, out_cols = serving_form(
-        load_model(args.model, device=device), args.label_index_col,
-        args.fuse,
+    raw_model = load_model(args.model, device=device)
+    # only a lifecycle that can SWAP models keeps the head out of the
+    # fused segments (a fused head is a constant of its segment); drift
+    # monitoring alone keeps full fusion
+    swap_armed = bool(args.partial_fit or args.promote_from)
+    model, labels, out_cols = serving_form(
+        raw_model, args.label_index_col, args.fuse,
+        fuse_heads=not swap_armed,
     )
+    lifecycle = _arm_lifecycle(args, model, raw_model, labels, device)
     if args.device_faults:
         # CUDA errors are classified and answered on the card: an OOM
         # splits the batch, other kinds re-dispatch it, and a device
@@ -453,6 +513,7 @@ def cmd_serve(args) -> int:
         dead_letter_keep=args.dead_letter_keep,
         schema_contract=contract,
         row_dead_letter_dir=args.row_dead_letter,
+        lifecycle=lifecycle,
     )
     dom = q.predictor.device_domain
     try:
@@ -520,6 +581,8 @@ def cmd_serve(args) -> int:
     finally:
         q.stop()
         source.close()
+        if lifecycle is not None and lifecycle.drift is not None:
+            lifecycle.drift.detach()
 
 
 def cmd_fsck(args) -> int:
@@ -713,6 +776,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="row dead-letter directory (default: "
                    "<checkpoint>/dead_letter_rows): one JSONL per batch "
                    "with file/line/raw text/reason per excised row")
+    p.add_argument("--partial-fit", action="store_true",
+                   help="incrementally refit a candidate head (LR/NB "
+                   "sufficient-statistic partial_fit) from live "
+                   "labeled batches and shadow it for promotion")
+    p.add_argument("--drift-window", type=int, default=0, metavar="N",
+                   help="arm the drift monitor: Jensen-Shannon "
+                   "divergence of the last N committed batches' "
+                   "prediction-mix/score histograms against the first "
+                   "N (drift_detected event + model DEGRADED on "
+                   "breach); 0 = off")
+    p.add_argument("--drift-threshold", type=float, default=0.25,
+                   help="divergence breach level for --drift-window")
+    p.add_argument("--promote-from", default=None, metavar="DIR",
+                   help="candidate model checkpoint to shadow-score on "
+                   "live batches; promoted (atomic publish over "
+                   "--model, incumbent retained at .prev, "
+                   "between-batches hot-swap) when its macro-F1 beats "
+                   "the incumbent over --shadow-window batches")
+    p.add_argument("--shadow-window", type=int, default=8, metavar="N",
+                   help="labeled batches the promotion gate averages "
+                   "macro-F1 over")
+    p.add_argument("--promote-margin", type=float, default=0.05,
+                   help="macro-F1 lead the candidate must hold over "
+                   "the incumbent to promote; with --partial-fit the "
+                   "candidate is a refit of the incumbent, so refit "
+                   "jitter re-promotes every window at margin 0")
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
     p.add_argument("--poll-interval", type=float, default=1.0)

@@ -11,7 +11,12 @@ from sntc_tpu_torch.data.schema import (
     SchemaContract,
     SchemaViolation,
 )
-from sntc_tpu_torch.data.synth import generate_frame, write_raw_csv
+from sntc_tpu_torch.data.synth import (
+    generate_drift_frames,
+    generate_frame,
+    write_drift_stream,
+    write_raw_csv,
+)
 
 __all__ = [
     "ADMISSION_MODES",
@@ -25,8 +30,10 @@ __all__ = [
     "SchemaContract",
     "SchemaViolation",
     "clean_flows",
+    "generate_drift_frames",
     "generate_frame",
     "load_csv",
     "load_csv_dir",
+    "write_drift_stream",
     "write_raw_csv",
 ]

@@ -1,6 +1,7 @@
 """Synthetic CICIDS2017-shaped traffic.
 
-Counterpart of ``generate_frame`` and the raw-CSV writer of
+Counterpart of ``generate_frame``, the raw-CSV writer and the drift
+fixture (``generate_drift_frames``, ``write_drift_stream``) of
 ``sntc_tpu/data/synth.py``: 78 nonneg float flow features, 15 labels with
 benign-heavy priors, injected ``Infinity``/``NaN`` values in ``Flow
 Bytes/s`` / ``Flow Packets/s``, and a per-class lognormal signature over
@@ -151,3 +152,91 @@ def write_raw_csv(frame: Frame, path: str) -> str:
     pacsv.write_csv(table, tmp)
     os.replace(tmp, path)  # storage: unbounded(synthetic dataset output)
     return path
+
+
+def generate_drift_frames(
+    n_batches: int,
+    rows_per_batch: int = 512,
+    shift_at: Optional[int] = None,
+    seed: int = 0,
+    n_classes: int = 8,
+    shift_seed: int = 101,
+    shift_priors: Optional[List[float]] = None,
+) -> List[Frame]:
+    """A two-day CICIDS-style micro-batch stream with a deterministic
+    distribution shift at batch ``shift_at`` (default: halfway), the
+    lifecycle's drift fixture, frame for frame the JAX package's.
+
+    Phase A slices one clean day drawn with the benign-heavy priors and
+    the ``seed`` concept; phase B slices a second day with
+    ``shift_priors`` (default: benign falls to 15 % and the attack mass
+    spreads evenly) AND a concept re-drawn from ``shift_seed``, so both
+    the prediction mix and the class-conditional structure move.  Each
+    phase is one frame sliced into batches, so its concept is fixed
+    across them and the detection latency is a constant."""
+    if shift_at is None:
+        shift_at = n_batches // 2
+    if not 0 < shift_at <= n_batches:
+        raise ValueError("shift_at must lie in (0, n_batches]")
+    if shift_priors is None:
+        shift_priors = [0.15] + [0.85 / (n_classes - 1)] * (n_classes - 1)
+    pre = generate_frame(shift_at * rows_per_batch, seed=seed,
+                         n_classes=n_classes, dirty=False)
+    frames = [pre.slice(i * rows_per_batch, (i + 1) * rows_per_batch)
+              for i in range(shift_at)]
+    n_post = n_batches - shift_at
+    if n_post:
+        post = generate_frame(n_post * rows_per_batch, seed=shift_seed,
+                              n_classes=n_classes, dirty=False,
+                              class_priors=shift_priors)
+        frames.extend(post.slice(i * rows_per_batch,
+                                 (i + 1) * rows_per_batch)
+                      for i in range(n_post))
+    return frames
+
+
+def _write_drift_csv(frame: Frame, path: str) -> str:
+    """One drift-fixture CSV, byte for byte the JAX package's: the raw
+    header, floats as ``repr`` of their float64 value, strings bare.
+    Published by rename, like :func:`write_raw_csv`."""
+    raw_names = ["Fwd Header Length" if c == "Fwd Header Length.1" else c
+                 for c in frame.columns]
+    header = ",".join((" " + c if i % 2 else c)
+                      for i, c in enumerate(raw_names))
+    cells = []
+    for c in frame.columns:
+        a = np.asarray(frame[c])
+        cells.append([str(v) for v in a] if a.dtype == object
+                     else [repr(v) for v in a.astype(np.float64).tolist()])
+    lines = [header] + [",".join(row) for row in zip(*cells)]
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.replace(tmp, path)  # storage: unbounded(synthetic dataset output)
+    return path
+
+
+def write_drift_stream(
+    out_dir: str,
+    n_batches: int,
+    rows_per_batch: int = 512,
+    shift_at: Optional[int] = None,
+    seed: int = 0,
+    n_classes: int = 8,
+    shift_seed: int = 101,
+    shift_priors: Optional[List[float]] = None,
+    frames: Optional[List[Frame]] = None,
+) -> List[str]:
+    """The :func:`generate_drift_frames` fixture as one raw-header CSV a
+    micro-batch (``part_NNNN.csv``), byte-identical to the JAX
+    package's: under a serve ``--watch`` directory each file is one
+    micro-batch.  ``frames`` writes an already generated fixture (the
+    generation arguments are ignored then)."""
+    os.makedirs(out_dir, exist_ok=True)
+    if frames is None:
+        frames = generate_drift_frames(
+            n_batches, rows_per_batch, shift_at=shift_at, seed=seed,
+            n_classes=n_classes, shift_seed=shift_seed,
+            shift_priors=shift_priors)
+    return [_write_drift_csv(f, os.path.join(out_dir, f"part_{i:04d}.csv"))
+            for i, f in enumerate(frames)]

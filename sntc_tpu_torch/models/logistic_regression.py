@@ -33,7 +33,11 @@ sum, inside
 L2-only lanes run as two programs.  ``supports_batched_grid`` and
 ``supports_vectorized_ovr`` give the JAX package's verdicts.
 
-Not ported: ``partial_fit``.
+``partial_fit`` is the JAX package's streaming update: the summarizer
+pass over each mini-batch folds into exactly accumulated moments
+(``lifecycle.incremental.LRPartialFitState``), and one warm-started run
+of the single fit's LBFGS on the mini-batch advances the solution, which
+is kept in the original feature space between calls.
 """
 
 from __future__ import annotations
@@ -816,6 +820,107 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
                                  "evaluations": res.n_evals,
                                  "host_syncs": res.n_syncs}
         return model
+
+
+    def partial_fit(self, frame: Frame, state=None, decay: float = 1.0,
+                    n_classes: int = None):
+        """One incremental update (the MLlib streaming recipe): fold this
+        mini-batch's summarizer moments into ``state`` and advance the
+        solution with a warm-started run of the single fit's LBFGS on
+        it; returns ``(model, state)``.
+
+        The moments and class counts accumulate EXACTLY (``decay`` < 1
+        down-weights the history), so every call standardizes against
+        all data seen.  Each call minimizes the CURRENT shard's objective
+        from the previous solution, so the contract is behavioural:
+        held-out predictions agree with the batch fit on iid shards.  The
+        family and class count are fixed by the first call (pass
+        ``n_classes`` there when the label universe is known); bound
+        constraints and mid-fit checkpointing are refused."""
+        from sntc_tpu_torch.lifecycle.incremental import LRPartialFitState
+
+        if any(self.paramValues().get(p) is not None for p in _BOUND_PARAMS):
+            raise ValueError("partial_fit does not support bound constraints")
+        if self._would_checkpoint():
+            raise ValueError(
+                "partial_fit does not support mid-fit checkpointing")
+        X, y, w = self._extract(frame)
+        n, d = X.shape
+        if state is None:
+            binomial, k = self._resolve_family(y, n)
+            if n_classes is not None:
+                if k > int(n_classes):
+                    raise ValueError(
+                        f"label {int(y.max())} outside the declared "
+                        f"n_classes={int(n_classes)}")
+                k = max(int(n_classes), 2)
+                family = self.getFamily()
+                binomial = k == 2 and family != "multinomial"
+                if family == "binomial" and k > 2:
+                    raise ValueError(
+                        f"binomial family with {k} classes; use multinomial")
+            state = LRPartialFitState(d=d, k=k, binomial=binomial)
+        else:
+            if d != state.d:
+                raise ValueError(
+                    f"partial_fit feature width {d} != state's {state.d}")
+            if n and int(y.max()) >= state.k:
+                raise ValueError(
+                    f"label {int(y.max())} outside the class set fixed at "
+                    f"the first partial_fit call ({state.k} classes)")
+        dev = self.device
+        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        ws = torch.from_numpy(w).to(dev)
+        with full_f32():
+            s1, s2, cnt, cc = _lr_summarize(xs, ys, ws, state.k)
+        state.update(s1, s2, cnt, cc, n_rows=n, decay=decay)
+        std, inv_std, class_counts = self._moments_to_stats(
+            state.s1, state.s2, state.cnt, state.class_counts)
+        prep = {
+            "xs": xs, "ys": ys, "ws": ws, "n": n, "d": d, "k": state.k,
+            "binomial": state.binomial, "std": std, "inv_std": inv_std,
+            "class_counts": class_counts, "frame": None,
+        }
+        vec = self._grid_vectors(prep)
+        n_coef, n_int = vec["n_coef"], vec["n_int"]
+        theta0 = vec["theta0"]
+        if state.coef_orig is not None:
+            # warm start: the previous ORIGINAL-space solution rescaled
+            # into THIS call's standardization space
+            theta0 = theta0.copy()
+            theta0[:n_coef] = (state.coef_orig * std[:, None]).reshape(
+                -1).astype(np.float32)
+            if n_int:
+                theta0[n_coef:] = state.intercepts
+
+        def on_dev(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        z = on_dev(np.zeros(n_coef + n_int, np.float32))
+        with full_f32():
+            res, _opt_state = _lr_optimize(
+                xs, ys, ws, on_dev(inv_std), on_dev(vec["l2"]),
+                on_dev(vec["pen_l2"]), on_dev(vec["l1_vec"]), on_dev(theta0),
+                None, self.getMaxIter(), z, z,
+                binomial=state.binomial,
+                fit_intercept=self.getFitIntercept(),
+                k=state.k,
+                max_iter=self.getMaxIter(),
+                tol=self.getTol(),
+                use_l1=bool(vec["use_l1"]),
+            )
+        theta = res.x.cpu().numpy().astype(np.float64)
+        state.coef_orig = (theta[:n_coef].reshape(d, state.rows)
+                           * inv_std[:, None])
+        state.intercepts = (theta[n_coef:].astype(np.float32) if n_int
+                            else np.zeros(state.rows, np.float32))
+        model = self._theta_to_model(theta, prep, res.n_iters,
+                                     res.history.cpu().numpy())
+        model.optimizer_stats = {"iterations": int(res.n_iters),
+                                 "evaluations": res.n_evals,
+                                 "host_syncs": res.n_syncs}
+        return model, state
 
 
 def _lr_serve(X, coefT, intercepts, thr, *, binomial, mode):

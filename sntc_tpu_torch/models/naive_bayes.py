@@ -21,15 +21,17 @@ The fit is one pass over the rows on the estimator's device (class
 weights, Σw(x−p) and Σw(x−p)² about a pilot row ``p``, as one-hot
 products in full float32) and, for the gaussian type, a second pass of
 squared deviations about each row's own class mean.  The model is
-finished in float64 on the host.  Serving a discrete type is one f32
+finished in float64 on the host.  ``partial_fit`` runs the first pass
+on each mini-batch and folds it into a host float64 state
+(``lifecycle.incremental.NBPartialFitState``); the gaussian variance then
+comes from the accumulated pilot-shifted moments by the one-pass shift
+identity.  Serving a discrete type is one f32
 product, a shifted softmax and the packed raw | prob | prediction block
 on the model's device.  The gaussian log-likelihood runs in float64 on
 the model's device (f32 sums flip the argmax on flow data), one class at
 a time so that its working set stays ``[N, F]``; the model says it has
 no fusible device program, so the fusion planner leaves it staged, as
 the JAX package's does.
-
-Not ported: ``partial_fit`` (the lifecycle's incremental updates).
 """
 
 from __future__ import annotations
@@ -208,6 +210,70 @@ class NaiveBayes(_NbParams, ClassifierEstimator):
         # raw weighted sums, rebuilt exactly in f64
         s = s_sh + cw[:, None] * p64[None, :]
         return self._discrete_model(cw, s, k, D)
+
+    def partial_fit(self, frame: Frame, state=None, decay: float = 1.0,
+                    n_classes: int = None):
+        """One incremental update: fold this mini-batch's per-(class,
+        feature) moments, taken on the estimator's device, into ``state``
+        and return ``(model, state)``.
+
+        The statistics are additive, so ``partial_fit`` over K shards
+        matches the batch fit on their concatenation up to float32
+        summation order.  The gaussian variance comes from the
+        accumulated pilot-shifted moments by the identity Σw(x−μ)² =
+        Σw(x−p)² − n_c(μ−p)², where the batch fit runs a second pass
+        about the class means.  ``decay`` < 1 down-weights the history.
+        The class count and the width are fixed by the first call (pass
+        ``n_classes`` there when the label universe is known); a later
+        shard with an out-of-range class raises."""
+        from sntc_tpu_torch.lifecycle.incremental import NBPartialFitState
+
+        X, y, w = self._extract(frame)
+        self._validate_features(X, self.getModelType())
+        if state is None:
+            k = max(int(y.max()) + 1 if len(y) else 2, 2)
+            if n_classes is not None:
+                if k > int(n_classes):
+                    raise ValueError(
+                        f"label {int(y.max())} outside the declared "
+                        f"n_classes={int(n_classes)}")
+                k = max(int(n_classes), 2)
+            pilot = (np.asarray(X[0], np.float32) if len(X)
+                     else np.zeros(X.shape[1], np.float32))
+            state = NBPartialFitState(n_classes=k, n_features=X.shape[1],
+                                      pilot=pilot)
+        else:
+            if X.shape[1] != state.n_features:
+                raise ValueError(
+                    f"partial_fit feature width {X.shape[1]} != state's "
+                    f"{state.n_features}")
+            if len(y) and int(y.max()) >= state.n_classes:
+                raise ValueError(
+                    f"label {int(y.max())} outside the class set fixed "
+                    f"at the first partial_fit call ({state.n_classes} "
+                    "classes)")
+        dev = self.device
+        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
+        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        ws = torch.from_numpy(w).to(dev)
+        with full_f32():
+            cw, s_sh, sq_sh = _class_moments(xs, ys, ws, state.pilot,
+                                             state.n_classes)
+        state.update(cw, s_sh, sq_sh, n_rows=len(y), decay=decay)
+        return self._model_from_state(state), state
+
+    def _model_from_state(self, state) -> "NaiveBayesModel":
+        cw, s_sh, sq_sh = state.cw, state.s_sh, state.sq_sh
+        p64 = state.pilot.astype(np.float64)
+        k = state.n_classes
+        if self.getModelType() == "gaussian":
+            mu_sh = s_sh / np.maximum(cw[:, None], 1e-300)
+            mu = p64[None, :] + mu_sh
+            # one-pass shift identity: Σw(x−μ_c)² = Σw(x−p)² − n_c(μ_c−p)²
+            sq_c = np.maximum(sq_sh - cw[:, None] * mu_sh ** 2, 0.0)
+            return self._gaussian_model(cw, mu, sq_c, k)
+        s = s_sh + cw[:, None] * p64[None, :]
+        return self._discrete_model(cw, s, k, state.n_features)
 
 
 class NaiveBayesModel(_NbParams, DeviceHeadMixin, ClassificationModel):

@@ -7,7 +7,9 @@ every event counts into ``sntc_events_total{event, site}``, a
 ``sntc_batches_quarantined_total``, a ``rows_rejected`` event into
 ``sntc_rows_rejected_total{reason}`` and a ``load_shed`` event its
 offsets into ``sntc_shed_offsets_total`` (which the SLO controller
-reads).  The JAX bridge's tenant label waits for tenancy (ROADMAP
+reads), and a ``drift_detected`` event its divergence into the
+``sntc_drift_divergence`` gauge (the drift monitor also sets it on every
+full window).  The JAX bridge's tenant label waits for tenancy (ROADMAP
 queue A), whose events the port does not emit yet.
 
 The observer never raises (``emit_event`` evicts a raising observer);
@@ -19,7 +21,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict
 
-from sntc_tpu_torch.obs.metrics import inc
+from sntc_tpu_torch.obs.metrics import inc, set_gauge
 
 _installed = False
 _install_lock = threading.Lock()
@@ -50,6 +52,10 @@ def _observe(record: Dict[str, Any]) -> None:
                 int(record.get("offsets_shed") or 0))
         elif event == "quarantine":
             inc("sntc_batches_quarantined_total", 1)
+        elif event == "drift_detected" \
+                and record.get("divergence") is not None:
+            set_gauge("sntc_drift_divergence", float(record["divergence"]),
+                      component=str(record.get("component") or "model"))
     except Exception:
         _errors += 1
 

@@ -10,7 +10,8 @@ injections, breaker and health state, device faults and OOM splits, the
 source's prefetch hits and misses, the rows admission rejected, the
 offsets load shedding dropped, the ingest graph's parse counts, stage
 latencies, staging queue and autotuned knobs, the SLO controller's
-windows, decisions, knobs and compliance, and the storage plane's disk
+windows, decisions, knobs and compliance, the drift monitor's
+divergence, and the storage plane's disk
 usage, budget, write errors, degraded episodes, repairs, dead-letter
 drops and WAL compactions.  A write to a name outside
 :data:`CATALOG` raises, as in the JAX package.
@@ -162,6 +163,10 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "sntc_breaker_state": dict(
         type=GAUGE, labels=("site",),
         help="Circuit-breaker state (0=closed, 1=half_open, 2=open).",
+    ),
+    "sntc_drift_divergence": dict(
+        type=GAUGE, labels=("component",),
+        help="Latest Jensen-Shannon divergence the drift monitor saw.",
     ),
     "sntc_device_state": dict(
         type=GAUGE, labels=(),

@@ -19,6 +19,10 @@ Wired sites:
 ``ckpt.save``           ``mlio.save_model`` before the atomic publish
 ``ckpt.load``           ``mlio.load_model`` before manifest verification
 ``cv.fit``              ``CrossValidator`` per-(fold, grid-point) fit
+``model.publish``       ``lifecycle.ModelPromoter`` before the candidate
+                        checkpoint publish
+``model.swap``          ``lifecycle`` promotion: post-publish/pre-swap
+                        (first call) and post-swap (second call)
 ``storage.wal``         physical WAL writes (log lines, files-mode
                         records, the compaction checkpoint): a
                         :func:`fault_disk` site taking the IO kinds
@@ -132,6 +136,8 @@ SITES = (
     "ckpt.save",
     "ckpt.load",
     "cv.fit",
+    "model.publish",
+    "model.swap",
     "storage.wal",
     "storage.journal",
     "storage.dead_letter",

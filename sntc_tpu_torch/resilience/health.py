@@ -66,6 +66,13 @@ _EVENT_STATES: Dict[str, HealthState] = {
     "storage_degraded": HealthState.DEGRADED,
     "storage_recovered": HealthState.OK,
     "disk_budget_exceeded": HealthState.DEGRADED,
+    # the model lifecycle: a drift breach degrades the model, a landed
+    # swap recovers it, a rollback records that the promoted candidate
+    # misbehaved, a failing lifecycle hook degrades (never kills)
+    "drift_detected": HealthState.DEGRADED,
+    "model_swapped": HealthState.OK,
+    "model_rollback": HealthState.DEGRADED,
+    "lifecycle_error": HealthState.DEGRADED,
     # the device fault domain: a device that keeps failing stops the
     # query (no host fallback in the port); the model is UNHEALTHY
     "device_failed": HealthState.UNHEALTHY,

@@ -34,10 +34,9 @@ artifacts wait for their slices of ROADMAP queue A):
 
 The report, the repair journal and the quarantine layout are the JAX
 package's, so either package's ``fsck`` doctors the other's trees as far
-as the artifacts both write (the shed and controller journals among
-them).  The journal only the JAX package writes (model promotion) is
-left to its doctor; a flow-state snapshot's seal is still checked, since that reads
-the blob and nothing of the flow plane.
+as the artifacts both write (the shed, controller and promotion journals
+and ``model_marker.json`` among them); a flow-state snapshot's seal is
+still checked, since that reads the blob and nothing of the flow plane.
 """
 
 from __future__ import annotations
@@ -122,6 +121,12 @@ ARTIFACTS: Dict[str, ArtifactSpec] = {
         ArtifactSpec(
             "controller_journal", "journal", "storage.journal",
             ("controller.jsonl*",),
+            "RotatingJsonlWriter: size-capped segments, keep 2 rotated",
+            DEGRADE,
+        ),
+        ArtifactSpec(
+            "promotion_journal", "journal", "storage.journal",
+            ("promotion.jsonl*",),
             "RotatingJsonlWriter: size-capped segments, keep 2 rotated",
             DEGRADE,
         ),
@@ -840,7 +845,7 @@ def _artifact_for(rel: str) -> str:
 def _fsck_journals(root: str, report: dict, repair: bool,
                    tenant: Optional[str]) -> None:
     patterns = [
-        "shed.jsonl*", "controller.jsonl*",
+        "shed.jsonl*", "controller.jsonl*", "promotion.jsonl*",
         REPAIR_JOURNAL + "*",
         os.path.join("dead_letter", "dead_letter.jsonl*"),
         os.path.join("dead_letter_rows", "*.jsonl"),

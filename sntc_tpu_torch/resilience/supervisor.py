@@ -31,7 +31,8 @@ owns a ``StreamingQuery``'s loop:
 * **Status**: :meth:`status` (and ``--health-json``, rewritten
   atomically each tick) holds health, breakers, the engine's offsets and
   backlog, ``shed_total_offsets``, the controller's ``slo`` and
-  ``controller`` blocks, the device domain's stats and the ``storage`` block (the
+  ``controller`` blocks, the device domain's stats, the lifecycle's
+  (drift, promotion, ``models_swapped``) and the ``storage`` block (the
   engine's ``storage_stats`` and, under ``disk``, the throttled disk
   measurement of the checkpoint root against ``disk_budget_mb``; a
   breach emits ``disk_budget_exceeded``, DEGRADED), under the JAX keys.
@@ -337,6 +338,12 @@ class QuerySupervisor:
         if self.controller is not None:
             out["slo"] = self.controller.slo_status()
             out["controller"] = self.controller.stats()
+        # the model lifecycle's drift, promotion and swap state
+        lc = getattr(q, "lifecycle", None)
+        lc_stats = getattr(lc, "stats", None) if lc is not None else None
+        if lc_stats is not None:
+            out["lifecycle"] = dict(
+                lc_stats(), models_swapped=getattr(q, "models_swapped", 0))
         return out
 
     def write_health_json(self, latest: Optional[int] = None) -> str:

@@ -107,7 +107,17 @@ at a row stride logged in the intent, so a replay reads the same
 sample; each decision is journaled to ``<checkpoint>/shed.jsonl``
 (rotating, policy DEGRADE) with a ``load_shed`` event.
 
-The JAX engine's lifecycle hot swap and tenancy are not ported.
+**Model lifecycle** (``lifecycle``, usually a ``lifecycle.
+LifecycleManager``; the JAX engine's hook): every clean committed batch
+is handed to ``lifecycle.on_batch(batch_id, frame, finalize)`` on the
+engine thread (the frame filtered to the admitted rows, so its labels
+align with the output); each round starts with ``_lifecycle_tick``,
+which runs ``on_tick`` and applies a pending swap through
+:meth:`StreamingQuery.swap_model` between micro-batches, after settling
+any delivery in the air.  A swap whose safe point fails is put back for
+the next round; a hook that raises emits ``lifecycle_error`` and the
+engine goes on.  ``pipeline_stats()["lifecycle"]`` reports it.  The JAX
+engine's tenancy is not ported.
 """
 
 from __future__ import annotations
@@ -557,6 +567,7 @@ class StreamingQuery:
         row_dead_letter_dir: Optional[str] = None,
         overlap_sink: Optional[bool] = None,
         autotuner=None,
+        lifecycle=None,
     ):
         self.predictor = (
             model
@@ -578,6 +589,9 @@ class StreamingQuery:
         # ticked once a round (a failing tuner degrades, never kills)
         self.ingest_meters = engine_meters()
         self.autotuner = autotuner
+        # the model lifecycle's hooks (see the module docs)
+        self.lifecycle = lifecycle
+        self.models_swapped = 0
         self._sample_next: Optional[int] = None  # stride of the next intent
         self._shed_writer = None
         self._delivery = None  # (batch_id, Future) while one is in the air
@@ -1075,8 +1089,8 @@ class StreamingQuery:
         failure rounds, the quarantine at the threshold, the commit.  The
         batch leaves ``_in_flight`` only after its commit, so ids never
         shift.  True when it committed (normally or quarantined)."""
-        (batch_id, intent, _fin, t0, n_rows, timing, frame,
-         _mask) = self._in_flight[0]
+        (batch_id, intent, finalize, t0, n_rows, timing, frame,
+         row_mask) = self._in_flight[0]
         breaker = self.breakers.get("sink.write")
         quarantined = False
         if exc is not None:
@@ -1120,6 +1134,18 @@ class StreamingQuery:
         self._in_flight.pop(0)
         self._quarantined_ids.discard(batch_id)
         self._delivered_batches += 1
+        if not quarantined and self.lifecycle is not None:
+            # the lifecycle observes the committed batch (finalize is
+            # once-only: a cached read); its labels align with the
+            # output on the admitted rows.  A failing hook degrades,
+            # never kills, the loop
+            try:
+                lc_frame = frame if row_mask is None \
+                    else frame.filter(row_mask)
+                self.lifecycle.on_batch(batch_id, lc_frame, finalize)
+            except Exception as e:
+                emit_event(event="lifecycle_error", component="model",
+                           batch_id=batch_id, error=repr(e))
         return True
 
     def _redispatch_head(self) -> None:
@@ -1428,12 +1454,60 @@ class StreamingQuery:
                                    ("repaired", "errors", "cleaned")}
         return out
 
+    # -- model lifecycle (hot swap) ------------------------------------------
+
+    def swap_model(self, model):
+        """Replace the served model BETWEEN micro-batches, keeping the
+        predictor's shape ledger and buckets; returns the replaced
+        model.  A delivery in the air is settled first (commit, deferral
+        or quarantine, under the old model); batches already dispatched
+        finalize against the model they were dispatched with.  Call from
+        the engine thread only."""
+        if self._delivery is not None:
+            self._finish_delivery(wait=True)
+        if self._delivery is not None:  # pragma: no cover - invariant
+            raise RuntimeError(
+                "model swap attempted with a delivery still in air")
+        old = self.predictor.swap_model(model)
+        self.models_swapped += 1
+        return old
+
+    def _lifecycle_tick(self) -> None:
+        """Once a round: the probation check, then any pending swap, at
+        this between-batches safe point.  A failure emits
+        ``lifecycle_error``; a swap taken but not applied is put back for
+        the next round."""
+        lc = self.lifecycle
+        if lc is None:
+            return
+        pending = None
+        try:
+            on_tick = getattr(lc, "on_tick", None)
+            if on_tick is not None:
+                on_tick(self)
+            take = getattr(lc, "take_pending_swap", None)
+            pending = take() if take is not None else None
+            if pending is not None:
+                old = self.swap_model(pending)
+                # the flip landed: a later failure must not re-arm it
+                pending = None
+                applied = getattr(lc, "on_swap_applied", None)
+                if applied is not None:
+                    applied(old)
+        except Exception as e:
+            if pending is not None:
+                rearm = getattr(lc, "rearm_pending_swap", None)
+                if rearm is not None:
+                    rearm(pending)
+            emit_event(event="lifecycle_error", component="model",
+                       error=repr(e))
+
     def pipeline_stats(self) -> dict:
         """Pipelining evidence: overlap and bucket config, delivery-thread
         busy time, the predictor's shape ledger, this engine's transfer
         counters, the source's prefetch stats, the ingest graph's stage
         meters and the autotuner's decisions, the WAL's bounds and the
-        journals, and the device domain's stats."""
+        journals, the device domain's stats and the lifecycle's."""
         stats = {
             "overlap_sink": self.overlap_sink,
             "pipeline_depth": self.pipeline_depth,
@@ -1462,6 +1536,11 @@ class StreamingQuery:
         dom = self._device_domain()
         if dom is not None:
             stats["device"] = dom.stats()
+        if self.lifecycle is not None:
+            lc_stats = getattr(self.lifecycle, "stats", None)
+            stats["lifecycle"] = dict(
+                lc_stats() if lc_stats is not None else {},
+                models_swapped=self.models_swapped)
         return stats
 
     def _run_one_batch(self) -> bool:
@@ -1469,6 +1548,7 @@ class StreamingQuery:
         committed.  Overlap mode pumps the delivery thread before the
         dispatch loop, between dispatches and after it."""
         before = self._last_committed
+        self._lifecycle_tick()
         if self.autotuner is not None:
             # knob changes land between rounds; a tuner's failure
             # degrades, never kills the loop

@@ -47,6 +47,9 @@ predictor's host path and shape poisoning are not ported.  The fault
 sites ``predict.compile`` (a fresh padded shape) and
 ``device.dispatch`` (every dispatch) fire only with a domain.
 
+:meth:`BatchPredictor.swap_model` replaces the served model between
+micro-batches (the lifecycle's hot swap), keeping the shape ledger.
+
 ``predict_frame_async``'s finalize is once-only (a failure is cached
 too), so a sink retry re-reads the batch instead of materializing it
 again; with a domain its first clean return notes a success, which ends
@@ -121,6 +124,22 @@ class BatchPredictor:
             from sntc_tpu_torch.fuse import attach_device_domain
 
             attach_device_domain(model, device_domain)
+
+    def swap_model(self, model: Transformer) -> Transformer:
+        """Hot-swap the wrapped model IN PLACE, keeping the shape ledger
+        and the bucket settings (the lifecycle's hot swap); returns the
+        replaced model.  Dispatches already made finalize against the
+        OLD model (their closures bound it); the engine calls this only
+        between micro-batches.  The device domain, if any, is handed to
+        the new model's fused segments.  The JAX predictor also clears
+        its per-signature poisons here; the port poisons nothing, so
+        there is nothing to clear."""
+        old, self.model = self.model, model
+        if self.device_domain is not None:
+            from sntc_tpu_torch.fuse import attach_device_domain
+
+            attach_device_domain(model, self.device_domain)
+        return old
 
     def _record_shape(self, n_rows: int, padded: int = 0) -> None:
         if n_rows in self._shapes_seen:

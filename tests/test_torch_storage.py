@@ -575,39 +575,73 @@ def test_fsck_repairs_quarantines_and_reports(tmp_path):
 
 
 def test_fsck_leaves_jax_only_journals(tmp_path):
-    """The journal only the JAX package writes (model promotion) is not
-    the port's artifact: its doctor leaves it as it is, the JAX doctor
-    repairs it.  The shed and controller journals, which both packages
-    write, both doctors repair alike."""
+    """No journal under a serve root is the JAX package's alone any more:
+    the model lifecycle's promotion journal is the port's artifact too,
+    so both doctors repair the shed, controller and promotion journals
+    alike and their reports agree on every artifact."""
     root, _ = _make_dirty_root(tmp_path, "jax")
     for name in ("shed.jsonl", "controller.jsonl", "promotion.jsonl"):
         (root / name).write_text('{"ok": 1}\n{"torn')
     trees = _copy_tree(root, ("p", "j"))
     report = PS.fsck(trees["p"], repair=True)
     jreport = JS.fsck(trees["j"], repair=True)
-    assert open(os.path.join(trees["p"], "promotion.jsonl")).read() \
-        == '{"ok": 1}\n{"torn'
-    for name in ("shed.jsonl", "controller.jsonl"):
-        assert open(os.path.join(trees["p"], name)).read() == '{"ok": 1}\n'
     for name in ("shed.jsonl", "controller.jsonl", "promotion.jsonl"):
-        assert open(os.path.join(trees["j"], name)).read() == '{"ok": 1}\n'
-    foreign = {"promotion_journal"}
-    assert not foreign & set(report["checked"])
-    assert foreign <= set(jreport["checked"])
-    assert {"shed_journal", "controller_journal"} <= set(report["checked"])
-    # on every artifact both packages own the two reports agree, but for
-    # the repair journal's count: the JAX doctor's repair of the
-    # promotion journal writes it before it is scanned
-    def owned(r, top):
-        r = _rel(r, top)
-        r["checked"] = {k: v for k, v in r["checked"].items()
-                        if k not in foreign | {"repair_journal"}}
-        for key in ("repaired", "quarantined", "errors"):
-            r[key] = [e for e in r[key] if e.get("artifact") not in foreign]
-        return r
-
-    assert owned(report, trees["p"]) == owned(jreport, trees["j"])
+        for tree in trees.values():
+            assert open(os.path.join(tree, name)).read() == '{"ok": 1}\n'
+    assert {"shed_journal", "controller_journal", "promotion_journal"} \
+        <= set(report["checked"])
+    assert _rel(report, trees["p"]) == _rel(jreport, trees["j"])
     assert report["ok"] and jreport["ok"]
+
+
+@pytest.mark.parametrize("marker", ["sealed", "torn"])
+@pytest.mark.parametrize("doctor", ["fsck", "quick_scan"])
+def test_promotion_journal_and_model_marker_across_packages(
+        tmp_path, marker, doctor):
+    """A serve root after a promotion (``promotion.jsonl`` with a torn
+    tail, ``model_marker.json``), written by either package: each
+    package's ``fsck`` and construction-time scan repairs the journal's
+    tail, and leaves the marker (or quarantines a torn one) as the other
+    package's doctor does."""
+    from sntc_tpu_torch.lifecycle import read_model_marker
+
+    for writer in ("port", "jax"):
+        root = tmp_path / writer / "root"
+        q, _ = _engine(writer, root, _frames(2))
+        assert q.process_available() == 2
+        q.stop()
+        records = [{"action": "shadow_score", "batch_id": 0,
+                    "decision": "hold", "ts": 1.0},
+                   {"action": "promote", "generation": 1, "ts": 2.0}]
+        (root / "promotion.jsonl").write_text(
+            "".join(json.dumps(r) + "\n" for r in records)
+            + '{"action": "probation_pa')
+        text = (json.dumps({"generation": 1, "action": "promoted",
+                            "path": None, "source": None, "ts": 2.0},
+                           indent=1) if marker == "sealed"
+                else '{"generation": 1, "act')
+        (root / "model_marker.json").write_text(text)
+        trees = _copy_tree(root, ("p", "j"))
+        if doctor == "fsck":
+            report = PS.fsck(trees["p"], repair=True)
+            jreport = JS.fsck(trees["j"], repair=True)
+        else:
+            report = PS.quick_scan(trees["p"])
+            jreport = JS.quick_scan(trees["j"])
+        assert _rel(report, trees["p"]) == _rel(jreport, trees["j"])
+        for tree in trees.values():
+            with open(os.path.join(tree, "promotion.jsonl")) as f:
+                assert [json.loads(line) for line in f] == records
+            path = os.path.join(tree, "model_marker.json")
+            if marker == "sealed" or doctor == "quick_scan":
+                # the light scan reads no marker; fsck keeps a sound one
+                assert open(path).read() == text
+                if marker == "sealed":
+                    assert read_model_marker(tree)["generation"] == 1
+            else:
+                assert not os.path.exists(path)
+        assert sorted(os.listdir(trees["p"])) == sorted(
+            os.listdir(trees["j"]))
 
 
 def test_fsck_corrupt_wal_checkpoint_is_unrepairable(tmp_path):
@@ -901,7 +935,6 @@ def test_artifacts_pinned_against_write_sites():
         assert name in named or f'"{name}"' in sources.replace(
             'ArtifactSpec(\n            "' + name, ""), name
     assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == {
-        "promotion_journal",
         "flow_state", "telemetry", "fleet_lease", "fleet_assignments",
         "fleet_assignment_journal", "fleet_migration_manifest",
         "fleet_markers", "fleet_request_journal", "ingress_spool",
