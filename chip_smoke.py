@@ -1,6 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
+                          [--phases 2,3,11,12,13,14,15]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -96,10 +97,10 @@ each of which fails the run (non-zero exit, no result line):
    ``--no-fuse --pipeline-depth 1 --wal-mode append``: phase 3's config-3
    pipeline over 12 CSV files of 30 000 rows, 2 files a batch (six
    batches of 60 000 rows, each padded to 65 536), each form twice in
-   turns.  Every run's batch files byte-identical; each form launches
-   ``pad_assemble`` and ``forest_traversal`` once a batch, moves one
-   upload and one download a batch (its transfer ledger), and the
-   default form binds its one fused segment on every batch; each run's
+   turns (``FORM_RUNS``).  Every run's batch files byte-identical; each
+   form launches ``pad_assemble`` and ``forest_traversal`` once a batch,
+   moves one upload and one download a batch (its transfer ledger), and
+   the default form binds its one fused segment on every batch; each run's
    rows/s without its first batch and its mean read, predict and sink
    ms; and, in this process, the split of one ``pad_assemble`` call on
    the first batch (``scripts/pad_assemble_split.py``: the host's pack,
@@ -262,7 +263,51 @@ each of which fails the run (non-zero exit, no result line):
    history on the card within ``PF_PREFIX_TOL`` / ``PF_END_TOL`` of the
    CPU's.  Each ``pad_assemble`` shape and the unfused head's
    ``forest_traversal`` are held bitwise against their plain versions
-   and timed beside their bounds.  One JSON line reports the phase.
+   and timed beside their bounds.  One JSON line reports the phase;
+15. bench config 6 (``bench.py:702-876``): (a) StringIndexer ->
+   VectorAssembler(78) -> MinMaxScaler -> DCT -> PCA(k=32) ->
+   LogisticRegression(maxIter=20) fitted on the card on phase 7's config-1
+   train rows, and on the CPU: MinMax extrema bitwise, the PCA components
+   up to each column's sign within ``C6_PCA_TOL``, ``explainedVariance``
+   within ``C6_EV_TOL``, the LR on the card pipeline's own feature rows
+   within ``C6_LR_TOL`` of the card's and on their first 20 000 within
+   phase 7's config-1 rule, the CPU pipeline's LR within ``C6_E2E_TOL``,
+   held-out AUC beside config 1's; bench config 6's stream (two passes
+   over the held-out rows, files of 2 048 / 1 024 / 512 rows,
+   ``write_bench_stream``) served in this process by the staged and the
+   fused form (serial engine, append WAL, shape buckets 256,
+   ``SNTC_SERVE_HOST_ROWS=0``, ``SNTC_OBS_COST_ANALYSIS=1``), ``C6_REPS``
+   reps each in turns: one fused segment of 4 stages, exactly one upload
+   and one download a batch, no fallback, no new signature after warmup,
+   the two forms' batch files byte-identical, one ``pad_assemble`` launch
+   per padded dispatch; the median rows/s of both forms and the segment's
+   roofline; (b) the fused pipeline at 1 000 and 3 000 rows (both pad);
+   (c) the host-serve crossover: config 1's trained LR pipeline, unfused,
+   at 2 048 / 1 024 / 512 rows with ``SNTC_SERVE_HOST_ROWS`` unset (no
+   head dispatch, no copy, no launch) and at 0 (the card), predictions
+   agreeing on ``CROSS_AGREE`` of the rows and probabilities within
+   ``CROSS_PROB_TOL``, each size's latency in both placements, and the
+   sweep each head's ``HOST_SERVE_ROWS`` is set from (``crossover_sweep``:
+   the LR and MLP heads at ``CROSS_SWEEP_ROWS`` rows, host against
+   card); (d)
+   ``serve --once --metrics-out --trace-out --device-trace`` on (a)'s
+   saved pipeline with ``SNTC_OBS_COST_ANALYSIS=1``: the Prometheus text
+   holds ``sntc_mfu_ratio{segment="0"}``, the Chrome trace ``stream.read``,
+   ``fuse.dispatch``, ``fuse.finalize``, ``sink.deliver`` and
+   ``stream.commit`` once a batch, the directory a profiler trace.  Each
+   ``pad_assemble`` shape is held bitwise against its plain version and
+   timed beside its bound.  One JSON line reports the phase.
+
+Phase 7's staged and default config-2 serves and phase 10d's tuned model
+run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
+in-process comparisons hold the card's path (the MLP/LR heads'
+host-serve crossover would serve a small host batch on the host); phase
+8 serves config 2's default form once more with the variable unset, the
+crossover's default placement (``serve_mlp_rule``).  Independent train and serve processes of
+phases 4 and 6, 7 and 9 start together.  One ``phase_seconds`` line
+before the kernels line gives each phase's wall-clock (``clock``).
+``--phases`` runs the named phases alone, each after what it needs
+(``main_phases``).
 
 Exits non-zero without CUDA, and in a directory that holds this script
 and nothing else of the repository.
@@ -274,6 +319,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -290,13 +336,18 @@ from sntc_tpu_torch.data import (
     CICIDS2017_CONTRACT,
     CICIDS2017_FEATURES,
     CICIDS2017_LABELS,
+    STREAM_SIZES,
     clean_flows,
     generate_frame,
+    write_bench_stream,
     write_raw_csv,
 )
 from sntc_tpu_torch.feature import (
+    DCT,
+    PCA,
     ChiSqSelector,
     ChiSqSelectorModel,
+    MinMaxScaler,
     StandardScaler,
     StringIndexer,
     StringIndexerModel,
@@ -345,7 +396,14 @@ from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
 from sntc_tpu_torch.ops.lbfgs import LbfgsResult, full_f32
-from sntc_tpu_torch.serve import BatchPredictor, CsvDirSink, bucket_rows_for
+from sntc_tpu_torch.fuse import compile_pipeline, fused_segments, fusion_stats
+from sntc_tpu_torch.serve import (
+    BatchPredictor,
+    CsvDirSink,
+    FileStreamSource,
+    StreamingQuery,
+    bucket_rows_for,
+)
 from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -536,6 +594,58 @@ SWAP_FLAGS = ["--pipeline-depth", "1", "--drift-window", "3",
 PF_SHARDS = 8
 PF_AGREE = 0.95
 PF_PREFIX_TOL, PF_END_TOL = 1e-3, 1e-4
+# phase 15: bench config 6 (bench.py:702-876) on config 1's flows of
+# phase 7, its stream two passes over the held-out rows in files of 2 048
+# / 1 024 / 512 rows; 3 reps a form where the bench runs 5
+# (BENCH6_REPS), to hold the smoke's time
+C6_PCA_K, C6_LR_ITERS = 32, 20
+C6_PASSES, C6_REPS = 2, 3
+C6_PAD_ROWS = (1000, 3000)  # (b): both pad (to 1 024 and 4 096)
+C6_OBS_FILES = 6  # (d): the stream's first files, one a batch
+# the card's fit against the CPU's on the same rows, set from runs 1-2's
+# readings (NVIDIA H100 80GB HBM3, 700 W): PCA components (up to sign)
+# 3.26e-5 apart (the f32 moments' rounding over 199 800 rows, through
+# the eigen-gaps), explained variance 1.02e-8; the LR on the card
+# pipeline's own 199 800 feature rows 1.46e-5 of the start apart over its
+# 20 iterations (C6_LR_TOL; phase 7's rule, LBFGS_PREFIX_TOL, was set on
+# 20 000 rows and holds on the first 20 000 of them), and the CPU
+# pipeline's LR on its own PCA features 1.19e-5 (C6_E2E_TOL).  Each LR
+# limit lies below its TF32 control's reading (the same rows rounded to
+# TF32: 7.50e-5; the pipeline with TF32 products: 6.24e-4), which the
+# phase checks on every run
+C6_PCA_TOL, C6_EV_TOL = 1e-4, 1e-7
+C6_LR_TOL, C6_E2E_TOL = 5e-5, 1e-4
+# (c): config 1's LR on the host (float32 numpy) against the card
+# (float32): predictions and probabilities; each batch's latency is the
+# median of CROSS_REPS calls
+CROSS_AGREE, CROSS_PROB_TOL, CROSS_REPS = 0.999, 1e-5, 20
+# (c)'s sweep, the readings each head's HOST_SERVE_ROWS is set from: the
+# LR and MLP heads at full width on host rows of these sizes
+CROSS_SWEEP_ROWS = (64, 256, 512, 1000, 2048, 4096, 8192, 16384, 65536)
+
+
+def together(*calls):
+    """Run independent calls at once, each mostly the wait on a child
+    process (a train or a serve command), in threads; their results in
+    order.  A failure of any fails the phase."""
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(fn, *args) for fn, *args in calls]
+        return [f.result() for f in futures]
+
+
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def clock(name: str):
+    """Add the block's wall-clock seconds to ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0) + dt, 1)
+        log(f"[clock] {name}: {dt:.1f} s")
 
 
 def log(*a):
@@ -910,13 +1020,15 @@ def serve_args(model_dir: str, watch: str, out: str, ckpt: str, dev,
 
 
 def serve_command(model_dir: str, watch: str, out: str, ckpt: str, dev,
-                  extra: list, files_per_batch: int = 1) -> dict:
+                  extra: list, files_per_batch: int = 1,
+                  env: dict = None) -> dict:
     """``python -m sntc_tpu_torch serve --once`` in its own process (every
-    launch count starts at 0 there); its summary line."""
+    launch count starts at 0 there), in ``env`` (default: this process's
+    environment); its summary line."""
     cmd = serve_args(model_dir, watch, out, ckpt, dev, files_per_batch) \
         + ["--once", *extra]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=600, env=env)
     if proc.returncode != 0:
         raise SystemExit(f"serve {' '.join(extra) or '(defaults)'} failed "
                          f"({proc.returncode}):\n{proc.stderr}")
@@ -1799,8 +1911,21 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
         batches.append(b)
         start += n
     out_dir = os.path.join(work, "out2")
-    summary = serve_command(trained["model_dir"], watch, out_dir,
-                            os.path.join(work, "ckpt2"), dev, STAGED_FORM)
+    # both forms' serving processes start together (their start-ups
+    # overlap), and the default form's once more with the host-serve
+    # crossover left to its default (the variable unset); the default
+    # form's are checked by serve_mlp_default and serve_mlp_rule
+    unset = {k: v for k, v in os.environ.items()
+             if k != "SNTC_SERVE_HOST_ROWS"}
+    summary, default_summary, rule_summary = together(
+        (serve_command, trained["model_dir"], watch, out_dir,
+         os.path.join(work, "ckpt2"), dev, STAGED_FORM),
+        (serve_command, trained["model_dir"], watch,
+         os.path.join(work, "out2_default"),
+         os.path.join(work, "ckpt2_default"), dev, []),
+        (serve_command, trained["model_dir"], watch,
+         os.path.join(work, "out2_rule"), os.path.join(work, "ckpt2_rule"),
+         dev, [], 1, unset))
     want = {"forest_traversal": 0, "tree_hist": 0,
             "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                                 for n in MLP_BATCHES)}
@@ -1840,7 +1965,10 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
                     to_host(out["prediction"])[clear], pred[clear]):
                 raise SystemExit(f"config-2 batch {i} ({key}): probability "
                                  f"{err} off, or a clear prediction differs")
-    default = serve_mlp_default(dev, trained, batches, work, watch, padded)
+    default = serve_mlp_default(dev, trained, batches, work,
+                                default_summary, padded)
+    default["rule"] = serve_mlp_rule(dev, trained, batches, work,
+                                     rule_summary, default_summary, padded)
     log(f"config-2 serve (staged): {summary['batches']} batches, "
         f"{summary['rows']} rows in {summary['seconds']:.3f} s "
         f"({summary['rows'] / summary['seconds']:.0f} rows/s); "
@@ -1856,7 +1984,7 @@ def serve_mlp(dev, data: dict, trained: dict, work: str) -> dict:
 
 
 def serve_mlp_default(dev, trained: dict, batches: list, work: str,
-                      watch: str, staged) -> dict:
+                      summary: dict, staged) -> dict:
     """Phase 8, config 2: the serve command's default form (the scaler
     folded into the MLP's first layer, so no fused segment remains; the
     pipelined engine) over the same micro-batches.  Its predictions equal
@@ -1867,8 +1995,6 @@ def serve_mlp_default(dev, trained: dict, batches: list, work: str,
     import pyarrow.csv as pacsv
 
     out_dir = os.path.join(work, "out2_default")
-    summary = serve_command(trained["model_dir"], watch, out_dir,
-                            os.path.join(work, "ckpt2_default"), dev, [])
     want = {"forest_traversal": 0, "tree_hist": 0,
             "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                                 for n in MLP_BATCHES)}
@@ -1907,6 +2033,66 @@ def serve_mlp_default(dev, trained: dict, batches: list, work: str,
         f"{summary['kernel_launches']}")
     summary["max_prob_err_vs_staged"] = err
     return summary
+
+
+def serve_mlp_rule(dev, trained: dict, batches: list, work: str,
+                   summary: dict, pinned: dict, staged) -> dict:
+    """Phase 8, config 2: the serve command's default form with the
+    host-serve crossover at its default (``SNTC_SERVE_HOST_ROWS`` unset).
+    Placement: a batch that pads to its bucket stays on the card, a host
+    batch that fills it runs on the host when it has at most the MLP's
+    ``HOST_SERVE_ROWS`` rows, so the copies back are the card's batches
+    only; ``pad_assemble`` once a padded batch.  Its predictions equal
+    this process's fused form under the same rule, its probabilities lie
+    within MLP_SERVE_TOL of the staged form's (``staged``, on the card);
+    each batch's latency beside the pinned run's (``pinned``, every
+    batch on the card)."""
+    import pyarrow.csv as pacsv
+
+    from sntc_tpu_torch.models.mlp import (
+        MultilayerPerceptronClassificationModel as Mlp,
+    )
+
+    out_dir = os.path.join(work, "out2_rule")
+    placed = ["card" if bucket_rows_for(n, BUCKET_FLOOR) != n
+              or n > Mlp.HOST_SERVE_ROWS else "host" for n in MLP_BATCHES]
+    want = {"forest_traversal": 0, "tree_hist": 0,
+            "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                                for n in MLP_BATCHES)}
+    transfers = summary["pipeline_stats"]["transfers"]
+    if summary["kernel_launches"] != want or \
+            summary["rows"] != sum(MLP_BATCHES) or \
+            transfers["downloads"] != placed.count("card"):
+        raise SystemExit(f"config-2 default serve, crossover unset: "
+                         f"placement {placed}, {summary}")
+    fused, _, _ = serving_form(load_model(trained["model_dir"], device=dev),
+                               "label", True)
+    fused = BatchPredictor(fused, bucket_rows=BUCKET_FLOOR, device=dev)
+    refs = [to_host(staged.predict_frame(b)["probability"])
+            for b in batches]
+    err = 0.0
+    with environ(SNTC_SERVE_HOST_ROWS=None):
+        for i, (b, ref_prob) in enumerate(zip(batches, refs)):
+            t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
+            pred = t.column("prediction").to_numpy()
+            out = fused.predict_frame(b)
+            prob = to_host(out["probability"])
+            err = max(err, float(np.abs(prob - ref_prob).max()))
+            if not np.array_equal(to_host(out["prediction"]), pred) or \
+                    err > MLP_SERVE_TOL:
+                raise SystemExit(f"config-2 default batch {i}, crossover "
+                                 f"unset: predictions differ, or "
+                                 f"probability {err} off the staged form's")
+    ms = [p["durationMs"] for p in summary["progress"]]
+    pinned_ms = [p["durationMs"] for p in pinned["progress"]]
+    log(f"config-2 serve (defaults, crossover unset, MLP HOST_SERVE_ROWS "
+        f"{Mlp.HOST_SERVE_ROWS}): batches {MLP_BATCHES} placed {placed}; "
+        f"transfers {transfers}; launches {summary['kernel_launches']}; "
+        f"probabilities within {err} of the staged form's (tolerance "
+        f"{MLP_SERVE_TOL}); batch ms {[round(x, 3) for x in ms]}, every "
+        f"batch on the card {[round(x, 3) for x in pinned_ms]}")
+    return {"placed": placed, "transfers": transfers, "batch_ms": ms,
+            "pinned_batch_ms": pinned_ms, "max_prob_err_vs_staged": err}
 
 
 def lbfgs_pipeline(device, estimator, **kw) -> Pipeline:
@@ -2376,11 +2562,15 @@ def serve_nb_svc(dev, data: dict, trained: dict, work: str) -> dict:
             "pad_assemble": sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                                 for n in NB_SVC_BATCHES)}
     out = {}
+    # the two serving processes start together (their start-ups overlap)
+    summaries = dict(zip(("nb", "svc"), together(*[
+        (serve_command, trained[est]["model_dir"], watch,
+         os.path.join(work, f"out9_{est}"), os.path.join(work, f"ckpt9_{est}"),
+         dev, []) for est in ("nb", "svc")])))
     for est in ("nb", "svc"):
         model_dir = trained[est]["model_dir"]
         out_dir = os.path.join(work, f"out9_{est}")
-        summary = serve_command(model_dir, watch, out_dir,
-                                os.path.join(work, f"ckpt9_{est}"), dev, [])
+        summary = summaries[est]
         if summary["batches"] != len(NB_SVC_BATCHES) or \
                 summary["rows"] != sum(NB_SVC_BATCHES) or \
                 summary["kernel_launches"] != want or \
@@ -3008,7 +3198,11 @@ def lane_fits(dev, data2: dict, data1: dict, work: str):
     out = {"ovr": ovr_lanes(dev, data2), "cv": cv_lanes(dev, data1)}
     frame = data2["train"].slice(0, PIPE_ROWS)
     out["pipeline_cv"] = pipeline_cv(dev, frame)
-    out["tvs"] = tvs_serve(dev, frame, data2["test"], work)
+    # the tuned LR model served on the card, in the command and in this
+    # process alike: the host-serve crossover is pinned off, as bench
+    # config 6 pins it
+    with environ(SNTC_SERVE_HOST_ROWS=0):
+        out["tvs"] = tvs_serve(dev, frame, data2["test"], work)
     failed = [out[k]["failed"] for k in ("ovr", "cv", "pipeline_cv")
               if "failed" in out[k]]
     if failed:
@@ -3340,11 +3534,29 @@ def csv_rows(files: dict) -> bytes:
 
 
 def persistent_device_lost(dev, model_dir: str, watch: str, work: str,
-                           clean: dict) -> dict:
+                           clean: dict, failed=None) -> dict:
     """Every dispatch fails with ``device_lost``: the supervised loop
     stops after 3 rounds, non-zero, the batch's intent in the WAL and no
-    commit, the model UNHEALTHY; a clean restart replays it into files
-    identical to the clean run's."""
+    commit, the model UNHEALTHY (:func:`device_lost_process`, or its
+    result ``failed``); a clean restart, in this process, replays it into
+    files identical to the clean run's."""
+    out = os.path.join(work, "out11_lost")
+    ckpt = os.path.join(work, "ckpt11_lost")
+    proc = failed or device_lost_process(dev, model_dir, watch, work)
+    restart = serve_in_process(model_dir, watch, out, ckpt, dev)
+    if sink_files(out) != clean or restart["batches"] != len(clean):
+        raise SystemExit(f"phase 11: the restart after a failed device "
+                         f"served {restart['batches']} batches, files "
+                         "differ from the clean run's")
+    return {"rc": proc.returncode,
+            "last_line": json.loads(proc.stdout.strip().splitlines()[-1]),
+            "restart_batches": restart["batches"]}
+
+
+def device_lost_process(dev, model_dir: str, watch: str, work: str):
+    """The serving process of :func:`persistent_device_lost` under
+    ``device_lost`` on every dispatch, and its checks; the finished
+    process."""
     out = os.path.join(work, "out11_lost")
     ckpt = os.path.join(work, "ckpt11_lost")
     health = os.path.join(work, "health11_lost.json")
@@ -3363,14 +3575,7 @@ def persistent_device_lost(dev, model_dir: str, watch: str, work: str,
         raise SystemExit(f"phase 11: persistent device_lost exited "
                          f"{proc.returncode}, {commit_count(ckpt)} commits, "
                          f"status {status}:\n{proc.stderr[-2000:]}")
-    restart = serve_in_process(model_dir, watch, out, ckpt, dev)
-    if sink_files(out) != clean or restart["batches"] != len(clean):
-        raise SystemExit(f"phase 11: the restart after a failed device "
-                         f"served {restart['batches']} batches, files "
-                         "differ from the clean run's")
-    return {"rc": proc.returncode,
-            "last_line": json.loads(proc.stdout.strip().splitlines()[-1]),
-            "restart_batches": restart["batches"]}
+    return proc
 
 
 def failure_paths(dev, work: str) -> dict:
@@ -3404,6 +3609,14 @@ def failure_paths(dev, work: str) -> dict:
         raise SystemExit(f"phase 11 clean run: {clean_s['batches']} "
                          "batches")
     clean_ms = [p["dispatchMs"] for p in clean_s["progress"]]
+    # the SIGTERM drain and the failing device's serve are processes of
+    # their own: they run beside the in-process steps below (whose launch
+    # counts are this process's)
+    pool = ThreadPoolExecutor(2)
+    drain = pool.submit(corrupt_file_drain, dev, model_dir, traffic, work,
+                        clean)
+    lost_proc = pool.submit(device_lost_process, dev, model_dir, watch,
+                            work)
 
     oom_out = os.path.join(work, "out11_oom")
     oom_s = serve_in_process(model_dir, watch, oom_out,
@@ -3429,9 +3642,11 @@ def failure_paths(dev, work: str) -> dict:
     log(f"phase 11 real OOM: {real}")
     lost = transient_device_lost(dev, model_dir, watch, work, clean)
     log(f"phase 11 transient device_lost: {lost}")
-    corrupt = corrupt_file_drain(dev, model_dir, traffic, work, clean)
+    corrupt = drain.result()
+    pool.shutdown()
     log(f"phase 11 ragged file and drain: {corrupt}")
-    stopped = persistent_device_lost(dev, model_dir, watch, work, clean)
+    stopped = persistent_device_lost(dev, model_dir, watch, work, clean,
+                                     lost_proc.result())
     log(f"phase 11 persistent device_lost: {stopped}")
     return {
         "batches": batches, "batch_rows": FAULT_FILES_PER_BATCH
@@ -3662,14 +3877,10 @@ def events_of(path: str) -> list:
         else []
 
 
-def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
-                 work: str) -> dict:
-    """(e): the kill at commit, fsck and the restart; disk faults at the
-    WAL and the row dead letters with a disk budget under the
-    supervised loop; a forged compaction seal; a flipped checkpoint
-    byte."""
-    from sntc_tpu_torch.resilience import clear_events, recent_events
-
+def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
+               work: str) -> dict:
+    """(e)'s kill at commit, fsck and the restart, then a forged
+    compaction seal: each a process of its own, one after the other."""
     dirs = streams["dirs"]
     out, ckpt = os.path.join(work, "out12_kill"), \
         os.path.join(work, "ckpt12_kill")
@@ -3720,8 +3931,16 @@ def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
     if forged.returncode != 1 or "sha256 mismatch" not in forged.stdout:
         raise SystemExit(f"phase 12 forged seal: fsck exited "
                          f"{forged.returncode}")
+    return {"killed_after": len(commits), "restart": restart["batches"],
+            "fsck_repaired": report["repaired"][0]["torn_bytes"],
+            "forged_rc": forged.returncode}
 
-    # the supervised loop under disk faults and a disk budget
+
+def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
+                work: str) -> dict:
+    """(e)'s supervised loop under disk faults at the WAL and the row
+    dead letters, with a disk budget."""
+    dirs = streams["dirs"]
     out = os.path.join(work, "out12_disk")
     ckpt = os.path.join(work, "ckpt12_disk")
     health = os.path.join(work, "health12.json")
@@ -3778,8 +3997,25 @@ def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
         f"retried, dead letters {episodes}, disk "
         f"{status['storage']['disk']['total_bytes']} B over the "
         f"{DP_BUDGET_MB} MB budget, health {status['health']['overall']}")
+    return {"wal_faults": len(wal_faults), "dead_letter_episodes": episodes,
+            "disk_total_bytes": status["storage"]["disk"]["total_bytes"],
+            "health": status["health"]["overall"]}
+
+
+def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
+                 work: str) -> dict:
+    """(e): the kill at commit, fsck and the restart and a forged
+    compaction seal (:func:`kill_chain`), beside disk faults at the WAL
+    and the row dead letters with a disk budget under the supervised
+    loop (:func:`disk_faults`); then a flipped checkpoint byte."""
+    from sntc_tpu_torch.resilience import clear_events, recent_events
+
+    # the two chains of serving processes start together
+    kill, disk = together((kill_chain, dev, model_dir, streams, runs, work),
+                          (disk_faults, dev, model_dir, streams, runs, work))
 
     # a flipped byte in the model checkpoint: load_model takes .prev
+    dirs = streams["dirs"]
     path = os.path.join(work, "model12")
     for _ in range(2):
         save_model(load_model(model_dir, device=dev), path)
@@ -3800,13 +4036,7 @@ def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
     if len(fell_back) != 1 or not np.array_equal(
             to_host(served["prediction"]), to_host(want["prediction"])):
         raise SystemExit(f"phase 12 checkpoint fallback: {fell_back}")
-    return {"killed_after": len(commits), "restart": restart["batches"],
-            "fsck_repaired": report["repaired"][0]["torn_bytes"],
-            "forged_rc": forged.returncode,
-            "wal_faults": len(wal_faults), "dead_letter_episodes": episodes,
-            "disk_total_bytes": status["storage"]["disk"]["total_bytes"],
-            "health": status["health"]["overall"],
-            "ckpt_fallback": fell_back[0]["fallback_path"]}
+    return {**kill, **disk, "ckpt_fallback": fell_back[0]["fallback_path"]}
 
 
 def data_plane(dev, work: str) -> dict:
@@ -4691,18 +4921,19 @@ def swap_forest_at(dev, streams: dict, cand: str, launches: int) -> dict:
     }
 
 
-def pads_of(dev, shapes: dict) -> list:
-    """Each ``pad_assemble`` shape of a phase-14 run, measured in the
-    layout its dispatch launched: the engine's batch column-major (the
-    CSV's float64 columns), the shadow's head input row-major (the
-    prefix's 2-D output column)."""
+def pads_of(dev, shapes: dict, f32_row_major: bool = True) -> list:
+    """Each ``pad_assemble`` shape of a run, measured in the layout its
+    dispatch launched: a batch's 1-D columns column-major; in phase 14
+    the shadow's head input, a float32 2-D column, row-major (phase 15's
+    float32 blocks are 1-D columns: ``f32_row_major=False``)."""
     out = []
     for key in sorted(shapes):
         n, c = (int(v) for v in key.split("]")[0][1:].split(", "))
         dtype = torch.float64 if " f64 " in key else torch.float32
         target = int(key.split("-> ")[1])
-        out.append(measure_pad_at(dev, n, shapes, dtype, target, columns=c,
-                                  row_major=dtype == torch.float32))
+        out.append(measure_pad_at(
+            dev, n, shapes, dtype, target, columns=c,
+            row_major=f32_row_major and dtype == torch.float32))
     return out
 
 
@@ -4839,6 +5070,591 @@ def report_phase14(p14: dict, card: str) -> None:
                   "max_end_gap": max(g["end_gap"]
                                      for g in p14["lr"]["gaps"])}
                if "lr" in p14 else None)}))
+
+
+# -- phase 15: bench config 6's fused serve, the host crossover, obs ---------
+
+
+def c6_pipeline(device) -> Pipeline:
+    """Bench config 6's pipeline (``bench.py:742-748``): StringIndexer
+    (skip) -> VectorAssembler(78) -> MinMaxScaler -> DCT -> PCA(k=32) ->
+    LogisticRegression(maxIter=20), every stage on ``device``."""
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures"),
+        MinMaxScaler(device=device, inputCol="rawFeatures", outputCol="mm"),
+        DCT(device=device, inputCol="mm", outputCol="dct"),
+        PCA(device=device, inputCol="dct", outputCol="features",
+            k=C6_PCA_K),
+        LogisticRegression(device=device, maxIter=C6_LR_ITERS),
+    ])
+
+
+def _set_env(values: dict) -> None:
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """The environment variables ``kw`` set (a None value unset) inside
+    the block, for this process and the processes it starts."""
+    before = {k: os.environ.get(k) for k in kw}
+    _set_env(kw)
+    try:
+        yield
+    finally:
+        _set_env(before)
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to TF32's 10-bit mantissa (to nearest),
+    the rounding a TF32 product gives its inputs."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000))
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """The pipeline control's precision: the float32 products of the LR
+    fit and of the PCA and DCT stages in TF32 (their ``full_f32`` blocks
+    swapped for a TF32 one), to show that (a)'s tolerance parts a
+    lower-precision fit from a full-f32 one."""
+    from sntc_tpu_torch.feature import dct as dct_module
+    from sntc_tpu_torch.feature import pca as pca_module
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+    mods = (lr_module, pca_module, dct_module)
+    saved = [m.full_f32 for m in mods]
+    for m in mods:
+        m.full_f32 = tf32
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.full_f32 = f
+
+
+def c6_compare(card, card_s: float, data1: dict, auc1: float) -> dict:
+    """(a)'s fits: config 6's pipeline fitted on the card (``card``) and,
+    here, on the CPU on config 1's train rows: MinMax extrema bitwise,
+    the PCA components up to each column's sign within ``C6_PCA_TOL`` and
+    ``explainedVariance`` within ``C6_EV_TOL``; the LR fitted on the CPU
+    on the card pipeline's feature rows within ``C6_LR_TOL`` of the start
+    and, on their first ``REDUCED_LBFGS_ROWS``, both fits within phase
+    7's config-1 rule (``LBFGS_PREFIX_TOL`` over the first 20
+    iterations, all of them here); the CPU pipeline's LR, on its own
+    features, within ``C6_E2E_TOL``; held-out AUC beside config 1's.
+    The TF32 controls must lie beyond those two tolerances (checked by
+    :func:`fused_serve` after the phase): the LR fitted on the card on
+    the same feature rows rounded to TF32 (``tf32_round``: the binary
+    LR's products are matrix-vector, which TF32 mode leaves in full
+    f32), and the card pipeline fitted with TF32 products in the DCT,
+    the PCA and the LR (``tf32_products``)."""
+    train, test = data1["train"], data1["test"]
+    t0 = time.perf_counter()
+    cpu = c6_pipeline(torch.device("cpu")).fit(train)
+    cpu_s = time.perf_counter() - t0
+    mm = [m.getStages()[2] for m in (card, cpu)]
+    pca = [m.getStages()[4] for m in (card, cpu)]
+    if not (np.array_equal(mm[0].originalMin, mm[1].originalMin)
+            and np.array_equal(mm[0].originalMax, mm[1].originalMax)):
+        raise SystemExit("phase 15 (a): the MinMax extrema differ between "
+                         "the card and the CPU")
+    # a component's sign is arbitrary (Spark, sklearn): align each column
+    sign = np.sign(np.sum(pca[0].pc * pca[1].pc, axis=0))
+    pc_err = float(np.abs(pca[0].pc - pca[1].pc * sign).max())
+    ev_err = float(np.abs(pca[0].explainedVariance
+                          - pca[1].explainedVariance).max())
+    # the LR on the card pipeline's own feature rows (the prefix's
+    # transform of the train rows, as the card's fit produced them): all
+    # of them, and phase 7's reduced fit's first 20 000
+    feats = PipelineModel(stages=card.getStages()[:5]).transform(train)
+    rows = Frame({"features": to_host(feats["features"]),
+                  "label": to_host(feats["label"])})
+    lr_cpu = LogisticRegression(device="cpu", maxIter=C6_LR_ITERS).fit(rows)
+    small = rows.slice(0, REDUCED_LBFGS_ROWS)
+    small_gap = fit_gaps(
+        LogisticRegression(device=card.getStages()[-1].device,
+                           maxIter=C6_LR_ITERS).fit(small),
+        LogisticRegression(device="cpu", maxIter=C6_LR_ITERS).fit(small),
+    )["max_gap"]
+    head = card.getStages()[-1]
+    same, e2e = fit_gaps(head, lr_cpu), fit_gaps(head, cpu.getStages()[-1])
+    lr_ctl = LogisticRegression(device=head.device,
+                                maxIter=C6_LR_ITERS).fit(Frame({
+                                    "features": tf32_round(rows["features"]),
+                                    "label": rows["label"]}))
+    with tf32_products():
+        pipe_ctl = c6_pipeline(head.device).fit(train)
+    control = {"history_gap": fit_gaps(lr_ctl, lr_cpu)["max_gap"],
+               "pipeline_history_gap": fit_gaps(
+                   pipe_ctl.getStages()[-1], cpu.getStages()[-1])["max_gap"]}
+    auc = BinaryClassificationEvaluator().evaluate(card.transform(test))
+    rec = {"card_fit_s": card_s, "cpu_fit_s": cpu_s,
+           "pc_max_err_up_to_sign": pc_err, "sign_flips": int((sign < 0).sum()),
+           "explained_variance_max_err": ev_err,
+           "explained_variance_kept": float(
+               pca[0].explainedVariance.sum()),
+           "iterations": {"card": same["iterations"][0],
+                          "cpu": same["iterations"][1],
+                          "cpu_pipeline": e2e["iterations"][1]},
+           "history_gap": same["max_gap"],
+           "reduced_history_gap": small_gap,
+           "pipeline_history_gap": e2e["max_gap"],
+           "tf32_control": control,
+           "auc": auc, "config1_auc": auc1}
+    log(f"phase 15 (a) config-6 fit on {train.num_rows} rows: card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; MinMax extrema bitwise; PCA "
+        f"k={C6_PCA_K} components within {pc_err:.3g} up to sign "
+        f"({rec['sign_flips']} flipped; tolerance {C6_PCA_TOL}), "
+        f"explainedVariance within {ev_err:.3g} (tolerance {C6_EV_TOL}; "
+        f"kept {rec['explained_variance_kept']:.6f}); LR iterations "
+        f"{rec['iterations']}, history gap on the same feature rows "
+        f"{rec['history_gap']:.3g} of the start (tolerance {C6_LR_TOL}), on "
+        f"their first {REDUCED_LBFGS_ROWS} {small_gap:.3g} (tolerance "
+        f"{LBFGS_PREFIX_TOL}), the CPU pipeline's on its own features "
+        f"{rec['pipeline_history_gap']:.3g} (tolerance {C6_E2E_TOL}); "
+        f"the TF32 controls {control['history_gap']:.3g} and "
+        f"{control['pipeline_history_gap']:.3g}; "
+        f"held-out AUC {auc:.6f} (config 1: {auc1:.6f})")
+    if pc_err > C6_PCA_TOL or ev_err > C6_EV_TOL or \
+            rec["history_gap"] > C6_LR_TOL or \
+            small_gap > LBFGS_PREFIX_TOL or \
+            rec["pipeline_history_gap"] > C6_E2E_TOL:
+        raise SystemExit(f"phase 15 (a): card and CPU fits part beyond the "
+                         f"stated tolerances: {rec}")
+    if min(rec["iterations"].values()) < 1:
+        raise SystemExit(f"phase 15 (a): LR histories {rec['iterations']}")
+    return rec
+
+
+def c6_engine(dev, tmp: str, name: str, in_dir: str, sizes: list,
+              model, test: Frame) -> dict:
+    """One form's predictor, warmed as ``bench.py``'s ``make_engine``
+    warms it: one throwaway engine batch, then every distinct file size
+    straight through the predictor."""
+    predictor = BatchPredictor(model, bucket_rows=BUCKET_FLOOR, device=dev)
+    warm = StreamingQuery(
+        predictor, FileStreamSource(in_dir),
+        CsvDirSink(os.path.join(tmp, f"warm_{name}"), durable=False),
+        os.path.join(tmp, f"warmckpt_{name}"), max_batch_offsets=1,
+        wal_mode="append", pipeline_depth=1, device=dev)
+    warm._run_one_batch()
+    warm.stop()
+    for c in sorted(set(sizes)):
+        predictor.predict_frame(test.slice(0, c))
+    return {"name": name, "predictor": predictor, "reps": []}
+
+
+def c6_run(dev, tmp: str, eng: dict, in_dir: str, rep: int,
+           stream_rows: int, n_files: int) -> None:
+    """One timed serve of the whole stream by one form (serial engine,
+    append WAL, one file a batch), as ``bench.py``'s ``run_once``."""
+    name = eng["name"]
+    out_dir = os.path.join(tmp, f"out_{name}_{rep}")
+    q = StreamingQuery(
+        eng["predictor"], FileStreamSource(in_dir),
+        CsvDirSink(out_dir, durable=False),
+        os.path.join(tmp, f"ckpt_{name}_{rep}"), max_batch_offsets=1,
+        wal_mode="append", pipeline_depth=1, device=dev)
+    t0 = time.perf_counter()
+    n_done = q.process_available()
+    dt = time.perf_counter() - t0
+    rows = stream_rows if n_done == n_files else sum(
+        p["numInputRows"] for p in q.recentProgress)
+    transfers = q.pipeline_stats()["transfers"]
+    q.stop()
+    eng["reps"].append({"out_dir": out_dir, "batches": n_done, "rows": rows,
+                        "dt": dt, "rows_per_s": rows / dt,
+                        "transfers": transfers})
+
+
+def c6_serve(dev, fitted, test: Frame, in_dir: str, sizes: list,
+             work: str) -> dict:
+    """(a)'s serve: bench config 6's stream (two passes over the held-out
+    rows, files of 2 048 / 1 024 / 512 rows) through the staged and the
+    fused form, ``C6_REPS`` reps each in turns, ``SNTC_SERVE_HOST_ROWS=0``
+    (the staged head runs the device program the fused one embeds) and
+    the roofline plane armed; see the module docs for the checks."""
+    import pyarrow as pa
+
+    tmp = os.path.join(work, "c6")
+    stream_rows, n_files = sum(sizes), len(sizes)
+    staged = PipelineModel(stages=fitted.getStages()[1:])
+    fused = compile_pipeline(staged)
+    segments = fused_segments(fused)
+    if len(segments) != 1 or len(segments[0].fused_stages) != 4:
+        raise SystemExit(f"phase 15 (a): fused form {fused.getStages()}")
+    arrow_cpus = pa.cpu_count()
+    pa.set_cpu_count(1)  # bench.py's intra-op pinning
+    try:
+        engines = [c6_engine(dev, tmp, "staged", in_dir, sizes, staged, test),
+                   c6_engine(dev, tmp, "fused", in_dir, sizes, fused, test)]
+        seg = segments[0]
+        before = {k: getattr(seg, k) for k in (
+            "compile_events", "uploads", "device_binds", "downloads",
+            "fallbacks", "invocations")}
+        reset_launches()
+        for rep in range(C6_REPS):
+            for eng in engines:
+                c6_run(dev, tmp, eng, in_dir, rep, stream_rows, n_files)
+        launches = dict(LAUNCHES)
+        shapes = dict(PAD_LAUNCH_SHAPES)
+    finally:
+        pa.set_cpu_count(arrow_cpus)
+    delta = {k: getattr(seg, k) - v for k, v in before.items()}
+    fused_batches = sum(r["batches"] for r in engines[1]["reps"])
+    padded = sum(bucket_rows_for(n, BUCKET_FLOOR) != n for n in sizes)
+    want_pad = padded * C6_REPS * len(engines)
+    ledger = {k: sum(r["transfers"][k] for r in engines[1]["reps"])
+              for k in ("uploads", "downloads")}
+    evidence = {
+        "fused_segments": len(segments),
+        "fused_stages": len(seg.fused_stages),
+        "segment_uploads_per_batch":
+            (delta["uploads"] + delta["device_binds"]) / fused_batches,
+        "uploads_per_batch": ledger["uploads"] / fused_batches,
+        "downloads_per_batch": ledger["downloads"] / fused_batches,
+        "segment_downloads_per_batch": delta["downloads"] / fused_batches,
+        "fallbacks": seg.fallbacks,
+        "recompiles_after_warmup": delta["compile_events"],
+        "pad_assemble": launches["pad_assemble"],
+        "padded_dispatches": want_pad,
+    }
+    files = [sink_files(r["out_dir"]) for e in engines for r in e["reps"]]
+    evidence["sink_match"] = all(f == files[0] for f in files[1:])
+    if any(r["batches"] != n_files for e in engines for r in e["reps"]) or \
+            evidence["uploads_per_batch"] != 1.0 or \
+            evidence["downloads_per_batch"] != 1.0 or \
+            evidence["segment_uploads_per_batch"] != 1.0 or \
+            evidence["segment_downloads_per_batch"] != 1.0 or \
+            evidence["fallbacks"] != 0 or \
+            evidence["recompiles_after_warmup"] != 0 or \
+            not evidence["sink_match"] or want_pad < 1 or \
+            launches != {"forest_traversal": 0, "tree_hist": 0,
+                         "pad_assemble": want_pad}:
+        raise SystemExit(f"phase 15 (a): {evidence}, launches {launches}")
+
+    def median(eng):
+        reps = sorted(eng["reps"], key=lambda r: r["rows_per_s"])
+        return reps[len(reps) // 2]["rows_per_s"]
+
+    roof = fusion_stats(fused).get("roofline") or {}
+    return {"files": n_files, "stream_rows": stream_rows, "sizes": sizes,
+            "evidence": evidence,
+            "rows_per_s": {e["name"]: median(e) for e in engines},
+            "reps": {e["name"]: [round(r["rows_per_s"], 1)
+                                 for r in e["reps"]] for e in engines},
+            "roofline": roof, "pad_launch_shapes": shapes,
+            "fused": fused}
+
+
+def c6_pads(dev, fused, test: Frame) -> dict:
+    """(b): config 6's fused pipeline served in this process at
+    ``C6_PAD_ROWS`` rows (both pad: 1 000 -> 1 024, 3 000 -> 4 096), the
+    launches counted from 0; each launch's shape is then measured by
+    ``pads_of``."""
+    predictor = BatchPredictor(fused, bucket_rows=BUCKET_FLOOR, device=dev)
+    reset_launches()
+    for n in C6_PAD_ROWS:
+        out = predictor.predict_frame(test.slice(0, n))
+        if out.num_rows != n:
+            raise SystemExit(f"phase 15 (b): {out.num_rows} rows of {n}")
+    launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    if launches["pad_assemble"] != len(C6_PAD_ROWS):
+        raise SystemExit(f"phase 15 (b): launches {launches}")
+    return {"launches": launches, "pad_launch_shapes": shapes}
+
+
+def crossover(dev, trained1: dict, test: Frame) -> dict:
+    """(c): config 1's trained LR pipeline as a plain head (unfused) at
+    bench config 5's sizes, with ``SNTC_SERVE_HOST_ROWS`` unset (no head
+    dispatch, no copy, no launch: the host path) and at 0 (the card):
+    predictions agree on at least ``CROSS_AGREE`` of the rows and the
+    probabilities within ``CROSS_PROB_TOL``; each size's batch latency in
+    both placements (median of ``CROSS_REPS`` calls)."""
+    from sntc_tpu_torch.utils.profiling import TransferLedger, ledger_scope
+
+    model, _, _ = serving_form(load_model(trained1["model_dir"], device=dev),
+                               "label", False)
+    head = model.getStages()[-2]
+    dispatches = [0]
+    dev_fn = head._predict_all_dev
+
+    def counting(X):
+        dispatches[0] += 1
+        return dev_fn(X)
+
+    head._predict_all_dev = counting
+    predictor = BatchPredictor(model, bucket_rows=BUCKET_FLOOR, device=dev)
+    batches = [test.slice(0, n) for n in STREAM_SIZES]
+    out = {"sizes": list(STREAM_SIZES)}
+    for tag, value in (("host", None), ("card", 0)):
+        with environ(SNTC_SERVE_HOST_ROWS=value):
+            led = TransferLedger()
+            dispatches[0] = 0
+            reset_launches()
+            with ledger_scope(led):
+                outs = [predictor.predict_frame(b) for b in batches]
+            out[tag] = {"dispatches": dispatches[0],
+                        "launches": dict(LAUNCHES),
+                        "transfers": led.snapshot(),
+                        "outs": outs}
+            lat = []
+            for b in batches:
+                ms = []
+                for _ in range(CROSS_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    predictor.predict_frame(b)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                lat.append(float(np.median(ms)))
+            out[tag]["latency_ms"] = lat
+    head._predict_all_dev = dev_fn
+    host, card = out["host"], out["card"]
+    if host["dispatches"] != 0 or any(host["launches"].values()) or \
+            host["transfers"]["uploads"] or host["transfers"]["downloads"]:
+        raise SystemExit(f"phase 15 (c): the host placement dispatched or "
+                         f"copied: {host}")
+    if card["dispatches"] != len(batches):
+        raise SystemExit(f"phase 15 (c): the card placement dispatched "
+                         f"{card['dispatches']} times")
+    agree, err = [], 0.0
+    for a, b in zip(host.pop("outs"), card.pop("outs")):
+        pa_, pb = to_host(a["prediction"]), to_host(b["prediction"])
+        agree.append(float((pa_ == pb).mean()))
+        err = max(err, float(np.abs(to_host(a["probability"]).astype(
+            np.float64) - to_host(b["probability"])).max()))
+    out["agreement"], out["prob_max_err"] = min(agree), err
+    if out["agreement"] < CROSS_AGREE or err > CROSS_PROB_TOL:
+        raise SystemExit(f"phase 15 (c): host and card agree on "
+                         f"{out['agreement']} of the rows, probabilities "
+                         f"{err} apart")
+    return out
+
+
+def crossover_sweep(dev) -> dict:
+    """(c)'s sweep: config 1's LR head (78 features, binary) and config
+    2's MLP head (``MLP_LAYERS``), weights from ``SEED``, each served by
+    ``transform`` on host float32 rows at every ``CROSS_SWEEP_ROWS`` size
+    on the host (``SNTC_SERVE_HOST_ROWS`` at the size) and on the card
+    (0, upload and copy back included): the median ms of ``CROSS_REPS``
+    calls after one warm call, and where the default rule (the variable
+    unset: the head's ``HOST_SERVE_ROWS``) places the batch."""
+    from sntc_tpu_torch.models.logistic_regression import (
+        LogisticRegressionModel,
+    )
+    from sntc_tpu_torch.models.mlp import (
+        MultilayerPerceptronClassificationModel,
+        _n_weights,
+    )
+
+    rng = np.random.default_rng(SEED)
+    d = MLP_LAYERS[0]
+    heads = {
+        "lr": LogisticRegressionModel(
+            rng.normal(0, 0.1, (2, d)).astype(np.float32),
+            np.zeros(2, np.float32), True, device=dev),
+        "mlp": MultilayerPerceptronClassificationModel(
+            rng.normal(0, 0.1, _n_weights(tuple(MLP_LAYERS))), MLP_LAYERS,
+            device=dev),
+    }
+    X = rng.standard_normal((max(CROSS_SWEEP_ROWS), d)).astype(np.float32)
+    out = {}
+    for name, head in heads.items():
+        rec = {"default_rows": head.HOST_SERVE_ROWS, "host_ms": [],
+               "card_ms": [], "rule": []}
+        for n in CROSS_SWEEP_ROWS:
+            frame = Frame({"features": X[:n]})
+            for tag, value in (("host", n), ("card", 0)):
+                with environ(SNTC_SERVE_HOST_ROWS=value):
+                    head.transform(frame)
+                    ms = []
+                    for _ in range(CROSS_REPS):
+                        t0 = time.perf_counter()
+                        head.transform(frame)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                rec[f"{tag}_ms"].append(float(np.median(ms)))
+            rec["rule"].append("host" if n <= head.HOST_SERVE_ROWS
+                               else "card")
+        out[name] = rec
+        log(f"phase 15 (c) crossover sweep, {name} head at "
+            f"{list(CROSS_SWEEP_ROWS)} rows: host ms "
+            f"{[round(x, 4) for x in rec['host_ms']]}, card ms "
+            f"{[round(x, 4) for x in rec['card_ms']]} (median of "
+            f"{CROSS_REPS}); the default rule (HOST_SERVE_ROWS "
+            f"{rec['default_rows']}) places {rec['rule']} "
+            f"[{gpu_line()}]")
+    out["sizes"] = list(CROSS_SWEEP_ROWS)
+    return out
+
+
+def obs_command(dev, model_dir: str, in_dir: str, work: str):
+    """(d): ``serve --once --metrics-out M --trace-out T --device-trace D``
+    in its own process on (a)'s saved pipeline over the stream's first
+    ``C6_OBS_FILES`` files, ``SNTC_OBS_COST_ANALYSIS=1``; started here and
+    checked by :func:`check_obs_command`."""
+    watch = os.path.join(work, "in15d")
+    os.makedirs(watch)
+    for name in sorted(os.listdir(in_dir))[:C6_OBS_FILES]:
+        shutil.copyfile(os.path.join(in_dir, name), os.path.join(watch, name))
+    paths = {k: os.path.join(work, f"obs15.{k}")
+             for k in ("prom", "trace.json")}
+    paths["device"] = os.path.join(work, "obs15_device")
+    cmd = serve_args(model_dir, watch, os.path.join(work, "out15d"),
+                     os.path.join(work, "ckpt15d"), dev, 1) + [
+        "--once", "--metrics-out", paths["prom"],
+        "--trace-out", paths["trace.json"],
+        "--device-trace", paths["device"]]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=env_with(SNTC_OBS_COST_ANALYSIS="1"))
+    return proc, paths
+
+
+def check_obs_command(proc, paths: dict) -> dict:
+    """(d)'s checks: the command exits 0; ``M`` parses as Prometheus text
+    and holds ``sntc_mfu_ratio{segment="0"}``; ``T`` is Chrome-trace JSON
+    with ``stream.read``, ``fuse.dispatch``, ``fuse.finalize``,
+    ``sink.deliver`` and ``stream.commit`` once a batch; ``D`` holds a
+    profiler trace with events."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 15 (d): serve exited {proc.returncode}:\n"
+                         f"{err}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    batches = summary["batches"]
+    series = {}
+    with open(paths["prom"]) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            name, value = line.rsplit(" ", 1)
+            series[name] = float(value)  # every sample line parses
+    mfu = series.get('sntc_mfu_ratio{segment="0"}')
+    with open(paths["trace.json"]) as f:
+        trace = json.load(f)
+    names = [e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"]
+    counts = {n: names.count(n) for n in (
+        "stream.read", "fuse.dispatch", "fuse.finalize", "sink.deliver",
+        "stream.commit")}
+    dfile = os.path.join(paths["device"], "device_trace.json")
+    with open(dfile) as f:
+        dev_events = len(json.load(f).get("traceEvents", []))
+    rec = {"batches": batches, "mfu_ratio": mfu,
+           "mfu_bw_ratio": series.get('sntc_mfu_bw_ratio{segment="0"}'),
+           "metric_samples": len(series), "span_counts": counts,
+           "device_trace_events": dev_events,
+           "roofline": (summary["fusion"] or {}).get("roofline")}
+    if batches != C6_OBS_FILES or mfu is None or \
+            any(c != batches for c in counts.values()) or dev_events < 1:
+        raise SystemExit(f"phase 15 (d): {rec}")
+    return rec
+
+
+def fused_serve(dev, data1: dict, trained1: dict, work: str) -> dict:
+    """Phase 15: bench config 6 on the card (see the module docs).  (d)'s
+    process runs beside the CPU fit of (a), before anything is timed."""
+    t0 = time.perf_counter()
+    train, test = data1["train"], data1["test"]
+    with environ(SNTC_SERVE_HOST_ROWS=0, SNTC_OBS_COST_ANALYSIS=1):
+        card, card_s = timed(lambda: c6_pipeline(dev).fit(train))
+        model_dir = save_model(card, os.path.join(work, "model15"))
+        in_dir = os.path.join(work, "c6", "in")
+        sizes = write_bench_stream(in_dir, test, passes=C6_PASSES)
+        proc, paths = obs_command(dev, model_dir, in_dir, work)
+        try:
+            fit = c6_compare(card, card_s, data1, trained1["areaUnderROC"])
+        finally:
+            obs = check_obs_command(proc, paths)
+        served = c6_serve(dev, card, test, in_dir, sizes, work)
+        pads = c6_pads(dev, served.pop("fused"), test)
+    cross = crossover(dev, trained1, test)
+    cross["sweep"] = crossover_sweep(dev)
+    control = fit["tf32_control"]
+    if control["history_gap"] <= C6_LR_TOL or \
+            control["pipeline_history_gap"] <= C6_E2E_TOL:
+        raise SystemExit(f"phase 15 (a): the TF32 controls {control} lie "
+                         f"within C6_LR_TOL {C6_LR_TOL} / C6_E2E_TOL "
+                         f"{C6_E2E_TOL}: the tolerances do not part them "
+                         f"from a full-f32 fit")
+    kernels = pads_of(dev, served["pad_launch_shapes"], False)
+    kernels += pads_of(dev, pads["pad_launch_shapes"], False)
+    return {"fit": fit, "serve": served, "pads": pads,
+            "crossover": cross, "obs": obs, "kernels": kernels,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase15(p15: dict, card: str) -> None:
+    """Phase 15's lines: the forms' rows/s and transfers, the segment's
+    roofline, (b)'s and (c)'s numbers, (d)'s files, each kernel shape, one
+    JSON line."""
+    s = p15["serve"]
+    ev = s["evidence"]
+    log(f"phase 15 (a) bench config 6 stream: {s['files']} files, "
+        f"{s['stream_rows']} rows, {C6_REPS} reps a form in turns: median "
+        f"rows/s staged {s['rows_per_s']['staged']:.1f}, fused "
+        f"{s['rows_per_s']['fused']:.1f} (reps {s['reps']}); fused "
+        f"{ev['fused_segments']} segment of {ev['fused_stages']} stages, "
+        f"{ev['uploads_per_batch']} upload / {ev['downloads_per_batch']} "
+        f"download a batch, {ev['fallbacks']} fallbacks, "
+        f"{ev['recompiles_after_warmup']} new signatures after warmup, "
+        f"sinks byte-identical {ev['sink_match']}; pad_assemble "
+        f"{ev['pad_assemble']} launches for {ev['padded_dispatches']} "
+        f"padded dispatches at {s['pad_launch_shapes']} [{card}]")
+    for sig, r in sorted(s["roofline"].items()):
+        log(f"phase 15 (a) segment roofline {sig}: {r['flops']:.0f} FLOP, "
+            f"{r['bytes_accessed']:.0f} B, {r['invocations']} dispatches in "
+            f"{r['seconds']:.4f} s: {r.get('achieved_bw', 0.0):.4g} B/s "
+            f"(bw_util {r.get('bw_util')}), {r.get('achieved_flops', 0.0):.4g}"
+            f" FLOP/s (mfu {r.get('mfu')} of bf16, {r.get('mfu_f32')} of "
+            f"f32), peak_source {r['peak_source']} [{card}]")
+    c = p15["crossover"]
+    log(f"phase 15 (c) the host-serve crossover, config 1's LR at "
+        f"{c['sizes']} rows: unset {c['host']['dispatches']} dispatches, "
+        f"launches {c['host']['launches']}, transfers "
+        f"{c['host']['transfers']}; at 0 {c['card']['dispatches']} "
+        f"dispatches; predictions agree on {c['agreement']:.6f} (floor "
+        f"{CROSS_AGREE}), probabilities within {c['prob_max_err']:.3g} "
+        f"(tolerance {CROSS_PROB_TOL}); batch ms (median of {CROSS_REPS}) "
+        f"host {[round(x, 4) for x in c['host']['latency_ms']]}, card "
+        f"{[round(x, 4) for x in c['card']['latency_ms']]} [{card}]")
+    o = p15["obs"]
+    log(f"phase 15 (d) serve --once with --metrics-out, --trace-out, "
+        f"--device-trace: {o['batches']} batches, sntc_mfu_ratio "
+        f"{o['mfu_ratio']}, sntc_mfu_bw_ratio {o['mfu_bw_ratio']}, "
+        f"{o['metric_samples']} samples; spans {o['span_counts']}; "
+        f"{o['device_trace_events']} profiler events [{card}]")
+    for k in p15["kernels"]:
+        log(f"phase 15 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call; bound {k['bound_ms']:.4f} ms "
+            f"by {k['bound_by']}); {k['launches']} launches at this shape "
+            f"in its run, max abs error {k['max_abs_err']} [{card}]")
+    log("phase 15 " + json.dumps({
+        "phase": 15, "card": card, "seconds": round(p15["seconds"], 3),
+        "fit": p15["fit"], "rows_per_s": s["rows_per_s"], "evidence": ev,
+        "crossover": {k: c[k] for k in ("agreement", "prob_max_err",
+                                        "sweep")},
+        "obs": {k: o[k] for k in ("mfu_ratio", "span_counts")}},
+        default=str))
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -5162,12 +5978,19 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
+PHASES = ("2", "3", "11", "12", "13", "14", "15")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (registers, spills)")
     ap.add_argument("--out-json", default=None,
                    help="also write every number of the run to this file")
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, comma-separated, of "
+                    f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
+                    "15 trains config 1 first); default: every phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5175,83 +5998,132 @@ def main() -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     log(f"card: {card}")
-    _build.library(verbose=args.verbose_build)
-    log(f"kernels built via {_build.BUILD_INFO['route']} in "
-        f"{_build.BUILD_INFO['seconds']:.1f} s [{card}]")
-
-    errs = check_kernels(dev)
-    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
-        data = fit_data(work)
-        cases = hist_cases(data["train"], dev)
-        errs["tree_hist"] = check_tree_hist(cases)
-        summary, served = serve(dev, work)
-        forms = serve_forms(dev, work)
-        split8 = dispatch_split(dev, [os.path.join(work, "in8", f)
-                                      for f in ("part_0000.csv",
-                                                "part_0001.csv")],
-                                admit=False)
-        failures = failure_paths(dev, work)
-        phase12 = data_plane(dev, work)
-        phase13 = self_tuning(dev, work)
-        phase14 = lifecycle(dev, work)
-        stages = breakdown(dev, work)
-        trained = train(dev, data, work)
-        data4 = gbt_data(work)
-        trained4 = train_gbt(dev, data4, work)
-        served4 = serve_gbt(dev, data4, trained4, work)
-    reduced = reduced_fit(data, dev)
-    reduced4 = reduced_gbt_fit(data4, dev)
-    tree = dt_fit(data4, dev)
-    # config 3's profiled fit first: after a long profile in a process,
-    # later profiler windows may drop launches (config 4 counts on none)
-    fit = fit_breakdown(data, dev)
-    own = fit.pop("cases")
-    errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own))
-    fit4 = gbt_fit_breakdown(data4, dev)
-    own4 = fit4.pop("cases")
-    check_per_tree_forms(own4)
-    errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own4))
-    walks = measure_forest(dev, served, errs["forest_traversal"],
-                           summary["kernel_launches"]["forest_traversal"])
-    walks += measure_forest_gbt(dev, data4, trained4, served4, {
-        "fit": trained4["kernel_launches"]["forest_traversal"],
-        "serve": served4["summary"]["kernel_launches"]["forest_traversal"]})
-    kernels = [next(k for k in walks if k["rows"] == max(FOREST_ROWS))]
-    pads = measure_pad(dev, summary["pad_launch_shapes"])
-    kernels.append(pads[0])
-    timed = {k: cases[k] for k in ("widest level group", "chisq")}
-    hist = measure_tree_hist({**timed, **own}, errs["tree_hist"],
-                             trained["kernel_launches"]["tree_hist"])
-    hist += measure_tree_hist(own4, errs["tree_hist"],
-                              trained4["kernel_launches"]["tree_hist"])
-    kernels.append(hist[0])
+    # the kernels build (nvcc processes) beside the first data set's
+    # generation on the host
+    build_pool = ThreadPoolExecutor(1)
+    built = build_pool.submit(_build.library, args.verbose_build)
+    if args.phases:
+        with clock("1 build"):
+            built.result()
+        return main_phases(dev, card, args.phases.split(","))
 
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
-        data2 = lbfgs_data(work, MLP_ROWS, binary=False, tag="2")
-        trained2 = train_lbfgs(dev, data2, work, [])
-        check_config2(trained2)
-        data1 = lbfgs_data(work, LR_ROWS, binary=True, tag="1")
-        trained1 = train_lbfgs(dev, data1, work, [
-            "--estimator", "lr", "--binary", "--reg-param", str(LR_REG)])
-        check_config1(dev, data1, trained1)
-        served2 = serve_mlp(dev, data2, trained2, work)
-        reduced_lbfgs = reduced_lbfgs_fits(dev, data2, data1, work)
-        trained9 = {est: train_estimator(dev, data2, est, work)
-                    for est in ("nb", "svc")}
-        nb_check = check_nb_card_vs_cpu(dev, data2, trained9["nb"])
-        served9 = serve_nb_svc(dev, data2, trained9, work)
-        evaluated9 = evaluate_commands(dev, data2, trained9, work)
-    fit2 = mlp_fit_profile(dev, data2)
-    regs = fit_regressors(dev, data4)
-    new9 = measure_phase9(dev, regs, served9)
+        with clock("4 data"):
+            data = fit_data(work)
+        with clock("1 build"):
+            built.result()
+        build_pool.shutdown()
+        log(f"kernels built via {_build.BUILD_INFO['route']} in "
+            f"{_build.BUILD_INFO['seconds']:.1f} s [{card}]")
+        with clock("2 kernels"):
+            errs = check_kernels(dev)
+            cases = hist_cases(data["train"], dev)
+            errs["tree_hist"] = check_tree_hist(cases)
+        with clock("3 serve"):
+            summary, served = serve(dev, work)
+        with clock("8 forms"):
+            forms = serve_forms(dev, work)
+            split8 = dispatch_split(dev, [os.path.join(work, "in8", f)
+                                          for f in ("part_0000.csv",
+                                                    "part_0001.csv")],
+                                    admit=False)
+        with clock("11 failures"):
+            failures = failure_paths(dev, work)
+        with clock("12 data plane"):
+            phase12 = data_plane(dev, work)
+        with clock("13 self-tuning"):
+            phase13 = self_tuning(dev, work)
+        with clock("14 lifecycle"):
+            phase14 = lifecycle(dev, work)
+        with clock("5 breakdown"):
+            stages = breakdown(dev, work)
+        with clock("4+6 train commands"):
+            data4 = gbt_data(work)
+            # the two train processes start together
+            trained, trained4 = together((train, dev, data, work),
+                                         (train_gbt, dev, data4, work))
+        with clock("6 config 4"):
+            served4 = serve_gbt(dev, data4, trained4, work)
+    with clock("4 reduced fit"):
+        reduced = reduced_fit(data, dev)
+    with clock("6 config 4"):
+        reduced4 = reduced_gbt_fit(data4, dev)
+        tree = dt_fit(data4, dev)
+    with clock("5 fit profiles"):
+        # config 3's profiled fit first: after a long profile in a
+        # process, later profiler windows may drop launches (config 4
+        # counts on none)
+        fit = fit_breakdown(data, dev)
+        own = fit.pop("cases")
+        errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own))
+        fit4 = gbt_fit_breakdown(data4, dev)
+        own4 = fit4.pop("cases")
+        check_per_tree_forms(own4)
+        errs["tree_hist"] = max(errs["tree_hist"], check_tree_hist(own4))
+    with clock("5 kernel times"):
+        walks = measure_forest(dev, served, errs["forest_traversal"],
+                               summary["kernel_launches"]["forest_traversal"])
+        walks += measure_forest_gbt(dev, data4, trained4, served4, {
+            "fit": trained4["kernel_launches"]["forest_traversal"],
+            "serve": served4["summary"]["kernel_launches"][
+                "forest_traversal"]})
+        kernels = [next(k for k in walks if k["rows"] == max(FOREST_ROWS))]
+        pads = measure_pad(dev, summary["pad_launch_shapes"])
+        kernels.append(pads[0])
+        timed = {k: cases[k] for k in ("widest level group", "chisq")}
+        hist = measure_tree_hist({**timed, **own}, errs["tree_hist"],
+                                 trained["kernel_launches"]["tree_hist"])
+        hist += measure_tree_hist(own4, errs["tree_hist"],
+                                  trained4["kernel_launches"]["tree_hist"])
+        kernels.append(hist[0])
+
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        with clock("7 configs 2 and 1"):
+            # each train process starts once its data is written: config
+            # 1's beside config 2's data, then config 2's and phase 9's
+            # two (nb, svc on config 2's flows) together
+            pool = ThreadPoolExecutor(4)
+            data1 = lbfgs_data(work, LR_ROWS, binary=True, tag="1")
+            job1 = pool.submit(train_lbfgs, dev, data1, work, [
+                "--estimator", "lr", "--binary", "--reg-param", str(LR_REG)])
+            data2 = lbfgs_data(work, MLP_ROWS, binary=False, tag="2")
+            job2 = pool.submit(train_lbfgs, dev, data2, work, [])
+            jobs9 = {est: pool.submit(train_estimator, dev, data2, est, work)
+                     for est in ("nb", "svc")}
+            trained2, trained1 = job2.result(), job1.result()
+            check_config2(trained2)
+            check_config1(dev, data1, trained1)
+            # the staged and default config-2 serves on the card, in the
+            # commands and in this process alike: the host-serve
+            # crossover is pinned off, as bench config 6 pins it (one
+            # more default serve leaves it unset: serve_mlp_rule)
+            with environ(SNTC_SERVE_HOST_ROWS=0):
+                served2 = serve_mlp(dev, data2, trained2, work)
+            reduced_lbfgs = reduced_lbfgs_fits(dev, data2, data1, work)
+        with clock("9 nb, svc, evaluate"):
+            trained9 = {est: job.result() for est, job in jobs9.items()}
+            pool.shutdown()
+            nb_check = check_nb_card_vs_cpu(dev, data2, trained9["nb"])
+            served9 = serve_nb_svc(dev, data2, trained9, work)
+            evaluated9 = evaluate_commands(dev, data2, trained9, work)
+        with clock("15 fused serve"):
+            phase15 = fused_serve(dev, data1, trained1, work)
+    with clock("7 configs 2 and 1"):
+        fit2 = mlp_fit_profile(dev, data2)
+    with clock("9 nb, svc, evaluate"):
+        regs = fit_regressors(dev, data4)
+        new9 = measure_phase9(dev, regs, served9)
     kernels += new9
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
-        phase10 = lane_fits(dev, data2, data1, work)
-    phase14["lr"] = lr_partial_fit(dev, data1)
+        with clock("10 lanes"):
+            phase10 = lane_fits(dev, data2, data1, work)
+    with clock("14 lifecycle"):
+        phase14["lr"] = lr_partial_fit(dev, data1)
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
     kernels += phase14["kernels"]
+    kernels += phase15["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -5432,6 +6304,7 @@ def main() -> int:
         **phase12["storage"]}))
     report_phase13(phase13, card)
     report_phase14(phase14, card)
+    report_phase15(phase15, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -5458,12 +6331,21 @@ def main() -> int:
                                   "kernels": new9},
                        "phase10": phase10, "phase11": failures,
                        "phase12": phase12, "phase13": phase13,
-                       "phase14": phase14}, f,
+                       "phase14": phase14, "phase15": phase15,
+                       "phase_seconds": PHASE_SECONDS}, f,
                       indent=1, default=str)
+    finish(kernels, card)
+    return 0
+
+
+def finish(kernels: list, card: str) -> None:
+    """The last lines: each phase's wall-clock, the kernels, the card,
+    the result."""
+    print("phase_seconds " + json.dumps(PHASE_SECONDS))
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()
          if k2 not in ("plan", "rows", "forest", "per_class_device_ms",
-                       "library_device_ms")}
+                       "library_device_ms", "shapes")}
         for k in kernels
     ]}))
     print(card)
@@ -5471,6 +6353,55 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def main_phases(dev, card: str, phases: list) -> int:
+    """``--phases``: the named phases alone, each after what it needs
+    (phase 3's saved model for 11-13; config 1's data and train command
+    for 15), every check as in the whole run; the kernels line holds the
+    entries those phases measure."""
+    bad = [p for p in phases if p not in PHASES]
+    if bad:
+        raise SystemExit(f"--phases: unknown {bad} (known: {PHASES})")
+    log(f"kernels built via {_build.BUILD_INFO['route']} in "
+        f"{_build.BUILD_INFO['seconds']:.1f} s [{card}]")
+    kernels: list = []
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        if "2" in phases:
+            with clock("2 kernels"):
+                check_kernels(dev)
+        if any(p in phases for p in ("3", "11", "12", "13")):
+            with clock("3 serve"):
+                summary, _served = serve(dev, work)
+            if "3" in phases:
+                kernels += measure_pad(dev, summary["pad_launch_shapes"])
+        if "11" in phases:
+            with clock("11 failures"):
+                failure_paths(dev, work)
+        if "12" in phases:
+            with clock("12 data plane"):
+                kernels += data_plane(dev, work)["pads"]
+        if "13" in phases:
+            with clock("13 self-tuning"):
+                p13 = self_tuning(dev, work)
+            report_phase13(p13, card)
+            kernels += p13["pads"]
+        if "14" in phases:
+            with clock("14 lifecycle"):
+                p14 = lifecycle(dev, work)
+            report_phase14(p14, card)
+            kernels += p14["kernels"]
+        if "15" in phases:
+            with clock("15 fused serve"):
+                data1 = lbfgs_data(work, LR_ROWS, binary=True, tag="1")
+                trained1 = train_lbfgs(dev, data1, work, [
+                    "--estimator", "lr", "--binary", "--reg-param",
+                    str(LR_REG)])
+                check_config1(dev, data1, trained1)
+                p15 = fused_serve(dev, data1, trained1, work)
+            report_phase15(p15, card)
+            kernels += p15["kernels"]
+    finish(kernels, card)
     return 0
 
 

@@ -15,11 +15,14 @@ regressors:
                Pipeline, PipelineModel
   data/        CICIDS2017 schema, CSV ingest + cleaning, synthetic traffic
   feature/     VectorAssembler, ChiSqSelector, StandardScaler,
-               StringIndexer (+ models), IndexToString
+               MinMaxScaler, MaxAbsScaler, RobustScaler, PCA,
+               StringIndexer (+ models), IndexToString, Normalizer,
+               Binarizer, DCT
   ops/         quantile binning, the chi-square contingency, the
                LBFGS/OWLQN/projected-LBFGS minimizer and its
                lane-batched form
-  models/      ClassificationModel, MultilayerPerceptronClassifier,
+  models/      ClassificationModel (the host-serve crossover),
+               MultilayerPerceptronClassifier,
                LogisticRegression, LinearSVC, NaiveBayes,
                RandomForestClassifier, DecisionTreeClassifier,
                GBTClassifier, OneVsRest, the DT/RF/GBT regressors (+
@@ -39,6 +42,10 @@ regressors:
                an exactly-once offset log
   lifecycle/   drift monitor, NB/LR partial_fit states, shadow promotion
                and the between-batches hot swap
+  fuse/        the whole-pipeline fusion compiler
+  obs/         metrics registry and its exposition, span tracer,
+               profiler capture, the fused segments' roofline
+  utils/       the transfer ledger, MetricsLogger
   app.py       ``python -m sntc_tpu_torch train``, ``evaluate`` and
                ``serve``
 
@@ -47,3 +54,25 @@ Entry points run on ``device="cuda"`` unless the caller passes
 """
 
 __version__ = "0.1.0"
+
+from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.core.base import (
+    Estimator,
+    Model,
+    Pipeline,
+    PipelineModel,
+    Transformer,
+)
+from sntc_tpu_torch.core.params import Param, Params
+
+__all__ = [
+    "Frame",
+    "Estimator",
+    "Transformer",
+    "Model",
+    "Pipeline",
+    "PipelineModel",
+    "Param",
+    "Params",
+    "__version__",
+]

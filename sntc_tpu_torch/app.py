@@ -5,7 +5,8 @@
         [--layers 78,64,15] [--metric macroF1] \\
         [--reg-param 1e-4] [--chisq-top 40] [--num-trees 20] \\
         [--max-depth 10] [--max-iter 100] [--step-size 0.1] \\
-        [--max-bins 128] [--model-out m/] [--device cuda|cpu]
+        [--max-bins 128] [--model-out m/] [--metrics-out PATH] \\
+        [--trace-out PATH] [--device-trace DIR] [--device cuda|cpu]
     python -m sntc_tpu_torch serve --model m/ --watch data/in \\
         --out data/out --checkpoint data/ckpt [--shape-buckets N] \\
         [--max-files-per-batch N] [--pipeline-depth 2] \\
@@ -21,8 +22,8 @@
         [--slo-min-rows-per-sec R] [--slo-max-shed-rate F] \\
         [--controller|--no-controller] [--partial-fit] \\
         [--drift-window N] [--drift-threshold 0.25] [--promote-from DIR] \\
-        [--shadow-window 8] [--promote-margin 0.05] [--once] \\
-        [--device cuda|cpu]
+        [--shadow-window 8] [--promote-margin 0.05] [--metrics-out PATH] \\
+        [--trace-out PATH] [--device-trace DIR] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
     python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
@@ -105,6 +106,15 @@ between batches); ``--partial-fit`` refits a candidate head (LR / NB)
 from the live labelled batches.  Only the two that can swap keep the
 head out of the fused segments; drift alone keeps full fusion.
 
+``train`` and ``serve`` take the JAX commands' obs flags:
+``--metrics-out PATH`` writes the metrics registry as Prometheus text at
+exit, ``--trace-out PATH`` arms the span tracer and writes its spans as
+Chrome-trace JSON at exit (both also when the run fails), and
+``--device-trace DIR`` wraps the fit or the serve in a
+``torch.profiler`` capture.  With ``SNTC_OBS_COST_ANALYSIS=1`` the fused
+segments also count their roofline (``fusion``'s ``roofline``,
+``sntc_mfu_ratio``).
+
 ``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
 root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
 what is safe unless ``--no-repair``, print one JSON report (also to
@@ -114,6 +124,7 @@ what is safe unless ``--no-repair``, print one JSON report (also to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -121,6 +132,7 @@ from typing import List, Optional
 
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.evaluation.multiclass import METRIC_NAMES
+from sntc_tpu_torch.obs.trace import span
 
 
 def strip_label_indexer(model, label_index_col: str):
@@ -303,7 +315,68 @@ def _load_data(args):
     return df
 
 
+def _obs_start(args) -> None:
+    """Arm what a command's obs flags ask for, before any work:
+    ``--trace-out`` enables the span tracer for the process."""
+    if getattr(args, "trace_out", None):
+        from sntc_tpu_torch.obs import enable_tracing
+
+        enable_tracing()
+
+
+def _obs_finish(args) -> None:
+    """Publish what a command's obs flags ask for, at exit (a failed run
+    too): the Prometheus text snapshot (``--metrics-out``, atomic) and
+    the spans as Chrome-trace JSON (``--trace-out``)."""
+    if getattr(args, "metrics_out", None):
+        from sntc_tpu_torch.obs import registry
+
+        registry().write_prometheus(args.metrics_out)
+    if getattr(args, "trace_out", None):
+        from sntc_tpu_torch.obs import tracer
+
+        t = tracer()
+        if t is not None:
+            t.export_chrome_trace(args.trace_out)
+
+
+def _device_trace_ctx(args):
+    """``--device-trace DIR``: a ``torch.profiler`` capture around the
+    run, so device work lines up with the host spans; a null context
+    when the flag is unset."""
+    if getattr(args, "device_trace", None):
+        from sntc_tpu_torch.obs import device_trace
+
+        return device_trace(args.device_trace)
+    return contextlib.nullcontext()
+
+
+def _add_obs_flags(p) -> None:
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write the process metrics registry as a "
+                   "Prometheus text snapshot here (atomic; at exit, a "
+                   "failed run included)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="arm the span tracer and export the host-stage "
+                   "timeline as Chrome-trace JSON here at exit "
+                   "(loadable in chrome://tracing / ui.perfetto.dev)")
+    p.add_argument("--device-trace", default=None, metavar="DIR",
+                   help="additionally capture a torch.profiler "
+                   "(CUDA kernel-level) trace of the run into DIR "
+                   "for Perfetto/TensorBoard")
+
+
 def cmd_train(args) -> int:
+    _obs_start(args)
+    # published in finally: a failed fit is the run whose partial
+    # metrics and spans the flags were armed to see
+    try:
+        return _cmd_train_body(args)
+    finally:
+        _obs_finish(args)
+
+
+def _cmd_train_body(args) -> int:
     from sntc_tpu_torch.core.base import Pipeline
     from sntc_tpu_torch.data import CICIDS2017_FEATURES
     from sntc_tpu_torch.evaluation import MulticlassClassificationEvaluator
@@ -332,11 +405,14 @@ def cmd_train(args) -> int:
     est.set("featuresCol", features_col)
     pipe = Pipeline(stages=_feature_stages(args, device, with_scaler) + [est])
     t0 = time.perf_counter()
-    model = pipe.fit(train)
+    with _device_trace_ctx(args), span("train.fit",
+                                       estimator=args.estimator):
+        model = pipe.fit(train)
     fit_s = time.perf_counter() - t0
-    value = MulticlassClassificationEvaluator(
-        metricName=args.metric
-    ).evaluate(model.transform(test))
+    with span("train.evaluate"):
+        value = MulticlassClassificationEvaluator(
+            metricName=args.metric
+        ).evaluate(model.transform(test))
     if args.model_out:
         save_model(model, args.model_out)
     line = {
@@ -413,6 +489,14 @@ def _arm_lifecycle(args, model, raw_model, labels, device):
 
 
 def cmd_serve(args) -> int:
+    _obs_start(args)
+    try:
+        return _cmd_serve_body(args)
+    finally:
+        _obs_finish(args)
+
+
+def _cmd_serve_body(args) -> int:
     from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
     from sntc_tpu_torch.mlio import load_model
     from sntc_tpu_torch.resilience import (
@@ -519,7 +603,8 @@ def cmd_serve(args) -> int:
     try:
         if args.once:
             t0 = time.perf_counter()
-            n = q.process_available()
+            with _device_trace_ctx(args):
+                n = q.process_available()
             seconds = time.perf_counter() - t0
             print(json.dumps({
                 "batches": n,
@@ -550,7 +635,8 @@ def cmd_serve(args) -> int:
         print(f"serving: watching {args.watch} -> {args.out} (checkpoint "
               f"{args.checkpoint}); SIGTERM/Ctrl-C drains", file=sys.stderr)
         try:
-            status = sup.run(poll_interval=args.poll_interval)
+            with _device_trace_ctx(args):
+                status = sup.run(poll_interval=args.poll_interval)
         except KeyboardInterrupt:
             status = sup.drain_now("KeyboardInterrupt")
         except Exception as e:
@@ -641,6 +727,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chisq-top", type=int, default=0,
                    help="if > 0, select this many features by chi-square")
     p.add_argument("--features-col", default="features")
+    _add_obs_flags(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("evaluate", help="evaluate a saved model on CSVs")
@@ -802,6 +889,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "the incumbent to promote; with --partial-fit the "
                    "candidate is a refit of the incumbent, so refit "
                    "jitter re-promotes every window at margin 0")
+    _add_obs_flags(p)
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
     p.add_argument("--poll-interval", type=float, default=1.0)

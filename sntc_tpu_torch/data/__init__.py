@@ -12,13 +12,17 @@ from sntc_tpu_torch.data.schema import (
     SchemaViolation,
 )
 from sntc_tpu_torch.data.synth import (
+    STREAM_SIZES,
     generate_drift_frames,
     generate_frame,
+    write_bench_stream,
     write_drift_stream,
     write_raw_csv,
 )
 
 __all__ = [
+    "STREAM_SIZES",
+    "write_bench_stream",
     "ADMISSION_MODES",
     "AdmissionResult",
     "CICIDS2017_CONTRACT",

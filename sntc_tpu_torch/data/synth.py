@@ -2,7 +2,8 @@
 
 Counterpart of ``generate_frame``, the raw-CSV writer and the drift
 fixture (``generate_drift_frames``, ``write_drift_stream``) of
-``sntc_tpu/data/synth.py``: 78 nonneg float flow features, 15 labels with
+``sntc_tpu/data/synth.py``, and of bench config 5's file stream
+(``write_bench_stream``): 78 nonneg float flow features, 15 labels with
 benign-heavy priors, injected ``Infinity``/``NaN`` values in ``Flow
 Bytes/s`` / ``Flow Packets/s``, and a per-class lognormal signature over
 four salient flow features.  The same seed draws the same frame as the
@@ -240,3 +241,32 @@ def write_drift_stream(
             shift_priors=shift_priors)
     return [_write_drift_csv(f, os.path.join(out_dir, f"part_{i:04d}.csv"))
             for i, f in enumerate(frames)]
+
+
+#: the micro-batch row counts of bench config 5's stream, in turn
+STREAM_SIZES = (2048, 1024, 512)
+
+
+def write_bench_stream(in_dir: str, frame: Frame, passes: int = 1,
+                       chunk_cycle=None) -> List[int]:
+    """Bench config 5's file stream (``_write_bench5_stream`` of the JAX
+    package's ``bench.py``), which configs 5 and 6 serve: ``passes``
+    passes over ``frame``, one CSV of its 78 feature columns a file
+    (``part_NNNNN.csv``), the files' row counts cycling through
+    ``chunk_cycle`` (default :data:`STREAM_SIZES`); the last file of a
+    pass holds what is left.  Returns the row count of every file."""
+    cycle = chunk_cycle or STREAM_SIZES
+    os.makedirs(in_dir, exist_ok=True)
+    sizes: List[int] = []
+    for _pass in range(passes):
+        i = 0
+        while i < frame.num_rows:
+            size = cycle[len(sizes) % len(cycle)]
+            chunk = frame.slice(i, min(i + size, frame.num_rows))
+            pacsv.write_csv(
+                chunk.select(CICIDS2017_FEATURES).to_arrow(),
+                os.path.join(in_dir, f"part_{len(sizes):05d}.csv"),
+            )
+            i += chunk.num_rows
+            sizes.append(chunk.num_rows)
+    return sizes

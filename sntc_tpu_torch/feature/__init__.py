@@ -2,6 +2,18 @@ from sntc_tpu_torch.feature.chisq_selector import (
     ChiSqSelector,
     ChiSqSelectorModel,
 )
+from sntc_tpu_torch.feature.dct import DCT
+from sntc_tpu_torch.feature.pca import PCA, PCAModel
+from sntc_tpu_torch.feature.scalers import (
+    Binarizer,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    RobustScaler,
+    RobustScalerModel,
+)
 from sntc_tpu_torch.feature.standard_scaler import (
     StandardScaler,
     StandardScalerModel,
@@ -14,9 +26,20 @@ from sntc_tpu_torch.feature.string_indexer import (
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
 
 __all__ = [
+    "Binarizer",
     "ChiSqSelector",
     "ChiSqSelectorModel",
+    "DCT",
     "IndexToString",
+    "MaxAbsScaler",
+    "MaxAbsScalerModel",
+    "MinMaxScaler",
+    "MinMaxScalerModel",
+    "Normalizer",
+    "PCA",
+    "PCAModel",
+    "RobustScaler",
+    "RobustScalerModel",
     "StandardScaler",
     "StandardScalerModel",
     "StringIndexer",

@@ -33,11 +33,24 @@ classifies at the predictor.  ``_bind`` returning
 None is not a failure but the plan's dtype rule (an ``F32_ONLY`` gather
 over a non-float32 column runs the eager stages), counted in
 ``fallbacks``.
+
+Observability, at the JAX planner's sites: a dispatch runs in the span
+``fuse.dispatch`` and a finalize's copy back in ``fuse.finalize``
+(``obs.trace``; free while tracing is off).  Under
+``SNTC_OBS_COST_ANALYSIS`` a segment counts each fresh signature's cost
+from its bound shapes (``cost_analyses``: the FLOPs of its plans' and
+its head's products, the bytes of its inputs read once and its outputs
+written once), times every dispatch to its host copy
+(``cost_timings``: ``[seconds, invocations]`` per signature), publishes
+``sntc_mfu_ratio`` / ``sntc_mfu_bw_ratio`` per segment at each finalize
+(``obs.cost.emit_mfu``), and :func:`fusion_stats` adds the
+``cost_analysis`` and ``roofline`` blocks.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +68,8 @@ from sntc_tpu_torch.fuse.registry import (
 )
 from sntc_tpu_torch.fuse.rules import fold_scalers
 from sntc_tpu_torch.models.base import ClassificationModel
+from sntc_tpu_torch.obs import cost as obs_cost
+from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.utils.profiling import active_ledgers
 
 
@@ -110,6 +125,10 @@ class FusedSegment(Transformer):
         self.uploads = 0  # arguments bound from the host
         self.device_binds = 0  # arguments bound as they were, on device
         self.downloads = 0  # outputs copied to the host
+        # the roofline plane (SNTC_OBS_COST_ANALYSIS): per signature
+        # repr, the counted cost and [seconds, invocations]
+        self.cost_analyses: dict = {}
+        self.cost_timings: dict = {}
 
         # external inputs: the first reading plan's policy decides the
         # bind.  Two plans reading ONE external column under different
@@ -265,8 +284,15 @@ class FusedSegment(Transformer):
         for led in ledgers:
             led.record_uploads(len(uploaded), nbytes)
         head, live = self._head, self._live_writes
+        sig_key = _sig_repr(sig)
+        costed = obs_cost.enabled()
+        platform, device_name = _platform(args[0].device) if costed \
+            else (None, None)
+        count = costed and sig_key not in self.cost_analyses
+        t_disp = time.perf_counter() if costed else None
         try:
-            outs = self._launch(args, head, live)
+            with span("fuse.dispatch", args=len(args)):
+                outs, flops = self._launch(args, head, live, count)
         except Exception as e:
             err = self._device_error(e, sig, "dispatching")
             if err is None:
@@ -279,10 +305,21 @@ class FusedSegment(Transformer):
             self.invocations += 1
             self.uploads += len(uploaded)
             self.device_binds += len(args) - len(uploaded)
+            if count:
+                self.cost_analyses[sig_key] = {
+                    "platform": platform,
+                    "device_name": device_name,
+                    "flops": flops,
+                    "bytes accessed": float(
+                        sum(a.nbytes for a in args)
+                        + sum(o.nbytes for o in outs)),
+                }
+        seg_index = self.segment_index
 
         def finalize() -> Frame:
             try:
-                host = [o.cpu().numpy() for o in outs]
+                with span("fuse.finalize"):
+                    host = [o.cpu().numpy() for o in outs]
             except Exception as e:
                 # an execution error shows at this copy, on the delivery
                 # thread in the pipelined engine
@@ -295,6 +332,19 @@ class FusedSegment(Transformer):
                 led.record_downloads(len(host), nbytes)
             with self._lock:
                 self.downloads += len(host)
+            if t_disp is not None:
+                # dispatch to host copy: the roofline's time for this
+                # signature; the gauges follow every batch
+                dt = time.perf_counter() - t_disp
+                with self._lock:
+                    acc = self.cost_timings.setdefault(sig_key, [0.0, 0])
+                    acc[0] += dt
+                    acc[1] += 1
+                    secs, inv = acc
+                obs_cost.emit_mfu(
+                    seg_index if seg_index is not None else 0,
+                    obs_cost.roofline(self.cost_analyses.get(sig_key),
+                                      secs, inv, platform, device_name))
             out_frame = frame
             for name, arr in zip(live, host[1:] if head is not None else host):
                 out_frame = out_frame.with_column(name, arr)
@@ -304,17 +354,32 @@ class FusedSegment(Transformer):
 
         return finalize
 
-    def _launch(self, args, head, live) -> list:
+    def _launch(self, args, head, live, count: bool = False):
         """Every plan's ``apply`` and the head's packed program on the
-        bound tensors: the segment's device work."""
+        bound tensors: the segment's device work.  Returns the outputs
+        and, when ``count``, the FLOPs of their products (else 0)."""
         env = dict(zip((n for n, _ in self._external), args))
+        flops = 0.0
         for plan in self._plans:
             env.update(plan.apply(env))
+            if count and plan.flops is not None:
+                flops += plan.flops(env)
         outs = []
         if head is not None:
-            outs.append(head._predict_all_dev(env[head.getFeaturesCol()]))
+            x = env[head.getFeaturesCol()]
+            outs.append(head._predict_all_dev(x))
+            if count:
+                flops += head.serve_flops(x.shape[0])
         outs.extend(env[w] for w in live)
-        return outs
+        return outs, flops
+
+
+def _platform(device: torch.device):
+    """The roofline's platform of a segment bound on ``device``, and
+    the card's name on a GPU."""
+    if device.type == "cuda":
+        return "gpu", torch.cuda.get_device_name(device)
+    return "cpu", None
 
 
 def _sig_repr(sig) -> str:
@@ -436,7 +501,7 @@ def fusion_stats(model) -> Optional[dict]:
     segs = fused_segments(model)
     if not segs:
         return None
-    return {
+    out = {
         "segments": len(segs),
         "fused_stages": sum(len(s.fused_stages) for s in segs),
         "compile_events": sum(s.compile_events for s in segs),
@@ -446,3 +511,16 @@ def fusion_stats(model) -> Optional[dict]:
         "device_binds": sum(s.device_binds for s in segs),
         "downloads": sum(s.downloads for s in segs),
     }
+    # keyed per segment: two segments may bind equal shapes
+    costs = {f"segment{i}:{sig}": cost for i, s in enumerate(segs)
+             for sig, cost in s.cost_analyses.items()}
+    if costs:  # only under SNTC_OBS_COST_ANALYSIS
+        out["cost_analysis"] = costs
+        roof = {}
+        for i, s in enumerate(segs):
+            for sig, cost in s.cost_analyses.items():
+                secs, inv = s.cost_timings.get(sig, (0.0, 0))
+                roof[f"segment{i}:{sig}"] = obs_cost.roofline(
+                    cost, secs, inv, cost["platform"], cost["device_name"])
+        out["roofline"] = roof
+    return out

@@ -3,7 +3,8 @@
 Counterpart of ``sntc_tpu/fuse/registry.py``.  The fusion planner
 (``sntc_tpu_torch.fuse.planner``) fuses a stage only when it can run it
 as a PURE function of device tensors, ``apply(cols_in) -> cols_out``,
-with every parameter baked in when the plan is built.  Each such stage
+with the fitted stage's parameters (taken when the plan is built, or
+read from the stage as its staged transform reads them).  Each such stage
 registers a plan function ``(fitted stage) -> DevicePlan | None`` keyed
 on its EXACT class (a subclass is not fused unless it is registered
 here too).  It returns None when this instance must run eagerly
@@ -12,11 +13,20 @@ data-dependent raise are host decisions).
 
 Bitwise contract: every ``apply`` does its stage's ``transform``
 arithmetic operation for operation (same casts, same order), so a fused
-segment's output equals the staged path's.
+segment's output equals the staged path's; the scalers', DCT's and
+PCA's plans call the very functions their staged transforms call.
 
-Registered: ``StandardScalerModel``, ``ChiSqSelectorModel`` (a column
-gather) and ``VectorAssembler`` in ``keep`` mode — the stages the port
-has.  The JAX package's other registered stages wait for their ports.
+Registered: ``StandardScalerModel``, ``MinMaxScalerModel``,
+``MaxAbsScalerModel``, ``RobustScalerModel``, ``PCAModel`` and ``DCT``
+(the three scalers' elementwise float32 maps and the two full-f32
+products run the same code as their staged transforms: the models'
+``scale_tensor``, ``pca_project`` and ``dct_apply``),
+``ChiSqSelectorModel`` (a column gather) and ``VectorAssembler`` in
+``keep`` mode.  The JAX package's other registered stages wait for
+their ports.
+
+A plan may carry ``flops(env)``: the FLOPs of its products on the bound
+tensors, which the segment's roofline counts (``obs.cost``).
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ class DevicePlan:
     """One fused stage: ``apply`` maps a dict of device tensors to the
     stage's written columns, doing exactly the host transform's math."""
 
-    __slots__ = ("reads", "writes", "apply", "read_policy")
+    __slots__ = ("reads", "writes", "apply", "read_policy", "flops")
 
     def __init__(
         self,
@@ -45,11 +55,13 @@ class DevicePlan:
         writes: List[str],
         apply: Callable[[dict], dict],
         read_policy: str = F32_CAST,
+        flops: Optional[Callable[[dict], float]] = None,
     ):
         self.reads = list(reads)
         self.writes = list(writes)
         self.apply = apply
         self.read_policy = read_policy
+        self.flops = flops
 
 
 _REGISTRY: Dict[type, Callable] = {}
@@ -85,8 +97,16 @@ def _on(cache: dict, a: np.ndarray, device) -> torch.Tensor:
 
 def _register_builtin() -> None:
     from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
+    from sntc_tpu_torch.feature.dct import DCT, dct_apply
+    from sntc_tpu_torch.feature.pca import PCAModel, pca_project
+    from sntc_tpu_torch.feature.scalers import (
+        MaxAbsScalerModel,
+        MinMaxScalerModel,
+        RobustScalerModel,
+    )
     from sntc_tpu_torch.feature.standard_scaler import StandardScalerModel
     from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+    from sntc_tpu_torch.obs.cost import matmul_flops
 
     @_register(StandardScalerModel)
     def _standard_scaler(m):
@@ -105,6 +125,43 @@ def _register_builtin() -> None:
             return {out: x}
 
         return DevicePlan([inp], [out], apply)
+
+    def _scaler_plan(m):
+        # the model's own tensor map: the staged transform's operations
+        inp, out = m.getInputCol(), m.getOutputCol()
+        return DevicePlan([inp], [out],
+                          lambda cols: {out: m.scale_tensor(cols[inp])})
+
+    for cls in (MinMaxScalerModel, MaxAbsScalerModel, RobustScalerModel):
+        _register(cls)(_scaler_plan)
+
+    @_register(PCAModel)
+    def _pca(m):
+        inp, out = m.getInputCol(), m.getOutputCol()
+        d, k = m.pc.shape
+
+        def apply(cols):
+            x = cols[inp]
+            return {out: pca_project(x, m.pc_on(x.device))}
+
+        return DevicePlan([inp], [out], apply, flops=lambda env: matmul_flops(
+            env[inp].shape[0], d, k))
+
+    @_register(DCT)
+    def _dct(m):
+        inp, out = m.getInputCol(), m.getOutputCol()
+
+        def apply(cols):
+            x = cols[inp]
+            if x.ndim != 2:  # the staged transform's ValueError
+                raise ValueError("inputCol must be a vector column")
+            return {out: dct_apply(x, m.basis_on(x.shape[1], x.device))}
+
+        def flops(env):
+            n, f = env[inp].shape
+            return matmul_flops(n, f, f)
+
+        return DevicePlan([inp], [out], apply, flops=flops)
 
     def _gather_plan(inp, out, idx):
         idx = np.asarray(idx, np.int64)

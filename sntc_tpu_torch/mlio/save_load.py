@@ -47,6 +47,15 @@ from sntc_tpu_torch.evaluation import (
     RegressionEvaluator,
 )
 from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
+from sntc_tpu_torch.feature.dct import DCT
+from sntc_tpu_torch.feature.pca import PCAModel
+from sntc_tpu_torch.feature.scalers import (
+    Binarizer,
+    MaxAbsScalerModel,
+    MinMaxScalerModel,
+    Normalizer,
+    RobustScalerModel,
+)
 from sntc_tpu_torch.feature.standard_scaler import (
     StandardScaler,
     StandardScalerModel,
@@ -102,6 +111,13 @@ PORTED_CLASSES: Dict[str, type] = {
     "sntc_tpu.feature.vector_assembler.VectorAssembler": VectorAssembler,
     "sntc_tpu.feature.chisq_selector.ChiSqSelectorModel": ChiSqSelectorModel,
     "sntc_tpu.feature.standard_scaler.StandardScalerModel": StandardScalerModel,
+    "sntc_tpu.feature.scalers.MinMaxScalerModel": MinMaxScalerModel,
+    "sntc_tpu.feature.scalers.MaxAbsScalerModel": MaxAbsScalerModel,
+    "sntc_tpu.feature.scalers.RobustScalerModel": RobustScalerModel,
+    "sntc_tpu.feature.scalers.Normalizer": Normalizer,
+    "sntc_tpu.feature.scalers.Binarizer": Binarizer,
+    "sntc_tpu.feature.dct.DCT": DCT,
+    "sntc_tpu.feature.pca.PCAModel": PCAModel,
     "sntc_tpu.models.mlp.MultilayerPerceptronClassificationModel":
         MultilayerPerceptronClassificationModel,
     "sntc_tpu.models.logistic_regression.LogisticRegressionModel":

@@ -10,9 +10,25 @@ A subclass implements ``_predict_all_dev(X) -> [N, 2K+1]``: one packed
 tensor of raw | prob | prediction computed on the model's device, so a
 micro-batch costs one device→host copy.  That copy, and a head's upload
 of host features, are recorded in the transfer ledger.
+
+**The host-serve crossover**, the JAX package's placement rule: a model
+with a host path (``_predict_raw_prob_host``: the MLP and LR heads, in
+numpy) serves a batch whose features are host numpy, of at most
+``SNTC_SERVE_HOST_ROWS`` rows, on the host, from ``transform`` and
+``transform_async`` alike; a larger batch, a model without a host path,
+or features already in a tensor (a batch ``pad_assemble`` padded on the
+card, a stage's device output) dispatch the packed device program, so
+the rule never adds a round trip.  Unset, the variable defaults to the
+head's ``HOST_SERVE_ROWS``, set from the H100 readings of
+``chip_smoke.py`` phase 15 (c).  It is a placement rule, never a
+response to an error, and a fused segment does not consult it: it calls
+``_predict_all_dev`` itself.  Set the variable to 0 to serve every batch
+on the device.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -169,13 +185,74 @@ class ClassificationModel(ClassifierParams, Model):
             return "binary", np.asarray([self.getThreshold()], np.float32)
         return "argmax", np.zeros(1, np.float32)
 
+    def serve_flops(self, n_rows: int) -> float:
+        """FLOPs of the matrix products of the packed serve program on
+        ``n_rows`` rows (a fused segment's roofline counts them); 0 for a
+        head that runs none."""
+        return 0.0
+
+    # the most rows of host features served on the host when
+    # SNTC_SERVE_HOST_ROWS is unset (a head with a host path sets it)
+    HOST_SERVE_ROWS = 0
+
+    def _predict_raw_prob_host(self, X: np.ndarray):
+        """The host (numpy) predict path ``(raw, prob)`` of a float32
+        feature matrix, where a subclass has one: the crossover serves a
+        batch of at most :meth:`_host_serve_rows` rows through it."""
+        raise NotImplementedError
+
+    def has_host_serve(self) -> bool:
+        """True when this model has a host predict path."""
+        return (type(self)._predict_raw_prob_host
+                is not ClassificationModel._predict_raw_prob_host)
+
+    def _host_serve_rows(self) -> int:
+        env = os.environ.get("SNTC_SERVE_HOST_ROWS")
+        return self.HOST_SERVE_ROWS if env is None else int(env)
+
+    def _prob_to_prediction(self, prob: np.ndarray) -> np.ndarray:
+        """The probability→prediction rule of :meth:`_threshold_mode`,
+        in numpy (float64 indices)."""
+        mode, thr = self._threshold_mode()
+        if mode == "thresholds":
+            ts = thr.astype(np.float64)
+            zero = ts == 0
+            scaled = prob / np.where(zero, 1.0, ts)
+            # Spark: p/0 -> +inf when p > 0; a 0/0 class never wins
+            scaled = np.where(
+                zero[None, :], np.where(prob > 0, np.inf, -np.inf), scaled
+            )
+            return np.argmax(scaled, axis=1).astype(np.float64)
+        if mode == "binary":
+            return (prob[:, 1] > thr[0]).astype(np.float64)
+        return np.argmax(prob, axis=1).astype(np.float64)
+
+    def _build_output(self, frame: Frame, raw, prob) -> Frame:
+        out = frame
+        if self.getRawPredictionCol():
+            out = out.with_column(self.getRawPredictionCol(), raw)
+        if self.getProbabilityCol():
+            out = out.with_column(self.getProbabilityCol(), prob)
+        if self.getPredictionCol():
+            out = out.with_column(self.getPredictionCol(),
+                                  self._prob_to_prediction(prob))
+        return out
+
     def transform(self, frame: Frame) -> Frame:
         return self.transform_async(frame)()
 
     def transform_async(self, frame: Frame):
-        """Enqueue the packed device program; finalize copies it to the
-        host once and splits it into the output columns."""
-        packed_dev = self._predict_all_dev(frame[self.getFeaturesCol()])
+        """Host features at or below the host-serve crossover, on a model
+        with a host path, are served on the host (see the module docs).
+        Otherwise enqueue the packed device program; finalize copies it
+        to the host once and splits it into the output columns."""
+        X = frame[self.getFeaturesCol()]
+        if self.has_host_serve() and not isinstance(X, torch.Tensor) \
+                and X.shape[0] <= self._host_serve_rows():
+            out = self._build_output(frame, *self._predict_raw_prob_host(
+                np.asarray(X).astype(np.float32, copy=False)))
+            return lambda: out
+        packed_dev = self._predict_all_dev(X)
         ledgers = active_ledgers()
 
         def finalize():

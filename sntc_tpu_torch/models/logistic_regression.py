@@ -48,6 +48,7 @@ import torch
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.obs.cost import matmul_flops
 from sntc_tpu_torch.models.base import (
     CheckpointParams,
     ClassificationModel,
@@ -939,6 +940,14 @@ def _lr_serve(X, coefT, intercepts, thr, *, binomial, mode):
 
 
 class LogisticRegressionModel(_LrParams, DeviceHeadMixin, ClassificationModel):
+    # host-serve crossover (models/base.py): host features of at most
+    # this many rows are served on the host.  On an NVIDIA H100 80GB HBM3
+    # (700 W) the host served a binary 78-feature head faster at every
+    # size measured up to here, 1.9 against 2.2 ms at 65 536 rows (the
+    # card's time is mostly the upload; chip_smoke.py phase 15 (c),
+    # crossover_sweep)
+    HOST_SERVE_ROWS = 65536
+
     def __init__(
         self,
         coefficient_matrix: np.ndarray,  # [K, D] original space
@@ -1000,6 +1009,34 @@ class LogisticRegressionModel(_LrParams, DeviceHeadMixin, ClassificationModel):
     @property
     def num_classes(self) -> int:
         return self.coefficientMatrix.shape[0]
+
+    def serve_flops(self, n_rows: int) -> float:
+        k, d = self.coefficientMatrix.shape
+        return matmul_flops(n_rows, d, k)
+
+    def _predict_raw_prob_host(self, X: np.ndarray):
+        """numpy predict for batches at or below the host-serve
+        crossover (the JAX package's host path, float32): a [N, D] x
+        [D, K] product costs less than the device round trip."""
+        margins = X @ self.coefficientMatrix.T + self.interceptVector[None, :]
+        if self.is_binomial:
+            m = margins[:, 1] - margins[:, 0]
+            raw = np.stack([-m, m], axis=1)
+        else:
+            raw = margins
+        return raw, self._raw_to_probability(raw)
+
+    def _raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
+        if self.is_binomial:
+            # raw = [-m, +m]; Spark's probability is sigmoid(m), in the
+            # form that cannot overflow exp
+            m = raw[:, 1]
+            e = np.exp(-np.abs(m))
+            p1 = np.where(m >= 0, 1.0, e) / (1.0 + e)
+            return np.stack([1.0 - p1, p1], axis=1)
+        z = raw - raw.max(axis=1, keepdims=True)
+        e = np.exp(z)
+        return e / e.sum(axis=1, keepdims=True)
 
     def _predict_all_dev(self, X) -> torch.Tensor:
         mode, thr = self._serve_args()

@@ -32,6 +32,7 @@ import torch
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.obs.cost import matmul_flops
 from sntc_tpu_torch.models.base import (
     CheckpointParams,
     ClassificationModel,
@@ -270,6 +271,14 @@ def _mlp_serve(theta, X, thr, *, layers, mode):
 class MultilayerPerceptronClassificationModel(
     _MlpParams, DeviceHeadMixin, ClassificationModel
 ):
+    # host-serve crossover (models/base.py): host features of at most
+    # this many rows are served on the host.  On an NVIDIA H100 80GB HBM3
+    # (700 W) the float64 host path served [78, 64, 15] faster at 64 rows
+    # (0.19 against 0.53 ms) and slower from 256 on (0.38 against 0.33;
+    # 6.9 against 0.92 at 4 096; chip_smoke.py phase 15 (c),
+    # crossover_sweep)
+    HOST_SERVE_ROWS = 64
+
     def __init__(self, weights: np.ndarray, layers: List[int], device="cuda",
                  **kwargs):
         super().__init__(**kwargs)
@@ -297,6 +306,38 @@ class MultilayerPerceptronClassificationModel(
     @property
     def num_classes(self) -> int:
         return int(self.getLayers()[-1])
+
+    def serve_flops(self, n_rows: int) -> float:
+        sizes = _layer_sizes(tuple(int(v) for v in self.getLayers()))
+        return sum(matmul_flops(n_rows, d_in, d_out) for d_in, d_out in sizes)
+
+    def _predict_raw_prob_host(self, X: np.ndarray):
+        """float64 numpy forward pass for batches at or below the
+        host-serve crossover (the JAX package's host path): a small MLP
+        on a few thousand rows costs less than the device round trip."""
+        h = X.astype(np.float64)
+        theta = self.weights.astype(np.float64)
+        sizes = _layer_sizes(tuple(int(v) for v in self.getLayers()))
+        off = 0
+        for i, (d_in, d_out) in enumerate(sizes):
+            W = theta[off : off + d_in * d_out].reshape(d_in, d_out)
+            off += d_in * d_out
+            b = theta[off : off + d_out]
+            off += d_out
+            z = h @ W + b[None, :]
+            if i < len(sizes) - 1:
+                # sigmoid, overflow-safe
+                e = np.exp(-np.abs(z))
+                h = np.where(z >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+            else:
+                h = z
+        raw = h.astype(np.float32)
+        return raw, self._raw_to_probability(raw)
+
+    def _raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
+        z = raw - raw.max(axis=1, keepdims=True)
+        e = np.exp(z)
+        return e / e.sum(axis=1, keepdims=True)
 
     def _predict_all_dev(self, X) -> torch.Tensor:
         mode, thr = self._serve_args()

@@ -5,7 +5,8 @@ Counterpart of ``sntc_tpu/obs/metrics.py`` (``MetricsRegistry``,
 ``registry``, ``reset_registry``, ``inc``, ``set_gauge``, ``observe``,
 ``snapshot``), holding only the series that the serving engine and the
 resilience modules count into: batches and rows committed, batch
-duration, the event stream (retries among them), quarantines, fault
+duration, the event stream (retries among them), the tracer's evicted
+spans, the fused segments' roofline ratios, quarantines, fault
 injections, breaker and health state, device faults and OOM splits, the
 source's prefetch hits and misses, the rows admission rejected, the
 offsets load shedding dropped, the ingest graph's parse counts, stage
@@ -21,16 +22,25 @@ reads without the write locks.  Each metric holds at most
 ``max_label_sets`` label sets; further sets collapse into one
 ``overflow="true"`` series, counted by :meth:`label_overflows`.
 
-The Prometheus and JSONL exposition (``to_prometheus``,
-``write_jsonl``, ``--metrics-out``) waits for its slice of ROADMAP
-queue A (the rest of ``obs/``).
+Exposition, as in the JAX package: :meth:`MetricsRegistry.to_prometheus`
+(text format 0.0.4, metrics sorted by name), ``write_prometheus`` (an
+atomic publish; the commands' ``--metrics-out``) and ``write_jsonl``
+(one snapshot record a line, stamped by the registry's injectable
+``clock``/``mono``).  :func:`set_registry` swaps the process default.
+The per-segment roofline gauges ``sntc_mfu_ratio`` and
+``sntc_mfu_bw_ratio`` are set by ``obs.cost.emit_mfu`` under
+``SNTC_OBS_COST_ANALYSIS``; the tracer counts its evictions into
+``sntc_spans_dropped_total``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 from bisect import bisect_left
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 COUNTER = "counter"
 GAUGE = "gauge"
@@ -49,7 +59,8 @@ LATENCY_BUCKETS = (
 CATALOG: Dict[str, Dict[str, Any]] = {
     "sntc_events_total": dict(
         type=COUNTER, labels=("event", "site", "tenant"),
-        help="Structured resilience events by name and site.",
+        help="Structured resilience/lifecycle events by name, site, "
+        "and tenant (the _emit/emit_event stream, consolidated).",
     ),
     "sntc_events_dropped_total": dict(
         type=COUNTER, labels=("tenant",),
@@ -77,7 +88,8 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     ),
     "sntc_batch_duration_seconds": dict(
         type=HISTOGRAM, labels=("tenant",), buckets=LATENCY_BUCKETS,
-        help="WAL-intent to commit latency per micro-batch.",
+        help="WAL-intent\u2192commit latency per micro-batch (the "
+        "recentProgress durationMs distribution).",
     ),
     "sntc_rows_rejected_total": dict(
         type=COUNTER, labels=("reason", "tenant"),
@@ -155,6 +167,25 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         type=GAUGE, labels=("tenant",),
         help="Windowed p99 batch latency the controller computed from "
         "the sntc_batch_duration_seconds bucket deltas.",
+    ),
+    # -- the tracer's own accounting (obs/trace) ------------------------------
+    "sntc_spans_dropped_total": dict(
+        type=COUNTER, labels=(),
+        help="Spans evicted from the trace ring buffer.",
+    ),
+    # -- the roofline plane (obs/cost), under SNTC_OBS_COST_ANALYSIS ---------
+    "sntc_mfu_ratio": dict(
+        type=GAUGE, labels=("segment",),
+        help="Achieved FLOP/s over probed peak FLOP/s per fused "
+        "serving segment (XLA cost_analysis x measured dispatch "
+        "time; only under SNTC_OBS_COST_ANALYSIS=1 \u2014 see "
+        "obs/cost.py and the peak_source caveat).",
+    ),
+    "sntc_mfu_bw_ratio": dict(
+        type=GAUGE, labels=("segment",),
+        help="Achieved memory bandwidth over probed peak bandwidth "
+        "per fused serving segment (same hook and caveats as "
+        "sntc_mfu_ratio).",
     ),
     "sntc_health_state": dict(
         type=GAUGE, labels=("component",),
@@ -247,12 +278,18 @@ class _Series:
 class MetricsRegistry:
     """Registry of cataloged metrics (see the module docs)."""
 
-    def __init__(self, *, max_label_sets: int = 64):
+    def __init__(self, *, clock=time.time, mono=time.monotonic,
+                 max_label_sets: int = 64):
+        # the wall and monotonic sources of write_jsonl's records:
+        # inject constants for deterministic output
+        self._clock = clock
+        self._mono = mono
         self.max_label_sets = int(max_label_sets)
         self._lock = threading.Lock()  # series creation only
         # name -> (spec, {labelkey: _Series}, write lock)
         self._metrics: Dict[str, Tuple[dict, Dict, threading.Lock]] = {}
         self._label_overflows = 0
+        self._jsonl_records = 0
 
     def _series(self, name: str, labels: Dict[str, str]) -> _Series:
         entry = self._metrics.get(name)
@@ -368,6 +405,87 @@ class MetricsRegistry:
         return out
 
 
+    # -- exposition ----------------------------------------------------------
+
+    @staticmethod
+    def _fmt_labels(labels, extra: str = "") -> str:
+        parts = [
+            '%s="%s"' % (
+                k,
+                str(v).replace("\\", r"\\").replace('"', r"\"")
+                .replace("\n", r"\n"),
+            )
+            for k, v in labels
+        ]
+        if extra:
+            parts.append(extra)
+        return "{%s}" % ",".join(parts) if parts else ""
+
+    @staticmethod
+    def _fmt_value(v: float) -> str:
+        return repr(int(v)) if float(v).is_integer() else repr(v)
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4) of every live
+        series, metrics sorted by name."""
+        lines: List[str] = []
+        for name in sorted(self._metrics):
+            spec, series, _lock = self._metrics[name]
+            lines.append(f"# HELP {name} {spec['help']}")
+            lines.append(f"# TYPE {name} {spec['type']}")
+            for s in sorted(list(series.values()), key=lambda s: s.labels):
+                if spec["type"] == HISTOGRAM:
+                    # the counts once, so the cumulative sums cannot
+                    # tear against a concurrent observe
+                    counts = list(s.bucket_counts)
+                    acc = 0
+                    for bound, n in zip(spec["buckets"], counts):
+                        acc += n
+                        lines.append(
+                            f"{name}_bucket"
+                            + self._fmt_labels(s.labels, f'le="{bound}"')
+                            + f" {acc}")
+                    acc += counts[-1]
+                    lines.append(
+                        f"{name}_bucket"
+                        + self._fmt_labels(s.labels, 'le="+Inf"')
+                        + f" {acc}")
+                    lines.append(f"{name}_sum" + self._fmt_labels(s.labels)
+                                 + f" {self._fmt_value(s.sum)}")
+                    lines.append(f"{name}_count"
+                                 + self._fmt_labels(s.labels) + f" {acc}")
+                else:
+                    lines.append(name + self._fmt_labels(s.labels)
+                                 + f" {self._fmt_value(s.value)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def write_prometheus(self, path: str) -> str:
+        """Publish the Prometheus text atomically (tmp + rename): a
+        reader never sees a torn snapshot."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.to_prometheus())
+        os.replace(tmp, path)  # storage: telemetry
+        return path
+
+    def write_jsonl(self, path: str) -> Dict[str, Any]:
+        """Append one snapshot record (wall and monotonic stamps from the
+        registry's clocks, a sequence number) to a JSONL file; returns
+        it."""
+        record = {
+            "ts": self._clock(),
+            "mono": self._mono(),
+            "seq": self._jsonl_records,
+            "metrics": self.snapshot(),
+        }
+        self._jsonl_records += 1
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "a") as f:  # storage: unbounded(caller-owned JSONL export path)
+            f.write(json.dumps(record) + "\n")
+        return record
+
+
 _default = MetricsRegistry()
 
 
@@ -375,10 +493,16 @@ def registry() -> MetricsRegistry:
     return _default
 
 
+def set_registry(r: MetricsRegistry) -> MetricsRegistry:
+    """Replace the process default registry; returns the previous one."""
+    global _default
+    prev, _default = _default, r
+    return prev
+
+
 def reset_registry() -> MetricsRegistry:
     """Fresh default registry (test isolation); returns it."""
-    global _default
-    _default = MetricsRegistry()
+    set_registry(MetricsRegistry())
     return _default
 
 

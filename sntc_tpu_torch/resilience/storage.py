@@ -152,6 +152,13 @@ ARTIFACTS: Dict[str, ArtifactSpec] = {
             DEGRADE,
         ),
         ArtifactSpec(
+            "telemetry", "marker", "storage.marker",
+            (),  # --metrics-out/--trace-out paths live outside the root
+            "atomic snapshot overwrite / bounded span ring (bounded "
+            "by construction)",
+            DEGRADE,
+        ),
+        ArtifactSpec(
             "checkpoint", "checkpoint", "storage.marker",
             ("model/*", "model.prev/*"),
             "atomic publish, exactly one .prev retained",

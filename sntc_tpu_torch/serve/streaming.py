@@ -118,6 +118,12 @@ any delivery in the air.  A swap whose safe point fails is put back for
 the next round; a hook that raises emits ``lifecycle_error`` and the
 engine goes on.  ``pipeline_stats()["lifecycle"]`` reports it.  The JAX
 engine's tenancy is not ported.
+
+**Spans** (``obs.trace``, free while tracing is off), at the JAX
+engine's sites and names, each with the batch id: ``stream.wal`` (the
+intent), ``stream.read`` (the source's read), ``stream.admit`` (the
+contract), ``predict.dispatch``, ``sink.deliver`` (finalize and sink,
+retries included) and ``stream.commit``.
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ from sntc_tpu_torch.data.pipeline import (
 )
 from sntc_tpu_torch.obs import install_event_metrics
 from sntc_tpu_torch.obs.metrics import inc, observe, set_gauge
+from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.resilience import storage as storage_plane
 from sntc_tpu_torch.resilience.device import (
     annotate_batch,
@@ -922,7 +929,8 @@ class StreamingQuery:
                 self._sample_next = None
             try:
                 fault_point("stream.wal")
-                self._wal_intent(batch_id, intent)  # intent before work
+                with span("stream.wal", batch=batch_id):
+                    self._wal_intent(batch_id, intent)  # intent before work
             except Exception as e:
                 fails = self._bump_failures(batch_id, "stream.wal")
                 if self.max_batch_failures is None:
@@ -943,7 +951,9 @@ class StreamingQuery:
 
         def _read() -> tuple:
             fault_point("stream.read")
-            frame = self.source.get_batch(intent["start"], intent["end"])
+            with span("stream.read", batch=batch_id):
+                frame = self.source.get_batch(intent["start"],
+                                              intent["end"])
             stride = intent.get("sample_stride", 1)
             if stride > 1:
                 frame = frame.take(np.arange(0, frame.num_rows, stride))
@@ -975,7 +985,8 @@ class StreamingQuery:
                     self._batches_salvaged += 1
                 self._rows_coerced_total += coerced
             try:
-                with ledger_scope(self.transfer):
+                with ledger_scope(self.transfer), span(
+                        "predict.dispatch", batch=batch_id):
                     finalize = timed(self.ingest_meters["bucket"],
                                      self.predictor.predict_frame_async,
                                      frame, row_valid=row_mask)
@@ -1029,8 +1040,10 @@ class StreamingQuery:
         rejects = list(take(batch_files)) if take is not None else []
         if self.schema_contract is None:
             return frame, None, rejects, 0, batch_files
-        res = timed(self.ingest_meters["admit"], self.schema_contract.admit,
-                    frame, mode=self.row_policy)
+        with span("stream.admit", batch=batch_id):
+            res = timed(self.ingest_meters["admit"],
+                        self.schema_contract.admit, frame,
+                        mode=self.row_policy)
         if res.rejects:
             # best-effort raw text: the row's 1-D values in column order
             # (the parser records the true line for what it excised)
@@ -1076,10 +1089,12 @@ class StreamingQuery:
             timing["sinkMs"] = (time.perf_counter() - t_b) * 1e3
 
         try:
-            if self.retry_policy is not None:
-                with_retries(_deliver, self.retry_policy, site="sink.write")
-            else:
-                _deliver()
+            with span("sink.deliver", batch=batch_id):
+                if self.retry_policy is not None:
+                    with_retries(_deliver, self.retry_policy,
+                                 site="sink.write")
+                else:
+                    _deliver()
         finally:
             self._delivery_busy_s += time.perf_counter() - t0
 
@@ -1271,7 +1286,8 @@ class StreamingQuery:
         """The one commit protocol (WAL commit, bookkeeping, metrics and
         the progress record) of normal and quarantined batches."""
         fault_point("stream.commit")
-        self._wal_commit(batch_id, intent)
+        with span("stream.commit", batch=batch_id):
+            self._wal_commit(batch_id, intent)
         self._clear_failures(batch_id)
         # a committed batch never re-reads in this process
         self._rows_journaled.discard(batch_id)

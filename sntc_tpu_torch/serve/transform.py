@@ -50,6 +50,9 @@ sites ``predict.compile`` (a fresh padded shape) and
 :meth:`BatchPredictor.swap_model` replaces the served model between
 micro-batches (the lifecycle's hot swap), keeping the shape ledger.
 
+Padding runs in the span ``predict.bucket`` (rows, bucket;
+``obs.trace``), as in the JAX predictor.
+
 ``predict_frame_async``'s finalize is once-only (a failure is cached
 too), so a sink retry re-reads the batch instead of materializing it
 again; with a domain its first clean return notes a success, which ends
@@ -65,6 +68,7 @@ import numpy as np
 from sntc_tpu_torch.core.base import Transformer
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.resilience.device import (
     DeviceExecError,
     classify_device_error,
@@ -169,11 +173,11 @@ class BatchPredictor:
             self._record_shape(n)
             return model.transform_async(frame)
         self._record_shape(target, padded=target - n)
-        valid = np.zeros(target, dtype=bool)
-        valid[:n] = True if row_valid is None else row_valid
-        inner = model.transform_async(
-            pad_assemble(frame, target, valid, self.device)
-        )
+        with span("predict.bucket", rows=n, bucket=target):
+            valid = np.zeros(target, dtype=bool)
+            valid[:n] = True if row_valid is None else row_valid
+            padded = pad_assemble(frame, target, valid, self.device)
+        inner = model.transform_async(padded)
 
         def fin() -> Frame:
             out = inner()

@@ -1,3 +1,4 @@
+from sntc_tpu_torch.utils.logging import MetricsLogger
 from sntc_tpu_torch.utils.profiling import (
     TransferLedger,
     active_ledgers,
@@ -6,6 +7,7 @@ from sntc_tpu_torch.utils.profiling import (
 )
 
 __all__ = [
+    "MetricsLogger",
     "TransferLedger",
     "active_ledgers",
     "ledger_scope",

@@ -935,7 +935,7 @@ def test_artifacts_pinned_against_write_sites():
         assert name in named or f'"{name}"' in sources.replace(
             'ArtifactSpec(\n            "' + name, ""), name
     assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == {
-        "flow_state", "telemetry", "fleet_lease", "fleet_assignments",
+        "flow_state", "fleet_lease", "fleet_assignments",
         "fleet_assignment_journal", "fleet_migration_manifest",
         "fleet_markers", "fleet_request_journal", "ingress_spool",
         "repl_barrier", "repl_manifest"}
