@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15]
+                          [--phases 2,3,11,12,13,14,15,16]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -296,7 +296,42 @@ each of which fails the run (non-zero exit, no result line):
    ``fuse.dispatch``, ``fuse.finalize``, ``sink.deliver`` and
    ``stream.commit`` once a batch, the directory a profiler trace.  Each
    ``pad_assemble`` shape is held bitwise against its plain version and
-   timed beside its bound.  One JSON line reports the phase.
+   timed beside its bound.  One JSON line reports the phase;
+16. live capture serving: (a) bench config 9 (``bench.py:1378-1540``):
+   StringIndexer -> VectorAssembler(78) -> StandardScaler(withMean) ->
+   LogisticRegression(maxIter=20) fitted on the card on
+   ``generate_frame(62 500, seed=7)`` (cleaned, benign/attack, split
+   0.8/0.2), served as ``compile_pipeline`` gives it (the scaler folded
+   into the head) through one ``BatchPredictor`` (buckets 256); the pcap
+   stream of ``write_capture_stream`` (61 files of 256 flows x 6 packets,
+   a 30 s file gap, a tenth of each file deferred, the flush file, seed
+   7) through ``FlowCaptureSource(flow_timeout=5, allowed_lateness=35)``
+   and the CSV stream of the same emitted rows, serial engine, append
+   WAL, 3 reps each in turns: the flow counts of ``bench_runs.jsonl:102``
+   (23 296 rows, 93 696 packets, 15 616 flows, 8 503 out of order, 616
+   late, 15 617 watermark evictions, 1 packet left, 62 snapshots), the
+   native parsers, the sinks equal row for row, one upload and one
+   download a padded batch, one ``pad_assemble`` launch per padded
+   dispatch and each launch shape bitwise against its plain version;
+   (b) ``serve --from-capture pcap`` in its default form on (a)'s saved
+   pipeline and stream, its predictions equal to (a)'s serial capture
+   pass; the same command killed at ``flow.emit`` on its 3rd read and
+   restarted, its commits and batch files equal to the unkilled run's;
+   ``--from-capture netflow`` over (c)'s stream, equal to the same flow
+   operator in this process; (c) bench config 15 (``bench.py:2864-
+   3080``): 60 NetFlow files of 192 flows x 4 records (seed 7) through
+   ``NetFlowDirSource`` and through ``build_ingress(listen_udp=0,
+   seal_every=4)`` with the bench's windowed loopback sender, 3 reps in
+   turns: nothing dropped, the sinks equal row for row; the kill leg:
+   ``serve --listen-udp 0`` killed inside its 2nd seal at
+   ``ingress.spool``, restarted and resent to (the JAX harness's
+   ``run_ingress_kill_scenario``), ``payloads == committed + journaled
+   drops``, ``received == spooled + dropped``, commits and batch files
+   equal to an unkilled run's; ``serve --listen-tcp 0`` fed 2 000
+   held-out rows as ``frame_rows`` payloads, equal to the same rows
+   served from a CSV file; (d) ``pad_assemble`` timed at float32 [384,
+   78] -> 512, [797, 78] -> 1 024 and [768, 78] -> 1 024 beside its
+   bound and ``index_select``.  One JSON line reports the phase.
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -317,6 +352,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -340,6 +376,7 @@ from sntc_tpu_torch.data import (
     clean_flows,
     generate_frame,
     write_bench_stream,
+    write_capture_stream,
     write_raw_csv,
 )
 from sntc_tpu_torch.feature import (
@@ -396,13 +433,19 @@ from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
 from sntc_tpu_torch.ops.lbfgs import LbfgsResult, full_f32
+from sntc_tpu_torch.flow import FlowCaptureSource
 from sntc_tpu_torch.fuse import compile_pipeline, fused_segments, fusion_stats
 from sntc_tpu_torch.serve import (
     BatchPredictor,
     CsvDirSink,
     FileStreamSource,
+    IngressSpool,
+    NetFlowDirSource,
     StreamingQuery,
+    build_ingress,
     bucket_rows_for,
+    frame_rows,
+    wire_committed_offset,
 )
 from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
@@ -1199,15 +1242,15 @@ def same_trees(a, b) -> int:
     return ties
 
 
-def reduced_fit(data: dict, dev) -> dict:
+def reduced_fit(data: dict, dev, cpu: "CpuFits") -> dict:
     """The pipeline at depth 6 on the first 20 000 train rows, fitted on
-    the card and on the CPU from one seed."""
+    the card, against the CPU's fit from the same seed (``cpu_fits``)."""
     frame = data["train"].slice(0, REDUCED_ROWS)
     t0 = time.perf_counter()
     on_card = pipeline(dev, REDUCED_DEPTH).fit(frame)
     t1 = time.perf_counter()
-    on_cpu = pipeline(torch.device("cpu"), REDUCED_DEPTH).fit(frame)
-    t2 = time.perf_counter()
+    on_cpu = cpu.model("reduced")
+    cpu_s = cpu.seconds()["reduced"]
     sel = [m.getStages()[2].selected_features for m in (on_card, on_cpu)]
     if sel[0] != sel[1]:
         raise SystemExit(f"selected features differ: {sel[0]} vs {sel[1]}")
@@ -1215,10 +1258,10 @@ def reduced_fit(data: dict, dev) -> dict:
                       on_cpu.getStages()[3].forest)
     internal = int((on_card.getStages()[3].forest.feature >= 0).sum())
     log(f"reduced fit ({REDUCED_ROWS} rows, {TREES} trees, depth "
-        f"{REDUCED_DEPTH}): card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; same "
-        f"{len(sel[0])} features selected, same trees ({internal} splits, "
-        f"{ties} near-ties)")
-    return {"rows": REDUCED_ROWS, "card_s": t1 - t0, "cpu_s": t2 - t1,
+        f"{REDUCED_DEPTH}): card {t1 - t0:.2f} s, CPU {cpu_s:.2f} s (in "
+        f"its own process); same {len(sel[0])} features selected, same "
+        f"trees ({internal} splits, {ties} near-ties)")
+    return {"rows": REDUCED_ROWS, "card_s": t1 - t0, "cpu_s": cpu_s,
             "splits": internal, "near_ties": ties}
 
 
@@ -1562,22 +1605,22 @@ def staged_logloss(ovr, X: np.ndarray, y: np.ndarray) -> np.ndarray:
     return np.stack(out)
 
 
-def reduced_gbt_fit(data: dict, dev) -> dict:
+def reduced_gbt_fit(data: dict, dev, cpu: "CpuFits") -> dict:
     """Config 4 on the first ``GBT_REDUCED_ROWS`` train rows for
     ``GBT_REDUCED_ROUNDS`` rounds, fitted on the card (sibling
-    subtraction on) and on the CPU (off), and on the CPU with it on:
+    subtraction on), against the CPU's fits (``cpu_fits``: off, and on):
     the CPU's own gap between the two histogram forms is what fractional
     sums in another order cost, and the card must stay within the rule
     set from it (GBT_TIE_TOL, GBT_LOSS_ATOL)."""
     frame = data["train"].slice(0, GBT_REDUCED_ROWS)
-    cpu = torch.device("cpu")
-    fits, secs = {}, {}
-    for name, device, sib in (("card", dev, False), ("cpu", cpu, False),
-                              ("cpu, sibling", cpu, True)):
-        t0 = time.perf_counter()
-        with sibling_subtraction() if sib else contextlib.nullcontext():
-            fits[name] = gbt_pipeline(device, GBT_REDUCED_ROUNDS).fit(frame)
-        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = gbt_pipeline(dev, GBT_REDUCED_ROUNDS).fit(frame)
+    card_s = time.perf_counter() - t0
+    fits = {"card": card, "cpu": cpu.model("gbt_cpu"),
+            "cpu, sibling": cpu.model("gbt_cpu_sibling")}
+    secs = {"card": card_s,
+            "cpu": cpu.seconds()["gbt_cpu"],
+            "cpu, sibling": cpu.seconds()["gbt_cpu_sibling"]}
     X = raw_features(frame)
     y = to_host(fits["cpu"].getStages()[0].transform(frame)["label"])
     losses = {k: staged_logloss(m.getStages()[-1], X, y)
@@ -1613,26 +1656,28 @@ def reduced_gbt_fit(data: dict, dev) -> dict:
     return out
 
 
-def dt_fit(data: dict, dev) -> dict:
-    """A depth-5, 128-bin decision tree on the config-4 train split,
-    fitted on the card and on the CPU: integer class counts, so the two
-    heaps are identical."""
-    def pipe(device):
-        return Pipeline(stages=[
-            StringIndexer(inputCol="Label", outputCol="label",
-                          handleInvalid="skip"),
-            VectorAssembler(inputCols=CICIDS2017_FEATURES,
-                            outputCol="rawFeatures", handleInvalid="skip"),
-            DecisionTreeClassifier(device=device, maxDepth=DT_DEPTH,
-                                   maxBins=GBT_BINS, seed=SEED,
-                                   featuresCol="rawFeatures"),
-        ])
+def dt_pipeline(device) -> Pipeline:
+    """The depth-5, 128-bin decision tree of the config-4 phase."""
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="skip"),
+        DecisionTreeClassifier(device=device, maxDepth=DT_DEPTH,
+                               maxBins=GBT_BINS, seed=SEED,
+                               featuresCol="rawFeatures"),
+    ])
 
+
+def dt_fit(data: dict, dev, cpu: "CpuFits") -> dict:
+    """A depth-5, 128-bin decision tree on the config-4 train split,
+    fitted on the card, against the CPU's (``cpu_fits``): integer class
+    counts, so the two heaps are identical."""
     t0 = time.perf_counter()
-    on_card = pipe(dev).fit(data["train"])
+    on_card = dt_pipeline(dev).fit(data["train"])
     t1 = time.perf_counter()
-    on_cpu = pipe(torch.device("cpu")).fit(data["train"])
-    t2 = time.perf_counter()
+    on_cpu = cpu.model("dt")
+    cpu_s = cpu.seconds()["dt"]
     a, b = on_card.getStages()[-1].forest, on_cpu.getStages()[-1].forest
     for name in ("feature", "threshold", "leaf_stats", "gain", "count"):
         if not np.array_equal(getattr(a, name), getattr(b, name)):
@@ -1643,10 +1688,76 @@ def dt_fit(data: dict, dev) -> dict:
     splits = int((a.feature >= 0).sum())
     log(f"decision tree (depth {DT_DEPTH}, {GBT_BINS} bins, "
         f"{data['train'].num_rows} rows): the same heap on the card and the "
-        f"CPU ({splits} splits); card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; "
+        f"CPU ({splits} splits); card {t1 - t0:.2f} s, CPU {cpu_s:.2f} s; "
         f"held-out macro-F1 {f1:.4f}")
-    return {"splits": splits, "card_s": t1 - t0, "cpu_s": t2 - t1,
+    return {"splits": splits, "card_s": t1 - t0, "cpu_s": cpu_s,
             "macroF1": f1}
+
+
+class CpuFits:
+    """The CPU reference fits of phases 4 and 6 (the reduced config-3
+    forest, the reduced config-4 boosting with sibling subtraction off
+    and on, the decision tree), made by ``chip_smoke.py --cpu-fits DIR``
+    in a process of their own that starts with the run and fits while
+    the card works; the card's fits are compared with them later."""
+
+    def __init__(self, out: str):
+        self.out = out
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-fits", out],
+            cwd=REPO, env=env_with(CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self._secs = None
+
+    def seconds(self) -> dict:
+        if self._secs is None:
+            out, err = self.proc.communicate(timeout=1200)
+            if self.proc.returncode != 0:
+                raise SystemExit(f"the CPU reference fits exited "
+                                 f"{self.proc.returncode}:\n{err[-3000:]}")
+            self._secs = json.loads(out.strip().splitlines()[-1])
+        return self._secs
+
+    def model(self, name: str):
+        self.seconds()
+        return load_model(os.path.join(self.out, name), device="cpu")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def cpu_fits_main(out: str) -> int:
+    """``--cpu-fits DIR``: the CPU fits ``CpuFits`` compares the card's
+    with, on the phases' own data (regenerated from their seeds), saved
+    under DIR; prints their seconds as one JSON line."""
+    cpu = torch.device("cpu")
+    secs = {}
+
+    def fit(name, make, frame, sib=False):
+        t0 = time.perf_counter()
+        with sibling_subtraction() if sib else contextlib.nullcontext():
+            model = make().fit(frame)
+        secs[name] = time.perf_counter() - t0
+        save_model(model, os.path.join(out, name))
+
+    raw = generate_frame(TRAIN_ROWS, seed=SEED, min_class_fraction=0.005)
+    train, _ = clean_flows(raw).random_split(
+        [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    fit("reduced", lambda: pipeline(cpu, REDUCED_DEPTH),
+        train.slice(0, REDUCED_ROWS))
+    raw4 = generate_frame(GBT_ROWS, seed=GBT_DATA_SEED,
+                          min_class_fraction=0.005)
+    train4, _ = clean_flows(raw4).random_split(
+        [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    frame4 = train4.slice(0, GBT_REDUCED_ROWS)
+    fit("gbt_cpu", lambda: gbt_pipeline(cpu, GBT_REDUCED_ROUNDS), frame4)
+    fit("gbt_cpu_sibling", lambda: gbt_pipeline(cpu, GBT_REDUCED_ROUNDS),
+        frame4, sib=True)
+    fit("dt", lambda: dt_pipeline(cpu), train4)
+    print(json.dumps(secs))
+    return 0
 
 
 def gbt_fit_breakdown(data: dict, dev) -> dict:
@@ -5657,6 +5768,771 @@ def report_phase15(p15: dict, card: str) -> None:
         default=str))
 
 
+# -- phase 16: live capture serving ------------------------------------------
+
+C9_ROWS = 62_500  # bench.py:252's rows; n_flows = rows // 4 (bench.py:1417)
+C9_SEED = 7  # bench.py's SEED
+C9_FILES = 61  # max(2, n_flows // 256)
+C9_FLOWS_PER_FILE = 256
+C9_PACKETS_PER_FLOW = 6
+C9_FILE_GAP_S = 30.0
+C9_DEFER = 0.1
+C9_FLOW_TIMEOUT = 5.0
+C9_LATENESS = 35.0
+C9_REPS = 3  # bench.py:1369's own count: no cut
+C9_LR_ITERS = 20
+#: the flow block of bench_runs.jsonl:102 (the JAX package's bench run)
+C9_RECORD = {"feature_rows": 23_296, "packets": 93_696, "flows": 15_616,
+             "out_of_order": 8_503, "late_records": 616,
+             "evictions": {"watermark": 15_617}, "state_packets_final": 1,
+             "snapshots_published": 62}
+C9_KILL_AFTER = 2  # flow.emit on the 3rd get_batch (chaos matrix :95-100)
+C15_FILES = 60  # min(64, rows // 1024) less its remainder by 4
+C15_FLOWS_PER_FILE = 192
+C15_RECORDS_PER_FLOW = 4
+C15_SEAL_EVERY = 4
+C15_REPS = 3
+C15_FEATURE_ROWS = 46_080  # bench_runs.jsonl:113
+C15_KILL_SITE = "ingress.spool"
+C15_KILL_AFTER = 1  # the 2nd seal dies before its atomic write
+TCP_ROWS = 2_000  # rows framed over the TCP listener
+P16_PAD_ROWS = ((384, 512), (797, 1024), (768, 1024))  # f32 [n, 78] -> target
+P16_WAIT_S = 180.0
+
+
+def c9_data() -> dict:
+    """Bench config 9's flows: the port's ``generate_frame(62 500,
+    seed=7)`` cleaned, relabelled benign/attack and split 0.8/0.2 with
+    seed 0 (``bench.py:265-280``)."""
+    raw = generate_frame(C9_ROWS, seed=C9_SEED, min_class_fraction=0.005)
+    clean = clean_flows(raw)
+    clean = clean.with_column("Label", np.where(
+        clean["Label"].astype(str) == "BENIGN", "benign", "attack",
+    ).astype(object))
+    train, test = clean.random_split([0.8, 0.2], seed=0)
+    return {"train": train, "test": test}
+
+
+def c9_pipeline(device) -> Pipeline:
+    """StringIndexer (skip) -> VectorAssembler(78) -> StandardScaler
+    (withMean) -> LogisticRegression(maxIter=20), as ``bench.py:1405``
+    builds configs 9 and 15."""
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label",
+                      handleInvalid="skip"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures"),
+        StandardScaler(device=device, inputCol="rawFeatures",
+                       outputCol="features", withMean=True),
+        LogisticRegression(device=device, maxIter=C9_LR_ITERS),
+    ])
+
+
+def sink_predictions(out_dir: str) -> np.ndarray:
+    """The ``prediction`` column of every batch file of a sink, in batch
+    order (header-only files add nothing)."""
+    import pyarrow.csv as pacsv
+
+    parts = []
+    for p in sorted(glob.glob(os.path.join(out_dir, "batch_*.csv"))):
+        t = pacsv.read_csv(p)
+        if t.num_rows:
+            parts.append(np.asarray(t.column("prediction").to_numpy(),
+                                    np.float64))
+    return np.concatenate(parts) if parts else np.zeros(0)
+
+
+def committed_ranges(ckpt: str) -> dict:
+    """Committed batch ids and their offset ranges, from a files WAL."""
+    out = {}
+    for p in sorted(glob.glob(os.path.join(ckpt, "commits", "*.json"))):
+        with open(p) as f:
+            rec = json.load(f)
+        out[int(os.path.basename(p)[:-5])] = (rec["start"], rec["end"])
+    return out
+
+
+def check_pad_shapes(dev, shapes: dict, what: str) -> float:
+    """Every ``pad_assemble`` launch shape of a run, the launch taken
+    again on random float32 columns (the column-major block the dispatch
+    uploads) and held bitwise against its plain version; the largest
+    error (0)."""
+    worst = 0.0
+    for key in sorted(shapes):
+        n, c = (int(v) for v in key.split("]")[0][1:].split(", "))
+        dtype = torch.float64 if " f64 " in key else torch.float32
+        target = int(key.split("-> ")[1])
+        a = torch.randn((c, n), dtype=dtype, device=dev).t()
+        out, ref = pad_rows_cuda(a, target), pad_rows_reference(a, target)
+        if not torch.equal(out, ref):
+            raise SystemExit(f"{what}: pad_assemble {key} differs from its "
+                             "plain version")
+        worst = max(worst, (out - ref).abs().max().item())
+    return worst
+
+
+def c16_passes(dev, predictor, make_source, tmp: str, name: str,
+               n_pass: int) -> list:
+    """``n_pass`` timed serves of a stream by the serial engine (append
+    WAL, one file a batch, a non-durable prediction sink), as
+    ``bench.py``'s ``timed_pass``; each pass's seconds, sink and source."""
+    out = []
+    for rep in range(n_pass):
+        source = make_source(rep)
+        out_dir = os.path.join(tmp, f"out_{name}_{rep}")
+        q = StreamingQuery(
+            predictor, source,
+            CsvDirSink(out_dir, columns=["prediction"], durable=False),
+            os.path.join(tmp, f"ckpt_{name}_{rep}"), max_batch_offsets=1,
+            wal_mode="append", pipeline_depth=1, device=dev)
+        t0 = time.perf_counter()
+        batches = q.process_available()
+        dt = time.perf_counter() - t0
+        transfers = q.pipeline_stats()["transfers"]
+        sizes = [p["numInputRows"] for p in q.recentProgress]
+        q.stop()
+        source.close()
+        out.append({"seconds": dt, "out_dir": out_dir, "source": source,
+                    "batches": batches, "transfers": transfers,
+                    "sizes": sizes})
+    return out
+
+
+def one_round_trip(evidence: dict) -> bool:
+    """One upload and one download a padded batch, by the transfer
+    ledger (the CPU keeps no ledger)."""
+    return (evidence["uploads_per_padded_batch"] == 1.0
+            and evidence["downloads_per_padded_batch"] == 1.0)
+
+
+def c9_serve(dev, data: dict, work: str) -> dict:
+    """(a): bench config 9 in this process (``bench.py:1378-1540``)."""
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+
+    tmp = os.path.join(work, "c9")
+    fitted = c9_pipeline(dev).fit(data["train"])
+    model_dir = save_model(fitted, os.path.join(work, "model16"))
+    # compile_serving folds the scaler into the head, as the JAX
+    # compiler does (bench.py:1408): the assembler and the head's device
+    # program remain, no fused segment
+    served = compile_pipeline(PipelineModel(stages=fitted.getStages()[1:]))
+    form = [type(st).__name__ for st in served.getStages()]
+    if form != ["VectorAssembler", "LogisticRegressionModel"] or \
+            fused_segments(served):
+        raise SystemExit(f"phase 16 (a): serving form {form}")
+    predictor = BatchPredictor(served, bucket_rows=BUCKET_FLOOR, device=dev)
+    cap_dir = os.path.join(tmp, "in_cap")
+    info = write_capture_stream(
+        cap_dir, n_files=C9_FILES, flows_per_file=C9_FLOWS_PER_FILE,
+        packets_per_flow=C9_PACKETS_PER_FLOW, seed=C9_SEED,
+        file_gap_s=C9_FILE_GAP_S, defer_fraction=C9_DEFER, flush=True)
+
+    def flow_source(rep, state=True):
+        return FlowCaptureSource(
+            cap_dir, format="pcap", flow_timeout=C9_FLOW_TIMEOUT,
+            allowed_lateness=C9_LATENESS,
+            state_dir=(os.path.join(tmp, f"ckpt_cap_{rep}", "flow_state")
+                       if state else None))
+
+    arrow_cpus = pa.cpu_count()
+    pa.set_cpu_count(1)  # bench.py's intra-op pinning
+    try:
+        # the untimed reference pass: the frames the CSV stream serves,
+        # every bucket warmed through the shared predictor
+        ref = flow_source("ref", state=False)
+        emitted = []
+        for i in range(ref.latest_offset()):
+            f = ref.get_batch(i, i + 1)
+            if f.num_rows:
+                emitted.append(f)
+                predictor.predict_frame(f)
+        ref_stats = ref.flow_stats()
+        ref.close()
+        csv_dir = os.path.join(tmp, "in_csv")
+        os.makedirs(csv_dir)
+        for k, f in enumerate(emitted):
+            pacsv.write_csv(f.select(CICIDS2017_FEATURES).to_arrow(),
+                            os.path.join(csv_dir, f"part_{k:05d}.csv"))
+        c16_passes(dev, predictor, lambda r: FileStreamSource(csv_dir),
+                   tmp, "csvwarm", 1)
+        events = predictor.compile_events
+        reset_launches()
+        cap, csv = [], []
+        for rep in range(C9_REPS):  # interleaved, as the bench does
+            cap += c16_passes(dev, predictor, lambda r, rep=rep:
+                              flow_source(rep), tmp, f"cap{rep}", 1)
+            csv += c16_passes(dev, predictor, lambda r: FileStreamSource(
+                csv_dir), tmp, f"csv{rep}", 1)
+        launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    finally:
+        pa.set_cpu_count(arrow_cpus)
+    sizes = [f.num_rows for f in emitted]
+    rows = sum(sizes)
+    padded = sum(bucket_rows_for(n, BUCKET_FLOOR) != n for n in sizes)
+    want_pad = padded * 2 * C9_REPS
+    ledger = {k: sum(p["transfers"][k] for p in cap + csv)
+              for k in ("uploads", "downloads", "dispatches")}
+    flow_stats = cap[-1]["source"].flow_stats()
+    sinks = [sink_predictions(p["out_dir"]) for p in cap + csv]
+    evidence = {
+        "capture_files": len(info["files"]),
+        "packets": int(info["packets"].shape[0]),
+        "flows": info["n_flows"],
+        "feature_rows": rows,
+        "nonempty_batches": len(sizes),
+        "batch_rows": [min(sizes), int(np.median(sizes)), max(sizes)],
+        "out_of_order": ref_stats["out_of_order"],
+        "late_records": ref_stats["late_records"],
+        "evictions": ref_stats["evictions"],
+        "state_packets_final": flow_stats["packets"],
+        "snapshots_published": [p["source"].flow_stats()[
+            "snapshots_published"] for p in cap],
+        "parser": flow_stats["parser"],
+        "sink_match": all(s.shape == sinks[0].shape
+                          and np.array_equal(s, sinks[0])
+                          for s in sinks[1:]) and len(sinks[0]) == rows,
+        "serving_form": form,
+        "transfers": ledger,
+        # a padded batch (a tensor) dispatches the head's device program
+        # with one upload and one download; an unpadded one is host
+        # features, served on the host under the LR's crossover
+        "uploads_per_padded_batch": ledger["uploads"] / max(want_pad, 1),
+        "downloads_per_padded_batch":
+            ledger["downloads"] / max(want_pad, 1),
+        # the empty batches' shape (no frame of the warmup is empty)
+        "new_shapes_after_warmup": predictor.compile_events - events,
+        "pad_assemble": launches["pad_assemble"],
+        "padded_dispatches": want_pad,
+        "pad_max_abs_err": check_pad_shapes(dev, shapes, "phase 16 (a)"),
+    }
+    got = {k: evidence[k] for k in C9_RECORD if k != "snapshots_published"}
+    want = {k: v for k, v in C9_RECORD.items()
+            if k != "snapshots_published"}
+    if got != want or evidence["snapshots_published"] != [
+            C9_RECORD["snapshots_published"]] * C9_REPS or \
+            evidence["parser"] != "native" or not evidence["sink_match"] \
+            or evidence["nonempty_batches"] != C9_FILES \
+            or not one_round_trip(evidence) or want_pad < 1 \
+            or launches != {"forest_traversal": 0, "tree_hist": 0,
+                            "pad_assemble": want_pad}:
+        raise SystemExit(f"phase 16 (a): {evidence}, launches {launches}, "
+                         f"want {C9_RECORD}")
+
+    def median(passes):
+        return sorted(p["seconds"] for p in passes)[len(passes) // 2]
+
+    t_cap, t_csv = median(cap), median(csv)
+    return {"model_dir": model_dir, "cap_dir": cap_dir, "predictor":
+            predictor, "evidence": evidence, "pad_launch_shapes": shapes,
+            "launches": launches, "cap_sink": sinks[0],
+            "rows_per_s": {"capture": rows / t_cap, "csv": rows / t_csv},
+            "packets_per_s": evidence["packets"] / t_cap,
+            "capture_vs_csv": t_csv / t_cap,
+            "reps_s": {"capture": [round(p["seconds"], 4) for p in cap],
+                       "csv": [round(p["seconds"], 4) for p in csv]}}
+
+
+def c15_serve(dev, predictor, work: str) -> dict:
+    """(c): bench config 15 in this process (``bench.py:2864-3080``): the
+    directory pass and the socket pass over the same NetFlow payloads,
+    interleaved, through (a)'s predictor."""
+    import socket as socketlib
+
+    tmp = os.path.join(work, "c15")
+    cap_dir = os.path.join(tmp, "in_cap")
+    info = write_capture_stream(
+        cap_dir, n_files=C15_FILES, flows_per_file=C15_FLOWS_PER_FILE,
+        packets_per_flow=C15_RECORDS_PER_FLOW, seed=C9_SEED,
+        format="netflow", flush=False)
+    payloads = [open(p, "rb").read() for p in info["files"]]
+    if any(len(p) > 60_000 for p in payloads):
+        raise SystemExit("phase 16 (c): a capture file exceeds a datagram")
+    ref = NetFlowDirSource(cap_dir)
+    sizes = []
+    for i in range(ref.latest_offset()):
+        f = ref.get_batch(i, i + 1)
+        sizes.append(f.num_rows)
+        predictor.predict_frame(f)
+    ref.close()
+    c16_passes(dev, predictor, lambda r: NetFlowDirSource(cap_dir), tmp,
+               "dirwarm", 1)
+
+    def socket_pass(rep):
+        spool_dir = os.path.join(tmp, f"spool_{rep}")
+        out_dir = os.path.join(tmp, f"out_sock_{rep}")
+        source, listeners = build_ingress(
+            spool_dir, listen_udp=0, seal_every=C15_SEAL_EVERY,
+            seal_idle_s=0.05, ring=max(64, 2 * len(payloads)),
+            keep_files=10 ** 6)
+        q = StreamingQuery(
+            predictor, source,
+            CsvDirSink(out_dir, columns=["prediction"], durable=False),
+            os.path.join(tmp, f"ckpt_sock_{rep}"), max_batch_offsets=1,
+            wal_mode="append", pipeline_depth=1, device=dev)
+        wire_committed_offset(source, q.committed_end)
+        lst = listeners[0].start()
+        spool = lst.spool
+        tx = socketlib.socket(socketlib.AF_INET, socketlib.SOCK_DGRAM)
+        t0 = time.perf_counter()
+        try:
+            for i, payload in enumerate(payloads):
+                tx.sendto(payload, ("127.0.0.1", lst.port))
+                limit = time.time() + 60.0
+                while spool.stats.received < i - 3:
+                    if time.time() > limit:
+                        raise SystemExit(f"phase 16 (c): receiver stalled "
+                                         f"at {i}: {spool.stats.snapshot()}")
+                    time.sleep(0.0002)
+            n_sealed = len(payloads) // C15_SEAL_EVERY
+            limit = time.time() + 300.0
+            while q.committed_end() < n_sealed:
+                if q.process_available() == 0:
+                    time.sleep(0.0005)
+                if time.time() > limit:
+                    raise SystemExit("phase 16 (c): socket pass never "
+                                     f"committed: {spool.stats.snapshot()}")
+            dt = time.perf_counter() - t0
+            transfers = q.pipeline_stats()["transfers"]
+            batch_rows = [p["numInputRows"] for p in q.recentProgress]
+        finally:
+            tx.close()
+            lst.drain(timeout_s=10.0)
+            q.stop()
+            source.close()
+        return {"seconds": dt, "out_dir": out_dir, "sizes": batch_rows,
+                "stats": spool.stats.snapshot(), "transfers": transfers}
+
+    reset_launches()
+    sock, dirs = [], []
+    for rep in range(C15_REPS):
+        sock.append(socket_pass(rep))
+        dirs += c16_passes(dev, predictor, lambda r: NetFlowDirSource(
+            cap_dir), tmp, f"dir{rep}", 1)
+    launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    rows = sum(sizes)
+    sinks = [sink_predictions(p["out_dir"]) for p in sock + dirs]
+    # the directory pass serves a file a batch, the socket pass a spool
+    # file (C15_SEAL_EVERY datagrams) a batch
+    want_pad = sum(bucket_rows_for(n, BUCKET_FLOOR) != n
+                   for p in sock + dirs for n in p["sizes"])
+    evidence = {
+        "capture_files": len(payloads), "records":
+            int(info["records"].shape[0]), "feature_rows": rows,
+        "file_rows": [min(sizes), max(sizes)],
+        "socket_batch_rows": sorted(set(sock[0]["sizes"])),
+        "received": [p["stats"]["received"] for p in sock],
+        "spooled": [p["stats"]["spooled"] for p in sock],
+        "dropped": [p["stats"]["dropped"] for p in sock],
+        "sink_match": all(np.array_equal(s, sinks[0]) for s in sinks[1:])
+        and len(sinks[0]) == rows,
+        "pad_assemble": launches["pad_assemble"],
+        "padded_dispatches": want_pad,
+        "pad_max_abs_err": check_pad_shapes(dev, shapes, "phase 16 (c)"),
+    }
+    if rows != C15_FEATURE_ROWS or not evidence["sink_match"] \
+            or evidence["received"] != [len(payloads)] * C15_REPS \
+            or evidence["spooled"] != [len(payloads)] * C15_REPS \
+            or any(evidence["dropped"]) or want_pad < 1 \
+            or launches != {"forest_traversal": 0, "tree_hist": 0,
+                            "pad_assemble": want_pad}:
+        raise SystemExit(f"phase 16 (c): {evidence}, launches {launches}")
+
+    def median(passes):
+        return sorted(p["seconds"] for p in passes)[len(passes) // 2]
+
+    t_sock, t_dir = median(sock), median(dirs)
+    return {"cap_dir": cap_dir, "evidence": evidence,
+            "pad_launch_shapes": shapes, "dir_sink": sinks[-1],
+            "rows_per_s": {"socket": rows / t_sock, "directory": rows / t_dir},
+            "socket_vs_dir": t_dir / t_sock,
+            "reps_s": {"socket": [round(p["seconds"], 4) for p in sock],
+                       "directory": [round(p["seconds"], 4) for p in dirs]}}
+
+
+#: the serve command with a fault armed after N calls of its site (the
+#: SNTC_FAULTS grammar fires on the first call), as the JAX chaos
+#: harness arms its workers
+ARMED_SERVE = ("import sys; from sntc_tpu_torch.resilience import arm; "
+               "from sntc_tpu_torch.app import main; "
+               "arm(sys.argv[1], kind='kill', after=int(sys.argv[2]), "
+               "times=1); sys.exit(main(sys.argv[3:]))")
+
+
+def serve_cli(args: list, armed: tuple = ()) -> subprocess.Popen:
+    """The port's ``serve`` in its own process, optionally with a kill
+    armed at ``armed = (site, after)``."""
+    head = ([sys.executable, "-c", ARMED_SERVE, armed[0], str(armed[1])]
+            if armed else [sys.executable, "-m", "sntc_tpu_torch"])
+    return subprocess.Popen(head + ["serve", *args], cwd=REPO,
+                            env=env_with(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finished(proc: subprocess.Popen, what: str, rc: int = 0) -> str:
+    """Wait for ``proc``; fail unless it exited with ``rc``; its stdout."""
+    try:
+        out, err = proc.communicate(timeout=P16_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise SystemExit(f"phase 16: {what} still running after "
+                         f"{P16_WAIT_S} s:\n{err[-3000:]}")
+    if proc.returncode != rc:
+        raise SystemExit(f"phase 16: {what} exited {proc.returncode} (want "
+                         f"{rc}):\n{err[-3000:]}")
+    return out
+
+
+def padded_dispatches(summary: dict, what: str) -> int:
+    """The batches of a serving process's ``--once`` summary that
+    ``pad_assemble`` pads: each non-empty batch whose rows are not a
+    bucket already, from the progress records, which must cover every
+    batch the process served."""
+    progress = summary["progress"]
+    if len(progress) != summary["batches"]:
+        raise SystemExit(f"phase 16 (b): {what} kept {len(progress)} "
+                         f"progress records of {summary['batches']} batches")
+    return sum(1 for p in progress if p["numInputRows"] and bucket_rows_for(
+        p["numInputRows"], BUCKET_FLOOR) != p["numInputRows"])
+
+
+def launches_match(summary: dict, what: str) -> bool:
+    """A serving process launched ``pad_assemble`` once for each batch it
+    padded, and at least once."""
+    want = padded_dispatches(summary, what)
+    return want >= 1 and summary["kernel_launches"]["pad_assemble"] == want
+
+
+def capture_commands(dev, a: dict, c: dict, work: str) -> dict:
+    """(b): ``serve --from-capture`` in its default form (pipelined,
+    fused, files WAL) over (a)'s stream, the same command killed at
+    ``flow.emit`` on its 3rd read and restarted, and ``--from-capture
+    netflow`` over (c)'s stream; the three processes start together."""
+    d = os.path.join(work, "c16b")
+    flags = ["--model", a["model_dir"], "--shape-buckets",
+             str(BUCKET_FLOOR), "--max-files-per-batch", "1",
+             "--flow-timeout", str(C9_FLOW_TIMEOUT), "--flow-lateness",
+             str(C9_LATENESS), "--device", dev.type, "--once"]
+
+    def args(name, fmt, watch):
+        return flags + ["--from-capture", fmt, "--watch", watch, "--out",
+                        os.path.join(d, name, "out"), "--checkpoint",
+                        os.path.join(d, name, "ckpt")]
+
+    procs = [serve_cli(args("pcap", "pcap", a["cap_dir"])),
+             serve_cli(args("killed", "pcap", a["cap_dir"]),
+                       armed=("flow.emit", C9_KILL_AFTER)),
+             serve_cli(args("netflow", "netflow", c["cap_dir"]))]
+    try:
+        pcap, killed, nf = procs
+        finished(killed, "the serve killed at flow.emit", rc=137)
+        procs.append(serve_cli(args("killed", "pcap", a["cap_dir"])))
+        summary = json.loads(finished(pcap, "serve --from-capture pcap")
+                             .strip().splitlines()[-1])
+        nf_summary = json.loads(finished(nf, "serve --from-capture netflow")
+                                .strip().splitlines()[-1])
+        re_summary = json.loads(finished(procs[3], "the restarted serve")
+                                .strip().splitlines()[-1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    pcap_out, kill_out = (os.path.join(d, n, "out")
+                          for n in ("pcap", "killed"))
+    got = sink_predictions(pcap_out)
+    # the NetFlow reference: the same flow operator over (c)'s stream in
+    # this process, serial, through (a)'s predictor
+    ref_src = FlowCaptureSource(c["cap_dir"], format="netflow",
+                                flow_timeout=C9_FLOW_TIMEOUT,
+                                allowed_lateness=C9_LATENESS)
+    ref = c16_passes(dev, a["predictor"], lambda r: ref_src,
+                     os.path.join(d, "nfref"), "nf", 1)[0]
+    evidence = {
+        "batches": summary["batches"], "rows": summary["rows"],
+        "flow": summary["flow"], "fusion_segments":
+            (summary["fusion"] or {}).get("segments"),
+        "launches": summary["kernel_launches"],
+        "pipeline_depth": summary["pipeline_stats"]["pipeline_depth"],
+        "sink_equals_serial": bool(np.array_equal(got, a["cap_sink"])),
+        "killed_commits_equal": committed_ranges(os.path.join(
+            d, "killed", "ckpt")) == committed_ranges(os.path.join(
+                d, "pcap", "ckpt")),
+        "killed_sink_bitwise": sink_files(kill_out) == sink_files(pcap_out),
+        "padded_dispatches": padded_dispatches(summary, "the pcap serve"),
+        "serial_padded_dispatches": a["evidence"]["padded_dispatches"]
+        // (2 * C9_REPS),
+        "restart_batches": re_summary["batches"],
+        "restart_launches": re_summary["kernel_launches"],
+        "restart_padded_dispatches": padded_dispatches(
+            re_summary, "the restarted serve"),
+        "netflow_rows": nf_summary["rows"],
+        "netflow_launches": nf_summary["kernel_launches"],
+        "netflow_padded_dispatches": padded_dispatches(
+            nf_summary, "the netflow serve"),
+        "netflow_parser": nf_summary["flow"]["parser"],
+        "netflow_sink_equals_reference": bool(np.array_equal(
+            sink_predictions(os.path.join(d, "netflow", "out")),
+            sink_predictions(ref["out_dir"]))),
+    }
+    if not evidence["sink_equals_serial"] \
+            or not evidence["killed_commits_equal"] \
+            or not evidence["killed_sink_bitwise"] \
+            or evidence["flow"]["parser"] != "native" \
+            or evidence["netflow_parser"] != "native" \
+            or evidence["pipeline_depth"] < 2 \
+            or not evidence["netflow_sink_equals_reference"] \
+            or evidence["padded_dispatches"] \
+            != evidence["serial_padded_dispatches"] \
+            or not launches_match(summary, "the pcap serve") \
+            or not launches_match(re_summary, "the restarted serve") \
+            or not launches_match(nf_summary, "the netflow serve"):
+        raise SystemExit(f"phase 16 (b): {evidence}")
+    return evidence
+
+
+def ingress_kill_payloads(work: str) -> list:
+    """The JAX harness's kill-leg payloads (``scripts/chaos_crash_matrix
+    .py`` ``setup_ingress_inputs_main``): 6 NetFlow files, seed 23."""
+    info = write_capture_stream(
+        os.path.join(work, "c16k", "payloads"), n_files=6, flows_per_file=3,
+        packets_per_flow=4, seed=23, format="netflow", flush=False)
+    return [open(p, "rb").read() for p in info["files"]]
+
+
+def ingress_pass(dev, model_dir: str, d: str, payloads: list,
+                 kill: bool) -> dict:
+    """One socket-fed ``serve --listen-udp 0`` pass: each payload is one
+    datagram, resent only after the process died, so the sealed file is
+    the ack; a process killed by the armed fault (137) restarts without
+    it.  Once every payload is sealed and committed, SIGTERM drains (the
+    listener first, then the engine).  The JAX harness's
+    ``_drive_ingress_pass``, kept here."""
+    import socket as socketlib
+
+    spool = os.path.join(d, "spool")
+    args = ["--model", model_dir, "--watch", spool, "--out",
+            os.path.join(d, "out"), "--checkpoint", os.path.join(d, "ckpt"),
+            "--listen-udp", "0", "--max-files-per-batch", "1",
+            "--shape-buckets", str(BUCKET_FLOOR), "--poll-interval", "0.05",
+            "--device", dev.type]
+
+    def stats():
+        return IngressSpool.read_stats(spool) or {}
+
+    def start(armed):
+        proc = serve_cli(args, armed)
+        limit = time.time() + P16_WAIT_S
+        while not stats().get("port"):
+            if proc.poll() is not None or time.time() > limit:
+                finished(proc, "serve --listen-udp before its port")
+            time.sleep(0.05)
+        return proc, stats()["port"]
+
+    def sealed():
+        return len(glob.glob(os.path.join(spool, "capture_*.nf5")))
+
+    proc, port = start((C15_KILL_SITE, C15_KILL_AFTER) if kill else ())
+    kills, sent = [], 0
+    sock = socketlib.socket(socketlib.AF_INET, socketlib.SOCK_DGRAM)
+    limit = time.time() + P16_WAIT_S
+    try:
+        k, pending = 0, False
+        while k < len(payloads):
+            if time.time() > limit:
+                raise SystemExit(f"phase 16 (c) kill leg: {k} of "
+                                 f"{len(payloads)} sealed, kills {kills}")
+            if proc.poll() is not None:
+                finished(proc, "the serve killed at ingress.spool", rc=137)
+                kills.append(proc.returncode)
+                os.unlink(os.path.join(spool, "ingress_stats.json"))
+                proc, port = start(())
+                pending = False
+            if not pending:
+                sock.sendto(payloads[k], ("127.0.0.1", port))
+                sent, pending = sent + 1, True
+            if sealed() > k:
+                k, pending = sealed(), False
+                continue
+            time.sleep(0.02)
+        while len(committed_ranges(os.path.join(d, "ckpt"))) < len(payloads):
+            if proc.poll() is not None or time.time() > limit:
+                finished(proc, "serve --listen-udp before its commits")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        drained = json.loads(finished(proc, "the drained serve")
+                             .strip().splitlines()[-1])
+    finally:
+        sock.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return {"kills": kills, "sent": sent, "sealed": sealed(),
+            "drained": drained, "stats": stats(),
+            "commits": committed_ranges(os.path.join(d, "ckpt")),
+            "sink": sink_files(os.path.join(d, "out"))}
+
+
+def ingress_kill_leg(dev, model_dir: str, work: str) -> dict:
+    """(c)'s kill leg: the unkilled reference and the pass killed inside
+    its 2nd seal at ``ingress.spool`` run together; the JAX harness's
+    ``run_ingress_kill_scenario`` checks."""
+    payloads = ingress_kill_payloads(work)
+    ref, got = together(
+        (ingress_pass, dev, model_dir, os.path.join(work, "c16k", "ref"),
+         payloads, False),
+        (ingress_pass, dev, model_dir, os.path.join(work, "c16k", "kill"),
+         payloads, True))
+    st = got["stats"]
+    drops = sum(st.get("dropped", {}).values())
+    verdict = {
+        "site": C15_KILL_SITE, "kills": got["kills"],
+        "datagrams_sent": got["sent"], "payloads": len(payloads),
+        "sealed": got["sealed"], "committed": len(got["commits"]),
+        "journaled_drops": drops,
+        "law_exact": st.get("received") == st.get("spooled", -1) + drops,
+        "drained": st.get("drained") is True
+        and got["drained"]["drained"] is True,
+        "commits_equal": got["commits"] == ref["commits"],
+        "sink_bitwise": got["sink"] == ref["sink"],
+    }
+    if verdict["kills"] != [137] or verdict["sealed"] != len(payloads) \
+            or len(payloads) != verdict["committed"] + drops \
+            or not verdict["law_exact"] or not verdict["drained"] \
+            or ref["kills"] or len(ref["commits"]) != len(payloads) \
+            or not verdict["commits_equal"] or not verdict["sink_bitwise"]:
+        raise SystemExit(f"phase 16 (c) kill leg: {verdict}")
+    return verdict
+
+
+def tcp_command(dev, model_dir: str, test: Frame, work: str) -> dict:
+    """(c)'s TCP run: ``serve --listen-tcp 0`` fed ``TCP_ROWS`` held-out
+    rows as ``frame_rows`` payloads, against ``serve --once`` of the same
+    rows as one CSV file; the two processes run together."""
+    import socket as socketlib
+
+    d = os.path.join(work, "c16t")
+    rows = test.slice(0, TCP_ROWS)
+    lines = [",".join(repr(float(rows[c][i])) for c in CICIDS2017_FEATURES)
+             for i in range(rows.num_rows)]
+    os.makedirs(os.path.join(d, "csv"))
+    with open(os.path.join(d, "csv", "rows.csv"), "w") as f:
+        f.write(",".join(CICIDS2017_FEATURES) + "\n" + "\n".join(lines)
+                + "\n")
+    common = ["--model", model_dir, "--pipeline-depth", "1",
+              "--shape-buckets", str(BUCKET_FLOOR), "--device", dev.type]
+    csv = serve_cli(common + ["--watch", os.path.join(d, "csv"), "--out",
+                              os.path.join(d, "o_csv"), "--checkpoint",
+                              os.path.join(d, "c_csv"), "--once"])
+    spool = os.path.join(d, "spool")
+    proc = serve_cli(common + ["--watch", spool, "--out",
+                               os.path.join(d, "o_tcp"), "--checkpoint",
+                               os.path.join(d, "c_tcp"), "--listen-tcp",
+                               "0", "--poll-interval", "0.05"])
+    limit = time.time() + P16_WAIT_S
+
+    def stats():
+        return IngressSpool.read_stats(spool) or {}
+
+    try:
+        csv_summary = json.loads(finished(csv, "serve --once of the CSV "
+                                          "rows").strip().splitlines()[-1])
+        while not stats().get("tcp_port"):
+            if proc.poll() is not None or time.time() > limit:
+                finished(proc, "serve --listen-tcp before its port")
+            time.sleep(0.05)
+        c = socketlib.create_connection(("127.0.0.1", stats()["tcp_port"]),
+                                        timeout=30.0)
+        c.sendall(frame_rows(lines))
+        c.close()
+        while len(sink_predictions(os.path.join(d, "o_tcp"))) < len(lines):
+            if proc.poll() is not None or time.time() > limit:
+                finished(proc, "serve --listen-tcp before its rows")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        finished(proc, "the drained serve --listen-tcp")
+    finally:
+        for p in (proc, csv):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    st = stats()
+    got = sink_predictions(os.path.join(d, "o_tcp"))
+    want = sink_predictions(os.path.join(d, "o_csv"))
+    evidence = {"rows": len(lines), "received": st.get("received"),
+                "spooled": st.get("spooled"), "dropped": st.get("dropped"),
+                "sink_equals_csv": bool(np.array_equal(got, want)),
+                "csv_launches": csv_summary["kernel_launches"]}
+    if not evidence["sink_equals_csv"] or st.get("received") != len(lines) \
+            or st.get("spooled") != len(lines) or st.get("dropped"):
+        raise SystemExit(f"phase 16 (c) TCP run: {evidence}")
+    return evidence
+
+
+def live_capture(dev, work: str) -> dict:
+    """Phase 16: live capture serving on the card (see the module docs)."""
+    t0 = time.perf_counter()
+    data = c9_data()
+    a = c9_serve(dev, data, work)
+    c = c15_serve(dev, a["predictor"], work)
+    # the command legs: processes, started together where independent
+    b, kill_leg, tcp = together(
+        (capture_commands, dev, a, c, work),
+        (ingress_kill_leg, dev, a["model_dir"], work),
+        (tcp_command, dev, a["model_dir"], data["test"], work))
+    c["kill_leg"], c["tcp"] = kill_leg, tcp
+    shapes = {**a["pad_launch_shapes"]}
+    for k, v in c["pad_launch_shapes"].items():
+        shapes[k] = shapes.get(k, 0) + v
+    kernels = [measure_pad_at(dev, n, shapes, torch.float32, target)
+               for n, target in P16_PAD_ROWS]
+    for x in (a, c):
+        x.pop("predictor", None)
+    return {"a": a, "b": b, "c": c, "kernels": kernels,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase16(p16: dict, card: str) -> None:
+    """Phase 16's lines: config 9's and config 15's rates and evidence,
+    the command legs, each timed kernel shape, one JSON line."""
+    a, b, c = p16["a"], p16["b"], p16["c"]
+    log(f"phase 16 (a) bench config 9: {a['evidence']['capture_files']} "
+        f"capture files, {a['evidence']['packets']} packets, "
+        f"{a['evidence']['feature_rows']} feature rows in "
+        f"{a['evidence']['nonempty_batches']} batches of "
+        f"{a['evidence']['batch_rows']} rows (min, median, max); median of "
+        f"{C9_REPS} reps in turns: capture {a['rows_per_s']['capture']:.1f} "
+        f"rows/s ({a['packets_per_s']:.1f} packets/s), CSV "
+        f"{a['rows_per_s']['csv']:.1f} rows/s, capture_vs_csv "
+        f"{a['capture_vs_csv']:.4f} (reps {a['reps_s']} s) [{card}]")
+    c15 = c["evidence"]
+    log(f"phase 16 (c) bench config 15: {c15['capture_files']} files, "
+        f"{c15['feature_rows']} rows; median of {C15_REPS} reps in turns: "
+        f"socket {c['rows_per_s']['socket']:.1f} rows/s, directory "
+        f"{c['rows_per_s']['directory']:.1f} rows/s, socket_vs_dir "
+        f"{c['socket_vs_dir']:.4f} (reps {c['reps_s']} s); kill leg "
+        f"{c['kill_leg']}; TCP {c['tcp']} [{card}]")
+    log(f"phase 16 (b) serve --from-capture: {b} [{card}]")
+    for k in p16["kernels"]:
+        log(f"phase 16 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call, {k['library_device_ms']:.4f} "
+            f"ms of device time; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches at this shape in "
+            f"(a) and (c), max abs error {k['max_abs_err']} [{card}]")
+    log("phase 16 " + json.dumps({
+        "phase": 16, "card": card, "seconds": round(p16["seconds"], 3),
+        "config9": {**a["evidence"], "rows_per_s": a["rows_per_s"],
+                    "packets_per_s": a["packets_per_s"],
+                    "capture_vs_csv": a["capture_vs_csv"]},
+        "config15": {**c15, "rows_per_s": c["rows_per_s"],
+                     "socket_vs_dir": c["socket_vs_dir"],
+                     "kill_leg": c["kill_leg"], "tcp": c["tcp"]},
+        "commands": b}, default=str))
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -5978,7 +6854,7 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
-PHASES = ("2", "3", "11", "12", "13", "14", "15")
+PHASES = ("2", "3", "11", "12", "13", "14", "15", "16")
 
 
 def main() -> int:
@@ -5991,7 +6867,11 @@ def main() -> int:
                     help="run only these phases, comma-separated, of "
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first); default: every phase")
+    ap.add_argument("--cpu-fits", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cpu_fits:
+        return cpu_fits_main(args.cpu_fits)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6006,7 +6886,19 @@ def main() -> int:
         with clock("1 build"):
             built.result()
         return main_phases(dev, card, args.phases.split(","))
+    # the CPU reference fits of phases 4 and 6 run in a process of their
+    # own from the start, beside the card's work
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as cpu_dir:
+        cpu_fits = CpuFits(cpu_dir)
+        try:
+            return main_all(dev, card, args, built, build_pool, cpu_fits)
+        finally:
+            cpu_fits.close()
 
+
+def main_all(dev, card: str, args, built, build_pool,
+             cpu_fits: CpuFits) -> int:
+    """Every phase, in the order that keeps the card busy."""
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
         with clock("4 data"):
             data = fit_data(work)
@@ -6045,10 +6937,10 @@ def main() -> int:
         with clock("6 config 4"):
             served4 = serve_gbt(dev, data4, trained4, work)
     with clock("4 reduced fit"):
-        reduced = reduced_fit(data, dev)
+        reduced = reduced_fit(data, dev, cpu_fits)
     with clock("6 config 4"):
-        reduced4 = reduced_gbt_fit(data4, dev)
-        tree = dt_fit(data4, dev)
+        reduced4 = reduced_gbt_fit(data4, dev, cpu_fits)
+        tree = dt_fit(data4, dev, cpu_fits)
     with clock("5 fit profiles"):
         # config 3's profiled fit first: after a long profile in a
         # process, later profiler windows may drop launches (config 4
@@ -6108,6 +7000,8 @@ def main() -> int:
             evaluated9 = evaluate_commands(dev, data2, trained9, work)
         with clock("15 fused serve"):
             phase15 = fused_serve(dev, data1, trained1, work)
+        with clock("16 live capture"):
+            phase16 = live_capture(dev, work)
     with clock("7 configs 2 and 1"):
         fit2 = mlp_fit_profile(dev, data2)
     with clock("9 nb, svc, evaluate"):
@@ -6124,6 +7018,7 @@ def main() -> int:
     kernels += phase13["pads"]
     kernels += phase14["kernels"]
     kernels += phase15["kernels"]
+    kernels += phase16["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -6305,6 +7200,7 @@ def main() -> int:
     report_phase13(phase13, card)
     report_phase14(phase14, card)
     report_phase15(phase15, card)
+    report_phase16(phase16, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -6332,6 +7228,7 @@ def main() -> int:
                        "phase10": phase10, "phase11": failures,
                        "phase12": phase12, "phase13": phase13,
                        "phase14": phase14, "phase15": phase15,
+                       "phase16": phase16,
                        "phase_seconds": PHASE_SECONDS}, f,
                       indent=1, default=str)
     finish(kernels, card)
@@ -6401,6 +7298,11 @@ def main_phases(dev, card: str, phases: list) -> int:
                 p15 = fused_serve(dev, data1, trained1, work)
             report_phase15(p15, card)
             kernels += p15["kernels"]
+        if "16" in phases:
+            with clock("16 live capture"):
+                p16 = live_capture(dev, work)
+            report_phase16(p16, card)
+            kernels += p16["kernels"]
     finish(kernels, card)
     return 0
 

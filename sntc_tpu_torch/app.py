@@ -126,6 +126,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 from typing import List, Optional
@@ -488,6 +489,71 @@ def _arm_lifecycle(args, model, raw_model, labels, device):
         device=device)
 
 
+def _build_source(args, contract, pipelined: bool):
+    """The serve command's source and its socket listeners.
+
+    ``--from-capture``: the watch directory holds raw pcap / NetFlow
+    captures, and a stateful keyed-window operator computes the
+    CICIDS2017 features live (crash-safe state under
+    ``<checkpoint>/flow_state``).  ``--listen-udp`` / ``--listen-tcp``:
+    the watch directory becomes the ingress spool, into which a
+    supervised listener seals socket payloads (NetFlow v5 datagrams over
+    UDP, length-prefixed CSV rows over TCP) as replayable capture files.
+    Either way the rows ride the same admission, predict and sink path
+    as CSV files."""
+    from sntc_tpu_torch.serve import FileStreamSource
+
+    source_kwargs = dict(
+        prefetch_batches=args.prefetch_batches if pipelined else 0,
+        read_workers=args.read_workers,
+    )
+    if args.listen_udp is not None or args.listen_tcp is not None:
+        from sntc_tpu_torch.serve import ingress as _ingress
+
+        columns = None
+        if args.listen_tcp is not None:
+            # framed TCP rows carry values only: the sealed CSV files
+            # name them in the admission contract's column order
+            from sntc_tpu_torch.data.schema import CICIDS2017_CONTRACT
+
+            columns = list((contract or CICIDS2017_CONTRACT).columns)
+        return _ingress.build_ingress(
+            args.watch,
+            listen_udp=args.listen_udp,
+            listen_tcp=args.listen_tcp,
+            spool_mb=args.ingress_spool_mb,
+            columns=columns,
+            source_kwargs=dict(source_kwargs,
+                               parse_salvage=contract is not None),
+        )
+    if args.from_capture:
+        from sntc_tpu_torch.flow import FlowCaptureSource
+
+        return FlowCaptureSource(
+            args.watch,
+            format=args.from_capture,
+            flow_timeout=args.flow_timeout,
+            activity_timeout=args.flow_activity_timeout,
+            allowed_lateness=args.flow_lateness,
+            max_state_packets=args.flow_max_packets,
+            state_dir=os.path.join(args.checkpoint, "flow_state"),
+            **source_kwargs,
+        ), []
+    return FileStreamSource(
+        args.watch, parse_salvage=contract is not None, **source_kwargs,
+    ), []
+
+
+def _flow_summary(source) -> Optional[dict]:
+    """The flow operator's counters and the parser in use, for a
+    capture source; None otherwise."""
+    stats = getattr(source, "flow_stats", None)
+    if stats is not None:
+        return stats()
+    parser = getattr(source, "parser", None)
+    return {"parser": parser()} if parser is not None else None
+
+
 def cmd_serve(args) -> int:
     _obs_start(args)
     try:
@@ -497,6 +563,12 @@ def cmd_serve(args) -> int:
 
 
 def _cmd_serve_body(args) -> int:
+    if args.from_capture and (args.listen_udp is not None
+                              or args.listen_tcp is not None):
+        raise SystemExit(
+            "--listen-udp/--listen-tcp spool their own capture format; "
+            "drop --from-capture (UDP serves NetFlow v5 directly)"
+        )
     from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
     from sntc_tpu_torch.mlio import load_model
     from sntc_tpu_torch.resilience import (
@@ -509,7 +581,6 @@ def _cmd_serve_body(args) -> int:
     from sntc_tpu_torch.serve import (
         BatchPredictor,
         CsvDirSink,
-        FileStreamSource,
         StreamingQuery,
     )
 
@@ -562,12 +633,7 @@ def _cmd_serve_body(args) -> int:
     # depth > 1 arms the pipelined engine: the overlapped sink delivery
     # and the source's background prefetch
     pipelined = args.pipeline_depth > 1
-    source = FileStreamSource(
-        args.watch,
-        prefetch_batches=args.prefetch_batches if pipelined else 0,
-        read_workers=args.read_workers,
-        parse_salvage=contract is not None,
-    )
+    source, ingress_listeners = _build_source(args, contract, pipelined)
     # a served query moves past a poison batch: reads and sink writes
     # retry in place, and a batch that fails --max-batch-failures rounds
     # is dead-lettered and committed
@@ -600,11 +666,27 @@ def _cmd_serve_body(args) -> int:
         lifecycle=lifecycle,
     )
     dom = q.predictor.device_domain
+    if ingress_listeners:
+        from sntc_tpu_torch.serve import ingress as _ingress
+
+        # retention prunes only below the committed horizon, and the
+        # listeners go live only once the engine that replays their
+        # spool exists
+        _ingress.wire_committed_offset(source, q.committed_end)
+        for listener in ingress_listeners:
+            listener.start()
     try:
         if args.once:
             t0 = time.perf_counter()
             with _device_trace_ctx(args):
                 n = q.process_available()
+                if ingress_listeners:
+                    # settle the front door (intake stops, the tail
+                    # seals), then serve what it sealed: --once drains
+                    # the spool too
+                    for listener in ingress_listeners:
+                        listener.drain()
+                    n += q.process_available()
             seconds = time.perf_counter() - t0
             print(json.dumps({
                 "batches": n,
@@ -621,6 +703,9 @@ def _cmd_serve_body(args) -> int:
                 "breakers": {site: br.snapshot()
                              for site, br in q.breakers.items()},
                 "quarantined": q.quarantined_batches,
+                "flow": _flow_summary(source),
+                "ingress": (source.spool.stats.snapshot()
+                            if ingress_listeners else None),
             }))
             return 0
         # the supervised loop: SIGTERM (and Ctrl-C) drains, commits the
@@ -632,6 +717,21 @@ def _cmd_serve_body(args) -> int:
                               health_json=args.health_json, slo=slo,
                               disk_budget_mb=args.disk_budget_mb)
         sup.install_signal_handlers()
+        if ingress_listeners:
+            # SIGTERM settles the front door first (intake stops, the
+            # ring's tail seals durably), then asks the engine to drain:
+            # nothing a sender was acked (the sealed file) dies in memory
+            import signal as _signal
+
+            def _drain_ingress_then_engine(signum, frame):
+                for listener in ingress_listeners:
+                    try:
+                        listener.drain()
+                    except Exception:
+                        pass
+                sup.request_drain("SIGTERM")
+
+            _signal.signal(_signal.SIGTERM, _drain_ingress_then_engine)
         print(f"serving: watching {args.watch} -> {args.out} (checkpoint "
               f"{args.checkpoint}); SIGTERM/Ctrl-C drains", file=sys.stderr)
         try:
@@ -665,6 +765,11 @@ def _cmd_serve_body(args) -> int:
         }))
         return 0
     finally:
+        for listener in ingress_listeners:
+            try:
+                listener.close()
+            except Exception:
+                pass
         q.stop()
         source.close()
         if lifecycle is not None and lifecycle.drift is not None:
@@ -685,6 +790,18 @@ def cmd_fsck(args) -> int:
             f.write(text + "\n")
     print(text)
     return 0 if report["ok"] else 1
+
+
+def cmd_synth(args) -> int:
+    """Write schema-identical synthetic day CSVs (numpy only)."""
+    from sntc_tpu_torch.data import write_day_csvs
+
+    paths = write_day_csvs(
+        args.out, n_rows_per_day=args.rows // args.days, n_days=args.days,
+        seed=args.seed,
+    )
+    print(json.dumps({"files": paths}))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -889,6 +1006,54 @@ def build_parser() -> argparse.ArgumentParser:
                    "the incumbent to promote; with --partial-fit the "
                    "candidate is a refit of the incumbent, so refit "
                    "jitter re-promotes every window at margin 0")
+    p.add_argument("--from-capture", default=None,
+                   choices=["pcap", "netflow"],
+                   help="serve RAW captures: --watch holds pcap/.nf5 "
+                   "capture files and a stateful keyed-window operator "
+                   "computes the CICIDS2017 flow features live "
+                   "(crash-safe state under <checkpoint>/flow_state); "
+                   "unset = the default precomputed-CSV mode")
+    p.add_argument("--flow-timeout", type=float, default=120.0,
+                   metavar="S",
+                   help="session-window quiet gap: a flow idle longer "
+                   "than this (behind the watermark) is COMPLETE and "
+                   "its feature row emits (CICFlowMeter's flow "
+                   "timeout)")
+    p.add_argument("--flow-activity-timeout", type=float, default=5.0,
+                   metavar="S",
+                   help="Active/Idle split gap inside a flow window "
+                   "(CICFlowMeter's activity timeout; pcap only)")
+    p.add_argument("--flow-lateness", type=float, default=5.0,
+                   metavar="S",
+                   help="allowed event-time lateness: the watermark "
+                   "trails the max seen timestamp by this much; "
+                   "records behind the watermark drop with reason "
+                   "late_record (journaled, counted)")
+    p.add_argument("--flow-max-packets", type=int, default=500_000,
+                   help="hard cap on buffered records across all open "
+                   "windows: beyond it the oldest flows force-evict "
+                   "early (reason state_cap) so operator state stays "
+                   "bounded under any replay")
+    p.add_argument("--listen-udp", type=int, default=None, metavar="PORT",
+                   help="live network front door: bind a supervised "
+                   "UDP listener for NetFlow v5 datagrams; --watch "
+                   "becomes the ingress SPOOL the listener seals "
+                   "replayable capture files into (0 = ephemeral "
+                   "port, published in <watch>/ingress_stats.json); "
+                   "loss is counted, never silent")
+    p.add_argument("--listen-tcp", type=int, default=None, metavar="PORT",
+                   help="live network front door: bind a framed TCP "
+                   "row listener (4-byte big-endian length + one CSV "
+                   "row per frame); --watch becomes the ingress "
+                   "spool; torn frames quarantine, over-budget spool "
+                   "pauses reads (sender backpressure)")
+    p.add_argument("--ingress-spool-mb", type=float, default=None,
+                   metavar="MB",
+                   help="ingress spool byte budget: TCP pauses reads "
+                   "over it, UDP sheds at ingress (counted "
+                   "spool_over_budget) after a committed-file prune "
+                   "— bounded disk instead of ENOSPC death; unset = "
+                   "unbudgeted")
     _add_obs_flags(p)
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
@@ -913,6 +1078,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report", default=None, metavar="PATH",
                    help="also write the JSON report here")
     p.set_defaults(fn=cmd_fsck)
+
+    p = sub.add_parser("synth",
+                       help="write schema-identical synthetic day CSVs")
+    p.add_argument("--out", required=True)
+    p.add_argument("--rows", type=int, default=80_000)
+    p.add_argument("--days", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_synth)
     return ap
 
 

@@ -29,6 +29,7 @@ from typing import List, Optional
 import numpy as np
 import pyarrow as pa
 import pyarrow.csv as pacsv
+import pyarrow.parquet as pq
 
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.data.schema import (
@@ -220,3 +221,17 @@ def clean_flows(
     if handle_invalid == "drop" and bad_mask.any():
         out = out.filter(~bad_mask)
     return out
+
+
+def cache_parquet(frame: Frame, path: str) -> str:
+    """Write a cleaned Frame to Parquet (zstd): the fast-reload cache."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    pq.write_table(frame.to_arrow(), path, compression="zstd")
+    return path
+
+
+def load_parquet(path: str, memory_map: bool = True) -> Frame:
+    """Reload a cached Frame.  ``memory_map=True`` (default) maps the
+    file instead of buffering it, so uncompressed column pages land as
+    views over the page cache."""
+    return Frame.from_arrow(pq.read_table(path, memory_map=memory_map))

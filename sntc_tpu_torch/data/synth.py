@@ -124,19 +124,21 @@ def generate_frame(
     return Frame(cols)
 
 
+def _raw_header(columns: List[str]) -> List[str]:
+    """The raw "MachineLearningCVE" header: erratic leading spaces, and
+    'Fwd Header Length' written twice (the ingest dedup maps the second
+    occurrence back to 'Fwd Header Length.1')."""
+    return [(" " + c if i % 2 else c) for i, c in enumerate(
+        "Fwd Header Length" if c == "Fwd Header Length.1" else c
+        for c in columns)]
+
 
 def write_raw_csv(frame: Frame, path: str) -> str:
-    """One CSV in the raw "MachineLearningCVE" style: erratic
-    leading-space column headers, 'Fwd Header Length' written twice (the
-    ingest dedup maps the second occurrence back to 'Fwd Header
-    Length.1').  Float columns are written as float64, whose shortest
+    """One CSV in the raw "MachineLearningCVE" style (:func:`_raw_header`).
+    Float columns are written as float64, whose shortest
     decimal form parses back to the exact same value; the file is
     published by rename so a watching source never reads a partial one."""
     names = frame.columns
-    raw_names = [
-        "Fwd Header Length" if c == "Fwd Header Length.1" else c
-        for c in names
-    ]
     arrays = []
     for c in names:
         a = np.asarray(frame[c])
@@ -145,14 +147,211 @@ def write_raw_csv(frame: Frame, path: str) -> str:
         elif a.dtype == object:
             a = a.astype(str)
         arrays.append(pa.array(a))
-    table = pa.Table.from_arrays(
-        arrays,
-        names=[(" " + c if i % 2 else c) for i, c in enumerate(raw_names)],
-    )
+    table = pa.Table.from_arrays(arrays, names=_raw_header(names))
     tmp = path + ".tmp"
     pacsv.write_csv(table, tmp)
     os.replace(tmp, path)  # storage: unbounded(synthetic dataset output)
     return path
+
+
+def write_day_csvs(
+    out_dir: str,
+    n_rows_per_day: int = 1000,
+    n_days: int = 8,
+    seed: int = 0,
+) -> List[str]:
+    """Emulate the 8 "MachineLearningCVE" day files as CSVs on disk, with the
+    raw files' erratic leading-space column headers, for ingest tests."""
+    os.makedirs(out_dir, exist_ok=True)
+    return [
+        _write_repr_csv(
+            generate_frame(n_rows_per_day, seed=seed + day),
+            os.path.join(out_dir, f"day{day}.csv"),
+        )
+        for day in range(n_days)
+    ]
+
+
+def write_capture_stream(
+    out_dir: str,
+    n_files: int = 6,
+    flows_per_file: int = 3,
+    packets_per_flow: int = 6,
+    seed: int = 0,
+    format: str = "pcap",
+    file_gap_s: float = 1.0,
+    span_files: bool = True,
+    defer_fraction: float = 0.0,
+    flush: bool = True,
+    flush_advance_s: float = 1e6,
+    start_ts: float = 1_700_000_000.0,
+) -> dict:
+    """Synthetic raw-capture micro-batch stream with known ground-truth
+    flows — the drift-fixture discipline applied to capture bytes.
+
+    Writes ``n_files`` capture files (``capture_NNNN.pcap`` or
+    ``.nf5``) under ``out_dir``; dropped under a ``serve
+    --from-capture`` watch directory each file is one engine
+    micro-batch.  File ``i`` starts ``flows_per_file`` new
+    deterministic bidirectional TCP flows inside its
+    ``[start_ts + i*file_gap_s, +file_gap_s)`` time slot; with
+    ``span_files`` every odd flow carries half its packets into the
+    NEXT file (windows genuinely cross micro-batch boundaries — what
+    the kill-mid-window chaos needs).  ``defer_fraction`` additionally
+    moves that fraction of each file's packets into the FOLLOWING
+    file's byte stream without changing their timestamps — real
+    out-of-order arrival whose fate (accepted out-of-order vs dropped
+    ``late_record``) the consumer's lateness bound decides.
+    ``flush=True`` appends one terminal file holding a single
+    far-future sentinel packet (reserved UDP 5-tuple,
+    ``flush_advance_s`` past the last real packet) that drives the
+    watermark past every real window, so a full replay emits ALL
+    ground-truth flows; the sentinel itself stays in state and never
+    emits.
+
+    Returns ``{"files", "packets"/"records", "n_flows",
+    "flush_file"}`` where ``packets`` (pcap) is the full ground-truth
+    packet matrix in timestamp order — feed it to
+    ``packets_to_flow_frame`` for the reference feature rows —
+    and ``records`` (netflow) is the ground-truth NF5 record matrix.
+    """
+    from sntc_tpu_torch.native import make_datagram, make_packet, make_pcap
+
+    if format not in ("pcap", "netflow"):
+        raise ValueError(
+            f"unknown capture format {format!r} (pcap|netflow)"
+        )
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    # per-file event schedules: (ts, payload bytes or record tuple)
+    schedules: List[list] = [[] for _ in range(n_files + 1)]
+    truth_rows: List[tuple] = []
+    flow_idx = 0
+    for i in range(n_files):
+        t0 = start_ts + i * file_gap_s
+        for f in range(flows_per_file):
+            src = 0x0A000000 + flow_idx
+            dst = 0x0A800000 + (flow_idx % 61)
+            sport = 1024 + flow_idx % 40000
+            dport = 80 + (flow_idx % 5)
+            spans = span_files and (flow_idx % 2 == 1) and i + 1 < n_files
+            n_pkts = int(packets_per_flow)
+            for j in range(n_pkts):
+                # second half of a spanning flow lands in the next
+                # file's time slot (the window stays OPEN across the
+                # micro-batch boundary)
+                in_next = spans and j >= n_pkts // 2
+                base = t0 + file_gap_s if in_next else t0
+                frac = (f * n_pkts + j) / max(
+                    flows_per_file * n_pkts * 2, 1
+                )
+                ts = base + frac * file_gap_s * 0.9
+                fwd = j % 2 == 0
+                payload = 40 + 20 * (j % 3) + 5 * (flow_idx % 4)
+                file_slot = i + 1 if in_next else i
+                if format == "pcap":
+                    pkt = make_packet(
+                        src if fwd else dst, dst if fwd else src,
+                        sport if fwd else dport,
+                        dport if fwd else sport,
+                        proto=6, payload=payload,
+                        flags=0x18 if j else 0x02,
+                        window=4096 + 64 * (flow_idx % 8),
+                    )
+                    schedules[file_slot].append((ts, pkt))
+                else:
+                    first_ms = int((ts - start_ts) * 1000) + 3_600_000
+                    rec = (
+                        src if fwd else dst, dst if fwd else src,
+                        sport if fwd else dport,
+                        dport if fwd else sport,
+                        6, 0x18 if j else 0x02, 0, 1 + j % 3,
+                        (1 + j % 3) * payload, first_ms,
+                        first_ms + 40 + 10 * j, 1, 2, 0, 0,
+                    )
+                    schedules[file_slot].append((ts, rec))
+                truth_rows.append(schedules[file_slot][-1])
+            flow_idx += 1
+    if defer_fraction > 0:
+        # move a deterministic sample of each file's events into the
+        # NEXT file (arrival later than newer data; timestamps keep
+        # their original event time)
+        for i in range(n_files - 1):
+            evs = schedules[i]
+            n_defer = int(len(evs) * defer_fraction)
+            if not n_defer:
+                continue
+            pick = set(
+                rng.choice(len(evs), size=n_defer, replace=False)
+                .tolist()
+            )
+            deferred = [e for j, e in enumerate(evs) if j in pick]
+            schedules[i] = [
+                e for j, e in enumerate(evs) if j not in pick
+            ]
+            schedules[i + 1].extend(deferred)
+    last_ts = max(ts for ts, _ in truth_rows)
+    flush_file = None
+    if flush:
+        ts = last_ts + flush_advance_s
+        if format == "pcap":
+            sentinel = make_packet(
+                0x01010101, 0x02020202, 9, 9, proto=17, payload=8
+            )
+            schedules[n_files].append((ts, sentinel))
+        else:
+            first_ms = int((ts - start_ts) * 1000) + 3_600_000
+            schedules[n_files].append((ts, (
+                0x01010101, 0x02020202, 9, 9, 17, 0, 0, 1, 8,
+                first_ms, first_ms, 1, 2, 0, 0,
+            )))
+    files: List[str] = []
+    ext = "pcap" if format == "pcap" else "nf5"
+    for i, events in enumerate(schedules):
+        if not events:
+            continue
+        # arrival order inside a file: schedule order (deferred events
+        # trail the file's own, preserving the out-of-order shape)
+        path = os.path.join(out_dir, f"capture_{i:04d}.{ext}")
+        if format == "pcap":
+            data = make_pcap([(ts, pkt) for ts, pkt in events])
+        else:
+            recs = [rec for _ts, rec in events]
+            data = b"".join(
+                make_datagram(recs[k:k + 30], seq=k)
+                for k in range(0, len(recs), 30)
+            )
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fobj:
+            fobj.write(data)
+        # atomic: a watching source never sees partials
+        os.replace(tmp, path)  # storage: unbounded(synthetic dataset output)
+        files.append(path)
+        if flush and i == n_files:
+            flush_file = path
+    out = {
+        "files": files,
+        "n_flows": flow_idx,
+        "flush_file": flush_file,
+    }
+    truth_rows.sort(key=lambda e: e[0])
+    if format == "pcap":
+        from sntc_tpu_torch.native import parse_pcap
+
+        # ground truth via the parser itself (exactly the field
+        # extraction the consumer sees), in timestamp order
+        all_pcap = make_pcap(truth_rows)
+        out["packets"] = parse_pcap(all_pcap)
+    else:
+        # NF5_FIELD_NAMES[:15] order + the derived duration_ms column
+        out["records"] = np.asarray(
+            [
+                list(rec) + [max(rec[10] - rec[9], 0)]
+                for _ts, rec in truth_rows
+            ],
+            np.float64,
+        )
+    return out
 
 
 def generate_drift_frames(
@@ -196,14 +395,11 @@ def generate_drift_frames(
     return frames
 
 
-def _write_drift_csv(frame: Frame, path: str) -> str:
-    """One drift-fixture CSV, byte for byte the JAX package's: the raw
-    header, floats as ``repr`` of their float64 value, strings bare.
-    Published by rename, like :func:`write_raw_csv`."""
-    raw_names = ["Fwd Header Length" if c == "Fwd Header Length.1" else c
-                 for c in frame.columns]
-    header = ",".join((" " + c if i % 2 else c)
-                      for i, c in enumerate(raw_names))
+def _write_repr_csv(frame: Frame, path: str) -> str:
+    """One CSV byte for byte the JAX package's day and drift-fixture
+    writers': the raw header, floats as ``repr`` of their float64 value,
+    strings bare.  Published by rename, like :func:`write_raw_csv`."""
+    header = ",".join(_raw_header(frame.columns))
     cells = []
     for c in frame.columns:
         a = np.asarray(frame[c])
@@ -239,7 +435,7 @@ def write_drift_stream(
             n_batches, rows_per_batch, shift_at=shift_at, seed=seed,
             n_classes=n_classes, shift_seed=shift_seed,
             shift_priors=shift_priors)
-    return [_write_drift_csv(f, os.path.join(out_dir, f"part_{i:04d}.csv"))
+    return [_write_repr_csv(f, os.path.join(out_dir, f"part_{i:04d}.csv"))
             for i, f in enumerate(frames)]
 
 

@@ -118,6 +118,97 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         help="Raw source bytes read by ingest (CSV parse, capture "
         "decode).",
     ),
+    # -- the socket front door (serve/ingress) ------------------------------
+    "sntc_ingress_datagrams_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="UDP datagrams accepted at the ingress receive boundary "
+        "(pre-spool; the conservation law's 'received' side).",
+    ),
+    "sntc_ingress_frames_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="TCP length-prefixed frames accepted at the ingress "
+        "receive boundary.",
+    ),
+    "sntc_ingress_bytes_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Payload bytes accepted at the ingress receive boundary.",
+    ),
+    "sntc_ingress_dropped_total": dict(
+        type=COUNTER, labels=("reason", "tenant"),
+        help="Ingress payloads shed, by reason (ring_overflow / "
+        "spool_over_budget / spool_error / torn_frame / oversize_frame "
+        "/ recv_error / close_discard) — counted shed, never silent "
+        "loss: received == spooled + dropped after a drain.",
+    ),
+    "sntc_ingress_sealed_files_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Capture files sealed (fsynced atomic rename) into the "
+        "ingress spool.",
+    ),
+    "sntc_ingress_pruned_files_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Committed capture files pruned by spool retention "
+        "(keep-N / disk budget).",
+    ),
+    "sntc_ingress_spool_bytes": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Live bytes in the ingress spool directory.",
+    ),
+    "sntc_ingress_ring_depth": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Payloads waiting in the bounded ingress ring.",
+    ),
+    "sntc_ingress_backpressure_state": dict(
+        type=GAUGE, labels=("tenant",),
+        help="1 while TCP ingress is pausing reads (spool over "
+        "budget), 0 otherwise.",
+    ),
+    "sntc_ingress_connections": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Live TCP ingress connections.",
+    ),
+    # -- the stateful flow-feature engine (flow/) ----------------------------
+    "sntc_flow_records_consumed_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Parser records (packets/datagram rows) accepted into "
+        "keyed window state.",
+    ),
+    "sntc_flow_late_records_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Records dropped behind the watermark (reason code "
+        "late_record).",
+    ),
+    "sntc_flow_out_of_order_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Accepted records that arrived behind the stream head "
+        "but inside the lateness bound.",
+    ),
+    "sntc_flow_windows_emitted_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Completed flow windows emitted as feature rows.",
+    ),
+    "sntc_flow_evictions_total": dict(
+        type=COUNTER, labels=("reason", "tenant"),
+        help="Flows evicted from keyed state, by reason (watermark / "
+        "state_cap / flush).",
+    ),
+    "sntc_flow_snapshots_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Operator-state snapshots published at commit.",
+    ),
+    "sntc_flow_active_flows": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Open (uncompleted) flow windows held in keyed state.",
+    ),
+    "sntc_flow_state_packets": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Buffered parser records across all open windows (the "
+        "watermark-bounded state size).",
+    ),
+    "sntc_flow_state_bytes": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Size of the last published operator-state snapshot.",
+    ),
     "sntc_ingest_stage_seconds": dict(
         type=HISTOGRAM, labels=("stage", "tenant"),
         buckets=LATENCY_BUCKETS,

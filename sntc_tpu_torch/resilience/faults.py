@@ -142,9 +142,15 @@ SITES = (
     "storage.journal",
     "storage.dead_letter",
     "storage.marker",
+    "storage.state",
     "predict.compile",
     "device.dispatch",
     "ctl.apply",
+    "flow.emit",
+    "flow.evict",
+    "flow.state_snapshot",
+    "ingress.recv",
+    "ingress.spool",
 )
 
 

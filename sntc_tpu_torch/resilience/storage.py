@@ -145,6 +145,12 @@ ARTIFACTS: Dict[str, ArtifactSpec] = {
             SHED,
         ),
         ArtifactSpec(
+            "flow_state", "snapshot", "storage.state",
+            ("flow_state/state-*.bin",),
+            "FlowStateStore keep-2 bracketing snapshots",
+            FAIL,
+        ),
+        ArtifactSpec(
             "markers", "marker", "storage.marker",
             ("drain_marker.json", "model_marker.json",
              "daemon_drain_marker.json", "health.json"),
@@ -163,6 +169,17 @@ ARTIFACTS: Dict[str, ArtifactSpec] = {
             ("model/*", "model.prev/*"),
             "atomic publish, exactly one .prev retained",
             FAIL,
+        ),
+        # the socket front door (serve/ingress.py): patterns are
+        # relative to the listener's spool (the --watch dir)
+        ArtifactSpec(
+            "ingress_spool", "wal", "ingress.spool",
+            ("capture_*.nf5", "rows_*.csv", "ingress_stats.json",
+             "quarantine/*"),
+            "keep-N newest COMMITTED capture files (committed_end "
+            "horizon; uncommitted never pruned); over-budget payloads "
+            "shed at ingress (counted)",
+            SHED,
         ),
     )
 }
@@ -952,8 +969,8 @@ def _verify_flow_snapshot(path: str) -> None:
 
 def _fsck_flow_state(root: str, report: dict, repair: bool,
                      tenant: Optional[str]) -> None:
-    """The seals of a JAX-served root's flow-state snapshots (the port
-    writes none): a broken one is quarantined, as the JAX doctor does."""
+    """The seals of a root's flow-state snapshots (either package's): a
+    broken one is quarantined, as the JAX doctor does."""
     state_dir = os.path.join(root, "flow_state")
     if not os.path.isdir(state_dir):
         return

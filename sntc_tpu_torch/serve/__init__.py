@@ -4,6 +4,21 @@ from sntc_tpu_torch.serve.controller import (
     SloSignal,
 )
 from sntc_tpu_torch.serve.fuse import compile_pipeline, compile_serving
+from sntc_tpu_torch.serve.ingress import (
+    CsvSpoolSource,
+    IngressSpool,
+    NetFlowSpoolSource,
+    TcpRowIngress,
+    UdpIngressListener,
+    build_ingress,
+    frame_rows,
+    wire_committed_offset,
+)
+from sntc_tpu_torch.serve.netflow_source import (
+    NetFlowDirSource,
+    PcapDirSource,
+    capture_udp,
+)
 from sntc_tpu_torch.serve.streaming import (
     ConsoleSink,
     CsvDirSink,
@@ -20,6 +35,13 @@ from sntc_tpu_torch.serve.transform import (
 )
 
 __all__ = [
+    "CsvSpoolSource",
+    "IngressSpool",
+    "NetFlowDirSource",
+    "NetFlowSpoolSource",
+    "PcapDirSource",
+    "TcpRowIngress",
+    "UdpIngressListener",
     "VALID_COL",
     "BatchPredictor",
     "ConsoleSink",
@@ -32,7 +54,11 @@ __all__ = [
     "SloPolicy",
     "SloSignal",
     "StreamingQuery",
+    "build_ingress",
     "bucket_rows_for",
+    "capture_udp",
     "compile_pipeline",
     "compile_serving",
+    "frame_rows",
+    "wire_committed_offset",
 ]

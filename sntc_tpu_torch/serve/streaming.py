@@ -204,9 +204,13 @@ class DirStreamSource:
     """
 
     def __init__(self, path: str, pattern: str, prefetch_batches: int = 0,
-                 read_workers: int = 4, parse_salvage: bool = False):
+                 read_workers: int = 4, parse_salvage: bool = False,
+                 tenant: Optional[str] = None):
         self.path = path
         self.pattern = pattern
+        # a metric label only (the capture sources' byte counter), as in
+        # the JAX source
+        self.tenant = tenant
         self.prefetch_batches = int(prefetch_batches)
         self.read_workers = max(1, int(read_workers))
         self.parse_salvage = bool(parse_salvage)
@@ -669,6 +673,12 @@ class StreamingQuery:
             ids = self._log_ids(self._commits_dir)
             self._prune_cursor = ids[0] if ids else 0
         self._next_start = self._end_offset
+        # stateful sources (flow/): rewind operator state to the snapshot
+        # of the recovered committed offset before any WAL replay, which
+        # then reconverges bitwise
+        restore = getattr(source, "on_restore", None)
+        if restore is not None:
+            restore(self._end_offset)
 
     def _init_append_wal(self, checkpoint_dir: str) -> None:
         """``append`` mode: recovery is ``wal_checkpoint.json`` (the
@@ -1285,6 +1295,13 @@ class StreamingQuery:
                       timing: Optional[dict] = None) -> None:
         """The one commit protocol (WAL commit, bookkeeping, metrics and
         the progress record) of normal and quarantined batches."""
+        # stateful sources publish their operator-state snapshot before
+        # the commit record: the two retained snapshots then bracket the
+        # committed offset, so a crash in between restores the
+        # exact-offset snapshot and the batch replays from it
+        committed_hook = getattr(self.source, "on_batch_committed", None)
+        if committed_hook is not None:
+            committed_hook(batch_id, intent)
         fault_point("stream.commit")
         with span("stream.commit", batch=batch_id):
             self._wal_commit(batch_id, intent)

@@ -906,7 +906,7 @@ def test_artifacts_pinned_against_write_sites():
     storage plane names a registered artifact (or declares itself
     ``unbounded(<reason>)``); every artifact the port writes has a write
     site; every artifact's fault site is declared; and the registry is
-    the JAX package's, minus what only fleet, ingress and replication
+    the JAX package's, minus what only the fleet and replication
     write."""
     problems, named = [], set()
     for rel, text in _port_sources():
@@ -935,9 +935,9 @@ def test_artifacts_pinned_against_write_sites():
         assert name in named or f'"{name}"' in sources.replace(
             'ArtifactSpec(\n            "' + name, ""), name
     assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == {
-        "flow_state", "fleet_lease", "fleet_assignments",
+        "fleet_lease", "fleet_assignments",
         "fleet_assignment_journal", "fleet_migration_manifest",
-        "fleet_markers", "fleet_request_journal", "ingress_spool",
+        "fleet_markers", "fleet_request_journal",
         "repl_barrier", "repl_manifest"}
     for kind in R.IO_KINDS:
         assert kind in R.ALL_KINDS
