@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16]
+                          [--phases 2,3,11,12,13,14,15,16,17]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -331,7 +331,38 @@ each of which fails the run (non-zero exit, no result line):
    held-out rows as ``frame_rows`` payloads, equal to the same rows
    served from a CSV file; (d) ``pad_assemble`` timed at float32 [384,
    78] -> 512, [797, 78] -> 1 024 and [768, 78] -> 1 024 beside its
-   bound and ``index_select``.  One JSON line reports the phase.
+   bound and ``index_select``.  One JSON line reports the phase;
+17. the multi-tenant serve daemon: (a) bench config 8 (``bench.py:
+   1117-1355``) on config 9's data: StringIndexer -> VectorAssembler(78)
+   -> StandardScaler(withMean) -> LR(maxIter=20), and the same with
+   gaussian NB, fitted on the card, each served through one
+   ``BatchPredictor(bucket_rows=256)`` shared by every tenant and leg;
+   10 tenants (``lr00``-``lr07``, ``nb00``-``nb01``) each serving its own
+   copy of the test split (files of 1 024 / 512 / 256 rows); leg S (one
+   plain engine a pipeline over the combined streams), leg A (the clean
+   daemon), leg B (with a noisy tenant: 3 passes, every 3rd file
+   poisoned, backlog cap 16) and leg A again with
+   ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card: no new row shape
+   after the warmup, the noisy tenant QUARANTINED after 1 episode with
+   21 poisoned files and 47 shed offsets (``bench_runs.jsonl:96-97``),
+   every well-behaved tenant OK and its batch files byte-identical across
+   the four legs, one ``pad_assemble`` launch per padded dispatch and
+   each launch shape bitwise against its plain version, where each batch
+   ran (the transfer ledgers); (b) ``python -m sntc_tpu_torch serve-daemon
+   --once`` over three of (a)'s tenants (two on the saved LR checkpoint,
+   one on the NB one): every tenant OK, no new row shape, drained, the
+   predictions equal to (a)'s, ``fsck --tenant-tree`` clean; the chaos
+   harness's multi-tenant kill (at ``tenant/t1/stream.wal``, then a
+   restart) and isolation (``tenant/t1/sink.write`` failing for good)
+   legs in daemon processes, against an unkilled run; (c) bench config
+   11's arm B (``bench.py:1981-2075``): the hand-tuned config-8 flags
+   against cold defaults with ``ServeDaemon(controller=True)`` under its
+   achievable SLOs, 3 reps in turns, every tenant OK and the predictions
+   equal; then three tenants at depth 2 on the card with one under an
+   unreachable floor: ``controller.jsonl`` written and reconciled by a
+   second daemon's ``restart`` record.  Every ``pad_assemble`` shape is
+   timed beside its bound and ``index_select``.  One JSON line reports
+   the phase.
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -447,6 +478,7 @@ from sntc_tpu_torch.serve import (
     frame_rows,
     wire_committed_offset,
 )
+from sntc_tpu_torch.resilience.faults import KILL_EXIT_CODE
 from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3330,8 +3362,9 @@ def lane_fits(dev, data2: dict, data1: dict, work: str):
 
 def env_with(**kw) -> dict:
     """This process's environment with ``kw`` set (SNTC_FAULTS cleared
-    unless given)."""
-    env = dict(os.environ, SNTC_FAULTS="")
+    unless given); ``faulthandler`` is on, so a SIGABRT dumps every
+    thread's stack (``finished`` sends one to a process that hangs)."""
+    env = dict(os.environ, SNTC_FAULTS="", PYTHONFAULTHANDLER="1")
     env.update(kw)
     return env
 
@@ -6169,18 +6202,24 @@ def serve_cli(args: list, armed: tuple = ()) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True)
 
 
-def finished(proc: subprocess.Popen, what: str, rc: int = 0) -> str:
+def finished(proc: subprocess.Popen, what: str, rc: int = 0,
+             phase: str = "16") -> str:
     """Wait for ``proc``; fail unless it exited with ``rc``; its stdout."""
     try:
         out, err = proc.communicate(timeout=P16_WAIT_S)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        out, err = proc.communicate()
-        raise SystemExit(f"phase 16: {what} still running after "
-                         f"{P16_WAIT_S} s:\n{err[-3000:]}")
+        # its threads' stacks first (faulthandler, ``env_with``)
+        proc.send_signal(signal.SIGABRT)
+        try:
+            out, err = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        raise SystemExit(f"phase {phase}: {what} still running after "
+                         f"{P16_WAIT_S} s:\n{err[-6000:]}")
     if proc.returncode != rc:
-        raise SystemExit(f"phase 16: {what} exited {proc.returncode} (want "
-                         f"{rc}):\n{err[-3000:]}")
+        raise SystemExit(f"phase {phase}: {what} exited {proc.returncode} "
+                         f"(want {rc}):\n{err[-3000:]}")
     return out
 
 
@@ -6533,6 +6572,791 @@ def report_phase16(p16: dict, card: str) -> None:
         "commands": b}, default=str))
 
 
+# -- phase 17: the multi-tenant serve daemon ---------------------------------
+
+C8_TENANTS = 10  # bench.py:1094-1100: 8 LR tenants, 2 gaussian NB
+C8_LR_TENANTS = 8
+C8_SIZES = (1024, 512, 256)  # each tenant's micro-batch row cycle
+C8_BUCKETS = 256
+C8_NOISY_PASSES = 3  # the flood: the noisy stream is 3x a tenant's
+C8_NOISY_CORRUPT_EVERY = 3  # every 3rd noisy file is poison
+# the noisy tenant's end (bench_runs.jsonl:96-97, both reproduced by the
+# JAX package on the CPU at this data and width)
+C8_NOISY_RECORD = {"state": "QUARANTINED", "poisoned_files": 21,
+                   "quarantine_episodes": 1, "shed_total_offsets": 47}
+C11_REPS = 3  # interleaved reps of config 11's arm B
+C11_SLO = {"slo_p99_ms": 250.0, "slo_min_rows_per_sec": 500.0}
+# the journal leg: one tenant under a floor it cannot reach, as the JAX
+# bench's smoke journal for config 11 shows its controller's arc
+C11_UNREACHABLE = 1e9
+MT_TENANTS = ("t0", "t1", "t2")  # scripts/chaos_crash_matrix.py:113
+MT_FILES, MT_ROWS = 4, 6
+MT_WORKER = """
+import json, os, sys
+from sntc_tpu_torch.core.base import Transformer
+from sntc_tpu_torch.serve import ServeDaemon, TenantSpec
+
+class Identity(Transformer):
+    def transform(self, frame):
+        return frame
+
+watch, out, ckpt, device = sys.argv[1:5]
+specs = [TenantSpec(tenant_id=tid, model=Identity(),
+                    watch=os.path.join(watch, tid),
+                    out=os.path.join(out, tid), out_columns=["x"],
+                    max_batch_offsets=1, max_batch_failures=2,
+                    quarantine_after=2, stop_after=99)
+         for tid in ("t0", "t1", "t2")]
+daemon = ServeDaemon(specs, ckpt, device=device)
+try:
+    n = daemon.process_available()
+    daemon.drain()
+    status = daemon.status()
+finally:
+    daemon.close()
+print(json.dumps({"batches": n, "tenants": {
+    tid: row["state"] for tid, row in status["tenants"].items()}}))
+"""
+
+
+def c8_pipelines(dev, data: dict, work: str) -> dict:
+    """Bench config 8's two pipelines (``bench.py:1143-1152``), fitted on
+    the card and saved: StringIndexer -> VectorAssembler(78) ->
+    StandardScaler(withMean) -> LR(maxIter=20), and the same with
+    gaussian NB; each served as ``compile_serving`` gives it through one
+    ``BatchPredictor(bucket_rows=256)``, shared by every tenant and
+    leg."""
+    from sntc_tpu_torch.serve import compile_serving
+
+    out = {}
+    for name, head in (("lr", LogisticRegression(device=dev,
+                                                 maxIter=C9_LR_ITERS)),
+                       ("nb", NaiveBayes(device=dev,
+                                         modelType="gaussian"))):
+        pipe = c9_pipeline(dev)
+        pipe = Pipeline(stages=pipe.getStages()[:-1] + [head])
+        fitted = pipe.fit(data["train"])
+        served = compile_serving(PipelineModel(stages=fitted.getStages()[1:]))
+        out[name] = {
+            "model_dir": save_model(fitted, os.path.join(work, f"model17{name}")),
+            "served": served,
+            "pred": BatchPredictor(served, bucket_rows=C8_BUCKETS, device=dev),
+        }
+    return out
+
+
+def c8_streams(test: Frame, tmp: str) -> dict:
+    """Each tenant's copy of the test split (``write_bench_stream``, the
+    1 024 / 512 / 256 cycle: written once, each tenant's directory of
+    hard links to it, the bytes the bench writes each tenant), one
+    combined directory a pipeline for leg S (hard links too), and the
+    noisy stream: 3 passes, every 3rd file poisoned with a ragged line
+    (``bench.py:1103-1114``)."""
+    tenants = [f"lr{i:02d}" for i in range(C8_LR_TENANTS)] + [
+        f"nb{i:02d}" for i in range(C8_TENANTS - C8_LR_TENANTS)]
+    first = os.path.join(tmp, "in", tenants[0])
+    one = write_bench_stream(first, test, chunk_cycle=C8_SIZES)
+    for tid in tenants[1:]:
+        os.makedirs(os.path.join(tmp, "in", tid))
+        for k in range(len(one)):
+            name = f"part_{k:05d}.csv"
+            os.link(os.path.join(first, name),
+                    os.path.join(tmp, "in", tid, name))
+    sizes = {tid: list(one) for tid in tenants}
+    for pipe in ("lr", "nb"):
+        combined = os.path.join(tmp, "in", f"single_{pipe}")
+        os.makedirs(combined)
+        n = 0
+        for tid in (t for t in tenants if t.startswith(pipe)):
+            for src in sorted(glob.glob(os.path.join(tmp, "in", tid,
+                                                     "part_*.csv"))):
+                os.link(src, os.path.join(combined, f"part_{n:05d}.csv"))
+                n += 1
+    noisy_dir = os.path.join(tmp, "in", "noisy")
+    noisy = write_bench_stream(noisy_dir, test, passes=C8_NOISY_PASSES,
+                               chunk_cycle=C8_SIZES)
+    poisoned = 0
+    for i, path in enumerate(sorted(glob.glob(os.path.join(noisy_dir,
+                                                           "part_*.csv")))):
+        if i % C8_NOISY_CORRUPT_EVERY == 0:
+            with open(path, "a") as f:
+                f.write("garbage,not,a,flow,row\n")
+            poisoned += 1
+    return {"tenants": tenants, "sizes": sizes, "noisy": noisy,
+            "poisoned": poisoned}
+
+
+def c8_specs(preds: dict, tenants: list, tmp: str, leg: str, **kw) -> list:
+    """Leg ``leg``'s well-behaved tenant specs: a shared predictor each,
+    a non-durable prediction sink, one file a batch (``bench.py:1180``)."""
+    from sntc_tpu_torch.serve import TenantSpec
+
+    return [TenantSpec(
+        tenant_id=tid, model=preds[tid[:2]],
+        watch=os.path.join(tmp, "in", tid),
+        sink=CsvDirSink(os.path.join(tmp, "out", leg, tid),
+                        columns=["prediction"], durable=False),
+        max_batch_offsets=1, max_batch_failures=2, **kw) for tid in tenants]
+
+
+def round_trips(pred, test: Frame) -> dict:
+    """The copies one batch of ``pred``'s pipeline makes on the card (a
+    1 024-row dispatch with the host path off), by a transfer ledger:
+    the LR head one upload and one download, the NB pipeline two of each
+    (its scaler segment's output comes back to the host before the NB
+    head)."""
+    from sntc_tpu_torch.utils.profiling import TransferLedger, ledger_scope
+
+    led = TransferLedger()
+    with environ(SNTC_SERVE_HOST_ROWS=0), ledger_scope(led):
+        pred.predict_frame(test.slice(0, C8_SIZES[0]))
+    return led.snapshot()
+
+
+def tenant_placement(daemon, trips: dict) -> dict:
+    """Where each tenant's committed batches ran, from its engine's
+    transfer ledger and its pipeline's copies a card batch (``trips``):
+    a batch served on the host copies nothing."""
+    out = {}
+    for t in daemon.tenants:
+        led = t.query.transfer.snapshot()
+        per = trips["nb" if t.spec.tenant_id.startswith("nb") else "lr"]
+        card, rest = divmod(led["downloads"], per["downloads"])
+        out[t.spec.tenant_id] = {
+            "batches": t.batches_done, "card": card,
+            "host": t.batches_done - card,
+            "copies_match": rest == 0
+            and led["uploads"] == card * per["uploads"]}
+    return out
+
+
+def c8_daemon(dev, specs: list, root: str, trips: dict, **kw) -> dict:
+    """One daemon leg (``bench.py:1192-1230``): serve what is there,
+    timed; each tenant's snapshot and placement, the status."""
+    from sntc_tpu_torch.serve import ServeDaemon
+
+    daemon = ServeDaemon(specs, root, shape_buckets=C8_BUCKETS, device=dev,
+                         **kw)
+    try:
+        t0 = time.perf_counter()
+        daemon.process_available()
+        dt = time.perf_counter() - t0
+        snap = {t.spec.tenant_id: t.snapshot() for t in daemon.tenants}
+        progress = {t.spec.tenant_id: list(t.query.recentProgress)
+                    for t in daemon.tenants}
+        return {"dt": dt, "tenants": snap, "progress": progress,
+                "placement": tenant_placement(daemon, trips),
+                "status": daemon.status()}
+    finally:
+        daemon.close()
+
+
+def batch_file_bytes(out_dir: str) -> list:
+    """A sink's batch files' bytes, in batch order."""
+    out = []
+    for p in sorted(glob.glob(os.path.join(out_dir, "batch_*.csv"))):
+        with open(p, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def padded_of(sizes) -> int:
+    """The batches of these row counts that ``pad_assemble`` pads."""
+    return sum(1 for n in sizes if n and bucket_rows_for(n, C8_BUCKETS) != n)
+
+
+def c8_serve(dev, data: dict, models: dict, streams: dict,
+             tmp: str) -> dict:
+    """(a): bench config 8 in this process (``bench.py:1117-1355``): the
+    warmup, leg S (one plain engine a pipeline over the combined
+    streams), leg A (the clean daemon), leg B (with the noisy tenant)
+    and leg A again with every batch on the card."""
+    import pyarrow as pa
+
+    from sntc_tpu_torch.serve import TenantSpec
+
+    test = data["test"]
+    tenants, sizes = streams["tenants"], streams["sizes"]
+    preds = {name: m["pred"] for name, m in models.items()}
+    arrow_cpus = pa.cpu_count()
+    pa.set_cpu_count(1)  # bench.py's intra-op pinning
+    try:
+        # every chunk shape through both shared predictors once
+        chunks = sorted(set(sum(sizes.values(), [])) | set(streams["noisy"]))
+        for pred in preds.values():
+            for c in chunks:
+                pred.predict_frame(test.slice(0, c))
+        trips = {name: round_trips(pred, test) for name, pred in preds.items()}
+        compiles_warm = sum(p.compile_events for p in preds.values())
+        reset_launches()
+        single_dt, single_out = 0.0, {}
+        for pipe, pred in preds.items():
+            src = FileStreamSource(os.path.join(tmp, "in", f"single_{pipe}"))
+            out_dir = os.path.join(tmp, "out", "single", pipe)
+            q = StreamingQuery(
+                pred, src, CsvDirSink(out_dir, columns=["prediction"],
+                                      durable=False),
+                os.path.join(tmp, f"ckpt_single_{pipe}"),
+                max_batch_offsets=1, wal_mode="append", overlap_sink=False,
+                device=dev)
+            t0 = time.perf_counter()
+            q.process_available()
+            single_dt += time.perf_counter() - t0
+            q.stop()
+            src.close()
+            single_out[pipe] = batch_file_bytes(out_dir)
+        single_rows = sum(sum(v) for v in sizes.values())
+        clean = c8_daemon(dev, c8_specs(preds, tenants, tmp, "clean"),
+                          os.path.join(tmp, "root_clean"), trips)
+        noisy_spec = TenantSpec(
+            tenant_id="noisy", model=preds["lr"],
+            watch=os.path.join(tmp, "in", "noisy"),
+            sink=CsvDirSink(os.path.join(tmp, "out", "noisy", "noisy"),
+                            columns=["prediction"], durable=False),
+            max_batch_offsets=1, max_batch_failures=2,
+            max_pending_batches=16, shed_policy="oldest",
+            quarantine_after=3, stop_after=99, quarantine_cooldown_s=1e9)
+        noisy = c8_daemon(dev, c8_specs(preds, tenants, tmp, "noisy")
+                          + [noisy_spec], os.path.join(tmp, "root_noisy"),
+                          trips)
+        launches_host, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+        with environ(SNTC_SERVE_HOST_ROWS=0):
+            card = c8_daemon(dev, c8_specs(preds, tenants, tmp, "card"),
+                             os.path.join(tmp, "root_card"), trips)
+        launches = dict(LAUNCHES)
+        for k, v in PAD_LAUNCH_SHAPES.items():
+            shapes[k] = v
+    finally:
+        pa.set_cpu_count(arrow_cpus)
+    compiles_after = sum(p.compile_events for p in preds.values())
+    # leg S's combined batch k is tenant k // files's file k % files
+    by_tenant_single = {}
+    for pipe, files in single_out.items():
+        members = [t for t in tenants if t.startswith(pipe)]
+        k = 0
+        for tid in members:
+            by_tenant_single[tid] = files[k:k + len(sizes[tid])]
+            k += len(sizes[tid])
+    sinks_equal = all(
+        by_tenant_single[tid]
+        == batch_file_bytes(os.path.join(tmp, "out", "clean", tid))
+        == batch_file_bytes(os.path.join(tmp, "out", "noisy", tid))
+        == batch_file_bytes(os.path.join(tmp, "out", "card", tid))
+        and len(by_tenant_single[tid]) == len(sizes[tid])
+        for tid in tenants)
+    # each leg's padded dispatches, from the committed batches' rows
+    noisy_rows = [p["numInputRows"] for p in noisy["progress"]["noisy"]]
+    want_pad = {
+        "single+clean": 2 * padded_of(sum(sizes.values(), [])),
+        "noisy": padded_of(sum(sizes.values(), [])) + padded_of(noisy_rows),
+        "card": padded_of(sum(sizes.values(), [])),
+    }
+    if len(noisy_rows) != noisy["tenants"]["noisy"]["batches_done"]:
+        raise SystemExit("phase 17 (a): the noisy tenant's progress ring "
+                         "dropped records")
+    noisy_row = noisy["tenants"]["noisy"]
+    noisy_got = {"state": noisy_row["state"],
+                 "poisoned_files": streams["poisoned"],
+                 "quarantine_episodes": noisy_row["quarantine_episodes"],
+                 "shed_total_offsets": noisy_row["shed_total_offsets"]}
+    card_all = all(p["host"] == 0 and p["card"] == p["batches"]
+                   for p in card["placement"].values())
+    copies_match = all(p["copies_match"] for leg in (clean, noisy, card)
+                       for p in leg["placement"].values())
+    well_ok = all(s["state"] == "OK" for leg in (clean, noisy, card)
+                  for tid, s in leg["tenants"].items() if tid != "noisy")
+    p99_base = {tid: s["p99_ms"] for tid, s in clean["tenants"].items()}
+    ratios = [noisy["tenants"][tid]["p99_ms"] / p99_base[tid]
+              for tid in tenants
+              if p99_base.get(tid) and noisy["tenants"][tid]["p99_ms"]]
+    clean_rows = sum(s["rows_done"] for s in clean["tenants"].values())
+    placement = {leg: {"host": sum(p["host"] for p in x["placement"].values()),
+                       "card": sum(p["card"] for p in x["placement"].values())}
+                 for leg, x in (("clean", clean), ("noisy", noisy),
+                                ("card", card))}
+    evidence = {
+        "tenants": len(tenants), "rows": clean_rows,
+        "single_rows": single_rows,
+        "recompiles_after_warmup": compiles_after - compiles_warm,
+        "noisy": noisy_got,
+        "daemon_survived": True,
+        "sinks_equal": sinks_equal,
+        "card_leg_all_on_card": card_all,
+        "copies_match": copies_match,
+        "copies_per_card_batch": trips,
+        "well_behaved_ok": well_ok,
+        "placement": placement,
+        "pad_assemble": {"host_legs": launches_host["pad_assemble"],
+                         "card_leg": launches["pad_assemble"]
+                         - launches_host["pad_assemble"]},
+        "padded_dispatches": {"host_legs": want_pad["single+clean"]
+                              + want_pad["noisy"],
+                              "card_leg": want_pad["card"]},
+        "other_launches": {k: v for k, v in launches.items()
+                           if k != "pad_assemble"},
+        "pad_max_abs_err": check_pad_shapes(dev, shapes, "phase 17 (a)"),
+        "events_dropped_by_tenant": noisy["status"][
+            "events_dropped_by_tenant"],
+    }
+    if evidence["recompiles_after_warmup"] != 0 \
+            or noisy_got != C8_NOISY_RECORD or not sinks_equal \
+            or not card_all or not well_ok or not copies_match \
+            or evidence["pad_assemble"] != evidence["padded_dispatches"] \
+            or evidence["padded_dispatches"]["card_leg"] < 1 \
+            or any(evidence["other_launches"].values()) \
+            or clean_rows != single_rows:
+        raise SystemExit(f"phase 17 (a): {evidence}")
+    agg = clean_rows / clean["dt"]
+    single = single_rows / single_dt
+    return {
+        "evidence": evidence, "streams": streams, "pad_launch_shapes": shapes,
+        "rows_per_s": {"aggregate": agg, "single": single,
+                       "card_leg": clean_rows / card["dt"]},
+        "aggregate_vs_single": agg / single,
+        "latency_ms": {tid: {"p50": s["p50_ms"], "p99": s["p99_ms"]}
+                       for tid, s in clean["tenants"].items()},
+        "well_behaved_p99_ratio_worst": max(ratios) if ratios else None,
+        "finalize_ms": {
+            leg: finalize_quantiles(x["progress"], tenants)
+            for leg, x in (("clean", clean), ("card", card))},
+        "seconds": {"single": single_dt, "clean": clean["dt"],
+                    "noisy": noisy["dt"], "card": card["dt"]},
+    }
+
+
+def finalize_quantiles(progress: dict, tenants: list) -> dict:
+    """p50 / p99 of the well-behaved tenants' ``finalizeMs`` (the wait
+    for a batch's output) over their committed batches."""
+    vals = np.asarray([p["finalizeMs"] for tid in tenants
+                       for p in progress.get(tid, []) if "finalizeMs" in p])
+    if not len(vals):
+        return {"p50": None, "p99": None, "n": 0}
+    return {"p50": float(np.percentile(vals, 50)),
+            "p99": float(np.percentile(vals, 99)), "n": int(len(vals))}
+
+
+def mt_inputs(d: str) -> None:
+    """The chaos harness's three tenant streams (``scripts/
+    chaos_crash_matrix.py:921-935``): 4 files of 6 rows each, the
+    tenant's index in the row values."""
+    for k, tid in enumerate(MT_TENANTS):
+        tdir = os.path.join(d, "in", tid)
+        os.makedirs(tdir, exist_ok=True)
+        for i in range(MT_FILES):
+            with open(os.path.join(tdir, f"in_{i:03d}.csv"), "w") as f:
+                f.write("x\n" + "".join(
+                    f"{k * 100_000 + i * 1000 + r}\n" for r in range(MT_ROWS)))
+
+
+def mt_state(d: str) -> dict:
+    """Each tenant's committed ranges and sink rows."""
+    out = {}
+    for tid in MT_TENANTS:
+        rows = {}
+        for p in sorted(glob.glob(os.path.join(d, "out", tid,
+                                               "batch_*.csv"))):
+            with open(p) as f:
+                rows[os.path.basename(p)] = max(0, sum(1 for _ in f) - 1)
+        out[tid] = {"commits": committed_ranges(os.path.join(
+            d, "ckpt", "tenant", tid, "ckpt")), "rows": rows}
+    return out
+
+
+def mt_worker(dev, d: str, faults: str = "") -> subprocess.Popen:
+    """One drain-and-exit daemon over the three tenant streams, in its
+    own process (the chaos harness's ``run_daemon_worker``)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", MT_WORKER, os.path.join(d, "in"),
+         os.path.join(d, "out"), os.path.join(d, "ckpt"), str(dev)],
+        cwd=REPO, env=env_with(SNTC_FAULTS=faults), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def mt_chaos(dev, work: str) -> dict:
+    """(b)'s chaos legs, the smoke's copies of the JAX harness's
+    ``run_multi_tenant_kill_scenario`` and
+    ``run_tenant_isolation_scenario`` (``scripts/chaos_crash_matrix.py:
+    953-1040``) against an unkilled reference run."""
+    ref_dir, kill_dir, iso_dir = (os.path.join(work, "mt", x) for x in (
+        "reference", "kill", "isolation"))
+    for d in (ref_dir, kill_dir, iso_dir):
+        mt_inputs(d)
+    # the three first runs are independent processes: started together
+    procs = [mt_worker(dev, ref_dir),
+             mt_worker(dev, kill_dir, "tenant/t1/stream.wal:kill"),
+             mt_worker(dev, iso_dir, "tenant/t1/sink.write:io:1.0:0")]
+    finished(procs[0], "the chaos reference", phase="17 (b)")
+    finished(procs[1], "the daemon killed at tenant/t1/stream.wal",
+             rc=KILL_EXIT_CODE, phase="17 (b)")
+    iso_out = finished(procs[2], "the isolation daemon", phase="17 (b)")
+    finished(mt_worker(dev, kill_dir), "the restarted daemon",
+             phase="17 (b)")
+    reference = mt_state(ref_dir)
+    got_kill = mt_state(kill_dir)
+    got_iso = mt_state(iso_dir)
+    verdict = json.loads(iso_out.strip().splitlines()[-1])
+    dead_letter = os.path.join(iso_dir, "ckpt", "tenant", "t1", "ckpt",
+                               "dead_letter", "dead_letter.jsonl")
+    out = {
+        "reference_commits": {t: len(s["commits"])
+                              for t, s in reference.items()},
+        "kill_converged": got_kill == reference,
+        "isolation": {"states": verdict["tenants"],
+                      "others_equal": all(got_iso[t] == reference[t]
+                                          for t in ("t0", "t2")),
+                      "t1_rows": got_iso["t1"]["rows"],
+                      "t1_dead_letter": os.path.exists(dead_letter)},
+    }
+    iso_ok = (out["isolation"]["others_equal"]
+              and out["isolation"]["t1_rows"] == {}
+              and out["isolation"]["t1_dead_letter"]
+              and verdict["tenants"]["t1"] in ("QUARANTINED", "STOPPED")
+              and verdict["tenants"]["t0"] == verdict["tenants"]["t2"]
+              == "OK")
+    if not out["kill_converged"] or not iso_ok or any(
+            len(s["commits"]) != MT_FILES for s in reference.values()):
+        raise SystemExit(f"phase 17 (b) chaos: {out}")
+    return out
+
+
+def command_pad_launches(summary: dict, want: int) -> bool:
+    """A serving process launched ``pad_assemble`` once for each batch it
+    padded (its own counts, from its summary line), and at least once."""
+    return want >= 1 and summary["kernel_launches"]["pad_assemble"] == want
+
+
+COMMAND_TENANTS = {"lr00": "lr", "lr01": "lr", "nb00": "nb"}
+
+
+def daemon_command(dev, models: dict, streams: dict, tmp: str) -> dict:
+    """(b): ``python -m sntc_tpu_torch serve-daemon --once`` over three of
+    (a)'s tenants, two sharing the saved LR checkpoint and one the NB
+    one: every tenant OK, no new row shape after the warm pass, drained,
+    ``fsck --tenant-tree`` clean (its predictions are held to (a)'s by
+    ``check_command``)."""
+    chosen = COMMAND_TENANTS
+    doc = {"tenants": [
+        {"id": tid, "model": models[pipe]["model_dir"],
+         "watch": os.path.join(tmp, "in", tid),
+         "out": os.path.join(tmp, "out", "command", tid)}
+        for tid, pipe in chosen.items()]}
+    path = os.path.join(tmp, "tenants17.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    root = os.path.join(tmp, "root_command")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sntc_tpu_torch", "serve-daemon", "--tenants",
+         path, "--root", root, "--shape-buckets", str(C8_BUCKETS), "--once",
+         "--device", str(dev)], cwd=REPO, env=env_with(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    summary = json.loads(finished(proc, "serve-daemon", phase="17 (b)")
+                         .strip().splitlines()[-1])
+    fsck = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", root,
+         "--tenant-tree", "--no-repair"], cwd=REPO, env=env_with(),
+        capture_output=True, text=True, timeout=P16_WAIT_S)
+    report = json.loads(fsck.stdout)
+    want_pad = padded_of(sum((streams["sizes"][t] for t in chosen), []))
+    out = {"summary": {k: summary[k] for k in (
+               "batches", "tenants", "recompiles_after_warmup", "drained",
+               "health", "kernel_launches")},
+           "padded_dispatches": want_pad,
+           "fsck_ok": fsck.returncode == 0 and report["ok"] and not any(
+               r["errors"] for r in report["roots"]),
+           "fsck_tenants": sorted(r["tenant"] for r in report["roots"][1:])}
+    if set(summary["tenants"].values()) != {"OK"} \
+            or summary["recompiles_after_warmup"] != 0 \
+            or not summary["drained"] \
+            or not out["fsck_ok"] or out["fsck_tenants"] != sorted(chosen) \
+            or not command_pad_launches(summary, want_pad) \
+            or summary["batches"] != sum(len(streams["sizes"][t])
+                                         for t in chosen):
+        raise SystemExit(f"phase 17 (b): {out}")
+    return out
+
+
+def check_command(b: dict, tmp: str) -> None:
+    """(b)'s predictions, tenant by tenant, equal to (a)'s clean leg."""
+    b["predictions_equal"] = all(
+        np.array_equal(sink_predictions(os.path.join(tmp, "out", "command",
+                                                     tid)),
+                       sink_predictions(os.path.join(tmp, "out", "clean",
+                                                     tid)))
+        for tid in COMMAND_TENANTS)
+    if not b["predictions_equal"]:
+        raise SystemExit(f"phase 17 (b): predictions differ from (a): {b}")
+
+
+def c11_daemon(dev, models: dict, a: dict, tmp: str) -> dict:
+    """(c): bench config 11's arm B (``bench.py:1981-2075``): over (a)'s
+    10 tenant streams, the hand-tuned config-8 flags (buckets 256, no
+    controller) against cold defaults (no buckets) with
+    ``ServeDaemon(controller=True)`` under the bench's achievable SLOs,
+    3 reps in turns; every tenant OK, the sinks equal between the arms.
+    Then the journal leg: three tenants with the controller armed, one
+    under an unreachable floor, its ``controller.jsonl`` written and
+    reconciled by a second daemon over the same root."""
+    import pyarrow as pa
+
+    from sntc_tpu_torch.resilience.control import ControlPolicy
+    from sntc_tpu_torch.serve import ServeDaemon, TenantSpec
+
+    tenants = a["streams"]["tenants"]
+    preds = {
+        "hand": {p: BatchPredictor(m["served"], bucket_rows=C8_BUCKETS,
+                                   device=dev) for p, m in models.items()},
+        "ctl": {p: BatchPredictor(m["served"], bucket_rows=0, device=dev)
+                for p, m in models.items()},
+    }
+    chunks = sorted(set(sum(a["streams"]["sizes"].values(), [])))
+    test = a["test"]
+    for arm in preds.values():
+        for pred in arm.values():
+            for c in chunks:
+                pred.predict_frame(test.slice(0, c))
+    policy = ControlPolicy(confirm=1, cooldown=0)
+
+    def run(arm: str, rep: int) -> dict:
+        specs = [TenantSpec(
+            tenant_id=tid, model=preds[arm][tid[:2]],
+            watch=os.path.join(tmp, "in", tid),
+            sink=CsvDirSink(os.path.join(tmp, "out", f"c11{arm}{rep}", tid),
+                            columns=["prediction"], durable=False),
+            max_batch_offsets=1, max_batch_failures=2,
+            **(C11_SLO if arm == "ctl" else {})) for tid in tenants]
+        root = os.path.join(tmp, f"root_c11{arm}{rep}")
+        d = ServeDaemon(specs, root, shape_buckets=0,
+                        controller=arm == "ctl", controller_policy=policy,
+                        device=dev)
+        try:
+            t0 = time.perf_counter()
+            d.process_available()
+            dt = time.perf_counter() - t0
+            snap = {t.spec.tenant_id: t.snapshot() for t in d.tenants}
+            ctl = None
+            if d.controller is not None:
+                c = d.controller
+                ctl = {"windows": c.guard.windows,
+                       "decisions": c.guard.decisions_total,
+                       "applied": len(c.guard.applied()),
+                       "delegated": c.delegated_total,
+                       "knobs": c.knob_values(),
+                       "compliant": {t: s["compliant"]
+                                     for t, s in c.slo_status().items()}}
+        finally:
+            d.close()
+        return {"dt": dt, "tenants": snap, "ctl": ctl, "root": root}
+
+    arrow_cpus = pa.cpu_count()
+    pa.set_cpu_count(1)
+    try:
+        reps = {"hand": [], "ctl": []}
+        for rep in range(C11_REPS):  # interleaved, as the bench's arm A
+            reps["hand"].append(run("hand", rep))
+            reps["ctl"].append(run("ctl", rep))
+    finally:
+        pa.set_cpu_count(arrow_cpus)
+    rows = sum(sum(v) for v in a["streams"]["sizes"].values())
+
+    def median(xs):
+        return sorted(xs, key=lambda r: r["dt"])[len(xs) // 2]
+
+    hand, ctl = median(reps["hand"]), median(reps["ctl"])
+    ratios = [ctl["tenants"][t]["p99_ms"] / hand["tenants"][t]["p99_ms"]
+              for t in tenants if hand["tenants"][t]["p99_ms"]
+              and ctl["tenants"][t]["p99_ms"]]
+    sinks_equal = all(
+        np.array_equal(sink_predictions(os.path.join(
+            tmp, "out", f"c11{arm}{rep}", tid)), sink_predictions(
+            os.path.join(tmp, "out", "clean", tid)))
+        for arm in ("hand", "ctl") for rep in range(C11_REPS)
+        for tid in tenants)
+    all_ok = all(s["state"] == "OK" for arm in reps.values() for r in arm
+                 for s in r["tenants"].values())
+    journal = c11_journal_leg(dev, preds["ctl"], tmp, policy)
+    out = {"rows": rows,
+           "rows_per_s": {"hand": rows / hand["dt"], "ctl": rows / ctl["dt"]},
+           "ctl_vs_hand": hand["dt"] / ctl["dt"],
+           "p99_ratio_worst": max(ratios) if ratios else None,
+           "reps_s": {arm: [round(r["dt"], 4) for r in xs]
+                      for arm, xs in reps.items()},
+           "controller": ctl["ctl"], "sinks_equal": sinks_equal,
+           "all_ok": all_ok, "journal": journal}
+    if not sinks_equal or not all_ok or not journal["ok"]:
+        raise SystemExit(f"phase 17 (c): {out}")
+    return out
+
+
+def c11_journal_leg(dev, preds: dict, tmp: str, policy) -> dict:
+    """Three of (a)'s tenants with every batch on the card, the
+    controller armed, ``lr00`` under a floor it cannot reach: the
+    controller steps its knobs and journals each decision to
+    ``<root>/controller.jsonl``; a second daemon over the same root writes
+    the ``restart`` record, the journal's last knobs against its cold
+    ones.  The tenants stay OK and their sinks equal (a)'s.  Then the
+    same three at pipeline depth 2 (each tenant's delivery on a thread
+    of its own, every dispatch on the one stream): its ``finalizeMs``
+    beside the depth-1 run's, the wait a finalize may spend behind
+    another tenant's launch."""
+    from sntc_tpu_torch.serve import ServeDaemon, TenantSpec
+
+    chosen = ("lr00", "lr01", "nb00")
+    root = os.path.join(tmp, "root_c11journal")
+
+    def specs(tag):
+        return [TenantSpec(
+            tenant_id=tid, model=preds[tid[:2]],
+            watch=os.path.join(tmp, "in", tid),
+            sink=CsvDirSink(os.path.join(tmp, "out", f"journal{tag}", tid),
+                            columns=["prediction"], durable=False),
+            max_batch_offsets=1, max_batch_failures=2,
+            slo_min_rows_per_sec=(C11_UNREACHABLE if tid == "lr00"
+                                  else None))
+            for tid in chosen]
+
+    with environ(SNTC_SERVE_HOST_ROWS=0):
+        d = ServeDaemon(specs("1"), root, controller=True,
+                        controller_policy=policy, device=dev)
+        try:
+            d.process_available()
+            decisions = d.controller.guard.decisions_total
+            delegated = d.controller.delegated_total
+            knobs = d.controller.knob_values()
+            states = {t.spec.tenant_id: t.state for t in d.tenants}
+            progress = {t.spec.tenant_id: list(t.query.recentProgress)
+                        for t in d.tenants}
+            d.drain()
+        finally:
+            d.close()
+        path = os.path.join(root, "controller.jsonl")
+        with open(path) as f:
+            before = [json.loads(line) for line in f if line.strip()]
+        d2 = ServeDaemon(specs("2"), root, controller=True,
+                         controller_policy=policy, device=dev)
+        d2.close()
+        d3 = ServeDaemon(specs("3"), os.path.join(tmp, "root_depth2"),
+                         pipeline_depth=2, device=dev)
+        try:
+            d3.process_available()
+            progress2 = {t.spec.tenant_id: list(t.query.recentProgress)
+                         for t in d3.tenants}
+            states.update({f"{t.spec.tenant_id}@2": t.state
+                           for t in d3.tenants})
+        finally:
+            d3.close()
+    with open(path) as f:
+        after = [json.loads(line) for line in f if line.strip()]
+    restart = after[-1]
+    last_knobs = next(r["knobs"] for r in reversed(before) if r.get("knobs"))
+    out = {"decisions": decisions, "delegated": delegated,
+           "journal_lines": len(before),
+           "knobs": knobs, "states": states,
+           "restart_delta": restart.get("delta"),
+           "finalize_ms": {
+               "depth1": finalize_quantiles(progress, list(chosen)),
+               "depth2": finalize_quantiles(progress2, list(chosen))}}
+    out["ok"] = (decisions >= 1 and len(before) == decisions + delegated
+                 and restart["action"] == "restart"
+                 and restart["journal_knobs"] == last_knobs == knobs
+                 and bool(restart["delta"])
+                 and set(states.values()) == {"OK"}
+                 and all(np.array_equal(
+                     sink_predictions(os.path.join(tmp, "out", f"journal{k}",
+                                                   tid)),
+                     sink_predictions(os.path.join(tmp, "out", "clean", tid)))
+                     for tid in chosen for k in ("1", "3")))
+    return out
+
+
+def multi_tenant(dev, work: str) -> dict:
+    """Phase 17: the multi-tenant serve daemon on the card (see the
+    module docs)."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    tmp = os.path.join(work, "c8")
+    os.makedirs(tmp)
+    # (b)'s processes run beside the fits and each other, and are done
+    # before anything is timed
+    pool = ThreadPoolExecutor(2)
+    chaos = pool.submit(mt_chaos, dev, work)
+    try:
+        data = part("data", c9_data)
+        models = part("fits", c8_pipelines, dev, data, work)
+        streams = part("streams", c8_streams, data["test"], tmp)
+        command = pool.submit(daemon_command, dev, models, streams, tmp)
+        b = part("b wait", command.result)
+        b["chaos"] = part("chaos wait", chaos.result)
+        a = part("a", c8_serve, dev, data, models, streams, tmp)
+        a["test"] = data["test"]
+        check_command(b, tmp)
+        c = part("c", c11_daemon, dev, models, a, tmp)
+    finally:
+        pool.shutdown()
+    kernels = []
+    t = time.perf_counter()
+    for key in sorted(a["pad_launch_shapes"]):
+        n = int(key.split("]")[0][1:].split(", ")[0])
+        dtype = torch.float64 if " f64 " in key else torch.float32
+        kernels.append(measure_pad_at(dev, n, a["pad_launch_shapes"], dtype,
+                                      int(key.split("-> ")[1])))
+    parts["pads"] = round(time.perf_counter() - t, 1)
+    a.pop("test", None)
+    return {"a": a, "b": b, "c": c, "kernels": kernels, "parts_s": parts,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase17(p17: dict, card: str) -> None:
+    """Phase 17's lines: config 8's rates, latencies and placement, the
+    command and chaos legs, config 11's arm B, each timed kernel shape,
+    one JSON line."""
+    a, b, c = p17["a"], p17["b"], p17["c"]
+    ev = a["evidence"]
+    log(f"phase 17 (a) bench config 8: {ev['tenants']} tenants, {ev['rows']} "
+        f"rows; aggregate {a['rows_per_s']['aggregate']:.1f} rows/s, single "
+        f"{a['rows_per_s']['single']:.1f} rows/s, aggregate_vs_single "
+        f"{a['aggregate_vs_single']:.4f}; every batch on the card "
+        f"{a['rows_per_s']['card_leg']:.1f} rows/s; noisy {ev['noisy']}; "
+        f"well_behaved_p99_ratio_worst {a['well_behaved_p99_ratio_worst']}; "
+        f"batches by placement {ev['placement']} [{card}]")
+    for tid, lat in a["latency_ms"].items():
+        log(f"phase 17 (a) {tid}: p50 {lat['p50']} ms, p99 {lat['p99']} ms "
+            f"[{card}]")
+    log(f"phase 17 (a) finalizeMs {a['finalize_ms']}; three tenants on "
+        f"the card at depth 1 and 2 {c['journal']['finalize_ms']} [{card}]")
+    log(f"phase 17 (b) serve-daemon: {b['summary']}; fsck "
+        f"{b['fsck_tenants']} clean; chaos {b['chaos']} [{card}]")
+    log(f"phase 17 (c) bench config 11 arm B: hand "
+        f"{c['rows_per_s']['hand']:.1f} rows/s, controller "
+        f"{c['rows_per_s']['ctl']:.1f} rows/s, ctl_vs_hand "
+        f"{c['ctl_vs_hand']:.4f}, p99_ratio_worst {c['p99_ratio_worst']} "
+        f"(reps {c['reps_s']} s); controller {c['controller']}; journal "
+        f"{c['journal']} [{card}]")
+    for k in p17["kernels"]:
+        log(f"phase 17 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call, {k['library_device_ms']:.4f} "
+            f"ms of device time; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches at this shape in "
+            f"(a), max abs error {k['max_abs_err']} [{card}]")
+    log("phase 17 " + json.dumps({
+        "phase": 17, "card": card, "seconds": round(p17["seconds"], 3),
+        "parts_s": p17["parts_s"],
+        "config8": {**ev, "rows_per_s": a["rows_per_s"],
+                    "aggregate_vs_single": a["aggregate_vs_single"],
+                    "well_behaved_p99_ratio_worst":
+                        a["well_behaved_p99_ratio_worst"],
+                    "seconds": a["seconds"]},
+        "command": b, "config11": c}, default=str))
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -6854,7 +7678,7 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
-PHASES = ("2", "3", "11", "12", "13", "14", "15", "16")
+PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17")
 
 
 def main() -> int:
@@ -7002,6 +7826,8 @@ def main_all(dev, card: str, args, built, build_pool,
             phase15 = fused_serve(dev, data1, trained1, work)
         with clock("16 live capture"):
             phase16 = live_capture(dev, work)
+        with clock("17 multi-tenant"):
+            phase17 = multi_tenant(dev, work)
     with clock("7 configs 2 and 1"):
         fit2 = mlp_fit_profile(dev, data2)
     with clock("9 nb, svc, evaluate"):
@@ -7019,6 +7845,7 @@ def main_all(dev, card: str, args, built, build_pool,
     kernels += phase14["kernels"]
     kernels += phase15["kernels"]
     kernels += phase16["kernels"]
+    kernels += phase17["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -7201,6 +8028,7 @@ def main_all(dev, card: str, args, built, build_pool,
     report_phase14(phase14, card)
     report_phase15(phase15, card)
     report_phase16(phase16, card)
+    report_phase17(phase17, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -7228,7 +8056,7 @@ def main_all(dev, card: str, args, built, build_pool,
                        "phase10": phase10, "phase11": failures,
                        "phase12": phase12, "phase13": phase13,
                        "phase14": phase14, "phase15": phase15,
-                       "phase16": phase16,
+                       "phase16": phase16, "phase17": phase17,
                        "phase_seconds": PHASE_SECONDS}, f,
                       indent=1, default=str)
     finish(kernels, card)
@@ -7303,6 +8131,11 @@ def main_phases(dev, card: str, phases: list) -> int:
                 p16 = live_capture(dev, work)
             report_phase16(p16, card)
             kernels += p16["kernels"]
+        if "17" in phases:
+            with clock("17 multi-tenant"):
+                p17 = multi_tenant(dev, work)
+            report_phase17(p17, card)
+            kernels += p17["kernels"]
     finish(kernels, card)
     return 0
 

@@ -26,6 +26,12 @@
         [--trace-out PATH] [--device-trace DIR] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
+    python -m sntc_tpu_torch serve-daemon --tenants T.json --root R \\
+        [--shape-buckets N] [--pipeline-depth 1] [--tenant-weight 1] \\
+        [--max-rows-per-sec R] [--max-pending-batches N] \\
+        [--quarantine-after 3] [--quarantine-cooldown 30] \\
+        [--stop-after 3] [--controller] [--root-disk-budget-mb MB] \\
+        [--health-json PATH] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
         [--no-repair] [--report PATH]
 
@@ -114,6 +120,16 @@ Chrome-trace JSON at exit (both also when the run fails), and
 ``torch.profiler`` capture.  With ``SNTC_OBS_COST_ANALYSIS=1`` the fused
 segments also count their roofline (``fusion``'s ``roofline``,
 ``sntc_mfu_ratio``).
+
+``serve-daemon`` is the counterpart of ``cmd_serve_daemon``: every
+tenant of ``--tenants`` (a JSON ``{"tenants": [{"id", "model", "watch",
+"out", ...}]}``, each entry overriding any daemon flag's default) is one
+engine under ``<root>/tenant/<id>/``, all scheduled on one thread by
+``serve.tenancy.ServeDaemon``; tenants that name one checkpoint share
+its served model and predictor.  ``--once`` serves what is there, drains
+and prints ``{"batches", "tenants": {id: state}, "recompiles_after_warmup",
+"drained", "health", ...}``; without it SIGTERM drains.  A device that
+keeps failing drains the daemon and exits 1.
 
 ``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
 root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
@@ -776,6 +792,322 @@ def _cmd_serve_body(args) -> int:
             lifecycle.drift.detach()
 
 
+def cmd_serve_daemon(args) -> int:
+    """Multi-tenant serving (counterpart of the JAX ``cmd_serve_daemon``):
+    N tenant streams over one shared program cache, fairly scheduled and
+    isolated (``serve.tenancy``).  ``--tenants`` is JSON, ``{"tenants":
+    [{"id", "model": <checkpoint>, "watch", "out", ...}]}``; an entry may
+    override any daemon flag's default.  Tenants naming the same
+    checkpoint share one predictor.  Exit 1 when the shared device
+    failed."""
+    from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
+    from sntc_tpu_torch.serve import ServeDaemon
+
+    _obs_start(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        from sntc_tpu_torch.kernels._build import library
+
+        library()  # build (or load) the kernels before the first batch
+    specs = _load_tenant_specs(args, device)
+    daemon = ServeDaemon(
+        specs, args.root,
+        shape_buckets=args.shape_buckets,
+        pipeline_depth=args.pipeline_depth,
+        health_json=args.health_json,
+        metrics_out=args.metrics_out,
+        autotune=args.autotune,
+        controller=args.controller,
+        disk_budget_mb=args.root_disk_budget_mb,
+        dead_letter_keep=args.dead_letter_keep,
+        device_faults=args.device_faults,
+        device=device,
+    )
+    try:
+        if args.once:
+            with _device_trace_ctx(args):
+                n = daemon.process_available()
+            # the --once pass is the warmup: the drain after it must
+            # dispatch no new row shape
+            daemon.mark_warm()
+            daemon.drain()
+            status = daemon.status()
+        else:
+            daemon.install_signal_handlers()
+            print(f"serve-daemon: {len(specs)} tenants -> {args.root}; "
+                  "SIGTERM/Ctrl-C drains every tenant", file=sys.stderr)
+            try:
+                with _device_trace_ctx(args):
+                    status = daemon.run(poll_interval=args.poll_interval)
+            except KeyboardInterrupt:
+                daemon.request_drain("KeyboardInterrupt")
+                daemon.drain()
+                status = daemon.status()
+            n = status["aggregate"]["batches_done"]
+    finally:
+        daemon.close()
+        _obs_finish(args)
+    print(json.dumps({
+        "batches": n,
+        "tenants": {
+            tid: row["state"] for tid, row in status["tenants"].items()
+        },
+        "recompiles_after_warmup": status["recompiles_after_warmup"],
+        "drained": status["drained"],
+        "health": status["health"]["overall"],
+        "device": str(device),
+        "device_failed": status["device_failed"],
+        "kernel_launches": dict(LAUNCHES),
+        "pad_launch_shapes": dict(PAD_LAUNCH_SHAPES),
+    }))
+    return 1 if status["device_failed"] else 0
+
+
+def _load_tenant_specs(args, device) -> list:
+    """The ``--tenants`` catalog: each distinct checkpoint is loaded and
+    compiled once (tenants naming it share the served model object, so
+    the daemon gives them one predictor), the flags fill the defaults."""
+    from sntc_tpu_torch.mlio import load_model
+    from sntc_tpu_torch.resilience import RetryPolicy
+    from sntc_tpu_torch.serve import TenantSpec
+
+    with open(args.tenants) as f:
+        doc = json.load(f)
+    entries = doc["tenants"] if isinstance(doc, dict) else doc
+    if not entries:
+        raise SystemExit(f"{args.tenants}: no tenants declared")
+    retries = max(1, args.batch_retry_attempts)
+    defaults = {
+        "weight": args.tenant_weight,
+        "max_rows_per_sec": args.max_rows_per_sec,
+        "max_pending_batches": args.max_pending_batches,
+        "shed_policy": args.shed_policy,
+        "quarantine_after": args.quarantine_after,
+        "quarantine_cooldown_s": args.quarantine_cooldown,
+        "stop_after": args.stop_after,
+        "from_capture": args.from_capture,
+        "slo_p99_ms": args.slo_p99_ms,
+        "slo_min_rows_per_sec": args.slo_min_rows_per_sec,
+        "slo_max_shed_rate": args.slo_max_shed_rate,
+        "disk_budget_mb": args.disk_budget_mb,
+        "max_batch_offsets": args.max_files_per_batch,
+        "max_batch_failures": (
+            args.max_batch_failures if args.max_batch_failures > 0
+            else None
+        ),
+        "retry_policy": (
+            RetryPolicy(max_attempts=retries, base_delay_s=0.2, jitter=0.1)
+            if retries > 1 else None
+        ),
+        # the listener flags are each tenant's default ingress block (a
+        # tenant's own block replaces it); port 0 is ephemeral a tenant
+        "ingress": (
+            {"listen_udp": args.listen_udp, "listen_tcp": args.listen_tcp,
+             "spool_mb": args.ingress_spool_mb}
+            if (args.listen_udp is not None or args.listen_tcp is not None)
+            else None
+        ),
+    }
+    served_by_path = {}
+
+    def _served(path):
+        if path not in served_by_path:
+            model, _labels, out_cols = serving_form(
+                load_model(path, device=device), args.label_index_col,
+                args.fuse)
+            served_by_path[path] = (model, out_cols)
+        return served_by_path[path]
+
+    specs = []
+    for entry in entries:
+        e = dict(entry)
+        path = e.get("model")
+        if not isinstance(path, str):
+            raise SystemExit(
+                f"tenant {e.get('id')!r}: 'model' must be a checkpoint "
+                "path"
+            )
+        model, out_cols = _served(path)
+        e["model"] = model
+        e.setdefault("out_columns", out_cols)
+        policy = e.get("row_policy", None if args.row_policy == "strict"
+                       else args.row_policy)
+        if policy is not None and policy != "strict":
+            from sntc_tpu_torch.data.schema import CICIDS2017_CONTRACT
+
+            e["row_policy"] = policy
+            e["schema_contract"] = CICIDS2017_CONTRACT.with_mode(policy)
+        else:
+            e.pop("row_policy", None)
+        specs.append(TenantSpec.from_dict(e, defaults))
+    return specs
+
+
+def _add_daemon_flags(p) -> None:
+    """The JAX ``serve-daemon`` flags, with its help texts and defaults
+    (its replication flags and compile watchdog are not ported)."""
+    p.add_argument("--tenants", required=True, metavar="JSON",
+                   help="tenant spec file: {\"tenants\": [{\"id\", "
+                   "\"model\", \"watch\", \"out\", ...per-tenant "
+                   "overrides}]}")
+    p.add_argument("--root", required=True,
+                   help="daemon root: per-tenant checkpoints/WALs/"
+                   "dead-letters land under <root>/tenant/<id>/")
+    p.add_argument("--label-index-col", default="label")
+    p.add_argument("--max-files-per-batch", type=int, default=1,
+                   help="micro-batch size in source files, per tenant "
+                   "(TenantSpec max_batch_offsets)")
+    p.add_argument("--pipeline-depth", type=int, default=1,
+                   help="per-tenant in-flight micro-batches; > 1 arms "
+                   "each tenant's overlapped sink delivery")
+    p.add_argument("--shape-buckets", type=int, default=0,
+                   help="power-of-two row bucketing for the SHARED "
+                   "predictors (compile once per bucket across all "
+                   "tenants of a pipeline); 0 = off")
+    p.add_argument("--fuse", action="store_true", dest="fuse",
+                   default=True,
+                   help="compile each distinct tenant pipeline with the "
+                   "whole-pipeline fusion compiler (default)")
+    p.add_argument("--no-fuse", action="store_false", dest="fuse")
+    p.add_argument("--autotune", action="store_true", dest="autotune",
+                   default=False,
+                   help="arm per-tenant ingest autotuners drawing from "
+                   "ONE shared tuning budget (total extra parse "
+                   "threads / staged ranges / pipeline slots capped "
+                   "across the fleet)")
+    p.add_argument("--no-autotune", action="store_false",
+                   dest="autotune")
+    p.add_argument("--tenant-weight", type=float, default=1.0,
+                   help="default fair-share weight (TenantSpec weight): "
+                   "deficit round-robin credits per scheduling round")
+    p.add_argument("--max-rows-per-sec", type=float, default=None,
+                   help="default per-tenant admission rate quota "
+                   "(TenantSpec max_rows_per_sec): a token bucket "
+                   "charged at commit throttles a flooding tenant at "
+                   "its own edge; unset = unlimited")
+    p.add_argument("--max-pending-batches", type=int, default=None,
+                   help="default per-tenant backlog cap (TenantSpec "
+                   "max_pending_batches): surplus is shed through the "
+                   "tenant's own journaled shed path")
+    p.add_argument("--shed-policy", default="oldest",
+                   choices=["oldest", "sample"],
+                   help="default per-tenant shed policy (TenantSpec "
+                   "shed_policy)")
+    p.add_argument("--quarantine-after", type=int, default=3,
+                   help="unhealthy strikes (quarantine/retry_exhausted/"
+                   "breaker_open events tagged with the tenant) before "
+                   "the tenant is QUARANTINED (TenantSpec "
+                   "quarantine_after)")
+    p.add_argument("--quarantine-cooldown", type=float, default=30.0,
+                   metavar="S",
+                   help="seconds a QUARANTINED tenant holds before "
+                   "probation back to OK (TenantSpec "
+                   "quarantine_cooldown_s)")
+    p.add_argument("--stop-after", type=int, default=3,
+                   help="quarantine episodes before the tenant is "
+                   "STOPPED and its breakers evicted (TenantSpec "
+                   "stop_after)")
+    p.add_argument("--row-policy", default="strict",
+                   choices=["strict", "salvage", "permissive"],
+                   help="default per-tenant data-plane admission "
+                   "(TenantSpec row_policy) against the canonical "
+                   "CICIDS2017 contract")
+    p.add_argument("--from-capture", default=None,
+                   choices=["pcap", "netflow"],
+                   help="default per-tenant raw-capture mode "
+                   "(TenantSpec from_capture): tenants' watch dirs "
+                   "hold capture files and each tenant runs its own "
+                   "stateful flow-window operator (state under "
+                   "tenant/<id>/ckpt/flow_state); per-tenant "
+                   "'flow_options' in the tenants JSON tunes the "
+                   "window knobs")
+    p.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="default per-tenant p99 latency SLO "
+                   "(TenantSpec slo_p99_ms; per-tenant JSON "
+                   "overrides); the --controller setpoint; "
+                   "0/unset = undeclared")
+    p.add_argument("--slo-min-rows-per-sec", type=float, default=None,
+                   help="default per-tenant throughput-floor SLO "
+                   "(TenantSpec slo_min_rows_per_sec); 0/unset = "
+                   "undeclared")
+    p.add_argument("--slo-max-shed-rate", type=float, default=None,
+                   help="default per-tenant shed-rate SLO bound "
+                   "(TenantSpec slo_max_shed_rate, a fraction in "
+                   "(0, 1]); 0/unset = undeclared")
+    p.add_argument("--controller", action="store_true",
+                   dest="controller", default=False,
+                   help="arm the closed-loop SLO controller: one "
+                   "guarded knob step per window toward the declared "
+                   "per-tenant SLOs (protect compliant tenants, "
+                   "degrade the violator throttle->shed->escalate), "
+                   "owning the per-tenant ingest tuners; decisions "
+                   "journaled to <root>/controller.jsonl")
+    p.add_argument("--no-controller", action="store_false",
+                   dest="controller",
+                   help="keep every serving knob at its flag value")
+    p.add_argument("--batch-retry-attempts", type=int, default=2)
+    p.add_argument("--max-batch-failures", type=int, default=3,
+                   help="default per-tenant poison-batch threshold "
+                   "(TenantSpec max_batch_failures); 0 = first failure "
+                   "surfaces (and strikes the tenant)")
+    p.add_argument("--disk-budget-mb", type=float, default=None,
+                   metavar="MB",
+                   help="default per-tenant disk byte budget "
+                   "(TenantSpec disk_budget_mb): the tenant/<id>/ "
+                   "subtree is measured into sntc_disk_bytes{tenant=} "
+                   "each round and a breach degrades THAT tenant's "
+                   "health; 0/unset = measure only")
+    p.add_argument("--root-disk-budget-mb", type=float, default=None,
+                   metavar="MB",
+                   help="global disk byte budget for the whole daemon "
+                   "root (all tenants + shared journals)")
+    p.add_argument("--dead-letter-keep", type=int, default=200,
+                   metavar="N",
+                   help="per-tenant dead-letter retention: keep the "
+                   "newest N evidence files per dead-letter dir "
+                   "(counted dead_letter_dropped); 0 = unbounded")
+    p.add_argument("--device-faults", action="store_true",
+                   dest="device_faults", default=True,
+                   help="arm ONE device fault domain shared by every "
+                   "tenant's predictor (tenants share the card): CUDA "
+                   "errors are answered per kind and never strike a "
+                   "tenant's ladder; a device that keeps failing drains "
+                   "the daemon and exits 1 (default)")
+    p.add_argument("--no-device-faults", action="store_false",
+                   dest="device_faults",
+                   help="device errors ride the generic per-tenant "
+                   "retry/quarantine machinery")
+    p.add_argument("--poll-interval", type=float, default=1.0)
+    p.add_argument("--once", action="store_true",
+                   help="drain available files across all tenants and "
+                   "exit")
+    p.add_argument("--health-json", default=None, metavar="PATH",
+                   help="atomically rewrite the daemon status dump "
+                   "(per-tenant states, compile ledger, health, "
+                   "breakers) here every scheduling round")
+    p.add_argument("--listen-udp", type=int, default=None, metavar="PORT",
+                   help="default per-tenant UDP ingress (TenantSpec "
+                   "ingress): each tenant's watch dir becomes its own "
+                   "ingress spool behind a supervised NetFlow v5 "
+                   "listener — use 0 (ephemeral, published in "
+                   "<watch>/ingress_stats.json) so tenants never "
+                   "collide on a port; per-tenant 'ingress' JSON "
+                   "blocks override")
+    p.add_argument("--listen-tcp", type=int, default=None, metavar="PORT",
+                   help="default per-tenant framed-TCP row ingress "
+                   "(TenantSpec ingress); 0 = ephemeral per tenant, "
+                   "published in the tenant's ingress_stats.json")
+    p.add_argument("--ingress-spool-mb", type=float, default=None,
+                   metavar="MB",
+                   help="default per-tenant ingress spool byte budget "
+                   "(TenantSpec ingress spool_mb): over it TCP pauses "
+                   "reads and UDP sheds at ingress, counted — never "
+                   "ENOSPC death")
+    _add_obs_flags(p)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA) or cpu")
+
+
 def cmd_fsck(args) -> int:
     """Doctor a checkpoint root (or a tenant tree): one JSON report;
     exit 0 when the tree is (now) clean, 1 when unrepairable damage
@@ -1061,6 +1393,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "serve-daemon",
+        help="multi-tenant streaming inference: N tenant streams, one "
+        "shared program cache, fair scheduling, per-tenant isolation")
+    _add_daemon_flags(p)
+    p.set_defaults(fn=cmd_serve_daemon)
 
     p = sub.add_parser(
         "fsck",

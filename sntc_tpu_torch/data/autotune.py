@@ -72,11 +72,13 @@ class IngestAutotuner:
         self,
         policy: Optional[AutotunePolicy] = None,
         budget: Optional[TuningBudget] = None,
+        tenant: Optional[str] = None,
         bounds: Optional[dict] = None,
         exclude_knobs: Tuple[str, ...] = (),
     ):
         self.policy = policy or AutotunePolicy()
         self.budget = budget
+        self.tenant = tenant  # labels the series and the events
         self.bounds = bounds
         # an SLO controller owning this tuner keeps pipeline_depth (one
         # owner a knob): excluded knobs never bind
@@ -208,17 +210,19 @@ class IngestAutotuner:
             on_applied=self._mirror_applied,
         )
 
-    @staticmethod
-    def _mirror_applied(name: str, direction: int, new: int) -> None:
+    def _mirror_applied(self, name: str, direction: int, new: int) -> None:
+        labels = {} if self.tenant is None else {"tenant": self.tenant}
         inc("sntc_ingest_autotune_decisions_total", knob=name,
-            direction="up" if direction > 0 else "down")
-        set_gauge("sntc_ingest_knob_value", new, knob=name)
+            direction="up" if direction > 0 else "down", **labels)
+        set_gauge("sntc_ingest_knob_value", new, knob=name, **labels)
 
-    @staticmethod
-    def _on_journal(rec: dict) -> None:
-        emit_event(event="autotune_decision", action=rec["action"],
-                   knob=rec["knob"], direction=rec["direction"],
-                   value=rec["to"])
+    def _on_journal(self, rec: dict) -> None:
+        fields = dict(event="autotune_decision", action=rec["action"],
+                      knob=rec["knob"], direction=rec["direction"],
+                      value=rec["to"])
+        if self.tenant is not None:
+            fields["tenant"] = self.tenant
+        emit_event(**fields)
 
     # -- evidence ------------------------------------------------------------
 

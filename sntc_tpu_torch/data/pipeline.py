@@ -63,15 +63,18 @@ KNOB_NAMES = ("read_workers", "prefetch_batches", "pipeline_depth")
 class StageMeter:
     """Latency and occupancy of one ingest stage.  :meth:`record` is the
     hot-path write, once per item (a file parse, a batch read), never per
-    row."""
+    row.  ``tenant`` labels the series when the owning source or engine
+    serves a tenant (the engine sets it on a source built without one)."""
 
-    __slots__ = ("stage", "count", "busy_s", "last_s", "ewma_s", "_lock")
+    __slots__ = ("stage", "tenant", "count", "busy_s", "last_s", "ewma_s",
+                 "_lock")
 
     #: EWMA smoothing: ~10 items of memory
     ALPHA = 0.2
 
-    def __init__(self, stage: str):
+    def __init__(self, stage: str, tenant: Optional[str] = None):
         self.stage = stage
+        self.tenant = tenant
         self.count = 0
         self.busy_s = 0.0
         self.last_s = 0.0
@@ -87,7 +90,9 @@ class StageMeter:
                 elapsed_s if self.count == 1
                 else self.ALPHA * elapsed_s + (1 - self.ALPHA) * self.ewma_s
             )
-        observe("sntc_ingest_stage_seconds", elapsed_s, stage=self.stage)
+        labels = {} if self.tenant is None else {"tenant": self.tenant}
+        observe("sntc_ingest_stage_seconds", elapsed_s, stage=self.stage,
+                **labels)
 
     def snapshot(self) -> Dict[str, float]:
         return {
@@ -98,15 +103,15 @@ class StageMeter:
         }
 
 
-def source_meters() -> Dict[str, StageMeter]:
+def source_meters(tenant: Optional[str] = None) -> Dict[str, StageMeter]:
     """The source-side meters (read, parse, stage) of a
     ``DirStreamSource``."""
-    return {s: StageMeter(s) for s in ("read", "parse", "stage")}
+    return {s: StageMeter(s, tenant) for s in ("read", "parse", "stage")}
 
 
-def engine_meters() -> Dict[str, StageMeter]:
+def engine_meters(tenant: Optional[str] = None) -> Dict[str, StageMeter]:
     """The engine-side meters (admit, bucket) of a ``StreamingQuery``."""
-    return {s: StageMeter(s) for s in ("admit", "bucket")}
+    return {s: StageMeter(s, tenant) for s in ("admit", "bucket")}
 
 
 @dataclass

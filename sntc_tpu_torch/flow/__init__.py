@@ -15,6 +15,12 @@ snapshot bytes for the same stream.
   (``python -m sntc_tpu_torch serve --from-capture pcap ...``);
 - :class:`FlowStateStore` — snapshot-at-commit persistence under the
   atomic-publish + sha256 discipline of the storage plane.
+
+Each takes a daemon tenant's ``tenant``: its series and events carry
+the label, its fault points (``flow.evict``, ``flow.emit``,
+``flow.state_snapshot``) are looked up under ``tenant/<id>/`` first,
+and the serve daemon keeps its state under ``tenant/<id>/ckpt/
+flow_state``.
 """
 
 from sntc_tpu_torch.flow.engine import (

@@ -188,6 +188,7 @@ class FlowFeatureEngine:
         meter,
         allowed_lateness: float = 5.0,
         max_state_packets: int = 500_000,
+        tenant: Optional[str] = None,
     ):
         if allowed_lateness < 0:
             raise ValueError("allowed_lateness must be >= 0")
@@ -196,6 +197,9 @@ class FlowFeatureEngine:
         self.meter = meter
         self.allowed_lateness = float(allowed_lateness)
         self.max_state_packets = int(max_state_packets)
+        # a daemon tenant's label on the series and events
+        self.tenant = tenant
+        self._mlabels = {} if tenant is None else {"tenant": tenant}
         self._flows: Dict[Tuple[int, ...], _FlowState] = {}
         self._max_ts: Optional[float] = None
         self._packets = 0  # buffered records across all flows
@@ -224,8 +228,9 @@ class FlowFeatureEngine:
         return {"flows": len(self._flows), "packets": self._packets}
 
     def _publish_gauges(self) -> None:
-        set_gauge("sntc_flow_active_flows", len(self._flows))
-        set_gauge("sntc_flow_state_packets", self._packets)
+        set_gauge("sntc_flow_active_flows", len(self._flows),
+                  **self._mlabels)
+        set_gauge("sntc_flow_state_packets", self._packets, **self._mlabels)
 
     # -- consume -------------------------------------------------------------
 
@@ -258,15 +263,15 @@ class FlowFeatureEngine:
             stats["out_of_order"] = n_ooo
             if n_late:
                 self.late_records += n_late
-                inc("sntc_flow_late_records_total", n_late)
+                inc("sntc_flow_late_records_total", n_late, **self._mlabels)
                 emit_event(
                     event="flow_late_records", site="flow.emit",
                     reason="late_record", count=n_late,
-                    watermark=wm,
+                    watermark=wm, **self._mlabels,
                 )
             if n_ooo:
                 self.out_of_order += n_ooo
-                inc("sntc_flow_out_of_order_total", n_ooo)
+                inc("sntc_flow_out_of_order_total", n_ooo, **self._mlabels)
         if records.shape[0]:
             # grouping is computed in FULL before any mutation, then
             # applied in a plain append pass that cannot realistically
@@ -304,7 +309,8 @@ class FlowFeatureEngine:
             self._packets += records.shape[0]
             stats["accepted"] = int(records.shape[0])
             self.records_consumed += stats["accepted"]
-            inc("sntc_flow_records_consumed_total", stats["accepted"])
+            inc("sntc_flow_records_consumed_total", stats["accepted"],
+                **self._mlabels)
         self._last_undo = undo
         self._publish_gauges()
         return stats
@@ -380,7 +386,7 @@ class FlowFeatureEngine:
             )
         # kill point: state selected for eviction but nothing removed
         # or emitted yet (the ``flow.evict`` kill scenario)
-        fault_point("flow.evict")
+        fault_point("flow.evict", tenant=self.tenant)
         # deterministic emission order: windows sorted by (first_ts,
         # key); the meter's own lexsort is stable on top of this
         evicted.sort(key=lambda e: (self._flows[e[0]].first_ts, e[0]))
@@ -397,14 +403,16 @@ class FlowFeatureEngine:
             self._packets -= st.n
             reasons[reason] = reasons.get(reason, 0) + 1
         self.windows_emitted += frame.num_rows
-        inc("sntc_flow_windows_emitted_total", frame.num_rows)
+        inc("sntc_flow_windows_emitted_total", frame.num_rows,
+            **self._mlabels)
         for reason, count in sorted(reasons.items()):
             self.evictions[reason] = self.evictions.get(reason, 0) + count
-            inc("sntc_flow_evictions_total", count, reason=reason)
+            inc("sntc_flow_evictions_total", count, reason=reason,
+                **self._mlabels)
         emit_event(
             event="flow_windows_emitted", site="flow.evict",
             windows=frame.num_rows, flows_evicted=len(evicted),
-            reasons=reasons, watermark=self.watermark(),
+            reasons=reasons, watermark=self.watermark(), **self._mlabels,
         )
         self._publish_gauges()
         return frame

@@ -80,6 +80,7 @@ class FlowCaptureSource(_CaptureDirSource):
         allowed_lateness: float = 5.0,
         max_state_packets: int = 500_000,
         state_dir: Optional[str] = None,
+        tenant: Optional[str] = None,
         **kwargs,
     ):
         if format not in FORMATS:
@@ -87,6 +88,8 @@ class FlowCaptureSource(_CaptureDirSource):
                 f"unknown capture format {format!r}; expected one of "
                 f"{sorted(FORMATS)}"
             )
+        # the source's meters carry the tenant from construction
+        kwargs.setdefault("tenant", tenant)
         super().__init__(path, pattern or FORMATS[format], **kwargs)
         self.format = format
         meter = (
@@ -99,9 +102,12 @@ class FlowCaptureSource(_CaptureDirSource):
             meter,
             allowed_lateness=allowed_lateness,
             max_state_packets=max_state_packets,
+            tenant=tenant,
         )
+        self._mlabels = {} if tenant is None else {"tenant": tenant}
         self.store = (
-            FlowStateStore(state_dir) if state_dir is not None else None
+            FlowStateStore(state_dir, tenant=tenant)
+            if state_dir is not None else None
         )
         self._consumed_end = 0
         self._memo: Optional[Tuple[Tuple[int, int], Frame]] = None
@@ -185,7 +191,7 @@ class FlowCaptureSource(_CaptureDirSource):
         self._pending = None
         # kill point: windows emitted in memory, nothing durable yet
         # (the ``flow.emit`` kill scenario)
-        fault_point("flow.emit")
+        fault_point("flow.emit", tenant=self.tenant)
         return emitted
 
     # -- StreamingQuery state hooks -----------------------------------------
@@ -258,8 +264,8 @@ class FlowCaptureSource(_CaptureDirSource):
         with span("flow.snapshot", batch=batch_id):
             self.store.publish(end, payload)
         self.snapshots_published += 1
-        inc("sntc_flow_snapshots_total")
-        set_gauge("sntc_flow_state_bytes", len(payload))
+        inc("sntc_flow_snapshots_total", **self._mlabels)
+        set_gauge("sntc_flow_state_bytes", len(payload), **self._mlabels)
 
     # -- operational surface -------------------------------------------------
 

@@ -80,9 +80,12 @@ class FlowStateCorruptError(FlowStateError):
 
 
 class FlowStateStore:
-    """One directory of ``state-<end>.bin`` snapshot blobs."""
+    """One directory of ``state-<end>.bin`` snapshot blobs.  ``tenant``
+    namespaces the ``flow.state_snapshot`` fault point and the
+    ``storage.state`` write."""
 
-    def __init__(self, path: str, keep: int = 2):
+    def __init__(self, path: str, keep: int = 2,
+                 tenant: Optional[str] = None):
         if keep < 2:
             # fewer than 2 breaks the publish/commit bracketing: a
             # crash between snapshot publish and WAL commit must still
@@ -90,6 +93,7 @@ class FlowStateStore:
             raise ValueError("FlowStateStore keep must be >= 2")
         self.path = path
         self.keep = int(keep)
+        self.tenant = tenant
         os.makedirs(path, exist_ok=True)
 
     def _file(self, end: int) -> str:
@@ -109,7 +113,7 @@ class FlowStateStore:
         state over the same name), then prune beyond ``keep``."""
         # kill point: the snapshot is serialized but nothing reached
         # disk (the ``flow.state_snapshot`` kill scenario)
-        fault_point("flow.state_snapshot")
+        fault_point("flow.state_snapshot", tenant=self.tenant)
         header = json.dumps({
             "version": 1,
             "end": int(end),
@@ -125,7 +129,7 @@ class FlowStateStore:
         # that silently degraded would break restore bracketing)
         atomic_write_bytes(
             final, _MAGIC + header + b"\n" + payload,
-            site="storage.state",
+            site="storage.state", tenant=self.tenant,
         )
         for old in self.ends()[:-self.keep]:
             try:

@@ -2,15 +2,15 @@
 into the registry.
 
 Counterpart of ``sntc_tpu/obs/bridge.py`` (``install_event_metrics``):
-every event counts into ``sntc_events_total{event, site}``, a
-``quarantine`` event also counts into
+every event counts into ``sntc_events_total{event, site, tenant}`` (a
+``tenant/<id>/<site>`` site splits into its bare site and the tenant
+label, :func:`split_tenant_site`), a ``quarantine`` event also counts into
 ``sntc_batches_quarantined_total``, a ``rows_rejected`` event into
 ``sntc_rows_rejected_total{reason}`` and a ``load_shed`` event its
 offsets into ``sntc_shed_offsets_total`` (which the SLO controller
 reads), and a ``drift_detected`` event its divergence into the
 ``sntc_drift_divergence`` gauge (the drift monitor also sets it on every
-full window).  The JAX bridge's tenant label waits for tenancy (ROADMAP
-queue A), whose events the port does not emit yet.
+full window).  The event's tenant labels each of these series.
 
 The observer never raises (``emit_event`` evicts a raising observer);
 records it could not fold are counted by :func:`bridge_errors`.
@@ -28,30 +28,49 @@ _install_lock = threading.Lock()
 _errors = 0
 
 
+def split_tenant_site(record: Dict[str, Any]):
+    """(site, tenant) of one event record: the explicit ``tenant`` field
+    wins; a ``tenant/<id>/<site>`` site splits into the bare site and
+    the tenant, so both stay aggregable."""
+    site = record.get("site") or ""
+    tenant = record.get("tenant") or ""
+    if isinstance(site, str) and site.startswith("tenant/"):
+        parts = site.split("/", 2)
+        if len(parts) == 3:
+            tenant = tenant or parts[1]
+            site = parts[2]
+    return site, tenant
+
+
 def _observe(record: Dict[str, Any]) -> None:
     global _errors
     try:
         event = record.get("event")
         if not event:
             return
+        site, tenant = split_tenant_site(record)
         labels: Dict[str, str] = {"event": str(event)}
-        if record.get("site"):
-            labels["site"] = str(record["site"])
+        if site:
+            labels["site"] = str(site)
+        if tenant:
+            labels["tenant"] = str(tenant)
         inc("sntc_events_total", 1, **labels)
+        tlabel = {"tenant": str(tenant)} if tenant else {}
         if event == "rows_rejected":
             reasons = record.get("reasons")
             if isinstance(reasons, dict) and reasons:
                 for reason, n in reasons.items():
                     inc("sntc_rows_rejected_total", int(n),
-                        reason=str(reason))
+                        reason=str(reason), **tlabel)
             else:
                 inc("sntc_rows_rejected_total",
-                    int(record.get("count") or 0), reason="unknown")
+                    int(record.get("count") or 0), reason="unknown",
+                    **tlabel)
         elif event == "load_shed":
             inc("sntc_shed_offsets_total",
-                int(record.get("offsets_shed") or 0))
+                int(record.get("offsets_shed") or 0), **tlabel)
         elif event == "quarantine":
-            inc("sntc_batches_quarantined_total", 1)
+            inc("sntc_batches_quarantined_total", 1, **tlabel)
         elif event == "drift_detected" \
                 and record.get("divergence") is not None:
             set_gauge("sntc_drift_divergence", float(record["divergence"]),

@@ -278,6 +278,47 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         "per fused serving segment (same hook and caveats as "
         "sntc_mfu_ratio).",
     ),
+    # -- host↔device transfers of a tenant's engine (TransferLedger) --------
+    "sntc_transfer_dispatches_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Fused-program dispatches (unlabeled series = the "
+        "process-global TransferLedger; tenant series = the "
+        "per-engine ledgers).",
+    ),
+    "sntc_transfer_uploads_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Host\u2192device array uploads by fused dispatches.",
+    ),
+    "sntc_transfer_downloads_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Device\u2192host output materializations by fused finalizes.",
+    ),
+    "sntc_transfer_upload_bytes_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Bytes uploaded host\u2192device by fused dispatches.",
+    ),
+    "sntc_transfer_download_bytes_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Bytes materialized device\u2192host by fused finalizes.",
+    ),
+    # -- the multi-tenant scheduler (serve/tenancy) ---------------------------
+    "sntc_daemon_ticks_total": dict(
+        type=COUNTER, labels=(),
+        help="ServeDaemon scheduling rounds.",
+    ),
+    "sntc_tenant_state": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Tenant ladder state (0=OK, 1=THROTTLED, 2=QUARANTINED, "
+        "3=STOPPED).",
+    ),
+    "sntc_tenant_deficit": dict(
+        type=GAUGE, labels=("tenant",),
+        help="DRR scheduler deficit after the last round.",
+    ),
+    "sntc_tenant_strikes_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Unhealthy strikes counted against the tenant ladder.",
+    ),
     "sntc_health_state": dict(
         type=GAUGE, labels=("component",),
         help="Component health (0=OK, 1=DEGRADED, 2=UNHEALTHY).",

@@ -207,6 +207,18 @@ class CircuitBreaker:
             if self._state == HALF_OPEN and self._probes_in_flight > 0:
                 self._probes_in_flight -= 1
 
+    def reset(self) -> None:
+        """Back to a fresh CLOSED breaker (window, probes and cooldown
+        cleared; ``open_count`` kept): a tenant released from quarantine
+        on probation gets a clean window."""
+        with self._lock:
+            self._outcomes.clear()
+            self._opened_at = None
+            self._probes_in_flight = 0
+            self._probe_successes = 0
+            if self._state != CLOSED:
+                self._transition(CLOSED, reset=True)
+
     def call(self, fn: Callable[[], Any]) -> Any:
         """Run ``fn()`` through the breaker: refuse when open, record
         the outcome otherwise.  KeyboardInterrupt/SystemExit pass
@@ -254,10 +266,17 @@ def breaker_for(site: str, **kwargs: Any) -> CircuitBreaker:
         return br
 
 
-def reset_breakers() -> None:
-    """Drop every registered breaker (test isolation)."""
+def reset_breakers(prefix: Optional[str] = None) -> None:
+    """Drop registered breakers: every one (test isolation), or with
+    ``prefix`` only the sites under one namespace (``"tenant/<id>/"``:
+    the serve daemon evicts a stopped tenant's breakers so its history
+    cannot leak into a later tenant reusing the id)."""
     with _registry_lock:
-        _registry.clear()
+        if prefix is None:
+            _registry.clear()
+            return
+        for site in [s for s in _registry if s.startswith(prefix)]:
+            del _registry[site]
 
 
 def breakers_snapshot() -> Dict[str, Dict[str, Any]]:

@@ -57,6 +57,19 @@ class TuningBudget:
         self._used: Dict[str, int] = {k: 0 for k in self._caps}
         self._lock = threading.Lock()
 
+    @classmethod
+    def default_for(cls, n_tenants: int) -> "TuningBudget":
+        """The serve daemon's default: at most one host's worth of
+        extra parse threads, two staged ranges a tenant and one extra
+        pipeline slot a tenant."""
+        import os
+
+        return cls(
+            read_workers=max(4, (os.cpu_count() or 4)),
+            prefetch_batches=max(4, 2 * n_tenants),
+            pipeline_depth=max(2, n_tenants),
+        )
+
     def try_acquire(self, knob: str, n: int = 1) -> bool:
         with self._lock:
             cap = self._caps.get(knob)
@@ -82,7 +95,9 @@ class Guardrails:
     :meth:`observe` once a window with a pure ``propose`` callable.
 
     ``policy`` is any object with ``confirm``, ``cooldown`` and
-    ``max_reversals``; a knob's budget kind is its name."""
+    ``max_reversals``.  ``budget_kind`` maps a knob name to its budget
+    kind (the name itself by default; the daemon's controller strips its
+    ``<tenant>/`` prefix, so every tenant's ``quota`` draws one line)."""
 
     def __init__(
         self,
@@ -90,10 +105,12 @@ class Guardrails:
         budget: Optional[TuningBudget] = None,
         *,
         journal_keep: int = 256,
+        budget_kind: Optional[Callable[[str], str]] = None,
         on_journal: Optional[Callable[[dict], None]] = None,
     ):
         self.policy = policy or ControlPolicy()
         self.budget = budget
+        self.budget_kind = budget_kind or (lambda name: name)
         self.on_journal = on_journal
         self.decisions: List[dict] = []
         self.decisions_total = 0
@@ -160,17 +177,18 @@ class Guardrails:
             return None
         if self.budget is not None:
             # only capacity above the knob's cold value is charged
+            kind = self.budget_kind(name)
             baseline = self._baseline.setdefault(name, cur)
             held = self._budget_held.get(name, 0)
             want = max(0, new - baseline)
             if want > held:
-                if not self.budget.try_acquire(name, want - held):
+                if not self.budget.try_acquire(kind, want - held):
                     self._cooldown = self.policy.cooldown
                     return self._journal(name, direction, cur, cur,
                                          action="budget_denied",
                                          signal_fields=signal_fields)
             elif want < held:
-                self.budget.release(name, held - want)
+                self.budget.release(kind, held - want)
             self._budget_held[name] = want
         knob.set(new)
         self._last_dir[name] = direction

@@ -62,9 +62,9 @@ fire without a limit; :func:`arm` adds Nth-call precision
 call).  A malformed string warns once on stderr and arms nothing.
 
 For the same spec and payload, :func:`fault_data` mutates the bytes
-exactly as the JAX package does.  Tenant-namespaced sites
-(``tenant/<id>/<site>``) are looked up by :func:`fault_disk` only; the
-rest waits for tenancy (ROADMAP queue A).
+exactly as the JAX package does.  :func:`fault_point` and
+:func:`fault_disk` look up a tenant-namespaced site
+(``tenant/<id>/<site>``) before the bare one.
 """
 
 from __future__ import annotations
@@ -346,13 +346,21 @@ def _disk_fault(kind: str, site: str, call: int) -> InjectedDiskFault:
         code, f"injected {kind} fault at site {site!r} (call {call})")
 
 
-def fault_point(site: str) -> None:
+def fault_point(site: str, tenant: Optional[str] = None) -> None:
     """The per-site hook real code calls; raises when armed and
-    scheduled.  A DATA kind or ``torn_write`` is inert here."""
+    scheduled.  A DATA kind or ``torn_write`` is inert here.  With
+    ``tenant`` it checks ``tenant/<id>/<site>`` before the bare site, so
+    one tenant's boundary can be armed alone while a bare-site fault
+    still hits every tenant."""
     _sync_env()
-    spec = _registry.get(site)
+    spec = None
+    if tenant is not None:
+        spec = _registry.get(f"tenant/{tenant}/{site}")
+    if spec is None:
+        spec = _registry.get(site)
     if spec is None or spec.kind in DATA_KINDS or spec.kind == "torn_write":
         return
+    site = spec.site  # the event and the error name the armed site
     with _lock:
         fire = spec.decide()
         call = spec.calls

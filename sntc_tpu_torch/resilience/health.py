@@ -9,7 +9,9 @@ once :meth:`~HealthMonitor.attach` ed, by the structured event stream:
 are OK, and so on (:data:`_EVENT_STATES`, the JAX table plus the port's
 ``device_failed``).  A state change emits ``health_changed`` and sets
 the ``sntc_health_state`` gauge; :meth:`~HealthMonitor.overall` is the
-worst component.
+worst component; :meth:`~HealthMonitor.worst_under` and
+:meth:`~HealthMonitor.reset_under` scope both to one daemon tenant's
+``tenant/<id>/`` components.
 
 The watchdog: :meth:`~HealthMonitor.batch_started` /
 :meth:`~HealthMonitor.batch_finished` bracket each micro-batch and
@@ -145,6 +147,23 @@ class HealthMonitor:
             if not self._components:
                 return HealthState.OK
             return max(e["state"] for e in self._components.values())
+
+    def worst_under(self, prefix: str) -> HealthState:
+        """Worst state of the components named under ``prefix`` (OK when
+        none is): a daemon tenant's health, from its own
+        ``tenant/<id>/...`` components and none of its neighbours'."""
+        with self._lock:
+            states = [e["state"] for name, e in self._components.items()
+                      if name.startswith(prefix)]
+            return max(states) if states else HealthState.OK
+
+    def reset_under(self, prefix: str, reason: str = "") -> None:
+        """Set every component under ``prefix`` back to OK (a tenant
+        released from quarantine on probation)."""
+        with self._lock:
+            names = [n for n in self._components if n.startswith(prefix)]
+        for name in names:
+            self.report(name, HealthState.OK, reason=reason)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

@@ -92,6 +92,8 @@ _events_lock = threading.Lock()
 _step = 0
 _t0 = time.perf_counter()
 _events_dropped = 0
+# evictions of tenant-tagged records, by tenant
+_events_dropped_by_tenant: Dict[str, int] = {}
 _observers: List[Callable[[Dict[str, Any]], None]] = []
 
 
@@ -121,8 +123,15 @@ def emit_event(**fields: Any) -> Dict[str, Any]:
                 f.write(json.dumps(record) + "\n")
         if len(_recent) == _recent.maxlen:
             _events_dropped += 1
+            # a tenant-tagged record counts against its tenant too
+            evicted = _recent[0].get("tenant")
+            if evicted is not None:
+                _events_dropped_by_tenant[evicted] = (
+                    _events_dropped_by_tenant.get(evicted, 0) + 1)
             try:  # the metrics mirror, never fatally
-                _metrics_inc("sntc_events_dropped_total")
+                _metrics_inc("sntc_events_dropped_total",
+                             **({} if evicted is None
+                                else {"tenant": evicted}))
             except Exception:
                 pass
         _recent.append(record)
@@ -151,10 +160,13 @@ def recent_events(
     ]
 
 
-def events_dropped() -> int:
+def events_dropped(by_tenant: bool = False):
     """Events evicted from the ring since the last :func:`clear_events`:
-    nonzero means :func:`recent_events` is a suffix."""
+    nonzero means :func:`recent_events` is a suffix.  ``by_tenant=True``
+    returns the evictions of tenant-tagged records by tenant instead."""
     with _events_lock:
+        if by_tenant:
+            return dict(_events_dropped_by_tenant)
         return _events_dropped
 
 
@@ -184,6 +196,7 @@ def clear_events() -> None:
     with _events_lock:
         _recent.clear()
         _events_dropped = 0
+        _events_dropped_by_tenant.clear()
 
 
 def with_retries(

@@ -28,6 +28,11 @@ from sntc_tpu_torch.serve.streaming import (
     MemorySource,
     StreamingQuery,
 )
+from sntc_tpu_torch.serve.tenancy import (
+    ServeDaemon,
+    TenantSpec,
+    TenantStream,
+)
 from sntc_tpu_torch.serve.transform import (
     VALID_COL,
     BatchPredictor,
@@ -51,9 +56,12 @@ __all__ = [
     "MemorySink",
     "MemorySource",
     "ServeController",
+    "ServeDaemon",
     "SloPolicy",
     "SloSignal",
     "StreamingQuery",
+    "TenantSpec",
+    "TenantStream",
     "build_ingress",
     "bucket_rows_for",
     "capture_udp",

@@ -1,32 +1,43 @@
-"""Closed-loop SLO controller of the serve plane, single stream.
+"""Closed-loop SLO controller of the serve plane.
 
-Counterpart of ``sntc_tpu/serve/controller.py`` as far as one
-supervised engine goes (``ServeController.for_supervisor``); the
-serve-daemon's tenants and their rungs (``for_daemon``,
-``attach_tenant``, the ``weight``, ``quota``, ``escalate``, ``migrate``
-and ``scale_out`` knobs) wait for tenancy (ROADMAP queue A).
+Counterpart of ``sntc_tpu/serve/controller.py``: one supervised engine
+(:meth:`ServeController.for_supervisor`) or every tenant of a
+``serve.tenancy.ServeDaemon`` (:meth:`ServeController.for_daemon`,
+:meth:`~ServeController.attach_tenant`,
+:meth:`~ServeController.detach_tenant`), whose SLOs are the
+``TenantSpec`` fields.  A tenant's knobs are named ``<id>/<knob>`` under
+the one shared ``Guardrails``; their budget kind is the bare knob name.
 
-**The loop.**  Ticked once a supervisor round, the controller closes an
-observation window every ``interval_ticks`` ticks.  Each window it
-diffs the metrics registry (committed batches and rows, the
+**The loop.**  Ticked once a supervisor or daemon round, the controller
+closes an observation window every ``interval_ticks`` ticks.  Each
+window it diffs the metrics registry (committed batches and rows, the
 ``sntc_batch_duration_seconds`` buckets → a windowed p50 / p99 by
-:func:`window_percentile`, shed offsets) and reads the engine's backlog,
-the predictor's ``compile_events`` (the distinct dispatched row shapes)
-and the breakers, into one :class:`SloSignal`; diagnoses the binding
+:func:`window_percentile`, shed offsets, ladder strikes; a tenant's by
+its label) and reads the engine's backlog, the predictor's
+``compile_events`` (the distinct dispatched row shapes) and the
+breakers, into one :class:`SloSignal` a target; diagnoses the binding
 constraint against the declared :class:`SloPolicy`; and moves one knob
 one step through the shared ``resilience.control.Guardrails``, so the
 no-oscillation bound holds over the union of the serving knobs and the
 ingest knobs.
 
-**The ladder.**  A latency violation raises the ``shape_buckets``
-floor when the window saw new row shapes (a ladder index over
-:data:`SHAPE_BUCKET_FLOORS` and the cold floor), else lowers
-``pipeline_depth`` (queue wait is latency).  A throughput violation
-delegates to the controller's own ``data.autotune.IngestAutotuner``
-(``read_workers``, ``prefetch_batches``; the controller keeps
-``pipeline_depth``), then deepens the pipeline.  With no violation one
-moved knob relaxes a step toward its cold value.  The ``shed`` knob
-steps the supervisor's cap and policy down :data:`SHED_LADDER`.
+**The ladder.**  A violator that floods (a shed-rate violation, or fresh
+strikes) on the daemon is degraded, never its neighbours: its rate
+``quota`` tightens (:data:`QUOTA_FACTORS`), then its ``shed`` cap, then
+``escalate`` strikes it on the daemon's ladder, then the fleet rungs
+(:data:`FLEET_RUNGS`, present only when the daemon has a ``fleet_hook``).
+The escalate and fleet rungs are skipped while the device domain has
+failed.  A latency violation raises the ``shape_buckets`` floor when the
+window saw new row shapes (single stream only: the daemon's predictors
+are shared), else lowers ``pipeline_depth`` (queue wait is latency),
+else tightens a tenant's own quota.  A throughput violation delegates to
+the controller's own ``data.autotune.IngestAutotuner`` (``read_workers``,
+``prefetch_batches``; the controller keeps ``pipeline_depth``), then
+deepens the pipeline, then, while every other tenant complies, raises
+the tenant's DRR ``weight``.  With no violation one moved knob relaxes
+a step toward its cold value (``escalate`` and the fleet rungs never
+relax).  The ``shed`` knob steps the supervisor's (or the tenant spec's)
+cap and policy down :data:`SHED_LADDER`.
 
 **Evidence.**  Every applied, denied, frozen or delegated decision is
 journaled to ``controller.jsonl`` (``RotatingJsonlWriter``, artifact
@@ -40,7 +51,8 @@ degradation (``controller_error``), never death.
 
 ``device_check`` reads the device fault domain's ``failed`` (the JAX
 package reads its ``host_degraded``; the port has no host serving
-state): ``stats()["platform_degraded"]``.
+state): ``stats()["platform_degraded"]``.  The journals of both packages
+are equal on the same signals.
 """
 
 from __future__ import annotations
@@ -84,6 +96,10 @@ SLO_FIELDS = ("slo_p99_ms", "slo_min_rows_per_sec", "slo_max_shed_rate")
 #: raising it trades padding for fewer distinct row shapes
 SHAPE_BUCKET_FLOORS = (0, 64, 128, 256, 512)
 
+#: the fleet rungs of the ladder (one-way, like escalate; inert outside
+#: a fleet)
+FLEET_RUNGS = ("migrate", "scale_out")
+
 #: the daemon's quota ladder (index i > 0 throttles to base × factor),
 #: kept equal to the JAX package's
 QUOTA_FACTORS = (None, 0.5, 0.25, 0.125)
@@ -119,6 +135,10 @@ class SloPolicy:
                 and self.slo_max_shed_rate > 1.0:
             # a shed-rate bound over 1.0 can never be violated: a typo
             raise ValueError("slo_max_shed_rate is a fraction in (0, 1]")
+
+    @classmethod
+    def from_spec(cls, spec) -> "SloPolicy":
+        return cls(**{f: getattr(spec, f, None) for f in SLO_FIELDS})
 
     def declared(self) -> bool:
         return any(getattr(self, f) is not None for f in SLO_FIELDS)
@@ -180,16 +200,15 @@ def window_percentile(bounds, counts, q: float) -> Optional[float]:
 
 
 class _Target:
-    """The controlled stream: the supervised engine, its knobs, the
-    previous window's sample and the window's verdicts.  Its key in the
-    signal maps is None (the JAX package keys the daemon's tenants by
-    id)."""
+    """One controlled stream (a daemon's tenant, keyed by its id, or the
+    supervised engine, keyed None): its knobs, the previous window's
+    sample and the window's verdicts."""
 
-    key = None
-
-    def __init__(self, engine, slo, supervisor=None):
+    def __init__(self, key, engine, slo, stream=None, supervisor=None):
+        self.key = key
         self.engine = engine
         self.slo = slo
+        self.stream = stream  # the daemon's TenantStream
         self.supervisor = supervisor
         self.tuner = None  # the controller's own IngestAutotuner
         self.knobs: Dict[str, Knob] = {}
@@ -200,11 +219,16 @@ class _Target:
         self.compliance: Dict[str, bool] = {}
         self.hold: Dict[str, Tuple[int, float]] = {}  # sticky violations
         self.idle_delegations = 0  # consecutive no-op tuner windows
+        self.quota_base: Optional[float] = None  # rows/s at 1st throttle
+
+    def controllable(self) -> bool:
+        return self.stream is None or self.stream.state not in (
+            "QUARANTINED", "STOPPED")
 
 
 class ServeController:
     """The closed loop (see the module docs).  Built by
-    :meth:`for_supervisor`; the owner calls :meth:`on_tick` once a round
+    :meth:`for_supervisor` or :meth:`for_daemon`; the owner calls :meth:`on_tick` once a round
     and treats an exception as degradation.  Tests call :meth:`step`
     with synthetic :class:`SloSignal` maps."""
 
@@ -237,15 +261,71 @@ class ServeController:
         self._clock = clock
         self._wall = wall
         self._device_check = device_check
+        self.platform_deferrals = 0
+        self._daemon = None
         self.targets: List[_Target] = []
         self._knobs: Dict[str, Knob] = {}  # full name -> Knob
         self._defaults: Dict[str, int] = {}  # full name -> cold value
         self._ticks = 0
         self.delegated_total = 0
-        self.guard = Guardrails(policy=self.policy, budget=budget,
-                                on_journal=self._on_journal)
+        self.escalations_total = 0
+        self.fleet_requests_total = 0
+        # a tenant's "<id>/quota" draws the "quota" line of the budget
+        self.guard = Guardrails(
+            policy=self.policy, budget=budget,
+            budget_kind=lambda name: name.rsplit("/", 1)[-1],
+            on_journal=self._on_journal)
 
     # -- construction -------------------------------------------------------
+
+    @classmethod
+    def for_daemon(cls, daemon, **kwargs) -> "ServeController":
+        """Attach to every tenant of a ``ServeDaemon`` (the SLOs from
+        their specs); the journal is ``<root>/controller.jsonl`` unless
+        given."""
+        kwargs.setdefault("journal_path",
+                          os.path.join(daemon.root_dir, "controller.jsonl"))
+        kwargs.setdefault("clock", daemon._clock)
+        kwargs.setdefault("budget", daemon.tuning_budget)
+        kwargs.setdefault("device_check", daemon.device_degraded)
+        ctl = cls(**kwargs)
+        ctl._daemon = daemon
+        for t in daemon.tenants:
+            ctl._attach(_Target(t.spec.tenant_id, t.query,
+                                SloPolicy.from_spec(t.spec), stream=t))
+        ctl._reconcile_journal()
+        return ctl
+
+    def attach_tenant(self, stream) -> None:
+        """Attach a tenant the daemon admitted while running, as
+        :meth:`for_daemon` attaches the first ones."""
+        self._attach(_Target(stream.spec.tenant_id, stream.query,
+                             SloPolicy.from_spec(stream.spec),
+                             stream=stream))
+
+    def detach_tenant(self, tenant_id: str) -> bool:
+        """Detach a removed tenant: its target and knobs go, so the loop
+        samples it no more."""
+        for t in list(self.targets):
+            if t.stream is not None and t.key == tenant_id:
+                self.targets.remove(t)
+                for base in t.knobs:
+                    full = self._full(t, base)
+                    self._knobs.pop(full, None)
+                    self._defaults.pop(full, None)
+                return True
+        return False
+
+    @staticmethod
+    def _full(t: _Target, base: str) -> str:
+        return base if t.key is None else f"{t.key}/{base}"
+
+    @staticmethod
+    def _split(name: str) -> Tuple[Optional[str], str]:
+        if "/" in name:
+            tid, base = name.rsplit("/", 1)
+            return tid, base
+        return None, name
 
     @classmethod
     def for_supervisor(cls, supervisor, slo: SloPolicy,
@@ -259,17 +339,18 @@ class ServeController:
         if dom is not None:
             kwargs.setdefault("device_check", lambda _d=dom: _d.failed)
         ctl = cls(**kwargs)
-        ctl._attach(_Target(supervisor.query, slo, supervisor=supervisor))
+        ctl._attach(_Target(None, supervisor.query, slo,
+                            supervisor=supervisor))
         ctl._reconcile_journal()
         return ctl
 
     @staticmethod
-    def _fault_wrap(setter):
+    def _fault_wrap(setter, tenant=None):
         """Every live knob setter passes the ``ctl.apply`` fault point
         first; the journal record lands only after the setter returns."""
 
         def _set(v):
-            fault_point("ctl.apply")
+            fault_point("ctl.apply", tenant=tenant)
             setter(v)
 
         return _set
@@ -298,7 +379,7 @@ class ServeController:
     def _attach(self, t: _Target) -> None:
         self.targets.append(t)
         eng = t.engine
-        wrap = self._fault_wrap
+        wrap = lambda fn: self._fault_wrap(fn, t.key)  # noqa: E731
         kn: Dict[str, Knob] = {}
 
         lo, hi = self.knob_bounds["pipeline_depth"]
@@ -310,23 +391,27 @@ class ServeController:
             "pipeline_depth", lambda _e=eng: _e.pipeline_depth,
             wrap(_set_depth), lo, hi)
 
-        # the predictor is this engine's alone: its bucket floor is
-        # steerable, as an index into the ladder holding the cold floor
-        pred = eng.predictor
-        ladder = tuple(sorted(set(SHAPE_BUCKET_FLOORS)
-                              | {int(pred.bucket_rows)}))
-        box = {"i": ladder.index(int(pred.bucket_rows))}
+        if t.stream is None:
+            # the predictor is this engine's alone: its bucket floor is
+            # steerable, as an index into the ladder holding the cold
+            # floor
+            pred = eng.predictor
+            ladder = tuple(sorted(set(SHAPE_BUCKET_FLOORS)
+                                  | {int(pred.bucket_rows)}))
+            box = {"i": ladder.index(int(pred.bucket_rows))}
 
-        def _set_buckets(i, _b=box, _l=ladder, _p=pred, _e=eng):
-            _b["i"] = int(i)
-            _p.bucket_rows = _l[_b["i"]]
-            _e.shape_buckets = _l[_b["i"]]
+            def _set_buckets(i, _b=box, _l=ladder, _p=pred, _e=eng):
+                _b["i"] = int(i)
+                _p.bucket_rows = _l[_b["i"]]
+                _e.shape_buckets = _l[_b["i"]]
 
-        kn["shape_buckets"] = Knob(
-            "shape_buckets", lambda _b=box: _b["i"], wrap(_set_buckets), 0,
-            len(ladder) - 1)
-        if t.supervisor is not None:
-            kn["shed"] = self._shed_knob(t.supervisor, wrap)
+            kn["shape_buckets"] = Knob(
+                "shape_buckets", lambda _b=box: _b["i"],
+                wrap(_set_buckets), 0, len(ladder) - 1)
+            if t.supervisor is not None:
+                kn["shed"] = self._shed_knob(t.supervisor, wrap)
+        else:
+            self._attach_tenant_knobs(t, kn, wrap)
 
         if self.ingest:
             from sntc_tpu_torch.data.autotune import (
@@ -344,22 +429,99 @@ class ServeController:
                     max_reversals=self.policy.max_reversals,
                 ),
                 budget=self.budget,
+                tenant=t.key,
                 exclude_knobs=("pipeline_depth",),
             )
 
         t.knobs = kn
-        self._knobs.update(kn)
-        self._defaults.update((name, knob.get()) for name, knob in kn.items())
+        for base, knob in kn.items():
+            full = self._full(t, base)
+            self._knobs[full] = knob
+            self._defaults[full] = knob.get()
         # the first window's baseline now, so the first round's evidence
         # lands in window 1's delta
         t.prev = self._sample(t)
         t.prev_ts = self._clock()
         t.prev_compiles = t.engine.predictor.compile_events
 
+    def _attach_tenant_knobs(self, t: _Target, kn: Dict[str, Knob],
+                             wrap) -> None:
+        """A daemon tenant's rungs: ``weight``, ``quota``, ``shed``,
+        ``escalate`` and, in a fleet, the fleet rungs."""
+        spec = t.stream.spec
+        wlo, whi = self.knob_bounds["weight"]
+
+        def _set_weight(n, _s=spec):
+            _s.weight = float(max(1, int(n)))
+
+        kn["weight"] = Knob("weight", lambda _s=spec: int(round(_s.weight)),
+                            wrap(_set_weight), wlo, whi)
+
+        qbox = {"i": 0}
+        qorig = spec.max_rows_per_sec
+
+        def _set_quota(i, _b=qbox, _t=t, _orig=qorig):
+            _b["i"] = int(i)
+            if _b["i"] == 0:
+                _t.stream.set_rate_quota(_orig)
+                return
+            if _t.quota_base is None:
+                # the base is fixed at the first throttle, so the rungs
+                # are deterministic afterwards
+                observed = (_t.last_signal.rows_per_s
+                            if _t.last_signal is not None else 0.0)
+                _t.quota_base = max(_orig or 0.0, observed, 1.0)
+            _t.stream.set_rate_quota(_t.quota_base * QUOTA_FACTORS[_b["i"]])
+
+        kn["quota"] = Knob("quota", lambda _b=qbox: _b["i"],
+                           wrap(_set_quota), 0, len(QUOTA_FACTORS) - 1)
+        kn["shed"] = self._shed_knob(spec, wrap)
+
+        ebox = {"n": 0}
+
+        def _escalate(n, _b=ebox, _t=t, _c=self):
+            while _b["n"] < int(n):
+                _b["n"] += 1
+                _c.escalations_total += 1
+                if _c._daemon is not None:
+                    _c._daemon.strike_tenant(
+                        _t.key, "controller escalation: degradation "
+                        "ladder exhausted throttle and shed")
+
+        kn["escalate"] = Knob("escalate", lambda _b=ebox: _b["n"],
+                              wrap(_escalate), 0,
+                              max(1, spec.quarantine_after))
+
+        if self._daemon is not None \
+                and getattr(self._daemon, "fleet_hook", None) is not None:
+            # at most one request a tenant a daemon's life; the
+            # coordinator decides and acts
+            for action in FLEET_RUNGS:
+                fbox = {"n": 0}
+
+                def _fleet(n, _b=fbox, _t=t, _c=self, _a=action):
+                    while _b["n"] < int(n):
+                        _b["n"] += 1
+                        _c.fleet_requests_total += 1
+                        _c._daemon.request_fleet(
+                            _a, _t.key, reason="controller: local "
+                            "degradation ladder exhausted")
+
+                kn[action] = Knob(action, lambda _b=fbox: _b["n"],
+                                  wrap(_fleet), 0, 1)
+
     # -- journal ------------------------------------------------------------
 
     def knob_values(self) -> Dict[str, int]:
         return {name: k.get() for name, k in sorted(self._knobs.items())}
+
+    def knob_values_for(self, key) -> Dict[str, int]:
+        """One target's live knobs by their bare names (the drain
+        markers' ``controller_knobs``)."""
+        for t in self.targets:
+            if t.key == key:
+                return {b: k.get() for b, k in sorted(t.knobs.items())}
+        return {}
 
     def _append_journal(self, rec: dict) -> None:
         if self.journal_path is None:
@@ -419,13 +581,16 @@ class ServeController:
     def _on_journal(self, rec: dict) -> None:
         """Mirror every decision into the metrics, the event stream and
         the durable journal."""
-        knob = rec["knob"]
-        inc("sntc_ctl_decisions_total", action=rec["action"], knob=knob)
+        tid, knob = self._split(rec["knob"])
+        labels = {} if tid is None else {"tenant": tid}
+        inc("sntc_ctl_decisions_total", action=rec["action"], knob=knob,
+            **labels)
         if rec["action"] == "applied":
-            set_gauge("sntc_ctl_knob_value", rec["to"], knob=knob)
+            set_gauge("sntc_ctl_knob_value", rec["to"], knob=knob, **labels)
         emit_event(event="controller_decision", action=rec["action"],
-                   knob=knob, direction=rec["direction"], value=rec["to"])
-        self._append_journal(dict(rec, tenant=None, ts=self._wall(),
+                   knob=knob, direction=rec["direction"], value=rec["to"],
+                   **labels)
+        self._append_journal(dict(rec, tenant=tid, ts=self._wall(),
                                   knobs=self.knob_values()))
 
     # -- the signal ---------------------------------------------------------
@@ -433,13 +598,16 @@ class ServeController:
     @staticmethod
     def _sample(t: _Target) -> dict:
         reg = registry()
+        labels = {} if t.key is None else {"tenant": t.key}
         return {
-            "batches": reg.get("sntc_batches_committed_total") or 0.0,
-            "rows": reg.get("sntc_rows_committed_total") or 0.0,
-            "shed": reg.get("sntc_shed_offsets_total") or 0.0,
-            # the daemon's ladder strikes: none on one stream
-            "strikes": 0.0,
-            "hist": reg.get_histogram("sntc_batch_duration_seconds"),
+            "batches": reg.get("sntc_batches_committed_total",
+                               **labels) or 0.0,
+            "rows": reg.get("sntc_rows_committed_total", **labels) or 0.0,
+            "shed": reg.get("sntc_shed_offsets_total", **labels) or 0.0,
+            "strikes": reg.get("sntc_tenant_strikes_total",
+                               **labels) or 0.0,
+            "hist": reg.get_histogram("sntc_batch_duration_seconds",
+                                      **labels),
         }
 
     def _window_signal(self, t: _Target, now: float) -> Optional[SloSignal]:
@@ -526,11 +694,13 @@ class ServeController:
             if bad:
                 v["shed"] = sig.shed_rate / slo.slo_max_shed_rate
         t.compliance = comp
+        labels = {} if t.key is None else {"tenant": t.key}
         for axis, ok in comp.items():
             set_gauge("sntc_ctl_slo_compliant", 1.0 if ok else 0.0,
-                      slo=axis)
+                      slo=axis, **labels)
         if sig.p99_ms is not None:
-            set_gauge("sntc_ctl_window_p99_seconds", sig.p99_ms / 1e3)
+            set_gauge("sntc_ctl_window_p99_seconds", sig.p99_ms / 1e3,
+                      **labels)
         # an axis violated now arms `violation_hold` further windows at
         # its severity; a quiet axis burns one held window
         held: Dict[str, float] = {}
@@ -558,8 +728,12 @@ class ServeController:
         except Exception:
             return False
 
-    def _usable(self, t: _Target, name: str, direction: int) -> bool:
-        return self.guard.usable(t.knobs, name, direction)
+    def _usable(self, t: _Target, base: str, direction: int) -> bool:
+        k = t.knobs.get(base)
+        if k is None:
+            return False
+        full = self._full(t, base)
+        return self.guard.usable({full: k}, full, direction)
 
     @staticmethod
     def _tuner_has_action_space(t: _Target) -> bool:
@@ -570,6 +744,14 @@ class ServeController:
         if t.tuner._knobs is None:
             return True
         return bool(t.tuner._knobs)
+
+    def _all_others_compliant(self, t: _Target) -> bool:
+        for other in self.targets:
+            if other is t or not other.controllable():
+                continue
+            if other.compliance and not all(other.compliance.values()):
+                return False
+        return True
 
     def _plan(
         self, by_target: Dict[Any, Tuple[_Target, Dict[str, float]]]
@@ -582,37 +764,63 @@ class ServeController:
                                            str(tv[0].key)))
             t, v = violators[0]
             sig = t.last_signal
+            flooding = "shed" in v or sig.strikes > 0
+            if flooding and t.stream is not None:
+                # degrade the violator, never its neighbours; a failed
+                # device is not the tenant's doing, so the escalate and
+                # fleet rungs wait while it lasts
+                for base in ("quota", "shed", "escalate") + FLEET_RUNGS:
+                    if base in FLEET_RUNGS and base not in t.knobs:
+                        continue  # not in a fleet
+                    if (base == "escalate" or base in FLEET_RUNGS) \
+                            and self._platform_degraded():
+                        self.platform_deferrals += 1
+                        continue
+                    if self._usable(t, base, +1):
+                        return (self._full(t, base), +1), None
+                return None, None
             if "p99" in v:
                 # latency is compile churn (the bucket floor) or queue
-                # wait (the depth)
+                # wait (the depth); last, the tenant admits less
                 if sig.compile_events > 0 and self._usable(
                         t, "shape_buckets", +1):
-                    return ("shape_buckets", +1), None
+                    return (self._full(t, "shape_buckets"), +1), None
                 if self._usable(t, "pipeline_depth", -1):
-                    return ("pipeline_depth", -1), None
+                    return (self._full(t, "pipeline_depth"), -1), None
+                if t.stream is not None and self._usable(t, "quota", +1):
+                    return (self._full(t, "quota"), +1), None
                 return None, None
             # throughput: feed the engine first (the ingest tuner), then
-            # deepen the pipeline; a tuner idle for `confirm` windows
-            # yields to the depth, and gets the floor back after
+            # deepen the pipeline, then, while every neighbour complies,
+            # take more of the schedule; a tuner idle for `confirm`
+            # windows yields, and gets the floor back after
             delegate_ok = sig.backlog > 0 and self._tuner_has_action_space(t)
             if delegate_ok and t.idle_delegations <= self.policy.confirm:
                 return None, t
             if self._usable(t, "pipeline_depth", +1):
-                return ("pipeline_depth", +1), None
+                return (self._full(t, "pipeline_depth"), +1), None
+            if t.stream is not None and self._all_others_compliant(t) \
+                    and self._usable(t, "weight", +1):
+                return (self._full(t, "weight"), +1), None
             if delegate_ok:
                 return None, t
             return None, None
-        # no violation: relax one moved knob toward its cold value (the
-        # JAX package's order; the daemon's knobs are absent here)
+        # no violation: relax one moved knob toward its cold value
+        # (escalate never relaxes: its strikes were spent)
         for t in self.targets:
-            for name in ("quota", "shed", "weight", "pipeline_depth",
+            if not t.controllable():
+                continue
+            for base in ("quota", "shed", "weight", "pipeline_depth",
                          "shape_buckets"):
-                k = t.knobs.get(name)
-                if k is None or name in self.guard.frozen:
+                k = t.knobs.get(base)
+                if k is None:
                     continue
-                cur, default = k.get(), self._defaults[name]
+                full = self._full(t, base)
+                if full in self.guard.frozen:
+                    continue
+                cur, default = k.get(), self._defaults[full]
                 if cur != default:
-                    return (name, 1 if cur < default else -1), None
+                    return (full, 1 if cur < default else -1), None
         return None, None
 
     def step(self, signals: Dict[Any, SloSignal]) -> Optional[dict]:
@@ -630,11 +838,15 @@ class ServeController:
             if t is None:
                 continue
             t.last_signal = sig
+            if not t.controllable():
+                continue
             by_target[key] = (t, self._violations(t, sig))
         prop, delegate = self._plan(by_target)
 
         def _fields():
-            t = self.targets[0] if prop is not None else None
+            if prop is None:
+                return {}
+            t = by_key.get(self._split(prop[0])[0])
             return (t.last_signal.as_fields()
                     if t is not None and t.last_signal is not None else {})
 
@@ -648,8 +860,10 @@ class ServeController:
                 return rec
             delegate.idle_delegations = 0
             self.delegated_total += 1
+            labels = ({} if delegate.key is None
+                      else {"tenant": delegate.key})
             inc("sntc_ctl_decisions_total", action="delegated",
-                knob=irec["knob"])
+                knob=irec["knob"], **labels)
             drec = {
                 "action": "delegated",
                 "tenant": delegate.key,
@@ -660,7 +874,7 @@ class ServeController:
                 "knobs": self.knob_values(),
             }
             emit_event(event="controller_decision", action="delegated",
-                       knob=irec["knob"])
+                       knob=irec["knob"], **labels)
             self._append_journal(drec)
             return drec
         return rec
@@ -683,16 +897,15 @@ class ServeController:
     # -- evidence -----------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
-        """The ``controller`` status block, under the JAX keys (the
-        daemon's escalation and fleet counters read 0 on one stream)."""
+        """The ``controller`` status block, under the JAX keys."""
         out = {
             "windows": self.guard.windows,
             "decisions": self.guard.decisions_total,
             "applied": len(self.guard.applied()),
             "delegated": self.delegated_total,
-            "escalations": 0,
-            "fleet_requests": 0,
-            "platform_deferrals": 0,
+            "escalations": self.escalations_total,
+            "fleet_requests": self.fleet_requests_total,
+            "platform_deferrals": self.platform_deferrals,
             "platform_degraded": self._platform_degraded(),
             "frozen": sorted(self.guard.frozen),
             "knobs": self.knob_values(),

@@ -46,6 +46,12 @@ corrupt the payload there, exactly like ``source.parse``);
 kill-mid-spool scenario).  A kill between a sender's send and the
 seal rename loses nothing the sender still holds: the atomic rename is
 the ack, so resend-until-sealed gives exactly-once into the spool.
+
+A daemon tenant's spool, listeners and ``build_ingress`` take its
+``tenant``: the fault sites are looked up as ``tenant/<id>/ingress.*``
+first, the ``sntc_ingress_*`` series carry its label and the ingress
+events its ``"tenant"`` key (None outside a daemon, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -75,6 +81,10 @@ QUARANTINE_DIR = "quarantine"
 FRAME_HEADER = struct.Struct(">I")
 
 _IDX_RE = re.compile(r"(\d+)")
+
+
+def _labels(tenant: Optional[str]) -> Dict[str, str]:
+    return {} if tenant is None else {"tenant": tenant}
 
 
 def _file_index(path: str) -> int:
@@ -167,6 +177,7 @@ class IngressSpool:
         *,
         prefix: str = "capture_",
         suffix: str = ".nf5",
+        tenant: Optional[str] = None,
         keep_files: int = 64,
         spool_budget_mb: Optional[float] = None,
         committed_offset_fn: Optional[Callable[[], int]] = None,
@@ -174,6 +185,7 @@ class IngressSpool:
         self.spool_dir = spool_dir
         self.prefix = prefix
         self.suffix = suffix
+        self.tenant = tenant
         self.keep_files = max(1, int(keep_files))
         self.budget_bytes = (
             int(spool_budget_mb * (1 << 20)) if spool_budget_mb else None
@@ -256,12 +268,12 @@ class IngressSpool:
                     self.stats.note_dropped("spool_over_budget", units)
                     inc(
                         "sntc_ingress_dropped_total", units,
-                        reason="spool_over_budget",
+                        reason="spool_over_budget", **_labels(self.tenant),
                     )
                     emit_event(
                         event="ingress_shed", reason="spool_over_budget",
                         units=units, bytes=len(payload),
-                        budget_bytes=self.budget_bytes,
+                        budget_bytes=self.budget_bytes, tenant=self.tenant,
                     )
                     self._write_stats()
                     return None
@@ -273,24 +285,26 @@ class IngressSpool:
                 # the kill-mid-spool boundary: a kill here leaves
                 # no sealed file, so a resend-until-sealed sender loses
                 # nothing; IO kinds model the full/failing disk
-                fault_point("ingress.spool")
+                fault_point("ingress.spool", tenant=self.tenant)
                 atomic_write_bytes(  # storage: ingress_spool
-                    path, payload, site="ingress.spool")
+                    path, payload, site="ingress.spool", tenant=self.tenant)
             except Exception as e:
                 # the artifact's SHED policy: a failing spool disk sheds
                 # at ingress (counted) instead of killing the listener
                 self.stats.note_dropped("spool_error", units)
-                inc("sntc_ingress_dropped_total", units, reason="spool_error")
+                inc("sntc_ingress_dropped_total", units, reason="spool_error",
+                    **_labels(self.tenant))
                 emit_event(
                     event="ingress_shed", reason="spool_error",
-                    units=units, error=repr(e),
+                    units=units, error=repr(e), tenant=self.tenant,
                 )
                 self._write_stats()
                 return None
             self._next_idx += 1
             self.stats.note_spooled(units)
-            inc("sntc_ingress_sealed_files_total", 1)
-            set_gauge("sntc_ingress_spool_bytes", self.spool_bytes())
+            inc("sntc_ingress_sealed_files_total", 1, **_labels(self.tenant))
+            set_gauge("sntc_ingress_spool_bytes", self.spool_bytes(),
+                      **_labels(self.tenant))
             pruned = self._prune()
             # a seal landing within one file of the retention horizon
             # is immediately prunable: its stats write must not wait
@@ -324,7 +338,7 @@ class IngressSpool:
         path = os.path.join(qdir, f"{reason}_{os.getpid()}_{n:06d}.bin")
         try:
             atomic_write_bytes(
-                path, data, site="ingress.spool")
+                path, data, site="ingress.spool", tenant=self.tenant)
         except Exception:
             path = None
         self.stats.note_quarantined()
@@ -371,9 +385,11 @@ class IngressSpool:
                 pass
         if pruned:
             self.stats.note_pruned(pruned)
-            inc("sntc_ingress_pruned_files_total", pruned)
+            inc("sntc_ingress_pruned_files_total", pruned,
+                **_labels(self.tenant))
             emit_event(
                 event="ingress_pruned", files=pruned, horizon=horizon,
+                tenant=self.tenant,
             )
         return pruned
 
@@ -384,7 +400,8 @@ class IngressSpool:
         obj["next_idx"] = self._next_idx
         if extra:
             obj.update(extra)
-        write_marker(os.path.join(self.spool_dir, STATS_FILE), obj)
+        write_marker(os.path.join(self.spool_dir, STATS_FILE), obj,
+                     tenant=self.tenant)
         self._stats_written_at = time.monotonic()
 
     def publish_stats(self, **extra: Any) -> None:
@@ -392,12 +409,12 @@ class IngressSpool:
             self._write_stats(extra or None)
 
 
-def _recv_boundary(data: bytes) -> bytes:
+def _recv_boundary(data: bytes, tenant: Optional[str] = None) -> bytes:
     """The shared receive-boundary fault hook: ``ingress.recv`` takes
     exception kinds (a failing NIC/driver read) AND the DATA kinds
     (corrupt/truncated datagrams — downstream parse salvage must hold
     over network input exactly as over disk input)."""
-    fault_point("ingress.recv")
+    fault_point("ingress.recv", tenant=tenant)
     return fault_data("ingress.recv", data)
 
 
@@ -414,9 +431,11 @@ class _ListenerBase:
         ring_size: int,
         seal_units: int,
         seal_idle_s: float,
+        tenant: Optional[str] = None,
     ) -> None:
         self.spool = spool
         self.stats = spool.stats
+        self.tenant = tenant
         self.ring_size = max(1, int(ring_size))
         self.seal_units = max(1, int(seal_units))
         self.seal_idle_s = float(seal_idle_s)
@@ -432,20 +451,22 @@ class _ListenerBase:
     def _ingest(self, data: bytes) -> None:
         """One payload past the receive boundary and into the ring —
         the unit the conservation law counts."""
-        data = _recv_boundary(data)
+        data = _recv_boundary(data, self.tenant)
         self.stats.note_received(len(data))
-        inc(self._recv_metric, 1)
-        inc("sntc_ingress_bytes_total", len(data))
+        inc(self._recv_metric, 1, **_labels(self.tenant))
+        inc("sntc_ingress_bytes_total", len(data), **_labels(self.tenant))
         with self._cv:
             if len(self._ring) >= self.ring_size:
                 # the UDP rung of the backpressure ladder: bounded
                 # memory, counted shed — never silent loss
                 self.stats.note_dropped("ring_overflow", 1)
-                inc("sntc_ingress_dropped_total", 1, reason="ring_overflow")
+                inc("sntc_ingress_dropped_total", 1, reason="ring_overflow",
+                    **_labels(self.tenant))
             else:
                 self._ring.append(data)
                 self._cv.notify()
-            set_gauge("sntc_ingress_ring_depth", len(self._ring))
+            set_gauge("sntc_ingress_ring_depth", len(self._ring),
+                          **_labels(self.tenant))
 
     # -- the spooler thread --------------------------------------------------
 
@@ -461,7 +482,8 @@ class _ListenerBase:
                     buf.append(self._ring.pop(0))
                     moved += 1
                 ring_empty = not self._ring
-                set_gauge("sntc_ingress_ring_depth", len(self._ring))
+                set_gauge("sntc_ingress_ring_depth", len(self._ring),
+                          **_labels(self.tenant))
             if moved:
                 # the idle clock restarts only on ARRIVALS — a partial
                 # group merely sitting in buf must age toward the tail
@@ -473,7 +495,7 @@ class _ListenerBase:
                     self.stats.note_dropped("close_discard", len(buf))
                     inc(
                         "sntc_ingress_dropped_total", len(buf),
-                        reason="close_discard",
+                        reason="close_discard", **_labels(self.tenant),
                     )
                     buf = []
                 if stopping and ring_empty:
@@ -530,7 +552,7 @@ class _ListenerBase:
         self.stats.drained = True
         self.spool.publish_stats(**self._endpoint())
         emit_event(
-            event="ingress_drained",
+            event="ingress_drained", tenant=self.tenant,
             **self.stats.snapshot(),
         )
         return self.stats.snapshot()
@@ -564,10 +586,11 @@ class UdpIngressListener(_ListenerBase):
         seal_datagrams: int = 30,
         seal_idle_s: float = 0.25,
         recv_timeout_s: float = 0.2,
+        tenant: Optional[str] = None,
     ) -> None:
         super().__init__(
             spool, ring_size=ring_datagrams, seal_units=seal_datagrams,
-            seal_idle_s=seal_idle_s,
+            seal_idle_s=seal_idle_s, tenant=tenant,
         )
         self._own_sock = sock is None
         if sock is None:
@@ -615,9 +638,11 @@ class UdpIngressListener(_ListenerBase):
                 # conservation law stays an equality.
                 self.stats.note_received(len(data))
                 self.stats.note_dropped("recv_error", 1)
-                inc("sntc_ingress_dropped_total", 1, reason="recv_error")
+                inc("sntc_ingress_dropped_total", 1, reason="recv_error",
+                    **_labels(self.tenant))
                 emit_event(
                     event="ingress_recv_error", error=repr(e),
+                    tenant=self.tenant,
                 )
         if self._own_sock:
             try:
@@ -658,10 +683,11 @@ class TcpRowIngress(_ListenerBase):
         seal_idle_s: float = 0.25,
         max_frame_bytes: int = 1 << 20,
         accept_timeout_s: float = 0.2,
+        tenant: Optional[str] = None,
     ) -> None:
         super().__init__(
             spool, ring_size=ring_frames, seal_units=seal_rows,
-            seal_idle_s=seal_idle_s,
+            seal_idle_s=seal_idle_s, tenant=tenant,
         )
         self.columns = list(columns) if columns else None
         self.max_frame_bytes = int(max_frame_bytes)
@@ -715,7 +741,8 @@ class TcpRowIngress(_ListenerBase):
     def _conn_gauge(self, delta: int) -> None:
         with self._conn_lock:
             self._conns += delta
-            set_gauge("sntc_ingress_connections", self._conns)
+            set_gauge("sntc_ingress_connections", self._conns,
+                      **_labels(self.tenant))
 
     def _recv_exact(self, conn: socket.socket, n: int) -> bytes:
         """Read exactly ``n`` bytes; returns the SHORT prefix when the
@@ -743,13 +770,15 @@ class TcpRowIngress(_ListenerBase):
                 # rung 1 of the backpressure ladder: stop reading while
                 # the spool is over budget; resume below 80% of it
                 if self.spool.over_budget():
-                    set_gauge("sntc_ingress_backpressure_state", 1)
+                    set_gauge("sntc_ingress_backpressure_state", 1,
+                              **_labels(self.tenant))
                     while (
                         self.spool.over_budget(headroom=0.8)
                         and not self._stop.is_set()
                     ):
                         time.sleep(0.02)
-                    set_gauge("sntc_ingress_backpressure_state", 0)
+                    set_gauge("sntc_ingress_backpressure_state", 0,
+                              **_labels(self.tenant))
                 header = self._recv_exact(conn, FRAME_HEADER.size)
                 if not header:
                     break  # clean close at a frame boundary
@@ -765,7 +794,7 @@ class TcpRowIngress(_ListenerBase):
                     self.stats.note_dropped("oversize_frame", 1)
                     inc(
                         "sntc_ingress_dropped_total", 1,
-                        reason="oversize_frame",
+                        reason="oversize_frame", **_labels(self.tenant),
                     )
                     break
                 payload = self._recv_exact(conn, length)
@@ -777,9 +806,11 @@ class TcpRowIngress(_ListenerBase):
                 except Exception as e:
                     self.stats.note_received(len(payload))
                     self.stats.note_dropped("recv_error", 1)
-                    inc("sntc_ingress_dropped_total", 1, reason="recv_error")
+                    inc("sntc_ingress_dropped_total", 1, reason="recv_error",
+                        **_labels(self.tenant))
                     emit_event(
                         event="ingress_recv_error", error=repr(e),
+                        tenant=self.tenant,
                     )
         finally:
             try:
@@ -794,9 +825,11 @@ class TcpRowIngress(_ListenerBase):
         # conservation law (received == spooled + dropped) stays exact
         self.stats.note_received(len(partial))
         self.stats.note_dropped("torn_frame", 1)
-        inc("sntc_ingress_dropped_total", 1, reason="torn_frame")
+        inc("sntc_ingress_dropped_total", 1, reason="torn_frame",
+            **_labels(self.tenant))
         emit_event(
             event="ingress_torn_frame", bytes=len(partial),
+            tenant=self.tenant,
         )
 
     def _seal(self, buf: List[bytes]) -> None:
@@ -927,6 +960,7 @@ def build_ingress(
     seal_every: int = 30,
     seal_idle_s: float = 0.25,
     columns: Optional[List[str]] = None,
+    tenant: Optional[str] = None,
     source_kwargs: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Any, List[Any]]:
     """Build (source, listeners) for one ingress endpoint: the spool
@@ -940,25 +974,27 @@ def build_ingress(
             "(one spool directory holds one capture format)"
         )
     kwargs = dict(source_kwargs or {})
+    kwargs.setdefault("tenant", tenant)
     if listen_udp is not None:
         spool = IngressSpool(
-            spool_dir, prefix="capture_", suffix=".nf5",
+            spool_dir, prefix="capture_", suffix=".nf5", tenant=tenant,
             keep_files=keep_files, spool_budget_mb=spool_mb,
         )
         listener = UdpIngressListener(
             spool, port=listen_udp, ring_datagrams=ring,
             seal_datagrams=seal_every, seal_idle_s=seal_idle_s,
+            tenant=tenant,
         )
         source = NetFlowSpoolSource(spool_dir, **kwargs)
     else:
         spool = IngressSpool(
-            spool_dir, prefix="rows_", suffix=".csv",
+            spool_dir, prefix="rows_", suffix=".csv", tenant=tenant,
             keep_files=keep_files, spool_budget_mb=spool_mb,
         )
         listener = TcpRowIngress(
             spool, port=listen_tcp, ring_frames=ring,
             seal_rows=seal_every, seal_idle_s=seal_idle_s,
-            columns=columns,
+            columns=columns, tenant=tenant,
         )
         source = CsvSpoolSource(spool_dir, **kwargs)
     source.attach_listener(listener)

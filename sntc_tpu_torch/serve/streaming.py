@@ -116,8 +116,16 @@ which runs ``on_tick`` and applies a pending swap through
 :meth:`StreamingQuery.swap_model` between micro-batches, after settling
 any delivery in the air.  A swap whose safe point fails is put back for
 the next round; a hook that raises emits ``lifecycle_error`` and the
-engine goes on.  ``pipeline_stats()["lifecycle"]`` reports it.  The JAX
-engine's tenancy is not ported.
+engine goes on.  ``pipeline_stats()["lifecycle"]`` reports it.
+
+**Tenancy** (``tenant="<id>"``, set by ``serve.tenancy.ServeDaemon``):
+every site the engine touches becomes ``tenant/<id>/<site>`` (retry,
+quarantine, shed and reject events, which also carry a ``tenant``
+field; fault points look up the namespaced site before the bare one),
+its storage writes and journals carry the tenant, ``shed.jsonl`` records
+name it, and its metrics and transfer ledger are labelled with it.  The
+names are computed once at construction; ``tenant=None`` keeps the bare
+names and labels.
 
 **Spans** (``obs.trace``, free while tracing is off), at the JAX
 engine's sites and names, each with the batch id: ``stream.wal`` (the
@@ -224,7 +232,7 @@ class DirStreamSource:
         # threads: the lazy create must not race two pools into being
         self._pool_lock = threading.Lock()
         self._retired_pools: List[ThreadPoolExecutor] = []  # joined at close
-        self.meters = source_meters()
+        self.meters = source_meters(tenant)
         self._staged: dict = {}  # (start, end) -> Future[Frame]
         self.prefetch_hits = 0
         self.prefetch_misses = 0
@@ -369,8 +377,9 @@ class DirStreamSource:
                      listing)
 
     def _queue_gauge(self) -> None:
+        labels = {} if self.tenant is None else {"tenant": self.tenant}
         set_gauge("sntc_ingest_queue_depth", len(self._staged),
-                  stage="stage")
+                  stage="stage", **labels)
 
     def prefetch_stats(self) -> dict:
         return {
@@ -579,6 +588,7 @@ class StreamingQuery:
         overlap_sink: Optional[bool] = None,
         autotuner=None,
         lifecycle=None,
+        tenant: Optional[str] = None,
     ):
         self.predictor = (
             model
@@ -596,9 +606,26 @@ class StreamingQuery:
         # life (None: on when the construction's depth is above 1)
         self.overlap_sink = (self.pipeline_depth > 1 if overlap_sink is None
                              else bool(overlap_sink))
+        # a tenant id prefixes every site this engine touches (events,
+        # breakers' health components, fault points): ``tenant/<id>/<site>``,
+        # precomputed once; a tenant-less engine keeps the bare names
+        self.tenant = tenant
+        self._sites = {
+            s: (s if tenant is None else f"tenant/{tenant}/{s}")
+            for s in ("stream.wal", "stream.read", "stream.commit",
+                      "sink.write", "predict.dispatch", "source.parse")
+        }
+        self._mlabels = {} if tenant is None else {"tenant": tenant}
         # the ingest graph's engine-side steps, and the optional tuner
-        # ticked once a round (a failing tuner degrades, never kills)
-        self.ingest_meters = engine_meters()
+        # ticked once a round (a failing tuner degrades, never kills);
+        # a tenant-less source inherits the engine's tenant label
+        self.ingest_meters = engine_meters(tenant)
+        src_meters = getattr(source, "meters", None)
+        if tenant is not None and src_meters is not None \
+                and getattr(source, "tenant", None) is None:
+            source.tenant = tenant
+            for m in src_meters.values():
+                m.tenant = tenant
         self.autotuner = autotuner
         # the model lifecycle's hooks (see the module docs)
         self.lifecycle = lifecycle
@@ -617,7 +644,7 @@ class StreamingQuery:
         self.recentProgress: List[dict] = []
         self.rows_served = 0
         # this engine's copies, beside the process-wide ledger
-        self.transfer = TransferLedger()
+        self.transfer = TransferLedger(tenant=tenant)
         self.retry_policy = retry_policy
         if max_batch_failures is not None and max_batch_failures < 1:
             raise ValueError("max_batch_failures must be >= 1 (or None)")
@@ -659,7 +686,8 @@ class StreamingQuery:
         self.wal_prunes = 0
         # the light doctor: torn journal tails and tmp orphans a crash
         # left (never fatal; the append WAL repairs its own tails)
-        self.storage_scan = storage_plane.quick_scan(checkpoint_dir)
+        self.storage_scan = storage_plane.quick_scan(checkpoint_dir,
+                                                     tenant=tenant)
         self._offsets_dir = os.path.join(checkpoint_dir, "offsets")
         self._commits_dir = os.path.join(checkpoint_dir, "commits")
         if wal_mode == "append":
@@ -708,7 +736,7 @@ class StreamingQuery:
         def read_log(path: str) -> dict:
             records, _repair = storage_plane.read_jsonl_tolerant(
                 path, repair=True, artifact="wal_append",
-                repair_dir=checkpoint_dir)
+                tenant=self.tenant, repair_dir=checkpoint_dir)
             return {int(rec["batch_id"]): rec for rec in records}
 
         pending.update(read_log(offsets_path))
@@ -747,7 +775,7 @@ class StreamingQuery:
                 storage_plane.quarantine_blob(
                     path, artifact="wal_files",
                     detail="torn commit record at recovery",
-                    root=self.checkpoint_dir)
+                    root=self.checkpoint_dir, tenant=self.tenant)
                 ids.pop()
         return -1
 
@@ -756,6 +784,13 @@ class StreamingQuery:
             return 0
         with open(os.path.join(self._commits_dir, f"{last}.json")) as f:
             return json.load(f)["end"]
+
+    def _emit(self, **fields) -> None:
+        """The engine's events, tagged with its tenant when it serves
+        one (the daemon reads the tag back out of the stream)."""
+        if self.tenant is not None:
+            fields["tenant"] = self.tenant
+        emit_event(**fields)
 
     def last_committed(self) -> int:
         return self._last_committed
@@ -794,7 +829,7 @@ class StreamingQuery:
         fsynced: the line is durable before the batch moves on."""
         f = self._append_log(attr, name)
         storage_plane.append_line(f, json.dumps(record) + "\n",
-                                  site="storage.wal")
+                                  site="storage.wal", tenant=self.tenant)
         os.fsync(f.fileno())
 
     def _wal_intent(self, batch_id: int, intent: dict) -> None:
@@ -805,7 +840,8 @@ class StreamingQuery:
         else:
             storage_plane.atomic_write_json(
                 os.path.join(self._offsets_dir, f"{batch_id}.json"),
-                intent, site="storage.wal", fsync=False)
+                intent, site="storage.wal", tenant=self.tenant,
+                fsync=False)
 
     def _wal_commit(self, batch_id: int, intent: dict) -> None:
         if self.wal_mode == "append":
@@ -815,7 +851,8 @@ class StreamingQuery:
         else:
             storage_plane.atomic_write_json(
                 os.path.join(self._commits_dir, f"{batch_id}.json"),
-                intent, site="storage.wal", fsync=False)
+                intent, site="storage.wal", tenant=self.tenant,
+                fsync=False)
             self._prune_files_wal(batch_id)
 
     def _maybe_compact_wal(self, last_committed: int, end: int) -> None:
@@ -840,7 +877,7 @@ class StreamingQuery:
         try:
             storage_plane.atomic_write_json(
                 self._wal_ckpt_path, storage_plane.seal_record(core),
-                site="storage.wal")
+                site="storage.wal", tenant=self.tenant)
             # the checkpoint is durable: a crash before, between or in
             # the truncations replays the tails over it idempotently; a
             # failed reopen leaves a closed handle that _append_log
@@ -852,12 +889,12 @@ class StreamingQuery:
                     os.path.join(self.checkpoint_dir, name), "w"))
         except OSError as e:
             storage_plane.note_write_error("wal_append", self._wal_ckpt_path,
-                                           e)
+                                           e, tenant=self.tenant)
             return
-        storage_plane.note_write_ok("wal_append")
+        storage_plane.note_write_ok("wal_append", tenant=self.tenant)
         self._commits_since_compact = 0
         self.wal_compactions += 1
-        inc("sntc_wal_compactions_total")
+        inc("sntc_wal_compactions_total", **self._mlabels)
 
     def _prune_files_wal(self, batch_id: int) -> None:
         """Delete the committed intent/commit pairs below the
@@ -889,8 +926,7 @@ class StreamingQuery:
         """The predictor's device fault domain (None when unarmed)."""
         return getattr(self.predictor, "device_domain", None)
 
-    @staticmethod
-    def _device_fault(dom, exc: BaseException, kind: str,
+    def _device_fault(self, dom, exc: BaseException, kind: str,
                       batch_id: int) -> None:
         """Note a device fault the predictor has not counted; raise once
         the domain has failed (the query stops, the batch's intent stays
@@ -898,7 +934,8 @@ class StreamingQuery:
         if dom.failed and getattr(exc, "device_kind", None) is not None:
             raise exc  # the failed domain's own DeviceExecError
         if not getattr(exc, "_sntc_device_counted", False):
-            dom.note_fault(kind, site="predict.dispatch", batch_id=batch_id)
+            dom.note_fault(kind, site=self._sites["predict.dispatch"],
+                           batch_id=batch_id)
         if dom.failed:
             try:
                 dom.check()
@@ -938,7 +975,7 @@ class StreamingQuery:
                 intent["sample_stride"] = self._sample_next
                 self._sample_next = None
             try:
-                fault_point("stream.wal")
+                fault_point("stream.wal", tenant=self.tenant)
                 with span("stream.wal", batch=batch_id):
                     self._wal_intent(batch_id, intent)  # intent before work
             except Exception as e:
@@ -960,7 +997,7 @@ class StreamingQuery:
         t0 = time.perf_counter()
 
         def _read() -> tuple:
-            fault_point("stream.read")
+            fault_point("stream.read", tenant=self.tenant)
             with span("stream.read", batch=batch_id):
                 frame = self.source.get_batch(intent["start"],
                                               intent["end"])
@@ -978,7 +1015,8 @@ class StreamingQuery:
             return False
         try:
             frame, row_mask, rejects, coerced, batch_files = (
-                with_retries(_read, self.retry_policy, site="stream.read")
+                with_retries(_read, self.retry_policy,
+                             site=self._sites["stream.read"])
                 if self.retry_policy is not None else _read())
             t1 = time.perf_counter()
             stage = "predict.dispatch"
@@ -1085,7 +1123,7 @@ class StreamingQuery:
         t0 = time.perf_counter()
 
         def _deliver() -> None:
-            fault_point("sink.write")
+            fault_point("sink.write", tenant=self.tenant)
             t_a = time.perf_counter()
             try:
                 out = finalize()
@@ -1102,7 +1140,7 @@ class StreamingQuery:
             with span("sink.deliver", batch=batch_id):
                 if self.retry_policy is not None:
                     with_retries(_deliver, self.retry_policy,
-                                 site="sink.write")
+                                 site=self._sites["sink.write"])
                 else:
                     _deliver()
         finally:
@@ -1169,7 +1207,7 @@ class StreamingQuery:
                     else frame.filter(row_mask)
                 self.lifecycle.on_batch(batch_id, lc_frame, finalize)
             except Exception as e:
-                emit_event(event="lifecycle_error", component="model",
+                self._emit(event="lifecycle_error", component="model",
                            batch_id=batch_id, error=repr(e))
         return True
 
@@ -1188,7 +1226,7 @@ class StreamingQuery:
             dom = self._device_domain()
             if dom is not None and dom.failed:
                 raise
-            emit_event(event="device_error", batch_id=batch_id,
+            self._emit(event="device_error", batch_id=batch_id,
                        error=repr(e), during="redispatch")
             return
         self._in_flight[0] = (batch_id, intent, fin, t0, n_rows, timing,
@@ -1302,7 +1340,7 @@ class StreamingQuery:
         committed_hook = getattr(self.source, "on_batch_committed", None)
         if committed_hook is not None:
             committed_hook(batch_id, intent)
-        fault_point("stream.commit")
+        fault_point("stream.commit", tenant=self.tenant)
         with span("stream.commit", batch=batch_id):
             self._wal_commit(batch_id, intent)
         self._clear_failures(batch_id)
@@ -1314,10 +1352,10 @@ class StreamingQuery:
         self.rows_served += n_rows
         now = time.perf_counter()
         dur = now - t0
-        inc("sntc_batches_committed_total")
+        inc("sntc_batches_committed_total", **self._mlabels)
         if n_rows:
-            inc("sntc_rows_committed_total", n_rows)
-        observe("sntc_batch_duration_seconds", dur)
+            inc("sntc_rows_committed_total", n_rows, **self._mlabels)
+        observe("sntc_batch_duration_seconds", dur, **self._mlabels)
         progress = {
             "batchId": batch_id,
             "numInputRows": int(n_rows),
@@ -1368,17 +1406,18 @@ class StreamingQuery:
         if self._dead_letter_writer is None:
             self._dead_letter_writer = storage_plane.RotatingJsonlWriter(
                 os.path.join(self.dead_letter_dir, "dead_letter.jsonl"),
-                artifact="dead_letter", site="storage.dead_letter")
+                artifact="dead_letter", site="storage.dead_letter",
+                tenant=self.tenant)
         self._dead_letter_writer.write(record)
         if self.dead_letter_keep > 0:
             storage_plane.prune_dir_keep_newest(
                 self.dead_letter_dir, self.dead_letter_keep,
-                artifact="dead_letter",
+                artifact="dead_letter", tenant=self.tenant,
                 protect=tuple(f"dead_letter.jsonl{x}"
                               for x in ("", ".1", ".2")),
             )
-        emit_event(event="quarantine", site=site, batch_id=batch_id,
-                   error=repr(exc))
+        self._emit(event="quarantine", site=self._sites.get(site, site),
+                   batch_id=batch_id, error=repr(exc))
 
     def _journal_rejected_rows(self, batch_id: int, intent: dict,
                                rejects: List[dict],
@@ -1431,22 +1470,23 @@ class StreamingQuery:
             storage_plane.atomic_write_bytes(
                 final,
                 "".join(json.dumps(r) + "\n" for r in records).encode(),
-                site="storage.dead_letter", fsync=False)
+                site="storage.dead_letter", tenant=self.tenant, fsync=False)
         except OSError as e:
-            storage_plane.note_write_error("dead_letter_rows", final, e)
+            storage_plane.note_write_error("dead_letter_rows", final, e,
+                                           tenant=self.tenant)
             return
-        storage_plane.note_write_ok("dead_letter_rows")
+        storage_plane.note_write_ok("dead_letter_rows", tenant=self.tenant)
         if self.dead_letter_keep > 0:
             storage_plane.prune_dir_keep_newest(
                 self.row_dead_letter_dir, self.dead_letter_keep,
-                artifact="dead_letter_rows")
+                artifact="dead_letter_rows", tenant=self.tenant)
         if not first_journal:
             return
         self._rows_rejected_total += len(records)
         reasons: dict = {}
         for rec in records:
             reasons[rec["reason"]] = reasons.get(rec["reason"], 0) + 1
-        emit_event(event="rows_rejected", site="source.parse",
+        self._emit(event="rows_rejected", site=self._sites["source.parse"],
                    batch_id=batch_id, count=len(records), reasons=reasons)
 
     def admission_stats(self) -> Optional[dict]:
@@ -1532,7 +1572,7 @@ class StreamingQuery:
                 rearm = getattr(lc, "rearm_pending_swap", None)
                 if rearm is not None:
                     rearm(pending)
-            emit_event(event="lifecycle_error", component="model",
+            self._emit(event="lifecycle_error", component="model",
                        error=repr(e))
 
     def pipeline_stats(self) -> dict:
@@ -1588,7 +1628,7 @@ class StreamingQuery:
             try:
                 self.autotuner.on_tick(self)
             except Exception as e:
-                emit_event(event="autotune_error", error=repr(e))
+                self._emit(event="autotune_error", error=repr(e))
         if self.overlap_sink:
             self._pump_delivery()
             if self._tick_latest is None:
@@ -1703,6 +1743,8 @@ class StreamingQuery:
             "backlog_offsets": pending,
             "max_pending_batches": max_pending_batches,
         }
+        if self.tenant is not None:
+            record["tenant"] = self.tenant  # which tenant paid for it
         if policy == "oldest":
             shed_end = latest - keep
             record.update(start=base, end=shed_end,
@@ -1717,9 +1759,10 @@ class StreamingQuery:
         if self._shed_writer is None:
             self._shed_writer = storage_plane.RotatingJsonlWriter(
                 os.path.join(self.checkpoint_dir, "shed.jsonl"),
-                artifact="shed_journal")
+                artifact="shed_journal", tenant=self.tenant)
         self._shed_writer.write(record)
-        emit_event(event="load_shed", site="stream.read", policy=policy,
+        self._emit(event="load_shed", site=self._sites["stream.read"],
+                   policy=policy,
                    start=record["start"], end=record["end"],
                    offsets_shed=record["offsets_shed"],
                    sample_stride=record.get("sample_stride"))

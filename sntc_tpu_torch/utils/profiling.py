@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,10 +39,13 @@ import torch
 class TransferLedger:
     """Thread-safe host↔device copy counters.  ``dispatches`` counts
     fused-program calls (:meth:`record_uploads`); copies outside a fused
-    dispatch are :meth:`record_movement`."""
+    dispatch are :meth:`record_movement`.  A ledger with a ``tenant``
+    (a daemon tenant's engine) also mirrors its counts into the
+    ``sntc_transfer_*{tenant=...}`` series; the others mirror nothing."""
 
-    def __init__(self):
+    def __init__(self, tenant: Optional[str] = None):
         self._lock = threading.Lock()
+        self.tenant = tenant
         self.dispatches = 0
         self.uploads = 0
         self.downloads = 0
@@ -56,11 +59,23 @@ class TransferLedger:
             self.dispatches += 1
             self.uploads += int(count)
             self.upload_bytes += int(nbytes)
+        if self.tenant is not None:
+            self._mirror(dispatches=1, uploads=int(count),
+                         upload_bytes=int(nbytes))
 
     def record_downloads(self, count: int, nbytes: int = 0) -> None:
         with self._lock:
             self.downloads += int(count)
             self.download_bytes += int(nbytes)
+        if self.tenant is not None:
+            self._mirror(downloads=int(count), download_bytes=int(nbytes))
+
+    def _mirror(self, **counts: int) -> None:
+        from sntc_tpu_torch.obs.metrics import inc
+
+        for name, n in counts.items():
+            if n:
+                inc(f"sntc_transfer_{name}_total", n, tenant=self.tenant)
 
     def record_movement(self, uploads: int = 0, upload_bytes: int = 0,
                         downloads: int = 0, download_bytes: int = 0,
@@ -73,6 +88,11 @@ class TransferLedger:
             self.downloads += int(downloads)
             self.download_bytes += int(download_bytes)
             self.syncs += int(syncs)
+        if self.tenant is not None:
+            self._mirror(uploads=int(uploads),
+                         upload_bytes=int(upload_bytes),
+                         downloads=int(downloads),
+                         download_bytes=int(download_bytes))
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:

@@ -429,3 +429,279 @@ def test_oom_responder_and_controller_move_one_floor_as_jax(tmp_path):
     assert knobs["shape_buckets"] == 3
     assert [d["decision"] for d in journal] == [
         "device_oom_split", "bucket_floor_down", "bucket_floor_restored"]
+
+
+# ---------------------------------------------------------------------------
+# the daemon half: for_daemon, attach/detach, the weight, quota and
+# escalate rungs (tests/test_controller.py:144, :184, :223, :284, :399)
+# ---------------------------------------------------------------------------
+
+
+def _daemon(pkg, root, specs_kw, clock, policy_kw=None, wall=1234.5,
+            **ctl_kw):
+    """A daemon of either package over identity MemorySource tenants
+    (``specs_kw``: tenant id -> (frames, spec keywords)) and a controller
+    built over it with the injected clock and wall."""
+    import sntc_tpu.serve.tenancy as JT
+    import sntc_tpu_torch.serve.tenancy as PT
+
+    port = pkg == "port"
+    T, F = (PT, Frame) if port else (JT, JFrame)
+    specs = [T.TenantSpec(
+        tenant_id=tid, model=_PortIdentity() if port else _JaxIdentity(),
+        source=(MemorySource if port else JMemorySource)(
+            [F({"x": np.arange(8, dtype=np.float64) + 100 * b})
+             for b in range(n)]),
+        sink=(MemorySink if port else JMemorySink)(), max_batch_offsets=1,
+        **kw) for tid, (n, kw) in specs_kw.items()]
+    d = T.ServeDaemon(specs, root, clock=clock,
+                      **({"device": "cpu"} if port else {}))
+    mod = PCtl if port else JCtl
+    policy = (ControlPolicy if port else JControlPolicy)(
+        **(policy_kw or {"confirm": 1, "cooldown": 0}))
+    d.controller = mod.ServeController.for_daemon(
+        d, policy=policy, wall=lambda: wall, **ctl_kw)
+    return d, mod
+
+
+def _strip_latency(records):
+    """Journal records without the measured latencies (wall-clock batch
+    durations, not equal across two runs)."""
+    out = []
+    for r in records:
+        r = dict(r)
+        if isinstance(r.get("signal"), dict):
+            r["signal"] = {k: v for k, v in r["signal"].items()
+                           if k not in ("p50_ms", "p99_ms")}
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_daemon_windowed_p99_from_registry_deltas(tmp_path, pkg):
+    """A tenant's window p50/p99 come from its own labelled bucket deltas
+    (``tests/test_controller.py:144``)."""
+    clock = FakeClock()
+    d, _mod = _daemon(pkg, str(tmp_path / "root"),
+                      {"a": (0, {"slo_p99_ms": 100.0})}, clock,
+                      ingest=False)
+    observe = (PM if pkg == "port" else JM).observe
+    try:
+        for v in [0.004] * 6 + [0.2] * 4:
+            observe("sntc_batch_duration_seconds", v, tenant="a")
+        clock.t += 2.0
+        t = d.controller.targets[0]
+        sig = d.controller._window_signal(t, clock.t)
+        assert (sig.p50_ms, sig.p99_ms) == (5.0, 250.0)
+        clock.t += 2.0
+        sig2 = d.controller._window_signal(t, clock.t)
+        assert sig2.p50_ms is None and sig2.p99_ms is None
+    finally:
+        d.close()
+
+
+def test_remove_tenant_detaches_controller_target(tmp_path):
+    """``tests/test_controller.py:184``: ``remove_tenant`` detaches its
+    target and knobs; the loop goes on over the survivor."""
+    got = {}
+    for pkg in ("jax", "port"):
+        clock = FakeClock()
+        d, _mod = _daemon(pkg, str(tmp_path / pkg),
+                          {"a": (2, {}), "b": (2, {})}, clock, ingest=False)
+        try:
+            clock.t += 1.0
+            d.tick()
+            before = sorted(t.key for t in d.controller.targets)
+            summary = d.remove_tenant("a", drain=True, reason="moved")
+            clock.t += 2.0
+            d.controller.on_tick()
+            d.tick()
+            got[pkg] = (before, summary,
+                        [t.key for t in d.controller.targets],
+                        d.controller.knob_values())
+        finally:
+            d.close()
+    assert got["port"] == got["jax"]
+    assert got["port"][2] == ["b"]
+    assert not any(n.startswith("a/") for n in got["port"][3])
+
+
+def test_controller_e2e_three_tenants_one_violator_equal(tmp_path):
+    """``tests/test_controller.py:223``: a throughput violator gets its
+    own pipeline deepened, its neighbours' knobs never move, and the
+    decisions, the journal, the status blocks and the drain markers'
+    knobs are equal across the packages."""
+    got = {}
+    for pkg in ("jax", "port"):
+        clock = FakeClock()
+        root = str(tmp_path / pkg)
+        d, _mod = _daemon(pkg, root, {
+            "v": (8, {"slo_min_rows_per_sec": 1e9}),
+            "n1": (2, {"slo_p99_ms": 60_000.0}),
+            "n2": (2, {}),
+        }, clock, ingest=False)
+        try:
+            for _ in range(8):
+                clock.t += 1.0
+                d.tick()
+            st = d.status()
+            d.drain()
+            with open(os.path.join(root, "tenant", "v",
+                                   "drain_marker.json")) as f:
+                marker = json.load(f)["controller_knobs"]
+            with open(os.path.join(root, "daemon_drain_marker.json")) as f:
+                dm = json.load(f)["controller_knobs"]
+            got[pkg] = (_strip_latency(d.controller.guard.decisions),
+                        {k: v for k, v in st["controller"].items()
+                         if k not in ("journal", "recent")},
+                        {t: {k: v for k, v in s.items() if k != "window"}
+                         for t, s in st["slo"].items()},
+                        marker, dm, _strip_latency(_journal(root)))
+        finally:
+            d.close()
+    assert got["port"] == got["jax"]
+    knobs = got["port"][1]["knobs"]
+    assert knobs["v/pipeline_depth"] > 1
+    assert got["port"][3]["pipeline_depth"] > 1
+    applied = [r for r in got["port"][0] if r["action"] == "applied"]
+    assert applied and all(r["knob"].startswith("v/") for r in applied)
+
+
+def test_flooding_violator_walks_degradation_ladder_equal(tmp_path):
+    """``tests/test_controller.py:284``: a shed-rate violator is degraded
+    on its own knobs, quota, then shed, then escalate (real ladder
+    strikes); the quiet tenant's knobs never move; equal across the
+    packages."""
+    got = {}
+    for pkg in ("jax", "port"):
+        clock = FakeClock()
+        d, mod = _daemon(pkg, str(tmp_path / pkg), {
+            "noisy": (0, {"slo_max_shed_rate": 0.05,
+                          "quarantine_after": 2}),
+            "quiet": (0, {"slo_p99_ms": 60_000.0}),
+        }, clock, ingest=False)
+        flooding = mod.SloSignal(batches=2, rows=16, rows_per_s=16.0,
+                                 shed_offsets=20, shed_rate=0.9, backlog=30,
+                                 elapsed_s=1.0)
+        quiet = mod.SloSignal(batches=2, rows=16, rows_per_s=16.0,
+                              p99_ms=5.0, elapsed_s=1.0)
+        try:
+            recs = [d.controller.step({"noisy": flooding, "quiet": quiet})
+                    for _ in range(24)]
+            noisy = d._by_id["noisy"]
+            got[pkg] = ([r for r in recs if r is not None],
+                        d.controller.escalations_total, noisy.strikes,
+                        noisy.state, noisy.spec.max_rows_per_sec,
+                        (noisy.spec.max_pending_batches,
+                         noisy.spec.shed_policy),
+                        d.controller.knob_values(),
+                        _journal(str(tmp_path / pkg)))
+        finally:
+            d.close()
+    assert got["port"] == got["jax"]
+    seen = [r["knob"] for r in got["port"][0] if r["action"] == "applied"]
+    assert seen[0] == "noisy/quota"
+    first = {k: seen.index(k) for k in dict.fromkeys(seen)}
+    assert first["noisy/quota"] < first["noisy/shed"] < \
+        first["noisy/escalate"]
+    assert got["port"][1] >= 1
+    assert all(k.startswith("noisy/") for k in seen)
+
+
+def _daemon_signals(mod, seed, n):
+    """Seeded windows for three tenants: floods, latency and throughput
+    violations, compliant windows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        win = {}
+        for tid in ("a", "b", "c"):
+            kind = int(rng.integers(4))
+            j = float(rng.uniform(0.8, 1.2))
+            base = dict(batches=4, rows=4000, rows_per_s=4000.0 * j,
+                        p50_ms=20.0, p99_ms=40.0, backlog=0, elapsed_s=1.0)
+            if kind == 0:
+                base.update(shed_offsets=8, shed_rate=0.6, backlog=20)
+            elif kind == 1:
+                base.update(p99_ms=round(300.0 * j, 3))
+            elif kind == 2:
+                base.update(rows_per_s=500.0 * j, backlog=12)
+            win[tid] = mod.SloSignal(**base)
+        out.append(win)
+    return out
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_daemon_step_journals_equal_across_packages(tmp_path, seed):
+    """Seeded multi-tenant windows through ``step``: the same decisions
+    (weight, quota, shed, escalate, depth), strikes and journal in both
+    packages."""
+    got = {}
+    for pkg in ("jax", "port"):
+        clock = FakeClock()
+        slo = {"slo_p99_ms": 100.0, "slo_min_rows_per_sec": 1000.0,
+               "slo_max_shed_rate": 0.2, "quarantine_after": 50}
+        d, mod = _daemon(pkg, str(tmp_path / pkg),
+                         {t: (0, dict(slo)) for t in ("a", "b", "c")},
+                         clock, ingest=False)
+        try:
+            recs = [d.controller.step(w)
+                    for w in _daemon_signals(mod, seed, 80)]
+            got[pkg] = ([r for r in recs if r is not None],
+                        d.controller.knob_values(),
+                        {t.spec.tenant_id: (t.strikes, t.spec.weight,
+                                            t.spec.max_rows_per_sec)
+                         for t in d.tenants},
+                        d.controller.slo_status(),
+                        _journal(str(tmp_path / pkg)))
+        finally:
+            d.close()
+    assert got["port"] == got["jax"]
+    assert got["port"][0]
+
+
+def test_daemon_restart_reconciles_the_journal(tmp_path):
+    """A second daemon over the same root writes the ``restart`` record
+    against its cold knobs, as the JAX package does."""
+    got = {}
+    for pkg in ("jax", "port"):
+        root = str(tmp_path / pkg)
+        for _ in range(2):
+            clock = FakeClock()
+            d, mod = _daemon(pkg, root, {
+                "noisy": (0, {"slo_max_shed_rate": 0.05}),
+                "quiet": (0, {})}, clock, ingest=False)
+            sig = mod.SloSignal(batches=2, rows=16, rows_per_s=16.0,
+                                shed_offsets=20, shed_rate=0.9,
+                                backlog=30, elapsed_s=1.0)
+            try:
+                for _ in range(3):
+                    d.controller.step({"noisy": sig})
+            finally:
+                d.close()
+        got[pkg] = _journal(root)
+    assert got["port"] == got["jax"]
+    restarts = [r for r in got["port"] if r["action"] == "restart"]
+    assert len(restarts) == 1 and restarts[0]["delta"]
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_daemon_controller_error_degrades_never_kills(tmp_path, pkg):
+    """``tests/test_controller.py:399``: a controller raising inside the
+    daemon's round emits controller_error; the round still commits."""
+    clock = FakeClock()
+    d, _mod = _daemon(pkg, str(tmp_path / "root"), {"a": (3, {})}, clock,
+                      ingest=False)
+
+    def _boom():
+        raise RuntimeError("controller bug")
+
+    d.controller.on_tick = _boom
+    try:
+        clock.t += 1.0
+        assert d.tick() >= 1
+        events = (R if pkg == "port" else J).recent_events(
+            event="controller_error")
+        assert events and "controller bug" in events[-1]["error"]
+    finally:
+        d.close()

@@ -652,3 +652,97 @@ def test_capture_serve_on_the_card_equals_the_cpu(tmp_path, capsys):
         if a.num_rows:
             assert a.column("prediction").to_pylist() == \
                 b.column("prediction").to_pylist()
+
+
+# ---------------------------------------------------------------------------
+# capture tenants on the serve daemon (tests/test_flow.py:585)
+# ---------------------------------------------------------------------------
+
+
+def _capture_daemon(pkg, tmp_path):
+    """Two raw-capture tenants on one daemon of ``pkg``: the rows each
+    served, the flow-state files under its namespace, its sink's bytes,
+    and the tenant-tagged flow events."""
+    if pkg == "jax":
+        import sntc_tpu.resilience as res
+        from sntc_tpu.serve import ServeDaemon, TenantSpec
+
+        model, dev = JIdentity(), {}
+    else:
+        import sntc_tpu_torch.resilience as res
+        from sntc_tpu_torch.serve import ServeDaemon, TenantSpec
+
+        model, dev = Identity(), {"device": "cpu"}
+    res.clear_events()
+    root = tmp_path / pkg
+    specs = []
+    for k, tid in enumerate(("t0", "t1")):
+        cap = str(tmp_path / "in" / tid)
+        if not os.path.isdir(cap):
+            write_capture_stream(cap, n_files=3, flows_per_file=2,
+                                 packets_per_flow=4, seed=20 + k)
+        specs.append(TenantSpec(
+            tenant_id=tid, model=model, watch=cap,
+            out=str(root / "out" / tid), out_columns=SINK_COLS,
+            from_capture="pcap",
+            flow_options={"flow_timeout": 0.5, "allowed_lateness": 0.2}))
+    daemon = ServeDaemon(specs, str(root / "root"), **dev)
+    try:
+        daemon.process_available()
+        rows = {t.spec.tenant_id: t.rows_done for t in daemon.tenants}
+        states = {t.spec.tenant_id: t.state for t in daemon.tenants}
+    finally:
+        daemon.close()
+    out = {}
+    for tid in ("t0", "t1"):
+        state_dir = root / "root" / "tenant" / tid / "ckpt" / "flow_state"
+        out[tid] = (
+            sorted(os.listdir(state_dir)),
+            {os.path.basename(p): open(p, "rb").read() for p in sorted(
+                glob.glob(str(root / "out" / tid / "batch_*.csv")))})
+    events = [(r["event"], r.get("tenant"), r.get("windows"))
+              for r in res.recent_events(event="flow_windows_emitted")]
+    return rows, states, out, events
+
+
+def test_serve_daemon_capture_tenants(tmp_path):
+    """Each capture tenant runs its own flow operator, its state under
+    ``tenant/<id>/ckpt/flow_state``, and emits its own capture's
+    windows, tagged with its id; both packages write the same files."""
+    jax = _capture_daemon("jax", tmp_path)
+    port = _capture_daemon("port", tmp_path)
+    assert port == jax
+    rows, states, out, events = port
+    assert all(v > 0 for v in rows.values())
+    assert states == {"t0": "OK", "t1": "OK"}
+    for tid in ("t0", "t1"):
+        ref = FlowCaptureSource(str(tmp_path / "in" / tid), format="pcap",
+                                flow_timeout=0.5, allowed_lateness=0.2)
+        assert rows[tid] == sum(ref.get_batch(i, i + 1).num_rows
+                                for i in range(ref.latest_offset()))
+        ref.close()
+        assert out[tid][0] and out[tid][1]
+    assert {t for _e, t, _w in events} == {"t0", "t1"}
+
+
+def test_flow_state_store_tenant_fault_namespaced(tmp_path):
+    """``tenant/<id>/flow.state_snapshot`` fires for that tenant's store
+    only, in both packages."""
+    from sntc_tpu.flow import FlowStateStore as JStore
+    import sntc_tpu.resilience as JRes
+
+    got = {}
+    for pkg, store_cls, res in (("jax", JStore, JRes),
+                                ("port", FlowStateStore, None)):
+        res = res or __import__("sntc_tpu_torch.resilience",
+                                fromlist=["arm"])
+        res.clear()
+        res.arm("tenant/a/flow.state_snapshot", times=None)
+        a = store_cls(str(tmp_path / pkg / "a"), tenant="a")
+        b = store_cls(str(tmp_path / pkg / "b"), tenant="b")
+        with pytest.raises(res.InjectedFault) as exc:
+            a.publish(3, b"abc")
+        b.publish(3, b"abc")
+        got[pkg] = (str(exc.value), sorted(os.listdir(tmp_path / pkg / "b")))
+        res.clear()
+    assert got["port"] == got["jax"]

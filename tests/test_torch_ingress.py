@@ -819,3 +819,100 @@ def test_spool_served_on_the_card_equals_the_cpu(tmp_path):
                       for p in sorted(glob.glob(str(tmp_path / dev /
                                                     "batch_*.csv")))]
     assert preds["cuda"] == preds["cpu"] and sum(map(len, preds["cpu"])) > 0
+
+
+# ---------------------------------------------------------------------------
+# ingress tenants on the serve daemon (tests/test_ingress.py:403, :427)
+# ---------------------------------------------------------------------------
+
+
+def test_tenant_spec_ingress_validation():
+    """The ingress block's checks give the JAX package's messages."""
+    from sntc_tpu.serve import TenantSpec as JSpec
+    from sntc_tpu_torch.serve import TenantSpec as PSpec
+
+    def errors(spec_cls):
+        out = []
+        for kw in ({"watch": "w/", "ingress": {"listen_udp": 0,
+                                                "listen_tcp": 0}},
+                   {"watch": "w/", "ingress": {"spool_mb": 8}},
+                   {"watch": "w/", "ingress": {"listen_udp": 0,
+                                                "bogus_knob": 1}},
+                   {"ingress": {"listen_udp": 0}},
+                   {"watch": "w/", "from_capture": "pcap",
+                    "ingress": {"listen_udp": 0}}):
+            with pytest.raises(ValueError) as exc:
+                spec_cls("t", model=object(), out="o/", **kw)
+            out.append(str(exc.value))
+        return out
+
+    port = errors(PSpec)
+    assert port == errors(JSpec)
+    assert "exactly one" in port[0] and "watch" in port[3] \
+        and "pcap" in port[4]
+
+
+def _tcp_daemon(pkg, d):
+    """One daemon tenant behind a framed-TCP listener: rows sent over a
+    real socket come out of its sink; the spool and its stats carry the
+    tenant."""
+    if pkg == "jax":
+        import sntc_tpu.resilience as res
+        from sntc_tpu.core.base import Transformer as T
+        from sntc_tpu.serve import ServeDaemon, TenantSpec
+
+        dev = {}
+    else:
+        import sntc_tpu_torch.resilience as res
+        from sntc_tpu_torch.core.base import Transformer as T
+        from sntc_tpu_torch.serve import ServeDaemon, TenantSpec
+
+        dev = {"device": "cpu"}
+
+    class Identity(T):
+        def transform(self, frame):
+            return frame
+
+    res.clear_events()
+    spool_dir = os.path.join(d, "spool")
+    out_dir = os.path.join(d, "out")
+    spec = TenantSpec("net", model=Identity(), watch=spool_dir, out=out_dir,
+                      out_columns=["x"],
+                      ingress={"listen_tcp": 0, "columns": ["x"],
+                               "seal_every": 2})
+    daemon = ServeDaemon([spec], os.path.join(d, "root"), **dev)
+    try:
+        assert _wait(lambda: (IngressSpool.read_stats(spool_dir) or {}).get(
+            "tcp_port"), timeout=15.0)
+        port = IngressSpool.read_stats(spool_dir)["tcp_port"]
+        c = socket.create_connection(("127.0.0.1", port), timeout=5.0)
+        c.sendall(frame_rows(["5", "7"]))
+        c.close()
+        assert _wait(lambda: glob.glob(os.path.join(spool_dir,
+                                                    "rows_*.csv")),
+                     timeout=15.0)
+        assert _wait(lambda: daemon.process_available() >= 1,
+                     timeout=15.0)
+    finally:
+        daemon.close()
+    stats = IngressSpool.read_stats(spool_dir)
+    rows = []
+    for b in sorted(glob.glob(os.path.join(out_dir, "*.csv"))):
+        with open(b) as f:
+            rows.extend(ln.strip() for ln in f.readlines()[1:] if ln.strip())
+    drained = [r.get("tenant") for r in res.recent_events(
+        event="ingress_drained")]
+    return ({k: stats[k] for k in ("drained", "received", "spooled",
+                                   "dropped")}, rows, drained)
+
+
+def test_daemon_tcp_ingress_end_to_end(tmp_path):
+    """Per-tenant TCP ingress end to end, in both packages: received ==
+    spooled == 2, the listener drained before the engine settled, the
+    rows in the tenant's sink, the drain event tagged."""
+    got = _both(_tcp_daemon, tmp_path)
+    stats, rows, drained = got
+    assert stats == {"drained": True, "received": 2, "spooled": 2,
+                     "dropped": {}}
+    assert [float(r) for r in rows] == [5.0, 7.0]
+    assert drained == ["net"]

@@ -405,13 +405,14 @@ def test_obs_flags_are_the_jax_commands(cmd, monkeypatch):
 
 def test_port_cli_has_66_distinct_flags():
     # 66 after the obs flags; 76 since the capture, socket-ingress and
-    # synth flags (the name is kept from when the count was 66)
+    # synth flags; 84 since serve-daemon's (the name is kept from when
+    # the count was 66)
     import re
 
     from sntc_tpu_torch import app
 
     src = open(app.__file__).read()
-    assert len(set(re.findall(r'add_argument\("(--[a-z0-9-]*)', src))) == 76
+    assert len(set(re.findall(r'add_argument\("(--[a-z0-9-]*)', src))) == 84
 
 
 def test_exports_cover_the_jax_package():
