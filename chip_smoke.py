@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16,17]
+                          [--phases 2,3,11,12,13,14,15,16,17,18,19]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -363,6 +363,44 @@ each of which fails the run (non-zero exit, no result line):
    second daemon's ``restart`` record.  Every ``pad_assemble`` shape is
    timed beside its bound and ``index_select``.  One JSON line reports
    the phase.
+18. warm-standby replication, bench config 18's disaster drill
+   (``bench.py:3716-3900``) in the kernel form: config 9's LR pipeline
+   (phase 17's fit), 12 files of 512 rows (``BENCH18_PHASE_FILES``) and
+   one of 200 rows, every serve with ``--shape-buckets 256`` (the 200-row
+   file pads ``[200, 78] f64 -> 256``; a 512-row file fills its bucket);
+   (a) an unfailed ``serve --once`` beside a replicated ``serve
+   --standby-root``, which is SIGKILLed once the barrier of the first
+   batch past the pre-kill phase is sealed (the primary then idles, so
+   the kill lands between ship passes), ``promote_standby``, and a
+   ``serve --once`` resumed on the promoted tree: promotion ok, the loss
+   law exact, nothing quarantined, the promoted and final sinks bitwise
+   the reference's, the RPO counts 0 by construction (the kill waits for
+   its batch's barrier); (b) the serve killed
+   inside ``repl.ship`` / ``repl.apply`` / ``repl.barrier`` at the JAX
+   chaos matrix's calls, the three beside each other and beside (a)'s
+   processes: the torn standby
+   promotes to its last sealed barrier with its strays quarantined (at
+   ``repl.apply`` at least one) or refuses and leaves no tree, the clean
+   restart converges bitwise to (a)'s reference and its standby then
+   promotes with zero tail loss; ``fsck --standby`` on (a)'s primary and
+   standby.  Each serving process that printed a line launched
+   ``pad_assemble`` once, at the 200-row file; every launch shape is held
+   against the plain version and timed beside its bound and
+   ``index_select``;
+19. the elastic serve fleet, bench config 14 (``bench.py:2562-2843``) in
+   the kernel form: 10 tenants of 3 + 3 files of 512 rows and one of 200
+   rows each, an in-process ``FleetCoordinator`` (lease TTL 1 s) over 3
+   ``fleet-serve --fleet-worker-id`` processes on the card; an unkilled
+   pass, then a pass that SIGKILLs the most-loaded worker once every
+   tenant has committed a batch, waits for the dead-worker recovery and
+   scales out a fourth worker before the second half is fed: the
+   tenants' sinks byte-identical across the passes, no migration
+   reverted, every tenant on exactly one worker's tree, the dead worker's
+   trees retired (not deleted), ``fsck --fleet-root`` clean, and
+   ``fleet-restore-retired`` of one retired tree verified by ``fsck``.
+   The drained workers' ``pad_assemble`` launches sum to the 200-row
+   files they served (the SIGKILLed worker prints no line and served
+   none); the launch shape is held and timed as in 18.
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -393,6 +431,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -479,6 +518,8 @@ from sntc_tpu_torch.serve import (
     wire_committed_offset,
 )
 from sntc_tpu_torch.resilience.faults import KILL_EXIT_CODE
+from sntc_tpu_torch.resilience.replicate import last_barrier, promote_standby
+from sntc_tpu_torch.serve.fleet import FleetCoordinator
 from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -7308,8 +7349,10 @@ def multi_tenant(dev, work: str) -> dict:
                                       int(key.split("-> ")[1])))
     parts["pads"] = round(time.perf_counter() - t, 1)
     a.pop("test", None)
+    # phases 18 and 19 serve the same LR pipeline on the same test split
+    shared = {"model_dir": models["lr"]["model_dir"], "test": data["test"]}
     return {"a": a, "b": b, "c": c, "kernels": kernels, "parts_s": parts,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "shared": shared}
 
 
 def report_phase17(p17: dict, card: str) -> None:
@@ -7355,6 +7398,692 @@ def report_phase17(p17: dict, card: str) -> None:
                         a["well_behaved_p99_ratio_worst"],
                     "seconds": a["seconds"]},
         "command": b, "config11": c}, default=str))
+
+
+# -- phases 18 and 19: replication and the fleet, in their kernel form ------
+
+DR_CHUNK = max(96, min(512, C9_ROWS // 120))  # bench.py:3743: 512 rows
+DR_TAIL_ROWS = 200  # the extra file a stream ends with: [200, 78] -> 256
+DR_BUCKETS = 256
+BENCH18_PHASE_FILES = (6, 6)  # bench.py:3724: pre-kill, post-promotion
+#: the Nth-call kills of the JAX chaos matrix (scripts/
+#: chaos_crash_matrix.py:237-242): ship fires per shipped file,
+#: apply and barrier once a commit
+REPL_KILL_AFTER = {"repl.ship": 4, "repl.apply": 1, "repl.barrier": 1}
+BENCH14_WORKERS, BENCH14_TENANTS = 3, 10  # bench.py:2579-2580
+BENCH14_PHASE_FILES = (3, 3)  # bench.py:2581: pre-kill, post-recovery
+C14_LEASE_TTL_S = 1.0  # bench.py:2667
+C14_BOOT_GRACE_S = 600.0
+C14_WAIT_S = 300.0
+
+
+def dr_shared(dev, work: str) -> dict:
+    """The model and test split phases 18 and 19 serve: config 9's data
+    and bench.py:3733's pipeline (StringIndexer -> VectorAssembler(78) ->
+    StandardScaler(withMean) -> LR(maxIter=20)), fitted on the card and
+    saved; phase 17's own fit of the same pipeline when it ran."""
+    data = c9_data()
+    fitted = c9_pipeline(dev).fit(data["train"])
+    return {"model_dir": save_model(fitted, os.path.join(work, "model18")),
+            "test": data["test"]}
+
+
+def dr_write(test: Frame, at: int, rows: int, path: str) -> int:
+    """``rows`` rows of the test split from ``at``, the 78 features, as
+    bench.py writes them; the rows written."""
+    import pyarrow.csv as pacsv
+
+    part = test.slice(at, at + rows)
+    pacsv.write_csv(part.select(CICIDS2017_FEATURES).to_arrow(), path)
+    return part.num_rows
+
+
+def dr_at(test: Frame, k: int) -> int:
+    return (k * 131) % max(1, test.num_rows - DR_CHUNK)
+
+
+def dr_link(staging: str, names: list, watch: str) -> None:
+    os.makedirs(watch, exist_ok=True)
+    for name in names:
+        os.link(os.path.join(staging, name), os.path.join(watch, name))
+
+
+def dr_argv(dev, model_dir: str, watch: str, out: str, ckpt: str,
+            *extra) -> list:
+    """bench.py:3774's serve flags in the kernel form (row buckets of
+    256)."""
+    return ["--model", model_dir, "--watch", watch, "--out", out,
+            "--checkpoint", ckpt, "--max-files-per-batch", "1",
+            "--poll-interval", "0.05", "--no-device-faults",
+            "--shape-buckets", str(DR_BUCKETS), "--device", str(dev), *extra]
+
+
+def sink_batch_files(out: str) -> dict:
+    out_files = {}
+    for p in sorted(glob.glob(os.path.join(out, "batch_*.csv"))):
+        with open(p, "rb") as f:
+            out_files[os.path.basename(p)] = f.read()
+    return out_files
+
+
+def summary_of(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def tail_pads_match(summaries: list, tails: int) -> bool:
+    """The serving processes launched ``pad_assemble`` once for each
+    200-row file they served, at ``[200, 78] f64 -> 256``, and nothing
+    else: their own counts, from their summary lines."""
+    key = pad_launch_shape(DR_TAIL_ROWS, len(CICIDS2017_FEATURES),
+                           torch.float64, DR_BUCKETS)
+    launches = sum(s["kernel_launches"]["pad_assemble"] for s in summaries)
+    shapes = merged_shapes(summaries)
+    return tails >= 1 and launches == tails and shapes == {key: tails}
+
+
+def merged_shapes(summaries: list) -> dict:
+    out: dict = {}
+    for s in summaries:
+        for key, n in s["pad_launch_shapes"].items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def poll_until(pred, what: str, phase: str, proc=None, tick=None,
+             timeout: float = C14_WAIT_S) -> None:
+    """Poll ``pred`` (``tick`` first, each round) until it holds; fail
+    when ``proc`` exits meanwhile or the time runs out."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if tick is not None:
+            tick()
+        if pred():
+            return
+        if proc is not None and proc.poll() is not None:
+            raise SystemExit(f"phase {phase}: the process exited "
+                             f"{proc.returncode} waiting for {what}")
+        time.sleep(0.05)
+    raise SystemExit(f"phase {phase}: no {what} after {timeout} s")
+
+
+def dr_stage18(test: Frame, staging: str) -> list:
+    """bench.py:3745-3754's files (512 rows each) and the extra 200-row
+    file; their names."""
+    os.makedirs(staging)
+    names = []
+    n = sum(BENCH18_PHASE_FILES)
+    for fi in range(n + 1):
+        name = f"part_{fi:03d}.csv"
+        dr_write(test, dr_at(test, fi), DR_CHUNK if fi < n else DR_TAIL_ROWS,
+                 os.path.join(staging, name))
+        names.append(name)
+    return names
+
+
+def dr_promote(standby: str, dest: str, ckpt: str, out: str) -> dict:
+    return promote_standby(standby, "default", os.path.join(dest, "ckpt"),
+                           dest_sink=os.path.join(dest, "out"),
+                           primary_root=ckpt, primary_sink=out)
+
+
+def dr_drill(dev, model_dir: str, staging: str, names: list,
+             tmp: str) -> dict:
+    """(a): bench.py:3776-3900 through the port's commands."""
+    n_pre = BENCH18_PHASE_FILES[0]
+    ref_dir, pri = os.path.join(tmp, "ref"), os.path.join(tmp, "pri")
+    dr_link(staging, names, os.path.join(ref_dir, "in"))
+    watch = os.path.join(pri, "in")
+    out, ckpt = os.path.join(pri, "out"), os.path.join(pri, "ckpt")
+    standby = os.path.join(tmp, "standby")
+    dr_link(staging, names[:n_pre], watch)
+    # the unfailed reference beside the replicated primary
+    ref = serve_cli(dr_argv(dev, model_dir, os.path.join(ref_dir, "in"),
+                            os.path.join(ref_dir, "out"),
+                            os.path.join(ref_dir, "ckpt"), "--once"))
+    proc = serve_cli(dr_argv(dev, model_dir, watch, out, ckpt,
+                             "--standby-root", standby))
+
+    def sealed(bid):
+        bar = last_barrier(standby, "default")
+        return bar is not None and bar["batch_id"] >= bid
+
+    poll_until(lambda: sealed(n_pre - 1), "the pre-kill phase's barrier",
+             "18 (a)", proc)
+    # one file past the pre-kill phase: once its commit's barrier is
+    # sealed the primary idles, so the SIGKILL lands between ship passes
+    dr_link(staging, names[n_pre:n_pre + 1], watch)
+    poll_until(lambda: sealed(n_pre), "a barrier past the pre-kill phase",
+             "18 (a)", proc)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    dr_link(staging, names[n_pre + 1:], watch)
+    ref_summary = summary_of(finished(ref, "the reference serve",
+                                      phase="18 (a)"))
+    ref_sink = sink_batch_files(os.path.join(ref_dir, "out"))
+    pro = os.path.join(tmp, "promoted")
+    report = dr_promote(standby, pro, ckpt, out)
+    through = int(report.get("batches_through") or 0)
+    pro_sink = sink_batch_files(os.path.join(pro, "out"))
+    t_resume = time.perf_counter()
+    resume = serve_cli(dr_argv(dev, model_dir, watch, os.path.join(pro, "out"),
+                               os.path.join(pro, "ckpt"), "--once"))
+    resume_summary = summary_of(finished(resume, "the resumed serve",
+                                         phase="18 (a)"))
+    resume_s = time.perf_counter() - t_resume
+    final_sink = sink_batch_files(os.path.join(pro, "out"))
+    evidence = {
+        "stream_files": len(names),
+        "killed_after_batches": int(report.get("committed_primary") or 0),
+        "promotion_ok": bool(report.get("ok")),
+        "batches_through_barrier": through,
+        # the RPO counts are 0 by construction: the SIGKILL waits for
+        # the barrier of its batch; (b)'s torn legs lose a tail.
+        # rpo_seconds is the last barrier's age at the promotion
+        "rpo_counts_zero_by_construction": True,
+        "rpo_batches": int(report.get("tail_loss_batches") or 0),
+        "rpo_rows": int(report.get("tail_loss_rows") or 0),
+        "rpo_bytes": int(report.get("rpo_bytes") or 0),
+        "rpo_seconds": float(report.get("rpo_seconds") or 0.0),
+        "rto_seconds": float(report.get("rto_seconds") or 0.0),
+        "law_exact": bool(report.get("law_exact")),
+        "quarantined": len(report.get("quarantined") or ()),
+        "promoted_sink_bitwise": bool(through) and all(
+            pro_sink.get(f"batch_{i:06d}.csv")
+            == ref_sink.get(f"batch_{i:06d}.csv") for i in range(through)),
+        "final_sink_bitwise": final_sink == ref_sink,
+        "resume_s": resume_s,
+    }
+    ok = (evidence["promotion_ok"] and evidence["law_exact"]
+          and evidence["promoted_sink_bitwise"]
+          and evidence["final_sink_bitwise"] and evidence["quarantined"] == 0
+          and evidence["killed_after_batches"] == n_pre + 1)
+    launches = {"reference": ref_summary["kernel_launches"],
+                "resumed": resume_summary["kernel_launches"]}
+    if not ok or not tail_pads_match([ref_summary], 1) \
+            or not tail_pads_match([resume_summary], 1):
+        raise SystemExit(f"phase 18 (a): {evidence}; launches {launches}")
+    return {"evidence": evidence, "launches": launches, "ref_sink": ref_sink,
+            "ref_commits": committed_ranges(os.path.join(ref_dir, "ckpt")),
+            "summaries": [ref_summary, resume_summary],
+            "primary": (ckpt, standby)}
+
+
+def dr_kill_argv(dev, model_dir: str, d: str) -> list:
+    return dr_argv(dev, model_dir, os.path.join(d, "in"),
+                   os.path.join(d, "out"), os.path.join(d, "ckpt"), "--once",
+                   "--standby-root", os.path.join(d, "standby"))
+
+
+def dr_kill_legs(dev, model_dir: str, staging: str, names: list,
+                 tmp: str) -> tuple:
+    """(b)'s serves over the whole stream, each killed inside
+    ``repl.ship`` / ``repl.apply`` / ``repl.barrier`` at the JAX matrix's
+    call, all started at once; their directories and processes."""
+    legs = {}
+    for site in REPL_KILL_AFTER:
+        d = os.path.join(tmp, "kill_" + site.replace(".", "_"))
+        dr_link(staging, names, os.path.join(d, "in"))
+        legs[site] = d
+    killed = {site: serve_cli(dr_kill_argv(dev, model_dir, d),
+                              armed=(site, REPL_KILL_AFTER[site]))
+              for site, d in legs.items()}
+    return legs, killed
+
+
+def dr_kills(dev, model_dir: str, legs: dict, killed: dict, n_files: int,
+             ref: dict) -> dict:
+    """(b), once the killed serves have exited: the torn standby promotes
+    to its last sealed barrier (its strays quarantined, never promoted) or
+    refuses and leaves no tree; the clean restarts, the three beside each
+    other, converge bitwise to (a)'s reference; the converged standby
+    promotes with zero tail loss to it."""
+    for site, p in killed.items():
+        finished(p, f"the serve killed at {site}", rc=KILL_EXIT_CODE,
+                 phase="18 (b)")
+    out = {}
+    for site, d in legs.items():
+        torn = dr_promote(os.path.join(d, "standby"),
+                          os.path.join(d, "promoted_torn"),
+                          os.path.join(d, "ckpt"), os.path.join(d, "out"))
+        left = glob.glob(os.path.join(d, "promoted_torn", "ckpt", "**", "*"),
+                         recursive=True)
+        strays_out = not any(
+            os.path.exists(os.path.join(d, "promoted_torn", "ckpt", q["rel"]))
+            for q in torn.get("quarantined", []))
+        out[site] = {
+            "torn_ok": torn["ok"],
+            "torn_reason": torn.get("reason"),
+            "torn_law_exact": torn.get("law_exact"),
+            "torn_tail_loss_batches": torn.get("tail_loss_batches"),
+            "torn_tail_loss_rows": torn.get("tail_loss_rows"),
+            "torn_rpo_bytes": torn.get("rpo_bytes"),
+            "torn_rpo_seconds": torn.get("rpo_seconds"),
+            "quarantined": len(torn.get("quarantined", [])),
+            "torn_safe": (torn.get("law_exact") is True and strays_out)
+            if torn["ok"] else not left,
+        }
+    restarts = {site: serve_cli(dr_kill_argv(dev, model_dir, d))
+                for site, d in legs.items()}
+    summaries = []
+    for site, p in restarts.items():
+        s = summary_of(finished(p, f"the restart after {site}",
+                                phase="18 (b)"))
+        summaries.append(s)
+        d = legs[site]
+        final = dr_promote(os.path.join(d, "standby"),
+                           os.path.join(d, "promoted_final"),
+                           os.path.join(d, "ckpt"), os.path.join(d, "out"))
+        promoted = sink_batch_files(os.path.join(d, "promoted_final", "out"))
+        out[site].update(
+            launches=s["kernel_launches"]["pad_assemble"],
+            bitwise=(sink_batch_files(os.path.join(d, "out"))
+                     == ref["ref_sink"]
+                     and committed_ranges(os.path.join(d, "ckpt"))
+                     == ref["ref_commits"]),
+            final_ok=(final["ok"] and final.get("law_exact") is True
+                      and final.get("tail_loss_batches") == 0
+                      and final.get("batches_through") == n_files
+                      and promoted == ref["ref_sink"]))
+    bad = {s: v for s, v in out.items()
+           if not (v["torn_safe"] and v["bitwise"] and v["final_ok"])}
+    if bad or out["repl.apply"]["quarantined"] < 1 \
+            or not out["repl.apply"]["torn_ok"] \
+            or not tail_pads_match(summaries, len(summaries)):
+        raise SystemExit(f"phase 18 (b): {out}")
+    return {"legs": out, "summaries": summaries}
+
+
+def replication(dev, work: str, shared: dict | None = None) -> dict:
+    """Phase 18: bench config 18's disaster drill on the card (see the
+    module docs)."""
+    t0 = time.perf_counter()
+    parts = {}
+    tmp = os.path.join(work, "c18")
+    os.makedirs(tmp)
+    t = time.perf_counter()
+    shared = shared or dr_shared(dev, work)
+    names = dr_stage18(shared["test"], os.path.join(tmp, "staging"))
+    parts["setup"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    # (b)'s killed serves run beside (a)'s processes
+    legs, killed = dr_kill_legs(dev, shared["model_dir"],
+                                os.path.join(tmp, "staging"), names,
+                                os.path.join(tmp, "kills"))
+    ab = dr_drill(dev, shared["model_dir"], os.path.join(tmp, "staging"),
+                  names, os.path.join(tmp, "drill"))
+    parts["drill"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    c = dr_kills(dev, shared["model_dir"], legs, killed, len(names), ab)
+    parts["kills"] = round(time.perf_counter() - t, 1)
+    ckpt, standby = ab["primary"]
+    fsck = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt, "--standby",
+         standby], cwd=REPO, env=env_with(), capture_output=True, text=True,
+        timeout=P16_WAIT_S)
+    report = json.loads(fsck.stdout)
+    fsck_ok = fsck.returncode == 0 and report["ok"] \
+        and report["standby"]["ok"]
+    if not fsck_ok:
+        raise SystemExit(f"phase 18 fsck --standby: {report}")
+    shapes = merged_shapes(ab["summaries"] + c["summaries"])
+    key = pad_launch_shape(DR_TAIL_ROWS, len(CICIDS2017_FEATURES),
+                           torch.float64, DR_BUCKETS)
+    t = time.perf_counter()
+    err = check_pad_shapes(dev, shapes, "phase 18")
+    kernels = [measure_pad_at(dev, DR_TAIL_ROWS, {key: shapes[key]},
+                              torch.float64, DR_BUCKETS)]
+    parts["pads"] = round(time.perf_counter() - t, 1)
+    return {"drill": ab["evidence"], "launches": ab["launches"], "kills": c["legs"],
+            "fsck_standby_ok": fsck_ok, "pad_shapes": shapes,
+            "pad_max_abs_err": err, "kernels": kernels, "parts_s": parts,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase18(p18: dict, card: str) -> None:
+    ev = p18["drill"]
+    log(f"phase 18 (a) bench config 18: {ev['stream_files']} files, killed "
+        f"after {ev['killed_after_batches']} batches; promotion_ok "
+        f"{ev['promotion_ok']}, {ev['batches_through_barrier']} batches "
+        f"through the barrier, rpo_batches {ev['rpo_batches']}, rpo_rows "
+        f"{ev['rpo_rows']}, rpo_bytes {ev['rpo_bytes']} (0 by construction: "
+        f"the kill waits for its batch's barrier), rpo_seconds "
+        f"{ev['rpo_seconds']}, rto_seconds {ev['rto_seconds']}, resume_s "
+        f"{ev['resume_s']}; law_exact {ev['law_exact']}, "
+        f"promoted_sink_bitwise {ev['promoted_sink_bitwise']}, "
+        f"final_sink_bitwise {ev['final_sink_bitwise']}, quarantined "
+        f"{ev['quarantined']}; launches {p18['launches']} [{card}]")
+    for site, leg in p18["kills"].items():
+        log(f"phase 18 (b) killed at {site}: {leg} [{card}]")
+    for k in p18["kernels"]:
+        log(f"phase 18 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call, {k['library_device_ms']:.4f} "
+            f"ms of device time; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches at this shape in "
+            f"the reference, resumed and restarted serves, max abs error "
+            f"{k['max_abs_err']} [{card}]")
+    log("phase 18 " + json.dumps({
+        "phase": 18, "card": card, "seconds": round(p18["seconds"], 3),
+        "parts_s": p18["parts_s"], "config18": ev, "kills": p18["kills"],
+        "fsck_standby_ok": p18["fsck_standby_ok"],
+        "pad_shapes": p18["pad_shapes"]}, default=str))
+
+
+def c14_stage(test: Frame, staging: str, tids: list) -> dict:
+    """bench.py:2607-2618's files, 512 rows each, and each tenant's extra
+    200-row file; the rows of each."""
+    os.makedirs(staging)
+    n = sum(BENCH14_PHASE_FILES)
+    rows = {}
+    for ti, tid in enumerate(tids):
+        for fi in range(n + 1):
+            rows[tid, fi] = dr_write(
+                test, dr_at(test, ti * n + fi),
+                DR_CHUNK if fi < n else DR_TAIL_ROWS,
+                os.path.join(staging, f"{tid}_part_{fi:03d}.csv"))
+    return rows
+
+
+def fleet_worker(argv: list, wid: str, logs: str) -> tuple:
+    """One ``fleet-serve --fleet-worker-id`` process, its output to
+    files (it runs for the whole pass)."""
+    out = open(os.path.join(logs, f"{wid}.out"), "w")
+    err = open(os.path.join(logs, f"{wid}.err"), "w")
+    proc = subprocess.Popen(argv + ["--fleet-worker-id", wid], cwd=REPO,
+                            env=env_with(), stdout=out, stderr=err)
+    out.close()
+    err.close()
+    return proc
+
+
+def fleet_stop(procs: dict, logs: str, killed: str | None) -> dict:
+    """SIGTERM every live worker (the drain marker is up) and wait for
+    each drain; a worker that hangs gets SIGABRT and its threads' stacks
+    fail the phase.  Each drained worker's summary line."""
+    for wid, p in procs.items():
+        if wid != killed and p.poll() is None:
+            p.terminate()
+    lines = {}
+    for wid, p in procs.items():
+        if wid == killed:
+            continue
+        try:
+            p.wait(timeout=P16_WAIT_S)
+        except subprocess.TimeoutExpired:
+            p.send_signal(signal.SIGABRT)
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            with open(os.path.join(logs, f"{wid}.err")) as f:
+                raise SystemExit(f"phase 19: worker {wid} still draining "
+                                 f"after {P16_WAIT_S} s:\n{f.read()[-6000:]}")
+        with open(os.path.join(logs, f"{wid}.err")) as f:
+            err = f.read()
+        if p.returncode != 0:
+            raise SystemExit(f"phase 19: worker {wid} exited "
+                             f"{p.returncode}:\n{err[-3000:]}")
+        with open(os.path.join(logs, f"{wid}.out")) as f:
+            lines[wid] = summary_of(f.read())
+    return lines
+
+
+def c14_pass(dev, model_dir: str, staging: str, rows: dict, tids: list,
+             tmp: str, name: str, kill: bool) -> dict:
+    """One pass of bench.py:2637-2802: 3 ``fleet-serve --fleet-worker-id``
+    children under an in-process coordinator; the kill pass SIGKILLs
+    the most-loaded worker once every tenant has committed a batch, waits
+    for the dead-worker recovery, scales out a fourth worker and waits
+    for it to join; then the second phase's files (with each tenant's
+    200-row file) are fed and served."""
+    n = sum(BENCH14_PHASE_FILES)
+    worker_ids = [f"w{i}" for i in range(BENCH14_WORKERS)]
+    pass_dir = os.path.join(tmp, name)
+    root, logs = os.path.join(pass_dir, "root"), os.path.join(pass_dir, "logs")
+    os.makedirs(logs)
+
+    def feed(tid, lo, hi):
+        dr_link(staging, [f"{tid}_part_{fi:03d}.csv" for fi in range(lo, hi)],
+                os.path.join(pass_dir, "in", tid))
+
+    def batches(tid):
+        return sorted(glob.glob(os.path.join(pass_dir, "out", tid,
+                                             "batch_*.csv")))
+
+    def rows_done():
+        done = 0
+        for tid in tids:
+            for p in batches(tid):
+                with open(p, "rb") as f:
+                    done += max(0, f.read().count(b"\n") - 1)
+        return done
+
+    entries = []
+    for tid in tids:
+        feed(tid, 0, BENCH14_PHASE_FILES[0])
+        entries.append({"id": tid, "model": model_dir,
+                        "watch": os.path.join(pass_dir, "in", tid),
+                        "out": os.path.join(pass_dir, "out", tid)})
+    tenants_json = os.path.join(pass_dir, "tenants.json")
+    with open(tenants_json, "w") as f:
+        json.dump({"tenants": entries}, f)
+    coord = FleetCoordinator(
+        root, worker_ids,
+        {tid: SimpleNamespace(placement_cost=None, weight=1.0,
+                              pinned_worker=None) for tid in tids},
+        lease_ttl_s=C14_LEASE_TTL_S, boot_grace_s=C14_BOOT_GRACE_S)
+    argv = [sys.executable, "-m", "sntc_tpu_torch", "fleet-serve",
+            "--tenants", tenants_json, "--root", root, "--poll-interval",
+            "0.05", "--no-device-faults", "--shape-buckets",
+            str(DR_BUCKETS), "--device", str(dev)]
+    procs = {wid: fleet_worker(argv, wid, logs) for wid in worker_ids}
+    out: dict = {"killed_worker": None}
+    try:
+        poll_until(lambda: all(batches(t) for t in tids),
+                 "first committed batch per tenant", f"19 {name}",
+                 tick=coord.tick)
+        t_mid = time.perf_counter()
+        rows_mid = rows_done()
+        if kill:
+            victim = max(worker_ids, key=lambda w: sum(
+                1 for e in coord.assignments.values() if e["worker"] == w))
+            out["killed_worker"] = victim
+            out["dead_tenants"] = sorted(
+                t for t, e in coord.assignments.items()
+                if e["worker"] == victim)
+            procs[victim].kill()
+            procs[victim].wait()
+            poll_until(lambda: (
+                coord.status()["workers"][victim]["state"] == "dead"
+                and all(e["phase"] == "serving" and e["worker"] != victim
+                        for e in coord.assignments.values())),
+                "dead-worker recovery", f"19 {name}", tick=coord.tick)
+            out["recovery_s"] = time.perf_counter() - t_mid
+            newid = f"w{BENCH14_WORKERS}"
+            procs[newid] = fleet_worker(argv, newid, logs)
+            coord.add_worker(newid)
+            out["scaled_out_worker"] = newid
+            poll_until(lambda: (
+                coord.status()["workers"][newid]["state"] == "live"
+                and all(e["phase"] == "serving"
+                        for e in coord.assignments.values())),
+                "the scale-out worker joining", f"19 {name}",
+                tick=coord.tick)
+        t2 = time.perf_counter()
+        for tid in tids:
+            feed(tid, BENCH14_PHASE_FILES[0], n + 1)
+        poll_until(lambda: all(len(batches(t)) == n + 1 for t in tids),
+                 "every tenant fully served", f"19 {name}", tick=coord.tick)
+        t_end = time.perf_counter()
+        rows_end = rows_done()
+        out["rows"] = rows_end
+        out["rows_per_s"] = (rows_end - rows_mid) / (t_end - t_mid)
+        out["recovered_rows_per_s"] = sum(
+            rows[t, fi] for t in tids
+            for fi in range(BENCH14_PHASE_FILES[0], n + 1)) / (t_end - t2)
+        out["migrations"] = dict(coord.migrations)
+        out["assignments"] = {t: dict(e) for t, e in
+                              coord.assignments.items()}
+        out["sinks"] = {
+            tid: sink_batch_files(os.path.join(pass_dir, "out", tid))
+            for tid in tids}
+    finally:
+        coord.drain_fleet("smoke")
+        try:
+            out["workers"] = fleet_stop(procs, logs, out["killed_worker"])
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            coord.tick()
+            coord.close()
+    out["root"] = root
+    out["homes"] = {t: sorted(
+        p.split(os.sep)[-3] for p in glob.glob(
+            os.path.join(root, "worker", "*", "tenant", t)))
+        for t in tids}
+    out["retired"] = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(root, "fleet", "retired", "*")))
+    return out
+
+
+def fleet_serving(dev, work: str, shared: dict | None = None) -> dict:
+    """Phase 19: bench config 14's worker death on the card (see the
+    module docs)."""
+    t0 = time.perf_counter()
+    parts = {}
+    tmp = os.path.join(work, "c14")
+    os.makedirs(tmp)
+    t = time.perf_counter()
+    shared = shared or dr_shared(dev, work)
+    tids = [f"t{i}" for i in range(BENCH14_TENANTS)]
+    staging = os.path.join(tmp, "staging")
+    rows = c14_stage(shared["test"], staging, tids)
+    parts["setup"] = round(time.perf_counter() - t, 1)
+    passes = {}
+    for name, kill in (("reference", False), ("killed", True)):
+        t = time.perf_counter()
+        passes[name] = c14_pass(dev, shared["model_dir"], staging, rows,
+                                tids, tmp, name, kill)
+        parts[name] = round(time.perf_counter() - t, 1)
+    ref, k = passes["reference"], passes["killed"]
+    victim = k["killed_worker"]
+    drained = {name: p["workers"] for name, p in passes.items()}
+    launches = {name: sum(s["kernel_launches"]["pad_assemble"]
+                          for s in lines.values())
+                for name, lines in drained.items()}
+    evidence = {
+        "workers": BENCH14_WORKERS, "tenants": BENCH14_TENANTS,
+        "stream_files": BENCH14_TENANTS * (sum(BENCH14_PHASE_FILES) + 1),
+        "killed_worker": victim,
+        "scaled_out_worker": k["scaled_out_worker"],
+        "dead_tenants_migrated": len(k["dead_tenants"]),
+        "dead_tenants": k["dead_tenants"],
+        "migrations": k["migrations"],
+        "reference_migrations": ref["migrations"],
+        "recovery_s": k["recovery_s"],
+        "zero_committed_rows_lost": all(k["sinks"][t] == ref["sinks"][t]
+                                        for t in tids),
+        "recovered_rows_per_s": k["recovered_rows_per_s"],
+        "reference_rows_per_s": ref["recovered_rows_per_s"],
+        "recovered_over_reference": (k["recovered_rows_per_s"]
+                                     / ref["recovered_rows_per_s"]),
+        "single_homed": all(
+            p["homes"][t] == [p["assignments"][t]["worker"]]
+            for p in passes.values() for t in tids),
+        "retired_not_deleted": all(
+            any(r.startswith(f"{t}.{victim}.") for r in k["retired"])
+            for t in k["dead_tenants"]),
+        # the SIGKILLed worker prints no line: its launches are not
+        # counted, and it served no 200-row file (the kill precedes the
+        # second phase's feed)
+        "pad_launches_drained": launches,
+        "tail_files_served_by_drained": {name: len(tids) for name in passes},
+    }
+    root = k["root"]
+    fsck = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck", root, "--fleet-root"],
+        cwd=REPO, env=env_with(), capture_output=True, text=True,
+        timeout=P16_WAIT_S)
+    evidence["fsck_fleet_ok"] = fsck.returncode == 0 and json.loads(
+        fsck.stdout)["ok"]
+    restored = os.path.join(tmp, "restored")
+    name = min((r for r in k["retired"] if r.split(".")[1] == victim),
+               default="")
+    rr = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fleet-restore-retired",
+         root, name, "--dest", restored], cwd=REPO, env=env_with(),
+        capture_output=True, text=True, timeout=P16_WAIT_S)
+    verify = subprocess.run(
+        [sys.executable, "-m", "sntc_tpu_torch", "fsck",
+         os.path.join(restored, "ckpt"), "--no-repair"], cwd=REPO,
+        env=env_with(), capture_output=True, text=True, timeout=P16_WAIT_S)
+    evidence["restore_retired"] = {
+        "name": name,
+        "ok": rr.returncode == 0 and json.loads(rr.stdout).get("ok") is True,
+        "fsck_ok": verify.returncode == 0
+        and json.loads(verify.stdout)["ok"]}
+    pads_ok = all(tail_pads_match(list(lines.values()), len(tids))
+                  for lines in drained.values())
+    if not (evidence["zero_committed_rows_lost"]
+            and k["migrations"]["reverted"] == 0
+            and evidence["dead_tenants_migrated"] >= 1
+            and evidence["single_homed"] and evidence["retired_not_deleted"]
+            and evidence["fsck_fleet_ok"]
+            and evidence["restore_retired"]["ok"]
+            and evidence["restore_retired"]["fsck_ok"] and pads_ok):
+        raise SystemExit(f"phase 19: {evidence}; workers {drained}")
+    shapes = merged_shapes([s for lines in drained.values()
+                            for s in lines.values()])
+    key = pad_launch_shape(DR_TAIL_ROWS, len(CICIDS2017_FEATURES),
+                           torch.float64, DR_BUCKETS)
+    t = time.perf_counter()
+    err = check_pad_shapes(dev, shapes, "phase 19")
+    kernels = [measure_pad_at(dev, DR_TAIL_ROWS, {key: shapes[key]},
+                              torch.float64, DR_BUCKETS)]
+    parts["pads"] = round(time.perf_counter() - t, 1)
+    return {"evidence": evidence, "workers": drained, "pad_shapes": shapes,
+            "pad_max_abs_err": err, "kernels": kernels, "parts_s": parts,
+            "seconds": time.perf_counter() - t0}
+
+
+def report_phase19(p19: dict, card: str) -> None:
+    ev = p19["evidence"]
+    log(f"phase 19 bench config 14: {ev['workers']} workers, {ev['tenants']} "
+        f"tenants, {ev['stream_files']} files; killed {ev['killed_worker']}, "
+        f"{ev['dead_tenants_migrated']} dead tenants migrated "
+        f"{ev['dead_tenants']}, scaled out {ev['scaled_out_worker']}; "
+        f"migrations {ev['migrations']} (reference pass "
+        f"{ev['reference_migrations']}); recovery_s {ev['recovery_s']:.3f}; "
+        f"recovered {ev['recovered_rows_per_s']:.1f} rows/s against the "
+        f"reference's {ev['reference_rows_per_s']:.1f} "
+        f"({ev['recovered_over_reference']:.4f}); zero_committed_rows_lost "
+        f"{ev['zero_committed_rows_lost']}, single-homed "
+        f"{ev['single_homed']}, retired not deleted "
+        f"{ev['retired_not_deleted']}, fsck --fleet-root "
+        f"{ev['fsck_fleet_ok']}, fleet-restore-retired "
+        f"{ev['restore_retired']} [{card}]")
+    log(f"phase 19 pad_assemble launches of the drained workers "
+        f"{ev['pad_launches_drained']} for their 200-row files "
+        f"{ev['tail_files_served_by_drained']}; the SIGKILLed worker prints "
+        f"no line, so its launches are not counted (it served no 200-row "
+        f"file) [{card}]")
+    for k in p19["kernels"]:
+        log(f"phase 19 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call, {k['library_device_ms']:.4f} "
+            f"ms of device time; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}); {k['launches']} launches at this shape in the "
+            f"drained workers, max abs error {k['max_abs_err']} [{card}]")
+    log("phase 19 " + json.dumps({
+        "phase": 19, "card": card, "seconds": round(p19["seconds"], 3),
+        "parts_s": p19["parts_s"], "config14": ev,
+        "workers": p19["workers"], "pad_shapes": p19["pad_shapes"]},
+        default=str))
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -7678,7 +8407,7 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
-PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17")
+PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19")
 
 
 def main() -> int:
@@ -7690,7 +8419,8 @@ def main() -> int:
     ap.add_argument("--phases", default=None,
                     help="run only these phases, comma-separated, of "
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
-                    "15 trains config 1 first); default: every phase")
+                    "15 trains config 1 first, 18 and 19 config 9's LR "
+                    "pipeline); default: every phase")
     ap.add_argument("--cpu-fits", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -7828,6 +8558,11 @@ def main_all(dev, card: str, args, built, build_pool,
             phase16 = live_capture(dev, work)
         with clock("17 multi-tenant"):
             phase17 = multi_tenant(dev, work)
+        shared = phase17.pop("shared")
+        with clock("18 replication"):
+            phase18 = replication(dev, work, shared)
+        with clock("19 fleet"):
+            phase19 = fleet_serving(dev, work, shared)
     with clock("7 configs 2 and 1"):
         fit2 = mlp_fit_profile(dev, data2)
     with clock("9 nb, svc, evaluate"):
@@ -7846,6 +8581,8 @@ def main_all(dev, card: str, args, built, build_pool,
     kernels += phase15["kernels"]
     kernels += phase16["kernels"]
     kernels += phase17["kernels"]
+    kernels += phase18["kernels"]
+    kernels += phase19["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -8029,6 +8766,8 @@ def main_all(dev, card: str, args, built, build_pool,
     report_phase15(phase15, card)
     report_phase16(phase16, card)
     report_phase17(phase17, card)
+    report_phase18(phase18, card)
+    report_phase19(phase19, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -8057,6 +8796,7 @@ def main_all(dev, card: str, args, built, build_pool,
                        "phase12": phase12, "phase13": phase13,
                        "phase14": phase14, "phase15": phase15,
                        "phase16": phase16, "phase17": phase17,
+                       "phase18": phase18, "phase19": phase19,
                        "phase_seconds": PHASE_SECONDS}, f,
                       indent=1, default=str)
     finish(kernels, card)
@@ -8136,6 +8876,21 @@ def main_phases(dev, card: str, phases: list) -> int:
                 p17 = multi_tenant(dev, work)
             report_phase17(p17, card)
             kernels += p17["kernels"]
+        shared = None
+        if "18" in phases or "19" in phases:
+            with clock("18 replication"):
+                shared = (p17["shared"] if "17" in phases
+                          else dr_shared(dev, work))
+        if "18" in phases:
+            with clock("18 replication"):
+                p18 = replication(dev, work, shared)
+            report_phase18(p18, card)
+            kernels += p18["kernels"]
+        if "19" in phases:
+            with clock("19 fleet"):
+                p19 = fleet_serving(dev, work, shared)
+            report_phase19(p19, card)
+            kernels += p19["kernels"]
     finish(kernels, card)
     return 0
 

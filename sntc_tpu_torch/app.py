@@ -23,7 +23,8 @@
         [--controller|--no-controller] [--partial-fit] \\
         [--drift-window N] [--drift-threshold 0.25] [--promote-from DIR] \\
         [--shadow-window 8] [--promote-margin 0.05] [--metrics-out PATH] \\
-        [--trace-out PATH] [--device-trace DIR] [--once] [--device cuda|cpu]
+        [--trace-out PATH] [--device-trace DIR] [--standby-root DIR] \\
+        [--repl-barrier-every 1] [--once] [--device cuda|cpu]
     python -m sntc_tpu_torch evaluate --model m/ --data data/days \\
         [--metric macroF1] [--device cuda|cpu]
     python -m sntc_tpu_torch serve-daemon --tenants T.json --root R \\
@@ -31,9 +32,15 @@
         [--max-rows-per-sec R] [--max-pending-batches N] \\
         [--quarantine-after 3] [--quarantine-cooldown 30] \\
         [--stop-after 3] [--controller] [--root-disk-budget-mb MB] \\
-        [--health-json PATH] [--once] [--device cuda|cpu]
-    python -m sntc_tpu_torch fsck CHECKPOINT [--tenant-tree] \\
-        [--no-repair] [--report PATH]
+        [--health-json PATH] [--standby-root DIR] [--once] \\
+        [--device cuda|cpu]
+    python -m sntc_tpu_torch fleet-serve --tenants T.json --root R \\
+        [--workers 2 | --worker-ids w0,w1] [--lease-ttl 5] \\
+        [--boot-grace 30] [--dead-grace S] [--vnodes 64] [--slack 1.25] \\
+        [--drain-timeout 60] [--standby-root DIR] [daemon flags]
+    python -m sntc_tpu_torch fsck ROOT [--tenant-tree | --fleet-root] \\
+        [--standby DIR] [--no-repair] [--report PATH]
+    python -m sntc_tpu_torch fleet-restore-retired ROOT [NAME --dest DIR]
 
 ``train`` is the counterpart of ``cmd_train`` in ``sntc_tpu/app.py``:
 read and clean every CSV of ``--data``, split off ``--test-fraction``
@@ -111,6 +118,11 @@ over ``--model`` with the incumbent kept at ``.prev``,
 between batches); ``--partial-fit`` refits a candidate head (LR / NB)
 from the live labelled batches.  Only the two that can swap keep the
 head out of the fused segments; drift alone keeps full fusion.
+``--standby-root DIR`` replicates the checkpoint's durable tree and the
+sink to ``DIR/default/`` at each commit, with a sealed barrier every
+``--repl-barrier-every`` commits (``resilience.replicate``); the plane
+is closed (a final ship and barrier) on every exit, and the summary
+line carries its ``status()`` under ``replication``.
 
 ``train`` and ``serve`` take the JAX commands' obs flags:
 ``--metrics-out PATH`` writes the metrics registry as Prometheus text at
@@ -129,10 +141,23 @@ engine under ``<root>/tenant/<id>/``, all scheduled on one thread by
 its served model and predictor.  ``--once`` serves what is there, drains
 and prints ``{"batches", "tenants": {id: state}, "recompiles_after_warmup",
 "drained", "health", ...}``; without it SIGTERM drains.  A device that
-keeps failing drains the daemon and exits 1.
+keeps failing drains the daemon and exits 1.  ``--standby-root``
+replicates every tenant to ``DIR/<id>/``.
+
+``fleet-serve`` is the counterpart of ``cmd_fleet_serve``: a coordinator
+(``serve.fleet.FleetCoordinator``) over ``--workers`` worker processes,
+each this command re-invoked with ``--fleet-worker-id`` (a
+``FleetWorker`` over a ``ServeDaemon`` on ``--device``).  A worker's
+line is ``{"worker", "tenants", "device", "device_failed",
+"kernel_launches", "pad_launch_shapes"}``; it exits 1 when its device
+domain failed (its tenants then migrate off it).
+``fleet-restore-retired`` copies a retired dead-source tree into
+``--dest`` after verifying it (no NAME lists them).
 
 ``fsck`` is the counterpart of ``cmd_fsck``: doctor a serve checkpoint
-root (``--tenant-tree``: a serve-daemon root and every tenant's), repair
+root (``--tenant-tree``: a serve-daemon root and every tenant's;
+``--fleet-root``: a fleet root; ``--standby DIR``: also every replica
+under a standby root against its manifest and the primary), repair
 what is safe unless ``--no-repair``, print one JSON report (also to
 ``--report``) and exit 1 when unrepairable damage remains.
 """
@@ -682,6 +707,27 @@ def _cmd_serve_body(args) -> int:
         lifecycle=lifecycle,
     )
     dom = q.predictor.device_domain
+    repl_plane = None
+    if args.standby_root:
+        # warm-standby replication: ship the checkpoint's durable tree
+        # and the sink to <standby-root>/default/, sealing a commit
+        # barrier every --repl-barrier-every commits
+        from sntc_tpu_torch.resilience.replicate import ReplicationPlane
+
+        repl_plane = ReplicationPlane(
+            args.checkpoint, args.standby_root,
+            barrier_every=args.repl_barrier_every, sink_dir=args.out,
+        )
+        q.commit_listener = repl_plane.on_commit
+
+    def _replication_status():
+        # the final ship and barrier come before a summary line reads
+        # the plane: no replicated tail strands
+        if repl_plane is None:
+            return None
+        repl_plane.close()
+        return repl_plane.status()
+
     if ingress_listeners:
         from sntc_tpu_torch.serve import ingress as _ingress
 
@@ -722,6 +768,7 @@ def _cmd_serve_body(args) -> int:
                 "flow": _flow_summary(source),
                 "ingress": (source.spool.stats.snapshot()
                             if ingress_listeners else None),
+                "replication": _replication_status(),
             }))
             return 0
         # the supervised loop: SIGTERM (and Ctrl-C) drains, commits the
@@ -770,6 +817,7 @@ def _cmd_serve_body(args) -> int:
                 "drained": False,
                 "health": status["health"]["overall"],
                 "error": repr(e),
+                "replication": _replication_status(),
             }))
             return 1
         finally:
@@ -778,9 +826,12 @@ def _cmd_serve_body(args) -> int:
             "batches": status["engine"]["batches_done"],
             "drained": status["drained"],
             "health": status["health"]["overall"],
+            "replication": _replication_status(),
         }))
         return 0
     finally:
+        if repl_plane is not None:
+            repl_plane.close()
         for listener in ingress_listeners:
             try:
                 listener.close()
@@ -822,6 +873,8 @@ def cmd_serve_daemon(args) -> int:
         dead_letter_keep=args.dead_letter_keep,
         device_faults=args.device_faults,
         device=device,
+        standby_root=args.standby_root,
+        repl_barrier_every=args.repl_barrier_every,
     )
     try:
         if args.once:
@@ -944,8 +997,8 @@ def _load_tenant_specs(args, device) -> list:
 
 
 def _add_daemon_flags(p) -> None:
-    """The JAX ``serve-daemon`` flags, with its help texts and defaults
-    (its replication flags and compile watchdog are not ported)."""
+    """The JAX ``serve-daemon`` flags (shared with ``fleet-serve``), with
+    its help texts and defaults (its compile watchdog is not ported)."""
     p.add_argument("--tenants", required=True, metavar="JSON",
                    help="tenant spec file: {\"tenants\": [{\"id\", "
                    "\"model\", \"watch\", \"out\", ...per-tenant "
@@ -1103,9 +1156,210 @@ def _add_daemon_flags(p) -> None:
                    "(TenantSpec ingress spool_mb): over it TCP pauses "
                    "reads and UDP sheds at ingress, counted — never "
                    "ENOSPC death")
+    p.add_argument("--standby-root", default=None, metavar="DIR",
+                   help="warm-standby replication: every tenant's "
+                   "durable tree (+ sink) replicates to <DIR>/<tenant>/ "
+                   "with sealed manifests and commit barriers; a fleet "
+                   "coordinator also restores from the replica when a "
+                   "dead worker's primary tree cannot ship")
+    p.add_argument("--repl-barrier-every", type=int, default=1,
+                   metavar="N",
+                   help="seal a replication commit barrier every N "
+                   "commits per tenant (ReplicationPlane "
+                   "barrier_every); 1 = tightest RPO")
     _add_obs_flags(p)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
+
+
+def cmd_fleet_serve(args) -> int:
+    """The elastic serve fleet (counterpart of the JAX ``cmd_fleet_serve``;
+    ``serve.fleet``): one coordinator process over N worker processes,
+    each a plain ``ServeDaemon`` over its assigned tenants.  SIGTERM or
+    Ctrl-C raises the fleet drain marker and sends SIGTERM to every
+    worker.  The coordinator re-invokes the command line
+    (``sys.argv``) with ``--fleet-worker-id`` for each worker; a worker
+    whose device domain failed exits 1."""
+    import itertools
+    import signal as _signal
+    import subprocess
+
+    from sntc_tpu_torch.serve.fleet import FleetCoordinator, FleetWorker
+
+    if args.fleet_worker_id:
+        from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
+
+        device = resolve_device(args.device)
+        worker = FleetWorker(
+            args.fleet_worker_id, args.root, {},
+            daemon_kwargs=dict(
+                shape_buckets=args.shape_buckets,
+                pipeline_depth=args.pipeline_depth,
+                autotune=args.autotune,
+                dead_letter_keep=args.dead_letter_keep,
+                device_faults=args.device_faults,
+                device=device,
+                standby_root=args.standby_root,
+                repl_barrier_every=args.repl_barrier_every,
+            ),
+            controller=args.controller,
+        )
+        if device.type == "cuda":
+            # CUDA's context comes up before the first lease, inside the
+            # coordinator's boot grace (its init may hold the GIL)
+            import torch
+
+            torch.cuda.init()
+        # the lease renews from here on: the kernels' load, the models'
+        # loads and the first batch never read as a dead worker
+        worker.start_heartbeat()
+        if device.type == "cuda":
+            from sntc_tpu_torch.kernels._build import library
+
+            library()
+        worker.specs = {
+            s.tenant_id: s for s in _load_tenant_specs(args, device)
+        }
+        status = worker.run(poll_interval=args.poll_interval)
+        print(json.dumps({
+            "worker": args.fleet_worker_id,
+            "tenants": {
+                tid: row["state"]
+                for tid, row in status.get("tenants", {}).items()
+            },
+            "device": str(device),
+            "device_failed": bool(status.get("device_failed", False)),
+            "kernel_launches": dict(LAUNCHES),
+            "pad_launch_shapes": dict(PAD_LAUNCH_SHAPES),
+        }))
+        return 1 if status.get("device_failed") else 0
+
+    _obs_start(args)
+    with open(args.tenants) as f:
+        doc = json.load(f)
+    entries = doc["tenants"] if isinstance(doc, dict) else doc
+    if not entries:
+        raise SystemExit(f"{args.tenants}: no tenants declared")
+
+    class _PlacementSpec:
+        """The coordinator needs placement facts only; it loads no
+        model (the workers do)."""
+
+        def __init__(self, entry):
+            self.placement_cost = entry.get("placement_cost")
+            self.weight = float(entry.get("weight", args.tenant_weight))
+            self.pinned_worker = entry.get("pinned_worker")
+
+    specs = {e["id"]: _PlacementSpec(e) for e in entries}
+    worker_ids = (
+        args.worker_ids.split(",") if args.worker_ids
+        else [f"w{i}" for i in range(args.workers)]
+    )
+    procs = {}
+    child_argv = [sys.executable, "-m", "sntc_tpu_torch"] + sys.argv[1:]
+
+    def _spawn(wid):
+        procs[wid] = subprocess.Popen(
+            child_argv + ["--fleet-worker-id", wid]
+        )
+
+    fresh_ids = itertools.count(len(worker_ids))
+
+    def _scale_out(reason):
+        wid = f"w{next(fresh_ids)}"
+        _spawn(wid)
+        return wid
+
+    coord = FleetCoordinator(
+        args.root, worker_ids, specs,
+        lease_ttl_s=args.lease_ttl, boot_grace_s=args.boot_grace,
+        dead_grace_s=args.dead_grace,
+        vnodes=args.vnodes, slack=args.slack,
+        scale_out_hook=_scale_out,
+        standby_root=args.standby_root,
+    )
+    stop = {"sig": None}
+
+    def _term(signum, frame):
+        stop["sig"] = signum
+
+    for sig in (_signal.SIGTERM, _signal.SIGINT):
+        try:
+            _signal.signal(sig, _term)
+        except ValueError:
+            pass
+    for wid in worker_ids:
+        _spawn(wid)
+    print(f"fleet-serve: coordinator over {len(worker_ids)} workers x "
+          f"{len(specs)} tenants -> {args.root}; SIGTERM/Ctrl-C drains "
+          "the fleet", file=sys.stderr)
+    try:
+        while stop["sig"] is None:
+            coord.tick()
+            time.sleep(args.poll_interval)
+    finally:
+        # raise the fleet drain marker (the workers' loops watch it),
+        # then SIGTERM every worker and wait
+        coord.drain_fleet(f"signal {stop['sig']}")
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        deadline = time.time() + args.drain_timeout
+        for p in procs.values():
+            try:
+                p.wait(timeout=max(0.1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        coord.tick()
+        coord.close()
+        _obs_finish(args)
+    print(json.dumps(coord.status()))
+    return 0
+
+
+def _add_fleet_flags(p) -> None:
+    """The JAX ``fleet-serve`` flags beyond the daemon's, with its
+    defaults."""
+    p.add_argument("--workers", type=int, default=2, metavar="N",
+                   help="worker processes to spawn (ids w0..wN-1); "
+                   "each runs a plain ServeDaemon over its assigned "
+                   "tenant slice under <root>/worker/<id>/")
+    p.add_argument("--worker-ids", default=None, metavar="IDS",
+                   help="explicit comma-separated worker ids "
+                   "(overrides --workers; the ids TenantSpec "
+                   "pinned_worker entries must name)")
+    p.add_argument("--lease-ttl", type=float, default=5.0, metavar="S",
+                   help="worker lease TTL (FleetCoordinator "
+                   "lease_ttl_s): a worker whose heartbeat marker is "
+                   "older is declared DEAD and its tenants migrate to "
+                   "the survivors")
+    p.add_argument("--boot-grace", type=float, default=30.0,
+                   metavar="S",
+                   help="first-heartbeat grace (FleetCoordinator "
+                   "boot_grace_s): how long a spawned worker may take "
+                   "to come up before it counts as dead")
+    p.add_argument("--dead-grace", type=float, default=None,
+                   metavar="S",
+                   help="ship fence (FleetCoordinator dead_grace_s): "
+                   "a dead worker's tenant trees only ship after its "
+                   "lease stays expired this much LONGER, with a final "
+                   "lease re-read (default: 2 x lease TTL)")
+    p.add_argument("--vnodes", type=int, default=64,
+                   help="virtual nodes per worker on the consistent-"
+                   "hash ring (FleetCoordinator vnodes)")
+    p.add_argument("--slack", type=float, default=1.25,
+                   help="bounded-load placement slack (FleetCoordinator "
+                   "slack): per-worker capacity = slack x total "
+                   "placement cost / workers")
+    p.add_argument("--drain-timeout", type=float, default=60.0,
+                   metavar="S",
+                   help="seconds to wait for workers to settle after "
+                   "the SIGTERM fan-out before killing them")
+    p.add_argument("--fleet-worker-id", default=None,
+                   help="internal: run as the named fleet WORKER "
+                   "instead of the coordinator (the coordinator "
+                   "re-invokes itself with this flag per worker)")
 
 
 def cmd_fsck(args) -> int:
@@ -1114,13 +1368,58 @@ def cmd_fsck(args) -> int:
     remains."""
     from sntc_tpu_torch.resilience.storage import fsck
 
-    report = fsck(args.root, repair=not args.no_repair,
-                  tenant_tree=args.tenant_tree)
+    if args.fleet_root:
+        from sntc_tpu_torch.serve.fleet import fsck_fleet
+
+        report = fsck_fleet(args.root, repair=not args.no_repair)
+    else:
+        report = fsck(args.root, repair=not args.no_repair,
+                      tenant_tree=args.tenant_tree)
+    if args.standby:
+        # anti-entropy: every tenant replica under the standby root
+        # against its sealed manifest and against the primary under
+        # ROOT; each mismatch journals replica_diverged and fails
+        from sntc_tpu_torch.resilience.replicate import fsck_standby
+
+        standby_report = fsck_standby(
+            args.standby, primary_root=args.root,
+            repair=not args.no_repair,
+        )
+        report["standby"] = standby_report
+        report["ok"] = report["ok"] and standby_report["ok"]
     text = json.dumps(report, indent=1)
     if args.report:
         with open(args.report, "w") as f:
             f.write(text + "\n")
     print(text)
+    return 0 if report["ok"] else 1
+
+
+def cmd_fleet_restore_retired(args) -> int:
+    """Recover a retired dead-source tenant tree: verify
+    ``<root>/fleet/retired/<name>`` and copy it into an explicit
+    destination with a sealed restore manifest, never back into the
+    serving namespace.  With no NAME, list what is restorable.  Exit 1
+    when the tree fails verification."""
+    from sntc_tpu_torch.serve.fleet import (
+        RETIRED_DIR,
+        fleet_meta_dir,
+        restore_retired,
+    )
+
+    rdir = os.path.join(fleet_meta_dir(args.root), RETIRED_DIR)
+    if not args.name:
+        names = sorted(
+            d for d in (os.listdir(rdir) if os.path.isdir(rdir) else [])
+            if not d.startswith(".")
+        )
+        print(json.dumps({"root": args.root, "retired": names}))
+        return 0
+    if not args.dest:
+        raise SystemExit("--dest is required to restore a tree")
+    report = restore_retired(args.root, args.name, args.dest,
+                             repair=not args.no_repair)
+    print(json.dumps(report, indent=1))
     return 0 if report["ok"] else 1
 
 
@@ -1386,6 +1685,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "spool_over_budget) after a committed-file prune "
                    "— bounded disk instead of ENOSPC death; unset = "
                    "unbudgeted")
+    p.add_argument("--standby-root", default=None, metavar="DIR",
+                   help="warm-standby replication: continuously "
+                   "replicate the checkpoint's durable artifact tree "
+                   "(+ the sink) to <DIR>/default/ with sealed manifests "
+                   "and commit barriers, so a lost primary disk promotes "
+                   "from the replica with measured RPO/RTO; unset = no "
+                   "replication")
+    p.add_argument("--repl-barrier-every", type=int, default=1,
+                   metavar="N",
+                   help="seal a replication commit barrier every N "
+                   "engine commits (ReplicationPlane barrier_every): "
+                   "1 = every commit (tightest RPO), larger trades "
+                   "barrier lag for ship amortization")
     _add_obs_flags(p)
     p.add_argument("--once", action="store_true",
                    help="drain available files, print a JSON summary, exit")
@@ -1402,6 +1714,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_serve_daemon)
 
     p = sub.add_parser(
+        "fleet-serve",
+        help="elastic serve fleet: one coordinator process supervising "
+        "N serve-daemon workers with leases, consistent-hash placement, "
+        "worker-death recovery and tenant migration")
+    _add_daemon_flags(p)
+    _add_fleet_flags(p)
+    p.set_defaults(fn=cmd_fleet_serve)
+
+    p = sub.add_parser(
         "fsck",
         help="verify and repair every durable artifact under a checkpoint "
         "root (WAL seals and tails, journals, markers, model manifests); "
@@ -1411,12 +1732,45 @@ def build_parser() -> argparse.ArgumentParser:
                    "--tenant-tree)")
     p.add_argument("--tenant-tree", action="store_true",
                    help="also walk every <root>/tenant/<id>/ckpt")
+    p.add_argument("--fleet-root", action="store_true",
+                   help="treat ROOT as a fleet coordinator root: doctor "
+                   "the fleet metadata (assignment marker + journal, "
+                   "leases, request journals, sealed migration "
+                   "manifests, torn mid-ship copies, retired trees) plus "
+                   "every <root>/worker/<id>/ daemon tree; an "
+                   "unrepairable migration manifest exits 1")
     p.add_argument("--no-repair", action="store_true",
                    help="report only: no truncations, no quarantines, no "
                    "tmp sweeps")
+    p.add_argument("--standby", default=None, metavar="DIR",
+                   help="anti-entropy: also check every tenant replica "
+                   "under this warm-standby root (sealed manifest, "
+                   "replica content hashes, primary-vs-replica for "
+                   "files both sides hold); each divergence journals "
+                   "replica_diverged and exits 1 (with repair, the "
+                   "diverged replica copy quarantines so the next ship "
+                   "re-seeds it)")
     p.add_argument("--report", default=None, metavar="PATH",
                    help="also write the JSON report here")
     p.set_defaults(fn=cmd_fsck)
+
+    p = sub.add_parser(
+        "fleet-restore-retired",
+        help="recover a retired dead-source tenant tree "
+        "(fleet/retired/<tid>.<wid>.<epoch>): verify and copy it into "
+        "an explicit --dest with a sealed restore manifest; no NAME "
+        "lists what is restorable")
+    p.add_argument("root", help="fleet coordinator root")
+    p.add_argument("name", nargs="?", default=None,
+                   help="retired tree name (<tid>.<wid>.<epoch>); omit "
+                   "to list")
+    p.add_argument("--dest", default=None, metavar="DIR",
+                   help="destination directory for the verified copy "
+                   "(required with NAME; never the serving namespace)")
+    p.add_argument("--no-repair", action="store_true",
+                   help="verify only: no torn-tail truncations inside "
+                   "the retired tree")
+    p.set_defaults(fn=cmd_fleet_restore_retired)
 
     p = sub.add_parser("synth",
                        help="write schema-identical synthetic day CSVs")

@@ -387,6 +387,95 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         help="Append-WAL compactions (sealed checkpoint written, "
         "offsets/commits logs truncated).",
     ),
+    # -- the elastic serve fleet (serve/fleet.py) ---------------------------
+    "sntc_fleet_worker_state": dict(
+        type=GAUGE, labels=("worker",),
+        help="Coordinator's liveness verdict per worker (1 = lease "
+        "current, 0 = lease expired / declared dead).",
+    ),
+    "sntc_fleet_leases_renewed_total": dict(
+        type=COUNTER, labels=("worker",),
+        help="Worker lease/heartbeat renewals observed by the "
+        "coordinator.",
+    ),
+    "sntc_fleet_leases_expired_total": dict(
+        type=COUNTER, labels=("worker",),
+        help="Lease expiries — a worker missed its TTL and was "
+        "declared dead; its tenants were redistributed.",
+    ),
+    "sntc_fleet_migrations_total": dict(
+        type=COUNTER, labels=("reason", "outcome"),
+        help="Tenant migrations by reason (rebalance / worker_dead / "
+        "controller / join) and outcome (completed / reverted).",
+    ),
+    "sntc_fleet_tenants_value": dict(
+        type=GAUGE, labels=("worker",),
+        help="Tenants currently assigned to each worker (the "
+        "coordinator's placement view).",
+    ),
+    "sntc_fleet_rows_value": dict(
+        type=GAUGE, labels=("worker",),
+        help="Rows committed as reported by each worker's last "
+        "heartbeat (worker=fleet is the aggregate across live "
+        "workers).",
+    ),
+    # -- warm-standby replication (resilience/replicate.py) -------------------
+    "sntc_repl_ships_total": dict(
+        type=COUNTER, labels=("tenant", "outcome"),
+        help="Replication ship passes by outcome (completed / error). "
+        "An error pass degraded — it was journaled and retries at the "
+        "next commit; the serving engine never notices.",
+    ),
+    "sntc_repl_ship_files_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Artifact files copied into the standby replica tree "
+        "(changed-content files only; unchanged files are skipped by "
+        "stamp/sha).",
+    ),
+    "sntc_repl_ship_bytes_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Bytes shipped into the standby replica tree.",
+    ),
+    "sntc_repl_barriers_sealed_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Commit-barrier records sealed into the replicated "
+        "barrier log — each one is a provably consistent promotion "
+        "point (the replica holds everything through its batch_id).",
+    ),
+    "sntc_repl_lag_batches": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Committed batches not yet covered by a sealed barrier "
+        "(the batch component of RPO; 0 right after each barrier).",
+    ),
+    "sntc_repl_lag_seconds": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Seconds since the last sealed barrier (the time "
+        "component of RPO).",
+    ),
+    "sntc_repl_lag_bytes": dict(
+        type=GAUGE, labels=("tenant",),
+        help="Estimated un-replicated primary bytes (what a primary "
+        "loss right now would cost; stat-only estimate, refreshed on "
+        "degraded ships and zeroed at each barrier).",
+    ),
+    "sntc_repl_divergence_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Replica-vs-manifest or replica-vs-primary divergences "
+        "found by promotion or anti-entropy fsck (each one also "
+        "journals a replica_diverged event).",
+    ),
+    "sntc_repl_promotions_total": dict(
+        type=COUNTER, labels=("outcome",),
+        help="Standby promotions by outcome (completed / failed). A "
+        "failed promotion never leaves a partially promoted tree.",
+    ),
+    "sntc_repl_tail_loss_rows_total": dict(
+        type=COUNTER, labels=("tenant",),
+        help="Rows counted lost beyond the last sealed barrier at "
+        "promotion (the counted_tail_loss term of the loss-accounting "
+        "law: committed == replicated_through_barrier + "
+        "counted_tail_loss).",
+    ),
 }
 
 _OVERFLOW_KEY: Tuple[Tuple[str, str], ...] = (("overflow", "true"),)

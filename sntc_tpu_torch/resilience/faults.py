@@ -151,6 +151,18 @@ SITES = (
     "flow.state_snapshot",
     "ingress.recv",
     "ingress.spool",
+    # the fleet's coordination boundaries: before a worker renews its
+    # lease, before the coordinator publishes an assignment epoch, and
+    # before each file of a tenant tree's migration ship
+    "fleet.lease",
+    "fleet.assign",
+    "fleet.migrate",
+    # the standby plane's boundaries: before each changed file ships to
+    # the replica, before the sealed replica manifest publishes, before
+    # a commit-barrier record is appended
+    "repl.ship",
+    "repl.apply",
+    "repl.barrier",
 )
 
 

@@ -1,9 +1,9 @@
 """The durable-storage plane: bounded artifacts, disk-fault-proof writes
 and the ``fsck`` doctor.
 
-Counterpart of ``sntc_tpu/resilience/storage.py`` as far as a single
-serve checkpoint root goes (the fleet's and the replication plane's
-artifacts wait for their slices of ROADMAP queue A):
+Counterpart of ``sntc_tpu/resilience/storage.py``: a serve checkpoint
+root's artifacts, plus those of the fleet root (``serve/fleet.py``) and
+of the standby root (``resilience/replicate.py``):
 
 * **Artifact registry**: :data:`ARTIFACTS` declares every durable
   artifact class the port writes under a checkpoint root, with the
@@ -180,6 +180,65 @@ ARTIFACTS: Dict[str, ArtifactSpec] = {
             "horizon; uncommitted never pruned); over-budget payloads "
             "shed at ingress (counted)",
             SHED,
+        ),
+        # the elastic serve fleet (serve/fleet.py): patterns are
+        # relative to a coordinator's fleet root, not a daemon root
+        ArtifactSpec(
+            "fleet_lease", "marker", "storage.marker",
+            ("fleet/workers/*/lease.json",),
+            "atomic overwrite per heartbeat (one lease per worker)",
+            DEGRADE,
+        ),
+        ArtifactSpec(
+            "fleet_assignments", "marker", "storage.marker",
+            ("fleet/assignments.json",),
+            "atomic epoch overwrite in place (one marker per fleet)",
+            FAIL,
+        ),
+        ArtifactSpec(
+            "fleet_assignment_journal", "journal", "storage.journal",
+            ("fleet/assignments.jsonl*",),
+            "RotatingJsonlWriter: size-capped segments, keep 2 rotated",
+            DEGRADE,
+        ),
+        ArtifactSpec(
+            "fleet_migration_manifest", "marker", "storage.marker",
+            ("fleet/migrations/*.json",),
+            "sealed, one per tenant, overwritten by the next migration",
+            FAIL,
+        ),
+        ArtifactSpec(
+            "fleet_markers", "marker", "storage.marker",
+            ("fleet/coordinator.json", "fleet/fleet_drain_marker.json",
+             "fleet/workers/*/release/*.json"),
+            "atomic overwrite in place; release markers removed once "
+            "the coordinator consumes them",
+            DEGRADE,
+        ),
+        ArtifactSpec(
+            "fleet_request_journal", "journal", "storage.journal",
+            ("fleet/workers/*/requests.jsonl*",),
+            "append-only, offset-consumed by the coordinator, bounded "
+            "by the one-shot fleet knobs (at most 2 lines a tenant)",
+            DEGRADE,
+        ),
+        # warm-standby replication (resilience/replicate.py): these live
+        # under the standby root (<standby>/<tenant>/), never under a
+        # replicated primary root, so their patterns are empty; fsck
+        # --standby and promote_standby verify them
+        ArtifactSpec(
+            "repl_barrier", "journal", "repl.barrier",
+            (),  # <standby>/<tenant>/barriers.jsonl*
+            "RotatingJsonlWriter: size-capped segments, keep 2 rotated; "
+            "promotion walks newest-first to the last sealed record",
+            DEGRADE,
+        ),
+        ArtifactSpec(
+            "repl_manifest", "marker", "repl.apply",
+            (),  # <standby>/<tenant>/replica_manifest.json
+            "sealed atomic overwrite per ship pass (one per replica); "
+            "a failed publish degrades and the next commit re-ships",
+            DEGRADE,
         ),
     )
 }

@@ -127,6 +127,17 @@ name it, and its metrics and transfer ledger are labelled with it.  The
 names are computed once at construction; ``tenant=None`` keeps the bare
 names and labels.
 
+**Commit listener** (``commit_listener``, the JAX engine's hook; the
+warm-standby ``resilience.replicate.ReplicationPlane.on_commit`` rides
+here): called after each commit record is durable and
+``_last_committed`` is set, with ``(batch_id, intent, n_rows)``, on the
+thread that commits.  That is the engine thread in both forms: the
+pipelined engine's delivery thread only writes the sink, and its
+settle, which commits, runs on the engine thread, the WAL's single
+writer.  A listener that raises is
+journaled as ``commit_listener_error`` with the tenant; the batch stays
+committed.
+
 **Spans** (``obs.trace``, free while tracing is off), at the JAX
 engine's sites and names, each with the batch id: ``stream.wal`` (the
 intent), ``stream.read`` (the source's read), ``stream.admit`` (the
@@ -589,6 +600,7 @@ class StreamingQuery:
         autotuner=None,
         lifecycle=None,
         tenant: Optional[str] = None,
+        commit_listener=None,
     ):
         self.predictor = (
             model
@@ -599,6 +611,10 @@ class StreamingQuery:
         self.source = source
         self.sink = sink
         self.checkpoint_dir = checkpoint_dir
+        # called once a commit record is durable, with (batch_id,
+        # intent, n_rows), on the thread that commits (see the module
+        # docs); a listener that raises never fails the batch
+        self.commit_listener = commit_listener
         self.max_batch_offsets = max_batch_offsets
         # the batches in flight; a controller may change it live
         self.pipeline_depth = max(1, int(pipeline_depth))
@@ -1349,6 +1365,14 @@ class StreamingQuery:
         self._admission_counted.discard(batch_id)
         self._last_committed = batch_id
         self._end_offset = intent["end"]
+        if self.commit_listener is not None:
+            try:
+                self.commit_listener(batch_id, intent, n_rows)
+            except Exception as e:
+                emit_event(
+                    event="commit_listener_error", tenant=self.tenant,
+                    batch_id=batch_id, error=repr(e),
+                )
         self.rows_served += n_rows
         now = time.perf_counter()
         dur = now - t0

@@ -44,11 +44,17 @@ with ``status()["device_failed"]`` true; the ``serve-daemon`` command
 exits 1.  Every tenant keeps its ladder state.
 
 The clock is injectable and :meth:`ServeDaemon.tick` steps one round, so
-fairness, quotas and the ladder are tested without sleeps.  The JAX
-daemon's replication (``standby_root``, ``repl_barrier_every``) and
-compile watchdog (``compile_budget_s``) are not ported; the fleet hooks
-(``fleet_hook``, :meth:`ServeDaemon.request_fleet`) are inert outside a
-fleet, as there.
+fairness, quotas and the ladder are tested without sleeps.
+
+**Replication** (``standby_root``, ``repl_barrier_every``): each tenant
+gets a ``resilience.replicate.ReplicationPlane`` that ships its tree
+(and its sink's batch files) to ``<standby_root>/<id>/`` through the
+engine's ``commit_listener``, sealing a barrier every
+``repl_barrier_every`` commits; :meth:`ServeDaemon.drain` closes every
+plane (final ship and barrier) before the daemon's marker is written.
+The fleet hooks (``fleet_hook``, :meth:`ServeDaemon.request_fleet`) are
+inert outside a fleet; ``serve.fleet.FleetWorker`` installs them.  The
+JAX daemon's compile watchdog (``compile_budget_s``) is not ported.
 """
 
 from __future__ import annotations
@@ -395,6 +401,8 @@ class ServeDaemon:
         device_faults: bool = True,
         device_policy=None,
         device="cuda",
+        standby_root: Optional[str] = None,
+        repl_barrier_every: int = 1,
     ):
         if not specs:
             raise ValueError("ServeDaemon needs at least one TenantSpec")
@@ -408,6 +416,11 @@ class ServeDaemon:
         self.health_json = health_json
         self.dead_letter_keep = max(0, int(dead_letter_keep))
         self.device = device
+        # warm-standby replication: one plane a tenant (see the module
+        # docs), built by _build_tenant
+        self.standby_root = standby_root
+        self.repl_barrier_every = max(1, int(repl_barrier_every))
+        self._repl_planes: Dict[str, Any] = {}
         # republished after every round when set
         self.metrics_out = metrics_out
         self._clock = clock
@@ -611,6 +624,19 @@ class ServeDaemon:
             autotuner = IngestAutotuner(
                 budget=self.tuning_budget, tenant=spec.tenant_id
             )
+        commit_listener = None
+        if self.standby_root:
+            from sntc_tpu_torch.resilience.replicate import ReplicationPlane
+
+            plane = ReplicationPlane(
+                tdir,
+                self.standby_root,
+                tenant=spec.tenant_id,
+                barrier_every=self.repl_barrier_every,
+                sink_dir=spec.out,
+            )
+            self._repl_planes[spec.tenant_id] = plane
+            commit_listener = plane.on_commit
         query = StreamingQuery(
             self.predictor_for(spec),
             source,
@@ -628,6 +654,7 @@ class ServeDaemon:
             autotuner=autotuner,
             dead_letter_keep=self.dead_letter_keep,
             device=self.device,
+            commit_listener=commit_listener,
         )
         if listeners:
             from sntc_tpu_torch.serve import ingress as _ingress
@@ -1038,6 +1065,11 @@ class ServeDaemon:
                 except Exception:
                     pass
             self._close_source(t)
+            # the settled tail reaches the standby before the tree
+            # changes hands
+            plane = self._repl_planes.pop(tenant_id, None)
+            if plane is not None:
+                plane.close()
             # stopped before the controller lets go of it
             t.state = "STOPPED"
             if self.controller is not None:
@@ -1179,6 +1211,10 @@ class ServeDaemon:
                     t, self._drain_reason,
                     t.spec.tenant_id in mid_batch,
                 )
+            # final ship and barrier: a drain with repl_barrier_every > 1
+            # never strands a replicated but unacknowledged tail
+            for plane in self._repl_planes.values():
+                plane.close()
             self.drained = True
             _atomic_json(
                 os.path.join(self.root_dir, DAEMON_DRAIN_MARKER),
@@ -1297,6 +1333,11 @@ class ServeDaemon:
         remove_event_observer(self._observer)
         if self._owns_health:
             self.health.close()
+        for plane in self._repl_planes.values():
+            try:
+                plane.close()
+            except Exception:
+                pass
         for t in self.tenants:
             if t.state != "STOPPED":
                 try:

@@ -11,8 +11,10 @@ own tolerance, 1e-5.  The tests marked ``cuda`` hold the CUDA kernels
 against the plain versions on a card and skip without one.
 """
 
+import io
 import os
 import re
+import tokenize
 
 import jax
 import jax.numpy as jnp
@@ -620,6 +622,21 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|sntc_tpu)\b(?!_torch)", re.M
 )
+#: the same import inside a string literal: code a subprocess runs
+#: (``python -c "from sntc_tpu..."``) imports the JAX package all the same
+_FORBIDDEN_IN_STRING = re.compile(
+    r"(?:import|from)\s+(?:jax|jaxlib|sntc_tpu)\b(?!_torch)"
+)
+_STRING_TOKENS = {tokenize.STRING, getattr(tokenize, "FSTRING_MIDDLE", -1)}
+
+
+def _import_offenders(src):
+    found = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+    for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+        if tok.type in _STRING_TOKENS:
+            found += [m.group(0) for m in
+                      _FORBIDDEN_IN_STRING.finditer(tok.string)]
+    return found
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -631,10 +648,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for p in paths:
         with open(p) as f:
             src = f.read()
-        offenders += [
-            f"{os.path.relpath(p, REPO)}: {m.group(0).strip()}"
-            for m in _FORBIDDEN.finditer(src)
-        ]
+        offenders += [f"{os.path.relpath(p, REPO)}: {hit}"
+                      for hit in _import_offenders(src)]
         # a dynamic import would dodge the pattern above
         assert "import_module(" not in src, p
     assert not offenders, offenders
@@ -647,6 +662,14 @@ def test_hygiene_pattern_catches_what_it_must():
             "# import jax in a comment", "x = 'sntc_tpu.core.base.PipelineModel'"]
     assert all(_FORBIDDEN.search(s) for s in bad)
     assert not any(_FORBIDDEN.search(s) for s in good)
+    # in a string literal, as a subprocess's code would carry it
+    bad_str = ['CODE = "import json; from sntc_tpu.resilience import x"\n',
+               "run(['-c', f'import jax; print({n})'])\n"]
+    good_str = ['NOTE = "the JAX package\'s promote_standby"\n',
+                "x = 'sntc_tpu.core.base.PipelineModel'\n",
+                'CODE = "from sntc_tpu_torch.serve import fleet"\n']
+    assert all(_import_offenders(s) for s in bad_str)
+    assert not any(_import_offenders(s) for s in good_str)
 
 
 # -- on the card -----------------------------------------------------------

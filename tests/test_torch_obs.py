@@ -405,14 +405,20 @@ def test_obs_flags_are_the_jax_commands(cmd, monkeypatch):
 
 def test_port_cli_has_66_distinct_flags():
     # 66 after the obs flags; 76 since the capture, socket-ingress and
-    # synth flags; 84 since serve-daemon's (the name is kept from when
-    # the count was 66)
+    # synth flags; 84 since serve-daemon's; 98 since replication's and
+    # the fleet's, every JAX flag but the four never ported (the name is
+    # kept from when the count was 66)
     import re
 
+    import sntc_tpu.app as jax_app
     from sntc_tpu_torch import app
 
-    src = open(app.__file__).read()
-    assert len(set(re.findall(r'add_argument\("(--[a-z0-9-]*)', src))) == 84
+    pattern = r'add_argument\("(--[a-z0-9-]*)'
+    port = set(re.findall(pattern, open(app.__file__).read()))
+    jax = set(re.findall(pattern, open(jax_app.__file__).read()))
+    assert len(port) == 98
+    assert jax - port == {"--compile-budget-s", "--compile-cache",
+                          "--compile-cache-dir", "--serve-kernels"}
 
 
 def test_exports_cover_the_jax_package():

@@ -906,8 +906,8 @@ def test_artifacts_pinned_against_write_sites():
     storage plane names a registered artifact (or declares itself
     ``unbounded(<reason>)``); every artifact the port writes has a write
     site; every artifact's fault site is declared; and the registry is
-    the JAX package's, minus what only the fleet and replication
-    write."""
+    the JAX package's, the fleet's and the replication plane's
+    artifacts included."""
     problems, named = [], set()
     for rel, text in _port_sources():
         for i, line in enumerate(text.splitlines(), 1):
@@ -934,11 +934,7 @@ def test_artifacts_pinned_against_write_sites():
         assert spec.site in R.SITES, name
         assert name in named or f'"{name}"' in sources.replace(
             'ArtifactSpec(\n            "' + name, ""), name
-    assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == {
-        "fleet_lease", "fleet_assignments",
-        "fleet_assignment_journal", "fleet_migration_manifest",
-        "fleet_markers", "fleet_request_journal",
-        "repl_barrier", "repl_manifest"}
+    assert set(JS.ARTIFACTS) - set(PS.ARTIFACTS) == set()
     for kind in R.IO_KINDS:
         assert kind in R.ALL_KINDS
 

@@ -841,8 +841,7 @@ def test_serve_daemon_parser_defaults_equal(monkeypatch):
 
     jax = _daemon_defaults(jax_app, monkeypatch)
     port = _daemon_defaults(port_app, monkeypatch)
-    not_ported = {"compile_budget_s", "standby_root", "repl_barrier_every",
-                  "platform"}
+    not_ported = {"compile_budget_s", "platform"}
     assert set(jax) - set(port) == not_ported
     assert set(port) - set(jax) == {"device"}
     for dest in set(jax) & set(port):
