@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16,17,18,19]
+                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -400,7 +400,36 @@ each of which fails the run (non-zero exit, no result line):
    ``fleet-restore-retired`` of one retired tree verified by ``fsck``.
    The drained workers' ``pad_assemble`` launches sum to the 200-row
    files they served (the SIGKILLed worker prints no line and served
-   none); the launch shape is held and timed as in 18.
+   none); the launch shape is held and timed as in 18;
+20. the estimators of bench.py's families pass and ``stat/``: (a) the
+   families' data (``bench.py:3959-4094``, ``default_rng(7)`` in its
+   draw order at 200 000 rows) fitted on the card cold, warm and under a
+   profiler window (the bench's four) — KMeans (200 000 x 78, k 8, 20
+   iterations), BisectingKMeans (k 8) on the same rows and (k 5) on the
+   GMM's rows, GaussianMixture (50 000 x 20, k 5, 30 iterations, tol
+   1e-3), LDA (5 000 x 1 000, k 10, 20 minibatches of 0.1), implicit ALS
+   (500 000 ratings, 20 000 x 2 000, rank 16, 5 iterations), PIC (4
+   blocks of 750 vertices) — each held against the same fit on the CPU,
+   made by ``--family-fits`` in a process of its own from the phase's
+   start, with the tests' tolerances (KMeans-like predictions equal
+   except on near-tie rows; LDA's log perplexity within 1 % and one
+   E-step at [5 000, 1 000] within 1e-4; BisectingKMeans on the
+   structureless lognormal rows only to the same tree and a cost within
+   ``FAM_BISECT_COST_RTOL``), ``ClusteringEvaluator`` on the KMeans
+   predictions, the GMM's mean log-likelihood and the LDA log perplexity
+   printed beside the JAX package's CPU records; (b) at config 3's width
+   (phase 4's 199 800 training rows, 78 features, 15 classes, 32
+   quantile bins): ``ChiSquareTest`` (one ``tree_hist`` launch [78, N]
+   -> [78, 32, 15]), ``UnivariateFeatureSelector`` categorical (one more
+   launch) and ANOVA top 40, ``ANOVATest``, ``FValueTest``,
+   ``VarianceThresholdSelector``, pearson and spearman ``Correlation``,
+   ``Summarizer``, ``KolmogorovSmirnovTest``, and a ``ChiSquareTest`` on
+   a feature of 4 096 quantile bins (the kernel's rows regime): the
+   chi-square tests, KS, the selections and the Summarizer's counts and
+   extrema bitwise the CPU's, the moment statistics on the card and the
+   CPU within ``ST_MOMENT_RTOL`` of their float64 sums; both
+   contingencies bitwise against the plain version and timed beside
+   their bound and ``index_add_``.
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -435,6 +464,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from scipy.special import psi
 
 from sntc_tpu_torch.core.base import Estimator, Pipeline, PipelineModel
 from sntc_tpu_torch.core.frame import Frame, to_host
@@ -458,6 +488,8 @@ from sntc_tpu_torch.feature import (
     StandardScaler,
     StringIndexer,
     StringIndexerModel,
+    UnivariateFeatureSelector,
+    VarianceThresholdSelector,
     VectorAssembler,
 )
 from sntc_tpu_torch.kernels import _build, histogram
@@ -476,17 +508,26 @@ from sntc_tpu_torch.kernels.histogram import (
     tree_hist_reference,
 )
 from sntc_tpu_torch.models import (
+    ALS,
+    LDA,
+    BisectingKMeans,
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    GaussianMixture,
     GBTClassifier,
     GBTRegressor,
+    KMeans,
     LogisticRegression,
     MultilayerPerceptronClassifier,
     NaiveBayes,
     OneVsRest,
+    PowerIterationClustering,
     RandomForestClassifier,
     RandomForestRegressor,
 )
+from sntc_tpu_torch.models.kmeans import _sq_dists
+from sntc_tpu_torch.models.summary import TrainingSummary
+from sntc_tpu_torch.models.lda import e_step, gamma0
 from sntc_tpu_torch.models import logistic_regression as lr_module
 from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel, _build_fused_ovr
 from sntc_tpu_torch.models.tree import gbt as gbt_module
@@ -495,6 +536,7 @@ from sntc_tpu_torch.app import serving_form
 from sntc_tpu_torch.data import load_csv
 from sntc_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
+    ClusteringEvaluator,
     MulticlassClassificationEvaluator,
     RegressionEvaluator,
 )
@@ -520,6 +562,15 @@ from sntc_tpu_torch.serve import (
 from sntc_tpu_torch.resilience.faults import KILL_EXIT_CODE
 from sntc_tpu_torch.resilience.replicate import last_barrier, promote_standby
 from sntc_tpu_torch.serve.fleet import FleetCoordinator
+from sntc_tpu_torch.stat import (
+    ANOVATest,
+    ChiSquareTest,
+    Correlation,
+    FValueTest,
+    KolmogorovSmirnovTest,
+    Summarizer,
+    factorize,
+)
 from sntc_tpu_torch.tuning import CrossValidator, TrainValidationSplit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1774,10 +1825,12 @@ class CpuFits:
     in a process of their own that starts with the run and fits while
     the card works; the card's fits are compared with them later."""
 
+    FLAG = "--cpu-fits"
+
     def __init__(self, out: str):
         self.out = out
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-fits", out],
+            [sys.executable, os.path.abspath(__file__), self.FLAG, out],
             cwd=REPO, env=env_with(CUDA_VISIBLE_DEVICES=""),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self._secs = None
@@ -1786,7 +1839,7 @@ class CpuFits:
         if self._secs is None:
             out, err = self.proc.communicate(timeout=1200)
             if self.proc.returncode != 0:
-                raise SystemExit(f"the CPU reference fits exited "
+                raise SystemExit(f"{self.FLAG} exited "
                                  f"{self.proc.returncode}:\n{err[-3000:]}")
             self._secs = json.loads(out.strip().splitlines()[-1])
         return self._secs
@@ -1815,11 +1868,8 @@ def cpu_fits_main(out: str) -> int:
         secs[name] = time.perf_counter() - t0
         save_model(model, os.path.join(out, name))
 
-    raw = generate_frame(TRAIN_ROWS, seed=SEED, min_class_fraction=0.005)
-    train, _ = clean_flows(raw).random_split(
-        [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
     fit("reduced", lambda: pipeline(cpu, REDUCED_DEPTH),
-        train.slice(0, REDUCED_ROWS))
+        config3_train().slice(0, REDUCED_ROWS))
     raw4 = generate_frame(GBT_ROWS, seed=GBT_DATA_SEED,
                           min_class_fraction=0.005)
     train4, _ = clean_flows(raw4).random_split(
@@ -8086,6 +8136,695 @@ def report_phase19(p19: dict, card: str) -> None:
         default=str))
 
 
+# -- phase 20: the families pass and the statistics ---------------------------
+
+FAM_SEED = 7  # bench.py:226
+FAM_ROWS = 200_000  # bench.py:4870, the --rows of the families pass
+FAM_JAX_GMM_LL = -29.9746  # bench_runs.jsonl:66 (the JAX package, CPU)
+FAM_JAX_LDA_PERPLEXITY = 5.9284  # bench_runs.jsonl:67 (the JAX package, CPU)
+FAM_KM_RTOL = 1e-5  # tests/test_torch_clustering.py's KMeans tolerance
+# BisectingKMeans on the lognormal rows: each split starts from its
+# parent ± 1e-4, so f32 rounding decides ~1 % of a split's first
+# assignment and the card's and the CPU's 2-means reach other local optima
+# (0.067 of the largest center apart, costs 9.5e-5 apart, the same tree,
+# on an NVIDIA H100 80GB HBM3 at 700 W): held to the same tree and a cost
+# within this; the same estimator on the GMM's five blobs is held to
+# FAM_KM_RTOL
+FAM_BISECT_COST_RTOL = 1e-3
+FAM_TIE_RTOL = 1e-5  # near-tie rows: the two nearest within this share
+FAM_GMM_TOL = 1e-4  # tests/test_torch_clustering.py's GMM tolerance
+FAM_E_STEP_RTOL = 1e-4  # tests/test_torch_lda_als.py's E-step tolerance
+FAM_PERPLEXITY_RTOL = 0.01  # ... and its whole-fit tolerance
+FAM_ALS_TOL = 1e-4  # ... and ALS's
+FAM_PIC_TOL = 1e-4  # tests/test_torch_clustering.py's PIC tolerance
+FAM_PIC_BLOCKS, FAM_PIC_BLOCK = 4, 750  # PIC's graph: 3 000 vertices
+# the moment statistics against their float64 sums, of the largest: one
+# float32 pass about a pilot row (the JAX package's) on the heavy-tailed
+# flow features lies 3e-6 to 3.4e-5 from them at 199 800 rows, by the
+# summation order (the card and the CPU's threads); tests/test_torch_
+# stat.py holds 1e-5 between the packages at 4 003 rows
+ST_MOMENT_RTOL = 1e-4
+ST_WIDE_BINS = 4096  # quantile bins of the wide chi-square feature
+ST_TOP = 40  # the selectors' numTopFeatures (config 3's TOP)
+
+
+def fam_data() -> dict:
+    """The families pass's data (``bench.py:3959-4094``): one
+    ``default_rng(7)``, drawn in its order at its 200 000 rows — KMeans'
+    lognormal rows, GMM's five gaussians, LDA's corpus, ALS's implicit
+    ratings — and PIC's graph of 4 blocks of 750 vertices from seed 8."""
+    rng = np.random.default_rng(FAM_SEED)
+    Xk = rng.lognormal(0.5, 1.2, size=(FAM_ROWS, 78)).astype(np.float32)
+    n_gm = min(FAM_ROWS, 50_000)
+    centers = rng.normal(size=(5, 20)) * 4
+    Xg = (
+        centers[rng.integers(0, 5, n_gm)]
+        + rng.normal(size=(n_gm, 20))
+    ).astype(np.float32)
+    n_docs, vocab, k_t = min(FAM_ROWS // 40, 5_000), 1_000, 10
+    beta = rng.dirichlet([0.05] * vocab, size=k_t)
+    theta = rng.dirichlet([0.3] * k_t, size=n_docs)
+    Xl = np.zeros((n_docs, vocab), np.float32)
+    for d0 in range(0, n_docs, 1_000):
+        d1 = min(d0 + 1_000, n_docs)
+        probs = theta[d0:d1] @ beta
+        Xl[d0:d1] = np.stack(
+            [rng.multinomial(120, probs[i]) for i in range(d1 - d0)]
+        )
+    n_r = 500_000
+    users = rng.integers(0, 20_000, n_r)
+    items = rng.integers(0, 2_000, n_r)
+    ratings = rng.integers(1, 6, n_r).astype(np.float32)
+    g = np.random.default_rng(FAM_SEED + 1)
+    n = FAM_PIC_BLOCKS * FAM_PIC_BLOCK
+    block = np.arange(n) // FAM_PIC_BLOCK
+    iu, ju = np.triu_indices(n, 1)
+    same = block[iu] == block[ju]
+    # dense blocks, few bridges: the embedding's block levels lie apart
+    # (at 0.02 / 0.0005, 1e-6 of noise on v moved vertices between
+    # clusters)
+    keep = g.random(len(iu)) < np.where(same, 0.1, 0.0001)
+    return {
+        "kmeans": Frame({"features": Xk}),
+        "gmm": Frame({"features": Xg}),
+        "lda": Frame({"features": Xl}),
+        "als": Frame({"user": users, "item": items, "rating": ratings}),
+        "pic": Frame({"src": iu[keep].astype(np.int64),
+                      "dst": ju[keep].astype(np.int64),
+                      "weight": np.where(same[keep], 1.0, 0.1)}),
+        "pic_blocks": block,
+    }
+
+
+def fam_fit(name: str, dev, data: dict):
+    """One family's fit on ``dev``: ``(model or PIC, fit_stats)``."""
+    if name == "kmeans":
+        m = KMeans(device=dev, k=8, maxIter=20, seed=FAM_SEED).fit(
+            data["kmeans"])
+    elif name == "bisecting_kmeans":
+        m = BisectingKMeans(device=dev, k=8, seed=FAM_SEED).fit(
+            data["kmeans"])
+    elif name == "bisecting_kmeans_blobs":
+        m = BisectingKMeans(device=dev, k=5, seed=FAM_SEED).fit(data["gmm"])
+    elif name == "gaussian_mixture":
+        m = GaussianMixture(device=dev, k=5, maxIter=30, seed=FAM_SEED,
+                            tol=1e-3).fit(data["gmm"])
+    elif name == "lda":
+        m = LDA(device=dev, k=10, maxIter=20, subsamplingRate=0.1,
+                seed=FAM_SEED).fit(data["lda"])
+    elif name == "als":
+        m = ALS(device=dev, rank=16, maxIter=5, regParam=0.05,
+                implicitPrefs=True, seed=FAM_SEED).fit(data["als"])
+    else:
+        m = PowerIterationClustering(device=dev, k=FAM_PIC_BLOCKS,
+                                     maxIter=20, weightCol="weight",
+                                     seed=FAM_SEED)
+        m.clusters = m.assignClusters(data["pic"])
+    return m, m.fit_stats
+
+
+FAM_NAMES = ("kmeans", "bisecting_kmeans", "bisecting_kmeans_blobs",
+             "gaussian_mixture", "lda", "als", "pic")
+
+
+class FamilyFits(CpuFits):
+    """Phase 20's CPU side, made by ``chip_smoke.py --family-fits DIR``
+    in a process of its own that starts with the phase, on the families'
+    data and config 3's rows regenerated from their seeds; the card's
+    fits and statistics are compared with it."""
+
+    FLAG = "--family-fits"
+
+    def arrays(self, name: str) -> dict:
+        self.seconds()
+        with np.load(os.path.join(self.out, name + ".npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    def model(self, name: str):
+        if name == "pic":
+            return self.arrays("pic")
+        m = super().model(name)
+        with open(os.path.join(self.out, name, "summary.json")) as f:
+            summ = json.load(f)
+        if summ is not None:  # the fit's summary, which saving drops
+            m.summary = TrainingSummary(summ["objectiveHistory"],
+                                        summ["totalIterations"])
+            m.summary.trainingCost = m.summary.logLikelihood = \
+                summ["objectiveHistory"][0]
+        return m
+
+
+def family_fits_main(out: str) -> int:
+    """``--family-fits DIR``: phase 20's CPU side, saved under DIR: the
+    families' fits (PIC's clusters and embedding as ``pic.npz``), and
+    the statistics path on config 3's rows with the float64 oracle of its
+    moments (``stat_cpu.npz``, ``stat_f64.npz``); prints the seconds of
+    each as one JSON line."""
+    cpu = torch.device("cpu")
+    # half the host's cores: the card's process works on the host too
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    secs = {}
+    t0 = time.perf_counter()
+    inp = st20_inputs(config3_train(), cpu)
+    st = st20_run(cpu, inp)
+    np.savez(os.path.join(out, "stat_cpu.npz"), **st20_flat(st["out"]))
+    np.savez(os.path.join(out, "stat_f64.npz"), **st20_oracle(inp))
+    np.savez(os.path.join(out, "stat_inputs.npz"), binned=inp["binned"],
+             wide=inp["wide"])
+    secs["statistics"] = time.perf_counter() - t0
+    data = fam_data()
+    for name in FAM_NAMES:
+        t0 = time.perf_counter()
+        m, stats = fam_fit(name, cpu, data)
+        secs[name] = time.perf_counter() - t0
+        if name == "pic":
+            np.savez(os.path.join(out, "pic.npz"), id=m.clusters["id"],
+                     cluster=m.clusters["cluster"],
+                     embedding=stats["embedding"],
+                     steps=stats["power_steps"])
+        else:
+            save_model(m, os.path.join(out, name))
+            summ = getattr(m, "summary", None)
+            with open(os.path.join(out, name, "summary.json"), "w") as f:
+                json.dump(None if summ is None else {
+                    "objectiveHistory": summ.objectiveHistory,
+                    "totalIterations": summ.totalIterations}, f)
+    print(json.dumps(secs))
+    return 0
+
+
+def fam_rel(a, b) -> float:
+    """Largest difference over the largest magnitude (the tests' rule)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.nanmax(np.abs(a - b)) / max(np.nanmax(np.abs(b)), 1e-30))
+
+
+def near_ties(d: np.ndarray, rtol: float) -> np.ndarray:
+    """Rows whose two smallest of ``d [N, k]`` lie within ``rtol`` of the
+    smallest's magnitude (at least 1)."""
+    two = np.sort(d, axis=1)[:, :2]
+    return (two[:, 1] - two[:, 0]) <= rtol * np.maximum(np.abs(two[:, 0]),
+                                                        1.0)
+
+
+FAM_PROFILED = ("kmeans", "gaussian_mixture", "lda", "als")  # the bench's
+
+
+def fam_card_fits(dev, data: dict) -> dict:
+    """Every family fitted on the card cold and warm; the bench's four
+    once more under a profiler window (device busy ms, idle share)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    out = {}
+    for name in FAM_NAMES:
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, stats = fam_fit(name, dev, data)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"model": m, "cold_s": times[0], "warm_s": times[1],
+                     "host_reads": stats["host_reads"]}
+        if name not in FAM_PROFILED:
+            continue
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fam_fit(name, dev, data)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ops = _device_ms(prof)
+        busy = sum(ops.values())
+        out[name].update({
+            "profiled_s": wall, "device_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+            "top_device_ops_ms": {k: round(v, 3)
+                                  for k, v in list(ops.items())[:4]},
+        })
+    return out
+
+
+def fam_compare(dev, data: dict, card: dict, cpu: FamilyFits,
+                fails: list) -> dict:
+    """Each card fit held against the CPU fit of the same data, with the
+    tests' tolerances; KMeans-like predictions equal except on near-tie
+    rows (the two nearest centers within ``FAM_TIE_RTOL``).  A check that
+    fails adds its message to ``fails``."""
+    res = {}
+    Xk = data["kmeans"]["features"]
+    # KMeans
+    mc, mh = card["kmeans"]["model"], cpu.model("kmeans")
+    pc, ph = mc.predict(Xk), mh.predict(Xk)
+    ties = near_ties(_sq_dists(Xk.astype(np.float64), mh.clusterCenters,
+                               False), FAM_TIE_RTOL)
+    res["kmeans"] = {
+        "centers_rel": fam_rel(mc.clusterCenters, mh.clusterCenters),
+        "cost_rel": abs(mc.summary.trainingCost / mh.summary.trainingCost
+                        - 1.0),
+        "iterations": [mc.summary.totalIterations,
+                       mh.summary.totalIterations],
+        "rows_differing": int((pc != ph).sum()),
+        "near_tie_rows": int(ties.sum()),
+        "cost": mc.summary.trainingCost,
+    }
+    r = res["kmeans"]
+    if (r["centers_rel"] > FAM_KM_RTOL or r["cost_rel"] > FAM_KM_RTOL
+            or r["iterations"][0] != r["iterations"][1]
+            or ((pc != ph) & ~ties).any()):
+        fails.append(f"phase 20 KMeans: the card's fit is not the "
+                         f"CPU's: {r}")
+    # ClusteringEvaluator on the card fit's predictions
+    ev = ClusteringEvaluator()
+    s_card = ev.evaluate(Frame({"features": Xk, "prediction": pc}))
+    s_cpu = ev.evaluate(Frame({"features": Xk, "prediction": ph}))
+    res["silhouette"] = {"card": s_card, "cpu": s_cpu}
+    if r["rows_differing"] == 0 and s_card != s_cpu:
+        fails.append(f"phase 20 silhouette: {s_card} != {s_cpu}")
+    # BisectingKMeans: on the lognormal rows the same tree and cost, on
+    # the GMM's blobs the same fit
+    for name, X, strict in (("bisecting_kmeans", Xk, False),
+                            ("bisecting_kmeans_blobs",
+                             data["gmm"]["features"], True)):
+        bc, bh = card[name]["model"], cpu.model(name)
+        same_tree = (np.array_equal(bc._left, bh._left)
+                     and np.array_equal(bc._right, bh._right))
+        pbc, pbh = bc.predict(X), bh.predict(X)
+        ties = near_ties(_sq_dists(X.astype(np.float64), bh.clusterCenters,
+                                   False), FAM_TIE_RTOL)
+        r = res[name] = {
+            "same_tree": same_tree,
+            "centers_rel": (fam_rel(bc.clusterCenters, bh.clusterCenters)
+                            if same_tree else None),
+            "rows_differing": int((pbc != pbh).sum()),
+            "near_tie_rows": int(ties.sum()),
+            "cost": bc.summary.trainingCost,
+            "cost_rel": abs(bc.summary.trainingCost
+                            / bh.summary.trainingCost - 1.0),
+        }
+        if not same_tree or r["cost_rel"] > (
+                FAM_KM_RTOL if strict else FAM_BISECT_COST_RTOL) or (
+                strict and (r["centers_rel"] > FAM_KM_RTOL
+                            or ((pbc != pbh) & ~ties).any())):
+            fails.append(f"phase 20 {name}: the card's fit is not the "
+                         f"CPU's: {r}")
+    # GaussianMixture
+    gc, gh = card["gaussian_mixture"]["model"], cpu.model("gaussian_mixture")
+    Xg = data["gmm"]["features"]
+    prob_c, prob_h = gc.predictProbability(Xg), gh.predictProbability(Xg)
+    top2 = np.sort(prob_h, axis=1)[:, -2:]
+    gties = (top2[:, 1] - top2[:, 0]) <= FAM_GMM_TOL
+    res["gaussian_mixture"] = {
+        "loglik": gc.summary.logLikelihood,
+        "loglik_cpu": gh.summary.logLikelihood,
+        "iterations": [gc.summary.totalIterations,
+                       gh.summary.totalIterations],
+        "means_abs": float(np.abs(gc.means - gh.means).max()),
+        "covs_abs": float(np.abs(gc.covs - gh.covs).max()),
+        "weights_abs": float(np.abs(gc.weights - gh.weights).max()),
+        "rows_differing": int((prob_c.argmax(1) != prob_h.argmax(1)).sum()),
+    }
+    r = res["gaussian_mixture"]
+    if (max(r["means_abs"], r["covs_abs"], r["weights_abs"],
+            abs(r["loglik"] - r["loglik_cpu"])) > FAM_GMM_TOL
+            or r["iterations"][0] != r["iterations"][1]
+            or ((prob_c.argmax(1) != prob_h.argmax(1)) & ~gties).any()):
+        fails.append(f"phase 20 GaussianMixture: the card's fit is not "
+                         f"the CPU's: {r}")
+    # LDA: the fits' perplexities, and one E-step on the card and the CPU
+    lc, lh = card["lda"]["model"], cpu.model("lda")
+    perp_c = lc.logPerplexity(data["lda"])
+    perp_h = lh.logPerplexity(data["lda"])
+    Xl = data["lda"]["features"]
+    eeb = np.exp(psi(lc.lam) - psi(lc.lam.sum(axis=1, keepdims=True))
+                 ).astype(np.float32)
+    g0 = gamma0(FAM_SEED, (0,), Xl.shape[0], lc.lam.shape[0])
+    steps = {}
+    for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        g, s, it, _ = e_step(torch.from_numpy(Xl).to(d),
+                             torch.from_numpy(eeb).to(d), lc.alpha,
+                             torch.from_numpy(g0).to(d))
+        steps[tag] = (g.cpu().numpy(), s.cpu().numpy(), it)
+    res["lda"] = {
+        "log_perplexity": perp_c, "log_perplexity_cpu": perp_h,
+        "e_step_gamma_rel": fam_rel(steps["card"][0], steps["cpu"][0]),
+        "e_step_stat_rel": fam_rel(steps["card"][1], steps["cpu"][1]),
+        "e_step_updates": [steps["card"][2], steps["cpu"][2]],
+    }
+    r = res["lda"]
+    if (abs(perp_c / perp_h - 1.0) > FAM_PERPLEXITY_RTOL
+            or r["e_step_gamma_rel"] > FAM_E_STEP_RTOL
+            or r["e_step_stat_rel"] > FAM_E_STEP_RTOL
+            or r["e_step_updates"][0] != r["e_step_updates"][1]):
+        fails.append(f"phase 20 LDA: the card is not the CPU: {r}")
+    # ALS
+    ac, ah = card["als"]["model"], cpu.model("als")
+    res["als"] = {
+        "user_rel": fam_rel(ac.userFactors["features"],
+                            ah.userFactors["features"]),
+        "item_rel": fam_rel(ac.itemFactors["features"],
+                            ah.itemFactors["features"]),
+    }
+    if max(res["als"].values()) > FAM_ALS_TOL:
+        fails.append(f"phase 20 ALS: the card's factors are not the "
+                         f"CPU's: {res['als']}")
+    # PIC
+    pic, ref = card["pic"]["model"], cpu.model("pic")
+    cl, cl_h = np.asarray(pic.clusters["cluster"]), ref["cluster"]
+    pairs = set(zip(cl.tolist(), cl_h.tolist()))
+    blocks = data["pic_blocks"][np.asarray(pic.clusters["id"])]
+    res["pic"] = {
+        "v_rel": fam_rel(pic.fit_stats["embedding"], ref["embedding"]),
+        "steps": [pic.fit_stats["power_steps"], int(ref["steps"])],
+        "same_partition": len(pairs) == len(set(cl.tolist()))
+        == len(set(cl_h.tolist())),
+        "block_purity": float(np.mean([
+            np.bincount(cl[blocks == b]).max() / FAM_PIC_BLOCK
+            for b in range(FAM_PIC_BLOCKS)])),
+    }
+    r = res["pic"]
+    if (r["v_rel"] > FAM_PIC_TOL or r["steps"][0] != r["steps"][1]
+            or not r["same_partition"]):
+        fails.append(f"phase 20 PIC: the card is not the CPU: {r}")
+    return res
+
+
+def config3_train() -> Frame:
+    """Config 3's training rows (phase 4's split): 250 000 generated
+    flows from seed 0, cleaned, the 0.8 share."""
+    raw = generate_frame(TRAIN_ROWS, seed=SEED, min_class_fraction=0.005)
+    train, _ = clean_flows(raw).random_split(
+        [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    return train
+
+
+def st20_inputs(train: Frame, dev) -> dict:
+    """The statistics' inputs: the 78 raw features, the 15 label ids, the
+    features quantile-binned to 32 bins on the card, and the wide
+    chi-square input (the feature of most distinct values binned to 4 096
+    quantiles, beside the first binned feature)."""
+    X = np.stack([train[c] for c in CICIDS2017_FEATURES],
+                 axis=1).astype(np.float32)
+    y = StringIndexer(inputCol="Label", outputCol="label").fit(
+        train).transform(train)["label"]
+    binned = bin_features(
+        torch.from_numpy(X).to(dev),
+        torch.from_numpy(quantile_bin_edges(X, BINS)).to(dev)).cpu().numpy()
+    j = int(np.argmax([len(np.unique(X[:, i])) for i in range(X.shape[1])]))
+    col = X[:, [j]]
+    wide = bin_features(
+        torch.from_numpy(col).to(dev),
+        torch.from_numpy(quantile_bin_edges(col, ST_WIDE_BINS)).to(dev)
+    ).cpu().numpy()[:, 0]
+    t = CICIDS2017_FEATURES.index(REG_TARGET)
+    return {
+        "X": X, "y": y, "binned": binned,
+        "wide": np.stack([wide, binned[:, 0]], axis=1),
+        "wide_feature": CICIDS2017_FEATURES[j],
+        "X77": np.delete(X, t, axis=1),
+        "target": np.log1p(np.abs(X[:, t].astype(np.float64))),
+    }
+
+
+def st20_run(dev, inp: dict) -> dict:
+    """The statistics path on ``dev``: each result, its seconds, and the
+    ``tree_hist`` launches of its two chi-square shapes."""
+    X, y = inp["X"], inp["y"]
+    out, secs = {}, {}
+
+    def timed20(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+
+    l0 = LAUNCHES["tree_hist"]
+    timed20("chi_square", lambda: ChiSquareTest.test(
+        Frame({"f": inp["binned"], "label": y}), "f", "label", device=dev))
+    timed20("ufs_chi2", lambda: UnivariateFeatureSelector(
+        device=dev, featureType="categorical", labelType="categorical",
+        selectionThreshold=ST_TOP).fit(Frame({"features": X, "label": y})))
+    l1 = LAUNCHES["tree_hist"]
+    timed20("wide_chi_square", lambda: ChiSquareTest.test(
+        Frame({"f": inp["wide"], "label": y}), "f", "label", device=dev))
+    l2 = LAUNCHES["tree_hist"]
+    timed20("ufs_anova", lambda: UnivariateFeatureSelector(
+        device=dev, featureType="continuous", labelType="categorical",
+        selectionThreshold=ST_TOP).fit(Frame({"features": X, "label": y})))
+    timed20("anova", lambda: ANOVATest.test(
+        Frame({"features": X, "label": y}), "features", "label",
+        device=dev))
+    timed20("f_value", lambda: FValueTest.test(
+        Frame({"features": inp["X77"], "label": inp["target"]}), "features",
+        "label", device=dev))
+    timed20("variance", lambda: VarianceThresholdSelector(device=dev).fit(
+        Frame({"features": X})))
+    for method in ("pearson", "spearman"):
+        timed20(method, lambda: Correlation.corr(
+            Frame({"features": X}), "features", method, device=dev)[method])
+    timed20("summary", lambda: Summarizer.metrics(*ST_METRICS).summary(
+        Frame({"features": X}), "features", device=dev))
+    x = inp["target"]
+    timed20("ks", lambda: KolmogorovSmirnovTest.test(
+        Frame({"s": x}), "s", "norm", float(x.mean()), float(x.std())))
+    return {"out": out, "seconds": secs,
+            "launches": {"narrow": l1 - l0, "wide": l2 - l1}}
+
+
+ST_METRICS = ("mean", "sum", "variance", "std", "count", "numNonZeros",
+              "max", "min", "normL1", "normL2", "weightSum")
+ST_EXACT = ("chi_square/", "wide_chi_square/", "ks/", "ufs_chi2",
+            "ufs_anova", "variance_selected", "anova/degreesOfFreedom",
+            "f_value/degreesOfFreedom", "summary/count",
+            "summary/min", "summary/max", "summary/numNonZeros",
+            "summary/weightSum")
+
+
+def st20_flat(out: dict) -> dict:
+    """The statistics path's results as named arrays."""
+    flat = {}
+    for name in ("chi_square", "wide_chi_square", "ks", "anova", "f_value"):
+        for col in out[name].columns:
+            flat[f"{name}/{col}"] = np.asarray(out[name][col])
+    flat["ufs_chi2"] = np.asarray(out["ufs_chi2"].selected_features)
+    flat["ufs_anova"] = np.asarray(out["ufs_anova"].selected_features)
+    flat["variance_selected"] = np.asarray(out["variance"].selectedFeatures)
+    flat["pearson"] = np.asarray(out["pearson"])
+    flat["spearman"] = np.asarray(out["spearman"])
+    for m in ST_METRICS:
+        flat[f"summary/{m}"] = np.asarray(out["summary"][m])
+    return flat
+
+
+def _corr64(X: np.ndarray) -> np.ndarray:
+    """``Correlation``'s matrix from float64 sums about the pilot row."""
+    xc = X - X[0]
+    n, s = float(len(X)), xc.sum(axis=0)
+    cov = xc.T @ xc - np.outer(s, s) / n
+    d = np.sqrt(np.maximum(np.diag(cov), 0.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m = cov / np.outer(d, d)
+    m[np.isinf(m)] = np.nan
+    np.fill_diagonal(m, 1.0)
+    return np.clip(m, -1.0, 1.0)
+
+
+def st20_oracle(inp: dict) -> dict:
+    """The moment statistics from float64 sums (the same formulas, the
+    same pilot rows): what the float32 sums of card and CPU approach."""
+    from scipy.stats import rankdata
+    from sntc_tpu_torch.feature.univariate_selector import (
+        f_classif,
+        f_regression,
+    )
+
+    X = inp["X"].astype(np.float64)
+    y = np.asarray(inp["y"]).astype(np.int64)
+    xc = X - X[0]
+    oh = np.eye(int(y.max()) + 1)[y]
+    F, _ = f_classif((oh.sum(axis=0), xc.T @ oh, (xc * xc).T @ oh))
+    X77, t = inp["X77"].astype(np.float64), inp["target"].astype(
+        np.float32).astype(np.float64)
+    x7, tc = X77 - X77[0], t - t[0]
+    Fr, _ = f_regression((float(len(t)), x7.sum(axis=0),
+                          (x7 * x7).sum(axis=0), tc.sum(), (tc * tc).sum(),
+                          (x7 * tc[:, None]).sum(axis=0)))
+    ranks = np.stack([rankdata(X[:, j], method="average")
+                      for j in range(X.shape[1])], axis=1)
+    n = float(len(X))
+    mean = X.mean(axis=0)
+    var = ((X - mean) ** 2).sum(axis=0) / (n - 1.0)
+    return {
+        "anova/statistics": F[None, :], "f_value/statistics": Fr[None, :],
+        "pearson": _corr64(X), "spearman": _corr64(ranks),
+        "summary/mean": mean[None, :], "summary/sum": X.sum(axis=0)[None],
+        "summary/variance": var[None, :], "summary/std": np.sqrt(var)[None],
+        "summary/normL1": np.abs(X).sum(axis=0)[None],
+        "summary/normL2": np.sqrt((X * X).sum(axis=0))[None],
+    }
+
+
+def st20_compare(card: dict, cpu: dict, f64: dict, fails: list) -> dict:
+    """The card's statistics against the CPU's: the chi-square tests, KS,
+    the selections and the Summarizer's counts and extrema bitwise; each
+    moment statistic, the card's and the CPU's, within
+    ``ST_MOMENT_RTOL`` of the largest of its float64 value."""
+    res = {}
+    for key, want in cpu.items():
+        got = card[key]
+        if key.startswith(ST_EXACT):
+            if not np.array_equal(got, want):
+                fails.append(f"phase 20 {key}: differs from the CPU's")
+            res[key] = "bitwise"
+        elif key in f64:
+            if not np.array_equal(np.isnan(got), np.isnan(f64[key])):
+                fails.append(f"phase 20 {key}: NaN where float64 has none")
+            e_card, e_cpu = fam_rel(got, f64[key]), fam_rel(want, f64[key])
+            res[key] = {"card_vs_f64": e_card, "cpu_vs_f64": e_cpu,
+                        "card_vs_cpu": fam_rel(got, want)}
+            if not max(e_card, e_cpu) <= ST_MOMENT_RTOL:
+                fails.append(f"phase 20 {key}: {res[key]} beyond "
+                             f"{ST_MOMENT_RTOL} of the float64 sums")
+    return res
+
+
+def st20_cases(inp: dict, dev) -> dict:
+    """The two chi-square contingencies as ``tree_hist`` cases (one node,
+    one-hot label stats), bitwise against the plain version."""
+    y_t = torch.from_numpy(np.asarray(inp["y"]).astype(np.int64)).to(dev)
+    stats = torch.nn.functional.one_hot(y_t, CLASSES).to(
+        torch.float32).contiguous()
+    n = y_t.shape[0]
+    cases = {}
+    for name, X in (("chi-square test", inp["binned"]),
+                    ("wide chi-square test", inp["wide"])):
+        binned, n_bins, _, _ = factorize(X, inp["y"],
+                                         ChiSquareTest.MAX_CATEGORIES)
+        cases[name] = dict(
+            binned_t=torch.from_numpy(np.ascontiguousarray(binned.T)).to(dev),
+            stats=stats, weights=None,
+            node_idx=torch.zeros((1, n), dtype=torch.int32, device=dev),
+            n_nodes=1, n_bins=n_bins, integer=True)
+    return cases
+
+
+def families(dev, train: Frame, work: str) -> dict:
+    """Phase 20: (a) the families pass on the card against the CPU, (b)
+    the statistics at config 3's width against the CPU and float64.  The
+    CPU side runs in its own process from the phase's start; every check
+    runs, and the phase fails with all the failures at its end."""
+    t0 = time.perf_counter()
+    parts, fails = {}, []
+
+    def part(name, t):
+        parts[name] = round(time.perf_counter() - t, 3)
+        return time.perf_counter()
+
+    fam_dir = os.path.join(work, "family_fits")
+    os.makedirs(fam_dir)
+    cpu_fits = FamilyFits(fam_dir)
+    try:
+        t = time.perf_counter()
+        data = fam_data()
+        t = part("data", t)
+        reset_launches()
+        card = fam_card_fits(dev, data)
+        fam_launches = dict(LAUNCHES)
+        t = part("card_fits", t)
+        inp = st20_inputs(train, dev)
+        reset_launches()
+        st_card = st20_run(dev, inp)
+        st_launches = dict(LAUNCHES)
+        t = part("card_statistics", t)
+        if st_launches["tree_hist"] != 3 or st_card["launches"] != {
+                "narrow": 2, "wide": 1}:
+            fails.append(f"phase 20: tree_hist launched "
+                         f"{st_card['launches']} (want 2 at 32 bins, 1 "
+                         f"wide), counts {st_launches}")
+        if any(fam_launches.values()):
+            fails.append(f"phase 20: the families launched kernels "
+                         f"{fam_launches}")
+        cases = st20_cases(inp, dev)
+        err = check_tree_hist(cases)
+        plans = {k: tree_hist_plan(c["binned_t"].shape[1],
+                                   c["binned_t"].shape[0], 1, 1, c["n_bins"],
+                                   CLASSES) for k, c in cases.items()}
+        if plans["wide chi-square test"]["regime"] != "rows":
+            fails.append(f"phase 20: the wide contingency took the "
+                         f"{plans['wide chi-square test']} plan")
+        kernels = (measure_tree_hist({"chi-square test":
+                                      cases["chi-square test"]}, err,
+                                     st_card["launches"]["narrow"])
+                   + measure_tree_hist({"wide chi-square test":
+                                        cases["wide chi-square test"]}, err,
+                                       st_card["launches"]["wide"]))
+        t = part("kernel_checks_and_times", t)
+        cpu_secs = cpu_fits.seconds()
+        t = part("waited_for_cpu", t)
+        same_in = cpu_fits.arrays("stat_inputs")
+        if not (np.array_equal(same_in["binned"], inp["binned"])
+                and np.array_equal(same_in["wide"], inp["wide"])):
+            fails.append("phase 20: the CPU process binned other values")
+        st = st20_compare(st20_flat(st_card["out"]),
+                          cpu_fits.arrays("stat_cpu"),
+                          cpu_fits.arrays("stat_f64"), fails)
+        cmp = fam_compare(dev, data, card, cpu_fits, fails)
+        t = part("compare", t)
+    finally:
+        cpu_fits.close()
+    p20 = {
+        "seconds": time.perf_counter() - t0, "parts_s": parts, "fits": {
+            k: {kk: vv for kk, vv in v.items() if kk != "model"}
+            for k, v in card.items()},
+        "cpu_s": cpu_secs, "compare": cmp, "stat": st,
+        "stat_seconds": st_card["seconds"],
+        "wide_feature": inp["wide_feature"], "plans": plans,
+        "kernels": kernels,
+    }
+    if fails:
+        log("phase 20 " + json.dumps({k: p20[k] for k in (
+            "parts_s", "compare", "stat")}, default=str))
+        raise SystemExit("phase 20 failed:\n" + "\n".join(fails))
+    return p20
+
+
+def report_phase20(p20: dict, card: str) -> None:
+    fits, cmp = p20["fits"], p20["compare"]
+    for name, f in fits.items():
+        prof = ("" if "profiled_s" not in f else
+                f"; profiled {f['profiled_s']:.3f} s with device busy "
+                f"{f['device_ms']:.1f} ms (idle share "
+                f"{f['device_idle_share']:.3f}), top device ops "
+                f"{f['top_device_ops_ms']}")
+        log(f"phase 20 {name}: cold {f['cold_s']:.3f} s, warm "
+            f"{f['warm_s']:.3f} s, {f['host_reads']} host reads{prof}; CPU "
+            f"fit {p20['cpu_s'][name]:.3f} s [{card}]")
+    g, lda = cmp["gaussian_mixture"], cmp["lda"]
+    log(f"phase 20 GaussianMixture mean log-likelihood {g['loglik']:.4f} on "
+        f"the card, {g['loglik_cpu']:.4f} on the CPU; the JAX package's "
+        f"record {FAM_JAX_GMM_LL} (bench_runs.jsonl:66, CPU) [{card}]")
+    log(f"phase 20 LDA log perplexity {lda['log_perplexity']:.4f} on the "
+        f"card, {lda['log_perplexity_cpu']:.4f} on the CPU; the JAX "
+        f"package's record {FAM_JAX_LDA_PERPLEXITY} (bench_runs.jsonl:67, "
+        f"CPU) [{card}]")
+    log(f"phase 20 KMeans cost {cmp['kmeans']['cost']:.6g}, silhouette "
+        f"{cmp['silhouette']['card']:.6f} (CPU fit's "
+        f"{cmp['silhouette']['cpu']:.6f}) [{card}]")
+    for k in p20["kernels"]:
+        log(f"phase 20 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms, index_add_ {k['library_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}); "
+            f"{_plan(k['plan'])}; {k['launches']} launches on the path "
+            f"[{card}]")
+    log("phase 20 " + json.dumps({
+        "phase": 20, "card": card, "seconds": round(p20["seconds"], 3),
+        "parts_s": p20["parts_s"], "cpu_s": p20["cpu_s"],
+        "compare": cmp, "stat": p20["stat"],
+        "stat_seconds": p20["stat_seconds"],
+        "wide_feature": p20["wide_feature"], "plans": p20["plans"]},
+        default=str))
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 
@@ -8407,7 +9146,8 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
-PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19")
+PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
+          "20")
 
 
 def main() -> int:
@@ -8420,12 +9160,17 @@ def main() -> int:
                     help="run only these phases, comma-separated, of "
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first, 18 and 19 config 9's LR "
-                    "pipeline); default: every phase")
+                    "pipeline, 20 generates config 3's rows); default: "
+                    "every phase")
     ap.add_argument("--cpu-fits", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--family-fits", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.cpu_fits:
         return cpu_fits_main(args.cpu_fits)
+    if args.family_fits:
+        return family_fits_main(args.family_fits)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -8574,6 +9319,9 @@ def main_all(dev, card: str, args, built, build_pool,
             phase10 = lane_fits(dev, data2, data1, work)
     with clock("14 lifecycle"):
         phase14["lr"] = lr_partial_fit(dev, data1)
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        with clock("20 families"):
+            phase20 = families(dev, data["train"], work)
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -8583,6 +9331,7 @@ def main_all(dev, card: str, args, built, build_pool,
     kernels += phase17["kernels"]
     kernels += phase18["kernels"]
     kernels += phase19["kernels"]
+    kernels += phase20["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -8768,6 +9517,7 @@ def main_all(dev, card: str, args, built, build_pool,
     report_phase17(phase17, card)
     report_phase18(phase18, card)
     report_phase19(phase19, card)
+    report_phase20(phase20, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -8797,6 +9547,7 @@ def main_all(dev, card: str, args, built, build_pool,
                        "phase14": phase14, "phase15": phase15,
                        "phase16": phase16, "phase17": phase17,
                        "phase18": phase18, "phase19": phase19,
+                       "phase20": phase20,
                        "phase_seconds": PHASE_SECONDS}, f,
                       indent=1, default=str)
     finish(kernels, card)
@@ -8891,6 +9642,11 @@ def main_phases(dev, card: str, phases: list) -> int:
                 p19 = fleet_serving(dev, work, shared)
             report_phase19(p19, card)
             kernels += p19["kernels"]
+        if "20" in phases:
+            with clock("20 families"):
+                p20 = families(dev, config3_train(), work)
+            report_phase20(p20, card)
+            kernels += p20["kernels"]
     finish(kernels, card)
     return 0
 

@@ -8,14 +8,15 @@ a ported path is a CUDA kernel written by hand for ``sm_90a``, built from
 
 The port trains and serves multilayer-perceptron, logistic-regression,
 random-forest, decision-tree, one-vs-rest gradient-boosted-tree,
-naive-Bayes and one-vs-rest linear-SVM pipelines, and the tree
-regressors:
+naive-Bayes and one-vs-rest linear-SVM pipelines, the tree
+regressors, and the clustering, topic and recommendation estimators:
 
   core/        Params, Frame (numpy or device-tensor columns), Estimator,
                Pipeline, PipelineModel
   data/        CICIDS2017 schema, CSV ingest + cleaning, synthetic traffic
   feature/     VectorAssembler, ChiSqSelector, StandardScaler,
                MinMaxScaler, MaxAbsScaler, RobustScaler, PCA,
+               UnivariateFeatureSelector, VarianceThresholdSelector,
                StringIndexer (+ models), IndexToString, Normalizer,
                Binarizer, DCT
   ops/         quantile binning, the chi-square contingency, the
@@ -26,9 +27,14 @@ regressors:
                LogisticRegression, LinearSVC, NaiveBayes,
                RandomForestClassifier, DecisionTreeClassifier,
                GBTClassifier, OneVsRest, the DT/RF/GBT regressors (+
-               their models), the level-wise grower, training summaries
+               their models), the level-wise grower, training summaries;
+               KMeans, BisectingKMeans, GaussianMixture, LDA, ALS,
+               PowerIterationClustering
   evaluation/  MulticlassClassificationEvaluator (every metric name),
-               BinaryClassificationEvaluator, RegressionEvaluator
+               BinaryClassificationEvaluator, RegressionEvaluator,
+               ClusteringEvaluator
+  stat/        Correlation, ChiSquareTest, ANOVATest, FValueTest,
+               KolmogorovSmirnovTest, Summarizer
   tuning/      ParamGridBuilder, CrossValidator, TrainValidationSplit
                (+ models); LogisticRegression grids and folds fit as
                lanes of one LBFGS loop

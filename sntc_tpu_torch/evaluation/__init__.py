@@ -1,4 +1,5 @@
 from sntc_tpu_torch.evaluation.binary import BinaryClassificationEvaluator
+from sntc_tpu_torch.evaluation.clustering import ClusteringEvaluator
 from sntc_tpu_torch.evaluation.multiclass import (
     MulticlassClassificationEvaluator,
     MulticlassMetrics,
@@ -7,6 +8,7 @@ from sntc_tpu_torch.evaluation.regression import RegressionEvaluator
 
 __all__ = [
     "BinaryClassificationEvaluator",
+    "ClusteringEvaluator",
     "MulticlassClassificationEvaluator",
     "MulticlassMetrics",
     "RegressionEvaluator",

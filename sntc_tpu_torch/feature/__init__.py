@@ -23,6 +23,14 @@ from sntc_tpu_torch.feature.string_indexer import (
     StringIndexer,
     StringIndexerModel,
 )
+from sntc_tpu_torch.feature.univariate_selector import (
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+)
+from sntc_tpu_torch.feature.variance_selector import (
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+)
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
 
 __all__ = [
@@ -44,5 +52,9 @@ __all__ = [
     "StandardScalerModel",
     "StringIndexer",
     "StringIndexerModel",
+    "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel",
+    "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel",
     "VectorAssembler",
 ]

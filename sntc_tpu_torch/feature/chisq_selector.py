@@ -23,7 +23,10 @@ from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
-from sntc_tpu_torch.feature.selection import select_features_by_mode
+from sntc_tpu_torch.feature.selection import (
+    select_columns,
+    select_features_by_mode,
+)
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 from sntc_tpu_torch.ops.histogram import binned_contingency, chi_square
 
@@ -126,15 +129,6 @@ class ChiSqSelectorModel(_SelectorParams, Model):
         return m
 
     def transform(self, frame: Frame) -> Frame:
-        X = frame[self.getFeaturesCol()]
-        if isinstance(X, torch.Tensor):
-            idx = self._index_on.get(X.device)
-            if idx is None:
-                idx = torch.tensor(
-                    self.selected_features, dtype=torch.long, device=X.device
-                )
-                self._index_on[X.device] = idx
-            out = X.index_select(1, idx)
-        else:
-            out = np.ascontiguousarray(X[:, self.selected_features])
+        out = select_columns(frame[self.getFeaturesCol()],
+                             self.selected_features, self._index_on)
         return frame.with_column(self.getOutputCol(), out)

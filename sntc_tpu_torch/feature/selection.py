@@ -10,6 +10,8 @@ from that package): Spark's five ``selectorType`` semantics
   * ``fpr``            — every feature with ``p < threshold``,
   * ``fdr``            — Benjamini-Hochberg step-up at ``threshold``,
   * ``fwe``            — Bonferroni: ``p < threshold / F``.
+
+:func:`select_columns` is the selectors' shared transform.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 
 def select_features_by_mode(
@@ -47,3 +50,16 @@ def select_features_by_mode(
     else:
         raise ValueError(f"unknown selection mode {mode!r}")
     return sorted(int(i) for i in chosen)
+
+
+def select_columns(X, idx: List[int], cache: dict):
+    """The selectors' transform, ``X[:, idx]``: ``index_select`` on a
+    tensor's device (the index uploaded once per device, kept in
+    ``cache``), a contiguous numpy gather otherwise."""
+    if isinstance(X, torch.Tensor):
+        t = cache.get(X.device)
+        if t is None:
+            t = cache[X.device] = torch.tensor(idx, dtype=torch.long,
+                                               device=X.device)
+        return X.index_select(1, t)
+    return np.ascontiguousarray(np.asarray(X)[:, idx])

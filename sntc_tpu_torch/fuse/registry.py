@@ -21,9 +21,10 @@ Registered: ``StandardScalerModel``, ``MinMaxScalerModel``,
 (the three scalers' elementwise float32 maps and the two full-f32
 products run the same code as their staged transforms: the models'
 ``scale_tensor``, ``pca_project`` and ``dct_apply``),
-``ChiSqSelectorModel`` (a column gather) and ``VectorAssembler`` in
-``keep`` mode.  The JAX package's other registered stages wait for
-their ports.
+``ChiSqSelectorModel``, ``UnivariateFeatureSelectorModel`` and
+``VarianceThresholdSelectorModel`` (column gathers) and
+``VectorAssembler`` in ``keep`` mode.  The JAX package's other
+registered stages wait for their ports.
 
 A plan may carry ``flops(env)``: the FLOPs of its products on the bound
 tensors, which the segment's roofline counts (``obs.cost``).
@@ -105,6 +106,12 @@ def _register_builtin() -> None:
         RobustScalerModel,
     )
     from sntc_tpu_torch.feature.standard_scaler import StandardScalerModel
+    from sntc_tpu_torch.feature.univariate_selector import (
+        UnivariateFeatureSelectorModel,
+    )
+    from sntc_tpu_torch.feature.variance_selector import (
+        VarianceThresholdSelectorModel,
+    )
     from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
     from sntc_tpu_torch.obs.cost import matmul_flops
 
@@ -182,6 +189,18 @@ def _register_builtin() -> None:
     def _chisq_selector(m):
         return _gather_plan(
             m.getFeaturesCol(), m.getOutputCol(), m.selected_features
+        )
+
+    @_register(UnivariateFeatureSelectorModel)
+    def _univariate_selector(m):
+        return _gather_plan(
+            m.getFeaturesCol(), m.getOutputCol(), m.selected_features
+        )
+
+    @_register(VarianceThresholdSelectorModel)
+    def _variance_selector(m):
+        return _gather_plan(
+            m.getFeaturesCol(), m.getOutputCol(), m.selectedFeatures
         )
 
     @_register(VectorAssembler)

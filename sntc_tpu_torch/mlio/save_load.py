@@ -43,6 +43,7 @@ from sntc_tpu_torch.core.base import Pipeline, PipelineModel, PipelineStage
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
+    ClusteringEvaluator,
     MulticlassClassificationEvaluator,
     RegressionEvaluator,
 )
@@ -65,7 +66,18 @@ from sntc_tpu_torch.feature.string_indexer import (
     StringIndexer,
     StringIndexerModel,
 )
+from sntc_tpu_torch.feature.univariate_selector import (
+    UnivariateFeatureSelectorModel,
+)
+from sntc_tpu_torch.feature.variance_selector import (
+    VarianceThresholdSelectorModel,
+)
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.models.als import ALSModel
+from sntc_tpu_torch.models.bisecting_kmeans import BisectingKMeansModel
+from sntc_tpu_torch.models.gaussian_mixture import GaussianMixtureModel
+from sntc_tpu_torch.models.kmeans import KMeansModel
+from sntc_tpu_torch.models.lda import LDAModel
 from sntc_tpu_torch.models.linear_svc import LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
@@ -136,6 +148,17 @@ PORTED_CLASSES: Dict[str, type] = {
     "RandomForestRegressionModel": RandomForestRegressionModel,
     "sntc_tpu.models.tree.gbt_regressor.GBTRegressionModel":
         GBTRegressionModel,
+    "sntc_tpu.models.kmeans.KMeansModel": KMeansModel,
+    "sntc_tpu.models.bisecting_kmeans.BisectingKMeansModel":
+        BisectingKMeansModel,
+    "sntc_tpu.models.gaussian_mixture.GaussianMixtureModel":
+        GaussianMixtureModel,
+    "sntc_tpu.models.lda.LDAModel": LDAModel,
+    "sntc_tpu.models.als.ALSModel": ALSModel,
+    "sntc_tpu.feature.univariate_selector.UnivariateFeatureSelectorModel":
+        UnivariateFeatureSelectorModel,
+    "sntc_tpu.feature.variance_selector.VarianceThresholdSelectorModel":
+        VarianceThresholdSelectorModel,
     # the estimators and evaluators a tuning spec holds
     "sntc_tpu.core.base.Pipeline": Pipeline,
     "sntc_tpu.feature.string_indexer.StringIndexer": StringIndexer,
@@ -149,6 +172,8 @@ PORTED_CLASSES: Dict[str, type] = {
         MulticlassClassificationEvaluator,
     "sntc_tpu.evaluation.regression.RegressionEvaluator":
         RegressionEvaluator,
+    "sntc_tpu.evaluation.clustering.ClusteringEvaluator":
+        ClusteringEvaluator,
     "sntc_tpu.tuning.cross_validator.CrossValidator": CrossValidator,
     "sntc_tpu.tuning.cross_validator.CrossValidatorModel":
         CrossValidatorModel,

@@ -1,7 +1,18 @@
+from sntc_tpu_torch.models.als import ALS, ALSModel
 from sntc_tpu_torch.models.base import (
     ClassificationModel,
     ClassifierEstimator,
 )
+from sntc_tpu_torch.models.bisecting_kmeans import (
+    BisectingKMeans,
+    BisectingKMeansModel,
+)
+from sntc_tpu_torch.models.gaussian_mixture import (
+    GaussianMixture,
+    GaussianMixtureModel,
+)
+from sntc_tpu_torch.models.kmeans import KMeans, KMeansModel
+from sntc_tpu_torch.models.lda import LDA, LDAModel
 from sntc_tpu_torch.models.linear_svc import LinearSVC, LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
@@ -13,6 +24,7 @@ from sntc_tpu_torch.models.mlp import (
 )
 from sntc_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesModel
 from sntc_tpu_torch.models.one_vs_rest import OneVsRest, OneVsRestModel
+from sntc_tpu_torch.models.pic import PowerIterationClustering
 from sntc_tpu_torch.models.tree.decision_tree import (
     DecisionTreeClassificationModel,
     DecisionTreeClassifier,
@@ -38,6 +50,10 @@ from sntc_tpu_torch.models.tree.random_forest_regressor import (
 )
 
 __all__ = [
+    "ALS",
+    "ALSModel",
+    "BisectingKMeans",
+    "BisectingKMeansModel",
     "ClassificationModel",
     "ClassifierEstimator",
     "DecisionTreeClassificationModel",
@@ -48,6 +64,12 @@ __all__ = [
     "GBTClassifier",
     "GBTRegressionModel",
     "GBTRegressor",
+    "GaussianMixture",
+    "GaussianMixtureModel",
+    "KMeans",
+    "KMeansModel",
+    "LDA",
+    "LDAModel",
     "LinearSVC",
     "LinearSVCModel",
     "LogisticRegression",
@@ -58,6 +80,7 @@ __all__ = [
     "NaiveBayesModel",
     "OneVsRest",
     "OneVsRestModel",
+    "PowerIterationClustering",
     "RandomForestClassificationModel",
     "RandomForestClassifier",
     "RandomForestRegressionModel",

@@ -35,14 +35,22 @@ import pytest
 import torch
 
 import sntc_tpu
+import sntc_tpu.evaluation as jax_evaluation
+import sntc_tpu.feature as jax_feature
+import sntc_tpu.models as jax_models
 import sntc_tpu.obs as jax_obs
 import sntc_tpu.ops as jax_ops
+import sntc_tpu.stat as jax_stat
 from sntc_tpu.obs.metrics import MetricsRegistry as JRegistry
 from sntc_tpu.obs.trace import SpanTracer as JTracer
 from sntc_tpu.utils.logging import MetricsLogger as JLogger
 import sntc_tpu_torch
+import sntc_tpu_torch.evaluation as evaluation
+import sntc_tpu_torch.feature as feature
+import sntc_tpu_torch.models as models
 import sntc_tpu_torch.obs as obs
 import sntc_tpu_torch.ops as ops
+import sntc_tpu_torch.stat as stat
 from sntc_tpu_torch.core.base import Pipeline, PipelineModel
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.feature import DCT, PCA, MinMaxScaler, VectorAssembler
@@ -425,6 +433,24 @@ def test_exports_cover_the_jax_package():
     assert set(sntc_tpu.__all__) <= set(sntc_tpu_torch.__all__)
     assert set(jax_ops.__all__) <= set(ops.__all__)
     assert set(jax_obs.__all__) <= set(obs.__all__)
+    # the models, evaluators, selectors and ``stat`` ported so far
+    ported = {
+        (jax_models, models): {
+            "ALS", "ALSModel", "BisectingKMeans", "BisectingKMeansModel",
+            "GaussianMixture", "GaussianMixtureModel", "KMeans",
+            "KMeansModel", "LDA", "LDAModel", "PowerIterationClustering",
+        },
+        (jax_evaluation, evaluation): {"ClusteringEvaluator"},
+        (jax_feature, feature): {
+            "UnivariateFeatureSelector", "UnivariateFeatureSelectorModel",
+            "VarianceThresholdSelector", "VarianceThresholdSelectorModel",
+        },
+    }
+    for (jax_mod, mod), names in ported.items():
+        assert names <= set(jax_mod.__all__) & set(mod.__all__)
+        assert (set(jax_mod.__all__) & set(mod.__all__)) == (
+            set(jax_mod.__all__) & set(dir(mod)))
+    assert set(jax_stat.__all__) == set(stat.__all__)
     from sntc_tpu_torch import (  # noqa: F401
         Estimator, Frame, Model, Param, Params, Pipeline, PipelineModel,
         Transformer,
