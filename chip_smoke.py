@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20]
+                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20,21]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -410,8 +410,8 @@ each of which fails the run (non-zero exit, no result line):
    1e-3), LDA (5 000 x 1 000, k 10, 20 minibatches of 0.1), implicit ALS
    (500 000 ratings, 20 000 x 2 000, rank 16, 5 iterations), PIC (4
    blocks of 750 vertices) — each held against the same fit on the CPU,
-   made by ``--family-fits`` in a process of its own from the phase's
-   start, with the tests' tolerances (KMeans-like predictions equal
+   made by ``--side family_fits`` in a process of its own started after
+   phase 12, with the tests' tolerances (KMeans-like predictions equal
    except on near-tie rows; LDA's log perplexity within 1 % and one
    E-step at [5 000, 1 000] within 1e-4; BisectingKMeans on the
    structureless lognormal rows only to the same tree and a cost within
@@ -429,7 +429,35 @@ each of which fails the run (non-zero exit, no result line):
    extrema bitwise the CPU's, the moment statistics on the card and the
    CPU within ``ST_MOMENT_RTOL`` of their float64 sums; both
    contingencies bitwise against the plain version and timed beside
-   their bound and ``index_add_``.
+   their bound and ``index_add_``;
+21. the fusible feature stages and the other supervised estimators: (a)
+   on config 3's flows (phase 4's split, relabelled benign / attack) the
+   pipeline StringIndexer -> VectorAssembler (78, keep) -> VectorSlicer
+   onto the 40 features config 3's ChiSqSelector keeps ->
+   PolynomialExpansion (degree 2: 860 float64 columns) -> binary LR (20
+   iterations), fitted on the card, saved and served by ``python -m
+   sntc_tpu_torch serve`` in its default form and in the staged, serial
+   form (the two processes together) over micro-batches of 1 000, 4 096
+   and 65 536 rows: one fused segment of the slicer, the expansion and
+   the head, batch files byte-identical, ``pad_assemble`` once a padded
+   batch; a small serve in this process of a 4-column slicer, the
+   Bucketizer a QuantileDiscretizer (16 buckets, keep) fits on the flow
+   duration and their Interaction, fused into one segment with its LR
+   head, bitwise the staged stages; (b) on config 4's training flows:
+   LinearRegression (normal; l-bfgs with elasticNet 0.5), the GLMs
+   (gaussian/identity, poisson/log, gamma/log, binomial/logit, tweedie
+   1.5), Weibull AFT censored at the 90th percentile of the duration,
+   FMClassifier and FMRegressor (factor size 8, 100 steps), isotonic
+   calibration of a head's probabilities and VectorIndexer (16
+   categories) over the 78 features, each timed and profiled on the card
+   and held against the same fit on the CPU, made by ``--side p21_fits``
+   in a process of its own started after phase 12 with its summation
+   order pinned, with the limits the ``P21_`` constants state (the
+   degree-2 heads on their first iterations, end objective, AUC and
+   agreement, beside the CPU's refits under other summation orders; the
+   CPU's degree-2 fit served on the card against the CPU, and its
+   calibration); both serves' ``pad_assemble`` shapes held against the
+   plain version and timed beside their bound.
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -438,7 +466,9 @@ host-serve crossover would serve a small host batch on the host); phase
 8 serves config 2's default form once more with the variable unset, the
 crossover's default placement (``serve_mlp_rule``).  Independent train and serve processes of
 phases 4 and 6, 7 and 9 start together.  One ``phase_seconds`` line
-before the kernels line gives each phase's wall-clock (``clock``).
+before the kernels line gives each phase's wall-clock (``clock``), and a
+``sides`` line before it each CPU side process's span and the seconds
+of each phase it overlapped.
 ``--phases`` runs the named phases alone, each after what it needs
 (``main_phases``).
 
@@ -453,6 +483,7 @@ import contextlib
 import glob
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -484,14 +515,20 @@ from sntc_tpu_torch.feature import (
     PCA,
     ChiSqSelector,
     ChiSqSelectorModel,
+    Interaction,
     MinMaxScaler,
+    PolynomialExpansion,
+    QuantileDiscretizer,
     StandardScaler,
     StringIndexer,
     StringIndexerModel,
     UnivariateFeatureSelector,
     VarianceThresholdSelector,
     VectorAssembler,
+    VectorIndexer,
+    VectorSlicer,
 )
+from sntc_tpu_torch.feature.expansion import _expansion_plan
 from sntc_tpu_torch.kernels import _build, histogram
 from sntc_tpu_torch.kernels.assemble import (
     pad_launch_shape,
@@ -510,13 +547,19 @@ from sntc_tpu_torch.kernels.histogram import (
 from sntc_tpu_torch.models import (
     ALS,
     LDA,
+    AFTSurvivalRegression,
     BisectingKMeans,
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    FMClassifier,
+    FMRegressor,
     GaussianMixture,
     GBTClassifier,
     GBTRegressor,
+    GeneralizedLinearRegression,
+    IsotonicRegression,
     KMeans,
+    LinearRegression,
     LogisticRegression,
     MultilayerPerceptronClassifier,
     NaiveBayes,
@@ -801,18 +844,39 @@ def together(*calls):
 
 
 PHASE_SECONDS: dict = {}
+PHASE_SPANS: list = []  # (phase, start, end) on time.time()
+RUN_T0 = time.time()
 
 
 @contextlib.contextmanager
 def clock(name: str):
-    """Add the block's wall-clock seconds to ``PHASE_SECONDS[name]``."""
-    t0 = time.perf_counter()
+    """Add the block's wall-clock seconds to ``PHASE_SECONDS[name]``, and
+    its span (``time.time()``) to ``PHASE_SPANS``."""
+    t0, w0 = time.perf_counter(), time.time()
     try:
         yield
     finally:
         dt = time.perf_counter() - t0
         PHASE_SECONDS[name] = round(PHASE_SECONDS.get(name, 0.0) + dt, 1)
+        PHASE_SPANS.append((name, w0, time.time()))
         log(f"[clock] {name}: {dt:.1f} s")
+
+
+def side_spans(sides: dict) -> dict:
+    """Each side process's start and end in seconds from the run's
+    start, and the seconds of each phase it overlapped."""
+    t0 = RUN_T0
+    out = {}
+    for name, side in sides.items():
+        over = {}
+        for phase, a, b in PHASE_SPANS:
+            dt = min(b, side.ended) - max(a, side.started)
+            if dt > 0:
+                over[phase] = round(over.get(phase, 0.0) + dt, 1)
+        out[name] = {"start_s": round(side.started - t0, 1),
+                     "end_s": round(side.ended - t0, 1),
+                     "overlapped_s": over}
+    return out
 
 
 def log(*a):
@@ -1821,17 +1885,22 @@ def dt_fit(data: dict, dev, cpu: "CpuFits") -> dict:
 class CpuFits:
     """The CPU reference fits of phases 4 and 6 (the reduced config-3
     forest, the reduced config-4 boosting with sibling subtraction off
-    and on, the decision tree), made by ``chip_smoke.py --cpu-fits DIR``
-    in a process of their own that starts with the run and fits while
-    the card works; the card's fits are compared with them later."""
+    and on, the decision tree), made by ``chip_smoke.py --side cpu_fits
+    DIR`` in a process of their own that starts with the run and fits
+    while the card works; the card's fits are compared with them later.
+    ``started`` and ``ended`` are the process's wall-clock ends
+    (``time.time()``), for the ``sides`` line."""
 
-    FLAG = "--cpu-fits"
+    SIDE = "cpu_fits"
+    ENV = {}  # set in the side process's environment
 
     def __init__(self, out: str):
         self.out = out
+        self.started, self.ended = time.time(), None
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), self.FLAG, out],
-            cwd=REPO, env=env_with(CUDA_VISIBLE_DEVICES=""),
+            [sys.executable, os.path.abspath(__file__), "--side", self.SIDE,
+             out], cwd=REPO, env=env_with(CUDA_VISIBLE_DEVICES="",
+                                          **self.ENV),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self._secs = None
 
@@ -1839,14 +1908,20 @@ class CpuFits:
         if self._secs is None:
             out, err = self.proc.communicate(timeout=1200)
             if self.proc.returncode != 0:
-                raise SystemExit(f"{self.FLAG} exited "
+                raise SystemExit(f"--side {self.SIDE} exited "
                                  f"{self.proc.returncode}:\n{err[-3000:]}")
             self._secs = json.loads(out.strip().splitlines()[-1])
+            self.ended = self._secs.pop("ended_at")
         return self._secs
 
     def model(self, name: str):
         self.seconds()
         return load_model(os.path.join(self.out, name), device="cpu")
+
+    def arrays(self, name: str) -> dict:
+        self.seconds()
+        with np.load(os.path.join(self.out, name + ".npz")) as z:
+            return {k: z[k] for k in z.files}
 
     def close(self) -> None:
         if self.proc.poll() is None:
@@ -1854,8 +1929,14 @@ class CpuFits:
             self.proc.communicate()
 
 
+def side_done(secs: dict) -> int:
+    """A side process's last line: its parts' seconds and its end."""
+    print(json.dumps({**secs, "ended_at": time.time()}))
+    return 0
+
+
 def cpu_fits_main(out: str) -> int:
-    """``--cpu-fits DIR``: the CPU fits ``CpuFits`` compares the card's
+    """``--side cpu_fits DIR``: the CPU fits ``CpuFits`` compares the card's
     with, on the phases' own data (regenerated from their seeds), saved
     under DIR; prints their seconds as one JSON line."""
     cpu = torch.device("cpu")
@@ -1879,8 +1960,7 @@ def cpu_fits_main(out: str) -> int:
     fit("gbt_cpu_sibling", lambda: gbt_pipeline(cpu, GBT_REDUCED_ROUNDS),
         frame4, sib=True)
     fit("dt", lambda: dt_pipeline(cpu), train4)
-    print(json.dumps(secs))
-    return 0
+    return side_done(secs)
 
 
 def gbt_fit_breakdown(data: dict, dev) -> dict:
@@ -3125,13 +3205,20 @@ def fit_gaps(a, b) -> dict:
     """How far two fits of one problem lie apart: their iterations, and
     their histories' largest gap over the first ``LANE_PREFIX``
     iterations, over all common iterations and at the end, each as a
-    share of the starting objective."""
-    ha = np.asarray(a.summary.objectiveHistory, np.float64)
-    hb = np.asarray(b.summary.objectiveHistory, np.float64)
+    share of the starting objective.  A fit is a model with a summary or
+    the summary's ``objectiveHistory`` and ``totalIterations`` as a
+    mapping (a side process's record)."""
+    def of(f):
+        if isinstance(f, dict):
+            return f["objectiveHistory"], int(f["totalIterations"])
+        return f.summary.objectiveHistory, f.summary.totalIterations
+
+    (ha, ia), (hb, ib) = of(a), of(b)
+    ha, hb = np.asarray(ha, np.float64), np.asarray(hb, np.float64)
     n = min(len(ha), len(hb))
     gap = np.abs(ha[:n] - hb[:n]) / abs(hb[0])
     return {
-        "iterations": [a.summary.totalIterations, b.summary.totalIterations],
+        "iterations": [ia, ib],
         "prefix_gap": float(gap[: LANE_PREFIX + 1].max()),
         "max_gap": float(gap.max()),
         "end_gap": float(abs(ha[-1] - hb[-1]) / abs(hb[0])),
@@ -8248,17 +8335,13 @@ FAM_NAMES = ("kmeans", "bisecting_kmeans", "bisecting_kmeans_blobs",
 
 
 class FamilyFits(CpuFits):
-    """Phase 20's CPU side, made by ``chip_smoke.py --family-fits DIR``
-    in a process of its own that starts with the phase, on the families'
-    data and config 3's rows regenerated from their seeds; the card's
-    fits and statistics are compared with it."""
+    """Phase 20's CPU side, made by ``chip_smoke.py --side family_fits
+    DIR`` in a process of its own that starts after phase 12 (at once
+    under ``--phases``), on the families' data and config 3's rows
+    regenerated from their seeds; the card's fits and statistics are
+    compared with it."""
 
-    FLAG = "--family-fits"
-
-    def arrays(self, name: str) -> dict:
-        self.seconds()
-        with np.load(os.path.join(self.out, name + ".npz")) as z:
-            return {k: z[k] for k in z.files}
+    SIDE = "family_fits"
 
     def model(self, name: str):
         if name == "pic":
@@ -8274,15 +8357,30 @@ class FamilyFits(CpuFits):
         return m
 
 
+def background_side() -> None:
+    """Phase 20's and 21's CPU processes start after phase 12 and are
+    needed only at the run's end: ``SIDE_THREADS`` threads each, at a
+    lower scheduling priority, so the phases they overlap keep most of
+    the host."""
+    os.nice(10)
+    torch.set_num_threads(SIDE_THREADS)
+
+
+# a fixed count, not a share of ``os.cpu_count()``: a CPU product's sums
+# take their order from the thread count, and a reference that follows
+# the host's count is another reference on another host (a quarter of
+# the 8 cores of the card's machine)
+SIDE_THREADS = 2
+
+
 def family_fits_main(out: str) -> int:
-    """``--family-fits DIR``: phase 20's CPU side, saved under DIR: the
+    """``--side family_fits DIR``: phase 20's CPU side, saved under DIR: the
     families' fits (PIC's clusters and embedding as ``pic.npz``), and
     the statistics path on config 3's rows with the float64 oracle of its
     moments (``stat_cpu.npz``, ``stat_f64.npz``); prints the seconds of
     each as one JSON line."""
     cpu = torch.device("cpu")
-    # half the host's cores: the card's process works on the host too
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    background_side()
     secs = {}
     t0 = time.perf_counter()
     inp = st20_inputs(config3_train(), cpu)
@@ -8309,8 +8407,7 @@ def family_fits_main(out: str) -> int:
                 json.dump(None if summ is None else {
                     "objectiveHistory": summ.objectiveHistory,
                     "totalIterations": summ.totalIterations}, f)
-    print(json.dumps(secs))
-    return 0
+    return side_done(secs)
 
 
 def fam_rel(a, b) -> float:
@@ -8358,7 +8455,9 @@ def fam_card_fits(dev, data: dict) -> dict:
         busy = sum(ops.values())
         out[name].update({
             "profiled_s": wall, "device_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+            # no device event in the window: not measured, not idle
+            "device_idle_share": (max(0.0, 1.0 - busy / (wall * 1e3))
+                                  if ops else None),
             "top_device_ops_ms": {k: round(v, 3)
                                   for k, v in list(ops.items())[:4]},
         })
@@ -8707,10 +8806,10 @@ def st20_cases(inp: dict, dev) -> dict:
     return cases
 
 
-def families(dev, train: Frame, work: str) -> dict:
+def families(dev, train: Frame, cpu_fits: FamilyFits) -> dict:
     """Phase 20: (a) the families pass on the card against the CPU, (b)
     the statistics at config 3's width against the CPU and float64.  The
-    CPU side runs in its own process from the phase's start; every check
+    CPU side runs in its own process from the run's start; every check
     runs, and the phase fails with all the failures at its end."""
     t0 = time.perf_counter()
     parts, fails = {}, []
@@ -8719,9 +8818,6 @@ def families(dev, train: Frame, work: str) -> dict:
         parts[name] = round(time.perf_counter() - t, 3)
         return time.perf_counter()
 
-    fam_dir = os.path.join(work, "family_fits")
-    os.makedirs(fam_dir)
-    cpu_fits = FamilyFits(fam_dir)
     try:
         t = time.perf_counter()
         data = fam_data()
@@ -8787,13 +8883,18 @@ def families(dev, train: Frame, work: str) -> dict:
     return p20
 
 
+def idle_text(share) -> str:
+    """An idle share as printed: null where no device event was seen."""
+    return "not measured" if share is None else f"{share:.3f}"
+
+
 def report_phase20(p20: dict, card: str) -> None:
     fits, cmp = p20["fits"], p20["compare"]
     for name, f in fits.items():
         prof = ("" if "profiled_s" not in f else
                 f"; profiled {f['profiled_s']:.3f} s with device busy "
                 f"{f['device_ms']:.1f} ms (idle share "
-                f"{f['device_idle_share']:.3f}), top device ops "
+                f"{idle_text(f['device_idle_share'])}), top device ops "
                 f"{f['top_device_ops_ms']}")
         log(f"phase 20 {name}: cold {f['cold_s']:.3f} s, warm "
             f"{f['warm_s']:.3f} s, {f['host_reads']} host reads{prof}; CPU "
@@ -8823,6 +8924,858 @@ def report_phase20(p20: dict, card: str) -> None:
         "stat_seconds": p20["stat_seconds"],
         "wide_feature": p20["wide_feature"], "plans": p20["plans"]},
         default=str))
+
+
+# -- phase 21: the fusible feature stages and the other supervised fits -----
+
+P21_BATCHES = [1000, 4096, 65536]  # served micro-batches; 1000 pads
+P21_TRAFFIC_SEED = 21  # the served flows' generate_frame seed
+P21_LR_ITERS = 20  # bench config 5's maxIter (bench.py:508)
+P21_DEGREE = 2  # the 40 sliced features -> 860 float64 monomials
+P21_DISCRETE_BUCKETS = 16
+P21_FOUR = 4  # the small serve's slice: the first 4 of config 3's 40
+P21_DURATION = "Flow Duration"
+P21_PACKETS = "Total Fwd Packets"
+P21_CENSOR_Q = 0.9  # AFT: right-censored at this quantile of the times
+P21_MAX_CATEGORIES = 16
+P21_EN = {"regParam": 0.01, "elasticNetParam": 0.5}  # the l-bfgs LR
+# FM at Spark's default step (1.0) runs the regressor's loss up to ~1 900
+# before it settles (on the CPU, these rows): a trajectory two devices
+# cannot follow alike; 0.1 descends monotonically on both
+P21_FM = {"factorSize": 8, "maxIter": 100, "stepSize": 0.1}
+#: GLM name -> (params, target, the column left out of the features)
+P21_GLMS = {
+    "glm_gaussian": ({"family": "gaussian", "link": "identity"},
+                     "log_iat", REG_TARGET),
+    "glm_poisson": ({"family": "poisson", "link": "log"}, "packets",
+                    P21_PACKETS),
+    "glm_gamma": ({"family": "gamma", "link": "log"}, "iat_plus_1",
+                  REG_TARGET),
+    "glm_binomial": ({"family": "binomial", "link": "logit"}, "attack",
+                     REG_TARGET),
+    "glm_tweedie": ({"family": "tweedie", "variancePower": 1.5}, "packets",
+                    P21_PACKETS),
+}
+P21_FITS = ("lr_normal", "lr_elastic", *P21_GLMS, "aft", "fm_classifier",
+            "fm_regressor")
+# The card against the CPU.  Each limit sits above its fit's reading on
+# an NVIDIA H100 80GB HBM3, 700 W (the same value in every run of this
+# phase: the card's and the CPU's fits are each deterministic), about
+# ten times above it where the reading is a rounding gap, so another
+# build's rounding passes and a fault does not.  Readings are against
+# the CPU process with its order pinned (``P21Fits.ENV``); where the
+# unpinned process read otherwise, its reading comes first.
+# Histories are relative to the first objective.
+# The served heads.  The degree-2 head's fit is chaotic: its 20 LBFGS
+# iterations carry a last-bit change of a product on, and on the
+# monomials of raw counters (up to ~1e16) a small change of a coefficient
+# moves a margin far.  Readings against the CPU process's fit: the
+# card's fit 1.4e-5 of the start apart over the first LANE_PREFIX
+# iterations, 1.1e-4 at the end, P(attack) 0.021 apart at the 99.9th
+# percentile, agreement 0.99960, AUCs 1.2e-5; the CPU's own refits under
+# other summation orders (``P21_WITNESSES``) up to 3.4e-5, 7.1e-5, 0.048,
+# 0.99888 and 3.6e-5 (one thread; a refit on eight threads 1.2e-5,
+# 8.7e-5, 0.017, 0.99968 and 1.0e-5); and a CPU fit on another host, before
+# the reference's order was pinned, 1.3e-3 apart over its history,
+# P(attack) 0.145 at the 99.9th percentile and 0.556 at most, agreement
+# 0.99692.  The gaps grow about tenfold from the first LANE_PREFIX
+# iterations to the end in every pair (the card against the one-thread
+# refit 5e-5 then 4e-4), so that host's fit parted by ~1.3e-4 early.
+# The two fits are held where that chaos does not reach far: their
+# first iterations (ten times the largest pair's reading), the end
+# objective, AUC and agreement with room above the other host's reading;
+# their P(attack) gaps are reported.  The card's serving of one fit is
+# held tightly (``P21_SAME_MODEL``).
+P21_HEADS = {
+    "poly": {"prefix_gap": 5e-4, "end_gap": 5e-3, "auc_gap": 2e-3,
+             "agreement": 0.99},
+    # readings: agreement 1.0 (49 950 rows), history 2.5e-6, P(attack)
+    # 9.4e-5
+    "discrete": {"agreement": 0.9999, "history_gap": 2.5e-5,
+                 "prob_p999_err": 1e-3},
+}
+# the CPU's degree-2 fit loaded on the card against the CPU's outputs of
+# it: the same float64 monomials, the 860-term float32 margins summed in
+# two orders (readings: agreement 1.0, P(attack) 1.9e-6 / 2.4e-6 at
+# most)
+P21_SAME_MODEL = {"agreement": 0.9999, "prob_max_err": 2e-5}
+# the witnesses: the CPU's refits of the degree-2 head on its rows
+# permuted (``P21_WITNESS_SEED``) and on one thread (``threadsN``: N
+# threads; the side's others would take the cores the card's phases use)
+P21_WITNESSES = ("permuted", "threads1")
+P21_WITNESS_SEED = 2121
+# the LBFGS and adamW fits' histories (readings 1.9e-7 / 7.6e-7,
+# 2.9e-7 / 5.4e-7, 1.0e-6 / 4.7e-7, 2.6e-6)
+P21_HISTORY_TOL = {"lr_elastic": 8e-6, "aft": 3e-6, "fm_classifier": 1e-5,
+                   "fm_regressor": 2.5e-5}
+# the normal solver's predictions, relative to the target's spread (its
+# f32 moments summed in two orders, the solve in float64; 1.5e-5 /
+# 2.3e-5)
+P21_NORMAL_TOL = 1.5e-4
+# the IRLS fits' coefficients relative to the largest (readings 1.6e-6,
+# 2.0e-6 / 1.9e-6, 1.2e-6, 1.9e-6 / 1.8e-6, 2.1e-6 / 1.5e-6); the
+# deviance (at most 9.1e-8, some 0: a float32 sum, so 1e-6 is ~16 of its
+# ulps); the iteration
+# counts may part by one where the stop test meets float32 noise
+# (poisson, binomial, tweedie did)
+P21_GLM_RTOL = {"glm_gaussian": 1.6e-5, "glm_poisson": 2e-5,
+                "glm_gamma": 1.2e-5, "glm_binomial": 1.9e-5,
+                "glm_tweedie": 2.1e-5}
+P21_DEVIANCE_RTOL = 1e-6
+# isotonic calibration of one head's P(attack), the CPU's degree-2 fit:
+# fitted here on the card's outputs of it against the CPU process's fit
+# on its own, over the held-out rows: the mean gap and the 99.9th
+# percentile (readings 1.3e-6 and 1.4e-4, 6.3e-4 at most: 126 blocks on
+# both; a row whose P(attack) rounding crosses a block's edge moves by a
+# step)
+P21_ISOTONIC_MEAN, P21_ISOTONIC_P999 = 1e-4, 1e-3
+
+
+def p21_flows(split: tuple = None) -> dict:
+    """Config 3's flows (phase 4's split: 250 000 generated from seed 0,
+    cleaned, 0.8 / 0.2 with seed 0; ``split``, when phase 4 made it),
+    relabelled benign / attack as bench config 1 labels them, the 15
+    classes kept as ``Class``."""
+    if split is None:
+        raw = generate_frame(TRAIN_ROWS, seed=SEED, min_class_fraction=0.005)
+        split = clean_flows(raw).random_split(
+            [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    out = {}
+    for name, f in zip(("train", "test"), split):
+        out[name] = f.with_column("Class", f["Label"]).with_column(
+            "Label", np.where(f["Label"].astype(str) == "BENIGN", "benign",
+                              "attack").astype(object))
+    return out
+
+
+def p21_selected(train: Frame, dev) -> list:
+    """The 40 indices config 3's ChiSqSelector keeps (its 15 classes)."""
+    f = StringIndexer(inputCol="Class", outputCol="classId").fit(
+        train).transform(train)
+    f = f.with_column("rawFeatures", raw_features(train))
+    sel = ChiSqSelector(device=dev, numTopFeatures=TOP,
+                        featuresCol="rawFeatures", labelCol="classId",
+                        outputCol="selected").fit(f)
+    return [int(i) for i in sel.selected_features]
+
+
+def p21_poly_pipeline(dev, selected: list) -> Pipeline:
+    """StringIndexer -> VectorAssembler (78, keep) -> VectorSlicer (40)
+    -> PolynomialExpansion (degree 2: 860 columns) -> binary LR."""
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label"),
+        VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                        outputCol="rawFeatures", handleInvalid="keep"),
+        VectorSlicer(inputCol="rawFeatures", outputCol="sliced",
+                     indices=selected),
+        PolynomialExpansion(inputCol="sliced", outputCol="features",
+                            degree=P21_DEGREE),
+        LogisticRegression(device=dev, maxIter=P21_LR_ITERS),
+    ])
+
+
+def p21_discrete_pipeline(dev, selected: list) -> Pipeline:
+    """The small serve: the Bucketizer that a QuantileDiscretizer (16
+    buckets, keep, open ends) fits on the flow duration, interacted with
+    a 4-column VectorSlicer (the first 4 of config 3's 40 but the
+    duration) into a binary LR.  The assembler takes the other 77
+    features: a segment binds each external column once, and the
+    Bucketizer reads the duration as float64 where an assembler would
+    cast it to float32, so the two would split the segment."""
+    others = [c for c in CICIDS2017_FEATURES if c != P21_DURATION]
+    four = [others.index(CICIDS2017_FEATURES[j]) for j in selected
+            if CICIDS2017_FEATURES[j] != P21_DURATION][:P21_FOUR]
+    return Pipeline(stages=[
+        StringIndexer(inputCol="Label", outputCol="label"),
+        VectorAssembler(inputCols=others, outputCol="rawFeatures",
+                        handleInvalid="keep"),
+        VectorSlicer(inputCol="rawFeatures", outputCol="four",
+                     indices=four),
+        QuantileDiscretizer(inputCol=P21_DURATION, outputCol="durBucket",
+                            numBuckets=P21_DISCRETE_BUCKETS,
+                            handleInvalid="keep"),
+        Interaction(inputCols=["durBucket", "four"], outputCol="features"),
+        LogisticRegression(device=dev, maxIter=P21_LR_ITERS),
+    ])
+
+
+def p21_head_outputs(model, test: Frame) -> dict:
+    """The fitted pipeline's held-out P(attack) and predictions, the head
+    on its device (the host-serve crossover pinned off), and the head's
+    history where it has a summary (a loaded model has none)."""
+    with environ(SNTC_SERVE_HOST_ROWS="0"):
+        out = model.transform(test)
+    res = {"prob": to_host(out["probability"])[:, 1].astype(np.float64),
+           "pred": to_host(out["prediction"]).astype(np.float64),
+           "label": to_host(out["label"]).astype(np.float64)}
+    summ = model.getStages()[-1].summary
+    if summ is not None:  # a loaded model has none
+        res.update(objectiveHistory=np.asarray(summ.objectiveHistory),
+                   totalIterations=summ.totalIterations)
+    return res
+
+
+def _log_std(X: np.ndarray, drop: str) -> np.ndarray:
+    """log1p of the raw features but ``drop``, standardized in float64,
+    as float32 (the GLM, AFT and FM fits' features: raw flow counters
+    span nine decades)."""
+    L = np.log1p(np.delete(X, CICIDS2017_FEATURES.index(drop),
+                           axis=1).astype(np.float64))
+    sd = L.std(axis=0)
+    sd[sd == 0] = 1.0
+    return ((L - L.mean(axis=0)) / sd).astype(np.float32)
+
+
+def p21_reg_inputs(train: Frame = None) -> dict:
+    """Config 4's training flows (``GBT_ROWS`` from seed
+    ``GBT_DATA_SEED``, cleaned, the 0.8 share; ``train``, when phase 6
+    made it) as the fits' frames: phase 9's 77 raw features with target
+    log1p(Flow IAT Mean), and the log-standardized features with the
+    GLM, AFT and FM targets."""
+    if train is None:
+        raw = generate_frame(GBT_ROWS, seed=GBT_DATA_SEED,
+                             min_class_fraction=0.005)
+        train, _ = clean_flows(raw).random_split(
+            [1 - TEST_FRACTION, TEST_FRACTION], seed=SEED)
+    X = raw_features(train)
+
+    def col(name):
+        return X[:, CICIDS2017_FEATURES.index(name)].astype(np.float64)
+
+    iat = col(REG_TARGET)
+    targets = {
+        "log_iat": np.log1p(iat).astype(np.float32),
+        "iat_plus_1": (iat + 1.0).astype(np.float32),
+        "packets": col(P21_PACKETS).astype(np.float32),
+        "attack": (train["Label"].astype(str) != "BENIGN").astype(
+            np.float32),
+    }
+    logs = {d: _log_std(X, d) for d in (REG_TARGET, P21_PACKETS,
+                                        P21_DURATION)}
+    t = col(P21_DURATION) + 1.0
+    cut = np.quantile(t, P21_CENSOR_Q)
+    out = {
+        "lr": Frame({"features": np.ascontiguousarray(np.delete(
+            X, CICIDS2017_FEATURES.index(REG_TARGET), axis=1)),
+            "label": targets["log_iat"]}),
+        "aft": Frame({"features": logs[P21_DURATION],
+                      "label": np.minimum(t, cut),
+                      "censor": (t < cut).astype(np.float64)}),
+        "fm_classifier": Frame({"features": logs[REG_TARGET],
+                                "label": targets["attack"]}),
+        "fm_regressor": Frame({"features": logs[REG_TARGET],
+                               "label": targets["log_iat"]}),
+    }
+    for name, (_, target, drop) in P21_GLMS.items():
+        out[name] = Frame({"features": logs[drop],
+                           "label": targets[target]})
+    return out
+
+
+def p21_fit(name: str, dev, frames: dict):
+    """One of ``P21_FITS`` on ``dev``."""
+    if name == "lr_normal":
+        est = LinearRegression(device=dev, solver="normal")
+    elif name == "lr_elastic":
+        est = LinearRegression(device=dev, solver="l-bfgs", **P21_EN)
+    elif name in P21_GLMS:
+        est = GeneralizedLinearRegression(device=dev, **P21_GLMS[name][0])
+    elif name == "aft":
+        est = AFTSurvivalRegression(device=dev)
+    elif name == "fm_classifier":
+        est = FMClassifier(device=dev, **P21_FM)
+    else:
+        est = FMRegressor(device=dev, **P21_FM)
+    return est.fit(frames["lr" if name.startswith("lr_") else name])
+
+
+class P21Fits(CpuFits):
+    """Phase 21's CPU side, made by ``chip_smoke.py --side p21_fits DIR``
+    in a process of its own that starts after phase 12 (at once under
+    ``--phases``): the two served pipelines (the degree-2 one also on its
+    rows permuted), the estimators, the isotonic calibration and the
+    VectorIndexer fitted on the CPU on the phase's data regenerated from
+    its seeds; the card's are compared with them."""
+
+    SIDE = "p21_fits"
+    # the degree-2 fit parts far from another summation order's (see
+    # P21_HEADS), so its reference takes one order on any x86 host: two
+    # threads (``background_side``), MKL's AVX2 code path in its
+    # reproducible mode, ATen's AVX2 kernels
+    ENV = {"MKL_CBWR": "AVX2", "ATEN_CPU_CAPABILITY": "avx2"}
+
+    def summary(self, name: str) -> dict:
+        self.seconds()
+        with open(os.path.join(self.out, name, "summary.json")) as f:
+            return json.load(f)
+
+
+def _p21_summary(m) -> dict:
+    """What saving drops and the comparison reads: the objective
+    history, the iteration count, a GLM's deviances."""
+    s = m.summary
+    out = {"totalIterations": s.totalIterations,
+           "objectiveHistory": list(s.objectiveHistory)}
+    if hasattr(s, "deviance"):
+        out.update(deviance=s.deviance, nullDeviance=s.nullDeviance,
+                   dispersion=s.dispersion)
+    return out
+
+
+def cpu_side_host() -> dict:
+    """What sets a CPU process's rounding: its threads, ATen's kernels,
+    the BLAS and MKL's reproducible mode."""
+    blas = re.search(r"BLAS_INFO=(\w+)", torch.__config__.show())
+    return {"threads": torch.get_num_threads(),
+            "capability": torch.backends.cpu.get_cpu_capability(),
+            "blas": blas.group(1) if blas else None,
+            "mkl_cbwr": os.environ.get("MKL_CBWR"),
+            "host_cpus": os.cpu_count()}
+
+
+def p21_fits_main(out: str) -> int:
+    """``--side p21_fits DIR``: phase 21's CPU side, saved under DIR;
+    prints the seconds of each part as one JSON line."""
+    cpu = torch.device("cpu")
+    background_side()
+    with open(os.path.join(out, "host.json"), "w") as f:
+        json.dump(cpu_side_host(), f)
+    secs = {}
+    t0 = time.perf_counter()
+    flows = p21_flows()
+    selected = p21_selected(flows["train"], cpu)
+    np.savez(os.path.join(out, "selected.npz"), selected=selected)
+    secs["data"] = time.perf_counter() - t0
+    heads = {}
+    for name, build in (("poly", p21_poly_pipeline),
+                        ("discrete", p21_discrete_pipeline)):
+        t0 = time.perf_counter()
+        m = build(cpu, selected).fit(flows["train"])
+        secs[name] = time.perf_counter() - t0
+        save_model(m, os.path.join(out, name))
+        heads[name] = p21_head_outputs(m, flows["test"])
+        np.savez(os.path.join(out, f"{name}_test.npz"), **heads[name])
+    train = flows["train"]
+    for name in P21_WITNESSES:
+        t0 = time.perf_counter()
+        if name == "permuted":
+            perm = np.random.default_rng(P21_WITNESS_SEED).permutation(
+                train.num_rows)
+            m = p21_poly_pipeline(cpu, selected).fit(train.take(perm))
+        else:
+            torch.set_num_threads(int(name.removeprefix("threads")))
+            m = p21_poly_pipeline(cpu, selected).fit(train)
+            torch.set_num_threads(SIDE_THREADS)
+        np.savez(os.path.join(out, f"poly_{name}_test.npz"),
+                 **p21_head_outputs(m, flows["test"]))
+        secs[f"poly_{name}"] = time.perf_counter() - t0
+    frames = p21_reg_inputs()
+    for name in P21_FITS:
+        t0 = time.perf_counter()
+        m = p21_fit(name, cpu, frames)
+        secs[name] = time.perf_counter() - t0
+        save_model(m, os.path.join(out, name))
+        with open(os.path.join(out, name, "summary.json"), "w") as f:
+            json.dump(_p21_summary(m), f)
+    t0 = time.perf_counter()
+    iso = IsotonicRegression(device=cpu).fit(Frame({
+        "features": heads["poly"]["prob"], "label": heads["poly"]["label"]}))
+    np.savez(os.path.join(out, "isotonic.npz"), boundaries=iso.boundaries,
+             predictions=iso.predictions,
+             calibrated=iso.predict(heads["poly"]["prob"]))
+    secs["isotonic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vi = VectorIndexer(device=cpu, inputCol="rawFeatures",
+                       maxCategories=P21_MAX_CATEGORIES).fit(
+        Frame({"rawFeatures": raw_features(flows["train"])}))
+    secs["vector_indexer"] = time.perf_counter() - t0
+    save_model(vi, os.path.join(out, "vector_indexer"))
+    return side_done(secs)
+
+
+def p21_write_traffic(work: str) -> tuple:
+    """The served flows: ``sum(P21_BATCHES)`` cleaned rows from seed
+    ``P21_TRAFFIC_SEED`` without their label, one raw CSV a batch."""
+    traffic = clean_flows(generate_frame(sum(P21_BATCHES) + 2000,
+                                         seed=P21_TRAFFIC_SEED))
+    traffic = traffic.slice(0, sum(P21_BATCHES)).drop("Label")
+    watch = os.path.join(work, "in21")
+    os.makedirs(watch)
+    batches, start = [], 0
+    for i, n in enumerate(P21_BATCHES):
+        b = traffic.slice(start, start + n)
+        write_raw_csv(b, os.path.join(watch, f"part_{i:04d}.csv"))
+        batches.append(b)
+        start += n
+    return watch, batches
+
+
+def p21_serve_poly(dev, model_dir: str, watch: str, work: str,
+                   fails: list) -> dict:
+    """(a): the degree-2 pipeline served by ``python -m sntc_tpu_torch
+    serve`` in its default form and in the staged, serial form, the two
+    processes together (the staged head pinned to the card by
+    ``SNTC_SERVE_HOST_ROWS=0``): one fused segment of the slicer, the
+    expansion and the head, files byte-identical, every batch served,
+    ``pad_assemble`` once a padded batch."""
+    fused, staged = together(
+        (serve_command, model_dir, watch, os.path.join(work, "out21f"),
+         os.path.join(work, "ckpt21f"), dev, []),
+        (serve_command, model_dir, watch, os.path.join(work, "out21s"),
+         os.path.join(work, "ckpt21s"), dev, STAGED_FORM, 1,
+         env_with(SNTC_SERVE_HOST_ROWS="0")))
+    padded = sum(bucket_rows_for(n, BUCKET_FLOOR) != n for n in P21_BATCHES)
+    want = {"forest_traversal": 0, "pad_assemble": padded, "tree_hist": 0}
+    fz = fused["fusion"] or {}
+    for tag, s in (("fused", fused), ("staged", staged)):
+        if s["batches"] != len(P21_BATCHES) or \
+                s["rows"] != sum(P21_BATCHES):
+            fails.append(f"phase 21 (a) {tag} serve covered {s['batches']} "
+                         f"batches, {s['rows']} rows")
+        if s["kernel_launches"] != want:
+            fails.append(f"phase 21 (a) {tag} serve launched "
+                         f"{s['kernel_launches']}, want {want}")
+    if fz.get("segments") != 1 or fz.get("fused_stages") != 3 or \
+            fz.get("fallbacks") != 0 or staged["fusion"] is not None:
+        fails.append(f"phase 21 (a): fusion {fused['fusion']} (want one "
+                     "segment of VectorSlicer, PolynomialExpansion and the "
+                     f"head), staged {staged['fusion']}")
+    same = sink_files(os.path.join(work, "out21f")) == sink_files(
+        os.path.join(work, "out21s"))
+    if not same:
+        fails.append("phase 21 (a): the fused form's batch files differ "
+                     "from the staged form's")
+    pred = sink_predictions(os.path.join(work, "out21f"))
+    if len(pred) != sum(P21_BATCHES) or not np.isin(pred, (0.0, 1.0)).all():
+        fails.append(f"phase 21 (a): {len(pred)} predictions, values "
+                     f"{np.unique(pred)[:5]}")
+    return {"fused": fused, "staged": staged, "files_identical": same,
+            "rows_per_s": {t: s["rows"] / s["seconds"]
+                           for t, s in (("fused", fused),
+                                        ("staged", staged))}}
+
+
+def p21_serve_discrete(dev, model, batches: list, fails: list) -> dict:
+    """(a)'s small serve, in this process: the QuantileDiscretizer's
+    Bucketizer and the Interaction fused with the 4-column slicer and the
+    head, against the staged stages, each batch through a bucketed
+    ``BatchPredictor`` on the card (launch counts from 0)."""
+    fused_m = serving_form(model, "label", True)[0]
+    staged_m = serving_form(model, "label", False)[0]
+    segs = fused_segments(fused_m)
+    names = [type(s).__name__ for s in segs[0].fused_stages] if segs else []
+    if len(segs) != 1 or names != ["VectorSlicer", "Bucketizer",
+                                   "Interaction",
+                                   "LogisticRegressionModel"]:
+        fails.append(f"phase 21 (a) small serve: segments "
+                     f"{[repr(s) for s in segs]}")
+    reset_launches()
+    outs = {}
+    with environ(SNTC_SERVE_HOST_ROWS="0"):
+        for tag, m in (("fused", fused_m), ("staged", staged_m)):
+            pred = BatchPredictor(m, bucket_rows=BUCKET_FLOOR, device=dev)
+            t0 = time.perf_counter()
+            outs[tag] = [pred.predict_frame(b) for b in batches]
+            torch.cuda.synchronize()
+            outs[tag + "_s"] = time.perf_counter() - t0
+    launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    padded = sum(bucket_rows_for(n, BUCKET_FLOOR) != n for n in P21_BATCHES)
+    if launches != {"forest_traversal": 0, "tree_hist": 0,
+                    "pad_assemble": 2 * padded}:
+        fails.append(f"phase 21 (a) small serve launched {launches}")
+    equal = all(
+        np.array_equal(to_host(a[c]), to_host(b[c]))
+        for a, b in zip(outs["fused"], outs["staged"])
+        for c in ("rawPrediction", "probability", "prediction"))
+    if not equal:
+        fails.append("phase 21 (a) small serve: fused and staged differ")
+    return {"equal": equal, "launches": launches, "pad_launch_shapes": shapes,
+            "fused_stages": names, "seconds": {
+                t: outs[t + "_s"] for t in ("fused", "staged")}}
+
+
+def p21_head_gaps(a: dict, b: dict) -> dict:
+    """Two outputs of a served head on the held-out rows: the share of
+    equal predictions, |P(attack)| gaps (mean, 99.9th percentile,
+    largest), their AUCs' gap and, for two fits, their histories' gaps
+    (``fit_gaps``: the prefix, the end, the largest of all)."""
+    d = np.abs(a["prob"] - b["prob"])
+    out = {"agreement": float(np.mean(a["pred"] == b["pred"])),
+           "prob_mean_err": float(d.mean()),
+           "prob_p999_err": float(np.quantile(d, 0.999)),
+           "prob_max_err": float(d.max()),
+           "auc_gap": abs(p21_auc(a) - p21_auc(b))}
+    if "objectiveHistory" in a and "objectiveHistory" in b:
+        g = fit_gaps(a, b)
+        out.update(prefix_gap=g["prefix_gap"], end_gap=g["end_gap"],
+                   history_gap=max(g["max_gap"], g["end_gap"]))
+    return out
+
+
+def p21_auc(h: dict) -> float:
+    """A head's held-out AUC."""
+    return BinaryClassificationEvaluator().evaluate(Frame({
+        "label": h["label"], "rawPrediction": np.stack(
+            [1 - h["prob"], h["prob"]], axis=1)}))
+
+
+def p21_outside(gaps: dict, lim: dict) -> list:
+    """The keys of ``lim`` that ``gaps`` breaks: agreement below its
+    limit, any other gap above."""
+    return [k for k, v in lim.items()
+            if (gaps[k] < v if k == "agreement" else gaps[k] > v)]
+
+
+def p21_card_fits(dev, frames: dict) -> dict:
+    """Each of ``P21_FITS`` on the card, timed; then all of them once
+    more in one profiler window, each inside a ``record_function`` range
+    that ends with a synchronize: a fit's device busy ms are the device
+    events whose launching op (matched by correlation id) started inside
+    its range, its idle share the rest of the range, null where no device
+    event was matched (one window: the profiler's start and its trace
+    processing are paid once)."""
+    out = {}
+    for name in P21_FITS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = p21_fit(name, dev, frames)
+        torch.cuda.synchronize()
+        stats = (getattr(m, "optimizer_stats", None)
+                 or getattr(m, "fit_stats", None) or {})
+        out[name] = {
+            "model": m, "seconds": time.perf_counter() - t0,
+            "iterations": m.summary.totalIterations,
+            "host_reads": stats.get("host_syncs", stats.get("host_reads")),
+        }
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        # the window's first device records can come late (call 2: the
+        # first fit showed none): one fit outside the ranges first
+        p21_fit(P21_FITS[0], dev, frames)
+        torch.cuda.synchronize()
+        for name in P21_FITS:
+            with torch.profiler.record_function(f"p21 {name}"):
+                p21_fit(name, dev, frames)
+                torch.cuda.synchronize()
+    # the profiler's raw records (its FunctionEvent tree takes seconds to
+    # build over the FM fits' autograd ops); nanoseconds on the host's
+    # clock.  A device event carries the correlation id of the op that
+    # launched it; that op's start, on the host, places it in a range.
+    events = prof.profiler.kineto_results.events()
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = {e.name()[4:]: (e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in events
+             if e.name().startswith("p21 ") and e.device_type() == cpu_t}
+    launched_at = {e.correlation_id(): e.start_ns() for e in events
+                   if e.device_type() == cpu_t
+                   and e.linked_correlation_id() == 0
+                   and e.correlation_id() > 0}
+    ops = {name: {} for name in P21_FITS}
+    matched = dict.fromkeys(P21_FITS, 0)
+    unmatched = 0
+    for e in events:
+        name_ = e.name()
+        if e.device_type() != cuda_t or e.is_user_annotation() \
+                or name_.startswith(("Activity Buffer", "p21 ")):
+            continue
+        at = launched_at.get(e.linked_correlation_id())
+        if at is None:
+            unmatched += 1
+            continue
+        for name, (lo, hi) in spans.items():
+            if lo <= at <= hi:
+                key = name_ if len(name_) <= 60 else name_[:57] + "..."
+                ops[name][key] = (ops[name].get(key, 0.0)
+                                  + e.duration_ns() / 1e6)
+                matched[name] += 1
+                break
+    for name in P21_FITS:
+        wall_ms = (spans[name][1] - spans[name][0]) / 1e6
+        busy = sum(ops[name].values())
+        top = sorted(ops[name].items(), key=lambda kv: -kv[1])[:3]
+        out[name].update({
+            "profiled_s": wall_ms / 1e3, "device_ms": busy,
+            "device_events": matched[name],
+            # no device event matched: not measured, not idle
+            "device_idle_share": (max(0.0, 1.0 - busy / wall_ms)
+                                  if matched[name] else None),
+            "top_device_ops_ms": {k: round(v, 3) for k, v in top},
+            "unmatched_device_events": unmatched,
+        })
+    return out
+
+
+def p21_compare_fits(dev, frames: dict, card: dict, cpu: P21Fits,
+                     fails: list) -> dict:
+    """Each card fit held against the CPU's with the tolerances above."""
+    res = {}
+    for name in P21_FITS:
+        mc, mh = card[name]["model"], cpu.model(name)
+        sh = cpu.summary(name)
+        r = res[name] = {"iterations": [mc.summary.totalIterations,
+                                        sh["totalIterations"]]}
+        if name == "lr_normal":
+            X = frames["lr"]["features"]
+            y = frames["lr"]["label"]
+            gap = np.abs(mc.predict(X) - mh.predict(X)).max() / np.std(y)
+            r["prediction_gap"] = float(gap)
+            ok = gap <= P21_NORMAL_TOL
+        elif name in P21_GLMS:
+            coef = np.append(mc.coefficients, mc.intercept)
+            r["coef_rel"] = fam_rel(coef, np.append(mh.coefficients,
+                                                    mh.intercept))
+            r["deviance_rel"] = abs(mc.summary.deviance / sh["deviance"]
+                                    - 1.0)
+            r["deviance"] = mc.summary.deviance
+            r["null_deviance"] = mc.summary.nullDeviance
+            if P21_GLMS[name][0]["family"] != "tweedie":
+                r["aic"] = mc.summary.aic
+            ok = (np.isfinite(coef).all()
+                  and r["coef_rel"] <= P21_GLM_RTOL[name]
+                  and r["deviance_rel"] <= P21_DEVIANCE_RTOL)
+        else:
+            g = fit_gaps(mc, sh)
+            r["history_gap"] = max(g["max_gap"], g["end_gap"])
+            r["final_objective"] = mc.summary.objectiveHistory[-1]
+            if name == "aft":
+                r["scale"] = [mc.scale, mh.scale]
+            ok = r["history_gap"] <= P21_HISTORY_TOL[name]
+        if not (ok and all(np.isfinite(v) for k, v in r.items()
+                           if isinstance(v, float))):
+            fails.append(f"phase 21 (b) {name}: the card's fit is not the "
+                         f"CPU's: {r}")
+    return res
+
+
+def p21_vector_indexer(dev, train: Frame, test: Frame, cpu: P21Fits,
+                       fails: list) -> dict:
+    """VectorIndexer over the 78 raw features on the card: its category
+    maps equal to the CPU fit's, its transform of the held-out rows on
+    the card bitwise the CPU model's on the host."""
+    t0 = time.perf_counter()
+    vi = VectorIndexer(device=dev, inputCol="rawFeatures",
+                       maxCategories=P21_MAX_CATEGORIES).fit(
+        Frame({"rawFeatures": raw_features(train)}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ref = cpu.model("vector_indexer")
+    same_maps = sorted(vi.categoryMaps) == sorted(ref.categoryMaps) and all(
+        np.array_equal(vi.categoryMaps[j], ref.categoryMaps[j],
+                       equal_nan=True) for j in ref.categoryMaps)
+    Xt = raw_features(test)
+    vi.setHandleInvalid("keep")
+    ref.setHandleInvalid("keep")
+    got = to_host(vi.transform(Frame({
+        "rawFeatures": torch.from_numpy(Xt).to(dev)}))["indexed"])
+    want = ref.transform(Frame({"rawFeatures": Xt}))["indexed"]
+    equal = np.array_equal(got, want)
+    if not (same_maps and equal):
+        fails.append(f"phase 21 (b) VectorIndexer: maps equal {same_maps}, "
+                     f"transform equal {equal}")
+    return {"fit_s": fit_s, "categorical": len(vi.categoryMaps),
+            "same_maps": same_maps, "transform_equal": equal}
+
+
+def p21_isotonic(dev, same: dict, served: dict, cpu: P21Fits,
+                 fails: list) -> dict:
+    """IsotonicRegression calibrating a head's P(attack) against the
+    held-out label (host work in both packages), fitted here with
+    ``device`` the card: on the card's outputs of the CPU's degree-2 fit
+    (``same``), its calibrated outputs held against the CPU process's fit
+    on its own outputs of that fit, within ``P21_ISOTONIC_MEAN`` on
+    average and ``P21_ISOTONIC_P999`` at the 99.9th percentile; and on
+    the served head's (``served``), its Brier score reported."""
+    ref = cpu.arrays("isotonic")
+    t0 = time.perf_counter()
+    own = IsotonicRegression(device=dev).fit(Frame({
+        "features": same["prob"], "label": same["label"]}))
+    fit_s = time.perf_counter() - t0
+    calibrated = own.predict(same["prob"])
+    d = np.abs(calibrated - ref["calibrated"])
+    served_iso = IsotonicRegression(device=dev).fit(Frame({
+        "features": served["prob"], "label": served["label"]}))
+    res = {"blocks": [int(len(own.boundaries)), int(len(ref["boundaries"]))],
+           "fit_s": fit_s, "calibrated_mean_err": float(d.mean()),
+           "calibrated_p999_err": float(np.quantile(d, 0.999)),
+           "calibrated_max_err": float(d.max()),
+           "brier": float(np.mean((served_iso.predict(served["prob"])
+                                   - served["label"]) ** 2)),
+           "brier_uncalibrated": float(np.mean(
+               (served["prob"] - served["label"]) ** 2))}
+    if not (np.all(np.diff(own.predictions) >= 0)
+            and np.isfinite(calibrated).all()
+            and res["calibrated_mean_err"] <= P21_ISOTONIC_MEAN
+            and res["calibrated_p999_err"] <= P21_ISOTONIC_P999):
+        fails.append(f"phase 21 (b) isotonic: the card's calibration of "
+                     f"the CPU's head is not the CPU's: {res}")
+    return res
+
+
+def phase21(dev, work: str, cpu: P21Fits, split3: tuple = None,
+            train4: Frame = None) -> dict:
+    """Phase 21: (a) the fusible feature stages on the serve segment, (b)
+    the other supervised fits, each on the card against the CPU process
+    of the run's start; on phase 4's split and phase 6's training rows
+    where the run made them.  Every check runs; the phase fails with all
+    the failures at its end."""
+    t0 = time.perf_counter()
+    parts, fails = {}, []
+
+    def part(name, t):
+        parts[name] = round(time.perf_counter() - t, 3)
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    flows = p21_flows(split3)
+    selected = p21_selected(flows["train"], dev)
+    watch, batches = p21_write_traffic(work)
+    t = part("data", t)
+    fitted, fit_s = {}, {}
+    for name, build in (("poly", p21_poly_pipeline),
+                        ("discrete", p21_discrete_pipeline)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fitted[name] = build(dev, selected).fit(flows["train"])
+        torch.cuda.synchronize()
+        fit_s[name] = time.perf_counter() - t1
+    model_dir = save_model(fitted["poly"], os.path.join(work, "model21"))
+    t = part("pipeline_fits", t)
+    served = p21_serve_poly(dev, model_dir, watch, work, fails)
+    t = part("serve_commands", t)
+    small = p21_serve_discrete(dev, fitted["discrete"], batches, fails)
+    t = part("small_serve", t)
+    kernels = pads_of(dev, served["fused"]["pad_launch_shapes"])
+    # the small serve's batches are float32 1-D columns (column-major)
+    kernels += pads_of(dev, small["pad_launch_shapes"], False)
+    t = part("pad_checks", t)
+    frames = p21_reg_inputs(train4)
+    card = p21_card_fits(dev, frames)
+    t = part("card_fits", t)
+    heads = {n: p21_head_outputs(m, flows["test"])
+             for n, m in fitted.items()}
+    t = part("heads", t)
+    cpu_secs = cpu.seconds()
+    t = part("waited_for_cpu", t)
+    cmp = {"selected_equal": list(cpu.arrays("selected")["selected"])
+           == selected}
+    if not cmp["selected_equal"]:
+        fails.append("phase 21: the card's ChiSqSelector kept other "
+                     "features than the CPU's")
+    for name in fitted:
+        c = cmp[name] = p21_head_gaps(heads[name], cpu.arrays(
+            f"{name}_test"))
+        c["auc"] = p21_auc(heads[name])
+        if p21_outside(c, P21_HEADS[name]):
+            fails.append(f"phase 21 (a) {name}: the card's head is not the "
+                         f"CPU's: {c}")
+    with open(os.path.join(cpu.out, "host.json")) as f:
+        cmp["cpu_side"] = json.load(f)
+    # the witnesses: the CPU's degree-2 head against its refits under
+    # other summation orders on the same device (readings, not checks)
+    ref = cpu.arrays("poly_test")
+    cmp["poly_witnesses"] = {w: p21_head_gaps(cpu.arrays(f"poly_{w}_test"),
+                                              ref) for w in P21_WITNESSES}
+    # one model on two devices: the CPU's degree-2 fit on the card
+    same = p21_head_outputs(load_model(os.path.join(cpu.out, "poly"),
+                                       device=dev), flows["test"])
+    c = cmp["poly_same_model"] = p21_head_gaps(same, ref)
+    if p21_outside(c, P21_SAME_MODEL):
+        fails.append("phase 21 (a) poly: the card's outputs of the CPU's "
+                     f"fit are not the CPU's: {c}")
+    cmp["isotonic"] = p21_isotonic(dev, same, heads["poly"], cpu, fails)
+    cmp["fits"] = p21_compare_fits(dev, frames, card, cpu, fails)
+    cmp["vector_indexer"] = p21_vector_indexer(
+        dev, flows["train"], flows["test"], cpu, fails)
+    t = part("compare", t)
+    p21 = {
+        "seconds": time.perf_counter() - t0, "parts_s": parts,
+        "pipeline_fit_s": fit_s, "serve": {
+            k: served[k] for k in ("files_identical", "rows_per_s")},
+        "fusion": served["fused"]["fusion"],
+        "pad_launch_shapes": served["fused"]["pad_launch_shapes"],
+        "small": small, "fits": {
+            k: {kk: vv for kk, vv in v.items() if kk != "model"}
+            for k, v in card.items()},
+        "cpu_s": cpu_secs, "compare": cmp, "kernels": kernels,
+        "monomials": len(_expansion_plan(TOP, P21_DEGREE)),
+        # the degree-2 fits' objective histories (the --out-json record)
+        "poly_histories": {"card": heads["poly"]["objectiveHistory"].tolist(),
+                           "cpu": ref["objectiveHistory"].tolist(), **{
+                               w: cpu.arrays(f"poly_{w}_test")[
+                                   "objectiveHistory"].tolist()
+                               for w in P21_WITNESSES}},
+    }
+    if fails:
+        log("phase 21 " + json.dumps({k: p21[k] for k in (
+            "parts_s", "serve", "fusion", "small", "compare",
+            "poly_histories")}, default=str))
+        raise SystemExit("phase 21 failed:\n" + "\n".join(fails))
+    return p21
+
+
+def _gaps(g: dict) -> str:
+    """``p21_head_gaps`` as text."""
+    return ", ".join(f"{k} {v:.6f}" if k == "agreement" else f"{k} {v:.3g}"
+                     for k, v in g.items())
+
+
+def report_phase21(p21: dict, card: str) -> None:
+    cmp = p21["compare"]
+    log(f"phase 21 (a) the degree-{P21_DEGREE} pipeline ({TOP} sliced "
+        f"features -> {p21['monomials']} float64 monomials -> binary LR): "
+        "fit on the card "
+        f"{p21['pipeline_fit_s']['poly']:.3f} s (CPU process "
+        f"{p21['cpu_s']['poly']:.3f} s); served in batches {P21_BATCHES}: "
+        f"fused {p21['serve']['rows_per_s']['fused']:.1f} rows/s, staged "
+        f"{p21['serve']['rows_per_s']['staged']:.1f} rows/s (each with its "
+        f"first batch), files identical {p21['serve']['files_identical']}; "
+        f"fusion {p21['fusion']}; held-out AUC {cmp['poly']['auc']:.6f}; "
+        f"the card's fit against the CPU's: {_gaps(cmp['poly'])}; the CPU's "
+        "refits under other summation orders against its fit: "
+        + "; ".join(f"{w} {_gaps(g)}"
+                    for w, g in cmp["poly_witnesses"].items())
+        + f"; the CPU's fit served on the card against the CPU: "
+        f"{_gaps(cmp['poly_same_model'])}; the CPU process "
+        f"{cmp['cpu_side']} [{card}]")
+    iso = cmp["isotonic"]
+    log(f"phase 21 (b) isotonic calibration of the CPU head's P(attack) on "
+        f"the card: {iso['blocks'][0]} blocks ({iso['blocks'][1]} on the "
+        f"CPU) in {iso['fit_s']:.3f} s; calibrated outputs against the "
+        f"CPU's {iso['calibrated_mean_err']:.3g} on average, "
+        f"{iso['calibrated_p999_err']:.3g} at the 99.9th percentile, "
+        f"{iso['calibrated_max_err']:.3g} at most; the served head's "
+        f"Brier {iso['brier_uncalibrated']:.6f} -> {iso['brier']:.6f} "
+        f"[{card}]")
+    s = p21["small"]
+    log(f"phase 21 (a) the small serve ({s['fused_stages']}): fused and "
+        f"staged equal {s['equal']}, {s['seconds']['fused']:.3f} s / "
+        f"{s['seconds']['staged']:.3f} s for {sum(P21_BATCHES)} rows; "
+        f"held-out AUC {cmp['discrete']['auc']:.6f}, agreement "
+        f"{cmp['discrete']['agreement']:.6f} [{card}]")
+    for name, f in p21["fits"].items():
+        log(f"phase 21 (b) {name}: {f['seconds']:.3f} s on the card "
+            f"({f['iterations']} iterations, {f['host_reads']} host reads); "
+            f"profiled {f['profiled_s']:.3f} s with device busy "
+            f"{f['device_ms']:.1f} ms over {f['device_events']} device "
+            f"events (idle share {idle_text(f['device_idle_share'])}), "
+            "top device ops "
+            f"{f['top_device_ops_ms']}; CPU fit {p21['cpu_s'][name]:.3f} s; "
+            f"against the CPU {cmp['fits'][name]} [{card}]")
+    for k in p21["kernels"]:
+        log(f"phase 21 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "
+            f"{k['device_ms']:.4f} ms of device time a launch (plain "
+            f"{k['plain_ms']:.4f} ms; {k['library_call']} "
+            f"{k['library_ms']:.4f} ms a call; bound {k['bound_ms']:.4f} ms "
+            f"by {k['bound_by']}); {k['launches']} launches at this shape "
+            f"in its run, max abs error {k['max_abs_err']} [{card}]")
+    log("phase 21 " + json.dumps({
+        "phase": 21, "card": card, "seconds": round(p21["seconds"], 3),
+        "parts_s": p21["parts_s"], "cpu_s": p21["cpu_s"],
+        "compare": cmp, "small": {k: s[k] for k in ("equal", "launches")},
+        "pad_launch_shapes": p21["pad_launch_shapes"],
+        "poly_histories": p21["poly_histories"]}, default=str))
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -9146,8 +10099,13 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
+#: side process name -> (its handle in the run, its main)
+SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
+         "family_fits": (FamilyFits, family_fits_main),
+         "p21_fits": (P21Fits, p21_fits_main)}
+
 PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
-          "20")
+          "20", "21")
 
 
 def main() -> int:
@@ -9160,44 +10118,61 @@ def main() -> int:
                     help="run only these phases, comma-separated, of "
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first, 18 and 19 config 9's LR "
-                    "pipeline, 20 generates config 3's rows); default: "
+                    "pipeline, 20 generates config 3's rows, 21 config 3's "
+                    "and config 4's); default: "
                     "every phase")
-    ap.add_argument("--cpu-fits", default=None, metavar="DIR",
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--family-fits", default=None, metavar="DIR",
+    # a CPU side process (``SIDES``), which the run starts itself
+    ap.add_argument("--side", nargs=2, default=None, metavar=("NAME", "DIR"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.cpu_fits:
-        return cpu_fits_main(args.cpu_fits)
-    if args.family_fits:
-        return family_fits_main(args.family_fits)
+    if args.side:
+        name, out = args.side
+        return SIDES[name][1](out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = gpu_line()
     log(f"card: {card}")
+    log(f"host: {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} "
+        "usable by this process")
     # the kernels build (nvcc processes) beside the first data set's
     # generation on the host
     build_pool = ThreadPoolExecutor(1)
     built = build_pool.submit(_build.library, args.verbose_build)
-    if args.phases:
-        with clock("1 build"):
-            built.result()
-        return main_phases(dev, card, args.phases.split(","))
-    # the CPU reference fits of phases 4 and 6 run in a process of their
-    # own from the start, beside the card's work
+    phases = args.phases.split(",") if args.phases else list(PHASES)
+    # the CPU sides of phases 4 and 6, 20 and 21 run in processes of
+    # their own beside the card's work: phases 4's and 6's from the
+    # start, 20's and 21's after phase 12 (at once under --phases)
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as cpu_dir:
-        cpu_fits = CpuFits(cpu_dir)
+        sides = {}
+
+        def start(*names):
+            for name in names:
+                out = os.path.join(cpu_dir, name)
+                os.makedirs(out)
+                sides[name] = SIDES[name][0](out)
+
         try:
-            return main_all(dev, card, args, built, build_pool, cpu_fits)
+            if args.phases:
+                start(*(name for name, p in (("family_fits", "20"),
+                                             ("p21_fits", "21"))
+                        if p in phases))
+                with clock("1 build"):
+                    built.result()
+                return main_phases(dev, card, phases, sides)
+            start("cpu_fits")
+            return main_all(dev, card, args, built, build_pool, sides,
+                            start)
         finally:
-            cpu_fits.close()
+            for side in sides.values():
+                side.close()
 
 
-def main_all(dev, card: str, args, built, build_pool,
-             cpu_fits: CpuFits) -> int:
-    """Every phase, in the order that keeps the card busy."""
+def main_all(dev, card: str, args, built, build_pool, sides: dict,
+             start) -> int:
+    """Every phase, in the order that keeps the card busy; ``start(name,
+    ...)`` starts a side process into ``sides``."""
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
         with clock("4 data"):
             data = fit_data(work)
@@ -9222,6 +10197,10 @@ def main_all(dev, card: str, args, built, build_pool,
             failures = failure_paths(dev, work)
         with clock("12 data plane"):
             phase12 = data_plane(dev, work)
+        # phases 20's and 21's CPU sides (~1.5 min each) start once the
+        # serve phases that load the host most (3, 8, 12) are done, and
+        # end long before phase 20 needs them
+        start("family_fits", "p21_fits")
         with clock("13 self-tuning"):
             phase13 = self_tuning(dev, work)
         with clock("14 lifecycle"):
@@ -9235,6 +10214,7 @@ def main_all(dev, card: str, args, built, build_pool,
                                          (train_gbt, dev, data4, work))
         with clock("6 config 4"):
             served4 = serve_gbt(dev, data4, trained4, work)
+    cpu_fits = sides["cpu_fits"]
     with clock("4 reduced fit"):
         reduced = reduced_fit(data, dev, cpu_fits)
     with clock("6 config 4"):
@@ -9319,9 +10299,12 @@ def main_all(dev, card: str, args, built, build_pool,
             phase10 = lane_fits(dev, data2, data1, work)
     with clock("14 lifecycle"):
         phase14["lr"] = lr_partial_fit(dev, data1)
+    with clock("20 families"):
+        phase20 = families(dev, data["train"], sides["family_fits"])
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
-        with clock("20 families"):
-            phase20 = families(dev, data["train"], work)
+        with clock("21 feature stages, fits"):
+            phase21_ = phase21(dev, work, sides["p21_fits"],
+                               (data["train"], data["test"]), data4["train"])
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -9332,6 +10315,7 @@ def main_all(dev, card: str, args, built, build_pool,
     kernels += phase18["kernels"]
     kernels += phase19["kernels"]
     kernels += phase20["kernels"]
+    kernels += phase21_["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -9518,6 +10502,7 @@ def main_all(dev, card: str, args, built, build_pool,
     report_phase18(phase18, card)
     report_phase19(phase19, card)
     report_phase20(phase20, card)
+    report_phase21(phase21_, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -9547,16 +10532,18 @@ def main_all(dev, card: str, args, built, build_pool,
                        "phase14": phase14, "phase15": phase15,
                        "phase16": phase16, "phase17": phase17,
                        "phase18": phase18, "phase19": phase19,
-                       "phase20": phase20,
-                       "phase_seconds": PHASE_SECONDS}, f,
+                       "phase20": phase20, "phase21": phase21_,
+                       "phase_seconds": PHASE_SECONDS,
+                       "sides": side_spans(sides)}, f,
                       indent=1, default=str)
-    finish(kernels, card)
+    finish(kernels, card, sides)
     return 0
 
 
-def finish(kernels: list, card: str) -> None:
-    """The last lines: each phase's wall-clock, the kernels, the card,
-    the result."""
+def finish(kernels: list, card: str, sides: dict) -> None:
+    """The last lines: the side processes' spans, each phase's
+    wall-clock, the kernels, the card, the result."""
+    print("sides " + json.dumps(side_spans(sides)))
     print("phase_seconds " + json.dumps(PHASE_SECONDS))
     print(json.dumps({"kernels": [
         {k2: v for k2, v in k.items()
@@ -9571,7 +10558,7 @@ def finish(kernels: list, card: str) -> None:
     }}))
 
 
-def main_phases(dev, card: str, phases: list) -> int:
+def main_phases(dev, card: str, phases: list, sides: dict) -> int:
     """``--phases``: the named phases alone, each after what it needs
     (phase 3's saved model for 11-13; config 1's data and train command
     for 15), every check as in the whole run; the kernels line holds the
@@ -9644,10 +10631,15 @@ def main_phases(dev, card: str, phases: list) -> int:
             kernels += p19["kernels"]
         if "20" in phases:
             with clock("20 families"):
-                p20 = families(dev, config3_train(), work)
+                p20 = families(dev, config3_train(), sides["family_fits"])
             report_phase20(p20, card)
             kernels += p20["kernels"]
-    finish(kernels, card)
+        if "21" in phases:
+            with clock("21 feature stages, fits"):
+                p21 = phase21(dev, work, sides["p21_fits"])
+            report_phase21(p21, card)
+            kernels += p21["kernels"]
+    finish(kernels, card, sides)
     return 0
 
 

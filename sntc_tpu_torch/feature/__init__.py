@@ -3,6 +3,19 @@ from sntc_tpu_torch.feature.chisq_selector import (
     ChiSqSelectorModel,
 )
 from sntc_tpu_torch.feature.dct import DCT
+from sntc_tpu_torch.feature.discretizers import (
+    Bucketizer,
+    Imputer,
+    ImputerModel,
+    QuantileDiscretizer,
+)
+from sntc_tpu_torch.feature.encoders import (
+    ElementwiseProduct,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    VectorSlicer,
+)
+from sntc_tpu_torch.feature.expansion import Interaction, PolynomialExpansion
 from sntc_tpu_torch.feature.pca import PCA, PCAModel
 from sntc_tpu_torch.feature.scalers import (
     Binarizer,
@@ -32,20 +45,34 @@ from sntc_tpu_torch.feature.variance_selector import (
     VarianceThresholdSelectorModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.feature.vector_indexer import (
+    VectorIndexer,
+    VectorIndexerModel,
+    VectorSizeHint,
+)
 
 __all__ = [
     "Binarizer",
+    "Bucketizer",
     "ChiSqSelector",
     "ChiSqSelectorModel",
     "DCT",
+    "ElementwiseProduct",
+    "Imputer",
+    "ImputerModel",
     "IndexToString",
+    "Interaction",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
     "Normalizer",
+    "OneHotEncoder",
+    "OneHotEncoderModel",
     "PCA",
     "PCAModel",
+    "PolynomialExpansion",
+    "QuantileDiscretizer",
     "RobustScaler",
     "RobustScalerModel",
     "StandardScaler",
@@ -57,4 +84,8 @@ __all__ = [
     "VarianceThresholdSelector",
     "VarianceThresholdSelectorModel",
     "VectorAssembler",
+    "VectorIndexer",
+    "VectorIndexerModel",
+    "VectorSizeHint",
+    "VectorSlicer",
 ]

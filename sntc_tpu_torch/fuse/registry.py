@@ -21,10 +21,16 @@ Registered: ``StandardScalerModel``, ``MinMaxScalerModel``,
 (the three scalers' elementwise float32 maps and the two full-f32
 products run the same code as their staged transforms: the models'
 ``scale_tensor``, ``pca_project`` and ``dct_apply``),
-``ChiSqSelectorModel``, ``UnivariateFeatureSelectorModel`` and
-``VarianceThresholdSelectorModel`` (column gathers) and
-``VectorAssembler`` in ``keep`` mode.  The JAX package's other
-registered stages wait for their ports.
+``ChiSqSelectorModel``, ``UnivariateFeatureSelectorModel``,
+``VarianceThresholdSelectorModel`` and ``VectorSlicer`` (column
+gathers), ``ElementwiseProduct`` (float32 inputs only, as its host map
+keeps the dtype), ``PolynomialExpansion``, ``Interaction`` and
+``Bucketizer`` (float64 math; the Bucketizer in scalar mode with
+``handleInvalid='keep'`` and open ends only, where no value can raise)
+and ``VectorAssembler`` in ``keep`` mode: every stage the JAX registry
+holds.  The JAX package builds its three float64 plans only under
+``jax_enable_x64``; the port has float64 on every device and always
+builds them.
 
 A plan may carry ``flops(env)``: the FLOPs of its products on the bound
 tensors, which the segment's roofline counts (``obs.cost``).
@@ -99,6 +105,21 @@ def _on(cache: dict, a: np.ndarray, device) -> torch.Tensor:
 def _register_builtin() -> None:
     from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
     from sntc_tpu_torch.feature.dct import DCT, dct_apply
+    from sntc_tpu_torch.feature.discretizers import (
+        Bucketizer,
+        bucketize_tensor,
+    )
+    from sntc_tpu_torch.feature.encoders import (
+        ElementwiseProduct,
+        VectorSlicer,
+        scale_tensor,
+    )
+    from sntc_tpu_torch.feature.expansion import (
+        Interaction,
+        PolynomialExpansion,
+        expand_tensor,
+        interact_tensors,
+    )
     from sntc_tpu_torch.feature.pca import PCAModel, pca_project
     from sntc_tpu_torch.feature.scalers import (
         MaxAbsScalerModel,
@@ -184,6 +205,84 @@ def _register_builtin() -> None:
 
         # dtype-preserving on the host (f64 in -> f64 out): fuse f32 only
         return DevicePlan([inp], [out], apply, read_policy=F32_ONLY)
+
+    @_register(VectorSlicer)
+    def _vector_slicer(m):
+        idx = m.getIndices()
+        if not idx:
+            return None  # unset: the eager path raises the right error
+        return _gather_plan(m.getInputCol(), m.getOutputCol(), idx)
+
+    @_register(ElementwiseProduct)
+    def _elementwise_product(m):
+        w = m.getScalingVec()
+        if w is None:
+            return None
+        w32 = np.asarray(w, np.float32)
+        inp, out = m.getInputCol(), m.getOutputCol()
+        w_on = {}
+
+        def apply(cols):
+            x = cols[inp]
+            if w32.shape != (x.shape[1],):
+                raise ValueError(
+                    f"scalingVec length {w32.shape[0]} != vector width "
+                    f"{x.shape[1]}"
+                )
+            return {out: scale_tensor(x, _on(w_on, w32, x.device))}
+
+        # dtype-preserving on the host (f64 in -> f64 out): fuse f32 only
+        return DevicePlan([inp], [out], apply, read_policy=F32_ONLY)
+
+    @_register(PolynomialExpansion)
+    def _poly_expansion(m):
+        degree = int(m.getDegree())
+        inp, out = m.getInputCol(), m.getOutputCol()
+
+        def apply(cols):
+            x = cols[inp]
+            if x.ndim != 2:
+                raise ValueError(
+                    f"inputCol {inp!r} must be a vector column"
+                )
+            return {out: expand_tensor(x, degree)}
+
+        return DevicePlan([inp], [out], apply, read_policy=F64)
+
+    @_register(Interaction)
+    def _interaction(m):
+        names = m.getInputCols()
+        if not names or len(names) < 2:
+            return None
+        out = m.getOutputCol()
+        return DevicePlan(
+            list(names), [out],
+            lambda cols: {out: interact_tensors([cols[n] for n in names])},
+            read_policy=F64)
+
+    @_register(Bucketizer)
+    def _bucketizer(m):
+        if m.getInputCols():
+            return None  # multi-column mode: eager (scope: scalar mode)
+        if m.getHandleInvalid() != "keep":
+            return None  # 'error' raises on NaN, 'skip' drops rows
+        try:
+            splits = m._splits()
+        except ValueError:
+            return None  # malformed splits: the eager path raises
+        if not (np.isneginf(splits[0]) and np.isposinf(splits[-1])):
+            # closed ends ALWAYS raise on out-of-range values (Spark):
+            # a data-dependent check only the host can make
+            return None
+        inp, out = m.getInputCol(), m.getOutputCol()
+        last = float(splits[-1])
+
+        def apply(cols):
+            v = cols[inp]
+            return {out: bucketize_tensor(v, m.splits_on(splits, v.device),
+                                          last)}
+
+        return DevicePlan([inp], [out], apply, read_policy=F64)
 
     @_register(ChiSqSelectorModel)
     def _chisq_selector(m):

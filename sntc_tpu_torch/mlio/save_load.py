@@ -49,6 +49,19 @@ from sntc_tpu_torch.evaluation import (
 )
 from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
 from sntc_tpu_torch.feature.dct import DCT
+from sntc_tpu_torch.feature.discretizers import (
+    Bucketizer,
+    Imputer,
+    ImputerModel,
+    QuantileDiscretizer,
+)
+from sntc_tpu_torch.feature.encoders import (
+    ElementwiseProduct,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    VectorSlicer,
+)
+from sntc_tpu_torch.feature.expansion import Interaction, PolynomialExpansion
 from sntc_tpu_torch.feature.pca import PCAModel
 from sntc_tpu_torch.feature.scalers import (
     Binarizer,
@@ -73,11 +86,38 @@ from sntc_tpu_torch.feature.variance_selector import (
     VarianceThresholdSelectorModel,
 )
 from sntc_tpu_torch.feature.vector_assembler import VectorAssembler
+from sntc_tpu_torch.feature.vector_indexer import (
+    VectorIndexer,
+    VectorIndexerModel,
+    VectorSizeHint,
+)
+from sntc_tpu_torch.models.aft import (
+    AFTSurvivalRegression,
+    AFTSurvivalRegressionModel,
+)
 from sntc_tpu_torch.models.als import ALSModel
 from sntc_tpu_torch.models.bisecting_kmeans import BisectingKMeansModel
+from sntc_tpu_torch.models.fm import (
+    FMClassificationModel,
+    FMClassifier,
+    FMRegressionModel,
+    FMRegressor,
+)
 from sntc_tpu_torch.models.gaussian_mixture import GaussianMixtureModel
+from sntc_tpu_torch.models.glm import (
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
+)
+from sntc_tpu_torch.models.isotonic import (
+    IsotonicRegression,
+    IsotonicRegressionModel,
+)
 from sntc_tpu_torch.models.kmeans import KMeansModel
 from sntc_tpu_torch.models.lda import LDAModel
+from sntc_tpu_torch.models.linear_regression import (
+    LinearRegression,
+    LinearRegressionModel,
+)
 from sntc_tpu_torch.models.linear_svc import LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
@@ -159,6 +199,25 @@ PORTED_CLASSES: Dict[str, type] = {
         UnivariateFeatureSelectorModel,
     "sntc_tpu.feature.variance_selector.VarianceThresholdSelectorModel":
         VarianceThresholdSelectorModel,
+    "sntc_tpu.feature.encoders.OneHotEncoderModel": OneHotEncoderModel,
+    "sntc_tpu.feature.encoders.VectorSlicer": VectorSlicer,
+    "sntc_tpu.feature.encoders.ElementwiseProduct": ElementwiseProduct,
+    "sntc_tpu.feature.expansion.PolynomialExpansion": PolynomialExpansion,
+    "sntc_tpu.feature.expansion.Interaction": Interaction,
+    "sntc_tpu.feature.discretizers.Bucketizer": Bucketizer,
+    "sntc_tpu.feature.discretizers.ImputerModel": ImputerModel,
+    "sntc_tpu.feature.vector_indexer.VectorIndexerModel": VectorIndexerModel,
+    "sntc_tpu.feature.vector_indexer.VectorSizeHint": VectorSizeHint,
+    "sntc_tpu.models.linear_regression.LinearRegressionModel":
+        LinearRegressionModel,
+    "sntc_tpu.models.aft.AFTSurvivalRegressionModel":
+        AFTSurvivalRegressionModel,
+    "sntc_tpu.models.isotonic.IsotonicRegressionModel":
+        IsotonicRegressionModel,
+    "sntc_tpu.models.glm.GeneralizedLinearRegressionModel":
+        GeneralizedLinearRegressionModel,
+    "sntc_tpu.models.fm.FMRegressionModel": FMRegressionModel,
+    "sntc_tpu.models.fm.FMClassificationModel": FMClassificationModel,
     # the estimators and evaluators a tuning spec holds
     "sntc_tpu.core.base.Pipeline": Pipeline,
     "sntc_tpu.feature.string_indexer.StringIndexer": StringIndexer,
@@ -166,6 +225,17 @@ PORTED_CLASSES: Dict[str, type] = {
     "sntc_tpu.models.logistic_regression.LogisticRegression":
         LogisticRegression,
     "sntc_tpu.models.one_vs_rest.OneVsRest": OneVsRest,
+    "sntc_tpu.feature.encoders.OneHotEncoder": OneHotEncoder,
+    "sntc_tpu.feature.discretizers.QuantileDiscretizer": QuantileDiscretizer,
+    "sntc_tpu.feature.discretizers.Imputer": Imputer,
+    "sntc_tpu.feature.vector_indexer.VectorIndexer": VectorIndexer,
+    "sntc_tpu.models.linear_regression.LinearRegression": LinearRegression,
+    "sntc_tpu.models.aft.AFTSurvivalRegression": AFTSurvivalRegression,
+    "sntc_tpu.models.isotonic.IsotonicRegression": IsotonicRegression,
+    "sntc_tpu.models.glm.GeneralizedLinearRegression":
+        GeneralizedLinearRegression,
+    "sntc_tpu.models.fm.FMRegressor": FMRegressor,
+    "sntc_tpu.models.fm.FMClassifier": FMClassifier,
     "sntc_tpu.evaluation.binary.BinaryClassificationEvaluator":
         BinaryClassificationEvaluator,
     "sntc_tpu.evaluation.multiclass.MulticlassClassificationEvaluator":

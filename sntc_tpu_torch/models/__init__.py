@@ -1,3 +1,7 @@
+from sntc_tpu_torch.models.aft import (
+    AFTSurvivalRegression,
+    AFTSurvivalRegressionModel,
+)
 from sntc_tpu_torch.models.als import ALS, ALSModel
 from sntc_tpu_torch.models.base import (
     ClassificationModel,
@@ -7,12 +11,30 @@ from sntc_tpu_torch.models.bisecting_kmeans import (
     BisectingKMeans,
     BisectingKMeansModel,
 )
+from sntc_tpu_torch.models.fm import (
+    FMClassificationModel,
+    FMClassifier,
+    FMRegressionModel,
+    FMRegressor,
+)
 from sntc_tpu_torch.models.gaussian_mixture import (
     GaussianMixture,
     GaussianMixtureModel,
 )
+from sntc_tpu_torch.models.glm import (
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
+)
+from sntc_tpu_torch.models.isotonic import (
+    IsotonicRegression,
+    IsotonicRegressionModel,
+)
 from sntc_tpu_torch.models.kmeans import KMeans, KMeansModel
 from sntc_tpu_torch.models.lda import LDA, LDAModel
+from sntc_tpu_torch.models.linear_regression import (
+    LinearRegression,
+    LinearRegressionModel,
+)
 from sntc_tpu_torch.models.linear_svc import LinearSVC, LinearSVCModel
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
@@ -50,6 +72,8 @@ from sntc_tpu_torch.models.tree.random_forest_regressor import (
 )
 
 __all__ = [
+    "AFTSurvivalRegression",
+    "AFTSurvivalRegressionModel",
     "ALS",
     "ALSModel",
     "BisectingKMeans",
@@ -60,16 +84,26 @@ __all__ = [
     "DecisionTreeClassifier",
     "DecisionTreeRegressionModel",
     "DecisionTreeRegressor",
+    "FMClassificationModel",
+    "FMClassifier",
+    "FMRegressionModel",
+    "FMRegressor",
     "GBTClassificationModel",
     "GBTClassifier",
     "GBTRegressionModel",
     "GBTRegressor",
     "GaussianMixture",
     "GaussianMixtureModel",
+    "GeneralizedLinearRegression",
+    "GeneralizedLinearRegressionModel",
+    "IsotonicRegression",
+    "IsotonicRegressionModel",
     "KMeans",
     "KMeansModel",
     "LDA",
     "LDAModel",
+    "LinearRegression",
+    "LinearRegressionModel",
     "LinearSVC",
     "LinearSVCModel",
     "LogisticRegression",

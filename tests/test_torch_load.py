@@ -120,8 +120,8 @@ def test_from_numpy_forest_serves_like_the_loaded_model(fitted):
 
 def test_unported_class_and_orbax_payload_raise(tmp_path):
     meta = {"format_version": 1, "uid": "x", "params": {}, "extra": {},
-            "class": "sntc_tpu.models.fm.FMClassificationModel"}
-    d = tmp_path / "fm"
+            "class": "sntc_tpu.models.fpm.FPGrowthModel"}
+    d = tmp_path / "fpm"
     d.mkdir()
     (d / "metadata.json").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -439,11 +439,21 @@ def test_exports_cover_the_jax_package():
             "ALS", "ALSModel", "BisectingKMeans", "BisectingKMeansModel",
             "GaussianMixture", "GaussianMixtureModel", "KMeans",
             "KMeansModel", "LDA", "LDAModel", "PowerIterationClustering",
+            "LinearRegression", "LinearRegressionModel",
+            "AFTSurvivalRegression", "AFTSurvivalRegressionModel",
+            "IsotonicRegression", "IsotonicRegressionModel",
+            "GeneralizedLinearRegression",
+            "GeneralizedLinearRegressionModel", "FMClassifier",
+            "FMClassificationModel", "FMRegressor", "FMRegressionModel",
         },
         (jax_evaluation, evaluation): {"ClusteringEvaluator"},
         (jax_feature, feature): {
             "UnivariateFeatureSelector", "UnivariateFeatureSelectorModel",
             "VarianceThresholdSelector", "VarianceThresholdSelectorModel",
+            "OneHotEncoder", "OneHotEncoderModel", "VectorSlicer",
+            "ElementwiseProduct", "PolynomialExpansion", "Interaction",
+            "Bucketizer", "QuantileDiscretizer", "Imputer", "ImputerModel",
+            "VectorIndexer", "VectorIndexerModel", "VectorSizeHint",
         },
     }
     for (jax_mod, mod), names in ported.items():
