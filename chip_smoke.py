@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20,21]
+                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20,21,22]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -457,7 +457,40 @@ each of which fails the run (non-zero exit, no result line):
    agreement, beside the CPU's refits under other summation orders; the
    CPU's degree-2 fit served on the card against the CPU, and its
    calibration); both serves' ``pad_assemble`` shapes held against the
-   plain version and timed beside their bound.
+   plain version and timed beside their bound;
+22. the object-column group and the long tail, in this process, on
+   config 1's flows (phase 15's data, seed 7): each held-out flow as a
+   flow document, one token ``"{j}:{bucket}"`` a feature (its bucket of
+   ``QuantileDiscretizer(numBuckets=8)`` fitted on the training rows);
+   (a) Tokenizer -> StopWordsRemover -> NGram(2) -> HashingTF(4096) over
+   the 49 950 documents, IDF fitted on the card and on the CPU
+   (``docFreq`` bitwise, the idf equal), CountVectorizer and
+   FeatureHasher on the same frame; (b) Word2Vec at its defaults
+   (``maxIter=1``) on the first 2 000 documents on the card, against the
+   same fit (the same numpy uniforms) made by ``--side p22_fits`` on the
+   CPU, and the fit's first 512 steps again on both, the card's in a
+   profiler window (its device time and idle share); each card run held
+   against the CPU's by how far its steps moved the vectors (the input
+   vectors of the fit and the window, the window's output vectors),
+   relative to how far they moved; (c) BRP (3
+   tables) on the standard-scaled training rows, hashes card against CPU
+   except within a few ulps of a bucket edge, 10 nearest neighbours of 5
+   held-out keys, a join of 4 096 held-out against 20 000 training rows
+   (pairs equal, distances within 1e-6 relative), MinHash (5 tables) on
+   the held-out rows binarized at the training first quartile (hashes
+   bitwise, a join at Jaccard distance 0.3 of 2 000 x 2 000 rows); (d)
+   FPGrowth on the documents' token sets (its rules predicting a hidden
+   feature's token, scored by MultilabelClassificationEvaluator),
+   RFormula and SQLTransformer on the flows, RankingEvaluator on (c)'s
+   neighbours (relevant: the training rows of the key's label).
+
+The run keeps the bytecode of every Python process it starts under
+``sntc_tpu_torch/_build/pycache`` (``cache_bytecode``): the card's
+machine sets ``PYTHONDONTWRITEBYTECODE`` and ships torch without its
+``__pycache__``, so each process otherwise compiles torch afresh.
+Phase 3's and phase 12's serving processes print their way to the card
+(``startup split``: interpreter and imports, CUDA context,
+``library()``, the model's load, the first batch, the rest).
 
 Phase 7's staged and default config-2 serves and phase 10d's tuned model
 run with ``SNTC_SERVE_HOST_ROWS=0``, every batch on the card, so their
@@ -498,7 +531,7 @@ import torch
 from scipy.special import psi
 
 from sntc_tpu_torch.core.base import Estimator, Pipeline, PipelineModel
-from sntc_tpu_torch.core.frame import Frame, to_host
+from sntc_tpu_torch.core.frame import Frame, object_column, to_host
 from sntc_tpu_torch.data import (
     CICIDS2017_CONTRACT,
     CICIDS2017_FEATURES,
@@ -528,7 +561,27 @@ from sntc_tpu_torch.feature import (
     VectorIndexer,
     VectorSlicer,
 )
+from sntc_tpu_torch.feature import (
+    IDF,
+    BucketedRandomProjectionLSH,
+    CountVectorizer,
+    FeatureHasher,
+    HashingTF,
+    MinHashLSH,
+    NGram,
+    RFormula,
+    SQLTransformer,
+    StopWordsRemover,
+    Tokenizer,
+    Word2Vec,
+)
 from sntc_tpu_torch.feature.expansion import _expansion_plan
+from sntc_tpu_torch.feature.word2vec import (
+    UNIFORM_CHUNK,
+    numpy_uniforms,
+    skipgram_inputs,
+    train_epochs,
+)
 from sntc_tpu_torch.kernels import _build, histogram
 from sntc_tpu_torch.kernels.assemble import (
     pad_launch_shape,
@@ -564,6 +617,7 @@ from sntc_tpu_torch.models import (
     MultilayerPerceptronClassifier,
     NaiveBayes,
     OneVsRest,
+    FPGrowth,
     PowerIterationClustering,
     RandomForestClassifier,
     RandomForestRegressor,
@@ -581,6 +635,8 @@ from sntc_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
     ClusteringEvaluator,
     MulticlassClassificationEvaluator,
+    MultilabelClassificationEvaluator,
+    RankingEvaluator,
     RegressionEvaluator,
 )
 from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES, reset_launches
@@ -588,6 +644,7 @@ from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import from_numpy_forest
 from sntc_tpu_torch.models.tree.random_forest import _rf_serve
 from sntc_tpu_torch.ops.lbfgs import LbfgsResult, full_f32
+from sntc_tpu_torch.utils.profiling import upload
 from sntc_tpu_torch.flow import FlowCaptureSource
 from sntc_tpu_torch.fuse import compile_pipeline, fused_segments, fusion_stats
 from sntc_tpu_torch.serve import (
@@ -1258,12 +1315,37 @@ def serve_command(model_dir: str, watch: str, out: str, ckpt: str, dev,
     environment); its summary line."""
     cmd = serve_args(model_dir, watch, out, ckpt, dev, files_per_batch) \
         + ["--once", *extra]
+    spawned = time.time()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=600, env=env)
     if proc.returncode != 0:
         raise SystemExit(f"serve {' '.join(extra) or '(defaults)'} failed "
                          f"({proc.returncode}):\n{proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["spawned_at"], summary["exited_at"] = spawned, time.time()
+    return summary
+
+
+def startup_split(summary: dict) -> dict:
+    """A ``serve --once`` process's seconds from its start to its exit,
+    from its summary's ``startup`` block and the times ``serve_command``
+    (or ``dp_serves``) took around it: the interpreter and the imports,
+    the CUDA context, ``library()``, the model's load, the first batch,
+    and the rest (the other batches and the exit)."""
+    st = summary["startup"]
+    parts = {"imports_s": st["imported_at"] - summary["spawned_at"],
+             "context_s": st.get("context_s", 0.0),
+             "library_s": st.get("library_s", 0.0),
+             "model_s": st["model_s"],
+             "first_batch_s": st["first_batch_s"] or 0.0}
+    total = summary["exited_at"] - summary["spawned_at"]
+    first = summary["progress"][0] if summary["progress"] else {}
+    return {**{k: round(v, 3) for k, v in parts.items()},
+            "rest_s": round(total - sum(parts.values()), 3),
+            "total_s": round(total, 3),
+            "first_batch_ms": {k: round(first[k], 1) for k in (
+                "readMs", "dispatchMs", "finalizeMs", "sinkMs",
+                "durationMs") if k in first}}
 
 
 def serve(dev, work: str) -> dict:
@@ -1294,6 +1376,8 @@ def serve(dev, work: str) -> dict:
     log(f"serve: {summary['batches']} batches, {summary['rows']} rows in "
         f"{summary['seconds']:.3f} s of serving ({wall:.1f} s with process "
         "start)")
+    log("serve startup split (the process alone, seconds): "
+        + json.dumps(startup_split(summary)))
     if summary["batches"] != len(BATCHES) or summary["rows"] != sum(BATCHES):
         raise SystemExit(f"serve covered {summary}, expected {BATCHES}")
 
@@ -2112,6 +2196,19 @@ def measure_forest_gbt(dev, data: dict, trained: dict, served: dict,
 # -- phase 7: bench configs 2 and 1, the LBFGS fits ----------------------------
 
 
+def lbfgs_split(raw: Frame, binary: bool) -> tuple:
+    """(train, test) of ``raw`` flows as the train command makes them:
+    cleaned, relabelled benign/attack when ``binary``, split 0.8/0.2 with
+    seed 0."""
+    clean = clean_flows(raw)
+    if binary:
+        clean = clean.with_column("Label", np.where(
+            clean["Label"].astype(str) == "BENIGN", "benign", "attack",
+        ).astype(object))
+    return tuple(clean.random_split([1 - TEST_FRACTION, TEST_FRACTION],
+                                    seed=SEED))
+
+
 def lbfgs_data(work: str, rows: int, binary: bool, tag: str) -> dict:
     """Bench config 2's (``binary=False``) or config 1's flows:
     ``rows`` synthetic rows from bench.py's data seed written as one raw
@@ -2122,13 +2219,7 @@ def lbfgs_data(work: str, rows: int, binary: bool, tag: str) -> dict:
     data_dir = os.path.join(work, f"days{tag}")
     os.makedirs(data_dir)
     write_raw_csv(raw, os.path.join(data_dir, "day.csv"))
-    clean = clean_flows(raw)
-    if binary:
-        clean = clean.with_column("Label", np.where(
-            clean["Label"].astype(str) == "BENIGN", "benign", "attack",
-        ).astype(object))
-    train, test = clean.random_split([1 - TEST_FRACTION, TEST_FRACTION],
-                                     seed=SEED)
+    train, test = lbfgs_split(raw, binary)
     log(f"config-{tag} data: {rows} rows generated and written, "
         f"{train.num_rows} train / {test.num_rows} test after cleaning "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -4076,13 +4167,14 @@ def dp_serves(model_dir: str, dev, work: str, jobs: list) -> dict:
     ``serve --once`` process of its own (its launch counts from 0), all
     started together so that their start-ups overlap; tag -> (summary
     line, batch files, checkpoint dir)."""
-    procs = {}
+    procs, spawned = {}, {}
     try:
         for tag, watch, extra, files_per_batch in jobs:
             out = os.path.join(work, f"out12_{tag}")
             ckpt = os.path.join(work, f"ckpt12_{tag}")
             cmd = serve_args(model_dir, watch, out, ckpt, dev,
                              files_per_batch) + ["--once", *extra]
+            spawned[tag] = time.time()
             procs[tag] = (subprocess.Popen(
                 cmd, cwd=REPO, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True), out, ckpt)
@@ -4092,8 +4184,11 @@ def dp_serves(model_dir: str, dev, work: str, jobs: list) -> dict:
             if proc.returncode != 0:
                 raise SystemExit(f"phase 12 {tag} serve failed "
                                  f"({proc.returncode}):\n{stderr}")
-            done[tag] = (json.loads(stdout.strip().splitlines()[-1]),
-                         sink_files(out), ckpt)
+            summary = json.loads(stdout.strip().splitlines()[-1])
+            # the exit is read in turn: a later process's may be late
+            summary["spawned_at"], summary["exited_at"] = (spawned[tag],
+                                                           time.time())
+            done[tag] = (summary, sink_files(out), ckpt)
         return done
     finally:
         for proc, _, _ in procs.values():
@@ -4255,7 +4350,7 @@ def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
                          f"{forged.returncode}")
     return {"killed_after": len(commits), "restart": restart["batches"],
             "fsck_repaired": report["repaired"][0]["torn_bytes"],
-            "forged_rc": forged.returncode}
+            "forged_rc": forged.returncode, "restart_summary": restart}
 
 
 def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
@@ -4388,6 +4483,13 @@ def data_plane(dev, work: str) -> dict:
                            admit=True)
     for x in ("salvage_files", "clean_files"):
         del runs[x]
+    for tag in ("clean", "salvage", "exact_clean", "exact", "zero",
+                "permissive"):
+        log(f"phase 12 startup split, {tag} (six processes together, "
+            "seconds): " + json.dumps(startup_split(runs[tag])))
+    log("phase 12 startup split, the restart (beside the disk-fault "
+        "chain, seconds): "
+        + json.dumps(startup_split(storage.pop("restart_summary"))))
     return {"runs": runs, "storage": storage, "pads": pads, "split": split,
             "seconds": time.perf_counter() - t0}
 
@@ -9426,6 +9528,48 @@ def p21_outside(gaps: dict, lim: dict) -> list:
             if (gaps[k] < v if k == "agreement" else gaps[k] > v)]
 
 
+def range_device_ops(prof, prefix: str) -> tuple:
+    """Device time of a profiler window's ``record_function`` ranges
+    named ``prefix + name``: a device event carries the correlation id of
+    the op that launched it, and that op's start, on the host, places it
+    in a range.  Returns ``(spans, ops, matched, unmatched)``: each
+    range's (start, end) in ns on the host's clock, its device ms by op
+    name, its count of matched device events; and the count of device
+    events whose launching op the window did not see.  It reads the
+    profiler's raw records (its FunctionEvent tree takes seconds to build
+    over the FM fits' autograd ops)."""
+    events = prof.profiler.kineto_results.events()
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = {e.name()[len(prefix):]: (e.start_ns(),
+                                      e.start_ns() + e.duration_ns())
+             for e in events
+             if e.name().startswith(prefix) and e.device_type() == cpu_t}
+    launched_at = {e.correlation_id(): e.start_ns() for e in events
+                   if e.device_type() == cpu_t
+                   and e.linked_correlation_id() == 0
+                   and e.correlation_id() > 0}
+    ops = {name: {} for name in spans}
+    matched = dict.fromkeys(spans, 0)
+    unmatched = 0
+    for e in events:
+        name_ = e.name()
+        if e.device_type() != cuda_t or e.is_user_annotation() \
+                or name_.startswith(("Activity Buffer", prefix)):
+            continue
+        at = launched_at.get(e.linked_correlation_id())
+        if at is None:
+            unmatched += 1
+            continue
+        for name, (lo, hi) in spans.items():
+            if lo <= at <= hi:
+                key = name_ if len(name_) <= 60 else name_[:57] + "..."
+                ops[name][key] = (ops[name].get(key, 0.0)
+                                  + e.duration_ns() / 1e6)
+                matched[name] += 1
+                break
+    return spans, ops, matched, unmatched
+
+
 def p21_card_fits(dev, frames: dict) -> dict:
     """Each of ``P21_FITS`` on the card, timed; then all of them once
     more in one profiler window, each inside a ``record_function`` range
@@ -9459,38 +9603,7 @@ def p21_card_fits(dev, frames: dict) -> dict:
             with torch.profiler.record_function(f"p21 {name}"):
                 p21_fit(name, dev, frames)
                 torch.cuda.synchronize()
-    # the profiler's raw records (its FunctionEvent tree takes seconds to
-    # build over the FM fits' autograd ops); nanoseconds on the host's
-    # clock.  A device event carries the correlation id of the op that
-    # launched it; that op's start, on the host, places it in a range.
-    events = prof.profiler.kineto_results.events()
-    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    spans = {e.name()[4:]: (e.start_ns(), e.start_ns() + e.duration_ns())
-             for e in events
-             if e.name().startswith("p21 ") and e.device_type() == cpu_t}
-    launched_at = {e.correlation_id(): e.start_ns() for e in events
-                   if e.device_type() == cpu_t
-                   and e.linked_correlation_id() == 0
-                   and e.correlation_id() > 0}
-    ops = {name: {} for name in P21_FITS}
-    matched = dict.fromkeys(P21_FITS, 0)
-    unmatched = 0
-    for e in events:
-        name_ = e.name()
-        if e.device_type() != cuda_t or e.is_user_annotation() \
-                or name_.startswith(("Activity Buffer", "p21 ")):
-            continue
-        at = launched_at.get(e.linked_correlation_id())
-        if at is None:
-            unmatched += 1
-            continue
-        for name, (lo, hi) in spans.items():
-            if lo <= at <= hi:
-                key = name_ if len(name_) <= 60 else name_[:57] + "..."
-                ops[name][key] = (ops[name].get(key, 0.0)
-                                  + e.duration_ns() / 1e6)
-                matched[name] += 1
-                break
+    spans, ops, matched, unmatched = range_device_ops(prof, "p21 ")
     for name in P21_FITS:
         wall_ms = (spans[name][1] - spans[name][0]) / 1e6
         busy = sum(ops[name].values())
@@ -9776,6 +9889,592 @@ def report_phase21(p21: dict, card: str) -> None:
         "compare": cmp, "small": {k: s[k] for k in ("equal", "launches")},
         "pad_launch_shapes": p21["pad_launch_shapes"],
         "poly_histories": p21["poly_histories"]}, default=str))
+
+
+# -- phase 22: the object-column group and the long tail ---------------------
+
+P22_BUCKETS = 8  # QuantileDiscretizer's buckets: one token a feature
+P22_HASH_WIDTH = 4096  # HashingTF's width (its default)
+P22_HASHER_WIDTH = 1024  # FeatureHasher's width over the 78 features + Label
+P22_W2V_DOCS = 2000  # Word2Vec's documents (its defaults, maxIter 1)
+#: the profiled window: the fit's first steps, on the fit's own inputs
+P22_W2V_WINDOW = 2 * UNIFORM_CHUNK
+P22_W2V_WARM = 16  # steps before the window's range, in the profiler
+#: card against CPU, same inputs and uniforms: how far the card's steps
+#: moved the vectors from where the CPU's moved them, over how far they
+#: moved (``p22_move_gap``; 1 where the card did not step): the fit's
+#: input vectors, and the window's input and output vectors.  The
+#: float32 rounding of ``w_in`` sets the input vectors' floor: half an
+#: ulp of |w_in| ~ 5e-3 is 2.3e-10, 8.4e-5 of the fit's largest move
+#: (2.8e-6) and 6.7e-4 of the window's (3.5e-7); the CPU's own steps
+#: with each batch's rows permuted moved them 8.4e-5, 1.7e-4 and 1.7e-7
+#: apart; an H100 (80GB HBM3, 700 W) 8.4e-5, 1.7e-4 and 2.3e-7.  Each
+#: limit is at least 4 times its floor (``resolution``): a run whose
+#: moves are too small to check at the limit fails.
+P22_W2V_MOVE_RTOL = {"fit_in": 1e-3, "window_in": 5e-3, "window_out": 1e-5}
+P22_BRP_TABLES = 3
+P22_BRP_BUCKET = 4.0  # bucketLength on the standard-scaled rows
+#: a pre-floor value this many float32 ulps of its terms' magnitude from
+#: an integer may floor apart on two devices
+P22_EDGE_ULPS = 8
+P22_ANN_KEYS = 5
+P22_ANN_K = 10
+P22_JOIN_ROWS = (4096, 20_000)  # held-out A against training B
+P22_JOIN_THRESHOLD = 3.0
+P22_DIST_RTOL = 1e-6
+P22_MINHASH_TABLES = 5
+P22_MINHASH_ROWS = 2000
+P22_MINHASH_THRESHOLD = 0.3
+P22_BINARY_QUANTILE = 0.25  # MinHash's rows: above this training quantile
+P22_FP_SUPPORT = 0.2
+P22_FP_CONFIDENCE = 0.5
+P22_HIDDEN = 2  # the feature whose token FPGrowth's rules predict
+P22_MULTILABEL = ("f1Measure", "hammingLoss")
+P22_BUDGET_S = 25.0
+
+
+def p22_documents(train: Frame, test: Frame) -> np.ndarray:
+    """The flow documents: each held-out flow as one token ``"{j}:{b}"``
+    a feature, in feature order (``b`` its bucket of
+    ``QuantileDiscretizer(numBuckets=8)`` fitted on the training rows),
+    joined by spaces."""
+    cols = list(CICIDS2017_FEATURES)
+    outs = [f"q{j}" for j in range(len(cols))]
+    qd = QuantileDiscretizer(inputCols=cols, outputCols=outs,
+                             numBuckets=P22_BUCKETS).fit(train)
+    binned = qd.transform(test.select(cols))
+    B = np.stack([np.asarray(binned[o]) for o in outs], 1).astype(np.int64)
+    names = [[f"{j}:{b}" for b in range(P22_BUCKETS + 1)]
+             for j in range(len(cols))]
+    docs = [" ".join(names[j][b] for j, b in enumerate(row))
+            for row in B.tolist()]
+    return object_column(docs)
+
+
+def p22_text(dev, frame: Frame, fails: list) -> dict:
+    """(a): Tokenizer -> StopWordsRemover -> NGram(2) -> HashingTF(4096),
+    IDF fitted on the card and on the CPU (``docFreq`` bitwise, the idf
+    equal), then CountVectorizer on the tokens and FeatureHasher on the
+    flows' columns."""
+    t = {}
+    t0 = time.perf_counter()
+    frame = Tokenizer(inputCol="text", outputCol="tokens").transform(frame)
+    frame = StopWordsRemover(inputCol="tokens",
+                             outputCol="filtered").transform(frame)
+    frame = NGram(inputCol="filtered", outputCol="bigrams").transform(frame)
+    frame = HashingTF(inputCol="bigrams", outputCol="tf",
+                      numFeatures=P22_HASH_WIDTH).transform(frame)
+    t["stages_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idf = IDF(device=dev, inputCol="tf", outputCol="tfidf").fit(frame)
+    torch.cuda.synchronize()
+    t["idf_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idf_cpu = IDF(device="cpu", inputCol="tf", outputCol="tfidf").fit(frame)
+    t["idf_cpu_s"] = time.perf_counter() - t0
+    n = frame.num_rows
+    doc_freq_equal = np.array_equal(idf.docFreq, idf_cpu.docFreq)
+    if not doc_freq_equal or not np.array_equal(idf.idf, idf_cpu.idf):
+        fails.append("phase 22 (a): IDF on the card differs from the CPU "
+                     f"({int((idf.docFreq != idf_cpu.docFreq).sum())} "
+                     "docFreq entries)")
+    tfidf = idf.transform(frame.slice(0, P22_W2V_DOCS))["tfidf"]
+    lens = np.fromiter(map(len, frame["bigrams"]), np.float32, count=n)
+    if not (np.array_equal(frame["tf"].sum(1), lens)
+            and np.isfinite(tfidf).all()
+            and idf.docFreq.max() <= n):
+        fails.append("phase 22 (a): term frequencies or tf-idf malformed")
+    t0 = time.perf_counter()
+    cv = CountVectorizer(inputCol="filtered", outputCol="cv").fit(frame)
+    counts = cv.transform(frame)["cv"]
+    t["count_vectorizer_s"] = time.perf_counter() - t0
+    if counts.shape != (n, len(cv.vocabulary)) or not np.array_equal(
+            counts.sum(1), np.fromiter(map(len, frame["filtered"]),
+                                       np.float32, count=n)):
+        fails.append(f"phase 22 (a): CountVectorizer {counts.shape}")
+    cols = list(CICIDS2017_FEATURES) + ["Label"]
+    t0 = time.perf_counter()
+    hashed = FeatureHasher(inputCols=cols, outputCol="hashed",
+                           numFeatures=P22_HASHER_WIDTH).transform(frame)
+    t["feature_hasher_s"] = time.perf_counter() - t0
+    X = np.stack([np.asarray(frame[c], np.float64)
+                  for c in CICIDS2017_FEATURES], 1)
+    got = hashed["hashed"].astype(np.float64).sum(1)
+    err = np.abs(got - (X.sum(1) + 1.0)) / (np.abs(X).sum(1) + 1.0)
+    if not err.max() <= 1e-5:
+        fails.append(f"phase 22 (a): FeatureHasher rows sum off by "
+                     f"{err.max():.3g}")
+    return {"frame": frame, "seconds": t, "docs": n,
+            "doc_freq_equal": doc_freq_equal,
+            "terms_seen": int((idf.docFreq > 0).sum()),
+            "cv_vocabulary": len(cv.vocabulary),
+            "hasher_sum_err": float(err.max())}
+
+
+def p22_w2v_docs(frame: Frame) -> Frame:
+    """(b)'s corpus: the first ``P22_W2V_DOCS`` documents' filtered
+    tokens."""
+    return frame.slice(0, P22_W2V_DOCS).select(["filtered"])
+
+
+def p22_w2v_inputs(docs: Frame) -> tuple:
+    """The Word2Vec fit's host inputs at its defaults, drawn as the fit
+    draws them, and its batch."""
+    est = Word2Vec(device="cpu", inputCol="filtered")
+    inp = skipgram_inputs([list(map(str, d)) for d in docs["filtered"]],
+                          int(est.getMinCount()), int(est.getWindowSize()),
+                          int(est.getVectorSize()), est.getSeed())
+    return inp, int(min(1024, len(inp["pairs"])))
+
+
+def p22_w2v_window(dev, inp: dict, batch: int):
+    """The window: ``run(n)`` runs the fit's first ``n`` steps through
+    ``train_epochs`` on ``dev``, on the fit's own pairs, unigram table,
+    ``w_in0`` and uniforms (its rate decays over the ``n`` steps, not over
+    the fit: the same work), and returns ``(w_in, w_out)``."""
+    est = Word2Vec(device="cpu")
+    pairs = upload(inp["pairs"].astype(np.int64), dev)
+    probs_cum = upload(inp["probs_cum"], dev)
+
+    def run(n_steps: int = P22_W2V_WINDOW):
+        return train_epochs(
+            pairs, probs_cum, torch.from_numpy(inp["w_in0"]),
+            torch.zeros(inp["w_in0"].shape, dtype=torch.float32),
+            float(np.float32(est.getStepSize())), batch=batch,
+            n_steps=n_steps,
+            uniforms=numpy_uniforms(est.getSeed(), batch))
+
+    return run
+
+
+def p22_move_gap(got: np.ndarray, want: np.ndarray, start: np.ndarray
+                 ) -> float:
+    """``max |Δgot − Δwant| / max |Δwant|`` with ``Δ = w − start``: how
+    far one run's training moved the vectors from where the other's
+    moved them, over how far they moved (1 where ``got`` did not move,
+    inf where ``want`` did not)."""
+    d_want = want.astype(np.float64) - start
+    d_got = got.astype(np.float64) - start
+    scale = float(np.abs(d_want).max())
+    return (float(np.abs(d_got - d_want).max()) / scale if scale > 0
+            else float("inf"))
+
+
+def p22_word2vec(dev, frame: Frame, cpu: "P22Fits", fails: list) -> dict:
+    """(b): Word2Vec at its defaults on the first documents' tokens,
+    fitted on the card and (in ``--side p22_fits``) on the CPU from the
+    same seed, hence the same numpy uniforms; then the fit's first
+    ``P22_W2V_WINDOW`` steps again on both, the card's in a profiler
+    window inside a ``record_function`` range (after a few steps that
+    let the window's first device records arrive): its device busy ms,
+    device events and idle share.  Each is held against the CPU's by
+    the training's movement (``P22_W2V_MOVE_RTOL``)."""
+    docs = p22_w2v_docs(frame)
+    est = Word2Vec(device=dev, inputCol="filtered", maxIter=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = est.fit(docs)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    stats = est.fit_stats
+    secs = {"fit": card_s}
+    t0 = time.perf_counter()
+    inp, batch = p22_w2v_inputs(docs)
+    run = p22_w2v_window(dev, inp, batch)
+    secs["inputs"] = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        run(P22_W2V_WARM)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("p22 window"):
+            w_in, w_out = run()
+            torch.cuda.synchronize()
+    secs["profiled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans, ops, matched, unmatched = range_device_ops(prof, "p22 ")
+    secs["events"] = time.perf_counter() - t0
+    lo, hi = spans["window"]
+    wall_ms = (hi - lo) / 1e6
+    busy = sum(ops["window"].values())
+    top = sorted(ops["window"].items(), key=lambda kv: -kv[1])[:3]
+    t0 = time.perf_counter()
+    ref = cpu.arrays("word2vec")
+    ref_meta = cpu.json("word2vec")
+    secs["cpu_wait"] = time.perf_counter() - t0
+    w_in0 = inp["w_in0"].astype(np.float64)
+    gaps = {
+        "fit_in": p22_move_gap(card.vectors, ref["vectors"], w_in0),
+        "window_in": p22_move_gap(to_host(w_in), ref["window_in"], w_in0),
+        "window_out": p22_move_gap(to_host(w_out), ref["window_out"], 0.0),
+    }
+    moves = {"fit_in": float(np.abs(ref["vectors"] - w_in0).max()),
+             "window_in": float(np.abs(ref["window_in"] - w_in0).max()),
+             "window_out": float(np.abs(ref["window_out"]).max())}
+    # the gap one rounding of w_in can make, over the move
+    resolution = {
+        k: float(np.spacing(np.float32(np.abs(inp["w_in0"]).max())))
+        / 2 / moves[k] for k in ("fit_in", "window_in")}
+    outside = {k: v for k, v in gaps.items() if not v <= P22_W2V_MOVE_RTOL[k]}
+    blind = {k: v for k, v in resolution.items()
+             if not v <= P22_W2V_MOVE_RTOL[k] / 4}
+    if card.vocabulary != ref_meta["words"] or \
+            ref_meta["steps"] != stats["steps"] or outside or blind:
+        fails.append(f"phase 22 (b): Word2Vec card against CPU, the moves' "
+                     f"gaps {gaps} (limits {P22_W2V_MOVE_RTOL}), the "
+                     f"resolution {resolution}, steps {stats['steps']} / "
+                     f"{ref_meta['steps']}")
+    syn = card.findSynonyms(card.vocabulary[0], 5)
+    return {"steps": stats["steps"], "pairs": stats["pairs"],
+            "vocabulary": len(card.vocabulary), "card_s": card_s,
+            "cpu_s": cpu.seconds()["word2vec"], "move_gaps": gaps,
+            "moves": moves, "resolution": resolution,
+            "seconds": {k: round(v, 3) for k, v in secs.items()},
+            "window": {"steps": P22_W2V_WINDOW, "seconds": wall_ms / 1e3,
+                       "device_ms": busy, "device_events": matched["window"],
+                       "unmatched_device_events": unmatched,
+                       # no device event matched: not measured, not idle
+                       "device_idle_share": (
+                           max(0.0, 1.0 - busy / wall_ms)
+                           if matched["window"] else None),
+                       "top_device_ops_ms": {k: round(v, 3)
+                                             for k, v in top}},
+            "synonyms_of": card.vocabulary[0],
+            "synonyms": list(syn["word"])}
+
+
+class P22Fits(CpuFits):
+    """Phase 22's CPU side, made by ``chip_smoke.py --side p22_fits DIR``
+    in a process of its own that starts after phase 12 (at once under
+    ``--phases``): the Word2Vec fit of (b) and its window on the CPU, on
+    the phase's documents regenerated from config 1's seeds."""
+
+    SIDE = "p22_fits"
+
+    def json(self, name: str) -> dict:
+        self.seconds()
+        with open(os.path.join(self.out, name + ".json")) as f:
+            return json.load(f)
+
+
+def p22_fits_main(out: str) -> int:
+    """``--side p22_fits DIR``: phase 22's CPU side, saved under DIR;
+    prints the seconds of each part as one JSON line."""
+    background_side()
+    secs = {}
+    t0 = time.perf_counter()
+    train, test = lbfgs_split(generate_frame(
+        LR_ROWS, seed=LBFGS_DATA_SEED, min_class_fraction=0.005), True)
+    docs = p22_documents(train, test.slice(0, P22_W2V_DOCS))
+    frame = Tokenizer(inputCol="text", outputCol="tokens").transform(
+        Frame({"text": docs}))
+    frame = StopWordsRemover(inputCol="tokens",
+                             outputCol="filtered").transform(frame)
+    secs["data"] = time.perf_counter() - t0
+    docs = p22_w2v_docs(frame)
+    est = Word2Vec(device="cpu", inputCol="filtered", maxIter=1)
+    t0 = time.perf_counter()
+    model = est.fit(docs)
+    secs["word2vec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_in, w_out = p22_w2v_window(torch.device("cpu"),
+                                 *p22_w2v_inputs(docs))()
+    secs["word2vec_window"] = time.perf_counter() - t0
+    np.savez(os.path.join(out, "word2vec.npz"), vectors=model.vectors,
+             window_in=w_in.numpy(), window_out=w_out.numpy())
+    with open(os.path.join(out, "word2vec.json"), "w") as f:
+        json.dump({**est.fit_stats, "words": model.vocabulary,
+                   "host": cpu_side_host()}, f)
+    return side_done(secs)
+
+
+def p22_edge_cells(X: np.ndarray, R: np.ndarray) -> np.ndarray:
+    """BRP cells whose pre-floor value lies within ``P22_EDGE_ULPS``
+    float32 ulps of its terms' magnitude from an integer."""
+    v = X.astype(np.float64) @ R.astype(np.float64).T / P22_BRP_BUCKET
+    mag = np.abs(X.astype(np.float64)) @ np.abs(R.astype(np.float64)).T \
+        / P22_BRP_BUCKET
+    eps = float(np.finfo(np.float32).eps)
+    return np.abs(v - np.rint(v)) <= P22_EDGE_ULPS * eps * np.maximum(mag, 1)
+
+
+def p22_keys(n: int) -> np.ndarray:
+    """The held-out rows whose neighbours (c) looks up."""
+    return np.linspace(0, n - 1, P22_ANN_KEYS).astype(int)
+
+
+def _p22_rel(a, b) -> float:
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))) \
+        if len(b) else 0.0
+
+
+def p22_lsh(dev, Xtr: np.ndarray, Xte: np.ndarray, Bte: np.ndarray,
+            fails: list) -> dict:
+    """(c): BRP on the standard-scaled training rows (hashes card against
+    CPU away from bucket edges, nearest neighbours of held-out keys, a
+    join of held-out against training rows), MinHash on the binarized
+    held-out rows (hashes bitwise, a join at Jaccard distance 0.3 of the
+    first rows against the next); each model run on the card and again
+    on the CPU."""
+    out, t = {}, {}
+    brp = BucketedRandomProjectionLSH(
+        device=dev, inputCol="x", numHashTables=P22_BRP_TABLES,
+        bucketLength=P22_BRP_BUCKET, seed=SEED).fit(Frame({"x": Xtr}))
+    train = Frame({"x": Xtr, "id": np.arange(len(Xtr))})
+    A = Frame({"x": Xte[:P22_JOIN_ROWS[0]]})
+    B = Frame({"x": Xtr[:P22_JOIN_ROWS[1]]})
+    keys = Xte[p22_keys(len(Xte))]
+    res = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        brp.device = d
+        r = res[side] = {}
+        t0 = time.perf_counter()
+        r["hashes"] = brp.transform(train)["hashes"]
+        t[f"brp_hash_{side}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r["ann"] = [brp.approxNearestNeighbors(train, k, P22_ANN_K,
+                                               distCol="d") for k in keys]
+        t[f"ann_{side}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r["join"] = brp.approxSimilarityJoin(A, B, P22_JOIN_THRESHOLD)
+        t[f"brp_join_{side}_s"] = time.perf_counter() - t0
+    brp.device = dev
+    card, cpu = res["card"], res["cpu"]
+    edge = p22_edge_cells(Xtr, brp.randUnitVectors)
+    differ = card["hashes"] != cpu["hashes"]
+    out["brp"] = {"cells": int(differ.size), "edge_cells": int(edge.sum()),
+                  "differing_cells": int(differ.sum()),
+                  "differing_off_edge": int((differ & ~edge).sum()),
+                  "buckets": [int(len(np.unique(card["hashes"][:, i])))
+                              for i in range(P22_BRP_TABLES)]}
+    if out["brp"]["differing_off_edge"]:
+        fails.append(f"phase 22 (c): BRP hashes differ off the edges: "
+                     f"{out['brp']}")
+    ann_same = all(
+        np.array_equal(a["id"], b["id"])
+        and _p22_rel(a["d"], b["d"]) <= P22_DIST_RTOL
+        for a, b in zip(card["ann"], cpu["ann"]))
+    jc, jh = card["join"], cpu["join"]
+    join_same = (np.array_equal(jc["idA"], jh["idA"])
+                 and np.array_equal(jc["idB"], jh["idB"]))
+    join_rel = _p22_rel(jc["distCol"], jh["distCol"]) if join_same else None
+    if not ann_same or not join_same or join_rel > P22_DIST_RTOL:
+        fails.append(f"phase 22 (c): BRP queries differ: neighbours "
+                     f"{ann_same}, join pairs {join_same} "
+                     f"({len(jc['idA'])} / {len(jh['idA'])}), distances "
+                     f"{join_rel}")
+    out["ann"] = {"keys": P22_ANN_KEYS, "k": P22_ANN_K, "same": ann_same,
+                  "found": [a.num_rows for a in card["ann"]],
+                  "ids": [[int(i) for i in a["id"]] for a in card["ann"]],
+                  "nearest": [float(a["d"][0]) if a.num_rows else None
+                              for a in card["ann"]]}
+    out["brp_join"] = {"pairs": int(len(jc["idA"])), "same": join_same,
+                       "max_rel_dist": join_rel}
+    # MinHash on the binarized held-out rows with at least one set bit
+    nz = Bte.any(axis=1)
+    Bx = Bte[nz]
+    mh = MinHashLSH(device=dev, inputCol="b", numHashTables=P22_MINHASH_TABLES,
+                    seed=SEED).fit(Frame({"b": Bx}))
+    fb = Frame({"b": Bx})
+    ma = Frame({"b": Bx[:P22_MINHASH_ROWS]})
+    mb = Frame({"b": Bx[P22_MINHASH_ROWS:2 * P22_MINHASH_ROWS]})
+    mres = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        mh.device = d
+        t0 = time.perf_counter()
+        h = mh.transform(fb)["hashes"]
+        t[f"minhash_{side}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        j = mh.approxSimilarityJoin(ma, mb, P22_MINHASH_THRESHOLD)
+        t[f"minhash_join_{side}_s"] = time.perf_counter() - t0
+        mres[side] = (h, j)
+    mh.device = dev
+    (hc, jc), (hh, jh) = mres["card"], mres["cpu"]
+    mh_same = np.array_equal(hc, hh)
+    mjoin_same = all(np.array_equal(jc[c], jh[c])
+                     for c in ("idA", "idB", "distCol"))
+    if not mh_same or not mjoin_same:
+        fails.append(f"phase 22 (c): MinHash differs: hashes {mh_same}, "
+                     f"join {mjoin_same}")
+    out["minhash"] = {"rows": int(len(Bx)), "empty_rows": int((~nz).sum()),
+                      "hashes_bitwise": mh_same, "join_pairs": int(len(jc)),
+                      "join_same": mjoin_same}
+    out["seconds"] = t
+    return out
+
+
+def p22_tail(data: dict, text: dict, lsh: dict, fails: list) -> dict:
+    """(d): FPGrowth on the documents' token sets, its rules predicting a
+    hidden feature's token (MultilabelClassificationEvaluator), RFormula
+    and SQLTransformer on config 1's frame, RankingEvaluator on (c)'s
+    neighbours (relevant: the training rows of the key's label)."""
+    t, out = {}, {}
+    frame = text["frame"]
+    # a document holds one token a feature, in feature order: the hidden
+    # feature's token is the one at its place
+    docs = frame["filtered"]
+    hidden = [[doc[P22_HIDDEN]] for doc in docs]
+    baskets = [doc[:P22_HIDDEN] + doc[P22_HIDDEN + 1:] for doc in docs]
+    t0 = time.perf_counter()
+    fp = FPGrowth(itemsCol="filtered", minSupport=P22_FP_SUPPORT,
+                  minConfidence=P22_FP_CONFIDENCE).fit(frame)
+    rules = fp.associationRules
+    pred = fp.transform(Frame({"filtered": object_column(baskets)}))
+    t["fpgrowth_s"] = time.perf_counter() - t0
+    ml = Frame({"prediction": pred["prediction"],
+                "label": object_column(hidden)})
+    t0 = time.perf_counter()
+    out["fpgrowth"] = {
+        "itemsets": fp.freqItemsets.num_rows, "rules": rules.num_rows,
+        "predicted_rows": int(sum(map(bool, pred["prediction"]))),
+        "multilabel": {m: MultilabelClassificationEvaluator(
+            metricName=m).evaluate(ml) for m in P22_MULTILABEL}}
+    t["multilabel_s"] = time.perf_counter() - t0
+    if fp.freqItemsets.num_rows == 0 or not all(
+            np.isfinite(v) for v in out["fpgrowth"]["multilabel"].values()):
+        fails.append(f"phase 22 (d): FPGrowth {out['fpgrowth']}")
+    test = data["test"]
+    port = np.asarray(test["Destination Port"])
+    service = np.where(port == 80, "http", np.where(port == 443, "https",
+                       np.where(port == 53, "dns", "other"))).astype(object)
+    rf_frame = test.select(["Label", "Flow Duration", "Total Fwd Packets",
+                            "Destination Port"]).with_column(
+        "service", service)
+    t0 = time.perf_counter()
+    rfm = RFormula(formula="Label ~ Flow Duration + Total Fwd Packets + "
+                           "service + service:Flow Duration").fit(rf_frame)
+    rf_out = rfm.transform(rf_frame)
+    t["rformula_s"] = time.perf_counter() - t0
+    levels = len(rfm.encodings["service"])
+    width = 2 + 2 * max(levels - 1, 1)
+    y = rf_out["label"]
+    want_y = (np.asarray(rf_frame["Label"]) != rfm.labelLevels[0])
+    if rf_out["features"].shape != (test.num_rows, width) or \
+            not np.array_equal(y, want_y.astype(np.float64)):
+        fails.append(f"phase 22 (d): RFormula {rf_out['features'].shape}")
+    out["rformula"] = {"width": width, "service_levels": levels,
+                       "label_levels": rfm.labelLevels}
+    dur = np.asarray(test["Flow Duration"])
+    cut = float(np.median(dur))
+    t0 = time.perf_counter()
+    sql = SQLTransformer(statement=(
+        "SELECT `Destination Port`, (`Total Fwd Packets` + "
+        "`Total Backward Packets`) AS pkts FROM __THIS__ WHERE "
+        f"`Flow Duration` > {cut!r} AND Label <> 'benign'")).transform(test)
+    t["sql_s"] = time.perf_counter() - t0
+    keep = (dur > cut) & (np.asarray(test["Label"]) != "benign")
+    want = (np.asarray(test["Total Fwd Packets"])
+            + np.asarray(test["Total Backward Packets"]))[keep]
+    if sql.columns != ["Destination Port", "pkts"] or not len(want) or \
+            not np.array_equal(sql["pkts"], want):
+        fails.append(f"phase 22 (d): SQLTransformer {sql.columns}")
+    out["sql"] = {"rows": sql.num_rows}
+    labels_tr = np.asarray(data["train"]["Label"])
+    labels_te = np.asarray(test["Label"])
+    keys_at = p22_keys(test.num_rows)
+    rel = {lab: list(np.flatnonzero(labels_tr == lab))
+           for lab in np.unique(labels_te[keys_at])}
+    rk = Frame({"prediction": object_column(lsh["ann"]["ids"]),
+                "label": object_column([rel[labels_te[i]]
+                                        for i in keys_at])})
+    t0 = time.perf_counter()
+    out["ranking"] = {m: RankingEvaluator(metricName=m,
+                                          k=P22_ANN_K).evaluate(rk)
+                      for m in RankingEvaluator._METRICS}
+    t["ranking_s"] = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in out["ranking"].values()):
+        fails.append(f"phase 22 (d): ranking {out['ranking']}")
+    out["seconds"] = t
+    return out
+
+
+def phase22(dev, data: dict, cpu: P22Fits) -> dict:
+    """Phase 22, in this process: config 1's held-out flows as flow
+    documents through the text stages, IDF, CountVectorizer and
+    FeatureHasher (a), Word2Vec (b), the LSH models on the scaled and the
+    binarized rows (c), FPGrowth, RFormula, SQLTransformer and the
+    ranking evaluators (d); each device part on the card and again on the
+    CPU."""
+    t0 = time.perf_counter()
+    fails: list = []
+    parts = {}
+    train, test = data["train"], data["test"]
+    frame = test.with_column("text", p22_documents(train, test))
+    parts["documents"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    text = p22_text(dev, frame, fails)
+    parts["a_text"] = time.perf_counter() - t
+    t = time.perf_counter()
+    w2v = p22_word2vec(dev, text["frame"], cpu, fails)
+    parts["b_word2vec"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cols = list(CICIDS2017_FEATURES)
+    Xtr = np.stack([np.asarray(train[c], np.float32) for c in cols], 1)
+    Xte = np.stack([np.asarray(test[c], np.float32) for c in cols], 1)
+    scaler = StandardScaler(device=dev, withMean=True, inputCol="x",
+                            outputCol="s").fit(Frame({"x": Xtr}))
+    Str = scaler.transform(Frame({"x": Xtr}))["s"]
+    Ste = scaler.transform(Frame({"x": Xte}))["s"]
+    # binarized at each feature's training first quartile: at 0 nearly
+    # every flow sets the same bits, and every pair of the join matches
+    Bte = (Xte > np.quantile(Xtr, P22_BINARY_QUANTILE, axis=0)).astype(
+        np.float32)
+    lsh = p22_lsh(dev, Str, Ste, Bte, fails)
+    parts["c_lsh"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tail = p22_tail(data, text, lsh, fails)
+    parts["d_tail"] = time.perf_counter() - t
+    text.pop("frame")
+    p22 = {"seconds": time.perf_counter() - t0,
+           "parts_s": {k: round(v, 3) for k, v in parts.items()},
+           "text": text, "word2vec": w2v, "lsh": lsh, "tail": tail}
+    if fails:
+        log("phase 22 " + json.dumps(p22, default=str))
+        raise SystemExit("phase 22 failed:\n" + "\n".join(fails))
+    return p22
+
+
+def report_phase22(p22: dict, card: str) -> None:
+    a, b, c, d = p22["text"], p22["word2vec"], p22["lsh"], p22["tail"]
+    w = b["window"]
+    log(f"phase 22 (a) {a['docs']} flow documents -> Tokenizer -> "
+        f"StopWordsRemover -> NGram(2) -> HashingTF({P22_HASH_WIDTH}): "
+        f"{a['terms_seen']} buckets seen; IDF on the card "
+        f"{a['seconds']['idf_card_s']:.3f} s (CPU "
+        f"{a['seconds']['idf_cpu_s']:.3f} s), docFreq bitwise "
+        f"{a['doc_freq_equal']}; CountVectorizer {a['cv_vocabulary']} terms; "
+        f"FeatureHasher({P22_HASHER_WIDTH}) rows within "
+        f"{a['hasher_sum_err']:.3g}; seconds {a['seconds']} [{card}]")
+    log(f"phase 22 (b) Word2Vec (vectorSize 100, window 5, minCount 5, "
+        f"maxIter 1) on {P22_W2V_DOCS} documents: {b['vocabulary']} words, "
+        f"{b['pairs']} pairs, {b['steps']} steps; the card "
+        f"{b['card_s']:.3f} s, the CPU process {b['cpu_s']:.3f} s; its "
+        f"first {w['steps']} steps again in a profiler window "
+        f"{w['seconds']:.3f} s, device busy {w['device_ms']:.4f} ms in "
+        f"{w['device_events']} device events (idle share "
+        f"{idle_text(w['device_idle_share'])}; unmatched "
+        f"{w['unmatched_device_events']}; top {w['top_device_ops_ms']}); "
+        f"card against CPU, moves {b['moves']}, their gaps {b['move_gaps']} "
+        f"(limits {P22_W2V_MOVE_RTOL}; resolution "
+        f"{b['resolution']}); seconds {b['seconds']}; nearest to "
+        f"{b['synonyms_of']}: {b['synonyms']} [{card}]")
+    log(f"phase 22 (c) BRP ({P22_BRP_TABLES} tables, bucketLength "
+        f"{P22_BRP_BUCKET}) on the scaled training rows: {c['brp']}; "
+        f"nearest {P22_ANN_K} of {P22_ANN_KEYS} held-out keys equal "
+        f"{c['ann']['same']} (found {c['ann']['found']}); join "
+        f"{P22_JOIN_ROWS[0]} x {P22_JOIN_ROWS[1]} at {P22_JOIN_THRESHOLD}: "
+        f"{c['brp_join']}; MinHash ({P22_MINHASH_TABLES} tables): "
+        f"{c['minhash']}; seconds "
+        f"{ {k: round(v, 3) for k, v in c['seconds'].items()} } [{card}]")
+    log(f"phase 22 (d) FPGrowth(minSupport {P22_FP_SUPPORT}, minConfidence "
+        f"{P22_FP_CONFIDENCE}): {d['fpgrowth']}; RFormula {d['rformula']}; "
+        f"SQLTransformer {d['sql']}; RankingEvaluator at k {P22_ANN_K}: "
+        f"{d['ranking']}; seconds "
+        f"{ {k: round(v, 3) for k, v in d['seconds'].items()} } [{card}]")
+    log("phase 22 " + json.dumps({
+        "phase": 22, "card": card, "seconds": round(p22["seconds"], 3),
+        "budget_s": P22_BUDGET_S, "parts_s": p22["parts_s"]}))
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -10102,13 +10801,32 @@ def measure_pad(dev, shapes: dict) -> list:
 #: side process name -> (its handle in the run, its main)
 SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "family_fits": (FamilyFits, family_fits_main),
-         "p21_fits": (P21Fits, p21_fits_main)}
+         "p21_fits": (P21Fits, p21_fits_main),
+         "p22_fits": (P22Fits, p22_fits_main)}
 
 PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
-          "20", "21")
+          "20", "21", "22")
+
+
+#: the compiled bytecode of every Python process the run starts
+PYCACHE = os.path.join(REPO, "sntc_tpu_torch", "_build", "pycache")
+
+
+def cache_bytecode() -> None:
+    """Keep the bytecode every process of the run compiles under
+    :data:`PYCACHE` (inside the checkout), for this process and each
+    one it starts.  An environment with ``PYTHONDONTWRITEBYTECODE`` and
+    packages installed without their ``__pycache__`` otherwise compiles
+    torch's sources afresh in every process (~3 s of a serving
+    process's start on an H100 host)."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = PYCACHE
 
 
 def main() -> int:
+    cache_bytecode()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (registers, spills)")
@@ -10119,7 +10837,7 @@ def main() -> int:
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first, 18 and 19 config 9's LR "
                     "pipeline, 20 generates config 3's rows, 21 config 3's "
-                    "and config 4's); default: "
+                    "and config 4's, 22 config 1's); default: "
                     "every phase")
     # a CPU side process (``SIDES``), which the run starts itself
     ap.add_argument("--side", nargs=2, default=None, metavar=("NAME", "DIR"),
@@ -10156,7 +10874,8 @@ def main() -> int:
         try:
             if args.phases:
                 start(*(name for name, p in (("family_fits", "20"),
-                                             ("p21_fits", "21"))
+                                             ("p21_fits", "21"),
+                                             ("p22_fits", "22"))
                         if p in phases))
                 with clock("1 build"):
                     built.result()
@@ -10200,7 +10919,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
         # phases 20's and 21's CPU sides (~1.5 min each) start once the
         # serve phases that load the host most (3, 8, 12) are done, and
         # end long before phase 20 needs them
-        start("family_fits", "p21_fits")
+        start("family_fits", "p21_fits", "p22_fits")
         with clock("13 self-tuning"):
             phase13 = self_tuning(dev, work)
         with clock("14 lifecycle"):
@@ -10305,6 +11024,8 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
         with clock("21 feature stages, fits"):
             phase21_ = phase21(dev, work, sides["p21_fits"],
                                (data["train"], data["test"]), data4["train"])
+    with clock("22 object columns, long tail"):
+        phase22_ = phase22(dev, data1, sides["p22_fits"])
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -10503,6 +11224,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     report_phase19(phase19, card)
     report_phase20(phase20, card)
     report_phase21(phase21_, card)
+    report_phase22(phase22_, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -10533,6 +11255,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                        "phase16": phase16, "phase17": phase17,
                        "phase18": phase18, "phase19": phase19,
                        "phase20": phase20, "phase21": phase21_,
+                       "phase22": phase22_,
                        "phase_seconds": PHASE_SECONDS,
                        "sides": side_spans(sides)}, f,
                       indent=1, default=str)
@@ -10639,6 +11362,11 @@ def main_phases(dev, card: str, phases: list, sides: dict) -> int:
                 p21 = phase21(dev, work, sides["p21_fits"])
             report_phase21(p21, card)
             kernels += p21["kernels"]
+        if "22" in phases:
+            data1 = lbfgs_data(work, LR_ROWS, binary=True, tag="1")
+            with clock("22 object columns, long tail"):
+                p22 = phase22(dev, data1, sides["p22_fits"])
+            report_phase22(p22, card)
     finish(kernels, card, sides)
     return 0
 

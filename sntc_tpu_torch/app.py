@@ -88,10 +88,14 @@ place, a batch failing ``--max-batch-failures`` rounds is dead-lettered
 answers CUDA errors on the card (an OOM splits the batch; a device that
 keeps failing stops the command non-zero with the batch in the WAL).
 ``--once`` drains what is there (one round per batch) and prints one
-JSON summary line; without it the command runs the supervised loop
-(``--health-json``, ``--max-batch-wall-time``, ``--disk-budget-mb``: the
-checkpoint root's bytes against a budget, a breach DEGRADED), which
-SIGTERM drains, and prints ``{"batches", "drained", "health"}``.
+JSON summary line (its ``startup`` block splits the process's way to
+the card: ``imported_at``, the wall clock once the command's modules
+are imported, then the seconds of the CUDA context, the kernel
+library's load, the model's load and the first batch); without it the
+command runs the supervised loop (``--health-json``,
+``--max-batch-wall-time``, ``--disk-budget-mb``: the checkpoint root's
+bytes against a budget, a breach DEGRADED), which SIGTERM drains, and
+prints ``{"batches", "drained", "health"}``.
 ``--row-policy salvage|permissive`` arms row admission against
 ``CICIDS2017_CONTRACT`` and per-line salvage in the CSV parser: poison
 rows and ragged lines are excised into the row dead letters
@@ -610,6 +614,8 @@ def _cmd_serve_body(args) -> int:
             "--listen-udp/--listen-tcp spool their own capture format; "
             "drop --from-capture (UDP serves NetFlow v5 directly)"
         )
+    import torch
+
     from sntc_tpu_torch.kernels import LAUNCHES, PAD_LAUNCH_SHAPES
     from sntc_tpu_torch.mlio import load_model
     from sntc_tpu_torch.resilience import (
@@ -649,11 +655,19 @@ def _cmd_serve_body(args) -> int:
         from sntc_tpu_torch.data.autotune import IngestAutotuner
 
         autotuner = IngestAutotuner()
+    startup = {"imported_at": time.time()}
     device = resolve_device(args.device)
+    t = time.perf_counter()
     if device.type == "cuda":
         from sntc_tpu_torch.kernels._build import library
 
+        torch.empty(1, device=device)  # the CUDA context
+        torch.cuda.synchronize(device)
+        startup["context_s"] = time.perf_counter() - t
+        t = time.perf_counter()
         library()  # build (or load) the kernels before the first batch
+        startup["library_s"] = time.perf_counter() - t
+        t = time.perf_counter()
     raw_model = load_model(args.model, device=device)
     # only a lifecycle that can SWAP models keeps the head out of the
     # fused segments (a fused head is a constant of its segment); drift
@@ -663,6 +677,7 @@ def _cmd_serve_body(args) -> int:
         raw_model, args.label_index_col, args.fuse,
         fuse_heads=not swap_armed,
     )
+    startup["model_s"] = time.perf_counter() - t
     lifecycle = _arm_lifecycle(args, model, raw_model, labels, device)
     if args.device_faults:
         # CUDA errors are classified and answered on the card: an OOM
@@ -769,6 +784,9 @@ def _cmd_serve_body(args) -> int:
                 "ingress": (source.spool.stats.snapshot()
                             if ingress_listeners else None),
                 "replication": _replication_status(),
+                "startup": {**startup, "first_batch_s": (
+                    q.recentProgress[0]["commitMs"] / 1e3
+                    if q.recentProgress else None)},
             }))
             return 0
         # the supervised loop: SIGTERM (and Ctrl-C) drains, commits the

@@ -27,6 +27,18 @@ from sntc_tpu_torch.utils.profiling import upload
 ColumnLike = Union[np.ndarray, torch.Tensor, Sequence]
 
 
+def object_column(values: Sequence) -> np.ndarray:
+    """1-D object column of ragged values (token lists, itemsets).
+
+    ``np.array(list_of_lists, dtype=object)`` builds a 2-D array when
+    every inner list shares a length; the explicit fill keeps the column
+    rank-1 whatever the lengths."""
+    col = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        col[i] = v
+    return col
+
+
 def to_host(a) -> np.ndarray:
     """A column's values as a numpy array (tensors are copied off the
     device; numpy columns pass through)."""

@@ -4,6 +4,10 @@ from sntc_tpu_torch.evaluation.multiclass import (
     MulticlassClassificationEvaluator,
     MulticlassMetrics,
 )
+from sntc_tpu_torch.evaluation.ranking import (
+    MultilabelClassificationEvaluator,
+    RankingEvaluator,
+)
 from sntc_tpu_torch.evaluation.regression import RegressionEvaluator
 
 __all__ = [
@@ -11,5 +15,7 @@ __all__ = [
     "ClusteringEvaluator",
     "MulticlassClassificationEvaluator",
     "MulticlassMetrics",
+    "MultilabelClassificationEvaluator",
+    "RankingEvaluator",
     "RegressionEvaluator",
 ]

@@ -16,7 +16,15 @@ from sntc_tpu_torch.feature.encoders import (
     VectorSlicer,
 )
 from sntc_tpu_torch.feature.expansion import Interaction, PolynomialExpansion
+from sntc_tpu_torch.feature.hashing import FeatureHasher
+from sntc_tpu_torch.feature.lsh import (
+    BucketedRandomProjectionLSH,
+    BucketedRandomProjectionLSHModel,
+    MinHashLSH,
+    MinHashLSHModel,
+)
 from sntc_tpu_torch.feature.pca import PCA, PCAModel
+from sntc_tpu_torch.feature.rformula import RFormula, RFormulaModel
 from sntc_tpu_torch.feature.scalers import (
     Binarizer,
     MaxAbsScaler,
@@ -27,6 +35,7 @@ from sntc_tpu_torch.feature.scalers import (
     RobustScaler,
     RobustScalerModel,
 )
+from sntc_tpu_torch.feature.sql_transformer import SQLTransformer
 from sntc_tpu_torch.feature.standard_scaler import (
     StandardScaler,
     StandardScalerModel,
@@ -35,6 +44,17 @@ from sntc_tpu_torch.feature.string_indexer import (
     IndexToString,
     StringIndexer,
     StringIndexerModel,
+)
+from sntc_tpu_torch.feature.text import (
+    IDF,
+    CountVectorizer,
+    CountVectorizerModel,
+    HashingTF,
+    IDFModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
 )
 from sntc_tpu_torch.feature.univariate_selector import (
     UnivariateFeatureSelector,
@@ -50,22 +70,34 @@ from sntc_tpu_torch.feature.vector_indexer import (
     VectorIndexerModel,
     VectorSizeHint,
 )
+from sntc_tpu_torch.feature.word2vec import Word2Vec, Word2VecModel
 
 __all__ = [
     "Binarizer",
+    "BucketedRandomProjectionLSH",
+    "BucketedRandomProjectionLSHModel",
     "Bucketizer",
     "ChiSqSelector",
     "ChiSqSelectorModel",
+    "CountVectorizer",
+    "CountVectorizerModel",
     "DCT",
     "ElementwiseProduct",
+    "FeatureHasher",
+    "HashingTF",
+    "IDF",
+    "IDFModel",
     "Imputer",
     "ImputerModel",
     "IndexToString",
     "Interaction",
     "MaxAbsScaler",
     "MaxAbsScalerModel",
+    "MinHashLSH",
+    "MinHashLSHModel",
     "MinMaxScaler",
     "MinMaxScalerModel",
+    "NGram",
     "Normalizer",
     "OneHotEncoder",
     "OneHotEncoderModel",
@@ -73,12 +105,18 @@ __all__ = [
     "PCAModel",
     "PolynomialExpansion",
     "QuantileDiscretizer",
+    "RFormula",
+    "RFormulaModel",
+    "RegexTokenizer",
     "RobustScaler",
     "RobustScalerModel",
+    "SQLTransformer",
     "StandardScaler",
     "StandardScalerModel",
+    "StopWordsRemover",
     "StringIndexer",
     "StringIndexerModel",
+    "Tokenizer",
     "UnivariateFeatureSelector",
     "UnivariateFeatureSelectorModel",
     "VarianceThresholdSelector",
@@ -88,4 +126,6 @@ __all__ = [
     "VectorIndexerModel",
     "VectorSizeHint",
     "VectorSlicer",
+    "Word2Vec",
+    "Word2VecModel",
 ]

@@ -13,6 +13,12 @@ costs.  :func:`library` builds them once per process, at first use, for
 * without it, one ``nvcc -c`` per source, all started together, then
   one link.
 
+A build writes a stamp beside the library (:data:`STAMP`: the hash of
+the sources, the flags and the torch and CUDA versions, and the
+library's path).  A later process whose sources hash to the same stamp
+loads that library directly, without ``cpp_extension`` or ``nvcc``; a
+missing or stale stamp builds again.
+
 A build failure raises :class:`KernelBuildError` and a launch failure
 :class:`KernelLaunchError` (both ``RuntimeError`` subclasses; the launch
 error carries the ``cudaError`` code, which the device fault domain
@@ -23,6 +29,8 @@ its kernel, so a run can show which kernels it went through.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -38,6 +46,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
 LIB_NAME = "sntc_tpu_torch_kernels"
+STAMP = os.path.join(BUILD_DIR, LIB_NAME + ".stamp.json")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 CUDA_FLAGS = ["-O3", "-lineinfo"] + ARCH_FLAGS
 
@@ -149,6 +158,39 @@ def _build_with_nvcc(sources, verbose: bool) -> str:
     return lib
 
 
+def source_stamp(sources) -> str:
+    """The hash a built library is stamped with: every source's name
+    and bytes, the flags, and the torch and CUDA versions."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(os.path.basename(src).encode() + b"\0")
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(json.dumps([CUDA_FLAGS, torch.__version__,
+                         torch.version.cuda]).encode())
+    return h.hexdigest()
+
+
+def _stamped(stamp: str) -> Optional[str]:
+    """The library a build stamped with ``stamp``, if it is there."""
+    try:
+        with open(STAMP) as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        return None
+    path = rec.get("path") if isinstance(rec, dict) else None
+    if rec.get("stamp") != stamp or not path or not os.path.exists(path):
+        return None
+    return path
+
+
+def _write_stamp(stamp: str, path: str) -> None:
+    tmp = f"{STAMP}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"stamp": stamp, "path": path}, f)
+    os.replace(tmp, STAMP)  # storage: unbounded(kernel build stamp)
+
+
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The bound kernel library, built at first use in this process
     (after that, returned without taking the lock)."""
@@ -163,15 +205,22 @@ def library(verbose: bool = False) -> ctypes.CDLL:
             raise RuntimeError("the CUDA kernels need a CUDA device")
         os.makedirs(BUILD_DIR, exist_ok=True)
         sources = [os.path.join(CSRC, s) for s in SOURCES]
-        from torch.utils.cpp_extension import is_ninja_available
-
         t0 = time.perf_counter()
         try:
-            if is_ninja_available():
-                route = "cpp_extension.load"
-                path = _build_with_load(sources, verbose)
+            stamp = source_stamp(sources)
+            # a verbose build asks for the compiler's output: build
+            path = None if verbose else _stamped(stamp)
+            if path is not None:
+                route = "stamped"
             else:
-                route, path = "nvcc", _build_with_nvcc(sources, verbose)
+                from torch.utils.cpp_extension import is_ninja_available
+
+                if is_ninja_available():
+                    route = "cpp_extension.load"
+                    path = _build_with_load(sources, verbose)
+                else:
+                    route, path = "nvcc", _build_with_nvcc(sources, verbose)
+                _write_stamp(stamp, path)
             lib = ctypes.CDLL(path)
         except KernelBuildError:
             raise

@@ -45,6 +45,8 @@ from sntc_tpu_torch.evaluation import (
     BinaryClassificationEvaluator,
     ClusteringEvaluator,
     MulticlassClassificationEvaluator,
+    MultilabelClassificationEvaluator,
+    RankingEvaluator,
     RegressionEvaluator,
 )
 from sntc_tpu_torch.feature.chisq_selector import ChiSqSelectorModel
@@ -62,7 +64,15 @@ from sntc_tpu_torch.feature.encoders import (
     VectorSlicer,
 )
 from sntc_tpu_torch.feature.expansion import Interaction, PolynomialExpansion
+from sntc_tpu_torch.feature.hashing import FeatureHasher
+from sntc_tpu_torch.feature.lsh import (
+    BucketedRandomProjectionLSH,
+    BucketedRandomProjectionLSHModel,
+    MinHashLSH,
+    MinHashLSHModel,
+)
 from sntc_tpu_torch.feature.pca import PCAModel
+from sntc_tpu_torch.feature.rformula import RFormula, RFormulaModel
 from sntc_tpu_torch.feature.scalers import (
     Binarizer,
     MaxAbsScalerModel,
@@ -70,6 +80,7 @@ from sntc_tpu_torch.feature.scalers import (
     Normalizer,
     RobustScalerModel,
 )
+from sntc_tpu_torch.feature.sql_transformer import SQLTransformer
 from sntc_tpu_torch.feature.standard_scaler import (
     StandardScaler,
     StandardScalerModel,
@@ -78,6 +89,17 @@ from sntc_tpu_torch.feature.string_indexer import (
     IndexToString,
     StringIndexer,
     StringIndexerModel,
+)
+from sntc_tpu_torch.feature.text import (
+    IDF,
+    CountVectorizer,
+    CountVectorizerModel,
+    HashingTF,
+    IDFModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
 )
 from sntc_tpu_torch.feature.univariate_selector import (
     UnivariateFeatureSelectorModel,
@@ -91,6 +113,7 @@ from sntc_tpu_torch.feature.vector_indexer import (
     VectorIndexerModel,
     VectorSizeHint,
 )
+from sntc_tpu_torch.feature.word2vec import Word2Vec, Word2VecModel
 from sntc_tpu_torch.models.aft import (
     AFTSurvivalRegression,
     AFTSurvivalRegressionModel,
@@ -103,6 +126,7 @@ from sntc_tpu_torch.models.fm import (
     FMRegressionModel,
     FMRegressor,
 )
+from sntc_tpu_torch.models.fpm import FPGrowth, FPGrowthModel
 from sntc_tpu_torch.models.gaussian_mixture import GaussianMixtureModel
 from sntc_tpu_torch.models.glm import (
     GeneralizedLinearRegression,
@@ -218,6 +242,21 @@ PORTED_CLASSES: Dict[str, type] = {
         GeneralizedLinearRegressionModel,
     "sntc_tpu.models.fm.FMRegressionModel": FMRegressionModel,
     "sntc_tpu.models.fm.FMClassificationModel": FMClassificationModel,
+    "sntc_tpu.feature.text.Tokenizer": Tokenizer,
+    "sntc_tpu.feature.text.RegexTokenizer": RegexTokenizer,
+    "sntc_tpu.feature.text.StopWordsRemover": StopWordsRemover,
+    "sntc_tpu.feature.text.NGram": NGram,
+    "sntc_tpu.feature.text.HashingTF": HashingTF,
+    "sntc_tpu.feature.text.CountVectorizerModel": CountVectorizerModel,
+    "sntc_tpu.feature.text.IDFModel": IDFModel,
+    "sntc_tpu.feature.hashing.FeatureHasher": FeatureHasher,
+    "sntc_tpu.feature.word2vec.Word2VecModel": Word2VecModel,
+    "sntc_tpu.models.fpm.FPGrowthModel": FPGrowthModel,
+    "sntc_tpu.feature.rformula.RFormulaModel": RFormulaModel,
+    "sntc_tpu.feature.sql_transformer.SQLTransformer": SQLTransformer,
+    "sntc_tpu.feature.lsh.BucketedRandomProjectionLSHModel":
+        BucketedRandomProjectionLSHModel,
+    "sntc_tpu.feature.lsh.MinHashLSHModel": MinHashLSHModel,
     # the estimators and evaluators a tuning spec holds
     "sntc_tpu.core.base.Pipeline": Pipeline,
     "sntc_tpu.feature.string_indexer.StringIndexer": StringIndexer,
@@ -236,6 +275,14 @@ PORTED_CLASSES: Dict[str, type] = {
         GeneralizedLinearRegression,
     "sntc_tpu.models.fm.FMRegressor": FMRegressor,
     "sntc_tpu.models.fm.FMClassifier": FMClassifier,
+    "sntc_tpu.feature.text.CountVectorizer": CountVectorizer,
+    "sntc_tpu.feature.text.IDF": IDF,
+    "sntc_tpu.feature.word2vec.Word2Vec": Word2Vec,
+    "sntc_tpu.models.fpm.FPGrowth": FPGrowth,
+    "sntc_tpu.feature.rformula.RFormula": RFormula,
+    "sntc_tpu.feature.lsh.BucketedRandomProjectionLSH":
+        BucketedRandomProjectionLSH,
+    "sntc_tpu.feature.lsh.MinHashLSH": MinHashLSH,
     "sntc_tpu.evaluation.binary.BinaryClassificationEvaluator":
         BinaryClassificationEvaluator,
     "sntc_tpu.evaluation.multiclass.MulticlassClassificationEvaluator":
@@ -244,6 +291,9 @@ PORTED_CLASSES: Dict[str, type] = {
         RegressionEvaluator,
     "sntc_tpu.evaluation.clustering.ClusteringEvaluator":
         ClusteringEvaluator,
+    "sntc_tpu.evaluation.ranking.RankingEvaluator": RankingEvaluator,
+    "sntc_tpu.evaluation.ranking.MultilabelClassificationEvaluator":
+        MultilabelClassificationEvaluator,
     "sntc_tpu.tuning.cross_validator.CrossValidator": CrossValidator,
     "sntc_tpu.tuning.cross_validator.CrossValidatorModel":
         CrossValidatorModel,

@@ -11,6 +11,7 @@ from sntc_tpu_torch.models.bisecting_kmeans import (
     BisectingKMeans,
     BisectingKMeansModel,
 )
+from sntc_tpu_torch.models.fpm import FPGrowth, FPGrowthModel
 from sntc_tpu_torch.models.fm import (
     FMClassificationModel,
     FMClassifier,
@@ -88,6 +89,8 @@ __all__ = [
     "FMClassifier",
     "FMRegressionModel",
     "FMRegressor",
+    "FPGrowth",
+    "FPGrowthModel",
     "GBTClassificationModel",
     "GBTClassifier",
     "GBTRegressionModel",

@@ -48,6 +48,7 @@ from sntc_tpu_torch.data import (
     write_day_csvs,
 )
 from sntc_tpu_torch.resilience import clear_events, recent_events
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,6 +21,7 @@ import sntc_tpu.resilience.control as JC
 import sntc_tpu_torch.data.autotune as PA
 import sntc_tpu_torch.data.pipeline as PP
 import sntc_tpu_torch.resilience.control as PC
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 PACKAGES = {"jax": (JA, JP, JC), "port": (PA, PP, PC)}
 KNOB_SPEC = {"read_workers": (1, 1, 4), "prefetch_batches": (2, 1, 8),

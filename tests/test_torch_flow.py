@@ -59,6 +59,7 @@ from sntc_tpu_torch.flow import (
 )
 from sntc_tpu_torch.resilience import RetryPolicy, arm, clear
 from sntc_tpu_torch.serve import CsvDirSink, StreamingQuery
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SINK_COLS = ["Destination Port", "Flow Duration", "Total Fwd Packets",

@@ -55,6 +55,7 @@ from sntc_tpu_torch.serve.ingress import (
     build_ingress,
     frame_rows,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SINK_COLS = ["Destination Port", "Flow Duration", "Total Fwd Packets",

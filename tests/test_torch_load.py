@@ -119,9 +119,11 @@ def test_from_numpy_forest_serves_like_the_loaded_model(fitted):
 
 
 def test_unported_class_and_orbax_payload_raise(tmp_path):
+    # a JAX class the port's loader does not register (FPGrowthModel
+    # stood here until the port took it)
     meta = {"format_version": 1, "uid": "x", "params": {}, "extra": {},
-            "class": "sntc_tpu.models.fpm.FPGrowthModel"}
-    d = tmp_path / "fpm"
+            "class": "sntc_tpu.models.kmeans.KMeans"}
+    d = tmp_path / "kmeans"
     d.mkdir()
     (d / "metadata.json").write_text(json.dumps(meta))
     with pytest.raises(NotImplementedError, match="not ported"):

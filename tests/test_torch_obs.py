@@ -487,3 +487,39 @@ def test_segment_roofline_on_the_card(monkeypatch):
     assert roof["peak_source"] == "datasheet" and roof["invocations"] == 3
     assert 0 < roof["mfu"] < 1 and 0 < roof["bw_util"] < 1
     assert reg.get("sntc_mfu_ratio", segment="0") == roof["mfu"]
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_a_65th_event_label_set_counts_into_overflow(pkg):
+    """Both registries keep 64 label sets a metric: once a process has
+    counted events under 64 (event, site, tenant) sets, a new set counts
+    into ``overflow="true"`` and reads as absent.  The process's default
+    registry outlives a test, so the reference test
+    ``test_obs.py::test_bridge_counts_events_and_splits_tenant_sites``,
+    which reads a new set from it, fails in a pytest worker whose earlier
+    files counted 64 sets (ROADMAP queue C)."""
+    if pkg == "jax":
+        import sntc_tpu.obs.metrics as m
+        from sntc_tpu.obs import install_event_metrics
+        from sntc_tpu.resilience import emit_event
+    else:
+        import sntc_tpu_torch.obs.metrics as m
+        from sntc_tpu_torch.obs import install_event_metrics
+        from sntc_tpu_torch.resilience import emit_event
+    install_event_metrics()  # as every entry point that emits does
+    prev = m.set_registry(m.MetricsRegistry())
+    try:
+        for i in range(64):
+            emit_event(event="retry", site=f"tenant/t{i}/sink.write",
+                       attempt=1)
+        reg = m.registry()
+        assert reg.get("sntc_events_total", event="retry", site="sink.write",
+                       tenant="t63") == 1
+        assert reg.label_overflows() == 0
+        emit_event(event="retry", site="tenant/z/sink.write", attempt=1)
+        assert reg.get("sntc_events_total", event="retry", site="sink.write",
+                       tenant="z") is None
+        assert reg.get("sntc_events_total", overflow="true") == 1
+        assert reg.label_overflows() == 1
+    finally:
+        m.set_registry(prev)

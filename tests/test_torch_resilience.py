@@ -37,6 +37,7 @@ from sntc_tpu.obs import metrics as jmetrics
 from sntc_tpu_torch.kernels._build import KernelBuildError, KernelLaunchError
 from sntc_tpu_torch.obs import metrics as pmetrics
 from sntc_tpu_torch.resilience import device as pdevice
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
