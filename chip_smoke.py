@@ -482,7 +482,37 @@ each of which fails the run (non-zero exit, no result line):
    FPGrowth on the documents' token sets (its rules predicting a hidden
    feature's token, scored by MultilabelClassificationEvaluator),
    RFormula and SQLTransformer on the flows, RankingEvaluator on (c)'s
-   neighbours (relevant: the training rows of the key's label).
+   neighbours (relevant: the training rows of the key's label);
+23. bench config 17 (``bench.py:3316-3703``), the mesh substrate
+   (``sntc_tpu_torch/parallel``) on the one card, whose meshes name
+   ``cuda:0`` several times (virtual shards: no number here is a
+   scaling), on config 17's 62 500 flows (seed 7, split 0.8/0.2): (a)
+   config 6's pipeline fitted, its stream (phase 15's files, bucket
+   floor 256, the serial engine) served direct, at serve mesh 1 and at
+   serve mesh ``[cuda:0] * 4`` (each bucketed batch split into 4 row
+   blocks), 3 reps in rotated order: direct and mesh-1 sinks
+   byte-identical, mesh-4 predictions equal and probabilities within
+   1e-5 (rows not bitwise counted), the median rows/s and their ratios
+   printed, ungated; (b) config 2's pipeline (scaler -> MLP [78, 64,
+   15], 100 iterations) fitted cold and warm at mesh 1 and ``[cuda:0] *
+   4``: macro-F1 within 0.02, one objective evaluation at the same
+   weights within 1e-5 relative; (c) KMeans (k 8, 20 iterations) on
+   (a)'s PCA features at mesh sizes 1, 2, 4, 8: centers within 1e-3 of
+   mesh 1's, ``sntc_collective_bytes_moved_total`` 0 at mesh 1 and
+   strictly increasing above, equal dispatch counts above 1; (d) ALS on
+   the bench's 40 x 30 ratings at ``[cuda:0] * 8``, ``collective.
+   dispatch`` armed ``device_lost`` after 3: one ``mesh_resize`` 8 -> 4,
+   the gauge at 4, RMSE < 0.1 and within 0.02 of the unfaulted fit's,
+   the domain not failed, no tenant strike; (e) the reduced config-3 fit
+   (phase 4's first 20 000 rows, depth 6) at mesh 1 and ``[cuda:0] *
+   4``: the forests equal node for node, 4 times the ``tree_hist``
+   launches (one a shard), both served on the next 20 000 rows through
+   ``forest_traversal`` with equal predictions, the device quantile
+   edges bitwise the host path's; (f) two gloo rank processes on
+   ``cuda:0`` and one nccl rank, started with the launcher environment
+   after (a): StandardScaler's moments of integer-valued rows bitwise
+   the one-process mesh's (``[cuda:0] * 2``, and mesh 1 for the nccl
+   rank), (c)'s KMeans at 2 ranks within 1e-5.
 
 The run keeps the bytecode of every Python process it starts under
 ``sntc_tpu_torch/_build/pycache`` (``cache_bytecode``): the card's
@@ -659,6 +689,15 @@ from sntc_tpu_torch.serve import (
     frame_rows,
     wire_committed_offset,
 )
+from sntc_tpu_torch.models.mlp import mlp_value_and_grad
+from sntc_tpu_torch.obs.metrics import registry
+from sntc_tpu_torch.parallel import (
+    make_mesh,
+    set_collective_domain,
+    shard_batch,
+    shard_weights,
+)
+from sntc_tpu_torch.parallel.context import reset_serve_mesh, set_serve_mesh
 from sntc_tpu_torch.resilience.faults import KILL_EXIT_CODE
 from sntc_tpu_torch.resilience.replicate import last_barrier, promote_standby
 from sntc_tpu_torch.serve.fleet import FleetCoordinator
@@ -1467,18 +1506,19 @@ def train(dev, data: dict, work: str) -> dict:
     return summary
 
 
-def pipeline(device, depth: int) -> Pipeline:
-    """The train command's pipeline, built in this process."""
+def pipeline(device, depth: int, mesh=None) -> Pipeline:
+    """The train command's pipeline, built in this process (the
+    selector and the forest over ``mesh`` when one is given)."""
     return Pipeline(stages=[
         StringIndexer(inputCol="Label", outputCol="label",
                       handleInvalid="skip"),
         VectorAssembler(inputCols=CICIDS2017_FEATURES,
                         outputCol="rawFeatures", handleInvalid="skip"),
-        ChiSqSelector(device=device, numTopFeatures=TOP,
+        ChiSqSelector(device=device, mesh=mesh, numTopFeatures=TOP,
                       featuresCol="rawFeatures", labelCol="label",
                       outputCol="features"),
-        RandomForestClassifier(device=device, numTrees=TREES, maxDepth=depth,
-                               seed=SEED),
+        RandomForestClassifier(device=device, mesh=mesh, numTrees=TREES,
+                               maxDepth=depth, seed=SEED),
     ])
 
 
@@ -10798,6 +10838,641 @@ def measure_pad(dev, shapes: dict) -> list:
                           if bucket_rows_for(b, BUCKET_FLOOR) != b), 1000)]
 
 
+# -- phase 23: bench config 17 on the card, the mesh substrate ---------------
+
+P23_ROWS = 62_500  # bench.py:260 (BENCH_ROWS // 8)
+P23_SEED = 7  # bench.py's SEED
+P23_REPS = 3  # BENCH17_REPS (bench.py:3339): the forms in rotated order
+P23_SERVE_SHARDS = 4  # (a)'s serve mesh: [cuda:0] * 4
+P23_FIT_SHARDS = 4  # (b)'s and (e)'s mesh
+P23_KM_SIZES = (1, 2, 4, 8)  # BENCH17_MESH_SIZES
+P23_KM_K, P23_KM_ITERS = 8, 20  # BENCH17_KMEANS_K, bench.py:3556
+P23_CHAOS_SHARDS = 8
+P23_PROB_TOL = 1e-5  # tests/test_mesh.py:301's serve-mesh tolerance
+P23_F1_DELTA = 0.02  # bench.py:3688
+P23_OBJ_RTOL = 1e-5  # one objective evaluation, mesh 4 against mesh 1
+P23_CENTER_TOL = 1e-3  # bench.py:3696
+P23_RMSE, P23_RMSE_SLACK = 0.1, 0.02  # bench.py:3699-3700
+P23_KM_RTOL = 1e-5  # (f)'s centers, two ranks against one process
+P23_RANK_WAIT_S = 120.0
+P23_HELD_ROWS = 20_000  # (e)'s held-out rows, after the fit's 20 000
+#: (f)'s rank process: joins the group the launcher environment names
+#: (two gloo ranks on cuda:0, or one nccl rank), builds the global mesh,
+#: and runs StandardScaler's moments aggregate on integer-valued rows and
+#: (c)'s KMeans; its results in an npz.  Gloo reduces the CUDA tensors
+#: itself (no host copies)
+P23_RANK = r"""
+import sys, time
+import numpy as np
+import torch
+from sntc_tpu_torch.core.frame import Frame
+from sntc_tpu_torch.feature.standard_scaler import standardization_moments
+from sntc_tpu_torch.models import KMeans
+from sntc_tpu_torch.parallel import (global_mesh, initialize, process_info,
+                                     shard_batch)
+
+backend, rows_path, feat_path, out = sys.argv[1:5]
+t0 = time.time()
+assert initialize(device="cuda:0", backend=backend)
+mesh = global_mesh()
+xi = np.load(rows_path)
+xs, w = shard_batch(mesh, xi)
+n, mean, var = standardization_moments(xs, w, xi[0], mesh)
+res = dict(n=n, mean=mean, var=var, shards=mesh.shape["data"],
+           local=mesh.local_shards(),
+           info=[process_info()[k] for k in ("process_index",
+                                             "process_count")])
+if feat_path != "-":
+    feats = np.load(feat_path)
+    km = KMeans(mesh=mesh, k=8, maxIter=20, seed=0).fit(
+        Frame({"features": feats}))
+    res.update(centers=km.clusterCenters,
+               iterations=km.fit_stats["iterations"])
+res["seconds"] = time.time() - t0
+np.savez(out, **{k: np.asarray(v) for k, v in res.items()})
+torch.distributed.destroy_process_group()
+"""
+
+
+def card_mesh(dev, n: int):
+    """``[dev] * n``: ``n`` virtual shards of the one card."""
+    return make_mesh(devices=[dev] * n)
+
+
+def p23_data(binary: bool) -> tuple:
+    """Config 17's flows (``bench.py:264-280``): ``generate_frame(62 500,
+    seed=7)`` cleaned, binary (benign/attack) or multiclass, split
+    0.8/0.2 with seed 0, as phase 15's data is split."""
+    df = clean_flows(generate_frame(P23_ROWS, seed=P23_SEED,
+                                    min_class_fraction=0.005))
+    if binary:
+        df = df.with_column("Label", np.where(
+            df["Label"].astype(str) == "BENIGN", "benign", "attack",
+        ).astype(object))
+    return df.random_split([0.8, 0.2], seed=0)
+
+
+def counter_total(name: str) -> float:
+    snap = registry().snapshot().get(name)
+    return float(sum(r.get("value", 0.0) for r in snap["series"])) \
+        if snap else 0.0
+
+
+def p23_serve(dev, work: str, fails: list) -> dict:
+    """(a): config 6's fused pipeline fitted on the card, its stream served
+    direct, at serve mesh 1 and at serve mesh ``[cuda:0] * 4``,
+    ``P23_REPS`` reps in rotated order; the sinks, the probabilities
+    in this process, the pad launches."""
+    train, test = p23_data(True)
+    tmp = os.path.join(work, "p23")
+    with environ(SNTC_SERVE_HOST_ROWS=0, SNTC_SERVE_MESH_DEVICES=None):
+        fitted, fit_s = timed(lambda: c6_pipeline(dev).fit(train))
+        staged = PipelineModel(stages=fitted.getStages()[1:])
+        features = PipelineModel(stages=fitted.getStages()[1:5]).transform(
+            train)["features"]
+        in_dir = os.path.join(tmp, "in")
+        sizes = write_bench_stream(in_dir, test, passes=C6_PASSES)
+        stream_rows, n_files = sum(sizes), len(sizes)
+        forms = (("direct", None), ("mesh1", card_mesh(dev, 1)),
+                 ("mesh4", card_mesh(dev, P23_SERVE_SHARDS)))
+        try:
+            engines = []
+            for name, mesh in forms:
+                set_serve_mesh(mesh)
+                eng = c6_engine(dev, tmp, name, in_dir, sizes,
+                                compile_pipeline(staged), test)
+                eng["mesh"] = mesh
+                engines.append(eng)
+            segs = {e["name"]: fused_segments(e["predictor"])
+                    for e in engines}
+
+            def seg_counts():
+                return {n: (sum(g.mesh_splits for g in gs),
+                            sum(g.invocations for g in gs))
+                        for n, gs in segs.items()}
+
+            counts0 = seg_counts()
+            reset_launches()
+            for rep in range(P23_REPS):
+                k = rep % len(engines)
+                for eng in engines[k:] + engines[:k]:
+                    set_serve_mesh(eng["mesh"])
+                    c6_run(dev, tmp, eng, in_dir, rep, stream_rows, n_files)
+            launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+            # the segment dispatches of the timed reps, and how many of
+            # them were split over the serve mesh
+            splits = {n: c[0] - counts0[n][0]
+                      for n, c in seg_counts().items()}
+            dispatches = {n: c[1] - counts0[n][1]
+                          for n, c in seg_counts().items()}
+            probs = {}
+            for eng in engines:
+                set_serve_mesh(eng["mesh"])
+                probs[eng["name"]] = np.concatenate([
+                    to_host(eng["predictor"].predict_frame(
+                        test.slice(0, n))["probability"])
+                    for n in sorted(set(sizes))])
+        finally:
+            reset_serve_mesh()
+    files = {e["name"]: [sink_files(r["out_dir"]) for r in e["reps"]]
+             for e in engines}
+    preds = {e["name"]: [sink_predictions(r["out_dir"]) for r in e["reps"]]
+             for e in engines}
+    padded = sum(bucket_rows_for(n, BUCKET_FLOOR) != n for n in sizes)
+    want_pad = padded * P23_REPS * len(engines)
+    base = files["direct"][0]
+    direct_mesh1 = all(f == base for f in files["direct"] + files["mesh1"])
+    mesh4_files = all(f == base for f in files["mesh4"])
+    mesh4_preds = all(np.array_equal(p, preds["direct"][0])
+                      for p in preds["mesh4"])
+    p_err = float(np.abs(probs["mesh4"] - probs["direct"]).max())
+    p_rows = int((probs["mesh4"] != probs["direct"]).any(axis=1).sum())
+    if not direct_mesh1:
+        fails.append("phase 23 (a): the direct and serve-mesh-1 sinks differ")
+    if not mesh4_preds or p_err > P23_PROB_TOL or not np.array_equal(
+            probs["mesh1"], probs["direct"]):
+        fails.append(f"phase 23 (a): serve mesh 4 predictions equal "
+                     f"{mesh4_preds}, probabilities {p_err} apart")
+    # every batch of the mesh-4 form split, none of the other forms'
+    if splits["direct"] or splits["mesh1"] \
+            or not all(segs.values()) \
+            or splits["mesh4"] != dispatches["mesh4"] \
+            or dispatches["mesh4"] != P23_REPS * n_files * len(segs["mesh4"]):
+        fails.append(f"phase 23 (a): serve-mesh splits {splits} of segment "
+                     f"dispatches {dispatches}, want every mesh-4 dispatch "
+                     f"({P23_REPS} x {n_files} batches) split and no other")
+    if any(r["batches"] != n_files for e in engines for r in e["reps"]) \
+            or want_pad < 1 or launches != {"forest_traversal": 0,
+                                            "tree_hist": 0,
+                                            "pad_assemble": want_pad}:
+        fails.append(f"phase 23 (a): launches {launches}, want {want_pad} "
+                     "pad_assemble")
+
+    def median(eng):
+        reps = sorted(r["rows_per_s"] for r in eng["reps"])
+        return reps[len(reps) // 2]
+
+    rps = {e["name"]: median(e) for e in engines}
+    return {"fit_s": fit_s, "files": n_files, "stream_rows": stream_rows,
+            "rows_per_s": rps,
+            "reps": {e["name"]: [round(r["rows_per_s"], 1)
+                                 for r in e["reps"]] for e in engines},
+            "mesh1_vs_direct": rps["mesh1"] / rps["direct"],
+            "mesh4_vs_direct": rps["mesh4"] / rps["direct"],
+            "sinks_direct_mesh1_identical": direct_mesh1,
+            "sinks_mesh4_identical": mesh4_files,
+            "mesh4_predictions_equal": mesh4_preds,
+            "mesh4_prob_max_err": p_err, "mesh4_prob_rows_not_bitwise": p_rows,
+            "mesh_splits": splits, "segment_dispatches": dispatches,
+            "prob_rows": int(probs["direct"].shape[0]),
+            "launches": launches, "pad_launch_shapes": shapes,
+            "features": np.ascontiguousarray(to_host(features), np.float32)}
+
+
+def p23_flagship(dev, fails: list) -> dict:
+    """(b): config 2's pipeline (StandardScaler(withMean) -> MLP [78, 64,
+    15], 100 iterations, seed 0) fitted cold then warm at mesh 1 and at
+    ``[cuda:0] * 4``; macro-F1 on the held-out rows, and one objective
+    evaluation at the mesh-1 fit's weights through both meshes."""
+    train, test = p23_data(False)
+
+    def build(mesh):
+        return Pipeline(stages=[
+            StringIndexer(inputCol="Label", outputCol="label",
+                          handleInvalid="skip"),
+            VectorAssembler(inputCols=CICIDS2017_FEATURES,
+                            outputCol="rawFeatures", handleInvalid="skip"),
+            StandardScaler(device=dev, mesh=mesh, inputCol="rawFeatures",
+                           outputCol="features", withMean=True),
+            MultilayerPerceptronClassifier(
+                device=dev, mesh=mesh, layers=MLP_LAYERS,
+                maxIter=LBFGS_ITERS, seed=SEED),
+        ])
+
+    out, models = {}, {}
+    for n in (1, P23_FIT_SHARDS):
+        mesh = card_mesh(dev, n)
+        _, cold = timed(lambda: build(mesh).fit(train))
+        models[n], warm = timed(lambda: build(mesh).fit(train))
+        f1 = MulticlassClassificationEvaluator(metricName="macroF1").evaluate(
+            models[n].transform(test))
+        head = models[n].getStages()[-1]
+        out[f"mesh{n}"] = {"cold_s": cold, "warm_s": warm, "macro_f1": f1,
+                           "iterations": head.optimizer_stats["iterations"]}
+    delta = abs(out["mesh1"]["macro_f1"]
+                - out[f"mesh{P23_FIT_SHARDS}"]["macro_f1"])
+    # one evaluation of the objective at the mesh-1 weights, both ways
+    one = models[1]
+    feats = PipelineModel(stages=one.getStages()[:3]).transform(train)
+    X = np.ascontiguousarray(to_host(feats["features"]), np.float32)
+    y = np.asarray(to_host(feats["label"])).astype(np.int64)
+    w = np.ones(len(y), np.float32)
+    theta = torch.from_numpy(one.getStages()[-1].weights.copy()).to(dev)
+    with full_f32():
+        v1, g1 = mlp_value_and_grad(
+            torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev),
+            torch.from_numpy(w).to(dev), tuple(MLP_LAYERS))(theta)
+        mesh = card_mesh(dev, P23_FIT_SHARDS)
+        xs, ys, _ = shard_batch(mesh, X, y)
+        v4, g4 = mlp_value_and_grad(xs, ys, shard_weights(mesh, w, xs.shape[0]),
+                                    tuple(MLP_LAYERS))(theta)
+    v_rel = abs(float(v4) - float(v1)) / abs(float(v1))
+    g_rel = float((g4 - g1).abs().max() / g1.abs().max())
+    if delta > P23_F1_DELTA or v_rel > P23_OBJ_RTOL:
+        fails.append(f"phase 23 (b): macro-F1 {delta} apart, objective "
+                     f"{v_rel} relative: {out}")
+    return {**out, "f1_delta": delta, "objective": float(v1),
+            "objective_rel": v_rel, "gradient_rel": g_rel}
+
+
+def p23_kmeans(dev, features: np.ndarray, fails: list) -> dict:
+    """(c): KMeans (k 8, 20 iterations, seed 0) on (a)'s PCA features at
+    mesh sizes ``P23_KM_SIZES`` of the one card, with the collective
+    series' deltas."""
+    feat = Frame({"features": features})
+    sweep, centers = [], {}
+    for n in P23_KM_SIZES:
+        d0 = counter_total("sntc_collective_dispatches_total")
+        b0 = counter_total("sntc_collective_bytes_moved_total")
+        km, fit_s = timed(lambda: KMeans(
+            mesh=card_mesh(dev, n), k=P23_KM_K, maxIter=P23_KM_ITERS,
+            seed=0).fit(feat))
+        centers[n] = np.asarray(km.clusterCenters, np.float64)
+        sweep.append({
+            "mesh": n, "fit_s": fit_s,
+            "iterations": km.fit_stats["iterations"],
+            "dispatches": counter_total("sntc_collective_dispatches_total")
+            - d0,
+            "bytes": counter_total("sntc_collective_bytes_moved_total") - b0,
+            "max_center_diff": float(np.abs(centers[n] - centers[1]).max()),
+        })
+    byts = [r["bytes"] for r in sweep]
+    disp = {r["dispatches"] for r in sweep[1:]}
+    if byts[0] != 0 or not all(b > a for a, b in zip(byts, byts[1:])) \
+            or len(disp) != 1 or sweep[0]["dispatches"] != 0 \
+            or max(r["max_center_diff"] for r in sweep) >= P23_CENTER_TOL:
+        fails.append(f"phase 23 (c): {sweep}")
+    return {"sweep": sweep}
+
+
+def p23_chaos(dev, fails: list) -> dict:
+    """(d): ALS (rank 4, 10 iterations, regParam 0.02, seed 2) on the
+    bench's 40 x 30 ratings at ``[cuda:0] * 8``, a device fault domain
+    attached and ``collective.dispatch`` armed ``device_lost`` after 3,
+    once; then the same fit unfaulted."""
+    from sntc_tpu_torch.resilience import DeviceFaultDomain
+    from sntc_tpu_torch.resilience import faults as fault_plane
+
+    rng = np.random.default_rng(0)
+    n_u, n_i, rank = 40, 30, 3
+    U = rng.normal(size=(n_u, rank)) / np.sqrt(rank)
+    V = rng.normal(size=(n_i, rank)) / np.sqrt(rank)
+    full = U @ V.T + 2.0
+    uu, ii = np.nonzero(rng.random((n_u, n_i)) < 0.6)
+    truth = full[uu, ii]
+    ratings = Frame({"user": uu.astype(np.int64), "item": ii.astype(np.int64),
+                     "rating": truth.astype(np.float32)})
+    pairs = Frame({"user": uu, "item": ii})
+    strikes0 = counter_total("sntc_tenant_strikes_total")
+
+    def fit():
+        return ALS(mesh=card_mesh(dev, P23_CHAOS_SHARDS), rank=4, maxIter=10,
+                   regParam=0.02, seed=2).fit(ratings)
+
+    dom = DeviceFaultDomain()
+    set_collective_domain(dom)
+    fault_plane.arm("collective.dispatch", kind="device_lost", after=3,
+                    times=1)
+    try:
+        faulted, fit_s = timed(fit)
+    finally:
+        fault_plane.clear()
+        set_collective_domain(None)
+    # read before the unfaulted fit, whose aggregates record the full mesh
+    survivors = registry().get("sntc_collective_mesh_devices", axis="data")
+    ref = fit()
+
+    def rmse(m):
+        pred = np.asarray(m.transform(pairs)["prediction"])
+        return float(np.sqrt(np.mean((pred - truth) ** 2)))
+
+    res = {"fit_s": fit_s,
+           "resizes": [(r["from"], r["to"]) for r in dom.journal
+                       if r.get("decision") == "mesh_resize"],
+           "mesh_devices_after": survivors, "rmse": rmse(faulted),
+           "rmse_unfaulted": rmse(ref), "domain_failed": dom.failed,
+           "tenant_strikes": counter_total("sntc_tenant_strikes_total")
+           - strikes0}
+    if res["resizes"] != [(P23_CHAOS_SHARDS, 4)] or survivors != 4 \
+            or res["rmse"] >= P23_RMSE \
+            or res["rmse"] > res["rmse_unfaulted"] + P23_RMSE_SLACK \
+            or dom.failed or res["tenant_strikes"]:
+        fails.append(f"phase 23 (d): {res}")
+    return res
+
+
+def forest_arrays(model) -> tuple:
+    f = model.getStages()[-1].forest
+    return f.feature, f.threshold, f.leaf_stats, f.gain, f.count
+
+
+def p23_trees(dev, train3: Frame, fails: list) -> dict:
+    """(e): the reduced config-3 fit (ChiSq top 40 -> RF 20 trees, depth
+    6, 20 000 rows) at mesh 1 and at ``[cuda:0] * 4``, each with the
+    launch counts set to 0 just before it; both forests served on the
+    next 20 000 rows through ``forest_traversal``; the device quantile
+    edges of the fit's features against the host path."""
+    frame = train3.slice(0, REDUCED_ROWS)
+    held = train3.slice(REDUCED_ROWS, REDUCED_ROWS + P23_HELD_ROWS)
+    models, launches, secs = {}, {}, {}
+    for n in (1, P23_FIT_SHARDS):
+        reset_launches()
+        with recording_tree_hist() as calls:
+            models[n], secs[n] = timed(lambda: pipeline(
+                dev, REDUCED_DEPTH, card_mesh(dev, n)).fit(frame))
+        launches[n] = LAUNCHES["tree_hist"]
+        if n == P23_FIT_SHARDS:
+            sharded_calls = calls
+    sel = [models[n].getStages()[2].selected_features for n in models]
+    same = sel[0] == sel[1] and all(
+        np.array_equal(a, b) for a, b in zip(
+            forest_arrays(models[1]), forest_arrays(models[P23_FIT_SHARDS])))
+    reset_launches()
+    preds = {n: to_host(m.transform(held)["prediction"])
+             for n, m in models.items()}
+    walks = LAUNCHES["forest_traversal"]
+    same_pred = np.array_equal(preds[1], preds[P23_FIT_SHARDS])
+    if not same or launches[P23_FIT_SHARDS] != P23_FIT_SHARDS * launches[1] \
+            or launches[1] < 1 or not same_pred or walks < 2:
+        fails.append(f"phase 23 (e): forests equal {same}, tree_hist "
+                     f"launches {launches}, predictions equal {same_pred}, "
+                     f"forest_traversal {walks}")
+    # the device quantile edges of the fit's 78 features
+    X = np.stack([np.asarray(frame[c], np.float32)
+                  for c in CICIDS2017_FEATURES], axis=1)
+    host = quantile_bin_edges(X, max_bins=BINS, seed=SEED)
+    on_card = to_host(quantile_bin_edges(torch.from_numpy(X).to(dev),
+                                         max_bins=BINS, seed=SEED))
+    edge_cells = int((host != on_card).sum())
+    if edge_cells:
+        fails.append(f"phase 23 (e): {edge_cells} device edges differ from "
+                     "the host path's")
+    # the kernels line: tree_hist at the sharded fit's contingency and
+    # widest level-group shard, forest_traversal at the held-out walk
+    shard_rows = frame.num_rows // P23_FIT_SHARDS
+    cases = {}
+    for i, c in enumerate(sharded_calls):
+        key = ("mesh-4 contingency shard" if c["n_nodes"] == 1
+               and c["binned_t"].shape[0] == len(CICIDS2017_FEATURES)
+               else "mesh-4 widest level-group shard")
+        if key not in cases or c["n_nodes"] > cases[key]["n_nodes"]:
+            cases[key] = c
+    err = check_tree_hist(cases)
+    kernels = measure_tree_hist(cases, err, launches[P23_FIT_SHARDS])
+    rf = models[P23_FIT_SHARDS].getStages()[-1]
+    held_x = PipelineModel(stages=models[P23_FIT_SHARDS].getStages()[:3]) \
+        .transform(held)["features"]
+    args = [rf._features_on_device(held_x), *rf._device_forest()]
+    depth = rf.getMaxDepth()
+    out = forest_leaf_stats_cuda(*args, max_depth=depth)
+    ref = forest_leaf_stats_reference(*args, max_depth=depth)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fails.append("phase 23 (e): forest_traversal differs from its plain "
+                     "version")
+    nbytes, ops = forest_work(*args, depth=depth)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    T, M = args[1].shape
+    kernels.append({
+        "name": "forest_traversal", "route": "cuda",
+        "source": "sntc_tpu_torch/kernels/csrc/forest_traversal.cu",
+        "replaces": "sntc_tpu/kernels/forest.py:92",
+        "launches": walks, "max_abs_err": (out - ref).abs().max().item(),
+        "ms": time_ms(lambda: forest_leaf_stats_cuda(*args,
+                                                     max_depth=depth)),
+        "device_ms": kernel_device_ms(
+            lambda: forest_leaf_stats_cuda(*args, max_depth=depth)),
+        "plain_ms": time_ms(lambda: forest_leaf_stats_reference(
+            *args, max_depth=depth)),
+        "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": None,  # no single PyTorch call walks a tree
+        "shape": f"phase 23 (e) held-out walk of the mesh-fitted forest: X "
+                 f"[{args[0].shape[0]}, {TOP}] f32, T={T}, M={M}, "
+                 f"S={args[3].shape[2]}; needs {nbytes} B, {ops} "
+                 "comparisons",
+    })
+    return {"fit_s": secs, "tree_hist_launches": launches,
+            "shard_rows": shard_rows, "forests_equal": same,
+            "selected_equal": sel[0] == sel[1],
+            "splits": int((forest_arrays(models[1])[0] >= 0).sum()),
+            "forest_traversal_launches": walks,
+            "predictions_equal": same_pred,
+            "edges_not_bitwise": edge_cells, "edges_cells": int(host.size),
+            "kernels": kernels}
+
+
+def p23_start_ranks(work: str, features: np.ndarray) -> dict:
+    """(f): two gloo ranks on cuda:0 and one nccl rank, each in a
+    process of its own with the launcher environment; they run beside
+    (b)-(e)."""
+    import socket as socketlib
+
+    def free_port() -> int:
+        with socketlib.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    d = os.path.join(work, "p23ranks")
+    os.makedirs(d, exist_ok=True)
+    rows = np.random.default_rng(P23_SEED).integers(
+        -50, 50, size=(515, 6)).astype(np.float32)
+    np.save(os.path.join(d, "rows.npy"), rows)
+    np.save(os.path.join(d, "feats.npy"), features)
+    procs = {}
+    for group, backend, world, feats in (("gloo", "gloo", 2, "feats.npy"),
+                                         ("nccl", "nccl", 1, "-")):
+        port = free_port()
+        for r in range(world):
+            env = env_with(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           WORLD_SIZE=str(world), RANK=str(r),
+                           LOCAL_RANK=str(r))
+            procs[f"{group}{r}"] = subprocess.Popen(
+                [sys.executable, "-c", P23_RANK, backend,
+                 os.path.join(d, "rows.npy"),
+                 "-" if feats == "-" else os.path.join(d, feats),
+                 os.path.join(d, f"{group}{r}.npz")],
+                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    return {"dir": d, "procs": procs, "rows": rows, "started": time.time()}
+
+
+def p23_finish_ranks(dev, ranks: dict, features: np.ndarray,
+                     fails: list) -> dict:
+    """(f)'s results against this process: the gloo ranks' moments
+    bitwise the one-process mesh ``[cuda:0] * 2``'s, their centers within
+    ``P23_KM_RTOL``; the nccl rank's moments bitwise mesh 1's.  A rank
+    that hangs gets SIGABRT (its stacks: ``PYTHONFAULTHANDLER``)."""
+    from sntc_tpu_torch.feature.standard_scaler import standardization_moments
+
+    deadline = ranks["started"] + P23_RANK_WAIT_S
+    for name, p in ranks["procs"].items():
+        try:
+            _out, err = p.communicate(timeout=max(1.0,
+                                                  deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for q in ranks["procs"].values():
+                if q.poll() is None:
+                    q.send_signal(signal.SIGABRT)
+            _out, err = p.communicate()
+            for q in ranks["procs"].values():
+                q.communicate()
+            raise SystemExit(f"phase 23 (f): rank {name} still running "
+                             f"after {P23_RANK_WAIT_S} s:\n{err[-6000:]}")
+        if p.returncode != 0:
+            raise SystemExit(f"phase 23 (f): rank {name} exited "
+                             f"{p.returncode}:\n{err[-3000:]}")
+    got = {name: dict(np.load(os.path.join(ranks["dir"], f"{name}.npz")))
+           for name in ranks["procs"]}
+    rows = ranks["rows"]
+
+    def moments(n):
+        mesh = card_mesh(dev, n)
+        xs, w = shard_batch(mesh, rows)
+        return standardization_moments(xs, w, rows[0], mesh)
+
+    ref = {1: moments(1), 2: moments(2)}
+    km2 = KMeans(mesh=card_mesh(dev, 2), k=P23_KM_K, maxIter=P23_KM_ITERS,
+                 seed=0).fit(Frame({"features": features}))
+    c2 = np.asarray(km2.clusterCenters, np.float64)
+    res = {"seconds": time.time() - ranks["started"],
+           "rank_seconds": {k: float(v["seconds"]) for k, v in got.items()}}
+    bitwise = {}
+    for name, n in (("gloo0", 2), ("gloo1", 2), ("nccl0", 1)):
+        g = got[name]
+        bitwise[name] = all(np.array_equal(np.asarray(g[k]), np.asarray(v))
+                            for k, v in zip(("n", "mean", "var"), ref[n]))
+    res["moments_bitwise"] = bitwise
+    res["center_rel"] = {
+        name: float(np.abs(got[name]["centers"] - c2).max()
+                    / np.abs(c2).max()) for name in ("gloo0", "gloo1")}
+    res["shards"] = {k: int(v["shards"]) for k, v in got.items()}
+    if not all(bitwise.values()) or max(res["center_rel"].values()) > \
+            P23_KM_RTOL or res["shards"] != {"gloo0": 2, "gloo1": 2,
+                                             "nccl0": 1}:
+        fails.append(f"phase 23 (f): {res}")
+    return res
+
+
+def phase23(dev, work: str, train3: Frame) -> dict:
+    """Phase 23, bench config 17 on the card: (a) the serve mesh, (b) the
+    flagship fit, (c) the KMeans sweep, (d) the chaos leg, (e) the trees
+    on the mesh, in this process; (f) the process groups in three rank
+    processes started after (a) and read last."""
+    t0 = time.perf_counter()
+    fails: list = []
+    parts = {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        parts[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    serve = part("a_serve_mesh", p23_serve, dev, work, fails)
+    features = serve.pop("features")
+    ranks = part("f_start", p23_start_ranks, work, features)
+    flagship = part("b_flagship", p23_flagship, dev, fails)
+    kmeans = part("c_kmeans", p23_kmeans, dev, features, fails)
+    chaos = part("d_chaos", p23_chaos, dev, fails)
+    trees = part("e_trees", p23_trees, dev, train3, fails)
+    groups = part("f_groups", p23_finish_ranks, dev, ranks, features, fails)
+    kernels = pads_of(dev, serve["pad_launch_shapes"], False)
+    kernels += trees.pop("kernels")
+    p23 = {"seconds": time.perf_counter() - t0, "parts_s": parts,
+           "serve": serve, "flagship": flagship, "kmeans": kmeans,
+           "chaos": chaos, "trees": trees, "groups": groups}
+    PHASE_SECONDS["23 parts"] = parts
+    if fails:
+        log("phase 23 " + json.dumps(p23, default=str))
+        raise SystemExit("phase 23 failed:\n" + "\n".join(fails))
+    p23["kernels"] = kernels
+    return p23
+
+
+def report_phase23(p23: dict, card: str) -> None:
+    """Phase 23's lines: every leg's numbers beside the card, the kernel
+    shapes, one JSON line.  The seconds at each mesh size are the
+    virtual shards' overhead on one card, not a scaling."""
+    s, b, k, c, t, g = (p23[x] for x in ("serve", "flagship", "kmeans",
+                                          "chaos", "trees", "groups"))
+    log(f"phase 23 (a) config 6's stream ({s['files']} files, "
+        f"{s['stream_rows']} rows, {P23_REPS} reps a form in rotated order):"
+        f" median rows/s direct {s['rows_per_s']['direct']:.1f}, serve mesh "
+        f"1 {s['rows_per_s']['mesh1']:.1f}, serve mesh [cuda:0] x "
+        f"{P23_SERVE_SHARDS} {s['rows_per_s']['mesh4']:.1f} (ratios "
+        f"{s['mesh1_vs_direct']:.3f}, {s['mesh4_vs_direct']:.3f}; reps "
+        f"{s['reps']}); sinks direct = mesh 1 byte-identical "
+        f"{s['sinks_direct_mesh1_identical']}, mesh 4 byte-identical "
+        f"{s['sinks_mesh4_identical']}, predictions equal "
+        f"{s['mesh4_predictions_equal']}; probabilities of {s['prob_rows']} "
+        f"rows in process {s['mesh4_prob_max_err']:.3g} apart "
+        f"({s['mesh4_prob_rows_not_bitwise']} rows not bitwise); segment "
+        f"dispatches split {s['mesh_splits']} of {s['segment_dispatches']}; "
+        f"launches "
+        f"{s['launches']} [{card}]")
+    log(f"phase 23 (b) config 2 fit: mesh 1 cold {b['mesh1']['cold_s']:.3f} "
+        f"s, warm {b['mesh1']['warm_s']:.3f} s, macro-F1 "
+        f"{b['mesh1']['macro_f1']:.4f}; [cuda:0] x {P23_FIT_SHARDS} cold "
+        f"{b[f'mesh{P23_FIT_SHARDS}']['cold_s']:.3f} s, warm "
+        f"{b[f'mesh{P23_FIT_SHARDS}']['warm_s']:.3f} s, macro-F1 "
+        f"{b[f'mesh{P23_FIT_SHARDS}']['macro_f1']:.4f} (delta "
+        f"{b['f1_delta']:.4f}); one objective evaluation at the mesh-1 "
+        f"weights {b['objective_rel']:.3g} relative apart, gradient "
+        f"{b['gradient_rel']:.3g} [{card}]")
+    log("phase 23 (c) KMeans sweep: " + "; ".join(
+        f"mesh {r['mesh']}: {r['fit_s']:.3f} s, {r['iterations']} iterations, "
+        f"{r['dispatches']:.0f} dispatches, {r['bytes']:.0f} wire bytes, "
+        f"centers {r['max_center_diff']:.3g} from mesh 1's"
+        for r in k["sweep"]) + f" [{card}]")
+    log(f"phase 23 (d) ALS chaos at [cuda:0] x {P23_CHAOS_SHARDS}: resizes "
+        f"{c['resizes']}, gauge {c['mesh_devices_after']}, RMSE "
+        f"{c['rmse']:.5f} (unfaulted {c['rmse_unfaulted']:.5f}), domain "
+        f"failed {c['domain_failed']}, tenant strikes {c['tenant_strikes']}, "
+        f"{c['fit_s']:.3f} s [{card}]")
+    log(f"phase 23 (e) reduced config-3 fit: mesh 1 {t['fit_s'][1]:.3f} s, "
+        f"[cuda:0] x {P23_FIT_SHARDS} {t['fit_s'][P23_FIT_SHARDS]:.3f} s "
+        f"({t['shard_rows']} rows a shard); tree_hist launches "
+        f"{t['tree_hist_launches']}; forests equal node for node "
+        f"{t['forests_equal']} ({t['splits']} splits), held-out predictions "
+        f"equal {t['predictions_equal']} ({t['forest_traversal_launches']} "
+        f"forest_traversal launches); device quantile edges "
+        f"{t['edges_not_bitwise']} of {t['edges_cells']} cells off the host "
+        f"path [{card}]")
+    log(f"phase 23 (f) process groups: moments bitwise "
+        f"{g['moments_bitwise']}, gloo ranks' centers {g['center_rel']} "
+        f"relative from the one-process [cuda:0] x 2, rank seconds "
+        f"{g['rank_seconds']} [{card}]")
+    for x in p23["kernels"]:
+        lib = ("" if x["library_ms"] is None else
+               f", library {x['library_ms']:.4f} ms")
+        log(f"phase 23 {x['name']} {x['shape']}: {x['ms']:.4f} ms a call, "
+            f"{x['device_ms']:.4f} ms of device time a launch (plain "
+            f"{x['plain_ms']:.4f} ms{lib}, bound {x['bound_ms']:.4f} ms by "
+            f"{x['bound_by']}); {x['launches']} launches on its path, max "
+            f"abs error {x['max_abs_err']} [{card}]")
+    log("phase 23 " + json.dumps({
+        "phase": 23, "card": card, "seconds": round(p23["seconds"], 3),
+        "parts_s": p23["parts_s"],
+        "serve": {x: s[x] for x in ("rows_per_s", "mesh1_vs_direct",
+                                    "mesh4_vs_direct", "mesh4_prob_max_err",
+                                    "mesh4_prob_rows_not_bitwise")},
+        "flagship": b, "kmeans": k, "chaos": c,
+        "trees": {x: t[x] for x in ("tree_hist_launches", "forests_equal",
+                                    "edges_not_bitwise")},
+        "groups": g}, default=str))
+
+
 #: side process name -> (its handle in the run, its main)
 SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "family_fits": (FamilyFits, family_fits_main),
@@ -10805,7 +11480,7 @@ SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "p22_fits": (P22Fits, p22_fits_main)}
 
 PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
-          "20", "21", "22")
+          "20", "21", "22", "23")
 
 
 #: the compiled bytecode of every Python process the run starts
@@ -10837,8 +11512,8 @@ def main() -> int:
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first, 18 and 19 config 9's LR "
                     "pipeline, 20 generates config 3's rows, 21 config 3's "
-                    "and config 4's, 22 config 1's); default: "
-                    "every phase")
+                    "and config 4's, 22 config 1's, 23 config 3's); "
+                    "default: every phase")
     # a CPU side process (``SIDES``), which the run starts itself
     ap.add_argument("--side", nargs=2, default=None, metavar=("NAME", "DIR"),
                     help=argparse.SUPPRESS)
@@ -11026,6 +11701,9 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                                (data["train"], data["test"]), data4["train"])
     with clock("22 object columns, long tail"):
         phase22_ = phase22(dev, data1, sides["p22_fits"])
+    with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
+        with clock("23 mesh substrate"):
+            phase23_ = phase23(dev, work, data["train"])
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -11037,6 +11715,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     kernels += phase19["kernels"]
     kernels += phase20["kernels"]
     kernels += phase21_["kernels"]
+    kernels += phase23_["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -11225,6 +11904,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     report_phase20(phase20, card)
     report_phase21(phase21_, card)
     report_phase22(phase22_, card)
+    report_phase23(phase23_, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -11255,7 +11935,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                        "phase16": phase16, "phase17": phase17,
                        "phase18": phase18, "phase19": phase19,
                        "phase20": phase20, "phase21": phase21_,
-                       "phase22": phase22_,
+                       "phase22": phase22_, "phase23": phase23_,
                        "phase_seconds": PHASE_SECONDS,
                        "sides": side_spans(sides)}, f,
                       indent=1, default=str)
@@ -11367,6 +12047,12 @@ def main_phases(dev, card: str, phases: list, sides: dict) -> int:
             with clock("22 object columns, long tail"):
                 p22 = phase22(dev, data1, sides["p22_fits"])
             report_phase22(p22, card)
+        if "23" in phases:
+            train3 = config3_train()
+            with clock("23 mesh substrate"):
+                p23 = phase23(dev, work, train3)
+            report_phase23(p23, card)
+            kernels += p23["kernels"]
     finish(kernels, card, sides)
     return 0
 

@@ -246,9 +246,9 @@ TRAIN_ESTIMATORS = ["lr", "mlp", "rf", "gbt", "dt", "nb", "svc"]
 TRAIN_DEFAULT_LAYERS = "78,64,15"
 
 
-def _build_estimator(args, device):
+def _build_estimator(args, device, mesh=None):
     """The estimator ``--estimator`` names, as the JAX command builds
-    it."""
+    it; the estimators that take one fit over ``mesh``."""
     from sntc_tpu_torch.models import (
         DecisionTreeClassifier,
         GBTClassifier,
@@ -262,23 +262,23 @@ def _build_estimator(args, device):
 
     if args.estimator == "lr":
         return LogisticRegression(
-            device=device, maxIter=args.max_iter, regParam=args.reg_param
+            device=device, mesh=mesh, maxIter=args.max_iter, regParam=args.reg_param
         )
     if args.estimator == "mlp":
         layers = [int(v) for v in args.layers.split(",")]
         return MultilayerPerceptronClassifier(
-            device=device, layers=layers, maxIter=args.max_iter,
+            device=device, mesh=mesh, layers=layers, maxIter=args.max_iter,
             seed=args.seed,
         )
     if args.estimator == "rf":
         return RandomForestClassifier(
-            device=device, numTrees=args.num_trees, maxDepth=args.max_depth,
+            device=device, mesh=mesh, numTrees=args.num_trees, maxDepth=args.max_depth,
             seed=args.seed,
         )
     if args.estimator == "gbt":
         return OneVsRest(
             classifier=GBTClassifier(
-                device=device, maxIter=args.max_iter, maxDepth=args.max_depth,
+                device=device, mesh=mesh, maxIter=args.max_iter, maxDepth=args.max_depth,
                 stepSize=args.step_size, seed=args.seed,
                 maxBins=args.max_bins,
             ),
@@ -289,12 +289,12 @@ def _build_estimator(args, device):
         return OneVsRest(classifier=LinearSVC(
             device=device, maxIter=args.max_iter, regParam=args.reg_param))
     return DecisionTreeClassifier(
-        device=device, maxDepth=args.max_depth, maxBins=args.max_bins,
+        device=device, mesh=mesh, maxDepth=args.max_depth, maxBins=args.max_bins,
         seed=args.seed,
     )
 
 
-def _feature_stages(args, device, with_scaler: bool):
+def _feature_stages(args, device, with_scaler: bool, mesh=None):
     from sntc_tpu_torch.data import CICIDS2017_FEATURES
     from sntc_tpu_torch.feature import (
         ChiSqSelector,
@@ -311,13 +311,13 @@ def _feature_stages(args, device, with_scaler: bool):
     ]
     if args.chisq_top:
         stages.append(ChiSqSelector(
-            device=device, numTopFeatures=args.chisq_top,
+            device=device, mesh=mesh, numTopFeatures=args.chisq_top,
             featuresCol="rawFeatures", labelCol="label",
             outputCol=args.features_col,
         ))
     elif with_scaler:
         stages.append(StandardScaler(
-            device=device, inputCol="rawFeatures",
+            device=device, mesh=mesh, inputCol="rawFeatures",
             outputCol=args.features_col, withMean=True,
         ))
     return stages
@@ -447,9 +447,15 @@ def _cmd_train_body(args) -> int:
     if args.estimator == "mlp":
         _track_layers(args, train,
                       args.chisq_top or len(CICIDS2017_FEATURES))
-    est = _build_estimator(args, device)
+    # the JAX command's default mesh, over --device's visible devices
+    # (one shard on a host with one card: the single-device fit)
+    from sntc_tpu_torch.parallel.context import get_default_mesh
+
+    mesh = get_default_mesh(device)
+    est = _build_estimator(args, device, mesh)
     est.set("featuresCol", features_col)
-    pipe = Pipeline(stages=_feature_stages(args, device, with_scaler) + [est])
+    pipe = Pipeline(stages=_feature_stages(args, device, with_scaler, mesh)
+                    + [est])
     t0 = time.perf_counter()
     with _device_trace_ctx(args), span("train.fit",
                                        estimator=args.estimator):

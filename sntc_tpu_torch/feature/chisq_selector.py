@@ -7,7 +7,9 @@ keep the top ``numTopFeatures`` / ``percentile`` / those below ``fpr``,
 
 The fit bins the features and builds the (feature, bin, class)
 contingency on the estimator's device — one ``tree_hist`` launch on the
-card — then computes the statistics and the selection on the host.  The
+card, or with a ``mesh=`` one launch a shard on that shard's rows, the
+shards' tables summed (exact: whole counts) — then computes the
+statistics and the selection on the host.  The
 fitted model is a column select of ``selected_features``; on a tensor
 the select runs on the tensor's device.
 """
@@ -22,7 +24,12 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 from sntc_tpu_torch.feature.selection import (
     select_columns,
     select_features_by_mode,
@@ -70,33 +77,47 @@ class _SelectorParams:
     )
 
 
-def chi2_scores(X: np.ndarray, y: np.ndarray, n_bins: int, device):
+def chi2_scores(X: np.ndarray, y: np.ndarray, n_bins: int, device,
+                mesh=None):
     """``(stats [F], p_values [F])`` of the binned χ² test of float32
     ``X [N, F]`` against integer labels ``y``, the contingency built on
-    ``device``."""
+    ``device`` — or, with ``mesh``, one ``tree_hist`` launch a shard on
+    that shard's rows and padding mask, summed over the shards."""
     y = np.asarray(y).astype(np.int64)
     n_classes = int(y.max()) + 1 if len(y) else 1
     edges = quantile_bin_edges(X, max_bins=n_bins)
-    Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
-    binned_t = bin_features(Xd, torch.from_numpy(edges).to(device)).t()
-    yd = torch.from_numpy(y).to(device)
-    w = torch.ones(len(y), dtype=torch.float32, device=device)
-    observed = binned_contingency(
-        binned_t, yd, w, n_bins=n_bins, n_classes=n_classes
-    ).cpu().numpy()
+
+    def contingency(xs, ys, w, e):
+        binned_t = bin_features(xs, e).t()
+        return binned_contingency(binned_t, ys, w, n_bins=n_bins,
+                                  n_classes=n_classes)
+
+    if mesh is None:
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+        yd = torch.from_numpy(y).to(device)
+        w = torch.ones(len(y), dtype=torch.float32, device=device)
+        observed = contingency(Xd, yd, w, torch.from_numpy(edges).to(device))
+    else:
+        xs, ys, w = shard_batch(mesh, np.ascontiguousarray(X, np.float32), y)
+        observed = make_tree_aggregate(
+            contingency, mesh, replicated_args=(3,), op="chisq.contingency",
+        )(xs, ys, w, torch.from_numpy(edges))
+    observed = observed.cpu().numpy()
     stats, p_values, _ = chi_square(observed)
     return stats, p_values
 
 
 class ChiSqSelector(_SelectorParams, Estimator):
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "ChiSqSelectorModel":
         X = to_host(frame[self.getFeaturesCol()]).astype(np.float32)
         y = to_host(frame[self.getLabelCol()])
-        stats, p_values = chi2_scores(X, y, self.getMaxBins(), self.device)
+        stats, p_values = chi2_scores(X, y, self.getMaxBins(), self.device,
+                                      fit_mesh(self.mesh))
         mode = self.getSelectorType()
         threshold = {
             "numTopFeatures": self.getNumTopFeatures(),

@@ -14,8 +14,11 @@ moments about a pilot row ``p`` (the first), ``Σ(x-p)``,
 ``[x-p | 1]ᵀ [x-p | 1]`` in full float32.  The shift matters: an
 uncentered float32 ``XᵀX`` cancels catastrophically when feature means
 dwarf their spread (flow byte counts near 1e7); the covariance is
-shift-invariant.  The covariance and ``np.linalg.eigh`` are float64 on
-the host, in the JAX package's order.  The transform is one full-f32
+shift-invariant.  With a ``mesh=`` of more than one shard the same
+moments are one ``make_tree_aggregate`` over the sharded rows, each
+shard's product weighted by its padding mask, as in the JAX package.
+The covariance and ``np.linalg.eigh`` are float64 on the host, in the
+JAX package's order.  The transform is one full-f32
 product (:func:`pca_project`, shared with the fused segment), run where
 a tensor column lives or, for a host column, on the model's device with
 one round trip.
@@ -32,6 +35,12 @@ from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.dct import device_round_trip
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 
 
 def pilot_moments(xs: torch.Tensor, pilot: np.ndarray):
@@ -43,6 +52,26 @@ def pilot_moments(xs: torch.Tensor, pilot: np.ndarray):
                               device=xs.device)], dim=1)
     with full_f32():
         m = to_host(a.t() @ a).astype(np.float64)
+    d = xs.shape[1]
+    return m[d, :d], m[:d, :d], float(m[d, d])
+
+
+def _shard_moments(xs, w, p):
+    """One shard's ``[x-p | 1]ᵀ diag(w) [x-p | 1]``."""
+    a = torch.cat([xs - p[None, :],
+                   torch.ones(xs.shape[0], 1, dtype=torch.float32,
+                              device=xs.device)], dim=1)
+    return (a * w[:, None]).t() @ a
+
+
+def sharded_pilot_moments(mesh, xs, w, pilot: np.ndarray):
+    """:func:`pilot_moments` of ``shard_batch``'s rows ``xs`` and
+    padding mask ``w``, summed over the mesh's shards."""
+    agg = make_tree_aggregate(_shard_moments, mesh, replicated_args=(2,),
+                              op="pca.moments")
+    with full_f32():
+        m = to_host(agg(xs, w, torch.from_numpy(
+            np.asarray(pilot, np.float32)))).astype(np.float64)
     d = xs.shape[1]
     return m[d, :d], m[:d, :d], float(m[d, d])
 
@@ -62,11 +91,13 @@ class _PcaParams:
 
 
 class PCA(_PcaParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "PCAModel":
         X = frame[self.getInputCol()]
@@ -76,14 +107,22 @@ class PCA(_PcaParams, Estimator):
             raise ValueError(f"k={k} exceeds the feature width {d}")
         if X.shape[0] == 0:
             raise ValueError("PCA requires a non-empty dataset")
-        if isinstance(X, torch.Tensor):
-            xs = X.to(device=self.device, dtype=torch.float32)
-            pilot = to_host(xs[0])
+        mesh = fit_mesh(self.mesh)
+        if mesh is not None:
+            X = (X.to(torch.float32) if isinstance(X, torch.Tensor)
+                 else np.asarray(X).astype(np.float32, copy=False))
+            xs, w = shard_batch(mesh, X)
+            s, xxt, n = sharded_pilot_moments(mesh, xs, w, to_host(X[0]))
         else:
-            X = np.asarray(X).astype(np.float32, copy=False)
-            xs = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
-            pilot = X[0]
-        s, xxt, n = pilot_moments(xs, pilot)
+            if isinstance(X, torch.Tensor):
+                xs = X.to(device=self.device, dtype=torch.float32)
+                pilot = to_host(xs[0])
+            else:
+                X = np.asarray(X).astype(np.float32, copy=False)
+                xs = torch.from_numpy(np.ascontiguousarray(X)).to(
+                    self.device)
+                pilot = X[0]
+            s, xxt, n = pilot_moments(xs, pilot)
         # moments are about the pilot; the covariance is shift-invariant
         mean_s = s / n
         cov = (xxt - n * np.outer(mean_s, mean_s)) / max(n - 1.0, 1.0)

@@ -15,7 +15,9 @@ same names):
   * Binarizer: stateless ``x > threshold -> 1.0 else 0.0``.
 
 The fits run on the estimator's device (default ``cuda``): the extrema
-and max-abs are torch reductions over the float32 matrix; RobustScaler's
+and max-abs are torch reductions over the float32 matrix (MinMaxScaler
+also over a ``mesh=``: a min and a max per shard, reduced across the
+shards; the row-0 padding leaves both unchanged); RobustScaler's
 quantiles are one column sort on the device with ``jnp.quantile``'s
 linear interpolation, op for op (``torch.quantile`` refuses inputs above
 2^24 elements, and a config-scale matrix is above that).  Transforms run
@@ -34,6 +36,12 @@ from sntc_tpu_torch.core.base import Estimator, Model, Transformer
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 
 
 def _matrix_on(X, device: torch.device) -> torch.Tensor:
@@ -84,18 +92,34 @@ class _MinMaxParams:
     max = Param("upper bound of the output range", default=1.0)
 
 
-class MinMaxScaler(_MinMaxParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+def _extrema(xs, _w=None):
+    return tuple(torch.aminmax(xs, dim=0))
 
-    def __init__(self, device="cuda", **kwargs):
+
+class MinMaxScaler(_MinMaxParams, Estimator):
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
+
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "MinMaxScalerModel":
         if self.getMin() >= self.getMax():
             raise ValueError("min must be < max")
-        xs = _matrix_on(frame[self.getInputCol()], self.device)
-        lo, hi = torch.aminmax(xs, dim=0)
+        mesh = fit_mesh(self.mesh)
+        X = frame[self.getInputCol()]
+        if mesh is None:
+            lo, hi = _extrema(_matrix_on(X, self.device))
+        else:
+            if not isinstance(X, torch.Tensor):
+                X = np.asarray(X).astype(np.float32, copy=False)
+            xs, w = shard_batch(mesh, X.to(torch.float32)
+                                if isinstance(X, torch.Tensor) else X)
+            lo, hi = make_tree_aggregate(
+                _extrema, mesh, op="minmax_scaler",
+                combine=("min", "max"))(xs, w)
         model = MinMaxScalerModel(originalMin=to_host(lo),
                                   originalMax=to_host(hi))
         model.setParams(**self.paramValues())

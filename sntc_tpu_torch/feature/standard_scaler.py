@@ -8,10 +8,13 @@ mapped to 0.
 
 The fit is one pass over the rows on the estimator's device: weighted
 ``(Σx, Σx², Σw)`` about a pilot row (the first), in full float32, with
-the mean and variance finished in float64 on the host (the JAX
-package's ``make_tree_aggregate`` is this one reduction on one device).
-Transform runs where its input lives: a numpy column on the host, a
-tensor column on the tensor's device.
+the mean and variance finished in float64 on the host.  With a ``mesh=``
+of more than one shard the pass is one ``make_tree_aggregate`` over the
+sharded rows, the pilot row a replicated argument, as in the JAX
+package; without one (or with one shard in one process) it is the same
+reduction on one device, unpadded.  Transform runs where its input
+lives: a numpy column on the host, a tensor column on the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -22,8 +25,13 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 
 
 class _ScalerParams:
@@ -33,18 +41,28 @@ class _ScalerParams:
     withStd = Param("scale to unit std", default=True, validator=validators.is_bool())
 
 
-def standardization_moments(xs: torch.Tensor, w: torch.Tensor,
-                            pilot: np.ndarray):
+def _moments(xs, w, pilot):
+    shifted = xs - pilot[None, :]
+    return torch.cat([w @ shifted, w @ (shifted * shifted),
+                      w.sum().reshape(1)])
+
+
+def standardization_moments(xs, w, pilot: np.ndarray, mesh=None):
     """``(count, mean, BIASED 1/n variance about the mean)`` of ``xs``
     ``[N, D]`` weighted by ``w``, accumulated about ``pilot`` (raw f32
     Σx² cancels catastrophically on features whose mean dwarfs their
-    spread; the variance is shift-invariant).  Returns float64 host
-    values; callers apply their own ddof correction."""
+    spread; the variance is shift-invariant).  With ``mesh``, ``xs`` and
+    ``w`` are ``shard_batch``'s and the pass is one aggregate over the
+    shards.  Returns float64 host values; callers apply their own ddof
+    correction."""
     pilot = np.asarray(pilot, np.float32)
     with full_f32():
-        shifted = xs - torch.from_numpy(pilot).to(xs.device)[None, :]
-        out = torch.cat([w @ shifted, w @ (shifted * shifted),
-                         w.sum().reshape(1)]).cpu().numpy()
+        if mesh is None:
+            out = _moments(xs, w, torch.from_numpy(pilot).to(xs.device))
+        else:
+            agg = make_tree_aggregate(_moments, mesh, replicated_args=(2,))
+            out = agg(xs, w, torch.from_numpy(pilot))
+        out = out.cpu().numpy()
     d = xs.shape[1]
     n = float(out[2 * d])
     mean_sh = out[:d].astype(np.float64) / max(n, 1e-300)
@@ -54,20 +72,26 @@ def standardization_moments(xs: torch.Tensor, w: torch.Tensor,
 
 
 class StandardScaler(_ScalerParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "StandardScalerModel":
         X = to_host(frame[self.getInputCol()]).astype(np.float32, copy=False)
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"]))
-        xs = xs.to(self.device)
-        w = torch.ones(X.shape[0], dtype=torch.float32, device=self.device)
-        n, mean, var_biased = standardization_moments(
-            xs, w, X[0] if X.shape[0] else np.zeros(X.shape[1])
-        )
+        pilot = X[0] if X.shape[0] else np.zeros(X.shape[1])
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.require(X, requirements=["C", "W"]))
+            xs = xs.to(self.device)
+            w = torch.ones(X.shape[0], dtype=torch.float32,
+                           device=self.device)
+        else:
+            xs, w = shard_batch(mesh, X)
+        n, mean, var_biased = standardization_moments(xs, w, pilot, mesh)
         # unbiased variance (Spark ddof=1)
         var = var_biased * n / max(n - 1, 1)
         std = np.sqrt(np.maximum(var, 0.0))

@@ -125,6 +125,7 @@ class FusedSegment(Transformer):
         self.uploads = 0  # arguments bound from the host
         self.device_binds = 0  # arguments bound as they were, on device
         self.downloads = 0  # outputs copied to the host
+        self.mesh_splits = 0  # dispatches split over a serve mesh
         # the roofline plane (SNTC_OBS_COST_ANALYSIS): per signature
         # repr, the counted cost and [seconds, invocations]
         self.cost_analyses: dict = {}
@@ -357,7 +358,32 @@ class FusedSegment(Transformer):
     def _launch(self, args, head, live, count: bool = False):
         """Every plan's ``apply`` and the head's packed program on the
         bound tensors: the segment's device work.  Returns the outputs
-        and, when ``count``, the FLOPs of their products (else 0)."""
+        and, when ``count``, the FLOPs of their products (else 0).
+
+        With a serve mesh of more than one shard
+        (``parallel.context.get_serve_mesh``), a batch whose rows divide
+        it is split into row blocks, one on each shard's device; the
+        blocks run the same segment, the head's parameters replicated on
+        each block's device (``replica_on``), and their outputs are
+        concatenated on the first shard's device.  Any other batch
+        dispatches unchanged, as in the JAX package (``_place_args``)."""
+        blocks = _serve_blocks(args)
+        if blocks is None:
+            return self._launch_one(args, head, live, count)
+        with self._lock:
+            self.mesh_splits += 1
+        parts = []
+        for b in blocks:
+            h = head
+            if h is not None and _concrete(b[0].device) != self.device:
+                h = head.replica_on(b[0].device)
+            parts.append(self._launch_one(b, h, live, count))
+        home = parts[0][0][0].device if parts[0][0] else None
+        outs = [torch.cat([p[0][j].to(home) for p in parts])
+                for j in range(len(parts[0][0]))]
+        return outs, sum(p[1] for p in parts)
+
+    def _launch_one(self, args, head, live, count: bool = False):
         env = dict(zip((n for n, _ in self._external), args))
         flops = 0.0
         for plan in self._plans:
@@ -372,6 +398,26 @@ class FusedSegment(Transformer):
                 flops += head.serve_flops(x.shape[0])
         outs.extend(env[w] for w in live)
         return outs, flops
+
+
+def _serve_blocks(args):
+    """The bound tensors split into one row block a serve-mesh shard,
+    each on its shard's device, or None when no serve mesh of more than
+    one shard is set or the rows do not divide it."""
+    from sntc_tpu_torch.parallel.context import get_serve_mesh
+    from sntc_tpu_torch.parallel.mesh import DATA_AXIS
+
+    mesh = get_serve_mesh()
+    if mesh is None or not args:
+        return None
+    size = int(mesh.shape.get(DATA_AXIS, 1))
+    n = int(args[0].shape[0])
+    if size <= 1 or n == 0 or n % size:
+        return None
+    per = n // size
+    devices = mesh.data_devices()
+    return [[a[s * per:(s + 1) * per].to(devices[s]) for a in args]
+            for s in range(size)]
 
 
 def _platform(device: torch.device):

@@ -16,6 +16,11 @@ equations' statistics (:func:`normal_stats`) are ``index_add_`` of the
 per-rating outer products in chunks of ``_CHUNK`` ratings, accumulated
 on the device (the JAX package brings each chunk's partials to the
 host); implicit mode adds the shared Gram ``YᵀY``, computed there too.
+With a ``mesh=`` of more than one shard the ratings are sharded once per
+fit (both sides' row and factor ids) and each half-step's statistics are
+one ``make_tree_aggregate``: every shard gathers the replicated factors
+of the other side for its ratings, masked by the padding weights, and
+the shards' partials are summed.
 Every row then solves at once: a batched Cholesky solve
 (:func:`solve_all`), or under ``nonnegative`` a batched projected
 cyclic coordinate descent (:func:`solve_all_nnls`) in which each row
@@ -33,6 +38,12 @@ from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 from sntc_tpu_torch.ops.lbfgs import full_f32
 
 _CHUNK = 250_000  # ratings per outer-product chunk (memory: _CHUNK·r² f32)
@@ -42,14 +53,16 @@ _NNLS_MAX_SWEEPS = 500
 
 def normal_stats(rows: torch.Tensor, other_idx: torch.Tensor,
                  other: torch.Tensor, ratings: torch.Tensor, n_rows: int,
-                 implicit: bool, alpha: float):
+                 implicit: bool, alpha: float, wm=None, gram: bool = True):
     """One side's normal equations on the device: ``(A [n, r, r], b [n,
     r], cnt [n])`` with, per rating of row ``u`` against factor ``v``,
 
     explicit:  ``A += v vᵀ``,        ``b += r·v``;
     implicit:  ``A += (c−1) v vᵀ``,  ``b += c·v``   (c = 1 + α·r),
 
-    plus ``YᵀY`` on every row in implicit mode."""
+    plus ``YᵀY`` on every row in implicit mode (unless ``gram`` is off:
+    a shard's partial leaves it to the reduced sum).  ``wm`` weighs each
+    rating (a shard's padding mask)."""
     r = other.shape[1]
     dev = other.device
     A = torch.zeros((n_rows, r, r), dtype=torch.float32, device=dev)
@@ -64,13 +77,18 @@ def normal_stats(rows: torch.Tensor, other_idx: torch.Tensor,
             rhs_w = 1.0 + alpha * rr
         else:
             scale, rhs_w = None, rr
+        one = torch.ones_like(rr)
+        if wm is not None:
+            m = wm[s:s + _CHUNK]
+            scale = m if scale is None else m * scale
+            rhs_w, one = m * rhs_w, m
         outer = fo[:, :, None] * fo[:, None, :]
         if scale is not None:
             outer = scale[:, None, None] * outer
         A.index_add_(0, rs, outer)
         b.index_add_(0, rs, rhs_w[:, None] * fo)
-        cnt.index_add_(0, rs, torch.ones_like(rr))
-    if implicit:
+        cnt.index_add_(0, rs, one)
+    if implicit and gram:
         # Hu-Koren: every row shares the full Gram YᵀY
         with full_f32():
             A += (other.t() @ other)[None, :, :]
@@ -148,9 +166,10 @@ class ALS(_AlsParams, Estimator):
     """Fits on ``device`` (default ``cuda``); the model recommends
     there."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "ALSModel":
         users = np.asarray(to_host(frame[self.getUserCol()])).astype(np.int64)
@@ -187,9 +206,34 @@ class ALS(_AlsParams, Estimator):
         solver = solve_all_nnls if self.getNonnegative() else solve_all
         reads = 0
 
+        mesh = fit_mesh(self.mesh)
+        if mesh is not None:
+            # the ratings sharded once; each side's aggregate built once
+            sharded = shard_batch(mesh, u.astype(np.int64),
+                                  i.astype(np.int64), ratings)
+            aggs = {}
+            for n_side in (n_u, n_i):
+                if n_side in aggs:
+                    continue
+
+                def part(rows, oidx, rr, wm, other, _n=n_side):
+                    return normal_stats(rows, oidx, other, rr, _n, implicit,
+                                        alpha, wm=wm, gram=False)
+
+                aggs[n_side] = make_tree_aggregate(
+                    part, mesh, replicated_args=(4,), op="als.normal")
+
         def half_step(rows, other_idx, other, n_rows):
-            A, b, cnt = normal_stats(rows, other_idx, other, r_d, n_rows,
-                                     implicit, alpha)
+            if mesh is None:
+                A, b, cnt = normal_stats(rows, other_idx, other, r_d,
+                                         n_rows, implicit, alpha)
+            else:
+                su, si, sr, sw = sharded
+                rs, oi = (su, si) if rows is u_d else (si, su)
+                A, b, cnt = aggs[n_rows](rs, oi, sr, sw, other)
+                if implicit:
+                    with full_f32():
+                        A = A + (other.t() @ other)[None, :, :]
             # ALS-WR: λ scaled by the row's rating count; rows with no
             # ratings keep a bare λ ridge (and solve to 0)
             x, r = solver(A, b, lam * cnt.clamp_min(1.0))

@@ -128,6 +128,22 @@ class DeviceHeadMixin:
             return X.to(device=self.device, dtype=torch.float32)
         return upload(np.require(X, np.float32, ["C", "W"]), self.device)
 
+    def replica_on(self, device):
+        """This head with its parameters on ``device``, built once a
+        device through its own save/load pair and sharing this head's
+        params (a threshold set here holds there): a serve mesh's row
+        block runs on its shard's device."""
+        device = torch.device(device)
+        replicas = self.__dict__.setdefault("_replicas", {})
+        rep = replicas.get(device)
+        if rep is None:
+            extra, arrays = self._save_extra()
+            rep = type(self)._load_from(self.paramValues(), extra, arrays,
+                                        device)
+            rep._paramMap = self._paramMap
+            rep = replicas.setdefault(device, rep)
+        return rep
+
 
 class ClassificationModel(ClassifierParams, Model):
     """Base fitted model: margins -> probability -> prediction columns."""

@@ -29,6 +29,7 @@ from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.models.kmeans import (
     _normalize_rows,
     _sq_dists,
+    local_lloyd_fns,
     lloyd,
     vector_rows,
 )
@@ -98,7 +99,8 @@ class BisectingKMeans(_BisectingParams, Estimator):
             c0 = np.stack([c - noise, c + noise]).astype(np.float32)
             ws = torch.from_numpy(mask.astype(np.float32)).to(dev)
             new_centers, _, _, r = lloyd(
-                xs, ws, torch.from_numpy(c0).to(dev), 1e-4,
+                *local_lloyd_fns(xs, ws, cosine),
+                torch.from_numpy(c0).to(dev), 1e-4,
                 max_iter=int(self.getMaxIter()), cosine=cosine,
             )
             new_centers = new_centers.cpu().numpy()

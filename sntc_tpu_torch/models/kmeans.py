@@ -12,9 +12,15 @@ draws from the same seed: both packages start from the same centers).
 Lloyd's loop (:func:`lloyd`) runs on the device in full float32: one
 ``[N, k]`` distance product, the argmin, and the new centers as a
 one-hot product; empty clusters keep their centers, cosine renormalises
-them.  The JAX package runs the loop as one XLA ``while_loop``; here it
+them.  The loop is the same with or without a mesh; only where an
+iteration's sums, counts and cost come from differs.  The JAX package runs the loop as one XLA ``while_loop``; here it
 is a Python loop that reads the card once an iteration, for the squared
 shift it tests against tol².  The cost is computed once, after the loop.
+With a ``mesh=`` of more than one shard, each iteration's sums and
+counts are one ``make_tree_aggregate`` over the sharded rows (op
+``kmeans.lloyd``) and the cost another (``kmeans.cost``): the port
+counts a ``kmeans.lloyd`` dispatch an iteration, where the JAX package,
+whose whole loop is one program, counts one a fit.
 ``KMeansModel.predict`` runs in float64: in numpy on a numpy column (the
 JAX package's host code), on the tensor's device on a tensor column.
 """
@@ -27,7 +33,12 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 from sntc_tpu_torch.models.summary import TrainingSummary
 from sntc_tpu_torch.ops.lbfgs import full_f32
 
@@ -37,33 +48,69 @@ def _normalize_rows(X, eps=1e-12):
     return X / np.maximum(n, eps)
 
 
-def lloyd(xs: torch.Tensor, ws: torch.Tensor, centers0: torch.Tensor,
-          tol: float, *, max_iter: int, cosine: bool):
-    """Lloyd's loop over the rows ``xs [N, D]`` weighted by ``ws [N]``
-    (weight 0 leaves a row out), from ``centers0 [k, D]``; cosine rows
-    and centers arrive L2-normalised.  Returns ``(centers, iterations,
-    cost, host_reads)``, the centers and the cost on the device."""
-    k = centers0.shape[0]
+def _distances(xs, c, cosine, xn=None):
+    """``[N, k]`` distances of the rows ``xs`` to the centers ``c``:
+    ‖x−c‖² = ‖x‖² − 2 x·cᵀ + ‖c‖² (``xn`` = ‖x‖², when precomputed), the
+    cross term a product; ``1 − x·cᵀ`` on normalised cosine rows."""
+    cross = xs @ c.t()
+    if cosine:
+        return 1.0 - cross
+    if xn is None:
+        xn = (xs * xs).sum(dim=1)
+    return xn[:, None] - 2.0 * cross + (c * c).sum(dim=1)[None, :]
+
+
+def _assign_sums(xs, ws, c, cosine, xn=None):
+    """One Lloyd step's ``(sums [k, D], counts [k])``: every row's
+    weight on its nearest center."""
+    assign = _distances(xs, c, cosine, xn).argmin(dim=1)
+    oh = torch.nn.functional.one_hot(assign, c.shape[0]).to(xs.dtype)
+    oh = oh * ws[:, None]
+    return oh.t() @ xs, oh.sum(dim=0)
+
+
+def _cost(xs, ws, c, cosine, xn=None):
+    return (ws * _distances(xs, c, cosine, xn).min(dim=1).values).sum()
+
+
+def local_lloyd_fns(xs: torch.Tensor, ws: torch.Tensor, cosine: bool):
+    """:func:`lloyd`'s ``(sums_fn, cost_fn)`` over the rows ``xs [N, D]``
+    weighted by ``ws [N]`` (weight 0 leaves a row out) on one device."""
+    with full_f32():
+        xn = None if cosine else (xs * xs).sum(dim=1)
+    return (lambda c: _assign_sums(xs, ws, c, cosine, xn),
+            lambda c: _cost(xs, ws, c, cosine, xn))
+
+
+def mesh_lloyd_fns(mesh, xs, ws, cosine: bool):
+    """:func:`lloyd`'s ``(sums_fn, cost_fn)`` over ``shard_batch``'s rows
+    ``xs`` and weights ``ws``: each call one aggregate over the shards
+    (ops ``kmeans.lloyd`` and ``kmeans.cost``), the centers replicated."""
+    sums_agg = make_tree_aggregate(
+        lambda x, w, c: _assign_sums(x, w, c, cosine), mesh,
+        replicated_args=(2,), op="kmeans.lloyd")
+    cost_agg = make_tree_aggregate(
+        lambda x, w, c: _cost(x, w, c, cosine), mesh,
+        replicated_args=(2,), op="kmeans.cost")
+    return (lambda c: sums_agg(xs, ws, c), lambda c: cost_agg(xs, ws, c))
+
+
+def lloyd(sums_fn, cost_fn, centers0: torch.Tensor, tol: float, *,
+          max_iter: int, cosine: bool):
+    """Lloyd's loop from ``centers0 [k, D]`` (cosine rows and centers
+    arrive L2-normalised): ``sums_fn(centers)`` gives an iteration's
+    ``(sums, counts)``, ``cost_fn(centers)`` the weighted cost, both from
+    :func:`local_lloyd_fns` or :func:`mesh_lloyd_fns`.  Returns
+    ``(centers, iterations, cost, host_reads)``, the centers and the
+    cost on the device."""
     # Spark's isCenterConverged: movement <= tol, i.e. SQUARED <= tol²,
     # in float32 as the JAX loop compares it
     tol2 = float(np.float32(tol) * np.float32(tol))
     with full_f32():
-        xn = None if cosine else (xs * xs).sum(dim=1)
-
-        def distances(c):
-            # ‖x−c‖² = ‖x‖² − 2 x·cᵀ + ‖c‖²; the cross term is a product
-            cross = xs @ c.t()
-            if cosine:
-                return 1.0 - cross  # normalised rows: cosine distance
-            return xn[:, None] - 2.0 * cross + (c * c).sum(dim=1)[None, :]
-
         centers, it, reads = centers0, 0, 0
         while it < max_iter:
-            assign = distances(centers).argmin(dim=1)
-            oh = torch.nn.functional.one_hot(assign, k).to(xs.dtype)
-            oh = oh * ws[:, None]
-            counts = oh.sum(dim=0)
-            new = (oh.t() @ xs) / counts.clamp_min(1e-12)[:, None]
+            sums, counts = sums_fn(centers)
+            new = sums / counts.clamp_min(1e-12)[:, None]
             # empty clusters keep their previous center (Spark)
             new = torch.where((counts > 0)[:, None], new, centers)
             if cosine:
@@ -75,7 +122,7 @@ def lloyd(xs: torch.Tensor, ws: torch.Tensor, centers0: torch.Tensor,
             if float(shift) <= tol2:
                 break
         # the cost once, after the loop
-        cost = (ws * distances(centers).min(dim=1).values).sum()
+        cost = cost_fn(centers)
     return centers, it, cost, reads
 
 
@@ -182,11 +229,13 @@ class _KMeansParams:
 
 
 class KMeans(_KMeansParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "KMeansModel":
         X = vector_rows(frame, self.getFeaturesCol())
@@ -208,11 +257,18 @@ class KMeans(_KMeansParams, Estimator):
             ).astype(np.float32)
 
         dev = self.device
-        xs = torch.from_numpy(np.ascontiguousarray(Xw)).to(dev)
-        ws = torch.ones(xs.shape[0], dtype=torch.float32, device=dev)
+        c0 = torch.from_numpy(np.ascontiguousarray(centers0)).to(dev)
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(Xw)).to(dev)
+            ws = torch.ones(xs.shape[0], dtype=torch.float32, device=dev)
+            fns = local_lloyd_fns(xs, ws, cosine)
+        else:
+            xs, ws = shard_batch(mesh, np.ascontiguousarray(Xw))
+            fns = mesh_lloyd_fns(mesh, xs, ws, cosine)
         centers, iters, cost, reads = lloyd(
-            xs, ws, torch.from_numpy(np.ascontiguousarray(centers0)).to(dev),
-            self.getTol(), max_iter=int(self.getMaxIter()), cosine=cosine,
+            *fns, c0, self.getTol(), max_iter=int(self.getMaxIter()),
+            cosine=cosine,
         )
         # centers and cost come back in one read
         out = torch.cat([centers.flatten(), cost.reshape(1)]).cpu().numpy()

@@ -15,7 +15,12 @@ Counterpart of ``sntc_tpu/models/logistic_regression.py`` (Spark's
 
 The fit is one summarizer pass (moments and class counts) and then the
 LBFGS/OWLQN loop of :mod:`sntc_tpu_torch.ops.lbfgs`, with the rows on
-the estimator's device and every product in full float32.  The class
+the estimator's device and every product in full float32.  With a
+``mesh=`` of more than one shard the single fit shards its rows once:
+the summarizer is one ``make_tree_aggregate`` and the objective the sum
+of the shards' ``(Σ w·loss, gradient, Σw)``
+(``mlp.sharded_value_and_grad``), the penalty added once; the lane
+fits below run on the mesh's first device.  The class
 counts are a one-hot product, not a scatter of atomics, so the fit is
 the same run to run.  The summarizer takes raw Σx² (not pilot-shifted,
 unlike the scaler), as the JAX package does.
@@ -56,7 +61,19 @@ from sntc_tpu_torch.models.base import (
     DeviceHeadMixin,
     pack_serve_outputs,
 )
-from sntc_tpu_torch.models.mlp import value_and_grad_fn
+from sntc_tpu_torch.models.mlp import (
+    local_blocks,
+    sharded_value_and_grad,
+    value_and_grad_fn,
+)
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+    shard_weights,
+)
 from sntc_tpu_torch.models.summary import (
     BinaryClassificationTrainingSummary,
     ClassificationTrainingSummary,
@@ -69,13 +86,24 @@ from sntc_tpu_torch.ops.lbfgs import (
 )
 
 
+def _lr_summary_vec(xs, ys, ws, k):
+    onehot = torch.nn.functional.one_hot(ys, k).to(ws.dtype)
+    return torch.cat([ws @ xs, ws @ (xs * xs), ws.sum().reshape(1),
+                      ws @ onehot])
+
+
 def _lr_summarize(xs, ys, ws, k):
     """Σw·x, Σw·x², Σw and the per-class Σw in one pass, as float64
-    host arrays; the class sums are ``ws @ one_hot(ys)``."""
-    onehot = torch.nn.functional.one_hot(ys, k).to(ws.dtype)
+    host arrays; the class sums are ``ws @ one_hot(ys)``.  Sharded rows
+    sum the shards' passes."""
+    if isinstance(xs, ShardedArray):
+        vec = make_tree_aggregate(
+            lambda x, y, w: _lr_summary_vec(x, y, w, k), xs.mesh,
+            op="lr.summarize")(xs, ys, ws)
+    else:
+        vec = _lr_summary_vec(xs, ys, ws, k)
     d = xs.shape[1]
-    out = torch.cat([ws @ xs, ws @ (xs * xs), ws.sum().reshape(1),
-                     ws @ onehot]).cpu().numpy().astype(np.float64)
+    out = vec.cpu().numpy().astype(np.float64)
     return out[:d], out[d:2 * d], out[2 * d], out[2 * d + 1:]
 
 
@@ -129,20 +157,42 @@ def _lr_optimize(
     """The whole LBFGS/OWLQN fit over the rows on their device."""
     d = xs.shape[1]
     n_coef = d if binomial else d * k
-    w_sum = torch.sum(ws[None], dim=1)
+    if isinstance(xs, ShardedArray):
+        zero, one = torch.zeros_like(l2).reshape(1), torch.ones_like(l2)
 
-    def loss_fn(theta):
-        # the lane objective with one lane: the single fit and the lane
-        # fits evaluate the same products in the same layout
-        return _lr_lane_losses(
-            theta[None], xs, ys, ws[None], inv_std[None], l2.reshape(1),
-            pen_l2[None], w_sum,
-            binomial=binomial, fit_intercept=fit_intercept, k=k,
-            n_coef=n_coef,
-        )[0]
+        def data_fn(theta, x, y, w):
+            # a shard's Σ w·loss: the lane objective without its penalty
+            # and its division by Σw
+            return _lr_lane_losses(
+                theta[None], x, y, w[None], inv_std[None].to(x.device),
+                zero.to(x.device), pen_l2[None].to(x.device),
+                one.to(x.device).reshape(1),
+                binomial=binomial, fit_intercept=fit_intercept, k=k,
+                n_coef=n_coef,
+            )[0]
+
+        def penalty(theta):
+            return 0.5 * l2 * torch.sum(pen_l2 * theta[:n_coef] ** 2)
+
+        value_and_grad = sharded_value_and_grad(
+            xs.mesh, data_fn, local_blocks(xs, ys, ws), penalty)
+    else:
+        w_sum = torch.sum(ws[None], dim=1)
+
+        def loss_fn(theta):
+            # the lane objective with one lane: the single fit and the
+            # lane fits evaluate the same products in the same layout
+            return _lr_lane_losses(
+                theta[None], xs, ys, ws[None], inv_std[None], l2.reshape(1),
+                pen_l2[None], w_sum,
+                binomial=binomial, fit_intercept=fit_intercept, k=k,
+                n_coef=n_coef,
+            )[0]
+
+        value_and_grad = value_and_grad_fn(loss_fn)
 
     return minimize_lbfgs(
-        value_and_grad_fn(loss_fn),
+        value_and_grad,
         theta0,
         max_iter=max_iter,
         tol=tol,
@@ -292,12 +342,14 @@ def _bounds_digest(lb: np.ndarray, ub: np.ndarray) -> str:
 
 
 class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    coefficients live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    coefficients live on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     # ---- lane fits (CrossValidator / TrainValidationSplit / OneVsRest) ----
 
@@ -604,15 +656,21 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         inv_std = np.divide(1.0, std, out=np.zeros_like(std), where=std > 0)
         return std, inv_std, np.maximum(np.asarray(cc, np.float64), 1e-12)
 
-    def _prep_data(self, frame: Frame) -> dict:
-        """Upload the rows to the estimator's device and summarize them."""
+    def _prep_data(self, frame: Frame, mesh=None) -> dict:
+        """Upload the rows to the estimator's device (or shard them
+        over ``mesh``) and summarize them."""
         X, y, w = self._extract(frame)
         n, d = X.shape
         binomial, k = self._resolve_family(y, n)
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        if mesh is None:
+            xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(
+                dev)
+            ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+            ws = torch.from_numpy(w).to(dev)
+        else:
+            xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
+            ws = shard_weights(mesh, w, xs.shape[0])
         std, inv_std, class_counts = self._moments_to_stats(
             *_lr_summarize(xs, ys, ws, k)
         )
@@ -737,7 +795,7 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
 
     def _fit(self, frame: Frame) -> "LogisticRegressionModel":
         with full_f32():
-            prep = self._prep_data(frame)
+            prep = self._prep_data(frame, fit_mesh(self.mesh))
         xs, ys, ws = prep["xs"], prep["ys"], prep["ws"]
         n, d, k = prep["n"], prep["d"], prep["k"]
         binomial = prep["binomial"]

@@ -12,6 +12,10 @@ Spark.
 The fit keeps the rows on the estimator's device; every
 ``value_and_grad`` is the forward chain of ``torch.matmul`` and its
 autograd backward, in full float32 (:func:`~sntc_tpu_torch.ops.lbfgs.full_f32`).
+With a ``mesh=`` of more than one shard the rows are sharded once and
+the objective is the sum of the shards' ``(Σ w·loss, its gradient)``
+over ``Σw`` (:func:`sharded_value_and_grad`), ``all_reduce``-d once an
+evaluation when the mesh spans processes.
 ``computeDtype="bfloat16"`` rounds each product's inputs to bfloat16 and
 multiplies in float32 — the JAX package's bf16 inputs with
 ``preferred_element_type=f32``, exactly: a product of two bf16 values is
@@ -32,6 +36,14 @@ import torch
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    shard_batch,
+    shard_weights,
+)
+from sntc_tpu_torch.parallel.mesh import reduce_at
 from sntc_tpu_torch.obs.cost import matmul_flops
 from sntc_tpu_torch.models.base import (
     CheckpointParams,
@@ -94,11 +106,55 @@ def value_and_grad_fn(loss_fn):
     return value_and_grad
 
 
-def _mlp_optimize(
-    xs, ys, ws, theta0, init_state, iter_limit,
-    *, layers, max_iter, tol, solver, step_size, resume=False,
-    compute_dtype=torch.float32,
-):
+def sharded_value_and_grad(mesh, data_fn, shards, penalty=None):
+    """``theta -> (f, ∇f)`` of ``f = Σ_s data_fn(θ, *shard_s) / Σw +
+    penalty(θ)`` over sharded rows: ``shards`` holds each local shard's
+    argument blocks, its weights last (zero on the padding).  Every
+    shard's term and gradient come from autograd on the shard's device;
+    the ``[value, grad, Σw]`` rows are summed in shard order (one
+    ``all_reduce`` across processes), then divided by ``Σw``."""
+
+    def value_and_grad(theta):
+        parts = []
+        for args in shards:
+            t = theta.detach().to(args[0].device).requires_grad_(True)
+            with torch.enable_grad():
+                v = data_fn(t, *args)
+                (g,) = torch.autograd.grad(v, t)
+            parts.append(torch.cat([v.detach().reshape(1), g,
+                                    args[-1].sum().reshape(1)]))
+        tot = reduce_at(parts, mesh=mesh)
+        w_sum = tot[-1]
+        v, g = tot[0] / w_sum, tot[1:-1] / w_sum
+        if penalty is not None:
+            t = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                p = penalty(t)
+                (gp,) = torch.autograd.grad(p, t)
+            v, g = v + p.detach(), g + gp
+        return v, g
+
+    return value_and_grad
+
+
+def local_blocks(*arrays) -> list:
+    """The per-shard argument tuples of sharded arrays (one mesh)."""
+    return list(zip(*(a.blocks for a in arrays)))
+
+
+def mlp_value_and_grad(xs, ys, ws, layers, compute_dtype=torch.float32):
+    """The fit's objective ``theta -> (loss, grad)``: the weighted mean
+    cross-entropy over the rows on one device, or over
+    :class:`~sntc_tpu_torch.parallel.collectives.ShardedArray` rows
+    (:func:`sharded_value_and_grad`)."""
+    if isinstance(xs, ShardedArray):
+        def data_fn(theta, x, y, w):
+            logp = torch.log_softmax(_forward(theta, x, layers,
+                                              compute_dtype), dim=1)
+            return -torch.sum(w * torch.gather(logp, 1, y[:, None])[:, 0])
+
+        return sharded_value_and_grad(xs.mesh, data_fn,
+                                      local_blocks(xs, ys, ws))
     w_sum = torch.sum(ws)
 
     def loss_fn(theta):
@@ -107,7 +163,15 @@ def _mlp_optimize(
         picked = torch.gather(logp, 1, ys[:, None])[:, 0]
         return -torch.sum(ws * picked) / w_sum
 
-    value_and_grad = value_and_grad_fn(loss_fn)
+    return value_and_grad_fn(loss_fn)
+
+
+def _mlp_optimize(
+    xs, ys, ws, theta0, init_state, iter_limit,
+    *, layers, max_iter, tol, solver, step_size, resume=False,
+    compute_dtype=torch.float32,
+):
+    value_and_grad = mlp_value_and_grad(xs, ys, ws, layers, compute_dtype)
     if solver == "l-bfgs":
         return minimize_lbfgs(
             value_and_grad, theta0, max_iter=max_iter, tol=tol,
@@ -173,13 +237,15 @@ def glorot_init(layers: Tuple[int, ...], seed: int) -> np.ndarray:
 
 
 class MultilayerPerceptronClassifier(_MlpParams, CheckpointParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    weights live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    weights live on that device."""
 
-    def __init__(self, device="cuda", initialWeights: Optional[np.ndarray] = None,
-                 **kwargs):
+    def __init__(self, device=None, initialWeights: Optional[np.ndarray] = None,
+                 mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
         self._initial_weights = initialWeights
 
     def _fit(self, frame: Frame) -> "MultilayerPerceptronClassificationModel":
@@ -203,9 +269,15 @@ class MultilayerPerceptronClassifier(_MlpParams, CheckpointParams, ClassifierEst
             theta0 = glorot_init(layers, self.getSeed())
 
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(
+                dev)
+            ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+            ws = torch.from_numpy(w).to(dev)
+        else:
+            xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
+            ws = shard_weights(mesh, w, xs.shape[0])
         theta0_t = torch.from_numpy(theta0).to(dev)
         compute_dtype = getattr(torch, self.getComputeDtype())
 

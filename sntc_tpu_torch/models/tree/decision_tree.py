@@ -27,6 +27,7 @@ from sntc_tpu_torch.models.base import (
     ClassifierEstimator,
     pack_serve_outputs,
 )
+from sntc_tpu_torch.parallel.collectives import fit_device, fit_mesh
 from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestDeviceMixin,
@@ -34,6 +35,7 @@ from sntc_tpu_torch.models.tree.grower import (
     RegressionForestMixin,
     extract_regression,
     grow_forest,
+    layout_rows,
     validate_forest,
 )
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
@@ -41,15 +43,20 @@ from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
 
 def _grow_single_tree(estimator, X: np.ndarray, y: np.ndarray,
                       w: np.ndarray, device, impurity: str) -> Forest:
-    """Bin on ``device`` and grow one tree over every feature: from the
+    """Bin on ``device`` (or over the estimator's mesh) and grow one
+    tree over every feature: from the
     one-hot class stats × row weight, or for ``variance`` from the
     regression stats ``[w, wy, wy²]`` of the float targets ``y``."""
     n, F = X.shape
     n_bins = estimator.getMaxBins()
     edges = quantile_bin_edges(X, max_bins=n_bins, seed=estimator.getSeed())
-    binned_t = bin_features(
-        torch.from_numpy(X).to(device), torch.from_numpy(edges).to(device)
-    ).t()
+    mesh = fit_mesh(estimator.mesh)
+    if mesh is None:
+        binned_t = bin_features(
+            torch.from_numpy(X).to(device), torch.from_numpy(edges).to(device)
+        ).t()
+    else:
+        binned_t = layout_rows(mesh, X, edges)
     wd = torch.from_numpy(w).to(device)
     if impurity == "variance":
         yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
@@ -104,12 +111,14 @@ class _DtClassifierParams(_SingleTreeParams):
 
 
 class DecisionTreeClassifier(_DtClassifierParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    tree lives on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    tree lives on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "DecisionTreeClassificationModel":
         X, y, w = self._extract(frame)
@@ -187,12 +196,14 @@ class _DtRegressorParams(_SingleTreeParams):
 
 
 class DecisionTreeRegressor(_DtRegressorParams, Estimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    tree lives on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    tree lives on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "DecisionTreeRegressionModel":
         X, y = extract_regression(self, frame)

@@ -37,10 +37,12 @@ from sntc_tpu_torch.models.base import (
     ClassifierEstimator,
     pack_serve_outputs,
 )
+from sntc_tpu_torch.parallel.collectives import fit_device, fit_mesh
 from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestDeviceMixin,
     grow_forest,
+    layout_rows,
     resolve_feature_subset_k,
     validate_forest,
 )
@@ -94,7 +96,13 @@ def _prepare_boosting(classifier: "GBTClassifier", X: np.ndarray, w, device):
 
     edges = quantile_bin_edges(X, max_bins=n_bins, seed=seed)
     Xd = torch.from_numpy(np.ascontiguousarray(X)).to(device)
-    binned_t = bin_features(Xd, torch.from_numpy(edges).to(device)).t()
+    mesh = fit_mesh(classifier.mesh)
+    if mesh is None:
+        binned_t = bin_features(Xd, torch.from_numpy(edges).to(device)).t()
+    else:
+        # the margins stay whole on the first device; the histograms
+        # run per shard on rows laid out once
+        binned_t = layout_rows(mesh, X, edges)
     ws = torch.from_numpy(np.asarray(w, np.float32)).to(device)
 
     subset_k = resolve_feature_subset_k(
@@ -213,12 +221,14 @@ def _stack_forests(forests, c: int, max_depth: int) -> Forest:
 
 
 class GBTClassifier(_GbtParams, CheckpointParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    trees live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    trees live on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "GBTClassificationModel":
         # here, not at the top: mlio's package imports the models

@@ -27,6 +27,7 @@ from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import fit_device
 from sntc_tpu_torch.models.base import CheckpointParams
 from sntc_tpu_torch.models.tree.gbt import (
     _ValidationTracker,
@@ -86,12 +87,14 @@ class _GbtRegParams(_TreeEnsembleParams):
 
 
 class GBTRegressor(_GbtRegParams, CheckpointParams, Estimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    trees live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    trees live on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "GBTRegressionModel":
         # here, not at the top: mlio's package imports the models

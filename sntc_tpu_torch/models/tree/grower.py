@@ -16,6 +16,15 @@ device, and rows route to their children by bin id.  The depth loop is a
 Python loop; decisions stay on the device and the heaps come back to the
 host once.
 
+With a mesh (a :class:`RowLayout` in place of ``binned_t``), the rows
+are laid out once per fit as one contiguous ``[F, n_shard]`` block a
+shard on the shard's device; per node group each shard's block goes
+through its own ``tree_hist`` call, and the shards' histograms are
+summed before the split search (and sibling subtraction), as the JAX
+grower runs the Pallas kernel per shard and then sums them.  Rows route
+to their children on their own shard.  The padded rows weigh 0, so on
+integer-valued stats every mesh size grows the same trees.
+
 Random draws come from the host: the bagging weights ``[T, N]`` and, per
 level, the feature-subset uniforms ``[T, nodes, F]`` are drawn with
 numpy from the estimator's seed, so a fit is the same on the card and on
@@ -39,6 +48,14 @@ import torch
 from sntc_tpu_torch.core.frame import to_host
 from sntc_tpu_torch.kernels.histogram import tree_hist
 from sntc_tpu_torch.models.base import DeviceHeadMixin
+from sntc_tpu_torch.ops.binning import bin_features
+from sntc_tpu_torch.parallel.collectives import place_rows, shard_batch
+from sntc_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    payload_nbytes,
+    record_collective,
+    reduce_at,
+)
 from sntc_tpu_torch.utils.profiling import active_ledgers, record_movement
 
 # the level working set (histogram + cumsum + left/right + gains, ~5x the
@@ -236,6 +253,41 @@ class RegressionForestMixin(ForestDeviceMixin):
 # -- growing -----------------------------------------------------------------
 
 
+class RowLayout(NamedTuple):
+    """A fit's rows laid out over a mesh: ``binned[j]`` is the ``j``-th
+    local shard's contiguous ``[F, n_shard]`` bin ids on its device,
+    ``n`` the real rows and ``n_pad`` the padded count
+    (``parallel.collectives.pad_rows``)."""
+
+    mesh: object
+    binned: list
+    n: int
+    n_pad: int
+
+    def split(self, a: torch.Tensor, axis: int = -1) -> list:
+        """The local shards' blocks of a full-length tensor whose
+        ``axis`` runs over the ``n`` rows, padded with zeros (weight 0
+        rows) and each copied once, contiguous, to its shard's device."""
+        axis = axis % a.ndim
+        if self.n_pad != self.n:
+            shape = list(a.shape)
+            shape[axis] = self.n_pad - self.n
+            a = torch.cat([a, a.new_zeros(shape)], dim=axis)
+        per = self.n_pad // int(self.mesh.shape[DATA_AXIS])
+        devices = self.mesh.data_devices()
+        return [a.narrow(axis, s * per, per).to(devices[s]).contiguous()
+                for s in self.mesh.local_shards()]
+
+
+def layout_rows(mesh, X: np.ndarray, edges: np.ndarray) -> RowLayout:
+    """Shard ``X [N, F]`` over ``mesh`` (``shard_batch``'s layout) and
+    bin each shard's block on its device, once."""
+    xs, _w = shard_batch(mesh, np.ascontiguousarray(X, np.float32))
+    e = torch.from_numpy(np.ascontiguousarray(edges, np.float32))
+    binned = [bin_features(b, e.to(b.device)).t() for b in xs.blocks]
+    return RowLayout(mesh, binned, int(X.shape[0]), int(xs.shape[0]))
+
+
 def make_bagging_weights(rng: np.random.Generator, bootstrap: bool,
                          rate: float, T: int, n: int) -> np.ndarray:
     """Per-tree row weights ``[T, n]`` float32 on the host: Poisson(rate)
@@ -382,22 +434,28 @@ def _eval_from_hist(hist, fmask, min_instances: float, *, impurity: str):
     }
 
 
-def _group_hist(binned_t, row_stats, w_trees, ids, *, g_eff: int,
-                n_bins: int) -> torch.Tensor:
+def _group_hist(binned, row_stats, w_trees, ids, *, g_eff: int,
+                n_bins: int, mesh=None) -> torch.Tensor:
     """Histogram ``[T, g_eff, F, B, S]`` over group-local node ids
-    ``[T, N]`` (-1 = not in the group): one ``tree_hist`` call for all
-    trees, shared ``[N, S]`` or per-tree ``[T, N, S]`` row stats, the
-    bagging weights applied inside."""
-    F = binned_t.shape[0]
-    T, S = ids.shape[0], row_stats.shape[-1]
-    h = tree_hist(binned_t, ids, row_stats, w_trees, n_nodes=g_eff,
-                  n_bins=n_bins)  # [T, F, g_eff * B, S]
+    ``[T, N]`` (-1 = not in the group): one ``tree_hist`` call a shard
+    for all trees, shared ``[N, S]`` or per-tree ``[T, N, S]`` row
+    stats, the bagging weights applied inside; the shards' histograms
+    summed in shard order (and across processes)."""
+    F = binned[0].shape[0]
+    T, S = ids[0].shape[0], row_stats[0].shape[-1]
+    hs = [tree_hist(b, i, st, w, n_nodes=g_eff, n_bins=n_bins)
+          for b, i, st, w in zip(binned, ids, row_stats, w_trees)]
+    h = reduce_at(hs, mesh=mesh)  # [T, F, g_eff * B, S]
+    if mesh is not None:
+        record_collective("tree.histogram", DATA_AXIS,
+                          int(mesh.shape[DATA_AXIS]), payload_nbytes(h))
     return h.view(T, F, g_eff, n_bins, S).permute(0, 2, 1, 3, 4)
 
 
-def _eval_node_group(binned_t, row_stats, w_trees, node_idx, fmask,
+def _eval_node_group(binned, row_stats, w_trees, node_idx, fmask,
                      min_instances, parent_hist, *, lo: int, g: int,
-                     n_bins: int, impurity: str, keep_hist: bool):
+                     n_bins: int, impurity: str, keep_hist: bool,
+                     mesh=None):
     """Histogram + best-split evaluation for the ``g`` nodes of a level
     starting at level-local id ``lo``; rows of other nodes count as
     inactive.
@@ -409,12 +467,12 @@ def _eval_node_group(binned_t, row_stats, w_trees, node_idx, fmask,
     Children of parents that did not split derive garbage (parent − 0),
     masked before any heap write; no row routes there."""
     if parent_hist is not None and g >= 2:
-        ids_even = torch.where(
-            (node_idx >= lo) & (node_idx < lo + g) & ((node_idx & 1) == 0),
-            (node_idx - lo) >> 1, -1,
-        ).to(torch.int32)
-        h_even = _group_hist(binned_t, row_stats, w_trees, ids_even,
-                             g_eff=g // 2, n_bins=n_bins)
+        ids_even = [torch.where(
+            (ni >= lo) & (ni < lo + g) & ((ni & 1) == 0),
+            (ni - lo) >> 1, -1,
+        ).to(torch.int32) for ni in node_idx]
+        h_even = _group_hist(binned, row_stats, w_trees, ids_even,
+                             g_eff=g // 2, n_bins=n_bins, mesh=mesh)
         h_odd = parent_hist[:, lo // 2: lo // 2 + g // 2] - h_even
         if impurity in ("gini", "entropy"):
             # a true-zero sibling cell must not surface as a tiny
@@ -423,31 +481,32 @@ def _eval_node_group(binned_t, row_stats, w_trees, node_idx, fmask,
         T, _, F, _, S = h_even.shape
         hist = torch.stack([h_even, h_odd], dim=2).reshape(T, g, F, n_bins, S)
     else:
-        ids = torch.where(
-            (node_idx >= lo) & (node_idx < lo + g), node_idx - lo, -1
-        ).to(torch.int32)
-        hist = _group_hist(binned_t, row_stats, w_trees, ids, g_eff=g,
-                           n_bins=n_bins)
+        ids = [torch.where(
+            (ni >= lo) & (ni < lo + g), ni - lo, -1
+        ).to(torch.int32) for ni in node_idx]
+        hist = _group_hist(binned, row_stats, w_trees, ids, g_eff=g,
+                           n_bins=n_bins, mesh=mesh)
     out = _eval_from_hist(hist, fmask, min_instances, impurity=impurity)
     if keep_hist:
         out["hist"] = hist
     return out
 
 
-def _level(binned_t, row_stats, w_trees, node_idx, fmask, min_instances,
+def _level(binned, row_stats, w_trees, node_idx, fmask, min_instances,
            min_info_gain, parent_hist, *, n_nodes: int, n_bins: int,
-           impurity: str, group: int, route: bool, keep_hist: bool):
+           impurity: str, group: int, route: bool, keep_hist: bool,
+           mesh=None):
     """One level: histogram + split evaluation in node groups of at most
     ``group`` nodes, then (unless ``route`` is off, at the last level)
-    every row routed to its child by bin id."""
+    every shard's rows routed to their children by bin id."""
     outs = []
     for lo in range(0, n_nodes, group):
         g = min(group, n_nodes)
         outs.append(_eval_node_group(
-            binned_t, row_stats, w_trees, node_idx,
+            binned, row_stats, w_trees, node_idx,
             None if fmask is None else fmask[:, lo:lo + g],
             min_instances, parent_hist, lo=lo, g=g, n_bins=n_bins,
-            impurity=impurity, keep_hist=keep_hist,
+            impurity=impurity, keep_hist=keep_hist, mesh=mesh,
         ))
     out = (outs[0] if len(outs) == 1
            else {k: torch.cat([o[k] for o in outs], dim=1) for k in outs[0]})
@@ -460,20 +519,24 @@ def _level(binned_t, row_stats, w_trees, node_idx, fmask, min_instances,
     out["do_split"] = do_split
 
     if route:
-        idx = node_idx.clamp_min(0).long()  # [T, N]
-        splits = do_split.gather(1, idx)
-        feats = out["best_feat"].gather(1, idx)
-        bins_thr = out["best_bin"].gather(1, idx)
-        row_bins = binned_t.gather(0, feats)  # binned_t[feats[t, n], n]
-        child = 2 * idx + (row_bins > bins_thr).long()
-        out["new_node_idx"] = torch.where(
-            (node_idx >= 0) & splits, child, -1
-        ).to(torch.int32)
+        new_idx = []
+        for b, ni in zip(binned, node_idx):
+            dev = ni.device
+            idx = ni.clamp_min(0).long()  # [T, N]
+            splits = do_split.to(dev).gather(1, idx)
+            feats = out["best_feat"].to(dev).gather(1, idx)
+            bins_thr = out["best_bin"].to(dev).gather(1, idx)
+            row_bins = b.gather(0, feats)  # b[feats[t, n], n]
+            child = 2 * idx + (row_bins > bins_thr).long()
+            new_idx.append(torch.where(
+                (ni >= 0) & splits, child, -1
+            ).to(torch.int32))
+        out["new_node_idx"] = new_idx
     return out
 
 
 def grow_forest(
-    binned_t: torch.Tensor,  # [F, N] int32 bin ids
+    binned_t,  # [F, N] int32 bin ids, or a RowLayout over a mesh
     row_stats: torch.Tensor,  # [N, S] shared or [T, N, S] per-tree f32
     w_trees: torch.Tensor,  # [T, N] f32 bagging weights
     edges: np.ndarray,  # [F, B-1] host bin thresholds
@@ -495,21 +558,35 @@ def grow_forest(
     one-vs-rest boosting fit, where tree ``t`` is class ``t``'s binary
     problem over the same binned features).
 
+    ``binned_t`` may be a :class:`RowLayout` (:func:`layout_rows`):
+    the fit then runs over its mesh, ``row_stats`` and ``w_trees``
+    (full-length, on the first shard's device) split by the layout.
+
     ``rng`` draws the per-level feature-subset uniforms (needed when
     ``subset_k < F``).  ``sibling`` turns sibling-histogram subtraction
     on or off; by default it is on where the histograms run on the CUDA
     kernel, whose cost grows with the node-axis width it halves, and off
     on the CPU, where the plain version's cost does not depend on it."""
-    F, n = binned_t.shape
     T, S = w_trees.shape[0], row_stats.shape[-1]
-    dev = binned_t.device
+    if isinstance(binned_t, RowLayout):
+        layout, mesh = binned_t, binned_t.mesh
+        binned = list(layout.binned)
+        stats = layout.split(row_stats, axis=-2)
+        wts = layout.split(w_trees, axis=1)
+        dev = mesh.first_device
+    else:
+        mesh, binned = None, [binned_t]
+        stats, wts = [row_stats], [w_trees]
+        dev = binned_t.device
+    F = binned[0].shape[0]
     H = (1 << (max_depth + 1)) - 1
     if max_depth == 0:
         feature = np.full((T, H), -2, np.int32)
         feature[:, 0] = -1
         leaf_stats = np.zeros((T, H, S), np.float32)
-        root = (torch.einsum("tn,tns->ts", w_trees, row_stats)
-                if row_stats.ndim == 3 else w_trees @ row_stats)
+        root = reduce_at([
+            torch.einsum("tn,tns->ts", w, st) if st.ndim == 3 else w @ st
+            for w, st in zip(wts, stats)], mesh=mesh)
         leaf_stats[:, 0] = root.cpu().numpy()
         zeros = np.zeros((T, H), np.float32)
         return Forest(feature, zeros.copy(), leaf_stats, 0, zeros.copy(),
@@ -532,7 +609,8 @@ def grow_forest(
     leaf_stats = torch.zeros((T, H, S), dtype=torch.float32, device=dev)
     gain_a = torch.zeros((T, H), dtype=torch.float32, device=dev)
     count_a = torch.zeros((T, H), dtype=torch.float32, device=dev)
-    node_idx = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    node_idx = [torch.zeros((T, b.shape[1]), dtype=torch.int32,
+                            device=b.device) for b in binned]
     exists_lvl = torch.ones((T, 1), dtype=torch.bool, device=dev)  # the root
 
     # per-level feature subsets, drawn for a whole level at once (so they
@@ -553,10 +631,11 @@ def grow_forest(
         off = n_nodes - 1
         fmask = fmasks[depth]
         out = _level(
-            binned_t, row_stats, w_trees, node_idx, fmask,
+            binned, stats, wts, node_idx, fmask,
             min_instances_per_node, min_info_gain, prev_hist,
             n_nodes=n_nodes, n_bins=n_bins, impurity=impurity, group=group,
             route=depth < max_depth - 1, keep_hist=keep_hists[depth],
+            mesh=mesh,
         )
         prev_hist = out.get("hist")
         split_mask = out["do_split"] & exists_lvl

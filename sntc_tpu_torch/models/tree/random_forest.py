@@ -29,11 +29,13 @@ from sntc_tpu_torch.models.base import (
     ClassifierEstimator,
     pack_serve_outputs,
 )
+from sntc_tpu_torch.parallel.collectives import fit_device, fit_mesh
 from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestDeviceMixin,
     ForestPersistenceMixin,
     grow_forest,
+    layout_rows,
     make_bagging_weights,
     resolve_feature_subset_k,
     validate_forest,
@@ -72,12 +74,14 @@ class _RfParams(_TreeEnsembleParams):
 
 
 class RandomForestClassifier(_RfParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    forest lives on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    forest lives on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "RandomForestClassificationModel":
         X, y, w = self._extract(frame)
@@ -89,9 +93,13 @@ class RandomForestClassifier(_RfParams, ClassifierEstimator):
         dev = self.device
 
         edges = quantile_bin_edges(X, max_bins=n_bins, seed=seed)
-        binned_t = bin_features(
-            torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
-        ).t()
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            binned_t = bin_features(
+                torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+            ).t()
+        else:
+            binned_t = layout_rows(mesh, X, edges)
         yd = torch.from_numpy(y.astype(np.int64)).to(dev)
         row_stats = (torch.nn.functional.one_hot(yd, k).to(torch.float32)
                      * torch.from_numpy(w).to(dev)[:, None])

@@ -21,12 +21,14 @@ from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
+from sntc_tpu_torch.parallel.collectives import fit_device, fit_mesh
 from sntc_tpu_torch.models.tree.grower import (
     Forest,
     ForestPersistenceMixin,
     RegressionForestMixin,
     extract_regression,
     grow_forest,
+    layout_rows,
     make_bagging_weights,
     resolve_feature_subset_k,
     validate_forest,
@@ -52,12 +54,14 @@ class _RfRegParams(_TreeEnsembleParams):
 
 
 class RandomForestRegressor(_RfRegParams, Estimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    forest lives on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    forest lives on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "RandomForestRegressionModel":
         X, y = extract_regression(self, frame)
@@ -68,9 +72,13 @@ class RandomForestRegressor(_RfRegParams, Estimator):
         dev = self.device
 
         edges = quantile_bin_edges(X, max_bins=n_bins, seed=seed)
-        binned_t = bin_features(
-            torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
-        ).t()
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            binned_t = bin_features(
+                torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+            ).t()
+        else:
+            binned_t = layout_rows(mesh, X, edges)
         yd = torch.from_numpy(y).to(dev)
         ws = torch.ones(n, dtype=torch.float32, device=dev)
         row_stats = torch.stack([ws, ws * yd, ws * yd * yd], dim=1)

@@ -301,6 +301,31 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         type=COUNTER, labels=("tenant",),
         help="Bytes materialized device\u2192host by fused finalizes.",
     ),
+    # -- the collective layer over the mesh substrate (parallel/) ------------
+    "sntc_collective_dispatches_total": dict(
+        type=COUNTER, labels=("op", "axis"),
+        help="SPMD collective dispatches over a mesh axis, by "
+        "aggregate op (tree_aggregate / kmeans.lloyd / lda.e_step / "
+        "pic.power / tree.histogram).",
+    ),
+    "sntc_collective_bytes_moved_total": dict(
+        type=COUNTER, labels=("op", "axis"),
+        help="Ring-allreduce wire bytes (2\u00b7(n-1)\u00b7payload) moved by "
+        "collective dispatches \u2014 the SparCML baseline a compressed "
+        "reduction must beat; loop-carried psums count once per "
+        "dispatch (documented lower bound).",
+    ),
+    "sntc_collective_mesh_devices": dict(
+        type=GAUGE, labels=("axis",),
+        help="Live mesh shape: devices along each declared axis "
+        "(shrinks on a journaled mesh_resize).",
+    ),
+    "sntc_collective_resizes_total": dict(
+        type=COUNTER, labels=(),
+        help="Elastic mesh resizes \u2014 a device_lost answered by "
+        "shrinking the data axis onto the survivors instead of "
+        "flipping HOST_DEGRADED.",
+    ),
     # -- the multi-tenant scheduler (serve/tenancy) ---------------------------
     "sntc_daemon_ticks_total": dict(
         type=COUNTER, labels=(),

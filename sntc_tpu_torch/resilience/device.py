@@ -315,6 +315,25 @@ class DeviceFaultDomain:
                    site="device.dispatch", rows=rows, depth=depth,
                    error=error)
 
+    def note_mesh_resize(self, *, old: int, new: int, axis: str,
+                         site: str) -> None:
+        """A mesh participant dropped out and the collective layer
+        resized: the data axis shrank ``old`` → ``new`` and the fit goes
+        on on the survivors.  Journaled, and counted as a
+        ``device_lost`` fault, but not part of the failure streak: the
+        resize is already the response."""
+        with self._lock:
+            self.faults["device_lost"] = self.faults.get("device_lost", 0) + 1
+        try:
+            _metrics().inc("sntc_device_faults_total", kind="device_lost",
+                           site=site)
+        except Exception:
+            pass
+        self._journal({"decision": "mesh_resize", "axis": axis,
+                       "from": old, "to": new, "site": site})
+        emit_event(event="mesh_resize", component="model", site=site,
+                   axis=axis, old=old, new=new)
+
     def note_bucket_floor(self, old: int, new: int) -> None:
         with self._lock:
             self.bucket_floor_steps += 1
