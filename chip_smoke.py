@@ -512,7 +512,33 @@ each of which fails the run (non-zero exit, no result line):
    ``cuda:0`` and one nccl rank, started with the launcher environment
    after (a): StandardScaler's moments of integer-valued rows bitwise
    the one-process mesh's (``[cuda:0] * 2``, and mesh 1 for the nccl
-   rank), (c)'s KMeans at 2 ranks within 1e-5.
+   rank), (c)'s KMeans at 2 ranks within 1e-5;
+24. ``mesh=`` on the classification path, in this process, on phase 4's
+   199 800 training rows (78 features, 15 classes) at mesh 1 and at
+   ``[cuda:0] * 4`` (virtual shards: no number here is a scaling): (a)
+   gaussian NaiveBayes, its fit and ``partial_fit`` over 4 row blocks;
+   (b) OneVsRest over LogisticRegression (20 iterations; 15 lanes in one
+   loop); (c) CrossValidator over LR, regParam {1e-4, 1e-2} x 2 folds
+   (one fold x grid lane loop); (d) a binary (benign/attack) LinearSVC,
+   20 iterations; (e) the evaluator's macro-F1, f1 and accuracy of (b)'s
+   training predictions, bitwise at both sizes; (f)
+   UnivariateFeatureSelector (χ² at 32 bins, ANOVA),
+   VarianceThresholdSelector, MaxAbsScaler, ChiSquareTest on the 32-bin
+   features, Correlation, the Summarizer; (g) IDF over a ``[20 000, 1
+   024]`` hashed count matrix of the flows' (feature, bin) tokens.  (b)
+   to (d) fit the standard-scaled features at the train command's
+   regParam 1e-4.  Each mesh-4 result against its mesh-1 twin at the
+   CPU tests' tolerances: moments 1e-5, the CV's best model 5e-4, counts
+   and selections bitwise; the lanes' and the hinge's objectives at the
+   mesh-1 solution through both programs within 1e-5 of their start,
+   their paths within 1e-3, predictions on the training rows equal on
+   99.9 % (the hinge's on 99 %: its flat optimum parts at 20
+   iterations); ``tree_hist``
+   launched once a shard (4 against 1) for the selector's χ² and
+   ChiSquareTest, every shard's launch bitwise its plain version; the NB
+   and OneVsRest-LR models of both sizes served once each on a ``[1 000,
+   78]`` float32 batch (one ``pad_assemble`` launch to 1 024 rows each),
+   predictions equal (LR: 99.9 %); its budget ``P24_BUDGET_S`` printed.
 
 The run keeps the bytecode of every Python process it starts under
 ``sntc_tpu_torch/_build/pycache`` (``cache_bytecode``): the card's
@@ -579,6 +605,7 @@ from sntc_tpu_torch.feature import (
     ChiSqSelector,
     ChiSqSelectorModel,
     Interaction,
+    MaxAbsScaler,
     MinMaxScaler,
     PolynomialExpansion,
     QuantileDiscretizer,
@@ -643,6 +670,7 @@ from sntc_tpu_torch.models import (
     IsotonicRegression,
     KMeans,
     LinearRegression,
+    LinearSVC,
     LogisticRegression,
     MultilayerPerceptronClassifier,
     NaiveBayes,
@@ -655,6 +683,7 @@ from sntc_tpu_torch.models import (
 from sntc_tpu_torch.models.kmeans import _sq_dists
 from sntc_tpu_torch.models.summary import TrainingSummary
 from sntc_tpu_torch.models.lda import e_step, gamma0
+from sntc_tpu_torch.models import linear_svc as svc_module
 from sntc_tpu_torch.models import logistic_regression as lr_module
 from sntc_tpu_torch.models.one_vs_rest import OneVsRestModel, _build_fused_ovr
 from sntc_tpu_torch.models.tree import gbt as gbt_module
@@ -3295,7 +3324,7 @@ def ovr_gradient_errors(prog) -> dict:
     program's product over all lanes and from the lane alone (one lane:
     the single fit's product), its distance from the float64 gradient as
     a share of that gradient's norm."""
-    (xs, ys_l, ws_l, inv_std, l2, pen_l2, _, _), x_end = prog
+    ((xs, ys_l, ws_l), inv_std, l2, pen_l2, _, _), x_end = prog
     n_coef = xs.shape[1]
 
     def grads(lanes, dtype):
@@ -11473,6 +11502,411 @@ def report_phase23(p23: dict, card: str) -> None:
         "groups": g}, default=str))
 
 
+# -- phase 24: mesh= on the classification path -----------------------------
+
+P24_SHARDS = 4  # the mesh of every mesh-4 leg: [cuda:0] * 4
+P24_BUDGET_S = 15.0
+P24_ITERS = 20  # OneVsRest's LR, the CV's LR and LinearSVC
+P24_REG = 1e-4  # the train command's --reg-param default (lr, svc)
+P24_CV_GRID = [{"regParam": 1e-4}, {"regParam": 1e-2}]
+P24_CV_FOLDS = 2
+P24_PF_BLOCKS = 4  # NaiveBayes.partial_fit's row blocks
+P24_SERVE_ROWS = 1000  # one padded batch a served model: -> 1024
+P24_IDF_ROWS, P24_IDF_WIDTH = 20_000, 1024
+# the tolerances of tests/test_torch_mesh_classification.py, mesh 4
+# against mesh 1: moments (MOMENT_TOL); the CV's best model (LANE_TOL);
+# an objective evaluated at the same weights through both programs,
+# within HIST_TOL of its start; predictions (SVC_AGREE).  The 20-
+# iteration OneVsRest and LinearSVC fits on 199 800 rows are held by
+# the last two and by their paths (the objective histories within
+# P24_PATH_TOL of the start): their coefficients part along flat
+# directions (the rare classes' lanes, the hinge's optimum), printed
+# beside.  The hinge's predictions part on ~0.2 % of the rows between
+# the two reduction orders at this size (99.9 % holds at the CPU tests'
+# 600 rows): its limit is P24_SVC_AGREE
+P24_MOMENT_TOL = 1e-5
+P24_LANE_TOL = 5e-4
+P24_OBJ_TOL = 1e-5
+P24_PATH_TOL = 1e-3
+P24_AGREE = 0.999
+P24_SVC_AGREE = 0.99
+
+
+@contextlib.contextmanager
+def objectives(module, name: str):
+    """Records ``(value_and_grad, result)`` of every call of the
+    minimizer ``module.name`` while the block runs."""
+    seen, orig = [], getattr(module, name)
+
+    def spy(value_and_grad, x0, **kw):
+        res = orig(value_and_grad, x0, **kw)
+        seen.append((value_and_grad, res if hasattr(res, "x") else res[0]))
+        return res
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def p24_inputs(dev, train3: Frame) -> dict:
+    """Phase 4's training rows as the slice's inputs: the 78 features
+    (float32) raw and standard-scaled (withMean, fitted on the card: the
+    LBFGS fits' input, as config 2's pipeline gives it), the 15 label
+    ids, the benign/attack label, the features in 32 quantile bins
+    (binned on the card), and a ``[20 000, 1 024]`` hashed count matrix
+    of the first rows' (feature, bin) tokens."""
+    X = np.stack([np.asarray(train3[c], np.float32)
+                  for c in CICIDS2017_FEATURES], axis=1)
+    scaler = StandardScaler(device=dev, withMean=True, inputCol="x",
+                            outputCol="s").fit(Frame({"x": X}))
+    Xs = np.ascontiguousarray(to_host(scaler.transform(Frame({"x": X}))[
+        "s"]), np.float32)
+    y = np.asarray(StringIndexer(inputCol="Label", outputCol="label").fit(
+        train3).transform(train3)["label"], np.float64)
+    yb = (np.asarray(train3["Label"]).astype(str) != "BENIGN").astype(
+        np.float64)
+    binned = bin_features(
+        torch.from_numpy(X).to(dev),
+        torch.from_numpy(quantile_bin_edges(X, BINS)).to(dev)).cpu().numpy()
+    tokens = (np.arange(X.shape[1])[None, :] * BINS
+              + binned[:P24_IDF_ROWS].astype(np.int64))
+    bucket = (tokens * 2654435761) % P24_IDF_WIDTH  # Knuth's hash
+    counts = np.zeros((P24_IDF_ROWS, P24_IDF_WIDTH), np.float32)
+    np.add.at(counts, (np.arange(P24_IDF_ROWS)[:, None], bucket), 1.0)
+    return {"X": X, "Xs": Xs, "y": y, "yb": yb,
+            "binned": binned.astype(np.float32), "counts": counts}
+
+
+def _p24_lr(models) -> np.ndarray:
+    return np.concatenate([np.concatenate([m.coefficientMatrix.ravel(),
+                                           m.interceptVector])
+                           for m in models])
+
+
+def _p24_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def p24_fits(dev, inp: dict, mesh, tag: str, secs: dict) -> dict:
+    """(a)-(d) at one mesh: gaussian NaiveBayes fit and its partial_fit
+    over ``P24_PF_BLOCKS`` row blocks on the raw features, then on the
+    scaled ones OneVsRest over LR (15 lanes), CrossValidator over LR
+    (fold x grid lanes), the binary LinearSVC; each result and its
+    seconds (``secs[tag]``), the lanes' and the hinge's objectives."""
+    y, yb = inp["y"], inp["yb"]
+    f = Frame({"features": inp["X"], "label": y})
+    fs = Frame({"features": inp["Xs"], "label": y})
+    out, s = {}, secs.setdefault(tag, {})
+
+    def leg(name, fn):
+        out[name], s[name] = timed(fn)
+
+    leg("nb", lambda: NaiveBayes(device=dev, mesh=mesh,
+                                 modelType="gaussian").fit(f))
+
+    def nb_partial():
+        est, state = NaiveBayes(device=dev, mesh=mesh,
+                                modelType="gaussian"), None
+        per = -(-f.num_rows // P24_PF_BLOCKS)
+        for i in range(P24_PF_BLOCKS):
+            m, state = est.partial_fit(f.slice(i * per, (i + 1) * per),
+                                       state, n_classes=int(y.max()) + 1)
+        return m
+
+    leg("nb_partial", nb_partial)
+    with objectives(lr_module, "minimize_lbfgs_lanes") as lanes:
+        leg("ovr_lr", lambda: OneVsRest(
+            classifier=LogisticRegression(device=dev, maxIter=P24_ITERS,
+                                          regParam=P24_REG),
+            mesh=mesh).fit(fs))
+    out["ovr_objective"] = lanes[0]
+    with counted(LogisticRegression, "_fit_grid_folds") as folds:
+        leg("cv", lambda: CrossValidator(
+            estimator=LogisticRegression(device=dev, mesh=mesh,
+                                         maxIter=P24_ITERS),
+            estimatorParamMaps=P24_CV_GRID,
+            evaluator=MulticlassClassificationEvaluator(
+                metricName="macroF1", mesh=mesh),
+            numFolds=P24_CV_FOLDS, seed=0).fit(fs))
+    out["cv_fold_lane_calls"] = len(folds)
+    with objectives(svc_module, "minimize_lbfgs") as hinge:
+        leg("svc", lambda: LinearSVC(device=dev, mesh=mesh,
+                                     maxIter=P24_ITERS,
+                                     regParam=P24_REG).fit(
+            Frame({"features": inp["Xs"], "label": yb})))
+    out["svc_objective"] = hinge[0]
+    return out
+
+
+def p24_stats(dev, inp: dict, mesh, tag: str, secs: dict) -> dict:
+    """(f) and (g) at one mesh, each with the launch counts set to 0
+    just before it: UnivariateFeatureSelector (χ² on 32 bins, ANOVA),
+    VarianceThresholdSelector, MaxAbsScaler, ChiSquareTest on the binned
+    features, Correlation, the Summarizer, IDF on the count matrix."""
+    X, y = inp["X"], inp["y"]
+    f = Frame({"features": X, "label": y})
+    fb = Frame({"features": inp["binned"], "label": y})
+    out, s, launches = {}, secs.setdefault(tag, {}), {}
+
+    def leg(name, fn):
+        reset_launches()
+        out[name], s[name] = timed(fn)
+        launches[name] = LAUNCHES["tree_hist"]
+
+    leg("ufs_chi2", lambda: UnivariateFeatureSelector(
+        device=dev, mesh=mesh, featureType="categorical",
+        labelType="categorical", selectionThreshold=40,
+        maxBins=BINS).fit(f).selected_features)
+    leg("ufs_anova", lambda: UnivariateFeatureSelector(
+        device=dev, mesh=mesh, featureType="continuous",
+        labelType="categorical", selectionThreshold=40).fit(
+            f).selected_features)
+    leg("variance", lambda: VarianceThresholdSelector(
+        device=dev, mesh=mesh, varianceThreshold=1.0).fit(
+            f).selectedFeatures)
+    leg("maxabs", lambda: MaxAbsScaler(device=dev, mesh=mesh,
+                                       inputCol="features").fit(f).maxAbs)
+    leg("chi_square_test", lambda: ChiSquareTest.test(
+        fb, "features", "label", device=dev, mesh=mesh)["statistics"])
+    leg("correlation", lambda: Correlation.corr(
+        f, "features", device=dev, mesh=mesh)["pearson"])
+    leg("summarizer", lambda: Summarizer.metrics(
+        "mean", "variance", "min", "max", "count").summary(
+            f, "features", device=dev, mesh=mesh))
+    leg("idf", lambda: IDF(device=dev, mesh=mesh, inputCol="features").fit(
+        Frame({"features": inp["counts"]})).docFreq)
+    out["tree_hist_launches"] = launches
+    return out
+
+
+def p24_compare(one: dict, four: dict, st1: dict, st4: dict,
+                inp: dict, fails: list) -> dict:
+    """Each mesh-4 result against its mesh-1 twin."""
+    gaps = {}
+
+    def nb_arrays(m):
+        return np.concatenate([m.gaussian_mu.ravel(), m.gaussian_var.ravel(),
+                               m.pi])
+
+    gaps["nb"] = _p24_rel(nb_arrays(four["nb"]), nb_arrays(one["nb"]))
+    # the lanes' and the hinge's objectives at the mesh-1 solution
+    # through the mesh-1 and the mesh-4 programs, apart as a share of
+    # each objective's start
+    for key in ("ovr", "svc"):
+        (vg1, r1), (vg4, r4) = one[f"{key}_objective"], \
+            four[f"{key}_objective"]
+        with full_f32():
+            v1, g1 = vg1(r1.x)
+            v4, g4 = vg4(r1.x)
+        start = r1.history[..., :1].abs()
+        gaps[f"{key}_objective"] = float(((v4 - v1).abs()
+                                          / start[..., 0]).max())
+        gaps[f"{key}_gradient"] = float((g4 - g1).abs().max()
+                                        / g1.abs().max())
+        # the two fits' paths: their objective histories apart
+        gaps[f"{key}_history"] = float(((r4.history - r1.history).abs()
+                                        / start).max())
+    gaps["nb_partial"] = _p24_rel(nb_arrays(four["nb_partial"]),
+                                  nb_arrays(one["nb_partial"]))
+    gaps["ovr_lr"] = _p24_rel(_p24_lr(four["ovr_lr"].models),
+                              _p24_lr(one["ovr_lr"].models))
+    cv1, cv4 = one["cv"], four["cv"]
+    gaps["cv_best"] = _p24_rel(_p24_lr([cv4.bestModel]),
+                               _p24_lr([cv1.bestModel]))
+    gaps["cv_metrics"] = float(np.abs(np.subtract(cv4.avgMetrics,
+                                                  cv1.avgMetrics)).max())
+    s1, s4 = one["svc"], four["svc"]
+    gaps["svc"] = _p24_rel(np.append(s4.coefficients, s4.intercept),
+                           np.append(s1.coefficients, s1.intercept))
+    fs = Frame({"features": inp["Xs"]})
+    agree = {key: float(np.mean(
+        to_host(four[key].transform(fs)["prediction"])
+        == to_host(one[key].transform(fs)["prediction"])))
+        for key in ("ovr_lr", "svc")}
+    for k in ("correlation", "chi_square_test"):
+        gaps[k] = _p24_rel(st4[k], st1[k])
+    for c in ("mean", "variance"):
+        gaps[f"summarizer_{c}"] = _p24_rel(st4["summarizer"][c],
+                                           st1["summarizer"][c])
+    limits = {"nb": P24_MOMENT_TOL, "nb_partial": P24_MOMENT_TOL,
+              "ovr_objective": P24_OBJ_TOL, "svc_objective": P24_OBJ_TOL,
+              "ovr_history": P24_PATH_TOL, "svc_history": P24_PATH_TOL,
+              "cv_best": P24_LANE_TOL, "cv_metrics": 1e-3,
+              "correlation": P24_MOMENT_TOL, "chi_square_test": 0.0,
+              "summarizer_mean": P24_MOMENT_TOL,
+              "summarizer_variance": P24_MOMENT_TOL}
+    over = {k: v for k, v in gaps.items() if v > limits.get(k, np.inf)}
+    equal = {k: (list(st4[k]) == list(st1[k]) if isinstance(st4[k], list)
+                 else np.array_equal(st4[k], st1[k]))
+             for k in ("ufs_chi2", "ufs_anova", "variance", "maxabs", "idf")}
+    for c in ("min", "max", "count"):
+        equal[f"summarizer_{c}"] = np.array_equal(st4["summarizer"][c],
+                                                  st1["summarizer"][c])
+    if over or not all(equal.values()) or agree["ovr_lr"] < P24_AGREE \
+            or agree["svc"] < P24_SVC_AGREE:
+        fails.append(f"phase 24: mesh 4 against mesh 1, gaps over their "
+                     f"limits {over} (limits {limits}), equal {equal}, "
+                     f"predictions agree {agree}")
+    if one["cv_fold_lane_calls"] != 1 or four["cv_fold_lane_calls"] != 1:
+        fails.append("phase 24 (c): the CrossValidator's fold lanes ran "
+                     f"{one['cv_fold_lane_calls']} / "
+                     f"{four['cv_fold_lane_calls']} times")
+    return {"gaps": gaps, "limits": limits, "equal": equal,
+            "agree": agree}
+
+
+def p24_evaluate(dev, inp: dict, model, fails: list) -> dict:
+    """(e): the evaluator over the OneVsRest model's training
+    predictions at mesh 1 and at ``[cuda:0] * 4``: whole counts, every
+    metric bitwise."""
+    pred = model.transform(Frame({"features": inp["Xs"],
+                                  "label": inp["y"]}))
+    out, secs = {}, {}
+    for n in (1, P24_SHARDS):
+        mesh = card_mesh(dev, n)
+        out[n], secs[n] = timed(lambda: {
+            name: MulticlassClassificationEvaluator(
+                metricName=name, mesh=mesh).evaluate(pred)
+            for name in ("macroF1", "f1", "accuracy")})
+    if out[1] != out[P24_SHARDS]:
+        fails.append(f"phase 24 (e): the evaluator at mesh 1 {out[1]} and "
+                     f"mesh {P24_SHARDS} {out[P24_SHARDS]}")
+    return {"metrics": out[1], "equal": out[1] == out[P24_SHARDS],
+            "seconds": secs}
+
+
+def p24_serve(dev, inp: dict, fits: dict, fails: list) -> dict:
+    """The NB and OneVsRest-LR models fitted at mesh 1 and at mesh 4,
+    each served once on a ``[1 000, 78]`` float32 batch through a
+    bucketed ``BatchPredictor`` (one ``pad_assemble`` launch to 1 024
+    rows), launch counts from 0; the predictions of the two mesh sizes
+    compared."""
+    reset_launches()
+    preds = {}
+    for key, x in (("nb", "X"), ("ovr_lr", "Xs")):
+        batch = Frame({"features": inp[x][-P24_SERVE_ROWS:]})
+        for n, fit in fits.items():
+            out = BatchPredictor(fit[key], bucket_rows=BUCKET_FLOOR,
+                                 device=dev).predict_frame(batch)
+            preds[(key, n)] = to_host(out["prediction"])
+    torch.cuda.synchronize()
+    launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    agree = {key: float(np.mean(preds[(key, 1)] == preds[(key, P24_SHARDS)]))
+             for key in ("nb", "ovr_lr")}
+    if launches["pad_assemble"] != 4 or launches["tree_hist"] or \
+            agree["nb"] != 1.0 or agree["ovr_lr"] < P24_AGREE:
+        fails.append(f"phase 24 serve: launches {launches}, predictions "
+                     f"agree {agree}")
+    return {"launches": launches, "pad_launch_shapes": shapes,
+            "agree": agree}
+
+
+def phase24(dev, train3: Frame) -> dict:
+    """Phase 24, in this process: the classification path, the
+    selectors, MaxAbsScaler, IDF and ``stat`` at mesh 1 and at
+    ``[cuda:0] * 4`` on phase 4's training rows; each mesh-4 result held
+    against its mesh-1 twin, ``tree_hist`` launched once a shard and
+    every shard's launch held against its plain version, the NB and
+    OneVsRest-LR models served once each."""
+    t0 = time.perf_counter()
+    fails: list = []
+    inp, inputs_s = timed(lambda: p24_inputs(dev, train3))
+    secs: dict = {}
+    fits, stats = {}, {}
+    for n in (1, P24_SHARDS):
+        mesh = card_mesh(dev, n)
+        fits[n] = p24_fits(dev, inp, mesh, f"mesh{n}", secs)
+        if n == 1:
+            stats[n] = p24_stats(dev, inp, mesh, f"mesh{n}", secs)
+        else:
+            with recording_tree_hist() as calls:
+                stats[n] = p24_stats(dev, inp, mesh, f"mesh{n}", secs)
+    launches = {n: stats[n].pop("tree_hist_launches") for n in stats}
+    for name in ("ufs_chi2", "chi_square_test"):
+        if launches[1][name] != 1 or \
+                launches[P24_SHARDS][name] != P24_SHARDS:
+            fails.append(f"phase 24 (f) {name}: tree_hist launches "
+                         f"{launches[1][name]} at mesh 1, "
+                         f"{launches[P24_SHARDS][name]} at mesh "
+                         f"{P24_SHARDS}")
+    cmp_ = p24_compare(fits[1], fits[P24_SHARDS], stats[1],
+                       stats[P24_SHARDS], inp, fails)
+    evaluated = p24_evaluate(dev, inp, fits[1]["ovr_lr"], fails)
+    served = p24_serve(dev, inp, fits, fails)
+    # every mesh-4 launch of tree_hist against its plain version; the
+    # kernels line's entry: the χ² selector's widest shard
+    cases = {f"mesh-4 shard {i} of "
+             f"{'the selector' if i < P24_SHARDS else 'ChiSquareTest'}": c
+             for i, c in enumerate(calls)}
+    err = check_tree_hist(cases)
+    shard = next(iter(cases))
+    kernels = measure_tree_hist(
+        {f"phase 24 (f) UnivariateFeatureSelector chi2, {shard}":
+         cases[shard]}, err, launches[P24_SHARDS]["ufs_chi2"])
+    kernels += pads_of(dev, served["pad_launch_shapes"])
+    lanes = {n: fits[n]["ovr_lr"].models[0].optimizer_stats
+             for n in fits}
+    for n in fits:
+        for key in ("ovr_objective", "svc_objective"):
+            fits[n].pop(key)
+    p24 = {"seconds": time.perf_counter() - t0, "inputs_s": inputs_s,
+           "parts_s": secs, "rows": int(inp["X"].shape[0]),
+           "classes": int(inp["y"].max()) + 1,
+           "tree_hist_launches": launches, "shard_rows": [
+               int(c["binned_t"].shape[1]) for c in calls],
+           "compare": cmp_, "evaluator": evaluated, "serve": served,
+           "lanes": lanes,
+           "cv_avg_metrics": {n: list(fits[n]["cv"].avgMetrics)
+                              for n in fits}}
+    PHASE_SECONDS["24 parts"] = secs
+    if fails:
+        log("phase 24 " + json.dumps(p24, default=str))
+        raise SystemExit("phase 24 failed:\n" + "\n".join(fails))
+    p24["kernels"] = kernels
+    return p24
+
+
+def report_phase24(p24: dict, card: str) -> None:
+    """Phase 24's lines: each leg's seconds at both mesh sizes, the gaps
+    against the limits, the launches, one JSON line.  The mesh-4
+    seconds are the virtual shards' overhead on one card, not a
+    scaling."""
+    c, s = p24["compare"], p24["parts_s"]
+    log(f"phase 24 (a)-(d) fits on {p24['rows']} rows, {p24['classes']} "
+        f"classes, seconds at mesh 1 {s['mesh1']} and [cuda:0] x "
+        f"{P24_SHARDS} {s[f'mesh{P24_SHARDS}']}; mesh 4 against mesh 1: "
+        f"gaps {c['gaps']} (limits {c['limits']}), equal {c['equal']}, "
+        f"predictions agree {c['agree']}; the OneVsRest "
+        f"lanes' loop {p24['lanes']}; CV avgMetrics "
+        f"{p24['cv_avg_metrics']} [{card}]")
+    log(f"phase 24 (e) evaluator {p24['evaluator']['metrics']}, bitwise at "
+        f"mesh {P24_SHARDS} {p24['evaluator']['equal']}, seconds "
+        f"{p24['evaluator']['seconds']} [{card}]")
+    log(f"phase 24 (f) tree_hist launches {p24['tree_hist_launches']}, "
+        f"shard rows {p24['shard_rows']}; serve: launches "
+        f"{p24['serve']['launches']}, pads "
+        f"{p24['serve']['pad_launch_shapes']}, predictions agree "
+        f"{p24['serve']['agree']} [{card}]")
+    for x in p24["kernels"]:
+        lib = ("" if x["library_ms"] is None else
+               f", library {x['library_ms']:.4f} ms")
+        log(f"phase 24 {x['name']} {x['shape']}: {x['ms']:.4f} ms a call, "
+            f"{x['device_ms']:.4f} ms of device time a launch (plain "
+            f"{x['plain_ms']:.4f} ms{lib}, bound {x['bound_ms']:.4f} ms by "
+            f"{x['bound_by']}); {x['launches']} launches on its path, max "
+            f"abs error {x['max_abs_err']} [{card}]")
+    log("phase 24 " + json.dumps({
+        "phase": 24, "card": card, "seconds": round(p24["seconds"], 3),
+        "budget_s": P24_BUDGET_S,
+        "within_budget": p24["seconds"] <= P24_BUDGET_S,
+        "inputs_s": round(p24["inputs_s"], 3), "parts_s": p24["parts_s"],
+        "gaps": c["gaps"], "tree_hist_launches": p24["tree_hist_launches"],
+        "serve_launches": p24["serve"]["launches"]}, default=str))
+
+
 #: side process name -> (its handle in the run, its main)
 SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "family_fits": (FamilyFits, family_fits_main),
@@ -11480,7 +11914,7 @@ SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "p22_fits": (P22Fits, p22_fits_main)}
 
 PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
-          "20", "21", "22", "23")
+          "20", "21", "22", "23", "24")
 
 
 #: the compiled bytecode of every Python process the run starts
@@ -11512,7 +11946,8 @@ def main() -> int:
                     f"{', '.join(PHASES)} (11-13 serve phase 3's model, "
                     "15 trains config 1 first, 18 and 19 config 9's LR "
                     "pipeline, 20 generates config 3's rows, 21 config 3's "
-                    "and config 4's, 22 config 1's, 23 config 3's); "
+                    "and config 4's, 22 config 1's, 23 and 24 config "
+                    "3's); "
                     "default: every phase")
     # a CPU side process (``SIDES``), which the run starts itself
     ap.add_argument("--side", nargs=2, default=None, metavar=("NAME", "DIR"),
@@ -11704,6 +12139,8 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
         with clock("23 mesh substrate"):
             phase23_ = phase23(dev, work, data["train"])
+    with clock("24 mesh classification"):
+        phase24_ = phase24(dev, data["train"])
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -11716,6 +12153,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     kernels += phase20["kernels"]
     kernels += phase21_["kernels"]
     kernels += phase23_["kernels"]
+    kernels += phase24_["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -11905,6 +12343,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     report_phase21(phase21_, card)
     report_phase22(phase22_, card)
     report_phase23(phase23_, card)
+    report_phase24(phase24_, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -11936,6 +12375,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                        "phase18": phase18, "phase19": phase19,
                        "phase20": phase20, "phase21": phase21_,
                        "phase22": phase22_, "phase23": phase23_,
+                       "phase24": phase24_,
                        "phase_seconds": PHASE_SECONDS,
                        "sides": side_spans(sides)}, f,
                       indent=1, default=str)
@@ -12047,12 +12487,19 @@ def main_phases(dev, card: str, phases: list, sides: dict) -> int:
             with clock("22 object columns, long tail"):
                 p22 = phase22(dev, data1, sides["p22_fits"])
             report_phase22(p22, card)
+        train3 = None
         if "23" in phases:
             train3 = config3_train()
             with clock("23 mesh substrate"):
                 p23 = phase23(dev, work, train3)
             report_phase23(p23, card)
             kernels += p23["kernels"]
+        if "24" in phases:
+            train3 = config3_train() if train3 is None else train3
+            with clock("24 mesh classification"):
+                p24 = phase24(dev, train3)
+            report_phase24(p24, card)
+            kernels += p24["kernels"]
     finish(kernels, card, sides)
     return 0
 

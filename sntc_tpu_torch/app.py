@@ -284,10 +284,11 @@ def _build_estimator(args, device, mesh=None):
             ),
         )
     if args.estimator == "nb":
-        return NaiveBayes(device=device, modelType="gaussian")
+        return NaiveBayes(device=device, mesh=mesh, modelType="gaussian")
     if args.estimator == "svc":
         return OneVsRest(classifier=LinearSVC(
-            device=device, maxIter=args.max_iter, regParam=args.reg_param))
+            device=device, mesh=mesh, maxIter=args.max_iter,
+            regParam=args.reg_param))
     return DecisionTreeClassifier(
         device=device, mesh=mesh, maxDepth=args.max_depth, maxBins=args.max_bins,
         seed=args.seed,
@@ -463,7 +464,7 @@ def _cmd_train_body(args) -> int:
     fit_s = time.perf_counter() - t0
     with span("train.evaluate"):
         value = MulticlassClassificationEvaluator(
-            metricName=args.metric
+            metricName=args.metric, mesh=mesh
         ).evaluate(model.transform(test))
     if args.model_out:
         save_model(model, args.model_out)
@@ -491,10 +492,14 @@ def cmd_evaluate(args) -> int:
         from sntc_tpu_torch.kernels._build import library
 
         library()
+    from sntc_tpu_torch.parallel.context import get_default_mesh
+
+    # the JAX command's default mesh, over --device's visible devices
+    mesh = get_default_mesh(device)
     model = load_model(args.model, device=device)
     df = _load_data(args)
     value = MulticlassClassificationEvaluator(
-        metricName=args.metric
+        metricName=args.metric, mesh=mesh
     ).evaluate(model.transform(df))
     print(json.dumps({"rows": df.num_rows, args.metric: value}))
     return 0

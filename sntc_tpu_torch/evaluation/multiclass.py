@@ -9,7 +9,11 @@ Counterpart of ``sntc_tpu/evaluation/multiclass.py``:
   true-label frequency.
 
 The confusion matrix is a weighted ``bincount`` on the host (the
-predictions are already there).  The evaluator takes every metric name
+predictions are already there); with a ``mesh=`` of more than one shard
+it is summed per shard instead, each shard's ``[K·K]`` counts one
+``bincount`` on its device, reduced in shard order
+(``make_tree_aggregate``; whole counts with unit weights, so equal at
+every mesh size).  The evaluator takes every metric name
 of the JAX one: the weighted metrics, the ``...ByLabel`` metrics of
 class ``metricLabel`` (the matrix is sized to cover it, so an absent
 class reads 0), the F-measures at ``beta``, ``logLoss`` over
@@ -19,18 +23,36 @@ class reads 0), the F-measures at ``beta``, ``logLoss`` over
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from sntc_tpu_torch.core.base import Evaluator
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
+from sntc_tpu_torch.parallel.collectives import (
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+    shard_weights,
+)
+
+
+def _confusion_agg(mesh, k: int):
+    """The confusion matrix's aggregate over ``mesh``: each shard's
+    weighted ``[K·K]`` counts of ``y·K + p``."""
+
+    def conf(ys, ps, ws):
+        return torch.bincount(ys * k + ps, weights=ws, minlength=k * k)
+
+    return make_tree_aggregate(conf, mesh, op="multiclass.confusion")
 
 
 class MulticlassMetrics:
     """Confusion-matrix metrics for (prediction, label) pairs;
     ``confusion[i, j]`` counts rows with true label ``i`` predicted
-    ``j``."""
+    ``j``.  ``mesh`` (of more than one shard) sums it per shard."""
 
-    def __init__(self, labels, predictions, weights=None, num_classes=None):
+    def __init__(self, labels, predictions, weights=None, num_classes=None,
+                 mesh=None):
         y = np.asarray(labels).astype(np.int64)
         p = np.asarray(predictions).astype(np.int64)
         k = (int(max(y.max(initial=0), p.max(initial=0))) + 1
@@ -40,9 +62,14 @@ class MulticlassMetrics:
             if weights is None
             else np.asarray(weights, np.float32)
         )
-        self.confusion = np.bincount(
-            y * k + p, weights=w, minlength=k * k
-        ).astype(np.float64).reshape(k, k)
+        mesh = fit_mesh(mesh)
+        if mesh is None:
+            flat = np.bincount(y * k + p, weights=w, minlength=k * k)
+        else:
+            ys, ps, _ = shard_batch(mesh, y, p)
+            ws = shard_weights(mesh, w, ys.shape[0])
+            flat = _confusion_agg(mesh, k)(ys, ps, ws).cpu().numpy()
+        self.confusion = flat.astype(np.float64).reshape(k, k)
         self.num_classes = k
 
     @property
@@ -139,7 +166,8 @@ METRIC_NAMES = (
 
 
 class MulticlassClassificationEvaluator(Evaluator):
-    """Spark-parity evaluator over :class:`MulticlassMetrics`."""
+    """Spark-parity evaluator over :class:`MulticlassMetrics`; with
+    ``mesh`` the confusion matrix is summed per shard."""
 
     _METRICS = METRIC_NAMES
     _SMALLER_IS_BETTER = ("logLoss", "hammingLoss", "weightedFalsePositiveRate",
@@ -158,6 +186,10 @@ class MulticlassClassificationEvaluator(Evaluator):
                 validator=validators.in_range(0, 0.5))
     weightCol = Param("optional row-weight column", default=None)
 
+    def __init__(self, mesh=None, **kwargs):
+        super().__init__(**kwargs)
+        self.mesh = mesh
+
     def metrics(self, frame: Frame) -> MulticlassMetrics:
         labels = to_host(frame[self.getLabelCol()])
         preds = to_host(frame[self.getPredictionCol()])
@@ -172,7 +204,7 @@ class MulticlassClassificationEvaluator(Evaluator):
         return MulticlassMetrics(
             labels, preds,
             weights=to_host(frame[weight_col]) if weight_col else None,
-            num_classes=num_classes,
+            num_classes=num_classes, mesh=self.mesh,
         )
 
     def _log_loss(self, frame: Frame) -> float:

@@ -16,8 +16,9 @@ same names):
 
 The fits run on the estimator's device (default ``cuda``): the extrema
 and max-abs are torch reductions over the float32 matrix (MinMaxScaler
-also over a ``mesh=``: a min and a max per shard, reduced across the
-shards; the row-0 padding leaves both unchanged); RobustScaler's
+and MaxAbsScaler also over a ``mesh=``: a min and a max, or a max |x|,
+per shard, reduced across the shards; the row-0 padding leaves them
+unchanged); RobustScaler's
 quantiles are one column sort on the device with ``jnp.quantile``'s
 linear interpolation, op for op (``torch.quantile`` refuses inputs above
 2^24 elements, and a config-scale matrix is above that).  Transforms run
@@ -184,16 +185,32 @@ class _MaxAbsParams:
     outputCol = Param("output vector column", default="scaledFeatures")
 
 
-class MaxAbsScaler(_MaxAbsParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+def _max_abs(xs, _w=None) -> torch.Tensor:
+    return xs.abs().amax(dim=0)
 
-    def __init__(self, device="cuda", **kwargs):
+
+class MaxAbsScaler(_MaxAbsParams, Estimator):
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device): each shard's ``max |x|``,
+    the maxima's max (the padding repeats a real row; a max is
+    order-free, so every mesh size gives the same bits)."""
+
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "MaxAbsScalerModel":
-        xs = _matrix_on(frame[self.getInputCol()], self.device)
-        model = MaxAbsScalerModel(maxAbs=to_host(xs.abs().amax(dim=0)))
+        mesh = fit_mesh(self.mesh)
+        X = frame[self.getInputCol()]
+        if mesh is None:
+            m = _max_abs(_matrix_on(X, self.device))
+        else:
+            X = (X.to(torch.float32) if isinstance(X, torch.Tensor)
+                 else np.asarray(X).astype(np.float32, copy=False))
+            m = make_tree_aggregate(_max_abs, mesh, op="maxabs_scaler",
+                                    combine="max")(*shard_batch(mesh, X))
+        model = MaxAbsScalerModel(maxAbs=to_host(m))
         model.setParams(**self.paramValues())
         return model
 

@@ -24,8 +24,11 @@ JAX package; token columns are 1-D object columns of lists
 (:func:`~sntc_tpu_torch.core.frame.object_column`).  IDF's document
 frequency is one float32 reduction on the estimator's ``device``
 (default ``cuda``): ``((X > 0) * w[:, None]).sum(0)`` over every row at
-once; the counts are integers, so any order sums them exactly.  The idf
-is taken in float64 on the host, and IDFModel's transform is host numpy.
+once; the counts are integers, so any order sums them exactly.  With a
+``mesh=`` of more than one shard it is one ``make_tree_aggregate`` over
+``shard_batch``'s rows (the padding weighted 0), equal at every mesh
+size.  The idf is taken in float64 on the host, and IDFModel's
+transform is host numpy.
 """
 
 from __future__ import annotations
@@ -41,7 +44,12 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model, Transformer
 from sntc_tpu_torch.core.frame import Frame, object_column, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 from sntc_tpu_torch.utils.profiling import record_movement, upload
 
 __all__ = [
@@ -355,26 +363,37 @@ def doc_freq(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class IDF(Estimator):
     """``log((m + 1) / (df + 1))``; fits on ``device`` (default
-    ``cuda``): the document frequency is one reduction there."""
+    ``cuda``): the document frequency is one reduction there, or one a
+    shard over ``mesh`` (whose first local device is then the device)."""
 
     inputCol = Param("input count-vector column", default="rawFeatures")
     outputCol = Param("output vector column", default="features")
     minDocFreq = Param("terms below this df get idf 0", default=0,
                        validator=validators.gteq(0))
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "IDFModel":
         X = frame[self.getInputCol()]
-        if isinstance(X, torch.Tensor):
-            xs = X.to(self.device, torch.float32)
+        mesh = fit_mesh(self.mesh)
+        if mesh is not None:
+            X = (X.to(torch.float32) if isinstance(X, torch.Tensor)
+                 else np.ascontiguousarray(X, np.float32))
+            m = X.shape[0]
+            df = make_tree_aggregate(doc_freq, mesh, op="idf.doc_freq")(
+                *shard_batch(mesh, X))
         else:
-            xs = upload(np.ascontiguousarray(X, np.float32), self.device)
-        m = xs.shape[0]
-        w = torch.ones(m, dtype=torch.float32, device=self.device)
-        df = doc_freq(xs, w).cpu().numpy().astype(np.float64)
+            if isinstance(X, torch.Tensor):
+                xs = X.to(self.device, torch.float32)
+            else:
+                xs = upload(np.ascontiguousarray(X, np.float32), self.device)
+            m = xs.shape[0]
+            w = torch.ones(m, dtype=torch.float32, device=self.device)
+            df = doc_freq(xs, w)
+        df = df.cpu().numpy().astype(np.float64)
         record_movement(downloads=1, download_bytes=df.nbytes // 2)
         idf = np.log((m + 1.0) / (df + 1.0))
         idf[df < float(self.getMinDocFreq())] = 0.0

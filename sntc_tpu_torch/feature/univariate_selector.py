@@ -18,8 +18,12 @@ ANOVA and F-regression moments (:func:`anova_moments`,
 :func:`regression_moments`) are one pass on the estimator's device in
 full float32, about a pilot row (the statistics are shift-invariant, and
 raw f32 squares cancel on large-mean features); the F statistics and
-p-values are host scipy on ``[F]`` arrays, copied.  The model is a
-column select; on a tensor it runs on the tensor's device.
+p-values are host scipy on ``[F]`` arrays, copied.  With a ``mesh=`` of
+more than one shard the rows are laid out by ``shard_batch``: χ² launches
+``tree_hist`` once a shard and sums the tables, and each moment pass is
+one ``make_tree_aggregate`` (the pilots given whole to every shard, the
+padding weighted 0), summed in shard order.  The model is a column
+select; on a tensor it runs on the tensor's device.
 """
 
 from __future__ import annotations
@@ -32,13 +36,18 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.chisq_selector import chi2_scores
 from sntc_tpu_torch.feature.selection import (
     select_columns,
     select_features_by_mode,
 )
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+)
 
 
 _CHUNK_ROWS = 4096  # rows a partial product of the ANOVA moments sums
@@ -67,40 +76,75 @@ def chunked_t_matmul(a: torch.Tensor, b: torch.Tensor,
     return torch.bmm(a.transpose(1, 2), b).sum(dim=0)
 
 
-def anova_moments(X: np.ndarray, y: np.ndarray, n_classes: int, device):
+def _anova_block(xs, ys, w, pilot, n_classes: int) -> torch.Tensor:
+    """A block's weighted ``[count, Σ(x−p), Σ(x−p)²]``, flat (unit
+    weights multiply exactly: one device's rows weigh 1, sharded rows'
+    padding 0)."""
+    xs = xs - pilot[None, :]
+    oh = (torch.nn.functional.one_hot(ys, n_classes).to(torch.float32)
+          * w[:, None])
+    return torch.cat([oh.sum(dim=0), chunked_t_matmul(xs, oh).flatten(),
+                      chunked_t_matmul(xs * xs, oh).flatten()])
+
+
+def anova_moments(X: np.ndarray, y: np.ndarray, n_classes: int, device,
+                  mesh=None):
     """Per-(feature, class) ``(count [C], Σ(x−p) [F, C], Σ(x−p)² [F,
-    C])`` about the pilot row ``p = X[0]``, one pass on ``device``;
-    float32 host arrays."""
-    xs = _rows_on(X, device)
-    ys = torch.from_numpy(np.asarray(y).astype(np.int64)).to(device)
+    C])`` about the pilot row ``p = X[0]``, one pass on ``device`` or one
+    aggregate over ``mesh``; float32 host arrays."""
+    y = np.asarray(y).astype(np.int64)
     with full_f32():
-        xs = xs - xs[0][None, :]
-        oh = torch.nn.functional.one_hot(ys, n_classes).to(torch.float32)
-        cnt = oh.sum(dim=0)
-        s = chunked_t_matmul(xs, oh)
-        sq = chunked_t_matmul(xs * xs, oh)
-        f = xs.shape[1]
-        out = torch.cat([cnt, s.flatten(), sq.flatten()]).cpu().numpy()
-    c = n_classes
+        if mesh is None:
+            xs = _rows_on(X, device)
+            out = _anova_block(xs, torch.from_numpy(y).to(device),
+                               torch.ones(len(y), device=device), xs[0],
+                               n_classes)
+        else:
+            xs, ys, w = shard_batch(mesh, np.ascontiguousarray(X, np.float32),
+                                    y)
+            out = make_tree_aggregate(
+                lambda x, yy, ww, p: _anova_block(x, yy, ww, p, n_classes),
+                mesh, replicated_args=(3,), op="anova.moments",
+            )(xs, ys, w, torch.from_numpy(np.array(X[0], np.float32)))
+        out = out.cpu().numpy()
+    c, f = n_classes, X.shape[1]
     return (out[:c], out[c:c + f * c].reshape(f, c),
             out[c + f * c:].reshape(f, c))
 
 
-def regression_moments(X: np.ndarray, y: np.ndarray, device):
+def _regression_block(xs, ys, w, px, py) -> torch.Tensor:
+    """A block's weighted ``[Σw, Σx, Σx², Σy, Σy², Σxy]`` about the
+    pilots, flat (unit weights multiply exactly)."""
+    xs = xs - px[None, :]
+    ys = ys - py
+    wx = xs * w[:, None]
+    return torch.cat([w.sum().reshape(1), wx.sum(dim=0),
+                      (xs * wx).sum(dim=0), (ys * w).sum().reshape(1),
+                      (ys * ys * w).sum().reshape(1),
+                      (ys[:, None] * wx).sum(dim=0)])
+
+
+def regression_moments(X: np.ndarray, y: np.ndarray, device, mesh=None):
     """Per-feature ``(n, Σx, Σx², Σy, Σy², Σxy)`` about the pilots
-    ``X[0]`` and ``y[0]``, one pass on ``device``; float32 host values."""
-    xs = _rows_on(X, device)
-    ys = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+    ``X[0]`` and ``y[0]``, one pass on ``device`` or one aggregate over
+    ``mesh``; float32 host values."""
+    y = np.asarray(y, np.float32)
     with full_f32():
-        xs = xs - xs[0][None, :]
-        ys = ys - ys[0]
-        f = xs.shape[1]
-        out = torch.cat([
-            torch.tensor([float(xs.shape[0])], device=device),
-            xs.sum(dim=0), (xs * xs).sum(dim=0),
-            ys.sum().reshape(1), (ys * ys).sum().reshape(1),
-            (ys[:, None] * xs).sum(dim=0),
-        ]).cpu().numpy()
+        if mesh is None:
+            xs = _rows_on(X, device)
+            ys = torch.from_numpy(y).to(device)
+            out = _regression_block(xs, ys, torch.ones_like(ys), xs[0],
+                                    ys[0])
+        else:
+            xs, ys, w = shard_batch(mesh, np.ascontiguousarray(X, np.float32),
+                                    y)
+            out = make_tree_aggregate(
+                _regression_block, mesh, replicated_args=(3, 4),
+                op="fregression.moments",
+            )(xs, ys, w, torch.from_numpy(np.array(X[0], np.float32)),
+              torch.tensor(float(y[0]), dtype=torch.float32))
+        out = out.cpu().numpy()
+    f = X.shape[1]
     return (out[0], out[1:1 + f], out[1 + f:1 + 2 * f], out[1 + 2 * f],
             out[2 + 2 * f], out[3 + 2 * f:])
 
@@ -190,11 +234,13 @@ _MODE_DEFAULTS = {
 
 
 class UnivariateFeatureSelector(_UfsParams, Estimator):
-    """Scores on ``device`` (default ``cuda``)."""
+    """Scores on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _score(self, X, y):
         if X.shape[0] == 0:
@@ -202,6 +248,7 @@ class UnivariateFeatureSelector(_UfsParams, Estimator):
                 "UnivariateFeatureSelector requires a non-empty dataset"
             )
         ftype, ltype = self.getFeatureType(), self.getLabelType()
+        mesh = fit_mesh(self.mesh)
         if ftype is None or ltype is None:
             raise ValueError(
                 "featureType and labelType must both be set (Spark "
@@ -209,18 +256,18 @@ class UnivariateFeatureSelector(_UfsParams, Estimator):
             )
         if ftype == "categorical" and ltype == "categorical":
             # χ² on the binned contingency — ChiSqSelector's one pipeline
-            return chi2_scores(X, y, self.getMaxBins(), self.device)
+            return chi2_scores(X, y, self.getMaxBins(), self.device, mesh)
         if ltype == "categorical":  # continuous features, ANOVA F
             n_classes = int(y.max()) + 1 if len(y) else 1
             return f_classif(anova_moments(X, y.astype(np.int32), n_classes,
-                                           self.device))
+                                           self.device, mesh))
         if ftype == "categorical":
             raise ValueError(
                 "categorical features with a continuous label have no "
                 "Spark score function (Spark rejects this combination too)"
             )
         return f_regression(regression_moments(X, y.astype(np.float32),
-                                               self.device))
+                                               self.device, mesh))
 
     def _resolved_threshold(self):
         """The mode's threshold, validated BEFORE any scoring (its

@@ -6,8 +6,9 @@ is strictly greater than ``varianceThreshold`` (default 0.0 — drop
 constants).
 
 The variances come from the StandardScaler's one-pass moments
-(``standardization_moments``) on the estimator's device; the model is a
-column select, on a tensor on the tensor's device.
+(``standardization_moments``) on the estimator's device, or with a
+``mesh=`` of more than one shard as one aggregate over ``shard_batch``'s
+rows; the model is a column select, on a tensor on the tensor's device.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.selection import select_columns
 from sntc_tpu_torch.feature.standard_scaler import standardization_moments
+from sntc_tpu_torch.parallel.collectives import fit_device, fit_mesh, shard_batch
 
 
 class _VtsParams:
@@ -35,11 +36,13 @@ class _VtsParams:
 
 
 class VarianceThresholdSelector(_VtsParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "VarianceThresholdSelectorModel":
         X = frame[self.getFeaturesCol()]
@@ -47,10 +50,14 @@ class VarianceThresholdSelector(_VtsParams, Estimator):
             raise ValueError("featuresCol must be a vector column")
         X = np.asarray(to_host(X), np.float32)
         n = X.shape[0]
-        xs = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
-        ws = torch.ones(n, dtype=torch.float32, device=self.device)
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+            ws = torch.ones(n, dtype=torch.float32, device=self.device)
+        else:
+            xs, ws = shard_batch(mesh, X)
         _, _, var = standardization_moments(
-            xs, ws, np.asarray(X[0]) if n else np.zeros(X.shape[1])
+            xs, ws, np.asarray(X[0]) if n else np.zeros(X.shape[1]), mesh
         )
         # standardization_moments returns the population form; Spark
         # compares the UNBIASED sample variance

@@ -115,12 +115,13 @@ class LRPartialFitState:
         return self
 
 
-def incremental_estimator_for(model, device=None):
+def incremental_estimator_for(model, mesh=None, device=None):
     """An estimator whose ``partial_fit`` continues ``model`` (the serve
     command's ``--partial-fit``): the candidate head is refit from live
     labelled batches with the incumbent's own hyperparameters, on
-    ``device`` (default: the model's).  Supported heads: the two
-    estimators with a sufficient-statistic ``partial_fit`` (LR / NB)."""
+    ``device`` (default: the model's), or over ``mesh`` (default: the
+    mesh's first device).  Supported heads: the two estimators with a
+    sufficient-statistic ``partial_fit`` (LR / NB)."""
     from sntc_tpu_torch.models.logistic_regression import (
         LogisticRegression,
         LogisticRegressionModel,
@@ -140,7 +141,9 @@ def incremental_estimator_for(model, device=None):
             "partial_fit supports LogisticRegressionModel and "
             "NaiveBayesModel heads"
         )
-    est = cls(device=model.device if device is None else device)
+    if mesh is None and device is None:
+        device = model.device
+    est = cls(device=device, mesh=mesh)
     est.setParams(**{name: val for name, val in model.paramValues().items()
                      if est.hasParam(name)})
     return est

@@ -42,8 +42,8 @@ class LifecycleManager:
     and promotes.  ``partial_fit=True`` arms the online-learning loop:
     every labelled batch refits a candidate head cloned from the
     incumbent (:func:`~sntc_tpu_torch.lifecycle.incremental.
-    incremental_estimator_for`, on ``device``, default the head's) and
-    keeps it shadowed for the gate."""
+    incremental_estimator_for`, on ``device``, default the head's, or
+    over ``mesh``) and keeps it shadowed for the gate."""
 
     def __init__(
         self,
@@ -55,6 +55,7 @@ class LifecycleManager:
         prediction_col: str = "prediction",
         probability_col: str = "probability",
         device=None,
+        mesh=None,
     ):
         self.drift = drift
         self.promoter = promoter
@@ -66,6 +67,7 @@ class LifecycleManager:
         self.prediction_col = prediction_col
         self.probability_col = probability_col
         self._device = device
+        self._mesh = mesh
         self._n_classes = n_classes
         self._pf_estimator = None
         self._pf_state = None
@@ -129,7 +131,7 @@ class LifecycleManager:
         head = terminal_head(self.promoter.incumbent)
         if self._pf_estimator is None:
             self._pf_estimator = incremental_estimator_for(
-                head, device=self._device)
+                head, mesh=self._mesh, device=self._device)
         feats_col = head.getFeaturesCol()
         if feats_col not in out_frame:
             return

@@ -17,6 +17,12 @@ centering is applied to the rows once, before any product: ``x·w −
 μ·w`` as two large f32 dot products cancels.  The hinge is
 ``torch.maximum(0, ·)``, whose gradient at a margin of exactly 1 is ½,
 as ``jnp.maximum``'s is (``clamp`` would give 1 and ``relu`` 0).
+With a ``mesh=`` of more than one shard the rows are laid out by
+``shard_batch``: the moments are one aggregate, each shard's rows are
+centered on its device, and each objective evaluation sums the shards'
+``(Σ w·hinge, gradient, Σw)`` in shard order
+(``mlp.sharded_value_and_grad``), the penalty added once; the training
+summary's confusion matrix is summed over the same mesh.
 
 Serving computes the margin as a float64 product on the model's device.
 """
@@ -31,9 +37,19 @@ from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.standard_scaler import standardization_moments
 from sntc_tpu_torch.models.base import ClassificationModel, ClassifierEstimator
-from sntc_tpu_torch.models.mlp import value_and_grad_fn
+from sntc_tpu_torch.models.mlp import (
+    local_blocks,
+    sharded_value_and_grad,
+    value_and_grad_fn,
+)
 from sntc_tpu_torch.models.summary import BinaryClassificationTrainingSummary
 from sntc_tpu_torch.ops.lbfgs import full_f32, minimize_lbfgs
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    fit_rows,
+)
 from sntc_tpu_torch.utils.profiling import active_ledgers, record_movement
 
 
@@ -54,16 +70,33 @@ def svc_loss(theta, xc, y_signed, ws, w_sum, inv_std, reg, pen_l2, *,
 def _svc_optimize(xc, ys, ws, inv_std, reg, pen_l2, theta0, *,
                   fit_intercept: bool, max_iter: int, tol: float):
     """The hinge-LBFGS fit over the (centered) rows ``xc`` on their
-    device."""
-    w_sum = torch.sum(ws)
-    y_signed = 2.0 * ys.to(xc.dtype) - 1.0
+    device, or over a list of ``(xc, ys, ws)`` shard blocks of
+    ``ys.mesh``'s shards (``ys`` then the sharded labels)."""
+    if isinstance(ys, ShardedArray):
+        def data_fn(theta, x, y, w):
+            # a shard's Σ w·hinge: the loss without its penalty and its
+            # division by Σw
+            return svc_loss(theta, x, 2.0 * y.to(x.dtype) - 1.0, w, 1.0,
+                            inv_std.to(x.device), 0.0, pen_l2.to(x.device),
+                            fit_intercept=fit_intercept)
 
-    def loss_fn(theta):
-        return svc_loss(theta, xc, y_signed, ws, w_sum, inv_std, reg,
-                        pen_l2, fit_intercept=fit_intercept)
+        def penalty(theta):
+            d = inv_std.shape[0]
+            return 0.5 * reg * torch.sum(pen_l2 * theta[:d] * theta[:d])
 
-    return minimize_lbfgs(value_and_grad_fn(loss_fn), theta0,
-                          max_iter=max_iter, tol=tol)
+        value_and_grad = sharded_value_and_grad(ys.mesh, data_fn, xc,
+                                                penalty)
+    else:
+        w_sum = torch.sum(ws)
+        y_signed = 2.0 * ys.to(xc.dtype) - 1.0
+
+        def loss_fn(theta):
+            return svc_loss(theta, xc, y_signed, ws, w_sum, inv_std, reg,
+                            pen_l2, fit_intercept=fit_intercept)
+
+        value_and_grad = value_and_grad_fn(loss_fn)
+    return minimize_lbfgs(value_and_grad, theta0, max_iter=max_iter,
+                          tol=tol)
 
 
 class _SvcParams:
@@ -81,12 +114,14 @@ class _SvcParams:
 
 
 class LinearSVC(_SvcParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    coefficients live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    coefficients live on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "LinearSVCModel":
         X, y, w = self._extract(frame)
@@ -97,10 +132,10 @@ class LinearSVC(_SvcParams, ClassifierEstimator):
             )
         d = X.shape[1]
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        mesh = fit_mesh(self.mesh)
+        xs, ys, ws = fit_rows(X, y, w, dev, mesh)
         _, mean, var = standardization_moments(
-            xs, ws, X[0] if X.shape[0] else np.zeros(d))
+            xs, ws, X[0] if X.shape[0] else np.zeros(d), mesh)
         std = np.sqrt(np.maximum(var, 0.0))
         inv_std = np.divide(1.0, std, out=np.ones_like(std),
                             where=std > 0).astype(np.float32)
@@ -119,9 +154,13 @@ class LinearSVC(_SvcParams, ClassifierEstimator):
             return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
         with full_f32():
-            xc = xs - on_dev(mu_opt)[None, :]
+            if mesh is None:
+                xc = xs - on_dev(mu_opt)[None, :]
+            else:  # each shard's rows centered on its device
+                xc = [(x - on_dev(mu_opt).to(x.device)[None, :], y_, w_)
+                      for x, y_, w_ in local_blocks(xs, ys, ws)]
             res = _svc_optimize(
-                xc, torch.from_numpy(y.astype(np.int64)).to(dev), ws,
+                xc, ys, ws,
                 on_dev(inv_std), float(np.float32(self.getRegParam())),
                 on_dev(pen),
                 torch.zeros(d + 1 if fit_b else d, dtype=torch.float32,
@@ -144,7 +183,7 @@ class LinearSVC(_SvcParams, ClassifierEstimator):
         n_it = int(res.n_iters)
         model.summary = BinaryClassificationTrainingSummary(
             res.history.cpu().numpy()[: n_it + 1], n_it, model, frame,
-            labelCol=self.getLabelCol(),
+            labelCol=self.getLabelCol(), mesh=mesh,
         )
         model.optimizer_stats = {"iterations": n_it,
                                  "evaluations": res.n_evals,

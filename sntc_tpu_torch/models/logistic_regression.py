@@ -20,7 +20,10 @@ the estimator's device and every product in full float32.  With a
 the summarizer is one ``make_tree_aggregate`` and the objective the sum
 of the shards' ``(Σ w·loss, gradient, Σw)``
 (``mlp.sharded_value_and_grad``), the penalty added once; the lane
-fits below run on the mesh's first device.  The class
+fits below shard theirs the same way, each evaluation summing the
+shards' ``[L]`` lane losses, ``[L, P]`` gradients and ``[L]`` weight
+sums in shard order (one ``all_reduce`` across processes), so the lane
+loop's host reads do not grow with the shards.  The class
 counts are a one-hot product, not a scatter of atomics, so the fit is
 the same run to run.  The summarizer takes raw Σx² (not pilot-shifted,
 unlike the scaler), as the JAX package does.
@@ -70,10 +73,12 @@ from sntc_tpu_torch.parallel.collectives import (
     ShardedArray,
     fit_device,
     fit_mesh,
+    fit_rows,
     make_tree_aggregate,
+    place_rows,
     shard_batch,
-    shard_weights,
 )
+from sntc_tpu_torch.parallel.mesh import reduce_at
 from sntc_tpu_torch.models.summary import (
     BinaryClassificationTrainingSummary,
     ClassificationTrainingSummary,
@@ -204,38 +209,101 @@ def _lr_optimize(
     )
 
 
+def _lr_folds_block(xs, ys, ws_b, k):
+    """One block's per-fold moments and class sums ``[F, 2D+1+K]`` from
+    its ``[F, N]`` weight masks."""
+    onehot = torch.nn.functional.one_hot(ys, k).to(ws_b.dtype)
+    return torch.cat([ws_b @ xs, ws_b @ (xs * xs), ws_b.sum(1, keepdim=True),
+                      ws_b @ onehot], 1)
+
+
 def _lr_summarize_folds(xs, ys, ws_b, k):
     """Per-fold moments and class sums from ``[F, N]`` weight masks (each
     cross-validation fold standardizes on its own train rows, as a
-    sequential sub-fit would), as float64 host arrays ``[F, ...]``."""
-    onehot = torch.nn.functional.one_hot(ys, k).to(ws_b.dtype)
+    sequential sub-fit would), as float64 host arrays ``[F, ...]``.
+    Over sharded rows the masks are sharded with them, ``[N, F]`` (a
+    fold a column), and the shards' passes are summed."""
+    if isinstance(xs, ShardedArray):
+        out = make_tree_aggregate(
+            lambda x, y, w: _lr_folds_block(x, y, w.t().contiguous(), k),
+            xs.mesh, op="lr.summarize_folds")(xs, ys, ws_b)
+    else:
+        out = _lr_folds_block(xs, ys, ws_b, k)
+    out = out.cpu().numpy().astype(np.float64)
     d = xs.shape[1]
-    out = torch.cat([ws_b @ xs, ws_b @ (xs * xs), ws_b.sum(1, keepdim=True),
-                     ws_b @ onehot], 1).cpu().numpy().astype(np.float64)
     return out[:, :d], out[:, d:2 * d], out[:, 2 * d], out[:, 2 * d + 1:]
 
 
+def _lane_blocks(xs, ys, ws, lanes_fn):
+    """The lane program's rows ``(x, ys_lanes, ws_lanes)``, the lanes'
+    labels and weights from ``lanes_fn(x, y, w)``: one tuple on one
+    device, or over sharded rows a list of them, one a local shard."""
+    if isinstance(xs, ShardedArray):
+        return [(x,) + lanes_fn(x, y, w)
+                for x, y, w in zip(xs.blocks, ys.blocks, ws.blocks)]
+    return (xs,) + lanes_fn(xs, ys, ws)
+
+
 def _lr_lane_program(
-    xs, ys_lanes, ws_lanes, inv_std_b, l2_b, pen_l2_b, l1_vec_b, theta0_b,
-    *, binomial, fit_intercept, k, max_iter, tol, use_l1,
+    rows, inv_std_b, l2_b, pen_l2_b, l1_vec_b, theta0_b,
+    *, binomial, fit_intercept, k, max_iter, tol, use_l1, mesh=None,
 ):
     """One lane-batched LBFGS/OWLQN fit: the gradient of the lanes'
     summed objectives is each lane's own gradient (the lanes share no
-    parameter)."""
-    d = xs.shape[1]
-    n_coef = d if binomial else d * k
-    w_sum = torch.sum(ws_lanes, dim=1)
+    parameter).  ``rows`` is ``(xs, ys_lanes, ws_lanes)`` on one device,
+    or, over ``mesh``, a list of them, one a local shard: each shard's
+    lanes' ``Σ w·loss [L]``, gradients ``[L, P]`` and ``Σw [L]`` are
+    summed in shard order (one ``all_reduce`` across processes), then
+    divided, the penalty added once."""
+    if mesh is None:
+        xs, ys_lanes, ws_lanes = rows
+        d = xs.shape[1]
+        n_coef = d if binomial else d * k
+        w_sum = torch.sum(ws_lanes, dim=1)
 
-    def value_and_grad(theta):
-        t = theta.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = _lr_lane_losses(
-                t, xs, ys_lanes, ws_lanes, inv_std_b, l2_b, pen_l2_b, w_sum,
-                binomial=binomial, fit_intercept=fit_intercept, k=k,
-                n_coef=n_coef,
-            )
-            (g,) = torch.autograd.grad(loss.sum(), t)
-        return loss.detach(), g
+        def value_and_grad(theta):
+            t = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = _lr_lane_losses(
+                    t, xs, ys_lanes, ws_lanes, inv_std_b, l2_b, pen_l2_b,
+                    w_sum, binomial=binomial, fit_intercept=fit_intercept,
+                    k=k, n_coef=n_coef,
+                )
+                (g,) = torch.autograd.grad(loss.sum(), t)
+            return loss.detach(), g
+    else:
+        d = rows[0][0].shape[1]
+        n_coef = d if binomial else d * k
+        L = theta0_b.shape[0]
+        zero = torch.zeros_like(l2_b)
+        one = torch.ones_like(l2_b)
+
+        def value_and_grad(theta):
+            parts = []
+            for x, ys_l, ws_l in rows:
+                dv = x.device
+                t = theta.detach().to(dv).requires_grad_(True)
+                with torch.enable_grad():
+                    # a shard's Σ w·loss a lane: the lane objective without
+                    # its penalty and its division by Σw
+                    v = _lr_lane_losses(
+                        t, x, ys_l, ws_l, inv_std_b.to(dv), zero.to(dv),
+                        pen_l2_b.to(dv), one.to(dv), binomial=binomial,
+                        fit_intercept=fit_intercept, k=k, n_coef=n_coef,
+                    )
+                    (g,) = torch.autograd.grad(v.sum(), t)
+                w_l = ws_l.sum(dim=1).expand(L)  # shared weights: [1]
+                parts.append(torch.cat([v.detach()[:, None], g,
+                                        w_l[:, None]], dim=1))
+            tot = reduce_at(parts, mesh=mesh).to(theta.device)
+            w_sum = tot[:, -1:]
+            t = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                pen = 0.5 * l2_b * torch.sum(pen_l2_b * t[:, :n_coef] ** 2,
+                                             dim=1)
+                (gp,) = torch.autograd.grad(pen.sum(), t)
+            return (tot[:, 0] / w_sum[:, 0] + pen.detach(),
+                    tot[:, 1:-1] / w_sum + gp)
 
     return minimize_lbfgs_lanes(
         value_and_grad, theta0_b, max_iter=max_iter, tol=tol,
@@ -251,10 +319,12 @@ def _lr_optimize_grid(
     the rows, their weights and the standardization, and differ in the
     penalty vectors and the start point."""
     L = theta0_b.shape[0]
+    mesh = xs.mesh if isinstance(xs, ShardedArray) else None
+    rows = _lane_blocks(xs, ys, ws, lambda x, y, w: (y, w[None, :]))
     return _lr_lane_program(
-        xs, ys, ws[None, :], inv_std[None, :].expand(L, -1), l2_b, pen_l2_b,
+        rows, inv_std[None, :].expand(L, -1), l2_b, pen_l2_b,
         l1_vec_b, theta0_b, binomial=binomial, fit_intercept=fit_intercept,
-        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1,
+        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1, mesh=mesh,
     )
 
 
@@ -265,11 +335,19 @@ def _lr_optimize_lanes(
 ):
     """Fold × grid lanes in one loop: lane l weighs the rows by its
     fold's mask ``ws_folds[fold_idx_b[l]]`` (the masks are on the device
-    once, ``[F, N]``) and carries its fold's standardization."""
+    once, ``[F, N]``; over a mesh sharded with the rows, ``[N, F]``) and
+    carries its fold's standardization."""
+    mesh = xs.mesh if isinstance(xs, ShardedArray) else None
+    if mesh is None:
+        rows = (xs, ys, ws_folds[fold_idx_b])
+    else:
+        rows = _lane_blocks(
+            xs, ys, ws_folds,
+            lambda x, y, w: (y, w.t().contiguous()[fold_idx_b.to(w.device)]))
     return _lr_lane_program(
-        xs, ys, ws_folds[fold_idx_b], inv_std_b, l2_b, pen_l2_b,
+        rows, inv_std_b, l2_b, pen_l2_b,
         l1_vec_b, theta0_b, binomial=binomial, fit_intercept=fit_intercept,
-        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1,
+        k=k, max_iter=max_iter, tol=tol, use_l1=use_l1, mesh=mesh,
     )
 
 
@@ -278,18 +356,23 @@ def _lr_optimize_ovr(
     *, fit_intercept, max_iter, tol, use_l1,
 ):
     """K one-vs-rest binary fits in one loop: lane c relabels the shared
-    labels ``ys == c`` on the device; every lane has the same penalty."""
+    labels ``ys == c`` on the device (on each shard's, over a mesh);
+    every lane has the same penalty."""
     L = theta0_b.shape[0]
-    d = xs.shape[1]
-    ys_c = (class_ids[:, None] == ys[None, :]).to(xs.dtype)
+    mesh = xs.mesh if isinstance(xs, ShardedArray) else None
+
+    def relabel(x, y, w):
+        return ((class_ids.to(y.device)[:, None] == y[None, :]).to(x.dtype),
+                w[None, :])
 
     def lanes(v):
         return v[None].expand(L, *v.shape)
 
+    rows = _lane_blocks(xs, ys, ws, relabel)
     return _lr_lane_program(
-        xs, ys_c, ws[None, :], lanes(inv_std), lanes(l2), lanes(pen_l2),
+        rows, lanes(inv_std), lanes(l2), lanes(pen_l2),
         lanes(l1_vec), theta0_b, binomial=True, fit_intercept=fit_intercept,
-        k=2, max_iter=max_iter, tol=tol, use_l1=use_l1,
+        k=2, max_iter=max_iter, tol=tol, use_l1=use_l1, mesh=mesh,
     )
 
 
@@ -438,13 +521,24 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         n, d = X.shape
         binomial, k = ests[0]._resolve_family(y, n)
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+        mesh = fit_mesh(self.mesh)
         fold_of = np.asarray(fold_of)
-        masks = np.zeros((num_folds, n), np.float32)
-        for f in range(num_folds):
-            masks[f] = (fold_of != f) * w  # zero weight = not in the fold
-        ws_folds = torch.from_numpy(masks).to(dev)
+        if mesh is None:
+            xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(
+                dev)
+            ys = torch.from_numpy(y.astype(np.int64)).to(dev)
+            masks = np.zeros((num_folds, n), np.float32)
+            for f in range(num_folds):
+                masks[f] = (fold_of != f) * w  # zero weight = not in the fold
+            ws_folds = torch.from_numpy(masks).to(dev)
+        else:
+            # the masks sharded with the rows (a fold a column; zero on
+            # the padding)
+            xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
+            masks = np.zeros((xs.shape[0], num_folds), np.float32)
+            for f in range(num_folds):
+                masks[:n, f] = (fold_of != f) * w
+            ws_folds = place_rows(mesh, masks)
         with full_f32():
             s1, s2, cnt, cc = _lr_summarize_folds(xs, ys, ws_folds, k)
         preps = []
@@ -494,17 +588,17 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
                 models[f][g] = model
         return models
 
-    def _fit_ovr_lanes(self, X, y, w, k):
+    def _fit_ovr_lanes(self, X, y, w, k, mesh=None):
         """K one-vs-rest binary models from one lane loop (see
         ``_lr_optimize_ovr``): the summarizer runs once (the moments do
         not depend on the class), each lane's intercept starts at its
         class's prior log odds, and lane c's labels are relabeled on the
-        device."""
+        device.  Over ``mesh`` (of more than one shard) the rows are
+        sharded once for the summarizer and the loop."""
         n, d = X.shape
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        mesh = fit_mesh(mesh)
+        xs, ys, ws = fit_rows(X, y, w, dev, mesh)
         with full_f32():
             std, inv_std, class_counts = self._moments_to_stats(
                 *_lr_summarize(xs, ys, ws, k)
@@ -546,7 +640,7 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         points run apart (their update rules differ)."""
         ests = [self.copy(m) for m in param_maps]
         with full_f32():
-            prep = ests[0]._prep_data(frame)
+            prep = ests[0]._prep_data(frame, fit_mesh(self.mesh))
         vecs = [e._grid_vectors(prep) for e in ests]
         inv_std = torch.from_numpy(
             np.asarray(prep["inv_std"], np.float32)).to(self.device)
@@ -663,14 +757,7 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         n, d = X.shape
         binomial, k = self._resolve_family(y, n)
         dev = self.device
-        if mesh is None:
-            xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(
-                dev)
-            ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-            ws = torch.from_numpy(w).to(dev)
-        else:
-            xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
-            ws = shard_weights(mesh, w, xs.shape[0])
+        xs, ys, ws = fit_rows(X, y, w, dev, mesh)
         std, inv_std, class_counts = self._moments_to_stats(
             *_lr_summarize(xs, ys, ws, k)
         )
@@ -678,8 +765,9 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
             "xs": xs, "ys": ys, "ws": ws, "n": n, "d": d, "k": k,
             "binomial": binomial, "std": std,
             "inv_std": inv_std, "class_counts": class_counts,
-            # kept for the training summary (lazy predictions frame)
-            "frame": frame,
+            # kept for the training summary (lazy predictions frame),
+            # whose confusion matrix is summed over the fit's mesh
+            "frame": frame, "mesh": mesh,
         }
 
     def _penalty_vectors(self, d: int, k: int, binomial: bool, inv_std):
@@ -790,6 +878,7 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
         )
         model.summary = summary_cls(
             hist, n_iters, model, prep["frame"], labelCol=self.getLabelCol(),
+            mesh=prep.get("mesh"),
         )
         return model
 
@@ -928,9 +1017,8 @@ class LogisticRegression(_LrParams, CheckpointParams, ClassifierEstimator):
                     f"label {int(y.max())} outside the class set fixed at "
                     f"the first partial_fit call ({state.k} classes)")
         dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        mesh = fit_mesh(self.mesh)
+        xs, ys, ws = fit_rows(X, y, w, dev, mesh)
         with full_f32():
             s1, s2, cnt, cc = _lr_summarize(xs, ys, ws, state.k)
         state.update(s1, s2, cnt, cc, n_rows=n, decay=decay)

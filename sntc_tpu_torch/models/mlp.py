@@ -40,8 +40,7 @@ from sntc_tpu_torch.parallel.collectives import (
     ShardedArray,
     fit_device,
     fit_mesh,
-    shard_batch,
-    shard_weights,
+    fit_rows,
 )
 from sntc_tpu_torch.parallel.mesh import reduce_at
 from sntc_tpu_torch.obs.cost import matmul_flops
@@ -270,14 +269,7 @@ class MultilayerPerceptronClassifier(_MlpParams, CheckpointParams, ClassifierEst
 
         dev = self.device
         mesh = fit_mesh(self.mesh)
-        if mesh is None:
-            xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(
-                dev)
-            ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-            ws = torch.from_numpy(w).to(dev)
-        else:
-            xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
-            ws = shard_weights(mesh, w, xs.shape[0])
+        xs, ys, ws = fit_rows(X, y, w, dev, mesh)
         theta0_t = torch.from_numpy(theta0).to(dev)
         compute_dtype = getattr(torch, self.getComputeDtype())
 

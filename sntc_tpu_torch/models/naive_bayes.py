@@ -21,11 +21,14 @@ The fit is one pass over the rows on the estimator's device (class
 weights, Σw(x−p) and Σw(x−p)² about a pilot row ``p``, as one-hot
 products in full float32) and, for the gaussian type, a second pass of
 squared deviations about each row's own class mean.  The model is
-finished in float64 on the host.  ``partial_fit`` runs the first pass
-on each mini-batch and folds it into a host float64 state
-(``lifecycle.incremental.NBPartialFitState``); the gaussian variance then
-comes from the accumulated pilot-shifted moments by the one-pass shift
-identity.  Serving a discrete type is one f32
+finished in float64 on the host.  With a ``mesh=`` of more than one
+shard the rows are laid out by ``shard_batch`` and each pass is one
+``make_tree_aggregate``: every shard's moments on its device, summed in
+shard order (the pilot and the class means given whole to each shard).
+``partial_fit`` runs the first pass on each mini-batch and folds it
+into a host float64 state (``lifecycle.incremental.NBPartialFitState``);
+the gaussian variance then comes from the accumulated pilot-shifted
+moments by the one-pass shift identity.  Serving a discrete type is one f32
 product, a shifted softmax and the packed raw | prob | prediction block
 on the model's device.  The gaussian log-likelihood runs in float64 on
 the model's device (f32 sums flip the argmax on flow data), one class at
@@ -51,17 +54,47 @@ from sntc_tpu_torch.models.base import (
     pack_serve_outputs,
 )
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    fit_rows,
+    make_tree_aggregate,
+)
+
+
+def _moments_block(xs, ys, ws, pilot, k: int) -> torch.Tensor:
+    shifted = xs - pilot[None, :]
+    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
+    return torch.cat([oh.sum(0)[:, None], oh.t() @ shifted,
+                      oh.t() @ (shifted * shifted)], dim=1)
+
+
+def _sq_block(xs, ys, ws, mu, k: int) -> torch.Tensor:
+    diff = xs - mu[ys]
+    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
+    return oh.t() @ (diff * diff)
+
+
+def _on_rows(block_fn, xs, ys, ws, const: np.ndarray, k: int, op: str):
+    """``block_fn(xs, ys, ws, const, k)`` over the rows on their device,
+    or over sharded rows as one aggregate (``const`` given whole to every
+    shard), as a float64 host array."""
+    const_t = torch.from_numpy(np.asarray(const, np.float32))
+    if isinstance(xs, ShardedArray):
+        out = make_tree_aggregate(
+            lambda x, y, w, c: block_fn(x, y, w, c, k), xs.mesh,
+            replicated_args=(3,), op=op)(xs, ys, ws, const_t)
+    else:
+        out = block_fn(xs, ys, ws, const_t.to(xs.device), k)
+    return out.cpu().numpy().astype(np.float64)
 
 
 def _class_moments(xs, ys, ws, pilot, k: int):
     """One pass: per-class weight ``[C]``, Σw·(x−p) and Σw·(x−p)² ``[C,
     F]`` about the pilot row ``p`` (raw f32 Σx² cancels on features whose
     mean dwarfs their spread), as float64 host arrays."""
-    shifted = xs - torch.from_numpy(pilot).to(xs.device)[None, :]
-    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
-    out = torch.cat([oh.sum(0)[:, None], oh.t() @ shifted,
-                     oh.t() @ (shifted * shifted)], dim=1)
-    out = out.cpu().numpy().astype(np.float64)
+    out = _on_rows(_moments_block, xs, ys, ws, pilot, k, "nb.moments")
     d = xs.shape[1]
     return out[:, 0], out[:, 1:1 + d], out[:, 1 + d:]
 
@@ -71,10 +104,7 @@ def _class_sq_about_mean(xs, ys, ws, mu, k: int) -> np.ndarray:
     deviated about its OWN class mean.  One pass of E[x²]−E[x]², even
     pilot-shifted, cancels small class variances away when a feature's
     overall spread is huge (flow durations span ~1e8)."""
-    mu_d = torch.from_numpy(np.asarray(mu, np.float32)).to(xs.device)
-    diff = xs - mu_d[ys]
-    oh = torch.nn.functional.one_hot(ys, k).to(xs.dtype) * ws[:, None]
-    return (oh.t() @ (diff * diff)).cpu().numpy().astype(np.float64)
+    return _on_rows(_sq_block, xs, ys, ws, mu, k, "nb.sq_about_mean")
 
 
 def _pack_log_joint(raw, thr, *, mode):
@@ -113,12 +143,14 @@ class _NbParams:
 
 
 class NaiveBayes(_NbParams, ClassifierEstimator):
-    """Fits on ``device`` (default ``cuda``) and returns a model whose
-    parameters live on the same device."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device), and returns a model whose
+    parameters live on that device."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     @staticmethod
     def _validate_features(X: np.ndarray, mt: str) -> None:
@@ -192,10 +224,7 @@ class NaiveBayes(_NbParams, ClassifierEstimator):
         k = max(int(y.max()) + 1 if len(y) else 2, 2)
         D = X.shape[1]
         self._validate_features(X, mt)
-        dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        xs, ys, ws = fit_rows(X, y, w, self.device, fit_mesh(self.mesh))
         pilot = (np.asarray(X[0], np.float32) if len(X)
                  else np.zeros(D, np.float32))
         p64 = pilot.astype(np.float64)
@@ -252,10 +281,7 @@ class NaiveBayes(_NbParams, ClassifierEstimator):
                     f"label {int(y.max())} outside the class set fixed "
                     f"at the first partial_fit call ({state.n_classes} "
                     "classes)")
-        dev = self.device
-        xs = torch.from_numpy(np.require(X, requirements=["C", "W"])).to(dev)
-        ys = torch.from_numpy(y.astype(np.int64)).to(dev)
-        ws = torch.from_numpy(w).to(dev)
+        xs, ys, ws = fit_rows(X, y, w, self.device, fit_mesh(self.mesh))
         with full_f32():
             cw, s_sh, sq_sh = _class_moments(xs, ys, ws, state.pilot,
                                              state.n_classes)

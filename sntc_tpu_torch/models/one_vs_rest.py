@@ -21,6 +21,12 @@ depth serve as one ``forest_traversal`` launch over all K classes'
 trees and a ``[K, M]`` selection product.  Other sub-models serve one
 by one.  The features are cast to float32 first, as the JAX package's
 ``transform`` casts them.
+
+``mesh=`` is resolved as the JAX package resolves it: the OneVsRest's
+own mesh, else the classifier's.  An own mesh fits through a copy of the
+classifier on that mesh (its device the mesh's first), so LR's lanes,
+GBT's boosting loop and the per-class sub-fits all shard over it; with
+neither the fits stay on the classifier's device.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from sntc_tpu_torch.models.base import (
 )
 from sntc_tpu_torch.kernels.forest import forest_leaf_stats as _traverse
 from sntc_tpu_torch.models.linear_svc import LinearSVCModel
+from sntc_tpu_torch.parallel.collectives import fit_device
 from sntc_tpu_torch.models.logistic_regression import (
     LogisticRegression,
     LogisticRegressionModel,
@@ -134,11 +141,28 @@ class _OvrParams(ClassifierParams):
 
 
 class OneVsRest(_OvrParams, ClassifierEstimator):
-    def __init__(self, classifier=None, **kwargs):
+    def __init__(self, classifier=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
         if classifier is None:
             raise ValueError("OneVsRest requires a classifier estimator")
         self.classifier = classifier
+        self.mesh = mesh
+
+    def _classifier_on_mesh(self):
+        """``(classifier, mesh)``: the classifier, or with an own mesh a
+        copy of it fitting over that mesh; the mesh the fits shard over
+        (None: the classifier's device)."""
+        clf = self.classifier
+        if self.mesh is None:
+            return clf, getattr(clf, "mesh", None)
+        if not hasattr(clf, "mesh"):
+            raise ValueError(
+                f"{type(clf).__name__} takes no mesh; OneVsRest(mesh=...) "
+                "needs a classifier that does")
+        clf = clf.copy()
+        clf.mesh = self.mesh
+        clf.device = fit_device(None, self.mesh)
+        return clf, self.mesh
 
     def _fit(self, frame: Frame) -> "OneVsRestModel":
         X, y, w = self._extract(frame)
@@ -151,8 +175,9 @@ class OneVsRest(_OvrParams, ClassifierEstimator):
         # forward sample weights to every binary sub-fit (Spark parity)
         if self.getWeightCol() and self.classifier.hasParam("weightCol"):
             overrides["weightCol"] = self.getWeightCol()
+        clf, mesh = self._classifier_on_mesh()
         models: Optional[List[ClassificationModel]] = self._fit_vectorized(
-            X, y, w, k, frame
+            clf, mesh, X, y, w, k, frame
         )
         if models is not None:
             # saved metadata must not depend on the path: vectorized
@@ -166,22 +191,22 @@ class OneVsRest(_OvrParams, ClassifierEstimator):
             models = []
             for c in range(k):
                 sub = frame.with_column(bin_col, (y == c).astype(np.float64))
-                models.append(self.classifier.copy(overrides).fit(sub))
+                models.append(clf.copy(overrides).fit(sub))
         model = OneVsRestModel(models=models)
         model.setParams(
             **{k2: v for k2, v in self.paramValues().items() if model.hasParam(k2)}
         )
         return model
 
-    def _fit_vectorized(self, X, y, w, k, frame):
-        """All classes at once for a LogisticRegression (K binary lanes
-        relabeled on the device) or GBT base classifier (K trees a
-        boosting round over the same binned features), or None: another
-        classifier, a weightCol set on the classifier itself (it names a
-        column of the relabeled sub-frame, which only the sequential
-        path builds), an LR outside ``supports_vectorized_ovr``, or GBT
-        with mid-fit checkpoints (the sequential path owns them)."""
-        clf = self.classifier
+    def _fit_vectorized(self, clf, mesh, X, y, w, k, frame):
+        """All classes at once, over ``mesh``, for a LogisticRegression
+        (K binary lanes relabeled on the device) or GBT base classifier
+        (K trees a boosting round over the same binned features), or
+        None: another classifier, a weightCol set on the classifier
+        itself (it names a column of the relabeled sub-frame, which only
+        the sequential path builds), an LR outside
+        ``supports_vectorized_ovr``, or GBT with mid-fit checkpoints
+        (the sequential path owns them)."""
         if not isinstance(clf, (LogisticRegression, GBTClassifier)):
             return None
         if clf.getWeightCol() and not self.getWeightCol():
@@ -189,12 +214,13 @@ class OneVsRest(_OvrParams, ClassifierEstimator):
         if isinstance(clf, LogisticRegression):
             if not clf.supports_vectorized_ovr():
                 return None
-            return clf._fit_ovr_lanes(X, y, w, k)
+            return clf._fit_ovr_lanes(X, y, w, k, mesh)
         if clf.getCheckpointInterval() > 0 and clf.getCheckpointDir():
             return None
         vcol = clf.getValidationIndicatorCol()
         val_mask = to_host(frame[vcol]).astype(bool) if vcol else None
-        return fit_gbt_ovr_vectorized(clf, X, y, w, k, val_mask=val_mask)
+        return fit_gbt_ovr_vectorized(clf, X, y, w, k, mesh,
+                                      val_mask=val_mask)
 
     def _sub_stages(self):
         return [self.classifier]

@@ -8,7 +8,8 @@ first access) with the per-class metrics of one confusion matrix;
 binomial models add the threshold curves (``roc``, ``areaUnderROC``,
 ``pr``, ``...ByThreshold``) of one sweep, cached.  LinearSVC, the
 random forest and binary GBT fits carry them too (the trees with an
-empty objective history).
+empty objective history).  A summary given the fit's ``mesh=`` hands it
+to the confusion matrix (summed per shard).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class ClassificationSummary:
     runs on first access of :attr:`predictions`/any metric."""
 
     def __init__(self, model, frame, labelCol: str = "label",
-                 weightCol: Optional[str] = None):
+                 weightCol: Optional[str] = None, mesh=None):
         self._model = model
         self._frame = frame
         self.labelCol = labelCol
@@ -43,6 +44,7 @@ class ClassificationSummary:
             else None
         )
         self.weightCol = weightCol
+        self._mesh = mesh
         self._predictions = None
         self._metrics = None
 
@@ -61,6 +63,7 @@ class ClassificationSummary:
                 to_host(out[self.labelCol]),
                 to_host(out[self.predictionCol]),
                 weights=to_host(out[self.weightCol]) if self.weightCol else None,
+                mesh=self._mesh,
             )
         return self._metrics
 
@@ -199,10 +202,11 @@ class BinaryClassificationSummary(ClassificationSummary):
 
 class ClassificationTrainingSummary(ClassificationSummary, TrainingSummary):
     def __init__(self, objective_history, total_iterations, model, frame,
-                 labelCol="label", weightCol=None):
+                 labelCol="label", weightCol=None, mesh=None):
         TrainingSummary.__init__(self, objective_history, total_iterations)
         ClassificationSummary.__init__(
             self, model, frame, labelCol=labelCol, weightCol=weightCol,
+            mesh=mesh,
         )
 
 

@@ -84,11 +84,13 @@ def _forest_margins(X, forest: Forest):
     )
 
 
-def _prepare_boosting(classifier: "GBTClassifier", X: np.ndarray, w, device):
+def _prepare_boosting(classifier: "GBTClassifier", X: np.ndarray, w, device,
+                      mesh=None):
     """Shared boosting setup of the sequential (binary, checkpointable)
     and the vectorized one-vs-rest fits — one place for the bin edges,
     the grower's arguments and the per-round subsample mask, so that the
-    two grow the same trees."""
+    two grow the same trees.  The histograms run over ``mesh`` (default
+    the classifier's)."""
     n, F = X.shape
     n_bins = classifier.getMaxBins()
     seed = classifier.getSeed()
@@ -96,7 +98,7 @@ def _prepare_boosting(classifier: "GBTClassifier", X: np.ndarray, w, device):
 
     edges = quantile_bin_edges(X, max_bins=n_bins, seed=seed)
     Xd = torch.from_numpy(np.ascontiguousarray(X)).to(device)
-    mesh = fit_mesh(classifier.mesh)
+    mesh = fit_mesh(classifier.mesh if mesh is None else mesh)
     if mesh is None:
         binned_t = bin_features(Xd, torch.from_numpy(edges).to(device)).t()
     else:
@@ -476,9 +478,11 @@ def fit_gbt_ovr_vectorized(
     y: np.ndarray,
     w: np.ndarray,
     num_classes: int,
+    mesh=None,
     val_mask: Optional[np.ndarray] = None,
 ) -> list:
-    """All K one-vs-rest binary GBT fits in ONE boosting loop.
+    """All K one-vs-rest binary GBT fits in ONE boosting loop, its
+    histograms over ``mesh`` (default the classifier's).
 
     The class axis rides the grower's tree axis: every round grows K
     trees over the SAME binned features with per-class residual stats
@@ -509,7 +513,7 @@ def fit_gbt_ovr_vectorized(
     max_depth = classifier.getMaxDepth()
 
     (edges, Xd, ws, binned_t, grow_kwargs, round_mask,
-     round_rng) = _prepare_boosting(classifier, X, w, dev)
+     round_rng) = _prepare_boosting(classifier, X, w, dev, mesh)
     tracker = None
     if val_mask is not None:
         tracker = _ValidationTracker(classifier.getValidationTol(), k=K)

@@ -495,6 +495,20 @@ def fit_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
     return mesh
 
 
+def fit_rows(X: np.ndarray, y: np.ndarray, w: np.ndarray, device,
+             mesh: Optional[Mesh]) -> tuple:
+    """A supervised fit's ``(xs, ys, ws)``: the rows, the labels as
+    int64 and the row weights on ``device`` without a mesh, else laid
+    out by :func:`shard_batch` over ``mesh`` (the weights zero on the
+    padding)."""
+    if mesh is None:
+        return (torch.from_numpy(np.require(X, requirements=["C", "W"]))
+                .to(device), torch.from_numpy(y.astype(np.int64)).to(device),
+                torch.from_numpy(w).to(device))
+    xs, ys, _ = shard_batch(mesh, X, y.astype(np.int64))
+    return xs, ys, shard_weights(mesh, w, xs.shape[0])
+
+
 def fit_device(device, mesh: Optional[Mesh]) -> torch.device:
     """An estimator's device: ``device`` (default ``cuda``) without a
     mesh; with one, the mesh's first local device, which an explicit

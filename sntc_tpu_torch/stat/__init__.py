@@ -6,7 +6,12 @@ Counterpart of ``sntc_tpu/stat/__init__.py`` (Spark's ``ml/stat``:
 :class:`~sntc_tpu_torch.core.frame.Frame` whose 2-D columns are the
 vectors (for ``Correlation`` an ``[F, F]`` frame of matrix rows), as in
 the JAX package.  Each entry point takes ``device`` (default ``cuda``)
-where the JAX one takes ``mesh``:
+and ``mesh``: with a mesh of more than one shard the rows are laid out
+by ``shard_batch`` and each pass below is one ``make_tree_aggregate``
+(the pilot row given whole to every shard, the padding weighted 0),
+summed in shard order — ``ChiSquareTest``'s contingency one
+``tree_hist`` launch a shard, the Summarizer's min and max reduced as
+min and max:
 
 * ``Correlation``: pearson is one pass on the device (Σw, Σ(x−p) and the
   Gram ``(x−p)ᵀ(x−p)`` about a pilot row, in full float32); spearman is
@@ -33,7 +38,13 @@ import numpy as np
 import torch
 
 from sntc_tpu_torch.core.frame import Frame, to_host
-from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+    shard_batch,
+    shard_weights,
+)
 from sntc_tpu_torch.feature.univariate_selector import (
     anova_moments,
     f_classif,
@@ -65,16 +76,33 @@ def _features_matrix(frame: Frame, col: str) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _corr_moments(X: np.ndarray, device):
+def _corr_block(xs, w, pilot) -> torch.Tensor:
+    """A block's ``(Σw, Σw(x−p), (x−p)ᵀ diag(w) (x−p))``, flat (unit
+    weights multiply exactly)."""
+    xc = xs - pilot[None, :]
+    wx = xc * w[:, None]
+    return torch.cat([w.sum().reshape(1), wx.sum(dim=0),
+                      (xc.t() @ wx).flatten()])
+
+
+def _corr_moments(X: np.ndarray, device, mesh=None):
     """``(n, Σ(x−p) [F], (x−p)ᵀ(x−p) [F, F])`` about the pilot row ``p =
-    X[0]``, one pass on ``device``; float32 host values."""
-    xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
+    X[0]``, one pass on ``device`` or one aggregate over ``mesh``;
+    float32 host values."""
+    f = X.shape[1]
     with full_f32():
-        xc = xs - xs[0][None, :]
-        f = xs.shape[1]
-        out = torch.cat([xc.sum(dim=0), (xc.t() @ xc).flatten()])
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+                device)
+            out = _corr_block(xs, torch.ones(len(X), device=device), xs[0])
+        else:
+            xs, w = shard_batch(mesh, np.ascontiguousarray(X, np.float32))
+            out = make_tree_aggregate(
+                _corr_block, mesh, replicated_args=(2,),
+                op="correlation.moments",
+            )(xs, w, torch.from_numpy(np.array(X[0], np.float32)))
         out = out.cpu().numpy()
-    return float(X.shape[0]), out[:f], out[f:].reshape(f, f)
+    return float(out[0]), out[1:1 + f], out[1 + f:].reshape(f, f)
 
 
 def _rank_columns(X: np.ndarray) -> np.ndarray:
@@ -98,19 +126,20 @@ class Correlation:
         frame: Frame,
         column: str,
         method: str = "pearson",
-        device="cuda",
+        device=None,
+        mesh=None,
     ) -> Frame:
         if method not in ("pearson", "spearman"):
             raise ValueError(
                 f"method must be 'pearson' or 'spearman', got {method!r}"
             )
-        device = resolve_device(device)
+        device = fit_device(device, mesh)
         X = _features_matrix(frame, column).astype(np.float32)
         if X.shape[0] < 1:
             raise ValueError("Correlation requires a non-empty dataset")
         if method == "spearman":
             X = _rank_columns(X)
-        n, s, gram = _corr_moments(X, device)
+        n, s, gram = _corr_moments(X, device, fit_mesh(mesh))
         s = np.asarray(s, np.float64)
         cov = np.asarray(gram, np.float64) - np.outer(s, s) / n
         d = np.sqrt(np.maximum(np.diag(cov), 0.0))
@@ -171,9 +200,18 @@ def factorize(X: np.ndarray, y: np.ndarray, max_categories: int):
 
 
 def contingency(binned: np.ndarray, y_idx: np.ndarray, n_bins: int,
-                n_classes: int, device) -> torch.Tensor:
+                n_classes: int, device, mesh=None) -> torch.Tensor:
     """The (feature, value, class) counts ``[F, n_bins, C]`` f32 on
-    ``device``: one ``tree_hist`` launch on the card."""
+    ``device``: one ``tree_hist`` launch on the card — or, over
+    ``mesh``, one a shard on that shard's rows and padding mask, the
+    shards' whole counts summed."""
+    if mesh is not None:
+        def table(b, y, w):
+            return binned_contingency(b.t().contiguous(), y, w,
+                                      n_bins=n_bins, n_classes=n_classes)
+
+        return make_tree_aggregate(table, mesh, op="chisq_test.contingency")(
+            *shard_batch(mesh, np.ascontiguousarray(binned), y_idx))
     binned_t = torch.from_numpy(np.ascontiguousarray(binned.T)).to(device)
     yd = torch.from_numpy(y_idx).to(device)
     w = torch.ones(len(y_idx), dtype=torch.float32, device=device)
@@ -196,15 +234,16 @@ class ChiSquareTest:
         featuresCol: str,
         labelCol: str,
         flatten: bool = False,
-        device="cuda",
+        device=None,
+        mesh=None,
     ) -> Frame:
-        device = resolve_device(device)
+        device = fit_device(device, mesh)
         X = _features_matrix(frame, featuresCol)
         y = np.asarray(to_host(frame[labelCol]))
         binned, n_bins, y_idx, n_classes = factorize(
             X, y, ChiSquareTest.MAX_CATEGORIES)
         observed = contingency(binned, y_idx, n_bins, n_classes,
-                               device).cpu().numpy()
+                               device, fit_mesh(mesh)).cpu().numpy()
         stats, pvals, dofs = chi_square(observed)
         return _test_frame(stats, pvals, dofs, flatten)
 
@@ -220,14 +259,16 @@ class ANOVATest:
         featuresCol: str,
         labelCol: str,
         flatten: bool = False,
-        device="cuda",
+        device=None,
+        mesh=None,
     ) -> Frame:
-        device = resolve_device(device)
+        device = fit_device(device, mesh)
         X = _features_matrix(frame, featuresCol).astype(np.float32)
         y = np.asarray(to_host(frame[labelCol])).astype(np.int32)
         if X.shape[0] == 0:
             raise ValueError("ANOVATest requires a non-empty dataset")
-        cnt, s, sq = anova_moments(X, y, int(y.max()) + 1, device)
+        cnt, s, sq = anova_moments(X, y, int(y.max()) + 1, device,
+                                   fit_mesh(mesh))
         F, p = f_classif((cnt, s, sq))
         k = int((np.asarray(cnt) > 0).sum())
         n = float(np.asarray(cnt).sum())
@@ -245,14 +286,15 @@ class FValueTest:
         featuresCol: str,
         labelCol: str,
         flatten: bool = False,
-        device="cuda",
+        device=None,
+        mesh=None,
     ) -> Frame:
-        device = resolve_device(device)
+        device = fit_device(device, mesh)
         X = _features_matrix(frame, featuresCol).astype(np.float32)
         y = np.asarray(to_host(frame[labelCol])).astype(np.float32)
         if X.shape[0] == 0:
             raise ValueError("FValueTest requires a non-empty dataset")
-        m = regression_moments(X, y, device)
+        m = regression_moments(X, y, device, fit_mesh(mesh))
         F, p = f_regression(m)
         n = float(np.asarray(m[0]))
         dof = np.full(F.shape[0], max(int(n) - 2, 0), dtype=np.int64)
@@ -318,29 +360,48 @@ _SUMMARY_METRICS = (
 )
 
 
-def _summary_moments(X: np.ndarray, w: np.ndarray, device) -> dict:
-    """Every Summarizer sum in one pass on ``device``: moments about the
-    pilot row ``X[0]`` (f32 cancellation), norms and non-zeros of the raw
-    values, min and max over the rows of positive weight (Spark's
-    SummarizerBuffer skips weight-0 instances); float64 host values."""
-    xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(device)
-    wr = torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device)
-    f = xs.shape[1]
+def _summary_block(xs, wr, pilot) -> tuple:
+    """A block's ``(sums, min, max)``: the count and weight sums, the
+    moments about ``pilot``, norms and non-zeros flat in ``sums``; min
+    and max over its rows of positive weight."""
+    xc = xs - pilot[None, :]
+    wx = xc * wr[:, None]
+    live = wr[:, None] > 0
+    big = torch.finfo(torch.float32).max
+    sums = torch.cat([
+        (wr > 0).sum().to(torch.float32).reshape(1),
+        wr.sum().reshape(1), (wr * wr).sum().reshape(1),
+        wx.sum(dim=0), (xc * wx).sum(dim=0),
+        (xs.abs() * wr[:, None]).sum(dim=0),
+        (xs * xs * wr[:, None]).sum(dim=0),
+        ((xs != 0) * wr[:, None]).sum(dim=0),
+    ])
+    return (sums, torch.where(live, xs, big).min(dim=0).values,
+            torch.where(live, xs, -big).max(dim=0).values)
+
+
+def _summary_moments(X: np.ndarray, w: np.ndarray, device,
+                     mesh=None) -> dict:
+    """Every Summarizer sum in one pass on ``device`` (or one aggregate
+    over ``mesh``): moments about the pilot row ``X[0]`` (f32
+    cancellation), norms and non-zeros of the raw values, min and max
+    over the rows of positive weight (Spark's SummarizerBuffer skips
+    weight-0 instances, and so the padding); float64 host values."""
+    f = X.shape[1]
     with full_f32():
-        xc = xs - xs[0][None, :]
-        wx = xc * wr[:, None]
-        live = wr[:, None] > 0
-        big = torch.finfo(torch.float32).max
-        parts = [
-            (wr > 0).sum().to(torch.float32).reshape(1),
-            wr.sum().reshape(1), (wr * wr).sum().reshape(1),
-            wx.sum(dim=0), (xc * wx).sum(dim=0),
-            (xs.abs() * wr[:, None]).sum(dim=0),
-            (xs * xs * wr[:, None]).sum(dim=0),
-            ((xs != 0) * wr[:, None]).sum(dim=0),
-            torch.where(live, xs, big).min(dim=0).values,
-            torch.where(live, xs, -big).max(dim=0).values,
-        ]
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+                device)
+            wr = torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(
+                device)
+            parts = _summary_block(xs, wr, xs[0])
+        else:
+            xs, _ = shard_batch(mesh, np.ascontiguousarray(X, np.float32))
+            wr = shard_weights(mesh, w, xs.shape[0])
+            parts = make_tree_aggregate(
+                _summary_block, mesh, replicated_args=(2,),
+                op="summarizer.moments", combine=("sum", "min", "max"),
+            )(xs, wr, torch.from_numpy(np.array(X[0], np.float32)))
         out = torch.cat(parts).cpu().numpy().astype(np.float64)
     m = {"count": out[0], "wsum": out[1], "w2sum": out[2]}
     for i, key in enumerate(("s1", "s2", "l1", "l2sq", "nnz", "mn", "mx")):
@@ -366,21 +427,22 @@ class SummaryBuilder:
         frame: Frame,
         col: str = "features",
         weightCol: Optional[str] = None,
-        device="cuda",
+        device=None,
         weightNorm: str = "reliability",
+        mesh=None,
     ) -> Frame:
         """``weightNorm`` (an extension; Spark has no knob):
         "reliability" (default) is Spark's unbiased denominator Σw −
         Σw²/Σw; "frequency" uses Σw − 1, under which ``weightCol`` ≡
         integer row replication.  Unweighted they coincide."""
-        device = resolve_device(device)
+        device = fit_device(device, mesh)
         X = _features_matrix(frame, col).astype(np.float32)
         if X.shape[0] == 0:
             raise ValueError("Summarizer requires a non-empty dataset")
         w = (np.asarray(to_host(frame[weightCol])).astype(np.float32)
              if weightCol is not None
              else np.ones(X.shape[0], np.float32))
-        m = _summary_moments(X, w, device)
+        m = _summary_moments(X, w, device, fit_mesh(mesh))
         wsum, pilot = m["wsum"], X[0].astype(np.float64)
         if wsum <= 0:
             raise ValueError(
@@ -441,12 +503,13 @@ class Summarizer:
 
     # Spark's single-metric shorthands
     @staticmethod
-    def mean(frame, col="features", weightCol=None, device="cuda"):
+    def mean(frame, col="features", weightCol=None, device=None, mesh=None):
         return SummaryBuilder(("mean",)).summary(frame, col, weightCol,
-                                                 device)
+                                                 device, mesh=mesh)
 
     @staticmethod
-    def variance(frame, col="features", weightCol=None, device="cuda"):
+    def variance(frame, col="features", weightCol=None, device=None,
+                 mesh=None):
         return SummaryBuilder(("variance",)).summary(
-            frame, col, weightCol, device
+            frame, col, weightCol, device, mesh=mesh
         )
