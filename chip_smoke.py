@@ -1,7 +1,7 @@
 """Smoke run of sntc_tpu_torch on one NVIDIA GPU: kernels, paths, numbers.
 
     python3 chip_smoke.py [--verbose-build] [--out-json PATH]
-                          [--phases 2,3,11,12,13,14,15,16,17,18,19,20,21,22]
+                          [--phases 2,3,11,...,24,25]
 
 Run from the root of a checkout, on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line):
@@ -96,8 +96,8 @@ each of which fails the run (non-zero exit, no result line):
    and overlapped sink, the files-mode WAL) against the JAX command's
    ``--no-fuse --pipeline-depth 1 --wal-mode append``: phase 3's config-3
    pipeline over 12 CSV files of 30 000 rows, 2 files a batch (six
-   batches of 60 000 rows, each padded to 65 536), each form twice in
-   turns (``FORM_RUNS``).  Every run's batch files byte-identical; each
+   batches of 60 000 rows, each padded to 65 536), each form
+   ``FORM_RUNS`` times in turns.  Every run's batch files byte-identical; each
    form launches ``pad_assemble`` and ``forest_traversal`` once a batch,
    moves one upload and one download a batch (its transfer ledger), and
    the default form binds its one fused segment on every batch; each run's
@@ -135,7 +135,8 @@ each of which fails the run (non-zero exit, no result line):
    config 2's scaled flows takes ``_fit_ovr_lanes``, 15 lanes in one
    LBFGS loop, each class held against the same binary fit run alone
    through the single-fit path, the lanes on the rows in their order
-   and in 3 other orders (histories within ``LANE_PREFIX_TOL`` of the
+   and in ``len(REORDER_SEEDS)`` other orders (histories within
+   ``LANE_PREFIX_TOL`` of the
    start over the first 10 iterations and 2e-3 at every common
    iteration, final objectives within ``LANE_END_TOL`` of it), reported
    beside the single fit's own gaps on the reordered rows and each
@@ -213,12 +214,14 @@ each of which fails the run (non-zero exit, no result line):
 13. the serve command's self-tuning plane on phase 3's config-3 model:
    (a) 16 cleaned CSV files of 30 000 rows (seed 14), 2 a batch, served
    by ``serve --once`` in this process with ``--read-workers 1
-   --prefetch-batches 1 --autotune`` and at each point of bench config
-   10's grid of (read workers, prefetched batches), in turns: batch files
+   --prefetch-batches 1 --autotune`` and at the corners (1, 1) and (4, 4)
+   of bench config 10's grid of (read workers, prefetched batches), in
+   turns: batch files
    byte-identical, one upload and one download a batch, each kernel once
    a batch, each run's rows/s without its first batch (not a claim) and
    the tuner's decisions and knobs; then bench config 10's own arm, a
-   tuner of its policy sharing the cold source over four passes; (b) the same files through the
+   tuner of its policy sharing the cold source over
+   ``1 + BENCH10_REPS`` passes; (b) the same files through the
    command's engine with ``FileStreamSource(columnar=True)``:
    ``pad_assemble`` on the float32 [60 000, 78] blocks, the files of (a),
    the split of one call; (c) a ``QuerySupervisor`` with ``slo_p99_ms``
@@ -307,7 +310,8 @@ each of which fails the run (non-zero exit, no result line):
    a 30 s file gap, a tenth of each file deferred, the flush file, seed
    7) through ``FlowCaptureSource(flow_timeout=5, allowed_lateness=35)``
    and the CSV stream of the same emitted rows, serial engine, append
-   WAL, 3 reps each in turns: the flow counts of ``bench_runs.jsonl:102``
+   WAL, ``C9_REPS`` reps each in turns: the flow counts of
+   ``bench_runs.jsonl:102``
    (23 296 rows, 93 696 packets, 15 616 flows, 8 503 out of order, 616
    late, 15 617 watermark evictions, 1 packet left, 62 snapshots), the
    native parsers, the sinks equal row for row, one upload and one
@@ -321,8 +325,9 @@ each of which fails the run (non-zero exit, no result line):
    operator in this process; (c) bench config 15 (``bench.py:2864-
    3080``): 60 NetFlow files of 192 flows x 4 records (seed 7) through
    ``NetFlowDirSource`` and through ``build_ingress(listen_udp=0,
-   seal_every=4)`` with the bench's windowed loopback sender, 3 reps in
-   turns: nothing dropped, the sinks equal row for row; the kill leg:
+   seal_every=4)`` with the bench's windowed loopback sender,
+   ``C15_REPS`` reps in turns: nothing dropped, the sinks equal row for
+   row; the kill leg:
    ``serve --listen-udp 0`` killed inside its 2nd seal at
    ``ingress.spool``, restarted and resent to (the JAX harness's
    ``run_ingress_kill_scenario``), ``payloads == committed + journaled
@@ -357,7 +362,8 @@ each of which fails the run (non-zero exit, no result line):
    legs in daemon processes, against an unkilled run; (c) bench config
    11's arm B (``bench.py:1981-2075``): the hand-tuned config-8 flags
    against cold defaults with ``ServeDaemon(controller=True)`` under its
-   achievable SLOs, 3 reps in turns, every tenant OK and the predictions
+   achievable SLOs, ``C11_REPS`` reps in turns, every tenant OK and the
+   predictions
    equal; then three tenants at depth 2 on the card with one under an
    unreachable floor: ``controller.jsonl`` written and reconciled by a
    second daemon's ``restart`` record.  Every ``pad_assemble`` shape is
@@ -490,7 +496,7 @@ each of which fails the run (non-zero exit, no result line):
    config 6's pipeline fitted, its stream (phase 15's files, bucket
    floor 256, the serial engine) served direct, at serve mesh 1 and at
    serve mesh ``[cuda:0] * 4`` (each bucketed batch split into 4 row
-   blocks), 3 reps in rotated order: direct and mesh-1 sinks
+   blocks), ``P23_REPS`` reps in rotated order: direct and mesh-1 sinks
    byte-identical, mesh-4 predictions equal and probabilities within
    1e-5 (rows not bitwise counted), the median rows/s and their ratios
    printed, ungated; (b) config 2's pipeline (scaler -> MLP [78, 64,
@@ -538,7 +544,23 @@ each of which fails the run (non-zero exit, no result line):
    ChiSquareTest, every shard's launch bitwise its plain version; the NB
    and OneVsRest-LR models of both sizes served once each on a ``[1 000,
    78]`` float32 batch (one ``pad_assemble`` launch to 1 024 rows each),
-   predictions equal (LR: 99.9 %); its budget ``P24_BUDGET_S`` printed.
+   predictions equal (LR: 99.9 %); its budget ``P24_BUDGET_S`` printed;
+25. ``mesh=`` on the regression fits and the families, in this process
+   (virtual shards: no number here is a scaling): (a) phase 21's fits
+   (LinearRegression normal and elastic-net, the five GLMs, AFT, both
+   FMs) on its inputs at ``[cuda:0] * 4``, each against phase 21's own
+   card fit (mesh 1, bitwise its path) at phase 21's limits: the normal
+   solve's predictions, the GLMs' coefficients and deviance, the other
+   fits' objective histories (and iterations); (b) phase 20's
+   GaussianMixture, BisectingKMeans on the blobs (not on the lognormal
+   rows: cut for the smoke's time), LDA and PIC on its data at
+   ``[cuda:0] * 4`` against phase 20's card fits at its limits, LDA's
+   E-step fed one γ₀ at both sizes;
+   (c) the LinearRegression and GaussianMixture models of both sizes
+   served once each on a ``[1 000, C]`` float32 batch (one
+   ``pad_assemble`` launch to 1 024 rows each, 4 in all), predictions
+   equal (LR within the normal solve's limit); each leg's seconds at
+   both sizes and its budget ``P25_BUDGET_S`` printed.
 
 The run keeps the bytecode of every Python process it starts under
 ``sntc_tpu_torch/_build/pycache`` (``cache_bytecode``): the card's
@@ -579,7 +601,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -814,7 +836,9 @@ LBFGS_CKPT_EVERY = 25
 # phase 8: the serve command's default form against its serial, staged
 # form (the JAX command's --no-fuse --pipeline-depth 1 --wal-mode append)
 FORM_FILES, FORM_FILE_ROWS, FORM_FILES_PER_BATCH = 12, 30_000, 2
-FORM_RUNS = 2  # each form serves the stream this many times, in turns
+# each form serves the stream this many times, in turns (once: the
+# smoke's time holds no second run)
+FORM_RUNS = 1
 STAGED_FORM = ["--no-fuse", "--pipeline-depth", "1", "--wal-mode", "append"]
 # phase 9: train --estimator nb|svc on config 2's flows, their serve and
 # evaluate, and the tree regressors on config 4's flows
@@ -856,7 +880,8 @@ REG_R2_FLOOR = {"dt": 0.35, "rf": 0.4, "gbt": 0.37}
 # rare classes' fits at tol 1e-6 amplify
 LANE_PREFIX = 10
 LANE_PREFIX_TOL, LANE_END_TOL = 3e-4, 1e-4
-REORDER_SEEDS = (SEED, SEED + 1, SEED + 2)
+# one other order (3 before the smoke's time was cut)
+REORDER_SEEDS = (SEED,)
 LANE_F1_ATOL = 0.005  # held-out macro-F1, lanes against single fits
 CV_GRID = [{"regParam": r, "elasticNetParam": a}
            for r in (1e-4, 1e-3, 1e-2) for a in (0.0, 0.5)]
@@ -893,8 +918,11 @@ DP_BUDGET_MB = 0.01
 ST_FILES = 16
 ST_FILE_ROWS = 30_000
 ST_FILES_PER_BATCH = 2
-BENCH10_GRID = ((1, 1), (1, 4), (4, 1), (4, 4))
-BENCH10_REPS = 3  # bench.py:1554
+# bench.py:1548's grid less its two mixed corners, and one pass after
+# the convergence pass where bench.py:1554 runs 3, to hold the smoke's
+# time
+BENCH10_GRID = ((1, 1), (4, 4))
+BENCH10_REPS = 1
 SHED_FILES = 12
 SHED_PENDING = 2
 CTL_SIZES = (1000, 30000, 300, 7000, 100, 15000, 40, 2000, 500, 24000,
@@ -931,10 +959,10 @@ PF_AGREE = 0.95
 PF_PREFIX_TOL, PF_END_TOL = 1e-3, 1e-4
 # phase 15: bench config 6 (bench.py:702-876) on config 1's flows of
 # phase 7, its stream two passes over the held-out rows in files of 2 048
-# / 1 024 / 512 rows; 3 reps a form where the bench runs 5
+# / 1 024 / 512 rows; 1 rep a form where the bench runs 5
 # (BENCH6_REPS), to hold the smoke's time
 C6_PCA_K, C6_LR_ITERS = 32, 20
-C6_PASSES, C6_REPS = 2, 3
+C6_PASSES, C6_REPS = 2, 1
 C6_PAD_ROWS = (1000, 3000)  # (b): both pad (to 1 024 and 4 096)
 C6_OBS_FILES = 6  # (d): the stream's first files, one a batch
 # the card's fit against the CPU's on the same rows, set from runs 1-2's
@@ -957,6 +985,7 @@ CROSS_AGREE, CROSS_PROB_TOL, CROSS_REPS = 0.999, 1e-5, 20
 # (c)'s sweep, the readings each head's HOST_SERVE_ROWS is set from: the
 # LR and MLP heads at full width on host rows of these sizes
 CROSS_SWEEP_ROWS = (64, 256, 512, 1000, 2048, 4096, 8192, 16384, 65536)
+SWEEP_REPS = 5  # each size's calls, the median kept
 
 
 def together(*calls):
@@ -1046,8 +1075,9 @@ def random_forest(rng, T, depth, F, S, dtype=np.float32, leaf_p=0.1,
 
 def time_ms(fn, iters=20) -> float:
     """Mean time of ``fn`` on the card, by CUDA events over ``iters``
-    calls after a warmup."""
-    for _ in range(3):
+    calls after a warmup (one call where ``iters`` is 5 or fewer: the
+    slow plain versions)."""
+    for _ in range(3 if iters > 5 else 1):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1247,31 +1277,40 @@ def _profiled(x: dict) -> str:
             else f"{x['profiled_ms']:.4f} ms")
 
 
-def cell_bound(c: dict) -> torch.Tensor:
-    """How far, per cell, an f32 histogram of ``c``'s fractional stats
-    may lie from the exact (float64) sum: HIST_TOL of the cell's sum of
-    absolute contributions, and no less than (n + 1)·u of it for a cell
-    of n contributions — the bound of any f32 summation order (each
-    weighted term rounded once, the running sum up to n times).  Config
-    4's hot cells hold ~50 000 rows (a feature's mass in one bin), where
-    that bound is 3e-3: no f32 order, the plain version's included,
-    meets HIST_TOL there."""
+def exact_and_bound(c: dict) -> tuple:
+    """The float64 sums of ``c``'s weighted stats, and how far, per cell,
+    an f32 histogram of them may lie from those: HIST_TOL of the cell's
+    sum of absolute contributions, and no less than (n + 1)·u of it for
+    a cell of n contributions — the bound of any f32 summation order
+    (each weighted term rounded once, the running sum up to n times).
+    Config 4's hot cells hold ~50 000 rows (a feature's mass in one bin),
+    where that bound is 3e-3: no f32 order, the plain version's included,
+    meets HIST_TOL there.  One call of the plain version sums the three
+    (``stats·w``, ``|stats·w|`` and ``w ≠ 0`` as columns of one float64
+    stats block, unweighted): a row of weight 0 adds exact zeros.
+    Returns (exact, bound, scale)."""
     args, kw = _hist_args(c)
     bins, node, stats, w = args
-    scale = tree_hist_reference(bins, node, stats.abs().double(),
-                                None if w is None else w.abs(), **kw)
-    ones = torch.ones((node.shape[1], 1), dtype=torch.float64,
-                      device=stats.device)
-    n = tree_hist_reference(bins, node, ones,
-                            None if w is None else (w != 0).float(), **kw)
-    return torch.clamp_min((n + 1) * U_F32, HIST_TOL) * scale, scale
+    s = stats.double()
+    if w is None:
+        nz = torch.ones(s.shape[:-1] + (1,), dtype=torch.float64,
+                        device=s.device)
+    else:
+        s = s * w.double()[..., None]  # [T, N, S]
+        nz = (w != 0).double()[..., None]
+    S = s.shape[-1]
+    sums = tree_hist_reference(bins, node, torch.cat(
+        [s, s.abs(), nz], -1).contiguous(), None, **kw)
+    exact, scale, n = sums[..., :S], sums[..., S:2 * S], sums[..., 2 * S:]
+    return exact, torch.clamp_min((n + 1) * U_F32, HIST_TOL) * scale, scale
 
 
 def check_tree_hist(cases: dict) -> float:
     """Integer-valued stats: bitwise equal to the plain version and to a
     second run; fractional stats: each cell within HIST_TOL of its sum of
     absolute contributions, against the plain version in f32 — or, for
-    the launches of a fit (``"hot": True``), within ``cell_bound`` of the
+    the launches of a fit (``"hot": True``), within ``exact_and_bound``'s
+    bound of the
     plain version summed in float64, with the plain f32 version's own
     distance from it reported beside.  Returns the largest absolute
     difference from the plain f32 version."""
@@ -1293,8 +1332,7 @@ def check_tree_hist(cases: dict) -> float:
             continue
         bins, node, stats, w = args
         if c.get("hot"):
-            bound, scale = cell_bound(c)
-            exact = tree_hist_reference(bins, node, stats.double(), w, **kw)
+            exact, bound, scale = exact_and_bound(c)
             bad = int(((out - exact).abs() > bound).sum())
             if bad:
                 raise SystemExit(f"tree_hist {name}: {bad} cells beyond "
@@ -2092,6 +2130,10 @@ def cpu_fits_main(out: str) -> int:
     """``--side cpu_fits DIR``: the CPU fits ``CpuFits`` compares the card's
     with, on the phases' own data (regenerated from their seeds), saved
     under DIR; prints their seconds as one JSON line."""
+    # a lower scheduling priority (its thread count, which sets the
+    # order of its sums, unchanged): the serving processes of the phases
+    # it overlaps keep the host first
+    os.nice(10)
     cpu = torch.device("cpu")
     secs = {}
 
@@ -2282,17 +2324,30 @@ def lbfgs_data(work: str, rows: int, binary: bool, tag: str) -> dict:
     """Bench config 2's (``binary=False``) or config 1's flows:
     ``rows`` synthetic rows from bench.py's data seed written as one raw
     CSV, and the same rows cleaned (relabeled benign/attack for config
-    1) and split here with seed 0, as the train command splits them."""
+    1) and split here with seed 0, as the train command splits them.
+    The CSV is written by a thread of its own (pyarrow's writer releases
+    the GIL) while this one splits and the caller goes on:
+    :func:`data_dir` waits for it."""
     t0 = time.perf_counter()
     raw = generate_frame(rows, seed=LBFGS_DATA_SEED, min_class_fraction=0.005)
-    data_dir = os.path.join(work, f"days{tag}")
-    os.makedirs(data_dir)
-    write_raw_csv(raw, os.path.join(data_dir, "day.csv"))
+    path = os.path.join(work, f"days{tag}")
+    os.makedirs(path)
+    writer = ThreadPoolExecutor(1)
+    written = writer.submit(write_raw_csv, raw, os.path.join(path, "day.csv"))
+    writer.shutdown(wait=False)
     train, test = lbfgs_split(raw, binary)
-    log(f"config-{tag} data: {rows} rows generated and written, "
-        f"{train.num_rows} train / {test.num_rows} test after cleaning "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return {"dir": data_dir, "train": train, "test": test, "tag": tag}
+    log(f"config-{tag} data: {rows} rows generated, {train.num_rows} "
+        f"train / {test.num_rows} test after cleaning "
+        f"({time.perf_counter() - t0:.1f} s; the CSV written beside)")
+    return {"dir": path, "written": written, "train": train, "test": test,
+            "tag": tag}
+
+
+def data_dir(data: dict) -> str:
+    """``data``'s directory of CSVs, once its writer (if any) is done."""
+    if "written" in data:
+        data["written"].result()
+    return data["dir"]
 
 
 def train_lbfgs(dev, data: dict, work: str, args: list) -> dict:
@@ -2304,7 +2359,7 @@ def train_lbfgs(dev, data: dict, work: str, args: list) -> dict:
     tag = data["tag"]
     model_dir = os.path.join(work, f"trained{tag}")
     cmd = [sys.executable, "-m", "sntc_tpu_torch", "train",
-           "--data", data["dir"], "--max-iter", str(LBFGS_ITERS),
+           "--data", data_dir(data), "--max-iter", str(LBFGS_ITERS),
            "--test-fraction", str(TEST_FRACTION), "--seed", str(SEED),
            "--model-out", model_dir, "--device", dev.type] + args
     t0 = time.perf_counter()
@@ -2861,17 +2916,22 @@ def serve_forms(dev, work: str) -> list:
     copies = {k: sum(c[k] for c in per_batch) for k in per_batch[0]}
     watch = os.path.join(work, "in8")
     os.makedirs(watch)
-    for i in range(FORM_FILES):
-        write_raw_csv(traffic.slice(i * FORM_FILE_ROWS,
-                                    (i + 1) * FORM_FILE_ROWS),
-                      os.path.join(watch, f"part_{i:04d}.csv"))
-    log(f"phase 8 traffic: {FORM_FILES} files of {FORM_FILE_ROWS} rows, "
-        f"{int(bad.sum())} with Inf/NaN features "
-        f"({[int(x.sum()) for x in batch_bad]} a batch; expected copies "
-        f"{copies}; {time.perf_counter() - t0:.1f} s to generate and "
-        "write); "
-        "load_csv of one file three times in a fresh process: "
-        f"{read_probe(os.path.join(watch, 'part_0000.csv'))} ms")
+    # the read probe's process runs beside the writes of the other files
+    with ThreadPoolExecutor(1) as pool:
+        for i in range(FORM_FILES):
+            write_raw_csv(traffic.slice(i * FORM_FILE_ROWS,
+                                        (i + 1) * FORM_FILE_ROWS),
+                          os.path.join(watch, f"part_{i:04d}.csv"))
+            if i == 0:
+                probe = pool.submit(read_probe,
+                                    os.path.join(watch, "part_0000.csv"))
+        written_s = time.perf_counter() - t0
+        log(f"phase 8 traffic: {FORM_FILES} files of {FORM_FILE_ROWS} "
+            f"rows, {int(bad.sum())} with Inf/NaN features "
+            f"({[int(x.sum()) for x in batch_bad]} a batch; expected "
+            f"copies {copies}; {written_s:.1f} s to generate and write); "
+            "load_csv of one file three times in a fresh process (beside "
+            f"the other files' writes): {probe.result()} ms")
     runs = []
     for r in range(FORM_RUNS):
         for form, extra in (("default", []), ("staged", STAGED_FORM)):
@@ -2936,7 +2996,7 @@ def train_estimator(dev, data: dict, est: str, work: str) -> dict:
     the serve path's ``pad_assemble`` is counted in ``serve_nb_svc``."""
     model_dir = os.path.join(work, f"trained_{est}")
     cmd = [sys.executable, "-m", "sntc_tpu_torch", "train",
-           "--data", data["dir"], "--estimator", est,
+           "--data", data_dir(data), "--estimator", est,
            "--test-fraction", str(TEST_FRACTION), "--seed", str(SEED),
            "--model-out", model_dir, "--device", dev.type]
     t0 = time.perf_counter()
@@ -3614,15 +3674,16 @@ def pipeline_cv(dev, frame: Frame) -> dict:
     return rec
 
 
-def tvs_serve(dev, frame: Frame, test: Frame, work: str) -> dict:
+def tvs_start(dev, frame: Frame, test: Frame, work: str,
+              pool: ThreadPoolExecutor) -> dict:
     """10d: TrainValidationSplit over 10c's pipeline and rows; the model
     round-trips ``save_model``/``load_model`` with its metrics, best index
     and grid; its best model, saved, serves through ``python -m
     sntc_tpu_torch serve`` in the default form over ``TUNED_BATCHES``
-    (the 1 000-row batch pads: ``pad_assemble``), every prediction equal
-    to this process's transform on the card."""
-    import pyarrow.csv as pacsv
-
+    (the 1 000-row batch pads: ``pad_assemble``), in ``pool``'s thread,
+    with this process's ``SNTC_SERVE_HOST_ROWS``; :func:`tvs_check` then
+    holds every prediction equal to this process's transform on the
+    card."""
     tvs, tvs_s = timed(lambda: TrainValidationSplit(
         estimator=lbfgs_pipeline(dev, "lr"), estimatorParamMaps=PIPE_GRID,
         evaluator=MulticlassClassificationEvaluator(metricName="macroF1"),
@@ -3645,8 +3706,22 @@ def tvs_serve(dev, frame: Frame, test: Frame, work: str) -> dict:
         batches.append(b)
         start += n
     out_dir = os.path.join(work, "out10")
-    summary = serve_command(model_dir, watch, out_dir,
-                            os.path.join(work, "ckpt10"), dev, [])
+    served = pool.submit(serve_command, model_dir, watch, out_dir,
+                         os.path.join(work, "ckpt10"), dev, [], 1,
+                         dict(os.environ))
+    return {"tvs": tvs, "tvs_s": tvs_s, "rows": frame.num_rows,
+            "model_dir": model_dir, "batches": batches, "out_dir": out_dir,
+            "served": served}
+
+
+def tvs_check(dev, st: dict) -> dict:
+    """10d's serve (``st``, from :func:`tvs_start`), once done: its
+    launches, and its predictions against this process's transform on
+    the card."""
+    import pyarrow.csv as pacsv
+
+    tvs, tvs_s, out_dir = st["tvs"], st["tvs_s"], st["out_dir"]
+    summary = st["served"].result()
     launches = summary["kernel_launches"]
     want_pad = sum(bucket_rows_for(n, BUCKET_FLOOR) != n
                    for n in TUNED_BATCHES)
@@ -3654,15 +3729,15 @@ def tvs_serve(dev, frame: Frame, test: Frame, work: str) -> dict:
             launches["pad_assemble"] != want_pad or want_pad < 1:
         raise SystemExit(f"10d serve: {summary['rows']} rows, launches "
                          f"{launches}")
-    in_process, _, _ = serving_form(load_model(model_dir, device=dev))
-    for i, b in enumerate(batches):
+    in_process, _, _ = serving_form(load_model(st["model_dir"], device=dev))
+    for i, b in enumerate(st["batches"]):
         t = pacsv.read_csv(os.path.join(out_dir, f"batch_{i:06d}.csv"))
         if not np.array_equal(t.column("prediction").to_numpy(),
                               to_host(in_process.transform(b)["prediction"])):
             raise SystemExit(f"10d batch {i}: the serve command's "
                              "predictions differ from this process's")
     log(f"phase 10d TrainValidationSplit (trainRatio {TVS_RATIO}) on "
-        f"{frame.num_rows} rows: {tvs_s:.3f} s, macro-F1 by point "
+        f"{st['rows']} rows: {tvs_s:.3f} s, macro-F1 by point "
         f"{[round(m, 6) for m in tvs.validationMetrics]}, best "
         f"{tvs.bestIndex}; saved and loaded equal; best model served "
         f"(defaults): {summary['batches']} batches, {summary['rows']} rows "
@@ -3676,14 +3751,17 @@ def lane_fits(dev, data2: dict, data1: dict, work: str):
     """Phase 10, 10a-10d; its ``pad_assemble`` entry at 10d's padded
     [1 000, 78] batch, with 10d's serve count.  A tolerance missed in
     10a-10c fails the phase after all four have run."""
-    out = {"ovr": ovr_lanes(dev, data2), "cv": cv_lanes(dev, data1)}
     frame = data2["train"].slice(0, PIPE_ROWS)
-    out["pipeline_cv"] = pipeline_cv(dev, frame)
     # the tuned LR model served on the card, in the command and in this
     # process alike: the host-serve crossover is pinned off, as bench
-    # config 6 pins it
-    with environ(SNTC_SERVE_HOST_ROWS=0):
-        out["tvs"] = tvs_serve(dev, frame, data2["test"], work)
+    # config 6 pins it; the command's process runs beside 10a-10c
+    with ThreadPoolExecutor(1) as pool:
+        with environ(SNTC_SERVE_HOST_ROWS=0):
+            tvs = tvs_start(dev, frame, data2["test"], work, pool)
+        out = {"ovr": ovr_lanes(dev, data2), "cv": cv_lanes(dev, data1)}
+        out["pipeline_cv"] = pipeline_cv(dev, frame)
+        with environ(SNTC_SERVE_HOST_ROWS=0):
+            out["tvs"] = tvs_check(dev, tvs)
     failed = [out[k]["failed"] for k in ("ovr", "cv", "pipeline_cv")
               if "failed" in out[k]]
     if failed:
@@ -4172,7 +4250,9 @@ def dp_streams(work: str) -> dict:
     and one more holding the ragged lines (2 files a batch), the same
     rows pre-cleaned (``clean_flows`` drop, the ragged lines gone) and
     zero-filled (``handle_invalid="zero"``); one file of DP_EXACT_ROWS
-    uncleaned rows and its pre-cleaned copy."""
+    uncleaned rows and its pre-cleaned copy; ``seconds`` is what that
+    took."""
+    t0 = time.perf_counter()
     n = (DP_FILES + 1) * DP_FILE_ROWS
     traffic = generate_frame(n, seed=SEED + 12).drop("Label")
     dirs = {k: os.path.join(work, f"in12_{k}")
@@ -4220,7 +4300,8 @@ def dp_streams(work: str) -> dict:
         raise SystemExit("phase 12: the exact-bucket file has no poison row")
     return {"dirs": dirs, "ragged": ragged, "poison": sorted(poison),
             "batches": -(-len(parts) // DP_FILES_PER_BATCH),
-            "exact_poison": exact_poison}
+            "exact_poison": exact_poison,
+            "seconds": time.perf_counter() - t0}
 
 
 def row_dead_letters(ckpt: str) -> list:
@@ -4363,10 +4444,12 @@ def events_of(path: str) -> list:
         else []
 
 
-def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
+def kill_chain(dev, model_dir: str, streams: dict, admitted,
                work: str) -> dict:
     """(e)'s kill at commit, fsck and the restart, then a forged
-    compaction seal: each a process of its own, one after the other."""
+    compaction seal: each a process of its own, one after the other;
+    ``admitted`` is the future of :func:`admission_runs`, whose clean
+    run's files the restart's must equal."""
     dirs = streams["dirs"]
     out, ckpt = os.path.join(work, "out12_kill"), \
         os.path.join(work, "ckpt12_kill")
@@ -4377,7 +4460,8 @@ def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
                             timeout=600, env=env_with(SNTC_FAULTS=DP_KILL))
     commits = [json.loads(x) for x in open(os.path.join(ckpt,
                                                         "commits.log"))]
-    if killed.returncode != 137 or not 0 < len(commits) < runs["batches"]:
+    if killed.returncode != 137 or \
+            not 0 < len(commits) < streams["batches"]:
         raise SystemExit(f"phase 12 kill: exit {killed.returncode}, "
                          f"{len(commits)} commits:\n{killed.stderr[-2000:]}")
     # what a crash in the middle of the next commit's append leaves
@@ -4396,6 +4480,7 @@ def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
                              "2"], DP_FILES_PER_BATCH)
     committed = [json.loads(x)["batch_id"] for x in open(
         os.path.join(ckpt, "commits.log"))]
+    runs = admitted.result()
     if sink_files(out) != runs["clean_files"] \
             or restart["batches"] != runs["batches"] - len(commits) \
             or not os.path.exists(os.path.join(ckpt, "wal_checkpoint.json")):
@@ -4422,10 +4507,11 @@ def kill_chain(dev, model_dir: str, streams: dict, runs: dict,
             "forged_rc": forged.returncode, "restart_summary": restart}
 
 
-def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
+def disk_faults(dev, model_dir: str, streams: dict, admitted,
                 work: str) -> dict:
     """(e)'s supervised loop under disk faults at the WAL and the row
-    dead letters, with a disk budget."""
+    dead letters, with a disk budget; ``admitted`` is the future of
+    :func:`admission_runs`, whose salvage run's files its must equal."""
     dirs = streams["dirs"]
     out = os.path.join(work, "out12_disk")
     ckpt = os.path.join(work, "ckpt12_disk")
@@ -4450,7 +4536,7 @@ def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
             == "DEGRADED"
 
     try:
-        wait_for(lambda: commit_count(ckpt) >= runs["batches"],
+        wait_for(lambda: commit_count(ckpt) >= streams["batches"],
                  "every batch under disk faults", proc)
         wait_for(over_budget, "the disk budget's breach", proc, limit=30.0)
         proc.send_signal(signal.SIGTERM)
@@ -4458,6 +4544,7 @@ def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
     except BaseException:
         proc.kill()
         raise
+    runs = admitted.result()
     status = json.load(open(health))
     ev = events_of(events)
     wal_faults = [e for e in ev if e.get("event") == "fault_injected"
@@ -4488,7 +4575,7 @@ def disk_faults(dev, model_dir: str, streams: dict, runs: dict,
             "health": status["health"]["overall"]}
 
 
-def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
+def storage_runs(dev, model_dir: str, streams: dict, admitted,
                  work: str) -> dict:
     """(e): the kill at commit, fsck and the restart and a forged
     compaction seal (:func:`kill_chain`), beside disk faults at the WAL
@@ -4496,9 +4583,11 @@ def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
     loop (:func:`disk_faults`); then a flipped checkpoint byte."""
     from sntc_tpu_torch.resilience import clear_events, recent_events
 
-    # the two chains of serving processes start together
-    kill, disk = together((kill_chain, dev, model_dir, streams, runs, work),
-                          (disk_faults, dev, model_dir, streams, runs, work))
+    # the two chains of serving processes start together, beside the
+    # admission runs' (``admitted``, a future of :func:`admission_runs`)
+    kill, disk = together(
+        (kill_chain, dev, model_dir, streams, admitted, work),
+        (disk_faults, dev, model_dir, streams, admitted, work))
 
     # a flipped byte in the model checkpoint: load_model takes .prev
     dirs = streams["dirs"]
@@ -4525,19 +4614,27 @@ def storage_runs(dev, model_dir: str, streams: dict, runs: dict,
     return {**kill, **disk, "ckpt_fallback": fell_back[0]["fallback_path"]}
 
 
-def data_plane(dev, work: str) -> dict:
+def data_plane(dev, work: str, inputs=None) -> dict:
     """Phase 12: row admission and the storage plane on phase 3's
-    config-3 model (see the module docs)."""
+    config-3 model (see the module docs); ``inputs``, a future of
+    :func:`dp_streams` started earlier, or None to make them here."""
     t0 = time.perf_counter()
     model_dir = os.path.join(work, "model")
-    streams = dp_streams(work)
+    streams = dp_streams(work) if inputs is None else inputs.result()
     log(f"phase 12 traffic: {DP_FILES + 1} files of {DP_FILE_ROWS} rows "
         f"({len(streams['poison'])} poison rows, {len(streams['ragged'])} "
         f"ragged lines), {DP_EXACT_ROWS} rows with "
         f"{streams['exact_poison']} poison rows "
-        f"({time.perf_counter() - t0:.1f} s to generate and write)")
-    runs = admission_runs(dev, model_dir, streams, work)
-    storage = storage_runs(dev, model_dir, streams, runs, work)
+        f"({streams['seconds']:.1f} s to generate and write; "
+        f"{time.perf_counter() - t0:.1f} s waited for them)")
+    # the six admission serves and the storage plane's two chains of
+    # processes run together
+    with ThreadPoolExecutor(1) as pool:
+        admitted = pool.submit(admission_runs, dev, model_dir, streams, work)
+        try:
+            storage = storage_runs(dev, model_dir, streams, admitted, work)
+        finally:
+            runs = admitted.result()
     # the contract's float32 block: each shape with the count of the run
     # that padded it (the salvage run's full batches, the exact bucket's
     # zero-row pad)
@@ -4968,12 +5065,13 @@ def sample_shape() -> tuple:
     return n, bucket_rows_for(n, BUCKET_FLOOR)
 
 
-def self_tuning(dev, work: str) -> dict:
+def self_tuning(dev, work: str, inputs=None) -> dict:
     """Phase 13: the serve command's self-tuning plane on phase 3's
-    config-3 model (see the module docs)."""
+    config-3 model (see the module docs); ``inputs``, a future of
+    :func:`st_streams` started earlier, or None to make them here."""
     t0 = time.perf_counter()
     model_dir = os.path.join(work, "model")
-    dirs = st_streams(work)
+    dirs = st_streams(work) if inputs is None else inputs.result()
     grid = autotune_grid(dev, model_dir, dirs, work)
     columnar = columnar_run(dev, model_dir, dirs, work, grid["files"])
     ctl = controlled_serve(dev, model_dir, dirs, work)
@@ -5012,7 +5110,8 @@ def report_phase13(p13: dict, card: str) -> None:
             f"{s['pipeline_stats']['transfers']} [{card}]")
     tuned = p13["grid"]["autotune"]
     for tag, t in (("the command's --autotune", tuned),
-                   ("bench config 10's policy, four passes",
+                   (f"bench config 10's policy, {1 + BENCH10_REPS} "
+                    "passes",
                     p13["grid"]["bench10"])):
         log(f"phase 13 (a) autotuner, {tag}: {t['windows']} windows, "
             f"{t['applied']} applied of {t['decisions']} decisions "
@@ -5293,6 +5392,34 @@ def swap_serve(dev, work: str, streams: dict, models: dict) -> dict:
     import shutil
 
     dirs, cand = streams["dirs"], models["candidate"]
+    # the kill at model.swap's first call (published, not swapped), fsck
+    # and the restart: processes of their own, beside the in-process runs
+    model14k = os.path.join(work, "model14k")
+    shutil.copytree(models["incumbent"], model14k)
+    out_k, ckpt_k = os.path.join(work, "out14k"), os.path.join(work,
+                                                                "ckpt14k")
+
+    def kill_leg():
+        killed = subprocess.run(
+            serve_args(model14k, dirs["all"], out_k, ckpt_k, dev, 1)
+            + ["--once", *SWAP_FLAGS, "--promote-from", cand], cwd=REPO,
+            capture_output=True, text=True, timeout=600,
+            env=env_with(SNTC_FAULTS="model.swap:kill"))
+        committed = len(os.listdir(os.path.join(ckpt_k, "commits")))
+        if killed.returncode != 137:
+            raise SystemExit(f"phase 14 (b) kill: exit {killed.returncode}, "
+                             f"{committed} commits:\n{killed.stderr[-2000:]}")
+        doctor = subprocess.run(
+            [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt_k],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        marker_k = json.load(open(os.path.join(ckpt_k, "model_marker.json")))
+        recovered = serve_command(model14k, dirs["all"], out_k, ckpt_k, dev,
+                                  SWAP_FLAGS)
+        return committed, doctor, marker_k, recovered
+
+    # a failure here leaves the leg's thread to end with its processes
+    pool = ThreadPoolExecutor(1)
+    leg = pool.submit(kill_leg)
     model14 = os.path.join(work, "model14")
     shutil.copytree(models["incumbent"], model14)
     out, ckpt = os.path.join(work, "out14"), os.path.join(work, "ckpt14")
@@ -5332,27 +5459,12 @@ def swap_serve(dev, work: str, streams: dict, models: dict) -> dict:
         raise SystemExit(f"phase 14 (b): {len(files)} files; the batches "
                          "after the swap equal the candidate's alone "
                          f"{all(files[f] == ref[f] for f in after)}")
-    # the kill at model.swap's first call: published, not swapped
-    model14k = os.path.join(work, "model14k")
-    shutil.copytree(models["incumbent"], model14k)
-    out_k, ckpt_k = os.path.join(work, "out14k"), os.path.join(work,
-                                                                "ckpt14k")
-    killed = subprocess.run(
-        serve_args(model14k, dirs["all"], out_k, ckpt_k, dev, 1)
-        + ["--once", *SWAP_FLAGS, "--promote-from", cand], cwd=REPO,
-        capture_output=True, text=True, timeout=600,
-        env=env_with(SNTC_FAULTS="model.swap:kill"))
-    committed = len(os.listdir(os.path.join(ckpt_k, "commits")))
-    if killed.returncode != 137 or committed != at + 1:
-        raise SystemExit(f"phase 14 (b) kill: exit {killed.returncode}, "
-                         f"{committed} commits:\n{killed.stderr[-2000:]}")
-    doctor = subprocess.run(
-        [sys.executable, "-m", "sntc_tpu_torch", "fsck", ckpt_k], cwd=REPO,
-        capture_output=True, text=True, timeout=300)
-    marker_k = json.load(open(os.path.join(ckpt_k, "model_marker.json")))
-    recovered = serve_command(model14k, dirs["all"], out_k, ckpt_k, dev,
-                              SWAP_FLAGS)
+    committed, doctor, marker_k, recovered = leg.result()
+    pool.shutdown()
     commits = sorted(os.listdir(os.path.join(ckpt_k, "commits")))
+    if committed != at + 1:
+        raise SystemExit(f"phase 14 (b) kill: {committed} commits before "
+                         f"the kill, the promotion at batch {at}")
     if doctor.returncode != 0 or marker_k["generation"] != 1 \
             or recovered["batches"] != SWAP_FILES - committed \
             or commits != [f"{i}.json" for i in range(SWAP_FILES)] \
@@ -5946,7 +6058,7 @@ def crossover_sweep(dev) -> dict:
     2's MLP head (``MLP_LAYERS``), weights from ``SEED``, each served by
     ``transform`` on host float32 rows at every ``CROSS_SWEEP_ROWS`` size
     on the host (``SNTC_SERVE_HOST_ROWS`` at the size) and on the card
-    (0, upload and copy back included): the median ms of ``CROSS_REPS``
+    (0, upload and copy back included): the median ms of ``SWEEP_REPS``
     calls after one warm call, and where the default rule (the variable
     unset: the head's ``HOST_SERVE_ROWS``) places the batch."""
     from sntc_tpu_torch.models.logistic_regression import (
@@ -5978,7 +6090,7 @@ def crossover_sweep(dev) -> dict:
                 with environ(SNTC_SERVE_HOST_ROWS=value):
                     head.transform(frame)
                     ms = []
-                    for _ in range(CROSS_REPS):
+                    for _ in range(SWEEP_REPS):
                         t0 = time.perf_counter()
                         head.transform(frame)
                         ms.append((time.perf_counter() - t0) * 1e3)
@@ -5990,7 +6102,7 @@ def crossover_sweep(dev) -> dict:
             f"{list(CROSS_SWEEP_ROWS)} rows: host ms "
             f"{[round(x, 4) for x in rec['host_ms']]}, card ms "
             f"{[round(x, 4) for x in rec['card_ms']]} (median of "
-            f"{CROSS_REPS}); the default rule (HOST_SERVE_ROWS "
+            f"{SWEEP_REPS}); the default rule (HOST_SERVE_ROWS "
             f"{rec['default_rows']}) places {rec['rule']} "
             f"[{gpu_line()}]")
     out["sizes"] = list(CROSS_SWEEP_ROWS)
@@ -6161,7 +6273,7 @@ C9_FILE_GAP_S = 30.0
 C9_DEFER = 0.1
 C9_FLOW_TIMEOUT = 5.0
 C9_LATENESS = 35.0
-C9_REPS = 3  # bench.py:1369's own count: no cut
+C9_REPS = 1  # bench.py:1369 runs 3: cut to hold the smoke's time
 C9_LR_ITERS = 20
 #: the flow block of bench_runs.jsonl:102 (the JAX package's bench run)
 C9_RECORD = {"feature_rows": 23_296, "packets": 93_696, "flows": 15_616,
@@ -6173,7 +6285,7 @@ C15_FILES = 60  # min(64, rows // 1024) less its remainder by 4
 C15_FLOWS_PER_FILE = 192
 C15_RECORDS_PER_FLOW = 4
 C15_SEAL_EVERY = 4
-C15_REPS = 3
+C15_REPS = 1  # bench.py runs 3: cut to hold the smoke's time
 C15_FEATURE_ROWS = 46_080  # bench_runs.jsonl:113
 C15_KILL_SITE = "ingress.spool"
 C15_KILL_AFTER = 1  # the 2nd seal dies before its atomic write
@@ -6418,7 +6530,8 @@ def c9_serve(dev, data: dict, work: str) -> dict:
 def c15_serve(dev, predictor, work: str) -> dict:
     """(c): bench config 15 in this process (``bench.py:2864-3080``): the
     directory pass and the socket pass over the same NetFlow payloads,
-    interleaved, through (a)'s predictor."""
+    interleaved, through (a)'s predictor, beside the kill leg's and the
+    TCP run's processes (its rates are printed, ungated)."""
     import socket as socketlib
 
     tmp = os.path.join(work, "c15")
@@ -6863,12 +6976,16 @@ def live_capture(dev, work: str) -> dict:
     t0 = time.perf_counter()
     data = c9_data()
     a = c9_serve(dev, data, work)
-    c = c15_serve(dev, a["predictor"], work)
-    # the command legs: processes, started together where independent
-    b, kill_leg, tcp = together(
-        (capture_commands, dev, a, c, work),
-        (ingress_kill_leg, dev, a["model_dir"], work),
-        (tcp_command, dev, a["model_dir"], data["test"], work))
+    # the command legs are processes: the kill leg's and the TCP run's
+    # start once (a)'s model is saved, beside (c) in this process; the
+    # capture commands need (c)'s stream
+    with ThreadPoolExecutor(2) as pool:
+        legs = [pool.submit(ingress_kill_leg, dev, a["model_dir"], work),
+                pool.submit(tcp_command, dev, a["model_dir"], data["test"],
+                            work)]
+        c = c15_serve(dev, a["predictor"], work)
+        b = capture_commands(dev, a, c, work)
+        kill_leg, tcp = (f.result() for f in legs)
     c["kill_leg"], c["tcp"] = kill_leg, tcp
     shapes = {**a["pad_launch_shapes"]}
     for k, v in c["pad_launch_shapes"].items():
@@ -6933,7 +7050,7 @@ C8_NOISY_CORRUPT_EVERY = 3  # every 3rd noisy file is poison
 # JAX package on the CPU at this data and width)
 C8_NOISY_RECORD = {"state": "QUARANTINED", "poisoned_files": 21,
                    "quarantine_episodes": 1, "shed_total_offsets": 47}
-C11_REPS = 3  # interleaved reps of config 11's arm B
+C11_REPS = 1  # reps of config 11's arm B (the bench runs 3)
 C11_SLO = {"slo_p99_ms": 250.0, "slo_min_rows_per_sec": 500.0}
 # the journal leg: one tenant under a floor it cannot reach, as the JAX
 # bench's smoke journal for config 11 shows its controller's arc
@@ -7441,7 +7558,8 @@ def c11_daemon(dev, models: dict, a: dict, tmp: str) -> dict:
     10 tenant streams, the hand-tuned config-8 flags (buckets 256, no
     controller) against cold defaults (no buckets) with
     ``ServeDaemon(controller=True)`` under the bench's achievable SLOs,
-    3 reps in turns; every tenant OK, the sinks equal between the arms.
+    ``C11_REPS`` reps in turns; every tenant OK, the sinks equal between
+    the arms.
     Then the journal leg: three tenants with the controller armed, one
     under an unreachable floor, its ``controller.jsonl`` written and
     reconciled by a second daemon over the same root."""
@@ -7631,8 +7749,9 @@ def multi_tenant(dev, work: str) -> dict:
 
     tmp = os.path.join(work, "c8")
     os.makedirs(tmp)
-    # (b)'s processes run beside the fits and each other, and are done
-    # before anything is timed
+    # (b)'s processes run beside the fits, each other and (a), whose
+    # rates are printed, ungated; they are done before (c)'s controller
+    # reads its latencies
     pool = ThreadPoolExecutor(2)
     chaos = pool.submit(mt_chaos, dev, work)
     try:
@@ -7640,9 +7759,9 @@ def multi_tenant(dev, work: str) -> dict:
         models = part("fits", c8_pipelines, dev, data, work)
         streams = part("streams", c8_streams, data["test"], tmp)
         command = pool.submit(daemon_command, dev, models, streams, tmp)
+        a = part("a", c8_serve, dev, data, models, streams, tmp)
         b = part("b wait", command.result)
         b["chaos"] = part("chaos wait", chaos.result)
-        a = part("a", c8_serve, dev, data, models, streams, tmp)
         a["test"] = data["test"]
         check_command(b, tmp)
         c = part("c", c11_daemon, dev, models, a, tmp)
@@ -7939,11 +8058,12 @@ def dr_kill_legs(dev, model_dir: str, staging: str, names: list,
 
 
 def dr_kills(dev, model_dir: str, legs: dict, killed: dict, n_files: int,
-             ref: dict) -> dict:
+             drilled) -> dict:
     """(b), once the killed serves have exited: the torn standby promotes
     to its last sealed barrier (its strays quarantined, never promoted) or
     refuses and leaves no tree; the clean restarts, the three beside each
-    other, converge bitwise to (a)'s reference; the converged standby
+    other and beside (a), converge bitwise to (a)'s reference
+    (``drilled``, the future of :func:`dr_drill`); the converged standby
     promotes with zero tail loss to it."""
     for site, p in killed.items():
         finished(p, f"the serve killed at {site}", rc=KILL_EXIT_CODE,
@@ -7973,6 +8093,7 @@ def dr_kills(dev, model_dir: str, legs: dict, killed: dict, n_files: int,
     restarts = {site: serve_cli(dr_kill_argv(dev, model_dir, d))
                 for site, d in legs.items()}
     summaries = []
+    ref = None
     for site, p in restarts.items():
         s = summary_of(finished(p, f"the restart after {site}",
                                 phase="18 (b)"))
@@ -7982,6 +8103,7 @@ def dr_kills(dev, model_dir: str, legs: dict, killed: dict, n_files: int,
                            os.path.join(d, "promoted_final"),
                            os.path.join(d, "ckpt"), os.path.join(d, "out"))
         promoted = sink_batch_files(os.path.join(d, "promoted_final", "out"))
+        ref = ref or drilled.result()
         out[site].update(
             launches=s["kernel_launches"]["pad_assemble"],
             bitwise=(sink_batch_files(os.path.join(d, "out"))
@@ -8013,15 +8135,27 @@ def replication(dev, work: str, shared: dict | None = None) -> dict:
     names = dr_stage18(shared["test"], os.path.join(tmp, "staging"))
     parts["setup"] = round(time.perf_counter() - t, 1)
     t = time.perf_counter()
-    # (b)'s killed serves run beside (a)'s processes
+    # (b)'s killed serves, and then their restarts, run beside (a)'s
+    # processes
     legs, killed = dr_kill_legs(dev, shared["model_dir"],
                                 os.path.join(tmp, "staging"), names,
                                 os.path.join(tmp, "kills"))
-    ab = dr_drill(dev, shared["model_dir"], os.path.join(tmp, "staging"),
-                  names, os.path.join(tmp, "drill"))
-    parts["drill"] = round(time.perf_counter() - t, 1)
-    t = time.perf_counter()
-    c = dr_kills(dev, shared["model_dir"], legs, killed, len(names), ab)
+    drilled = Future()
+    with ThreadPoolExecutor(1) as pool:
+        kills = pool.submit(dr_kills, dev, shared["model_dir"], legs,
+                            killed, len(names), drilled)
+        try:
+            ab = dr_drill(dev, shared["model_dir"],
+                          os.path.join(tmp, "staging"), names,
+                          os.path.join(tmp, "drill"))
+        except BaseException as e:
+            drilled.set_exception(e)
+            raise
+        drilled.set_result(ab)
+        parts["drill"] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+        c = kills.result()
+    # the kill legs' seconds past the drill's
     parts["kills"] = round(time.perf_counter() - t, 1)
     ckpt, standby = ab["primary"]
     fsck = subprocess.run(
@@ -8474,29 +8608,28 @@ def fam_data() -> dict:
     }
 
 
-def fam_fit(name: str, dev, data: dict):
-    """One family's fit on ``dev``: ``(model or PIC, fit_stats)``."""
+def fam_fit(name: str, dev, data: dict, mesh=None):
+    """One family's fit on ``dev`` (over ``mesh`` when given): ``(model
+    or PIC, fit_stats)``."""
+    on = {"device": dev, "mesh": mesh}
     if name == "kmeans":
-        m = KMeans(device=dev, k=8, maxIter=20, seed=FAM_SEED).fit(
-            data["kmeans"])
+        m = KMeans(**on, k=8, maxIter=20, seed=FAM_SEED).fit(data["kmeans"])
     elif name == "bisecting_kmeans":
-        m = BisectingKMeans(device=dev, k=8, seed=FAM_SEED).fit(
-            data["kmeans"])
+        m = BisectingKMeans(**on, k=8, seed=FAM_SEED).fit(data["kmeans"])
     elif name == "bisecting_kmeans_blobs":
-        m = BisectingKMeans(device=dev, k=5, seed=FAM_SEED).fit(data["gmm"])
+        m = BisectingKMeans(**on, k=5, seed=FAM_SEED).fit(data["gmm"])
     elif name == "gaussian_mixture":
-        m = GaussianMixture(device=dev, k=5, maxIter=30, seed=FAM_SEED,
+        m = GaussianMixture(**on, k=5, maxIter=30, seed=FAM_SEED,
                             tol=1e-3).fit(data["gmm"])
     elif name == "lda":
-        m = LDA(device=dev, k=10, maxIter=20, subsamplingRate=0.1,
+        m = LDA(**on, k=10, maxIter=20, subsamplingRate=0.1,
                 seed=FAM_SEED).fit(data["lda"])
     elif name == "als":
-        m = ALS(device=dev, rank=16, maxIter=5, regParam=0.05,
+        m = ALS(**on, rank=16, maxIter=5, regParam=0.05,
                 implicitPrefs=True, seed=FAM_SEED).fit(data["als"])
     else:
-        m = PowerIterationClustering(device=dev, k=FAM_PIC_BLOCKS,
-                                     maxIter=20, weightCol="weight",
-                                     seed=FAM_SEED)
+        m = PowerIterationClustering(**on, k=FAM_PIC_BLOCKS, maxIter=20,
+                                     weightCol="weight", seed=FAM_SEED)
         m.clusters = m.assignClusters(data["pic"])
     return m, m.fit_stats
 
@@ -9046,6 +9179,10 @@ def families(dev, train: Frame, cpu_fits: FamilyFits) -> dict:
         "stat_seconds": st_card["seconds"],
         "wide_feature": inp["wide_feature"], "plans": plans,
         "kernels": kernels,
+        # phase 25's mesh-1 twins and their inputs
+        "handoff": {"data": data, "models": {
+            k: v["model"] for k, v in card.items()}, "seconds": {
+            k: v["warm_s"] for k, v in card.items()}},
     }
     if fails:
         log("phase 20 " + json.dumps({k: p20[k] for k in (
@@ -9343,20 +9480,21 @@ def p21_reg_inputs(train: Frame = None) -> dict:
     return out
 
 
-def p21_fit(name: str, dev, frames: dict):
-    """One of ``P21_FITS`` on ``dev``."""
+def p21_fit(name: str, dev, frames: dict, mesh=None):
+    """One of ``P21_FITS`` on ``dev`` (over ``mesh`` when given)."""
+    on = {"device": dev, "mesh": mesh}
     if name == "lr_normal":
-        est = LinearRegression(device=dev, solver="normal")
+        est = LinearRegression(**on, solver="normal")
     elif name == "lr_elastic":
-        est = LinearRegression(device=dev, solver="l-bfgs", **P21_EN)
+        est = LinearRegression(**on, solver="l-bfgs", **P21_EN)
     elif name in P21_GLMS:
-        est = GeneralizedLinearRegression(device=dev, **P21_GLMS[name][0])
+        est = GeneralizedLinearRegression(**on, **P21_GLMS[name][0])
     elif name == "aft":
-        est = AFTSurvivalRegression(device=dev)
+        est = AFTSurvivalRegression(**on)
     elif name == "fm_classifier":
-        est = FMClassifier(device=dev, **P21_FM)
+        est = FMClassifier(**on, **P21_FM)
     else:
-        est = FMRegressor(device=dev, **P21_FM)
+        est = FMRegressor(**on, **P21_FM)
     return est.fit(frames["lr" if name.startswith("lr_") else name])
 
 
@@ -9888,6 +10026,10 @@ def phase21(dev, work: str, cpu: P21Fits, split3: tuple = None,
                                w: cpu.arrays(f"poly_{w}_test")[
                                    "objectiveHistory"].tolist()
                                for w in P21_WITNESSES}},
+        # phase 25's mesh-1 twins and their inputs
+        "handoff": {"frames": frames, "models": {
+            k: v["model"] for k, v in card.items()}, "seconds": {
+            k: v["seconds"] for k, v in card.items()}},
     }
     if fails:
         log("phase 21 " + json.dumps({k: p21[k] for k in (
@@ -10694,7 +10836,7 @@ def index_add_call(c: dict, expect: torch.Tensor):
         same = torch.equal(out.view(expect.shape), expect)
     else:  # fractional sums: two f32 sums, each within the cell bound
         same = bool(((out.view(expect.shape) - expect).abs()
-                     <= 2 * cell_bound(c)[0]).all())
+                     <= 2 * exact_and_bound(c)[1]).all())
     if not same:
         raise SystemExit("the index_add_ yardstick computes another function")
     return lambda: out.index_add_(0, ids, src)
@@ -10721,7 +10863,7 @@ def measure_tree_hist(cases: dict, err: float, launches: int) -> list:
         if c["stats"].ndim == 3:
             per_class = per_class_launches(c)
             apart = torch.stack([h[0] for h in per_class()])
-            if not bool(((apart - expect).abs() <= 2 * cell_bound(c)[0])
+            if not bool(((apart - expect).abs() <= 2 * exact_and_bound(c)[1])
                         .all()):
                 raise SystemExit(f"tree_hist {name}: K launches of the "
                                  "shared form compute another histogram")
@@ -10871,7 +11013,9 @@ def measure_pad(dev, shapes: dict) -> list:
 
 P23_ROWS = 62_500  # bench.py:260 (BENCH_ROWS // 8)
 P23_SEED = 7  # bench.py's SEED
-P23_REPS = 3  # BENCH17_REPS (bench.py:3339): the forms in rotated order
+# the forms in rotated order; BENCH17_REPS (bench.py:3339) is 3, cut to
+# hold the smoke's time
+P23_REPS = 1
 P23_SERVE_SHARDS = 4  # (a)'s serve mesh: [cuda:0] * 4
 P23_FIT_SHARDS = 4  # (b)'s and (e)'s mesh
 P23_KM_SIZES = (1, 2, 4, 8)  # BENCH17_MESH_SIZES
@@ -11907,6 +12051,268 @@ def report_phase24(p24: dict, card: str) -> None:
         "serve_launches": p24["serve"]["launches"]}, default=str))
 
 
+# -- phase 25: mesh= on the regression fits and the families -----------------
+
+P25_SHARDS = 4  # the mesh of every mesh-4 leg: [cuda:0] * 4
+P25_BUDGET_S = 20.0
+P25_SERVE_ROWS = 1000  # one padded batch a served model: -> 1024
+#: the families' mesh-4 legs, by phase 20's names.  BisectingKMeans on
+#: the lognormal rows (3.5 s at mesh 4 alone, 2.9 s in the whole run;
+#: there it holds only its cost) is left out: the whole smoke took 1 140
+#: s of its 1 200 on a slow host (NVIDIA H100 80GB HBM3, 700.00 W)
+P25_FAMILIES = ("gaussian_mixture", "bisecting_kmeans_blobs", "lda", "pic")
+# Mesh 4 against mesh 1 at the card-against-CPU limits of phases 20 and
+# 21 (P21_NORMAL_TOL, P21_HISTORY_TOL, P21_GLM_RTOL, P21_DEVIANCE_RTOL;
+# FAM_GMM_TOL, FAM_KM_RTOL, FAM_BISECT_COST_RTOL, FAM_PERPLEXITY_RTOL,
+# FAM_E_STEP_RTOL, FAM_PIC_TOL): the shards' sums in shard order are
+# another summation order of the same float32 terms, as the CPU's are.
+# The IRLS stop counts are printed, not held (float32 noise at the stop
+# test).
+
+
+def p25_twins(dev, frames: dict, data: dict, p21: dict, p20: dict,
+              secs: dict) -> tuple:
+    """The mesh-1 twins: phase 21's and phase 20's card fits of the same
+    inputs where the run made them (mesh 1 is their path, bitwise), else
+    fitted here, each with its seconds."""
+    regs, fams = {}, {}
+    s = secs.setdefault("mesh1", {})
+    for name in P21_FITS:
+        if name in p21.get("models", {}):
+            regs[name], s[name] = p21["models"][name], p21["seconds"][name]
+        else:
+            regs[name], s[name] = timed(
+                lambda: p21_fit(name, dev, frames, card_mesh(dev, 1)))
+    for name in P25_FAMILIES:
+        if name in p20.get("models", {}):
+            fams[name], s[name] = p20["models"][name], p20["seconds"][name]
+        else:
+            (fams[name], _), s[name] = timed(
+                lambda: fam_fit(name, dev, data, card_mesh(dev, 1)))
+    return regs, fams
+
+
+def p25_fits(dev, frames: dict, data: dict, secs: dict) -> tuple:
+    """Every leg at ``[cuda:0] * 4``, timed."""
+    mesh, s = card_mesh(dev, P25_SHARDS), secs.setdefault(
+        f"mesh{P25_SHARDS}", {})
+    regs, fams = {}, {}
+    for name in P21_FITS:
+        regs[name], s[name] = timed(lambda: p21_fit(name, dev, frames, mesh))
+    for name in P25_FAMILIES:
+        (fams[name], _), s[name] = timed(
+            lambda: fam_fit(name, dev, data, mesh))
+    return regs, fams
+
+
+def p25_compare_regression(frames: dict, one: dict, four: dict,
+                           fails: list) -> dict:
+    """(a): each mesh-4 regression fit against its mesh-1 twin."""
+    res = {}
+    for name in P21_FITS:
+        m1, m4 = one[name], four[name]
+        r = res[name] = {"iterations": [m4.summary.totalIterations,
+                                        m1.summary.totalIterations]}
+        if name == "lr_normal":
+            X, y = frames["lr"]["features"], frames["lr"]["label"]
+            r["prediction_gap"] = float(np.abs(m4.predict(X) - m1.predict(X))
+                                        .max() / np.std(y))
+            ok = r["prediction_gap"] <= P21_NORMAL_TOL
+        elif name in P21_GLMS:
+            coef = np.append(m4.coefficients, m4.intercept)
+            r["coef_rel"] = fam_rel(coef, np.append(m1.coefficients,
+                                                    m1.intercept))
+            r["deviance_rel"] = abs(m4.summary.deviance / m1.summary.deviance
+                                    - 1.0)
+            ok = (np.isfinite(coef).all()
+                  and r["coef_rel"] <= P21_GLM_RTOL[name]
+                  and r["deviance_rel"] <= P21_DEVIANCE_RTOL)
+        else:
+            g = fit_gaps(m4, m1)
+            r["history_gap"] = max(g["max_gap"], g["end_gap"])
+            ok = (r["iterations"][0] == r["iterations"][1]
+                  and r["history_gap"] <= P21_HISTORY_TOL[name])
+        if not ok:
+            fails.append(f"phase 25 (a) {name}: mesh {P25_SHARDS} is not "
+                         f"mesh 1: {r}")
+    return res
+
+
+def p25_compare_families(dev, data: dict, one: dict, four: dict,
+                         fails: list) -> dict:
+    """(b): each mesh-4 family fit against its mesh-1 twin; LDA's E-step
+    fed one γ₀ at both sizes."""
+    res = {}
+    Xg = data["gmm"]["features"]
+    g1, g4 = one["gaussian_mixture"], four["gaussian_mixture"]
+    p1, p4 = g1.predictProbability(Xg), g4.predictProbability(Xg)
+    top2 = np.sort(p1, axis=1)[:, -2:]
+    ties = (top2[:, 1] - top2[:, 0]) <= FAM_GMM_TOL
+    r = res["gaussian_mixture"] = {
+        "iterations": [g4.summary.totalIterations,
+                       g1.summary.totalIterations],
+        "abs_gap": float(max(np.abs(g4.means - g1.means).max(),
+                             np.abs(g4.covs - g1.covs).max(),
+                             np.abs(g4.weights - g1.weights).max(),
+                             abs(g4.summary.logLikelihood
+                                 - g1.summary.logLikelihood))),
+        "rows_differing": int((p4.argmax(1) != p1.argmax(1)).sum())}
+    if (r["abs_gap"] > FAM_GMM_TOL or r["iterations"][0] != r["iterations"][1]
+            or ((p4.argmax(1) != p1.argmax(1)) & ~ties).any()):
+        fails.append(f"phase 25 (b) GaussianMixture: {r}")
+    b1, b4 = one["bisecting_kmeans_blobs"], four["bisecting_kmeans_blobs"]
+    same = (np.array_equal(b4._left, b1._left)
+            and np.array_equal(b4._right, b1._right))
+    r = res["bisecting_kmeans_blobs"] = {
+        "same_tree": same,
+        "centers_rel": (fam_rel(b4.clusterCenters, b1.clusterCenters)
+                        if same else None),
+        "cost_rel": abs(b4.summary.trainingCost
+                        / b1.summary.trainingCost - 1.0)}
+    if not (same and r["centers_rel"] <= FAM_KM_RTOL
+            and r["cost_rel"] <= FAM_KM_RTOL):
+        fails.append(f"phase 25 (b) BisectingKMeans: {r}")
+    l1, l4 = one["lda"], four["lda"]
+    Xl = data["lda"]["features"]
+    perp = [l4.logPerplexity(data["lda"]), l1.logPerplexity(data["lda"])]
+    eeb = torch.from_numpy(np.exp(psi(l1.lam) - psi(
+        l1.lam.sum(axis=1, keepdims=True))).astype(np.float32)).to(dev)
+    g0 = gamma0(FAM_SEED, (0,), Xl.shape[0], l1.lam.shape[0])
+    ga, sa, ua, _ = e_step(torch.from_numpy(Xl).to(dev), eeb, l1.alpha,
+                           torch.from_numpy(g0).to(dev))
+    xs, gs, wm = shard_batch(card_mesh(dev, P25_SHARDS), Xl, g0)
+    gb, sb, ub, _ = e_step(xs, eeb, l1.alpha, gs, wm=wm)
+    r = res["lda"] = {
+        "log_perplexity": perp,
+        "e_step_gamma_rel": fam_rel(gb.numpy()[:len(Xl)], ga.cpu().numpy()),
+        "e_step_stat_rel": fam_rel(sb.cpu().numpy(), sa.cpu().numpy()),
+        "e_step_updates": [ub, ua]}
+    if (abs(perp[0] / perp[1] - 1.0) > FAM_PERPLEXITY_RTOL
+            or r["e_step_gamma_rel"] > FAM_E_STEP_RTOL
+            or r["e_step_stat_rel"] > FAM_E_STEP_RTOL or ua != ub):
+        fails.append(f"phase 25 (b) LDA: {r}")
+    c1 = np.asarray(one["pic"].clusters["cluster"])
+    c4 = np.asarray(four["pic"].clusters["cluster"])
+    r = res["pic"] = {
+        "v_rel": fam_rel(four["pic"].fit_stats["embedding"],
+                         one["pic"].fit_stats["embedding"]),
+        "steps": [four["pic"].fit_stats["power_steps"],
+                  one["pic"].fit_stats["power_steps"]],
+        "assignments_equal": bool(np.array_equal(c4, c1))}
+    if (r["v_rel"] > FAM_PIC_TOL or r["steps"][0] != r["steps"][1]
+            or not r["assignments_equal"]):
+        fails.append(f"phase 25 (b) PIC: {r}")
+    return res
+
+
+def p25_serve(dev, frames: dict, data: dict, one: tuple, four: tuple,
+              fails: list) -> dict:
+    """(c): the LinearRegression (normal) and GaussianMixture models of
+    both sizes, each served once on a ``[1 000, C]`` float32 batch
+    through a bucketed ``BatchPredictor`` (one ``pad_assemble`` launch to
+    1 024 rows), launch counts from 0; the two sizes' predictions
+    compared."""
+    batches = {"lr_normal": frames["lr"]["features"][-P25_SERVE_ROWS:],
+               "gaussian_mixture": data["gmm"]["features"][-P25_SERVE_ROWS:]}
+    models = {1: {"lr_normal": one[0]["lr_normal"],
+                  "gaussian_mixture": one[1]["gaussian_mixture"]},
+              P25_SHARDS: {"lr_normal": four[0]["lr_normal"],
+                           "gaussian_mixture": four[1]["gaussian_mixture"]}}
+    reset_launches()
+    preds = {}
+    for key, x in batches.items():
+        for n, fit in models.items():
+            out = BatchPredictor(fit[key], bucket_rows=BUCKET_FLOOR,
+                                 device=dev).predict_frame(
+                Frame({"features": x}))
+            preds[(key, n)] = np.asarray(to_host(out["prediction"]),
+                                         np.float64)
+    torch.cuda.synchronize()
+    launches, shapes = dict(LAUNCHES), dict(PAD_LAUNCH_SHAPES)
+    y = frames["lr"]["label"]
+    gaps = {"lr_normal": float(np.abs(preds[("lr_normal", P25_SHARDS)]
+                                      - preds[("lr_normal", 1)]).max()
+                               / np.std(y)),
+            "gaussian_mixture_rows_differing": int(
+                (preds[("gaussian_mixture", P25_SHARDS)]
+                 != preds[("gaussian_mixture", 1)]).sum())}
+    if launches["pad_assemble"] != 4 or launches["tree_hist"] or \
+            launches["forest_traversal"] or \
+            gaps["lr_normal"] > P21_NORMAL_TOL or \
+            gaps["gaussian_mixture_rows_differing"]:
+        fails.append(f"phase 25 (c) serve: launches {launches}, gaps {gaps}")
+    return {"launches": launches, "pad_launch_shapes": shapes, "gaps": gaps}
+
+
+def phase25(dev, p20: dict = None, p21: dict = None) -> dict:
+    """Phase 25, in this process: the regression fits on phase 21's
+    inputs and the families on phase 20's at ``[cuda:0] * 4``, each held
+    against its mesh-1 twin (phases 21's and 20's card fits where the run
+    made them: ``p21`` / ``p20``, their handoffs), and the mesh-4
+    LinearRegression and GaussianMixture served once each."""
+    t0 = time.perf_counter()
+    fails: list = []
+    p20, p21 = p20 or {}, p21 or {}
+    (frames, data), inputs_s = timed(lambda: (
+        p21.get("frames") or p21_reg_inputs(),
+        p20.get("data") or fam_data()))
+    secs: dict = {}
+    one = p25_twins(dev, frames, data, p21, p20, secs)
+    four = p25_fits(dev, frames, data, secs)
+    cmp_ = {"regression": p25_compare_regression(frames, one[0], four[0],
+                                                  fails),
+            "families": p25_compare_families(dev, data, one[1], four[1],
+                                             fails)}
+    served = p25_serve(dev, frames, data, one, four, fails)
+    mesh_s = sum(secs[f"mesh{P25_SHARDS}"].values())
+    p25 = {"seconds": time.perf_counter() - t0, "inputs_s": inputs_s,
+           "parts_s": secs, "mesh4_fit_s": mesh_s,
+           "twins_from_run": {"phase 21": bool(p21), "phase 20": bool(p20)},
+           "compare": cmp_, "serve": served}
+    PHASE_SECONDS["25 parts"] = secs
+    if fails:
+        log("phase 25 " + json.dumps(p25, default=str))
+        raise SystemExit("phase 25 failed:\n" + "\n".join(fails))
+    p25["kernels"] = pads_of(dev, served["pad_launch_shapes"])
+    return p25
+
+
+def report_phase25(p25: dict, card: str) -> None:
+    """Phase 25's lines: each leg's seconds at both sizes, the gaps, the
+    serve's launches, ``pad_assemble``'s entries, one JSON line.  The
+    mesh-4 seconds are the virtual shards' overhead on one card, not a
+    scaling."""
+    c, s = p25["compare"], p25["parts_s"]
+    log(f"phase 25 seconds at mesh 1 {s['mesh1']} and [cuda:0] x "
+        f"{P25_SHARDS} {s[f'mesh{P25_SHARDS}']} (mesh-1 twins from the run: "
+        f"{p25['twins_from_run']}) [{card}]")
+    log(f"phase 25 (a) regression fits, mesh {P25_SHARDS} against mesh 1: "
+        f"{c['regression']} (limits: normal {P21_NORMAL_TOL}, histories "
+        f"{P21_HISTORY_TOL}, GLM coefficients {P21_GLM_RTOL}, deviance "
+        f"{P21_DEVIANCE_RTOL}; IRLS stop counts printed, not held) [{card}]")
+    log(f"phase 25 (b) families, mesh {P25_SHARDS} against mesh 1: "
+        f"{c['families']} (limits: GMM {FAM_GMM_TOL}, blobs {FAM_KM_RTOL}, "
+        f"perplexity {FAM_PERPLEXITY_RTOL}, E-step {FAM_E_STEP_RTOL}, PIC "
+        f"{FAM_PIC_TOL}) [{card}]")
+    log(f"phase 25 (c) serve: launches {p25['serve']['launches']}, pads "
+        f"{p25['serve']['pad_launch_shapes']}, gaps {p25['serve']['gaps']} "
+        f"[{card}]")
+    for x in p25["kernels"]:
+        log(f"phase 25 {x['name']} {x['shape']}: {x['ms']:.4f} ms a call, "
+            f"{x['device_ms']:.4f} ms of device time a launch (plain "
+            f"{x['plain_ms']:.4f} ms, library {x['library_ms']:.4f} ms, "
+            f"bound {x['bound_ms']:.4f} ms by {x['bound_by']}); "
+            f"{x['launches']} launches on its path, max abs error "
+            f"{x['max_abs_err']} [{card}]")
+    log("phase 25 " + json.dumps({
+        "phase": 25, "card": card, "seconds": round(p25["seconds"], 3),
+        "budget_s": P25_BUDGET_S,
+        "within_budget": p25["seconds"] <= P25_BUDGET_S,
+        "mesh4_fit_s": round(p25["mesh4_fit_s"], 3),
+        "inputs_s": round(p25["inputs_s"], 3), "parts_s": p25["parts_s"],
+        "serve_launches": p25["serve"]["launches"]}, default=str))
+
+
 #: side process name -> (its handle in the run, its main)
 SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "family_fits": (FamilyFits, family_fits_main),
@@ -11914,7 +12320,7 @@ SIDES = {"cpu_fits": (CpuFits, cpu_fits_main),
          "p22_fits": (P22Fits, p22_fits_main)}
 
 PHASES = ("2", "3", "11", "12", "13", "14", "15", "16", "17", "18", "19",
-          "20", "21", "22", "23", "24")
+          "20", "21", "22", "23", "24", "25")
 
 
 #: the compiled bytecode of every Python process the run starts
@@ -11947,7 +12353,8 @@ def main() -> int:
                     "15 trains config 1 first, 18 and 19 config 9's LR "
                     "pipeline, 20 generates config 3's rows, 21 config 3's "
                     "and config 4's, 22 config 1's, 23 and 24 config "
-                    "3's); "
+                    "3's, 25 phase 20's and 21's inputs, and fits their "
+                    "mesh-1 twins unless 20 and 21 run too); "
                     "default: every phase")
     # a CPU side process (``SIDES``), which the run starts itself
     ap.add_argument("--side", nargs=2, default=None, metavar=("NAME", "DIR"),
@@ -12022,16 +12429,23 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                                           for f in ("part_0000.csv",
                                                     "part_0001.csv")],
                                     admit=False)
+        # phases 12's and 13's inputs are generated and written in a
+        # thread, each beside the phase before its own (whose main
+        # thread mostly waits on serving processes)
+        gen = ThreadPoolExecutor(1)
+        inputs12 = gen.submit(dp_streams, work)
         with clock("11 failures"):
             failures = failure_paths(dev, work)
+        inputs13 = gen.submit(st_streams, work)
         with clock("12 data plane"):
-            phase12 = data_plane(dev, work)
+            phase12 = data_plane(dev, work, inputs12)
+        gen.shutdown()
         # phases 20's and 21's CPU sides (~1.5 min each) start once the
         # serve phases that load the host most (3, 8, 12) are done, and
         # end long before phase 20 needs them
         start("family_fits", "p21_fits", "p22_fits")
         with clock("13 self-tuning"):
-            phase13 = self_tuning(dev, work)
+            phase13 = self_tuning(dev, work, inputs13)
         with clock("14 lifecycle"):
             phase14 = lifecycle(dev, work)
         with clock("5 breakdown"):
@@ -12090,6 +12504,9 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
             job2 = pool.submit(train_lbfgs, dev, data2, work, [])
             jobs9 = {est: pool.submit(train_estimator, dev, data2, est, work)
                      for est in ("nb", "svc")}
+            # phase 9's tree regressors fit on the card while the four
+            # train processes run
+            regs = fit_regressors(dev, data4)
             trained2, trained1 = job2.result(), job1.result()
             check_config2(trained2)
             check_config1(dev, data1, trained1)
@@ -12120,7 +12537,6 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     with clock("7 configs 2 and 1"):
         fit2 = mlp_fit_profile(dev, data2)
     with clock("9 nb, svc, evaluate"):
-        regs = fit_regressors(dev, data4)
         new9 = measure_phase9(dev, regs, served9)
     kernels += new9
     with tempfile.TemporaryDirectory(prefix="sntc_chip_smoke_") as work:
@@ -12141,6 +12557,9 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
             phase23_ = phase23(dev, work, data["train"])
     with clock("24 mesh classification"):
         phase24_ = phase24(dev, data["train"])
+    with clock("25 mesh regression, families"):
+        phase25_ = phase25(dev, phase20.pop("handoff"),
+                           phase21_.pop("handoff"))
     kernels.append(phase10["pad"])
     kernels += phase12["pads"]
     kernels += phase13["pads"]
@@ -12154,6 +12573,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     kernels += phase21_["kernels"]
     kernels += phase23_["kernels"]
     kernels += phase24_["kernels"]
+    kernels += phase25_["kernels"]
 
     rows_per_s = summary["rows"] / summary["seconds"]
     log(f"serve throughput: {rows_per_s:.0f} rows/s over {summary['rows']} "
@@ -12344,6 +12764,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
     report_phase22(phase22_, card)
     report_phase23(phase23_, card)
     report_phase24(phase24_, card)
+    report_phase25(phase25_, card)
     if args.out_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.out_json)),
                     exist_ok=True)
@@ -12375,7 +12796,7 @@ def main_all(dev, card: str, args, built, build_pool, sides: dict,
                        "phase18": phase18, "phase19": phase19,
                        "phase20": phase20, "phase21": phase21_,
                        "phase22": phase22_, "phase23": phase23_,
-                       "phase24": phase24_,
+                       "phase24": phase24_, "phase25": phase25_,
                        "phase_seconds": PHASE_SECONDS,
                        "sides": side_spans(sides)}, f,
                       indent=1, default=str)
@@ -12500,6 +12921,13 @@ def main_phases(dev, card: str, phases: list, sides: dict) -> int:
                 p24 = phase24(dev, train3)
             report_phase24(p24, card)
             kernels += p24["kernels"]
+        if "25" in phases:
+            with clock("25 mesh regression, families"):
+                p25 = phase25(dev, p20.pop("handoff") if "20" in phases
+                              else None,
+                              p21.pop("handoff") if "21" in phases else None)
+            report_phase25(p25, card)
+            kernels += p25["kernels"]
     finish(kernels, card, sides)
     return 0
 

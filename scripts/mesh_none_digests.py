@@ -6,9 +6,12 @@ python3 scripts/mesh_none_digests.py``) to show that a change leaves the
 ``mesh=None`` path's results bitwise as they were.  The classification
 path's fits and scores (NaiveBayes, LinearSVC, OneVsRest's LR lanes, the
 grid and fold lanes, LR's partial_fit, the evaluator, the selectors,
-MaxAbsScaler, IDF, ``stat``) are digested at ``mesh=None``; where the
-checkout's entry point takes ``mesh=``, the same call at a one-shard mesh
-is digested too, and ``one_shard_differs`` lists those that differ."""
+MaxAbsScaler, IDF, ``stat``), the regression fits (LinearRegression,
+the GLMs, AFT, the FMs, IsotonicRegression) and the families
+(GaussianMixture, BisectingKMeans, LDA, PowerIterationClustering) are
+digested at ``mesh=None``; where the checkout's entry point takes
+``mesh=``, the same call at a one-shard mesh is digested too, and
+``one_shard_differs`` lists those that differ."""
 import hashlib, json, sys
 import numpy as np, torch
 torch.set_num_threads(4)
@@ -107,8 +110,43 @@ CLASSIFICATION = {
     "fvalue_test": lambda kw: [stat.FValueTest.test(fr, "features", "label", device="cpu", **kw)["statistics"]],
     "summarizer": summ,
 }
+from sntc_tpu_torch.models import (AFTSurvivalRegression, BisectingKMeans, FMClassifier,
+    FMRegressor, GaussianMixture, GeneralizedLinearRegression, IsotonicRegression, LDA,
+    LinearRegression, PowerIterationClustering)
+eta = X[:, :4] @ np.array([0.2, -0.1, 0.15, 0.05], np.float32) - 0.6
+fz = lambda lab: Frame({"features": X, "label": lab})
+GLM_LABELS = {"gaussian": yr, "poisson": rng2.poisson(np.exp(eta)).astype(np.float64),
+              "gamma": rng2.gamma(2.0, np.exp(eta) / 2.0), "binomial": y,
+              "tweedie": rng2.poisson(np.exp(eta)).astype(np.float64)}
+GLM_KW = {"gamma": {"link": "log"}, "tweedie": {"variancePower": 1.5}}
+fa = Frame({"features": X, "label": np.exp(eta + 0.3 * rng2.normal(size=3000)),
+            "censor": (rng2.random(3000) < 0.8).astype(np.float64)})
+docs = Frame({"features": rng2.poisson(1.0, size=(500, 40)).astype(np.float32)})
+iu, ju = np.triu_indices(80, 1)
+keep = rng2.random(len(iu)) < np.where((iu < 40) == (ju < 40), 0.5, 0.01)
+graph = Frame({"src": iu[keep], "dst": ju[keep], "weight": np.where((iu[keep] < 40) == (ju[keep] < 40), 1.0, 0.1)})
+def coef(m): return [m.coefficients, m.intercept]
+def pic(kw):
+    p = PowerIterationClustering(device="cpu", k=2, maxIter=30, weightCol="weight", seed=1, **kw)
+    return [p.assignClusters(graph)["cluster"], p.fit_stats["embedding"]]
+REGRESSION_AND_FAMILIES = {
+    "lr_normal": lambda kw: coef(LinearRegression(device="cpu", solver="normal", **kw).fit(fr)),
+    "lr_lbfgs": lambda kw: (lambda m: coef(m) + [m.summary.objectiveHistory])(LinearRegression(device="cpu", solver="l-bfgs", regParam=0.1, elasticNetParam=0.5, **kw).fit(fr)),
+    **{f"glm_{fam}": (lambda fam, lab: lambda kw: (lambda m: coef(m) + [m.summary.deviance, m.summary.nullDeviance, m.summary.dispersion])(
+        GeneralizedLinearRegression(device="cpu", family=fam, **GLM_KW.get(fam, {}), **kw).fit(fz(lab))))(fam, lab)
+       for fam, lab in GLM_LABELS.items()},
+    "aft": lambda kw: (lambda m: coef(m) + [m.scale, m.summary.objectiveHistory])(AFTSurvivalRegression(device="cpu", **kw).fit(fa)),
+    "fm_regressor": lambda kw: (lambda m: [m.factors, m.linear, m.intercept, m.summary.objectiveHistory])(FMRegressor(device="cpu", maxIter=20, stepSize=0.05, **kw).fit(fr)),
+    "fm_classifier": lambda kw: (lambda m: [m.factors, m.linear, m.intercept, m.summary.objectiveHistory])(FMClassifier(device="cpu", maxIter=20, stepSize=0.05, **kw).fit(f)),
+    "isotonic": lambda kw: (lambda m: [m.boundaries, m.predictions])(IsotonicRegression(device="cpu", **kw).fit(Frame({"features": X[:, 0].astype(np.float64), "label": yr}))),
+    "gmm": lambda kw: (lambda m: [m.means, m.covs, m.weights, m.summary.logLikelihood])(GaussianMixture(device="cpu", k=3, seed=1, **kw).fit(f)),
+    "bisecting_kmeans": lambda kw: (lambda m: [m._centers, m._left, m.summary.trainingCost])(BisectingKMeans(device="cpu", k=4, seed=1, **kw).fit(f)),
+    "lda_online": lambda kw: [LDA(device="cpu", k=4, maxIter=5, subsamplingRate=0.2, **kw).fit(docs).lam],
+    "lda_em": lambda kw: [LDA(device="cpu", k=4, maxIter=3, optimizer="em", **kw).fit(docs).lam],
+    "pic": pic,
+}
 differs = []
-for name, fn in CLASSIFICATION.items():
+for name, fn in {**CLASSIFICATION, **REGRESSION_AND_FAMILIES}.items():
     out[name] = h(*fn({}))
     try:
         one = h(*fn({"mesh": default_mesh(1, device="cpu")}))

@@ -15,7 +15,11 @@ The fit runs on the estimator's device (default ``cuda``): the feature
 moments (``standardization_moments``, the variance only), then the
 port's LBFGS over θ = [β (scaled space), intercept, log σ] in full
 float32.  ``log t`` is taken in float64 on the host and cast to
-float32, as in the JAX package.  The model predicts in float64 numpy on
+float32, as in the JAX package.  With a ``mesh=`` of more than one
+shard the rows, ``log t``, the censor flags and the weights are laid
+out by ``shard_batch`` (weight 0 on the padding): the moments are one
+aggregate and each LBFGS evaluation sums the shards' ``(Σ w·nll,
+gradient, Σw)`` in shard order (``mlp.sharded_value_and_grad``).  The model predicts in float64 numpy on
 the host, as the JAX model does (a tensor column is read back first).
 """
 
@@ -27,34 +31,51 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.standard_scaler import standardization_moments
-from sntc_tpu_torch.models.linear_regression import to_device
-from sntc_tpu_torch.models.mlp import value_and_grad_fn
+from sntc_tpu_torch.models.mlp import (
+    local_blocks,
+    sharded_value_and_grad,
+    value_and_grad_fn,
+)
 from sntc_tpu_torch.models.summary import TrainingSummary
 from sntc_tpu_torch.ops.lbfgs import full_f32, minimize_lbfgs
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_columns,
+    fit_device,
+    fit_mesh,
+)
 
 _DEFAULT_QPS = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99)
 
 
 def aft_optimize(xs, logt, delta, ws, inv_std, theta0, *,
                  fit_intercept: bool, max_iter: int, tol: float):
-    """The AFT fit on ``xs``'s device: θ = [β (scaled space), intercept,
-    log σ]; the intercept slot is inert when ``fit_intercept`` is off.
-    Call under :func:`full_f32`."""
+    """The AFT fit on ``xs``'s device, or over ``shard_batch``'s rows:
+    θ = [β (scaled space), intercept, log σ]; the intercept slot is inert
+    when ``fit_intercept`` is off.  Call under :func:`full_f32`."""
     d = xs.shape[1]
-    w_sum = torch.sum(ws)
-    zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
 
-    def nll(theta):
-        coef = theta[:d] * inv_std
-        b = theta[d] if fit_intercept else zero
+    def weighted_ll(theta, x, lt, dl, w):
+        coef = theta[:d] * inv_std.to(x.device)
+        b = theta[d] if fit_intercept else torch.zeros(
+            (), dtype=x.dtype, device=x.device)
         log_sigma = theta[d + 1]
-        eps = (logt - xs @ coef - b) * torch.exp(-log_sigma)
-        ll = delta * (eps - log_sigma) - torch.exp(eps)
-        return -torch.sum(ws * ll) / w_sum
+        eps = (lt - x @ coef - b) * torch.exp(-log_sigma)
+        return torch.sum(w * (dl * (eps - log_sigma) - torch.exp(eps)))
 
-    return minimize_lbfgs(value_and_grad_fn(nll), theta0, max_iter=max_iter,
+    if isinstance(xs, ShardedArray):
+        value_and_grad = sharded_value_and_grad(
+            xs.mesh, lambda t, *blk: -weighted_ll(t, *blk),
+            local_blocks(xs, logt, delta, ws))
+    else:
+        w_sum = torch.sum(ws)
+
+        def nll(theta):
+            return -weighted_ll(theta, xs, logt, delta, ws) / w_sum
+
+        value_and_grad = value_and_grad_fn(nll)
+    return minimize_lbfgs(value_and_grad, theta0, max_iter=max_iter,
                           tol=tol)
 
 
@@ -84,11 +105,13 @@ class _AftParams:
 
 
 class AFTSurvivalRegression(_AftParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "AFTSurvivalRegressionModel":
         X = to_host(frame[self.getFeaturesCol()])
@@ -111,17 +134,18 @@ class AFTSurvivalRegression(_AftParams, Estimator):
              else np.ones(len(t), np.float32))
         d = X.shape[1]
         dev = self.device
-        xs, ws = to_device(X, dev), to_device(w, dev)
+        mesh = fit_mesh(self.mesh)
+        xs, lt, dl, ws = fit_columns(
+            (X, np.log(t).astype(np.float32), delta), w, dev, mesh)
         # std-only internal scaling (Spark AFT standardizes without
         # centering); the scaler's one-pass moments
         _, _, var = standardization_moments(
-            xs, ws, X[0] if len(t) else np.zeros(d))
+            xs, ws, X[0] if len(t) else np.zeros(d), mesh)
         std = np.sqrt(np.maximum(var, 0.0))
         inv_std = np.divide(1.0, std, out=np.ones_like(std), where=std > 0)
         with full_f32():
             res = aft_optimize(
-                xs, to_device(np.log(t).astype(np.float32), dev),
-                to_device(delta, dev), ws,
+                xs, lt, dl, ws,
                 torch.from_numpy(inv_std.astype(np.float32)).to(dev),
                 torch.zeros(d + 2, dtype=torch.float32, device=dev),
                 fit_intercept=bool(self.getFitIntercept()),

@@ -11,7 +11,11 @@ root → leaf by the nearest child center.
 
 Every bisection runs KMeans's Lloyd loop (``kmeans.lloyd`` with k=2) on
 the device over all the rows, uploaded once: cluster membership rides
-the row weights (non-members weigh 0).  The perturbations are numpy
+the row weights (non-members weigh 0).  With a ``mesh=`` of more than
+one shard the rows are laid out once by ``shard_batch``, each split's
+membership by ``shard_weights`` (0 on the padding), and the 2-means
+runs through ``kmeans.mesh_lloyd_fns``, as the JAX package runs its
+sharded Lloyd program.  The perturbations are numpy
 draws from the seed, as in the JAX package; the host drives the tree
 loop (≤ k−1 splits), assigns each split's members and computes the
 training cost in float64, as the JAX package does.
@@ -25,15 +29,21 @@ import torch
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.models.kmeans import (
     _normalize_rows,
     _sq_dists,
     local_lloyd_fns,
     lloyd,
+    mesh_lloyd_fns,
     vector_rows,
 )
 from sntc_tpu_torch.models.summary import TrainingSummary
+from sntc_tpu_torch.parallel.collectives import (
+    fit_device,
+    fit_mesh,
+    shard_batch,
+    shard_weights,
+)
 
 
 class _BisectingParams:
@@ -55,11 +65,13 @@ class _BisectingParams:
 
 
 class BisectingKMeans(_BisectingParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "BisectingKMeansModel":
         X = vector_rows(frame, self.getFeaturesCol())
@@ -71,7 +83,11 @@ class BisectingKMeans(_BisectingParams, Estimator):
         min_size = mds if mds >= 1.0 else mds * n
         rng = np.random.default_rng(self.getSeed())
         dev = self.device
-        xs = torch.from_numpy(np.ascontiguousarray(Xw)).to(dev)
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(Xw)).to(dev)
+        else:
+            xs, _ = shard_batch(mesh, np.ascontiguousarray(Xw))
         reads = 0
 
         # tree arrays: center / left / right (-1 = leaf) per node
@@ -97,9 +113,15 @@ class BisectingKMeans(_BisectingParams, Estimator):
                 float(np.linalg.norm(noise)), 1e-12
             )
             c0 = np.stack([c - noise, c + noise]).astype(np.float32)
-            ws = torch.from_numpy(mask.astype(np.float32)).to(dev)
+            if mesh is None:
+                fns = local_lloyd_fns(
+                    xs, torch.from_numpy(mask.astype(np.float32)).to(dev),
+                    cosine)
+            else:
+                fns = mesh_lloyd_fns(mesh, xs, shard_weights(
+                    mesh, mask.astype(np.float32), xs.shape[0]), cosine)
             new_centers, _, _, r = lloyd(
-                *local_lloyd_fns(xs, ws, cosine),
+                *fns,
                 torch.from_numpy(c0).to(dev), 1e-4,
                 max_iter=int(self.getMaxIter()), cosine=cosine,
             )

@@ -20,7 +20,12 @@ square root and both moments bias-corrected before the division, then
 ``-step`` times the update.  The loop stops on the relative change of
 the pre-update loss below ``tol`` (``prev`` seeded at float32's
 maximum), one read back a step; the history holds each step's loss and
-the final parameters' loss.
+the final parameters' loss.  With a ``mesh=`` of more than one shard
+the rows and targets are laid out by ``shard_batch``, whose pad mask is
+the row weights (as in the JAX package): each full-batch gradient is
+the shards' autograd gradients of ``Σ w·loss`` summed in shard order and
+divided by the summed weights, the L2 term added once; the update stays
+on the model's device.
 
 The models score on their device in float32; FMClassificationModel's
 probability and prediction are then taken on the host in float64, as
@@ -44,6 +49,13 @@ from sntc_tpu_torch.models.summary import (
     TrainingSummary,
 )
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    shard_batch,
+)
+from sntc_tpu_torch.parallel.mesh import reduce_at
 from sntc_tpu_torch.utils.profiling import record_movement
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -67,18 +79,27 @@ def _softplus(s):
     return torch.clamp_min(s, 0.0) + torch.log1p(torch.exp(-torch.abs(s)))
 
 
-def fm_loss(params: dict, X, y, w, *, classification: bool, reg):
+def _weighted_loss(params: dict, X, y, w, classification: bool):
+    """``Σ w·loss`` over the rows."""
     s = fm_score(params, X)
     if classification:
         per_row = _softplus(s) - y * s  # logistic loss on {0, 1}
     else:
         per_row = 0.5 * (s - y) ** 2
-    wsum = torch.clamp_min(torch.sum(w), 1e-12)
-    loss = torch.sum(w * per_row) / wsum
+    return torch.sum(w * per_row)
+
+
+def _l2(params: dict):
     pen = torch.sum(params["V"] ** 2)
     if "w" in params:
         pen = pen + torch.sum(params["w"] ** 2)
-    return loss + 0.5 * reg * pen
+    return pen
+
+
+def fm_loss(params: dict, X, y, w, *, classification: bool, reg):
+    wsum = torch.clamp_min(torch.sum(w), 1e-12)
+    loss = _weighted_loss(params, X, y, w, classification) / wsum
+    return loss + 0.5 * reg * _l2(params)
 
 
 def _f32(v, dev) -> torch.Tensor:
@@ -114,13 +135,52 @@ def sgd_update(grads: dict, state: dict, params: dict, step) -> dict:
     return {k: params[k] + (-step) * g for k, g in grads.items()}
 
 
+def _sharded_fm_value_and_grad(xs, ys, ws, names: list, *,
+                               classification: bool, reg):
+    """``params -> (loss, grads)`` over ``shard_batch``'s rows: each
+    shard's ``Σ w·loss`` and its autograd gradient on the shard's device,
+    the ``[value, grads, Σw]`` rows summed in shard order, divided by the
+    clamped ``Σw``; the L2 term and its gradient added once."""
+
+    def value_and_grad(p):
+        parts = []
+        for x, y, w in zip(xs.blocks, ys.blocks, ws.blocks):
+            leaves = {k: p[k].detach().to(x.device).requires_grad_(True)
+                      for k in names}
+            with torch.enable_grad():
+                v = _weighted_loss(leaves, x, y, w, classification)
+                gs = torch.autograd.grad(v, [leaves[k] for k in names])
+            parts.append(torch.cat([v.detach().reshape(1)]
+                                   + [g.reshape(-1) for g in gs]
+                                   + [w.sum().reshape(1)]))
+        home = p[names[0]].device
+        tot = reduce_at(parts, mesh=xs.mesh).to(home)
+        wsum = torch.clamp_min(tot[-1], 1e-12)
+        leaves = {k: p[k].detach().requires_grad_(True) for k in names}
+        with torch.enable_grad():
+            pen = 0.5 * reg * _l2(leaves)
+            gps = torch.autograd.grad(pen, [leaves[k] for k in names],
+                                      allow_unused=True)  # b: unpenalized
+        grads, off = {}, 1
+        for k, gp in zip(names, gps):
+            n = p[k].numel()
+            grads[k] = tot[off:off + n].reshape(p[k].shape) / wsum
+            if gp is not None:
+                grads[k] = grads[k] + gp
+            off += n
+        return tot[0] / wsum + pen.detach(), grads
+
+    return value_and_grad
+
+
 def fm_optimize(xs, ys, ws, params0: dict, *, classification: bool,
                 solver: str, max_iter: int, step_size: float, tol: float,
                 reg: float):
-    """The full-batch adamW / GD fit on ``xs``'s device: ``(params,
-    n_iters, history [n_iters + 1], host reads)``.  Call under
+    """The full-batch adamW / GD fit on the parameters' device, over the
+    rows ``xs`` there or ``shard_batch``'s rows: ``(params, n_iters,
+    history [n_iters + 1], host reads)``.  Call under
     :func:`full_f32`."""
-    dev = xs.device
+    dev = params0["V"].device
     reg_t, step, tol_t = (_f32(v, dev) for v in (reg, step_size, tol))
     names = list(params0)
     params = dict(params0)
@@ -129,13 +189,19 @@ def fm_optimize(xs, ys, ws, params0: dict, *, classification: bool,
              "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
     update = adam_update if solver == "adamW" else sgd_update
 
-    def value_and_grad(p):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        with torch.enable_grad():
-            loss = fm_loss(leaves, xs, ys, ws, classification=classification,
-                           reg=reg_t)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-        return loss.detach(), dict(zip(names, grads))
+    if isinstance(xs, ShardedArray):
+        value_and_grad = _sharded_fm_value_and_grad(
+            xs, ys, ws, names, classification=classification, reg=reg_t)
+    else:
+        def value_and_grad(p):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in p.items()}
+            with torch.enable_grad():
+                loss = fm_loss(leaves, xs, ys, ws,
+                               classification=classification, reg=reg_t)
+                grads = torch.autograd.grad(loss,
+                                            [leaves[k] for k in names])
+            return loss.detach(), dict(zip(names, grads))
 
     # the prev seed must be FINITE: |inf − loss| / inf is NaN, which
     # would stop the loop after one step
@@ -154,9 +220,7 @@ def fm_optimize(xs, ys, ws, params0: dict, *, classification: bool,
         reads += 1
         if not go_on:
             break
-    with torch.no_grad():
-        losses.append(fm_loss(params, xs, ys, ws,
-                              classification=classification, reg=reg_t))
+    losses.append(value_and_grad(params)[0])  # the final parameters'
     hist = torch.stack(losses).cpu().numpy()
     reads += 1
     return params, it, hist, reads
@@ -208,10 +272,16 @@ def _fit_fm(est, frame, *, classification):
         params0["w"] = torch.zeros(d, dtype=torch.float32, device=dev)
     if est.getFitIntercept():
         params0["b"] = torch.zeros((), dtype=torch.float32, device=dev)
+    mesh = fit_mesh(est.mesh)
+    if mesh is None:
+        rows = (to_device(X, dev), to_device(y, dev),
+                torch.ones(n, dtype=torch.float32, device=dev))
+    else:
+        # shard_batch's pad mask is the row weights, as in the JAX package
+        rows = shard_batch(mesh, X, y)
     with full_f32():
         params, n_iter, hist, reads = fm_optimize(
-            to_device(X, dev), to_device(y, dev),
-            torch.ones(n, dtype=torch.float32, device=dev), params0,
+            *rows, params0,
             classification=classification, solver=est.getSolver(),
             max_iter=int(est.getMaxIter()), step_size=est.getStepSize(),
             tol=est.getTol(), reg=est.getRegParam(),
@@ -273,15 +343,17 @@ class _FmModelMixin:
 
 
 class FMRegressor(_FmParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
     featuresCol = Param("feature vector column", default="features")
     labelCol = Param("target column", default="label")
     predictionCol = Param("output prediction column", default="prediction")
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "FMRegressionModel":
         out, n_iter, history, reads = _fit_fm(self, frame,
@@ -315,11 +387,13 @@ class FMRegressionModel(_FmModelMixin, _FmParams, Model):
 
 
 class FMClassifier(_FmParams, ClassifierParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "FMClassificationModel":
         out, n_iter, history, reads = _fit_fm(self, frame,
@@ -330,7 +404,8 @@ class FMClassifier(_FmParams, ClassifierParams, Estimator):
                if model.hasParam(k)}
         )
         model.summary = BinaryClassificationTrainingSummary(
-            history, n_iter, model, frame, labelCol=self.getLabelCol())
+            history, n_iter, model, frame, labelCol=self.getLabelCol(),
+            mesh=fit_mesh(self.mesh))
         model.fit_stats = {"iterations": n_iter, "host_reads": reads}
         return model
 

@@ -15,8 +15,14 @@ triangular solve, ``logsumexp``, the M-step's means and weighted
 scatters as batched products plus ``_REG``·I.  The JAX package runs the
 loop as one XLA ``while_loop``; here the host reads the mean
 log-likelihood and its change once an iteration and stops when the
-change is at most ``tol``.  The model's posterior runs in float32 on the
-model's device (a tensor column on its own device).
+change is at most ``tol``.  With a ``mesh=`` of more than one shard the
+KMeans seeding runs over the mesh, the rows are laid out by
+``shard_batch`` (weight 0 on the padding) and each iteration sums the
+shards' parts in shard order: ``Σ norm·w``, ``nk`` and ``respᵀ·x``,
+then, about the means they give, the ``[K, D, D]`` scatter as a second
+reduction (the JAX M-step's two passes; one pass of ``Σ r·x·xᵀ −
+nk·μμᵀ`` would cancel on flow features).  The model's posterior runs in
+float32 on the model's device (a tensor column on its own device).
 """
 
 from __future__ import annotations
@@ -34,6 +40,13 @@ from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.models.kmeans import KMeans, vector_rows
 from sntc_tpu_torch.models.summary import TrainingSummary
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    shard_batch,
+)
+from sntc_tpu_torch.parallel.mesh import reduce_at
 
 _REG = 1e-6
 
@@ -53,27 +66,52 @@ def _log_gaussians(X, means, covs):
 
 def em(xs, ws, means, covs, weights, *, max_iter: int, tol: float):
     """EM from ``(means [K, D], covs [K, D, D], weights [K])`` over rows
-    ``xs [N, D]`` weighted by ``ws``.  Returns ``(means, covs, weights,
-    iterations, mean log-likelihood, host_reads)``."""
+    ``xs [N, D]`` weighted by ``ws``, or over ``shard_batch``'s rows:
+    each block's E-step on its device (its responsibilities kept there
+    for the scatter), the parts summed in shard order onto the
+    parameters' device.  Returns ``(means, covs, weights, iterations,
+    mean log-likelihood, host_reads)``."""
     tol32 = np.float32(tol)
-    eye = torch.eye(xs.shape[1], dtype=xs.dtype, device=xs.device)
+    dev = means.device
+    k, d = means.shape
+    if isinstance(xs, ShardedArray):
+        mesh, blocks = xs.mesh, list(zip(xs.blocks, ws.blocks))
+    else:
+        mesh, blocks = None, [(xs, ws)]
+
+    def reduce(parts):
+        return reduce_at(parts, mesh=mesh).to(dev)
+
+    eye = torch.eye(d, dtype=means.dtype, device=dev)
     big = float(np.finfo(np.float32).max)
     with full_f32():
-        n_eff = ws.sum().clamp_min(1e-12)
-        prev = torch.tensor(-big, dtype=xs.dtype, device=xs.device)
+        n_eff = reduce([w.sum() for _, w in blocks]).clamp_min(1e-12)
+        prev = torch.tensor(-big, dtype=means.dtype, device=dev)
         it, loglik, reads = 0, -big, 0
         while it < max_iter:
-            # E-step
-            logp = _log_gaussians(xs, means, covs) + torch.log(weights)[None]
-            norm = torch.logsumexp(logp, dim=1)
-            resp = torch.exp(logp - norm[:, None]) * ws[:, None]
-            ll = (norm * ws).sum() / n_eff
-            # M-step
-            nk = resp.sum(dim=0).clamp_min(1e-12)
-            means = (resp.t() @ xs) / nk[:, None]
-            diff = xs[None, :, :] - means[:, None, :]  # [K, N, D]
-            scatter = (diff * resp.t()[:, :, None]).transpose(1, 2) @ diff
-            covs = scatter / nk[:, None, None] + _REG * eye[None]
+            # E-step: Σ norm·w, nk and respᵀ·x over the blocks
+            parts, resps = [], []
+            for x, w in blocks:
+                logp = (_log_gaussians(x, means.to(x.device),
+                                       covs.to(x.device))
+                        + torch.log(weights.to(x.device))[None])
+                norm = torch.logsumexp(logp, dim=1)
+                resp = torch.exp(logp - norm[:, None]) * w[:, None]
+                resps.append(resp)
+                parts.append(torch.cat([(norm * w).sum().reshape(1),
+                                        resp.sum(dim=0),
+                                        (resp.t() @ x).reshape(-1)]))
+            tot = reduce(parts)
+            ll = tot[0] / n_eff
+            # M-step: the means, then the scatter about them (two passes)
+            nk = tot[1:1 + k].clamp_min(1e-12)
+            means = tot[1 + k:].reshape(k, d) / nk[:, None]
+            scatters = []
+            for (x, _), resp in zip(blocks, resps):
+                diff = x[None, :, :] - means.to(x.device)[:, None, :]
+                scatters.append(
+                    (diff * resp.t()[:, :, None]).transpose(1, 2) @ diff)
+            covs = reduce(scatters) / nk[:, None, None] + _REG * eye[None]
             weights = nk / nk.sum()
             delta = (ll - prev).abs()
             prev, it = ll, it + 1
@@ -98,11 +136,13 @@ class _GmmParams:
 
 
 class GaussianMixture(_GmmParams, Estimator):
-    """Fits on ``device`` (default ``cuda``); the model serves there."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device); the model serves there."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "GaussianMixtureModel":
         X = vector_rows(frame, self.getFeaturesCol())
@@ -114,7 +154,8 @@ class GaussianMixture(_GmmParams, Estimator):
         # Lloyd steps): random-point seeding regularly drops two means
         # into one cluster (sklearn seeds from k-means for this reason)
         km = KMeans(
-            device=self.device, k=k, maxIter=10, seed=self.getSeed(),
+            device=self.device, mesh=self.mesh, k=k, maxIter=10,
+            seed=self.getSeed(),
             featuresCol=self.getFeaturesCol(),
         ).fit(frame)
         means0 = np.asarray(km.clusterCenters, np.float32)
@@ -123,8 +164,12 @@ class GaussianMixture(_GmmParams, Estimator):
         weights0 = np.full(k, 1.0 / k, np.float32)
 
         dev = self.device
-        xs = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
-        ws = torch.ones(n, dtype=torch.float32, device=dev)
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            xs = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+            ws = torch.ones(n, dtype=torch.float32, device=dev)
+        else:
+            xs, ws = shard_batch(mesh, np.ascontiguousarray(X))
         means, covs, weights, n_iter, loglik, reads = em(
             xs, ws, torch.from_numpy(means0).to(dev),
             torch.from_numpy(covs0).to(dev),

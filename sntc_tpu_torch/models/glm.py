@@ -17,6 +17,12 @@ where the JAX package calls ``solve(assume_a="pos")``); the stop test
 (the relative coefficient change against ``tol``) is read back once an
 iteration.  The deviance, the null deviance and Pearson's χ² are taken
 on the device after the loop and read back with the coefficients.
+With a ``mesh=`` of more than one shard the augmented rows, targets and
+weights are laid out by ``shard_batch`` (weight 0 on the padding): each
+iteration sums the shards' ``[D+1, D+1]`` ``Xᵀ(WX)`` and ``[D+1]``
+``Xᵀ(Wz)`` in shard order (one ``make_tree_aggregate``), the diagonal
+penalty is added once and the solve runs on the model's device; the
+deviances and χ² are summed per shard the same way.
 
 ``model.summary`` carries the deviances, the residual degrees of
 freedom, the dispersion (1 for binomial and poisson, Pearson χ² / dof
@@ -43,6 +49,13 @@ from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.models.linear_regression import to_device
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_columns,
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+)
 from sntc_tpu_torch.utils.profiling import record_movement
 
 _EPS = 1e-10
@@ -250,37 +263,68 @@ def _deviance(family: str, y, mu, w, var_power: float = 0.0):
 def irls(xs, ys, ws, beta0, *, family: str, link: str, fit_intercept: bool,
          max_iter: int, tol: float, reg: float, var_power: float = 0.0):
     """The IRLS fit on ``xs``'s device (``xs`` AUGMENTED with a ones
-    column when ``fit_intercept``): ``(beta, iterations, deviance, null
-    deviance, Pearson χ², host reads)``, the first four float64 host
-    values, read back in one copy.  Call under :func:`full_f32`."""
+    column when ``fit_intercept``), or over ``shard_batch``'s rows, each
+    pass over the rows then one aggregate (β given whole to every shard)
+    and the penalty and the solve on β's device: ``(beta, iterations,
+    deviance, null deviance, Pearson χ², host reads)``, the first four
+    float64 host values, read back in one copy.  Call under
+    :func:`full_f32`."""
     g, g_inv, g_prime = _link_fns(link)
-    dev = xs.device
+    dev = beta0.device
     d_aug = xs.shape[1]
+
+    def eta_mu(x, beta):
+        eta = x @ beta
+        return eta, _clip_mu(family, g_inv(eta), var_power)
+
+    def weight_sums(y, w):
+        return torch.stack([torch.sum(w), torch.sum(w * y)])
+
+    def normal_eq(x, y, w, beta):
+        """``Xᵀ(WX)`` and ``Xᵀ(Wz)`` at β, flattened into one tensor."""
+        eta, mu = eta_mu(x, beta)
+        gp = g_prime(mu)
+        z = eta + (y - mu) * gp
+        wls = w / torch.clamp_min(_variance(family, mu, var_power) * gp**2,
+                                  _EPS)
+        xw = x * wls[:, None]
+        return torch.cat([(x.t() @ xw).reshape(-1), xw.t() @ z])
+
+    def deviances(x, y, w, beta, ybar):
+        """The deviance, the null deviance (the intercept-only model, μ =
+        the weighted mean response) and Pearson's χ²."""
+        _, mu = eta_mu(x, beta)
+        mu0 = _clip_mu(family, ybar.expand(y.shape), var_power)
+        return torch.stack([
+            _deviance(family, y, mu, w, var_power),
+            _deviance(family, y, mu0, w, var_power),
+            torch.sum(w * (y - mu) ** 2 / torch.clamp_min(
+                _variance(family, mu, var_power), _EPS))])
+
+    if isinstance(xs, ShardedArray):
+        def over_rows(fn, op, replicated=()):
+            agg = make_tree_aggregate(fn, xs.mesh, replicated_args=replicated,
+                                      op=op)
+            return lambda *a: agg(*a).to(dev)
+    else:
+        def over_rows(fn, op, replicated=()):
+            return fn
+    sums = over_rows(weight_sums, "glm.weights")(ys, ws)
+    normal = over_rows(normal_eq, "glm.irls", (3,))
     # λ applies to the weight-AVERAGED Gram (Spark WeightedLeastSquares):
     # the raw weighted Gram's diagonal gets λ·Σw
     reg_t = torch.tensor(np.float32(reg), device=dev)
-    pen = (reg_t * torch.sum(ws)) * torch.ones(d_aug, device=dev)
+    pen = (reg_t * sums[0]) * torch.ones(d_aug, device=dev)
     if fit_intercept:
         pen[-1] = 0.0
     tol_t = torch.tensor(np.float32(tol), device=dev)
     one = torch.ones((), device=dev)
-
-    def eta_mu(beta):
-        eta = xs @ beta
-        return eta, _clip_mu(family, g_inv(eta), var_power)
-
     beta, it, reads = beta0, 0, 0
     while it < max_iter:
-        eta, mu = eta_mu(beta)
-        gp = g_prime(mu)
-        z = eta + (ys - mu) * gp
-        wls = ws / torch.clamp_min(_variance(family, mu, var_power) * gp**2,
-                                   _EPS)
-        xw = xs * wls[:, None]
-        A = xs.t() @ xw + torch.diag(pen)
-        b = xw.t() @ z
+        ab = normal(xs, ys, ws, beta)
+        A = ab[:d_aug * d_aug].reshape(d_aug, d_aug) + torch.diag(pen)
         chol, _ = torch.linalg.cholesky_ex(A)
-        beta_new = torch.cholesky_solve(b[:, None], chol)[:, 0]
+        beta_new = torch.cholesky_solve(ab[d_aug * d_aug:, None], chol)[:, 0]
         delta = torch.max(torch.abs(beta_new - beta)) / torch.maximum(
             torch.max(torch.abs(beta)), one)
         beta, it = beta_new, it + 1
@@ -288,16 +332,10 @@ def irls(xs, ys, ws, beta0, *, family: str, link: str, fit_intercept: bool,
         reads += 1
         if not go_on:
             break
-    _, mu = eta_mu(beta)
-    dev_ = _deviance(family, ys, mu, ws, var_power)
-    # null deviance: the intercept-only model, μ = weighted mean response
-    ybar = torch.sum(ws * ys) / torch.clamp_min(torch.sum(ws), _EPS)
-    mu0 = _clip_mu(family, ybar.expand(ys.shape), var_power)
-    dev0 = _deviance(family, ys, mu0, ws, var_power)
-    pearson = torch.sum(
-        ws * (ys - mu) ** 2
-        / torch.clamp_min(_variance(family, mu, var_power), _EPS))
-    flat = torch.cat([beta, torch.stack([dev_, dev0, pearson])]).cpu()
+    ybar = sums[1] / torch.clamp_min(sums[0], _EPS)
+    devs = over_rows(deviances, "glm.deviance", (3, 4))(xs, ys, ws, beta,
+                                                        ybar)
+    flat = torch.cat([beta, devs]).cpu()
     reads += 1
     flat = flat.numpy().astype(np.float64)
     return flat[:d_aug], it, flat[d_aug], flat[d_aug + 1], \
@@ -442,11 +480,13 @@ def _seed_mean(link: str, ybar: float) -> float:
 
 
 class GeneralizedLinearRegression(_GlrParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _resolved_link(self) -> str:
         family = self.getFamily()
@@ -511,10 +551,10 @@ class GeneralizedLinearRegression(_GlrParams, Estimator):
             beta0[-1] = float(g(torch.tensor(
                 _seed_mean(link, ybar), dtype=torch.float32)))
         dev = self.device
+        xs, ys, ws = fit_columns((Xa, y), w, dev, fit_mesh(self.mesh))
         with full_f32():
             beta, n_iter, dev_, dev0, pearson, reads = irls(
-                to_device(Xa, dev), to_device(y, dev), to_device(w, dev),
-                torch.from_numpy(beta0).to(dev),
+                xs, ys, ws, torch.from_numpy(beta0).to(dev),
                 family=family, link=link, fit_intercept=fit_b,
                 max_iter=int(self.getMaxIter()), tol=float(self.getTol()),
                 reg=float(self.getRegParam()), var_power=vp,

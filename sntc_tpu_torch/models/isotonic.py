@@ -11,8 +11,9 @@ feature.
 
 Host work, as in the JAX package: PAVA is a sequential pooling scan
 (:func:`_pava`, a copy of the JAX package's), and a tensor column is
-read back first.  The estimator takes ``device=`` as the port's other
-estimators do; nothing of the fit runs there.
+read back first.  The estimator takes ``device=`` and ``mesh=`` as the
+port's other estimators do (a ``device`` that is not the mesh's first
+local device is refused); nothing of the fit runs there.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 from sntc_tpu_torch.core.base import Estimator, Model
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.parallel.collectives import fit_device
 
 
 def _pava(y: np.ndarray, w: np.ndarray) -> np.ndarray:
@@ -69,9 +70,10 @@ class _IsoParams:
 
 
 class IsotonicRegression(_IsoParams, Estimator):
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh  # the JAX estimator's API: the fit is host work
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "IsotonicRegressionModel":
         x = self._feature_values(frame)

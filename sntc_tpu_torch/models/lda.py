@@ -22,6 +22,15 @@ the port draws it with numpy from the estimator's seed, the iteration
 and the document's place (:func:`gamma0`) — the card and the CPU see the
 same γ₀.  λ's M-step runs on the host in float64 with the minibatch
 draws of the JAX package (the same numpy ``rng``, the same calls).
+
+With a ``mesh=`` of more than one shard each E-step's documents and
+their γ₀ (drawn over the whole batch, then sharded with its rows: the
+same draws at any mesh size) are laid out by ``shard_batch``, the
+padding's counts masked to 0: the γ updates run on each shard, the stop
+test is the shards' ``Σ mean|Δγ|·wm`` summed in shard order over the
+summed ``wm`` (one host read an update, as on one device), and the
+``[k, V]`` statistic is summed in shard order (op ``lda.e_step``).
+``LDAModel`` infers on the model's device.
 """
 
 from __future__ import annotations
@@ -35,6 +44,18 @@ from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.ops.lbfgs import full_f32
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    shard_batch,
+)
+from sntc_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    payload_nbytes,
+    record_collective,
+    reduce_at,
+)
 
 _MEAN_CHANGE_TOL = 1e-3
 _MAX_E_ITERS = 100
@@ -56,12 +77,56 @@ def _dirichlet_expectation(x: torch.Tensor) -> torch.Tensor:
         x.sum(dim=-1, keepdim=True))
 
 
-def e_step(counts: torch.Tensor, exp_elog_beta: torch.Tensor, alpha: float,
-           gamma: torch.Tensor, max_iters: int = _MAX_E_ITERS):
+def _e_step_mesh(counts: ShardedArray, exp_elog_beta: torch.Tensor,
+                 alpha: float, gamma: ShardedArray, wm: ShardedArray,
+                 max_iters: int):
+    """:func:`e_step` over ``shard_batch``'s documents: γ updated on each
+    shard, the stop test's sums and the statistic reduced in shard
+    order onto ``exp_elog_beta``'s device."""
+    mesh, dev = counts.mesh, exp_elog_beta.device
+    shards = [(c * w[:, None], w, exp_elog_beta.to(c.device))
+              for c, w in zip(counts.blocks, wm.blocks)]
+    gammas = list(gamma.blocks)
+    it, reads = 0, 0
+    with full_f32():
+        n_docs = reduce_at([w.sum() for w in wm.blocks],
+                           mesh=mesh).to(dev).clamp_min(1.0)
+        while it < max_iters:
+            parts, new = [], []
+            for (c, w, eeb), g in zip(shards, gammas):
+                exp_elog_theta = torch.exp(_dirichlet_expectation(g))
+                phinorm = exp_elog_theta @ eeb + 1e-100
+                ng = alpha + exp_elog_theta * ((c / phinorm) @ eeb.t())
+                parts.append(((ng - g).abs().mean(dim=1) * w).sum())
+                new.append(ng)
+            change = reduce_at(parts, mesh=mesh).to(dev) / n_docs
+            gammas, it = new, it + 1
+            reads += 1
+            if not float(change) > _MEAN_CHANGE_TOL:
+                break
+        parts = []
+        for (c, _, eeb), g in zip(shards, gammas):
+            exp_elog_theta = torch.exp(_dirichlet_expectation(g))
+            phinorm = exp_elog_theta @ eeb + 1e-100
+            parts.append(exp_elog_theta.t() @ (c / phinorm))
+        stat = reduce_at(parts, mesh=mesh).to(dev) * exp_elog_beta
+    # γ stays row-sharded; the [k, V] statistic is the reduced payload
+    record_collective("lda.e_step", DATA_AXIS, int(mesh.shape[DATA_AXIS]),
+                      payload_nbytes(stat))
+    return ShardedArray(mesh, gammas, counts.n_rows), stat, it, reads
+
+
+def e_step(counts, exp_elog_beta: torch.Tensor, alpha: float, gamma,
+           max_iters: int = _MAX_E_ITERS, wm=None):
     """The minibatch E-step from ``gamma`` (γ₀ ``[b, k]``) over the
-    document counts ``[b, V]``, all on their device in float32.  Returns
-    ``(γ [b, k], stat [k, V], updates, host_reads)``: the statistic is
-    ``expElogθᵀ (counts / φnorm) ∘ expElogβ``."""
+    document counts ``[b, V]``, all on their device in float32, or over
+    ``shard_batch``'s documents, γ₀ and pad mask ``wm``.  Returns ``(γ
+    [b, k], stat [k, V], updates, host_reads)``: the statistic is
+    ``expElogθᵀ (counts / φnorm) ∘ expElogβ``; a sharded γ comes back
+    sharded."""
+    if isinstance(counts, ShardedArray):
+        return _e_step_mesh(counts, exp_elog_beta, alpha, gamma, wm,
+                            max_iters)
     n_docs = max(counts.shape[0], 1)
     it, reads = 0, 0
     with full_f32():
@@ -83,14 +148,21 @@ def e_step(counts: torch.Tensor, exp_elog_beta: torch.Tensor, alpha: float,
     return gamma, stat, it, reads
 
 
-def _run_e_step(counts: torch.Tensor, elog_beta: np.ndarray, alpha: float,
-                g0: np.ndarray):
+def _run_e_step(counts, elog_beta: np.ndarray, alpha: float,
+                g0: np.ndarray, mesh=None):
     """One E-step on ``counts``' device from host ``exp(elog_beta)`` and
-    γ₀; returns (γ, stat) as host arrays and the host reads."""
+    γ₀, or with ``mesh`` over the host ``counts`` and γ₀ sharded
+    together (the fit's case, which reads no γ back: γ ``None``);
+    returns (γ, stat) as host arrays and the host reads."""
+    eeb = torch.from_numpy(np.exp(elog_beta).astype(np.float32))
+    if mesh is not None:
+        xs, gs, wm = shard_batch(mesh, np.ascontiguousarray(counts), g0)
+        _, stat, _, reads = e_step(xs, eeb.to(mesh.first_device), alpha,
+                                   gs, wm=wm)
+        return None, stat.cpu().numpy(), reads + 1
     dev = counts.device
-    eeb = torch.from_numpy(np.exp(elog_beta).astype(np.float32)).to(dev)
     gamma, stat, _, reads = e_step(
-        counts, eeb, alpha, torch.from_numpy(g0).to(dev))
+        counts, eeb.to(dev), alpha, torch.from_numpy(g0).to(dev))
     return gamma.cpu().numpy(), stat.cpu().numpy(), reads + 2
 
 
@@ -134,11 +206,13 @@ def _elog_beta(lam: np.ndarray) -> np.ndarray:
 
 
 class LDA(_LdaParams, Estimator):
-    """Fits on ``device`` (default ``cuda``); the model infers there."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device); the model infers there."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "LDAModel":
         X = frame[self.getFeaturesCol()]
@@ -166,7 +240,9 @@ class LDA(_LdaParams, Estimator):
         batch = max(1, int(round(frac * n_docs)))
         seed = int(self.getSeed())
         rng = np.random.default_rng(self.getSeed())
-        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+        mesh = fit_mesh(self.mesh)
+        Xd = (torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+              if mesh is None else X)
         reads = 0
 
         lam = rng.gamma(100.0, 1.0 / 100.0, size=(k, v)).astype(np.float64)
@@ -177,14 +253,15 @@ class LDA(_LdaParams, Estimator):
                 # fixed point — no minibatch scaling, no decay
                 _, stat, r = _run_e_step(
                     Xd, elog_beta, alpha,
-                    gamma0(seed, (_FIT_STREAM, t), n_docs, k))
+                    gamma0(seed, (_FIT_STREAM, t), n_docs, k), mesh)
                 lam = eta + np.asarray(stat, np.float64)
             else:
                 idx = rng.choice(n_docs, size=batch, replace=False)
-                rows = torch.from_numpy(idx).to(self.device)
+                docs = (X[idx] if mesh is not None else Xd.index_select(
+                    0, torch.from_numpy(idx).to(self.device)))
                 _, stat, r = _run_e_step(
-                    Xd.index_select(0, rows), elog_beta, alpha,
-                    gamma0(seed, (_FIT_STREAM, t), batch, k))
+                    docs, elog_beta, alpha,
+                    gamma0(seed, (_FIT_STREAM, t), batch, k), mesh)
                 rho = (tau0 + t) ** (-kappa)
                 lam_hat = (
                     eta + (n_docs / batch) * np.asarray(stat, np.float64)

@@ -23,6 +23,14 @@ float32:
   any product, scaled inside it, the shift folded back into the
   intercept.
 
+With a ``mesh=`` of more than one shard the rows, targets and weights
+are laid out by ``shard_batch`` (weight 0 on the padding): the normal
+solver's pass is one ``make_tree_aggregate`` (each shard's moments on
+its device, summed in shard order), and each LBFGS evaluation sums the
+shards' ``(Σ w·½r², gradient, Σw)`` in shard order
+(``mlp.sharded_value_and_grad``), the L2 penalty added once; the host
+solve and the OWLQN step are unchanged.
+
 The model predicts ``X·coef + intercept`` in float64: numpy on the host
 for a numpy column, as in the JAX package, on the model's device for a
 tensor.
@@ -38,26 +46,49 @@ from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
 from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.feature.standard_scaler import standardization_moments
-from sntc_tpu_torch.models.mlp import value_and_grad_fn
+from sntc_tpu_torch.models.mlp import (
+    sharded_value_and_grad,
+    value_and_grad_fn,
+)
 from sntc_tpu_torch.models.summary import TrainingSummary
 from sntc_tpu_torch.ops.lbfgs import full_f32, minimize_lbfgs
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_columns,
+    fit_device,
+    fit_mesh,
+    make_tree_aggregate,
+)
+
+
+def _normal_block(xs, ys, w, px, qy) -> torch.Tensor:
+    xc = xs - px[None, :]
+    yc = (ys - qy) * w
+    wx = xc * w[:, None]
+    return torch.cat([
+        w.sum().reshape(1), wx.sum(dim=0), (xc.t() @ wx).reshape(-1),
+        yc.sum().reshape(1), (xc * yc[:, None]).sum(dim=0),
+    ])
 
 
 def normal_moments(xs, ys, w, px: np.ndarray, qy: np.float32) -> dict:
     """The normal solver's one pass over ``xs [N, D]``, ``ys``, ``w`` on
-    their device, about the pilot row ``px`` and target ``qy``: float64
-    host values of ``count``, ``sum`` Σw(x−p), ``xxt`` Σw(x−p)(x−p)ᵀ,
-    ``sy`` Σw(y−q) and ``xy`` Σw(x−p)(y−q), read back in one copy."""
+    their device (or ``shard_batch``'s rows, as one aggregate), about
+    the pilot row ``px`` and target ``qy``: float64 host values of
+    ``count``, ``sum`` Σw(x−p), ``xxt`` Σw(x−p)(x−p)ᵀ, ``sy`` Σw(y−q)
+    and ``xy`` Σw(x−p)(y−q), read back in one copy."""
     d = xs.shape[1]
+    px_t = torch.from_numpy(np.asarray(px, np.float32))
+    qy_t = torch.tensor(np.float32(qy))
     with full_f32():
-        xc = xs - torch.from_numpy(np.asarray(px, np.float32)).to(
-            xs.device)[None, :]
-        yc = (ys - torch.tensor(np.float32(qy), device=ys.device)) * w
-        wx = xc * w[:, None]
-        flat = torch.cat([
-            w.sum().reshape(1), wx.sum(dim=0), (xc.t() @ wx).reshape(-1),
-            yc.sum().reshape(1), (xc * yc[:, None]).sum(dim=0),
-        ]).cpu().numpy().astype(np.float64)
+        if isinstance(xs, ShardedArray):
+            flat = make_tree_aggregate(
+                _normal_block, xs.mesh, replicated_args=(3, 4),
+                op="linreg.normal")(xs, ys, w, px_t, qy_t)
+        else:
+            flat = _normal_block(xs, ys, w, px_t.to(xs.device),
+                                 qy_t.to(ys.device))
+        flat = flat.cpu().numpy().astype(np.float64)
     return {"count": flat[0], "sum": flat[1:1 + d],
             "xxt": flat[1 + d:1 + d + d * d].reshape(d, d),
             "sy": flat[1 + d + d * d], "xy": flat[2 + d + d * d:]}
@@ -69,23 +100,45 @@ def linreg_optimize(xs, ys, ws, inv_std, mu, y_mean, reg_l2, pen_l2, l1,
     """The elastic-net least-squares fit on ``xs``'s device (the JAX
     package's ``_linreg_optimize``): the rows centered by ``mu`` once,
     scaled by ``inv_std`` inside the objective; ``l1=None`` is plain
-    LBFGS.  Call under :func:`full_f32`."""
+    LBFGS.  Over ``shard_batch``'s rows each shard is centered on its
+    device and the objective summed per shard, the penalty once.  Call
+    under :func:`full_f32`."""
     d = xs.shape[1]
-    dev = xs.device
-    xc = xs - mu[None, :]
-    yc = ys - torch.tensor(np.float32(y_mean), device=dev)
-    w_sum = torch.sum(ws)
-    zero = torch.zeros((), dtype=xs.dtype, device=dev)
+    ym = np.float32(y_mean)
 
-    def loss_fn(theta):
+    def resid_of(theta, xc, yc):
+        b = theta[d] if fit_intercept else torch.zeros(
+            (), dtype=xc.dtype, device=xc.device)
+        return xc @ (theta[:d] * inv_std.to(xc.device)) + b - yc
+
+    def penalty(theta):
         coef = theta[:d]
-        b = theta[d] if fit_intercept else zero
-        resid = xc @ (coef * inv_std) + b - yc
-        data = 0.5 * torch.sum(ws * resid * resid) / w_sum
-        return data + 0.5 * reg_l2 * torch.sum(pen_l2 * coef * coef)
+        return 0.5 * reg_l2 * torch.sum(pen_l2 * coef * coef)
 
-    return minimize_lbfgs(value_and_grad_fn(loss_fn), theta0,
-                          max_iter=max_iter, tol=tol, l1=l1)
+    if isinstance(xs, ShardedArray):
+        shards = [(x - mu.to(x.device)[None, :],
+                   y - torch.tensor(ym, device=y.device), w)
+                  for x, y, w in zip(xs.blocks, ys.blocks, ws.blocks)]
+
+        def data_fn(theta, xc, yc, w):
+            resid = resid_of(theta, xc, yc)
+            return 0.5 * torch.sum(w * resid * resid)
+
+        value_and_grad = sharded_value_and_grad(xs.mesh, data_fn, shards,
+                                                penalty)
+    else:
+        xc = xs - mu[None, :]
+        yc = ys - torch.tensor(ym, device=xs.device)
+        w_sum = torch.sum(ws)
+
+        def loss_fn(theta):
+            resid = resid_of(theta, xc, yc)
+            return 0.5 * torch.sum(ws * resid * resid) / w_sum \
+                + penalty(theta)
+
+        value_and_grad = value_and_grad_fn(loss_fn)
+    return minimize_lbfgs(value_and_grad, theta0, max_iter=max_iter,
+                          tol=tol, l1=l1)
 
 
 class _LinRegParams:
@@ -133,11 +186,13 @@ def to_device(a: np.ndarray, dev) -> torch.Tensor:
 
 
 class LinearRegression(_LinRegParams, Estimator):
-    """Fits on ``device`` (default ``cuda``)."""
+    """Fits on ``device`` (default ``cuda``), or over ``mesh`` (whose
+    first local device is then the device)."""
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
 
     def _fit(self, frame: Frame) -> "LinearRegressionModel":
         X, y, w = regression_inputs(self, frame)
@@ -153,12 +208,12 @@ class LinearRegression(_LinRegParams, Estimator):
         use_normal = solver == "normal" or (
             solver == "auto" and (lam == 0 or alpha == 0)
         )
-        dev = self.device
-        xs, ys, ws = to_device(X, dev), to_device(y, dev), to_device(w, dev)
+        mesh = fit_mesh(self.mesh)
+        xs, ys, ws = fit_columns((X, y), w, self.device, mesh)
         fit_b = self.getFitIntercept()
         if not use_normal:
             _, mean, var = standardization_moments(
-                xs, ws, X[0] if X.shape[0] else np.zeros(d))
+                xs, ws, X[0] if X.shape[0] else np.zeros(d), mesh)
             std = np.sqrt(np.maximum(var, 0.0))
             inv_std = np.divide(1.0, std, out=np.ones_like(std),
                                 where=std > 0)

@@ -14,7 +14,12 @@ power iteration runs on the estimator's device, each step one
 ``index_add_`` mat-vec over the mirrored edges; the host reads the
 acceleration once a step and stops below 1e-5 / n (the JAX package
 runs the loop as one XLA ``while_loop``).  The embedding is clustered by
-the port's KMeans on the same device.
+the port's KMeans on the same device.  With a ``mesh=`` of more than one
+shard the mirrored edges are laid out by ``shard_batch`` (the padding
+edges masked to weight 0): each shard ``index_add_``s its slice of the
+degrees and of ``A·v`` into ``[n]`` partials, summed in shard order
+(op ``pic.power``), with ``v`` on the first shard's device; the KMeans
+on ``v`` runs over the same mesh.
 """
 
 from __future__ import annotations
@@ -25,8 +30,19 @@ import torch
 from sntc_tpu_torch.core.base import Params
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.core.params import Param, validators
-from sntc_tpu_torch.device import resolve_device
 from sntc_tpu_torch.models.kmeans import KMeans
+from sntc_tpu_torch.parallel.collectives import (
+    ShardedArray,
+    fit_device,
+    fit_mesh,
+    shard_batch,
+)
+from sntc_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    payload_nbytes,
+    record_collective,
+    reduce_at,
+)
 
 
 def power_iterate(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
@@ -34,18 +50,35 @@ def power_iterate(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     """``v ← normalize₁(D⁻¹ A v)`` over the edges ``(src, dst, w)`` from
     ``v0``, with mllib's stop: the acceleration ‖(v_t − v_{t−1}) −
     (v_{t−1} − v_{t−2})‖∞, taken as the change of the largest update,
-    below 1e-5 / n.  Returns ``(v, steps, host_reads)``."""
+    below 1e-5 / n.  Over ``shard_batch``'s edges (``w`` then the pad
+    mask times the weights, ``v0`` on the first shard's device) the
+    degrees and each ``A·v`` are the shards' ``[n]`` partials summed in
+    shard order.  Returns ``(v, steps, host_reads)``."""
     # compared in float32, as the JAX loop compares it
     tol = float(np.float32(1e-5 / max(n, 1)))
-    deg = torch.zeros(n, dtype=w.dtype, device=w.device).index_add_(
-        0, src, w)
+    if isinstance(src, ShardedArray):
+        mesh = src.mesh
+        edges = list(zip(src.blocks, dst.blocks, w.blocks))
+
+        def mat_vec(vals):
+            """Σ over each shard's edges of ``vals(dst, w)`` into src."""
+            return reduce_at([
+                torch.zeros(n, dtype=ew.dtype, device=ew.device).index_add_(
+                    0, es, vals(ed, ew)) for es, ed, ew in edges],
+                mesh=mesh).to(v0.device)
+    else:
+        def mat_vec(vals):
+            return torch.zeros(n, dtype=w.dtype, device=w.device).index_add_(
+                0, src, vals(dst, w))
+    deg = mat_vec(lambda _d, ew: ew)
     inv_deg = torch.where(deg > 0, 1.0 / deg.clamp_min(1e-30),
                           torch.zeros_like(deg))
     v = v0 / v0.abs().sum().clamp_min(1e-30)
-    prev_delta = torch.tensor(float("inf"), dtype=w.dtype, device=w.device)
+    prev_delta = torch.tensor(float("inf"), dtype=v0.dtype,
+                              device=v0.device)
     it, reads = 0, 0
     while it < max_iter:
-        av = torch.zeros_like(v).index_add_(0, src, w * v[dst])
+        av = mat_vec(lambda ed, ew: ew * v.to(ew.device)[ed])
         nv = inv_deg * av
         nv = nv / nv.abs().sum().clamp_min(1e-30)
         delta = (nv - v).abs().max()
@@ -60,7 +93,8 @@ def power_iterate(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 class PowerIterationClustering(Params):
     """Not an Estimator/Model pair — like Spark, PIC is a one-shot
     ``assignClusters`` over an edge frame.  Runs on ``device`` (default
-    ``cuda``)."""
+    ``cuda``), or over ``mesh`` (whose first local device is then the
+    device)."""
 
     srcCol = Param("source vertex id column", default="src")
     dstCol = Param("destination vertex id column", default="dst")
@@ -75,9 +109,10 @@ class PowerIterationClustering(Params):
     )
     seed = Param("random seed", default=0)
 
-    def __init__(self, device="cuda", **kwargs):
+    def __init__(self, device=None, mesh=None, **kwargs):
         super().__init__(**kwargs)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = fit_device(device, mesh)
         self.fit_stats = None
 
     def assignClusters(self, frame: Frame) -> Frame:
@@ -116,14 +151,27 @@ class PowerIterationClustering(Params):
         def on(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        v, steps, reads = power_iterate(
-            on(s2.astype(np.int64)), on(d2.astype(np.int64)), on(w2), on(v0),
-            n, int(self.getMaxIter()))
+        mesh = fit_mesh(self.mesh)
+        if mesh is None:
+            edges = (on(s2.astype(np.int64)), on(d2.astype(np.int64)),
+                     on(w2))
+        else:
+            ss, dd, ww, wm = shard_batch(mesh, s2.astype(np.int64),
+                                         d2.astype(np.int64), w2)
+            # the padding repeats a real edge: its weight masked to 0
+            edges = (ss, dd, ShardedArray(mesh, [
+                a * m for a, m in zip(ww.blocks, wm.blocks)], ww.n_rows))
+        v, steps, reads = power_iterate(*edges, on(v0), n,
+                                        int(self.getMaxIter()))
+        if mesh is not None:
+            record_collective("pic.power", DATA_AXIS,
+                              int(mesh.shape[DATA_AXIS]),
+                              payload_nbytes(v) + 4)
         v = v.cpu().numpy().astype(np.float64)
 
         km = KMeans(
-            device=dev, k=int(self.getK()), seed=int(self.getSeed()),
-            maxIter=40,
+            device=dev, mesh=self.mesh, k=int(self.getK()),
+            seed=int(self.getSeed()), maxIter=40,
         ).fit(Frame({"features": v[:, None].astype(np.float32)}))
         assign = km.predict(v[:, None])
         self.fit_stats = {"power_steps": steps, "embedding": v,

@@ -509,6 +509,20 @@ def fit_rows(X: np.ndarray, y: np.ndarray, w: np.ndarray, device,
     return xs, ys, shard_weights(mesh, w, xs.shape[0])
 
 
+def fit_columns(arrays: tuple, w: np.ndarray, device,
+                mesh: Optional[Mesh]) -> tuple:
+    """A regression fit's host columns (the rows, float targets, censor
+    flags, ...) and row weights ``w``, dtypes kept: on ``device`` as
+    they are without a mesh, else laid out by :func:`shard_batch` over
+    ``mesh`` with ``w`` zero on the padding (:func:`fit_rows` casts its
+    labels to int64 for the classifiers)."""
+    if mesh is None:
+        return tuple(torch.from_numpy(np.require(a, requirements=["C", "W"]))
+                     .to(device) for a in (*arrays, w))
+    *sharded, _ = shard_batch(mesh, *arrays)
+    return (*sharded, shard_weights(mesh, w, sharded[0].shape[0]))
+
+
 def fit_device(device, mesh: Optional[Mesh]) -> torch.device:
     """An estimator's device: ``device`` (default ``cuda``) without a
     mesh; with one, the mesh's first local device, which an explicit
