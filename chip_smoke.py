@@ -100,9 +100,13 @@ each of which fails the run (non-zero exit, no result line):
    ``FORM_RUNS`` times in turns.  Every run's batch files byte-identical; each
    form launches ``pad_assemble`` and ``forest_traversal`` once a batch,
    moves one upload and one download a batch (its transfer ledger), and
-   the default form binds its one fused segment on every batch; each run's
-   rows/s without its first batch and its mean read, predict and sink
-   ms; and, in this process, the split of one ``pad_assemble`` call on
+   the default form binds its one fused segment on every batch; the
+   default form's ``--metrics-out`` text counts
+   ``sntc_kernel_dispatch_total{impl="cuda"}`` as its launches of
+   ``forest_traversal`` and ``pad_assemble``, no ``impl="plain"``, and
+   the three ``sntc_predict_*`` series as its predictor's shape ledger;
+   each run's rows/s without its first batch and its mean read, predict
+   and sink ms; and, in this process, the split of one ``pad_assemble`` call on
    the first batch (``scripts/pad_assemble_split.py``: the host's pack,
    column-major and, for comparison, row-major; the upload; the launch's
    device time; the whole call).  Config 2 at the defaults (the scaler
@@ -295,9 +299,12 @@ each of which fails the run (non-zero exit, no result line):
    card); (d)
    ``serve --once --metrics-out --trace-out --device-trace`` on (a)'s
    saved pipeline with ``SNTC_OBS_COST_ANALYSIS=1``: the Prometheus text
-   holds ``sntc_mfu_ratio{segment="0"}``, the Chrome trace ``stream.read``,
-   ``fuse.dispatch``, ``fuse.finalize``, ``sink.deliver`` and
-   ``stream.commit`` once a batch, the directory a profiler trace.  Each
+   holds ``sntc_mfu_ratio{segment="0"}``, ``sntc_fuse_compile_events_total``
+   equal to the summary's ``fusion`` count and each ``sntc_predict_*``
+   series equal to the predictor's ledger, the Chrome trace
+   ``stream.read``, ``fuse.dispatch``, ``fuse.finalize``,
+   ``sink.deliver`` and ``stream.commit`` once a batch and
+   ``ingest.parse`` once a file read, the directory a profiler trace.  Each
    ``pad_assemble`` shape is held bitwise against its plain version and
    timed beside its bound.  One JSON line reports the phase;
 16. live capture serving: (a) bench config 9 (``bench.py:1378-1540``):
@@ -2856,6 +2863,66 @@ def skip_copies(bad: np.ndarray) -> dict:
             "syncs": 1 + bool(padded.any())}
 
 
+def prom_samples(path: str) -> dict:
+    """A ``--metrics-out`` file's samples, ``{(name, ((label, value),
+    ...)): value}`` with the labels sorted; every sample line must
+    parse."""
+    samples = {}
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            key, value = line.rsplit(" ", 1)
+            name, _, labels = key.partition("{")
+            pairs = re.findall(r'(\w+)="([^"]*)"', labels)
+            samples[(name, tuple(sorted(pairs)))] = float(value)
+    return samples
+
+
+PREDICT_SERIES = {"compile_events": "sntc_predict_compile_events_total",
+                  "bucket_hits": "sntc_predict_bucket_hits_total",
+                  "padded_rows_total": "sntc_predict_padded_rows_total"}
+
+
+def check_predict_series(where: str, samples: dict, stats: dict) -> dict:
+    """Each ``sntc_predict_*`` series of one process equals the counter
+    of its predictor's ledger (``pipeline_stats``) that it mirrors, and
+    is written exactly when that counter moved; the series shown."""
+    shown = {}
+    for counter, name in PREDICT_SERIES.items():
+        got = samples.get((name, ()))
+        if (got is not None) != bool(stats[counter]) \
+                or (got or 0) != stats[counter]:
+            raise SystemExit(f"{where}: {name} {got}, the predictor's "
+                             f"{counter} {stats[counter]}")
+        if got is not None:
+            shown[name] = got
+    return shown
+
+
+def check_form_metrics(s: dict, path: str) -> dict:
+    """The default form's ``--metrics-out`` text: one
+    ``sntc_kernel_dispatch_total{impl="cuda"}`` a launch of each kernel
+    of the path, no ``impl="plain"`` sample, and the predictor's three
+    series (every batch pads) equal to its ledger."""
+    samples = prom_samples(path)
+    dispatch = [(dict(labels), v) for (name, labels), v in samples.items()
+                if name == "sntc_kernel_dispatch_total"]
+    cuda = {d["kernel"]: v for d, v in dispatch if d["impl"] == "cuda"}
+    launches = s["kernel_launches"]
+    if any(d["impl"] != "cuda" for d, _v in dispatch) or any(
+            cuda.get(k) != launches[k]
+            for k in ("forest_traversal", "pad_assemble")):
+        raise SystemExit(f"phase 8 default form: dispatch series "
+                         f"{dispatch}, launches {launches}")
+    predict = check_predict_series("phase 8 default form", samples,
+                                   s["pipeline_stats"])
+    if len(predict) != len(PREDICT_SERIES):
+        raise SystemExit(f"phase 8 default form: predict series {predict}")
+    return {"kernel_dispatch": cuda, "predict": predict}
+
+
 def check_form_run(form: str, s: dict, copies: dict) -> None:
     """One run of a form: every batch served, each kernel of the path
     launched once a batch, the engine's transfer ledger showing
@@ -2933,13 +3000,20 @@ def serve_forms(dev, work: str) -> list:
             "load_csv of one file three times in a fresh process (beside "
             f"the other files' writes): {probe.result()} ms")
     runs = []
+    prom = os.path.join(work, "metrics8.prom")
     for r in range(FORM_RUNS):
         for form, extra in (("default", []), ("staged", STAGED_FORM)):
+            metered = form == "default" and r == 0
             out = os.path.join(work, f"out8_{form}_{r}")
             s = serve_command(os.path.join(work, "model"), watch, out,
                               os.path.join(work, f"ckpt8_{form}_{r}"), dev,
-                              extra, FORM_FILES_PER_BATCH)
+                              extra + (["--metrics-out", prom] if metered
+                                       else []), FORM_FILES_PER_BATCH)
             check_form_run(form, s, copies)
+            if metered:
+                s["metrics"] = check_form_metrics(s, prom)
+                log(f"phase 8 default form --metrics-out: "
+                    f"{json.dumps(s['metrics'])}")
             runs.append({"form": form, "run": r, "summary": s,
                          "files": sink_files(out), **steady(s)})
     ref = runs[0]["files"]
@@ -6144,32 +6218,35 @@ def check_obs_command(proc, paths: dict) -> dict:
                          f"{err}")
     summary = json.loads(out.strip().splitlines()[-1])
     batches = summary["batches"]
-    series = {}
-    with open(paths["prom"]) as f:
-        for line in f:
-            line = line.rstrip("\n")
-            if not line or line.startswith("#"):
-                continue
-            name, value = line.rsplit(" ", 1)
-            series[name] = float(value)  # every sample line parses
-    mfu = series.get('sntc_mfu_ratio{segment="0"}')
+    series = prom_samples(paths["prom"])
+    mfu = series.get(("sntc_mfu_ratio", (("segment", "0"),)))
     with open(paths["trace.json"]) as f:
         trace = json.load(f)
     names = [e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"]
     counts = {n: names.count(n) for n in (
         "stream.read", "fuse.dispatch", "fuse.finalize", "sink.deliver",
         "stream.commit")}
+    parses = names.count("ingest.parse")
     dfile = os.path.join(paths["device"], "device_trace.json")
     with open(dfile) as f:
         dev_events = len(json.load(f).get("traceEvents", []))
+    fusion = summary["fusion"] or {}
     rec = {"batches": batches, "mfu_ratio": mfu,
-           "mfu_bw_ratio": series.get('sntc_mfu_bw_ratio{segment="0"}'),
+           "mfu_bw_ratio": series.get(("sntc_mfu_bw_ratio",
+                                       (("segment", "0"),))),
            "metric_samples": len(series), "span_counts": counts,
+           "ingest_parse_spans": parses,
+           "fuse_compile_events": series.get(
+               ("sntc_fuse_compile_events_total", ())),
            "device_trace_events": dev_events,
-           "roofline": (summary["fusion"] or {}).get("roofline")}
+           "roofline": fusion.get("roofline")}
     if batches != C6_OBS_FILES or mfu is None or \
-            any(c != batches for c in counts.values()) or dev_events < 1:
+            any(c != batches for c in counts.values()) or dev_events < 1 \
+            or parses != C6_OBS_FILES or not fusion.get("compile_events") \
+            or rec["fuse_compile_events"] != fusion["compile_events"]:
         raise SystemExit(f"phase 15 (d): {rec}")
+    rec["predict"] = check_predict_series("phase 15 (d)", series,
+                                          summary["pipeline_stats"])
     return rec
 
 
@@ -6244,7 +6321,9 @@ def report_phase15(p15: dict, card: str) -> None:
     log(f"phase 15 (d) serve --once with --metrics-out, --trace-out, "
         f"--device-trace: {o['batches']} batches, sntc_mfu_ratio "
         f"{o['mfu_ratio']}, sntc_mfu_bw_ratio {o['mfu_bw_ratio']}, "
-        f"{o['metric_samples']} samples; spans {o['span_counts']}; "
+        f"{o['metric_samples']} samples, sntc_fuse_compile_events_total "
+        f"{o['fuse_compile_events']}, {o['predict']}; spans "
+        f"{o['span_counts']}, ingest.parse {o['ingest_parse_spans']}; "
         f"{o['device_trace_events']} profiler events [{card}]")
     for k in p15["kernels"]:
         log(f"phase 15 {k['name']} {k['shape']}: {k['ms']:.4f} ms a call, "

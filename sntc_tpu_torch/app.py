@@ -435,7 +435,8 @@ def _cmd_train_body(args) -> int:
         from sntc_tpu_torch.kernels._build import library
 
         library()  # build (or load) the kernels before the fit is timed
-    df = _load_data(args)
+    with span("train.load_data"):
+        df = _load_data(args)
     train, test = df.random_split(
         [1 - args.test_fraction, args.test_fraction], seed=args.seed
     )

@@ -1,12 +1,13 @@
 """CICIDS2017 ingest + cleaning — the CSV-source analog.
 
 Counterpart of ``sntc_tpu/data/ingest.py`` (``load_csv``,
-``load_csv_table``, ``load_csv_dir`` and ``clean_flows``), without the
-JAX package's tracing: pyarrow's CSV reader parses, column names are
-whitespace-normalized and the duplicated ``Fwd Header Length`` of real
-day files is renamed ``Fwd Header Length.1``, so real day CSVs load
-unchanged.  :func:`load_csv_table` stops at the Arrow table, which the
-columnar plane (``data.pipeline.read_flows_columnar``) casts in Arrow;
+``load_csv_table``, ``load_csv_dir`` and ``clean_flows``): pyarrow's
+CSV reader parses in the span ``ingest.parse`` (``file``: the basename),
+as in the JAX package, column names are whitespace-normalized and the
+duplicated ``Fwd Header Length`` of real day files is renamed ``Fwd
+Header Length.1``, so real day CSVs load unchanged.
+:func:`load_csv_table` stops at the Arrow table, which the columnar
+plane (``data.pipeline.read_flows_columnar``) casts in Arrow;
 :func:`load_csv` materializes it into a Frame.  Each parse counts into
 ``sntc_ingest_files_parsed_total``, ``..._rows_parsed_total`` and
 ``..._bytes_read_total``.
@@ -39,6 +40,7 @@ from sntc_tpu_torch.data.schema import (
     normalize_label,
 )
 from sntc_tpu_torch.obs.metrics import inc
+from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.resilience.faults import data_fault_armed, fault_data
 
 
@@ -92,7 +94,8 @@ def load_csv_table(
         data = None
     bad_rows: List[tuple] = []
     try:
-        table = _parse(path, data, salvage, False, bad_rows)
+        with span("ingest.parse", file=os.path.basename(path)):
+            table = _parse(path, data, salvage, False, bad_rows)
     except pa.ArrowInvalid as e:
         # re-parse single-threaded so the error can name the line
         located: List[tuple] = []

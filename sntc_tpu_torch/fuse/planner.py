@@ -32,7 +32,8 @@ a ``DeviceExecError`` naming the segment and its input signature, so it
 classifies at the predictor.  ``_bind`` returning
 None is not a failure but the plan's dtype rule (an ``F32_ONLY`` gather
 over a non-float32 column runs the eager stages), counted in
-``fallbacks``.
+``fallbacks``.  Both counts are mirrored into
+``sntc_fuse_compile_events_total`` and ``sntc_fuse_fallbacks_total``.
 
 Observability, at the JAX planner's sites: a dispatch runs in the span
 ``fuse.dispatch`` and a finalize's copy back in ``fuse.finalize``
@@ -69,6 +70,7 @@ from sntc_tpu_torch.fuse.registry import (
 from sntc_tpu_torch.fuse.rules import fold_scalers
 from sntc_tpu_torch.models.base import ClassificationModel
 from sntc_tpu_torch.obs import cost as obs_cost
+from sntc_tpu_torch.obs.metrics import inc
 from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.utils.profiling import active_ledgers
 
@@ -274,6 +276,7 @@ class FusedSegment(Transformer):
         if bound is None:
             with self._lock:
                 self.fallbacks += 1
+            inc("sntc_fuse_fallbacks_total")
             out = self._transform_eager(frame)
             return lambda: out
         args, uploaded = bound
@@ -300,7 +303,8 @@ class FusedSegment(Transformer):
                 raise
             raise err from e
         with self._lock:
-            if sig not in self._signatures:
+            fresh = sig not in self._signatures
+            if fresh:
                 self._signatures.add(sig)
                 self.compile_events += 1
             self.invocations += 1
@@ -315,6 +319,8 @@ class FusedSegment(Transformer):
                         sum(a.nbytes for a in args)
                         + sum(o.nbytes for o in outs)),
                 }
+        if fresh:
+            inc("sntc_fuse_compile_events_total")
         seg_index = self.segment_index
 
         def finalize() -> Frame:

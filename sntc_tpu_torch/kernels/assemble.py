@@ -38,6 +38,7 @@ import torch
 
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.kernels import _build
+from sntc_tpu_torch.obs.metrics import inc
 from sntc_tpu_torch.utils.profiling import upload
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -140,6 +141,7 @@ def pad_rows_cuda(a: torch.Tensor, target: int) -> torch.Tensor:
     if err:
         _build.check_launch(_build.library(), err, "pad_assemble")
     _build.LAUNCHES["pad_assemble"] += 1
+    inc("sntc_kernel_dispatch_total", kernel="pad_assemble", impl="cuda")
     key = (n, c, dtype, target)
     shape = _SHAPE_KEYS.get(key)
     if shape is None:
@@ -156,6 +158,8 @@ def pad_rows(a: torch.Tensor, target: int) -> torch.Tensor:
     if a.device.type == "cuda":
         return pad_rows_cuda(a, target)
     if a.device.type == "cpu":
+        inc("sntc_kernel_dispatch_total", kernel="pad_assemble",
+            impl="plain")
         return pad_rows_reference(a, target)
     raise ValueError(f"unsupported device {a.device}")
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from sntc_tpu_torch.kernels import _build
+from sntc_tpu_torch.obs.metrics import inc
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -113,6 +114,7 @@ def forest_leaf_stats_cuda(
         )
     _build.check_launch(lib, err, "forest_traversal")
     _build.LAUNCHES["forest_traversal"] += 1
+    inc("sntc_kernel_dispatch_total", kernel="forest_traversal", impl="cuda")
     return out
 
 
@@ -125,6 +127,8 @@ def forest_leaf_stats(X, feature, threshold, leaf_stats, *, max_depth: int):
         )
     if X.device.type == "cpu":
         _check(X, feature, threshold, leaf_stats, max_depth)
+        inc("sntc_kernel_dispatch_total", kernel="forest_traversal",
+            impl="plain")
         return forest_leaf_stats_reference(
             X, feature, threshold, leaf_stats, max_depth=max_depth
         )

@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from sntc_tpu_torch.kernels import _build
+from sntc_tpu_torch.obs.metrics import inc
 
 
 def _check(binned_t, node_idx, stats, weights, n_nodes: int,
@@ -154,6 +155,7 @@ def tree_hist_cuda(
         )
     _build.check_launch(lib, err, "tree_hist")
     _build.LAUNCHES["tree_hist"] += 1
+    inc("sntc_kernel_dispatch_total", kernel="tree_hist", impl="cuda")
     return out
 
 
@@ -185,6 +187,7 @@ def tree_hist(binned_t, node_idx, stats, weights=None, *, n_nodes: int,
                               n_nodes=n_nodes, n_bins=n_bins)
     if stats.device.type == "cpu":
         _check(binned_t, node_idx, stats, weights, n_nodes, n_bins)
+        inc("sntc_kernel_dispatch_total", kernel="tree_hist", impl="plain")
         return tree_hist_reference(binned_t, node_idx, stats, weights,
                                    n_nodes=n_nodes, n_bins=n_bins)
     raise ValueError(f"unsupported device {stats.device}")

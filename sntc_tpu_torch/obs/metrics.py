@@ -12,10 +12,12 @@ source's prefetch hits and misses, the rows admission rejected, the
 offsets load shedding dropped, the ingest graph's parse counts, stage
 latencies, staging queue and autotuned knobs, the SLO controller's
 windows, decisions, knobs and compliance, the drift monitor's
-divergence, and the storage plane's disk
-usage, budget, write errors, degraded episodes, repairs, dead-letter
-drops and WAL compactions.  A write to a name outside
-:data:`CATALOG` raises, as in the JAX package.
+divergence, the storage plane's disk usage, budget, write errors,
+degraded episodes, repairs, dead-letter drops and WAL compactions, the
+predictor's shape ledger (new shapes, bucket hits, padded rows), the
+fused segments' new signatures and eager serves, and the kernel
+wrappers' calls by kernel and implementation.  A write to a name
+outside :data:`CATALOG` raises, as in the JAX package.
 
 Writes take one small lock per metric; :meth:`MetricsRegistry.snapshot`
 reads without the write locks.  Each metric holds at most
@@ -230,6 +232,35 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         type=GAUGE, labels=("knob", "tenant"),
         help="Current value of each autotuned ingest knob "
         "(read_workers / prefetch_batches / pipeline_depth).",
+    ),
+    # -- the predictor's shape ledger and the fused segments ----------------
+    "sntc_predict_compile_events_total": dict(
+        type=COUNTER, labels=(),
+        help="Distinct dispatched row shapes across BatchPredictors "
+        "(legacy view: BatchPredictor.compile_events).",
+    ),
+    "sntc_predict_bucket_hits_total": dict(
+        type=COUNTER, labels=(),
+        help="Dispatches that reused an already-seen row shape.",
+    ),
+    "sntc_predict_padded_rows_total": dict(
+        type=COUNTER, labels=(),
+        help="Wasted rows shape-bucket padding cost.",
+    ),
+    "sntc_fuse_compile_events_total": dict(
+        type=COUNTER, labels=(),
+        help="Distinct input signatures compiled across FusedSegments.",
+    ),
+    "sntc_fuse_fallbacks_total": dict(
+        type=COUNTER, labels=(),
+        help="FusedSegment eager fallbacks (empty frame / dtype gate).",
+    ),
+    # -- the hand-written CUDA kernels (kernels/) ----------------------------
+    "sntc_kernel_dispatch_total": dict(
+        type=COUNTER, labels=("kernel", "impl"),
+        help="Hand-written kernel calls by kernel name and "
+        "implementation (cuda: a launch on the card; plain: the "
+        "wrapper's plain PyTorch version on CPU tensors).",
     ),
     # -- the closed-loop SLO controller (serve/controller) -------------------
     "sntc_ctl_windows_total": dict(

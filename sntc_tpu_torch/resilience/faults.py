@@ -135,6 +135,7 @@ SITES = (
     "source.parse",
     "ckpt.save",
     "ckpt.load",
+    "collective.dispatch",
     "cv.fit",
     "model.publish",
     "model.swap",
@@ -151,6 +152,12 @@ SITES = (
     "flow.state_snapshot",
     "ingress.recv",
     "ingress.spool",
+    # the mesh substrate: ``mesh.resize`` fires inside the collective
+    # layer's elastic response, after a ``device_lost`` is classified but
+    # before the data axis shrinks and the batch is placed again on the
+    # survivors; arming it exercises a resize that itself fails (the
+    # double fault reaches the caller)
+    "mesh.resize",
     # the fleet's coordination boundaries: before a worker renews its
     # lease, before the coordinator publishes an assignment epoch, and
     # before each file of a tenant tree's migration ship

@@ -16,7 +16,9 @@ batch equal the unpadded ones.  The padding runs through the
 ``pad_assemble`` kernel on the predictor's device.  ``compile_events``
 counts the distinct dispatched row shapes, as the JAX package's
 predictor does (there each one is an XLA compile; here it is the shape
-ledger the two packages are compared on).
+ledger the two packages are compared on).  The ledger is mirrored into
+``sntc_predict_compile_events_total``, ``..._bucket_hits_total`` and
+``..._padded_rows_total``.
 
 **Row admission** (``row_valid``, the salvage mask of a
 ``data.schema.SchemaContract``; True = admitted): excised rows ride
@@ -68,6 +70,7 @@ import numpy as np
 from sntc_tpu_torch.core.base import Transformer
 from sntc_tpu_torch.core.frame import Frame, to_host
 from sntc_tpu_torch.device import resolve_device
+from sntc_tpu_torch.obs.metrics import inc
 from sntc_tpu_torch.obs.trace import span
 from sntc_tpu_torch.resilience.device import (
     DeviceExecError,
@@ -146,12 +149,19 @@ class BatchPredictor:
         return old
 
     def _record_shape(self, n_rows: int, padded: int = 0) -> None:
-        if n_rows in self._shapes_seen:
-            self.bucket_hits += 1
-        else:
+        fresh = n_rows not in self._shapes_seen
+        if fresh:
             self._shapes_seen.add(n_rows)
             self.compile_events += 1
+        else:
+            self.bucket_hits += 1
         self.padded_rows_total += padded
+        # the sntc_predict_* series mirror the attributes, which stay
+        # the views the daemon's recompiles_after_warmup() reads
+        inc("sntc_predict_compile_events_total" if fresh
+            else "sntc_predict_bucket_hits_total")
+        if padded:
+            inc("sntc_predict_padded_rows_total", padded)
 
     @staticmethod
     def _plain(n: int, target: int, row_valid) -> bool:

@@ -9,13 +9,25 @@ room of the files after it (``test_torch_obs.py``
 ``own_jax_registry`` to have it apply to each of its tests.
 """
 
+import contextlib
+
 import pytest
 
 import sntc_tpu.obs.metrics as jax_metrics
 
 
+@contextlib.contextmanager
+def jax_registry_of_its_own():
+    """A fresh JAX metrics registry as the process default while the
+    block runs (yielded); the one before it is put back after."""
+    prev = jax_metrics.set_registry(jax_metrics.MetricsRegistry())
+    try:
+        yield jax_metrics.registry()
+    finally:
+        jax_metrics.set_registry(prev)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def own_jax_registry():
-    prev = jax_metrics.set_registry(jax_metrics.MetricsRegistry())
-    yield
-    jax_metrics.set_registry(prev)
+    with jax_registry_of_its_own():
+        yield

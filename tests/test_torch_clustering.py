@@ -53,6 +53,7 @@ from sntc_tpu_torch.models import (
     PowerIterationClustering,
 )
 from sntc_tpu_torch.models.pic import power_iterate
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

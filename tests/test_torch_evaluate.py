@@ -49,6 +49,7 @@ from sntc_tpu_torch.evaluation.multiclass import METRIC_NAMES
 from sntc_tpu_torch.fuse import FusedSegment
 from sntc_tpu_torch.mlio import load_model
 from sntc_tpu_torch.models import LinearSVCModel, NaiveBayesModel
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -72,6 +72,7 @@ from sntc_tpu_torch.fuse import compile_pipeline, fused_segments
 from sntc_tpu_torch.fuse.registry import F32_ONLY, F64, device_plan_for
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.serve import BatchPredictor
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -84,6 +84,7 @@ from sntc_tpu_torch.fuse import compile_pipeline, fused_segments
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import LogisticRegression
 from sntc_tpu_torch.serve import BatchPredictor
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 F = 12
 CUDA = torch.cuda.is_available()

@@ -59,6 +59,7 @@ from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import RandomForestClassifier
 from sntc_tpu_torch.models.tree import grower
 from sntc_tpu_torch.ops.binning import bin_features, quantile_bin_edges
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

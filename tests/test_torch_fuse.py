@@ -68,6 +68,7 @@ from sntc_tpu_torch.utils.profiling import (
     ledger_scope,
     transfer_ledger,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -55,6 +55,7 @@ from sntc_tpu_torch.models import (
     OneVsRest,
     OneVsRestModel,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -43,6 +43,7 @@ from sntc_tpu_torch.models.mlp import MultilayerPerceptronClassificationModel
 from sntc_tpu_torch.models.naive_bayes import NaiveBayes
 from sntc_tpu_torch.serve import BatchPredictor
 from sntc_tpu_torch.utils.profiling import TransferLedger, ledger_scope
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 D = 7
 # each head's HOST_SERVE_ROWS, set from the H100 readings

@@ -60,6 +60,7 @@ from sntc_tpu_torch.serve import (
     MemorySource,
     StreamingQuery,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

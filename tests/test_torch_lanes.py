@@ -51,6 +51,7 @@ from sntc_tpu.models import LogisticRegression as JLR
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.models import LogisticRegression
 from sntc_tpu_torch.ops.lbfgs import minimize_lbfgs, minimize_lbfgs_lanes
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import ALS, LDA, ALSModel, LDAModel
 from sntc_tpu_torch.models.als import solve_all, solve_all_nnls
 from sntc_tpu_torch.models.lda import e_step, gamma0
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -66,6 +66,7 @@ from sntc_tpu_torch.models import (
 )
 from sntc_tpu_torch.models.linear_svc import svc_loss
 from sntc_tpu_torch.models.one_vs_rest import _build_fused_ovr
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,7 @@ from sntc_tpu_torch.models import (
     RandomForestClassificationModel,
     from_numpy_forest,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

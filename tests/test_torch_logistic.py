@@ -54,6 +54,7 @@ from sntc_tpu_torch.evaluation import BinaryClassificationEvaluator
 from sntc_tpu_torch.evaluation.binary import area_under_pr, area_under_roc
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import LogisticRegression, LogisticRegressionModel
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ import sntc_tpu_torch.feature as feature
 import sntc_tpu_torch.models as models
 from sntc_tpu_torch.core.frame import Frame, object_column
 from sntc_tpu_torch.mlio import load_model
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 #: JAX names with no counterpart in the port, never to be ported
 NEVER_PORTED: set = set()

@@ -53,6 +53,7 @@ import sntc_tpu_torch.resilience as R
 from sntc_tpu.core.frame import Frame as JFrame
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.parallel import default_mesh, set_collective_domain
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 SIZES = (1, 2, 4, 8)
 MOMENT_TOL = 1e-5

@@ -48,6 +48,7 @@ from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.obs.metrics import registry
 from sntc_tpu_torch.parallel import default_mesh, set_collective_domain
 from sntc_tpu_torch.parallel.mesh import DATA_AXIS
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -56,6 +56,7 @@ from sntc_tpu_torch.models import (
 )
 from sntc_tpu_torch.models.mlp import glorot_init
 from sntc_tpu_torch.serve import BatchPredictor
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from sntc_tpu.models import NaiveBayes as JNaiveBayes
 from sntc_tpu_torch.core.frame import Frame
 from sntc_tpu_torch.mlio import load_model, save_model
 from sntc_tpu_torch.models import NaiveBayes, NaiveBayesModel
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

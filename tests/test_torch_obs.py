@@ -61,6 +61,7 @@ from sntc_tpu_torch.obs.metrics import MetricsRegistry
 from sntc_tpu_torch.obs.trace import SpanTracer
 from sntc_tpu_torch.serve import BatchPredictor
 from sntc_tpu_torch.utils.logging import MetricsLogger
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 H100 = "NVIDIA H100 80GB HBM3"  # torch.cuda.get_device_name of the H100
 
@@ -111,11 +112,15 @@ def test_set_registry_swaps_the_process_default():
 def test_catalog_entries_shared_with_the_jax_package():
     """Every name the port declares is a JAX name with the same type,
     labels and buckets; the help is the JAX text but where the port's
-    device fault domain differs (no host fallback)."""
+    device fault domain differs (no host fallback), and where the JAX
+    text names XLA or Pallas (the predictor's shape ledger, the kernel
+    calls)."""
     from sntc_tpu.obs.metrics import CATALOG as JCATALOG
 
     differs = {"sntc_device_state", "sntc_device_faults_total",
-               "sntc_device_oom_splits_total"}
+               "sntc_device_oom_splits_total",
+               "sntc_predict_compile_events_total",
+               "sntc_kernel_dispatch_total"}
     for name, spec in obs.CATALOG.items():
         j = JCATALOG[name]
         for key in ("type", "labels", "buckets"):
@@ -331,6 +336,9 @@ def test_serve_command_writes_metrics_trace_and_device_trace(tmp_path,
                         str(watch / f"part_{i:04d}.csv"))
     paths = [str(tmp_path / "m.prom"), str(tmp_path / "t.json"),
              str(tmp_path / "dev")]
+    # the command counts into the process registry: a fresh one, so the
+    # series read below are this run's alone
+    prev = obs.set_registry(MetricsRegistry())
     try:
         rc = main(["serve", "--model", str(tmp_path / "m"), "--watch",
                    str(watch), "--out", str(tmp_path / "out"),
@@ -340,6 +348,7 @@ def test_serve_command_writes_metrics_trace_and_device_trace(tmp_path,
                    "--trace-out", paths[1], "--device-trace", paths[2]])
     finally:
         obs.disable_tracing()
+        obs.set_registry(prev)
     assert rc == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["batches"] == 3
@@ -355,8 +364,141 @@ def test_serve_command_writes_metrics_trace_and_device_trace(tmp_path,
                  "stream.commit"):
         assert names.count(span) == 3, span
     assert names.count("predict.bucket") == 2  # 144 and 200 rows pad
+    assert names.count("ingest.parse") == 3  # one a file read
+    samples = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                   if line and not line.startswith("#"))
+    stats = summary["pipeline_stats"]
+    assert (stats["compile_events"], stats["bucket_hits"],
+            stats["padded_rows_total"]) == (1, 2, 112 + 56)
+    for counter, name in (("compile_events", "compile_events_total"),
+                          ("bucket_hits", "bucket_hits_total"),
+                          ("padded_rows_total", "padded_rows_total")):
+        assert float(samples[f"sntc_predict_{name}"]) == stats[counter]
+    assert float(samples["sntc_fuse_compile_events_total"]) \
+        == summary["fusion"]["compile_events"]
+    assert float(samples['sntc_kernel_dispatch_total{impl="plain",'
+                         'kernel="pad_assemble"}']) == 2
     dev = json.load(open(os.path.join(paths[2], "device_trace.json")))
     assert dev["traceEvents"]
+
+
+def _counting(monkeypatch, module, name, counts, key):
+    """Wrap ``module.name`` (a plain version) to count its calls."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        counts[key] = counts.get(key, 0) + 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+def test_serve_series_mirror_the_predictor_and_the_segment(monkeypatch):
+    """A fused serve through a bucketed predictor counts the three
+    ``sntc_predict_*`` series as the predictor's own ``compile_events``,
+    ``bucket_hits`` and ``padded_rows_total``, the two ``sntc_fuse_*``
+    series as the segments' ``compile_events`` and ``fallbacks`` (an
+    empty batch serves eagerly), and one
+    ``sntc_kernel_dispatch_total{kernel="pad_assemble", impl="plain"}``
+    a plain pad on CPU tensors."""
+    from sntc_tpu_torch.kernels import assemble
+
+    frame, pm = _c6(seed=3)
+    fused = compile_pipeline(pm)
+    calls = {}
+    _counting(monkeypatch, assemble, "pad_rows_reference", calls, "pad")
+    prev = obs.set_registry(MetricsRegistry())
+    try:
+        pred = BatchPredictor(fused, bucket_rows=256, device="cpu")
+        for a, b in [(0, 144), (144, 400), (400, 600), (0, 256), (0, 0)]:
+            pred.predict_frame(frame.slice(a, b))
+        reg = obs.registry()
+    finally:
+        obs.set_registry(prev)
+    assert (pred.compile_events, pred.bucket_hits,
+            pred.padded_rows_total) == (2, 3, 112 + 56)
+    assert reg.get("sntc_predict_compile_events_total") \
+        == pred.compile_events
+    assert reg.get("sntc_predict_bucket_hits_total") == pred.bucket_hits
+    assert reg.get("sntc_predict_padded_rows_total") \
+        == pred.padded_rows_total
+    stats = fusion_stats(fused)
+    assert stats["compile_events"] >= 1 and stats["fallbacks"] == 1
+    assert reg.get("sntc_fuse_compile_events_total") \
+        == stats["compile_events"]
+    assert reg.get("sntc_fuse_fallbacks_total") == stats["fallbacks"]
+    assert calls["pad"] == 2
+    assert reg.get("sntc_kernel_dispatch_total", kernel="pad_assemble",
+                   impl="plain") == calls["pad"]
+    assert reg.get("sntc_kernel_dispatch_total", kernel="pad_assemble",
+                   impl="cuda") is None
+
+
+def test_forest_fit_and_serve_count_plain_kernel_calls(monkeypatch):
+    """A forest fit and a bucketed serve on CPU tensors count each plain
+    version's calls into ``sntc_kernel_dispatch_total{impl="plain"}``
+    under the kernel's ``LAUNCHES`` name, and no ``impl="cuda"``."""
+    from sntc_tpu_torch.kernels import LAUNCHES, assemble, forest, histogram
+    from sntc_tpu_torch.models import RandomForestClassifier
+
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(400, 6)).astype(np.float32)
+    y = ((X[:, 0] > 0) * 2 + (X[:, 3] > 0.2)).astype(np.float64)
+    calls = {}
+    _counting(monkeypatch, histogram, "tree_hist_reference", calls,
+              "tree_hist")
+    _counting(monkeypatch, forest, "forest_leaf_stats_reference", calls,
+              "forest_traversal")
+    _counting(monkeypatch, assemble, "pad_rows_reference", calls,
+              "pad_assemble")
+    prev = obs.set_registry(MetricsRegistry())
+    try:
+        model = RandomForestClassifier(device="cpu", numTrees=3,
+                                       maxDepth=3, seed=0).fit(
+            Frame({"features": X, "label": y}))
+        pred = BatchPredictor(model, bucket_rows=256, device="cpu")
+        pred.predict_frame(Frame({"features": X[:300]}))  # pads to 512
+        reg = obs.registry()
+    finally:
+        obs.set_registry(prev)
+    assert set(calls) == set(LAUNCHES)
+    for kernel, n in calls.items():
+        assert n >= 1, kernel
+        assert reg.get("sntc_kernel_dispatch_total", kernel=kernel,
+                       impl="plain") == n, kernel
+        assert reg.get("sntc_kernel_dispatch_total", kernel=kernel,
+                       impl="cuda") is None, kernel
+
+
+def test_train_trace_spans_the_load_and_each_parse(tmp_path):
+    """``train --trace-out`` writes one ``train.load_data`` span around
+    the load and one ``ingest.parse`` span per CSV, named by its file,
+    inside it, as the JAX command does."""
+    from sntc_tpu_torch.app import main
+    from sntc_tpu_torch.data import generate_frame, write_raw_csv
+
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(3):
+        write_raw_csv(generate_frame(400, seed=20 + i, dirty=False),
+                      str(data / f"day_{i}.csv"))
+    trace = str(tmp_path / "t.json")
+    try:
+        rc = main(["train", "--data", str(data), "--estimator", "nb",
+                   "--device", "cpu", "--trace-out", trace])
+    finally:
+        obs.disable_tracing()
+    assert rc == 0
+    spans = [e for e in json.load(open(trace))["traceEvents"]
+             if e["ph"] == "X"]
+    load = [e for e in spans if e["name"] == "train.load_data"]
+    parses = [e for e in spans if e["name"] == "ingest.parse"]
+    assert len(load) == 1
+    assert sorted(e["args"]["file"] for e in parses) == [
+        f"day_{i}.csv" for i in range(3)]
+    start, end = load[0]["ts"], load[0]["ts"] + load[0]["dur"]
+    for e in parses:
+        assert start <= e["ts"] and e["ts"] + e["dur"] <= end
 
 
 def test_train_writes_metrics_and_trace_when_it_fails(tmp_path):
@@ -523,3 +665,24 @@ def test_a_65th_event_label_set_counts_into_overflow(pkg):
         assert reg.label_overflows() == 1
     finally:
         m.set_registry(prev)
+
+
+def test_the_jax_registry_guard_leaves_the_registry_it_found():
+    """A JAX event emitted under ``jax_registry_of_its_own`` (what
+    ``own_jax_registry`` runs around a module) counts into the guard's
+    registry; the registry in place before is put back unchanged."""
+    import sntc_tpu.obs.metrics as jm
+    from jax_metrics_guard import jax_registry_of_its_own
+    from sntc_tpu.obs import install_event_metrics
+    from sntc_tpu.resilience import emit_event
+
+    install_event_metrics()
+    outer = jm.registry()
+    before = outer.to_prometheus()
+    with jax_registry_of_its_own() as mine:
+        assert jm.registry() is mine and mine is not outer
+        emit_event(event="retry", site="tenant/guard/sink.write", attempt=1)
+        assert mine.get("sntc_events_total", event="retry",
+                        site="sink.write", tenant="guard") == 1
+    assert jm.registry() is outer
+    assert outer.to_prometheus() == before

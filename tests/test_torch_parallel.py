@@ -38,6 +38,7 @@ from sntc_tpu_torch.parallel.mesh import (
     payload_nbytes,
     reduce_at,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 MESH_SIZES = (1, 2, 4, 8)
 F32_TOL = 1e-5

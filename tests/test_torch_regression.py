@@ -70,6 +70,7 @@ from sntc_tpu_torch.models import (
 )
 from sntc_tpu_torch.models.fm import adam_update
 from sntc_tpu_torch.models.glm import _aic
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

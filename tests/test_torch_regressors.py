@@ -69,6 +69,7 @@ from sntc_tpu_torch.models.summary import (
     BinaryClassificationTrainingSummary,
     ClassificationTrainingSummary,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

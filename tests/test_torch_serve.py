@@ -34,6 +34,7 @@ from sntc_tpu_torch.data import generate_frame, load_csv, write_raw_csv
 from sntc_tpu_torch.kernels import LAUNCHES
 from sntc_tpu_torch.mlio import load_model
 from sntc_tpu_torch.serve import BatchPredictor, bucket_rows_for
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

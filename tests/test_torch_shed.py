@@ -53,6 +53,7 @@ from sntc_tpu_torch.serve import (
     MemorySource,
     StreamingQuery,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -57,6 +57,7 @@ from sntc_tpu_torch.serve import (
     FileStreamSource,
     StreamingQuery,
 )
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -49,6 +49,7 @@ from sntc_tpu_torch.feature import (
     Tokenizer,
 )
 from sntc_tpu_torch.feature.text import _spark_bucket, doc_freq, murmur3_32
+from jax_metrics_guard import own_jax_registry  # noqa: F401
 
 WORDS = ("The", "flow", "SYN", "syn", "from", "host", "a", "to", "scan",
          "benign", "ATTACK", "port", "22", "443", "udp", "is", "an", "of",
